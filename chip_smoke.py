@@ -1,0 +1,408 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+Builds the port's CUDA kernels from src/repro_torch/csrc, holds each kernel
+against its plain PyTorch version on the card at the full-width SmolLM2-135M
+shapes of the serving path (float32 and bfloat16) and times both, then
+serves full-width SmolLM2-135M (random weights from a seed) through the
+flat step:
+
+  1. the card (nvidia-smi name and power limit); TF32 off;
+  2. the kernel build and its seconds;
+  3. per kernel: max abs error against the plain version, with its
+     tolerance (exceeding it raises);
+  4. float32 end to end: a greedy drain of 4 requests on the card and on the
+     CPU (plain versions), same weights and prompts: identical tokens;
+  5. bfloat16 end to end: Engine(max_slots=4, chunk_tokens=128,
+     page_tokens=16), seq_len 1024, warmup, then 8 requests (prompts 64-512
+     tokens, 32 new each) with the kernel launch counts read around the drain;
+  6. the kernels JSON line, then the result line.
+
+Usage:  python3 chip_smoke.py [--out results.json]
+Exits non-zero, printing no result, without a CUDA card or without the
+repository's src/ beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+TF = torch.float32
+BF = torch.bfloat16
+EXPECTED_PER_STEP = {"mmt4d": 30 * 7 + 1, "pack": 1 + 30 + 1 + 1,
+                     "unpack": 30 * 3 + 1 + 1, "ragged_attn": 30}
+SOURCES = {
+    "mmt4d": ("src/repro_torch/csrc/mmt4d.cu", "src/repro/kernels/mmt4d/kernel.py:113"),
+    "pack": ("src/repro_torch/csrc/pack.cu", "src/repro/kernels/pack/kernel.py:46"),
+    "unpack": ("src/repro_torch/csrc/unpack.cu", "src/repro/kernels/unpack/kernel.py:31"),
+    "ragged_attn": ("src/repro_torch/csrc/ragged_attn.cu",
+                    "src/repro/kernels/ragged_attn/kernel.py:109"),
+}
+# the case each kernel's headline numbers come from (bfloat16, the default
+# RunConfig): the shape that carries most of its time in the drain
+REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
+                  "unpack": "Q exit decode", "ragged_attn": "decode rows"}
+# max |kernel - plain| <= TOL * max(1, max |plain|): float32 sums in another
+# order; bfloat16 may round the float32 result to a neighbouring value
+TOL = {TF: 1e-4, BF: 2e-2}
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+_SPIN_CYCLES_PER_MS: list = []
+
+
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card,
+    measured once."""
+    if not _SPIN_CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, after
+    warm-up (CUDA events).  A spin kernel holds the stream while the host
+    queues every call, so a call shorter than its host-side launch cost
+    is timed on the device and not at the host's launch rate.  The spin
+    lasts four times the host's measured time to queue the calls; should
+    it still end first, the timing is refused and retried once with a
+    spin twice as long."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    spin_ms = max(20.0, 4 * queue_ms)
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters
+        spin_ms *= 2
+    raise AssertionError("the spin kernel ended before the host had queued "
+                         "every call, twice: the timing would be the host's")
+
+
+class KernelChecks:
+    """Kernel vs plain version at the serving path's shapes, timed."""
+
+    def __init__(self, hw, gen):
+        self.hw, self.gen = hw, gen
+        self.cases = {name: [] for name in SOURCES}
+
+    def rand(self, shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=self.gen, device="cuda") * scale).to(dtype)
+
+    def bound(self, nbytes: int, flops: int, dtype) -> tuple[float, str]:
+        t_bytes = nbytes / self.hw.hbm_bw
+        t_ops = flops / self.hw.peak_flops(dtype)
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    def record(self, name, label, dtype, kernel, plain, library, nbytes, flops,
+               exact=False, select=lambda t: t):
+        """Compare ``select`` of the two results (the positions the caller
+        keeps), then time the bare calls."""
+        got, want = select(kernel()), select(plain())
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        tol = 0.0 if exact else TOL[dtype] * scale
+        ok = err <= tol and bool(torch.isfinite(got.float()).all())
+        print(f"  {name:<11} {label:<44} {str(dtype)[6:]:<8} max_abs_err "
+              f"{err:.3e} (tolerance {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {label} {dtype}: error {err} > {tol}")
+        bound_ms, bound_by = self.bound(nbytes, flops, dtype)
+        self.cases[name].append({
+            "shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
+            "kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "library_ms": None if library is None else time_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+
+    def mmt4d(self, dtype, w_tokens, k, n, act, label):
+        from repro_torch.core import packing
+        from repro_torch.core.layout import make_layout
+        from repro_torch.kernels.mmt4d.ops import mmt4d
+        from repro_torch.kernels.mmt4d.ref import mmt4d_ref
+        lay = make_layout("scalable", self.hw, dtype)
+        x = self.rand((w_tokens, k), dtype)
+        w = self.rand((k, n), dtype, k ** -0.5)
+        ap, bp = packing.pack_lhs(x, lay), packing.pack_rhs(w, lay)
+        out = mmt4d(ap, bp, activation=act)
+        es = dtype.itemsize
+        self.record("mmt4d", f"{label} A{tuple(ap.shape)} B{tuple(bp.shape)}", dtype,
+                    lambda: mmt4d(ap, bp, activation=act),
+                    lambda: mmt4d_ref(ap, bp, activation=act),
+                    lambda: torch.matmul(x, w),
+                    (ap.numel() + bp.numel() + out.numel()) * es,
+                    2 * ap.shape[0] * lay.m_r * bp.shape[0] * lay.n_r
+                    * ap.shape[1] * lay.k_r)
+
+    def pack(self, dtype, x, t0, t1, label):
+        import torch.nn.functional as F
+        from repro_torch.kernels.pack.ops import pack
+        from repro_torch.kernels.pack.ref import pack_ref
+        m, k = x.shape[-2:]
+        mo, ko = -(-m // t0), -(-k // t1)
+
+        def library():
+            xp = F.pad(x, (0, ko * t1 - k, 0, mo * t0 - m))
+            return xp.reshape(*x.shape[:-2], mo, t0, ko, t1).transpose(-3, -2).contiguous()
+
+        out = pack(x, t0, t1)
+        self.record("pack", f"{label} {tuple(x.shape)}->{tuple(out.shape)}", dtype,
+                    lambda: pack(x, t0, t1), lambda: pack_ref(x, t0, t1), library,
+                    (x.numel() + out.numel()) * dtype.itemsize, 0, exact=True)
+
+    def unpack(self, dtype, m, k, t0, t1, label):
+        from repro_torch.kernels.pack.ops import pack
+        from repro_torch.kernels.unpack.ops import unpack
+        from repro_torch.kernels.unpack.ref import unpack_ref
+        ap = pack(self.rand((1, m, k), dtype), t0, t1)
+        self.record("unpack", f"{label} {tuple(ap.shape)}->(1, {m}, {k})", dtype,
+                    lambda: unpack(ap, m, k), lambda: unpack_ref(ap, m, k), None,
+                    (ap.numel() + m * k) * dtype.itemsize, 0, exact=True)
+
+    def ragged(self, dtype, segments, width, label, pages=257, t=16, mp=64,
+               hq=9, hkv=3, dh=64):
+        """``segments``: [(row, first_pos, n)] laid out back to back in a
+        stream of ``width`` positions (the rest padding)."""
+        from repro_torch.kernels.ragged_attn.ops import ragged_attention
+        from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
+        rng = np.random.default_rng(len(segments) + width)
+        bt = (rng.permutation(pages - 1)[:4 * mp] + 1).astype(np.int32).reshape(4, mp)
+        row_ids = np.full(width, -1, np.int32)
+        q_pos = np.zeros(width, np.int32)
+        pos, need = 0, {}
+        for row, first, n in segments:
+            row_ids[pos:pos + n] = row
+            q_pos[pos:pos + n] = first + np.arange(n)
+            need[row] = max(need.get(row, 0), first + n)
+            pos += n
+        kp = self.rand((pages, t, hkv, dh), dtype)
+        vp = self.rand((pages, t, hkv, dh), dtype)
+        q = self.rand((width, hq, dh), dtype)
+        args = dict(block_tables=torch.from_numpy(bt).cuda(),
+                    row_ids=torch.from_numpy(row_ids).cuda(),
+                    q_pos=torch.from_numpy(q_pos).cuda())
+        valid = torch.from_numpy(row_ids >= 0).cuda()
+        es = dtype.itemsize
+        page_bytes = t * hkv * dh * es * 2                       # K and V
+        kv_pages = sum(-(-n // t) for n in need.values())
+        pad_pages = 1 if (row_ids < 0).any() else 0              # row 0's page 0
+        flops = sum(4 * hq * dh * (int(p) + 1) for p in q_pos[row_ids >= 0])
+        self.record("ragged_attn", f"{label} W={width} segs={len(segments)}", dtype,
+                    lambda: ragged_attention(q, kp, vp, **args),
+                    lambda: ragged_attention_ref(q, kp, vp, **args), None,
+                    2 * q.numel() * es + (kv_pages + pad_pages) * page_bytes
+                    + 3 * width * 4 + bt.nbytes, flops,
+                    select=lambda t: t[valid])   # padding rows carry garbage
+
+    def run(self):
+        from repro_torch.core.layout import make_layout
+        e = self.rand((49152, 576), BF, 0.02)
+        for dtype in (BF, TF):
+            lay = make_layout("scalable", self.hw, dtype)
+            m_r = lay.m_r
+            dec, pre = 16 if dtype is BF else 8, 512
+            self.mmt4d(dtype, dec, 576, 1536, "silu", "gate decode")
+            self.mmt4d(dtype, dec, 576, 576, None, "q/o decode")
+            self.mmt4d(dtype, dec, 576, 192, None, "k/v decode")
+            self.mmt4d(dtype, dec, 1536, 576, None, "down decode")
+            self.mmt4d(dtype, 4, 576, 49152, None, "tied head")
+            self.mmt4d(dtype, pre, 576, 1536, "silu", "gate prefill")
+            self.pack(dtype, self.rand((1, dec, 576), dtype), m_r, 128, "stream entry")
+            self.pack(dtype, self.rand((1, pre, 576), dtype), m_r, 128, "O-linear input")
+            self.pack(dtype, e.to(dtype), 128, 128, "tied head embed")
+            self.pack(dtype, self.rand((576, 1536), dtype).T, 128, 128, "prepack w^T")
+            self.unpack(dtype, dec, 576, m_r, 128, "Q exit decode")
+            self.unpack(dtype, pre, 576, m_r, 128, "Q exit prefill")
+            self.unpack(dtype, 4, 49152, m_r, 128, "logits")
+            self.ragged(dtype, [(0, 300, 1), (1, 511, 1), (2, 95, 1), (3, 1000, 1)],
+                        dec, "decode rows")
+            self.ragged(dtype, [(0, 600, 1), (1, 64, 1), (2, 0, 300), (3, 128, 206)],
+                        pre, "mixed prefill")
+
+
+def serve_f32(device, cfg, prompts):
+    """Greedy drain at full width in float32; returns tokens, the first
+    step's logits and each pick's top-2 margin, in pick order."""
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    run = RunConfig(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg, run, ShapeSpec("serve", 64, 4, "decode"), device=device)
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = Engine(model, params, device=device, max_slots=4, chunk_tokens=32,
+                 page_tokens=16)
+    steps, picks = [], []
+    run_flat, pick = eng._run_flat, eng._pick
+    eng._run_flat = lambda *a: steps.append(run_flat(*a)) or steps[-1]
+
+    def recording_pick(row, greedy):
+        top2 = np.sort(row)[-2:]
+        picks.append((int(np.argmax(row)), float(top2[1] - top2[0])))
+        return pick(row, greedy)
+
+    eng._pick = recording_pick
+    rids = [eng.add_request(p, 8) for p in prompts]
+    fin = {r.rid: r.out_tokens for r in eng.drain()}
+    return [fin[r] for r in rids], steps[0], picks
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None, help="also write the results here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.core.hardware import query
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+
+    t_start = time.perf_counter()
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("tf32: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False")
+
+    t0 = time.perf_counter()
+    build.load_library()
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s, "
+          f"sm_90a, one nvcc per source)")
+
+    hw = query("cuda")
+    print(f"hardware: {hw.device_name}, {hw.sm_count} SMs, HBM {hw.hbm_bw / 1e12:.2f} TB/s, "
+          f"bf16 {hw.flops_bf16 / 1e12:.0f} TFLOP/s, f32 {hw.flops_f32 / 1e12:.0f} TFLOP/s")
+    print("kernels vs plain versions on the card:")
+    checks = KernelChecks(hw, torch.Generator(device="cuda").manual_seed(0))
+    checks.run()
+
+    cfg = get_config("smollm2-135m")
+    print("end to end, float32: 4 requests x 8 new tokens, card vs CPU plain path")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 4)]
+    t0 = time.perf_counter()
+    cuda_toks, cuda_first, cuda_picks = serve_f32("cuda", cfg, prompts)
+    cpu_toks, cpu_first, cpu_picks = serve_f32("cpu", cfg, prompts)
+    print(f"  first step max |logit diff| {np.abs(cuda_first - cpu_first).max():.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for j, (a, b) in enumerate(zip(cuda_picks, cpu_picks)):
+        if a[0] != b[0]:
+            print(f"  pick {j}: card {a[0]} (top-2 margin {a[1]:.3e}) vs cpu "
+                  f"{b[0]} (top-2 margin {b[1]:.3e})")
+            break
+    if cuda_toks != cpu_toks:
+        raise AssertionError(f"greedy tokens differ: card {cuda_toks} cpu {cpu_toks}")
+    print(f"  greedy tokens identical: {cuda_toks}")
+
+    print("end to end, bfloat16: Engine(max_slots=4, chunk_tokens=128, page_tokens=16), "
+          "seq_len 1024, 8 requests x 32 new tokens")
+    model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, 4, "decode"),
+                        device="cuda")
+    eng = Engine(model, model.init(torch.Generator().manual_seed(0)), device="cuda",
+                 max_slots=4, chunk_tokens=128, page_tokens=16)
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    print(f"  warmup {time.perf_counter() - t0:.2f} s over widths {eng._flat_shapes()}")
+    finite = []
+    run_flat = eng._run_flat
+    eng._run_flat = lambda *a: finite.append(np.isfinite(r := run_flat(*a)).all()) or r
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, 8)
+    rids = [eng.add_request(rng.integers(0, cfg.vocab, int(n)), 32) for n in lens]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    finished = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    steps = st["flat"]["steps"]
+    ntok = sum(len(r.out_tokens) for r in finished)
+    print(f"  {steps} steps, {wall:.3f} s wall, {ntok} tokens generated, "
+          f"{ntok / wall:.1f} generated tokens/s, prompts {lens.tolist()} "
+          f"({card})")
+    print(f"  launches {launches}, per step "
+          f"{ {k: v / steps for k, v in launches.items()} }")
+    if sorted(r.rid for r in finished) != sorted(rids) \
+            or any(r.finish_reason != "length" or len(r.out_tokens) != 32
+                   for r in finished):
+        raise AssertionError(f"not every request finished: "
+                             f"{[(r.rid, r.finish_reason) for r in finished]}")
+    if eng.pool.num_used != 0 or not all(finite):
+        raise AssertionError(f"pool used {eng.pool.num_used}, finite {all(finite)}")
+    for k, per in EXPECTED_PER_STEP.items():
+        if launches[k] != per * steps:
+            raise AssertionError(f"{k}: {launches[k]} launches over {steps} steps, "
+                                 f"expected {per} per step")
+
+    kernel_rows = []
+    for k, cases in checks.cases.items():
+        rep = next(c for c in cases if c["dtype"] == "bfloat16"
+                   and c["shape"].startswith(REPRESENTATIVE[k]))
+        src, replaces = SOURCES[k]
+        kernel_rows.append({
+            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[k], "launches_per_step": launches[k] / steps,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": rep["shape"], "dtype": rep["dtype"], "card": card,
+            "cases": cases})
+    result = {"kernels": kernel_rows}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({**result, "card": card, "e2e_bf16": {
+                "steps": steps, "wall_s": wall, "tokens": ntok,
+                "tokens_per_s": ntok / wall, "stats": st},
+                "total_s": time.perf_counter() - t_start}, f, indent=1, default=str)
+    print(json.dumps(result))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""Serving launcher: continuous-batching generation through the flat step.
+
+Requests with mixed prompt lengths (drawn from ``--seed`` between
+``--min-prompt`` and ``--max-prompt``) each ask for ``--new`` tokens; the
+engine admits them into slots over a paged KV cache and drains them.
+Weights are random, drawn from ``--seed``.  The defaults are the drain
+that ``chip_smoke.py`` measures: 8 requests, prompts of 64-512 tokens,
+32 new tokens each, 4 slots, ``chunk_tokens=128``, seq_len 1024.
+
+Usage (on a machine with a CUDA card; ``--device cpu`` runs the kernels'
+plain versions instead):
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 8
+``--profile trace.json`` traces the drain with ``torch.profiler`` and
+prints the device time of each kernel and the device's idle share.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
+from repro_torch.models.model import build_model
+from repro_torch.serving.engine import Engine
+
+
+def _timed_drain(engine: Engine):
+    t0 = time.perf_counter()
+    finished = engine.drain()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return finished, time.perf_counter() - t0
+
+
+def _print_device_time(prof, wall: float) -> None:
+    """Device time by kernel over the traced drain, and the device's busy
+    share of its wall time (kernels run on one stream, so they do not
+    overlap)."""
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    print(f"[profile] wall {wall:.6f} s, device busy {busy:.6f} s "
+          f"({100 * busy / wall:.2f}%), idle {100 * (1 - busy / wall):.2f}%")
+    for e in rows[:12]:
+        t = e.self_device_time_total / 1e6
+        print(f"[profile] {t:.6f} s {100 * t / wall:6.2f}% of wall "
+              f"{e.count:>7} calls  {e.key[:90]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm2-135m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--min-prompt", type=int, default=64)
+    ap.add_argument("--max-prompt", type=int, default=512)
+    ap.add_argument("--new", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=1024)
+    ap.add_argument("--page-tokens", type=int, default=16)
+    ap.add_argument("--chunk-tokens", type=int, default=128)
+    ap.add_argument("--pool-pages", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", default=None, metavar="TRACE_JSON",
+                    help="trace the drain with torch.profiler, write the "
+                         "Chrome trace here and print device time by kernel")
+    args = ap.parse_args(argv)
+    if args.profile and args.device != "cuda":
+        ap.error("--profile measures the card's device time: it needs "
+                 "--device cuda")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    run = RunConfig(param_dtype=args.dtype, compute_dtype=args.dtype)
+    model = build_model(cfg, run, ShapeSpec("serve", args.max_len, args.slots,
+                                            "decode"), device=args.device)
+    params = model.init(torch.Generator().manual_seed(args.seed))
+    engine = Engine(model, params, device=args.device, max_slots=args.slots,
+                    page_tokens=args.page_tokens, num_pages=args.pool_pages,
+                    chunk_tokens=args.chunk_tokens)
+    engine.warmup()
+
+    rng = np.random.default_rng(args.seed)
+    for plen in rng.integers(args.min_prompt, args.max_prompt + 1, args.requests):
+        engine.add_request(rng.integers(0, cfg.vocab, int(plen)), args.new)
+    if args.profile:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            finished, wall = _timed_drain(engine)
+        prof.export_chrome_trace(args.profile)
+        _print_device_time(prof, wall)
+    else:
+        finished, wall = _timed_drain(engine)
+    total = sum(len(r.out_tokens) for r in finished)
+    print(f"[serve] {cfg.name} on {engine.device}: {len(finished)} requests, "
+          f"{total} tokens in {wall:.6f} s ({total / wall:.4f} tokens/s), "
+          f"{engine.stats()['steps']} steps "
+          f"(paged KV: {engine.pool.page_tokens} tok/page, "
+          f"{engine.pool.num_pages} pages, peak {engine.pool.peak_used} used, "
+          f"{engine.num_preemptions} preemptions)")
+    for r in sorted(finished, key=lambda r: r.rid)[:8]:
+        print(f"  rid={r.rid} prompt={r.prompt_len:>3} new={len(r.out_tokens):>3} "
+              f"[{r.finish_reason}] {r.out_tokens[:8]}")
+    return finished
+
+
+if __name__ == "__main__":
+    main()
