@@ -9,7 +9,12 @@ flat step:
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds;
   3. per kernel: max abs error against the plain version, with its
-     tolerance (exceeding it raises);
+     tolerance (exceeding it raises); mmt4d also at every width of the bf16
+     flat ladder (the gate linear), and twice, bit-identical.  mmt4d and the
+     tied-head pack are timed L2-cold: each timed call of the kernel, the
+     plain version and the library call takes the next of enough operand
+     copies to pass 64 MB (the card's L2 holds 50 MB; the drain streams
+     30 layers of weights through it every step);
   4. float32 end to end: a greedy drain of 4 requests on the card and on the
      CPU (plain versions), same weights and prompts: identical tokens;
   5. bfloat16 end to end: Engine(max_slots=4, chunk_tokens=128,
@@ -25,6 +30,7 @@ repository's src/ beside it.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -52,6 +58,20 @@ REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
 # max |kernel - plain| <= TOL * max(1, max |plain|): float32 sums in another
 # order; bfloat16 may round the float32 result to a neighbouring value
 TOL = {TF: 1e-4, BF: 2e-2}
+L2_FLUSH_BYTES = 64 * 2**20     # operand copies per cold-timed case pass this
+
+
+def cold_sets(*tensors):
+    """``tensors`` and enough copies of them to pass L2_FLUSH_BYTES."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = 1 + -(-L2_FLUSH_BYTES // nbytes)
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(copies - 1)]
+
+
+def cycle(fn, sets):
+    """A call of ``fn`` on the next set of operands, round robin."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
 
 
 def card_line() -> str:
@@ -127,7 +147,7 @@ class KernelChecks:
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     def record(self, name, label, dtype, kernel, plain, library, nbytes, flops,
-               exact=False, select=lambda t: t):
+               exact=False, select=lambda t: t, **extra):
         """Compare ``select`` of the two results (the positions the caller
         keeps), then time the bare calls."""
         got, want = select(kernel()), select(plain())
@@ -145,50 +165,64 @@ class KernelChecks:
             "shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
             "kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
             "library_ms": None if library is None else time_ms(library),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+            "bound_ms": bound_ms, "bound_by": bound_by, **extra})
 
     def mmt4d(self, dtype, w_tokens, k, n, act, label):
         from repro_torch.core import packing
         from repro_torch.core.layout import make_layout
-        from repro_torch.kernels.mmt4d.ops import mmt4d
+        from repro_torch.kernels.mmt4d.ops import mmt4d, pick_split
         from repro_torch.kernels.mmt4d.ref import mmt4d_ref
         lay = make_layout("scalable", self.hw, dtype)
         x = self.rand((w_tokens, k), dtype)
         w = self.rand((k, n), dtype, k ** -0.5)
         ap, bp = packing.pack_lhs(x, lay), packing.pack_rhs(w, lay)
         out = mmt4d(ap, bp, activation=act)
+        if not torch.equal(out, mmt4d(ap, bp, activation=act)):
+            raise AssertionError(f"mmt4d {label} {dtype}: two calls differ")
+        split = {} if dtype is TF else {"split": str(pick_split(
+            ap.shape[0], bp.shape[0], ap.shape[1], lay.m_r, lay.n_r, lay.k_r,
+            self.hw.sm_count))}
+        sets = cold_sets(ap, bp, x, w)
         es = dtype.itemsize
         self.record("mmt4d", f"{label} A{tuple(ap.shape)} B{tuple(bp.shape)}", dtype,
-                    lambda: mmt4d(ap, bp, activation=act),
-                    lambda: mmt4d_ref(ap, bp, activation=act),
-                    lambda: torch.matmul(x, w),
+                    cycle(lambda a, b, _x, _w: mmt4d(a, b, activation=act), sets),
+                    cycle(lambda a, b, _x, _w: mmt4d_ref(a, b, activation=act), sets),
+                    cycle(lambda _a, _b, xx, ww: torch.matmul(xx, ww), sets),
                     (ap.numel() + bp.numel() + out.numel()) * es,
                     2 * ap.shape[0] * lay.m_r * bp.shape[0] * lay.n_r
-                    * ap.shape[1] * lay.k_r)
+                    * ap.shape[1] * lay.k_r, copies=len(sets), **split)
 
-    def pack(self, dtype, x, t0, t1, label):
+    def pack(self, dtype, x, t0, t1, label, cold=False):
         import torch.nn.functional as F
         from repro_torch.kernels.pack.ops import pack
         from repro_torch.kernels.pack.ref import pack_ref
         m, k = x.shape[-2:]
         mo, ko = -(-m // t0), -(-k // t1)
 
-        def library():
-            xp = F.pad(x, (0, ko * t1 - k, 0, mo * t0 - m))
-            return xp.reshape(*x.shape[:-2], mo, t0, ko, t1).transpose(-3, -2).contiguous()
+        def library(xx):
+            xp = F.pad(xx, (0, ko * t1 - k, 0, mo * t0 - m))
+            return xp.reshape(*xx.shape[:-2], mo, t0, ko, t1).transpose(-3, -2).contiguous()
 
         out = pack(x, t0, t1)
+        sets = cold_sets(x) if cold else [(x,)]
         self.record("pack", f"{label} {tuple(x.shape)}->{tuple(out.shape)}", dtype,
-                    lambda: pack(x, t0, t1), lambda: pack_ref(x, t0, t1), library,
-                    (x.numel() + out.numel()) * dtype.itemsize, 0, exact=True)
+                    cycle(lambda xx: pack(xx, t0, t1), sets),
+                    cycle(lambda xx: pack_ref(xx, t0, t1), sets), cycle(library, sets),
+                    (x.numel() + out.numel()) * dtype.itemsize, 0, exact=True,
+                    copies=len(sets))
 
     def unpack(self, dtype, m, k, t0, t1, label):
         from repro_torch.kernels.pack.ops import pack
         from repro_torch.kernels.unpack.ops import unpack
         from repro_torch.kernels.unpack.ref import unpack_ref
         ap = pack(self.rand((1, m, k), dtype), t0, t1)
+        _, mo, ko, _, _ = ap.shape
+
+        def library():       # the permute/reshape/contiguous chain
+            return ap.permute(0, 1, 3, 2, 4).reshape(1, mo * t0, ko * t1)[:, :m, :k].contiguous()
+
         self.record("unpack", f"{label} {tuple(ap.shape)}->(1, {m}, {k})", dtype,
-                    lambda: unpack(ap, m, k), lambda: unpack_ref(ap, m, k), None,
+                    lambda: unpack(ap, m, k), lambda: unpack_ref(ap, m, k), library,
                     (ap.numel() + m * k) * dtype.itemsize, 0, exact=True)
 
     def ragged(self, dtype, segments, width, label, pages=257, t=16, mp=64,
@@ -226,22 +260,25 @@ class KernelChecks:
                     + 3 * width * 4 + bt.nbytes, flops,
                     select=lambda t: t[valid])   # padding rows carry garbage
 
-    def run(self):
+    def run(self, ladder):
+        """``ladder``: the bf16 engine's flat widths; the gate linear runs at
+        each (at 8 and 512 in float32)."""
         from repro_torch.core.layout import make_layout
         e = self.rand((49152, 576), BF, 0.02)
         for dtype in (BF, TF):
             lay = make_layout("scalable", self.hw, dtype)
             m_r = lay.m_r
             dec, pre = 16 if dtype is BF else 8, 512
-            self.mmt4d(dtype, dec, 576, 1536, "silu", "gate decode")
+            for w in sorted(set(ladder) | {dec} if dtype is BF else {dec, pre}):
+                self.mmt4d(dtype, w, 576, 1536, "silu",
+                           "gate decode" if w == dec else f"gate W={w}")
             self.mmt4d(dtype, dec, 576, 576, None, "q/o decode")
             self.mmt4d(dtype, dec, 576, 192, None, "k/v decode")
             self.mmt4d(dtype, dec, 1536, 576, None, "down decode")
             self.mmt4d(dtype, 4, 576, 49152, None, "tied head")
-            self.mmt4d(dtype, pre, 576, 1536, "silu", "gate prefill")
             self.pack(dtype, self.rand((1, dec, 576), dtype), m_r, 128, "stream entry")
             self.pack(dtype, self.rand((1, pre, 576), dtype), m_r, 128, "O-linear input")
-            self.pack(dtype, e.to(dtype), 128, 128, "tied head embed")
+            self.pack(dtype, e.to(dtype), 128, 128, "tied head embed", cold=True)
             self.pack(dtype, self.rand((576, 1536), dtype).T, 128, 128, "prepack w^T")
             self.unpack(dtype, dec, 576, m_r, 128, "Q exit decode")
             self.unpack(dtype, pre, 576, m_r, 128, "Q exit prefill")
@@ -312,11 +349,16 @@ def main(argv=None) -> int:
     hw = query("cuda")
     print(f"hardware: {hw.device_name}, {hw.sm_count} SMs, HBM {hw.hbm_bw / 1e12:.2f} TB/s, "
           f"bf16 {hw.flops_bf16 / 1e12:.0f} TFLOP/s, f32 {hw.flops_f32 / 1e12:.0f} TFLOP/s")
-    print("kernels vs plain versions on the card:")
-    checks = KernelChecks(hw, torch.Generator(device="cuda").manual_seed(0))
-    checks.run()
-
     cfg = get_config("smollm2-135m")
+    model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, 4, "decode"),
+                        device="cuda")
+    eng = Engine(model, model.init(torch.Generator().manual_seed(0)), device="cuda",
+                 max_slots=4, chunk_tokens=128, page_tokens=16)
+    print("kernels vs plain versions on the card (mmt4d and the tied-head pack "
+          "L2-cold):")
+    checks = KernelChecks(hw, torch.Generator(device="cuda").manual_seed(0))
+    checks.run(eng._flat_shapes())
+
     print("end to end, float32: 4 requests x 8 new tokens, card vs CPU plain path")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 4)]
@@ -336,10 +378,6 @@ def main(argv=None) -> int:
 
     print("end to end, bfloat16: Engine(max_slots=4, chunk_tokens=128, page_tokens=16), "
           "seq_len 1024, 8 requests x 32 new tokens")
-    model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, 4, "decode"),
-                        device="cuda")
-    eng = Engine(model, model.init(torch.Generator().manual_seed(0)), device="cuda",
-                 max_slots=4, chunk_tokens=128, page_tokens=16)
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()

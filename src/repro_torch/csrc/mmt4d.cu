@@ -6,26 +6,63 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/mmt4d/kernel.py:113
 // (mmt4d_kernel_call at :68, body _kernel at :43).  The TPU grid walks K_o
-// sequentially and carries the sum in a VMEM scratch tile; on the GPU the K
-// loop runs inside one block instead: one block per output tile (mo, no),
-// each K step stages the packed A and B tiles (each one contiguous run of
-// memory, which is what packing buys) in shared memory as float32, and each
-// thread keeps m_r*n_r/256 sums in registers.  B rows are padded by one
-// float in shared memory so the threads of a warp, which read 32 different
-// B rows at one k, hit 32 different banks.
+// sequentially and carries the sum in a VMEM scratch tile; GPU blocks run in
+// no order, so each block loops over its own range of K_o.
 //
-// Bound: at decode widths bytes (the weights are read once per step, M_o =
-// 1), at prefill widths operations.  This version runs on the CUDA cores in
-// float32, so it is far from either bound: a decode linear has M_o = 1 and
-// N_o = 2..12 output tiles, a handful of blocks on 132 SMs.  A later PR
-// should split K across blocks at decode widths, and use wgmma with TMA
-// loads of the packed tiles (and m_r = 64 tiles) at prefill widths.
+// Bound: bytes at every width of the serving path.  A decode linear reads
+// each weight once per step (M_o = 1); even the widest flat step (W = 512)
+// does about 225 flop per byte for the gate linear, below the H100's ridge
+// of about 295.  At decode sizes (0.1-2 MB a call) what the bound leaves is
+// the latency of a few dependent loads and MMAs, so the design keeps every
+// chain short, with the tensor cores keeping the arithmetic off it:
+//
+// - Swap-AB.  Each block computes C_tile^T[n, m] = B_tile[n, k] A_tile[m, k]^T:
+//   `rows` (16..64) weight rows fill the MMA's M, the activation tile's
+//   tm * m_r rows fill its N (8..32).  Both packed tiles are K-major with
+//   k_r contiguous, so both feed mma.sync.m16n8k16 without a transpose.
+//   mma.sync and not wgmma: every call is bound by bytes and the activation
+//   operand is 8-32 wide, so wgmma's higher rate (it needs 64-row M tiles,
+//   operands in shared memory and a warpgroup per tile) buys nothing until M
+//   is in the thousands.  Eight warps per block split the K chunks among
+//   themselves: a decode block has only a few MMAs to do, and what costs is
+//   the latency of each dependent load and MMA.
+// - Split-K in a cluster, only where it pays.  A decode linear has 2-12
+//   weight tiles; kernels/mmt4d/ops.py:pick_split gives it blocks of 16
+//   rows over the whole K range (16-96 blocks, no cluster), and splits K
+//   only where a warp would otherwise walk more than 4 K chunks (the down
+//   projection, K_o = 12: 2 splits).  The blocks of one split output slice
+//   form a thread-block cluster; each leaves its float32 partials (one per
+//   K-warp) in its own shared memory, and after cluster.sync() every block
+//   sums a share of the slice over the cluster's partials, read through
+//   distributed shared memory in (split, K-warp) order.  No atomics:
+//   repeated calls are bit-identical.  On the H100 a cluster's launch and
+//   barriers cost more than the extra blocks gain at the other decode
+//   shapes (PERF.md).
+// - Launch.  Programmatic dependent launch: the kernel may be scheduled
+//   while the previous kernel on the stream drains and waits on
+//   griddepcontrol before its first read.
+// - Copies.  Each warp loads its MMA fragments straight from global memory
+//   in 16-byte vectors, a few 32-wide K chunks ahead of its MMAs, with no
+//   shared-memory staging, barrier or ldmatrix on the way: every packed tile
+//   is one contiguous run of memory (which is what packing buys), so a
+//   warp's load covers 8 rows x 64 contiguous bytes.  A first version staged
+//   the tiles through a cp.async ring in shared memory and read them with
+//   ldmatrix; on the H100 it was bound by the latency of that chain, not by
+//   bytes (PERF.md).
+// - Epilogue.  Bias and activation in float32 on the summed partials, one
+//   cast, and a store along n_r (the partials are kept transposed, [m][n],
+//   in shared memory, so the store is coalesced).
+//
+// float32 stays on the CUDA cores in IEEE arithmetic (TF32 tensor cores
+// would change the float32 results): one block per output tile loops over
+// K_o, staging the A and B tiles in shared memory, as the first port did.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-namespace {
+namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;
-constexpr int kMaxPerThread = 16;   // m_r * n_r <= 4096
+namespace {
 
 enum Act : int { kNone = 0, kGelu = 1, kSilu = 2, kRelu = 3, kTanh = 4 };
 
@@ -42,11 +79,35 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mmt4d_kernel(const T* __restrict__ a, const T* __restrict__ b,
-             const T* __restrict__ bias, T* __restrict__ c,
-             int64_t No, int64_t Ko, int m_r, int n_r, int k_r, int act) {
+constexpr int kMaxSmem = 232448;   // 227 KB opt-in dynamic shared memory
+constexpr int kMaxDevices = 64;
+
+// The shared-memory opt-in is an attribute of each device: set it once per
+// device and kernel.
+template <typename Kernel>
+int opt_in_smem(Kernel kernel, bool (&configured)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    configured[dev] = true;
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------- float32
+
+constexpr int kF32Threads = 256;
+constexpr int kMaxPerThread = 16;   // m_r * n_r <= 4096
+
+__global__ void __launch_bounds__(kF32Threads)
+mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 const float* __restrict__ bias, float* __restrict__ c,
+                 int64_t No, int64_t Ko, int m_r, int n_r, int k_r, int act) {
   extern __shared__ float smem[];
   float* As = smem;                    // [m_r][k_r]
   float* Bs = smem + m_r * k_r;        // [n_r][k_r + 1]
@@ -61,15 +122,15 @@ mmt4d_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
   const int a_tile = m_r * k_r, b_tile = n_r * k_r;
   for (int64_t ko = 0; ko < Ko; ++ko) {
-    const T* at = a + (mo * Ko + ko) * a_tile;
-    const T* bt = b + (no * Ko + ko) * b_tile;
-    for (int i = tid; i < a_tile; i += kThreads) As[i] = repro::to_float(at[i]);
-    for (int i = tid; i < b_tile; i += kThreads)
-      Bs[(i / k_r) * bp + i % k_r] = repro::to_float(bt[i]);
+    const float* at = a + (mo * Ko + ko) * a_tile;
+    const float* bt = b + (no * Ko + ko) * b_tile;
+    for (int i = tid; i < a_tile; i += kF32Threads) As[i] = at[i];
+    for (int i = tid; i < b_tile; i += kF32Threads)
+      Bs[(i / k_r) * bp + i % k_r] = bt[i];
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < kMaxPerThread; ++q) {
-      const int o = tid + q * kThreads;
+      const int o = tid + q * kF32Threads;
       if (o < outs) {
         const float* ar = As + (o / n_r) * k_r;
         const float* br = Bs + (o % n_r) * bp;
@@ -81,55 +142,308 @@ mmt4d_kernel(const T* __restrict__ a, const T* __restrict__ b,
     __syncthreads();
   }
 
-  T* ct = c + (mo * No + no) * outs;
+  float* ct = c + (mo * No + no) * outs;
 #pragma unroll
   for (int q = 0; q < kMaxPerThread; ++q) {
-    const int o = tid + q * kThreads;
+    const int o = tid + q * kF32Threads;
     if (o < outs) {
       float v = acc[q];
-      if (bias != nullptr) v += repro::to_float(bias[no * n_r + o % n_r]);
-      ct[o] = repro::from_float<T>(activate(v, act));
+      if (bias != nullptr) v += bias[no * n_r + o % n_r];
+      ct[o] = activate(v, act);
     }
   }
 }
 
-template <typename T>
-int launch(const void* a, const void* b, const void* bias, void* c,
-           int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
-           int act, cudaStream_t stream) {
-  size_t smem = sizeof(float) * ((size_t)m_r * k_r + (size_t)n_r * (k_r + 1));
-  // the shared-memory opt-in is an attribute of each device: set it once
-  // for every device the kernel runs on
-  constexpr int kMaxDevices = 64;
+int launch_f32(const void* a, const void* b, const void* bias, void* c,
+               int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
+               int act, cudaStream_t stream) {
+  if ((int64_t)m_r * n_r > (int64_t)kF32Threads * kMaxPerThread)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)m_r * k_r + (size_t)n_r * (k_r + 1));
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    e = cudaFuncSetAttribute(
-        mmt4d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    if (e != cudaSuccess) return (int)e;
-    configured[dev] = true;
-  }
+  if (int e = opt_in_smem(mmt4d_f32_kernel, configured)) return e;
   if (Mo * No == 0) return 0;
-  mmt4d_kernel<T><<<(unsigned)(Mo * No), kThreads, smem, stream>>>(
-      (const T*)a, (const T*)b, (const T*)bias, (T*)c, No, Ko, m_r, n_r, k_r,
-      act);
+  mmt4d_f32_kernel<<<(unsigned)(Mo * No), kF32Threads, smem, stream>>>(
+      (const float*)a, (const float*)b, (const float*)bias, (float*)c, No, Ko,
+      m_r, n_r, k_r, act);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- bfloat16
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;    // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCols = 32;     // tm * m_r: the MMA's N per block
+constexpr int kMaxCluster = 8;   // portable cluster size
+constexpr int kPadP = 4;         // float padding per partial row
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 inputs, float32 sums
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid (No * n_r / rows, ceil(Mo / tm), splits), cluster (1, 1, splits) if splits > 1, 8
+// warps.  Block (x, y, z) computes weight rows [r0, r0 + rows) of output
+// tile `no`, for mo tiles [mo0, mo0 + tm), over K tiles [z * Ko / splits,
+// (z + 1) * Ko / splits); kernels/mmt4d/ops.py:Split mirrors this
+// arithmetic.  Warp w takes the 16 rows (w % (rows / 16)) and every KW-th
+// 32-wide K chunk of the block's range from chunk w / (rows / 16) on, KW =
+// 8 / (rows / 16).  NT (a power of two) is the 8-wide MMA tiles per warp;
+// tiles past the block's tm * m_r activation rows are fed zeros and dropped.
+//
+// Operands go from global memory straight into MMA fragments.  Within a
+// 32-wide chunk, k is permuted the same way for both operands: thread
+// (g, t) = (lane / 4, lane % 4) loads 8 contiguous k (16 bytes) at 8 t of
+// weight rows g and g + 8 and of activation row g of each 8-wide tile, and
+// logical k 2t+e, 2t+8+e of MMA step s in {0, 1} is physical k 8t+4s+e,
+// 8t+4s+2+e.  A warp's load touches 8 rows x 64 contiguous bytes: whole
+// 32-byte sectors.  Loads run P chunks ahead of the MMAs in registers.
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+mmt4d_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                  const bf16* __restrict__ bias, bf16* __restrict__ c,
+                  int Mo, int No, int Ko, int m_r, int n_r, int k_r, int act,
+                  int rows, int tm, int splits) {
+  constexpr int P = NT <= 2 ? 4 : 2;   // chunks in flight (ops.py CHUNKS_IN_FLIGHT)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // launched as a programmatic dependent: wait here, before the first read,
+  // until the previous kernel on the stream has finished and flushed
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();   // one block if splits == 1
+  const int split = splits > 1 ? (int)cluster.block_rank() : 0;
+  const int per_tile = n_r / rows;
+  const int no = blockIdx.x / per_tile;
+  const int r0 = (blockIdx.x % per_tile) * rows;
+  const int mo0 = blockIdx.y * tm;
+  const int tmv = min(tm, Mo - mo0);    // the last group may hold fewer tiles
+  const int cols = tmv * m_r;           // this block's valid MMA N
+  const int kb = (int)((int64_t)split * Ko / splits);
+  const int nk = (int)((int64_t)(split + 1) * Ko / splits) - kb;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int groups = rows / 16, kw_n = kWarps / groups;
+  const int wr = warp % groups, kw = warp / groups;
+  const int cpt = (k_r + 31) / 32;      // chunks per K tile
+  const int nq_all = nk * cpt;
+  const int nq = nq_all > kw ? (nq_all - kw + kw_n - 1) / kw_n : 0;
+
+  // weight rows g and g + 8 of this warp, at tile (no, kb), k = 8 t
+  const bf16* wsrc = b + (((int64_t)no * Ko + kb) * n_r + r0 + wr * 16 + g) * k_r + 8 * t4;
+  const int64_t w_tile = (int64_t)n_r * k_r;
+  const int64_t x_tile = (int64_t)m_r * k_r;
+
+  uint4 wv[P][2], xv[P][NT];
+  // chunk q of this warp -> registers
+  auto load = [&](uint4 (&w)[2], uint4 (&x)[NT], int q) {
+    const int qq = kw + q * kw_n;
+    const int ti = qq / cpt, ch = qq - ti * cpt;
+    const int k0 = ch * 32;
+    const bool full = k0 + 32 <= k_r;   // else a 16-wide tail: zeros past it
+    const bf16* wp = wsrc + ti * w_tile + k0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bf16* p = wp + h * 8 * k_r;
+      if (full) {
+        w[h] = __ldg(reinterpret_cast<const uint4*>(p));
+      } else {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p - 4 * t4));
+        w[h] = make_uint4(v.x, v.y, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int m = j * 8 + g;          // activation row in the block
+      x[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (m < cols) {
+        const int tj = (j * 8) / m_r, mi = m - tj * m_r;
+        const bf16* p = a + ((int64_t)(mo0 + tj) * Ko + kb + ti) * x_tile +
+                        (int64_t)mi * k_r + k0;
+        if (full) {
+          x[j] = __ldg(reinterpret_cast<const uint4*>(p + 8 * t4));
+        } else {
+          const uint2 v = __ldg(reinterpret_cast<const uint2*>(p + 4 * t4));
+          x[j] = make_uint4(v.x, v.y, 0u, 0u);
+        }
+      }
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  auto mmas = [&](const uint4 (&w)[2], const uint4 (&x)[NT]) {
+    const uint32_t a0[4] = {w[0].x, w[1].x, w[0].y, w[1].y};   // step s = 0
+    const uint32_t a1[4] = {w[0].z, w[1].z, w[0].w, w[1].w};   // step s = 1
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_16816(acc[j], a0, x[j].x, x[j].y);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_16816(acc[j], a1, x[j].z, x[j].w);
+  };
+
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if (p < nq) load(wv[p], xv[p], p);
+  for (int q0 = 0; q0 < nq; q0 += P) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (q0 + p < nq) {
+        mmas(wv[p], xv[p]);
+        if (q0 + p + P < nq) load(wv[p], xv[p], q0 + p + P);
+      }
+    }
+  }
+
+  // each warp's float32 partial, transposed to [m][n], in region kw (row
+  // stride rows + 4: the fragment writes hit 32 different banks)
+  float* part = reinterpret_cast<float*>(smem_raw);
+  const int ps = rows + kPadP;
+  const int region = NT * 8 * ps;
+  {
+    float* pw = part + kw * region;
+    const int n = wr * 16 + g;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int m = j * 8 + 2 * t4;
+      if (m < cols) {
+        pw[m * ps + n] = acc[j][0];
+        pw[(m + 1) * ps + n] = acc[j][1];
+        pw[m * ps + n + 8] = acc[j][2];
+        pw[(m + 1) * ps + n + 8] = acc[j][3];
+      }
+    }
+  }
+  if (splits > 1) cluster.sync(); else __syncthreads();
+
+  // each block of the cluster finishes a share of the slice: sum the
+  // partials in (split, k-warp) order, bias and activation in float32, one
+  // cast, 4 outputs per thread along n_r
+  const int vpr = rows / 4;
+  const int items = cols * vpr;
+  const int lo = (int)((int64_t)split * items / splits);
+  const int hi = (int)((int64_t)(split + 1) * items / splits);
+  for (int it = lo + tid; it < hi; it += kThreads) {
+    const int m = it / vpr, q = it - m * vpr;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s = 0; s < splits; ++s) {
+      const float* ps_s = (splits > 1 ? cluster.map_shared_rank(part, s) : part) +
+                          m * ps + q * 4;
+      for (int g = 0; g < kw_n; ++g) {
+        const float4 w = *reinterpret_cast<const float4*>(ps_s + g * region);
+        v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
+      }
+    }
+    const int n = r0 + q * 4;
+    float o[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (bias != nullptr) o[e] += __bfloat162float(bias[(int64_t)no * n_r + n + e]);
+      o[e] = activate(o[e], act);
+    }
+    const __nv_bfloat162 o01 = __floats2bfloat162_rn(o[0], o[1]);
+    const __nv_bfloat162 o23 = __floats2bfloat162_rn(o[2], o[3]);
+    uint2 packed;
+    packed.x = *reinterpret_cast<const uint32_t*>(&o01);
+    packed.y = *reinterpret_cast<const uint32_t*>(&o23);
+    const int mo = mo0 + m / m_r, mi = m % m_r;
+    *reinterpret_cast<uint2*>(c + (((int64_t)mo * No + no) * m_r + mi) * n_r + n) = packed;
+  }
+  if (splits > 1) cluster.sync();       // keep every partial until all are read
+}
+
+// the NT of a block with `cols` activation rows: the power of two >= cols / 8
+int nt_of(int cols) {
+  int nt = 1;
+  while (nt * 8 < cols) nt *= 2;
+  return nt;
+}
+
+// shared memory of a block: the float32 partial of each K-warp
+size_t smem_bf16(int rows, int cols) {
+  return (size_t)(kWarps / (rows / 16)) * nt_of(cols) * 8 * (rows + kPadP) * sizeof(float);
+}
+
+template <int NT>
+int launch_nt(const void* a, const void* b, const void* bias, void* c,
+              int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
+              int act, int rows, int tm, int splits, size_t smem,
+              cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  if (int e = opt_in_smem(mmt4d_bf16_kernel<NT>, configured)) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(No * (n_r / rows)), (unsigned)((Mo + tm - 1) / tm),
+                     (unsigned)splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  // may start while the previous kernel on the stream drains (the kernel
+  // waits on griddepcontrol before it reads); a cluster only to split K
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = 1;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = (unsigned)splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 2 : 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, mmt4d_bf16_kernel<NT>, (const bf16*)a, (const bf16*)b,
+      (const bf16*)bias, (bf16*)c, (int)Mo, (int)No, (int)Ko, m_r, n_r, k_r, act,
+      rows, tm, splits);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* a, const void* b, const void* bias, void* c,
+                int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
+                int act, int rows, int tm, int splits, cudaStream_t stream) {
+  if (m_r % 8 != 0 || k_r % 16 != 0 || n_r % 64 != 0 ||
+      (rows != 16 && rows != 32 && rows != 64) || n_r % rows != 0 ||
+      tm < 1 || (int64_t)tm * m_r > kMaxCols || splits < 1 ||
+      splits > kMaxCluster || splits > Ko ||
+      Mo > INT32_MAX || Ko > INT32_MAX || No * (n_r / rows) > INT32_MAX ||
+      (Mo + tm - 1) / tm > 65535 ||
+      (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bf16(rows, tm * m_r);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (Mo * No == 0) return 0;
+  switch (nt_of(tm * m_r)) {
+#define REPRO_NT(N)                                                          \
+    case N:                                                                  \
+      return launch_nt<N>(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, rows, \
+                          tm, splits, smem, stream);
+    REPRO_NT(1) REPRO_NT(2) REPRO_NT(4)
+#undef REPRO_NT
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// rows, tm, splits: the bfloat16 decomposition picked by
+// kernels/mmt4d/ops.py:pick_split (ignored for float32)
 extern "C" int repro_mmt4d(const void* a, const void* b, const void* bias,
                            void* c, int dtype, int64_t Mo, int64_t No,
                            int64_t Ko, int m_r, int n_r, int k_r, int act,
-                           void* stream) {
-  if ((int64_t)m_r * n_r > (int64_t)kThreads * kMaxPerThread ||
-      sizeof(float) * ((size_t)m_r * k_r + (size_t)n_r * (k_r + 1)) > 232448)
-    return (int)cudaErrorInvalidValue;
-  REPRO_DISPATCH(dtype, T,
-    return launch<T>(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act,
-                     (cudaStream_t)stream));
-  return (int)cudaErrorInvalidValue;  // unreachable: every dtype returns
+                           int rows, int tm, int splits, void* stream) {
+  if (dtype == repro::kF32)
+    return launch_f32(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act,
+                      (cudaStream_t)stream);
+  if (dtype == repro::kBF16)
+    return launch_bf16(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, rows,
+                       tm, splits, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -4,12 +4,17 @@ Replaces the Pallas ``mmt4d_kernel_call`` (src/repro/kernels/mmt4d/kernel.py:113
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel or raises.  Operands are contiguous packed tiles of one dtype
 (float32 or bfloat16); accumulation, bias and activation are float32, then
-one cast.  At decode widths the kernel runs a handful of blocks on 132 SMs;
-split-K and tensor cores are later work (see the source).
+one cast.  bfloat16 runs on the tensor cores, cut by :func:`pick_split`
+(K split in a thread-block cluster only where a block's K range is long);
+float32 runs on the CUDA cores in IEEE arithmetic.  One launch per call
+either way.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -17,10 +22,95 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.mmt4d.ref import mmt4d_ref
 
-__all__ = ["mmt4d", "ACTIVATION_CODES"]
+__all__ = ["mmt4d", "ACTIVATION_CODES", "Split", "pick_split"]
 
 # activation name -> the code csrc/mmt4d.cu switches on (same keys as ACTIVATIONS)
 ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2, "relu": 3, "tanh": 4}
+
+# limits of the bfloat16 kernel (csrc/mmt4d.cu)
+MAX_COLS = 32            # tm * m_r: the MMA's N per block
+MAX_CLUSTER = 8          # portable thread-block cluster size
+ROWS = (64, 32, 16)      # weight rows per block
+WARPS = 8                # per block: 16 rows each, K chunks split among them
+CHUNKS_IN_FLIGHT = 4     # 32-wide K chunks a warp of a narrow block loads ahead
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How the bfloat16 kernel cuts one call.  Block (x, y, z) of the grid
+    computes weight rows ``[r0, r0 + rows)`` of output tile ``no``, for mo
+    tiles ``[y * tm, y * tm + tm)``, over its share of the K tiles; the
+    ``splits`` blocks of one output slice form one cluster.  :meth:`work`
+    is the kernel's index arithmetic."""
+
+    rows: int       # weight rows per block: the MMA's M
+    tm: int         # mo tiles per block: the MMA's N is tm * m_r
+    splits: int     # K ranges per output slice, one block each
+    grid: tuple     # (N_o * n_r / rows, ceil(M_o / tm), splits)
+
+    @property
+    def cluster(self) -> int:
+        """Blocks per thread-block cluster: the splits of one slice."""
+        return self.splits
+
+    @property
+    def blocks(self) -> int:
+        x, y, z = self.grid
+        return x * y * z
+
+    def work(self, x: int, y: int, z: int, m_o: int, k_o: int, n_r: int):
+        """Block (x, y, z)'s (mo range, no, weight-row range, ko range)."""
+        per_tile = n_r // self.rows
+        no, r0 = x // per_tile, (x % per_tile) * self.rows
+        mo0 = y * self.tm
+        return (range(mo0, min(mo0 + self.tm, m_o)), no,
+                range(r0, r0 + self.rows),
+                range(z * k_o // self.splits, (z + 1) * k_o // self.splits))
+
+
+@functools.lru_cache(maxsize=None)
+def pick_split(m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: int,
+               sm_count: int) -> Split:
+    """The bfloat16 kernel's decomposition of one call.
+
+    A call is bound by the latency of a few dependent loads and MMAs more
+    than by bytes, so the grid should cover the SMs; within that, a larger
+    block (``rows`` x ``tm * m_r``) re-reads fewer bytes through L2.  The
+    pick is the largest block (ties: more activation rows) of at most
+    ``MAX_COLS`` activation rows whose grid covers every SM.  When none
+    does (a decode linear: M_o = 1, 2-12 weight tiles), blocks of 16 rows
+    take the whole K range without a cluster, whose launch and barriers
+    cost more than the few blocks lose; K is split in a cluster (at most
+    ``MAX_CLUSTER`` ways, none empty) only so far that no warp walks more
+    than ``CHUNKS_IN_FLIGHT`` 32-wide K chunks (the down projection)."""
+    rows_ok = [r for r in ROWS if n_r % r == 0]
+    best = None
+    for tm in range(1, max(1, min(m_o, MAX_COLS // m_r)) + 1):
+        groups = _ceil_div(m_o, tm)
+        for rows in rows_ok:
+            slices = n_o * (n_r // rows)
+            if slices * groups >= sm_count:
+                key = (rows * tm, tm)
+                if best is None or key > best[0]:
+                    best = (key, rows, tm, slices, groups, 1)
+    if best is None:
+        rows, tm = rows_ok[-1], 1
+        chunks = k_o * _ceil_div(k_r, 32) / (WARPS // (rows // 16))   # per warp
+        splits = max(1, min(MAX_CLUSTER, k_o,
+                            math.ceil(chunks / CHUNKS_IN_FLIGHT)))
+        best = (None, rows, tm, n_o * (n_r // rows), m_o, splits)
+    _, rows, tm, slices, groups, splits = best
+    return Split(rows=rows, tm=tm, splits=splits,
+                 grid=(slices, groups, splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
@@ -44,17 +134,28 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     if a_pack.device.type == "cpu":
         return mmt4d_ref(a_pack, b_pack, bias_pack, activation=activation)
     extra = () if bias_pack is None else (bias_pack,)
-    build.require_cuda("mmt4d", a_pack, b_pack, *extra)
+    dev = build.require_cuda("mmt4d", a_pack, b_pack, *extra)
     code = build.require_dtype("mmt4d", a_pack.dtype, a_pack, b_pack, *extra)
     build.require_contiguous("mmt4d", a_pack=a_pack, b_pack=b_pack,
                              **({"bias_pack": bias_pack} if extra else {}))
+    picks = (0, 0, 0)
+    if a_pack.dtype == torch.bfloat16:
+        if m_r % 8 or m_r > MAX_COLS or n_r % 64 or k_r % 16 or k_o == 0:
+            raise ValueError(f"mmt4d: bfloat16 tiles m_r={m_r}, n_r={n_r}, "
+                             f"k_r={k_r} (K_o={k_o}); the kernel takes m_r a "
+                             f"multiple of 8 up to {MAX_COLS}, n_r of 64, "
+                             f"k_r of 16, and K_o >= 1")
+        if (a_pack.data_ptr() | b_pack.data_ptr()) % 16:
+            raise ValueError("mmt4d: bfloat16 operands must start on 16 bytes")
+        s = pick_split(m_o, n_o, k_o, m_r, n_r, k_r, _sm_count(dev))
+        picks = (s.rows, s.tm, s.splits)
     out = torch.empty((m_o, n_o, m_r, n_r), dtype=a_pack.dtype,
                       device=a_pack.device)
     rc = build.load_library().repro_mmt4d(
         a_pack.data_ptr(), b_pack.data_ptr(),
         None if bias_pack is None else bias_pack.data_ptr(), out.data_ptr(),
         code, m_o, n_o, k_o, m_r, n_r, k_r, ACTIVATION_CODES[activation],
-        build.stream_of(a_pack))
+        *picks, build.stream_of(a_pack))
     build.check(rc, "mmt4d")
     mmt4d.launches += 1
     return out

@@ -4,8 +4,9 @@ Replaces the Pallas ``pack_kernel_call`` (src/repro/kernels/pack/kernel.py:46).
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel or raises.  The input is read through its strides, so packing a
 transposed view costs no copy; leading dims must fold into one batch dim
-(``view(-1, M, K)``).  Bound by bytes; see the source for what later work
-should change.
+(``view(-1, M, K)``).  Bound by bytes: one block per tile, 16-byte copies
+for contiguous rows, a staged transpose for a transposed view, a scalar
+branch for other strides (see the source).
 """
 
 from __future__ import annotations

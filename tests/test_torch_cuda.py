@@ -6,6 +6,10 @@ which a machine with only the port need not have):
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
 
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +17,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.hardware import query
 from repro_torch.core.layout import make_layout
+from repro_torch.kernels import build
 from repro_torch.kernels.mmt4d.ops import mmt4d
 from repro_torch.kernels.mmt4d.ref import mmt4d_ref
 from repro_torch.kernels.pack.ops import pack
@@ -39,6 +44,11 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def _close(got, want, tol):
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
 def test_pack_unpack_kernels_exact(gen, dtype, tol):
     a = _rand(gen, (2, 37, 200), dtype)
@@ -48,6 +58,90 @@ def test_pack_unpack_kernels_exact(gen, dtype, tol):
     p = pack(a, 16, 128)
     assert torch.equal(unpack(p, 37, 200), unpack_ref(p, 37, 200))
     assert torch.equal(unpack(p, 37, 200), a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["contiguous", "k_not_vector", "transposed",
+                                  "storage_offset", "batch_dims", "partial_tiles"])
+def test_pack_kernel_exact(gen, case, dtype):
+    """Each read path of the pack kernel (16-byte vectors, staged transpose,
+    scalar), bit-exact against the plain version."""
+    if case == "contiguous":             # aligned, whole tiles
+        a, t = _rand(gen, (256, 384), dtype), (128, 128)
+    elif case == "k_not_vector":         # K % 8 != 0: the scalar branch
+        a, t = _rand(gen, (40, 203), dtype), (16, 128)
+    elif case == "transposed":           # W^T as prepack_params packs it
+        a, t = _rand(gen, (200, 300), dtype).T, (128, 128)
+    elif case == "storage_offset":       # rows start off the 16-byte grid
+        a, t = _rand(gen, (3 * 37 * 200 + 1,), dtype)[1:].view(3, 37, 200), (8, 128)
+    elif case == "batch_dims":
+        a, t = _rand(gen, (2, 3, 21, 256), dtype), (16, 128)
+    else:                                # ragged in both dims
+        a, t = _rand(gen, (130, 129), dtype), (128, 128)
+    assert torch.equal(pack(a, *t), pack_ref(a, *t))
+
+
+_M_O, _K_O, _N_O, _M_R = (1, 5, 32), (1, 5, 12), (1, 3, 384), (8, 16, 32)
+
+
+@pytest.mark.parametrize("m_r", _M_R)
+@pytest.mark.parametrize("n_o", _N_O)
+@pytest.mark.parametrize("k_o", _K_O)
+@pytest.mark.parametrize("m_o", _M_O)
+def test_mmt4d_bf16_kernel_matches_plain(gen, m_o, k_o, n_o, m_r):
+    """The tensor-core kernel over ragged mo groups, every split count, one
+    to many output tiles, the FIXED (8), scalable (16) and _2x (32) tiles,
+    with and without bias, every activation: within 2e-2 of the plain
+    version (float32 sums in another order, one bf16 rounding)."""
+    bf = torch.bfloat16
+    ap = _rand(gen, (m_o, k_o, m_r, 128), bf)
+    bp = (_rand(gen, (n_o, k_o, 128, 128), bf).float() * (k_o * 128) ** -0.5).to(bf)
+    bias = _rand(gen, (n_o, 128), bf)
+    for b in (None, bias):
+        for act in [None, "gelu", "silu", "relu", "tanh"]:
+            got = mmt4d(ap, bp, b, activation=act)
+            want = mmt4d_ref(ap, bp, b, activation=act)
+            assert got.shape == want.shape and _close(got, want, 2e-2), \
+                (b is not None, act)
+
+
+def test_mmt4d_bf16_one_launch_and_bit_identical(gen):
+    """One launch per call, and split-K reduced in a fixed order: repeated
+    calls give the same bits (down decode: 8 splits per cluster)."""
+    bf = torch.bfloat16
+    ap, bp = _rand(gen, (1, 12, 16, 128), bf), _rand(gen, (5, 12, 128, 128), bf)
+    before = mmt4d.launches
+    first = mmt4d(ap, bp, activation="silu")
+    assert mmt4d.launches == before + 1
+    for _ in range(3):
+        assert torch.equal(mmt4d(ap, bp, activation="silu"), first)
+
+
+def _sass_by_function() -> dict:
+    """Disassembly of the built kernel library, by (mangled) function name."""
+    lib = build.load_library()._name
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        pytest.skip("cuobjdump not found")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def test_mmt4d_bf16_runs_on_tensor_cores_f32_does_not(gen):
+    funcs = _sass_by_function()
+    bf16 = [v for k, v in funcs.items() if "mmt4d_bf16_kernel" in k]
+    f32 = [v for k, v in funcs.items() if "mmt4d_f32_kernel" in k]
+    assert bf16 and len(f32) == 1, sorted(funcs)     # one bf16 kernel per NT
+    assert all("HMMA.16816.F32.BF16" in v for v in bf16)
+    assert "HMMA" not in f32[0]
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])

@@ -10,6 +10,9 @@
   float32 rounding in float32, one bf16 ulp apart in bfloat16 (atol 2e-2
   at these magnitudes).
 - ``prepack_params``: the same keys and shapes as the JAX package's.
+- ``pick_split``: the bfloat16 kernel's decomposition of every SmolLM2
+  linear at every flat width on an H100 (132 SMs), checked through
+  ``Split.work``, which mirrors the kernel's index arithmetic.
 """
 
 import jax
@@ -25,11 +28,14 @@ from repro.core.linear import prepack_params as jprepack
 from repro.kernels.mmt4d.ops import mmt4d as jmmt4d_op
 from repro.kernels.mmt4d.ref import mmt4d_ref as jmmt4d_ref
 from repro_torch.core import packing
+from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.hardware import presets as tpresets
 from repro_torch.core.layout import make_layout as tmake_layout
 from repro_torch.core.linear import MatmulContext, linear_apply, prepack_params
 from repro_torch.core.mmt4d import mmt4d
 from repro_torch.core.propagation import PackedArray, pack_activation
+from repro_torch.kernels.mmt4d.ops import (CHUNKS_IN_FLIGHT, MAX_CLUSTER, MAX_COLS,
+                                          WARPS, pick_split)
 from repro_torch.weights import from_jax_params
 
 torch.set_num_threads(1)
@@ -123,3 +129,48 @@ def test_prepack_params_keys_and_shapes():
     x = torch.from_numpy(_arr((5, 200), 12))
     assert torch.equal(linear_apply(tt["b"], x, ctx),
                        linear_apply(from_jax_params(tree["b"]), x, ctx))
+
+
+# SmolLM2-135M's linears as (K, N)
+SMOLLM_LINEARS = {"gate/up": (576, 1536), "q/o": (576, 576), "k/v": (576, 192),
+                  "down": (1536, 576), "tied head": (576, 49152)}
+
+
+@pytest.mark.parametrize("width", [16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("linear", list(SMOLLM_LINEARS))
+def test_pick_split_covers_every_output_once(linear, width):
+    hw = HardwareSpec(name="h100", sm_count=132)
+    k, n = SMOLLM_LINEARS[linear]
+    for policy, kernel in [("fixed", "mxu_outer_product"),
+                           ("scalable", "mxu_outer_product"),
+                           ("scalable", "mxu_outer_product_2x")]:
+        lay = tmake_layout(policy, hw, torch.bfloat16, kernel=kernel)
+        m_o, n_o, k_o = -(-width // lay.m_r), -(-n // lay.n_r), -(-k // lay.k_r)
+        s = pick_split(m_o, n_o, k_o, lay.m_r, lay.n_r, lay.k_r, hw.sm_count)
+        where = (policy, kernel, s)
+        assert 1 <= s.cluster <= MAX_CLUSTER and s.cluster == s.splits <= k_o, where
+        assert s.tm * lay.m_r <= MAX_COLS and lay.n_r % s.rows == 0, where
+        # the splits cut [0, K_o) into consecutive ranges, none empty
+        ranges = [s.work(0, 0, z, m_o, k_o, lay.n_r)[3] for z in range(s.splits)]
+        assert all(len(r) > 0 for r in ranges), where
+        assert [i for r in ranges for i in r] == list(range(k_o)), where
+        # for each split, the grid's blocks cover each output element once
+        for z in range(s.splits):
+            hits = np.zeros((m_o, n_o, lay.n_r), np.int32)
+            for x in range(s.grid[0]):
+                for y in range(s.grid[1]):
+                    mos, no, rows, _ = s.work(x, y, z, m_o, k_o, lay.n_r)
+                    assert len(mos) > 0, where
+                    hits[mos.start:mos.stop, no, rows.start:rows.stop] += 1
+            assert (hits == 1).all(), where
+        if s.grid[0] * s.grid[1] < hw.sm_count:
+            # too few output slices to fill the SMs (a decode linear): the
+            # most blocks without a split, K split in a cluster only until
+            # no warp walks more than CHUNKS_IN_FLIGHT chunks
+            assert s.rows == 16 and s.tm == 1, where
+            per_warp = -(-k_o * (lay.k_r // 32) // s.splits) / (WARPS // (s.rows // 16))
+            assert per_warp <= CHUNKS_IN_FLIGHT or s.splits == min(MAX_CLUSTER, k_o), where
+            if s.splits > 1:
+                assert -(-k_o * (lay.k_r // 32) // (s.splits - 1)) / WARPS > CHUNKS_IN_FLIGHT, where
+        else:
+            assert s.splits == 1, where
