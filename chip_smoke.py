@@ -10,11 +10,16 @@ flat step:
   2. the kernel build and its seconds;
   3. per kernel: max abs error against the plain version, with its
      tolerance (exceeding it raises); mmt4d also at every width of the bf16
-     flat ladder (the gate linear), and twice, bit-identical.  mmt4d and the
-     tied-head pack are timed L2-cold: each timed call of the kernel, the
-     plain version and the library call takes the next of enough operand
-     copies to pass 64 MB (the card's L2 holds 50 MB; the drain streams
-     30 layers of weights through it every step);
+     flat ladder (the gate linear), and twice, bit-identical.  mmt4d, the
+     tied-head pack and ragged_attn are timed L2-cold: each timed call of
+     the kernel, the plain version and the library call takes the next of
+     enough operand copies to pass 64 MB (the card's L2 holds 50 MB; the
+     drain streams 30 layers of weights and KV pools through it every
+     step).  ragged_attn (decode rows, one long decode row, mixed prefill)
+     runs from a host-built plan (its split in the kernels line), also
+     L2-warm, with padding zero, repeats bit-identical, no synchronising
+     copy, a refused call without a plan, and beside the SDPA yardstick
+     (one scaled_dot_product_attention on K/V gathered per row);
   4. float32 end to end: a greedy drain of 4 requests on the card and on the
      CPU (plain versions), same weights and prompts: identical tokens;
   5. bfloat16 end to end: Engine(max_slots=4, chunk_tokens=128,
@@ -228,8 +233,10 @@ class KernelChecks:
     def ragged(self, dtype, segments, width, label, pages=257, t=16, mp=64,
                hq=9, hkv=3, dh=64):
         """``segments``: [(row, first_pos, n)] laid out back to back in a
-        stream of ``width`` positions (the rest padding)."""
-        from repro_torch.kernels.ragged_attn.ops import ragged_attention
+        stream of ``width`` positions (the rest padding).  Timed L2-cold
+        (each call takes the next of enough copies of q and the pools to
+        pass 64 MB) and L2-warm; the library call is the SDPA yardstick."""
+        from repro_torch.kernels.ragged_attn.ops import plan_ragged, ragged_attention
         from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
         rng = np.random.default_rng(len(segments) + width)
         bt = (rng.permutation(pages - 1)[:4 * mp] + 1).astype(np.int32).reshape(4, mp)
@@ -247,18 +254,90 @@ class KernelChecks:
         args = dict(block_tables=torch.from_numpy(bt).cuda(),
                     row_ids=torch.from_numpy(row_ids).cuda(),
                     q_pos=torch.from_numpy(q_pos).cuda())
+        plan = plan_ragged(row_ids, q_pos, t, mp, hkv, self.hw.sm_count,
+                           group=hq // hkv).to("cuda")
         valid = torch.from_numpy(row_ids >= 0).cuda()
+        torch.cuda.set_sync_debug_mode("error")   # no copy back to the host
+        try:
+            out = ragged_attention(q, kp, vp, plan=plan, **args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if out[~valid].any() or not torch.equal(
+                out, ragged_attention(q, kp, vp, plan=plan, **args)):
+            raise AssertionError(f"ragged_attn {label} {dtype}: padding not zero "
+                                 f"or two calls differ")
+        try:
+            ragged_attention(q, kp, vp, **args)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("ragged_attn: a CUDA call without a plan ran")
+        sdpa, sdpa_args, scatter = self.sdpa_yardstick(q, kp, vp, bt, row_ids, q_pos)
+        want = ragged_attention_ref(q, kp, vp, **args)[valid].float()
+        err = (scatter(sdpa(*sdpa_args))[valid].float() - want).abs().max().item()
+        if err > TOL[dtype] * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"SDPA yardstick {label} {dtype}: error {err}")
         es = dtype.itemsize
         page_bytes = t * hkv * dh * es * 2                       # K and V
         kv_pages = sum(-(-n // t) for n in need.values())
         pad_pages = 1 if (row_ids < 0).any() else 0              # row 0's page 0
         flops = sum(4 * hq * dh * (int(p) + 1) for p in q_pos[row_ids >= 0])
+        sets = cold_sets(q, kp, vp)
+        lib_sets = cold_sets(*sdpa_args)
+        warm_ms = time_ms(lambda: ragged_attention(q, kp, vp, plan=plan, **args))
         self.record("ragged_attn", f"{label} W={width} segs={len(segments)}", dtype,
-                    lambda: ragged_attention(q, kp, vp, **args),
-                    lambda: ragged_attention_ref(q, kp, vp, **args), None,
+                    cycle(lambda a, b, c: ragged_attention(a, b, c, plan=plan, **args), sets),
+                    cycle(lambda a, b, c: ragged_attention_ref(a, b, c, **args), sets),
+                    cycle(sdpa, lib_sets),
                     2 * q.numel() * es + (kv_pages + pad_pages) * page_bytes
                     + 3 * width * 4 + bt.nbytes, flops,
-                    select=lambda t: t[valid])   # padding rows carry garbage
+                    select=lambda t: t[valid],   # padding rows: the plain version's garbage
+                    split=plan.splits, tiles=plan.tiles, kernel_l2_warm_ms=warm_ms,
+                    copies=len(sets), library_err=err)
+
+    @staticmethod
+    def sdpa_yardstick(q, kp, vp, bt, row_ids, q_pos):
+        """One ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call
+        with a boolean mask, on K/V already gathered per row and padded to
+        the longest row (queries grouped by row, padded likewise).  Returns
+        (attend, args, scatter): ``scatter(attend(*args))`` is [W, Hq, dh]
+        at the valid positions; only ``attend`` is timed."""
+        import torch.nn.functional as F
+        t = kp.shape[1]
+        rows = sorted(set(row_ids[row_ids >= 0].tolist()))
+        lq = max(int((row_ids == r).sum()) for r in rows)
+        lk = max(int(q_pos[row_ids == r].max()) + 1 for r in rows)
+        w, hq, dh = q.shape
+        hkv = kp.shape[2]
+        qg = torch.zeros((len(rows), hq, lq, dh), dtype=q.dtype, device=q.device)
+        kg = torch.zeros((len(rows), hkv, lk, dh), dtype=q.dtype, device=q.device)
+        vg = torch.zeros_like(kg)
+        mask = torch.zeros((len(rows), 1, lq, lk), dtype=torch.bool, device=q.device)
+        mask[..., 0] = True                    # padded queries: no empty softmax
+        where = []
+        for i, r in enumerate(rows):
+            idx = np.flatnonzero(row_ids == r)
+            n_keys = int(q_pos[idx].max()) + 1
+            pg = torch.from_numpy(bt[r, :-(-n_keys // t)].astype(np.int64)).cuda()
+            kg[i, :, :n_keys] = kp[pg].reshape(-1, hkv, dh)[:n_keys].transpose(0, 1)
+            vg[i, :, :n_keys] = vp[pg].reshape(-1, hkv, dh)[:n_keys].transpose(0, 1)
+            qg[i, :, :len(idx)] = q[torch.from_numpy(idx).cuda()].transpose(0, 1)
+            kv = torch.arange(lk, device=q.device)
+            qp = torch.from_numpy(q_pos[idx].astype(np.int64)).cuda()
+            mask[i, 0, :len(idx)] = kv[None, :] <= qp[:, None]
+            where.append((i, torch.from_numpy(idx).cuda()))
+
+        def attend(qq, kk, vv, mm):
+            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mm,
+                                                  enable_gqa=True)
+
+        def scatter(o):
+            full = torch.zeros((w, hq, dh), dtype=o.dtype, device=o.device)
+            for i, idx in where:
+                full[idx] = o[i, :, :len(idx)].transpose(0, 1)
+            return full
+
+        return attend, (qg, kg, vg, mask), scatter
 
     def run(self, ladder):
         """``ladder``: the bf16 engine's flat widths; the gate linear runs at
@@ -284,7 +363,8 @@ class KernelChecks:
             self.unpack(dtype, pre, 576, m_r, 128, "Q exit prefill")
             self.unpack(dtype, 4, 49152, m_r, 128, "logits")
             self.ragged(dtype, [(0, 300, 1), (1, 511, 1), (2, 95, 1), (3, 1000, 1)],
-                        dec, "decode rows")
+                        16, "decode rows")
+            self.ragged(dtype, [(0, 1000, 1)], 16, "long decode row")
             self.ragged(dtype, [(0, 600, 1), (1, 64, 1), (2, 0, 300), (3, 128, 206)],
                         pre, "mixed prefill")
 
@@ -426,8 +506,8 @@ def main(argv=None) -> int:
             "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-            "shape": rep["shape"], "dtype": rep["dtype"], "card": card,
-            "cases": cases})
+            "split": rep.get("split"), "shape": rep["shape"],
+            "dtype": rep["dtype"], "card": card, "cases": cases})
     result = {"kernels": kernel_rows}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -79,26 +79,6 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
-constexpr int kMaxSmem = 232448;   // 227 KB opt-in dynamic shared memory
-constexpr int kMaxDevices = 64;
-
-// The shared-memory opt-in is an attribute of each device: set it once per
-// device and kernel.
-template <typename Kernel>
-int opt_in_smem(Kernel kernel, bool (&configured)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    configured[dev] = true;
-  }
-  return 0;
-}
-
 // ---------------------------------------------------------------- float32
 
 constexpr int kF32Threads = 256;
@@ -160,9 +140,9 @@ int launch_f32(const void* a, const void* b, const void* bias, void* c,
   if ((int64_t)m_r * n_r > (int64_t)kF32Threads * kMaxPerThread)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)m_r * k_r + (size_t)n_r * (k_r + 1));
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool configured[kMaxDevices] = {};
-  if (int e = opt_in_smem(mmt4d_f32_kernel, configured)) return e;
+  if (smem > (size_t)repro::kMaxSmem) return (int)cudaErrorInvalidValue;
+  static bool configured[repro::kMaxDevices] = {};
+  if (int e = repro::opt_in_smem(mmt4d_f32_kernel, configured)) return e;
   if (Mo * No == 0) return 0;
   mmt4d_f32_kernel<<<(unsigned)(Mo * No), kF32Threads, smem, stream>>>(
       (const float*)a, (const float*)b, (const float*)bias, (float*)c, No, Ko,
@@ -179,16 +159,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCols = 32;     // tm * m_r: the MMA's N per block
 constexpr int kMaxCluster = 8;   // portable cluster size
 constexpr int kPadP = 4;         // float padding per partial row
-
-// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 inputs, float32 sums
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Grid (No * n_r / rows, ceil(Mo / tm), splits), cluster (1, 1, splits) if splits > 1, 8
 // warps.  Block (x, y, z) computes weight rows [r0, r0 + rows) of output
@@ -287,9 +257,9 @@ mmt4d_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
     const uint32_t a0[4] = {w[0].x, w[1].x, w[0].y, w[1].y};   // step s = 0
     const uint32_t a1[4] = {w[0].z, w[1].z, w[0].w, w[1].w};   // step s = 1
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_16816(acc[j], a0, x[j].x, x[j].y);
+    for (int j = 0; j < NT; ++j) repro::mma_16816(acc[j], a0, x[j].x, x[j].y);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_16816(acc[j], a1, x[j].z, x[j].w);
+    for (int j = 0; j < NT; ++j) repro::mma_16816(acc[j], a1, x[j].z, x[j].w);
   };
 
 #pragma unroll
@@ -379,8 +349,8 @@ int launch_nt(const void* a, const void* b, const void* bias, void* c,
               int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
               int act, int rows, int tm, int splits, size_t smem,
               cudaStream_t stream) {
-  static bool configured[kMaxDevices] = {};
-  if (int e = opt_in_smem(mmt4d_bf16_kernel<NT>, configured)) return e;
+  static bool configured[repro::kMaxDevices] = {};
+  if (int e = repro::opt_in_smem(mmt4d_bf16_kernel<NT>, configured)) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(No * (n_r / rows)), (unsigned)((Mo + tm - 1) / tm),
                      (unsigned)splits);
@@ -418,7 +388,7 @@ int launch_bf16(const void* a, const void* b, const void* bias, void* c,
       (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bf16(rows, tm * m_r);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)repro::kMaxSmem) return (int)cudaErrorInvalidValue;
   if (Mo * No == 0) return 0;
   switch (nt_of(tm * m_r)) {
 #define REPRO_NT(N)                                                          \

@@ -40,8 +40,8 @@ _SIGNATURES = {
     "repro_unpack": [_P, _P, _I, _L, _L, _L, _I, _I, _L, _L, _P],
     "repro_mmt4d": [_P, _P, _P, _P, _I, _L, _L, _L, _I, _I, _I, _I,
                     _I, _I, _I, _P],
-    "repro_ragged_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _P],
+    "repro_ragged_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P],
 }
 
 build_seconds = 0.0   # wall time of the last build (0.0: reused or not built)

@@ -17,6 +17,7 @@ prints the device time of each kernel and the device's idle share.
 from __future__ import annotations
 
 import argparse
+import re
 import time
 
 import numpy as np
@@ -35,10 +36,14 @@ def _timed_drain(engine: Engine):
     return finished, time.perf_counter() - t0
 
 
+# the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers
+_PORT_KERNEL = re.compile(r"::(mmt4d|pack|unpack|ragged_attn)(?:_bf16|_f32)?_kernel\b")
+
+
 def _print_device_time(prof, wall: float) -> None:
-    """Device time by kernel over the traced drain, and the device's busy
-    share of its wall time (kernels run on one stream, so they do not
-    overlap)."""
+    """Device time by kernel over the traced drain, then summed for each of
+    the port's kernels and for PyTorch's own, and the device's busy share
+    of its wall time (kernels run on one stream, so they do not overlap)."""
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
@@ -49,6 +54,15 @@ def _print_device_time(prof, wall: float) -> None:
         t = e.self_device_time_total / 1e6
         print(f"[profile] {t:.6f} s {100 * t / wall:6.2f}% of wall "
               f"{e.count:>7} calls  {e.key[:90]}")
+    sums: dict = {}
+    for e in rows:
+        m = _PORT_KERNEL.search(e.key)
+        t, n = sums.get(m.group(1) if m else "pytorch", (0.0, 0))
+        sums[m.group(1) if m else "pytorch"] = (t + e.self_device_time_total / 1e6,
+                                                n + e.count)
+    for name, (t, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] total {name}: {t:.6f} s ({100 * t / busy:.1f}% of "
+              f"device time), {n} launches")
 
 
 def main(argv=None):

@@ -103,10 +103,10 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
                positions: torch.Tensor, kv_cache: dict,
                keep_packed: bool = False, paged: Optional[dict] = None):
     """The flat paged mode: ``paged`` carries {block_tables [B,MP], row_ids
-    [W], q_pos [W]} and x is one ``[1, W]`` stream.  Q/K/V projections
-    (unpacked at exit) -> RoPE -> in-place K/V scatter -> ragged paged
-    attention -> O projection (kept packed when ``keep_packed``).  Returns
-    (out_stream, kv_cache)."""
+    [W], q_pos [W], and on the card the ragged-attention plan} and x is one
+    ``[1, W]`` stream.  Q/K/V projections (unpacked at exit) -> RoPE ->
+    in-place K/V scatter -> ragged paged attention -> O projection (kept
+    packed when ``keep_packed``).  Returns (out_stream, kv_cache)."""
     if paged is None or "row_ids" not in paged:
         raise NotImplementedError("only the flat paged attention mode is "
                                   "ported so far")
@@ -130,7 +130,7 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
     out = ragged_attention(
         q[0].contiguous(), kv_cache["k_pages"], kv_cache["v_pages"],
         block_tables=paged["block_tables"], row_ids=paged["row_ids"],
-        q_pos=paged["q_pos"])[None]
+        q_pos=paged["q_pos"], plan=paged.get("plan"))[None]
     out = linear_apply(params["wo"], out.reshape(b, sq, hq * dh), ctx,
                        keep_packed=keep_packed)
     return out, kv_cache

@@ -15,6 +15,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.core.hardware import HardwareSpec, query, require_device
 from repro_torch.core.layout import LayoutPolicy
 from repro_torch.core.linear import MatmulContext
+from repro_torch.kernels.ragged_attn.ops import RaggedPlan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed_apply
 
@@ -55,18 +56,20 @@ class ReproModel:
 
     def flat_decode_step(self, params: dict, caches: dict, token: torch.Tensor,
                          block_tables: torch.Tensor, row_ids: torch.Tensor,
-                         q_pos: torch.Tensor, logits_idx: torch.Tensor):
+                         q_pos: torch.Tensor, logits_idx: torch.Tensor,
+                         plan: Optional[RaggedPlan] = None):
         """One flat ``[1, W]`` step: position ``i`` is token ``q_pos[i]`` of
         engine row ``row_ids[i]`` (-1 = padding); ``block_tables`` [B, MP];
-        ``logits_idx`` [K] flat positions to read logits at.  Returns
-        (logits [1, K, V], caches).
+        ``logits_idx`` [K] flat positions to read logits at; ``plan``: the
+        ragged-attention plan of row_ids/q_pos on this device (needed on
+        the card, ignored on the CPU).  Returns (logits [1, K, V], caches).
 
         The page pools in ``caches`` are updated in place (the JAX package
         donates them to its jitted step instead); the returned ``caches``
         is the same object."""
         x = embed_apply(params["embed"], token).to(self.compute_dtype)
         paged = {"block_tables": block_tables, "row_ids": row_ids,
-                 "q_pos": q_pos}
+                 "q_pos": q_pos, "plan": plan}
         logits = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
                               positions=q_pos[None, :], caches=caches,
                               paged=paged, logits_at=logits_idx[None, :])

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core.hardware import require_device
 from repro_torch.core.layout import ceil_div, round_up
 from repro_torch.core.linear import prepack_params
+from repro_torch.kernels.ragged_attn.ops import plan_ragged
 from repro_torch.models.model import ReproModel
 from repro_torch.models.transformer import tree_map
 from repro_torch.obs.telemetry import NULL as OBS_NULL
@@ -251,12 +252,19 @@ class Engine:
 
     def _run_flat(self, token, bt, row_ids, q_pos, idx) -> np.ndarray:
         """One flat step on the device; returns float32 logits [slots, V]
-        on the host (numpy has no bfloat16)."""
+        on the host (numpy has no bfloat16).  The ragged-attention plan is
+        built here from the host's row_ids and q_pos and uploaded with
+        them, so no layer reads an index back from the card."""
         dev = self.device
+        cfg = self.model.cfg
+        plan = plan_ragged(row_ids, q_pos, self.pool.page_tokens, self.max_pages,
+                           cfg.n_kv_heads, self.model.ctx.hw.sm_count,
+                           group=cfg.n_heads // cfg.n_kv_heads)
         logits, self.caches = self.model.flat_decode_step(
             self.params, self.caches, torch.from_numpy(token).to(dev),
             torch.from_numpy(bt).to(dev), torch.from_numpy(row_ids).to(dev),
-            torch.from_numpy(q_pos).to(dev), torch.from_numpy(idx).to(dev))
+            torch.from_numpy(q_pos).to(dev), torch.from_numpy(idx).to(dev),
+            plan=plan.to(dev))
         return logits[0].float().cpu().numpy()
 
     def _flat_shapes(self) -> List[int]:

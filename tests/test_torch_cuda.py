@@ -22,7 +22,7 @@ from repro_torch.kernels.mmt4d.ops import mmt4d
 from repro_torch.kernels.mmt4d.ref import mmt4d_ref
 from repro_torch.kernels.pack.ops import pack
 from repro_torch.kernels.pack.ref import pack_ref
-from repro_torch.kernels.ragged_attn.ops import ragged_attention
+from repro_torch.kernels.ragged_attn.ops import plan_ragged, ragged_attention
 from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
 from repro_torch.kernels.unpack.ops import unpack
 from repro_torch.kernels.unpack.ref import unpack_ref
@@ -156,26 +156,97 @@ def test_mmt4d_kernel_matches_plain(gen, act, dtype, tol):
     assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
 
 
-@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
-def test_ragged_kernel_matches_plain(gen, dtype, tol):
-    hq, hkv, dh, t, pages, mp, w = 9, 3, 64, 16, 20, 4, 32
-    rng = np.random.default_rng(0)
-    bt = torch.from_numpy((rng.permutation(pages - 1)[:3 * mp] + 1)
-                          .astype(np.int32).reshape(3, mp)).cuda()
-    row_ids = np.full(w, -1, np.int32)
-    q_pos = np.zeros(w, np.int32)
-    row_ids[0], q_pos[0] = 0, 60
-    row_ids[1:9], q_pos[1:9] = 1, np.arange(17, 25)
-    row_ids[9:14], q_pos[9:14] = 2, np.arange(5)
-    args = dict(block_tables=bt, row_ids=torch.from_numpy(row_ids).cuda(),
+# ragged attention at SmolLM2's heads (9 over 3, d_head 64), pages of 16,
+# MP = 64 (1024 tokens): segments (row, first q_pos, length) laid out back
+# to back from flat position 0, the rest of the width padding
+_RAGGED_CASES = {
+    "page_edges": ([(0, 0, 1), (1, 15, 1), (2, 16, 1), (3, 17, 1),
+                    (4, 64 * 16 - 1, 1)], 16),
+    "long_row": ([(0, 1000, 1)], 16),
+    "mid_page_segments": ([(0, 5, 1), (1, 21, 15), (2, 37, 16), (3, 100, 17),
+                           (4, 203, 40)], 96),
+    "decode_rows_one_tile_width": ([(0, 300, 1), (1, 511, 1), (2, 95, 1),
+                                    (3, 1000, 1)], 16),
+    "trailing_padding": ([(0, 600, 1), (1, 64, 1), (2, 0, 30)], 64),
+    "decode_chunk_fresh_prefill": ([(0, 60, 1), (1, 17, 8), (2, 0, 5)], 32),
+}
+
+
+def _ragged_case(gen, dtype, segments, width, pages=400, mp=64, hq=9, hkv=3):
+    rng = np.random.default_rng(width + len(segments))
+    rows = 1 + max(r for r, _, _ in segments)
+    bt = (rng.permutation(pages - 1)[:rows * mp] + 1).astype(np.int32).reshape(rows, mp)
+    row_ids = np.full(width, -1, np.int32)
+    q_pos = np.zeros(width, np.int32)
+    pos = 0
+    for row, first, n in segments:
+        row_ids[pos:pos + n] = row
+        q_pos[pos:pos + n] = first + np.arange(n)
+        pos += n
+    args = dict(block_tables=torch.from_numpy(bt).cuda(),
+                row_ids=torch.from_numpy(row_ids).cuda(),
                 q_pos=torch.from_numpy(q_pos).cuda())
-    q = _rand(gen, (w, hq, dh), dtype)
-    kp = _rand(gen, (pages, t, hkv, dh), dtype)
-    vp = _rand(gen, (pages, t, hkv, dh), dtype)
+    q = _rand(gen, (width, hq, 64), dtype)
+    kp = _rand(gen, (pages, 16, hkv, 64), dtype)
+    vp = _rand(gen, (pages, 16, hkv, 64), dtype)
+    return q, kp, vp, args, row_ids, q_pos
+
+
+def _ragged_plan(row_ids, q_pos, splits=None, hkv=3, hq=9):
+    return plan_ragged(row_ids, q_pos, 16, 64, hkv, 132, group=hq // hkv,
+                       splits=splits).to("cuda")
+
+
+@pytest.mark.parametrize("case", sorted(_RAGGED_CASES))
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+def test_ragged_kernel_matches_plain(gen, dtype, tol, case):
+    """Valid positions within tol (absolute) of the plain version (float32
+    sums in another order; bf16 also rounds P to bf16 for P V); padding
+    positions exactly zero; one launch per call; repeated calls
+    bit-identical."""
+    segments, width = _RAGGED_CASES[case]
+    q, kp, vp, args, row_ids, q_pos = _ragged_case(gen, dtype, segments, width)
+    plan = _ragged_plan(row_ids, q_pos)
     valid = torch.from_numpy(row_ids >= 0).cuda()
-    got = ragged_attention(q, kp, vp, **args)[valid].float()
+    before = ragged_attention.launches
+    out = ragged_attention(q, kp, vp, plan=plan, **args)
+    assert ragged_attention.launches == before + 1
+    want = ragged_attention_ref(q, kp, vp, **args)[valid].float()
+    assert (out[valid].float() - want).abs().max().item() <= tol
+    assert torch.isfinite(out.float()).all()
+    assert not out[~valid].any()
+    for _ in range(3):
+        assert torch.equal(ragged_attention(q, kp, vp, plan=plan, **args), out)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+def test_ragged_kernel_every_split(gen, dtype, tol, splits):
+    """Every cluster size: a long decode row, a prefill chunk whose first
+    rows see fewer pages than the split count (all-masked partials) and a
+    row shorter than the split count (empty ranges)."""
+    segments = [(0, 1000, 1), (1, 200, 40), (2, 20, 3)]
+    q, kp, vp, args, row_ids, q_pos = _ragged_case(gen, dtype, segments, 48)
+    valid = torch.from_numpy(row_ids >= 0).cuda()
+    got = ragged_attention(q, kp, vp, plan=_ragged_plan(row_ids, q_pos, splits),
+                           **args)[valid].float()
     want = ragged_attention_ref(q, kp, vp, **args)[valid].float()
     assert (got - want).abs().max().item() <= tol
+
+
+def test_ragged_kernel_needs_a_plan(gen):
+    q, kp, vp, args, _, _ = _ragged_case(gen, torch.bfloat16, [(0, 10, 1)], 16)
+    with pytest.raises(ValueError, match="plan"):
+        ragged_attention(q, kp, vp, **args)
+
+
+def test_ragged_bf16_runs_on_tensor_cores_f32_does_not(gen):
+    funcs = _sass_by_function()
+    bf16 = [v for k, v in funcs.items() if "ragged_attn_kernel" in k and "bfloat16" in k]
+    f32 = [v for k, v in funcs.items() if "ragged_attn_kernel" in k and "bfloat16" not in k]
+    assert len(bf16) == 1 and len(f32) == 1, sorted(funcs)
+    assert "HMMA.16816.F32.BF16" in bf16[0]
+    assert "HMMA" not in f32[0]
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
