@@ -10,7 +10,11 @@ flat step:
   2. the kernel build and its seconds;
   3. per kernel: max abs error against the plain version, with its
      tolerance (exceeding it raises); mmt4d also at every width of the bf16
-     flat ladder (the gate linear), and twice, bit-identical.  mmt4d, the
+     flat ladder (the gate linear), and twice, bit-identical; mmt4d's
+     unpacked store at the Q, K/V and tied-head exits, bit-identical to the
+     packed store followed by the unpack kernel, timed beside that pair, the
+     packed store alone and torch.matmul; unpack beside an empty kernel
+     launched the same way (the launch floor).  mmt4d, the
      tied-head pack and ragged_attn are timed L2-cold: each timed call of
      the kernel, the plain version and the library call takes the next of
      enough operand copies to pass 64 MB (the card's L2 holds 50 MB; the
@@ -24,7 +28,8 @@ flat step:
      CPU (plain versions), same weights and prompts: identical tokens;
   5. bfloat16 end to end: Engine(max_slots=4, chunk_tokens=128,
      page_tokens=16), seq_len 1024, warmup, then 8 requests (prompts 64-512
-     tokens, 32 new each) with the kernel launch counts read around the drain;
+     tokens, 32 new each) with the kernel launch counts read around the drain
+     (and mmt4d's unpacked stores: the 91 linear exits of each step);
   6. the kernels JSON line, then the result line.
 
 Usage:  python3 chip_smoke.py [--out results.json]
@@ -48,7 +53,10 @@ import torch
 TF = torch.float32
 BF = torch.bfloat16
 EXPECTED_PER_STEP = {"mmt4d": 30 * 7 + 1, "pack": 1 + 30 + 1 + 1,
-                     "unpack": 30 * 3 + 1 + 1, "ragged_attn": 30}
+                     "unpack": 1, "ragged_attn": 30}
+# mmt4d launches per step that write their result unpacked: the Q/K/V exits
+# of 30 layers and the tied head (the final stream's unpack stays a kernel)
+EXPECTED_UNPACKED_PER_STEP = 30 * 3 + 1
 SOURCES = {
     "mmt4d": ("src/repro_torch/csrc/mmt4d.cu", "src/repro/kernels/mmt4d/kernel.py:113"),
     "pack": ("src/repro_torch/csrc/pack.cu", "src/repro/kernels/pack/kernel.py:46"),
@@ -59,7 +67,7 @@ SOURCES = {
 # the case each kernel's headline numbers come from (bfloat16, the default
 # RunConfig): the shape that carries most of its time in the drain
 REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
-                  "unpack": "Q exit decode", "ragged_attn": "decode rows"}
+                  "unpack": "final stream decode", "ragged_attn": "decode rows"}
 # max |kernel - plain| <= TOL * max(1, max |plain|): float32 sums in another
 # order; bfloat16 may round the float32 result to a neighbouring value
 TOL = {TF: 1e-4, BF: 2e-2}
@@ -197,6 +205,43 @@ class KernelChecks:
                     2 * ap.shape[0] * lay.m_r * bp.shape[0] * lay.n_r
                     * ap.shape[1] * lay.k_r, copies=len(sets), **split)
 
+    def mmt4d_unpacked(self, dtype, w_tokens, k, n, label):
+        """A linear's exit: mmt4d writing [1, w_tokens, n] unpacked, held to
+        the plain version (unpack_ref of mmt4d_ref) and bit for bit to the
+        packed store followed by the unpack kernel; timed L2-cold beside
+        that pair, the packed store alone and torch.matmul."""
+        from repro_torch.core import packing
+        from repro_torch.core.layout import make_layout
+        from repro_torch.kernels.mmt4d.ops import mmt4d
+        from repro_torch.kernels.mmt4d.ref import mmt4d_ref
+        from repro_torch.kernels.unpack.ops import unpack
+        from repro_torch.kernels.unpack.ref import unpack_ref
+        lay = make_layout("scalable", self.hw, dtype)
+        x = self.rand((1, w_tokens, k), dtype)
+        w = self.rand((k, n), dtype, k ** -0.5)
+        ap, bp = packing.pack_lhs(x, lay), packing.pack_rhs(w, lay)
+        to = (w_tokens, n)
+
+        def pair(a, b, *_):
+            return unpack(mmt4d(a, b), *to)
+
+        out = mmt4d(ap, bp, unpack_to=to)
+        if not torch.equal(out, pair(ap, bp)):
+            raise AssertionError(f"mmt4d {label} {dtype}: the unpacked store "
+                                 f"differs from mmt4d then unpack")
+        sets = cold_sets(ap, bp, x, w)
+        es = dtype.itemsize
+        self.record("mmt4d", f"{label} A{tuple(ap.shape)} B{tuple(bp.shape)}"
+                    f" -> {tuple(out.shape)}", dtype,
+                    cycle(lambda a, b, *_: mmt4d(a, b, unpack_to=to), sets),
+                    cycle(lambda a, b, *_: unpack_ref(mmt4d_ref(a[0], b)[None], *to), sets),
+                    cycle(lambda _a, _b, xx, ww: torch.matmul(xx, ww), sets),
+                    (ap.numel() + bp.numel() + out.numel()) * es,
+                    2 * ap.shape[1] * lay.m_r * bp.shape[0] * lay.n_r
+                    * ap.shape[2] * lay.k_r, copies=len(sets),
+                    pair_ms=time_ms(cycle(pair, sets)),
+                    packed_ms=time_ms(cycle(lambda a, b, *_: mmt4d(a, b), sets)))
+
     def pack(self, dtype, x, t0, t1, label, cold=False):
         import torch.nn.functional as F
         from repro_torch.kernels.pack.ops import pack
@@ -218,7 +263,7 @@ class KernelChecks:
 
     def unpack(self, dtype, m, k, t0, t1, label):
         from repro_torch.kernels.pack.ops import pack
-        from repro_torch.kernels.unpack.ops import unpack
+        from repro_torch.kernels.unpack.ops import unpack, vector_path
         from repro_torch.kernels.unpack.ref import unpack_ref
         ap = pack(self.rand((1, m, k), dtype), t0, t1)
         _, mo, ko, _, _ = ap.shape
@@ -228,7 +273,20 @@ class KernelChecks:
 
         self.record("unpack", f"{label} {tuple(ap.shape)}->(1, {m}, {k})", dtype,
                     lambda: unpack(ap, m, k), lambda: unpack_ref(ap, m, k), library,
-                    (ap.numel() + m * k) * dtype.itemsize, 0, exact=True)
+                    (ap.numel() + m * k) * dtype.itemsize, 0, exact=True,
+                    vector_path=vector_path(ap, unpack(ap, m, k), k))
+
+    def launch_floor(self):
+        """The device time of an empty kernel launched as unpack launches,
+        timed as every kernel here is: the launch floor; and of one that
+        also waits on its predecessor (griddepcontrol), as unpack must."""
+        from repro_torch.kernels.unpack.ops import empty_launch
+        like = torch.empty(1, device="cuda")
+        self.floor_ms = time_ms(lambda: empty_launch(like))
+        self.floor_wait_ms = time_ms(lambda: empty_launch(like, wait=True))
+        print(f"  {'unpack':<11} {'empty launch (the launch floor)':<44} "
+              f"{self.floor_ms:.6f} ms, waiting on its predecessor "
+              f"{self.floor_wait_ms:.6f} ms")
 
     def ragged(self, dtype, segments, width, label, pages=257, t=16, mp=64,
                hq=9, hkv=3, dh=64):
@@ -344,6 +402,7 @@ class KernelChecks:
         each (at 8 and 512 in float32)."""
         from repro_torch.core.layout import make_layout
         e = self.rand((49152, 576), BF, 0.02)
+        self.launch_floor()
         for dtype in (BF, TF):
             lay = make_layout("scalable", self.hw, dtype)
             m_r = lay.m_r
@@ -355,11 +414,14 @@ class KernelChecks:
             self.mmt4d(dtype, dec, 576, 192, None, "k/v decode")
             self.mmt4d(dtype, dec, 1536, 576, None, "down decode")
             self.mmt4d(dtype, 4, 576, 49152, None, "tied head")
+            self.mmt4d_unpacked(dtype, dec, 576, 576, "q exit unpacked")
+            self.mmt4d_unpacked(dtype, dec, 576, 192, "k/v exit unpacked")
+            self.mmt4d_unpacked(dtype, 4, 576, 49152, "tied head unpacked")
             self.pack(dtype, self.rand((1, dec, 576), dtype), m_r, 128, "stream entry")
             self.pack(dtype, self.rand((1, pre, 576), dtype), m_r, 128, "O-linear input")
             self.pack(dtype, e.to(dtype), 128, 128, "tied head embed", cold=True)
             self.pack(dtype, self.rand((576, 1536), dtype).T, 128, 128, "prepack w^T")
-            self.unpack(dtype, dec, 576, m_r, 128, "Q exit decode")
+            self.unpack(dtype, dec, 576, m_r, 128, "final stream decode")
             self.unpack(dtype, pre, 576, m_r, 128, "Q exit prefill")
             self.unpack(dtype, 4, 49152, m_r, 128, "logits")
             self.ragged(dtype, [(0, 300, 1), (1, 511, 1), (2, 95, 1), (3, 1000, 1)],
@@ -474,6 +536,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    unpacked = kernels.wrappers()["mmt4d"].unpacked_stores
     st = eng.stats()
     steps = st["flat"]["steps"]
     ntok = sum(len(r.out_tokens) for r in finished)
@@ -481,7 +544,8 @@ def main(argv=None) -> int:
           f"{ntok / wall:.1f} generated tokens/s, prompts {lens.tolist()} "
           f"({card})")
     print(f"  launches {launches}, per step "
-          f"{ {k: v / steps for k, v in launches.items()} }")
+          f"{ {k: v / steps for k, v in launches.items()} }, mmt4d unpacked "
+          f"stores {unpacked} ({unpacked / steps} per step)")
     if sorted(r.rid for r in finished) != sorted(rids) \
             or any(r.finish_reason != "length" or len(r.out_tokens) != 32
                    for r in finished):
@@ -493,6 +557,9 @@ def main(argv=None) -> int:
         if launches[k] != per * steps:
             raise AssertionError(f"{k}: {launches[k]} launches over {steps} steps, "
                                  f"expected {per} per step")
+    if unpacked != EXPECTED_UNPACKED_PER_STEP * steps:
+        raise AssertionError(f"mmt4d: {unpacked} unpacked stores over {steps} "
+                             f"steps, expected {EXPECTED_UNPACKED_PER_STEP} per step")
 
     kernel_rows = []
     for k, cases in checks.cases.items():
@@ -507,7 +574,10 @@ def main(argv=None) -> int:
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "split": rep.get("split"), "shape": rep["shape"],
-            "dtype": rep["dtype"], "card": card, "cases": cases})
+            "dtype": rep["dtype"], "card": card, "cases": cases,
+            **({"unpacked_stores": unpacked} if k == "mmt4d" else {}),
+            **({"floor_ms": checks.floor_ms, "floor_wait_ms": checks.floor_wait_ms}
+               if k == "unpack" else {})})
     result = {"kernels": kernel_rows}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,8 +1,9 @@
 """Packed linear layers — the single matmul entry point of the models.
 
 ``linear_apply`` packs its input (unless it already is a
-:class:`PackedArray`), runs mmt4d with the bias and activation fused, and
-unpacks (unless asked to keep the result packed).  Weights live unpacked
+:class:`PackedArray`) and runs mmt4d with the bias and activation fused;
+unless asked to keep the result packed, mmt4d's epilogue writes it
+unpacked (``unpack_to``), so no unpack kernel follows.  Weights live unpacked
 in the parameter tree; :func:`prepack_params` packs them once for serving
 (paper §4.1: packing as a standalone operation on the full operands).
 """
@@ -89,14 +90,15 @@ def linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
         layout = ctx.layout(x.dtype)
         a_pack, m = packing.pack_lhs(x, layout), x.shape[-2]
     b_pack, n = _packed_weight(params, layout)
-    c_pack = mmt4d(a_pack, b_pack, epi.bias_pack(params.get("b"), layout),
-                   activation=epi.activation)
+    packed_out = keep_packed and ctx.propagate and layout.chain_compatible
+    c = mmt4d(a_pack, b_pack, epi.bias_pack(params.get("b"), layout),
+              activation=epi.activation, unpack_to=None if packed_out else (m, n))
+    if packed_out:
+        return PackedArray(data=c, m=m, k=n, layout=layout)
     if keep_packed and ctx.propagate:
-        if not layout.chain_compatible:
-            # output tile != input tile: round-trip through the plain domain
-            return pack_activation(packing.unpack_out(c_pack, m, n), layout)
-        return PackedArray(data=c_pack, m=m, k=n, layout=layout)
-    return packing.unpack_out(c_pack, m, n)
+        # output tile != input tile: round-trip through the plain domain
+        return pack_activation(c, layout)
+    return c
 
 
 def prepack_params(params, ctx: MatmulContext, dtype: Optional[torch.dtype] = None):

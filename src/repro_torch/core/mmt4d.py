@@ -41,16 +41,18 @@ class Epilogue:
 
 def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
           bias_pack: Optional[torch.Tensor] = None, *,
-          activation: Optional[str] = None) -> torch.Tensor:
+          activation: Optional[str] = None,
+          unpack_to: Optional[tuple] = None) -> torch.Tensor:
     """a_pack [..., M_o, K_o, m_r, k_r], b_pack [N_o, K_o, n_r, k_r] ->
-    C_pack [..., M_o, N_o, m_r, n_r] in a_pack's dtype.
+    C_pack [..., M_o, N_o, m_r, n_r] in a_pack's dtype, or with
+    ``unpack_to=(m, n)`` C [..., m, n] (the kernel's unpacked store: the
+    result leaves the packed domain without an unpack launch).
 
     Leading LHS dims fold into M_o (a free reshape of contiguous packed
-    tiles), as the JAX package's ``core/mmt4d.py`` does for a plain weight."""
+    tiles, done by the kernel wrapper), as the JAX package's
+    ``core/mmt4d.py`` does for a plain weight."""
     if b_pack.ndim != 4:
         raise NotImplementedError("expert-batched B_pack [E, N_o, K_o, n_r, "
                                   "k_r] comes with the MoE family")
-    lead, tail = a_pack.shape[:-4], a_pack.shape[-4:]
-    out = mmt4d_kernel(a_pack.reshape(-1, *tail[1:]), b_pack, bias_pack,
-                       activation=activation)
-    return out.reshape(*lead, tail[0], *out.shape[1:])
+    return mmt4d_kernel(a_pack, b_pack, bias_pack, activation=activation,
+                        unpack_to=unpack_to)

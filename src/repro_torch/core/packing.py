@@ -48,7 +48,9 @@ def pack_out(c: torch.Tensor, layout: PackedLayout) -> torch.Tensor:
 
 
 def unpack_out(cp: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    """C_pack[..., M_o, N_o, m_r, n_r] -> C[..., M, N]."""
+    """C_pack[..., M_o, N_o, m_r, n_r] -> C[..., M, N].  A linear's own exit
+    does not come here: ``core/linear.py`` has mmt4d write its result
+    unpacked (``unpack_to``)."""
     return unpack(cp, m, n)
 
 

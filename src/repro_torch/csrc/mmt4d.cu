@@ -52,6 +52,11 @@
 // - Epilogue.  Bias and activation in float32 on the summed partials, one
 //   cast, and a store along n_r (the partials are kept transposed, [m][n],
 //   in shared memory, so the store is coalesced).
+// - Unpacked store.  Where a linear's result leaves the packed domain
+//   (core/linear.py), the same epilogue writes C[.., m, n] row-major with
+//   the tile padding dropped instead of C_pack, so no unpack kernel
+//   follows.  Only the address and a mask change (the bf16 kernel's note
+//   below), so the values are the packed store's, bit for bit.
 //
 // float32 stays on the CUDA cores in IEEE arithmetic (TF32 tensor cores
 // would change the float32 results): one block per output tile loops over
@@ -84,10 +89,12 @@ __device__ __forceinline__ float activate(float x, int act) {
 constexpr int kF32Threads = 256;
 constexpr int kMaxPerThread = 16;   // m_r * n_r <= 4096
 
+// out_cols > 0: C written unpacked, with the bf16 kernel's index map
 __global__ void __launch_bounds__(kF32Threads)
 mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  const float* __restrict__ bias, float* __restrict__ c,
-                 int64_t No, int64_t Ko, int m_r, int n_r, int k_r, int act) {
+                 int64_t No, int64_t Ko, int m_r, int n_r, int k_r, int act,
+                 int64_t out_rows, int64_t out_cols, int64_t mo_per_batch) {
   extern __shared__ float smem[];
   float* As = smem;                    // [m_r][k_r]
   float* Bs = smem + m_r * k_r;        // [n_r][k_r + 1]
@@ -122,21 +129,34 @@ mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
     __syncthreads();
   }
 
-  float* ct = c + (mo * No + no) * outs;
+  // output (mi, n) of the tile goes to dst[mi * pitch + n] where mi <
+  // rows_left and n < cols_left: C_pack's tile, or the tile's place in the
+  // unpacked C (one form for both, so the loop below has no branch on it)
+  float* dst = c + (mo * No + no) * outs;
+  int64_t pitch = n_r, rows_left = m_r, cols_left = n_r;
+  if (out_cols > 0) {
+    const int64_t bb = mo / mo_per_batch, r0 = (mo - bb * mo_per_batch) * m_r;
+    dst = c + (bb * out_rows + r0) * out_cols + no * n_r;
+    pitch = out_cols;
+    rows_left = out_rows - r0;
+    cols_left = out_cols - no * n_r;
+  }
 #pragma unroll
   for (int q = 0; q < kMaxPerThread; ++q) {
     const int o = tid + q * kF32Threads;
-    if (o < outs) {
+    const int mi = o / n_r, n = o - mi * n_r;
+    if (o < outs && mi < rows_left && n < cols_left) {
       float v = acc[q];
-      if (bias != nullptr) v += bias[no * n_r + o % n_r];
-      ct[o] = activate(v, act);
+      if (bias != nullptr) v += bias[no * n_r + n];
+      dst[mi * pitch + n] = activate(v, act);
     }
   }
 }
 
 int launch_f32(const void* a, const void* b, const void* bias, void* c,
                int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
-               int act, cudaStream_t stream) {
+               int act, int64_t out_rows, int64_t out_cols, int64_t mo_per_batch,
+               cudaStream_t stream) {
   if ((int64_t)m_r * n_r > (int64_t)kF32Threads * kMaxPerThread)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)m_r * k_r + (size_t)n_r * (k_r + 1));
@@ -146,7 +166,7 @@ int launch_f32(const void* a, const void* b, const void* bias, void* c,
   if (Mo * No == 0) return 0;
   mmt4d_f32_kernel<<<(unsigned)(Mo * No), kF32Threads, smem, stream>>>(
       (const float*)a, (const float*)b, (const float*)bias, (float*)c, No, Ko,
-      m_r, n_r, k_r, act);
+      m_r, n_r, k_r, act, out_rows, out_cols, mo_per_batch);
   return (int)cudaGetLastError();
 }
 
@@ -176,12 +196,22 @@ constexpr int kPadP = 4;         // float padding per partial row
 // logical k 2t+e, 2t+8+e of MMA step s in {0, 1} is physical k 8t+4s+e,
 // 8t+4s+2+e.  A warp's load touches 8 rows x 64 contiguous bytes: whole
 // 32-byte sectors.  Loads run P chunks ahead of the MMAs in registers.
-template <int NT>
+//
+// UNPACKED (out_cols > 0; a template parameter, so the packed store compiles
+// as it would alone): the 4 outputs of a thread at activation row m,
+// weight row n of tile (mo, no) go to C[b, mo_b * m_r + m % m_r, no * n_r +
+// n], b = mo / mo_per_batch, mo_b = mo % mo_per_batch, and only where that
+// row is below out_rows and that column below out_cols (a partial last
+// tile: Q's N = 576 leaves 64 of tile 4's 128 columns); as one 8-byte
+// store where out_cols % 4 == 0 and C is 8-byte aligned, else one element
+// at a time.  kernels/mmt4d/ops.py:Split.stores mirrors this map.
+template <int NT, bool UNPACKED>
 __global__ void __launch_bounds__(kThreads)
 mmt4d_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                   const bf16* __restrict__ bias, bf16* __restrict__ c,
                   int Mo, int No, int Ko, int m_r, int n_r, int k_r, int act,
-                  int rows, int tm, int splits) {
+                  int rows, int tm, int splits, int out_rows, int out_cols,
+                  int mo_per_batch) {
   constexpr int P = NT <= 2 ? 4 : 2;   // chunks in flight (ops.py CHUNKS_IN_FLIGHT)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // launched as a programmatic dependent: wait here, before the first read,
@@ -327,7 +357,23 @@ mmt4d_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
     packed.x = *reinterpret_cast<const uint32_t*>(&o01);
     packed.y = *reinterpret_cast<const uint32_t*>(&o23);
     const int mo = mo0 + m / m_r, mi = m % m_r;
-    *reinterpret_cast<uint2*>(c + (((int64_t)mo * No + no) * m_r + mi) * n_r + n) = packed;
+    if constexpr (UNPACKED) {
+      const int bb = mo / mo_per_batch;
+      const int r = (mo - bb * mo_per_batch) * m_r + mi, col = no * n_r + n;
+      if (r < out_rows && col < out_cols) {             // else tile padding
+        bf16* dst = c + ((int64_t)bb * out_rows + r) * out_cols + col;
+        if (out_cols % 4 == 0 && ((uintptr_t)c & 7) == 0) {
+          *reinterpret_cast<uint2*>(dst) = packed;
+        } else {
+          const bf16 e4[4] = {o01.x, o01.y, o23.x, o23.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < out_cols) dst[e] = e4[e];
+        }
+      }
+    } else {
+      *reinterpret_cast<uint2*>(c + (((int64_t)mo * No + no) * m_r + mi) * n_r + n) = packed;
+    }
   }
   if (splits > 1) cluster.sync();       // keep every partial until all are read
 }
@@ -344,13 +390,14 @@ size_t smem_bf16(int rows, int cols) {
   return (size_t)(kWarps / (rows / 16)) * nt_of(cols) * 8 * (rows + kPadP) * sizeof(float);
 }
 
-template <int NT>
+template <int NT, bool UNPACKED>
 int launch_nt(const void* a, const void* b, const void* bias, void* c,
               int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
-              int act, int rows, int tm, int splits, size_t smem,
+              int act, int rows, int tm, int splits, int64_t out_rows,
+              int64_t out_cols, int64_t mo_per_batch, size_t smem,
               cudaStream_t stream) {
   static bool configured[repro::kMaxDevices] = {};
-  if (int e = repro::opt_in_smem(mmt4d_bf16_kernel<NT>, configured)) return e;
+  if (int e = repro::opt_in_smem(mmt4d_bf16_kernel<NT, UNPACKED>, configured)) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(No * (n_r / rows)), (unsigned)((Mo + tm - 1) / tm),
                      (unsigned)splits);
@@ -369,23 +416,25 @@ int launch_nt(const void* a, const void* b, const void* bias, void* c,
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 2 : 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, mmt4d_bf16_kernel<NT>, (const bf16*)a, (const bf16*)b,
+      &cfg, mmt4d_bf16_kernel<NT, UNPACKED>, (const bf16*)a, (const bf16*)b,
       (const bf16*)bias, (bf16*)c, (int)Mo, (int)No, (int)Ko, m_r, n_r, k_r, act,
-      rows, tm, splits);
+      rows, tm, splits, (int)out_rows, (int)out_cols, (int)mo_per_batch);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* a, const void* b, const void* bias, void* c,
                 int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
-                int act, int rows, int tm, int splits, cudaStream_t stream) {
+                int act, int rows, int tm, int splits, int64_t out_rows,
+                int64_t out_cols, int64_t mo_per_batch, cudaStream_t stream) {
+  const bool unpacked = out_cols > 0;
   if (m_r % 8 != 0 || k_r % 16 != 0 || n_r % 64 != 0 ||
       (rows != 16 && rows != 32 && rows != 64) || n_r % rows != 0 ||
       tm < 1 || (int64_t)tm * m_r > kMaxCols || splits < 1 ||
       splits > kMaxCluster || splits > Ko ||
       Mo > INT32_MAX || Ko > INT32_MAX || No * (n_r / rows) > INT32_MAX ||
       (Mo + tm - 1) / tm > 65535 ||
-      (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15) != 0)
+      (((uintptr_t)a | (uintptr_t)b | (unpacked ? 0 : (uintptr_t)c)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bf16(rows, tm * m_r);
   if (smem > (size_t)repro::kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -393,27 +442,45 @@ int launch_bf16(const void* a, const void* b, const void* bias, void* c,
   switch (nt_of(tm * m_r)) {
 #define REPRO_NT(N)                                                          \
     case N:                                                                  \
-      return launch_nt<N>(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, rows, \
-                          tm, splits, smem, stream);
+      return (unpacked ? launch_nt<N, true> : launch_nt<N, false>)(          \
+          a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, rows, tm, splits,     \
+          out_rows, out_cols, mo_per_batch, smem, stream);
     REPRO_NT(1) REPRO_NT(2) REPRO_NT(4)
 #undef REPRO_NT
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// The unpacked extent, when C is written unpacked: out_cols > 0 columns
+// (N), out_rows rows (m) per batch element, and the M_o of one batch
+// element; the folded Mo holds Mo / mo_per_batch batch elements.
+bool unpacked_extent_ok(int64_t Mo, int64_t No, int m_r, int n_r,
+                        int64_t out_rows, int64_t out_cols, int64_t mo_per_batch) {
+  if (out_cols == 0) return out_rows == 0 && mo_per_batch == 0;
+  return out_cols > 0 && out_cols <= No * n_r && mo_per_batch > 0 &&
+         Mo % mo_per_batch == 0 && out_rows >= 0 &&
+         out_rows <= mo_per_batch * m_r && (Mo / mo_per_batch) * out_rows <= INT32_MAX &&
+         out_cols <= INT32_MAX;
+}
+
 }  // namespace
 
 // rows, tm, splits: the bfloat16 decomposition picked by
-// kernels/mmt4d/ops.py:pick_split (ignored for float32)
+// kernels/mmt4d/ops.py:pick_split (ignored for float32).  out_rows,
+// out_cols, mo_per_batch: the unpacked store (all 0: C is C_pack).
 extern "C" int repro_mmt4d(const void* a, const void* b, const void* bias,
                            void* c, int dtype, int64_t Mo, int64_t No,
                            int64_t Ko, int m_r, int n_r, int k_r, int act,
-                           int rows, int tm, int splits, void* stream) {
+                           int rows, int tm, int splits, int64_t out_rows,
+                           int64_t out_cols, int64_t mo_per_batch, void* stream) {
+  if (!unpacked_extent_ok(Mo, No, m_r, n_r, out_rows, out_cols, mo_per_batch))
+    return (int)cudaErrorInvalidValue;
   if (dtype == repro::kF32)
-    return launch_f32(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act,
-                      (cudaStream_t)stream);
+    return launch_f32(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, out_rows,
+                      out_cols, mo_per_batch, (cudaStream_t)stream);
   if (dtype == repro::kBF16)
     return launch_bf16(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, rows,
-                       tm, splits, (cudaStream_t)stream);
+                       tm, splits, out_rows, out_cols, mo_per_batch,
+                       (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,5 +20,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's ``launches`` and mmt4d's ``unpacked_stores``."""
     for fn in wrappers().values():
         fn.launches = 0
+    wrappers()["mmt4d"].unpacked_stores = 0

@@ -37,9 +37,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points: (argument types); each returns a cudaError_t as int
 _SIGNATURES = {
     "repro_pack": [_P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _P],
-    "repro_unpack": [_P, _P, _I, _L, _L, _L, _I, _I, _L, _L, _P],
+    "repro_unpack": [_P, _P, _I, _L, _L, _L, _I, _I, _L, _L, _I, _P],
+    "repro_empty_launch": [_I, _P],
     "repro_mmt4d": [_P, _P, _P, _P, _I, _L, _L, _L, _I, _I, _I, _I,
-                    _I, _I, _I, _P],
+                    _I, _I, _I, _L, _L, _L, _P],
     "repro_ragged_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P],
 }

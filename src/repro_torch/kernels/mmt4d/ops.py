@@ -8,6 +8,13 @@ one cast.  bfloat16 runs on the tensor cores, cut by :func:`pick_split`
 (K split in a thread-block cluster only where a block's K range is long);
 float32 runs on the CUDA cores in IEEE arithmetic.  One launch per call
 either way.
+
+With ``unpack_to=(m, n)`` the same launch writes ``C[..., m, n]`` row-major,
+the tile padding dropped, instead of ``C_pack``: the unpacked store, which
+``core/linear.py`` uses wherever a linear's result leaves the packed
+domain, so no unpack kernel follows it.  ``mmt4d.unpacked_stores`` counts
+those launches beside ``mmt4d.launches``; :func:`unpacked_index` and
+:meth:`Split.stores` mirror the store's index map.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mmt4d.ref import mmt4d_ref
+from repro_torch.kernels.unpack.ref import unpack_ref
 
-__all__ = ["mmt4d", "ACTIVATION_CODES", "Split", "pick_split"]
+__all__ = ["mmt4d", "ACTIVATION_CODES", "Split", "pick_split", "unpacked_index"]
 
 # activation name -> the code csrc/mmt4d.cu switches on (same keys as ACTIVATIONS)
 ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2, "relu": 3, "tanh": 4}
@@ -71,6 +79,32 @@ class Split:
                 range(r0, r0 + self.rows),
                 range(z * k_o // self.splits, (z + 1) * k_o // self.splits))
 
+    def stores(self, x: int, y: int, z: int, m_o: int, m_r: int, n_r: int):
+        """Block (x, y, z)'s share of its slice's epilogue: the (mo, no,
+        mi, n) of each group of 4 outputs it stores (weight rows n .. n + 3
+        of output tile (mo, no), activation row mi); the blocks of one
+        cluster divide the slice's groups among themselves."""
+        per_tile = n_r // self.rows
+        no, r0 = x // per_tile, (x % per_tile) * self.rows
+        mo0 = y * self.tm
+        vpr = self.rows // 4
+        items = min(self.tm, m_o - mo0) * m_r * vpr
+        for it in range(z * items // self.splits, (z + 1) * items // self.splits):
+            mm, q = divmod(it, vpr)
+            yield mo0 + mm // m_r, no, mm % m_r, r0 + 4 * q
+
+
+def unpacked_index(mo: int, no: int, mi: int, n: int, *, m: int, n_cols: int,
+                   mo_per_batch: int, m_r: int, n_r: int):
+    """Where the unpacked store writes output (mo, no, mi, n) of the folded
+    C_pack: its (row, column) in C viewed as [batch * m, n_cols], or None
+    for tile padding, which is not written (csrc/mmt4d.cu)."""
+    b, mo_b = divmod(mo, mo_per_batch)
+    r, col = mo_b * m_r + mi, no * n_r + n
+    if r >= m or col >= n_cols:
+        return None
+    return b * m + r, col
+
 
 @functools.lru_cache(maxsize=None)
 def pick_split(m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: int,
@@ -115,29 +149,40 @@ def _sm_count(device: torch.device) -> int:
 
 def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
           bias_pack: Optional[torch.Tensor] = None, *,
-          activation: Optional[str] = None) -> torch.Tensor:
-    """a_pack [M_o, K_o, m_r, k_r], b_pack [N_o, K_o, n_r, k_r], optional
-    bias_pack [N_o, n_r] -> C_pack [M_o, N_o, m_r, n_r] in a_pack's dtype."""
+          activation: Optional[str] = None,
+          unpack_to: Optional[tuple] = None) -> torch.Tensor:
+    """a_pack [..., M_o, K_o, m_r, k_r], b_pack [N_o, K_o, n_r, k_r],
+    optional bias_pack [N_o, n_r] -> C_pack [..., M_o, N_o, m_r, n_r] in
+    a_pack's dtype; with ``unpack_to=(m, n)``, C [..., m, n] (what
+    ``unpack_ref`` makes of C_pack) from the same launch.  Leading dims
+    fold into M_o."""
     if activation not in ACTIVATION_CODES:
         raise ValueError(f"mmt4d: activation {activation!r} not in "
                          f"{list(ACTIVATION_CODES)}")
-    if a_pack.ndim != 4 or b_pack.ndim != 4 \
-            or a_pack.shape[1] != b_pack.shape[1] \
-            or a_pack.shape[3] != b_pack.shape[3]:
+    if a_pack.ndim < 4 or b_pack.ndim != 4 \
+            or a_pack.shape[-3] != b_pack.shape[1] \
+            or a_pack.shape[-1] != b_pack.shape[3]:
         raise ValueError(f"mmt4d: shapes {tuple(a_pack.shape)} x "
                          f"{tuple(b_pack.shape)} do not contract")
-    m_o, k_o, m_r, k_r = a_pack.shape
+    *lead, mo_b, k_o, m_r, k_r = a_pack.shape
     n_o, _, n_r, _ = b_pack.shape
     if bias_pack is not None and tuple(bias_pack.shape) != (n_o, n_r):
         raise ValueError(f"mmt4d: bias {tuple(bias_pack.shape)} is not "
                          f"({n_o}, {n_r})")
+    if unpack_to is not None and not (0 <= unpack_to[0] <= mo_b * m_r
+                                      and 0 < unpack_to[1] <= n_o * n_r):
+        raise ValueError(f"mmt4d: unpack_to {unpack_to} outside the packed "
+                         f"extent ({mo_b * m_r}, {n_o * n_r})")
     if a_pack.device.type == "cpu":
-        return mmt4d_ref(a_pack, b_pack, bias_pack, activation=activation)
+        out = mmt4d_ref(a_pack.reshape(-1, k_o, m_r, k_r), b_pack, bias_pack,
+                        activation=activation).reshape(*lead, mo_b, n_o, m_r, n_r)
+        return out if unpack_to is None else unpack_ref(out, *unpack_to)
     extra = () if bias_pack is None else (bias_pack,)
     dev = build.require_cuda("mmt4d", a_pack, b_pack, *extra)
     code = build.require_dtype("mmt4d", a_pack.dtype, a_pack, b_pack, *extra)
     build.require_contiguous("mmt4d", a_pack=a_pack, b_pack=b_pack,
                              **({"bias_pack": bias_pack} if extra else {}))
+    m_o = math.prod(lead) * mo_b          # leading dims folded into M_o
     picks = (0, 0, 0)
     if a_pack.dtype == torch.bfloat16:
         if m_r % 8 or m_r > MAX_COLS or n_r % 64 or k_r % 16 or k_o == 0:
@@ -149,16 +194,21 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
             raise ValueError("mmt4d: bfloat16 operands must start on 16 bytes")
         s = pick_split(m_o, n_o, k_o, m_r, n_r, k_r, _sm_count(dev))
         picks = (s.rows, s.tm, s.splits)
-    out = torch.empty((m_o, n_o, m_r, n_r), dtype=a_pack.dtype,
-                      device=a_pack.device)
+    if unpack_to is None:
+        shape, extent = (*lead, mo_b, n_o, m_r, n_r), (0, 0, 0)
+    else:
+        shape, extent = (*lead, *unpack_to), (*unpack_to, max(1, mo_b))
+    out = torch.empty(shape, dtype=a_pack.dtype, device=a_pack.device)
     rc = build.load_library().repro_mmt4d(
         a_pack.data_ptr(), b_pack.data_ptr(),
         None if bias_pack is None else bias_pack.data_ptr(), out.data_ptr(),
         code, m_o, n_o, k_o, m_r, n_r, k_r, ACTIVATION_CODES[activation],
-        *picks, build.stream_of(a_pack))
+        *picks, *extent, build.stream_of(a_pack))
     build.check(rc, "mmt4d")
     mmt4d.launches += 1
+    mmt4d.unpacked_stores += unpack_to is not None
     return out
 
 
 mmt4d.launches = 0
+mmt4d.unpacked_stores = 0     # launches that wrote C unpacked

@@ -24,7 +24,8 @@ from repro_torch.kernels.pack.ops import pack
 from repro_torch.kernels.pack.ref import pack_ref
 from repro_torch.kernels.ragged_attn.ops import plan_ragged, ragged_attention
 from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
-from repro_torch.kernels.unpack.ops import unpack
+from repro_torch.core.mmt4d import Epilogue
+from repro_torch.kernels.unpack.ops import unpack, vector_path
 from repro_torch.kernels.unpack.ref import unpack_ref
 
 pytestmark = pytest.mark.cuda
@@ -154,6 +155,75 @@ def test_mmt4d_kernel_matches_plain(gen, act, dtype, tol):
     got = mmt4d(ap, bp, bias, activation=act).float()
     want = mmt4d_ref(ap, bp, bias, activation=act).float()
     assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+
+_ACTS = [None, "gelu", "silu", "relu", "tanh"]
+
+
+@pytest.mark.parametrize("lead", [(1,), (2,)], ids=["lead1", "lead2"])
+@pytest.mark.parametrize("k_o", [1, 5, 12])
+@pytest.mark.parametrize("n", [64, 192, 576, 1000, 49152, 70, 130])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mmt4d_unpacked_store_is_packed_then_unpack(gen, dtype, m, n, k_o, lead):
+    """mmt4d's unpacked store (``unpack_to``) equals the packed store
+    followed by the unpack kernel, bit for bit: every split (K_o = 12 splits
+    K in a cluster at decode), tm > 1 (m = 512), a last tile with 64 of 128
+    columns valid (N = 192, 576), N not a multiple of 4 (70, 130: the
+    kernel's scalar stores), two batch elements, every activation, with
+    and without bias; one launch, counted as an unpacked store."""
+    lay = make_layout("scalable", query("cuda"), dtype)
+    k = k_o * lay.k_r
+    ap = packing.pack_lhs(_rand(gen, (*lead, m, k), dtype), lay)
+    bp = packing.pack_rhs((_rand(gen, (k, n), dtype).float() * k ** -0.5).to(dtype), lay)
+    bias = Epilogue().bias_pack(_rand(gen, (n,), dtype), lay)
+    for b, act in [(None, None)] + [(bias, a) for a in _ACTS]:
+        want = unpack(mmt4d(ap, bp, b, activation=act), m, n)
+        before = (mmt4d.launches, mmt4d.unpacked_stores, unpack.launches)
+        got = mmt4d(ap, bp, b, activation=act, unpack_to=(m, n))
+        assert (mmt4d.launches, mmt4d.unpacked_stores, unpack.launches) == \
+            (before[0] + 1, before[1] + 1, before[2])
+        assert got.shape == (*lead, m, n) and got.is_contiguous()
+        assert torch.equal(got, want), (b is not None, act)
+
+
+_UNPACK_CASES = {   # (shape of A, t0, t1, the 16-byte path)
+    "vector": ((1, 37, 576), 16, None, True),
+    "k_not_vector": ((1, 40, 203), 16, None, False),
+    "batch_dims": ((2, 3, 21, 256), 8, None, True),
+    "decode_stream": ((1, 16, 576), 16, None, True),
+    "prefill_stream": ((1, 512, 576), 16, None, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t1", [64, 128])
+@pytest.mark.parametrize("case", sorted(_UNPACK_CASES) + ["storage_offset"])
+def test_unpack_kernel_exact(gen, case, t1, dtype):
+    """The unpack kernel's 16-byte and scalar paths, bit-exact against the
+    plain version, one launch per call."""
+    if case == "storage_offset":          # a packed input off the 16-byte grid
+        p = pack(_rand(gen, (1, 37, 576), dtype), 16, t1)
+        buf = torch.empty(p.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:] = p.reshape(-1)
+        p, (m, k), vector = buf[1:].view(p.shape), (37, 576), False
+    else:
+        shape, t0, _, vector = _UNPACK_CASES[case]
+        p = pack(_rand(gen, shape, dtype), t0, t1)
+        m, k = shape[-2:]
+    assert vector_path(p, torch.empty(1, dtype=dtype, device="cuda"), k) == vector
+    before = unpack.launches
+    got = unpack(p, m, k)
+    assert unpack.launches == before + 1
+    assert got.is_contiguous() and torch.equal(got, unpack_ref(p, m, k))
+
+
+def test_unpack_bf16_vector_path_moves_16_bytes(gen):
+    funcs = _sass_by_function()
+    vec = [v for k, v in funcs.items()
+           if "unpack_kernel" in k and "bfloat16" in k and "uint4" in k]
+    assert len(vec) == 1, sorted(funcs)
+    assert "LDG.E.128" in vec[0] and "STG.E.128" in vec[0]
 
 
 # ragged attention at SmolLM2's heads (9 over 3, d_head 64), pages of 16,
