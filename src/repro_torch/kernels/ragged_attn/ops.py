@@ -20,6 +20,13 @@ wrapper never reads an index tensor back from the card:
   which merges their partial softmaxes in split order (no atomics: repeated
   calls are bit-identical).  A tile with fewer pages than ``splits`` leaves
   its last blocks an empty range.
+
+A served step passes ``slots``: the plan then has a fixed size per width,
+so a CUDA graph captured at one width replays every step of it.  Its
+item count is :func:`max_tiles` of the width, the tiles it makes
+followed by *empty* tiles (length 0, padding row, no pages), whose
+blocks write nothing; its split count is :func:`pick_splits` for that
+many tiles and the block table's width.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
 
 __all__ = ["ragged_attention", "RaggedPlan", "plan_ragged", "pick_splits",
-           "TILE", "MAX_CLUSTER", "PAGES_PER_SPLIT"]
+           "max_tiles", "TILE", "MAX_CLUSTER", "PAGES_PER_SPLIT"]
 
 TILE = 16          # positions per tile: the page size and the bf16 m_r
 MAX_ROWS = 128     # query rows per tile (TILE x g): 8 warps of 16 rows
@@ -69,6 +76,15 @@ def tile_length(group: int) -> int:
     return min(TILE, MAX_ROWS // group)
 
 
+def max_tiles(width: int, rows: int, tile: int) -> int:
+    """The most tiles ``width`` positions can make when they hold at most
+    ``rows`` row segments (consecutive ``q_pos`` each) and one padding
+    run: a run of ``n`` positions makes ``ceil(n / tile)`` tiles, so
+    ``rows + 1`` runs make at most ``(width + (rows + 1)(tile - 1)) //
+    tile``, and never more than ``width``."""
+    return min(width, (width + (rows + 1) * (tile - 1)) // tile)
+
+
 @functools.lru_cache(maxsize=None)
 def pick_splits(tiles: int, max_pages: int, hkv: int, sm_count: int) -> int:
     """Page ranges per tile for a call with ``tiles`` tiles of attention
@@ -83,10 +99,14 @@ def pick_splits(tiles: int, max_pages: int, hkv: int, sm_count: int) -> int:
 
 
 def plan_ragged(row_ids, q_pos, page_tokens: int, max_pages: int, hkv: int,
-                sm_count: int, *, group: int, splits: int | None = None
-                ) -> RaggedPlan:
+                sm_count: int, *, group: int, splits: int | None = None,
+                slots: int | None = None) -> RaggedPlan:
     """Tiles and blocks of one call (numpy in, numpy out).  ``group`` is
-    ``Hq / Hkv``; ``splits`` overrides :func:`pick_splits` (the sweep)."""
+    ``Hq / Hkv``; ``splits`` overrides :func:`pick_splits` (the sweep).
+    ``slots``: the engine's rows; the plan then has the width's fixed size
+    (:func:`max_tiles` tiles, the split count picked for them and
+    ``max_pages``) and raises if the layout makes more tiles than that.
+    Without it the plan fits this call alone."""
     row_ids = np.asarray(row_ids, np.int32)
     q_pos = np.asarray(q_pos, np.int32)
     w = row_ids.shape[0]
@@ -103,9 +123,17 @@ def plan_ragged(row_ids, q_pos, page_tokens: int, max_pages: int, hkv: int,
     q0 = np.where(rows >= 0, q_pos[starts], 0)
     pages = np.where(rows >= 0, np.minimum((q0 + counts - 1) // page_tokens,
                                            max_pages - 1) + 1, 0)
-    live = int((rows >= 0).sum())
+    n_tiles = starts.shape[0]
+    if slots is not None:
+        n_tiles = max_tiles(w, slots, tile)
+        if starts.shape[0] > n_tiles:
+            raise ValueError(f"ragged_attention: {starts.shape[0]} tiles at "
+                             f"width {w}; {slots} rows make at most {n_tiles}")
+        if splits is None:
+            splits = pick_splits(n_tiles, max_pages, hkv, sm_count)
     if splits is None:
-        splits = pick_splits(live, int(pages.max(initial=1)), hkv, sm_count)
+        splits = pick_splits(int((rows >= 0).sum()),
+                             int(pages.max(initial=1)), hkv, sm_count)
     if not 1 <= splits <= MAX_CLUSTER:
         raise ValueError(f"ragged_attention: splits={splits}, not in "
                          f"[1, {MAX_CLUSTER}]")
@@ -115,10 +143,13 @@ def plan_ragged(row_ids, q_pos, page_tokens: int, max_pages: int, hkv: int,
                     pages[:, None])
     p_hi = np.where(k < ns, (k + 1) * pages[:, None] // np.maximum(ns, 1),
                     pages[:, None])
-    items = np.stack([np.repeat(starts, splits), np.repeat(counts, splits),
-                      np.repeat(rows, splits), np.repeat(q0, splits),
-                      p_lo.reshape(-1), p_hi.reshape(-1)], axis=1)
-    return RaggedPlan(items.astype(np.int32), splits)
+    items = np.zeros((n_tiles * splits, 6), np.int32)
+    items[:, 2] = -1                    # empty tiles: padding, no positions
+    live = starts.shape[0] * splits
+    items[:live] = np.stack([np.repeat(starts, splits), np.repeat(counts, splits),
+                             np.repeat(rows, splits), np.repeat(q0, splits),
+                             p_lo.reshape(-1), p_hi.reshape(-1)], axis=1)
+    return RaggedPlan(items, splits)
 
 
 def ragged_attention(q: torch.Tensor, k_pages: torch.Tensor,

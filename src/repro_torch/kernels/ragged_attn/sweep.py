@@ -6,7 +6,10 @@ For the flat-step layouts of the SmolLM2-135M serving path (heads 9 over
 ``MAX_CLUSTER``, L2-cold (each call takes the next of enough copies of q
 and the pools to pass 64 MB), and prints the pick, its rank and the
 fastest few, with the largest error against the plain version.  It is how
-the rule was chosen; the serving path never runs it.
+the rule was chosen; the serving path never runs it.  Beside them it
+times the fixed-size plan a served step replays (``slots=4``: the width's
+most tiles, the split count picked for them and MP), against the
+per-step pick.
 
     PYTHONPATH=src python -m repro_torch.kernels.ragged_attn.sweep [--out sweep.json]
 """
@@ -85,12 +88,25 @@ def main(argv=None) -> int:
                             "tiles": plan.tiles, "ms": ms,
                             "err": (got - want).abs().max().item(),
                             "is_pick": s == pick, "card": card})
+            fixed = plan_ragged(row_ids, q_pos, t, mp, hkv, hw.sm_count,
+                                group=hq // hkv, slots=4).to("cuda")
+            got = ragged_attention(q, kp, vp, plan=fixed, **idx)[valid].float()
+            fixed_ms = time_ms(cold_cycle(
+                lambda a, b, c: ragged_attention(a, b, c, plan=fixed, **idx),
+                (q, kp, vp)))
             res.sort(key=lambda r: r["ms"])
             mine = next(r for r in res if r["is_pick"])
+            for r in res:
+                r.update(fixed_ms=fixed_ms, fixed_splits=fixed.splits,
+                         fixed_tiles=fixed.tiles,
+                         fixed_err=(got - want).abs().max().item())
             print(f"{name} {str(dtype)[6:]} W={width}: pick {pick} split(s) "
                   f"{mine['ms']:.5f} ms (rank {res.index(mine) + 1} of {len(res)}); "
                   f"max error {max(r['err'] for r in res):.3e}; "
                   + ", ".join(f"{r['splits']}: {r['ms']:.5f}" for r in res))
+            print(f"  fixed-size plan: {fixed.tiles} tiles x {fixed.splits} "
+                  f"split(s) {fixed_ms:.5f} ms ({fixed_ms / mine['ms']:.3f}x the "
+                  f"per-step pick), error {res[0]['fixed_err']:.3e}")
             rows_all += res
     if args.out:
         with open(args.out, "w") as f:

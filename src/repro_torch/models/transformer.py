@@ -119,7 +119,7 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_tokens: int,
 def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
                  cfg: ModelConfig, *, positions: torch.Tensor, caches: dict,
                  paged: dict) -> Stream:
-    """Run every group in order over the flat paged step; the pools in
+    """Run every group in order over a paged step; the pools in
     ``caches`` are written in place (each group's slice is a view)."""
     period = pattern_period(cfg)
     for g in range(cfg.n_layers // period):

@@ -11,7 +11,11 @@ up to the layout's ``m_r``, so pages are whole microkernel tiles.
 A transcription of the JAX package's allocator without page sharing: the
 refcounts, copy-on-write and the device page copy arrive with the port of
 the prefix cache and speculative rollback.  The device pools themselves
-live in the model's cache tree (``transformer.init_paged_caches``).
+live in the model's cache tree (``transformer.init_paged_caches``); the
+monolithic prefill's helpers over that tree (:func:`fresh_slot_states`,
+:func:`prefill_view`, :func:`merge_slot`) sit at the end of this module.
+The pools are updated in place and never rebound: every captured CUDA
+graph holds their addresses.
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ import weakref
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.layout import ceil_div
 
-__all__ = ["PoolError", "OutOfPages", "PagedKVPool", "SequencePages"]
+__all__ = ["PoolError", "OutOfPages", "PagedKVPool", "SequencePages",
+           "fresh_slot_states", "prefill_view", "merge_slot"]
 
 
 class PoolError(RuntimeError):
@@ -72,6 +78,9 @@ class PagedKVPool:
 
     def pages_for(self, tokens: int) -> int:
         return ceil_div(max(0, tokens), self.page_tokens)
+
+    def can_fit(self, tokens: int) -> bool:
+        return self.pages_for(tokens) <= self.num_available
 
     def holders(self, page: int) -> List:
         """Owner ids of the live block tables holding ``page``."""
@@ -152,3 +161,50 @@ class SequencePages:
         row = np.zeros((max_pages,), np.int32)
         row[:len(self.pages)] = self.pages
         return row
+
+
+# ---------------------------------------------------------------------------
+# cache-tree helpers: page pools are shared, recurrent state is per slot
+# ---------------------------------------------------------------------------
+
+def _map_slot_states(caches, fn):
+    """Apply ``fn`` to the per-slot state leaves ([G, slots, ...]); pass the
+    shared ``*_pages`` pools through as they are."""
+    if isinstance(caches, dict):
+        return {k: (v if k.endswith("_pages") else _map_slot_states(v, fn))
+                for k, v in caches.items()}
+    return fn(caches)
+
+
+def fresh_slot_states(caches):
+    """A zeroed single-slot ([G, 1, ...]) state tree matching ``caches``:
+    the state a request starts its prefill from."""
+    return _map_slot_states(
+        caches, lambda x: torch.zeros((x.shape[0], 1, *x.shape[2:]),
+                                      dtype=x.dtype, device=x.device))
+
+
+def prefill_view(caches, fresh):
+    """Single-slot view for a prefill: the shared pools of ``caches`` (the
+    same tensors) and the per-slot state of ``fresh``."""
+    if isinstance(caches, dict):
+        return {k: (v if k.endswith("_pages") else prefill_view(v, fresh[k]))
+                for k, v in caches.items()}
+    return fresh
+
+
+def merge_slot(caches, updated, slot: int):
+    """Merge a prefill's result into ``caches`` in place and return it: the
+    pools were written in place, so ``updated`` must hold the very same
+    pool tensors; the [G, 1, ...] per-slot state is copied into row
+    ``slot``."""
+    for k, v in caches.items():
+        if k.endswith("_pages"):
+            if updated[k] is not v:
+                raise ValueError(f"merge_slot: pool {k!r} was rebound; the "
+                                 f"pools are updated in place")
+        elif isinstance(v, dict):
+            merge_slot(v, updated[k], slot)
+        else:
+            v[:, slot:slot + 1].copy_(updated[k])
+    return caches

@@ -1,14 +1,18 @@
-"""Continuous-batching scheduler for the chunked (flat) serving step: FCFS
-admission into fixed slots, lazy page allocation, chunked prefill under a
-token budget, and displacement on pool exhaustion.
+"""Continuous-batching scheduler: FCFS admission into fixed slots, lazy
+page allocation, chunked prefill under a token budget, and displacement on
+pool exhaustion.
 
 A transcription of the JAX package's scheduler (pure host logic) for the
-policy the flat step uses:
+policies the port's engine serves:
 
   - requests queue in arrival order; preempted or paused requests wait at
     the front;
-  - admission needs a free slot and pages for the request's *next chunk*
-    plus a watermark of spare pages (waived when nothing runs);
+  - admission needs a free slot and pages plus a watermark of spare pages
+    (waived when nothing runs): for the request's *next chunk* under the
+    chunked policy (``chunk_tokens`` set, the flat and dense chunked
+    steps), for its whole prompt under the monolithic one (``chunk_tokens
+    =None``: the admitted request is prefilled at once and runs), and for
+    its whole KV lifetime with ``eager=True`` (growth then never fails);
   - every step each prefilling row gets its next chunk
     (:meth:`Scheduler.plan_chunks`) and every decoding row one position
     (:meth:`Scheduler.grow`); :meth:`Scheduler.plan_segments` lays decode
@@ -22,8 +26,8 @@ policy the flat step uses:
 Termination: the victim is always the youngest admission, and ``add``
 refuses any request whose whole KV lifetime cannot fit the pool alone, so
 the oldest request always progresses and drains end at any pool size.
-Monolithic prefill, eager reservation, the prefix cache, speculative page
-asks and bounded admission come with later slices of the port.
+The prefix cache, speculative page asks and bounded admission come with
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -84,6 +88,7 @@ class Request:
     folded: int = 0               # leading out_tokens already in the prompt
     prefill_cursor: int = 0       # prompt tokens whose KV is written
     num_pauses: int = 0
+    chunk_steps: int = 0          # prefill steps run (monolithic: per call)
 
     @property
     def prompt_len(self) -> int:
@@ -111,11 +116,13 @@ WATERMARK_PAGES = 1
 
 class Scheduler:
     def __init__(self, max_slots: int, pool: PagedKVPool, max_len: int, *,
-                 chunk_tokens: int, chunk_align: int = 1, telemetry=None):
+                 eager: bool = False, chunk_tokens: Optional[int] = None,
+                 chunk_align: int = 1, telemetry=None):
         self.max_slots = max_slots
         self.pool = pool
         self.max_len = max_len
-        self.chunk_tokens = chunk_tokens
+        self.eager = eager
+        self.chunk_tokens = chunk_tokens       # None: monolithic prefill
         self.chunk_align = max(1, chunk_align)   # layout m_r: chunks stay tiles
         self.obs = telemetry if telemetry is not None else _NULL_OBS
         self.waiting: Deque[Request] = deque()
@@ -124,6 +131,7 @@ class Scheduler:
         self._admit_counter = 0
         self.num_preemptions = 0
         self.num_pauses = 0
+        self.prefill_stall_steps = 0           # steps where a chunk got < ask
 
     @property
     def has_work(self) -> bool:
@@ -153,12 +161,18 @@ class Scheduler:
         self.waiting.insert(i, req)
         self.obs.request_queued(req)
 
-    def admit(self, now: Optional[float] = None) -> List[Request]:
+    def admit(self, now: Optional[float] = None,
+              limit: Optional[int] = None) -> List[Request]:
         """Admit waiting requests (FCFS) while a slot is free and the pool
-        has pages for the head's next chunk plus the watermark; ``now``
-        gates admission by arrival time."""
+        has pages for the head (its next chunk, its prompt, or with
+        ``eager`` its lifetime) plus the watermark.  Chunked: the admitted
+        request is ``"prefilling"``; monolithic: ``"running"``, its prompt's
+        pages held, for the engine to prefill.  ``now`` gates admission by
+        arrival time; ``limit`` caps this call's admissions (the
+        monolithic engine admits one at a time)."""
         admitted = []
         while (self.waiting and self._free_slots
+               and (limit is None or len(admitted) < limit)
                and (now is None or self.waiting[0].arrival <= now)):
             if not self._pages_available(self.waiting[0]):
                 # with nothing running nobody frees pages on their own:
@@ -174,15 +188,27 @@ class Scheduler:
             self._admit_counter += 1
             if req.pages is None:            # a paused request keeps its pages
                 req.pages = SequencePages(self.pool, owner=req.rid)
-            req.status = "prefilling"
-            req.len = req.prefill_cursor
+            if self.chunk_tokens is not None:
+                req.status = "prefilling"
+                req.len = req.prefill_cursor
+                if self.eager:               # the lifetime up front
+                    req.pages.ensure(req.kv_budget)
+            else:
+                req.status = "running"
+                req.pages.ensure(req.kv_budget if self.eager
+                                 else req.prompt_len)
             self.running[req.slot] = req
             self.obs.request_admitted(req)
             admitted.append(req)
         return admitted
 
     def _pages_available(self, req: Request) -> bool:
+        if self.eager:
+            return self.pool.can_fit(req.kv_budget)
         reserve = WATERMARK_PAGES if self.running else 0
+        if self.chunk_tokens is None:
+            return self.pool.pages_for(req.prompt_len) + reserve \
+                <= self.pool.num_available
         held = 0 if req.pages is None else len(req.pages.pages)
         first = min(req.prefill_cursor + self.chunk_tokens, req.prompt_len)
         need = max(0, self.pool.pages_for(first) - held)
@@ -201,6 +227,7 @@ class Scheduler:
             (r for r in self.running.values() if r.status == "prefilling"),
             key=lambda r: r.admit_seq)
         decoding = any(r.status == "running" for r in self.running.values())
+        stalled = False
         for idx, req in enumerate(prefilling):
             if req.slot < 0 or req.status != "prefilling":
                 continue                 # paused by an earlier reclaim pass
@@ -216,8 +243,12 @@ class Scheduler:
                     if idx == 0 and not decoding:
                         self._reclaim_for(req, n)
                     n = min(n, req.pages.capacity - req.prefill_cursor)
+            if n < want:
+                stalled = True
             plan[req.slot] = n
             budget -= n
+        if stalled:
+            self.prefill_stall_steps += 1
         return plan
 
     def plan_segments(self, decode_counts: Dict[int, int],

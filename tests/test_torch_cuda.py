@@ -1,5 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small shapes (chip_smoke.py repeats this at the full SmolLM2 widths).
+small shapes (chip_smoke.py repeats this at the full SmolLM2 widths), and
+the CUDA graphs of the three serving step families on SmolLM2 cut to 2
+layers:
+replay bit for bit the eager step, with the same launch counts, and no
+capture during a drain after warmup.
 A CUDA kernel has no interpret mode, so without a card these tests skip.
 Run them on the card with (``--noconftest``: tests/conftest.py imports JAX,
 which a machine with only the port need not have):
@@ -326,3 +330,154 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         unpack(pack(_rand(gen, (16, 256), torch.float32), 8, 128)
                .transpose(1, 2), 16, 256)
+
+
+@pytest.mark.parametrize("case", sorted(_RAGGED_CASES))
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+def test_ragged_fixed_plan_matches_per_step_plan(gen, dtype, tol, case):
+    """The fixed-size plan a served step replays (``slots=``: the width's
+    most tiles, its split count) gives the per-step plan's output: bit for
+    bit at the same split count (its empty tiles write nothing), within
+    tol at the per-step pick; padding positions stay zeros."""
+    segments, width = _RAGGED_CASES[case]
+    q, kp, vp, args, row_ids, q_pos = _ragged_case(gen, dtype, segments, width)
+    rows = 1 + max(r for r, _, _ in segments)
+    fixed = plan_ragged(row_ids, q_pos, 16, 64, 3, 132, group=3, slots=rows)
+    valid = torch.from_numpy(row_ids >= 0).cuda()
+    got = ragged_attention(q, kp, vp, plan=fixed.to("cuda"), **args)
+    same = ragged_attention(q, kp, vp, plan=_ragged_plan(row_ids, q_pos,
+                                                         fixed.splits), **args)
+    step = ragged_attention(q, kp, vp, plan=_ragged_plan(row_ids, q_pos), **args)
+    assert fixed.tiles >= _ragged_plan(row_ids, q_pos, fixed.splits).tiles
+    assert torch.equal(got, same)
+    assert (got[valid].float() - step[valid].float()).abs().max().item() <= tol
+    assert not got[~valid].any()
+
+
+# ---------------------------------------------------------------- CUDA graphs
+
+_FAMILY = {"flat": dict(chunk_tokens=64), "dense": dict(chunk_tokens=32, flat=False),
+           "monolithic": {}}
+# (family, rows as (lens, new tokens), step width): two step shapes each
+_GRAPH_CASES = {
+    "flat-decode": ("flat", [(70, 1), (15, 1), (33, 1), (100, 1)], 16),
+    "flat-mixed": ("flat", [(40, 1), (0, 37), (64, 1)], 64),
+    "dense-mixed": ("dense", [(50, 1), (16, 32), (0, 9)], 32),
+    "dense-decode": ("dense", [(9, 1), (90, 1), (31, 1), (16, 1)], 1),
+    "monolithic-prefill": ("monolithic", [(0, 27)], 32),
+    "monolithic-decode": ("monolithic", [(27, 1), (5, 1), (0, 0), (111, 1)], 1),
+}
+
+
+def _small_engine(family, dtype, **kw):
+    """SmolLM2-135M's widths (ragged attention takes its d_head of 64 only)
+    cut to 2 layers and a 512-token vocabulary."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    cfg = dataclasses.replace(get_config("smollm2-135m"), n_layers=2, vocab=512)
+    name = str(dtype)[6:]
+    model = build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
+                        ShapeSpec("serve", 128, 4, "decode"), device="cuda")
+    return Engine(model, model.init(torch.Generator().manual_seed(0)),
+                  device="cuda", max_slots=4, page_tokens=16, **_FAMILY[family],
+                  **kw)
+
+
+def _step_inputs(eng, rows, width):
+    """Host inputs of one step of ``eng``'s family: each row's pages drawn
+    from the pool, its new tokens at positions lens.. (as the engine lays
+    them out)."""
+    rng = np.random.default_rng(width)
+    mp = eng.max_pages
+    pages = list(rng.permutation(eng.pool.num_pages - 1) + 1)
+    b = 1 if not eng.chunked and width > 1 else eng.slots   # a prefill: [1, b]
+    bt = np.zeros((b if not eng.flat else eng.slots, mp), np.int32)
+    for r, (l, n) in enumerate(rows):
+        need = -(-(l + n) // 16)
+        bt[r, :need] = [pages.pop() for _ in range(need)]
+    if eng.flat:
+        token = np.zeros((1, width), np.int32)
+        row_ids = np.full(width, -1, np.int32)
+        q_pos = np.zeros(width, np.int32)
+        idx = np.zeros(eng.slots, np.int32)
+        pos = 0
+        for r, (l, n) in enumerate(rows):
+            token[0, pos:pos + n] = rng.integers(0, 512, n)
+            row_ids[pos:pos + n] = r
+            q_pos[pos:pos + n] = l + np.arange(n)
+            idx[r] = pos + n - 1
+            pos += n
+        plan = plan_ragged(row_ids, q_pos, 16, mp, 3, 132, group=3, slots=eng.slots)
+        return (token, bt, row_ids, q_pos, idx), plan, np.ones(1, bool)
+    token = np.zeros((b, width), np.int32)
+    lens = np.zeros(b, np.int32)
+    counts = np.zeros(b, np.int32)
+    for r, (l, n) in enumerate(rows):
+        token[r, :n] = rng.integers(0, 512, n)
+        lens[r], counts[r] = l, n
+    return (token, bt, lens, counts, None), None, counts > 0
+
+
+@pytest.mark.parametrize("case", sorted(_GRAPH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_graph_replay_equals_eager_step(gen, dtype, case):
+    """After warmup, a step of each family replays its graph: no capture,
+    logits bit for bit those of the model's eager step method on the same
+    inputs and state (valid rows: an inert row attends over nothing), and
+    the replay adds to every wrapper count what the eager call adds."""
+    from repro_torch import kernels
+    family, rows, width = _GRAPH_CASES[case]
+    eng = _small_engine(family, dtype)
+    eng.warmup()
+    for t in (eng.caches["p0"]["kv"]["k_pages"], eng.caches["p0"]["kv"]["v_pages"]):
+        t.copy_(_rand(gen, t.shape, dtype))
+    host, plan, valid = _step_inputs(eng, rows, width)
+    step = eng._flat_step if eng.flat else eng._paged_step
+    graphs = dict(eng.model.trace_counts)
+    c0 = kernels.counters()
+    args = [None if a is None else torch.from_numpy(a) for a in host]
+    got, _ = step(eng.params, eng.caches, *args, plan=plan)
+    got = got.clone()
+    c1 = kernels.counters()
+    extra = {} if plan is None else {"plan": plan.to("cuda")}
+    want, _ = step.fn(eng.params, eng.caches,
+                      *(None if a is None else a.cuda() for a in args), **extra)
+    c2 = kernels.counters()
+    torch.cuda.synchronize()
+    assert dict(eng.model.trace_counts) == graphs
+    mask = torch.from_numpy(valid).cuda()
+    assert torch.equal(got[mask], want[mask])
+    assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
+    assert c1["mmt4d"] - c0["mmt4d"] == 2 * 7 + 1
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILY))
+def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
+    """A drain with admissions, chunks, growth and a pool small enough to
+    preempt: every step replays a graph captured at warmup, and the counts
+    give the expected launches per model call."""
+    from repro_torch import kernels
+    eng = _small_engine(family, torch.float32, num_pages=1 + 6)
+    eng.warmup()
+    graphs = eng.stats()["compiles"]
+    assert sum(graphs.values()) > 0
+    calls = []
+    name = "_run_flat" if eng.flat else "_run_paged"
+    run = getattr(eng, name)
+    setattr(eng, name, lambda *a, **k: calls.append(1) or run(*a, **k))
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, 512, n), k) for n, k in ((4, 16), (25, 10), (6, 16), (30, 8))]
+    kernels.reset_launch_counts()
+    for p, k in reqs:
+        eng.add_request(p, k)
+    fin = eng.drain()
+    assert len(fin) == 4 and eng.pool.num_used == 0
+    assert eng.num_preemptions + eng.num_pauses >= 1
+    assert eng.stats()["compiles"] == graphs
+    n = len(calls)
+    want = {"mmt4d": 15 * n, "pack": 5 * n, "unpack": n,
+            "ragged_attn": 2 * n if eng.flat else 0}
+    assert kernels.launch_counts() == want

@@ -9,8 +9,9 @@ port's standing rules.
 - No module of the port, and not chip_smoke.py, imports jax or the JAX
   package (an AST scan).
 - ``build_model`` and ``Engine`` default to the card and raise without
-  one unless ``device="cpu"`` is passed; the flat-only engine raises on
-  every path it does not serve.
+  one unless ``device="cpu"`` is passed; the engine raises on every path
+  it does not serve (speculation, the prefix cache, sampled picks) and on
+  ``flat=True`` without ``chunk_tokens``.
 """
 
 import ast
@@ -121,10 +122,12 @@ def test_entry_points_need_a_card_unless_cpu(models, monkeypatch):
     eng.add_request(np.arange(5), 2)
     with pytest.raises(NotImplementedError):
         eng.drain(greedy=False)
-    for kw in (dict(), dict(chunk_tokens=16, spec_tokens=2),
+    for kw in (dict(spec_tokens=2), dict(chunk_tokens=16, spec_tokens=2),
                dict(chunk_tokens=16, prefix_cache=True)):
         with pytest.raises(NotImplementedError):
             Engine(m, params, device="cpu", max_slots=3, **kw)
+    with pytest.raises(ValueError, match="flat=True needs chunk_tokens"):
+        Engine(m, params, device="cpu", max_slots=3, flat=True)
 
 
 def test_nan_guard_retires_only_the_bad_row(models):

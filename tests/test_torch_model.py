@@ -1,9 +1,12 @@
 """The port's model vs the JAX package on reduced SmolLM2 (2 layers,
-float32): one flat step on identical pools and block tables, with the
-reference's parameters carried across by ``from_jax_params``.  Logits
-agree within 1e-5; the pools agree everywhere except the trash page 0
-(padding writes land there in an unspecified order).  Also the shared
-components the step runs: packed RMSNorm and neox RoPE."""
+float32): one flat step and one paged step (decode rows, a monolithic
+prefill bucket, a mixed chunk step) on identical pools and block tables,
+with the reference's parameters carried across by ``from_jax_params``.
+Logits agree within 1e-5 on valid rows (an inert row attends over
+nothing and carries garbage in both packages); the pools agree everywhere
+except the trash page 0 (padding writes land there in an unspecified
+order), and the paged scatter alone writes them bit for bit.  Also the
+shared components the steps run: packed RMSNorm and neox RoPE."""
 
 import jax
 import jax.numpy as jnp
@@ -20,13 +23,14 @@ from repro.core.linear import MatmulContext as JCtx
 from repro.core.linear import prepack_params as jprepack
 from repro.core.propagation import pack_activation as jpack_activation
 from repro.models.attention import core_attention as jcore_attention
+from repro.models.attention import paged_kv_update as jpaged_kv_update
 from repro.models.common import apply_rope as japply_rope
 from repro.models.model import build_model as jbuild_model
 from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
 from repro_torch.core.hardware import presets as tpresets
 from repro_torch.core.linear import MatmulContext, prepack_params
 from repro_torch.core.propagation import pack_activation
-from repro_torch.models.attention import core_attention
+from repro_torch.models.attention import core_attention, paged_kv_update
 from repro_torch.models.common import apply_rope
 from repro_torch.models.model import build_model
 from repro_torch.weights import from_jax_params
@@ -95,6 +99,87 @@ def test_flat_decode_step_matches_jax(models, prepack):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
         # the scatter wrote exactly the valid positions' pages
         assert not np.array_equal(got, fill["p0"]["kv"][kind][:, 1:])
+
+
+# (token width, [(lens, new_counts)] per row): decode rows, a monolithic
+# prefill at its bucket, and a dense chunked step mixing a decode row, a
+# mid-prompt chunk and an inert row
+PAGED_CASES = {
+    "decode": (1, [(17, 1), (5, 1), (30, 1)]),
+    "prefill bucket": (16, [(0, 13)]),
+    "mixed chunk": (8, [(20, 1), (8, 8), (0, 0)]),
+}
+
+
+def _fill(jcaches, seed):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda x: rng.standard_normal(x.shape).astype(np.float32), jcaches)
+
+
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_decode_step_matches_jax(models, case):
+    jm, jparams, m, params = models
+    pages, t, mp = 14, 8, 8
+    s, rows = PAGED_CASES[case]
+    rng = np.random.default_rng(2)
+    b = len(rows)
+    lens = np.array([l for l, _ in rows], np.int32)
+    counts = np.array([n for _, n in rows], np.int32)
+    bt = np.zeros((b, mp), np.int32)
+    free = list(rng.permutation(pages - 1) + 1)
+    for r, (l, n) in enumerate(rows):
+        need = -(-(l + n) // t)
+        bt[r, :need] = [free.pop() for _ in range(need)]
+    token = rng.integers(0, 512, (b, s)).astype(np.int32)
+    fill = _fill(jm.init_paged_cache(pages, t, b), 3)
+    caches = from_jax_params(fill)
+    jlogits, jnew = jm.paged_decode_step(
+        jprepack(jparams, jm.ctx), jax.tree.map(jnp.asarray, fill),
+        *(jnp.asarray(x) for x in (token, bt, lens, counts)))
+    logits, new = m.paged_decode_step(
+        prepack_params(params, m.ctx), caches,
+        *(torch.from_numpy(x) for x in (token, bt, lens, counts)))
+    assert new is caches                      # pools are updated in place
+    assert tuple(logits.shape) == jlogits.shape == (b, 1, 512)
+    valid = counts > 0
+    np.testing.assert_allclose(logits.numpy()[valid],
+                               np.asarray(jlogits)[valid], rtol=1e-5, atol=1e-5)
+    for kind in ("k_pages", "v_pages"):
+        np.testing.assert_allclose(new["p0"]["kv"][kind].numpy()[:, 1:],
+                                   np.asarray(jnew["p0"]["kv"][kind])[:, 1:],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_paged_kv_update_matches_jax_bit_for_bit():
+    """The scatter writes every valid position where the reference does,
+    bit for bit (invalid ones go to the trash page 0 in an unspecified
+    order); the gathered streams and the length mask are the reference's."""
+    rng = np.random.default_rng(8)
+    pages, t, mp, hkv, dh = 12, 8, 4, 2, 16
+    kp, vp = rng.standard_normal((2, pages, t, hkv, dh)).astype(np.float32)
+    k, v = rng.standard_normal((2, 3, 16, hkv, dh)).astype(np.float32)
+    lens = np.array([9, 0, 30], np.int32)
+    counts = np.array([16, 0, 1], np.int32)
+    bt = np.array([[3, 4, 5, 0], [0, 0, 0, 0], [6, 7, 8, 9]], np.int32)
+    args = dict(lens=lens, new_counts=counts, block_tables=bt)
+    jc, jk, jv, jmask = jpaged_kv_update(
+        {"k_pages": jnp.asarray(kp), "v_pages": jnp.asarray(vp)},
+        jnp.asarray(k), jnp.asarray(v),
+        **{a: jnp.asarray(x) for a, x in args.items()})
+    cache = {"k_pages": torch.from_numpy(kp.copy()),
+             "v_pages": torch.from_numpy(vp.copy())}
+    c, tk, tv, tmask = paged_kv_update(
+        cache, torch.from_numpy(k), torch.from_numpy(v),
+        **{a: torch.from_numpy(x) for a, x in args.items()})
+    assert c is cache
+    for kind in ("k_pages", "v_pages"):
+        got, want = c[kind].numpy(), np.asarray(jc[kind])
+        assert np.array_equal(got[1:], want[1:])
+    assert np.array_equal(tmask.numpy(), np.asarray(jmask))
+    live = np.asarray(jmask)
+    assert np.array_equal(tk.numpy()[live], np.asarray(jk)[live])
+    assert np.array_equal(tv.numpy()[live], np.asarray(jv)[live])
 
 
 def test_packed_rms_norm_matches_jax():

@@ -6,7 +6,10 @@ atol/rtol 1e-5: the same softmax, summed in another order (the Pallas
 kernel's online softmax rescales per page).
 
 The card kernel's plan (``plan_ragged``) over the layouts the port's
-scheduler lays out at every flat width, and the plan's arithmetic
+scheduler lays out at every flat width; the fixed-size plan a served step
+uses (``slots=``: one size per width, so a CUDA graph replays it) over
+those layouts and over any layout of up to ``slots`` row segments (a
+property test); and the plan's arithmetic
 (``ragged_attention_planned``: per-block partials over page ranges, merged
 in split order) against the JAX package's oracle to 1e-6 in float32."""
 
@@ -14,14 +17,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels.ragged_attn.kernel import ragged_attention_kernel_call
 from repro.kernels.ragged_attn.ref import (flat_write_destinations as
                                            jflat_write_destinations)
 from repro.kernels.ragged_attn.ref import ragged_attention_ref as jref
 from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
-from repro_torch.kernels.ragged_attn.ops import (MAX_CLUSTER, TILE, pick_splits,
-                                                 plan_ragged, ragged_attention)
+from repro_torch.kernels.ragged_attn.ops import (MAX_CLUSTER, TILE, max_tiles,
+                                                 pick_splits, plan_ragged,
+                                                 ragged_attention)
 from repro_torch.kernels.ragged_attn.ref import (flat_write_destinations,
                                                  ragged_attention_planned)
 from repro_torch.models.model import build_model
@@ -174,6 +180,68 @@ def test_plan_over_scheduler_layouts(scheduler_layouts, width):
         for s in range(1, MAX_CLUSTER + 1):
             _check_plan(plan_ragged(row_ids, q_pos, TILE, mp, sm_count=SM_COUNT,
                                     splits=s, **SMOLLM2), row_ids, q_pos, mp)
+
+
+def _check_fixed_plan(row_ids, q_pos, mp, slots):
+    """The fixed-size plan is the per-step plan at the width's split
+    count, then empty tiles (no positions, padding row, no pages) up to
+    the width's most tiles; its size and split count depend on the width
+    alone."""
+    w = row_ids.shape[0]
+    fixed = plan_ragged(row_ids, q_pos, TILE, mp, sm_count=SM_COUNT,
+                        slots=slots, **SMOLLM2)
+    n_tiles = max_tiles(w, slots, TILE)
+    assert fixed.splits == pick_splits(n_tiles, mp, SMOLLM2["hkv"], SM_COUNT)
+    assert fixed.items.shape == (n_tiles * fixed.splits, 6)
+    live = plan_ragged(row_ids, q_pos, TILE, mp, sm_count=SM_COUNT,
+                       splits=fixed.splits, **SMOLLM2)
+    _check_plan(live, row_ids, q_pos, mp)
+    k = live.items.shape[0]
+    assert np.array_equal(fixed.items[:k], live.items)
+    assert (fixed.items[k:] == [0, 0, -1, 0, 0, 0]).all()
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_fixed_plan_over_scheduler_layouts(scheduler_layouts, width):
+    for row_ids, q_pos, mp in scheduler_layouts[width]:
+        _check_fixed_plan(row_ids, q_pos, mp, slots=4)
+
+
+@st.composite
+def _row_layouts(draw):
+    """A flat stream of up to ``slots`` row segments (consecutive q_pos
+    each, in any row order) then padding: what a step lays out."""
+    width = draw(st.sampled_from(WIDTHS))
+    slots = draw(st.integers(1, 8))
+    rows = draw(st.permutations(range(slots)))[:draw(st.integers(0, slots))]
+    row_ids = np.full(width, -1, np.int32)
+    q_pos = np.zeros(width, np.int32)
+    pos = 0
+    for r in rows:
+        if pos == width:
+            break
+        n = draw(st.integers(1, width - pos))
+        first = draw(st.integers(0, 1023 - n))
+        row_ids[pos:pos + n] = r
+        q_pos[pos:pos + n] = first + np.arange(n)
+        pos += n
+    return row_ids, q_pos, slots
+
+
+@settings(max_examples=150, deadline=None)
+@given(_row_layouts())
+def test_fixed_plan_holds_every_row_layout(layout):
+    row_ids, q_pos, slots = layout
+    _check_fixed_plan(row_ids, q_pos, 64, slots)
+
+
+def test_fixed_plan_refuses_more_rows():
+    """A layout with more row segments than the plan was sized for is
+    refused, never cut."""
+    row_ids = np.arange(16, dtype=np.int32)          # 16 decode rows
+    with pytest.raises(ValueError, match="tiles at width 16"):
+        plan_ragged(row_ids, np.zeros(16, np.int32), TILE, 64,
+                    sm_count=SM_COUNT, slots=4, **SMOLLM2)
 
 
 def test_pick_splits_rule():
