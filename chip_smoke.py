@@ -38,8 +38,27 @@ step a replay of a CUDA graph captured at warmup:
      no graph captured during the drain;
      in phases 4 and 5 the replay of two step shapes of each drain is held
      bit for bit to the model's eager step on the same inputs and state;
-  6. the kernels JSON line (launches from the flat drain, the main path;
-     each other family's beside them), then the result line.
+  6. sampled picks: phase 4's drains sampled (seed 11, per-request
+     temperatures), card vs CPU in each family, equal apart from picks
+     whose perturbed top-2 margin is below F32_MARGIN (counted); then a
+     sampled bf16 drain of phase 5's requests on its warmed engines, the
+     families held to each other under BF16_MARGIN;
+  7. two warmed engines of one family over one model (each family): the
+     second warmup leaves the model's trace_counts where they were, each
+     engine counts its own captures, and the device memory of the second
+     comes back once it is dropped;
+  8. prefix cache and speculative decode at full width, f32 then bf16,
+     each family: baseline, prefix_cache=True, and spec_tokens=2 with the
+     n-gram drafter and with a draft model (SmolLM2-135M cut to 2 layers),
+     each over the spec trace and (baseline and cache) the shared-prefix
+     trace, greedy and sampled; picks held to the baseline's under the
+     dtype's margin; prefill tokens with the cache at most half those
+     without, the refcount ledger balanced after clear(), acceptance and
+     rollback pages printed, no capture after warmup (the draft model's
+     included), every kernel of the path launched in every drain, and
+     tokens/s and ms per step of each drain;
+  9. the kernels JSON line (launches from the flat drain, the main path;
+     each other path's beside them), then the result line.
 
 Usage:  python3 chip_smoke.py [--out results.json]
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -85,6 +104,14 @@ REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
 # order; bfloat16 may round the float32 result to a neighbouring value
 TOL = {TF: 1e-4, BF: 2e-2}
 L2_FLUSH_BYTES = 64 * 2**20     # operand copies per cold-timed case pass this
+# two runs of one drain may pick differently only where a pick's (perturbed,
+# for a sampled pick) top-2 logit margin is below this: float32 logits of
+# the card and the CPU, or of two batch layouts, differ by about 1e-6; the
+# bfloat16 logits of two layouts by about a bfloat16 ulp of the logits
+F32_MARGIN = 1e-5
+BF16_MARGIN = 0.0625
+# the sampled drains' per-request temperatures, in turn (0 picks greedily)
+TEMPERATURES = (1.0, 0.7, 1.3, 0.0)
 
 
 def cold_sets(*tensors):
@@ -467,8 +494,8 @@ class ReplayCheck:
     def __init__(self, step, shapes: int = 2):
         self.step, self.shapes, self.checked = step, shapes, []
 
-    def __call__(self, params, caches, *args, plan=None):
-        out, caches = self.step(params, caches, *args, plan=plan)
+    def __call__(self, params, caches, *args, plan=None, graphs=None):
+        out, caches = self.step(params, caches, *args, plan=plan, graphs=graphs)
         sig = self.step.signature(args, plan)
         if len(self.checked) < self.shapes and sig not in self.checked:
             from repro_torch import kernels
@@ -509,11 +536,70 @@ def count_model_calls(eng) -> list:
     return calls
 
 
-def serve_f32(device, cfg, prompts, family):
-    """Greedy drain at full width in float32 through one step family;
-    returns tokens, the first model call's logits, each pick's top-2
-    margin in pick order, and on the card the graphs captured at warmup
-    and the shapes checked replay against eager."""
+class PickRecorder:
+    """Wraps an engine's pick: records every pick as (rid, position) ->
+    (token, top-2 margin of the row it was picked from: the logits, or for
+    a sampled pick the logits over the temperature plus the Gumbel noise),
+    and the host seconds the recording itself took."""
+
+    def __init__(self, eng):
+        from repro_torch.serving import sampling
+        self.sampling, self.pick, self.picks, self.seconds = sampling, eng._pick, {}, 0.0
+        eng._pick = self
+
+    def __call__(self, row, req, greedy, seed):
+        tok = self.pick(row, req, greedy, seed)
+        t0 = time.perf_counter()
+        z = row
+        if not greedy and req.temperature > 0.0:
+            s = seed if req.seed is None else req.seed
+            key = self.sampling.pick_key(s, req.rid, len(req.out_tokens))
+            z = (row / np.float32(req.temperature) if req.temperature != 1.0 else row) \
+                + self.sampling.gumbel(key, row.shape[0])
+        top2 = np.partition(z, -2)[-2:]
+        self.picks[(req.rid, len(req.out_tokens))] = (tok, float(top2[1] - top2[0]))
+        self.seconds += time.perf_counter() - t0
+        return tok
+
+
+def compare_picks(a: dict, b: dict, tol: float, label: str) -> dict:
+    """Two runs' picks, request by request in position order: equal, or the
+    first difference of a request at a pick whose top-2 margin (in either
+    run) is below ``tol``, after which that request is compared no
+    further (its streams have parted).  Any other difference raises.
+    Returns the counts: picks compared, picks below ``tol`` in either run,
+    requests that parted and the largest margin at a parting."""
+    out = {"picks": 0, "low_margin_picks": 0, "parted": 0, "parted_margin": 0.0}
+    for rid in sorted({r for r, _ in a} | {r for r, _ in b}):
+        pos = sorted({p for r, p in a if r == rid} | {p for r, p in b if r == rid})
+        for p in pos:
+            ta, ma = a.get((rid, p), (None, 0.0))
+            tb, mb = b.get((rid, p), (None, 0.0))
+            out["picks"] += 1
+            out["low_margin_picks"] += int(min(ma, mb) < tol)
+            if ta != tb:
+                if not min(ma, mb) < tol:
+                    raise AssertionError(
+                        f"{label}: rid {rid} position {p}: {ta} vs {tb} at "
+                        f"top-2 margins {ma:.3e} / {mb:.3e} (tolerance {tol:g})")
+                out["parted"] += 1
+                out["parted_margin"] = max(out["parted_margin"], min(ma, mb))
+                print(f"  {label}: rid {rid} parts at position {p} ({ta} vs {tb}, "
+                      f"top-2 margins {ma:.3e} / {mb:.3e})")
+                break
+    print(f"  {label}: {out['picks']} picks compared, "
+          f"{out['low_margin_picks']} with a top-2 margin below {tol:g}, "
+          f"{out['parted']} requests parted")
+    return out
+
+
+def serve_f32(device, cfg, prompts, family, greedy=True):
+    """A drain at full width in float32 through one step family, greedy or
+    sampled (seed 11; the requests' temperatures 1.0, 0.7, 1.3 and 0 in
+    turn); returns tokens, the first model call's logits, each pick's
+    (rid, position) -> (token, perturbed top-2 margin), and on the card the
+    graphs captured at warmup and the shapes checked replay against
+    eager."""
     from repro_torch.configs import RunConfig, ShapeSpec
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
@@ -525,49 +611,45 @@ def serve_f32(device, cfg, prompts, family):
     info = {}
     if device == "cuda":
         eng.warmup()
-        info["captures"] = eng.stats()["compiles"]
+        info["captures"] = eng.stats()["captures"]
         check = attach_replay_check(eng)
-    calls, picks = count_model_calls(eng), []
-    pick = eng._pick
-
-    def recording_pick(row, greedy):
-        top2 = np.sort(row)[-2:]
-        picks.append((int(np.argmax(row)), float(top2[1] - top2[0])))
-        return pick(row, greedy)
-
-    eng._pick = recording_pick
-    rids = [eng.add_request(p, 8) for p in prompts]
-    fin = {r.rid: r.out_tokens for r in eng.drain()}
+    calls, picks = count_model_calls(eng), PickRecorder(eng)
+    rids = [eng.add_request(p, 8, temperature=TEMPERATURES[i % 4])
+            for i, p in enumerate(prompts)]
+    fin = {r.rid: r.out_tokens for r in eng.drain(greedy=greedy, seed=11)}
     if device == "cuda":
-        if eng.stats()["compiles"] != info["captures"]:
+        if eng.stats()["captures"] != info["captures"]:
             raise AssertionError(f"f32 {family} drain captured after warmup: "
-                                 f"{info['captures']} -> {eng.stats()['compiles']}")
+                                 f"{info['captures']} -> {eng.stats()['captures']}")
         info["replay_checked"] = len(check.checked)
-    return [fin[r] for r in rids], calls[0], picks, info
+    return [fin[r] for r in rids], calls[0], picks.picks, info
 
 
-def compare_f32(cfg, prompts, family) -> dict:
-    """The f32 drain of one family on the card and on the CPU: identical
-    greedy tokens, or the first differing pick with both top-2 margins."""
+def compare_f32(cfg, prompts, family, greedy=True) -> dict:
+    """The f32 drain of one family on the card and on the CPU.  Greedy:
+    identical tokens (the first differing pick, with both top-2 margins,
+    is printed before failing).  Sampled: identical tokens apart from a
+    pick whose perturbed top-2 margin is below F32_MARGIN, whose request is
+    compared no further; the count of such picks is printed."""
     t0 = time.perf_counter()
-    cuda_toks, cuda_first, cuda_picks, info = serve_f32("cuda", cfg, prompts, family)
-    cpu_toks, cpu_first, cpu_picks, _ = serve_f32("cpu", cfg, prompts, family)
+    cuda_toks, cuda_first, cuda_picks, info = serve_f32("cuda", cfg, prompts,
+                                                        family, greedy)
+    cpu_toks, cpu_first, cpu_picks, _ = serve_f32("cpu", cfg, prompts, family,
+                                                  greedy)
     diff = float(np.abs(cuda_first - cpu_first).max())
-    print(f"  {family}: first call max |logit diff| {diff:.3e}, graphs "
+    mode = "greedy" if greedy else "sampled"
+    print(f"  {family} {mode}: first call max |logit diff| {diff:.3e}, graphs "
           f"{info['captures']}, replay = eager bit for bit at "
           f"{info['replay_checked']} shapes ({time.perf_counter() - t0:.1f} s)")
-    for j, (a, b) in enumerate(zip(cuda_picks, cpu_picks)):
-        if a[0] != b[0]:
-            print(f"  {family} pick {j}: card {a[0]} (top-2 margin {a[1]:.3e}) "
-                  f"vs cpu {b[0]} (top-2 margin {b[1]:.3e})")
-            break
-    if cuda_toks != cpu_toks:
+    cmp = compare_picks(cuda_picks, cpu_picks, 0.0 if greedy else F32_MARGIN,
+                        f"f32 {mode} {family} card vs cpu")
+    if greedy and cuda_toks != cpu_toks:
         raise AssertionError(f"{family}: greedy tokens differ: card {cuda_toks} "
                              f"cpu {cpu_toks}")
     if info["replay_checked"] < 2:
         raise AssertionError(f"{family}: replay checked at "
                              f"{info['replay_checked']} shapes, not 2")
-    return {"tokens": cuda_toks, "first_logit_diff": diff, **info}
+    return {"tokens": cuda_toks, "first_logit_diff": diff, **cmp, **info}
 
 
 def drain_bf16(cfg, family, prompts, eng=None) -> dict:
@@ -609,6 +691,7 @@ def drain_bf16(cfg, family, prompts, eng=None) -> dict:
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     unpacked = kernels.wrappers()["mmt4d"].unpacked_stores
+    delattr(eng, "_run_flat" if eng.flat else "_run_paged")   # the counter
     st = eng.stats()
     n = len(calls)
     ntok = sum(len(r.out_tokens) for r in finished)
@@ -628,9 +711,9 @@ def drain_bf16(cfg, family, prompts, eng=None) -> dict:
     if eng.pool.num_used != 0 or not all(np.isfinite(c).all() for c in calls):
         raise AssertionError(f"{family}: pool used {eng.pool.num_used}, or "
                              f"non-finite logits")
-    if st["compiles"] != graphs:
+    if st["compiles"] != graphs or st["captures"] != graphs:
         raise AssertionError(f"{family}: captured during the drain: {graphs} -> "
-                             f"{st['compiles']}")
+                             f"{st['compiles']}, {st['captures']}")
     if len(check.checked) < 2:
         raise AssertionError(f"{family}: replay checked at {len(check.checked)} "
                              f"shapes, not 2")
@@ -648,7 +731,254 @@ def drain_bf16(cfg, family, prompts, eng=None) -> dict:
             "tokens": ntok, "tokens_per_s": ntok / wall, "warmup_s": warm_s,
             "graphs": graphs, "warmup_kept_mib": warm_mib,
             "launches": launches, "unpacked_stores": unpacked,
-            "replay_checked": len(check.checked), "stats": st}
+            "replay_checked": len(check.checked), "stats": st, "engine": eng}
+
+
+def leaves(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def check_path_launches(label, launches, flat) -> None:
+    """Every kernel of the path ran in the drain just read: all four in
+    the flat family, all but ragged_attn in the paged ones (which attend
+    through PyTorch and must not launch it)."""
+    for k, n in launches.items():
+        if (n == 0) != (k == "ragged_attn" and not flat):
+            raise AssertionError(f"{label}: {k} launched {n} times")
+
+
+def timed_drain(eng, reqs, greedy, seed, label, staggered=False) -> dict:
+    """Queue ``reqs`` ((prompt, max_new, temperature) each) and drain them,
+    recording every pick, with the wrapper counts set to 0 just before and
+    read just after; checks that the drain captured no graph (the engine's
+    and its draft model's) and that every kernel of the path ran.
+    ``staggered``: request i arrives at 2i on a clock that advances one
+    per step, so admissions see earlier requests' cached pages."""
+    from repro_torch import kernels
+    rec = eng._pick if isinstance(eng._pick, PickRecorder) else PickRecorder(eng)
+    rec.picks, rec.seconds = {}, 0.0
+    st0 = eng.stats()
+    rids = [eng.add_request(p, n, temperature=t,
+                            arrival=float(2 * i) if staggered else 0.0)
+            for i, (p, n, t) in enumerate(reqs)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fin, clock = [], 0.0
+    while eng.scheduler.has_work:
+        fin.extend(eng.step(now=clock if staggered else None, greedy=greedy,
+                            seed=seed))
+        clock += 1.0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    if sorted(r.rid for r in fin) != sorted(rids) or any(
+            r.finish_reason != "length" for r in fin):
+        raise AssertionError(f"{label}: not every request finished")
+    if st["captures"] != st0["captures"] or (
+            "speculative" in st and st["speculative"]["drafter"].get("captures")
+            != st0["speculative"]["drafter"].get("captures")):
+        raise AssertionError(f"{label}: captured during the drain")
+    check_path_launches(label, launches, eng.flat)
+    steps = st["steps"] - st0["steps"]
+    ntok = sum(len(r.out_tokens) for r in fin)
+    host = wall - rec.seconds
+    out = {"wall_s": wall, "recording_s": rec.seconds, "steps": steps,
+           "tokens": ntok, "tokens_per_s": ntok / host,
+           "ms_per_step": 1e3 * host / max(1, steps),
+           "prefill_tokens": st["prefill_tokens"] - st0["prefill_tokens"],
+           "launches": launches, "picks": dict(rec.picks)}
+    extra = ""
+    if "speculative" in st:
+        sp, sp0 = st["speculative"], st0["speculative"]
+        drafted = sp["drafted"] - sp0["drafted"]
+        out.update(drafted=drafted, accepted=sp["accepted"] - sp0["accepted"],
+                   rollback_pages=sp["rollback_pages"] - sp0["rollback_pages"])
+        out["acceptance_rate"] = out["accepted"] / max(1, drafted)
+        extra = (f", acceptance {out['acceptance_rate']:.3f} ({out['accepted']}/"
+                 f"{drafted}), rollback pages {out['rollback_pages']}")
+    print(f"  {label}: {steps} steps, {ntok} tokens, {wall:.3f} s wall "
+          f"({rec.seconds:.3f} s of it recording picks), "
+          f"{out['ms_per_step']:.3f} ms per step, {out['tokens_per_s']:.1f} "
+          f"generated tokens/s, prefill tokens {out['prefill_tokens']}{extra}")
+    return out
+
+
+def prefix_trace(vocab, n=12, sys_tokens=256, seed=0):
+    """The shared-system-prompt trace of the JAX package's serving
+    benchmark (``make_prefix_trace``), drawn with numpy: one system prompt
+    of ``sys_tokens`` plus a 2-6-token suffix per request, 3-16 new
+    tokens; the temperatures cycle through TEMPERATURES.  The last request
+    is the bare system prompt, whole pages all cached by then: its prefill
+    restarts inside the last shared page, which is copied first."""
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, vocab, sys_tokens)
+    reqs = [(np.concatenate([sysp, rng.integers(0, vocab, int(rng.integers(2, 7)))]),
+             int(rng.integers(3, 17)), TEMPERATURES[i % 4]) for i in range(n - 1)]
+    return reqs + [(sysp, 8, TEMPERATURES[(n - 1) % 4])]
+
+
+def spec_trace(vocab, n=8, seed=0):
+    """The speculative trace of the JAX package's serving benchmark
+    (``make_spec_trace``), drawn with numpy: a 4-token motif tiled to at
+    most 16 tokens per prompt, 16-32 new tokens."""
+    rng = np.random.default_rng(seed)
+    return [(np.tile(rng.integers(0, vocab, 4), int(rng.integers(2, 5)))[:16],
+             int(rng.integers(16, 33)), TEMPERATURES[i % 4]) for i in range(n)]
+
+
+def serve_variants(cfg, dtype, families) -> dict:
+    """Prefix cache and speculation at full width in one dtype, each
+    family: engines over one model (signatures per model, graphs per
+    engine), each warmed, then the spec trace greedy and sampled and (the
+    baseline and the cache) the prefix trace greedy and sampled, in that
+    order on every engine, so the request ids, and the sampled keys, match.
+    Variants: "off" (the baseline), "cache" (prefix_cache=True), "ngram"
+    and "draft" (spec_tokens=2 with NgramDrafter and with
+    DraftModelDrafter over SmolLM2-135M cut to 2 layers).  Each variant's
+    picks are held to the baseline's under the dtype's margin rule."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.speculative import DraftModelDrafter
+    name = str(dtype)[6:]
+    run = RunConfig(param_dtype=name, compute_dtype=name)
+    shape = ShapeSpec("serve", 1024, 4, "decode")
+    model = build_model(cfg, run, shape, device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    dmodel = build_model(dataclasses.replace(cfg, n_layers=2), run, shape,
+                         device="cuda")
+    dparams = dmodel.init(torch.Generator().manual_seed(7))
+    tol = F32_MARGIN if dtype is TF else BF16_MARGIN
+    traces = {"spec": spec_trace(cfg.vocab), "prefix": prefix_trace(cfg.vocab)}
+    out = {}
+    for family in families:
+        base = {}
+        for variant in ("off", "cache", "ngram", "draft"):
+            kw = dict(FAMILIES_BF16[family])
+            if variant == "cache":
+                kw["prefix_cache"] = True
+            elif variant != "off":
+                kw["spec_tokens"] = 2
+                if variant == "draft":
+                    kw["drafter"] = DraftModelDrafter(dmodel, dparams)
+            eng = Engine(model, params, device="cuda", max_slots=4,
+                         page_tokens=16, **kw)
+            t0 = time.perf_counter()
+            eng.warmup()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            pools = {id(t): t.data_ptr() for t in leaves(eng.caches)}
+            if variant == "cache":
+                # the page copy: in place, and nothing read back to the host
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.pool.page_copier(0, 0)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            st = eng.stats()
+            dcap = st.get("speculative", {}).get("drafter", {}).get("captures")
+            print(f"  {name} {family} {variant}: warmup {warm_s:.3f} s, captures "
+                  f"{st['captures']}" + (f", draft model {dcap}" if dcap else ""))
+            runs = {}
+            for trace in ("spec", "prefix") if variant in ("off", "cache") else ("spec",):
+                for greedy in (True, False):
+                    mode = "greedy" if greedy else "sampled"
+                    label = f"{name} {family} {variant} {trace} {mode}"
+                    r = timed_drain(eng, traces[trace], greedy, 5, label,
+                                    staggered=trace == "prefix")
+                    if variant == "off":
+                        base[f"{trace} {mode}"] = r
+                    else:
+                        r["vs_off"] = compare_picks(base[f"{trace} {mode}"]["picks"],
+                                                    r["picks"], tol,
+                                                    f"{label} vs off")
+                    runs[f"{trace} {mode}"] = r
+            if {id(t): t.data_ptr() for t in leaves(eng.caches)} != pools:
+                raise AssertionError(f"{name} {family} {variant}: a KV pool "
+                                     f"was reallocated or rebound")
+            if variant == "cache":
+                off_pf = base["prefix greedy"]["prefill_tokens"]
+                on_pf = runs["prefix greedy"]["prefill_tokens"]
+                pc = eng.stats()["prefix_cache"]
+                eng.prefix_cache.clear()
+                ledger, pool = eng.pool.ledger(), eng.pool
+                balance = pool.total_allocs + pool.total_shares - pool.total_frees
+                print(f"  {name} {family} cache: prefill tokens {on_pf} with the "
+                      f"cache, {off_pf} without ({on_pf / off_pf:.3f}x); hits "
+                      f"{pc['hits']} of {pc['lookups']} lookups, {pc['hit_tokens']} "
+                      f"hit tokens, {pc['cow_copies']} copy-on-write copies; after "
+                      f"clear(): {len(ledger['refs'])} live pages, "
+                      f"{len(ledger['free'])} free of {pool.usable_pages}, "
+                      f"allocs + shares - frees = {balance}")
+                if on_pf > 0.5 * off_pf or ledger["refs"] or balance \
+                        or len(ledger["free"]) != pool.usable_pages \
+                        or pc["cow_copies"] < 2:
+                    raise AssertionError(f"{name} {family} cache: prefill "
+                                         f"{on_pf} vs {off_pf}, or the pool "
+                                         f"does not balance")
+            out[(family, variant)] = {"warmup_s": warm_s, "captures": st["captures"],
+                                      "draft_captures": dcap, "runs": runs,
+                                      **({"prefix_cache": pc} if variant == "cache"
+                                         else {})}
+            del eng
+            gc.collect()
+    for r in out.values():
+        for run_ in r["runs"].values():
+            run_.pop("picks", None)
+    return out
+
+
+def c1_two_engines(bf16_engines) -> dict:
+    """Two warmed engines of one family over one model: the second warmup
+    leaves the model's trace_counts where they were, each engine counts
+    its own captures, and once the second is dropped the device memory it
+    took (its graphs, their static buffers and pool, its prepacked
+    weights and KV pools) comes back."""
+    import gc
+    from repro_torch.serving.engine import Engine
+    out = {}
+    for family, first in bf16_engines.items():
+        model = first.model
+        counts = dict(model.trace_counts)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        second = Engine(model, model.init(torch.Generator().manual_seed(1)),
+                        device="cuda", max_slots=4, page_tokens=16,
+                        **FAMILIES_BF16[family])
+        second.warmup()
+        torch.cuda.synchronize()
+        alloc1 = torch.cuda.memory_allocated()
+        caps = (first.stats()["captures"], second.stats()["captures"])
+        after = dict(model.trace_counts)
+        del second
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        alloc2, res2 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        print(f"  {family}: trace_counts {counts} -> {after} at the second "
+              f"warmup; captures {caps[0]} and {caps[1]}; allocated "
+              f"{alloc0 / 2**20:.1f} -> {alloc1 / 2**20:.1f} -> "
+              f"{alloc2 / 2**20:.1f} MiB, reserved {res0 / 2**20:.1f} -> "
+              f"{res2 / 2**20:.1f} MiB after the second is dropped")
+        if after != counts or caps[0] != caps[1] or caps[0] != counts \
+                or alloc2 != alloc0 or res2 > res0:
+            raise AssertionError(f"C1 {family}: counts {counts} -> {after}, "
+                                 f"captures {caps}, allocated {alloc0} -> "
+                                 f"{alloc2}, reserved {res0} -> {res2}")
+        out[family] = {"trace_counts": counts, "captures": caps[1],
+                       "second_engine_mib": (alloc1 - alloc0) / 2**20,
+                       "allocated_back": alloc2 == alloc0}
+    return out
 
 
 def main(argv=None) -> int:
@@ -704,6 +1034,15 @@ def main(argv=None) -> int:
                              f"{ {k: r['tokens'] for k, r in f32.items()} }")
     print(f"  greedy tokens identical, card = CPU, flat = dense = monolithic: "
           f"{f32['flat']['tokens']}")
+    print(f"end to end, float32, sampled (seed 11, temperatures "
+          f"{TEMPERATURES}): the same drains, card vs CPU plain path, each "
+          f"family; a pick may differ only below a perturbed top-2 margin of "
+          f"{F32_MARGIN:g}")
+    f32_sampled = {fam: compare_f32(cfg, prompts, fam, greedy=False)
+                   for fam in FAMILIES_F32}
+    print(f"  picks below the margin: "
+          f"{ {k: r['low_margin_picks'] for k, r in f32_sampled.items()} }, "
+          f"requests parted: { {k: r['parted'] for k, r in f32_sampled.items()} }")
 
     print("end to end, bfloat16: Engine(max_slots=4, page_tokens=16), seq_len "
           "1024, 8 requests x 32 new tokens, each family (flat and dense: "
@@ -716,6 +1055,41 @@ def main(argv=None) -> int:
            for fam in FAMILIES_BF16}
     launches, steps = e2e["flat"]["launches"], e2e["flat"]["steps"]
     unpacked = e2e["flat"]["unpacked_stores"]
+    engines = {fam: r.pop("engine") for fam, r in e2e.items()}
+    by_path = {f: r["launches"] for f, r in e2e.items()}
+
+    print(f"end to end, bfloat16, sampled (seed 3, temperatures "
+          f"{TEMPERATURES}): the same 8 requests on the warmed engines, each "
+          f"family; the families' picks may differ only below a perturbed "
+          f"top-2 margin of {BF16_MARGIN:g} ({card})")
+    reqs = [(p, 32, TEMPERATURES[i % 4]) for i, p in enumerate(prompts)]
+    bf16_sampled = {fam: timed_drain(e, reqs, False, 3, f"bf16 {fam} sampled")
+                    for fam, e in engines.items()}
+    flat_picks = bf16_sampled["flat"].pop("picks")
+    for fam in ("dense", "monolithic"):
+        bf16_sampled[fam]["vs_flat"] = compare_picks(
+            flat_picks, bf16_sampled[fam].pop("picks"), BF16_MARGIN,
+            f"bf16 sampled {fam} vs flat")
+        by_path[f"{fam} sampled"] = bf16_sampled[fam]["launches"]
+    by_path["flat sampled"] = bf16_sampled["flat"]["launches"]
+
+    print(f"two engines of one family over one model, both warmed (bf16, "
+          f"the engines above; {card})")
+    c1 = c1_two_engines(engines)
+    del engines, eng
+    print(f"prefix cache and speculation (spec_tokens=2), float32, full width, "
+          f"each family: the spec trace (8 requests, 4-token motifs tiled to "
+          f"16, 16-32 new) and the shared-prefix trace (12 requests, one "
+          f"256-token system prompt, 2-6-token suffixes, 3-16 new, "
+          f"staggered), greedy and sampled (seed 5); picks held to the "
+          f"baseline's below a top-2 margin of {F32_MARGIN:g} ({card})")
+    variants_f32 = serve_variants(cfg, TF, FAMILIES_BF16)
+    print(f"the same in bfloat16, picks held to the baseline's below a top-2 "
+          f"margin of {BF16_MARGIN:g} ({card})")
+    variants_bf16 = serve_variants(cfg, BF, FAMILIES_BF16)
+    for (fam, variant), r in variants_bf16.items():
+        for key, run_ in r["runs"].items():
+            by_path[f"{fam} {variant} {key}"] = run_["launches"]
 
     kernel_rows = []
     for k, cases in checks.cases.items():
@@ -725,7 +1099,7 @@ def main(argv=None) -> int:
         kernel_rows.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[k], "launches_per_step": launches[k] / steps,
-            "launches_by_path": {f: r["launches"][k] for f, r in e2e.items()},
+            "launches_by_path": {f: n[k] for f, n in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
@@ -740,6 +1114,10 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({**result, "card": card, "e2e_bf16": e2e, "e2e_f32": f32,
+                       "f32_sampled": f32_sampled, "bf16_sampled": bf16_sampled,
+                       "c1": c1,
+                       "variants_f32": {str(k): v for k, v in variants_f32.items()},
+                       "variants_bf16": {str(k): v for k, v in variants_bf16.items()},
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     print(json.dumps(result))

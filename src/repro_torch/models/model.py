@@ -5,10 +5,14 @@ The port's ``ReproModel`` serves continuous batching through
 ``paged_decode_step`` (the dense chunked and monolithic engine steps) and
 ``flat_decode_step`` (the flat token-level step).  ``compiled_step(kind)``
 stands where the JAX package's ``jit_step`` stands: one program per step
-signature, counted in ``trace_counts`` and logged in ``trace_log``.  On
-the card that program is a CUDA graph, captured at the signature's first
-call and replayed on every later one.  Training and the other families
-arrive in later slices of the port.
+signature and model, counted in ``trace_counts`` and logged in
+``trace_log``, so a second engine over one model counts nothing new.  On
+the card the program is a CUDA graph.  A graph holds the addresses of the
+parameters and pools it was captured with, and every engine has its own,
+so the graphs live in the caller's :class:`GraphTable` (one per engine,
+and one per model-backed drafter): signatures per model, captures per
+engine, and a dropped engine frees its graphs.  Training and the other
+families arrive in later slices of the port.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from repro_torch.kernels.ragged_attn.ops import RaggedPlan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed_apply
 
-__all__ = ["ReproModel", "CompiledStep", "build_model"]
+__all__ = ["ReproModel", "CompiledStep", "GraphTable", "build_model"]
 
 
 class ReproModel:
@@ -112,10 +116,10 @@ class ReproModel:
 
     @property
     def trace_counts(self) -> dict:
-        """Programs made per step kind: on the CPU the first call of each
-        new signature (the JAX package's trace), on the card each CUDA
-        graph captured.  No growth after ``Engine.warmup`` is the
-        no-compile contract."""
+        """Distinct step signatures made per step kind over this model (the
+        JAX package's traces), on the CPU and the card alike; the card's
+        graphs are counted per engine, in ``GraphTable.captures``.  No
+        growth after ``Engine.warmup`` is the no-compile contract."""
         if not hasattr(self, "_trace_counts"):
             self._trace_counts = {"decode": 0, "paged": 0, "flat": 0}
         return self._trace_counts
@@ -155,6 +159,22 @@ class _Graph:
         self.out, self.counts = out, counts
 
 
+class GraphTable:
+    """The CUDA graphs of one owner's compiled steps (an engine's, or a
+    model-backed drafter's), by step signature, with the memory pool they
+    were captured into and ``captures``, the graphs captured per step
+    kind.  Its graphs hold the addresses of one set of parameters and
+    pools, which the first capture binds; a call with others raises.
+    Dropping the table frees the graphs, their static buffers and their
+    pool."""
+
+    def __init__(self):
+        self.graphs = {}
+        self.captures = {"decode": 0, "paged": 0, "flat": 0}
+        self.pool = None
+        self.ptrs = None
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -165,19 +185,21 @@ def _leaves(tree):
 
 class CompiledStep:
     """A step kind run as one program per signature: the kind, each
-    input's shape and dtype (None stays None) and the ragged plan's shape
-    and split count (the kernel's grid and cluster).
+    input's shape and dtype (None stays None), the shapes of the cache
+    tree's pools, and the ragged plan's shape and split count (the
+    kernel's grid and cluster).  The first call of a signature over the
+    model counts as its trace, on every device.
 
-    On the CPU the first call of a signature counts as its trace and every
-    call runs eagerly.  On the card the first call of a signature runs
-    eagerly (which also sets each kernel's launch attributes before any
-    capture), then captures the step into a CUDA graph over copies of its
-    inputs, on a side stream into one memory pool that all of the model's
-    graphs share (steps never overlap).  Each later call copies its inputs
-    into the graph's buffers, replays it and returns the graph's own
-    output tensor, which the next replay overwrites: read it first.  A
-    graph holds the addresses of the parameters and pools it was captured
-    with, so on the card the signature also holds their data pointers.  A
+    On the CPU every call runs eagerly.  On the card a call looks its
+    signature up in the caller's :class:`GraphTable`; the first call of a
+    signature there runs eagerly (which also sets each kernel's launch
+    attributes before any capture), then captures the step into a CUDA
+    graph over copies of its inputs, into the table's memory pool, on a
+    side stream of the step's own (steps never overlap).  The stream is
+    the model's and not the table's: cuBLAS keeps a workspace for every
+    stream it runs on until the process ends.  Each later call copies its
+    inputs into the graph's buffers, replays it and returns the graph's
+    own output tensor, which the next replay overwrites: read it first.  A
     capture that fails raises; nothing falls back to the eager step."""
 
     def __init__(self, model: ReproModel, kind: str):
@@ -185,9 +207,7 @@ class CompiledStep:
         # a cycle a dropped model (and its graphs) is freed at once
         self._model = weakref.ref(model)
         self.kind = kind
-        self.graphs = {}
         self._seen = set()
-        self._pool = None
         self._stream = None
 
     @property
@@ -200,29 +220,43 @@ class CompiledStep:
         return {"paged": self.model.paged_decode_step,
                 "flat": self.model.flat_decode_step}[self.kind]
 
-    def signature(self, args, plan) -> tuple:
+    def signature(self, args, plan, caches=None) -> tuple:
         return (self.kind,
                 tuple(None if a is None else (tuple(a.shape), a.dtype)
                       for a in args),
+                None if caches is None else
+                tuple(tuple(t.shape) for t in _leaves(caches)),
                 None if plan is None else (tuple(plan.items.shape), plan.splits))
 
     def __call__(self, params: dict, caches: dict, *args,
-                 plan: Optional[RaggedPlan] = None):
-        """``args``: the step method's inputs after ``caches``; returns
-        (logits, caches) as the step method does."""
-        sig = self.signature(args, plan)
+                 plan: Optional[RaggedPlan] = None,
+                 graphs: Optional[GraphTable] = None):
+        """``args``: the step method's inputs after ``caches``; ``graphs``:
+        the caller's graph table (needed on the card).  Returns (logits,
+        caches) as the step method does."""
+        sig = self.signature(args, plan, caches)
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self._count(args)
         if self.model.device.type == "cpu":
-            if sig not in self._seen:
-                self._seen.add(sig)
-                self._count(args)
             extra = {} if plan is None else {"plan": plan}
             return self.fn(params, caches, *args, **extra)
-        key = (sig, tuple(t.data_ptr() for t in _leaves(params)),
-               tuple(t.data_ptr() for t in _leaves(caches)))
-        g = self.graphs.get(key)
+        if graphs is None:
+            raise ValueError("a compiled step on the card needs the caller's "
+                             "GraphTable (graphs=)")
+        ptrs = (tuple(t.data_ptr() for t in _leaves(params)),
+                tuple(t.data_ptr() for t in _leaves(caches)))
+        if graphs.ptrs is None:
+            graphs.ptrs = ptrs
+        elif graphs.ptrs != ptrs:
+            raise ValueError("this GraphTable's graphs were captured over "
+                             "other parameters or pools; each engine keeps "
+                             "its own table")
+        g = graphs.graphs.get(sig)
         if g is None:
-            self._count(args)
-            out, self.graphs[key] = self._capture(params, caches, args, plan)
+            out, graphs.graphs[sig] = self._capture(graphs, params, caches,
+                                                    args, plan)
+            graphs.captures[self.kind] += 1
             return out, caches
         for buf, a in zip(g.inputs, args):
             if buf is not None:
@@ -239,10 +273,11 @@ class CompiledStep:
             name: None if a is None else (tuple(a.shape), str(a.dtype))
             for name, a in zip(_ARG_NAMES[self.kind], args)}})
 
-    def _capture(self, params, caches, args, plan):
+    def _capture(self, table: GraphTable, params, caches, args, plan):
         dev = self.model.device
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        if table.pool is None:
+            table.pool = torch.cuda.graph_pool_handle()
+        if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
         inputs = [None if a is None else a.to(dev, copy=True) for a in args]
         splan = None if plan is None else RaggedPlan(
@@ -255,12 +290,12 @@ class CompiledStep:
             before = kernels.counters()
             graph = torch.cuda.CUDAGraph()
             # no cyclic garbage collection inside the capture: it could
-            # destroy a dropped model's graphs, and releasing their pool
+            # destroy a dropped engine's graphs, and releasing their pool
             # frees device memory, which a capture forbids
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=s):
+                with torch.cuda.graph(graph, pool=table.pool, stream=s):
                     static_out, _ = self.fn(params, caches, *inputs, **extra)
             finally:
                 if collecting:

@@ -3,8 +3,8 @@ of the JAX package's three step families.
 
 Each step admits waiting requests, grows every decoding row by one KV
 position (displacing the youngest admission when the pool runs dry) and
-runs one or more model calls; logits come back to the host, where the
-greedy pick is ``np.argmax`` of a float32 copy.  The families:
+runs one or more model calls; logits come back to the host, where each
+pick is made from a float32 copy.  The families:
 
 - **flat** (the default whenever ``chunk_tokens`` is set): the scheduled
   rows are laid out as contiguous *segments* of one ``[1, W]`` token
@@ -18,18 +18,35 @@ greedy pick is ``np.argmax`` of a float32 copy.  The families:
   at a geometric bucket ``[1, b]``, then every running row decodes in one
   ``[slots, 1]`` step.
 
-All three schedule alike and give the same greedy tokens.  Every model
-call goes through the model's compiled step (``ReproModel.compiled_step``):
-on the card one CUDA graph per step shape, which :meth:`Engine.warmup`
-captures for every shape the engine can hit, so a drain after it captures
-nothing (``stats()["compiles"]`` stays put).
+All three schedule alike and give the same tokens.  Every model call goes
+through the model's compiled step (``ReproModel.compiled_step``), which
+counts one program per step signature and model (``stats()["compiles"]``);
+on the card each engine replays its own CUDA graph per step shape, held in
+its :class:`~repro_torch.models.model.GraphTable` (``stats()["captures"]``).
+:meth:`Engine.warmup` makes every shape the engine can hit, so a drain
+after it makes and captures nothing.
+
+- **Sampled picks** (``greedy=False``): the JAX engine's draw keyed by
+  ``(seed, rid, position)``, transcribed in
+  :mod:`repro_torch.serving.sampling`; per-request ``temperature`` (0 picks
+  greedily) and ``seed`` come from :meth:`Engine.add_request`.
+- **Prefix cache** (``prefix_cache=True``): admission starts at the longest
+  cached page-chain prefix of the prompt (:mod:`~repro_torch.serving.
+  prefix_cache`), prefill inserts its full pages, preemption releases into
+  the cache; a shared page is copied on the device (in place in the pools)
+  before anything writes into it.
+- **Speculative decode** (``spec_tokens=k``): a drafter
+  (:mod:`~repro_torch.serving.speculative`) proposes up to ``k`` tokens per
+  decoding row, the row feeds ``1 + k`` positions through the family's
+  step, the logits after each are read in that one call, and the
+  acceptance rule keeps the tokens those of the engine without drafts;
+  rejected KV is rolled back by truncating the block table.
 
 Weights are always prepacked.  A row whose logits are not finite is
 retired alone as ``"error"`` (the nan guard), and a drain in which arrived
 work waits for :data:`WATCHDOG_STEPS` steps without any progress raises
-:class:`StallError` (the watchdog).  ``spec_tokens`` (speculative decode),
-``prefix_cache=True``, sampled picks (``greedy=False``) and models that
-are not pure attention raise instead of running something else.
+:class:`StallError` (the watchdog).  Models that are not pure attention
+raise instead of running something else.
 """
 
 from __future__ import annotations
@@ -44,12 +61,16 @@ from repro_torch.core.hardware import require_device
 from repro_torch.core.layout import ceil_div, round_up
 from repro_torch.core.linear import prepack_params
 from repro_torch.kernels.ragged_attn.ops import plan_ragged
-from repro_torch.models.model import ReproModel
+from repro_torch.models.model import GraphTable, ReproModel
 from repro_torch.models.transformer import tree_map
 from repro_torch.obs.telemetry import NULL as OBS_NULL
-from repro_torch.serving.kv_cache import (PagedKVPool, fresh_slot_states,
-                                          merge_slot, prefill_view)
+from repro_torch.serving import sampling
+from repro_torch.serving.kv_cache import (PagedKVPool, PoolError, copy_pages,
+                                          fresh_slot_states, merge_slot,
+                                          prefill_view)
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.speculative import Drafter, NgramDrafter, accept_tokens
 
 __all__ = ["Engine", "StallError", "WATCHDOG_STEPS"]
 
@@ -61,6 +82,17 @@ class StallError(RuntimeError):
     scheduled zero tokens with live rows)."""
 
 
+def _page_copier(caches, device):
+    """The engine's device page copy for the pool's copy-on-write: the
+    index tensors are made on the device (a fill, no copy from the host),
+    and the copy writes into the pools in place."""
+    def copy(src: int, dst: int) -> None:
+        copy_pages(caches,
+                   torch.full((1,), src, dtype=torch.int64, device=device),
+                   torch.full((1,), dst, dtype=torch.int64, device=device))
+    return copy
+
+
 class Engine:
     def __init__(self, model: ReproModel, params, *, device="cuda",
                  max_slots: Optional[int] = None,
@@ -69,15 +101,12 @@ class Engine:
                  token_budget: Optional[int] = None,
                  flat: Optional[bool] = None, eager: bool = False,
                  spec_tokens: Optional[int] = None,
+                 drafter: Optional[Drafter] = None,
                  prefix_cache: bool = False):
         self.device = require_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
-        if spec_tokens is not None:
-            raise NotImplementedError("speculative decode is not ported yet")
-        if prefix_cache:
-            raise NotImplementedError("the prefix cache is not ported yet")
         if any(t != "attn" for t in model.cfg.layer_types):
             raise NotImplementedError("the port serves pure-attention models "
                                       "only (hybrids prefill at exact length)")
@@ -115,9 +144,43 @@ class Engine:
             num_pages = 1 + self.slots * ceil_div(max_len, page_tokens)
         self.pool = PagedKVPool(num_pages, page_tokens)
         self.max_pages = ceil_div(max_len, self.pool.page_tokens)
+        self.caches = model.init_paged_cache(num_pages, self.pool.page_tokens,
+                                             self.slots)
+        # the prefix cache's chain is rooted in the layout geometry, so a
+        # layout change can never alias stale KV
+        self.prefix_cache: Optional[PrefixCache] = None
+        if prefix_cache:
+            if eager:
+                raise ValueError("the prefix cache needs lazy allocation: "
+                                 "eager=True reserves whole lifetimes, which "
+                                 "shared pages would count twice")
+            self.prefix_cache = PrefixCache(self.pool, layout_key=(layout.m_r,))
+            # the copier holds the pools, not the engine: no reference
+            # cycle keeps a dropped engine's device memory alive
+            self.pool.page_copier = _page_copier(self.caches, self.device)
         self.scheduler = Scheduler(self.slots, self.pool, max_len, eager=eager,
                                    chunk_tokens=self.chunk_tokens,
-                                   chunk_align=layout.m_r, telemetry=self.obs)
+                                   chunk_align=layout.m_r,
+                                   prefix_cache=self.prefix_cache,
+                                   telemetry=self.obs)
+        # speculative decode: every decoding row may carry 1 + k positions
+        self.spec_tokens = spec_tokens
+        self.drafter: Optional[Drafter] = None
+        if spec_tokens is not None:
+            if spec_tokens < 1:
+                raise ValueError(f"spec_tokens={spec_tokens}: speculation "
+                                 f"needs at least one draft position (use "
+                                 f"spec_tokens=None to turn it off)")
+            if self.chunked and self.chunk_tokens < spec_tokens + 1:
+                raise ValueError(f"spec_tokens={spec_tokens} needs verify rows "
+                                 f"of {spec_tokens + 1} positions, wider than "
+                                 f"chunk_tokens={self.chunk_tokens}: the "
+                                 f"step's shape ladder must cover the verify "
+                                 f"width")
+            self.drafter = drafter if drafter is not None else NgramDrafter()
+            self.drafter.attach(self)
+        elif drafter is not None:
+            raise ValueError("a drafter needs spec_tokens set")
         self._next_rid = 0
         self._no_progress_steps = 0
         self._steps = 0
@@ -127,12 +190,18 @@ class Engine:
         self._finished_count = 0
         self._finished_served = 0    # finished after an admission
         self._chunk_steps_total = 0  # prefill calls or chunks of the finished
-        self._prefill_tokens = 0     # prompt tokens computed
+        self._prefill_tokens = 0     # prompt tokens computed (hits skip theirs)
         self._flat_steps = 0
         self._flat_tokens = 0
         self._flat_width = 0
-        self.caches = model.init_paged_cache(num_pages, self.pool.page_tokens,
-                                             self.slots)
+        self._draft_time = 0.0       # host seconds inside the drafter
+        self._drafted = 0            # draft tokens verified
+        self._accepted = 0           # draft tokens accepted
+        self._decode_tokens = 0      # tokens appended by decode rows
+        self._decode_rows = 0        # decode row-steps
+        self._spec_trims = 0         # draft lists trimmed to the held pages
+        self._rollback_pages = 0     # page references dropped by rollbacks
+        self._graphs = GraphTable()
         self._paged_step = model.compiled_step("paged")
         self._flat_step = model.compiled_step("flat") if self.flat else None
 
@@ -140,14 +209,18 @@ class Engine:
     # continuous-batching API
     # ------------------------------------------------------------------
     def add_request(self, tokens, max_new: int, *, eos_id: Optional[int] = None,
-                    arrival: float = 0.0) -> int:
-        """Queue one request; returns its id.  Raises
+                    arrival: float = 0.0, temperature: float = 1.0,
+                    seed: Optional[int] = None) -> int:
+        """Queue one request; returns its id.  ``temperature`` and ``seed``
+        are its sampling parameters in a sampled drain (``temperature=0``
+        picks greedily; ``seed=None`` takes the step's seed).  Raises
         :class:`~repro_torch.serving.scheduler.AdmissionError` for a
         request that could never fit."""
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=np.asarray(tokens, np.int32).reshape(-1),
-                      max_new=max_new, eos_id=eos_id, arrival=arrival)
+                      max_new=max_new, eos_id=eos_id, arrival=arrival,
+                      temperature=temperature, seed=seed)
         self.scheduler.add(req)
         return rid
 
@@ -160,9 +233,10 @@ class Engine:
         return self.scheduler.num_pauses
 
     def stats(self) -> dict:
-        """Cumulative counters under the JAX package's keys; ``compiles``
+        """Cumulative counters under the JAX package's keys.  ``compiles``
         is the model's program count per step kind (no growth after
-        :meth:`warmup` is the no-compile contract)."""
+        :meth:`warmup` is the no-compile contract); ``captures`` the CUDA
+        graphs this engine captured per kind (zero on the CPU)."""
         steps = max(1, self._steps)
         out = {
             "steps": self._steps,
@@ -178,8 +252,11 @@ class Engine:
             "num_pauses": self.scheduler.num_pauses,
             "prefill_tokens": self._prefill_tokens,
             "compiles": dict(self.model.trace_counts),
+            "captures": dict(self._graphs.captures),
             "pool": self.pool.stats(),
         }
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
         if self.flat:
             fs = max(1, self._flat_steps)
             out["flat"] = {
@@ -189,20 +266,38 @@ class Engine:
                 "mean_width": self._flat_width / fs,
                 "fill": self._flat_tokens / max(1, self._flat_width),
             }
+        if self.spec_tokens is not None:
+            out["speculative"] = {
+                "spec_tokens": self.spec_tokens,
+                "drafted": self._drafted,
+                "accepted": self._accepted,
+                "acceptance_rate": self._accepted / max(1, self._drafted),
+                "accepted_per_step": self._accepted / steps,
+                "decode_tokens_per_row_step": (self._decode_tokens
+                                               / max(1, self._decode_rows)),
+                "draft_time_ms": 1e3 * self._draft_time,
+                "draft_overhead": (self._draft_time / self._step_time
+                                   if self._step_time > 0 else 0.0),
+                "spec_trims": self._spec_trims,
+                "spec_grow_fallbacks": self.scheduler.spec_grow_fallbacks,
+                "rollback_pages": self._rollback_pages,
+                "drafter": self.drafter.stats(),
+            }
         return out
 
-    def step(self, *, now: Optional[float] = None,
-             greedy: bool = True) -> List[Request]:
+    def step(self, *, now: Optional[float] = None, greedy: bool = True,
+             seed: int = 0) -> List[Request]:
         """One engine step of this engine's family.  Returns the requests
-        finished during it (``now`` carries a clock for arrival gating)."""
+        finished during it (``now`` carries a clock for arrival gating;
+        ``seed`` keys the sampled picks of requests without their own)."""
         t0 = time.perf_counter()
         self.obs.step_begin()
         if self.flat:
-            finished = self._step_flat(now, greedy)
+            finished = self._step_flat(now, greedy, seed)
         elif self.chunked:
-            finished = self._step_chunked(now, greedy)
+            finished = self._step_chunked(now, greedy, seed)
         else:
-            finished = self._step_monolithic(now, greedy)
+            finished = self._step_monolithic(now, greedy, seed)
         if self.scheduler.running or finished:
             self._steps += 1
             self._step_time += time.perf_counter() - t0
@@ -214,6 +309,8 @@ class Engine:
             if req.admit_seq >= 0:
                 self._finished_served += 1
             self._chunk_steps_total += req.chunk_steps
+            if self.drafter is not None:
+                self.drafter.forget(req.rid)
         self.obs.step_end(self.scheduler, self.pool, finished, now=now)
         return finished
 
@@ -239,24 +336,12 @@ class Engine:
     # ------------------------------------------------------------------
     # what every family does with a row's logits
     # ------------------------------------------------------------------
-    def _decode_row(self, req: Request, row: np.ndarray, greedy: bool,
-                    finished: List[Request]) -> None:
-        """A decoding row's pick (after the nan guard), then retire it if
-        it is done."""
-        if not np.isfinite(row).all():
-            self.scheduler.quarantine(req)
-            finished.append(req)
-            return
-        req.out_tokens.append(self._pick(row, greedy))
-        req.len += 1
-        if req.done():
-            self.scheduler.finish(req)
-            finished.append(req)
-
     def _prefill_chunk(self, req: Request, n: int, row: np.ndarray,
-                       greedy: bool, finished: List[Request]) -> None:
-        """Advance a prefilling row by its ``n``-token chunk; at the last
-        one its logits give the first token."""
+                       greedy: bool, seed: int,
+                       finished: List[Request]) -> None:
+        """Advance a prefilling row by its ``n``-token chunk (the nan guard
+        first, so a poisoned chunk never reaches the prefix cache); at the
+        last one its logits give the first token."""
         if not np.isfinite(row).all():
             self.scheduler.quarantine(req)
             finished.append(req)
@@ -266,11 +351,15 @@ class Engine:
         req.chunk_steps += 1
         self._prefill_tokens += n
         self.obs.request_prefill_chunk(req, n)
+        if self.prefix_cache is not None:
+            # newly completed full pages are shared from now on
+            self.prefix_cache.insert(req.prompt, req.pages.pages,
+                                     req.prefill_cursor)
         if req.prefill_cursor < req.prompt_len:
             return                        # more chunks to come
         req.status = "running"
         self.obs.request_prefill_done(req)
-        req.out_tokens.append(self._pick(row, greedy))
+        req.out_tokens.append(self._pick(row, req, greedy, seed))
         if req.done():
             self.scheduler.finish(req)
             finished.append(req)
@@ -282,12 +371,122 @@ class Engine:
                       f"{r.prompt_len}, len {r.len})" for r in running.values()))
 
     # ------------------------------------------------------------------
+    # speculative decode (without spec_tokens every row proposes nothing
+    # and the verify degenerates to the one-pick decode)
+    # ------------------------------------------------------------------
+    def _propose_drafts(self) -> dict:
+        """``{slot: drafts}`` for the decoding rows, each at most
+        ``max_new - generated - 1`` long (the last token is never fed
+        back)."""
+        if self.drafter is None:
+            return {}
+        t0 = time.perf_counter()
+        jobs, slot_of = [], {}
+        for slot, req in self.scheduler.running.items():
+            if req.status != "running":
+                continue
+            k = min(self.spec_tokens, req.max_new - len(req.out_tokens) - 1)
+            if k <= 0:
+                continue
+            jobs.append((req, k))
+            slot_of[req.rid] = slot
+        drafts = {}
+        if jobs:
+            proposals = self.drafter.propose_all(jobs)
+            for req, k in jobs:
+                d = [int(t) for t in proposals.get(req.rid, [])][:k]
+                if d:
+                    drafts[slot_of[req.rid]] = d
+        self._draft_time += time.perf_counter() - t0
+        return drafts
+
+    def _draft_and_grow(self) -> dict:
+        """Propose drafts, then grow every decoding row with its ``1 +
+        len(drafts)`` ask (shed rather than displace anyone)."""
+        drafts = self._propose_drafts()
+        self.scheduler.grow(want={s: 1 + len(d) for s, d in drafts.items()}
+                            if drafts else None)
+        return drafts
+
+    def _grant_drafts(self, running, drafts) -> dict:
+        """Each decoding row's verify width: the fed-back token plus the
+        drafts its pages cover after growth (trims ``drafts`` in place).
+        Returns ``{slot: n}``, 0 for a prefilling row."""
+        neff = {}
+        for slot, req in running.items():
+            if req.status != "running":
+                neff[slot] = 0
+                continue
+            n = 1
+            d = drafts.get(slot)
+            if d:
+                n = max(1, min(1 + len(d), req.pages.capacity - req.len))
+                if len(d) > n - 1:
+                    self._spec_trims += 1
+                    if n == 1:
+                        del drafts[slot]
+                    else:
+                        drafts[slot] = d[:n - 1]
+            neff[slot] = n
+        return neff
+
+    def _fill_decode_row(self, slot: int, req: Request, n: int, drafts: dict,
+                         token, lens, counts, bt, idx) -> None:
+        """One decode row of a paged step: the fed-back token and its
+        granted drafts at positions ``req.len ..``; ``idx`` (a step with a
+        drafted row) reads the logits after each fed position."""
+        token[slot, 0] = req.out_tokens[-1]
+        if n > 1:
+            token[slot, 1:n] = drafts[slot]
+        lens[slot] = req.len
+        counts[slot] = n
+        bt[slot] = req.pages.block_row(bt.shape[1])
+        if idx is not None:
+            idx[slot] = np.minimum(np.arange(idx.shape[1]), n - 1)
+
+    def _verify_decode_row(self, req: Request, drafts: List[int],
+                           rows: np.ndarray, n: int, greedy: bool, seed: int,
+                           finished: List[Request]) -> None:
+        """A decoding row's picks after its verify (the nan guard first):
+        accept the draft prefix the engine's own picks reproduce, advance
+        the cache length by the committed tokens, truncate the block table
+        past them (a rollback whose copy-on-write fails quarantines the
+        row), and retire the request when it is done."""
+        if not np.isfinite(rows).all():
+            self.scheduler.quarantine(req)
+            finished.append(req)
+            return
+        appended, accepted = accept_tokens(
+            req, drafts, rows, n,
+            lambda row, rq: self._pick(row, rq, greedy, seed))
+        req.len += appended
+        self._decode_rows += 1
+        self._decode_tokens += appended
+        if n > 1:
+            self._drafted += n - 1
+            self._accepted += accepted
+            try:
+                self._rollback_pages += req.pages.truncate(req.len)
+            except PoolError:
+                self.scheduler.quarantine(req)
+                finished.append(req)
+                return
+            if len(req.pages.pages) != self.pool.pages_for(req.len):
+                raise PoolError(f"rollback left {len(req.pages.pages)} pages "
+                                f"for len={req.len} of rid {req.rid}")
+        if req.done():
+            self.scheduler.finish(req)
+            finished.append(req)
+
+    # ------------------------------------------------------------------
     # the monolithic step
     # ------------------------------------------------------------------
-    def _step_monolithic(self, now, greedy: bool) -> List[Request]:
-        """Admit one request at a time and prefill it alone, then decode
-        every running row in one ``[slots, 1]`` step; a preempted row drops
-        out of ``running`` and its slot is inert (zero block table, no new
+    def _step_monolithic(self, now, greedy: bool, seed: int) -> List[Request]:
+        """Admit one request at a time and prefill it alone (each prefill
+        lands in the prefix cache before the next lookup), then decode
+        every running row in one ``[slots, 1]`` step, or ``[slots, k+1]``
+        when a row carries drafts; a preempted row drops out of
+        ``running`` and its slot is inert (zero block table, no new
         tokens: its writes go to the trash page)."""
         finished: List[Request] = []
         while True:
@@ -295,35 +494,39 @@ class Engine:
             if not admitted:
                 break
             req = admitted[0]
-            if not self._prefill_request(req, greedy):
+            if not self._prefill_request(req, greedy, seed):
                 finished.append(req)             # quarantined at prefill
                 continue
             if req.done():
                 self.scheduler.finish(req)
                 finished.append(req)
-        self.scheduler.grow()
+        drafts = self._draft_and_grow()
         running = self.scheduler.running
         if running:
+            neff = self._grant_drafts(running, drafts)
             b, mp = self.slots, self.max_pages
-            token = np.zeros((b, 1), np.int32)
+            spec = max(neff.values()) > 1
+            s = self.spec_tokens + 1 if spec else 1
+            token = np.zeros((b, s), np.int32)
             lens = np.zeros((b,), np.int32)
             counts = np.zeros((b,), np.int32)
             bt = np.zeros((b, mp), np.int32)
+            idx = np.zeros((b, s), np.int32) if spec else None
             for slot, req in running.items():
-                token[slot, 0] = req.out_tokens[-1]
-                lens[slot] = req.len
-                counts[slot] = 1
-                bt[slot] = req.pages.block_row(mp)
+                self._fill_decode_row(slot, req, neff[slot], drafts,
+                                      token, lens, counts, bt, idx)
             self._active_rows += len(running)
-            rows = self._run_paged(token, bt, lens, counts)
+            rows = self._run_paged(token, bt, lens, counts, idx)
             for slot, req in list(running.items()):
-                self._decode_row(req, rows[slot, 0], greedy, finished)
+                self._verify_decode_row(req, drafts.get(slot, []), rows[slot],
+                                        neff[slot], greedy, seed, finished)
         return finished
 
-    def _prefill_request(self, req: Request, greedy: bool) -> bool:
-        """Prefill one admitted request at its geometric bucket (padding
-        positions write the trash page).  Returns False when the row was
-        quarantined for non-finite logits."""
+    def _prefill_request(self, req: Request, greedy: bool, seed: int) -> bool:
+        """Prefill one admitted request from its cursor (past a prefix-cache
+        hit) at its geometric bucket (padding positions write the trash
+        page).  Returns False when the row was quarantined for non-finite
+        logits, before its pages could reach the cache."""
         l = req.prompt_len
         start = req.prefill_cursor
         n = l - start
@@ -345,7 +548,9 @@ class Engine:
         self._prefill_tokens += n
         self.obs.request_prefill_chunk(req, n)
         self.obs.request_prefill_done(req)
-        req.out_tokens.append(self._pick(row, greedy))
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.prompt, req.pages.pages, l)
+        req.out_tokens.append(self._pick(row, req, greedy, seed))
         return True
 
     def _prefill_bucket(self, l: int) -> int:
@@ -362,32 +567,38 @@ class Engine:
     # ------------------------------------------------------------------
     # the dense chunked step
     # ------------------------------------------------------------------
-    def _step_chunked(self, now, greedy: bool) -> List[Request]:
+    def _step_chunked(self, now, greedy: bool, seed: int) -> List[Request]:
         """The dense ``[slots, s]`` step: decoding rows carry their fed-back
-        token at position ``len``, prefilling rows the next chunk of their
-        prompt from ``prefill_cursor``; stalled and free rows are inert."""
+        token (and drafts) from position ``len``, prefilling rows the next
+        chunk of their prompt from ``prefill_cursor``; stalled and free
+        rows are inert.  A step with a drafted row reads ``k + 1`` logits
+        per row."""
         sched = self.scheduler
         finished: List[Request] = []
         sched.admit(now)
-        sched.grow()
+        drafts = self._draft_and_grow()
         running = sched.running
         if not running:
             return finished
-        ndecode = sum(1 for r in running.values() if r.status == "running")
+        neff = self._grant_drafts(running, drafts)
+        ndecode = sum(neff.values())
         plan = sched.plan_chunks(self.token_budget - ndecode)
         use_chunk = any(n > 0 for n in plan.values())
         b, mp = self.slots, self.max_pages
-        widest = max(max(plan.values(), default=0), min(1, ndecode))
+        widest = max(max(plan.values(), default=0),
+                     max(neff.values(), default=0))
         s = self._chunk_shape(widest) if (use_chunk or widest > 1) else 1
+        spec = any(n > 1 for n in neff.values())
+        k1 = self.spec_tokens + 1 if spec else 1
         token = np.zeros((b, s), np.int32)
         lens = np.zeros((b,), np.int32)
         counts = np.zeros((b,), np.int32)
         bt = np.zeros((b, mp), np.int32)
+        idx = np.zeros((b, k1), np.int32) if spec else None
         for slot, req in running.items():
             if req.status == "running":
-                token[slot, 0] = req.out_tokens[-1]
-                lens[slot] = req.len
-                counts[slot] = 1
+                self._fill_decode_row(slot, req, neff[slot], drafts,
+                                      token, lens, counts, bt, idx)
             else:
                 n = plan.get(slot, 0)
                 if n == 0:
@@ -396,18 +607,21 @@ class Engine:
                 token[slot, :n] = req.prompt[cur:cur + n]
                 lens[slot] = cur
                 counts[slot] = n
-            bt[slot] = req.pages.block_row(mp)
+                bt[slot] = req.pages.block_row(mp)
+                if spec:
+                    idx[slot] = n - 1     # its last chunk token, read at j=0
         if int(counts.sum()) == 0:
             raise self._stall("fused", running)
         self._active_rows += int((counts > 0).sum())
         self._mixed_steps += int(use_chunk)
-        rows = self._run_paged(token, bt, lens, counts)
+        rows = self._run_paged(token, bt, lens, counts, idx)
         for slot, req in list(running.items()):
             if req.status == "running":
-                self._decode_row(req, rows[slot, 0], greedy, finished)
+                self._verify_decode_row(req, drafts.get(slot, []), rows[slot],
+                                        neff[slot], greedy, seed, finished)
             elif plan.get(slot, 0) > 0:
                 self._prefill_chunk(req, plan[slot], rows[slot, 0], greedy,
-                                    finished)
+                                    seed, finished)
         return finished
 
     def _chunk_shapes(self) -> List[int]:
@@ -427,54 +641,67 @@ class Engine:
                 s = cand
         return s
 
-    def _run_paged(self, token, bt, lens, counts, caches=None) -> np.ndarray:
+    def _run_paged(self, token, bt, lens, counts, idx=None,
+                   caches=None) -> np.ndarray:
         """One paged step over ``self.caches`` (or a prefill view of it);
-        returns float32 logits [B, 1, V] on the host."""
+        returns float32 logits [B, K, V] on the host (K = 1 without
+        ``idx``)."""
         logits, _ = self._paged_step(
             self.params, self.caches if caches is None else caches,
             torch.from_numpy(token), torch.from_numpy(bt),
-            torch.from_numpy(lens), torch.from_numpy(counts), None)
+            torch.from_numpy(lens), torch.from_numpy(counts),
+            None if idx is None else torch.from_numpy(idx),
+            graphs=self._graphs)
         return logits.float().cpu().numpy()
 
     # ------------------------------------------------------------------
     # the flat step
     # ------------------------------------------------------------------
-    def _step_flat(self, now, greedy: bool) -> List[Request]:
+    def _step_flat(self, now, greedy: bool, seed: int) -> List[Request]:
         """The flat token-level step: scheduling is the chunked policy's
         (admission, growth, chunk planning, stalls, displacement); only
-        the layout of the fed tokens is flat."""
+        the layout of the fed tokens is flat.  A decoding row costs its
+        ``1 + drafts`` positions, and reads the logits after each."""
         sched = self.scheduler
         finished: List[Request] = []
         sched.admit(now)
-        sched.grow()
+        drafts = self._draft_and_grow()
         running = sched.running
         if not running:
             return finished
-        decode_counts = {s: 1 for s, r in running.items() if r.status == "running"}
+        neff = self._grant_drafts(running, drafts)
+        decode_counts = {s: n for s, n in neff.items() if n > 0}
         segs = sched.plan_segments(decode_counts, self.token_budget)
         total = sum(n for _, _, n in segs)
         if total == 0:
             raise self._stall("flat", running)
         w = self._flat_shape(total)
+        spec = any(n > 1 for n in decode_counts.values())
+        k1 = self.spec_tokens + 1 if spec else 1
         token = np.zeros((1, w), np.int32)
         row_ids = np.full((w,), -1, np.int32)
         q_pos = np.zeros((w,), np.int32)
         bt = np.zeros((self.slots, self.max_pages), np.int32)
-        idx = np.zeros((self.slots,), np.int32)
+        idx = np.zeros((self.slots * k1,), np.int32)
         pos = 0
         segrefs = []
         for slot, kind, n in segs:
             req = running[slot]
             if kind == "decode":
                 token[0, pos] = req.out_tokens[-1]
-                q_pos[pos] = req.len
+                if n > 1:
+                    token[0, pos + 1:pos + n] = drafts[slot]
+                q_pos[pos:pos + n] = req.len + np.arange(n)
+                # the logits after every fed position, clamped to the row
+                idx[slot * k1:(slot + 1) * k1] = \
+                    pos + np.minimum(np.arange(k1), n - 1)
             else:
                 cur = req.prefill_cursor
                 token[0, pos:pos + n] = req.prompt[cur:cur + n]
                 q_pos[pos:pos + n] = cur + np.arange(n)
+                idx[slot * k1:(slot + 1) * k1] = pos + n - 1
             row_ids[pos:pos + n] = slot
             bt[slot] = req.pages.block_row(self.max_pages)
-            idx[slot] = pos + n - 1        # each row's logits at its last token
             segrefs.append((slot, kind, n, req))
             pos += n
         self._active_rows += len(segrefs)
@@ -483,19 +710,22 @@ class Engine:
         self._flat_tokens += total
         self._flat_width += w
         rows = self._run_flat(token, bt, row_ids, q_pos, idx)
+        rows = rows.reshape(self.slots, k1, -1)
         for slot, kind, n, req in segrefs:
             if kind == "decode":
-                self._decode_row(req, rows[slot], greedy, finished)
+                self._verify_decode_row(req, drafts.get(slot, []), rows[slot],
+                                        n, greedy, seed, finished)
             else:
-                self._prefill_chunk(req, n, rows[slot], greedy, finished)
+                self._prefill_chunk(req, n, rows[slot, 0], greedy, seed,
+                                    finished)
         return finished
 
     def _run_flat(self, token, bt, row_ids, q_pos, idx) -> np.ndarray:
-        """One flat step on the device; returns float32 logits [slots, V]
-        on the host (numpy has no bfloat16).  The ragged-attention plan is
-        built here from the host's row_ids and q_pos, at the width's fixed
-        size (the graph of each width replays every step of it), so no
-        layer reads an index back from the card."""
+        """One flat step on the device; returns float32 logits [K, V] at
+        the flat positions ``idx`` on the host (numpy has no bfloat16).
+        The ragged-attention plan is built here from the host's row_ids and
+        q_pos, at the width's fixed size (the graph of each width replays
+        every step of it), so no layer reads an index back from the card."""
         cfg = self.model.cfg
         plan = plan_ragged(row_ids, q_pos, self.pool.page_tokens, self.max_pages,
                            cfg.n_kv_heads, self.model.ctx.hw.sm_count,
@@ -503,13 +733,17 @@ class Engine:
         logits, _ = self._flat_step(
             self.params, self.caches, torch.from_numpy(token),
             torch.from_numpy(bt), torch.from_numpy(row_ids),
-            torch.from_numpy(q_pos), torch.from_numpy(idx), plan=plan)
+            torch.from_numpy(q_pos), torch.from_numpy(idx), plan=plan,
+            graphs=self._graphs)
         return logits[0].float().cpu().numpy()
 
     def _flat_shapes(self) -> List[int]:
         """The flat width ladder, descending: the budget's m_r-aligned cap
-        plus every power-of-two multiple of m_r below it."""
-        cap = round_up(max(self.token_budget, self.slots), self._bucket)
+        (at least ``slots * (spec_tokens + 1)``: decode tokens are never
+        budget-capped) plus every power-of-two multiple of m_r below it."""
+        cap = round_up(max(self.token_budget,
+                           self.slots * ((self.spec_tokens or 0) + 1)),
+                       self._bucket)
         shapes = {cap}
         v = self._bucket
         while v < cap:
@@ -526,55 +760,85 @@ class Engine:
                 s = cand
         return s
 
-    def _pick(self, logits_row: np.ndarray, greedy: bool) -> int:
-        if not greedy:
-            raise NotImplementedError("sampled picks are not ported yet; "
-                                      "the port decodes greedily")
-        return int(np.argmax(logits_row))
+    def _pick(self, logits_row: np.ndarray, req: Request, greedy: bool,
+              seed: int) -> int:
+        """The next token from a float32 logits row: ``argmax``, or in a
+        sampled drain the draw keyed by the request's (or the step's)
+        seed, its id and its position."""
+        if greedy or req.temperature <= 0.0:
+            return int(np.argmax(logits_row))
+        s = seed if req.seed is None else req.seed
+        return sampling.sample(logits_row, req.temperature,
+                               sampling.pick_key(s, req.rid,
+                                                 len(req.out_tokens)))
 
-    def drain(self, *, greedy: bool = True,
+    def drain(self, *, greedy: bool = True, seed: int = 0,
               now: Optional[float] = None) -> List[Request]:
         """Run steps until every queued request has finished."""
         finished = []
         while self.scheduler.has_work:
-            finished.extend(self.step(now=now, greedy=greedy))
+            finished.extend(self.step(now=now, greedy=greedy, seed=seed))
         return finished
 
     def warmup(self) -> None:
         """Make the program of every step shape this engine can hit (on
-        the card, capture its CUDA graph): flat, every ladder width;
-        dense chunked, every chunk shape and ``[slots, 1]``; monolithic,
-        every prefill bucket at ``[1, b]`` and ``[slots, 1]``.  Every call
-        carries no valid token, so all writes go to the trash page and
-        live state is untouched."""
+        the card, capture its CUDA graph): flat, every ladder width with a
+        logits gather of ``slots`` rows, and of ``slots * (k + 1)`` with
+        speculation; dense chunked, every chunk shape and ``[slots, 1]``,
+        and with speculation every chunk shape reading ``[slots, k + 1]``
+        logits; monolithic, every prefill bucket at ``[1, b]``, ``[slots,
+        1]`` and with speculation the ``[slots, k + 1]`` verify.  Then the
+        drafter's own programs, and with a prefix cache the device page
+        copy (the trash page onto itself).  Every call carries no valid
+        token, so all writes go to the trash page and live state is
+        untouched."""
         if self.scheduler.has_work:
             raise RuntimeError("warmup() needs an idle engine")
+        if self.prefix_cache is not None:
+            self.pool.page_copier(0, 0)
         b, mp = self.slots, self.max_pages
         zb = np.zeros((b,), np.int32)
         btb = np.zeros((b, mp), np.int32)
+        k1s = [1] + ([self.spec_tokens + 1] if self.spec_tokens is not None
+                     else [])
         if self.flat:
             for w in self._flat_shapes():
-                self._run_flat(np.zeros((1, w), np.int32), btb,
-                               np.full((w,), -1, np.int32),
-                               np.zeros((w,), np.int32), zb)
-            return
-        if self.chunked:
+                for k1 in k1s:
+                    self._run_flat(np.zeros((1, w), np.int32), btb,
+                                   np.full((w,), -1, np.int32),
+                                   np.zeros((w,), np.int32),
+                                   np.zeros((b * k1,), np.int32))
+        elif self.chunked:
             for s in self._chunk_shapes() + [1]:
                 self._run_paged(np.zeros((b, s), np.int32), btb, zb, zb)
-            return
-        z1 = np.zeros((1,), np.int32)
-        bucket, seen = self._bucket, set()
-        while (bucket := self._prefill_bucket(bucket)) not in seen:
-            seen.add(bucket)
-            view = prefill_view(self.caches, fresh_slot_states(self.caches))
-            self._run_paged(np.zeros((1, bucket), np.int32),
-                            np.zeros((1, mp), np.int32), z1, z1, caches=view)
-            self.caches = merge_slot(self.caches, view, 0)
-            bucket += 1
-        self._run_paged(np.zeros((b, 1), np.int32), btb, zb, zb)
+            if self.spec_tokens is not None:
+                # a drafted step rides the chunk ladder, never [slots, 1]
+                for s in self._chunk_shapes():
+                    self._run_paged(np.zeros((b, s), np.int32), btb, zb, zb,
+                                    np.zeros((b, k1s[-1]), np.int32))
+        else:
+            z1 = np.zeros((1,), np.int32)
+            bucket, seen = self._bucket, set()
+            while (bucket := self._prefill_bucket(bucket)) not in seen:
+                seen.add(bucket)
+                view = prefill_view(self.caches,
+                                    fresh_slot_states(self.caches))
+                self._run_paged(np.zeros((1, bucket), np.int32),
+                                np.zeros((1, mp), np.int32), z1, z1,
+                                caches=view)
+                self.caches = merge_slot(self.caches, view, 0)
+                bucket += 1
+            self._run_paged(np.zeros((b, 1), np.int32), btb, zb, zb)
+            if self.spec_tokens is not None:
+                k1 = k1s[-1]
+                self._run_paged(np.zeros((b, k1), np.int32), btb, zb, zb,
+                                np.zeros((b, k1), np.int32))
+        if self.drafter is not None:
+            self.drafter.warmup()
 
     def generate(self, batch: dict, max_new: int, *, greedy: bool = True,
-                 eos_id: Optional[int] = None, return_reasons: bool = False):
+                 seed: int = 0, eos_id: Optional[int] = None,
+                 return_reasons: bool = False):
         """batch: {"tokens": [B, L]}.  Returns [B, max_new] generated tokens
         (early-finished rows padded with ``eos_id``, or 0), and the finish
         reasons with ``return_reasons=True``."""
@@ -583,7 +847,7 @@ class Engine:
         prompts = np.asarray(batch["tokens"])
         rids = [self.add_request(prompts[i], max_new, eos_id=eos_id)
                 for i in range(prompts.shape[0])]
-        by_rid = {r.rid: r for r in self.drain(greedy=greedy)}
+        by_rid = {r.rid: r for r in self.drain(greedy=greedy, seed=seed)}
         pad = 0 if eos_id is None else eos_id
         rows, reasons = [], []
         for rid in rids:

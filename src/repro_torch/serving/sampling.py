@@ -1,0 +1,100 @@
+"""Sampled picks: the JAX package's ``jax.random.categorical`` draw,
+transcribed to numpy.
+
+The JAX engine picks a sampled token with
+
+    key = fold_in(fold_in(PRNGKey(seed), rid), len(out_tokens))
+    categorical(key, row / temperature)
+
+under JAX's default PRNG (``threefry2x32``) with partitionable counters
+(``jax_threefry_partitionable = True``).  ``categorical`` is the Gumbel-max
+trick: ``argmax(row + gumbel)``, the noise ``-log(-log(u))`` of uniforms
+``u`` in ``[tiny, 1)`` made from the mantissa bits of 32 random bits per
+vocabulary entry.  This module computes the same key, bits and uniforms
+bit for bit on the host (the card has no JAX), and the noise with numpy's
+float32 ``log``, which differs from XLA's by an ulp on some inputs: the
+noise agrees to 2 ulp, and a pick can differ only where the perturbed
+row's top two are closer than that.  The pick stays on the host in
+float32, so the card and the CPU differ only by their logits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["prng_key", "fold_in", "random_bits", "uniform", "gumbel",
+           "pick_key", "sample"]
+
+_U32 = np.uint32
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = _U32(0x1BD11BDA)
+_TINY = np.finfo(np.float32).tiny
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) of the counter pairs ``(x0, x1)``
+    (uint32 arrays of one shape) under the key ``(k0, k1)``."""
+    ks = (_U32(k0), _U32(k1), _U32(k0) ^ _U32(k1) ^ _PARITY)
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 += x1
+            x1 = (x1 << _U32(r)) | (x1 >> _U32(32 - r))
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3] + _U32(i + 1)
+    return x0, x1
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` as JAX builds it with 64-bit types off:
+    the seed's low 32 bits, under a zero high word."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in``: the hash of the counter pair ``(0, data)``."""
+    with np.errstate(over="ignore"):
+        y0, y1 = _threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
+                               np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([y0[0], y1[0]], np.uint32)
+
+
+def random_bits(key: np.ndarray, n: int) -> np.ndarray:
+    """32 random bits for each of ``n`` draws (``jax.random.bits``):
+    partitionable counters, so draw ``i`` hashes the pair ``(0, i)`` and
+    keeps the xor of the two output words."""
+    with np.errstate(over="ignore"):
+        y0, y1 = _threefry2x32(key[0], key[1], np.zeros(n, np.uint32),
+                               np.arange(n, dtype=np.uint32))
+    return y0 ^ y1
+
+
+def uniform(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.uniform(key, (n,), minval=tiny, maxval=1)`` in float32:
+    the top 23 bits as the mantissa of a float in [1, 2), less one, then
+    clamped from below at ``tiny``."""
+    bits = (random_bits(key, n) >> _U32(9)) | _U32(0x3F800000)
+    floats = bits.view(np.float32) - np.float32(1.0)
+    return np.maximum(np.float32(_TINY), floats + np.float32(_TINY))
+
+
+def gumbel(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.gumbel`` noise (its default low-range mode) in float32."""
+    return -np.log(-np.log(uniform(key, n)))
+
+
+def pick_key(seed: int, rid: int, position: int) -> np.ndarray:
+    """The key of request ``rid``'s pick of its ``position``-th token."""
+    return fold_in(fold_in(prng_key(seed), rid), position)
+
+
+def sample(row: np.ndarray, temperature: float, key: np.ndarray) -> int:
+    """The sampled pick from one float32 logits row: ``argmax(row /
+    temperature + noise)`` (no division at temperature 1, as in the JAX
+    engine)."""
+    row = np.asarray(row, np.float32)
+    if temperature != 1.0:
+        row = row / np.float32(temperature)
+    return int(np.argmax(gumbel(key, row.shape[0]) + row))

@@ -15,19 +15,25 @@ policies the port's engine serves:
     its whole KV lifetime with ``eager=True`` (growth then never fails);
   - every step each prefilling row gets its next chunk
     (:meth:`Scheduler.plan_chunks`) and every decoding row one position
-    (:meth:`Scheduler.grow`); :meth:`Scheduler.plan_segments` lays decode
-    rows first, then prefill chunks under the remaining budget;
+    (:meth:`Scheduler.grow`), or under speculative decode its ``1 + k``
+    verify positions when the pool can spare them without displacing
+    anyone; :meth:`Scheduler.plan_segments` lays decode rows first, then
+    prefill chunks under the remaining budget;
   - on pool exhaustion the youngest-admitted request is displaced: a
     mid-prefill victim is *paused* (keeps pages and cursor), a decoding
     victim is *preempted* (pages released, generated tokens folded into the
     prompt, recomputed on re-admission); as a last resort a paused
-    request's pages are *reclaimed*.
+    request's pages are *reclaimed*;
+  - with a prefix cache, admission starts a request's prefill at the
+    longest cached prefix of its prompt (the shared pages read-only, the
+    one page the cursor lands in copied first), and preemption and
+    reclaim release the written full pages into the cache.
 
 Termination: the victim is always the youngest admission, and ``add``
 refuses any request whose whole KV lifetime cannot fit the pool alone, so
 the oldest request always progresses and drains end at any pool size.
-The prefix cache, speculative page asks and bounded admission come with
-later slices of the port.
+Bounded admission, cancellation and deadlines come with a later slice of
+the port.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.obs.telemetry import NULL as _NULL_OBS
-from repro_torch.serving.kv_cache import OutOfPages, PagedKVPool, SequencePages
+from repro_torch.serving.kv_cache import (OutOfPages, PagedKVPool, PoolError,
+                                          SequencePages)
 
 __all__ = ["AdmissionError", "Request", "Scheduler", "finish_reason_for"]
 
@@ -75,6 +82,8 @@ class Request:
     max_new: int
     eos_id: Optional[int] = None
     arrival: float = 0.0
+    temperature: float = 1.0      # 0 picks greedily in a sampled drain
+    seed: Optional[int] = None    # None takes the step's seed
 
     status: str = "waiting"       # waiting | prefilling | running | finished
     slot: int = -1
@@ -89,6 +98,12 @@ class Request:
     prefill_cursor: int = 0       # prompt tokens whose KV is written
     num_pauses: int = 0
     chunk_steps: int = 0          # prefill steps run (monolithic: per call)
+    # prefix-cache accounting: out_tokens at the last admission, whether a
+    # reclaim reset the cursor, and the tokens whose pages entered the
+    # cache at the last preemption
+    out_at_admit: int = 0
+    reclaimed: bool = False
+    cached_upto: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -117,13 +132,18 @@ WATERMARK_PAGES = 1
 class Scheduler:
     def __init__(self, max_slots: int, pool: PagedKVPool, max_len: int, *,
                  eager: bool = False, chunk_tokens: Optional[int] = None,
-                 chunk_align: int = 1, telemetry=None):
+                 chunk_align: int = 1, prefix_cache=None, telemetry=None):
         self.max_slots = max_slots
         self.pool = pool
         self.max_len = max_len
         self.eager = eager
         self.chunk_tokens = chunk_tokens       # None: monolithic prefill
         self.chunk_align = max(1, chunk_align)   # layout m_r: chunks stay tiles
+        if prefix_cache is not None and eager:
+            raise ValueError("the prefix cache needs lazy allocation: eager "
+                             "reservation books whole lifetimes, which shared "
+                             "pages would count twice")
+        self.prefix_cache = prefix_cache       # None: no sharing
         self.obs = telemetry if telemetry is not None else _NULL_OBS
         self.waiting: Deque[Request] = deque()
         self.running: Dict[int, Request] = {}          # slot -> request
@@ -132,6 +152,12 @@ class Scheduler:
         self.num_preemptions = 0
         self.num_pauses = 0
         self.prefill_stall_steps = 0           # steps where a chunk got < ask
+        self.spec_grow_fallbacks = 0           # speculative page asks shed
+        # resumes after a preemption under the prefix cache: their count,
+        # the prompt tokens they recomputed, and the last 256 of them
+        self.resumes = 0
+        self.resume_recompute_tokens = 0
+        self.resume_events: Deque[dict] = deque(maxlen=256)
 
     @property
     def has_work(self) -> bool:
@@ -183,24 +209,84 @@ class Scheduler:
                 break
             req = self.waiting.popleft()
             req.slot = self._free_slots.pop()
+            was_preempted, was_reclaimed = req.preempted, req.reclaimed
+            fresh_pages = req.pages is None
             req.preempted = False
+            req.reclaimed = False
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
-            if req.pages is None:            # a paused request keeps its pages
-                req.pages = SequencePages(self.pool, owner=req.rid)
-            if self.chunk_tokens is not None:
-                req.status = "prefilling"
-                req.len = req.prefill_cursor
-                if self.eager:               # the lifetime up front
-                    req.pages.ensure(req.kv_budget)
-            else:
-                req.status = "running"
-                req.pages.ensure(req.kv_budget if self.eager
-                                 else req.prompt_len)
+            try:
+                self._take_pages(req, was_preempted, was_reclaimed)
+            except OutOfPages:
+                # the check said yes but an allocation failed: undo the
+                # whole admission; the head retries next step
+                if fresh_pages and req.pages is not None:
+                    req.pages.release()
+                    req.pages = None
+                    req.prefill_cursor = 0
+                    req.len = 0
+                self._free_slots.append(req.slot)
+                req.slot = -1
+                req.status = "waiting"
+                req.preempted = was_preempted
+                req.reclaimed = was_reclaimed
+                self.waiting.appendleft(req)
+                break
             self.running[req.slot] = req
             self.obs.request_admitted(req)
             admitted.append(req)
         return admitted
+
+    def _take_pages(self, req: Request, was_preempted: bool,
+                    was_reclaimed: bool) -> None:
+        """The part of an admission that can raise :class:`OutOfPages`:
+        the block table (from the prefix cache's longest hit, when there is
+        one), then the pages of the first chunk, the prompt or, with
+        ``eager``, the lifetime."""
+        if req.pages is None:            # a paused request keeps its pages
+            req.pages = SequencePages(self.pool, owner=req.rid)
+            if self.prefix_cache is not None:
+                self._acquire_prefix(req)
+                if was_preempted:
+                    recompute = req.prompt_len - req.prefill_cursor
+                    self.resumes += 1
+                    self.resume_recompute_tokens += recompute
+                    self.resume_events.append({
+                        "rid": req.rid, "recompute": recompute,
+                        "generated_since": (len(req.out_tokens)
+                                            - req.out_at_admit),
+                        "reclaimed": was_reclaimed,
+                        "evicted": req.prefill_cursor < min(
+                            req.cached_upto, req.prompt_len - 1)})
+        req.out_at_admit = len(req.out_tokens)
+        if self.chunk_tokens is not None:
+            req.status = "prefilling"
+            req.len = req.prefill_cursor
+            if self.eager:               # the lifetime up front
+                req.pages.ensure(req.kv_budget)
+        else:
+            req.status = "running"
+            req.pages.ensure(req.kv_budget if self.eager else req.prompt_len)
+
+    def _acquire_prefix(self, req: Request) -> None:
+        """Start ``req`` at its longest cached prefix: the matched pages
+        enter its empty block table and the cursor jumps to the hit.  When
+        the capped hit ends inside the last shared page (a fully cached
+        prompt), that page is copied now, before the prefill writes the
+        last position into it; if the copy fails, the page is handed back
+        and its block prefilled again."""
+        pages, hit = self.prefix_cache.lookup(req.prompt)
+        if not pages:
+            return
+        req.pages.pages = pages
+        if hit % self.pool.page_tokens:
+            try:
+                self.pool.cow(req.pages, len(pages) - 1)
+            except PoolError:
+                self.pool.free([req.pages.pages.pop()])
+                hit = len(req.pages.pages) * self.pool.page_tokens
+        req.prefill_cursor = hit
+        req.len = hit
 
     def _pages_available(self, req: Request) -> bool:
         if self.eager:
@@ -284,14 +370,36 @@ class Scheduler:
                     return               # caller falls back to capacity
                 self._pause(max(younger, key=lambda r: r.admit_seq))
 
-    def grow(self) -> List[Request]:
+    def grow(self, want: Optional[Dict[int, int]] = None) -> List[Request]:
         """Give every decoding request a KV slot for the position its next
         token writes, oldest admission first.  On pool exhaustion displace
         the youngest admission and retry (pause a prefill, preempt a
         decode; reclaim paused waiters before a request preempts itself).
-        Returns the displaced requests."""
+
+        ``want``: ``{slot: n}``, a speculative ask of ``n`` positions (the
+        fed-back token and its drafts).  Only the first is mandatory: the
+        ask is shed (``spec_grow_fallbacks``) whenever granting it would
+        take pages the other rows' one-token growth needs this step, so a
+        speculative ask never forces a displacement.  Returns the
+        displaced requests."""
         displaced: List[Request] = []
         for req in sorted(self.running.values(), key=lambda r: r.admit_seq):
+            if req.status != "running":
+                continue
+            n = 1 if want is None else max(1, want.get(req.slot, 1))
+            if n > 1:
+                need = max(0, self.pool.pages_for(req.len + n)
+                           - len(req.pages.pages))
+                if need == 0:
+                    continue     # the held pages' slack covers the ask
+                if need <= self.pool.num_available \
+                        - self._mandatory_growth_pages(req):
+                    try:
+                        req.pages.ensure(req.len + n)
+                        continue
+                    except OutOfPages:
+                        pass
+                self.spec_grow_fallbacks += 1
             while req.status == "running":
                 try:
                     req.pages.ensure(req.len + 1)
@@ -307,6 +415,13 @@ class Scheduler:
                         self._preempt(victim)
                     displaced.append(victim)
         return displaced
+
+    def _mandatory_growth_pages(self, exclude: Request) -> int:
+        """Pages the other decoding rows' one-token growth still needs this
+        step (0 or 1 each)."""
+        return sum(1 for r in self.running.values()
+                   if r is not exclude and r.status == "running"
+                   and self.pool.pages_for(r.len + 1) > len(r.pages.pages))
 
     def _pause(self, req: Request) -> None:
         """Displace a mid-prefill request keeping its pages and cursor; it
@@ -331,9 +446,18 @@ class Scheduler:
         if not holders:
             return False
         victim = max(holders, key=lambda r: r.admit_seq)
-        victim.pages.release()
+        if self.prefix_cache is not None:
+            # released into the cache: the written chunks stay findable
+            self.prefix_cache.insert(victim.prompt, victim.pages.pages,
+                                     min(victim.prefill_cursor,
+                                         victim.prompt_len))
+            victim.pages.release()
+            victim.pages = None      # re-admission looks the prefix up again
+        else:
+            victim.pages.release()
         victim.prefill_cursor = 0
         victim.len = 0
+        victim.reclaimed = True
         victim.num_preemptions += 1
         self.num_preemptions += 1
         self.obs.request_reclaimed(victim)
@@ -353,6 +477,14 @@ class Scheduler:
         if fresh:
             req.prompt = np.concatenate([req.prompt, np.asarray(fresh, np.int32)])
             req.folded = len(req.out_tokens)
+        if self.prefix_cache is not None:
+            # positions 0..len-1 hold committed KV (a rollback truncated
+            # any rejected draft): cache the full pages under the folded
+            # prompt, before this request's references drop
+            upto = min(req.len, req.prompt_len)
+            self.prefix_cache.insert(req.prompt, req.pages.pages, upto)
+            req.cached_upto = (upto // self.pool.page_tokens
+                               * self.pool.page_tokens)
         req.pages.release()
         req.pages = None
         req.len = 0

@@ -439,7 +439,7 @@ def test_graph_replay_equals_eager_step(gen, dtype, case):
     graphs = dict(eng.model.trace_counts)
     c0 = kernels.counters()
     args = [None if a is None else torch.from_numpy(a) for a in host]
-    got, _ = step(eng.params, eng.caches, *args, plan=plan)
+    got, _ = step(eng.params, eng.caches, *args, plan=plan, graphs=eng._graphs)
     got = got.clone()
     c1 = kernels.counters()
     extra = {} if plan is None else {"plan": plan.to("cuda")}
@@ -448,6 +448,7 @@ def test_graph_replay_equals_eager_step(gen, dtype, case):
     c2 = kernels.counters()
     torch.cuda.synchronize()
     assert dict(eng.model.trace_counts) == graphs
+    assert eng.stats()["captures"] == graphs
     mask = torch.from_numpy(valid).cuda()
     assert torch.equal(got[mask], want[mask])
     assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
@@ -463,7 +464,7 @@ def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
     eng = _small_engine(family, torch.float32, num_pages=1 + 6)
     eng.warmup()
     graphs = eng.stats()["compiles"]
-    assert sum(graphs.values()) > 0
+    assert sum(graphs.values()) > 0 and eng.stats()["captures"] == graphs
     calls = []
     name = "_run_flat" if eng.flat else "_run_paged"
     run = getattr(eng, name)
@@ -477,7 +478,47 @@ def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
     assert len(fin) == 4 and eng.pool.num_used == 0
     assert eng.num_preemptions + eng.num_pauses >= 1
     assert eng.stats()["compiles"] == graphs
+    assert eng.stats()["captures"] == graphs
     n = len(calls)
     want = {"mmt4d": 15 * n, "pack": 5 * n, "unpack": n,
             "ragged_attn": 2 * n if eng.flat else 0}
     assert kernels.launch_counts() == want
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILY))
+def test_engines_share_signatures_and_own_their_graphs(gen, family):
+    """Two warmed engines over one model: the second warmup leaves the
+    model's trace_counts (signatures per model) where the first left them,
+    each engine counts its own captures, and dropping an engine gives back
+    its graphs, their static buffers and its pools."""
+    import gc
+
+    from repro_torch.serving.engine import Engine
+    first = _small_engine(family, torch.float32)
+    first.warmup()
+    counts = dict(first.model.trace_counts)
+    assert first.stats()["captures"] == counts and sum(counts.values()) > 0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    second = Engine(first.model, first.model.init(torch.Generator().manual_seed(1)),
+                    device="cuda", max_slots=4, page_tokens=16, **_FAMILY[family])
+    second.warmup()
+    assert dict(first.model.trace_counts) == counts
+    assert second.stats()["captures"] == counts == first.stats()["captures"]
+    assert not set(map(id, second._graphs.graphs.values())) \
+        & set(map(id, first._graphs.graphs.values()))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() > allocated
+    del second
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() == allocated
+    assert torch.cuda.memory_reserved() == reserved
+    rng = np.random.default_rng(5)
+    for n in (9, 20):
+        first.add_request(rng.integers(0, 512, n), 4)
+    assert len(first.drain()) == 2
+    assert first.stats()["captures"] == counts == dict(first.model.trace_counts)

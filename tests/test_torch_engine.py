@@ -9,9 +9,10 @@ port's standing rules.
 - No module of the port, and not chip_smoke.py, imports jax or the JAX
   package (an AST scan).
 - ``build_model`` and ``Engine`` default to the card and raise without
-  one unless ``device="cpu"`` is passed; the engine raises on every path
-  it does not serve (speculation, the prefix cache, sampled picks) and on
-  ``flat=True`` without ``chunk_tokens``.
+  one unless ``device="cpu"`` is passed, sampled, prefix-cache and
+  speculative engines included; those run on the CPU; the one path still
+  refused is the standalone ``DraftModelDrafter.propose`` (the dense
+  decode step), and ``flat=True`` without ``chunk_tokens`` raises.
 """
 
 import ast
@@ -113,19 +114,24 @@ def test_entry_points_need_a_card_unless_cpu(models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg, RunConfig(**F32), shape)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        Engine(m, params, max_slots=3, chunk_tokens=16)
+    for kw in (dict(chunk_tokens=16), dict(chunk_tokens=16, spec_tokens=2),
+               dict(prefix_cache=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Engine(m, params, max_slots=3, **kw)
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced", "--requests", "1"])
-    eng = Engine(m, params, device="cpu", max_slots=3, chunk_tokens=16)
-    eng.add_request(np.arange(5), 2)
-    with pytest.raises(NotImplementedError):
-        eng.drain(greedy=False)
-    for kw in (dict(spec_tokens=2), dict(chunk_tokens=16, spec_tokens=2),
-               dict(chunk_tokens=16, prefix_cache=True)):
-        with pytest.raises(NotImplementedError):
-            Engine(m, params, device="cpu", max_slots=3, **kw)
+    for kw in (dict(chunk_tokens=16), dict(spec_tokens=2),
+               dict(chunk_tokens=16, spec_tokens=2, prefix_cache=True)):
+        eng = Engine(m, params, device="cpu", max_slots=3, **kw)
+        eng.add_request(np.arange(5), 3, temperature=0.5)
+        [req] = eng.drain(greedy=False, seed=1)
+        assert len(req.out_tokens) == 3 and eng.pool.num_used == 0
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.speculative import DraftModelDrafter
+    with pytest.raises(NotImplementedError, match="non-paged"):
+        DraftModelDrafter(m, params).propose(
+            Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=4), 2)
     with pytest.raises(ValueError, match="flat=True needs chunk_tokens"):
         Engine(m, params, device="cpu", max_slots=3, flat=True)
 

@@ -10,9 +10,12 @@ package's, and the compiled-step contract of all three step families.
   ``chunk_steps``, mixed steps and prefill tokens.
 - flat = dense chunked = monolithic inside the port, in the reference's
   own setup (``tests/test_flat_step.py``).
-- For each family, ``stats()["compiles"]`` does not move during a drain
-  after ``warmup()``, and equals the JAX engine's on the same
-  configuration (fresh models on both sides: the counts are per model).
+- For each family, alone and with speculation or the prefix cache,
+  ``stats()["compiles"]`` does not move during a drain after
+  ``warmup()``, and equals the JAX engine's on the same configuration
+  (fresh models on both sides: the counts are per model); a second
+  engine's warmup over the same model adds nothing to them, as in the
+  JAX package.
 - The chunk ladder and the prefill buckets are the reference's.
 """
 
@@ -125,15 +128,19 @@ def test_flat_matches_dense_and_monolithic(models):
 WARM = {"flat": dict(chunk_tokens=16, token_budget=24),
         "dense": dict(chunk_tokens=8, flat=False),
         "monolithic": {}}
+EXTRA = {"plain": {}, "spec": dict(spec_tokens=2), "prefix": dict(prefix_cache=True)}
 
 
+@pytest.mark.parametrize("extra", list(EXTRA))
 @pytest.mark.parametrize("family", list(WARM))
-def test_no_compiles_after_warmup(models, family):
+def test_no_compiles_after_warmup(models, family, extra):
     """warmup() makes every program a drain with admissions, chunked
-    prefills, growth, pauses and preemptions needs; the counts equal the
-    reference's on fresh models of both packages."""
+    prefills, growth, pauses and preemptions needs (with speculation its
+    verify shapes, with the prefix cache its hits and copies); the counts
+    equal the reference's on fresh models of both packages."""
     _, jparams, _, params = models
-    kw = dict(max_slots=3, page_tokens=8, num_pages=1 + 6, **WARM[family])
+    kw = dict(max_slots=3, page_tokens=8, num_pages=1 + 6, **WARM[family],
+              **EXTRA[extra])
     reqs = _trace([4, 25, 6, 30], [16, 10, 16, 8], seed=3)
     counts = []
     for eng in (Engine(_model(), params, device="cpu", **kw),
@@ -147,6 +154,28 @@ def test_no_compiles_after_warmup(models, family):
         counts.append(before)
     assert counts[0] == counts[1]
     assert counts[0][{"flat": "flat"}.get(family, "paged")] > 0
+
+
+@pytest.mark.parametrize("family", list(WARM))
+def test_second_engine_adds_no_signature(models, family):
+    """Signatures are counted per model: a second warmed engine over the
+    same model leaves trace_counts where the first left them (the JAX
+    package's jitted steps are cached per model too), and on the CPU no
+    engine captures a graph."""
+    _, _, _, params = models
+    model = _model()
+    kw = dict(device="cpu", max_slots=3, page_tokens=8, **WARM[family])
+    first = Engine(model, params, **kw)
+    first.warmup()
+    counts = dict(model.trace_counts)
+    second = Engine(model, params, spec_tokens=2, **kw)
+    second.warmup()
+    verify = dict(model.trace_counts)
+    assert verify != counts
+    Engine(model, params, **kw).warmup()
+    Engine(model, params, spec_tokens=2, prefix_cache=True, **kw).warmup()
+    assert dict(model.trace_counts) == verify
+    assert second.stats()["captures"] == {"decode": 0, "paged": 0, "flat": 0}
 
 
 @pytest.mark.parametrize("chunk", [8, 16, 40, 64])
@@ -163,16 +192,24 @@ def test_ladders_match_jax(models, chunk):
         [jmono._prefill_bucket(n) for n in range(1, 70)]
 
 
-def test_dropped_model_is_freed_at_once(models):
+@pytest.mark.parametrize("extra", list(EXTRA) + ["draft"])
+def test_dropped_model_is_freed_at_once(models, extra):
     """A model holds its compiled steps and they hold it only weakly: once
     its engines are dropped it is freed by reference counting, never left
     for the cyclic collector (which on the card could run inside another
-    model's capture and free device memory there)."""
+    model's capture and free device memory there).  An engine with the
+    prefix cache or a drafter holds no cycle either (the pool holds its
+    cache's reclaimer weakly)."""
     import gc
     import weakref
+
+    from repro_torch.serving.speculative import DraftModelDrafter
     _, _, _, params = models
     model = _model()
-    eng = Engine(model, params, device="cpu", max_slots=3)
+    kw = dict(EXTRA.get(extra, {}))
+    if extra == "draft":
+        kw = dict(spec_tokens=2, drafter=DraftModelDrafter(_model(), params))
+    eng = Engine(model, params, device="cpu", max_slots=3, **kw)
     eng.warmup()
     ref = weakref.ref(model)
     gc.disable()
