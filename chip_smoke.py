@@ -57,7 +57,21 @@ step a replay of a CUDA graph captured at warmup:
      rollback pages printed, no capture after warmup (the draft model's
      included), every kernel of the path launched in every drain, and
      tokens/s and ms per step of each drain;
-  9. the kernels JSON line (launches from the flat drain, the main path;
+  9. resilience under chaos at full width, f32 then bf16, for the flat,
+     flat with n-gram speculation (k = 2) and the prefix cache, and dense
+     chunked families, each on one warmed engine (queue_limit=6; in f32
+     the runtime sanitizer checks every model call): five requests on a
+     step clock drained clean, then under each fault plan of
+     scripts/chaos_smoke.py (OOM spikes, a drafter burst, a NaN row, page
+     copier failures), then a lifecycle drain (a cancel of a queued, a
+     prefilling and a decoding request, a queue_limit shed, a deadline and
+     a max_queue_s expiry) and a watchdog trip caught as StallError; every
+     pick held to the clean drain's (f32 exactly, bf16 below BF16_MARGIN,
+     parted picks counted), the allocator audit clean with every used page
+     a cached one, no trace or capture after warmup, the pools never
+     moved, every kernel of the path launched, and each drain's ms per
+     step;
+ 10. the kernels JSON line (launches from the flat drain, the main path;
      each other path's beside them), then the result line.
 
 Usage:  python3 chip_smoke.py [--out results.json]
@@ -981,6 +995,246 @@ def c1_two_engines(bf16_engines) -> dict:
     return out
 
 
+# the chaos phase: scripts/chaos_smoke.py's fault plans, and the families
+# the resilience layer runs through (flat, flat with n-gram speculation
+# and the prefix cache, dense chunked)
+CHAOS_PLANS = {
+    "oom-spike": [(0, "oom"), (1, "oom"), (2, "oom")],
+    "drafter-burst": [(s, "drafter") for s in (1, 2, 3, 5, 7)],
+    "nan-logits": [(3, "nan")],
+    "copier-failure": [(1, "copier"), (3, "copier")],
+}
+CHAOS_FAMILIES = {"flat": dict(chunk_tokens=128),
+                  "flat-spec-cache": dict(chunk_tokens=128, spec_tokens=2,
+                                          prefix_cache=True),
+                  "dense": dict(chunk_tokens=128, flat=False)}
+
+
+def chaos_trace(vocab, seed=5):
+    """Five requests ((prompt, max_new, arrival) each) on a clock that
+    advances one per step: a 48-token prompt A, a 23-token one, A again at
+    1 and at 3 (with the prefix cache, A's three pages are cached by then:
+    the prefill restarts inside the last one, which is copied first), and
+    a 57-token one at 4."""
+    rng = np.random.default_rng(seed)
+    a, b, c = (rng.integers(0, vocab, n) for n in (48, 23, 57))
+    return [(a, 12, 0.0), (b, 16, 0.0), (a, 8, 1.0), (a, 10, 3.0), (c, 10, 4.0)]
+
+
+def chaos_drain(eng, adds, plan=None, hook=None) -> dict:
+    """Queue ``adds`` ((index, prompt, max_new, add_request keywords) each)
+    and step on a synthetic clock (step i at now = i) under ``plan`` until
+    every request, shed and cancelled ones included, is delivered;
+    ``hook(i, rid_of_index)`` runs after step i.  The wrapper counts are
+    set to 0 just before and read just after.  Returns each index's
+    (tokens, reason), its picks keyed (index, position), steps, wall and
+    launches."""
+    import contextlib
+    from repro_torch import kernels
+    rec = eng._pick if isinstance(eng._pick, PickRecorder) else PickRecorder(eng)
+    rec.picks = {}
+    steps0 = eng.stats()["steps"]
+    index = {eng.add_request(p, n, **kw): i for i, p, n, kw in adds}
+    rid_of = {i: r for r, i in index.items()}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fin, clock = [], 0
+    with plan.on(eng) if plan is not None else contextlib.nullcontext():
+        while eng.scheduler.has_work or eng._finished_oob:
+            fin.extend(eng.step(now=float(clock)))
+            if hook is not None:
+                hook(clock, rid_of)
+            clock += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    fin.extend(eng.drain())      # no step left: ends the drain's auto-disable
+    if sorted(r.rid for r in fin) != sorted(index):
+        raise AssertionError(f"requests lost: {sorted(index)} added, "
+                             f"{sorted(r.rid for r in fin)} delivered")
+    steps = eng.stats()["steps"] - steps0
+    return {"out": {index[r.rid]: (list(r.out_tokens), r.finish_reason) for r in fin},
+            "picks": {(index[rid], pos): v for (rid, pos), v in rec.picks.items()},
+            "steps": steps, "wall_s": wall, "ms_per_step": 1e3 * wall / max(1, steps),
+            "launches": launches}
+
+
+def chaos_check(eng, label, run, clean, tol, baseline) -> dict:
+    """A drain held to the contract: each request the clean drain also
+    served gives its picks (float32: exactly; bfloat16: parting only below
+    a top-2 margin of ``tol``), a survivor all of its tokens; the
+    allocator audits clean with every used page a prefix-cache page; the
+    model traced and the engine captured nothing since warmup; every
+    kernel of the path ran.  Prints the drain's line."""
+    import collections
+    from repro_torch.analysis.aliasing import check_pool_consistency
+    served = {i for i in run["out"] if i in clean["out"]}
+    picks = {k: v for k, v in run["picks"].items() if k[0] in served}
+    want = {k: v for k, v in clean["picks"].items()
+            if k in picks or (k[0] in served and run["out"][k[0]][1] == "length")}
+    cmp = compare_picks(want, picks, tol, label)
+    for i in served:
+        toks, reason = run["out"][i]
+        if reason in ("length", "eos") and tol == 0.0 and \
+                (toks, reason) != clean["out"][i]:
+            raise AssertionError(f"{label}: survivor {i} {toks} != clean "
+                                 f"{clean['out'][i]}")
+    findings = check_pool_consistency(eng, label)
+    cached = (len(set(eng.prefix_cache.pages()))
+              if eng.prefix_cache is not None else 0)
+    live = sum(len(s.pages) for s in eng.pool.sequences())
+    st = eng.stats()
+    if findings or eng.pool.num_used != cached or live:
+        raise AssertionError(f"{label}: allocator {[f.format() for f in findings]}, "
+                             f"used {eng.pool.num_used}, cached {cached}, live {live}")
+    if dict(eng.model.trace_counts) != baseline["traces"] \
+            or st["captures"] != baseline["captures"]:
+        raise AssertionError(f"{label}: traced or captured after warmup: "
+                             f"{baseline} -> {dict(eng.model.trace_counts)}, "
+                             f"{st['captures']}")
+    check_path_launches(label, run["launches"], eng.flat)
+    reasons = dict(collections.Counter(r for _, r in run["out"].values()))
+    print(f"  {label}: {run['steps']} steps, {run['ms_per_step']:.3f} ms per step, "
+          f"finish reasons {reasons}, audit clean, used pages {eng.pool.num_used} "
+          f"= cached {cached}, traces and captures as at warmup")
+    return {"reasons": reasons, **cmp, "steps": run["steps"],
+            "ms_per_step": run["ms_per_step"], "wall_s": run["wall_s"],
+            "launches": run["launches"]}
+
+
+def chaos_phase(cfg, dtype) -> dict:
+    """Resilience under chaos at full width in one dtype, each of
+    CHAOS_FAMILIES on one warmed engine (queue_limit=6; in float32 the
+    runtime sanitizer on every call): the clean drain of chaos_trace, the
+    same under each of CHAOS_PLANS, then a lifecycle drain (a 300-token
+    request cancelled mid-prefill, A cancelled decoding, one cancelled
+    while queued, one shed at the queue limit, a deadline and a
+    max_queue_s expiry), then a watchdog trip (every page held elsewhere:
+    nothing can be admitted) caught as StallError and the drain resumed.
+    The prefix cache is cleared between drains, so each starts cold.  The
+    pools never move."""
+    import gc
+    from repro_torch.analysis.sanitize import install
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine, StallError
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    from repro_torch.serving.kv_cache import SequencePages
+    name = str(dtype)[6:]
+    model = build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
+                        ShapeSpec("serve", 1024, 4, "decode"), device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    tol = 0.0 if dtype is TF else BF16_MARGIN
+    trace = chaos_trace(cfg.vocab)
+    adds = [(i, p, n, {"arrival": a}) for i, (p, n, a) in enumerate(trace)]
+    out = {}
+    for family, kw in CHAOS_FAMILIES.items():
+        eng = Engine(model, params, device="cuda", max_slots=4, page_tokens=16,
+                     queue_limit=6, **kw)
+        san = install(eng) if dtype is TF else None
+        eng.warmup()
+        torch.cuda.synchronize()
+        baseline = {"traces": dict(model.trace_counts),
+                    "captures": eng.stats()["captures"]}
+        pools = {id(t): t.data_ptr() for t in leaves(eng.caches)}
+        res = {}
+
+        def cold():
+            if eng.prefix_cache is not None:
+                eng.prefix_cache.clear()
+
+        clean = chaos_drain(eng, adds)
+        if any(r != "length" for _, r in clean["out"].values()):
+            raise AssertionError(f"{name} {family}: clean drain {clean['out']}")
+        res["clean"] = chaos_check(eng, f"{name} {family} clean", clean, clean, tol,
+                                   baseline)
+        cold()
+        for plan_name, events in CHAOS_PLANS.items():
+            plan = FaultPlan([FaultEvent(s, k) for s, k in events])
+            run = chaos_drain(eng, adds, plan)
+            label = f"{name} {family} {plan_name}"
+            res[plan_name] = chaos_check(eng, label, run, clean, tol, baseline)
+            res[plan_name]["fired"] = dict(plan.fired)
+            res[plan_name]["resilience"] = eng.stats()["resilience"]
+            print(f"    fired {plan.fired}")
+            cold()
+        # the lifecycle drain: indices 0, 1, 4 are the trace's requests
+        a, b, c = trace[0][0], trace[1][0], trace[4][0]
+        long = np.random.default_rng(9).integers(0, cfg.vocab, 300)
+        life = [(5, long, 8, {}), (0, a, 12, {}), (1, b, 16, {"deadline_s": 4.0}),
+                (4, c, 10, {}), (6, a, 8, {"max_queue_s": 1.0}), (7, a, 8, {}),
+                (8, b, 8, {})]
+        states = {}
+
+        def hook(i, rid_of):
+            running = {r.rid: r.status for r in eng.scheduler.running.values()}
+            if i == 0:
+                states["cancelled queued"] = eng.cancel(rid_of[7])
+                states["prefilling"] = running.get(rid_of[5])
+                states["cancelled prefilling"] = eng.cancel(rid_of[5])
+            elif i == 1:
+                states["decoding"] = running.get(rid_of[0])
+                states["cancelled decoding"] = eng.cancel(rid_of[0])
+
+        before = eng.stats()["resilience"]
+        run = chaos_drain(eng, life, hook=hook)
+        after = eng.stats()["resilience"]
+        delta = {k: after[k] - before[k] for k in ("sheds", "cancels", "timeouts",
+                                                   "quarantines")}
+        label = f"{name} {family} lifecycle"
+        res["lifecycle"] = chaos_check(eng, label, run, clean, tol, baseline)
+        res["lifecycle"]["counters"] = delta
+        want = {5: "cancelled", 0: "cancelled", 1: "timeout", 4: "length",
+                6: "timeout", 7: "cancelled", 8: "rejected"}
+        got = {i: r for i, (_, r) in run["out"].items()}
+        print(f"    states at cancel {states}, counters {delta}")
+        if got != want or delta != {"sheds": 1, "cancels": 3, "timeouts": 2,
+                                    "quarantines": 0} \
+                or states != {"cancelled queued": True, "prefilling": "prefilling",
+                              "cancelled prefilling": True, "decoding": "running",
+                              "cancelled decoding": True}:
+            raise AssertionError(f"{label}: reasons {got}, counters {delta}, "
+                                 f"states {states}")
+        cold()
+        # the watchdog: a holder outside the engine takes every free page,
+        # so nothing can be admitted; once it lets go the drain resumes
+        hog = SequencePages(eng.pool)
+        hog.ensure(eng.pool.num_free * eng.pool.page_tokens)
+        trips = eng.stats()["resilience"]["watchdog_trips"]
+
+        def wedge(i, rid_of):
+            if i == 0:
+                try:
+                    eng.drain()
+                except StallError as e:
+                    states["stall"] = str(e)
+                hog.release()
+
+        run = chaos_drain(eng, [(1, b, 16, {})], hook=wedge)
+        res["watchdog"] = chaos_check(eng, f"{name} {family} watchdog", run, clean,
+                                      tol, baseline)
+        trips = eng.stats()["resilience"]["watchdog_trips"] - trips
+        print(f"    StallError after {eng.watchdog_steps} idle steps: "
+              f"{states.get('stall', '')[:72]}...; trips {trips}")
+        if trips != 1 or "no request advanced" not in states.get("stall", "") \
+                or run["out"][1][1] != "length":
+            raise AssertionError(f"{name} {family} watchdog: trips {trips}, "
+                                 f"{states.get('stall')}, {run['out']}")
+        if {id(t): t.data_ptr() for t in leaves(eng.caches)} != pools:
+            raise AssertionError(f"{name} {family}: a KV pool was reallocated or "
+                                 f"rebound")
+        if san is not None:
+            print(f"  {name} {family} sanitizer: {san.checks} model calls, "
+                  f"{san.pages_checked} write pages, {san.cancels_checked} "
+                  f"quarantines checked, no SanitizerError")
+            res["sanitizer"] = {"checks": san.checks, "pages": san.pages_checked,
+                                "quarantines": san.cancels_checked}
+        out[family] = res
+        del eng
+        gc.collect()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results here")
@@ -1091,6 +1345,22 @@ def main(argv=None) -> int:
         for key, run_ in r["runs"].items():
             by_path[f"{fam} {variant} {key}"] = run_["launches"]
 
+    chaos = {}
+    for dtype, what in ((TF, f"float32, survivors held to the clean drain's "
+                             f"tokens exactly, the runtime sanitizer on"),
+                        (BF, f"bfloat16, picks held to the clean drain's below "
+                             f"a top-2 margin of {BF16_MARGIN:g}")):
+        print(f"resilience under chaos, {what}: full width, max_slots=4, "
+              f"page_tokens=16, queue_limit=6, each of {list(CHAOS_FAMILIES)}, "
+              f"the plans of scripts/chaos_smoke.py, a lifecycle drain and a "
+              f"watchdog trip ({card})")
+        chaos[str(dtype)[6:]] = chaos_phase(cfg, dtype)
+    for dt, fams in chaos.items():
+        for fam, runs in fams.items():
+            for key, r in runs.items():
+                if "launches" in r:
+                    by_path[f"chaos {dt} {fam} {key}"] = r["launches"]
+
     kernel_rows = []
     for k, cases in checks.cases.items():
         rep = next(c for c in cases if c["dtype"] == "bfloat16"
@@ -1118,6 +1388,7 @@ def main(argv=None) -> int:
                        "c1": c1,
                        "variants_f32": {str(k): v for k, v in variants_f32.items()},
                        "variants_bf16": {str(k): v for k, v in variants_bf16.items()},
+                       "chaos": chaos,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     print(json.dumps(result))

@@ -18,10 +18,15 @@ class NullTelemetry:
     def request_reclaimed(self, req) -> None: pass
     def request_finished(self, req) -> None: pass
     def request_cancelled(self, req, reason) -> None: pass
+    def request_shed(self, req, kind) -> None: pass
 
     # -- step phases --
     def step_begin(self) -> None: pass
     def step_end(self, scheduler, pool, finished, now=None) -> None: pass
+
+    # -- component instants --
+    def drafter_error(self) -> None: pass
+    def fault(self, kind, step) -> None: pass
 
 
 NULL = NullTelemetry()

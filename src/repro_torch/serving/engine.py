@@ -42,15 +42,27 @@ after it makes and captures nothing.
   acceptance rule keeps the tokens those of the engine without drafts;
   rejected KV is rolled back by truncating the block table.
 
-Weights are always prepacked.  A row whose logits are not finite is
-retired alone as ``"error"`` (the nan guard), and a drain in which arrived
-work waits for :data:`WATCHDOG_STEPS` steps without any progress raises
-:class:`StallError` (the watchdog).  Models that are not pure attention
-raise instead of running something else.
+Resilience (:mod:`~repro_torch.serving.faults` injects the faults it
+handles): with ``queue_limit`` or ``queue_pages`` an arrival beyond the
+bounded queue finishes at once as ``"rejected"``; :meth:`Engine.cancel`
+retires a request from any state; a request past its ``deadline_s`` or
+``max_queue_s`` on the clock of ``step(now=...)`` finishes as
+``"timeout"``; with ``nan_guard`` a row whose logits are not finite is
+retired alone as ``"error"``, its pages kept out of the prefix cache; a
+drafter that raises costs that step's drafts, and three failures in a row
+turn speculation off for the rest of the drain; and ``watchdog_steps``
+steps in which arrived work waits without any progress raise
+:class:`StallError`.  Each of these changes host bookkeeping only, so
+survivors keep their tokens and a warmed engine captures nothing more.
+Shed and cancelled requests are delivered by the next :meth:`Engine.step`.
+``REPRO_SANITIZE=1`` installs the runtime sanitizer
+(:mod:`repro_torch.analysis.sanitize`) on every engine.  Models that are
+not pure attention raise instead of running something else.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional
 
@@ -68,18 +80,14 @@ from repro_torch.serving import sampling
 from repro_torch.serving.kv_cache import (PagedKVPool, PoolError, copy_pages,
                                           fresh_slot_states, merge_slot,
                                           prefill_view)
+from repro_torch.serving.faults import StallError
 from repro_torch.serving.prefix_cache import PrefixCache
-from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.scheduler import AdmissionError, Request, Scheduler
 from repro_torch.serving.speculative import Drafter, NgramDrafter, accept_tokens
 
-__all__ = ["Engine", "StallError", "WATCHDOG_STEPS"]
+__all__ = ["Engine", "StallError"]
 
-WATCHDOG_STEPS = 64
-
-
-class StallError(RuntimeError):
-    """The drain stopped making progress (the watchdog tripped, or a step
-    scheduled zero tokens with live rows)."""
+WATCHDOG_STEPS = 64          # the default of Engine(watchdog_steps=)
 
 
 def _page_copier(caches, device):
@@ -95,14 +103,19 @@ def _page_copier(caches, device):
 
 class Engine:
     def __init__(self, model: ReproModel, params, *, device="cuda",
-                 max_slots: Optional[int] = None,
+                 prepack: bool = True, max_slots: Optional[int] = None,
                  page_tokens: int = 16, num_pages: Optional[int] = None,
+                 eager: bool = False, watermark_pages: int = 1,
                  chunk_tokens: Optional[int] = None,
+                 flat: Optional[bool] = None,
                  token_budget: Optional[int] = None,
-                 flat: Optional[bool] = None, eager: bool = False,
                  spec_tokens: Optional[int] = None,
                  drafter: Optional[Drafter] = None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False,
+                 queue_limit: Optional[int] = None,
+                 queue_pages: Optional[int] = None,
+                 watchdog_steps: int = WATCHDOG_STEPS,
+                 nan_guard: bool = True):
         self.device = require_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -113,7 +126,8 @@ class Engine:
         self.model = model
         self.obs = OBS_NULL
         params = tree_map(lambda t: t.to(self.device), params)
-        self.params = prepack_params(params, model.ctx)
+        # prepack=False packs every weight inside every step instead
+        self.params = prepack_params(params, model.ctx) if prepack else params
 
         layout = model.ctx.layout(model.compute_dtype)
         self._bucket = layout.m_r
@@ -159,10 +173,27 @@ class Engine:
             # cycle keeps a dropped engine's device memory alive
             self.pool.page_copier = _page_copier(self.caches, self.device)
         self.scheduler = Scheduler(self.slots, self.pool, max_len, eager=eager,
+                                   watermark_pages=watermark_pages,
                                    chunk_tokens=self.chunk_tokens,
                                    chunk_align=layout.m_r,
                                    prefix_cache=self.prefix_cache,
+                                   queue_limit=queue_limit,
+                                   queue_pages=queue_pages,
                                    telemetry=self.obs)
+        # the resilience ladder: shed and cancelled requests leave through
+        # the out-of-band list, the watchdog ends a stuck drain, non-finite
+        # logits quarantine their row, a failing drafter is turned off for
+        # the rest of the drain
+        self.watchdog_steps = watchdog_steps
+        self.nan_guard = nan_guard
+        self._finished_oob: List[Request] = []
+        self._retired_rids: set = set()    # no retired rid may hold pages
+        self._watchdog_trips = 0
+        self._drafter_errors = 0
+        self._drafter_fail_streak = 0
+        self._drafter_fail_limit = 3
+        self._spec_disabled = False
+        self._spec_auto_disables = 0
         # speculative decode: every decoding row may carry 1 + k positions
         self.spec_tokens = spec_tokens
         self.drafter: Optional[Drafter] = None
@@ -204,25 +235,56 @@ class Engine:
         self._graphs = GraphTable()
         self._paged_step = model.compiled_step("paged")
         self._flat_step = model.compiled_step("flat") if self.flat else None
+        # the runtime sanitizer checks every step's writes on the host
+        # before the device call (repro_torch.analysis.sanitize)
+        self.sanitizer = None
+        if os.environ.get("REPRO_SANITIZE", "0") not in ("", "0"):
+            from repro_torch.analysis.sanitize import install
+            install(self)
 
     # ------------------------------------------------------------------
     # continuous-batching API
     # ------------------------------------------------------------------
     def add_request(self, tokens, max_new: int, *, eos_id: Optional[int] = None,
                     arrival: float = 0.0, temperature: float = 1.0,
-                    seed: Optional[int] = None) -> int:
+                    seed: Optional[int] = None,
+                    deadline_s: Optional[float] = None,
+                    max_queue_s: Optional[float] = None) -> int:
         """Queue one request; returns its id.  ``temperature`` and ``seed``
         are its sampling parameters in a sampled drain (``temperature=0``
-        picks greedily; ``seed=None`` takes the step's seed).  Raises
-        :class:`~repro_torch.serving.scheduler.AdmissionError` for a
-        request that could never fit."""
+        picks greedily; ``seed=None`` takes the step's seed).
+        ``deadline_s`` and ``max_queue_s`` bound its lifetime and its first
+        wait from ``arrival``, on the clock of ``step(now=...)``.  An add
+        the bounded queue sheds finishes as ``"rejected"``, delivered by
+        the next step; a request that could never fit raises
+        :class:`~repro_torch.serving.scheduler.AdmissionError`."""
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=np.asarray(tokens, np.int32).reshape(-1),
                       max_new=max_new, eos_id=eos_id, arrival=arrival,
-                      temperature=temperature, seed=seed)
-        self.scheduler.add(req)
+                      temperature=temperature, seed=seed,
+                      deadline_s=deadline_s, max_queue_s=max_queue_s)
+        try:
+            self.scheduler.add(req)
+        except AdmissionError as e:
+            if e.kind == "impossible":
+                raise
+            req.status = "finished"
+            req.finish_reason = "rejected"
+            self.obs.request_shed(req, e.kind)
+            self._finished_oob.append(req)
         return rid
+
+    def cancel(self, rid: int, reason: str = "cancelled") -> bool:
+        """Cancel a live request from any state (queued, prefilling,
+        paused, decoding); its pages are released (into the prefix cache
+        when there is one) and the next step delivers it with
+        ``finish_reason=reason``.  Returns False when ``rid`` is not live."""
+        req = self.scheduler.cancel(rid, reason)
+        if req is None:
+            return False
+        self._finished_oob.append(req)
+        return True
 
     @property
     def num_preemptions(self) -> int:
@@ -253,7 +315,21 @@ class Engine:
             "prefill_tokens": self._prefill_tokens,
             "compiles": dict(self.model.trace_counts),
             "captures": dict(self._graphs.captures),
+            "scheduler": self.scheduler.stats(),
             "pool": self.pool.stats(),
+        }
+        out["resilience"] = {
+            "queue_depth": len(self.scheduler.waiting),
+            "queue_limit": self.scheduler.queue_limit,
+            "queue_pages": self.scheduler.queue_pages,
+            "sheds": self.scheduler.num_rejected,
+            "timeouts": self.scheduler.num_timeouts,
+            "cancels": self.scheduler.num_cancels,
+            "quarantines": self.scheduler.num_quarantines,
+            "drafter_errors": self._drafter_errors,
+            "spec_auto_disables": self._spec_auto_disables,
+            "spec_disabled": self._spec_disabled,
+            "watchdog_trips": self._watchdog_trips,
         }
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats()
@@ -288,16 +364,22 @@ class Engine:
     def step(self, *, now: Optional[float] = None, greedy: bool = True,
              seed: int = 0) -> List[Request]:
         """One engine step of this engine's family.  Returns the requests
-        finished during it (``now`` carries a clock for arrival gating;
-        ``seed`` keys the sampled picks of requests without their own)."""
+        finished during it: those shed or cancelled since the last step
+        first, then (with a clock ``now``) those past their deadline, then
+        the step's own.  ``now`` also gates arrivals; ``seed`` keys the
+        sampled picks of requests without their own."""
         t0 = time.perf_counter()
         self.obs.step_begin()
+        finished = list(self._finished_oob)
+        self._finished_oob.clear()
+        if now is not None:
+            finished.extend(self.scheduler.expire(now))
         if self.flat:
-            finished = self._step_flat(now, greedy, seed)
+            finished.extend(self._step_flat(now, greedy, seed))
         elif self.chunked:
-            finished = self._step_chunked(now, greedy, seed)
+            finished.extend(self._step_chunked(now, greedy, seed))
         else:
-            finished = self._step_monolithic(now, greedy, seed)
+            finished.extend(self._step_monolithic(now, greedy, seed))
         if self.scheduler.running or finished:
             self._steps += 1
             self._step_time += time.perf_counter() - t0
@@ -309,13 +391,14 @@ class Engine:
             if req.admit_seq >= 0:
                 self._finished_served += 1
             self._chunk_steps_total += req.chunk_steps
+            self._retired_rids.add(req.rid)
             if self.drafter is not None:
                 self.drafter.forget(req.rid)
         self.obs.step_end(self.scheduler, self.pool, finished, now=now)
         return finished
 
     def _watchdog(self, now) -> None:
-        """``WATCHDOG_STEPS`` consecutive steps that admit, advance and
+        """``watchdog_steps`` consecutive steps that admit, advance and
         finish nothing while arrived work waits mean the drain is stuck."""
         stuck = [r for r in self.scheduler.waiting
                  if now is None or r.arrival <= now]
@@ -323,10 +406,11 @@ class Engine:
             self._no_progress_steps = 0
             return
         self._no_progress_steps += 1
-        if self._no_progress_steps >= WATCHDOG_STEPS:
+        if self._no_progress_steps >= self.watchdog_steps:
+            self._watchdog_trips += 1
             self._no_progress_steps = 0
             raise StallError(
-                f"no request advanced for {WATCHDOG_STEPS} consecutive "
+                f"no request advanced for {self.watchdog_steps} consecutive "
                 f"steps; waiting: " +
                 ", ".join(f"rid {r.rid} ({r.status}, cursor "
                           f"{r.prefill_cursor}/{r.prompt_len})" for r in stuck) +
@@ -342,9 +426,8 @@ class Engine:
         """Advance a prefilling row by its ``n``-token chunk (the nan guard
         first, so a poisoned chunk never reaches the prefix cache); at the
         last one its logits give the first token."""
-        if not np.isfinite(row).all():
-            self.scheduler.quarantine(req)
-            finished.append(req)
+        if self.nan_guard and not np.isfinite(row).all():
+            self._quarantine(req, finished)
             return
         req.prefill_cursor += n
         req.len = req.prefill_cursor
@@ -364,7 +447,15 @@ class Engine:
             self.scheduler.finish(req)
             finished.append(req)
 
+    def _quarantine(self, req: Request, finished: List[Request]) -> None:
+        """Retire a poisoned row alone (non-finite logits, a failed
+        rollback): its pages go back to the free list, none into the
+        prefix cache.  Survivors are untouched: rows are independent."""
+        self.scheduler.cancel(req.rid, "error", cache_pages=False)
+        finished.append(req)
+
     def _stall(self, kind: str, running) -> StallError:
+        self._watchdog_trips += 1
         return StallError(
             f"{kind} step scheduled zero tokens with live slots: " +
             ", ".join(f"rid {r.rid} ({r.status}, cursor {r.prefill_cursor}/"
@@ -377,8 +468,11 @@ class Engine:
     def _propose_drafts(self) -> dict:
         """``{slot: drafts}`` for the decoding rows, each at most
         ``max_new - generated - 1`` long (the last token is never fed
-        back)."""
-        if self.drafter is None:
+        back).  A drafter that raises costs this step's drafts only (the
+        rows decode one token, with the same picks); after
+        ``_drafter_fail_limit`` failures in a row speculation is off until
+        the drain ends."""
+        if self.drafter is None or self._spec_disabled:
             return {}
         t0 = time.perf_counter()
         jobs, slot_of = [], {}
@@ -392,7 +486,18 @@ class Engine:
             slot_of[req.rid] = slot
         drafts = {}
         if jobs:
-            proposals = self.drafter.propose_all(jobs)
+            try:
+                proposals = self.drafter.propose_all(jobs)
+            except Exception:
+                self._drafter_errors += 1
+                self._drafter_fail_streak += 1
+                self.obs.drafter_error()
+                if self._drafter_fail_streak >= self._drafter_fail_limit:
+                    self._spec_disabled = True
+                    self._spec_auto_disables += 1
+                proposals = {}
+            else:
+                self._drafter_fail_streak = 0
             for req, k in jobs:
                 d = [int(t) for t in proposals.get(req.rid, [])][:k]
                 if d:
@@ -452,9 +557,8 @@ class Engine:
         the cache length by the committed tokens, truncate the block table
         past them (a rollback whose copy-on-write fails quarantines the
         row), and retire the request when it is done."""
-        if not np.isfinite(rows).all():
-            self.scheduler.quarantine(req)
-            finished.append(req)
+        if self.nan_guard and not np.isfinite(rows).all():
+            self._quarantine(req, finished)
             return
         appended, accepted = accept_tokens(
             req, drafts, rows, n,
@@ -468,8 +572,7 @@ class Engine:
             try:
                 self._rollback_pages += req.pages.truncate(req.len)
             except PoolError:
-                self.scheduler.quarantine(req)
-                finished.append(req)
+                self._quarantine(req, finished)
                 return
             if len(req.pages.pages) != self.pool.pages_for(req.len):
                 raise PoolError(f"rollback left {len(req.pages.pages)} pages "
@@ -538,8 +641,8 @@ class Engine:
         rows = self._run_paged(token, bt, np.full((1,), start, np.int32),
                                np.full((1,), n, np.int32), caches=view)
         row = rows[0, 0]
-        if not np.isfinite(row).all():
-            self.scheduler.quarantine(req)
+        if self.nan_guard and not np.isfinite(row).all():
+            self.scheduler.cancel(req.rid, "error", cache_pages=False)
             return False
         self.caches = merge_slot(self.caches, view, req.slot)
         req.len = l
@@ -774,10 +877,14 @@ class Engine:
 
     def drain(self, *, greedy: bool = True, seed: int = 0,
               now: Optional[float] = None) -> List[Request]:
-        """Run steps until every queued request has finished."""
+        """Run steps until every queued request has finished, the shed and
+        cancelled ones included.  The drafter's auto-disable lasts one
+        drain: the next drain has the drafter again."""
         finished = []
-        while self.scheduler.has_work:
+        while self.scheduler.has_work or self._finished_oob:
             finished.extend(self.step(now=now, greedy=greedy, seed=seed))
+        self._spec_disabled = False
+        self._drafter_fail_streak = 0
         return finished
 
     def warmup(self) -> None:
@@ -792,7 +899,7 @@ class Engine:
         copy (the trash page onto itself).  Every call carries no valid
         token, so all writes go to the trash page and live state is
         untouched."""
-        if self.scheduler.has_work:
+        if self.scheduler.has_work or self._finished_oob:
             raise RuntimeError("warmup() needs an idle engine")
         if self.prefix_cache is not None:
             self.pool.page_copier(0, 0)
@@ -838,16 +945,29 @@ class Engine:
 
     def generate(self, batch: dict, max_new: int, *, greedy: bool = True,
                  seed: int = 0, eos_id: Optional[int] = None,
-                 return_reasons: bool = False):
-        """batch: {"tokens": [B, L]}.  Returns [B, max_new] generated tokens
-        (early-finished rows padded with ``eos_id``, or 0), and the finish
-        reasons with ``return_reasons=True``."""
-        if self.scheduler.has_work:
+                 return_reasons: bool = False,
+                 deadline_s: Optional[float] = None):
+        """batch: {"tokens": [B, L]}.  Returns [B, max_new] generated tokens,
+        and the finish reasons ("eos", "length", "timeout", "rejected",
+        "error") with ``return_reasons=True``.  Rows that finish early, by
+        eos, timeout, shed or quarantine, are padded with ``eos_id`` (or
+        0).  ``deadline_s`` bounds each row's lifetime on a real clock."""
+        if self.scheduler.has_work or self._finished_oob:
             raise RuntimeError("generate() needs an idle engine")
         prompts = np.asarray(batch["tokens"])
-        rids = [self.add_request(prompts[i], max_new, eos_id=eos_id)
+        rids = [self.add_request(prompts[i], max_new, eos_id=eos_id,
+                                 deadline_s=deadline_s)
                 for i in range(prompts.shape[0])]
-        by_rid = {r.rid: r for r in self.drain(greedy=greedy, seed=seed)}
+        if deadline_s is None:
+            done = self.drain(greedy=greedy, seed=seed)
+        else:
+            done, t0 = [], time.perf_counter()
+            while self.scheduler.has_work or self._finished_oob:
+                done.extend(self.step(now=time.perf_counter() - t0,
+                                      greedy=greedy, seed=seed))
+            self._spec_disabled = False
+            self._drafter_fail_streak = 0
+        by_rid = {r.rid: r for r in done}
         pad = 0 if eos_id is None else eos_id
         rows, reasons = [], []
         for rid in rids:

@@ -126,6 +126,10 @@ class PagedKVPool:
     def is_shared(self, page: int) -> bool:
         return self._ref.get(page, 0) > 1
 
+    def sequences(self) -> List["SequencePages"]:
+        """The live block tables registered with this pool."""
+        return list(self._seqs)
+
     def holders(self, page: int) -> List:
         """Owner ids of the live block tables holding ``page``."""
         return sorted({s.owner for s in self._seqs

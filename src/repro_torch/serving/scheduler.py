@@ -32,8 +32,14 @@ policies the port's engine serves:
 Termination: the victim is always the youngest admission, and ``add``
 refuses any request whose whole KV lifetime cannot fit the pool alone, so
 the oldest request always progresses and drains end at any pool size.
-Bounded admission, cancellation and deadlines come with a later slice of
-the port.
+
+Resilience: with ``queue_limit`` or ``queue_pages`` set, ``add`` sheds an
+arrival that would overfill the wait queue (a typed
+:class:`AdmissionError`, taken before any state is); :meth:`Scheduler.
+cancel` retires a request from any live state, its pages released (into
+the prefix cache, unless the KV is suspect), and :meth:`Scheduler.expire`
+cancels as ``"timeout"`` every request past its ``deadline_s`` or, still
+unadmitted, its ``max_queue_s``.
 """
 
 from __future__ import annotations
@@ -52,8 +58,11 @@ __all__ = ["AdmissionError", "Request", "Scheduler", "finish_reason_for"]
 
 
 class AdmissionError(RuntimeError):
-    """``Scheduler.add`` refused a request; ``kind="impossible"``: its KV
-    budget can never fit ``max_len`` or the pool even running alone."""
+    """``Scheduler.add`` refused a request.  ``kind``: ``"queue-depth"`` or
+    ``"page-demand"``, an overload shed (the bounded queue is full, or its
+    predicted page demand passes ``queue_pages``; the engine finishes the
+    request as ``"rejected"``); ``"impossible"``, its KV budget can never
+    fit ``max_len`` or the pool even running alone."""
 
     def __init__(self, rid: int, kind: str, message: str):
         super().__init__(message)
@@ -84,6 +93,11 @@ class Request:
     arrival: float = 0.0
     temperature: float = 1.0      # 0 picks greedily in a sampled drain
     seed: Optional[int] = None    # None takes the step's seed
+    # bounds from ``arrival`` on the clock the engine is stepped with:
+    # ``deadline_s`` the whole lifetime, ``max_queue_s`` the wait before
+    # the first admission; expiry finishes the request as "timeout"
+    deadline_s: Optional[float] = None
+    max_queue_s: Optional[float] = None
 
     status: str = "waiting"       # waiting | prefilling | running | finished
     slot: int = -1
@@ -125,18 +139,17 @@ class Request:
         return False
 
 
-# spare pages an admission leaves free while other requests run
-WATERMARK_PAGES = 1
-
-
 class Scheduler:
     def __init__(self, max_slots: int, pool: PagedKVPool, max_len: int, *,
-                 eager: bool = False, chunk_tokens: Optional[int] = None,
-                 chunk_align: int = 1, prefix_cache=None, telemetry=None):
+                 eager: bool = False, watermark_pages: int = 1,
+                 chunk_tokens: Optional[int] = None, chunk_align: int = 1,
+                 prefix_cache=None, queue_limit: Optional[int] = None,
+                 queue_pages: Optional[int] = None, telemetry=None):
         self.max_slots = max_slots
         self.pool = pool
         self.max_len = max_len
         self.eager = eager
+        self.watermark_pages = watermark_pages   # spare pages while others run
         self.chunk_tokens = chunk_tokens       # None: monolithic prefill
         self.chunk_align = max(1, chunk_align)   # layout m_r: chunks stay tiles
         if prefix_cache is not None and eager:
@@ -144,6 +157,10 @@ class Scheduler:
                              "reservation books whole lifetimes, which shared "
                              "pages would count twice")
         self.prefix_cache = prefix_cache       # None: no sharing
+        # bounds on the queued requests and on their predicted page demand
+        # (None: unbounded)
+        self.queue_limit = queue_limit
+        self.queue_pages = queue_pages
         self.obs = telemetry if telemetry is not None else _NULL_OBS
         self.waiting: Deque[Request] = deque()
         self.running: Dict[int, Request] = {}          # slot -> request
@@ -153,11 +170,19 @@ class Scheduler:
         self.num_pauses = 0
         self.prefill_stall_steps = 0           # steps where a chunk got < ask
         self.spec_grow_fallbacks = 0           # speculative page asks shed
+        self.peak_running = 0
+        self.peak_waiting = 0
         # resumes after a preemption under the prefix cache: their count,
         # the prompt tokens they recomputed, and the last 256 of them
         self.resumes = 0
         self.resume_recompute_tokens = 0
         self.resume_events: Deque[dict] = deque(maxlen=256)
+        # requests shed at add(), expired, cancelled by the caller, or
+        # quarantined (retired with their pages kept out of the cache)
+        self.num_rejected = 0
+        self.num_timeouts = 0
+        self.num_cancels = 0
+        self.num_quarantines = 0
 
     @property
     def has_work(self) -> bool:
@@ -165,7 +190,10 @@ class Scheduler:
 
     def add(self, req: Request) -> None:
         """Queue one request in arrival order (never ahead of preempted or
-        paused ones), or raise :class:`AdmissionError` if it could never run."""
+        paused ones), or raise :class:`AdmissionError`: ``"impossible"``
+        if it could never run, ``"queue-depth"`` or ``"page-demand"`` if
+        the bounded queue sheds it.  Sheds are decided before any state
+        is taken, so a rejection strands no slot and no page."""
         if req.kv_budget > self.max_len:
             raise AdmissionError(
                 req.rid, "impossible",
@@ -178,6 +206,27 @@ class Scheduler:
                 f"request {req.rid}: KV budget {req.kv_budget} can never fit "
                 f"the pool ({self.pool.usable_pages} usable pages of "
                 f"{self.pool.page_tokens} tokens)")
+        # preempted and paused requests come back by appendleft, never
+        # through add(), so admitted work is never shed here
+        if self.queue_limit is not None \
+                and len(self.waiting) >= self.queue_limit:
+            self.num_rejected += 1
+            raise AdmissionError(
+                req.rid, "queue-depth",
+                f"request {req.rid} shed: wait queue at its bound "
+                f"({len(self.waiting)}/{self.queue_limit})")
+        if self.queue_pages is not None:
+            # the prompt pages of every queued request holding none yet,
+            # plus the arrival's (a paused waiter's pages are booked)
+            demand = self.pool.pages_for(req.prompt_len) + sum(
+                self.pool.pages_for(r.prompt_len) for r in self.waiting
+                if r.pages is None)
+            if demand > self.queue_pages:
+                self.num_rejected += 1
+                raise AdmissionError(
+                    req.rid, "page-demand",
+                    f"request {req.rid} shed: queued prompt-page demand "
+                    f"{demand} exceeds queue_pages={self.queue_pages}")
         req.status = "waiting"
         i, n = 0, len(self.waiting)
         while i < n and self.waiting[i].preempted:
@@ -185,6 +234,7 @@ class Scheduler:
         while i < n and self.waiting[i].arrival <= req.arrival:
             i += 1
         self.waiting.insert(i, req)
+        self.peak_waiting = max(self.peak_waiting, len(self.waiting))
         self.obs.request_queued(req)
 
     def admit(self, now: Optional[float] = None,
@@ -235,6 +285,7 @@ class Scheduler:
             self.running[req.slot] = req
             self.obs.request_admitted(req)
             admitted.append(req)
+        self.peak_running = max(self.peak_running, len(self.running))
         return admitted
 
     def _take_pages(self, req: Request, was_preempted: bool,
@@ -291,7 +342,7 @@ class Scheduler:
     def _pages_available(self, req: Request) -> bool:
         if self.eager:
             return self.pool.can_fit(req.kv_budget)
-        reserve = WATERMARK_PAGES if self.running else 0
+        reserve = self.watermark_pages if self.running else 0
         if self.chunk_tokens is None:
             return self.pool.pages_for(req.prompt_len) + reserve \
                 <= self.pool.num_available
@@ -507,18 +558,91 @@ class Scheduler:
         req.slot = -1
         req.status = "finished"
 
-    def quarantine(self, req: Request) -> None:
-        """Retire a running row whose logits were not finite, alone: its
-        pages and slot are returned and it finishes as ``"error"``."""
-        if self.running.get(req.slot) is not req:
-            raise RuntimeError(f"quarantine of rid {req.rid} not running")
-        self.obs.request_cancelled(req, "error")
-        del self.running[req.slot]
-        self._free_slots.append(req.slot)
-        req.slot = -1
-        req.pages.release()
-        req.pages = None
+    def cancel(self, rid: int, reason: str = "cancelled", *,
+               cache_pages: bool = True) -> Optional[Request]:
+        """Retire request ``rid`` from any live state: queued (fresh,
+        paused or preempted), prefilling or decoding (``out_tokens`` and
+        ``len`` cover accepted tokens only, so a speculative rollback
+        leaves nothing partial).  The slot returns, and the pages go into
+        the prefix cache when there is one and ``cache_pages``, else
+        straight back to the free list (``cache_pages=False``: the
+        engine's quarantine of suspect KV).  The request finishes as
+        ``reason`` ("cancelled", "timeout" or "error").  Returns it, or
+        None when ``rid`` is not live."""
+        for i, r in enumerate(self.waiting):
+            if r.rid == rid:
+                del self.waiting[i]
+                self.obs.request_cancelled(r, reason)
+                return self._retire_cancelled(r, reason, cache_pages)
+        for slot, r in list(self.running.items()):
+            if r.rid == rid:
+                del self.running[slot]
+                self._free_slots.append(slot)
+                self.obs.request_cancelled(r, reason)
+                r.slot = -1
+                return self._retire_cancelled(r, reason, cache_pages)
+        return None
+
+    def _retire_cancelled(self, req: Request, reason: str,
+                          cache_pages: bool) -> Request:
+        if req.pages is not None:
+            if cache_pages and self.prefix_cache is not None \
+                    and req.pages.pages:
+                # as at preemption: positions 0..len-1 (the cursor of a
+                # mid-prefill row) hold committed KV, capped at the prompt
+                upto = min(max(req.len, req.prefill_cursor), req.prompt_len)
+                self.prefix_cache.insert(req.prompt, req.pages.pages, upto)
+            req.pages.release()
+            req.pages = None
         req.prefill_cursor = 0
         req.len = 0
         req.status = "finished"
-        req.finish_reason = "error"
+        req.finish_reason = reason
+        if reason == "timeout":
+            self.num_timeouts += 1
+        elif reason == "error":
+            self.num_quarantines += 1
+        else:
+            self.num_cancels += 1
+        return req
+
+    def expire(self, now: Optional[float]) -> List[Request]:
+        """Cancel as ``"timeout"`` every live request past its
+        ``deadline_s`` (any state) or, never admitted, its ``max_queue_s``
+        at time ``now``; ``now=None`` checks nothing.  The engine runs it
+        before admission, so a doomed head never takes a slot."""
+        if now is None:
+            return []
+        stale = [r for r in list(self.waiting) + list(self.running.values())
+                 if (r.deadline_s is not None
+                     and now - r.arrival >= r.deadline_s)
+                 or (r.max_queue_s is not None and r.admit_seq < 0
+                     and r.status == "waiting"
+                     and now - r.arrival >= r.max_queue_s)]
+        return [self.cancel(r.rid, "timeout") for r in stale]
+
+    def stats(self) -> dict:
+        """Cumulative counters (the pool's live on the pool)."""
+        running = list(self.running.values())
+        return {
+            "waiting": len(self.waiting),
+            "running": len(running),
+            "prefilling": sum(r.status == "prefilling" for r in running),
+            "decoding": sum(r.status == "running" for r in running),
+            "free_slots": len(self._free_slots),
+            "peak_running": self.peak_running,
+            "peak_waiting": self.peak_waiting,
+            "num_preemptions": self.num_preemptions,
+            "num_pauses": self.num_pauses,
+            "prefill_stall_steps": self.prefill_stall_steps,
+            "spec_grow_fallbacks": self.spec_grow_fallbacks,
+            "chunk_tokens": self.chunk_tokens,
+            "resumes": self.resumes,
+            "resume_recompute_tokens": self.resume_recompute_tokens,
+            "queue_limit": self.queue_limit,
+            "queue_pages": self.queue_pages,
+            "num_rejected": self.num_rejected,
+            "num_timeouts": self.num_timeouts,
+            "num_cancels": self.num_cancels,
+            "num_quarantines": self.num_quarantines,
+        }

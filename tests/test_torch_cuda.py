@@ -522,3 +522,112 @@ def test_engines_share_signatures_and_own_their_graphs(gen, family):
         first.add_request(rng.integers(0, 512, n), 4)
     assert len(first.drain()) == 2
     assert first.stats()["captures"] == counts == dict(first.model.trace_counts)
+
+
+# ---------------------------------------------------------------------------
+# resilience under chaos on the card (f32: survivors exact)
+# ---------------------------------------------------------------------------
+
+_CHAOS_PLANS = {"oom-spike": [(0, "oom"), (1, "oom"), (2, "oom")],
+                "drafter-burst": [(s, "drafter") for s in (1, 2, 3, 5, 7)],
+                "nan-logits": [(3, "nan")],
+                "copier-failure": [(1, "copier"), (3, "copier")]}
+
+
+def _pools(caches):
+    """The KV page pools of a cache tree (the ``*_pages`` leaves)."""
+    return [t for k, v in caches.items()
+            for t in (_pools(v) if isinstance(v, dict) else
+                      [v] if k.endswith("_pages") else [])]
+
+
+def _chaos_drain(eng, events=None):
+    """A 48-token prompt A, a 23-token one, A again at 1 and at 3 (its
+    three pages cached by then: the prefill restarts inside the last,
+    which is copied first) and a 57-token one at 4, on a clock that
+    advances one per step, under a plan of ``events``.  Returns each
+    request's (tokens, reason) and the faults fired."""
+    import contextlib
+
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.integers(0, 512, n) for n in (48, 23, 57))
+    rids = [eng.add_request(p, n, arrival=t) for p, n, t in
+            ((a, 12, 0.0), (b, 16, 0.0), (a, 8, 1.0), (a, 10, 3.0), (c, 10, 4.0))]
+    plan = None if events is None else FaultPlan([FaultEvent(s, k) for s, k in events])
+    fin, clock = [], 0
+    with plan.on(eng) if plan is not None else contextlib.nullcontext():
+        while eng.scheduler.has_work or eng._finished_oob:
+            fin += eng.step(now=float(clock))
+            clock += 1
+    eng.drain()
+    by = {r.rid: (r.out_tokens, r.finish_reason) for r in fin}
+    return [by[r] for r in rids], (None if plan is None else plan.fired)
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILY))
+def test_f32_chaos_identity_and_no_capture(gen, family):
+    """Under each plan (every fault kind applies: n-gram speculation and
+    the prefix cache are on), every survivor gives the clean drain's
+    tokens exactly, the allocator audits clean, the pools never move, and
+    the model traces and the engine captures nothing after warmup."""
+    from repro_torch.analysis.aliasing import check_pool_consistency
+    from repro_torch.analysis.sanitize import install
+    eng = _small_engine(family, torch.float32, spec_tokens=2, prefix_cache=True)
+    san = install(eng)
+    eng.warmup()
+    traces, captures = dict(eng.model.trace_counts), eng.stats()["captures"]
+    pools = [t.data_ptr() for t in _pools(eng.caches)]
+    clean, _ = _chaos_drain(eng)
+    assert all(r == "length" for _, r in clean)
+    for name, events in sorted(_CHAOS_PLANS.items()):
+        eng.prefix_cache.clear()
+        out, fired = _chaos_drain(eng, events)
+        assert sum(fired.values()) > 0, name
+        for got, want in zip(out, clean):
+            if got[1] != "error":
+                assert got == want, name
+        assert not check_pool_consistency(eng, name)
+        assert eng.pool.num_used == len(set(eng.prefix_cache.pages()))
+        assert dict(eng.model.trace_counts) == traces, name
+        assert eng.stats()["captures"] == captures, name
+    assert [t.data_ptr() for t in _pools(eng.caches)] == pools
+    assert eng.stats()["resilience"]["quarantines"] == 1 and san.checks > 0
+
+
+def test_copier_fault_leaves_pools_and_refcounts(gen):
+    """An injected copier failure raises before the device copy is
+    launched: the failed copy-on-write leaves the refcounts, the free
+    list, every pool's storage and its contents as they were, and the
+    request re-prefills the page instead."""
+    from repro_torch.serving.kv_cache import PoolError
+    eng = _small_engine("flat", torch.float32, prefix_cache=True)
+    eng.warmup()
+    pools = _pools(eng.caches)
+    cow, seen = eng.pool.cow, []
+
+    def watched(seq, idx):
+        ledger = eng.pool.ledger()
+        ptrs = [t.data_ptr() for t in pools]
+        torch.cuda.synchronize()
+        contents = [t.clone() for t in pools]
+        try:
+            return cow(seq, idx)
+        except PoolError as e:
+            torch.cuda.synchronize()
+            assert eng.pool.ledger() == ledger
+            assert [t.data_ptr() for t in pools] == ptrs
+            assert all(torch.equal(t, c) for t, c in zip(pools, contents))
+            seen.append(str(e))
+            raise
+
+    eng.pool.cow = watched
+    out, fired = _chaos_drain(eng, _CHAOS_PLANS["copier-failure"])
+    assert fired["copier"] == 2 and len(seen) == 2
+    assert all("injected page_copier failure" in m for m in seen)
+    del eng.pool.cow
+    eng.prefix_cache.clear()
+    clean, _ = _chaos_drain(eng)
+    assert out == clean
+    assert eng.pool.cow_copies == 2
+
