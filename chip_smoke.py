@@ -71,7 +71,24 @@ step a replay of a CUDA graph captured at warmup:
      a cached one, no trace or capture after warmup, the pools never
      moved, every kernel of the path launched, and each drain's ms per
      step;
- 10. the kernels JSON line (launches from the flat drain, the main path;
+ 10. serving observability, bfloat16, full width: in each family the §4
+     drain of phase 5 on a warmed engine with telemetry=True beside the
+     same drain on one without, over one model: identical tokens, no
+     capture in either drain, the cost model (built at warmup) moving no
+     trace_counts, every step record's sched + device + draft + host
+     equal to its wall; printed: TTFT, ITL, queue-wait and e2e
+     percentiles, the mean sched/device/draft/host ms per step, each step
+     family's predicted against measured device seconds with its FLOPs
+     and bytes, MFU, MBU, roofline fraction and padding waste; the flat
+     engine's report pair (.html and .prom, linted) and Chrome trace
+     written to a temporary directory, and the observer's cost over
+     TEL_PAIRS alternating off/on drains; then, with telemetry on, the
+     spec and shared-prefix traces on a flat engine with n-gram spec
+     (k = 2) and the prefix cache (the draft span and the cache instants
+     fire), and a chaos drain (OOM spike and NaN plans) whose fault
+     instants land in the trace; every kernel of the path launched in
+     every drain;
+ 11. the kernels JSON line (launches from the flat drain, the main path;
      each other path's beside them), then the result line.
 
 Usage:  python3 chip_smoke.py [--out results.json]
@@ -82,6 +99,7 @@ repository's src/ beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import itertools
 import json
 import os
@@ -1066,7 +1084,6 @@ def chaos_check(eng, label, run, clean, tol, baseline) -> dict:
     allocator audits clean with every used page a prefix-cache page; the
     model traced and the engine captured nothing since warmup; every
     kernel of the path ran.  Prints the drain's line."""
-    import collections
     from repro_torch.analysis.aliasing import check_pool_consistency
     served = {i for i in run["out"] if i in clean["out"]}
     picks = {k: v for k, v in run["picks"].items() if k[0] in served}
@@ -1235,6 +1252,231 @@ def chaos_phase(cfg, dtype) -> dict:
     return out
 
 
+# the telemetry phase: the same drains with telemetry off and on
+TEL_PAIRS = 5                     # alternating off/on drains for the cost
+
+
+def tel_drain(eng, prompts, label) -> dict:
+    """The §4 drain on a warmed engine: 32 new tokens per prompt, the
+    wrapper counts set to 0 just before and read just after; every request
+    finishes, nothing is captured, every kernel of the path runs."""
+    from repro_torch import kernels
+    st0 = eng.stats()
+    rids = [eng.add_request(p, 32) for p in prompts]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fin = {r.rid: r for r in eng.drain()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    if sorted(fin) != sorted(rids) or any(r.finish_reason != "length"
+                                          for r in fin.values()):
+        raise AssertionError(f"{label}: not every request finished")
+    if st["captures"] != st0["captures"] or st["compiles"] != st0["compiles"]:
+        raise AssertionError(f"{label}: captured during the drain: "
+                             f"{st0['captures']} -> {st['captures']}")
+    check_path_launches(label, launches, eng.flat)
+    steps = st["steps"] - st0["steps"]
+    return {"tokens": [fin[r].out_tokens for r in rids], "wall_s": wall,
+            "steps": steps, "ms_per_step": 1e3 * wall / steps,
+            "launches": launches}
+
+
+def check_records(eng, label) -> None:
+    """Every step record's sched + device + draft + host is its wall, and
+    the drain totals' too."""
+    recs = list(eng.obs.step_records)
+    for rec in recs:
+        parts = rec["sched"] + rec["device"] + rec["draft"] + rec["host"]
+        if abs(parts - rec["wall"]) > 1e-9 + 1e-6 * rec["wall"] \
+                or not rec["families"]:
+            raise AssertionError(f"{label}: step record {rec} does not sum to "
+                                 f"its wall")
+    tot = eng.obs.attribution_summary()["totals"]
+    comp = tot["sched_s"] + tot["device_s"] + tot["draft_s"] + tot["host_s"]
+    if not recs or abs(comp - tot["wall_s"]) > 1e-6 * tot["wall_s"]:
+        raise AssertionError(f"{label}: totals {tot} do not sum to the wall")
+
+
+def print_telemetry(eng, label) -> dict:
+    """The drain's latency percentiles, wall split, per-family predicted
+    against measured device time, and MFU/MBU."""
+    tel = eng.telemetry()
+    lat, att = tel["latency"], tel["attribution"]
+    tot, steps = att["totals"], max(1, att["totals"]["steps"])
+    print(f"  {label}: latency ms (p50 / p95 / p99): " + "; ".join(
+        f"{k[:-2]} {1e3 * v['p50']:.3f} / {1e3 * v['p95']:.3f} / "
+        f"{1e3 * v['p99']:.3f} (n={v['count']})" for k, v in lat.items()))
+    split = {k: 1e3 * tot[f"{k}_s"] / steps
+             for k in ("wall", "sched", "device", "draft", "host")}
+    print(f"  {label}: mean ms per step over {tot['steps']} steps: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items()))
+    cm = eng.cost_model
+    for fam, f in sorted(att["families"].items()):
+        fc = cm.get(fam)
+        print(f"    {fam}: {f['steps']} steps, fill {f['fill']:.3f}, device "
+              f"{f['device_s']:.6f} s measured vs {f['predicted_s']:.6f} s "
+              f"predicted (ratio {f['predicted_vs_measured']:.4f}); per step "
+              f"{fc.flops:.4e} FLOPs, {fc.hbm_bytes:.4e} B ({fc.kv_gather_bytes:.4e} "
+              f"KV gather), roofline {1e3 * fc.predicted_s:.6f} ms ({fc.bottleneck})")
+    print(f"  {label}: MFU {att['mfu']:.6f}, MBU {att['mbu']:.6f}, roofline "
+          f"fraction {att['roofline_fraction']:.6f}, padding waste ratio "
+          f"{att['padding_waste_ratio']:.6f}, achieved {att['achieved_tokens_per_s']:.1f}"
+          f" vs roofline {att['roofline_tokens_per_s']:.1f} tokens/s, goodput "
+          f"{att['goodput_ratio']:.3f}, alerts {[a['kind'] for a in tel['alerts']]}")
+    return {"latency": lat, "ms_per_step": split, "attribution": att,
+            "alerts": tel["alerts"]}
+
+
+def telemetry_phase(cfg, prompts, card) -> dict:
+    """Serving observability at full width in bfloat16, each family: the
+    §4 drain on a warmed engine with telemetry on beside the same drain on
+    one with it off, over one model (identical tokens, no capture in
+    either, the cost model built at warmup moving no trace_counts, step
+    records summing to wall); the flat family's report pair and trace
+    exported and linted, and the observer's cost over alternating pairs;
+    the spec and shared-prefix traces with n-gram speculation (k = 2) and
+    the prefix cache, flat; a chaos drain with telemetry on, its fault
+    instants in the trace."""
+    import gc
+    import tempfile
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.obs.attrib import build_cost_model
+    from repro_torch.obs.export import lint_prometheus
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, 4, "decode"),
+                        device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    out, by_path = {}, {}
+
+    def engine(telemetry, **kw):
+        eng = Engine(model, params, device="cuda", max_slots=4, page_tokens=16,
+                     telemetry=telemetry, **kw)
+        eng.warmup()
+        return eng
+
+    for family, kw in FAMILIES_BF16.items():
+        off, on = engine(False, **kw), engine(True, **kw)
+        traces = dict(model.trace_counts)
+        cm = build_cost_model(on)
+        if dict(model.trace_counts) != traces or off.cost_model is not None \
+                or on.cost_model is None or cm.families.keys() != on.cost_model.families.keys():
+            raise AssertionError(f"{family}: the cost model moved trace_counts "
+                                 f"or was built without telemetry")
+        print(f"  {family}: cost model at warmup, {cm.hw_name} @ {cm.dtype}, "
+              f"peak {cm.peak_flops:.4g} FLOP/s, HBM {cm.hbm_bw:.4g} B/s, "
+              f"{len(cm.families)} families {list(cm.families)}; trace_counts "
+              f"{traces} unmoved")
+        r_off = tel_drain(off, prompts, f"bf16 {family} telemetry off")
+        r_on = tel_drain(on, prompts, f"bf16 {family} telemetry on")
+        if r_on["tokens"] != r_off["tokens"]:
+            raise AssertionError(f"{family}: telemetry on changed the tokens")
+        check_records(on, f"bf16 {family}")
+        print(f"  {family}: tokens identical with telemetry on and off; "
+              f"{r_off['ms_per_step']:.3f} (off) and {r_on['ms_per_step']:.3f} "
+              f"(on) ms per step, {r_on['steps']} steps; no capture in either "
+              f"drain; records sum to wall")
+        res = {"off": {k: v for k, v in r_off.items() if k != "tokens"},
+               "on": {k: v for k, v in r_on.items() if k != "tokens"},
+               "cost_model": cm.to_dict(), **print_telemetry(on, f"{family}")}
+        by_path[f"telemetry {family} off"] = r_off["launches"]
+        by_path[f"telemetry {family} on"] = r_on["launches"]
+        if family == "flat":
+            with tempfile.TemporaryDirectory() as tmp:
+                paths = on.telemetry(report=os.path.join(tmp, "drain"))["report"]
+                prom = open(paths["prom"]).read()
+                html = open(paths["html"]).read()
+                problems = lint_prometheus(prom)
+                trace_path = os.path.join(tmp, "drain.trace.json")
+                on.obs.export_trace(trace_path)
+                with open(trace_path) as f:
+                    events = json.load(f)["traceEvents"]
+            if problems or "<script" in html or not events:
+                raise AssertionError(f"exports: lint {problems}, "
+                                     f"{len(events)} trace events")
+            print(f"  {family}: report {len(html)} B html + {len(prom.splitlines())}"
+                  f"-line .prom (lint clean), Chrome trace {len(events)} events")
+            res["exports"] = {"html_bytes": len(html),
+                              "prom_lines": len(prom.splitlines()),
+                              "trace_events": len(events)}
+            pairs = []
+            for i in range(TEL_PAIRS):
+                a = tel_drain(off, prompts, f"flat pair {i} off")
+                on.telemetry(reset=True)
+                b = tel_drain(on, prompts, f"flat pair {i} on")
+                if a["tokens"] != b["tokens"] or b["tokens"] != r_off["tokens"]:
+                    raise AssertionError(f"flat pair {i}: tokens differ")
+                pairs.append((a["ms_per_step"], b["ms_per_step"]))
+            offs, ons = zip(*pairs)
+            print(f"  observer cost, flat, {TEL_PAIRS} alternating pairs (off, on) "
+                  f"ms per step: {[(round(x, 4), round(y, 4)) for x, y in pairs]}; "
+                  f"medians {float(np.median(offs)):.4f} off, "
+                  f"{float(np.median(ons)):.4f} on ({card})")
+            res["pairs"] = pairs
+        out[family] = res
+        del off, on
+        gc.collect()
+
+    # speculation and the prefix cache, flat: the draft span, the cache and
+    # rollback instants
+    eng = engine(True, chunk_tokens=128, spec_tokens=2, prefix_cache=True)
+    spec = [(p, n, 0.0) for p, n, _ in spec_trace(cfg.vocab)]
+    pre = [(p, n, 0.0) for p, n, _ in prefix_trace(cfg.vocab)]
+    r_spec = timed_drain(eng, spec, True, 0, "bf16 flat spec+cache, spec trace, "
+                         "telemetry on")
+    r_pre = timed_drain(eng, pre, True, 0, "bf16 flat spec+cache, shared-prefix "
+                        "trace, telemetry on", staggered=True)
+    check_records(eng, "spec+cache")
+    snap = eng.obs.registry.snapshot()
+    evs = eng.obs.tracer.events()
+    names = collections.Counter(e["name"] for e in evs if e["ph"] in ("i", "X"))
+    print(f"  spec+cache: draft rows {snap['draft_rows']}, draft tokens "
+          f"{snap['draft_tokens']}, prefix hits {snap['prefix_hits']} "
+          f"({snap['prefix_hit_tokens']} tokens), evictions "
+          f"{snap['prefix_evictions']}, cow {snap['cow_copies']}, rollback pages "
+          f"{snap['spec_rollback_pages']}; trace spans and instants {dict(names)}")
+    if not (names["draft"] and names["prefix_hit"] and snap["draft_tokens"]
+            and snap["step_draft_s"]["count"]):
+        raise AssertionError(f"spec+cache: the draft span or the cache "
+                             f"instants did not fire: {dict(names)}")
+    out["spec_cache"] = {"counters": {k: v for k, v in snap.items()
+                                      if not isinstance(v, dict) and k != "_scope"},
+                         "instants": dict(names),
+                         **print_telemetry(eng, "spec+cache")}
+    by_path["telemetry spec trace"] = r_spec["launches"]
+    by_path["telemetry prefix trace"] = r_pre["launches"]
+    del eng
+    gc.collect()
+
+    # a chaos drain with telemetry on: the fault instants land in the trace
+    eng = engine(True, queue_limit=6, **CHAOS_FAMILIES["flat-spec-cache"])
+    trace = chaos_trace(cfg.vocab)
+    adds = [(i, p, n, {"arrival": a}) for i, (p, n, a) in enumerate(trace)]
+    events = CHAOS_PLANS["oom-spike"] + CHAOS_PLANS["nan-logits"]
+    plan = FaultPlan([FaultEvent(st, k) for st, k in events])
+    run = chaos_drain(eng, adds, plan)
+    check_path_launches("telemetry chaos", run["launches"], True)
+    check_records(eng, "chaos")
+    names = collections.Counter(e["name"] for e in eng.obs.tracer.events()
+                                if e["ph"] == "i")
+    reasons = collections.Counter(r for _, r in run["out"].values())
+    print(f"  chaos (oom-spike + nan-logits, flat spec+cache): fired "
+          f"{plan.fired}, reasons {dict(reasons)}, instants {dict(names)}")
+    if names["fault:nan"] != plan.fired["nan"] or names["fault:oom"] != plan.fired["oom"] \
+            or not names["quarantine"] or not plan.fired["nan"]:
+        raise AssertionError(f"chaos: fault instants {dict(names)} vs fired "
+                             f"{plan.fired}")
+    out["chaos"] = {"fired": dict(plan.fired), "instants": dict(names),
+                    "reasons": dict(reasons), "ms_per_step": run["ms_per_step"]}
+    by_path["telemetry chaos"] = run["launches"]
+    del eng
+    gc.collect()
+    return out, by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results here")
@@ -1361,6 +1603,13 @@ def main(argv=None) -> int:
                 if "launches" in r:
                     by_path[f"chaos {dt} {fam} {key}"] = r["launches"]
 
+    print(f"serving observability, bfloat16, full width: the §4 drain with "
+          f"telemetry off and on in each family, the spec and shared-prefix "
+          f"traces (flat, spec_tokens=2, prefix cache) and a chaos drain with "
+          f"telemetry on ({card})")
+    telemetry, tel_paths = telemetry_phase(cfg, prompts, card)
+    by_path.update(tel_paths)
+
     kernel_rows = []
     for k, cases in checks.cases.items():
         rep = next(c for c in cases if c["dtype"] == "bfloat16"
@@ -1388,7 +1637,7 @@ def main(argv=None) -> int:
                        "c1": c1,
                        "variants_f32": {str(k): v for k, v in variants_f32.items()},
                        "variants_bf16": {str(k): v for k, v in variants_bf16.items()},
-                       "chaos": chaos,
+                       "chaos": chaos, "telemetry": telemetry,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     print(json.dumps(result))

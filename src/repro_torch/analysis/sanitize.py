@@ -192,10 +192,10 @@ def install(engine) -> StepSanitizer:
     if engine.flat:
         orig_flat = _entry(engine, "_run_flat")
 
-        def run_flat(token, bt, row_ids, q_pos, idx):
+        def run_flat(token, bt, row_ids, q_pos, idx, ragged=None):
             san.check_retired()
             san.check_flat(token, bt, row_ids, q_pos)
-            return orig_flat(token, bt, row_ids, q_pos, idx)
+            return orig_flat(token, bt, row_ids, q_pos, idx, ragged)
 
         engine._run_flat = run_flat
 

@@ -1,0 +1,301 @@
+"""Performance attribution: a roofline-grounded per-family step cost model.
+
+The paper's pitch is *predictability*: packed layouts exist so tile
+shapes — and therefore step cost — are known before execution.  At
+``Engine.warmup()`` time (and **only** then — the warmup-only contract
+below) :func:`build_cost_model` builds a :class:`StepCostModel`: one
+:class:`FamilyCost` for every step family on the engine's ladder (the
+enumeration :func:`repro_torch.analysis.shapes.step_families` derives from
+the warmup loop), priced against a
+:class:`~repro_torch.core.hardware.HardwareSpec`:
+
+    compute_s   = flops / peak_flops(compute dtype)
+    memory_s    = hbm_bytes / hbm_bw
+    predicted_s = max(compute_s, memory_s)        (the roofline)
+
+The JAX package reads both counts from XLA's cost analysis of each
+lowered family.  The port has no compiler to ask, and needs none: the
+counts are closed forms of the engine's own geometry.
+
+**FLOPs.**  With the layout tiles ``(m_r, n_r, k_r)``, ``L`` layers,
+``Hq`` query heads of width ``dh``, ``ru(x, t)`` = ``x`` rounded up to a
+multiple of ``t``, ``win = max_pages * page_tokens`` (the block-table
+window), ``lin`` = ``Σ ru(K, k_r)·ru(N, n_r)`` over the block's linears
+(Q, K, V, O, gate, up, down) and ``head = ru(vocab, n_r)·ru(d, k_r)``:
+
+    flat[1,W]/kK:        M = ru(W, m_r)     R = ru(slots·K, m_r)   P = W
+    chunk[B,S], prefill[1,S], decode[B,1]:
+                         M = B·ru(S, m_r)   R = B·ru(1, m_r)       P = B·S
+    chunk[B,S]/verify, verify[B,K]: as the base shape, but R = B·ru(K, m_r)
+
+    flops = 2·M·L·lin + 2·R·head + 4·P·Hq·dh·win·L
+
+— every packed linear over its padded tiles, the tied head over the ``R``
+gathered rows, and attention over the whole window.  This is the dot-FLOP
+count XLA reports for the JAX package's families, to the FLOP
+(``tests/test_torch_attrib.py`` holds the two equal).
+
+**Bytes** are the port's own count, not the JAX package's:
+
+    hbm_bytes = itemsize(compute dtype)·(L·lin + head)     packed weights
+              + rows·win·kv_page_bytes_per_token           KV gather
+              + 4·R·vocab                                  float32 logits
+
+— each prepacked weight read once per step (the tied head's packed table
+included), the KV pages of every gathering row's window (``rows`` = the
+slots for a flat step, ``B`` otherwise), and the float32 logits of the
+``R`` gathered rows.  XLA's byte count depends on how it fuses a step (it
+counts activations, the per-step pack of the stacked layer weights and
+every unfused intermediate), so no closed form reproduces it; the port
+counts the traffic a step cannot avoid, which makes ``predicted_s`` the
+step's floor on the card.  Norm weights and the embedding rows gathered
+are left out (a few KB a step).  ``kv_gather_bytes`` is the JAX package's
+term exactly.
+
+Per-step attribution happens on the telemetry side
+(:mod:`repro_torch.obs.telemetry`): each measured step is tagged with the
+family label(s) it executed, its wall time is split into
+``sched + device + draft + host`` (exact by construction — the split is
+derived from the step's own span timestamps, so the components sum to the
+measured wall), and *padding waste* prices the step's padded positions:
+``(width - real_tokens) * per_token_s`` of the family's roofline cost.
+Per-drain rollups (:func:`summarize`) report MFU/MBU, achieved- vs
+roofline-tokens/s, padding-waste ratio and goodput.
+
+Warmup-only contract: nothing in this module runs per step, and building
+the model calls no model step, no compiled step and no graph table, so it
+moves no ``trace_counts`` and captures nothing.  The cost model is a
+frozen dict after :func:`build_cost_model` returns; the per-step hot path
+only ever does a dict lookup and float arithmetic on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.core.layout import round_up
+
+__all__ = ["FamilyCost", "StepCostModel", "build_cost_model",
+           "kv_page_bytes_per_token", "fresh_totals", "update_aggregates",
+           "finalize_summary", "summarize"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyCost:
+    """Predicted cost of one step family (one ladder shape)."""
+
+    label: str                 # e.g. "flat[1,64]/k1", "chunk[4,16]/verify"
+    width: int                 # padded token positions per step (the grid)
+    flops: float               # dot FLOPs per step
+    hbm_bytes: float           # modelled HBM traffic per step
+    kv_gather_bytes: float     # block-table-window KV gather traffic
+    compute_s: float           # flops / peak_flops(dtype)
+    memory_s: float            # hbm_bytes / hbm_bw
+    kv_gather_s: float         # kv_gather_bytes / hbm_bw
+    predicted_s: float         # max(compute_s, memory_s) — the roofline
+    per_token_s: float         # predicted_s / width (padding-waste price)
+    bottleneck: str            # "compute" | "memory"
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class StepCostModel:
+    """The per-family roofline table, frozen at warmup.
+
+    ``families`` maps the family label (the same string the engine tags
+    measured steps with) to its :class:`FamilyCost`.  ``hw``/``dtype``
+    record what the prediction was priced against; ``flops_per_token`` is
+    the model-FLOPs rate used for MFU (2·N_active per token)."""
+
+    hw_name: str
+    dtype: str
+    peak_flops: float
+    hbm_bw: float
+    flops_per_token: float
+    families: Dict[str, FamilyCost]
+
+    def get(self, label: str) -> Optional[FamilyCost]:
+        return self.families.get(label)
+
+    def to_dict(self) -> dict:
+        return {
+            "hw": self.hw_name, "dtype": self.dtype,
+            "peak_flops": self.peak_flops, "hbm_bw": self.hbm_bw,
+            "flops_per_token": self.flops_per_token,
+            "families": {k: v.to_dict() for k, v in self.families.items()},
+        }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def kv_page_bytes_per_token(caches, num_pages: int, page_tokens: int) -> float:
+    """Bytes of paged K/V per cached token, summed over every page-pool
+    tensor — those with an adjacent ``(num_pages, page_tokens)`` dim pair
+    (``[layers, num_pages, page_tokens, heads, d_head]``)."""
+    total = 0.0
+    for leaf in _leaves(caches):
+        shape = tuple(leaf.shape)
+        if any(shape[i] == num_pages and shape[i + 1] == page_tokens
+               for i in range(len(shape) - 1)):
+            total += (leaf.numel() * leaf.element_size()
+                      / (num_pages * page_tokens))
+    return total
+
+
+def build_cost_model(engine, hw=None) -> StepCostModel:
+    """Price every step family of ``engine`` against ``hw`` (default:
+    :func:`repro_torch.core.hardware.query` of the engine's device) in
+    closed form — see the module docstring for the counts.  Runs once, at
+    warmup, and touches no model step."""
+    from repro_torch.analysis.shapes import step_families
+    from repro_torch.core.hardware import query
+
+    hw = hw if hw is not None else query(engine.device)
+    model, cfg = engine.model, engine.model.cfg
+    dtype = model.compute_dtype
+    peak = hw.peak_flops(dtype)
+    layout = model.ctx.layout(dtype)
+    m_r, n_r, k_r = layout.m_r, layout.n_r, layout.k_r
+    d, dh, hq, hkv = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    mats = [(d, hq * dh), (d, hkv * dh), (d, hkv * dh), (hq * dh, d),
+            (d, cfg.d_ff), (cfg.d_ff, d)]
+    if cfg.glu:
+        mats.append((d, cfg.d_ff))
+    lin = sum(round_up(k, k_r) * round_up(n, n_r) for k, n in mats)
+    head = round_up(cfg.vocab, n_r) * round_up(d, k_r)
+    n_layers = cfg.n_layers
+    win = engine.max_pages * engine.pool.page_tokens
+    kv_per_token = kv_page_bytes_per_token(
+        engine.caches, engine.pool.num_pages, engine.pool.page_tokens)
+    weight_bytes = dtype.itemsize * (n_layers * lin + head)
+
+    families: Dict[str, FamilyCost] = {}
+    for label, g in step_families(engine):
+        m = g.batch * round_up(g.seq, m_r)
+        r = (round_up(g.rows * g.logits, m_r) if g.kind == "flat"
+             else g.batch * round_up(g.logits, m_r))
+        p = g.batch * g.seq
+        flops = float(2 * m * n_layers * lin + 2 * r * head
+                      + 4 * p * hq * dh * win * n_layers)
+        gather = g.rows * win * kv_per_token
+        nbytes = float(weight_bytes + gather + 4 * r * cfg.vocab)
+        compute_s = flops / peak
+        memory_s = nbytes / hw.hbm_bw
+        predicted = max(compute_s, memory_s)
+        families[label] = FamilyCost(
+            label=label, width=g.width, flops=flops, hbm_bytes=nbytes,
+            kv_gather_bytes=gather, compute_s=compute_s, memory_s=memory_s,
+            kv_gather_s=gather / hw.hbm_bw, predicted_s=predicted,
+            per_token_s=predicted / max(1, g.width),
+            bottleneck="compute" if compute_s >= memory_s else "memory")
+
+    n_active = cfg.param_counts()["active"]
+    return StepCostModel(hw_name=hw.name, dtype=str(dtype).replace("torch.", ""),
+                         peak_flops=peak, hbm_bw=hw.hbm_bw,
+                         flops_per_token=2.0 * n_active, families=families)
+
+
+def fresh_totals() -> dict:
+    """A zeroed drain-total accumulator (see :func:`update_aggregates`)."""
+    return {"steps": 0, "wall_s": 0.0, "sched_s": 0.0, "device_s": 0.0,
+            "draft_s": 0.0, "host_s": 0.0, "predicted_s": 0.0,
+            "padding_waste_s": 0.0, "real_tokens": 0, "padded_tokens": 0}
+
+
+def update_aggregates(tot: dict, fams: Dict[str, dict], rec: dict,
+                      cost_model: Optional[StepCostModel]) -> None:
+    """Fold one per-step attribution record into the running drain
+    aggregates (mutates ``tot``/``fams`` in place).  Incremental so the
+    telemetry's bounded per-step window can drop old records without the
+    drain summary losing them."""
+    tot["steps"] += 1
+    tot["wall_s"] += rec["wall"]
+    tot["sched_s"] += rec["sched"]
+    tot["device_s"] += rec["device"]
+    tot["draft_s"] += rec["draft"]
+    tot["host_s"] += rec["host"]
+    for label, real, width, dev_s in rec["families"]:
+        f = fams.setdefault(label, {
+            "steps": 0, "real_tokens": 0, "padded_tokens": 0,
+            "device_s": 0.0, "predicted_s": 0.0, "padding_waste_s": 0.0})
+        f["steps"] += 1
+        f["real_tokens"] += real
+        f["padded_tokens"] += width
+        f["device_s"] += dev_s
+        fc = cost_model.get(label) if cost_model is not None else None
+        if fc is not None:
+            f["predicted_s"] += fc.predicted_s
+            f["padding_waste_s"] += (width - real) * fc.per_token_s
+        tot["real_tokens"] += real
+        tot["padded_tokens"] += width
+        tot["predicted_s"] += fc.predicted_s if fc is not None else 0.0
+        tot["padding_waste_s"] += ((width - real) * fc.per_token_s
+                                   if fc is not None else 0.0)
+
+
+def finalize_summary(tot: dict, fams: Dict[str, dict],
+                     cost_model: Optional[StepCostModel], *,
+                     goodput_tokens: int = 0,
+                     tokens_out: int = 0) -> dict:
+    """The per-drain attribution view over the running aggregates:
+    component totals, per-family predicted-vs-measured, MFU/MBU, padding
+    waste, achieved- vs roofline-tokens/s and goodput.
+
+    MFU uses *useful* model FLOPs (real tokens x 2·N_active) over
+    measured wall x peak; MBU uses the families' modelled HBM bytes over
+    wall x bandwidth — both are honest about padding (padded positions
+    burn wall time but earn no useful FLOPs, so waste lowers MFU exactly
+    as it should)."""
+    fams = {label: dict(f) for label, f in fams.items()}
+    for f in fams.values():
+        f["fill"] = f["real_tokens"] / max(1, f["padded_tokens"])
+        f["predicted_vs_measured"] = (f["predicted_s"] / f["device_s"]
+                                      if f["device_s"] > 0 else 0.0)
+    wall = tot["wall_s"]
+    out = {"totals": dict(tot), "families": fams}
+    if cost_model is not None and wall > 0:
+        useful_flops = tot["real_tokens"] * cost_model.flops_per_token
+        modelled_bytes = sum(
+            f["steps"] * cost_model.get(l).hbm_bytes
+            for l, f in fams.items() if cost_model.get(l) is not None)
+        out["mfu"] = useful_flops / (wall * cost_model.peak_flops)
+        out["mbu"] = modelled_bytes / (wall * cost_model.hbm_bw)
+        out["padding_waste_ratio"] = (tot["padding_waste_s"]
+                                      / max(tot["device_s"], 1e-12))
+        out["achieved_tokens_per_s"] = tot["real_tokens"] / wall
+        out["roofline_tokens_per_s"] = (
+            tot["real_tokens"] / tot["predicted_s"]
+            if tot["predicted_s"] > 0 else math.inf)
+        out["roofline_fraction"] = (tot["predicted_s"] / wall
+                                    if wall > 0 else 0.0)
+    out["goodput_tokens"] = goodput_tokens
+    out["tokens_out"] = tokens_out
+    out["goodput_ratio"] = goodput_tokens / max(1, tokens_out)
+    return out
+
+
+def summarize(step_records: List[dict], cost_model: Optional[StepCostModel],
+              *, goodput_tokens: int = 0, tokens_out: int = 0) -> dict:
+    """One-shot :func:`finalize_summary` over a list of step records
+    (the standalone path; the live telemetry aggregates incrementally)."""
+    tot, fams = fresh_totals(), {}
+    for rec in step_records:
+        update_aggregates(tot, fams, rec, cost_model)
+    return finalize_summary(tot, fams, cost_model,
+                            goodput_tokens=goodput_tokens,
+                            tokens_out=tokens_out)

@@ -58,6 +58,13 @@ Shed and cancelled requests are delivered by the next :meth:`Engine.step`.
 ``REPRO_SANITIZE=1`` installs the runtime sanitizer
 (:mod:`repro_torch.analysis.sanitize`) on every engine.  Models that are
 not pure attention raise instead of running something else.
+
+Telemetry (``telemetry=True``, :mod:`repro_torch.obs`) observes without
+taking part: request lifecycle marks, a ``device`` span around each model
+call (closed after the host copy of its logits, the step's one
+synchronizing point) tagged with its step family, a ``draft`` span, the
+cache, rollback and fault instants, and :meth:`Engine.telemetry`'s view;
+with it off every hook is one no-op call.
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ from repro_torch.kernels.ragged_attn.ops import plan_ragged
 from repro_torch.models.model import GraphTable, ReproModel
 from repro_torch.models.transformer import tree_map
 from repro_torch.obs.telemetry import NULL as OBS_NULL
+from repro_torch.obs.telemetry import NullTelemetry, Telemetry
 from repro_torch.serving import sampling
 from repro_torch.serving.kv_cache import (PagedKVPool, PoolError, copy_pages,
                                           fresh_slot_states, merge_slot,
@@ -115,7 +123,8 @@ class Engine:
                  queue_limit: Optional[int] = None,
                  queue_pages: Optional[int] = None,
                  watchdog_steps: int = WATCHDOG_STEPS,
-                 nan_guard: bool = True):
+                 nan_guard: bool = True,
+                 telemetry=False):
         self.device = require_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -124,7 +133,14 @@ class Engine:
             raise NotImplementedError("the port serves pure-attention models "
                                       "only (hybrids prefill at exact length)")
         self.model = model
-        self.obs = OBS_NULL
+        # observability (repro_torch.obs): ``telemetry=True`` builds a live
+        # Telemetry, an instance is used as is, and the default keeps the
+        # no-op NULL recorder (one no-op call per event, no clock read)
+        self.obs = (telemetry if isinstance(telemetry, NullTelemetry)
+                    else Telemetry() if telemetry else OBS_NULL)
+        # the per-family step cost model, built by warmup() when telemetry
+        # is live, and only there (repro_torch.obs.attrib)
+        self.cost_model = None
         params = tree_map(lambda t: t.to(self.device), params)
         # prepack=False packs every weight inside every step instead
         self.params = prepack_params(params, model.ctx) if prepack else params
@@ -157,6 +173,7 @@ class Engine:
         if num_pages is None:
             num_pages = 1 + self.slots * ceil_div(max_len, page_tokens)
         self.pool = PagedKVPool(num_pages, page_tokens)
+        self.pool.obs = self.obs
         self.max_pages = ceil_div(max_len, self.pool.page_tokens)
         self.caches = model.init_paged_cache(num_pages, self.pool.page_tokens,
                                              self.slots)
@@ -169,6 +186,7 @@ class Engine:
                                  "eager=True reserves whole lifetimes, which "
                                  "shared pages would count twice")
             self.prefix_cache = PrefixCache(self.pool, layout_key=(layout.m_r,))
+            self.prefix_cache.obs = self.obs
             # the copier holds the pools, not the engine: no reference
             # cycle keeps a dropped engine's device memory alive
             self.pool.page_copier = _page_copier(self.caches, self.device)
@@ -210,6 +228,7 @@ class Engine:
                                  f"width")
             self.drafter = drafter if drafter is not None else NgramDrafter()
             self.drafter.attach(self)
+            self.drafter.obs = self.obs
         elif drafter is not None:
             raise ValueError("a drafter needs spec_tokens set")
         self._next_rid = 0
@@ -333,6 +352,20 @@ class Engine:
         }
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats()
+        if self.obs.enabled:
+            # goodput (tokens emitted inside deadline_s) and the headline
+            # p99s, drain-scoped like the registry metrics they read
+            good = self.obs.c_goodput_tokens.value
+            toks = self.obs.c_tokens_out.value
+            lat = self.obs.latency_summary()
+            out["slo"] = {
+                "goodput_tokens": good,
+                "tokens_out": toks,
+                "goodput_ratio": good / max(1, toks),
+                "ttft_p99_s": lat["ttft_s"]["p99"],
+                "itl_p99_s": lat["itl_s"]["p99"],
+                "e2e_p99_s": lat["e2e_s"]["p99"],
+            }
         if self.flat:
             fs = max(1, self._flat_steps)
             out["flat"] = {
@@ -359,6 +392,46 @@ class Engine:
                 "rollback_pages": self._rollback_pages,
                 "drafter": self.drafter.stats(),
             }
+        return out
+
+    def telemetry(self, *, reset: bool = False, report=None) -> dict:
+        """The unified observability view:
+
+        - ``components``: :meth:`stats`, lifetime-cumulative, never reset;
+        - ``metrics``: the streaming registry snapshot (counters, gauges,
+          histograms with p50/p95/p99; its ``_scope`` map labels each
+          metric ``drain`` or ``lifetime``);
+        - ``latency``: TTFT, ITL, queue wait and e2e percentiles, empty
+          when telemetry is off;
+        - ``attribution``: the drain's roll-up
+          (:mod:`repro_torch.obs.attrib`): wall-time components,
+          per-family predicted against measured, MFU/MBU, padding waste,
+          goodput;
+        - ``alerts``: the monitors' findings as dicts, newest last.
+
+        ``report="/path/base"`` also writes ``base.html`` and ``base.prom``
+        (:func:`repro_torch.obs.export.write_report`) and returns their
+        paths under ``"report"``.  ``reset=True`` then zeroes the
+        drain-scoped metrics and attribution aggregates only; nothing
+        resets implicitly."""
+        obs = self.obs
+        out = {
+            "enabled": obs.enabled,
+            "components": self.stats(),
+            "metrics": (obs.registry.snapshot()
+                        if obs.registry is not None else {}),
+            "latency": obs.latency_summary() if obs.enabled else {},
+            "attribution": obs.attribution_summary(),
+            "alerts": [a.to_dict() for a in obs.alerts],
+        }
+        if report is not None:
+            if not obs.enabled:
+                raise ValueError("telemetry(report=...) needs an engine built "
+                                 "with telemetry=True")
+            from repro_torch.obs.export import write_report
+            out["report"] = write_report(obs, report)
+        if reset:
+            obs.reset_drain()
         return out
 
     def step(self, *, now: Optional[float] = None, greedy: bool = True,
@@ -503,6 +576,7 @@ class Engine:
                 if d:
                     drafts[slot_of[req.rid]] = d
         self._draft_time += time.perf_counter() - t0
+        self.obs.draft_span(t0)
         return drafts
 
     def _draft_and_grow(self) -> dict:
@@ -570,10 +644,13 @@ class Engine:
             self._drafted += n - 1
             self._accepted += accepted
             try:
-                self._rollback_pages += req.pages.truncate(req.len)
+                freed = req.pages.truncate(req.len)
             except PoolError:
                 self._quarantine(req, finished)
                 return
+            self._rollback_pages += freed
+            if freed:
+                self.obs.spec_rollback(req, freed)
             if len(req.pages.pages) != self.pool.pages_for(req.len):
                 raise PoolError(f"rollback left {len(req.pages.pages)} pages "
                                 f"for len={req.len} of rid {req.rid}")
@@ -619,7 +696,12 @@ class Engine:
                 self._fill_decode_row(slot, req, neff[slot], drafts,
                                       token, lens, counts, bt, idx)
             self._active_rows += len(running)
+            td = self.obs.clock()
             rows = self._run_paged(token, bt, lens, counts, idx)
+            self.obs.device_span(td)
+            self.obs.step_family(
+                f"verify[{b},{s}]" if spec else f"decode[{b},1]",
+                int(counts.sum()), b * s)
             for slot, req in list(running.items()):
                 self._verify_decode_row(req, drafts.get(slot, []), rows[slot],
                                         neff[slot], greedy, seed, finished)
@@ -638,8 +720,11 @@ class Engine:
         token[0, :n] = req.prompt[start:]
         bt = req.pages.block_row(self.max_pages)[None]
         view = prefill_view(self.caches, fresh_slot_states(self.caches))
+        td = self.obs.clock()
         rows = self._run_paged(token, bt, np.full((1,), start, np.int32),
                                np.full((1,), n, np.int32), caches=view)
+        self.obs.device_span(td)
+        self.obs.step_family(f"prefill[1,{bucket}]", n, bucket)
         row = rows[0, 0]
         if self.nan_guard and not np.isfinite(row).all():
             self.scheduler.cancel(req.rid, "error", cache_pages=False)
@@ -717,7 +802,11 @@ class Engine:
             raise self._stall("fused", running)
         self._active_rows += int((counts > 0).sum())
         self._mixed_steps += int(use_chunk)
+        td = self.obs.clock()
         rows = self._run_paged(token, bt, lens, counts, idx)
+        self.obs.device_span(td)
+        self.obs.step_family(f"chunk[{b},{s}]" + ("/verify" if spec else ""),
+                             int(counts.sum()), b * s)
         for slot, req in list(running.items()):
             if req.status == "running":
                 self._verify_decode_row(req, drafts.get(slot, []), rows[slot],
@@ -812,7 +901,12 @@ class Engine:
         self._flat_steps += 1
         self._flat_tokens += total
         self._flat_width += w
-        rows = self._run_flat(token, bt, row_ids, q_pos, idx)
+        # the ragged plan is host work: built before the device span opens
+        plan = self._ragged_plan(row_ids, q_pos)
+        td = self.obs.clock()
+        rows = self._run_flat(token, bt, row_ids, q_pos, idx, plan)
+        self.obs.device_span(td)
+        self.obs.step_family(f"flat[1,{w}]/k{k1}", total, w)
         rows = rows.reshape(self.slots, k1, -1)
         for slot, kind, n, req in segrefs:
             if kind == "decode":
@@ -823,16 +917,23 @@ class Engine:
                                     finished)
         return finished
 
-    def _run_flat(self, token, bt, row_ids, q_pos, idx) -> np.ndarray:
-        """One flat step on the device; returns float32 logits [K, V] at
-        the flat positions ``idx`` on the host (numpy has no bfloat16).
-        The ragged-attention plan is built here from the host's row_ids and
-        q_pos, at the width's fixed size (the graph of each width replays
-        every step of it), so no layer reads an index back from the card."""
+    def _ragged_plan(self, row_ids, q_pos):
+        """The ragged-attention plan of a flat step, from the host's
+        row_ids and q_pos at the width's fixed size (the graph of each
+        width replays every step of it), so no layer reads an index back
+        from the card."""
         cfg = self.model.cfg
-        plan = plan_ragged(row_ids, q_pos, self.pool.page_tokens, self.max_pages,
+        return plan_ragged(row_ids, q_pos, self.pool.page_tokens, self.max_pages,
                            cfg.n_kv_heads, self.model.ctx.hw.sm_count,
                            group=cfg.n_heads // cfg.n_kv_heads, slots=self.slots)
+
+    def _run_flat(self, token, bt, row_ids, q_pos, idx, plan=None) -> np.ndarray:
+        """One flat step on the device; returns float32 logits [K, V] at
+        the flat positions ``idx`` on the host (numpy has no bfloat16).
+        ``plan`` is the step's ragged-attention plan (:meth:`_ragged_plan`,
+        built here when the caller has none)."""
+        if plan is None:
+            plan = self._ragged_plan(row_ids, q_pos)
         logits, _ = self._flat_step(
             self.params, self.caches, torch.from_numpy(token),
             torch.from_numpy(bt), torch.from_numpy(row_ids),
@@ -898,7 +999,9 @@ class Engine:
         drafter's own programs, and with a prefix cache the device page
         copy (the trash page onto itself).  Every call carries no valid
         token, so all writes go to the trash page and live state is
-        untouched."""
+        untouched.  With telemetry on it then builds the step cost model
+        (:func:`repro_torch.obs.attrib.build_cost_model`) — here and only
+        here, in closed form, calling no step."""
         if self.scheduler.has_work or self._finished_oob:
             raise RuntimeError("warmup() needs an idle engine")
         if self.prefix_cache is not None:
@@ -942,6 +1045,12 @@ class Engine:
                                 np.zeros((b, k1), np.int32))
         if self.drafter is not None:
             self.drafter.warmup()
+        if self.obs.enabled:
+            # the warmup-only cost model: closed-form counts of the shapes
+            # just made, no model call (repro_torch.obs.attrib)
+            from repro_torch.obs.attrib import build_cost_model
+            self.cost_model = build_cost_model(self)
+            self.obs.attach_cost_model(self.cost_model)
 
     def generate(self, batch: dict, max_new: int, *, greedy: bool = True,
                  seed: int = 0, eos_id: Optional[int] = None,

@@ -194,8 +194,8 @@ class FaultPlan:
         if engine.flat:
             orig_flat = engine._run_flat
 
-            def run_flat(token, bt, row_ids, q_pos, idx):
-                out = orig_flat(token, bt, row_ids, q_pos, idx)
+            def run_flat(token, bt, row_ids, q_pos, idx, ragged=None):
+                out = orig_flat(token, bt, row_ids, q_pos, idx, ragged)
                 if "nan" in plan._armed:
                     slot = plan._victim_slot(engine)
                     if slot is not None and plan._take("nan"):

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.layout import ceil_div
+from repro_torch.obs.telemetry import NULL as _NULL_OBS
 
 __all__ = ["PoolError", "OutOfPages", "PagedKVPool", "SequencePages",
            "copy_pages", "fresh_slot_states", "prefill_view", "merge_slot"]
@@ -85,6 +86,7 @@ class PagedKVPool:
         self.cow_copies = 0
         self._reclaimer = None
         self.page_copier = None
+        self.obs = _NULL_OBS             # telemetry; the engine sets its own
 
     @property
     def reclaimer(self):
@@ -196,6 +198,7 @@ class PagedKVPool:
         seq.pages[idx] = new
         self.free([old])
         self.cow_copies += 1
+        self.obs.cow()
         return new
 
     def stats(self) -> dict:

@@ -33,6 +33,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from repro_torch.obs.telemetry import NULL as _NULL_OBS
 from repro_torch.serving.kv_cache import PagedKVPool
 
 __all__ = ["PrefixCache"]
@@ -73,6 +74,7 @@ class PrefixCache:
         self.inserted_pages = 0
         self.insert_dups = 0
         self.evictions = 0
+        self.obs = _NULL_OBS    # telemetry; the engine sets its own
         pool.reclaimer = self
 
     def _child_key(self, parent: bytes, block: np.ndarray) -> bytes:
@@ -112,6 +114,7 @@ class PrefixCache:
         self.hits += 1
         self.hit_tokens += hit
         self.hit_pages += len(pages)
+        self.obs.prefix_hit(hit, len(pages))
         return pages, hit
 
     def insert(self, prompt: np.ndarray, pages: List[int], upto: int) -> int:
@@ -171,6 +174,8 @@ class PrefixCache:
             self.pool.free([node.page])
             self.evictions += 1
             freed += 1
+        if freed:
+            self.obs.prefix_evict(freed)
         return freed
 
     def clear(self) -> int:

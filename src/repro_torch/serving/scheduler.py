@@ -118,6 +118,9 @@ class Request:
     out_at_admit: int = 0
     reclaimed: bool = False
     cached_upto: int = 0
+    # (label, t) lifecycle marks of a live telemetry (repro_torch.obs);
+    # empty under the no-op recorder
+    obs_events: List = dataclasses.field(default_factory=list)
 
     @property
     def prompt_len(self) -> int:

@@ -44,6 +44,7 @@ from repro_torch.core.layout import round_up
 from repro_torch.core.linear import prepack_params
 from repro_torch.models.model import GraphTable
 from repro_torch.models.transformer import tree_map
+from repro_torch.obs.telemetry import NULL as _NULL_OBS
 from repro_torch.serving.scheduler import Request
 
 __all__ = ["Drafter", "NgramDrafter", "DraftModelDrafter", "accept_tokens",
@@ -96,6 +97,9 @@ class Drafter:
     :meth:`warmup` from its warmup and :meth:`forget` when a request
     finishes."""
 
+    # telemetry (repro_torch.obs): the engine sets its own recorder
+    obs = _NULL_OBS
+
     def attach(self, engine) -> None:
         """Bind sizes derived from the engine."""
 
@@ -107,7 +111,9 @@ class Drafter:
 
     def propose_all(self, jobs: List[Tuple[Request, int]]) -> dict:
         """``{rid: drafts}`` for one step's decoding rows."""
-        return {req.rid: self.propose(req, k) for req, k in jobs}
+        out = {req.rid: self.propose(req, k) for req, k in jobs}
+        self.obs.draft_batch(len(jobs), sum(len(d) for d in out.values()))
+        return out
 
     def forget(self, rid: int) -> None:
         """Drop the state of a finished request."""
@@ -323,6 +329,7 @@ class DraftModelDrafter(Drafter):
             # the last
             p["st"]["spec"] = np.asarray(d[:-1], np.int32)
             out[p["req"].rid] = d
+        self.obs.draft_batch(len(jobs), sum(len(d) for d in out.values()))
         return out
 
     def _run_batch(self, token, bt, lens, counts) -> np.ndarray:

@@ -13,7 +13,11 @@ on the other:
   scheduled or holding pages, a planted write into the trash page and a
   step width outside the ladder each raise ``SanitizerError`` in both, at
   the same page; a planted refcount the audit finds in both;
-- ``REPRO_SANITIZE=1`` installs the sanitizer at construction.
+- ``REPRO_SANITIZE=1`` installs the sanitizer at construction;
+- the shape-ladder linter's host half (``repro_torch.analysis.shapes``)
+  beside the reference's ``lint_engine_shapes(trace=False)``: both clean
+  on the same engines, with the same step families, and a planted
+  off-ladder width or mis-aligned chunk found by both.
 """
 
 import re
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 from repro.analysis import sanitize as jsanitize
+from repro.analysis import shapes as jshapes
 from repro.analysis.aliasing import check_pool_consistency as jcheck_pool
 from repro.configs import RunConfig as JRun
 from repro.configs import ShapeSpec as JShape
@@ -33,7 +38,7 @@ from repro.models.model import build_model as jbuild_model
 from repro.serving import faults as jfaults
 from repro.serving import kv_cache as jkv
 from repro.serving.engine import Engine as JEngine
-from repro_torch.analysis import sanitize
+from repro_torch.analysis import sanitize, shapes
 from repro_torch.analysis.aliasing import check_pool_consistency
 from repro_torch.analysis.report import Finding
 from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
@@ -229,3 +234,52 @@ def test_repro_sanitize_installs_at_construction(models, monkeypatch):
     assert eng.sanitizer.checks > 0
     monkeypatch.setenv("REPRO_SANITIZE", "0")
     assert Engine(m, params, device="cpu", max_slots=3).sanitizer is None
+
+
+# ---------------------------------------------------------------------------
+# the shape-ladder linter, host half
+# ---------------------------------------------------------------------------
+
+LADDER_CONFIGS = {"flat": dict(chunk_tokens=16, token_budget=24),
+                  "flat-spec": dict(chunk_tokens=16, spec_tokens=2),
+                  "dense": dict(chunk_tokens=16, flat=False),
+                  "dense-spec": dict(chunk_tokens=16, flat=False, spec_tokens=2),
+                  "monolithic": {}, "monolithic-spec": dict(spec_tokens=2)}
+
+
+@pytest.mark.parametrize("config", sorted(LADDER_CONFIGS))
+def test_shape_ladders_clean_beside_reference(models, config):
+    jm, jparams, m, params = models
+    kw = dict(max_slots=3, page_tokens=T, **LADDER_CONFIGS[config])
+    eng, jeng = Engine(m, params, device="cpu", **kw), JEngine(jm, jparams, **kw)
+    assert shapes.lint_engine_shapes(eng, config) == []
+    assert jshapes.lint_engine_shapes(jeng, config, trace=False) == []
+    assert [label for label, _ in shapes.step_families(eng)] == \
+        [label for label, *_ in jshapes.step_families(jeng)]
+    for label, g in shapes.step_families(eng):
+        assert label.split("[")[1].split("]")[0] == f"{g.batch},{g.seq}"
+    with pytest.raises(NotImplementedError, match="A7"):
+        shapes.lint_engine_shapes(eng, config, trace=True)
+
+
+def test_planted_off_ladder_widths_found_by_both(models):
+    jm, jparams, m, params = models
+    kw = dict(max_slots=3, page_tokens=T, chunk_tokens=16)
+    eng, jeng = Engine(m, params, device="cpu", **kw), JEngine(jm, jparams, **kw)
+    for e in (eng, jeng):
+        real = e._flat_shapes()
+        e._flat_shapes = lambda real=real: sorted(set(real) | {24}, reverse=True)
+    got = shapes.lint_engine_shapes(eng, "seeded")
+    want = jshapes.lint_engine_shapes(jeng, "seeded", trace=False)
+    assert [(f.rule, f.message) for f in got] == \
+        [(f.rule, f.message) for f in want]
+    assert any(f.rule == "flat-ladder" and "24" in f.message for f in got)
+
+    kw = dict(max_slots=3, page_tokens=T, chunk_tokens=16, flat=False)
+    eng, jeng = Engine(m, params, device="cpu", **kw), JEngine(jm, jparams, **kw)
+    eng.chunk_tokens = jeng.chunk_tokens = 11          # m_r = 8
+    got = shapes.lint_engine_shapes(eng, "seeded")
+    want = jshapes.lint_engine_shapes(jeng, "seeded", trace=False)
+    assert [(f.rule, f.message) for f in got] == \
+        [(f.rule, f.message) for f in want]
+    assert "chunk-align" in {f.rule for f in got}

@@ -127,7 +127,7 @@ def scheduler_layouts():
         eng = Engine(model, params, device="cpu", max_slots=4, chunk_tokens=128,
                      page_tokens=16)
 
-        def fake_run(token, bt, row_ids, q_pos, idx, eng=eng):
+        def fake_run(token, bt, row_ids, q_pos, idx, plan=None, eng=eng):
             by_width.setdefault(token.shape[1], []).append(
                 (row_ids.copy(), q_pos.copy(), eng.max_pages))
             return np.zeros((eng.slots, cfg.vocab), np.float32)
