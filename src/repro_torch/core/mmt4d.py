@@ -5,6 +5,21 @@
 runs in the mmt4d kernel (``repro_torch.kernels.mmt4d``) for CUDA tensors
 and its plain version for CPU tensors.  :class:`Epilogue` carries the bias
 and activation that the kernel applies in float32 before its one cast.
+
+Under autograd :func:`mmt4d` is a ``torch.autograd.Function`` whose
+backward launches mmt4d's two gradient kernels (``mmt4d_dgrad``,
+``mmt4d_wgrad``, which also sums the bias gradient): it saves the packed
+operands, and with ``unpack_to`` packs the incoming gradient first (the
+gradient of the unpacked store is its zero-padded pack).  With an
+activation the backward needs the pre-activation Z.  It recomputes Z (one
+more mmt4d launch, without the activation, stored packed) rather than
+saving it: no [tokens, d_ff] tensor is kept per activated linear, and the
+recomputed Z is rounded to the compute dtype, which is the Z at which the
+JAX package takes its gradient (it casts before the activation; the port's
+forward applies the activation in float32 before its one cast; in float32
+the two agree).  Tile padding needs nothing of its own: padding rows and
+columns of the packed operands and of the packed gradient are zero, so
+the padding of each gradient comes out zero and leaks into nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +32,7 @@ import torch
 from repro_torch.core.layout import PackedLayout
 from repro_torch.core import packing
 from repro_torch.kernels.mmt4d.ops import mmt4d as mmt4d_kernel
+from repro_torch.kernels.mmt4d.ops import mmt4d_dgrad, mmt4d_wgrad
 
 __all__ = ["mmt4d", "Epilogue"]
 
@@ -54,5 +70,41 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     if b_pack.ndim != 4:
         raise NotImplementedError("expert-batched B_pack [E, N_o, K_o, n_r, "
                                   "k_r] comes with the MoE family")
+    tensors = (a_pack, b_pack) + (() if bias_pack is None else (bias_pack,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _Mmt4dFn.apply(a_pack, b_pack, bias_pack, activation, unpack_to)
     return mmt4d_kernel(a_pack, b_pack, bias_pack, activation=activation,
                         unpack_to=unpack_to)
+
+
+class _Mmt4dFn(torch.autograd.Function):
+    """mmt4d with its gradients: dA by ``mmt4d_dgrad``, dB and the bias
+    gradient by ``mmt4d_wgrad`` (one launch each, on the card)."""
+
+    @staticmethod
+    def forward(ctx, a_pack, b_pack, bias_pack, activation, unpack_to):
+        ctx.save_for_backward(a_pack, b_pack, bias_pack)
+        ctx.activation, ctx.unpack_to = activation, unpack_to
+        return mmt4d_kernel(a_pack, b_pack, bias_pack, activation=activation,
+                            unpack_to=unpack_to)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a_pack, b_pack, bias_pack = ctx.saved_tensors
+        act = ctx.activation
+        if ctx.unpack_to is None:
+            dz = grad.contiguous()
+        else:                                  # the unpacked store's transpose
+            dz = packing.repack(grad, a_pack.shape[-4], b_pack.shape[0],
+                                a_pack.shape[-2], b_pack.shape[2])
+        z = None
+        if act is not None:
+            z = mmt4d_kernel(a_pack, b_pack, bias_pack)
+        da = db = dbias = None
+        need_a, need_b, need_bias = ctx.needs_input_grad[:3]
+        if need_a:
+            da = mmt4d_dgrad(dz, b_pack, z, activation=act)
+        if need_b or need_bias:
+            db, dbias = mmt4d_wgrad(dz, a_pack, z, activation=act,
+                                    bias=need_bias)
+        return da, db, dbias, None, None

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, one package per TPU kernel of the
 JAX package: ``ops.py`` (the wrapper, with its launch count) beside
 ``ref.py`` (the plain PyTorch version).  Sources live in ``csrc/``.
+mmt4d's package also holds its two gradient products (``mmt4d_dgrad``,
+``mmt4d_wgrad``, ``csrc/mmt4d_bwd.cu``), which have no Pallas counterpart.
 
 A wrapper adds one to its ``launches`` where it launches its kernel.  A
 CUDA graph replay calls no wrapper, so each captured step records the
@@ -13,12 +15,13 @@ from __future__ import annotations
 
 def wrappers() -> dict:
     """The kernel wrappers by name; each carries a ``launches`` count."""
-    from repro_torch.kernels.mmt4d.ops import mmt4d
+    from repro_torch.kernels.mmt4d.ops import mmt4d, mmt4d_dgrad, mmt4d_wgrad
     from repro_torch.kernels.pack.ops import pack
     from repro_torch.kernels.ragged_attn.ops import ragged_attention
     from repro_torch.kernels.unpack.ops import unpack
     return {"mmt4d": mmt4d, "pack": pack, "unpack": unpack,
-            "ragged_attn": ragged_attention}
+            "ragged_attn": ragged_attention, "mmt4d_dgrad": mmt4d_dgrad,
+            "mmt4d_wgrad": mmt4d_wgrad}
 
 
 def launch_counts() -> dict:

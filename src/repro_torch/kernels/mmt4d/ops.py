@@ -19,6 +19,7 @@ those launches beside ``mmt4d.launches``; :func:`unpacked_index` and
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -27,10 +28,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mmt4d.ref import mmt4d_ref
+from repro_torch.kernels.mmt4d.ref import (mmt4d_dgrad_ref, mmt4d_ref,
+                                           mmt4d_wgrad_ref)
 from repro_torch.kernels.unpack.ref import unpack_ref
 
-__all__ = ["mmt4d", "ACTIVATION_CODES", "Split", "pick_split", "unpacked_index"]
+__all__ = ["mmt4d", "mmt4d_dgrad", "mmt4d_wgrad", "ACTIVATION_CODES", "Split",
+           "pick_split", "unpacked_index", "gemm_operands"]
 
 # activation name -> the code csrc/mmt4d.cu switches on (same keys as ACTIVATIONS)
 ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2, "relu": 3, "tanh": 4}
@@ -212,3 +215,146 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
 
 mmt4d.launches = 0
 mmt4d.unpacked_stores = 0     # launches that wrote C unpacked
+
+
+# ---------------------------------------------------------------- gradients
+#
+# mmt4d's two gradient products (csrc/mmt4d_bwd.cu): one kernel computes
+# C[p, q] = sum_r X(p, r) Y(r, q) where each logical matrix lies in a packed
+# tensor, element (i, j) at row_off(i) + col_off(j).  A descriptor
+# (rs, ti, ii, cs, tj, ij) gives row_off(i) = (i // ti) * rs + (i % ti) * ii
+# and col_off(j) = (j // tj) * cs + (j % tj) * ij.
+
+
+def _desc(o0: int, o1: int, t0: int, t1: int, transposed: bool = False) -> tuple:
+    """The descriptor of a packed [O0, O1, t0, t1] tensor read as the
+    logical [O0 * t0, O1 * t1] matrix, or as its transpose."""
+    rows = (o1 * t0 * t1, t0, t1)          # (tile stride, tile, in-tile stride)
+    cols = (t0 * t1, t1, 1)
+    return (*cols, *rows) if transposed else (*rows, *cols)
+
+
+def gemm_operands(kind: str, m_o: int, n_o: int, k_o: int, m_r: int, n_r: int,
+                  k_r: int):
+    """(P, Q, R, (X, Y, C descriptors), x_contig_p) of the ``"dgrad"`` or
+    ``"wgrad"`` product on packed dZ [M_o, N_o, m_r, n_r], A_pack [M_o, K_o,
+    m_r, k_r] and B_pack [N_o, K_o, n_r, k_r] (leading dims folded into M_o):
+
+    - dgrad: X = dZ (p = m, r = n), Y = B_pack (r = n, q = k), C = dA_pack;
+    - wgrad: X = dZ^T (p = n, r = m), Y = A_pack (r = m, q = k), C = dB_pack.
+
+    ``x_contig_p``: X's consecutive addresses run along p (the kernel's
+    loads follow them)."""
+    dz = (m_o, n_o, m_r, n_r)
+    if kind == "dgrad":
+        return (m_o * m_r, k_o * k_r, n_o * n_r,
+                (_desc(*dz), _desc(n_o, k_o, n_r, k_r), _desc(m_o, k_o, m_r, k_r)),
+                False)
+    if kind == "wgrad":
+        return (n_o * n_r, k_o * k_r, m_o * m_r,
+                (_desc(*dz, transposed=True), _desc(m_o, k_o, m_r, k_r),
+                 _desc(n_o, k_o, n_r, k_r)), True)
+    raise ValueError(kind)
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, *t.shape[-3:])
+
+
+def _check_grad_args(name, dz_pack, other, z_pack, activation):
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(f"{name}: activation {activation!r} not in "
+                         f"{list(ACTIVATION_CODES)}")
+    if (activation is None) != (z_pack is None):
+        raise ValueError(f"{name}: the pre-activation z_pack comes with an "
+                         f"activation, and only then")
+    if z_pack is not None and z_pack.shape != dz_pack.shape:
+        raise ValueError(f"{name}: z_pack {tuple(z_pack.shape)} is not shaped "
+                         f"like dz_pack {tuple(dz_pack.shape)}")
+    if dz_pack.ndim < 4 or other.ndim < 4:
+        raise ValueError(f"{name}: packed operands have 4 trailing dims")
+
+
+def _launch_gemm(name, kind, dz, y, z, dims, bias, activation):
+    """Launch the gradient kernel on folded, contiguous operands; returns
+    (C, dbias or None)."""
+    m_o, n_o, k_o, m_r, n_r, k_r = dims
+    extra = () if z is None else (z,)
+    build.require_cuda(name, dz, y, *extra)
+    code = build.require_dtype(name, dz.dtype, dz, y, *extra)
+    build.require_contiguous(name, dz_pack=dz, other=y,
+                             **({"z_pack": z} if extra else {}))
+    p, q, r, descs, x_contig_p = gemm_operands(kind, *dims)
+    if dz.dtype == torch.bfloat16 and (
+            n_r % 8 or k_r % 8 or m_r % 8
+            or any(t.data_ptr() % 16 for t in (dz, y, *extra))):
+        raise ValueError(f"{name}: bfloat16 tiles m_r={m_r}, n_r={n_r}, "
+                         f"k_r={k_r}; the kernel moves 16-byte runs, so each "
+                         f"is a multiple of 8 and every operand starts on 16 bytes")
+    shape = (m_o, k_o, m_r, k_r) if kind == "dgrad" else (n_o, k_o, n_r, k_r)
+    out = torch.empty(shape, dtype=dz.dtype, device=dz.device)
+    dbias = (torch.empty((n_o, n_r), dtype=dz.dtype, device=dz.device)
+             if bias else None)
+    flat = (ctypes.c_int64 * 18)(*(v for d in descs for v in d))
+    rc = build.load_library().repro_packed_gemm(
+        dz.data_ptr(), None if z is None else z.data_ptr(), y.data_ptr(),
+        out.data_ptr(), None if dbias is None else dbias.data_ptr(), code,
+        p, q, r, flat, int(x_contig_p), ACTIVATION_CODES[activation],
+        build.stream_of(dz))
+    build.check(rc, name)
+    return out, dbias
+
+
+def mmt4d_dgrad(dz_pack: torch.Tensor, b_pack: torch.Tensor,
+                z_pack: Optional[torch.Tensor] = None, *,
+                activation: Optional[str] = None) -> torch.Tensor:
+    """dA_pack [..., M_o, K_o, m_r, k_r] = sum over (N_o, n_r) of dZ .
+    B_pack, with dZ = dz_pack [..., M_o, N_o, m_r, n_r], or dz_pack *
+    act'(z_pack) when ``activation`` is given (z_pack: the pre-activation,
+    packed alike).  b_pack [N_o, K_o, n_r, k_r].  Leading dims fold into M_o.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    _check_grad_args("mmt4d_dgrad", dz_pack, b_pack, z_pack, activation)
+    *lead, mo_b, n_o, m_r, n_r = dz_pack.shape
+    n_o_b, k_o, n_r_b, k_r = b_pack.shape
+    if b_pack.ndim != 4 or (n_o_b, n_r_b) != (n_o, n_r):
+        raise ValueError(f"mmt4d_dgrad: dz {tuple(dz_pack.shape)} and b "
+                         f"{tuple(b_pack.shape)} do not contract")
+    dz, z = _fold(dz_pack), None if z_pack is None else _fold(z_pack)
+    if dz.device.type == "cpu":
+        out = mmt4d_dgrad_ref(dz, b_pack, z, activation=activation)
+    else:
+        out, _ = _launch_gemm("mmt4d_dgrad", "dgrad", dz, b_pack, z,
+                              (dz.shape[0], n_o, k_o, m_r, n_r, k_r), False,
+                              activation)
+        mmt4d_dgrad.launches += 1
+    return out.reshape(*lead, mo_b, k_o, m_r, k_r)
+
+
+def mmt4d_wgrad(dz_pack: torch.Tensor, a_pack: torch.Tensor,
+                z_pack: Optional[torch.Tensor] = None, *,
+                activation: Optional[str] = None, bias: bool = False):
+    """(dB_pack [N_o, K_o, n_r, k_r] = sum over every (M_o, m_r) of dZ^T .
+    A_pack, dbias [N_o, n_r] = the same sum of dZ alone when ``bias``, else
+    None), both from one launch.  dz_pack [..., M_o, N_o, m_r, n_r] (dZ as
+    for :func:`mmt4d_dgrad`), a_pack [..., M_o, K_o, m_r, k_r].  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    _check_grad_args("mmt4d_wgrad", dz_pack, a_pack, z_pack, activation)
+    dz, a = _fold(dz_pack), _fold(a_pack)
+    m_o, n_o, m_r, n_r = dz.shape
+    if a.shape[0] != m_o or a.shape[2] != m_r:
+        raise ValueError(f"mmt4d_wgrad: dz {tuple(dz_pack.shape)} and a "
+                         f"{tuple(a_pack.shape)} do not contract")
+    k_o, k_r = a.shape[1], a.shape[3]
+    z = None if z_pack is None else _fold(z_pack)
+    if dz.device.type == "cpu":
+        return mmt4d_wgrad_ref(dz, a, z, activation=activation, bias=bias)
+    out = _launch_gemm("mmt4d_wgrad", "wgrad", dz, a, z,
+                       (m_o, n_o, k_o, m_r, n_r, k_r), bias, activation)
+    mmt4d_wgrad.launches += 1
+    return out
+
+
+mmt4d_dgrad.launches = 0
+mmt4d_wgrad.launches = 0

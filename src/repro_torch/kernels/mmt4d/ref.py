@@ -1,4 +1,7 @@
-"""Plain PyTorch version of the mmt4d kernel."""
+"""Plain PyTorch versions of the mmt4d kernel and of its two gradient
+products (``csrc/mmt4d.cu``, ``csrc/mmt4d_bwd.cu``).  Sums run in float32
+(float64 stays float64, for ``gradcheck``), then one cast to the operands'
+dtype."""
 
 from __future__ import annotations
 
@@ -15,13 +18,75 @@ ACTIVATIONS = {
     "tanh": torch.tanh,
 }
 
+_GELU_C = 0.7978845608028654      # sqrt(2 / pi)
+
+
+def _gelu_grad(z):
+    t = torch.tanh(_GELU_C * (z + 0.044715 * z * z * z))
+    return 0.5 * (1 + t) + 0.5 * z * (1 - t * t) * _GELU_C * (1 + 3 * 0.044715 * z * z)
+
+
+def _silu_grad(z):
+    s = torch.sigmoid(z)
+    return s * (1 + z * (1 - s))
+
+
+# d act(z) / dz, the formulas csrc/mmt4d_bwd.cu evaluates
+ACTIVATION_GRADS = {
+    "gelu": _gelu_grad,
+    "silu": _silu_grad,
+    "relu": lambda z: (z > 0).to(z.dtype),
+    "tanh": lambda z: 1 - torch.tanh(z) ** 2,
+}
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The sums' dtype: float32, or float64 for float64 operands."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
 
 def mmt4d_ref(a_pack: torch.Tensor, b_pack: torch.Tensor,
               bias_pack: Optional[torch.Tensor] = None, *,
               activation: Optional[str] = None) -> torch.Tensor:
     """C_pack[m_o,n_o] = act(sum_k A_pack[m_o,k] @ B_pack[n_o,k]^T + bias),
     float32 accumulation and epilogue, one cast to A's dtype."""
-    out = torch.einsum("mkab,nkcb->mnac", a_pack.float(), b_pack.float())
+    acc = acc_dtype(a_pack.dtype)
+    out = torch.einsum("mkab,nkcb->mnac", a_pack.to(acc), b_pack.to(acc))
     if bias_pack is not None:
-        out = out + bias_pack[None, :, None, :].float()
+        out = out + bias_pack[None, :, None, :].to(acc)
     return ACTIVATIONS[activation](out).to(a_pack.dtype)
+
+
+def dz_ref(dy: torch.Tensor, z: Optional[torch.Tensor],
+           activation: Optional[str]) -> torch.Tensor:
+    """dZ = dY * act'(Z) in the sums' dtype, rounded to dY's dtype (what the
+    kernels form as they load dZ); dY itself without an activation."""
+    if activation is None:
+        return dy
+    acc = acc_dtype(dy.dtype)
+    return (dy.to(acc) * ACTIVATION_GRADS[activation](z.to(acc))).to(dy.dtype)
+
+
+def mmt4d_dgrad_ref(dz_pack: torch.Tensor, b_pack: torch.Tensor,
+                    z_pack: Optional[torch.Tensor] = None, *,
+                    activation: Optional[str] = None) -> torch.Tensor:
+    """dA_pack[m_o,k_o,i,k] = sum_{n_o,j} dZ[m_o,n_o,i,j] B_pack[n_o,k_o,j,k];
+    dz_pack [M_o, N_o, m_r, n_r] (leading dims folded), b_pack [N_o, K_o,
+    n_r, k_r]."""
+    acc = acc_dtype(dz_pack.dtype)
+    dz = dz_ref(dz_pack, z_pack, activation)
+    return torch.einsum("mnij,nkjl->mkil", dz.to(acc),
+                        b_pack.to(acc)).to(dz_pack.dtype).contiguous()
+
+
+def mmt4d_wgrad_ref(dz_pack: torch.Tensor, a_pack: torch.Tensor,
+                    z_pack: Optional[torch.Tensor] = None, *,
+                    activation: Optional[str] = None, bias: bool = False):
+    """(dB_pack[n_o,k_o,j,k] = sum_{m_o,i} dZ[m_o,n_o,i,j] A_pack[m_o,k_o,i,k],
+    dbias[n_o,j] = sum_{m_o,i} dZ[m_o,n_o,i,j] or None); dz_pack [M_o, N_o,
+    m_r, n_r], a_pack [M_o, K_o, m_r, k_r]."""
+    acc = acc_dtype(dz_pack.dtype)
+    dz = dz_ref(dz_pack, z_pack, activation).to(acc)
+    db = torch.einsum("mnij,mkil->nkjl", dz, a_pack.to(acc)).to(dz_pack.dtype)
+    db = db.contiguous()
+    return db, (dz.sum(dim=(0, 2)).to(dz_pack.dtype) if bias else None)

@@ -50,39 +50,54 @@ def _timed_drain(engine: Engine):
     return finished, time.perf_counter() - t0
 
 
-# the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers
+# the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers;
+# mmt4d's gradient products share one kernel, X contiguous along p in wgrad
 _PORT_KERNEL = re.compile(r"::(mmt4d|pack|unpack|ragged_attn)(?:_bf16|_f32)?_kernel\b")
+_GRAD_KERNEL = re.compile(r"::packed_gemm(?:_tc)?_kernel<(?:[^<>,]*,\s*)?(true|false)>")
 
 
-def _print_device_time(prof, wall: float, counted: dict) -> None:
+def port_kernel(symbol: str) -> str:
+    """The wrapper name of the port kernel behind a profiled symbol, or
+    "pytorch" for PyTorch's own."""
+    m = _PORT_KERNEL.search(symbol)
+    if m:
+        return m.group(1)
+    m = _GRAD_KERNEL.search(symbol)
+    if m:
+        return "mmt4d_wgrad" if m.group(1) == "true" else "mmt4d_dgrad"
+    return "pytorch"
+
+
+def print_device_time(prof, wall: float, counted: dict, tag: str = "profile") -> None:
     """Device time by kernel over the traced drain, then summed for each of
     the port's kernels and for PyTorch's own, and the device's busy share
     of its wall time (kernels run on one stream, so they do not overlap).
     ``counted``: the port's launches over the drain by the wrappers'
     counts; the trace must have seen as many, or its device time misses
     the kernels of graph replays."""
+    # (a scheduled profile's ProfilerStep annotations span whole steps)
     rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")),
                   key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    print(f"[profile] wall {wall:.6f} s, device busy {busy:.6f} s "
+    print(f"[{tag}] wall {wall:.6f} s, device busy {busy:.6f} s "
           f"({100 * busy / wall:.2f}%), idle {100 * (1 - busy / wall):.2f}%")
     for e in rows[:12]:
         t = e.self_device_time_total / 1e6
-        print(f"[profile] {t:.6f} s {100 * t / wall:6.2f}% of wall "
+        print(f"[{tag}] {t:.6f} s {100 * t / wall:6.2f}% of wall "
               f"{e.count:>7} calls  {e.key[:90]}")
     sums: dict = {}
     for e in rows:
-        m = _PORT_KERNEL.search(e.key)
-        t, n = sums.get(m.group(1) if m else "pytorch", (0.0, 0))
-        sums[m.group(1) if m else "pytorch"] = (t + e.self_device_time_total / 1e6,
-                                                n + e.count)
+        name = port_kernel(e.key)
+        t, n = sums.get(name, (0.0, 0))
+        sums[name] = (t + e.self_device_time_total / 1e6, n + e.count)
     for name, (t, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile] total {name}: {t:.6f} s ({100 * t / busy:.1f}% of "
+        print(f"[{tag}] total {name}: {t:.6f} s ({100 * t / busy:.1f}% of "
               f"device time), {n} launches")
     seen = {k: n for k, (_, n) in sums.items() if k != "pytorch"}
     for name, n in counted.items():
-        print(f"[profile] {name}: {seen.get(name, 0)} launches in the trace, "
+        print(f"[{tag}] {name}: {seen.get(name, 0)} launches in the trace, "
               f"{n} by the wrappers' counts"
               + ("" if seen.get(name, 0) == n else
                  " (MISMATCH: the trace does not hold every kernel the card "
@@ -164,7 +179,7 @@ def main(argv=None):
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             finished, wall = _timed_drain(engine)
         prof.export_chrome_trace(args.profile)
-        _print_device_time(prof, wall, {k: v for k, v in
+        print_device_time(prof, wall, {k: v for k, v in
                                         kernels.launch_counts().items() if v})
     else:
         finished, wall = _timed_drain(engine)

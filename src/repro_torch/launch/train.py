@@ -1,0 +1,115 @@
+"""Training launcher: the fault-tolerant trainer on the synthetic stream.
+
+On the card by default (``--device cuda`` raises without one); ``--device
+cpu`` runs the kernels' plain versions.  Prints one ``[train] ...`` line.
+``--profile out.json.gz`` (on the card) traces every step after the first
+with ``torch.profiler`` and prints the device time by kernel, summed per
+port kernel and for PyTorch's own, with the device's idle share.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 20 --seq 1024 \
+        --batch 4 --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
+        --steps 4 --seq 32 --batch 2
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models.model import build_model
+from repro_torch.training.trainer import Trainer
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm2-135m")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--reduced", action="store_true",
+                    help="shrink the config for CPU-scale runs")
+    ap.add_argument("--policy", default="scalable",
+                    choices=["scalable", "fixed", "unpacked"])
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--adam-8bit", action="store_true")
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a crash at this step (restart drills)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--profile", default=None,
+                    help="trace the steps after the first into this Chrome "
+                         "trace (card only) and print device time by kernel")
+    args = ap.parse_args(argv)
+    if args.profile and (args.device != "cuda" or args.steps < 2):
+        raise ValueError("--profile traces steps after the first on the card: "
+                         "needs --device cuda and --steps >= 2")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    shape = ShapeSpec("cli", args.seq, args.batch, "train")
+    run = RunConfig(layout_policy=args.policy, microbatch=args.microbatch,
+                    param_dtype=args.dtype, compute_dtype=args.dtype,
+                    lr=args.lr, adam_8bit=args.adam_8bit,
+                    grad_compression=args.grad_compression,
+                    remat=False, warmup_steps=min(20, args.steps // 5 + 1))
+
+    model = build_model(cfg, run, shape, device=args.device)
+    data = SyntheticLM(cfg, shape, seed=args.seed)
+    trainer = Trainer(model, data, run, ckpt_dir=args.ckpt_dir,
+                      total_steps=args.steps, ckpt_every=args.ckpt_every)
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.profile:
+        state, history = _profiled_fit(trainer, gen, args)
+    else:
+        state, history = trainer.fit(gen, fail_at=args.fail_at)
+    if history:
+        print(f"[train] {cfg.name}: step {int(state.step)}  "
+              f"loss {history[0]:.3f} -> {history[-1]:.3f}  "
+              f"stragglers={trainer.straggler_events}")
+    else:
+        print(f"[train] {cfg.name}: already at step {int(state.step)}, "
+              f"nothing to do")
+    return state, history
+
+
+def _profiled_fit(trainer, gen, args):
+    """``trainer.fit`` with every step after the first traced; the wall is
+    the traced steps' own (``trainer.step_ms``), and the trace's port
+    launches are held beside the wrappers' counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import print_device_time
+
+    def on_step(step):
+        if len(trainer.step_ms) == 1:
+            kernels.reset_launch_counts()
+        prof.step()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=0, active=args.steps - 1)) as prof:
+        out = trainer.fit(gen, fail_at=args.fail_at, on_step=on_step)
+    traced = trainer.step_ms[1:]
+    prof.export_chrome_trace(args.profile)
+    print_device_time(prof, 1e-3 * sum(traced), {k: v for k, v in
+                                                 kernels.launch_counts().items() if v},
+                      tag="train profile")
+    print(f"[train profile] {len(traced)} traced steps, "
+          f"{sum(traced) / len(traced):.1f} ms per step")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -5,9 +5,11 @@ serving step scatters K/V into the page pool and runs the ragged
 paged-attention kernel; the paged step (dense chunked and monolithic)
 scatters into the pool, gathers each row's pages back and attends through
 :func:`core_attention`, which the JAX package also computes outside
-Pallas.  Only the two paged modes of :func:`attn_apply` are ported so
-far; the others raise.  No mode reads an index back to the host, so a
-step can be captured in a CUDA graph.
+Pallas.  The train/prefill mode (no cache) attends over the whole
+sequence through :func:`core_attention`, or :func:`chunked_attention`
+past 512 positions.  The dense-cache decode mode is not ported yet and
+raises.  No mode reads an index back to the host, so a step can be
+captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
@@ -23,7 +26,7 @@ from repro_torch.models.common import (Stream, apply_rope, maybe_unpack,
                                        norm_apply, norm_init)
 
 __all__ = ["attn_init", "attn_apply", "init_paged_kv_cache", "core_attention",
-           "paged_kv_update", "flat_paged_kv_update"]
+           "chunked_attention", "paged_kv_update", "flat_paged_kv_update"]
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig,
@@ -137,23 +140,46 @@ def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
-def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
-               positions: torch.Tensor, kv_cache: dict,
-               keep_packed: bool = False, paged: Optional[dict] = None):
-    """The two paged modes.  Q/K/V projections (unpacked at exit) -> RoPE
-    -> in-place K/V scatter -> attention -> O projection (kept packed when
-    ``keep_packed``).  Returns (out_stream, kv_cache).
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_pos: torch.Tensor,
+                      chunk: int = 512) -> torch.Tensor:
+    """Memory-linear attention: the queries in chunks of ``chunk`` (scores
+    [B,h,g,chunk,Skv] instead of [B,h,g,Sq,Skv]), each chunk recomputed on
+    the backward pass (``torch.utils.checkpoint``, where the JAX package
+    uses ``jax.checkpoint``).  Numerics are :func:`core_attention`'s.  Falls
+    back to it, as the JAX package does, unless ``Sq`` is a multiple of
+    ``chunk`` above it and the positions are shared by the batch (1-D)."""
+    b, sq, hq, dh = q.shape
+    if sq <= chunk or sq % chunk != 0 or q_pos.ndim != 1:
+        return core_attention(q, k, v, causal=causal, q_pos=q_pos)
+    outs = [checkpoint(core_attention, q[:, i:i + chunk], k, v, causal=causal,
+                       q_pos=q_pos[i:i + chunk], use_reentrant=False)
+            for i in range(0, sq, chunk)]
+    return torch.cat(outs, dim=1)
 
+
+def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
+               positions: torch.Tensor, kv_cache: Optional[dict] = None,
+               keep_packed: bool = False, paged: Optional[dict] = None):
+    """Q/K/V projections (unpacked at exit) -> RoPE -> attention -> O
+    projection (kept packed when ``keep_packed``).  Returns (out_stream,
+    kv_cache).
+
+    - train/prefill: no ``kv_cache`` and no ``paged``; x is ``[B, S]`` and
+      ``positions`` [S]; causal attention over the whole sequence,
+      :func:`chunked_attention` past 512 positions, as in the JAX package.
     - flat: ``paged`` carries {block_tables [B,MP], row_ids [W], q_pos
       [W], and on the card the ragged-attention plan} and x is one
-      ``[1, W]`` stream; attention is the ragged paged kernel.
+      ``[1, W]`` stream; K/V are scattered into the pool in place and
+      attention is the ragged paged kernel.
     - paged (dense chunked and monolithic): ``paged`` carries
       {block_tables [B,MP], lens [B], new_counts [B]}, x is ``[B, S]`` and
-      ``positions`` [B, S]; each row attends over its gathered pages
-      through :func:`core_attention` with per-row 2-D positions."""
-    if paged is None:
-        raise NotImplementedError("only the paged attention modes are "
-                                  "ported so far")
+      ``positions`` [B, S]; K/V are scattered in place and each row attends
+      over its gathered pages through :func:`core_attention` with per-row
+      2-D positions."""
+    if paged is None and kv_cache is not None:
+        raise NotImplementedError("the dense-cache decode mode is not "
+                                  "ported yet")
     dh, hq, hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     q = maybe_unpack(linear_apply(params["wq"], x, ctx))
     k = maybe_unpack(linear_apply(params["wk"], x, ctx))
@@ -168,7 +194,12 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
     if cfg.rope != "none":
         pct = cfg.rope_pct if cfg.rope == "partial2d" else 1.0
         q, k = apply_rope(q, k, positions, theta=cfg.rope_theta, pct=pct)
-    if "row_ids" in paged:
+    if paged is None:
+        if sq > 512:
+            out = chunked_attention(q, k, v, causal=True, q_pos=positions)
+        else:
+            out = core_attention(q, k, v, causal=True, q_pos=positions)
+    elif "row_ids" in paged:
         kv_cache = flat_paged_kv_update(
             kv_cache, k, v, block_tables=paged["block_tables"],
             row_ids=paged["row_ids"], q_pos=paged["q_pos"])

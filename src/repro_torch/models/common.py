@@ -105,5 +105,35 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
     return {"e": (torch.randn((vocab, d), generator=generator) * 0.02).to(dtype)}
 
 
+class _Gather(torch.autograd.Function):
+    """The embedding gather, with a gradient whose sum order is fixed:
+    ``index_add_`` under ``torch.use_deterministic_algorithms`` (on the
+    card PyTorch then sorts the indices instead of adding with atomics),
+    so a training step is bitwise reproducible."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        out = torch.zeros((ctx.rows, g.shape[1]), dtype=g.dtype, device=g.device)
+        was = (torch.are_deterministic_algorithms_enabled(),
+               torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True)
+        try:
+            out.index_add_(0, tokens.reshape(-1), g)
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        return out, None
+
+
 def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["e"][tokens.long()]
+    e, tokens = params["e"], tokens.long()
+    if torch.is_grad_enabled() and e.requires_grad:
+        return _Gather.apply(e, tokens)
+    return e[tokens]

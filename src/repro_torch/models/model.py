@@ -1,5 +1,5 @@
-"""Model facade: init, the two paged serving steps, and their compiled
-forms.
+"""Model facade: init, the full-sequence forward and the loss (training),
+the two paged serving steps, and their compiled forms.
 
 The port's ``ReproModel`` serves continuous batching through
 ``paged_decode_step`` (the dense chunked and monolithic engine steps) and
@@ -36,6 +36,17 @@ from repro_torch.models.common import embed_apply
 __all__ = ["ReproModel", "CompiledStep", "GraphTable", "build_model"]
 
 
+def _xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
+    """Mean next-token cross-entropy plus ``z_loss`` times the mean squared
+    log-partition, in float32.  Returns (loss, {"nll", "z_loss"})."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - ll).mean()
+    zl = (lse ** 2).mean()
+    return nll + z_loss * zl, {"nll": nll, "z_loss": zl}
+
+
 class ReproModel:
     """One model configuration on one device.  ``device`` defaults to
     ``cuda`` and raises without a card; ``device="cpu"`` runs the kernels'
@@ -58,6 +69,29 @@ class ReproModel:
         gives the same weights on every device), then moved to the device."""
         params = tfm.lm_init(generator, self.cfg, self.run)
         return tfm.tree_map(lambda t: t.to(self.device), params)
+
+    def _embeds(self, params: dict, batch: dict) -> torch.Tensor:
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        return embed_apply(params["embed"], tokens).to(self.compute_dtype)
+
+    def forward(self, params: dict, batch: dict, last_only: bool = False):
+        """Full-sequence forward over ``batch["tokens"]`` [B, S] (a tensor
+        or a numpy array).  Returns (logits [B, S, V], or [B, 1, V] for the
+        last position with ``last_only``, aux)."""
+        x = self._embeds(params, batch)
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        logits, _, aux = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
+                                      positions=positions, last_only=last_only)
+        return logits, aux
+
+    def loss(self, params: dict, batch: dict):
+        """(loss, metrics): next-token cross-entropy of ``batch["labels"]``
+        plus the z-loss (``run.z_loss``); metrics {"nll", "z_loss", "loss"}."""
+        logits, _ = self.forward(params, batch)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        loss, metrics = _xent(logits, labels, self.run.z_loss)
+        metrics["loss"] = loss
+        return loss, metrics
 
     def init_paged_cache(self, num_pages: int, page_tokens: int,
                          slots: int) -> dict:
@@ -88,9 +122,9 @@ class ReproModel:
                  "new_counts": new_counts}
         logits_at = (torch.clamp(new_counts - 1, min=0) if logits_idx is None
                      else logits_idx)
-        logits = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
-                              positions=positions, caches=caches, paged=paged,
-                              logits_at=logits_at)
+        logits, _, _ = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
+                                    positions=positions, caches=caches,
+                                    paged=paged, logits_at=logits_at)
         return logits, caches
 
     def flat_decode_step(self, params: dict, caches: dict, token: torch.Tensor,
@@ -109,9 +143,9 @@ class ReproModel:
         x = embed_apply(params["embed"], token).to(self.compute_dtype)
         paged = {"block_tables": block_tables, "row_ids": row_ids,
                  "q_pos": q_pos, "plan": plan}
-        logits = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
-                              positions=q_pos[None, :], caches=caches,
-                              paged=paged, logits_at=logits_idx[None, :])
+        logits, _, _ = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
+                                    positions=q_pos[None, :], caches=caches,
+                                    paged=paged, logits_at=logits_idx[None, :])
         return logits, caches
 
     @property

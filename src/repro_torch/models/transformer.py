@@ -3,8 +3,10 @@
 Parameters keep the JAX package's tree: layers grouped into the repeating
 pattern period and stacked ``[G, ...]`` per leaf, so the reference's
 parameters carry across leaf for leaf.  Where the JAX package scans over
-the groups, the port runs a Python loop over the leading dim.  Only
-attention blocks with a dense MLP are ported so far.
+the groups, the port runs a Python loop over the leading dim (each leaf
+unbound once per call, so the gradient of the stack is one stack of the
+groups' gradients).  Only attention blocks with a dense MLP are ported so
+far, in the train/prefill mode (no cache) and the two paged serving modes.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
@@ -25,7 +28,10 @@ from repro_torch.models.common import (Stream, embed_init, maybe_pack,
 
 __all__ = ["pattern_period", "block_init", "block_apply", "layers_init",
            "layers_apply", "lm_init", "lm_apply", "logits_apply",
-           "init_paged_caches", "tree_map"]
+           "init_paged_caches", "tree_map", "AUX_ZERO"]
+
+# the aux losses of the MoE family, zero for every other family
+AUX_ZERO = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
 
 
 def tree_map(fn, tree):
@@ -72,18 +78,21 @@ def _as_stream_like(out: Stream, like: Stream, ctx: MatmulContext) -> Stream:
 
 
 def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
-                positions: torch.Tensor, cache: dict, paged: dict):
-    """Pre-norm residual block.  Returns (x', cache)."""
+                positions: torch.Tensor, cache: Optional[dict] = None,
+                paged: Optional[dict] = None):
+    """Pre-norm residual block.  Returns (x', cache); no cache (None) in
+    the train/prefill mode."""
     keep = isinstance(x, PackedArray)
     h = norm_apply(p["ln1"], x, cfg.norm)
-    out, kv = attention.attn_apply(p["mixer"], h, ctx, cfg, positions=positions,
-                                   kv_cache=cache["kv"], keep_packed=keep,
-                                   paged=paged)
+    out, kv = attention.attn_apply(
+        p["mixer"], h, ctx, cfg, positions=positions,
+        kv_cache=None if cache is None else cache["kv"], keep_packed=keep,
+        paged=paged)
     x = stream_add(x, _as_stream_like(out, x, ctx))
     h2 = norm_apply(p["ln2"], x, cfg.norm)
     out2 = mlp_mod.mlp_apply(p["ffn"], h2, ctx, cfg, keep_packed=keep)
     x = stream_add(x, _as_stream_like(out2, x, ctx))
-    return x, {"kv": kv}
+    return x, (None if cache is None else {"kv": kv})
 
 
 def layers_init(generator: torch.Generator, cfg: ModelConfig,
@@ -116,12 +125,50 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_tokens: int,
             for i in range(period)}
 
 
+def _unbind(tree):
+    """Each tensor leaf ``[G, ...]`` as a tuple of its G slices (one view
+    op per leaf, whose gradient is one stack)."""
+    if isinstance(tree, dict):
+        return {k: _unbind(v) for k, v in tree.items()}
+    return tree.unbind(0) if isinstance(tree, torch.Tensor) else tree
+
+
+def _group(tree, g: int):
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g] if isinstance(tree, tuple) else tree
+
+
+def _apply_group(x: Stream, gp: dict, ctx: MatmulContext, cfg: ModelConfig,
+                 positions: torch.Tensor) -> Stream:
+    for i in range(pattern_period(cfg)):
+        x, _ = block_apply(gp[f"p{i}"], x, ctx, cfg, positions=positions)
+    return x
+
+
 def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
-                 cfg: ModelConfig, *, positions: torch.Tensor, caches: dict,
-                 paged: dict) -> Stream:
-    """Run every group in order over a paged step; the pools in
-    ``caches`` are written in place (each group's slice is a view)."""
+                 cfg: ModelConfig, *, positions: torch.Tensor,
+                 caches: Optional[dict] = None, paged: Optional[dict] = None,
+                 remat: bool = False) -> Stream:
+    """Run every group in order.
+
+    - train/prefill (``caches`` None): ``remat`` recomputes each group's
+      forward on the backward pass (``torch.utils.checkpoint``, where the
+      JAX package wraps its scan body in ``jax.checkpoint``), so only the
+      stream between groups is kept;
+    - paged steps: the pools in ``caches`` are written in place (each
+      group's slice is a view)."""
     period = pattern_period(cfg)
+    if caches is None:
+        groups = _unbind(params_groups)
+        for g in range(cfg.n_layers // period):
+            gp = _group(groups, g)
+            if remat:
+                x = checkpoint(_apply_group, x, gp, ctx, cfg, positions,
+                               use_reentrant=False)
+            else:
+                x = _apply_group(x, gp, ctx, cfg, positions)
+        return x
     for g in range(cfg.n_layers // period):
         for i in range(period):
             gp = tree_map(lambda t: t[g], params_groups[f"p{i}"])
@@ -154,18 +201,26 @@ def logits_apply(params: dict, x: Stream, ctx: MatmulContext,
 
 def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
              cfg: ModelConfig, run: RunConfig, *, positions: torch.Tensor,
-             caches: dict, paged: dict,
-             logits_at: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """embeds: [B, S, D].  Returns logits [B, S, V], or [B, K, V] at the
-    per-row positions ``logits_at`` ([B] or [B, K])."""
-    del run
+             caches: Optional[dict] = None, paged: Optional[dict] = None,
+             last_only: bool = False,
+             logits_at: Optional[torch.Tensor] = None):
+    """embeds: [B, S, D].  Returns (logits, caches, aux): logits [B, S, V];
+    [B, 1, V] for the last position with ``last_only`` (serving prefill);
+    or [B, K, V] at the per-row positions ``logits_at`` ([B] or [B, K]).
+    ``caches`` is None in the train/prefill mode and the same object,
+    updated in place, in the paged modes; ``aux`` is :data:`AUX_ZERO` (the
+    dense family has no aux loss).  ``run.remat`` recomputes each layer
+    group's forward on the backward pass (train mode)."""
     x: Stream = maybe_pack(embeds, ctx)
     x = layers_apply(params["groups"], x, ctx, cfg, positions=positions,
-                     caches=caches, paged=paged)
+                     caches=caches, paged=paged,
+                     remat=caches is None and run.remat)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     if logits_at is not None:
         idx = (logits_at if logits_at.ndim == 2 else logits_at[:, None]).long()
         xu = maybe_unpack(x)
         rows = torch.arange(xu.shape[0], device=xu.device)[:, None]
         x = maybe_pack(xu[rows, idx], ctx)
-    return logits_apply(params, x, ctx, cfg)
+    elif last_only:
+        x = maybe_pack(maybe_unpack(x)[:, -1:, :], ctx)
+    return logits_apply(params, x, ctx, cfg), caches, dict(AUX_ZERO)

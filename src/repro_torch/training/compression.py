@@ -1,0 +1,39 @@
+"""Int8 error-feedback gradient compression (the JAX package's
+``training/compression.py``).
+
+Each gradient leaf plus its error buffer is quantized to int8 with one
+absmax scale; the quantization error is kept and re-injected next step, so
+the accumulated compressed gradients track the true ones (EF-SGD).  Here
+the transform runs on one device; across devices it would pair with an
+int8 all-reduce.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.training.optimizer import tree_map, unzip
+
+__all__ = ["init_error_buffer", "compress_with_feedback"]
+
+
+def init_error_buffer(params):
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+
+
+def _q8(x: torch.Tensor):
+    s = torch.clamp(x.abs().max() / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def compress_with_feedback(grads, err):
+    """Returns (decompressed_grads, new_err):
+    g_hat = Q8(g + err), new_err = (g + err) - g_hat."""
+    def one(g, e):
+        gf = g.float() + e
+        q, s = _q8(gf)
+        deq = q.float() * s
+        return deq.to(g.dtype), gf - deq
+
+    return unzip(tree_map(one, grads, err), 2)

@@ -1,0 +1,150 @@
+"""AdamW with warmup+cosine schedule, global-norm clipping, and optional
+8-bit (per-row absmax quantized) moment states: the JAX package's
+``training/optimizer.py`` in plain PyTorch tensor ops.
+
+Parameters, gradients and states are nested dicts of tensors (the model's
+parameter tree).  8-bit moments store m and v as int8 with float32 per-row
+scales (shape ``param.shape[:-1]``); leaves of fewer than 2 dims stay
+float32 with a scale of 1.  The schedule's scalars are computed in float32
+on the host (numpy), as the JAX package computes them in float32; the
+update runs on the parameters' device without reading anything back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import RunConfig
+
+__all__ = ["AdamW", "make_optimizer", "global_norm", "tree_map", "leaves"]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def leaves(tree) -> list:
+    """The leaves in the JAX package's flattening order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    return [tree]
+
+
+def unzip(tree, n: int) -> tuple:
+    """A tree of n-tuples -> n trees."""
+    return tuple(_pick(tree, i) for i in range(n))
+
+
+def _pick(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32 (a 0-d tensor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves(tree)))
+
+
+def _quantize(x: torch.Tensor):
+    """Per-row (last-axis) absmax int8 quantization; fewer than 2 dims stay
+    float32 with a scale of 1."""
+    if x.ndim < 2:
+        return x.float(), torch.ones(x.shape[:-1], dtype=torch.float32,
+                                     device=x.device)
+    s = torch.clamp(x.abs().amax(dim=-1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x / s[..., None]), -127, 127).to(torch.int8)
+    return q, s.float()
+
+
+def _dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    if q.dtype != torch.int8:
+        return q
+    return q.float() * s[..., None]
+
+
+def _tree_quant(tree):
+    return unzip(tree_map(_quantize, tree), 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+    grad_clip: float = 1.0
+    eightbit: bool = False
+
+    def schedule(self, step: int) -> float:
+        """Linear warmup then cosine decay to ``min_lr_frac``, in float32."""
+        f32 = np.float32
+        step = f32(step)
+        warm = np.minimum(f32(1.0), (step + f32(1)) / f32(max(1, self.warmup_steps)))
+        prog = np.clip((step - f32(self.warmup_steps))
+                       / f32(max(1, self.total_steps - self.warmup_steps)),
+                       f32(0.0), f32(1.0))
+        cos = f32(self.min_lr_frac) + f32(1 - self.min_lr_frac) * f32(0.5) \
+            * (f32(1) + np.cos(f32(np.pi) * prog))
+        return float(f32(self.lr) * warm * cos)
+
+    def init(self, params) -> dict:
+        zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        if not self.eightbit:
+            return {"m": zeros, "v": tree_map(torch.clone, zeros)}
+        mq, ms = _tree_quant(zeros)
+        vq, vs = _tree_quant(zeros)
+        return {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
+
+    def update(self, grads, opt_state: dict, params, step: int):
+        """Returns (new_params, new_opt_state, {"grad_norm", "lr"}); the
+        inputs are left as they are."""
+        gnorm = global_norm(grads)
+        scale = (torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
+                 if self.grad_clip > 0 else 1.0)
+        lr = self.schedule(step)
+        b1, b2 = self.b1, self.b2
+        t = np.float32(step) + np.float32(1.0)
+        bc1 = float(np.float32(1) - np.float32(b1) ** t)
+        bc2 = float(np.float32(1) - np.float32(b2) ** t)
+
+        if self.eightbit:
+            m = tree_map(_dequantize, opt_state["m_q"], opt_state["m_s"])
+            v = tree_map(_dequantize, opt_state["v_q"], opt_state["v_s"])
+        else:
+            m, v = opt_state["m"], opt_state["v"]
+
+        def upd(p, g, m_, v_):
+            g = g.float() * scale
+            m_ = b1 * m_ + (1 - b1) * g
+            v_ = b2 * v_ + (1 - b2) * g * g
+            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + self.eps)
+            if p.ndim >= 2:          # decoupled weight decay on matrices only
+                u = u + self.weight_decay * p.float()
+            return (p.float() - lr * u).to(p.dtype), m_, v_
+
+        new_params, new_m, new_v = unzip(tree_map(upd, params, grads, m, v), 3)
+        if self.eightbit:
+            mq, ms = _tree_quant(new_m)
+            vq, vs = _tree_quant(new_v)
+            new_opt = {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
+        else:
+            new_opt = {"m": new_m, "v": new_v}
+        return new_params, new_opt, {"grad_norm": gnorm,
+                                     "lr": torch.tensor(lr, dtype=torch.float32)}
+
+
+def make_optimizer(run: RunConfig, total_steps: int = 10000) -> AdamW:
+    return AdamW(lr=run.lr, warmup_steps=run.warmup_steps,
+                 weight_decay=run.weight_decay, grad_clip=run.grad_clip,
+                 total_steps=total_steps, eightbit=run.adam_8bit)

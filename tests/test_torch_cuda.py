@@ -3,7 +3,11 @@ small shapes (chip_smoke.py repeats this at the full SmolLM2 widths), and
 the CUDA graphs of the three serving step families on SmolLM2 cut to 2
 layers:
 replay bit for bit the eager step, with the same launch counts, and no
-capture during a drain after warmup.
+capture during a drain after warmup.  Training: mmt4d's gradient kernels
+(dgrad, wgrad with the fused bias gradient and activation) against their
+plain versions, the autograd Functions (mmt4d, pack, unpack, linear) on the
+card against the CPU, and one float32 train step of reduced SmolLM2, card
+against CPU.
 A CUDA kernel has no interpret mode, so without a card these tests skip.
 Run them on the card with (``--noconftest``: tests/conftest.py imports JAX,
 which a machine with only the port need not have):
@@ -22,8 +26,9 @@ from repro_torch.core import packing
 from repro_torch.core.hardware import query
 from repro_torch.core.layout import make_layout
 from repro_torch.kernels import build
-from repro_torch.kernels.mmt4d.ops import mmt4d
-from repro_torch.kernels.mmt4d.ref import mmt4d_ref
+from repro_torch.kernels.mmt4d.ops import mmt4d, mmt4d_dgrad, mmt4d_wgrad
+from repro_torch.kernels.mmt4d.ref import (mmt4d_dgrad_ref, mmt4d_ref,
+                                           mmt4d_wgrad_ref)
 from repro_torch.kernels.pack.ops import pack
 from repro_torch.kernels.pack.ref import pack_ref
 from repro_torch.kernels.ragged_attn.ops import plan_ragged, ragged_attention
@@ -481,7 +486,8 @@ def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
     assert eng.stats()["captures"] == graphs
     n = len(calls)
     want = {"mmt4d": 15 * n, "pack": 5 * n, "unpack": n,
-            "ragged_attn": 2 * n if eng.flat else 0}
+            "ragged_attn": 2 * n if eng.flat else 0,
+            "mmt4d_dgrad": 0, "mmt4d_wgrad": 0}
     assert kernels.launch_counts() == want
 
 
@@ -631,3 +637,137 @@ def test_copier_fault_leaves_pools_and_refcounts(gen):
     assert out == clean
     assert eng.pool.cow_copies == 2
 
+
+
+# ---------------------------------------------------------------- training
+
+_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grad_case(gen, dtype, lead, m, k, n, act):
+    lay = make_layout("scalable", query("cuda"), dtype)
+    ap = packing.pack_lhs(_rand(gen, (*lead, m, k), dtype), lay)
+    bp = packing.pack_rhs(_rand(gen, (k, n), dtype), lay)
+    dy = packing.pack_out(_rand(gen, (*lead, m, n), dtype), lay)
+    z = None if act is None else packing.pack_out(_rand(gen, (*lead, m, n), dtype), lay)
+    return ap, bp, dy, z
+
+
+@pytest.mark.parametrize("act", [None, "gelu", "silu", "relu", "tanh"])
+@pytest.mark.parametrize("lead,m,k,n", [((), 40, 200, 136), ((2,), 33, 576, 1536),
+                                        ((1,), 16, 1536, 576)],
+                         ids=["ragged", "gate", "down"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mmt4d_grad_kernels_match_plain(gen, dtype, lead, m, k, n, act):
+    """dgrad and wgrad (with the fused bias gradient) against their plain
+    versions; M and K off the tiles; padding rows and columns of the packed
+    results zero, as the plain versions give them."""
+    ap, bp, dy, z = _grad_case(gen, dtype, lead, m, k, n, act)
+    tol = _GRAD_TOL[dtype]
+    fold = lambda t: None if t is None else t.reshape(-1, *t.shape[-3:])
+    da = mmt4d_dgrad(dy, bp, z, activation=act)
+    want_da = mmt4d_dgrad_ref(fold(dy), bp, fold(z), activation=act)
+    assert _close(da, want_da.reshape(da.shape), tol)
+    db, dbias = mmt4d_wgrad(dy, ap, z, activation=act, bias=True)
+    want_db, want_bias = mmt4d_wgrad_ref(fold(dy), fold(ap), fold(z),
+                                         activation=act, bias=True)
+    assert _close(db, want_db, tol) and _close(dbias, want_bias, tol)
+
+
+def test_mmt4d_grad_kernels_one_launch_and_bit_identical(gen):
+    ap, bp, dy, z = _grad_case(gen, torch.bfloat16, (2,), 40, 576, 192, "silu")
+    d0, w0 = mmt4d_dgrad.launches, mmt4d_wgrad.launches
+    first = (mmt4d_dgrad(dy, bp, z, activation="silu"),
+             *mmt4d_wgrad(dy, ap, z, activation="silu", bias=True))
+    assert (mmt4d_dgrad.launches - d0, mmt4d_wgrad.launches - w0) == (1, 1)
+    again = (mmt4d_dgrad(dy, bp, z, activation="silu"),
+             *mmt4d_wgrad(dy, ap, z, activation="silu", bias=True))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_mmt4d_grad_bf16_runs_on_tensor_cores_f32_does_not(gen):
+    funcs = _sass_by_function()
+    tc = [v for k, v in funcs.items() if "packed_gemm_tc_kernel" in k]
+    f32 = [v for k, v in funcs.items() if "packed_gemm_kernel" in k]
+    assert len(tc) == 2 and len(f32) == 2, sorted(funcs)   # dgrad and wgrad each
+    assert all("HMMA.16816.F32.BF16" in v for v in tc)
+    assert not any("HMMA" in v for v in f32)
+
+
+def test_grad_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    ap, bp, dy, z = _grad_case(gen, torch.float32, (), 16, 128, 128, "silu")
+    with pytest.raises(ValueError):
+        mmt4d_dgrad(dy, bp, activation="silu")          # no pre-activation
+    with pytest.raises(ValueError):
+        mmt4d_dgrad(dy, bp.cpu())
+    with pytest.raises(TypeError):
+        mmt4d_wgrad(dy, ap.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("keep_packed", [False, True], ids=["exit", "packed"])
+@pytest.mark.parametrize("act", [None, "silu", "gelu"])
+def test_linear_grads_card_equal_cpu(gen, act, keep_packed):
+    """linear_apply's gradients (mmt4d, pack_lhs, pack_rhs, the unpacked
+    store, the bias) in float32 on the card against the CPU's plain path,
+    M and K off the tiles.  Tolerance 1e-5 of the largest gradient: float32
+    sums in another order."""
+    from repro_torch.core.hardware import presets
+    from repro_torch.core.linear import MatmulContext, linear_apply
+    from repro_torch.core.propagation import PackedArray
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn(2, 37, 200, generator=g).to(dev).requires_grad_(True)
+        w = (torch.randn(200, 136, generator=g) * 0.1).to(dev).requires_grad_(True)
+        b = torch.randn(136, generator=g).to(dev).requires_grad_(True)
+        y = linear_apply({"w": w, "b": b}, x, MatmulContext(hw=presets["tpu_v5e"]),
+                         activation=act, keep_packed=keep_packed)
+        y = y.unpack() if isinstance(y, PackedArray) else y
+        (y * torch.linspace(-1, 1, 136, device=dev)).sum().backward()
+        outs[dev] = [t.grad.cpu() for t in (x, w, b)]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_train_step_card_equals_cpu(gen):
+    """One float32 train step of reduced SmolLM2 (2 layers, seq 32, batch
+    2) from one state on the card and on the CPU.  Loss within 1e-5
+    relative and every gradient leaf within 1e-5 of its largest entry
+    (float32 sums in another order).  After the AdamW step every parameter
+    within 1e-6, except where a near-zero gradient's sign differs, which
+    Adam's first step turns into a difference of up to 2 * lr: counted, at
+    most 1 in 10,000 entries, none above 2 * lr."""
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.core.hardware import presets
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import leaves, make_optimizer, tree_map
+    from repro_torch.training.step import make_train_step, value_and_grad
+    from repro_torch.training.train_state import TrainState
+    cfg = reduced_config(get_config("smollm2-135m"), layers=2)
+    shape = ShapeSpec("t", 32, 2, "train")
+    run = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False,
+                    warmup_steps=1)
+    batch = SyntheticLM(cfg, shape, seed=0).batch_at(0)
+    params = build_model(cfg, run, shape, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, run, shape, hw=presets["tpu_v5e"], device=dev)
+        opt = make_optimizer(run, 10)
+        p = tree_map(lambda t: t.to(dev), params)
+        (loss, _), grads = value_and_grad(model, p, batch)
+        st, _ = make_train_step(model, opt, run)(TrainState.create(p, opt), batch)
+        res[dev] = (float(loss), [t.cpu() for t in leaves(grads)],
+                    [t.cpu() for t in leaves(st.params)])
+    lr = make_optimizer(run, 10).schedule(0)
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    off = total = 0
+    for a, b in zip(res["cuda"][2], res["cpu"][2]):
+        d = (a - b).abs()
+        assert d.max() <= 2 * lr * 1.0001
+        off += int((d > 1e-6).sum())
+        total += d.numel()
+    assert off <= total // 10_000

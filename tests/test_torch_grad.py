@@ -1,0 +1,241 @@
+"""Gradients of the packed pipeline against the JAX package, on the CPU.
+
+The port's autograd Functions (``core/mmt4d.py``: mmt4d with its dgrad and
+wgrad kernels; ``core/packing.py``: pack and unpack as each other's
+transposes; ``models/common.py``: the embedding gather) take their plain
+versions here, and are held to ``jax.vjp`` of the JAX package's jnp
+functions in float32 on ``presets["tpu_v5e"]``, with M and K off the
+tiles.  Tolerance: max |port - JAX| <= 1e-5 of the largest |JAX| value
+(float32 sums in another order).  Each Function also passes a float64
+``gradcheck`` on tiny shapes, and the plain dgrad/wgrad agree with a
+Python mirror of the CUDA kernel's address arithmetic
+(``gemm_operands``/``gemm_view``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import packing as jpacking
+from repro.core import presets
+from repro.core.layout import make_layout as jmake_layout
+from repro.core.linear import MatmulContext as JCtx
+from repro.core.linear import linear_apply as jlinear_apply
+from repro.core.mmt4d import Epilogue as JEpilogue
+from repro.core.mmt4d import mmt4d as jmmt4d
+from repro.core.propagation import PackedArray as JPacked
+from repro_torch.core import packing
+from repro_torch.core.hardware import presets as tpresets
+from repro_torch.core.layout import make_layout
+from repro_torch.core.linear import MatmulContext, linear_apply
+from repro_torch.core.mmt4d import Epilogue, mmt4d
+from repro_torch.core.propagation import PackedArray
+from repro_torch.kernels.mmt4d.ops import gemm_operands, mmt4d_dgrad, mmt4d_wgrad
+from repro_torch.kernels.mmt4d.ref import ACTIVATION_GRADS, ACTIVATIONS
+from repro_torch.models.common import embed_apply
+
+torch.set_num_threads(1)
+
+ACTS = [None, "gelu", "silu", "relu", "tanh"]
+JAX_ACT = {None: None, "gelu": jax.nn.gelu, "silu": jax.nn.silu,
+           "relu": jax.nn.relu, "tanh": jnp.tanh}
+M, K, N = 13, 100, 70          # off every tile: m_r 8, k_r = n_r 128
+REL = 1e-5                     # float32 sums in another order
+
+
+def _arr(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a)).requires_grad_(True)
+
+
+def _close(got, want):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= REL * max(1.0, np.abs(want).max())
+
+
+LAYOUT = make_layout("scalable", tpresets["tpu_v5e"], torch.float32)
+JLAYOUT = jmake_layout("scalable", presets["tpu_v5e"], jnp.float32)
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+def test_mmt4d_grads_match_jax(act, bias):
+    """mmt4d with the bias and activation epilogue: gradients of A_pack,
+    B_pack and the bias against jax.vjp of the jnp mmt4d + Epilogue (the
+    JAX package casts before the epilogue; in float32 the orders agree)."""
+    a = jpacking.pack_lhs(jnp.asarray(_arr((2, M, K), 1)), JLAYOUT)
+    b = jpacking.pack_rhs(jnp.asarray(_arr((K, N), 2, 0.1)), JLAYOUT)
+    bv = jnp.asarray(_arr((N,), 3))
+    epi = JEpilogue(activation=JAX_ACT[act], has_bias=bias)
+    f = lambda a_, b_, bv_: epi.apply_packed(jmmt4d(a_, b_), JLAYOUT, bv_ if bias else None)
+    out, vjp = jax.vjp(f, a, b, bv)
+    ct = _arr(out.shape, 4)
+    ja, jb, jbv = vjp(jnp.asarray(ct))
+
+    ta, tb, tbv = _t(a), _t(b), _t(bv)
+    bp = Epilogue().bias_pack(tbv, LAYOUT) if bias else None
+    y = mmt4d(ta, tb, bp, activation=act)
+    _close(y, out)
+    y.backward(torch.from_numpy(ct))
+    _close(ta.grad, ja)
+    _close(tb.grad, jb)
+    if bias:
+        _close(tbv.grad, jbv)
+
+
+@pytest.mark.parametrize("fn", ["pack_lhs", "pack_rhs", "pack_out", "unpack_out"])
+def test_pack_unpack_grads_match_jax(fn):
+    """The gradient of a pack is the unpack of the incoming gradient, and
+    the gradient of an unpack its zero-padded pack."""
+    if fn == "unpack_out":
+        x = jpacking.pack_out(jnp.asarray(_arr((2, M, N), 5)), JLAYOUT)
+        jf = lambda x_: jpacking.unpack_out(x_, M, N)
+        tf = lambda x_: packing.unpack_out(x_, M, N)
+    else:
+        x = jnp.asarray(_arr((2, M, K), 5))
+        jf = lambda x_: getattr(jpacking, fn)(x_, JLAYOUT)
+        tf = lambda x_: getattr(packing, fn)(x_, LAYOUT)
+    out, vjp = jax.vjp(jf, x)
+    ct = _arr(out.shape, 6)
+    (jg,) = vjp(jnp.asarray(ct))
+    tx = _t(x)
+    y = tf(tx)
+    assert np.array_equal(y.detach().numpy(), np.asarray(out))
+    y.backward(torch.from_numpy(ct))
+    assert np.array_equal(tx.grad.numpy(), np.asarray(jg))
+
+
+@pytest.mark.parametrize("chain", ["plain", "keep_packed"])
+@pytest.mark.parametrize("act", [None, "silu", "gelu"])
+def test_linear_apply_grads_match_jax(chain, act):
+    """``linear_apply`` on unpacked weights (packed every call, so the
+    gradient reaches ``w``), M and K off the tiles.  ``keep_packed``: two
+    linears chained in the packed domain, gate-style (activation fused in
+    the first), through a PackedArray, unpacked at the end; padding rows
+    and columns get no gradient that leaks into dW or dx."""
+    p1 = {"w": _arr((K, N), 7, K ** -0.5), "b": _arr((N,), 8)}
+    p2 = {"w": _arr((N, 40), 9, N ** -0.5)}
+    x = _arr((2, M, K), 10)
+    jctx, ctx = JCtx(hw=presets["tpu_v5e"]), MatmulContext(hw=tpresets["tpu_v5e"])
+
+    def jf(x_, p1_, p2_):
+        if chain == "plain":
+            return jlinear_apply(p1_, x_, jctx, activation=JAX_ACT[act])
+        h = jlinear_apply(p1_, x_, jctx, activation=JAX_ACT[act], keep_packed=True)
+        assert isinstance(h, JPacked)
+        return jlinear_apply(p2_, h, jctx, keep_packed=True).unpack()
+
+    def tf(x_, p1_, p2_):
+        if chain == "plain":
+            return linear_apply(p1_, x_, ctx, activation=act)
+        h = linear_apply(p1_, x_, ctx, activation=act, keep_packed=True)
+        assert isinstance(h, PackedArray)
+        return linear_apply(p2_, h, ctx, keep_packed=True).unpack()
+
+    jp = lambda p: {k: jnp.asarray(v) for k, v in p.items()}
+    out, vjp = jax.vjp(jf, jnp.asarray(x), jp(p1), jp(p2))
+    ct = _arr(out.shape, 11)
+    jx, jp1, jp2 = vjp(jnp.asarray(ct))
+    tx = _t(x)
+    tp1, tp2 = ({k: _t(v) for k, v in p.items()} for p in (p1, p2))
+    y = tf(tx, tp1, tp2)
+    _close(y, out)
+    y.backward(torch.from_numpy(ct))
+    _close(tx.grad, jx)
+    pairs = [(tp1, jp1)] + ([(tp2, jp2)] if chain != "plain" else [])
+    for tp, jpp in pairs:
+        for k in tp:
+            _close(tp[k].grad, jpp[k])
+
+
+# ---------------------------------------------------------------- gradcheck
+
+F64 = dict(dtype=torch.float64)
+
+
+def _rand64(*shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=g, **F64).requires_grad_(True)
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("unpack_to", [None, (6, 10)], ids=["packed", "unpacked"])
+def test_mmt4d_function_gradcheck(act, unpack_to):
+    """mmt4d's Function (a, b and the bias; packed and unpacked store) on
+    tiny float64 tiles m_r = 4, n_r = 4, k_r = 8."""
+    a, b, bias = _rand64(2, 2, 4, 8, seed=1), _rand64(3, 2, 4, 8, seed=2), \
+        _rand64(3, 4, seed=3)
+    f = lambda a_, b_, c_: mmt4d(a_, b_, c_, activation=act, unpack_to=unpack_to)
+    assert torch.autograd.gradcheck(f, (a, b, bias))
+
+
+@pytest.mark.parametrize("fn", ["pack", "unpack"])
+def test_pack_unpack_function_gradcheck(fn):
+    lay = make_layout("fixed", tpresets["tpu_v5e"], torch.float64)
+    lay = type(lay)(**{**lay.__dict__, "m_r": 4, "k_r": 8, "n_r": 8})
+    if fn == "pack":
+        x = _rand64(2, 5, 11, seed=4)
+        assert torch.autograd.gradcheck(lambda x_: packing.pack_lhs(x_, lay), (x,))
+        w = _rand64(11, 5, seed=5)
+        assert torch.autograd.gradcheck(lambda w_: packing.pack_rhs(w_, lay), (w,))
+    else:
+        xp = _rand64(2, 2, 2, 4, 8, seed=6)
+        assert torch.autograd.gradcheck(lambda x_: packing.unpack_lhs(x_, 5, 11), (xp,))
+
+
+def test_gather_function_gradcheck():
+    """The embedding gather's deterministic gradient (repeated tokens sum)."""
+    e = _rand64(10, 4, seed=7)
+    tokens = torch.tensor([[1, 3, 3], [9, 1, 0]])
+    assert torch.autograd.gradcheck(lambda e_: embed_apply({"e": e_}, tokens), (e,))
+
+
+# ------------------------------------------- the kernels' address arithmetic
+
+def gemm_view(buf: torch.Tensor, desc: tuple, rows: int, cols: int) -> torch.Tensor:
+    """The logical [rows, cols] matrix ``desc`` reads from ``buf``: a
+    Python mirror of the gradient kernels' address arithmetic."""
+    rs, ti, ii, cs, tj, ij = desc
+    i, j = torch.arange(rows), torch.arange(cols)
+    off = ((i // ti) * rs + (i % ti) * ii)[:, None] + ((j // tj) * cs + (j % tj) * ij)[None, :]
+    return buf.reshape(-1)[off]
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape", [(3, 2, 2, 8, 16, 16), (5, 3, 2, 8, 128, 128)])
+def test_grad_products_match_kernel_index_mirror(shape, act):
+    """dgrad and wgrad (plain versions) equal the product the CUDA kernel
+    forms from its operand descriptors: C[p, q] = sum_r X(p, r) Y(r, q),
+    each matrix read through ``gemm_view``; the bias gradient is X's row
+    sums, and with an activation X is dY * act'(Z)."""
+    m_o, n_o, k_o, m_r, n_r, k_r = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    dz = torch.randn(m_o, n_o, m_r, n_r, generator=g, dtype=torch.float64)
+    z = torch.randn(m_o, n_o, m_r, n_r, generator=g, dtype=torch.float64) \
+        if act else None
+    a = torch.randn(m_o, k_o, m_r, k_r, generator=g, dtype=torch.float64)
+    b = torch.randn(n_o, k_o, n_r, k_r, generator=g, dtype=torch.float64)
+    x_src = dz if act is None else dz * ACTIVATION_GRADS[act](z)
+    got = {"dgrad": mmt4d_dgrad(dz, b, z, activation=act)}
+    got["wgrad"], dbias = mmt4d_wgrad(dz, a, z, activation=act, bias=True)
+    for kind, y in (("dgrad", b), ("wgrad", a)):
+        p, q, r, (dx, dy, dc), _ = gemm_operands(kind, *shape)
+        x = gemm_view(x_src, dx, p, r)
+        assert torch.allclose(gemm_view(got[kind], dc, p, q),
+                              x @ gemm_view(y, dy, r, q), rtol=1e-12, atol=1e-12)
+        if kind == "wgrad":
+            assert torch.allclose(dbias.reshape(-1), x.sum(1), rtol=1e-12, atol=1e-12)
+
+
+def test_activation_grads_are_the_derivatives():
+    z = torch.linspace(-4, 4, 101, dtype=torch.float64).requires_grad_(True)
+    for name, grad in ACTIVATION_GRADS.items():
+        (d,) = torch.autograd.grad(ACTIVATIONS[name](z).sum(), z)
+        assert torch.allclose(grad(z.detach()), d, rtol=1e-10, atol=1e-12), name
