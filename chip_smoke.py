@@ -90,9 +90,11 @@ step a replay of a CUDA graph captured at warmup:
      every drain;
  11. training: mmt4d's two gradient kernels (dgrad, wgrad) against their
      plain versions at the full-width training linears (4,096 tokens; the
-     gate with its silu's gradient, the down projection, the tied head),
-     f32 and bf16, bit-identical on a repeat, timed L2-cold beside one
-     torch.matmul of the same product and their bound; one f32 step's loss
+     gate with its silu's gradient, the down projection, the tied head, the
+     K projection), f32 and bf16, bit-identical on a repeat, timed L2-cold
+     beside one torch.matmul of the same product and their bound (bf16:
+     with the reduction's split per cluster and the achieved TFLOP/s and
+     TB/s); one f32 step's loss
      and every gradient leaf, SmolLM2 at full width cut to 2 layers (seq
      128, batch 2), card vs CPU plain path; then bf16 at full depth, seq
      1024 (chunked_attention), batch 4, through Trainer on SyntheticLM: 20
@@ -357,7 +359,8 @@ class KernelChecks:
         unpacked operands (the yardstick)."""
         from repro_torch.core import packing
         from repro_torch.core.layout import make_layout
-        from repro_torch.kernels.mmt4d.ops import mmt4d_dgrad, mmt4d_wgrad
+        from repro_torch.kernels.mmt4d.ops import (gemm_operands, mmt4d_dgrad,
+                                                   mmt4d_wgrad, pick_grad_split)
         from repro_torch.kernels.mmt4d.ref import mmt4d_dgrad_ref, mmt4d_wgrad_ref
         lay = make_layout("scalable", self.hw, dtype)
         x = self.rand((m, k), dtype)
@@ -389,10 +392,24 @@ class KernelChecks:
                  lambda *t: torch.matmul(t[-1].T, t[-3]))):
             if not torch.equal(fn(*sets[0]), fn(*sets[0])):
                 raise AssertionError(f"{name} {label} {dtype}: two calls differ")
+            split = {}
+            if dtype is BF:     # the reduction's split: blocks per cluster
+                pqr = gemm_operands(name[6:], ap.shape[0], bp.shape[0], ap.shape[1],
+                                    lay.m_r, lay.n_r, lay.k_r)[:3]
+                split = {"split": pick_grad_split(*pqr, self.hw.sm_count), "pqr": pqr}
             self.record(name, f"{label} dZ{tuple(dzp.shape)}", dtype,
                         cycle(fn, sets), cycle(plain, sets), cycle(library, sets),
-                        nbytes, 2 * m * n * k, floor=0.0, copies=len(sets))
+                        nbytes, 2 * m * n * k, floor=0.0, copies=len(sets), **split)
             case = self.cases[name][-1]
+            ms = case["kernel_ms"]
+            print(f"    {name} {label} {str(dtype)[6:]}: {ms:.4f} ms "
+                  f"({2 * m * n * k / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.3f} "
+                  f"TB/s) against a bound of {case['bound_ms']:.5f} ms "
+                  f"({case['bound_by']}: {self.hw.peak_flops(dtype) / 1e12:.0f} "
+                  f"TFLOP/s, {self.hw.hbm_bw / 1e12:.2f} TB/s); torch.matmul "
+                  f"{case['library_ms']:.4f} ms ({ms / case['library_ms']:.2f}x)"
+                  + (f"; (P, Q, R) {split['pqr']}, split {split['split']}, cluster "
+                     f"(1, 1, {split['split']})" if split else ""))
             if case["tolerance"] > GRAD_TOL_SHARE * case["plain_mean_abs"]:
                 raise AssertionError(
                     f"{name} {label} {dtype}: the tolerance {case['tolerance']} is "
@@ -1907,6 +1924,7 @@ def main(argv=None) -> int:
         checks.grads(dtype, TRAIN_BATCH * TRAIN_SEQ, 576, 1536, "silu", "gate")
         checks.grads(dtype, TRAIN_BATCH * TRAIN_SEQ, 1536, 576, None, "down")
         checks.grads(dtype, TRAIN_BATCH * TRAIN_SEQ, 576, 49152, None, "tied head")
+        checks.grads(dtype, TRAIN_BATCH * TRAIN_SEQ, 576, 192, None, "k proj")
     training, train_paths = training_phase(cfg, card)
     by_path.update(train_paths)
     # the main path of each kernel: the flat drain for the serving kernels,

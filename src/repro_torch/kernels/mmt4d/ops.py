@@ -33,7 +33,8 @@ from repro_torch.kernels.mmt4d.ref import (mmt4d_dgrad_ref, mmt4d_ref,
 from repro_torch.kernels.unpack.ref import unpack_ref
 
 __all__ = ["mmt4d", "mmt4d_dgrad", "mmt4d_wgrad", "ACTIVATION_CODES", "Split",
-           "pick_split", "unpacked_index", "gemm_operands"]
+           "pick_split", "unpacked_index", "gemm_operands", "pick_grad_split",
+           "grad_tiles_ok", "grad_tma", "grad_store_offset"]
 
 # activation name -> the code csrc/mmt4d.cu switches on (same keys as ACTIVATIONS)
 ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2, "relu": 3, "tanh": 4}
@@ -223,7 +224,13 @@ mmt4d.unpacked_stores = 0     # launches that wrote C unpacked
 # C[p, q] = sum_r X(p, r) Y(r, q) where each logical matrix lies in a packed
 # tensor, element (i, j) at row_off(i) + col_off(j).  A descriptor
 # (rs, ti, ii, cs, tj, ij) gives row_off(i) = (i // ti) * rs + (i % ti) * ii
-# and col_off(j) = (j // tj) * cs + (j % tj) * ij.
+# and col_off(j) = (j // tj) * cs + (j % tj) * ij.  In bfloat16 a block
+# computes a GRAD_TILE of C (p x q) over chunks of r that TMA brings in
+# (:func:`grad_tma`), its reduction split in a cluster by
+# :func:`pick_grad_split`.
+
+GRAD_TILE = (256, 128, 64)    # bfloat16: block tile (p, q) and reduction chunk (r)
+GRAD_MIN_CHUNKS = 8           # chunks a split keeps at least
 
 
 def _desc(o0: int, o1: int, t0: int, t1: int, transposed: bool = False) -> tuple:
@@ -257,6 +264,85 @@ def gemm_operands(kind: str, m_o: int, n_o: int, k_o: int, m_r: int, n_r: int,
     raise ValueError(kind)
 
 
+@functools.lru_cache(maxsize=None)
+def pick_grad_split(p: int, q: int, r: int, sm_count: int) -> int:
+    """Reduction ranges per output tile of the bfloat16 gradient kernel,
+    one block each: the blocks of one tile form a cluster of that size.
+
+    One block runs per SM (its ring takes most of the shared memory), and
+    the kernel is bound by what L2 feeds the SMs, so more blocks than one
+    wave buy nothing, and each split costs its partial tile's pass through
+    distributed shared memory.  Output tiles too few to fill the SMs
+    (wgrad at a layer linear: 5-36 tiles of 256 x 128) split the reduction
+    as far as one wave of blocks allows, each split at least
+    ``GRAD_MIN_CHUNKS`` chunks deep; the rest keep it whole.  A sweep of
+    every split count on the H100 (``python -m
+    repro_torch.kernels.mmt4d.sweep --grads``) ranks the pick first at the
+    training linears but the tied head's dgrad and the Q/O projections'
+    wgrad, within 9 % of the best there (PERF.md)."""
+    bp, bq, bk = GRAD_TILE
+    tiles = _ceil_div(p, bp) * _ceil_div(q, bq)
+    chunks = _ceil_div(r, bk)
+    return max(1, min(MAX_CLUSTER, sm_count // tiles, chunks // GRAD_MIN_CHUNKS))
+
+
+def grad_tiles_ok(m_r: int, n_r: int, k_r: int) -> bool:
+    """Whether the bfloat16 gradient kernel takes these tiles: its boxes cut
+    n_r and k_r into 64-wide pieces (a power of two of them to a tile) and
+    take whole m_r tiles (m_r a power of two up to 128)."""
+    pow2 = lambda v: v > 0 and v & (v - 1) == 0
+    return (n_r % 64 == 0 and k_r % 64 == 0 and pow2(n_r // 64) and pow2(k_r // 64)
+            and pow2(m_r) and m_r <= 128)
+
+
+def grad_tma(kind: str, m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: int):
+    """The bfloat16 gradient kernel's TMA geometry, mirrored from
+    ``csrc/mmt4d_bwd.cu`` (``encode``, ``encode_mn``): ``(maps, loads)``.
+    ``maps`` gives the tensor map of X (and of Z, shaped alike) and Y as
+    (dims, strides, box), innermost first, strides in elements for dims
+    1 and up; ``loads(p0, q0, r0)`` lists the block at (p0, q0)'s copies for
+    the chunk at r0 as (operand, box origin).  dgrad's X is K-major: one
+    4-D box, 256 rows of p by 64 of r.  An MN-major operand (wgrad's X,
+    every Y) is a 5-D map, (64 of c, r in a tile, r tiles, 64-wide pieces
+    of a c tile, c tiles) with c its contiguous dimension, whose box lays
+    down [piece][64 r][64 c]: four pieces of X (p0 + 64 h), two of Y (q0 +
+    64 h)."""
+    bp, bq, bk = GRAD_TILE
+
+    def packed_map(o0, o1, t0, t1, box):
+        return (t1, t0, o1, o0), (t1, t0 * t1, o1 * t0 * t1), box
+
+    def mn_map(o0, o1, t0, t1, pieces):
+        rb, nh = min(t0, bk), min(t1 // 64, pieces)
+        return ((64, t0, o0, t1 // 64, o1), (t1, o1 * t0 * t1, 64, t0 * t1),
+                (64, rb, bk // rb, nh, pieces // nh))
+
+    if kind == "dgrad":
+        p_t, r_t, q_t = m_r, n_r, k_r
+        x = packed_map(m_o, n_o, m_r, n_r, (bk, m_r, 1, bp // m_r))
+        y = mn_map(n_o, k_o, n_r, k_r, bq // 64)
+    elif kind == "wgrad":
+        p_t, r_t, q_t = n_r, m_r, k_r
+        x = mn_map(m_o, n_o, m_r, n_r, bp // 64)
+        y = mn_map(m_o, k_o, m_r, k_r, bq // 64)
+    else:
+        raise ValueError(kind)
+
+    def loads(p0: int, q0: int, r0: int) -> list:
+        ri, ro = r0 % r_t, r0 // r_t
+        x_at = ((ri, 0, ro, p0 // p_t) if kind == "dgrad"
+                else (0, ri, ro, (p0 % p_t) // 64, p0 // p_t))
+        return [("x", x_at), ("y", (0, ri, ro, (q0 % q_t) // 64, q0 // q_t))]
+
+    return {"x": x, "y": y}, loads
+
+
+def grad_store_offset(p: int, q: int, p_t: int, q_t: int, q_o: int) -> int:
+    """Where the bfloat16 gradient kernel stores C[p, q]: C is [P_o, Q_o,
+    p_t, q_t] (dA_pack or dB_pack), mirrored from its epilogue."""
+    return ((p // p_t) * q_o + q // q_t) * p_t * q_t + (p % p_t) * q_t + q % q_t
+
+
 def _fold(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, *t.shape[-3:])
 
@@ -275,9 +361,10 @@ def _check_grad_args(name, dz_pack, other, z_pack, activation):
         raise ValueError(f"{name}: packed operands have 4 trailing dims")
 
 
-def _launch_gemm(name, kind, dz, y, z, dims, bias, activation):
+def _launch_gemm(name, kind, dz, y, z, dims, bias, activation, splits=None):
     """Launch the gradient kernel on folded, contiguous operands; returns
-    (C, dbias or None)."""
+    (C, dbias or None).  ``splits`` overrides :func:`pick_grad_split`
+    (bfloat16; the sweep ranks the choices)."""
     m_o, n_o, k_o, m_r, n_r, k_r = dims
     extra = () if z is None else (z,)
     build.require_cuda(name, dz, y, *extra)
@@ -285,12 +372,18 @@ def _launch_gemm(name, kind, dz, y, z, dims, bias, activation):
     build.require_contiguous(name, dz_pack=dz, other=y,
                              **({"z_pack": z} if extra else {}))
     p, q, r, descs, x_contig_p = gemm_operands(kind, *dims)
-    if dz.dtype == torch.bfloat16 and (
-            n_r % 8 or k_r % 8 or m_r % 8
-            or any(t.data_ptr() % 16 for t in (dz, y, *extra))):
-        raise ValueError(f"{name}: bfloat16 tiles m_r={m_r}, n_r={n_r}, "
-                         f"k_r={k_r}; the kernel moves 16-byte runs, so each "
-                         f"is a multiple of 8 and every operand starts on 16 bytes")
+    if dz.dtype == torch.bfloat16:
+        if not grad_tiles_ok(m_r, n_r, k_r) or any(t.data_ptr() % 16
+                                                    for t in (dz, y, *extra)):
+            raise ValueError(f"{name}: bfloat16 tiles m_r={m_r}, n_r={n_r}, "
+                             f"k_r={k_r}; the kernel's TMA boxes take n_r and "
+                             f"k_r of 64 times a power of two, m_r a power of "
+                             f"two up to 128, and every operand starting on 16 "
+                             f"bytes")
+        if splits is None:
+            splits = pick_grad_split(p, q, r, _sm_count(dz.device))
+    else:
+        splits = 1
     shape = (m_o, k_o, m_r, k_r) if kind == "dgrad" else (n_o, k_o, n_r, k_r)
     out = torch.empty(shape, dtype=dz.dtype, device=dz.device)
     dbias = (torch.empty((n_o, n_r), dtype=dz.dtype, device=dz.device)
@@ -299,7 +392,7 @@ def _launch_gemm(name, kind, dz, y, z, dims, bias, activation):
     rc = build.load_library().repro_packed_gemm(
         dz.data_ptr(), None if z is None else z.data_ptr(), y.data_ptr(),
         out.data_ptr(), None if dbias is None else dbias.data_ptr(), code,
-        p, q, r, flat, int(x_contig_p), ACTIVATION_CODES[activation],
+        p, q, r, flat, int(x_contig_p), ACTIVATION_CODES[activation], splits,
         build.stream_of(dz))
     build.check(rc, name)
     return out, dbias

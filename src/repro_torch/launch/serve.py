@@ -51,9 +51,10 @@ def _timed_drain(engine: Engine):
 
 
 # the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers;
-# mmt4d's gradient products share one kernel, X contiguous along p in wgrad
+# mmt4d's gradient products share one kernel per dtype, whose first
+# template argument is true for wgrad
 _PORT_KERNEL = re.compile(r"::(mmt4d|pack|unpack|ragged_attn)(?:_bf16|_f32)?_kernel\b")
-_GRAD_KERNEL = re.compile(r"::packed_gemm(?:_tc)?_kernel<(?:[^<>,]*,\s*)?(true|false)>")
+_GRAD_KERNEL = re.compile(r"::packed_gemm(?:_wgmma)?_kernel<(true|false)\b")
 
 
 def port_kernel(symbol: str) -> str:

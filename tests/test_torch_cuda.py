@@ -655,13 +655,19 @@ def _grad_case(gen, dtype, lead, m, k, n, act):
 
 @pytest.mark.parametrize("act", [None, "gelu", "silu", "relu", "tanh"])
 @pytest.mark.parametrize("lead,m,k,n", [((), 40, 200, 136), ((2,), 33, 576, 1536),
-                                        ((1,), 16, 1536, 576)],
-                         ids=["ragged", "gate", "down"])
+                                        ((1,), 16, 1536, 576), ((), 100, 320, 640),
+                                        ((4,), 1024, 576, 192), ((), 256, 576, 8192)],
+                         ids=["ragged", "gate", "down", "p-off-64", "split-wgrad",
+                              "split-dgrad"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_mmt4d_grad_kernels_match_plain(gen, dtype, lead, m, k, n, act):
     """dgrad and wgrad (with the fused bias gradient) against their plain
     versions; M and K off the tiles; padding rows and columns of the packed
-    results zero, as the plain versions give them."""
+    results zero, as the plain versions give them.  bfloat16 splits its
+    reduction in a cluster at ``split-wgrad`` (wgrad over 4,096 tokens
+    into 5 output tiles: 8 splits) and ``split-dgrad`` (dgrad over 8,192
+    columns into 5 tiles: 8 splits); dgrad's P is 48 and 112 at
+    ``ragged`` and ``p-off-64``."""
     ap, bp, dy, z = _grad_case(gen, dtype, lead, m, k, n, act)
     tol = _GRAD_TOL[dtype]
     fold = lambda t: None if t is None else t.reshape(-1, *t.shape[-3:])
@@ -674,8 +680,13 @@ def test_mmt4d_grad_kernels_match_plain(gen, dtype, lead, m, k, n, act):
     assert _close(db, want_db, tol) and _close(dbias, want_bias, tol)
 
 
-def test_mmt4d_grad_kernels_one_launch_and_bit_identical(gen):
-    ap, bp, dy, z = _grad_case(gen, torch.bfloat16, (2,), 40, 576, 192, "silu")
+@pytest.mark.parametrize("lead,m,k,n", [((2,), 40, 576, 192), ((4,), 1024, 576, 192),
+                                        ((), 256, 576, 8192)],
+                         ids=["plain", "split-wgrad", "split-dgrad"])
+def test_mmt4d_grad_kernels_one_launch_and_bit_identical(gen, lead, m, k, n):
+    """One launch per call and bit-identical repeats, with and without a
+    split reduction (the cluster sums its splits in a fixed order)."""
+    ap, bp, dy, z = _grad_case(gen, torch.bfloat16, lead, m, k, n, "silu")
     d0, w0 = mmt4d_dgrad.launches, mmt4d_wgrad.launches
     first = (mmt4d_dgrad(dy, bp, z, activation="silu"),
              *mmt4d_wgrad(dy, ap, z, activation="silu", bias=True))
@@ -686,12 +697,15 @@ def test_mmt4d_grad_kernels_one_launch_and_bit_identical(gen):
 
 
 def test_mmt4d_grad_bf16_runs_on_tensor_cores_f32_does_not(gen):
+    """bfloat16's gradient kernel runs warpgroup MMAs (HGMMA) on operands
+    that TMA brings in (UTMALDG); float32 runs on neither tensor-core path."""
     funcs = _sass_by_function()
-    tc = [v for k, v in funcs.items() if "packed_gemm_tc_kernel" in k]
+    tc = [v for k, v in funcs.items() if "packed_gemm_wgmma_kernel" in k]
     f32 = [v for k, v in funcs.items() if "packed_gemm_kernel" in k]
-    assert len(tc) == 2 and len(f32) == 2, sorted(funcs)   # dgrad and wgrad each
-    assert all("HMMA.16816.F32.BF16" in v for v in tc)
-    assert not any("HMMA" in v for v in f32)
+    # dgrad, wgrad with and without the bias gradient; f32: dgrad and wgrad
+    assert len(tc) == 3 and len(f32) == 2, sorted(funcs)
+    assert all("HGMMA" in v and "UTMALDG" in v for v in tc)
+    assert not any("HMMA" in v or "HGMMA" in v for v in f32)
 
 
 def test_grad_wrappers_refuse_what_the_kernels_do_not_take(gen):

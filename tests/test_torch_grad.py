@@ -9,7 +9,9 @@ tiles.  Tolerance: max |port - JAX| <= 1e-5 of the largest |JAX| value
 (float32 sums in another order).  Each Function also passes a float64
 ``gradcheck`` on tiny shapes, and the plain dgrad/wgrad agree with a
 Python mirror of the CUDA kernel's address arithmetic
-(``gemm_operands``/``gemm_view``).
+(``gemm_operands``/``gemm_view``); the bfloat16 kernel's TMA boxes, its
+store and its split of the reduction (``grad_tma``, ``grad_store_offset``,
+``pick_grad_split``) are held to the same mirror.
 """
 
 import jax
@@ -32,7 +34,11 @@ from repro_torch.core.layout import make_layout
 from repro_torch.core.linear import MatmulContext, linear_apply
 from repro_torch.core.mmt4d import Epilogue, mmt4d
 from repro_torch.core.propagation import PackedArray
-from repro_torch.kernels.mmt4d.ops import gemm_operands, mmt4d_dgrad, mmt4d_wgrad
+from repro_torch.core.hardware import HardwareSpec
+from repro_torch.kernels.mmt4d.ops import (GRAD_MIN_CHUNKS, GRAD_TILE, MAX_CLUSTER,
+                                           gemm_operands, grad_store_offset,
+                                           grad_tiles_ok, grad_tma,
+                                           mmt4d_dgrad, mmt4d_wgrad, pick_grad_split)
 from repro_torch.kernels.mmt4d.ref import ACTIVATION_GRADS, ACTIVATIONS
 from repro_torch.models.common import embed_apply
 
@@ -208,13 +214,72 @@ def gemm_view(buf: torch.Tensor, desc: tuple, rows: int, cols: int) -> torch.Ten
     return buf.reshape(-1)[off]
 
 
+def tma_box(buf: torch.Tensor, tensor_map: tuple, origin: tuple) -> torch.Tensor:
+    """A Python mirror of one TMA box load: the elements of the box at
+    ``origin`` (dims innermost first, strides in elements for dims 1 and
+    up), zero where the box leaves the tensor, as [rows, box[0]] in the
+    order the copy lays them down."""
+    dims, strides, box = tensor_map
+    idx = torch.meshgrid(*[torch.arange(b) + o for b, o in zip(box[::-1], origin[::-1])],
+                         indexing="ij")[::-1]
+    ok = torch.ones(idx[0].shape, dtype=torch.bool)
+    for i, d in zip(idx, dims):
+        ok &= (i >= 0) & (i < d)
+    off = idx[0] + sum(i * s for i, s in zip(idx[1:], strides))
+    vals = buf.reshape(-1)[torch.where(ok, off, 0)]
+    return torch.where(ok, vals, torch.zeros((), dtype=buf.dtype)).reshape(-1, box[0])
+
+
+def _padded(m: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    out = torch.zeros(rows, cols, dtype=m.dtype)
+    out[:m.shape[0], :m.shape[1]] = m
+    return out
+
+
+def _check_tma_mirror(kind, shape, x_src, y):
+    """Every box the bfloat16 kernel loads (each block, each chunk) holds
+    the elements ``gemm_view`` names for it, zero beyond P, Q or R; its
+    store puts C[p, q] where C's descriptor says."""
+    bp, bq, bk = GRAD_TILE
+    p, q, r, (dx, dy, dc), _ = gemm_operands(kind, *shape)
+    maps, loads = grad_tma(kind, *shape)
+    pp, qq, rr = -(-p // bp) * bp, -(-q // bq) * bq, -(-r // bk) * bk
+    xv = _padded(gemm_view(x_src, dx, p, r), pp, rr)
+    yv = _padded(gemm_view(y, dy, r, q), rr, qq)
+    src = {"x": x_src, "y": y}
+    for p0 in range(0, p, bp):
+        for q0 in range(0, q, bq):
+            for r0 in range(0, r, bk):
+                for op, origin in loads(p0, q0, r0):
+                    got = tma_box(src[op], maps[op], origin)
+                    if op == "x" and kind == "dgrad":     # K-major, [p][r]
+                        assert torch.equal(got, xv[p0:p0 + bp, r0:r0 + bk])
+                        continue
+                    # MN-major pieces [piece][r][64 of p or q]
+                    for h, piece in enumerate(got.reshape(-1, bk, 64)):
+                        if op == "x":
+                            want = xv[p0 + 64 * h:p0 + 64 * h + 64, r0:r0 + bk].T
+                        else:
+                            want = yv[r0:r0 + bk, q0 + 64 * h:q0 + 64 * h + 64]
+                        assert torch.equal(piece, want), (kind, op, h, p0, q0, r0)
+    p_t, q_t = dc[1], dc[4]
+    i, j = torch.arange(p)[:, None], torch.arange(q)[None, :]
+    want = (i // dc[1]) * dc[0] + (i % dc[1]) * dc[2] + (j // dc[4]) * dc[3] + (j % dc[4]) * dc[5]
+    assert torch.equal(grad_store_offset(i, j, p_t, q_t, q // q_t), want)
+
+
 @pytest.mark.parametrize("act", [None, "silu"])
-@pytest.mark.parametrize("shape", [(3, 2, 2, 8, 16, 16), (5, 3, 2, 8, 128, 128)])
+@pytest.mark.parametrize("shape", [(3, 2, 2, 8, 16, 16), (5, 3, 2, 8, 128, 128),
+                                   (3, 3, 3, 16, 64, 128), (9, 2, 2, 32, 128, 64)])
 def test_grad_products_match_kernel_index_mirror(shape, act):
     """dgrad and wgrad (plain versions) equal the product the CUDA kernel
     forms from its operand descriptors: C[p, q] = sum_r X(p, r) Y(r, q),
     each matrix read through ``gemm_view``; the bias gradient is X's row
-    sums, and with an activation X is dY * act'(Z)."""
+    sums, and with an activation X is dY * act'(Z).  Where the bfloat16
+    kernel takes the tiles, its TMA boxes and its store are held to the
+    same views (M ragged against the 256-row block: P = 40, 48, 288; N
+    ragged in wgrad's p at n_r = 64: 64-wide pieces past P).  Each block
+    loads one box per operand and chunk."""
     m_o, n_o, k_o, m_r, n_r, k_r = shape
     g = torch.Generator().manual_seed(sum(shape))
     dz = torch.randn(m_o, n_o, m_r, n_r, generator=g, dtype=torch.float64)
@@ -232,6 +297,91 @@ def test_grad_products_match_kernel_index_mirror(shape, act):
                               x @ gemm_view(y, dy, r, q), rtol=1e-12, atol=1e-12)
         if kind == "wgrad":
             assert torch.allclose(dbias.reshape(-1), x.sum(1), rtol=1e-12, atol=1e-12)
+        if grad_tiles_ok(*shape[3:]):
+            _check_tma_mirror(kind, shape, x_src, y)
+
+
+# shapes of the bfloat16 kernel's products: (P, Q, R) of a 4,096-token
+# SmolLM2 linear (m_r 16, n_r = k_r = 128), dgrad and wgrad
+def _products(k, n, tokens=4096):
+    kp, np_ = -(-k // 128) * 128, -(-n // 128) * 128
+    return {"dgrad": (tokens, kp, np_), "wgrad": (np_, kp, tokens)}
+
+
+TRAIN_LINEARS = {"gate": (576, 1536), "down": (1536, 576), "tied head": (576, 49152),
+                 "k proj": (576, 192), "q proj": (576, 576)}
+
+
+@pytest.mark.parametrize("linear", sorted(TRAIN_LINEARS))
+@pytest.mark.parametrize("tokens", [512, 4096, 16384])
+def test_grad_split_ranges_cover_the_reduction(linear, tokens):
+    """The kernel's split of each product (block z of a cluster of s takes
+    chunks [z n // s, (z + 1) n // s)): contiguous ascending ranges that
+    cover the reduction exactly, none empty nor, split, shorter than
+    GRAD_MIN_CHUNKS, at most MAX_CLUSTER blocks to a cluster, and no more
+    blocks than one wave where the tiles leave room for a split."""
+    sms = HardwareSpec(name="h100", sm_count=132).sm_count
+    for kind, (p, q, r) in _products(*TRAIN_LINEARS[linear], tokens).items():
+        s = pick_grad_split(p, q, r, sms)
+        n = -(-r // GRAD_TILE[2])
+        assert 1 <= s <= MAX_CLUSTER
+        ranges = [range(z * n // s, (z + 1) * n // s) for z in range(s)]   # c_lo, c_hi
+        assert all(len(rg) >= (GRAD_MIN_CHUNKS if s > 1 else 1) for rg in ranges)
+        assert [c for rg in ranges for c in rg] == list(range(n))
+        tiles = -(-p // GRAD_TILE[0]) * -(-q // GRAD_TILE[1])
+        assert s == 1 or tiles * s <= sms
+
+
+def test_grad_split_at_the_training_linears():
+    """At 4,096 tokens on 132 SMs: wgrad's outputs at every layer linear
+    (5-36 tiles of 256 x 128) cannot fill the SMs, so their 64-chunk
+    reduction is split as far as one wave of blocks allows (the gate's 30
+    tiles 4 ways, down's 36 3 ways, the Q and K projections' 15 and 5 the
+    8 of a portable cluster); every dgrad (80-192 tiles, the tied head's
+    included) and the tied head's wgrad (960 tiles) keep their reduction
+    whole: a second wave of blocks buys nothing where L2 sets the pace."""
+    got = {(lin, kind): pick_grad_split(*pqr, 132)
+           for lin, kn in TRAIN_LINEARS.items()
+           for kind, pqr in _products(*kn).items()}
+    assert got == {("gate", "dgrad"): 1, ("gate", "wgrad"): 4,
+                   ("down", "dgrad"): 1, ("down", "wgrad"): 3,
+                   ("tied head", "dgrad"): 1, ("tied head", "wgrad"): 1,
+                   ("k proj", "dgrad"): 1, ("k proj", "wgrad"): 8,
+                   ("q proj", "dgrad"): 1, ("q proj", "wgrad"): 8}
+
+
+@pytest.mark.parametrize("preset", ["tpu_v5e", "h100"])
+@pytest.mark.parametrize("policy", ["scalable", "fixed"])
+def test_grad_kernel_takes_every_preset_bf16_tile(preset, policy):
+    """The bfloat16 gradient kernel takes the tiles each hardware
+    preset's layouts give bfloat16 (the h100 descriptor keeps the
+    reference's lanes, sublanes and MXU depth)."""
+    hw = tpresets["tpu_v5e"] if preset == "tpu_v5e" else HardwareSpec(name="h100", sm_count=132)
+    lay = make_layout(policy, hw, torch.bfloat16)
+    assert grad_tiles_ok(lay.m_r, lay.n_r, lay.k_r), (lay.m_r, lay.n_r, lay.k_r)
+    assert not grad_tiles_ok(24, 128, 128) and not grad_tiles_ok(16, 96, 128)
+    assert not grad_tiles_ok(16, 192, 128)
+
+
+@pytest.mark.parametrize("symbol,name", [
+    ("void (anonymous namespace)::packed_gemm_wgmma_kernel<false, false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, __nv_bfloat16*, (anonymous "
+     "namespace)::Geom, int)", "mmt4d_dgrad"),
+    ("void (anonymous namespace)::packed_gemm_wgmma_kernel<true, false>(CUtensorMap_st, "
+     "CUtensorMap_st", "mmt4d_wgrad"),
+    ("void (anonymous namespace)::packed_gemm_wgmma_kernel<true, true>(CUtensorMap_st",
+     "mmt4d_wgrad"),
+    ("void (anonymous namespace)::packed_gemm_kernel<false>(float const*, float const*",
+     "mmt4d_dgrad"),
+    ("void (anonymous namespace)::packed_gemm_kernel<true>(float const*", "mmt4d_wgrad"),
+    ("void (anonymous namespace)::mmt4d_bf16_kernel<4, true>(__nv_bfloat16 const*", "mmt4d"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8", "pytorch")])
+def test_profiles_name_the_gradient_kernels(symbol, name):
+    """The launchers' ``--profile`` sums device time per port kernel by
+    symbol: each gradient kernel (bf16 with and without the bias gradient,
+    f32) lands on its wrapper's name, as the kernel line counts it."""
+    from repro_torch.launch.serve import port_kernel
+    assert port_kernel(symbol) == name
 
 
 def test_activation_grads_are_the_derivatives():
