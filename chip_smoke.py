@@ -2,10 +2,11 @@
 
 Builds the port's CUDA kernels from src/repro_torch/csrc, holds each kernel
 against its plain PyTorch version on the card at the full-width SmolLM2-135M
-shapes of the serving path (float32 and bfloat16) and times both, then
-serves full-width SmolLM2-135M (random weights from a seed) through each of
-the engine's three step families (flat, dense chunked, monolithic), every
-step a replay of a CUDA graph captured at warmup:
+and whisper-small shapes of the serving paths (float32 and bfloat16) and
+times both, then serves full-width SmolLM2-135M (random weights from a
+seed) through each of the engine's three step families (flat, dense
+chunked, monolithic), every step a replay of a CUDA graph captured at
+warmup, and SmolLM2-135M and whisper-small through the static batch loop:
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds;
@@ -24,7 +25,11 @@ step a replay of a CUDA graph captured at warmup:
      runs from a host-built plan (its split in the kernels line), also
      L2-warm, with padding zero, repeats bit-identical, no synchronising
      copy, a refused call without a plan, and beside the SDPA yardstick
-     (one scaled_dot_product_attention on K/V gathered per row);
+     (one scaled_dot_product_attention on K/V gathered per row); whisper's
+     biased gelu up-projection at decode and over its encoder frames
+     (beside torch._addmm_activation, itself held to the plain version), its
+     tied head (vocab 51865, a partial last tile), its per-call weight
+     packs and its encoder output's unpack;
   4. float32 end to end, each family: a greedy drain of 4 requests on the
      card (after warmup; no graph captured during the drain) and on the CPU
      (plain versions), same weights and prompts: identical tokens, in every
@@ -47,7 +52,24 @@ step a replay of a CUDA graph captured at warmup:
      second warmup leaves the model's trace_counts where they were, each
      engine counts its own captures, and the device memory of the second
      comes back once it is dropped;
-  8. prefix cache and speculative decode at full width, f32 then bf16,
+  8. the static batch loop (Engine.generate_static) at full width, each
+     model in float32 and bfloat16: SmolLM2-135M and whisper-small (12 +
+     12 layers, d 768, vocab 51865, 256 encoder frames from a seeded
+     torch.Generator), batch 4, one shared prompt of 256 tokens, 32 new,
+     seq_len 1024; a first call captures the prefill and decode graphs,
+     a second (the wrapper counts set to 0 just before and read just
+     after) captures nothing and repeats its tokens, with the launches
+     per model call (and whisper's encoder once per batch) checked, the
+     bias + gelu epilogues and per-call weight packs among them; a third
+     holds replay to the eager step bit for bit at both shapes; one eager
+     step runs under set_sync_debug_mode("error"); printed: prefill ms,
+     decode ms per step (device), tokens/s, whisper's encoder ms, launches
+     per decode step by kernel; the picks held to the f32 CPU plain
+     path's (f32 exactly, bf16 under BF16_MARGIN); for SmolLM2 also
+     generate() of a flat engine equal to generate_static (f32), and the
+     standalone DraftModelDrafter.propose equal to an attached drafter's
+     over a reconcile sequence (f32, 2 layers);
+  9. prefix cache and speculative decode at full width, f32 then bf16,
      each family: baseline, prefix_cache=True, and spec_tokens=2 with the
      n-gram drafter and with a draft model (SmolLM2-135M cut to 2 layers),
      each over the spec trace and (baseline and cache) the shared-prefix
@@ -57,7 +79,7 @@ step a replay of a CUDA graph captured at warmup:
      rollback pages printed, no capture after warmup (the draft model's
      included), every kernel of the path launched in every drain, and
      tokens/s and ms per step of each drain;
-  9. resilience under chaos at full width, f32 then bf16, for the flat,
+ 10. resilience under chaos at full width, f32 then bf16, for the flat,
      flat with n-gram speculation (k = 2) and the prefix cache, and dense
      chunked families, each on one warmed engine (queue_limit=6; in f32
      the runtime sanitizer checks every model call): five requests on a
@@ -71,7 +93,7 @@ step a replay of a CUDA graph captured at warmup:
      a cached one, no trace or capture after warmup, the pools never
      moved, every kernel of the path launched, and each drain's ms per
      step;
- 10. serving observability, bfloat16, full width: in each family the §4
+ 11. serving observability, bfloat16, full width: in each family the §4
      drain of phase 5 on a warmed engine with telemetry=True beside the
      same drain on one without, over one model: identical tokens, no
      capture in either drain, the cost model (built at warmup) moving no
@@ -88,7 +110,7 @@ step a replay of a CUDA graph captured at warmup:
      fire), and a chaos drain (OOM spike and NaN plans) whose fault
      instants land in the trace; every kernel of the path launched in
      every drain;
- 11. training: mmt4d's two gradient kernels (dgrad, wgrad) against their
+ 12. training: mmt4d's two gradient kernels (dgrad, wgrad) against their
      plain versions at the full-width training linears (4,096 tokens; the
      gate with its silu's gradient, the down projection, the tied head, the
      K projection), f32 and bf16, bit-identical on a repeat, timed L2-cold
@@ -104,7 +126,7 @@ step a replay of a CUDA graph captured at warmup:
      peak memory and launches per step, checked per kernel; then a crash
      injected after a checkpoint and the resume, whose history and final
      parameters and optimizer state equal an uninterrupted run's bit for bit;
- 12. the kernels JSON line (launches from the main path of each kernel: the
+ 13. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
      the gradient kernels; each other path's beside them), then the result
      line.
@@ -290,29 +312,58 @@ class KernelChecks:
             "library_ms": None if library is None else time_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by, **extra})
 
-    def mmt4d(self, dtype, w_tokens, k, n, act, label):
+    def mmt4d(self, dtype, w_tokens, k, n, act, label, bias=False):
+        """``bias``: with a packed bias in the epilogue (added before the
+        tanh gelu, as whisper's MLP does); the library call is then
+        ``torch._addmm_activation(b, x, w, use_gelu=True)``, cuBLASLt's
+        GELU_BIAS epilogue, held to the plain version like the kernel."""
         from repro_torch.core import packing
         from repro_torch.core.layout import make_layout
+        from repro_torch.core.mmt4d import Epilogue
         from repro_torch.kernels.mmt4d.ops import mmt4d, pick_split
         from repro_torch.kernels.mmt4d.ref import mmt4d_ref
+        from repro_torch.kernels.unpack.ref import unpack_ref
+        if bias and act != "gelu":
+            raise ValueError("a biased case is whisper's gelu up-projection")
         lay = make_layout("scalable", self.hw, dtype)
         x = self.rand((w_tokens, k), dtype)
         w = self.rand((k, n), dtype, k ** -0.5)
+        bv = self.rand((n,), dtype, 0.1) if bias else None
+        bb = None if bv is None else Epilogue().bias_pack(bv, lay)
         ap, bp = packing.pack_lhs(x, lay), packing.pack_rhs(w, lay)
-        out = mmt4d(ap, bp, activation=act)
-        if not torch.equal(out, mmt4d(ap, bp, activation=act)):
+        out = mmt4d(ap, bp, bb, activation=act)
+        if not torch.equal(out, mmt4d(ap, bp, bb, activation=act)):
             raise AssertionError(f"mmt4d {label} {dtype}: two calls differ")
         split = {} if dtype is TF else {"split": str(pick_split(
             ap.shape[0], bp.shape[0], ap.shape[1], lay.m_r, lay.n_r, lay.k_r,
             self.hw.sm_count))}
         sets = cold_sets(ap, bp, x, w)
+        library = cycle(lambda _a, _b, xx, ww: torch.matmul(xx, ww), sets)
+        if bias:
+            lib = torch._addmm_activation(bv, x, w, use_gelu=True)
+            want = unpack_ref(mmt4d_ref(ap, bp, bb, activation=act), w_tokens, n)
+            lib_err = (lib.float() - want.float()).abs().max().item()
+            lib_tol = TOL[dtype] * max(1.0, want.float().abs().max().item())
+            if not lib_err <= lib_tol:
+                raise AssertionError(f"mmt4d {label} {dtype}: the library call "
+                                     f"differs from the plain version by {lib_err}")
+            library = cycle(lambda _a, _b, xx, ww: torch._addmm_activation(
+                bv, xx, ww, use_gelu=True), sets)
         es = dtype.itemsize
-        self.record("mmt4d", f"{label} A{tuple(ap.shape)} B{tuple(bp.shape)}", dtype,
-                    cycle(lambda a, b, _x, _w: mmt4d(a, b, activation=act), sets),
-                    cycle(lambda a, b, _x, _w: mmt4d_ref(a, b, activation=act), sets),
-                    cycle(lambda _a, _b, xx, ww: torch.matmul(xx, ww), sets),
-                    (w_tokens * k + k * n + w_tokens * n) * es,
+        self.record("mmt4d", f"{label} A{tuple(ap.shape)} B{tuple(bp.shape)}"
+                    + (" + bias" if bias else ""), dtype,
+                    cycle(lambda a, b, _x, _w: mmt4d(a, b, bb, activation=act), sets),
+                    cycle(lambda a, b, _x, _w: mmt4d_ref(a, b, bb, activation=act), sets),
+                    library,
+                    (w_tokens * k + k * n + w_tokens * n + (n if bias else 0)) * es,
                     2 * w_tokens * k * n, copies=len(sets), **split)
+        if bias:
+            case = self.cases["mmt4d"][-1]
+            print(f"    mmt4d {label} {str(dtype)[6:]}: {case['kernel_ms']:.6f} ms "
+                  f"against a bound of {case['bound_ms']:.6f} ms; "
+                  f"torch._addmm_activation {case['library_ms']:.6f} ms "
+                  f"({case['kernel_ms'] / case['library_ms']:.2f}x; max_abs_err "
+                  f"{lib_err:.3e} to the plain version)")
 
     def mmt4d_unpacked(self, dtype, w_tokens, k, n, label):
         """A linear's exit: mmt4d writing [1, w_tokens, n] unpacked, held to
@@ -603,6 +654,19 @@ class KernelChecks:
             self.ragged(dtype, [(0, 1000, 1)], 16, "long decode row")
             self.ragged(dtype, [(0, 600, 1), (1, 64, 1), (2, 0, 300), (3, 128, 206)],
                         pre, "mixed prefill")
+            # whisper-small's static path (d 768, d_ff 3072, vocab 51865,
+            # weights packed on every call): the biased gelu up-projection
+            # at decode and over the encoder's 4 x 256 frames, the tied
+            # head's partial last tile, the per-call weight packs, the
+            # encoder output's unpack
+            self.mmt4d(dtype, 4, 768, 3072, "gelu", "whisper up decode", bias=True)
+            self.mmt4d(dtype, 1024, 768, 3072, "gelu", "whisper up encoder", bias=True)
+            self.mmt4d_unpacked(dtype, 4, 768, 51865, "whisper tied head unpacked")
+            self.pack(dtype, self.rand((768, 3072), dtype).T, 128, 128,
+                      "whisper up w^T (per call)")
+            self.pack(dtype, self.rand((51865, 768), dtype, 0.02), 128, 128,
+                      "whisper tied head embed (per call)", cold=True)
+            self.unpack(dtype, 1024, 768, m_r, 128, "whisper encoder output")
 
 
 # the three serving step families: engine arguments at the f32 parity
@@ -1114,6 +1178,336 @@ def c1_two_engines(bf16_engines) -> dict:
                        "second_engine_mib": (alloc1 - alloc0) / 2**20,
                        "allocated_back": alloc2 == alloc0}
     return out
+
+
+# the static batch loop (Engine.generate_static): full-width SmolLM2-135M and
+# whisper-small, one shared prompt length, lock step through the dense-cache
+# "decode" step, two CUDA graphs (prefill, decode) over one dense cache
+STATIC_BATCH, STATIC_PROMPT, STATIC_NEW, STATIC_SEQ = 4, 256, 32, 1024
+
+
+def static_per_call(cfg) -> dict:
+    """The wrapper counts one call of the static decode step adds (the
+    prefill and a decode step alike).  Dense (prepacked): the stream entry
+    pack, per layer Q/K/V/O, gate, up, down (Q/K/V stored unpacked) and
+    the O linear's input pack, then the tied head (its weight packed per
+    call, stored unpacked).  encdec (weights packed on every call): per
+    layer the self-attention's Q/K/V/O, the cross-attention's Q and O and
+    the MLP's biased gelu up and down projections, each weight packed, the
+    two O inputs packed, Q/K/V and the cross Q stored unpacked."""
+    n = cfg.n_layers
+    if cfg.family == "encdec":
+        return {"mmt4d": 8 * n + 1, "pack": 1 + 10 * n + 1, "unpack": 0,
+                "ragged_attn": 0, "mmt4d.unpacked_stores": 4 * n + 1,
+                "mmt4d.bias_activation": n}
+    return {"mmt4d": 7 * n + 1, "pack": 1 + n + 1, "unpack": 0, "ragged_attn": 0,
+            "mmt4d.unpacked_stores": 3 * n + 1, "mmt4d.bias_activation": 0}
+
+
+def encoder_per_batch(cfg) -> dict:
+    """The counts of whisper's encoder and cross K/V, once per batch:
+    the frontend projector (frames and weight packed, stored unpacked), the
+    stream entry pack, per encoder layer Q/K/V/O and the biased gelu MLP
+    (weights packed, the O input packed), the final unpack, then per
+    decoder layer the cross K and V (the encoder output and each weight
+    packed, stored unpacked)."""
+    e, n = cfg.encoder_layers, cfg.n_layers
+    return {"mmt4d": 1 + 6 * e + 2 * n, "pack": 3 + 7 * e + 4 * n, "unpack": 1,
+            "ragged_attn": 0, "mmt4d.unpacked_stores": 1 + 3 * e + 2 * n,
+            "mmt4d.bias_activation": e}
+
+
+def static_batch(cfg) -> dict:
+    """The launcher's static batch at this phase's sizes
+    (``python -m repro_torch.launch.serve --static``): seeded prompts and,
+    for whisper, frames from a seeded torch.Generator."""
+    from repro_torch.launch.serve import static_batch as launcher_batch
+    return launcher_batch(cfg, argparse.Namespace(
+        seed=0, slots=STATIC_BATCH, prompt_len=STATIC_PROMPT, max_len=STATIC_SEQ))
+
+
+class StaticRecorder:
+    """Stands in for a static engine's compiled decode step: passes every
+    call through; on the card records CUDA events around each (the device
+    time of each model call, the first of a batch its prefill); with
+    ``rows`` on also keeps each call's last-position logits in float32 on
+    the host (which waits for the card: never in a timed run)."""
+
+    def __init__(self, step, cuda: bool):
+        self.step, self.cuda, self.rows_on = step, cuda, False
+        self.events, self.rows = [], []
+
+    def __call__(self, *a, **kw):
+        if self.cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = self.step(*a, **kw)
+        if self.cuda:
+            ev[1].record()
+            self.events.append(ev)
+        if self.rows_on:
+            self.rows.append(out[0][:, -1].float().cpu().numpy())
+        return out
+
+    def reset(self, rows: bool):
+        self.events, self.rows, self.rows_on = [], [], rows
+
+    def ms(self) -> list:
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def static_picks(out: np.ndarray, rows: list) -> dict:
+    """(row, position) -> (token, top-2 margin of the logits it was picked
+    from), as compare_picks reads them."""
+    picks = {}
+    for j, r in enumerate(rows):
+        top2 = np.partition(r, -2, axis=-1)[:, -2:]
+        for b in range(out.shape[0]):
+            picks[(b, j)] = (int(out[b, j]), float(top2[b, 1] - top2[b, 0]))
+    return picks
+
+
+def static_engine(cfg, dtype, device):
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    name = str(dtype)[6:]
+    model = build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
+                        ShapeSpec("serve", STATIC_SEQ, STATIC_BATCH, "decode"),
+                        device=device)
+    eng = Engine(model, model.init(torch.Generator().manual_seed(0)),
+                 device=device, max_slots=STATIC_BATCH)
+    eng._decode_step = StaticRecorder(eng._decode_step, device == "cuda")
+    return eng
+
+
+def static_run(cfg, dtype, label) -> dict:
+    """One model's static batch on the card in ``dtype``: a first call
+    (captures the prefill and decode graphs), a second with the wrapper
+    counts set to 0 just before and read just after (timed: wall, tokens/s,
+    prefill and decode device ms, whisper's encoder ms), which must
+    capture nothing, make no program, repeat the first call's tokens and
+    launch the expected kernels per model call; then a third recording
+    each step's logits (for the margins), with graph replay held bit for
+    bit to the eager step at both shapes; and one eager decode step with
+    the card's synchronising calls made errors (the cache write, its mask
+    and whisper's position gather stay on the device)."""
+    from repro_torch import kernels
+    eng = static_engine(cfg, dtype, "cuda")
+    rec = eng._decode_step
+    model, batch = eng.model, static_batch(cfg)
+    enc_ev = []
+    caches_fn = eng._static_caches
+
+    def timed_caches(b):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = caches_fn(b)
+        ev[1].record()
+        enc_ev.append(ev)
+        return out
+
+    eng._static_caches = timed_caches
+    t0 = time.perf_counter()
+    first = eng.generate_static(batch, STATIC_NEW)
+    first_s = time.perf_counter() - t0
+    made = (dict(model.trace_counts), dict(eng._graphs.captures))
+    rec.reset(rows=False)
+    enc_ev.clear()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate_static(batch, STATIC_NEW)
+    wall = time.perf_counter() - t0
+    counts = kernels.counters()
+    step_ms = rec.ms()
+    enc_ms = enc_ev[0][0].elapsed_time(enc_ev[0][1])
+    if (dict(model.trace_counts), dict(eng._graphs.captures)) != made:
+        raise AssertionError(f"{label}: the second call made programs or "
+                             f"graphs: {made} -> {model.trace_counts}, "
+                             f"{eng._graphs.captures}")
+    if made[1]["decode"] != 2 or made[0]["decode"] != 2:
+        raise AssertionError(f"{label}: {made} programs and graphs, not 2 each")
+    if not np.array_equal(out, first):
+        raise AssertionError(f"{label}: two calls on the same batch differ")
+    if out.shape != (STATIC_BATCH, STATIC_NEW) or out.min() < 0 \
+            or out.max() >= cfg.vocab:
+        raise AssertionError(f"{label}: tokens {out.shape} outside the vocabulary")
+    calls = len(step_ms)
+    per = static_per_call(cfg)
+    enc = encoder_per_batch(cfg) if cfg.family == "encdec" else {}
+    for k, n in per.items():
+        want = n * calls + enc.get(k, 0)
+        if counts[k] != want:
+            raise AssertionError(f"{label} {k}: {counts[k]} launches, expected "
+                                 f"{n} x {calls} model calls + {enc.get(k, 0)}")
+    if counts["mmt4d_dgrad"] or counts["mmt4d_wgrad"]:
+        raise AssertionError(f"{label}: a gradient kernel ran: {counts}")
+    check = ReplayCheck(rec.step)
+    rec.step = check
+    rec.reset(rows=True)
+    again = eng.generate_static(batch, STATIC_NEW)
+    rows = rec.rows
+    if not np.array_equal(again, out) or len(check.checked) != 2:
+        raise AssertionError(f"{label}: the recording call differs, or replay "
+                             f"checked at {len(check.checked)} shapes")
+    if not all(np.isfinite(r).all() for r in rows):
+        raise AssertionError(f"{label}: non-finite logits")
+    caches = eng._static_bufs[(STATIC_BATCH,)
+                              + ((model.enc_len,) if cfg.family == "encdec" else ())]
+    tok = torch.as_tensor(out[:, -1:], device="cuda")
+    pos = torch.full((), STATIC_PROMPT + STATIC_NEW, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")      # nothing read back to the host
+    try:
+        model.decode_step(eng.params, caches, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ntok = out.size
+    launches = {k: v for k, v in counts.items() if "." not in k}
+    res = {"tokens": out.tolist(), "first_call_s": first_s, "wall_s": wall,
+           "tokens_per_s": ntok / wall, "prefill_ms": step_ms[0],
+           "decode_ms_per_step": float(np.mean(step_ms[1:])),
+           "encoder_ms": enc_ms if cfg.family == "encdec" else None,
+           "model_calls": calls, "launches": launches,
+           "unpacked_stores": counts["mmt4d.unpacked_stores"],
+           "bias_activation": counts["mmt4d.bias_activation"],
+           "launches_per_decode_step": per, "encoder_launches": enc or None,
+           "programs": made[0]["decode"], "graphs": made[1]["decode"],
+           "picks": static_picks(out, rows)}
+    print(f"  {label}: first call {first_s:.3f} s (2 programs, 2 graphs); "
+          f"second {wall:.6f} s wall, {ntok / wall:.2f} tokens/s, prefill "
+          f"{step_ms[0]:.4f} ms, decode {res['decode_ms_per_step']:.4f} ms per "
+          f"step (device, {calls - 1} steps)"
+          + (f", encoder and cross K/V {enc_ms:.4f} ms" if enc else "")
+          + f"; no capture, no program; replay = eager bit for bit at 2 shapes")
+    print(f"  {label}: launches {launches} (mmt4d unpacked stores "
+          f"{counts['mmt4d.unpacked_stores']}, bias + activation epilogues "
+          f"{counts['mmt4d.bias_activation']}); per decode step {per}"
+          + (f"; the encoder once per batch {enc}" if enc else ""))
+    return res
+
+
+def static_cpu(cfg, dtype=TF) -> dict:
+    """The same static batch on the CPU (the plain versions): its tokens
+    and each step's picks with their top-2 margins."""
+    eng = static_engine(cfg, dtype, "cpu")
+    eng._decode_step.reset(rows=True)
+    out = eng.generate_static(static_batch(cfg), STATIC_NEW)
+    return {"tokens": out, "picks": static_picks(out, eng._decode_step.rows)}
+
+
+def static_drafters(cfg) -> dict:
+    """The standalone DraftModelDrafter.propose (dense per-request cache,
+    eager steps) against one attached to an engine (its paged step's
+    graphs) over one context at full width in float32, SmolLM2 cut to 2
+    layers: a fresh context, then four commits (all drafts, a partial
+    reject, the re-fed final token, a full reject); every proposal equal."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.speculative import DraftModelDrafter
+    run = RunConfig(param_dtype="float32", compute_dtype="float32")
+    shape = ShapeSpec("serve", STATIC_SEQ, STATIC_BATCH, "decode")
+    target = build_model(cfg, run, shape, device="cuda")
+    dmodel = build_model(dataclasses.replace(cfg, n_layers=2), run, shape,
+                         device="cuda")
+    dparams = dmodel.init(torch.Generator().manual_seed(7))
+    attached = DraftModelDrafter(dmodel, dparams)
+    Engine(target, target.init(torch.Generator().manual_seed(0)), device="cuda",
+           max_slots=STATIC_BATCH, chunk_tokens=128, spec_tokens=3,
+           drafter=attached)
+    alone = DraftModelDrafter(dmodel, dparams)
+    prompt = static_batch(cfg)["tokens"][0]
+    reqs = [Request(rid=0, prompt=prompt, max_new=STATIC_NEW) for _ in range(2)]
+    for r in reqs:
+        r.out_tokens = [int(prompt[-1])]
+    k, rounds = 3, []
+    commits = [lambda p: list(p), lambda p: [p[0], (p[1] + 1) % cfg.vocab],
+               lambda p: [p[0]], lambda p: [(p[0] + 7) % cfg.vocab]]
+    t0 = time.perf_counter()
+    for i in range(len(commits) + 1):
+        want = attached.propose_all([(reqs[0], k)])[0]
+        got = alone.propose(reqs[1], k)
+        rounds.append(got)
+        if got != want:
+            raise AssertionError(f"standalone drafter round {i}: {got}, attached "
+                                 f"{want}")
+        if i < len(commits):
+            for r in reqs:
+                r.out_tokens += commits[i](got)
+    secs = time.perf_counter() - t0
+    print(f"  standalone DraftModelDrafter.propose = the attached drafter's "
+          f"over {len(rounds)} proposals (fresh, commit all, partial reject, "
+          f"re-fed final token, full reject): {rounds}; standalone draft "
+          f"steps {alone.draft_steps} (eager), attached {attached.draft_steps} "
+          f"(graphs {attached.stats()['captures']}); {secs:.1f} s")
+    return {"proposals": rounds, "standalone_steps": alone.draft_steps,
+            "attached_steps": attached.draft_steps}
+
+
+def static_vs_generate(cfg, static_out) -> dict:
+    """generate() of a flat engine (chunk_tokens=128) over a float32 model at
+    full width, beside the static loop's tokens on the same batch (the
+    JAX package's continuous-vs-static contract); picks may part only
+    below a top-2 margin of F32_MARGIN."""
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    run = RunConfig(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg, run, ShapeSpec("serve", STATIC_SEQ, STATIC_BATCH,
+                                            "decode"), device="cuda")
+    eng = Engine(model, model.init(torch.Generator().manual_seed(0)),
+                 device="cuda", max_slots=STATIC_BATCH, chunk_tokens=128)
+    rec = PickRecorder(eng)
+    out = eng.generate(static_batch(cfg), STATIC_NEW)
+    return compare_picks(static_out["picks"], rec.picks, F32_MARGIN,
+                         "f32 generate() (flat) vs generate_static")
+
+
+def static_phase(card) -> tuple:
+    """The static batch loop at full width: SmolLM2-135M (f32 card = CPU,
+    = generate(); the standalone drafter = the attached one; bf16 picks
+    held to the f32 CPU's under BF16_MARGIN) and whisper-small (f32 card =
+    CPU; bf16).  Returns (results, launches by path)."""
+    from repro_torch.configs import get_config
+    res, paths = {}, {}
+    for arch in ("smollm2-135m", "whisper-small"):
+        cfg = get_config(arch)
+        print(f"  {arch}: {cfg.n_layers} layers"
+              + (f" + {cfg.encoder_layers} encoder layers over "
+                 f"{STATIC_SEQ // cfg.audio_downsample} frames"
+                 if cfg.encoder_layers else "")
+              + f", d {cfg.d_model}, vocab {cfg.vocab}; batch {STATIC_BATCH} x "
+              f"prompt {STATIC_PROMPT}, {STATIC_NEW} new, seq_len {STATIC_SEQ} "
+              f"({card})")
+        t0 = time.perf_counter()
+        cpu = static_cpu(cfg)
+        print(f"  {arch} f32 on the CPU (plain versions): {time.perf_counter() - t0:.1f} s")
+        r = {}
+        for dtype in (TF, BF):
+            name = str(dtype)[6:]
+            r[name] = static_run(cfg, dtype, f"{arch} static {name}")
+            tol = 0.0 if dtype is TF else BF16_MARGIN
+            r[name]["vs_cpu_f32"] = compare_picks(
+                r[name]["picks"], cpu["picks"], tol,
+                f"{arch} static {name} card vs f32 CPU")
+            paths[f"static {arch} {name}"] = r[name]["launches"]
+        if not np.array_equal(np.asarray(r["float32"]["tokens"]), cpu["tokens"]):
+            raise AssertionError(f"{arch}: f32 static tokens card != CPU")
+        print(f"  {arch} f32 static tokens, card = CPU: "
+              f"{np.asarray(r['float32']['tokens'])[:, :8].tolist()} ...")
+        if cfg.family == "dense":
+            r["vs_generate"] = static_vs_generate(cfg, r["float32"])
+            r["drafters"] = static_drafters(cfg)
+        for v in r.values():
+            if isinstance(v, dict):
+                v.pop("picks", None)
+        res[arch] = r
+    return res, paths
 
 
 # the chaos phase: scripts/chaos_smoke.py's fault plans, and the families
@@ -1880,6 +2274,12 @@ def main(argv=None) -> int:
           f"the engines above; {card})")
     c1 = c1_two_engines(engines)
     del engines, eng
+    print(f"the static batch loop (generate_static), full width, float32 and "
+          f"bfloat16: SmolLM2-135M and whisper-small, each card vs the f32 "
+          f"CPU plain path (f32 exactly, bf16 under a top-2 margin of "
+          f"{BF16_MARGIN:g}) ({card})")
+    static, static_paths = static_phase(card)
+    by_path.update(static_paths)
     print(f"prefix cache and speculation (spec_tokens=2), float32, full width, "
           f"each family: the spec trace (8 requests, 4-token motifs tiled to "
           f"16, 16-32 new) and the shared-prefix trace (12 requests, one "
@@ -1963,6 +2363,7 @@ def main(argv=None) -> int:
                        "variants_f32": {str(k): v for k, v in variants_f32.items()},
                        "variants_bf16": {str(k): v for k, v in variants_bf16.items()},
                        "chaos": chaos, "telemetry": telemetry,
+                       "static": static,
                        "training": training,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)

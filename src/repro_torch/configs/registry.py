@@ -1,5 +1,6 @@
-"""Architecture registry.  The port serves SmolLM2-135M so far; the other
-architectures of the JAX package join as their model families are ported."""
+"""Architecture registry.  The port serves SmolLM2-135M (dense) and
+whisper-small (encdec) so far; the other architectures of the JAX package
+join as their model families are ported."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from repro_torch.configs.base import ModelConfig
 
 __all__ = ["ARCHS", "get_config"]
 
-ARCHS = {"smollm2-135m": "smollm2_135m"}
+ARCHS = {"smollm2-135m": "smollm2_135m", "whisper-small": "whisper_small"}
 
 
 def get_config(name: str) -> ModelConfig:

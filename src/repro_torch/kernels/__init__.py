@@ -30,9 +30,12 @@ def launch_counts() -> dict:
 
 def counters() -> dict:
     """Every count a wrapper keeps: ``launches`` by kernel name, and
-    mmt4d's ``unpacked_stores`` as ``"mmt4d.unpacked_stores"``."""
+    mmt4d's ``unpacked_stores`` and ``bias_activation`` as
+    ``"mmt4d.<count>"``."""
     out = launch_counts()
-    out["mmt4d.unpacked_stores"] = wrappers()["mmt4d"].unpacked_stores
+    mm = wrappers()["mmt4d"]
+    out["mmt4d.unpacked_stores"] = mm.unpacked_stores
+    out["mmt4d.bias_activation"] = mm.bias_activation
     return out
 
 
@@ -47,5 +50,5 @@ def add_counts(delta: dict, sign: int = 1) -> None:
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's ``launches`` and mmt4d's ``unpacked_stores``."""
+    """Zero every wrapper's ``launches`` and mmt4d's other counts."""
     add_counts(counters(), -1)

@@ -13,7 +13,9 @@ With ``unpack_to=(m, n)`` the same launch writes ``C[..., m, n]`` row-major,
 the tile padding dropped, instead of ``C_pack``: the unpacked store, which
 ``core/linear.py`` uses wherever a linear's result leaves the packed
 domain, so no unpack kernel follows it.  ``mmt4d.unpacked_stores`` counts
-those launches beside ``mmt4d.launches``; :func:`unpacked_index` and
+those launches beside ``mmt4d.launches``, and ``mmt4d.bias_activation`` the
+launches whose epilogue both adds a bias and applies an activation (the
+encdec MLP's biased tanh-GELU up-projection); :func:`unpacked_index` and
 :meth:`Split.stores` mirror the store's index map.
 """
 
@@ -211,11 +213,13 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     build.check(rc, "mmt4d")
     mmt4d.launches += 1
     mmt4d.unpacked_stores += unpack_to is not None
+    mmt4d.bias_activation += bias_pack is not None and activation is not None
     return out
 
 
 mmt4d.launches = 0
 mmt4d.unpacked_stores = 0     # launches that wrote C unpacked
+mmt4d.bias_activation = 0     # launches whose epilogue adds a bias, then activates
 
 
 # ---------------------------------------------------------------- gradients

@@ -1,5 +1,5 @@
 """Serving launcher: continuous-batching generation through one of the
-engine's three step families.
+engine's three step families, or the static batch loop.
 
 Requests with mixed prompt lengths (drawn from ``--seed`` between
 ``--min-prompt`` and ``--max-prompt``) each ask for ``--new`` tokens; the
@@ -11,6 +11,14 @@ Weights are random, drawn from ``--seed``.  The family:
 - ``--chunk-tokens C``: the flat token-level step;
 - ``--chunk-tokens C --no-flat``: the dense chunked ``[slots, s]`` step.
 
+``--static`` serves one batch of ``--slots`` prompts of ``--prompt-len``
+tokens in lock step through ``Engine.generate_static`` (the dense-cache
+decode step); a static family (``--arch whisper-small``, encdec) is
+served only so, with frame embeddings ``[slots, max_len / 4, d]`` drawn
+from ``--seed``.  It runs the batch twice: the first call makes the
+step's programs (on the card, captures its two graphs), the second is
+timed and must make none.
+
 ``--eager`` reserves each request's whole KV lifetime at admission.  The
 other defaults are the requests of ``chip_smoke.py``'s drains: 8
 requests, prompts of 64-512 tokens, 32 new tokens each, 4 slots, seq_len
@@ -21,6 +29,7 @@ step of the drain replays one.
 Usage (on a machine with a CUDA card; ``--device cpu`` runs the kernels'
 plain versions instead):
     PYTHONPATH=src python -m repro_torch.launch.serve --chunk-tokens 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
 ``--profile trace.json`` traces the drain with ``torch.profiler`` and
 prints the device time of each kernel (those of graph replays included),
 the device's idle share, and the port's kernel launches the trace saw
@@ -105,6 +114,66 @@ def print_device_time(prof, wall: float, counted: dict, tag: str = "profile") ->
                  "ran)"))
 
 
+def static_batch(cfg, args) -> dict:
+    """The static batch: ``--slots`` prompts of ``--prompt-len`` tokens
+    and, for encdec, frame embeddings, drawn from ``--seed``."""
+    rng = np.random.default_rng(args.seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (args.slots, args.prompt_len),
+                                    dtype=np.int32)}
+    if cfg.family == "encdec":
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        batch["frames"] = torch.randn(
+            (args.slots, args.max_len // cfg.audio_downsample, cfg.d_model),
+            generator=gen)
+    return batch
+
+
+def serve_static(model, params, args) -> np.ndarray:
+    """Serve one static batch twice through ``generate_static``; the
+    second call is timed (traced with ``--profile``) and must make no
+    program and capture no graph."""
+    cfg = model.cfg
+    engine = Engine(model, params, device=args.device, max_slots=args.slots)
+    batch = static_batch(cfg, args)
+    cuda = engine.device.type == "cuda"
+    t0 = time.perf_counter()
+    first = engine.generate_static(batch, args.new)
+    warm_s = time.perf_counter() - t0
+    made = (dict(model.trace_counts), dict(engine._graphs.captures))
+    kernels.reset_launch_counts()
+    if cuda:
+        torch.cuda.synchronize()
+    if args.profile:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = engine.generate_static(batch, args.new)
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(args.profile)
+        print_device_time(prof, wall, {k: v for k, v in
+                                        kernels.launch_counts().items() if v})
+    else:
+        t0 = time.perf_counter()
+        out = engine.generate_static(batch, args.new)
+        wall = time.perf_counter() - t0
+    if (dict(model.trace_counts), dict(engine._graphs.captures)) != made:
+        raise RuntimeError(f"the second static batch made programs or "
+                           f"graphs: {made} -> {model.trace_counts}, "
+                           f"{engine._graphs.captures}")
+    if not np.array_equal(out, first):
+        raise RuntimeError("two static batches of the same inputs differ")
+    total = out.size
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    print(f"[serve] {cfg.name} (static) on {engine.device}: batch "
+          f"{args.slots} x prompt {args.prompt_len}, {args.new} new; first "
+          f"call {warm_s:.3f} s (programs {made[0]['decode']}, graphs "
+          f"{made[1]['decode']}); second {wall:.6f} s, "
+          f"{total / wall:.4f} tokens/s, launches {launches}")
+    print(out[:, :16])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm2-135m")
@@ -128,6 +197,11 @@ def main(argv=None):
                          "admission")
     ap.add_argument("--pool-pages", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--static", action="store_true",
+                    help="the static batch loop (generate_static); always "
+                         "for a static family (encdec)")
+    ap.add_argument("--prompt-len", type=int, default=256,
+                    help="the static batch's shared prompt length")
     ap.add_argument("--profile", default=None, metavar="TRACE_JSON",
                     help="trace the drain with torch.profiler, write the "
                          "Chrome trace here and print device time by kernel")
@@ -145,6 +219,8 @@ def main(argv=None):
     model = build_model(cfg, run, ShapeSpec("serve", args.max_len, args.slots,
                                             "decode"), device=args.device)
     params = model.init(torch.Generator().manual_seed(args.seed))
+    if args.static or cfg.family in ("encdec", "vlm"):
+        return serve_static(model, params, args)
     engine = Engine(model, params, device=args.device, max_slots=args.slots,
                     page_tokens=args.page_tokens, num_pages=args.pool_pages,
                     chunk_tokens=args.chunk_tokens,

@@ -7,8 +7,10 @@ scatters into the pool, gathers each row's pages back and attends through
 :func:`core_attention`, which the JAX package also computes outside
 Pallas.  The train/prefill mode (no cache) attends over the whole
 sequence through :func:`core_attention`, or :func:`chunked_attention`
-past 512 positions.  The dense-cache decode mode is not ported yet and
-raises.  No mode reads an index back to the host, so a step can be
+past 512 positions, causally or not (whisper's encoder).  The dense-cache
+mode (the static batch loop) writes K/V at a device-side position and
+attends over the whole cache; cross-attention reads K/V from an encoder
+output.  No mode reads an index back to the host, so a step can be
 captured in a CUDA graph.
 """
 
@@ -25,8 +27,9 @@ from repro_torch.kernels.ragged_attn.ops import ragged_attention
 from repro_torch.models.common import (Stream, apply_rope, maybe_unpack,
                                        norm_apply, norm_init)
 
-__all__ = ["attn_init", "attn_apply", "init_paged_kv_cache", "core_attention",
-           "chunked_attention", "paged_kv_update", "flat_paged_kv_update"]
+__all__ = ["attn_init", "attn_apply", "init_kv_cache", "init_paged_kv_cache",
+           "core_attention", "chunked_attention", "dense_kv_update",
+           "paged_kv_update", "flat_paged_kv_update"]
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig,
@@ -45,6 +48,35 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig,
         p["q_norm"] = norm_init("rmsnorm", dh, dtype)
         p["k_norm"] = norm_init("rmsnorm", dh, dtype)
     return p
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype, device) -> dict:
+    """The dense decode cache: K and V ``[batch, max_len, Hkv, dh]``, zero."""
+    shp = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def dense_kv_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                    cache_pos: torch.Tensor):
+    """Write a ``[B, S]`` step's K/V into the dense cache at positions
+    ``cache_pos ..`` in place, and mask the cache to what is written.
+
+    ``cache_pos`` is a 0-d integer tensor on the cache's device: the write
+    and the mask are device work, with no read of the position on the
+    host.  The start is clamped to ``[0, S_max - S]`` as
+    ``lax.dynamic_update_slice`` clamps it; the mask holds the first
+    ``cache_pos + S`` positions of every row.  cache: {"k","v"} [B, S_max,
+    Hkv, dh].  Returns (cache, k_all, v_all, kv_len_mask [B, S_max])."""
+    kc, vc = cache["k"], cache["v"]
+    b, s, s_max = k.shape[0], k.shape[1], kc.shape[1]
+    ar = torch.arange(s, device=kc.device)
+    idx = torch.clamp(cache_pos.long(), 0, s_max - s) + ar
+    kc.index_copy_(1, idx, k.to(kc.dtype))
+    vc.index_copy_(1, idx, v.to(vc.dtype))
+    mask = torch.arange(s_max, device=kc.device) < cache_pos.long() + s
+    return cache, kc, vc, mask[None, :].expand(b, s_max)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, num_pages: int, page_tokens: int,
@@ -159,15 +191,25 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
-               positions: torch.Tensor, kv_cache: Optional[dict] = None,
+               positions: torch.Tensor, causal: bool = True,
+               kv_cache: Optional[dict] = None,
+               cache_pos: Optional[torch.Tensor] = None,
+               kv_source: Optional[torch.Tensor] = None,
                keep_packed: bool = False, paged: Optional[dict] = None):
     """Q/K/V projections (unpacked at exit) -> RoPE -> attention -> O
     projection (kept packed when ``keep_packed``).  Returns (out_stream,
     kv_cache).
 
     - train/prefill: no ``kv_cache`` and no ``paged``; x is ``[B, S]`` and
-      ``positions`` [S]; causal attention over the whole sequence,
-      :func:`chunked_attention` past 512 positions, as in the JAX package.
+      ``positions`` [S]; attention over the whole sequence (causal unless
+      ``causal=False``), :func:`chunked_attention` past 512 positions, as
+      in the JAX package.
+    - dense-cache decode: ``kv_cache`` {"k","v"} [B, S_max, Hkv, dh] and
+      ``cache_pos`` a 0-d device tensor; K/V are written at ``cache_pos``
+      in place (:func:`dense_kv_update`) and the queries attend over the
+      cache up to ``cache_pos + S``, causally by ``positions`` [S].
+    - cross-attention: ``kv_source`` [B, S_enc, D] (the encoder output)
+      gives K and V; no RoPE, not causal, no cache.
     - flat: ``paged`` carries {block_tables [B,MP], row_ids [W], q_pos
       [W], and on the card the ragged-attention plan} and x is one
       ``[1, W]`` stream; K/V are scattered into the pool in place and
@@ -177,29 +219,22 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
       ``positions`` [B, S]; K/V are scattered in place and each row attends
       over its gathered pages through :func:`core_attention` with per-row
       2-D positions."""
-    if paged is None and kv_cache is not None:
-        raise NotImplementedError("the dense-cache decode mode is not "
-                                  "ported yet")
     dh, hq, hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    kv_in = x if kv_source is None else kv_source
     q = maybe_unpack(linear_apply(params["wq"], x, ctx))
-    k = maybe_unpack(linear_apply(params["wk"], x, ctx))
-    v = maybe_unpack(linear_apply(params["wv"], x, ctx))
-    b, sq = q.shape[0], q.shape[1]
+    k = maybe_unpack(linear_apply(params["wk"], kv_in, ctx))
+    v = maybe_unpack(linear_apply(params["wv"], kv_in, ctx))
+    b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
     q = q.reshape(b, sq, hq, dh)
-    k = k.reshape(b, sq, hkv, dh)
-    v = v.reshape(b, sq, hkv, dh)
+    k = k.reshape(b, skv, hkv, dh)
+    v = v.reshape(b, skv, hkv, dh)
     if cfg.qk_norm:
         q = norm_apply(params["q_norm"], q, "rmsnorm")
         k = norm_apply(params["k_norm"], k, "rmsnorm")
-    if cfg.rope != "none":
+    if cfg.rope != "none" and kv_source is None:
         pct = cfg.rope_pct if cfg.rope == "partial2d" else 1.0
         q, k = apply_rope(q, k, positions, theta=cfg.rope_theta, pct=pct)
-    if paged is None:
-        if sq > 512:
-            out = chunked_attention(q, k, v, causal=True, q_pos=positions)
-        else:
-            out = core_attention(q, k, v, causal=True, q_pos=positions)
-    elif "row_ids" in paged:
+    if paged is not None and "row_ids" in paged:
         kv_cache = flat_paged_kv_update(
             kv_cache, k, v, block_tables=paged["block_tables"],
             row_ids=paged["row_ids"], q_pos=paged["q_pos"])
@@ -208,11 +243,18 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
             block_tables=paged["block_tables"], row_ids=paged["row_ids"],
             q_pos=paged["q_pos"], plan=paged.get("plan"))[None]
     else:
-        kv_cache, k_all, v_all, mask = paged_kv_update(
-            kv_cache, k, v, block_tables=paged["block_tables"],
-            lens=paged["lens"], new_counts=paged["new_counts"])
-        out = core_attention(q, k_all, v_all, causal=True, q_pos=positions,
-                             kv_len_mask=mask)
+        mask = None
+        if paged is not None:
+            kv_cache, k, v, mask = paged_kv_update(
+                kv_cache, k, v, block_tables=paged["block_tables"],
+                lens=paged["lens"], new_counts=paged["new_counts"])
+        elif kv_cache is not None:
+            kv_cache, k, v, mask = dense_kv_update(kv_cache, k, v, cache_pos)
+        if kv_cache is None and kv_source is None and sq > 512:
+            out = chunked_attention(q, k, v, causal=causal, q_pos=positions)
+        else:
+            out = core_attention(q, k, v, causal=causal and kv_source is None,
+                                 q_pos=positions, kv_len_mask=mask)
     out = linear_apply(params["wo"], out.reshape(b, sq, hq * dh), ctx,
                        keep_packed=keep_packed)
     return out, kv_cache

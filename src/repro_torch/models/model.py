@@ -1,18 +1,21 @@
 """Model facade: init, the full-sequence forward and the loss (training),
-the two paged serving steps, and their compiled forms.
+the serving steps, and their compiled forms, for the dense and encdec
+(whisper) families.
 
 The port's ``ReproModel`` serves continuous batching through
 ``paged_decode_step`` (the dense chunked and monolithic engine steps) and
-``flat_decode_step`` (the flat token-level step).  ``compiled_step(kind)``
+``flat_decode_step`` (the flat token-level step), and the static batch
+loop through ``decode_step`` against a dense cache (``init_cache``,
+``prefill_cache``; whisper runs its encoder there).  ``compiled_step(kind)``
 stands where the JAX package's ``jit_step`` stands: one program per step
 signature and model, counted in ``trace_counts`` and logged in
 ``trace_log``, so a second engine over one model counts nothing new.  On
 the card the program is a CUDA graph.  A graph holds the addresses of the
-parameters and pools it was captured with, and every engine has its own,
+parameters and caches it was captured with, and every engine has its own,
 so the graphs live in the caller's :class:`GraphTable` (one per engine,
 and one per model-backed drafter): signatures per model, captures per
-engine, and a dropped engine frees its graphs.  Training and the other
-families arrive in later slices of the port.
+engine, and a dropped engine frees its graphs.  The other families arrive
+in later slices of the port.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.core.hardware import HardwareSpec, query, require_device
 from repro_torch.core.layout import LayoutPolicy
 from repro_torch.core.linear import MatmulContext
 from repro_torch.kernels.ragged_attn.ops import RaggedPlan
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed_apply
 
@@ -63,21 +67,76 @@ class ReproModel:
                                  propagate=run.propagate)
         self.compute_dtype = getattr(torch, run.compute_dtype)
 
+    @property
+    def text_len(self) -> int:
+        s = self.shape.seq_len
+        if self.cfg.family == "vlm":
+            return s - self.cfg.vision_tokens
+        return s
+
+    @property
+    def enc_len(self) -> int:
+        """Encoder frames of a ``seq_len`` cell (encdec)."""
+        return self.shape.seq_len // self.cfg.audio_downsample
+
+    def input_specs(self, kind: Optional[str] = None) -> dict:
+        """Every model input of this cell as a meta tensor (its shape and
+        dtype; the JAX package's ``ShapeDtypeStruct``): tokens (and labels,
+        frames) for ``train`` and ``prefill``; for ``decode`` the caches (a
+        tree of meta tensors), one token per row and the 0-d position.
+        Nothing is allocated."""
+        kind = kind or self.shape.kind
+        b, s, d = self.shape.global_batch, self.shape.seq_len, self.cfg.d_model
+        i32, f = torch.int32, self.compute_dtype
+
+        def spec(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if kind in ("train", "prefill"):
+            specs = {"tokens": spec((b, self.text_len), i32)}
+            if kind == "train":
+                specs["labels"] = spec((b, self.text_len), i32)
+            if self.cfg.family == "encdec":
+                specs["frames"] = spec((b, self.enc_len, d), f)
+            if self.cfg.family == "vlm":
+                specs["patches"] = spec((b, self.cfg.vision_tokens, d), f)
+            return specs
+        return {"caches": self.init_cache(b, s, device="meta"),
+                "token": spec((b, 1), i32), "pos": spec((), i32)}
+
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters with the JAX package's tree, shapes and
         scales, drawn from ``generator`` (a CPU generator: the same seed
         gives the same weights on every device), then moved to the device."""
-        params = tfm.lm_init(generator, self.cfg, self.run)
+        if self.cfg.family == "encdec":
+            params = encdec_mod.encdec_init(
+                generator, self.cfg, self.run, max_src=max(self.enc_len, 8),
+                max_tgt=max(self.shape.seq_len, 8))
+        else:
+            params = tfm.lm_init(generator, self.cfg, self.run)
         return tfm.tree_map(lambda t: t.to(self.device), params)
 
     def _embeds(self, params: dict, batch: dict) -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         return embed_apply(params["embed"], tokens).to(self.compute_dtype)
 
+    def _frames(self, batch: dict) -> torch.Tensor:
+        """``batch["frames"]`` on the device in the compute dtype (the
+        packed product takes both operands in one dtype)."""
+        return torch.as_tensor(batch["frames"], device=self.device).to(
+            self.compute_dtype)
+
     def forward(self, params: dict, batch: dict, last_only: bool = False):
         """Full-sequence forward over ``batch["tokens"]`` [B, S] (a tensor
-        or a numpy array).  Returns (logits [B, S, V], or [B, 1, V] for the
-        last position with ``last_only``, aux)."""
+        or a numpy array; encdec also ``batch["frames"]`` [B, S_enc, d]).
+        Returns (logits [B, S, V], or [B, 1, V] for the last position with
+        ``last_only``, aux)."""
+        if self.cfg.family == "encdec":
+            tokens = torch.as_tensor(batch["tokens"], device=self.device)
+            logits = encdec_mod.encdec_forward(
+                params, {"tokens": tokens, "frames": self._frames(batch)},
+                self.ctx, self.cfg, self.run)
+            return (logits[:, -1:] if last_only else logits), dict(tfm.AUX_ZERO)
         x = self._embeds(params, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         logits, _, aux = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
@@ -92,6 +151,72 @@ class ReproModel:
         loss, metrics = _xent(logits, labels, self.run.z_loss)
         metrics["loss"] = loss
         return loss, metrics
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        """The dense decode caches of the static batch loop, zero: stacked
+        ``[G, batch, max_len, Hkv, dh]`` K/V per pattern slot; encdec
+        ``{"layers": those, "cross": [G, batch, max_len / 4, Hkv, dh]}``."""
+        dev = self.device if device is None else device
+        dt = self.compute_dtype
+        layers = tfm.init_layer_caches(self.cfg, batch, max_len, dt, dev)
+        if self.cfg.family != "encdec":
+            return layers
+        groups = self.cfg.n_layers // tfm.pattern_period(self.cfg)
+        shp = (groups, batch, max_len // self.cfg.audio_downsample,
+               self.cfg.n_kv_heads, self.cfg.d_head)
+        cross = {name: {k: torch.zeros(shp, dtype=dt, device=dev)
+                        for k in ("k", "v")} for name in layers}
+        return {"layers": layers, "cross": cross}
+
+    def prefill_cache(self, params: dict, batch: dict,
+                      into: Optional[dict] = None) -> dict:
+        """The caches a static batch decodes from: zero dense caches at
+        ``seq_len`` (whisper: with the cross K/V of its encoder over
+        ``batch["frames"]``).  With ``into`` (caches of the same shapes,
+        the cross K/V's at ``frames``' length) they are zeroed and filled
+        in place instead of allocated."""
+        b = torch.as_tensor(batch["tokens"]).shape[0]
+        if into is None:
+            caches = self.init_cache(b, self.shape.seq_len)
+        else:
+            caches = into
+            tfm.tree_map(lambda t: t.zero_(),
+                         caches["layers"] if self.cfg.family == "encdec"
+                         else caches)
+        if self.cfg.family == "encdec":
+            enc_out = encdec_mod.encode(params, self._frames(batch), self.ctx,
+                                        self.cfg, self.run)
+            cross = encdec_mod.compute_cross_kv(params, enc_out, self.ctx,
+                                                self.cfg)
+            if into is None:
+                caches["cross"] = cross
+            else:
+                for name, kv in cross.items():
+                    for k, t in kv.items():
+                        caches["cross"][name][k].copy_(t)
+        return caches
+
+    def decode_step(self, params: dict, caches: dict, token: torch.Tensor,
+                    pos: torch.Tensor, embeds: Optional[torch.Tensor] = None):
+        """Token step(s) against the dense cache: ``token`` [B, s] at
+        positions ``pos ..`` (s = 1 decode, s > 1 a prefill into the
+        cache); ``pos`` a 0-d integer tensor on the device (the step reads
+        it on the device only); ``embeds`` [B, s, d] stands for the token
+        embeddings (the vlm family's patch prefix).  The caches are written
+        in place.  Returns (logits [B, s, V], caches)."""
+        if self.cfg.family == "encdec":
+            return encdec_mod.encdec_decode_step(params, caches, token, pos,
+                                                 self.ctx, self.cfg, self.run)
+        if embeds is None:
+            x = embed_apply(params["embed"], token).to(self.compute_dtype)
+        else:
+            x = embeds.to(self.compute_dtype)
+        positions = pos + torch.arange(x.shape[1], dtype=pos.dtype,
+                                       device=x.device)
+        logits, _, _ = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
+                                    positions=positions, caches=caches,
+                                    cache_pos=pos)
+        return logits, caches
 
     def init_paged_cache(self, num_pages: int, page_tokens: int,
                          slots: int) -> dict:
@@ -167,7 +292,8 @@ class ReproModel:
         return self._trace_log
 
     def compiled_step(self, kind: str) -> "CompiledStep":
-        """The cached compiled form of the ``"paged"`` or ``"flat"`` step,
+        """The cached compiled form of the ``"decode"``, ``"paged"`` or
+        ``"flat"`` step,
         shared by every engine over this model (the JAX package's
         ``jit_step``)."""
         if not hasattr(self, "_steps"):
@@ -177,7 +303,8 @@ class ReproModel:
         return self._steps[kind]
 
 
-_ARG_NAMES = {"paged": ("token", "block_tables", "lens", "new_counts",
+_ARG_NAMES = {"decode": ("token", "pos", "embeds"),
+              "paged": ("token", "block_tables", "lens", "new_counts",
                         "logits_idx"),
               "flat": ("token", "block_tables", "row_ids", "q_pos",
                        "logits_idx")}
@@ -197,16 +324,17 @@ class GraphTable:
     """The CUDA graphs of one owner's compiled steps (an engine's, or a
     model-backed drafter's), by step signature, with the memory pool they
     were captured into and ``captures``, the graphs captured per step
-    kind.  Its graphs hold the addresses of one set of parameters and
-    pools, which the first capture binds; a call with others raises.
-    Dropping the table frees the graphs, their static buffers and their
-    pool."""
+    kind.  Its graphs hold the addresses of one set of parameters and of
+    one cache tree per set of cache shapes, which the first capture over
+    them binds; a call with others raises.  Dropping the table frees the
+    graphs, their static buffers and their pool."""
 
     def __init__(self):
         self.graphs = {}
         self.captures = {"decode": 0, "paged": 0, "flat": 0}
         self.pool = None
-        self.ptrs = None
+        self.param_ptrs = None
+        self.cache_ptrs = {}
 
 
 def _leaves(tree):
@@ -251,10 +379,13 @@ class CompiledStep:
     @property
     def fn(self):
         """The eager step method this step compiles."""
-        return {"paged": self.model.paged_decode_step,
+        return {"decode": self.model.decode_step,
+                "paged": self.model.paged_decode_step,
                 "flat": self.model.flat_decode_step}[self.kind]
 
     def signature(self, args, plan, caches=None) -> tuple:
+        """The kind, each input's (shape, dtype), the cache leaves' shapes
+        and the plan's shape and split count."""
         return (self.kind,
                 tuple(None if a is None else (tuple(a.shape), a.dtype)
                       for a in args),
@@ -268,23 +399,21 @@ class CompiledStep:
         """``args``: the step method's inputs after ``caches``; ``graphs``:
         the caller's graph table (needed on the card).  Returns (logits,
         caches) as the step method does."""
-        sig = self.signature(args, plan, caches)
-        if sig not in self._seen:
-            self._seen.add(sig)
-            self._count(args)
+        sig = self.count(args, plan, caches)
         if self.model.device.type == "cpu":
             extra = {} if plan is None else {"plan": plan}
             return self.fn(params, caches, *args, **extra)
         if graphs is None:
             raise ValueError("a compiled step on the card needs the caller's "
                              "GraphTable (graphs=)")
-        ptrs = (tuple(t.data_ptr() for t in _leaves(params)),
-                tuple(t.data_ptr() for t in _leaves(caches)))
-        if graphs.ptrs is None:
-            graphs.ptrs = ptrs
-        elif graphs.ptrs != ptrs:
+        param_ptrs = tuple(t.data_ptr() for t in _leaves(params))
+        cache_ptrs = tuple(t.data_ptr() for t in _leaves(caches))
+        if graphs.param_ptrs is None:
+            graphs.param_ptrs = param_ptrs
+        bound = graphs.cache_ptrs.setdefault(sig[2], cache_ptrs)
+        if graphs.param_ptrs != param_ptrs or bound != cache_ptrs:
             raise ValueError("this GraphTable's graphs were captured over "
-                             "other parameters or pools; each engine keeps "
+                             "other parameters or caches; each engine keeps "
                              "its own table")
         g = graphs.graphs.get(sig)
         if g is None:
@@ -301,11 +430,19 @@ class CompiledStep:
         kernels.add_counts(g.counts)
         return g.out, caches
 
-    def _count(self, args) -> None:
+    def count(self, args, plan=None, caches=None) -> tuple:
+        """Count a call's signature as a trace the first time it is seen,
+        and return it; a caller that runs :attr:`fn` itself counts its
+        calls here."""
+        sig = self.signature(args, plan, caches)
+        if sig in self._seen:
+            return sig
+        self._seen.add(sig)
         self.model.trace_counts[self.kind] += 1
         self.model.trace_log.append({"kind": self.kind, "args": {
             name: None if a is None else (tuple(a.shape), str(a.dtype))
             for name, a in zip(_ARG_NAMES[self.kind], args)}})
+        return sig
 
     def _capture(self, table: GraphTable, params, caches, args, plan):
         dev = self.model.device

@@ -6,7 +6,9 @@ parameters carry across leaf for leaf.  Where the JAX package scans over
 the groups, the port runs a Python loop over the leading dim (each leaf
 unbound once per call, so the gradient of the stack is one stack of the
 groups' gradients).  Only attention blocks with a dense MLP are ported so
-far, in the train/prefill mode (no cache) and the two paged serving modes.
+far (the dense and encdec families), in the train/prefill mode (no cache,
+causal or bidirectional), the dense-cache decode mode with whisper's
+cross-attention, and the two paged serving modes.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from repro_torch.models.common import (Stream, embed_init, maybe_pack,
 
 __all__ = ["pattern_period", "block_init", "block_apply", "layers_init",
            "layers_apply", "lm_init", "lm_apply", "logits_apply",
-           "init_paged_caches", "tree_map", "AUX_ZERO"]
+           "init_layer_caches", "init_paged_caches", "tree_map", "AUX_ZERO"]
 
 # the aux losses of the MoE family, zero for every other family
 AUX_ZERO = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
@@ -53,20 +55,27 @@ def pattern_period(cfg: ModelConfig) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense",) or cfg.moe \
+    if cfg.family not in ("dense", "encdec") or cfg.moe \
             or any(t != "attn" for t in cfg.layer_types):
         raise NotImplementedError(f"{cfg.name} ({cfg.family}, "
                                   f"{set(cfg.layer_types)}): only dense "
-                                  f"attention models are ported so far")
+                                  f"attention models (dense, encdec) are "
+                                  f"ported so far")
 
 
 def block_init(generator: torch.Generator, cfg: ModelConfig,
-               dtype: torch.dtype) -> dict:
-    return {"ln1": norm_init(cfg.norm, cfg.d_model, dtype),
-            "mixer": attention.attn_init(generator, cfg, dtype),
-            "ln2": norm_init(cfg.norm, cfg.d_model, dtype),
-            "ffn": mlp_mod.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg,
-                                    dtype)}
+               dtype: torch.dtype, *, cross: bool = False) -> dict:
+    """One block; ``cross`` adds whisper's decoder cross-attention (``ln_c``
+    and ``cross``).  The encdec family's MLPs carry biases."""
+    p = {"ln1": norm_init(cfg.norm, cfg.d_model, dtype),
+         "mixer": attention.attn_init(generator, cfg, dtype)}
+    if cross:
+        p["ln_c"] = norm_init(cfg.norm, cfg.d_model, dtype)
+        p["cross"] = attention.attn_init(generator, cfg, dtype)
+    p["ln2"] = norm_init(cfg.norm, cfg.d_model, dtype)
+    p["ffn"] = mlp_mod.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg, dtype,
+                                bias=cfg.attn_bias and cfg.family == "encdec")
+    return p
 
 
 def _as_stream_like(out: Stream, like: Stream, ctx: MatmulContext) -> Stream:
@@ -78,17 +87,41 @@ def _as_stream_like(out: Stream, like: Stream, ctx: MatmulContext) -> Stream:
 
 
 def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
-                positions: torch.Tensor, cache: Optional[dict] = None,
+                positions: torch.Tensor, causal: bool = True,
+                cache: Optional[dict] = None,
+                cache_pos: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                cross_kv: Optional[dict] = None,
                 paged: Optional[dict] = None):
     """Pre-norm residual block.  Returns (x', cache); no cache (None) in
-    the train/prefill mode."""
+    the train/prefill mode.  A block with ``cross`` attends over the
+    encoder: through ``enc_out`` (train/prefill: K/V projected here) or
+    the precomputed ``cross_kv`` {"k","v"} [B, S_enc, Hkv, dh] (decode)."""
     keep = isinstance(x, PackedArray)
     h = norm_apply(p["ln1"], x, cfg.norm)
     out, kv = attention.attn_apply(
-        p["mixer"], h, ctx, cfg, positions=positions,
-        kv_cache=None if cache is None else cache["kv"], keep_packed=keep,
-        paged=paged)
+        p["mixer"], h, ctx, cfg, positions=positions, causal=causal,
+        kv_cache=None if cache is None else cache["kv"], cache_pos=cache_pos,
+        keep_packed=keep, paged=paged)
     x = stream_add(x, _as_stream_like(out, x, ctx))
+    if "cross" in p:
+        hc = norm_apply(p["ln_c"], x, cfg.norm)
+        if cross_kv is not None:
+            q = maybe_unpack(linear_apply(p["cross"]["wq"], hc, ctx))
+            b, sq = q.shape[0], q.shape[1]
+            q = q.reshape(b, sq, cfg.n_heads, cfg.d_head)
+            if cfg.qk_norm:
+                q = norm_apply(p["cross"]["q_norm"], q, "rmsnorm")
+            o = attention.core_attention(
+                q, cross_kv["k"], cross_kv["v"], causal=False,
+                q_pos=torch.zeros((sq,), dtype=torch.int32, device=q.device))
+            out = linear_apply(p["cross"]["wo"], o.reshape(b, sq, -1), ctx,
+                               keep_packed=keep)
+        else:
+            out, _ = attention.attn_apply(
+                p["cross"], hc, ctx, cfg, positions=positions, causal=False,
+                kv_source=enc_out, keep_packed=keep)
+        x = stream_add(x, _as_stream_like(out, x, ctx))
     h2 = norm_apply(p["ln2"], x, cfg.norm)
     out2 = mlp_mod.mlp_apply(p["ffn"], h2, ctx, cfg, keep_packed=keep)
     x = stream_add(x, _as_stream_like(out2, x, ctx))
@@ -96,10 +129,11 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
 
 
 def layers_init(generator: torch.Generator, cfg: ModelConfig,
-                dtype: torch.dtype) -> dict:
+                dtype: torch.dtype, *, cross: bool = False) -> dict:
     """Stacked ``{"p<i>": block}`` groups, every leaf ``[G, ...]``."""
     period = pattern_period(cfg)
-    groups = [{f"p{i}": block_init(generator, cfg, dtype) for i in range(period)}
+    groups = [{f"p{i}": block_init(generator, cfg, dtype, cross=cross)
+               for i in range(period)}
               for _ in range(cfg.n_layers // period)]
 
     def stack(*leaves):
@@ -108,6 +142,20 @@ def layers_init(generator: torch.Generator, cfg: ModelConfig,
         return torch.stack(leaves)
 
     return stack(*groups)
+
+
+def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: torch.dtype, device) -> dict:
+    """Stacked ``[G, batch, max_len, Hkv, dh]`` dense decode caches, one
+    per pattern slot, zero."""
+    _check_ported(cfg)
+    period = pattern_period(cfg)
+    groups = cfg.n_layers // period
+    one = attention.init_kv_cache(cfg, batch, max_len, dtype, device)
+    return {f"p{i}": {"kv": {k: torch.zeros((groups, *v.shape), dtype=v.dtype,
+                                            device=device)
+                             for k, v in one.items()}}
+            for i in range(period)}
 
 
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_tokens: int,
@@ -140,24 +188,33 @@ def _group(tree, g: int):
 
 
 def _apply_group(x: Stream, gp: dict, ctx: MatmulContext, cfg: ModelConfig,
-                 positions: torch.Tensor) -> Stream:
+                 positions: torch.Tensor, causal: bool,
+                 enc_out: Optional[torch.Tensor]) -> Stream:
     for i in range(pattern_period(cfg)):
-        x, _ = block_apply(gp[f"p{i}"], x, ctx, cfg, positions=positions)
+        x, _ = block_apply(gp[f"p{i}"], x, ctx, cfg, positions=positions,
+                           causal=causal, enc_out=enc_out)
     return x
 
 
 def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
                  cfg: ModelConfig, *, positions: torch.Tensor,
-                 caches: Optional[dict] = None, paged: Optional[dict] = None,
-                 remat: bool = False) -> Stream:
+                 causal: bool = True, caches: Optional[dict] = None,
+                 cache_pos: Optional[torch.Tensor] = None,
+                 enc_out: Optional[torch.Tensor] = None,
+                 cross_kv: Optional[dict] = None,
+                 paged: Optional[dict] = None, remat: bool = False) -> Stream:
     """Run every group in order.
 
-    - train/prefill (``caches`` None): ``remat`` recomputes each group's
-      forward on the backward pass (``torch.utils.checkpoint``, where the
-      JAX package wraps its scan body in ``jax.checkpoint``), so only the
-      stream between groups is kept;
-    - paged steps: the pools in ``caches`` are written in place (each
-      group's slice is a view)."""
+    - train/prefill (``caches`` None): causal unless ``causal=False`` (an
+      encoder); ``enc_out`` feeds the cross-attention of a decoder's
+      blocks; ``remat`` recomputes each group's forward on the backward
+      pass (``torch.utils.checkpoint``, where the JAX package wraps its
+      scan body in ``jax.checkpoint``), so only the stream between groups
+      is kept;
+    - dense-cache decode (``caches`` from :func:`init_layer_caches`,
+      ``cache_pos`` a 0-d device tensor) and the paged steps: the caches
+      are written in place (each group's slice is a view); whisper's
+      decoder also reads the stacked ``[G, ...]`` ``cross_kv``."""
     period = pattern_period(cfg)
     if caches is None:
         groups = _unbind(params_groups)
@@ -165,16 +222,19 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
             gp = _group(groups, g)
             if remat:
                 x = checkpoint(_apply_group, x, gp, ctx, cfg, positions,
-                               use_reentrant=False)
+                               causal, enc_out, use_reentrant=False)
             else:
-                x = _apply_group(x, gp, ctx, cfg, positions)
+                x = _apply_group(x, gp, ctx, cfg, positions, causal, enc_out)
         return x
     for g in range(cfg.n_layers // period):
         for i in range(period):
             gp = tree_map(lambda t: t[g], params_groups[f"p{i}"])
             gc = tree_map(lambda t: t[g], caches[f"p{i}"])
-            x, _ = block_apply(gp, x, ctx, cfg, positions=positions, cache=gc,
-                               paged=paged)
+            gkv = (None if cross_kv is None
+                   else tree_map(lambda t: t[g], cross_kv[f"p{i}"]))
+            x, _ = block_apply(gp, x, ctx, cfg, positions=positions,
+                               causal=causal, cache=gc, cache_pos=cache_pos,
+                               cross_kv=gkv, paged=paged)
     return x
 
 
@@ -201,19 +261,21 @@ def logits_apply(params: dict, x: Stream, ctx: MatmulContext,
 
 def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
              cfg: ModelConfig, run: RunConfig, *, positions: torch.Tensor,
-             caches: Optional[dict] = None, paged: Optional[dict] = None,
+             caches: Optional[dict] = None,
+             cache_pos: Optional[torch.Tensor] = None,
+             paged: Optional[dict] = None,
              last_only: bool = False,
              logits_at: Optional[torch.Tensor] = None):
     """embeds: [B, S, D].  Returns (logits, caches, aux): logits [B, S, V];
     [B, 1, V] for the last position with ``last_only`` (serving prefill);
     or [B, K, V] at the per-row positions ``logits_at`` ([B] or [B, K]).
     ``caches`` is None in the train/prefill mode and the same object,
-    updated in place, in the paged modes; ``aux`` is :data:`AUX_ZERO` (the
+    updated in place, in the dense-cache (``cache_pos``) and paged modes; ``aux`` is :data:`AUX_ZERO` (the
     dense family has no aux loss).  ``run.remat`` recomputes each layer
     group's forward on the backward pass (train mode)."""
     x: Stream = maybe_pack(embeds, ctx)
     x = layers_apply(params["groups"], x, ctx, cfg, positions=positions,
-                     caches=caches, paged=paged,
+                     caches=caches, cache_pos=cache_pos, paged=paged,
                      remat=caches is None and run.remat)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     if logits_at is not None:

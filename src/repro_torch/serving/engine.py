@@ -59,6 +59,16 @@ Shed and cancelled requests are delivered by the next :meth:`Engine.step`.
 (:mod:`repro_torch.analysis.sanitize`) on every engine.  Models that are
 not pure attention raise instead of running something else.
 
+The static batch loop (:meth:`Engine.generate_static`, the JAX package's
+pre-continuous path) serves a batch of one shared prompt length in lock
+step through the model's dense-cache ``decode_step``: the prefill
+``[B, plen]`` and the decode ``[B, 1]`` are two signatures of the one
+compiled ``"decode"`` step, and on the card two graphs over one dense
+cache per batch shape that the engine's graph table keeps.  The
+encoder-decoder family (whisper) is served only so (:meth:`generate`
+takes that path for it), with its weights left unpacked, as in the JAX
+package; an engine over it refuses the continuous path's options.
+
 Telemetry (``telemetry=True``, :mod:`repro_torch.obs`) observes without
 taking part: request lifecycle marks, a ``device`` span around each model
 call (closed after the host copy of its logits, the step's one
@@ -90,12 +100,15 @@ from repro_torch.serving.kv_cache import (PagedKVPool, PoolError, copy_pages,
                                           prefill_view)
 from repro_torch.serving.faults import StallError
 from repro_torch.serving.prefix_cache import PrefixCache
-from repro_torch.serving.scheduler import AdmissionError, Request, Scheduler
+from repro_torch.serving.scheduler import (AdmissionError, Request, Scheduler,
+                                           finish_reason_for)
 from repro_torch.serving.speculative import Drafter, NgramDrafter, accept_tokens
 
 __all__ = ["Engine", "StallError"]
 
 WATCHDOG_STEPS = 64          # the default of Engine(watchdog_steps=)
+# the families served only by the static batch loop (generate_static)
+_STATIC_FAMILIES = ("encdec", "vlm")
 
 
 def _page_copier(caches, device):
@@ -142,8 +155,28 @@ class Engine:
         # is live, and only there (repro_torch.obs.attrib)
         self.cost_model = None
         params = tree_map(lambda t: t.to(self.device), params)
-        # prepack=False packs every weight inside every step instead
-        self.params = prepack_params(params, model.ctx) if prepack else params
+        # prepack=False packs every weight inside every step instead; the
+        # encdec family is never prepacked, as in the JAX package
+        self.params = (prepack_params(params, model.ctx)
+                       if prepack and model.cfg.family != "encdec" else params)
+        # the static batch loop: prefill [B, plen] and decode [B, 1] are two
+        # signatures of the model's one compiled "decode" step
+        self._graphs = GraphTable()
+        self._decode_step = model.compiled_step("decode")
+        self._static_bufs = {}       # (B[, frames]) -> its dense cache tree
+        self._next_rid = 0
+        self.continuous = model.cfg.family not in _STATIC_FAMILIES
+        if not self.continuous:
+            fam = model.cfg.family
+            for bad, what in ((flat, "the flat token-level step"),
+                              (chunk_tokens is not None, "chunked prefill"),
+                              (spec_tokens is not None or drafter is not None,
+                               "speculative decode"),
+                              (prefix_cache, "the prefix cache")):
+                if bad:
+                    raise ValueError(f"{fam} serves through generate_static; "
+                                     f"{what} needs the continuous paged path")
+            return
 
         layout = model.ctx.layout(model.compute_dtype)
         self._bucket = layout.m_r
@@ -231,7 +264,6 @@ class Engine:
             self.drafter.obs = self.obs
         elif drafter is not None:
             raise ValueError("a drafter needs spec_tokens set")
-        self._next_rid = 0
         self._no_progress_steps = 0
         self._steps = 0
         self._step_time = 0.0
@@ -251,7 +283,6 @@ class Engine:
         self._decode_rows = 0        # decode row-steps
         self._spec_trims = 0         # draft lists trimmed to the held pages
         self._rollback_pages = 0     # page references dropped by rollbacks
-        self._graphs = GraphTable()
         self._paged_step = model.compiled_step("paged")
         self._flat_step = model.compiled_step("flat") if self.flat else None
         # the runtime sanitizer checks every step's writes on the host
@@ -276,7 +307,9 @@ class Engine:
         wait from ``arrival``, on the clock of ``step(now=...)``.  An add
         the bounded queue sheds finishes as ``"rejected"``, delivered by
         the next step; a request that could never fit raises
-        :class:`~repro_torch.serving.scheduler.AdmissionError`."""
+        :class:`~repro_torch.serving.scheduler.AdmissionError`.  A static
+        family's engine refuses: it serves through :meth:`generate_static`."""
+        self._need_continuous("add_request")
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=np.asarray(tokens, np.int32).reshape(-1),
@@ -305,6 +338,11 @@ class Engine:
         self._finished_oob.append(req)
         return True
 
+    def _need_continuous(self, what: str) -> None:
+        if not self.continuous:
+            raise ValueError(f"{what}: {self.model.cfg.family} serves through "
+                             f"generate_static")
+
     @property
     def num_preemptions(self) -> int:
         return self.scheduler.num_preemptions
@@ -318,6 +356,7 @@ class Engine:
         is the model's program count per step kind (no growth after
         :meth:`warmup` is the no-compile contract); ``captures`` the CUDA
         graphs this engine captured per kind (zero on the CPU)."""
+        self._need_continuous("stats")
         steps = max(1, self._steps)
         out = {
             "steps": self._steps,
@@ -417,7 +456,7 @@ class Engine:
         obs = self.obs
         out = {
             "enabled": obs.enabled,
-            "components": self.stats(),
+            "components": self.stats() if self.continuous else {},
             "metrics": (obs.registry.snapshot()
                         if obs.registry is not None else {}),
             "latency": obs.latency_summary() if obs.enabled else {},
@@ -1002,6 +1041,7 @@ class Engine:
         untouched.  With telemetry on it then builds the step cost model
         (:func:`repro_torch.obs.attrib.build_cost_model`) — here and only
         here, in closed form, calling no step."""
+        self._need_continuous("warmup")
         if self.scheduler.has_work or self._finished_oob:
             raise RuntimeError("warmup() needs an idle engine")
         if self.prefix_cache is not None:
@@ -1056,11 +1096,28 @@ class Engine:
                  seed: int = 0, eos_id: Optional[int] = None,
                  return_reasons: bool = False,
                  deadline_s: Optional[float] = None):
-        """batch: {"tokens": [B, L]}.  Returns [B, max_new] generated tokens,
-        and the finish reasons ("eos", "length", "timeout", "rejected",
-        "error") with ``return_reasons=True``.  Rows that finish early, by
-        eos, timeout, shed or quarantine, are padded with ``eos_id`` (or
-        0).  ``deadline_s`` bounds each row's lifetime on a real clock."""
+        """batch: {"tokens": [B, L]} (encdec: and "frames" [B, S_enc, d]).
+        Returns [B, max_new] generated tokens, and the finish reasons
+        ("eos", "length", "timeout", "rejected", "error") with
+        ``return_reasons=True``.  Rows that finish early, by eos, timeout,
+        shed or quarantine, are padded with ``eos_id`` (or 0).
+        ``deadline_s`` bounds each row's lifetime on a real clock.  A
+        static family runs :meth:`generate_static` and truncates each row
+        at its eos afterwards, by the continuous path's rule
+        (:func:`~repro_torch.serving.scheduler.finish_reason_for`)."""
+        if not self.continuous:
+            if deadline_s is not None:
+                raise ValueError("deadline_s needs the continuous engine (the "
+                                 "static path decodes in lock step, with no "
+                                 "per-request lifecycle)")
+            out = self.generate_static(batch, max_new, greedy=greedy, seed=seed)
+            reasons = ["length"] * out.shape[0]
+            if eos_id is not None:
+                for i in range(out.shape[0]):
+                    kept, reasons[i] = finish_reason_for(out[i], max_new, eos_id)
+                    if reasons[i] == "eos":
+                        out[i, kept - 1:] = eos_id
+            return (out, reasons) if return_reasons else out
         if self.scheduler.has_work or self._finished_oob:
             raise RuntimeError("generate() needs an idle engine")
         prompts = np.asarray(batch["tokens"])
@@ -1085,3 +1142,60 @@ class Engine:
             reasons.append(by_rid[rid].finish_reason)
         out = np.asarray(rows, np.int32)
         return (out, reasons) if return_reasons else out
+
+    # ------------------------------------------------------------------
+    # the static batch loop
+    # ------------------------------------------------------------------
+    def _static_caches(self, batch: dict) -> dict:
+        """The dense caches of a static batch, zeroed and (encdec) holding
+        the cross K/V of this batch's frames: one cache tree per batch
+        shape, kept in ``_static_bufs`` (the graphs bind its addresses)."""
+        m = self.model
+        key = (np.shape(batch["tokens"])[0],)
+        if m.cfg.family == "encdec":
+            key += (np.shape(batch["frames"])[1],)
+        caches = self._static_bufs.get(key)
+        if caches is None:
+            caches = self._static_bufs[key] = m.prefill_cache(self.params,
+                                                              batch)
+            return caches
+        return m.prefill_cache(self.params, batch, into=caches)
+
+    def generate_static(self, batch: dict, max_new: int, *,
+                        greedy: bool = True, seed: int = 0) -> np.ndarray:
+        """The static batch loop: every row shares one prompt length; the
+        prompts ``batch["tokens"]`` [B, plen] are prefilled in one call of
+        the ``"decode"`` step at position 0, then every row decodes in lock
+        step to ``max_new`` tokens (no eos stop).  The first token is the
+        argmax even when ``greedy=False``, as in the JAX package; sampled
+        picks split one key per step (:func:`sampling.split`) and draw the
+        whole batch from it (:func:`sampling.categorical`).  A greedy loop
+        keeps its tokens on the device, so no step waits for the host.
+        Returns [B, max_new] int32."""
+        prompts = torch.as_tensor(np.asarray(batch["tokens"], np.int32))
+        plen = prompts.shape[1]
+        caches = self._static_caches(batch)
+
+        def step(tok, pos):
+            # the position is filled on the device: no copy from the host
+            pos = torch.full((), pos, dtype=torch.int32, device=self.device)
+            logits, _ = self._decode_step(self.params, caches, tok, pos, None,
+                                          graphs=self._graphs)
+            return logits[:, -1]
+
+        def argmax(row):
+            return torch.argmax(row, dim=-1).to(torch.int32)[:, None]
+
+        tok = argmax(step(prompts, 0))
+        out = [tok]
+        key = sampling.prng_key(seed)
+        for i in range(max_new - 1):
+            row = step(tok, plen + i)
+            if greedy:
+                tok = argmax(row)
+            else:
+                key, sub = sampling.split(key)
+                tok = torch.from_numpy(sampling.categorical(
+                    sub, row.float().cpu().numpy()).astype(np.int32)[:, None])
+            out.append(tok)
+        return torch.cat([t.to(self.device) for t in out], dim=1).cpu().numpy()

@@ -16,14 +16,19 @@ float32 ``log``, which differs from XLA's by an ulp on some inputs: the
 noise agrees to 2 ulp, and a pick can differ only where the perturbed
 row's top two are closer than that.  The pick stays on the host in
 float32, so the card and the CPU differ only by their logits.
+
+The static batch loop draws differently (``Engine.generate_static``): one
+key split per step, ``key, sub = split(key)``, and one
+``categorical(sub, logits[B, V])`` over the whole batch, whose noise is
+the ``B * V`` uniforms of ``sub`` in row-major order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["prng_key", "fold_in", "random_bits", "uniform", "gumbel",
-           "pick_key", "sample"]
+__all__ = ["prng_key", "fold_in", "split", "random_bits", "uniform", "gumbel",
+           "pick_key", "sample", "categorical"]
 
 _U32 = np.uint32
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -59,6 +64,16 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
         y0, y1 = _threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
                                np.array([int(data) & 0xFFFFFFFF], np.uint32))
     return np.array([y0[0], y1[0]], np.uint32)
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` with partitionable counters: key ``i``
+    is the hash of the counter pair ``(0, i)``, as :func:`fold_in` of
+    ``i``.  Returns [num, 2] uint32."""
+    with np.errstate(over="ignore"):
+        y0, y1 = _threefry2x32(key[0], key[1], np.zeros(num, np.uint32),
+                               np.arange(num, dtype=np.uint32))
+    return np.stack([y0, y1], axis=1)
 
 
 def random_bits(key: np.ndarray, n: int) -> np.ndarray:
@@ -98,3 +113,13 @@ def sample(row: np.ndarray, temperature: float, key: np.ndarray) -> int:
     if temperature != 1.0:
         row = row / np.float32(temperature)
     return int(np.argmax(gumbel(key, row.shape[0]) + row))
+
+
+def categorical(key: np.ndarray, logits: np.ndarray) -> np.ndarray:
+    """``jax.random.categorical(key, logits)`` over the last axis of float32
+    ``logits`` [..., V]: ``argmax(logits + gumbel)``, the noise the
+    ``logits.size`` draws of ``key`` in row-major order.  Returns the
+    picks [...] (int64)."""
+    logits = np.asarray(logits, np.float32)
+    noise = gumbel(key, logits.size).reshape(logits.shape)
+    return np.argmax(noise + logits, axis=-1)

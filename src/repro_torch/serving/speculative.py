@@ -22,12 +22,17 @@ Two drafters:
 - :class:`NgramDrafter`: prompt lookup on the request's own context (no
   model, no device work);
 - :class:`DraftModelDrafter`: a smaller model with the target's vocabulary,
-  drafting greedily from its own paged cache, one page per engine slot
-  sized to hold a whole stream; every decoding row's catch-up rides one
-  ``[slots, w]`` call of the draft model's paged step (``w`` a power of
-  two), then each further draft position one ``[slots, 1]`` call.  On the
-  card these are the draft model's CUDA graphs, held in the drafter's own
-  graph table and captured by :meth:`DraftModelDrafter.warmup`.
+  drafting greedily.  Attached to an engine, it drafts from its own paged
+  cache, one page per engine slot sized to hold a whole stream; every
+  decoding row's catch-up rides one ``[slots, w]`` call of the draft
+  model's paged step (``w`` a power of two), then each further draft
+  position one ``[slots, 1]`` call.  On the card these are the draft
+  model's CUDA graphs, held in the drafter's own graph table and captured
+  by :meth:`DraftModelDrafter.warmup`.  Standalone (:meth:`propose`), it
+  keeps one dense cache per request and feeds the catch-up in
+  power-of-two pieces through the dense ``decode`` step, which runs
+  eagerly on the card: each request's cache is its own tensor, and a
+  graph binds one cache's addresses.
 
 The engine rolls rejected KV back by truncating the row's block table
 (:meth:`~repro_torch.serving.kv_cache.SequencePages.truncate`).
@@ -169,8 +174,10 @@ class DraftModelDrafter(Drafter):
     ``round_up(max_len + k + 1, m_r)`` tokens, so its paged step attends
     through ``core_attention``.
 
-    The standalone :meth:`propose` (the JAX package runs it through the
-    dense ``decode`` step, a non-paged mode) is not ported yet."""
+    The standalone :meth:`propose` (an unattached drafter) keeps a dense
+    ``[1, max_len]`` cache per request and runs the model's ``"decode"``
+    step eagerly (the kernels launch and are counted; no graph, since
+    every request's cache lies elsewhere)."""
 
     def __init__(self, model, params):
         if any(t != "attn" for t in model.cfg.layer_types):
@@ -181,9 +188,10 @@ class DraftModelDrafter(Drafter):
         self.params = prepack_params(params, model.ctx)
         self.max_len = model.shape.seq_len
         self._graphs = GraphTable()
+        self._step = model.compiled_step("decode")
         self._paged = None
         self._caches = None
-        self._state: dict = {}       # rid -> {ctx_len, spec}
+        self._state: dict = {}       # rid -> {ctx_len, spec[, caches]}
         self._rows: dict = {}        # rid -> draft row
         self._lru: dict = {}         # rid -> last propose tick
         self._tick = 0
@@ -220,12 +228,24 @@ class DraftModelDrafter(Drafter):
                 return out
             w *= 2
 
+    def _widths(self) -> List[int]:
+        """The standalone catch-up widths: powers of two up to ``max_len``."""
+        w, out = 1, []
+        while w <= self.max_len:
+            out.append(w)
+            w *= 2
+        return out
+
     def warmup(self) -> None:
-        """Make every ``[slots, w]`` catch-up program (``w = 1`` is the
-        draft step); every row inert, so every write goes to the trash
-        page."""
+        """Attached: make every ``[slots, w]`` catch-up program (``w = 1``
+        is the draft step); every row inert, so every write goes to the
+        trash page.  Standalone: every dense ``[1, w]`` program, against a
+        scratch cache."""
         if self._paged is None:
-            raise RuntimeError("warmup() of a drafter that is not attached")
+            for w in self._widths():
+                self._decode(self.model.init_cache(1, self.max_len),
+                             np.zeros((1, w), np.int32), 0)
+            return
         self._ensure_caches()
         zb = torch.zeros((self._slots,), dtype=torch.int32)
         btz = torch.zeros((self._slots, 1), dtype=torch.int32)
@@ -252,12 +272,60 @@ class DraftModelDrafter(Drafter):
         self._rows[rid] = row
         return row
 
+    def _decode(self, caches: dict, token: np.ndarray, pos: int) -> np.ndarray:
+        """One eager call of the draft model's dense ``decode`` step (its
+        signature counted as the step's trace); float32 logits [1, s, V]
+        on the host."""
+        dev = self.model.device
+        args = (torch.from_numpy(token).to(dev),
+                torch.tensor(pos, dtype=torch.int32, device=dev), None)
+        self._step.count(args, caches=caches)
+        logits, _ = self._step.fn(self.params, caches, *args)
+        self.draft_steps += 1
+        return logits.float().cpu().numpy()
+
     def propose(self, req: Request, k: int) -> List[int]:
-        raise NotImplementedError(
-            "the standalone DraftModelDrafter.propose runs the dense decode "
-            "step, a non-paged mode not ported yet; attach the drafter to an "
-            "Engine(spec_tokens=k, drafter=...) to draft through its paged "
-            "step")
+        """``k`` greedy drafts for ``req`` from its own dense cache: the
+        speculated positions of the last propose survive while their tokens
+        match the committed context; the unseen context is fed in
+        power-of-two pieces (one token early when the cache already covers
+        it: the dropped logits are recomputed by an identical overwrite);
+        the last draft's KV is never written."""
+        ctx = request_context(req)
+        size = int(ctx.shape[0])
+        st = self._state.get(req.rid)
+        if st is None:
+            st = {"caches": self.model.init_cache(1, self.max_len),
+                  "ctx_len": 0, "spec": np.zeros((0,), np.int32)}
+            self._state[req.rid] = st
+        base, spec = st["ctx_len"], st["spec"]
+        m = 0
+        while (m < spec.shape[0] and base + m < size
+               and spec[m] == ctx[base + m]):
+            m += 1
+        start = min(base + m, size - 1)
+        caches, pos, i = st["caches"], start, start
+        logits = None
+        while i < size:                      # catch-up, binary decomposition
+            w = 1
+            while w * 2 <= size - i:
+                w *= 2
+            logits = self._decode(caches, ctx[None, i:i + w], pos)
+            pos += w
+            i += w
+        drafted: List[int] = []
+        for j in range(k):
+            t = int(np.argmax(logits[0, -1]))
+            drafted.append(t)
+            if j == k - 1:
+                break                # the last draft's KV is never needed
+            logits = self._decode(caches, np.asarray([[t]], np.int32), pos)
+            pos += 1
+        st["ctx_len"] = size
+        # positions written past the committed context: all drafts but the
+        # last
+        st["spec"] = np.asarray(drafted[:-1], np.int32)
+        return drafted
 
     def propose_all(self, jobs: List[Tuple[Request, int]]) -> dict:
         if self._paged is None or not jobs:

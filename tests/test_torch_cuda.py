@@ -3,7 +3,10 @@ small shapes (chip_smoke.py repeats this at the full SmolLM2 widths), and
 the CUDA graphs of the three serving step families on SmolLM2 cut to 2
 layers:
 replay bit for bit the eager step, with the same launch counts, and no
-capture during a drain after warmup.  Training: mmt4d's gradient kernels
+capture during a drain after warmup; the static batch loop's ``"decode"``
+step (SmolLM2's and whisper-small's widths, cut in depth) likewise, with
+whisper's biased tanh-GELU mmt4d at its full widths.  Training: mmt4d's
+gradient kernels
 (dgrad, wgrad with the fused bias gradient and activation) against their
 plain versions, the autograd Functions (mmt4d, pack, unpack, linear) on the
 card against the CPU, and one float32 train step of reduced SmolLM2, card
@@ -785,3 +788,94 @@ def test_train_step_card_equals_cpu(gen):
         off += int((d > 1e-6).sum())
         total += d.numel()
     assert off <= total // 10_000
+
+
+# ---------------------------------------------------------------------------
+# the static batch loop on the card: the dense-cache "decode" step
+# ---------------------------------------------------------------------------
+
+def _static_engine(arch, dtype):
+    """Each model's full widths cut to 2 layers (whisper: 2 + 2) and a
+    512-token vocabulary, seq_len 128, batch 3."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, vocab=512,
+                              encoder_layers=2 if arch == "whisper-small" else 0)
+    name = str(dtype)[6:]
+    model = build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
+                        ShapeSpec("serve", 128, 3, "decode"), device="cuda")
+    eng = Engine(model, model.init(torch.Generator().manual_seed(0)),
+                 device="cuda", max_slots=3)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, 512, (3, 21)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((3, model.enc_len, cfg.d_model)
+                                              ).astype(np.float32)
+    return eng, batch
+
+
+@pytest.mark.parametrize("arch", ["smollm2-135m", "whisper-small"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_static_decode_replay_equals_eager_step(gen, arch, dtype):
+    """A static batch captures the prefill and decode graphs on its first
+    call and nothing on its second (the same tokens); then each graph's
+    replay equals the model's eager decode_step bit for bit on the same
+    inputs and cache, adding to every wrapper count what the eager call
+    adds; and an eager step reads nothing back to the host."""
+    from repro_torch import kernels
+    eng, batch = _static_engine(arch, dtype)
+    first = eng.generate_static(batch, 6)
+    made = (dict(eng.model.trace_counts), dict(eng._graphs.captures))
+    assert made[0]["decode"] == made[1]["decode"] == 2
+    np.testing.assert_array_equal(eng.generate_static(batch, 6), first)
+    assert (dict(eng.model.trace_counts), dict(eng._graphs.captures)) == made
+    [caches] = eng._static_bufs.values()
+    step = eng._decode_step
+    for tok, p in ((torch.from_numpy(batch["tokens"]), 0),
+                   (torch.from_numpy(first[:, -1:].copy()), 40)):
+        pos = torch.full((), p, dtype=torch.int32, device="cuda")
+        c0 = kernels.counters()
+        got, _ = step(eng.params, caches, tok, pos, None, graphs=eng._graphs)
+        got = got.clone()
+        c1 = kernels.counters()
+        want, _ = step.fn(eng.params, caches, tok.cuda(), pos, None)
+        c2 = kernels.counters()
+        assert torch.equal(got, want)
+        assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
+        assert c1["mmt4d.bias_activation"] - c0["mmt4d.bias_activation"] == \
+            (2 if arch == "whisper-small" else 0)
+    assert dict(eng._graphs.captures) == made[1]
+    tok = torch.from_numpy(first[:, -1:].copy()).cuda()
+    pos = torch.full((), 41, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.model.decode_step(eng.params, caches, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [4, 1024], ids=["decode", "encoder"])
+def test_whisper_bias_gelu_mmt4d_full_width(gen, dtype, tol, m):
+    """whisper-small's MLP up-projection (d 768 -> d_ff 3072, bias, tanh
+    GELU) at decode and over its encoder's 4 x 256 frames, through
+    ``linear_apply`` (the weight packed on the call, the result kept
+    packed, as the block runs it), against the plain version; counted as a
+    bias + activation launch."""
+    from repro_torch import kernels
+    from repro_torch.core.linear import MatmulContext, linear_apply
+    ctx = MatmulContext(hw=query("cuda"))
+    x = _rand(gen, (m, 768), dtype)
+    params = {"w": _rand(gen, (768, 3072), dtype) * 768 ** -0.5,
+              "b": _rand(gen, (3072,), dtype) * 0.1}
+    n0 = kernels.counters()["mmt4d.bias_activation"]
+    got = linear_apply(params, x, ctx, activation="gelu", keep_packed=True)
+    assert kernels.counters()["mmt4d.bias_activation"] == n0 + 1
+    want = linear_apply({k: v.cpu() for k, v in params.items()}, x.cpu(),
+                        MatmulContext(hw=query("cuda")), activation="gelu",
+                        keep_packed=True)
+    assert _close(got.unpack().cpu(), want.unpack(), tol)

@@ -9,10 +9,11 @@ port's standing rules.
 - No module of the port, and not chip_smoke.py, imports jax or the JAX
   package (an AST scan).
 - ``build_model`` and ``Engine`` default to the card and raise without
-  one unless ``device="cpu"`` is passed, sampled, prefix-cache and
-  speculative engines included; those run on the CPU; the one path still
-  refused is the standalone ``DraftModelDrafter.propose`` (the dense
-  decode step), and ``flat=True`` without ``chunk_tokens`` raises.
+  one unless ``device="cpu"`` is passed, sampled, prefix-cache,
+  speculative and static (whisper) engines included; those run on the CPU,
+  as does the standalone ``DraftModelDrafter.propose`` (the dense decode
+  step) over a CPU model, and ``flat=True`` without ``chunk_tokens``
+  raises.
 """
 
 import ast
@@ -129,9 +130,21 @@ def test_entry_points_need_a_card_unless_cpu(models, monkeypatch):
         assert len(req.out_tokens) == 3 and eng.pool.num_used == 0
     from repro_torch.serving.scheduler import Request
     from repro_torch.serving.speculative import DraftModelDrafter
-    with pytest.raises(NotImplementedError, match="non-paged"):
-        DraftModelDrafter(m, params).propose(
-            Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=4), 2)
+    drafts = DraftModelDrafter(m, params).propose(
+        Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=4), 2)
+    assert len(drafts) == 2 and all(0 <= t < cfg.vocab for t in drafts)
+    wcfg = reduced_config(get_config("whisper-small"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(wcfg, RunConfig(**F32), shape)
+    wm = build_model(wcfg, RunConfig(**F32), shape, device="cpu")
+    wparams = wm.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(wm, wparams)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "whisper-small", "--reduced"])
+    batch = {"tokens": np.arange(8, dtype=np.int32).reshape(2, 4),
+             "frames": np.zeros((2, wm.enc_len, wcfg.d_model), np.float32)}
+    assert Engine(wm, wparams, device="cpu").generate(batch, 3).shape == (2, 3)
     with pytest.raises(ValueError, match="flat=True needs chunk_tokens"):
         Engine(m, params, device="cpu", max_slots=3, flat=True)
 

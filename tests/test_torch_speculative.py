@@ -13,7 +13,8 @@
   verify rolls pages back) leave the tokens and the pool unchanged;
   speculation under preemption folds only accepted tokens.
 - Constructor checks, and the standalone draft-model ``propose`` (the
-  dense decode step) refused until the non-paged modes are ported.
+  dense decode step) drafting from its own dense cache (its parity with
+  the reference is in tests/test_torch_static.py).
 """
 
 import jax
@@ -266,5 +267,7 @@ def test_spec_constructor_checks(models):
     d = spec.DraftModelDrafter(dm, dparams)
     r = sched.Request(rid=0, prompt=np.asarray([5, 9, 2, 7], np.int32), max_new=10)
     r.out_tokens = [3]
-    with pytest.raises(NotImplementedError, match="non-paged"):
-        d.propose(r, 2)
+    jr = jsched.Request(rid=0, prompt=np.asarray([5, 9, 2, 7], np.int32),
+                        max_new=10)
+    jr.out_tokens = [3]
+    assert d.propose(r, 2) == jspec.DraftModelDrafter(djm, djparams).propose(jr, 2)
