@@ -119,11 +119,20 @@ warmup, and SmolLM2-135M and whisper-small through the static batch loop:
      TB/s); one f32 step's loss
      and every gradient leaf, SmolLM2 at full width cut to 2 layers (seq
      128, batch 2), card vs CPU plain path; then bf16 at full depth, seq
-     1024 (chunked_attention), batch 4, through Trainer on SyntheticLM: 20
-     steps (every loss finite, the mean of the last 5 below the first 5's),
+     1024 (chunked_attention), batch 4, through Trainer on SyntheticLM, its
+     compiled step capturing one CUDA graph on the first step and replaying
+     it after (one capture, checked): 20 steps (every loss finite, the mean
+     of the last 5 below the first 5's),
      5 with 8-bit AdamW and gradient compression, 5 with remat (its losses
      the first 5 steps' bit for bit), each printing ms per step, tokens/s,
-     peak memory and launches per step, checked per kernel; then a crash
+     the first step's ms and the capture's seconds, peak memory and
+     launches per step, checked per kernel; then replay = eager bit for
+     bit (loss, grad_norm, every parameter and optimizer-state leaf) over 5
+     steps in bf16 (plain, 8-bit + compression, remat, microbatch=2) and f32
+     (2 layers, seq 128, batch 2), each first eager step under
+     set_sync_debug_mode("error"); the launcher with --profile over the
+     replays (the trace's port launches must equal the wrappers' counts);
+     then a crash
      injected after a checkpoint and the resume, whose history and final
      parameters and optimizer state equal an uninterrupted run's bit for bit;
  13. the kernels JSON line (launches from the main path of each kernel: the
@@ -2037,8 +2046,9 @@ def train_run(model, run, steps, label, ckpt_dir=None, fail_at=None,
               total_steps=None, ckpt_every=50) -> dict:
     """``Trainer.fit`` on SyntheticLM with the wrapper counts set to 0 just
     before and read just after (checked per step), each step timed by the
-    trainer (to its loss read, which waits for the step); peak device
-    memory from a reset."""
+    trainer (to its loss read, which waits for the step); the first step
+    runs eagerly and captures the step's graph, every later one replays it
+    (exactly one capture, checked); peak device memory from a reset."""
     from repro_torch import kernels
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.training.trainer import Trainer
@@ -2063,23 +2073,94 @@ def train_run(model, run, steps, label, ckpt_dir=None, fail_at=None,
         if launches[k] != per * n:
             raise AssertionError(f"{label} {k}: {launches[k]} launches over {n} "
                                  f"steps, expected {per} a step")
+    if tr.step_fn.captures != 1:
+        raise AssertionError(f"{label}: {tr.step_fn.captures} captures over {n} "
+                             f"steps of one signature, expected 1")
     steady = sorted(times[1:] or times)
     ms = steady[len(steady) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+    capture_s = tr.step_fn.capture_seconds
     print(f"  {label}: {n} steps, loss {hist[0]:.4f} -> {hist[-1]:.4f}; "
-          f"{ms:.1f} ms per step (median after the first, which took "
-          f"{times[0]:.1f}), {tokens / ms * 1e3:.0f} tokens/s, peak "
-          f"{peak:.2f} GiB; launches per step "
-          f"{ {k: launches[k] // max(1, n) for k in want} }")
+          f"{ms:.1f} ms per step (median of the replays after the first, "
+          f"which took {times[0]:.1f}: the eager step and its capture of "
+          f"{capture_s:.3f} s), {tokens / ms * 1e3:.0f} tokens/s, peak "
+          f"{peak:.2f} GiB allocated ({peak_reserved:.2f} reserved); 1 capture; "
+          f"launches per step {dict((k, launches[k] // max(1, n)) for k in want)}")
     return {"state": state, "history": hist, "steps": n, "ms_per_step": ms,
-            "first_step_ms": times[0], "tokens_per_s": tokens / ms * 1e3,
-            "peak_gib": peak, "launches": launches}
+            "step_ms": list(times), "first_step_ms": times[0], "capture_s": capture_s,
+            "tokens_per_s": tokens / ms * 1e3, "peak_gib": peak,
+            "peak_reserved_gib": peak_reserved, "launches": launches}
+
+
+def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Equal bit for bit (a NaN equals a NaN of the same bits)."""
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+
+
+def train_replay_check(model, run, steps, label) -> dict:
+    """Replay = eager, bit for bit: two states from one init, ``steps``
+    steps each on the same batches, one through ``CompiledTrainStep.fn``
+    eagerly on the card (its first step under
+    ``set_sync_debug_mode("error")``: no host sync), the other through the
+    trainer's compiled step (eager and captured on the first call, replayed
+    after).  The loss and grad_norm of every step and, after the last,
+    every parameter and optimizer-state leaf (the error buffer included)
+    must agree bit for bit, with exactly one capture.  Each side's ms per
+    step (host clock to a synchronise) is printed."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.trainer import Trainer
+    data = SyntheticLM(model.cfg, model.shape, seed=0)
+    tr = Trainer(model, data, run, total_steps=20, log_fn=lambda m: print("   ", m))
+    step = tr.step_fn
+    eager = tr.init_state(torch.Generator().manual_seed(0))
+    graph = tr.init_state(torch.Generator().manual_seed(0))
+    ms = {"eager": [], "graph": []}
+    for i in range(steps):
+        batch = data.batch_at(i)
+        on_card = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+        scalars = tr.optimizer.scalars(eager.step, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if i == 0 else "default")
+        try:
+            eager, em = step.fn(eager, on_card, scalars)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        graph, gm = step(graph, batch)
+        torch.cuda.synchronize()
+        ms["eager"].append((t1 - t0) * 1e3)
+        ms["graph"].append((time.perf_counter() - t1) * 1e3)
+        for k in ("loss", "grad_norm"):
+            if not bits_equal(em[k], gm[k]):
+                raise AssertionError(f"replay {label} step {i}: {k} eager "
+                                     f"{em[k].item()} graph {gm[k].item()}")
+    a = leaves({"p": eager.params, "o": eager.opt_state})
+    b = leaves({"p": graph.params, "o": graph.opt_state})
+    differ = sum(not bits_equal(x, y) for x, y in zip(a, b, strict=True))
+    if differ or step.captures != 1:
+        raise AssertionError(f"replay {label}: {differ} of {len(a)} state leaves "
+                             f"differ, {step.captures} captures")
+    med = {k: sorted(v[1:])[len(v[1:]) // 2] for k, v in ms.items()}
+    print(f"  {label}: {steps} steps, loss and grad_norm of each, {len(a)} state "
+          f"leaves after the last ({sorted(eager.opt_state)}) equal bit for bit; "
+          f"1 capture ({step.capture_seconds:.3f} s); the first eager step made "
+          f"no host sync; ms per step eager {med['eager']:.1f}, replay "
+          f"{med['graph']:.1f} (medians after the first)")
+    return {"steps": steps, "leaves": len(a), "capture_s": step.capture_seconds,
+            "eager_ms": ms["eager"], "graph_ms": ms["graph"], "equal": True}
 
 
 def training_phase(cfg, card) -> tuple:
-    """f32 card vs CPU, then bf16 full depth (20 steps, then 8-bit AdamW
-    with compression, then remat), then a crash and resume bit for bit."""
+    """f32 card vs CPU, then bf16 full depth through the compiled step (20
+    steps, then 8-bit AdamW with compression, then remat), replay = eager
+    in five configurations, the launcher with --profile, then a crash and
+    resume bit for bit."""
     import dataclasses as dc
     import gc
     import shutil
@@ -2112,6 +2193,24 @@ def training_phase(cfg, card) -> tuple:
         by_path[f"train {key}"] = r.pop("launches")
         out[key] = r
         gc.collect()
+    print(f"training, replay = eager bit for bit: 5 steps each through the "
+          f"compiled step's eager fn and through its graph, from one init "
+          f"({card})")
+    f32 = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False,
+                    warmup_steps=1)
+    out["replay"] = {}
+    for key, c, run, shp in (
+            ("bf16", cfg, base, shape),
+            ("bf16 8bit+compression", cfg,
+             dc.replace(base, adam_8bit=True, grad_compression=True), shape),
+            ("bf16 remat", cfg, dc.replace(base, remat=True), shape),
+            ("bf16 microbatch=2", cfg, dc.replace(base, microbatch=2), shape),
+            ("f32 2 layers seq 128 batch 2", dc.replace(cfg, n_layers=2), f32,
+             ShapeSpec("train", 128, 2, "train"))):
+        out["replay"][key] = train_replay_check(
+            build_model(c, run, shp, device="cuda"), run, 5, key)
+        gc.collect()
+
     h = out["bf16"]["history"]
     first, last = float(np.mean(h[:5])), float(np.mean(h[-5:]))
     print(f"  bf16: every loss finite: {bool(np.all(np.isfinite(h)))}; mean loss "
@@ -2132,12 +2231,14 @@ def training_phase(cfg, card) -> tuple:
           f"{h8[0] == h[0]} (losses {[round(x, 4) for x in h8]})")
     if not (same_remat and h8[0] == h[0]):
         raise AssertionError("bf16 training: remat or 8-bit run's losses differ")
-    print(f"  peak memory, remat off {out['bf16']['peak_gib']:.2f} GiB, on "
-          f"{out['bf16 remat']['peak_gib']:.2f} GiB")
+    print(f"  peak memory with graphs, remat off {out['bf16']['peak_gib']:.2f} GiB "
+          f"allocated ({out['bf16']['peak_reserved_gib']:.2f} reserved), on "
+          f"{out['bf16 remat']['peak_gib']:.2f} GiB "
+          f"({out['bf16 remat']['peak_reserved_gib']:.2f})")
 
     print(f"training, the launcher: python -m repro_torch.launch.train --steps 4 "
           f"--seq {TRAIN_SEQ} --batch {TRAIN_BATCH} --dtype bfloat16 --profile "
-          f"(device time by kernel over steps 2-4; {card})")
+          f"(device time by kernel over steps 2-4, graph replays; {card})")
     from repro_torch.launch import train as launch_train
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
         _, hist = launch_train.main(["--steps", "4", "--seq", str(TRAIN_SEQ),

@@ -78,13 +78,14 @@ def port_kernel(symbol: str) -> str:
     return "pytorch"
 
 
-def print_device_time(prof, wall: float, counted: dict, tag: str = "profile") -> None:
+def print_device_time(prof, wall: float, counted: dict, tag: str = "profile") -> dict:
     """Device time by kernel over the traced drain, then summed for each of
     the port's kernels and for PyTorch's own, and the device's busy share
     of its wall time (kernels run on one stream, so they do not overlap).
     ``counted``: the port's launches over the drain by the wrappers'
     counts; the trace must have seen as many, or its device time misses
-    the kernels of graph replays."""
+    the kernels of graph replays.  Returns the port's launches the trace
+    saw, by kernel."""
     # (a scheduled profile's ProfilerStep annotations span whole steps)
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
@@ -112,6 +113,7 @@ def print_device_time(prof, wall: float, counted: dict, tag: str = "profile") ->
               + ("" if seen.get(name, 0) == n else
                  " (MISMATCH: the trace does not hold every kernel the card "
                  "ran)"))
+    return seen
 
 
 def static_batch(cfg, args) -> dict:

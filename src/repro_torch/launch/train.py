@@ -1,10 +1,13 @@
 """Training launcher: the fault-tolerant trainer on the synthetic stream.
 
 On the card by default (``--device cuda`` raises without one); ``--device
-cpu`` runs the kernels' plain versions.  Prints one ``[train] ...`` line.
+cpu`` runs the kernels' plain versions.  Prints a ``[train] ...`` line and
+the step's captures: on the card the first step runs eagerly and captures
+the step into a CUDA graph, which every later step replays.
 ``--profile out.json.gz`` (on the card) traces every step after the first
-with ``torch.profiler`` and prints the device time by kernel, summed per
-port kernel and for PyTorch's own, with the device's idle share.
+(the replays) with ``torch.profiler`` and prints the device time by
+kernel, summed per port kernel and for PyTorch's own, with the device's
+idle share.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --steps 20 --seq 1024 \
@@ -78,6 +81,10 @@ def main(argv=None):
         print(f"[train] {cfg.name}: step {int(state.step)}  "
               f"loss {history[0]:.3f} -> {history[-1]:.3f}  "
               f"stragglers={trainer.straggler_events}")
+        print(f"[train] captures {trainer.step_fn.captures} "
+              f"({trainer.step_fn.capture_seconds:.3f} s); first step "
+              f"{trainer.step_ms[0]:.1f} ms (on the card: the eager step and "
+              f"its capture)")
     else:
         print(f"[train] {cfg.name}: already at step {int(state.step)}, "
               f"nothing to do")
@@ -103,11 +110,13 @@ def _profiled_fit(trainer, gen, args):
         out = trainer.fit(gen, fail_at=args.fail_at, on_step=on_step)
     traced = trainer.step_ms[1:]
     prof.export_chrome_trace(args.profile)
-    print_device_time(prof, 1e-3 * sum(traced), {k: v for k, v in
-                                                 kernels.launch_counts().items() if v},
-                      tag="train profile")
+    counted = {k: v for k, v in kernels.launch_counts().items() if v}
+    seen = print_device_time(prof, 1e-3 * sum(traced), counted, tag="train profile")
     print(f"[train profile] {len(traced)} traced steps, "
           f"{sum(traced) / len(traced):.1f} ms per step")
+    if any(seen.get(k, 0) != n for k, n in counted.items()):
+        raise RuntimeError("--profile: the trace misses kernels of the "
+                           "replayed steps; its device time is incomplete")
     return out
 
 

@@ -184,8 +184,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, dh = q.shape
     if sq <= chunk or sq % chunk != 0 or q_pos.ndim != 1:
         return core_attention(q, k, v, causal=causal, q_pos=q_pos)
+    # no random numbers drawn, so no generator state kept (a CUDA graph
+    # capture may not read it)
     outs = [checkpoint(core_attention, q[:, i:i + chunk], k, v, causal=causal,
-                       q_pos=q_pos[i:i + chunk], use_reentrant=False)
+                       q_pos=q_pos[i:i + chunk], use_reentrant=False,
+                       preserve_rng_state=False)
             for i in range(0, sq, chunk)]
     return torch.cat(outs, dim=1)
 

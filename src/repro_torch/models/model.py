@@ -21,8 +21,9 @@ in later slices of the port.
 from __future__ import annotations
 
 import gc
+import time
 import weakref
-from typing import Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -37,7 +38,7 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed_apply
 
-__all__ = ["ReproModel", "CompiledStep", "GraphTable", "build_model"]
+__all__ = ["ReproModel", "CompiledStep", "GraphTable", "capture_graph", "build_model"]
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
@@ -278,7 +279,11 @@ class ReproModel:
         """Distinct step signatures made per step kind over this model (the
         JAX package's traces), on the CPU and the card alike; the card's
         graphs are counted per engine, in ``GraphTable.captures``.  No
-        growth after ``Engine.warmup`` is the no-compile contract."""
+        growth after ``Engine.warmup`` is the no-compile contract.  A
+        ``"train"`` entry appears with the first train step signature
+        (:class:`repro_torch.training.step.CompiledTrainStep`); the JAX
+        package counts its jitted train steps apart, so a model that never
+        trained keeps the reference's three kinds."""
         if not hasattr(self, "_trace_counts"):
             self._trace_counts = {"decode": 0, "paged": 0, "flat": 0}
         return self._trace_counts
@@ -290,6 +295,16 @@ class ReproModel:
         if not hasattr(self, "_trace_log"):
             self._trace_log = []
         return self._trace_log
+
+    @property
+    def capture_stream(self) -> torch.cuda.Stream:
+        """The side stream every CUDA graph over this model is captured on,
+        after its eager warmup there (:func:`capture_graph`): one per model
+        and not per owner of graphs, since cuBLAS keeps a workspace for
+        every stream it runs on until the process ends."""
+        if getattr(self, "_capture_stream", None) is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        return self._capture_stream
 
     def compiled_step(self, kind: str) -> "CompiledStep":
         """The cached compiled form of the ``"decode"``, ``"paged"`` or
@@ -356,10 +371,8 @@ class CompiledStep:
     signature up in the caller's :class:`GraphTable`; the first call of a
     signature there runs eagerly (which also sets each kernel's launch
     attributes before any capture), then captures the step into a CUDA
-    graph over copies of its inputs, into the table's memory pool, on a
-    side stream of the step's own (steps never overlap).  The stream is
-    the model's and not the table's: cuBLAS keeps a workspace for every
-    stream it runs on until the process ends.  Each later call copies its
+    graph over copies of its inputs, into the table's memory pool
+    (:func:`capture_graph`).  Each later call copies its
     inputs into the graph's buffers, replays it and returns the graph's
     own output tensor, which the next replay overwrites: read it first.  A
     capture that fails raises; nothing falls back to the eager step."""
@@ -370,7 +383,6 @@ class CompiledStep:
         self._model = weakref.ref(model)
         self.kind = kind
         self._seen = set()
-        self._stream = None
 
     @property
     def model(self) -> ReproModel:
@@ -448,34 +460,60 @@ class CompiledStep:
         dev = self.model.device
         if table.pool is None:
             table.pool = torch.cuda.graph_pool_handle()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
         inputs = [None if a is None else a.to(dev, copy=True) for a in args]
         splan = None if plan is None else RaggedPlan(
             torch.as_tensor(plan.items).to(dev, copy=True), plan.splits)
         extra = {} if splan is None else {"plan": splan}
-        s = self._stream
-        s.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(s):
-            out, _ = self.fn(params, caches, *inputs, **extra)
-            before = kernels.counters()
-            graph = torch.cuda.CUDAGraph()
-            # no cyclic garbage collection inside the capture: it could
-            # destroy a dropped engine's graphs, and releasing their pool
-            # frees device memory, which a capture forbids
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.graph(graph, pool=table.pool, stream=s):
-                    static_out, _ = self.fn(params, caches, *inputs, **extra)
-            finally:
-                if collecting:
-                    gc.enable()
-            after = kernels.counters()
-        torch.cuda.current_stream(dev).wait_stream(s)
-        counts = {k: after[k] - before[k] for k in after}
-        kernels.add_counts(counts, -1)        # the capture ran nothing
-        return out, _Graph(graph, inputs, splan, static_out, counts)
+        cap = capture_graph(self.model, table.pool,
+                            lambda: self.fn(params, caches, *inputs, **extra)[0])
+        return cap.eager, _Graph(cap.graph, inputs, splan, cap.out, cap.counts)
+
+
+class Capture(NamedTuple):
+    """What :func:`capture_graph` made: the warmup call's result, the
+    graph, the captured call's result (tensors the graph owns and each
+    replay overwrites), the wrappers' counts one replay adds, and the host
+    seconds the capture took (the warmup not included)."""
+    eager: Any
+    graph: torch.cuda.CUDAGraph
+    out: Any
+    counts: dict
+    seconds: float
+
+
+def capture_graph(model: ReproModel, pool, fn: Callable) -> Capture:
+    """Call ``fn()`` eagerly on the model's :attr:`~ReproModel.capture_stream`,
+    then capture a second call of it there into a CUDA graph whose memory
+    comes from ``pool``.  The eager call is the capture's warmup: it sets
+    each kernel's launch attributes and cuBLAS's workspace on the stream,
+    which a capture may not allocate.  A capture runs nothing, so the
+    wrappers' counts it added are taken back and returned for the replays
+    to add.  A capture that fails raises."""
+    dev = model.device
+    s = model.capture_stream
+    s.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s):
+        eager = fn()
+        before = kernels.counters()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # no cyclic garbage collection inside the capture: it could
+        # destroy a dropped owner's graphs, and releasing their pool frees
+        # device memory, which a capture forbids
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=s):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
+        seconds = time.perf_counter() - t0
+        after = kernels.counters()
+    torch.cuda.current_stream(dev).wait_stream(s)
+    counts = {k: after[k] - before[k] for k in after}
+    kernels.add_counts(counts, -1)        # the capture ran nothing
+    return Capture(eager, graph, out, counts, seconds)
 
 
 def build_model(cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,

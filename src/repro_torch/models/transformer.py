@@ -221,8 +221,11 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
         for g in range(cfg.n_layers // period):
             gp = _group(groups, g)
             if remat:
+                # the forward draws no random numbers, and a CUDA graph
+                # capture may not read the generator's state
                 x = checkpoint(_apply_group, x, gp, ctx, cfg, positions,
-                               causal, enc_out, use_reentrant=False)
+                               causal, enc_out, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = _apply_group(x, gp, ctx, cfg, positions, causal, enc_out)
         return x

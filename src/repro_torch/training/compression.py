@@ -5,14 +5,15 @@ Each gradient leaf plus its error buffer is quantized to int8 with one
 absmax scale; the quantization error is kept and re-injected next step, so
 the accumulated compressed gradients track the true ones (EF-SGD).  Here
 the transform runs on one device; across devices it would pair with an
-int8 all-reduce.
+int8 all-reduce.  The error buffer is updated in place (the JAX package's
+jitted step donates it).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.training.optimizer import tree_map, unzip
+from repro_torch.training.optimizer import tree_map
 
 __all__ = ["init_error_buffer", "compress_with_feedback"]
 
@@ -28,12 +29,13 @@ def _q8(x: torch.Tensor):
 
 
 def compress_with_feedback(grads, err):
-    """Returns (decompressed_grads, new_err):
-    g_hat = Q8(g + err), new_err = (g + err) - g_hat."""
+    """Returns (decompressed_grads, err): g_hat = Q8(g + err), and ``err``
+    itself, set in place to (g + err) - g_hat."""
     def one(g, e):
         gf = g.float() + e
         q, s = _q8(gf)
         deq = q.float() * s
-        return deq.to(g.dtype), gf - deq
+        e.copy_(gf - deq)
+        return deq.to(g.dtype)
 
-    return unzip(tree_map(one, grads, err), 2)
+    return tree_map(one, grads, err), err

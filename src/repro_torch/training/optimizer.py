@@ -5,9 +5,16 @@
 Parameters, gradients and states are nested dicts of tensors (the model's
 parameter tree).  8-bit moments store m and v as int8 with float32 per-row
 scales (shape ``param.shape[:-1]``); leaves of fewer than 2 dims stay
-float32 with a scale of 1.  The schedule's scalars are computed in float32
-on the host (numpy), as the JAX package computes them in float32; the
-update runs on the parameters' device without reading anything back.
+float32 with a scale of 1.
+
+The update writes the new parameters and moments into the state's own
+tensors, as the JAX package's jitted step, which donates its state, lets
+XLA do; every leaf of ``init`` is its own storage, so no write lands on
+another leaf.  The step's scalars (lr, and the two bias corrections) are
+computed in float32 on the host (numpy), as the JAX package computes them
+in float32, and read by the update from a small float32 tensor on the
+parameters' device (:meth:`AdamW.scalars`): a CUDA graph of the step then
+reads each step's values, and nothing is read back.
 """
 
 from __future__ import annotations
@@ -98,50 +105,64 @@ class AdamW:
             * (f32(1) + np.cos(f32(np.pi) * prog))
         return float(f32(self.lr) * warm * cos)
 
+    def scalars(self, step: int, device="cpu") -> torch.Tensor:
+        """float32 [lr, bc1, bc2] of ``step`` on ``device``: ``schedule(step)``
+        and the bias corrections ``1 - b ** (step + 1)``, computed on the
+        host in float32 as the JAX package computes them, and copied
+        without waiting for the device."""
+        f32 = np.float32
+        t = f32(step) + f32(1.0)
+        host = torch.tensor([self.schedule(step), f32(1) - f32(self.b1) ** t,
+                             f32(1) - f32(self.b2) ** t], dtype=torch.float32)
+        return host.to(device, non_blocking=True)
+
     def init(self, params) -> dict:
-        zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        """Zero moments; every leaf its own storage (the update writes each
+        in place)."""
+        def zeros():
+            return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         if not self.eightbit:
-            return {"m": zeros, "v": tree_map(torch.clone, zeros)}
-        mq, ms = _tree_quant(zeros)
-        vq, vs = _tree_quant(zeros)
+            return {"m": zeros(), "v": zeros()}
+        mq, ms = _tree_quant(zeros())
+        vq, vs = _tree_quant(zeros())
         return {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
 
-    def update(self, grads, opt_state: dict, params, step: int):
-        """Returns (new_params, new_opt_state, {"grad_norm", "lr"}); the
-        inputs are left as they are."""
+    def update(self, grads, opt_state: dict, params, scalars: torch.Tensor):
+        """One step, written into ``params`` and ``opt_state`` in place;
+        ``scalars``: the step's :meth:`scalars` on the parameters' device.
+        Returns (params, opt_state, {"grad_norm", "lr"}), ``lr`` a 0-d
+        view of ``scalars``."""
         gnorm = global_norm(grads)
         scale = (torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
                  if self.grad_clip > 0 else 1.0)
-        lr = self.schedule(step)
+        lr, bc1, bc2 = scalars.unbind()
         b1, b2 = self.b1, self.b2
-        t = np.float32(step) + np.float32(1.0)
-        bc1 = float(np.float32(1) - np.float32(b1) ** t)
-        bc2 = float(np.float32(1) - np.float32(b2) ** t)
 
-        if self.eightbit:
-            m = tree_map(_dequantize, opt_state["m_q"], opt_state["m_s"])
-            v = tree_map(_dequantize, opt_state["v_q"], opt_state["v_s"])
-        else:
-            m, v = opt_state["m"], opt_state["v"]
-
-        def upd(p, g, m_, v_):
+        def moments(p, g, m_, v_):
             g = g.float() * scale
             m_ = b1 * m_ + (1 - b1) * g
             v_ = b2 * v_ + (1 - b2) * g * g
             u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + self.eps)
             if p.ndim >= 2:          # decoupled weight decay on matrices only
                 u = u + self.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype), m_, v_
+            p.copy_(p.float() - lr * u)
+            return m_, v_
 
-        new_params, new_m, new_v = unzip(tree_map(upd, params, grads, m, v), 3)
         if self.eightbit:
-            mq, ms = _tree_quant(new_m)
-            vq, vs = _tree_quant(new_v)
-            new_opt = {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
+            def leaf(p, g, mq, ms, vq, vs):
+                new = moments(p, g, _dequantize(mq, ms), _dequantize(vq, vs))
+                for q, s, x in zip((mq, vq), (ms, vs), new):
+                    nq, ns = _quantize(x)
+                    q.copy_(nq)
+                    s.copy_(ns)
+            tree_map(leaf, params, grads, *(opt_state[k] for k in
+                                            ("m_q", "m_s", "v_q", "v_s")))
         else:
-            new_opt = {"m": new_m, "v": new_v}
-        return new_params, new_opt, {"grad_norm": gnorm,
-                                     "lr": torch.tensor(lr, dtype=torch.float32)}
+            def leaf(p, g, m_, v_):
+                for t, x in zip((m_, v_), moments(p, g, m_, v_)):
+                    t.copy_(x)
+            tree_map(leaf, params, grads, opt_state["m"], opt_state["v"])
+        return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 
 
 def make_optimizer(run: RunConfig, total_steps: int = 10000) -> AdamW:

@@ -1,25 +1,33 @@
 """The train step: loss -> gradients (with microbatch accumulation) ->
 optional compression -> AdamW update (the JAX package's
-``training/step.py``), run eagerly.
+``training/step.py``), and its compiled form, :class:`CompiledTrainStep`
+(the JAX package's ``jax.jit(train_step, donate_argnums=(0,))``).
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves,
 through mmt4d's gradient kernels on the card.  With ``run.microbatch = n >
 1`` the batch is split into n slices along its first dim, run one after
-another, and their gradients summed in float32, each divided by n.
+another, and their gradients summed in float32, each divided by n.  The
+step writes the new parameters, moments and error buffer into the state's
+own tensors, as the reference's donated state lets XLA do, so a CUDA graph
+of the step binds one state for good.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.configs.base import RunConfig
+from repro_torch.models.model import capture_graph
 from repro_torch.training import compression
 from repro_torch.training.optimizer import AdamW, leaves, tree_map
 from repro_torch.training.train_state import TrainState
 
-__all__ = ["make_train_step", "make_eval_step", "value_and_grad"]
+__all__ = ["make_train_step", "make_eval_step", "value_and_grad",
+           "CompiledTrainStep"]
 
 
 def _rebuild(tree, it):
@@ -41,7 +49,12 @@ def value_and_grad(model, params, batch):
 
 
 def make_train_step(model, optimizer: AdamW, run: RunConfig) -> Callable:
-    """Returns train_step(state, batch) -> (state', metrics)."""
+    """Returns train_step(state, batch, scalars=None) -> (state', metrics).
+
+    ``state'`` holds ``state``'s own tensors, updated in place, and the
+    step ``state.step + 1``.  ``scalars``: ``optimizer.scalars(state.step)``
+    on the model's device, made here when None (a captured step reads them
+    from a buffer its caller fills before each replay)."""
 
     def grads_of(params, batch):
         n = run.microbatch
@@ -58,18 +71,16 @@ def make_train_step(model, optimizer: AdamW, run: RunConfig) -> Callable:
             acc = tree_map(lambda a, g_: a + g_.float() / n, acc, g)
         return acc, metrics
 
-    def train_step(state: TrainState, batch) -> tuple:
+    def train_step(state: TrainState, batch, scalars: Optional[torch.Tensor] = None):
+        if scalars is None:
+            scalars = optimizer.scalars(state.step, model.device)
         grads, metrics = grads_of(state.params, batch)
-        opt_state = dict(state.opt_state)
         if run.grad_compression:
-            grads, opt_state["err"] = compression.compress_with_feedback(
-                grads, opt_state["err"])
-        new_params, new_opt, opt_metrics = optimizer.update(
-            grads, opt_state, state.params, state.step)
-        if run.grad_compression:
-            new_opt["err"] = opt_state["err"]
-        return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt), {**metrics, **opt_metrics}
+            grads, _ = compression.compress_with_feedback(grads, state.opt_state["err"])
+        _, _, opt_metrics = optimizer.update(grads, state.opt_state, state.params,
+                                             scalars)
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=state.opt_state), {**metrics, **opt_metrics}
 
     return train_step
 
@@ -80,3 +91,117 @@ def make_eval_step(model) -> Callable:
             _, metrics = model.loss(params, batch)
         return metrics
     return eval_step
+
+
+def _state_leaves(state: TrainState) -> list:
+    return leaves({"params": state.params, "opt_state": state.opt_state})
+
+
+@dataclasses.dataclass
+class _TrainGraph:
+    """One captured train step: the graph, its static batch and scalar
+    buffers, its metrics (graph-owned), the wrapper counts one replay adds
+    and the host seconds of its capture."""
+    graph: torch.cuda.CUDAGraph
+    inputs: dict
+    scalars: torch.Tensor
+    out: dict
+    counts: dict
+    seconds: float
+
+
+class CompiledTrainStep:
+    """The train step run as one program per signature, the state updated
+    in place: the JAX package's ``jax.jit(train_step, donate_argnums=(0,))``.
+
+    A signature is each batch leaf's (shape, dtype), ``run.microbatch``,
+    the model's ``remat`` and each state leaf's (shape, dtype).  The first
+    call of a signature counts as a trace in ``model.trace_counts["train"]``
+    and ``model.trace_log``, on every device; each step has its own
+    signatures, as each JAX trainer jits its own step.
+
+    On the CPU every call runs :attr:`fn` eagerly.  On the card the first
+    call of a signature runs the real step eagerly on the model's capture
+    stream (the capture's warmup; it moves the state one step), then
+    captures it into a CUDA graph over static batch and scalar buffers and
+    the caller's state tensors (:func:`~repro_torch.models.model.capture_graph`;
+    a capture runs nothing, so the state stays where the warmup left it).
+    Each later call copies the batch in, fills the scalars, replays, adds
+    the graph's launches to the wrappers' counts and returns the graph's
+    own metrics, which the next replay overwrites: read them first.  Every
+    graph binds the state tensors of the first call on the card; a call
+    with others raises.  A capture that fails raises; nothing falls back to
+    the eager step.  Dropping the step frees its graphs and their pool."""
+
+    def __init__(self, model, optimizer: AdamW, run: RunConfig):
+        self.model = model
+        self.optimizer = optimizer
+        self.run = run
+        self.fn = make_train_step(model, optimizer, run)
+        self.graphs: dict = {}
+        self._seen: set = set()
+        self._pool = None
+        self._state_ptrs: Optional[tuple] = None
+
+    @property
+    def captures(self) -> int:
+        return len(self.graphs)
+
+    @property
+    def capture_seconds(self) -> float:
+        return sum(g.seconds for g in self.graphs.values())
+
+    def signature(self, state: TrainState, batch: dict) -> tuple:
+        return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
+                self.run.microbatch, self.model.run.remat,
+                tuple((tuple(t.shape), t.dtype) for t in _state_leaves(state)))
+
+    def count(self, state: TrainState, batch: dict) -> tuple:
+        """Count a call's signature as a trace the first time it is seen,
+        and return it."""
+        sig = self.signature(state, batch)
+        if sig not in self._seen:
+            self._seen.add(sig)
+            counts = self.model.trace_counts
+            counts["train"] = counts.get("train", 0) + 1
+            self.model.trace_log.append({"kind": "train", "args": {
+                k: (tuple(v.shape), str(v.dtype)) for k, v in batch.items()}})
+        return sig
+
+    def __call__(self, state: TrainState, batch: dict):
+        """``batch``: numpy arrays or tensors on any device.  Returns
+        (state', metrics) as :attr:`fn` does."""
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        sig = self.count(state, batch)
+        dev = self.model.device
+        if dev.type == "cpu":
+            return self.fn(state, batch)
+        ptrs = tuple(t.data_ptr() for t in _state_leaves(state))
+        if self._state_ptrs is None:
+            self._state_ptrs = ptrs
+        if ptrs != self._state_ptrs:
+            raise ValueError("this train step's graphs were captured over "
+                             "another state's tensors; a new state needs a "
+                             "new step (a new Trainer)")
+        g = self.graphs.get(sig)
+        if g is None:
+            return self._capture(sig, state, batch)
+        for k, buf in g.inputs.items():
+            buf.copy_(batch[k], non_blocking=True)
+        g.scalars.copy_(self.optimizer.scalars(state.step), non_blocking=True)
+        g.graph.replay()
+        kernels.add_counts(g.counts)
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=state.opt_state), g.out
+
+    def _capture(self, sig, state: TrainState, batch: dict):
+        dev = self.model.device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        inputs = {k: v.to(dev, copy=True) for k, v in batch.items()}
+        scalars = self.optimizer.scalars(state.step, dev)
+        cap = capture_graph(self.model, self._pool,
+                            lambda: self.fn(state, inputs, scalars))
+        self.graphs[sig] = _TrainGraph(cap.graph, inputs, scalars, cap.out[1],
+                                       cap.counts, cap.seconds)
+        return cap.eager

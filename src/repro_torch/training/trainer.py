@@ -1,5 +1,10 @@
 """Fault-tolerant training loop (the JAX package's ``training/trainer.py``).
 
+The step is a :class:`~repro_torch.training.step.CompiledTrainStep`, as the
+JAX package jits its step and donates the state to it: eager on the CPU,
+one CUDA graph per signature on the card, the state updated in place.
+The step counter stays a host int that the loop advances.
+
 - auto-resume: on start, restore the latest *valid* checkpoint (partial or
   corrupt saves are skipped) and continue bitwise: the data pipeline is a
   pure function of the step counter, so there is no separate cursor state;
@@ -29,7 +34,7 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import compression
 from repro_torch.training.optimizer import make_optimizer
-from repro_torch.training.step import make_train_step
+from repro_torch.training.step import CompiledTrainStep
 from repro_torch.training.train_state import TrainState
 
 __all__ = ["Trainer", "fingerprint_of"]
@@ -58,7 +63,7 @@ class Trainer:
         self.log = log_fn
         self.optimizer = make_optimizer(run, total_steps)
         self.fingerprint = fingerprint_of(model.cfg, run)
-        self._step_fn = make_train_step(model, self.optimizer, run)
+        self.step_fn = CompiledTrainStep(model, self.optimizer, run)
         self.ewma_ms: Optional[float] = None
         self.straggler_events = 0
         self.step_ms: list[float] = []
@@ -92,19 +97,19 @@ class Trainer:
             on_step: Optional[Callable[[int], None]] = None):
         """Run the loop from the restored (or fresh) state to ``steps`` (by
         default ``total_steps``), calling ``on_step(step)`` after each step's
-        loss is read.  Returns (state, loss history)."""
+        loss is read.  Returns (state, loss history).  The step's graphs
+        bind the state of the first call, so a trainer fits once: a resume
+        is a new trainer."""
         state = self.restore_or_init(generator)
         start = int(state.step)
         end = steps if steps is not None else self.total_steps
-        dev = self.model.device
         history = []
         for step in range(start, end):
-            batch = {k: torch.as_tensor(v, device=dev)
-                     for k, v in self.data.batch_at(step).items()}
+            batch = self.data.batch_at(step)
             t0 = time.perf_counter()
             if fail_at is not None and step == fail_at:
                 raise RuntimeError(f"injected failure at step {step}")
-            state, metrics = self._step_fn(state, batch)
+            state, metrics = self.step_fn(state, batch)
             loss = float(metrics["loss"])
             dt = (time.perf_counter() - t0) * 1e3
             self.step_ms.append(dt)

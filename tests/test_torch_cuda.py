@@ -9,8 +9,10 @@ whisper's biased tanh-GELU mmt4d at its full widths.  Training: mmt4d's
 gradient kernels
 (dgrad, wgrad with the fused bias gradient and activation) against their
 plain versions, the autograd Functions (mmt4d, pack, unpack, linear) on the
-card against the CPU, and one float32 train step of reduced SmolLM2, card
-against CPU.
+card against the CPU, one float32 train step of reduced SmolLM2, card
+against CPU, and the compiled train step (SmolLM2's widths cut to 2 layers,
+f32 and bf16): replay = eager bit for bit, one capture, another state
+refused, a dropped trainer's memory given back.
 A CUDA kernel has no interpret mode, so without a card these tests skip.
 Run them on the card with (``--noconftest``: tests/conftest.py imports JAX,
 which a machine with only the port need not have):
@@ -788,6 +790,117 @@ def test_train_step_card_equals_cpu(gen):
         off += int((d > 1e-6).sum())
         total += d.numel()
     assert off <= total // 10_000
+
+
+# ---------------------------------------------------------------------------
+# the compiled train step: one CUDA graph per signature, the state in place
+# ---------------------------------------------------------------------------
+
+def _train_setup(dtype):
+    """SmolLM2 at its full widths cut to 2 layers, seq 128, batch 2, AdamW
+    with one warmup step."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import make_optimizer
+    cfg = dataclasses.replace(get_config("smollm2-135m"), n_layers=2)
+    shape = ShapeSpec("t", 128, 2, "train")
+    run = RunConfig(param_dtype=dtype, compute_dtype=dtype, remat=False,
+                    warmup_steps=1)
+    model = build_model(cfg, run, shape, device="cuda")
+    return model, make_optimizer(run, 10), run, SyntheticLM(cfg, shape, seed=0)
+
+
+def _state_leaves(state):
+    from repro_torch.training.optimizer import leaves
+    return leaves({"p": state.params, "o": state.opt_state})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+def test_compiled_train_step_replay_equals_eager(gen, dtype):
+    """Two states from one init, three steps each: one through the compiled
+    step's eager ``fn``, the other through the compiled step (eager and
+    captured on the first call, replayed on the next two).  After every
+    step the loss, grad_norm and every parameter and optimizer-state leaf
+    agree bit for bit, each state leaf keeps its address, and each call
+    adds the launches the eager step made; one signature, one capture."""
+    from repro_torch import kernels
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.step import CompiledTrainStep
+    from repro_torch.training.train_state import TrainState
+    model, opt, run, data = _train_setup(dtype)
+    step = CompiledTrainStep(model, opt, run)
+    init = model.init(torch.Generator().manual_seed(0))
+    eager, graph = (TrainState.create(tree_map(torch.clone, init), opt) for _ in range(2))
+    ptrs = [t.data_ptr() for t in _state_leaves(graph)]
+    for i in range(3):
+        batch = data.batch_at(i)
+        kernels.reset_launch_counts()
+        eager, em = step.fn(eager, {k: torch.as_tensor(v, device="cuda")
+                                    for k, v in batch.items()})
+        torch.cuda.synchronize()
+        want = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        graph, gm = step(graph, batch)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == want and want["mmt4d_wgrad"] > 0
+        assert eager.step == graph.step == i + 1
+        for k in ("loss", "grad_norm", "lr"):
+            assert torch.equal(em[k], gm[k]), k
+        assert [t.data_ptr() for t in _state_leaves(graph)] == ptrs
+        assert all(torch.equal(a, b) for a, b in zip(_state_leaves(eager),
+                                                     _state_leaves(graph)))
+    assert step.captures == 1 and model.trace_counts["train"] == 1
+
+
+def test_compiled_train_step_refuses_another_state(gen):
+    """The step's graphs bind the state of its first call; a call with
+    another state's tensors raises, before anything runs."""
+    from repro_torch.training.step import CompiledTrainStep
+    from repro_torch.training.train_state import TrainState
+    model, opt, run, data = _train_setup("bfloat16")
+    step = CompiledTrainStep(model, opt, run)
+    state, _ = step(TrainState.create(model.init(torch.Generator().manual_seed(0)), opt),
+                    data.batch_at(0))
+    other = TrainState.create(model.init(torch.Generator().manual_seed(1)), opt)
+    with pytest.raises(ValueError, match="another state"):
+        step(other, data.batch_at(1))
+    assert step.captures == 1
+
+
+def test_dropped_trainer_frees_its_graph(gen):
+    """A trainer's graph, its static buffers and its pool go with the
+    trainer: after a first trainer has warmed the model's capture stream,
+    a second one fitted and dropped (with its state) gives back every byte
+    allocated and reserved."""
+    import gc
+
+    from repro_torch.training.trainer import Trainer
+    model, _, run, data = _train_setup("bfloat16")
+
+    def fit():
+        t = Trainer(model, data, run, total_steps=3, log_fn=lambda *_: None)
+        state, _ = t.fit(torch.Generator().manual_seed(0))
+        assert t.step_fn.captures == 1 and state.step == 3
+        return t, state
+
+    t, state = fit()
+    del t, state
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t, state = fit()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() > reserved
+    del t, state
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() == allocated
+    assert torch.cuda.memory_reserved() == reserved
 
 
 # ---------------------------------------------------------------------------

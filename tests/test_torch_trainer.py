@@ -11,6 +11,8 @@
   the port's ``Trainer`` and by the JAX package's for 4 steps, loss
   histories compared; and crash/resume in the port bit for bit against an
   uninterrupted run (history and parameters).
+- The compiled train step counts its signatures in
+  ``model.trace_counts["train"]`` as the JAX trainer's jitted step traces.
 """
 
 import os
@@ -165,3 +167,29 @@ def test_trainer_crash_resume_bitwise(tmp_path):
     for a, b in zip(leaves({"p": ref.params, "o": ref.opt_state}),
                     leaves({"p": got.params, "o": got.opt_state})):
         assert torch.equal(a, b)
+
+
+def test_train_step_signatures_count_like_jax_jit():
+    """The JAX trainer jits its step (``donate_argnums=(0,)``); over one
+    batch shape, a second, then the first again its cache holds two
+    programs, and the port trainer's compiled step counts the same in
+    ``model.trace_counts["train"]`` and ``trace_log`` after every call.
+    float32 AdamW: the JAX trainer cannot run 8-bit moments (ROADMAP C3).
+    A model that never trained keeps the reference's three kinds."""
+    jm, m = _models(RUN)
+    assert sorted(m.trace_counts) == sorted(jm.trace_counts)
+    quiet = lambda *_: None
+    jt = JTrainer(jm, JSyntheticLM(jm.cfg, JShape(*SHAPE), seed=0), JRun(**RUN),
+                  log_fn=quiet)
+    t = Trainer(m, SyntheticLM(m.cfg, ShapeSpec(*SHAPE), seed=0), RunConfig(**RUN),
+                log_fn=quiet)
+    jst = jt.init_state(jax.random.PRNGKey(0))
+    st = t.init_state(torch.Generator().manual_seed(0))
+    for seq in (16, 8, 16):
+        b = JSyntheticLM(jm.cfg, JShape("t", seq, 4, "train"), seed=0).batch_at(0)
+        jst, _ = jt._step_fn(jst, {k: jnp.asarray(v) for k, v in b.items()})
+        st, _ = t.step_fn(st, b)
+        assert m.trace_counts["train"] == jt._step_fn._cache_size()
+    assert m.trace_counts["train"] == 2 and st.step == 3
+    assert [e["args"]["tokens"] for e in m.trace_log if e["kind"] == "train"] == \
+        [((4, 16), "torch.int32"), ((4, 8), "torch.int32")]

@@ -10,8 +10,10 @@ reference's parameters and state carried across by ``from_jax_params`` /
 - the port's ``SyntheticLM`` bit for bit the JAX package's;
 - ``AdamW.update`` (float32 and 8-bit), ``schedule``, clipping and
   ``compress_with_feedback`` against the JAX package's;
-- ``make_train_step`` with ``microbatch`` 0 and 4 against the JAX
-  package's;
+- ``make_train_step`` (plain, ``microbatch`` 4 and 2, 8-bit moments,
+  compression, remat) against the JAX package's, every state leaf written
+  in place; no two state leaves share storage; the step's device scalars
+  (lr and the bias corrections) against the JAX package's;
 - ``launch.train --device cpu --reduced`` runs; without a card and without
   ``--device cpu`` it raises.
 
@@ -180,7 +182,7 @@ def test_adamw_update_matches_jax(jparams, clip):
     for step in range(3):
         g = _grads_like(jp, step, scale=1.0)
         jp, js, jmet = jupdate(jax.tree.map(jnp.asarray, g), js, jp, jnp.int32(step))
-        p, s, met = opt.update(from_jax_params(g), s, p, step)
+        p, s, met = opt.update(from_jax_params(g), s, p, opt.scalars(step, "cpu"))
         assert float(met["grad_norm"]) == pytest.approx(float(jmet["grad_norm"]), rel=1e-6)
         assert float(met["lr"]) == pytest.approx(float(jmet["lr"]), rel=2 ** -22)
     for a, b in zip(jax.tree.leaves(jp), leaves(p)):
@@ -206,7 +208,7 @@ def test_adamw_8bit_update_matches_jax(jparams):
     for step in range(2):
         g = _grads_like(jp, 10 + step)
         jp, js, _ = jupdate(jax.tree.map(jnp.asarray, g), js, jp, jnp.int32(step))
-        p, s, _ = opt.update(from_jax_params(g), s, p, step)
+        p, s, _ = opt.update(from_jax_params(g), s, p, opt.scalars(step, "cpu"))
     off, total = 0, 0
     for key in ("m_q", "v_q"):
         for a, b in zip(jax.tree.leaves(js[key]), leaves(s[key])):
@@ -252,25 +254,69 @@ def test_compress_with_feedback_matches_jax():
 
 # ---------------------------------------------------------------- train steps
 
-@pytest.mark.parametrize("micro", [0, 4])
-def test_train_step_matches_jax(micro):
-    """One train step from one state (reduced SmolLM2, seq 16, batch 8):
-    loss within 1e-6 relative; every parameter within 1e-6 of the JAX
-    package's except where a near-zero gradient's sign differs, which
-    Adam's first step turns into a difference of 2 * lr: such entries are
-    counted, at most 1 in 10,000, and none differs by more than 2 * lr."""
-    run = dict(F32, microbatch=micro, warmup_steps=1)
+def _assert_state_close(jstate: dict, state: dict, grads=None):
+    """Optimizer state after one step from one state, against the JAX
+    package's: every float32 leaf (moments, scales) within GRAD_REL of its
+    largest entry, since each is the gradients scaled or squared; the error
+    buffer, a remainder below half a quantization step of the gradient
+    ``grads``, within GRAD_REL of that gradient's largest entry; the int8
+    moments within 1.  A counted few entries may differ by more where a
+    value lies within that tolerance of a rounding edge of an int8 grid (a
+    moment's, or the compressed gradient's, where the error buffer and the
+    moments take a whole quantization step apart): at most 1 in 10,000."""
+    assert sorted(state) == sorted(jstate)
+    off = total = 0
+    for key in sorted(state):
+        base = leaves(grads) if key == "err" else leaves(state[key])
+        for a, b, c in zip(jax.tree.leaves(jstate[key]), leaves(state[key]), base,
+                           strict=True):
+            a = np.asarray(a).astype(np.float64)
+            assert a.shape == tuple(b.shape)
+            d = np.abs(b.numpy().astype(np.float64) - a)
+            if b.dtype == torch.int8:
+                assert d.max() <= 1
+                off += int((d > 0).sum())
+            else:
+                top = float(c.abs().max()) if key == "err" else np.abs(a).max()
+                off += int((d > GRAD_REL * max(1e-30, top)).sum())
+            total += d.size
+    assert off <= total // 10_000
+
+
+_STEP_CASES = {"0": dict(microbatch=0), "4": dict(microbatch=4),
+               "8bit": dict(adam_8bit=True), "compression": dict(grad_compression=True),
+               "micro2": dict(microbatch=2), "remat": dict(remat=True)}
+
+
+@pytest.mark.parametrize("case", list(_STEP_CASES))
+def test_train_step_matches_jax(case):
+    """One train step from one state (reduced SmolLM2, seq 16, batch 8),
+    plain, with microbatches (4, 2), 8-bit moments, gradient compression or
+    remat: the step writes every state leaf in place (each keeps its
+    ``data_ptr``); loss within 1e-6 relative and the lr metric within 1 ulp
+    (XLA's cos on the CPU is not numpy's); every parameter within 1e-6 of
+    the JAX package's except where a near-zero gradient's sign differs,
+    which Adam's first step turns into a difference of 2 * lr: such entries
+    are counted, at most 1 in 10,000, and none differs by more than 2 * lr;
+    the optimizer state as :func:`_assert_state_close` says."""
+    run = dict(F32, warmup_steps=1, **_STEP_CASES[case])
     jm, m = _pair(16, 8, **run)
     jopt = jmake_optimizer(JRun(**run), 10)
     opt = make_optimizer(RunConfig(**run), 10)
     jst = JTrainState.create(jm.init(jax.random.PRNGKey(1)), jopt)
+    if run.get("grad_compression"):
+        jst.opt_state["err"] = jcompression.init_error_buffer(jst.params)
     st = from_jax_state(np.asarray(jst.step), _np(jst.params), _np(jst.opt_state))
+    ptrs = [t.data_ptr() for t in leaves({"p": st.params, "o": st.opt_state})]
     b = _batch(16, 8)
+    _, grads = value_and_grad(m, st.params, b)
     jst2, jmet = jax.jit(jmake_train_step(jm, jopt, JRun(**run)))(
         jst, {k: jnp.asarray(v) for k, v in b.items()})
     st2, met = make_train_step(m, opt, RunConfig(**run))(st, b)
     assert st2.step == int(jst2.step) == 1
+    assert [t.data_ptr() for t in leaves({"p": st2.params, "o": st2.opt_state})] == ptrs
     assert float(met["loss"]) == pytest.approx(float(jmet["loss"]), rel=1e-6)
+    assert float(met["lr"]) == pytest.approx(float(jmet["lr"]), rel=2 ** -22)
     lr = opt.schedule(0)
     off, total = 0, 0
     for a, b_ in zip(jax.tree.leaves(jst2.params), leaves(st2.params)):
@@ -279,6 +325,43 @@ def test_train_step_matches_jax(micro):
         off += int((d > 1e-6).sum())
         total += d.size
     assert off <= total // 10_000
+    _assert_state_close(jst2.opt_state, st2.opt_state, grads)
+
+
+@pytest.mark.parametrize("eightbit", [False, True], ids=["f32", "8bit"])
+def test_optimizer_state_leaves_own_their_storage(jparams, eightbit):
+    """The step writes every state leaf in place, so no two leaves of the
+    parameters, ``AdamW.init`` and the error buffer may share storage (the
+    JAX package's 8-bit init gives a 1-D leaf's m and v one buffer, ROADMAP
+    C3)."""
+    p = from_jax_params(_np(jparams))
+    state = AdamW(eightbit=eightbit).init(p)
+    state["err"] = compression.init_error_buffer(p)
+    ptrs = [t.untyped_storage().data_ptr() for t in leaves({"p": p, "o": state})]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+def test_step_scalars_match_jax(jparams):
+    """The step's scalars at steps 0, 1 and ``warmup_steps``: float32 [lr,
+    bc1, bc2] equal to ``schedule`` and within 1 ulp of the JAX package's
+    schedule and bias corrections ``1 - b ** (step + 1)`` (XLA's cos and pow
+    on the CPU are not numpy's); the update's lr metric is that value, on
+    the parameters' device."""
+    kw = dict(lr=1e-2, warmup_steps=3, total_steps=20)
+    jopt, opt = JAdamW(**kw), AdamW(**kw)
+    jbc = jax.jit(lambda step: [1 - b ** (step.astype(jnp.float32) + 1.0)
+                                for b in (jopt.b1, jopt.b2)])
+    p = from_jax_params(_np(jparams))
+    state = opt.init(p)
+    g = from_jax_params(_grads_like(jparams, 0))
+    for step in (0, 1, kw["warmup_steps"]):
+        sc = opt.scalars(step, "cpu")
+        assert sc.dtype == torch.float32 and tuple(sc.shape) == (3,)
+        assert float(sc[0]) == opt.schedule(step)
+        want = [float(jopt.schedule(jnp.int32(step))), *map(float, jbc(jnp.int32(step)))]
+        assert sc.tolist() == pytest.approx(want, rel=2 ** -22)
+        _, _, met = opt.update(g, state, p, sc)
+        assert met["lr"].device == sc.device and float(met["lr"]) == float(sc[0])
 
 
 # ------------------------------------------------- kernel calls of a step
