@@ -110,7 +110,27 @@ warmup, and SmolLM2-135M and whisper-small through the static batch loop:
      fire), and a chaos drain (OOM spike and NaN plans) whose fault
      instants land in the trace; every kernel of the path launched in
      every drain;
- 12. training: mmt4d's two gradient kernels (dgrad, wgrad) against their
+ 12. vector lengths and layout policies, full width: the card's descriptor
+     scaled twice and four times (h100_vl256, h100_vl512: tiles n_r = k_r =
+     256 and 512 on the same card; bounds from the card's own rates), every
+     serving kernel at those tiles against its plain version (mmt4d at gate
+     decode, q/o, k/v, down and the tied head, packed and with the unpacked
+     store; pack at stream entry, the tied head's embed and a prepacked
+     W^T; the final stream's unpack; dgrad and wgrad at the gate and the
+     tied head), f32 and bf16, timed; f32 flat drains card = CPU (the CPU
+     on the mirrored TPU preset with the same tiles) under (scalable,
+     h100_vl256), (scalable, h100_vl512), (fixed, h100_vl512) and
+     (unpacked, h100); the bf16 §4 flat drain on one warmed engine per
+     (policy, descriptor): h100, h100_vl256, h100_vl512, fixed and
+     unpacked, drained four times in turns (forward, reversed, ...),
+     printing ms per step, tokens/s, warmup seconds and programs and
+     launches per step
+     (unpacked: no mmt4d, pack or unpack), each layout's picks within
+     BF16_MARGIN of the scalable h100 drain's; one f32 train step at
+     h100_vl512, card = CPU; earlier, at the 128-wide tiles, the f32 mmt4d
+     kernel (k staged in chunks of 64) is held bit for bit to its
+     whole-tile staging;
+ 13. training: mmt4d's two gradient kernels (dgrad, wgrad) against their
      plain versions at the full-width training linears (4,096 tokens; the
      gate with its silu's gradient, the down projection, the tied head, the
      K projection), f32 and bf16, bit-identical on a repeat, timed L2-cold
@@ -135,10 +155,10 @@ warmup, and SmolLM2-135M and whisper-small through the static batch loop:
      then a crash
      injected after a checkpoint and the resume, whose history and final
      parameters and optimizer state equal an uninterrupted run's bit for bit;
- 13. the kernels JSON line (launches from the main path of each kernel: the
+ 14. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
-     the gradient kernels; each other path's beside them), then the result
-     line.
+     the gradient kernels; each other path's beside them; each kernel's
+     representative case at the scaled tiles), then the result line.
 
 Usage:  python3 chip_smoke.py [--out results.json]
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -281,11 +301,18 @@ def time_ms(fn, iters: int = 20) -> float:
 
 
 class KernelChecks:
-    """Kernel vs plain version at the serving path's shapes, timed."""
+    """Kernel vs plain version at the serving path's shapes, timed.  The
+    tiles come from ``tiles_hw`` (default ``hw``: a scaled descriptor
+    widens them); bounds and splits from ``hw``, the card's own."""
 
-    def __init__(self, hw, gen):
+    def __init__(self, hw, gen, tiles_hw=None):
         self.hw, self.gen = hw, gen
+        self.tiles_hw = tiles_hw or hw
         self.cases = {name: [] for name in SOURCES}
+
+    def layout(self, dtype):
+        from repro_torch.core.layout import make_layout
+        return make_layout("scalable", self.tiles_hw, dtype)
 
     def rand(self, shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=self.gen, device="cuda") * scale).to(dtype)
@@ -327,14 +354,13 @@ class KernelChecks:
         ``torch._addmm_activation(b, x, w, use_gelu=True)``, cuBLASLt's
         GELU_BIAS epilogue, held to the plain version like the kernel."""
         from repro_torch.core import packing
-        from repro_torch.core.layout import make_layout
         from repro_torch.core.mmt4d import Epilogue
         from repro_torch.kernels.mmt4d.ops import mmt4d, pick_split
         from repro_torch.kernels.mmt4d.ref import mmt4d_ref
         from repro_torch.kernels.unpack.ref import unpack_ref
         if bias and act != "gelu":
             raise ValueError("a biased case is whisper's gelu up-projection")
-        lay = make_layout("scalable", self.hw, dtype)
+        lay = self.layout(dtype)
         x = self.rand((w_tokens, k), dtype)
         w = self.rand((k, n), dtype, k ** -0.5)
         bv = self.rand((n,), dtype, 0.1) if bias else None
@@ -380,12 +406,11 @@ class KernelChecks:
         packed store followed by the unpack kernel; timed L2-cold beside
         that pair, the packed store alone and torch.matmul."""
         from repro_torch.core import packing
-        from repro_torch.core.layout import make_layout
         from repro_torch.kernels.mmt4d.ops import mmt4d
         from repro_torch.kernels.mmt4d.ref import mmt4d_ref
         from repro_torch.kernels.unpack.ops import unpack
         from repro_torch.kernels.unpack.ref import unpack_ref
-        lay = make_layout("scalable", self.hw, dtype)
+        lay = self.layout(dtype)
         x = self.rand((1, w_tokens, k), dtype)
         w = self.rand((k, n), dtype, k ** -0.5)
         ap, bp = packing.pack_lhs(x, lay), packing.pack_rhs(w, lay)
@@ -418,11 +443,10 @@ class KernelChecks:
         L2-cold beside one torch.matmul of the same product on the
         unpacked operands (the yardstick)."""
         from repro_torch.core import packing
-        from repro_torch.core.layout import make_layout
         from repro_torch.kernels.mmt4d.ops import (gemm_operands, mmt4d_dgrad,
                                                    mmt4d_wgrad, pick_grad_split)
         from repro_torch.kernels.mmt4d.ref import mmt4d_dgrad_ref, mmt4d_wgrad_ref
-        lay = make_layout("scalable", self.hw, dtype)
+        lay = self.layout(dtype)
         x = self.rand((m, k), dtype)
         w = self.rand((k, n), dtype, k ** -0.5)
         dy = self.rand((m, n), dtype, m ** -0.5)
@@ -634,11 +658,10 @@ class KernelChecks:
     def run(self, ladder):
         """``ladder``: the bf16 engine's flat widths; the gate linear runs at
         each (at 8 and 512 in float32)."""
-        from repro_torch.core.layout import make_layout
         e = self.rand((49152, 576), BF, 0.02)
         self.launch_floor()
         for dtype in (BF, TF):
-            lay = make_layout("scalable", self.hw, dtype)
+            lay = self.layout(dtype)
             m_r = lay.m_r
             dec, pre = 16 if dtype is BF else 8, 512
             for w in sorted(set(ladder) | {dec} if dtype is BF else {dec, pre}):
@@ -677,6 +700,67 @@ class KernelChecks:
                       "whisper tied head embed (per call)", cold=True)
             self.unpack(dtype, 1024, 768, m_r, 128, "whisper encoder output")
 
+
+    def run_scaled(self):
+        """The serving path's kernels at this descriptor's tiles (a scaled
+        one: n_r = k_r = 256 or 512), both dtypes: mmt4d at gate decode,
+        q/o, k/v, down and the tied head, packed and with the unpacked
+        store; pack at stream entry, the tied head's embed (per call) and
+        a prepacked W^T; unpack of the final stream; the gradient kernels
+        at the gate and the tied head (4,096 tokens)."""
+        e = self.rand((49152, 576), BF, 0.02)
+        for dtype in (BF, TF):
+            lay = self.layout(dtype)
+            dec = 16 if dtype is BF else 8
+            self.mmt4d(dtype, dec, 576, 1536, "silu", "gate decode")
+            self.mmt4d(dtype, dec, 576, 576, None, "q/o decode")
+            self.mmt4d(dtype, dec, 576, 192, None, "k/v decode")
+            self.mmt4d(dtype, dec, 1536, 576, None, "down decode")
+            self.mmt4d(dtype, 4, 576, 49152, None, "tied head")
+            self.mmt4d_unpacked(dtype, dec, 576, 576, "q exit unpacked")
+            self.mmt4d_unpacked(dtype, dec, 576, 192, "k/v exit unpacked")
+            self.mmt4d_unpacked(dtype, 4, 576, 49152, "tied head unpacked")
+            self.pack(dtype, self.rand((1, dec, 576), dtype), lay.m_r, lay.k_r,
+                      "stream entry")
+            self.pack(dtype, e.to(dtype), lay.n_r, lay.k_r, "tied head embed",
+                      cold=True)
+            self.pack(dtype, self.rand((576, 1536), dtype).T, lay.n_r, lay.k_r,
+                      "prepack w^T")
+            self.unpack(dtype, dec, 576, lay.m_r, lay.k_r, "final stream decode")
+            self.grads(dtype, TRAIN_BATCH * TRAIN_SEQ, 576, 1536, "silu", "gate")
+            self.grads(dtype, TRAIN_BATCH * TRAIN_SEQ, 576, 49152, None, "tied head")
+
+    def f32_chunk_identity(self) -> int:
+        """The float32 mmt4d kernel stages k in chunks of F32_CHUNK; at this
+        descriptor's tiles (128 wide) it is held bit for bit to the same
+        kernel staging whole tiles (``F32_CHUNK = k_r``: the kernel before k
+        was chunked) at the serving shapes, packed and unpacked store.
+        Returns the number of cases."""
+        from repro_torch.core import packing
+        from repro_torch.kernels.mmt4d import ops
+        lay = self.layout(TF)
+        cases, chunk = 0, ops.F32_CHUNK
+        for m, k, n, act in ((8, 576, 1536, "silu"), (8, 576, 576, None),
+                             (8, 576, 192, None), (8, 1536, 576, None),
+                             (4, 576, 49152, None), (512, 576, 1536, "silu")):
+            ap = packing.pack_lhs(self.rand((m, k), TF), lay)
+            bp = packing.pack_rhs(self.rand((k, n), TF, k ** -0.5), lay)
+            for to in (None, (m, n)):
+                got = ops.mmt4d(ap, bp, activation=act, unpack_to=to)
+                ops.F32_CHUNK = lay.k_r
+                try:
+                    whole = ops.mmt4d(ap, bp, activation=act, unpack_to=to)
+                finally:
+                    ops.F32_CHUNK = chunk
+                if not torch.equal(got, whole):
+                    raise AssertionError(f"f32 mmt4d {m}x{k}x{n} {to}: chunked k "
+                                         f"differs from whole-tile staging")
+                cases += 1
+        print(f"  mmt4d f32, k staged in chunks of 64: bit for bit the whole-tile "
+              f"staging at {lay.n_r}-wide tiles in {cases} cases (gate, q/o, k/v, "
+              f"down, tied head at decode, the gate over 512 tokens; packed and "
+              f"unpacked store)")
+        return cases
 
 # the three serving step families: engine arguments at the f32 parity
 # drain (seq_len 64) and at the full-width bf16 drain (seq_len 1024)
@@ -800,18 +884,34 @@ def compare_picks(a: dict, b: dict, tol: float, label: str) -> dict:
     return out
 
 
-def serve_f32(device, cfg, prompts, family, greedy=True):
+# the CPU's twin of each card descriptor: the mirrored TPU preset with the
+# same tiles (lanes, sublanes, mxu_k)
+CPU_TWIN = {"h100": "tpu_v5e", "h100_vl256": "tpu_vl256", "h100_vl512": "tpu_vl512"}
+
+
+def descriptor(device, hw_name):
+    """``hw_name``'s descriptor on ``device``: the card's own (scaled) on
+    the card, its mirrored TPU twin on the CPU."""
+    from repro_torch.core.hardware import query
+    return query(device, hw_name if device == "cuda" else CPU_TWIN[hw_name])
+
+
+def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
+              hw_name="h100"):
     """A drain at full width in float32 through one step family, greedy or
     sampled (seed 11; the requests' temperatures 1.0, 0.7, 1.3 and 0 in
-    turn); returns tokens, the first model call's logits, each pick's
+    turn), under a layout policy and descriptor (the CPU: the descriptor's
+    TPU twin); returns tokens, the first model call's logits, each pick's
     (rid, position) -> (token, perturbed top-2 margin), and on the card the
     graphs captured at warmup and the shapes checked replay against
     eager."""
     from repro_torch.configs import RunConfig, ShapeSpec
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
-    run = RunConfig(param_dtype="float32", compute_dtype="float32")
-    model = build_model(cfg, run, ShapeSpec("serve", 64, 4, "decode"), device=device)
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    layout_policy=policy)
+    model = build_model(cfg, run, ShapeSpec("serve", 64, 4, "decode"),
+                        hw=descriptor(device, hw_name), device=device)
     params = model.init(torch.Generator().manual_seed(0))
     eng = Engine(model, params, device=device, max_slots=4, page_tokens=16,
                  **FAMILIES_F32[family])
@@ -832,19 +932,24 @@ def serve_f32(device, cfg, prompts, family, greedy=True):
     return [fin[r] for r in rids], calls[0], picks.picks, info
 
 
-def compare_f32(cfg, prompts, family, greedy=True) -> dict:
-    """The f32 drain of one family on the card and on the CPU.  Greedy:
-    identical tokens (the first differing pick, with both top-2 margins,
-    is printed before failing).  Sampled: identical tokens apart from a
-    pick whose perturbed top-2 margin is below F32_MARGIN, whose request is
-    compared no further; the count of such picks is printed."""
+def compare_f32(cfg, prompts, family, greedy=True, policy="scalable",
+                hw_name="h100") -> dict:
+    """The f32 drain of one family on the card and on the CPU (under a
+    layout policy and descriptor).  Greedy: identical tokens (the first
+    differing pick, with both top-2 margins, is printed before failing).
+    Sampled: identical tokens apart from a pick whose perturbed top-2
+    margin is below F32_MARGIN, whose request is compared no further; the
+    count of such picks is printed."""
     t0 = time.perf_counter()
+    layout = dict(policy=policy, hw_name=hw_name)
     cuda_toks, cuda_first, cuda_picks, info = serve_f32("cuda", cfg, prompts,
-                                                        family, greedy)
+                                                        family, greedy, **layout)
     cpu_toks, cpu_first, cpu_picks, _ = serve_f32("cpu", cfg, prompts, family,
-                                                  greedy)
+                                                  greedy, **layout)
     diff = float(np.abs(cuda_first - cpu_first).max())
     mode = "greedy" if greedy else "sampled"
+    if (policy, hw_name) != ("scalable", "h100"):
+        mode = f"{mode} {policy} {hw_name}"
     print(f"  {family} {mode}: first call max |logit diff| {diff:.3e}, graphs "
           f"{info['captures']}, replay = eager bit for bit at "
           f"{info['replay_checked']} shapes ({time.perf_counter() - t0:.1f} s)")
@@ -1985,6 +2090,155 @@ def telemetry_phase(cfg, prompts, card) -> dict:
 
 # --------------------------------------------------------------- training
 
+# the vector lengths and layout policies of the phase that runs them: the
+# card's descriptor and its scaled forms (the tiles widen to 256 and 512;
+# the card's peaks do not), and the fixed and unpacked policies
+SCALED = ("h100_vl256", "h100_vl512")
+LAYOUTS_F32 = (("scalable", "h100_vl256"), ("scalable", "h100_vl512"),
+               ("fixed", "h100_vl512"), ("unpacked", "h100"))
+LAYOUTS_BF16 = (("scalable", "h100"), ("scalable", "h100_vl256"),
+                ("scalable", "h100_vl512"), ("fixed", "h100"),
+                ("unpacked", "h100"))
+# drains of each layout engine, in turns: forward, reversed, forward, ...
+LAYOUT_TURNS = 4
+# under unpacked every product is a torch.matmul: no mmt4d, pack or unpack
+EXPECTED_UNPACKED_POLICY = {"mmt4d": 0, "pack": 0, "unpack": 0, "ragged_attn": 30}
+
+
+def layout_engine(cfg, policy, hw_name):
+    """A warmed flat bf16 engine of the §4 drain (chunk_tokens=128, 4
+    slots, 16-token pages, seq_len 1024) on a fresh model under a layout
+    policy and descriptor, and what its warmup took."""
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.core.hardware import query
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    model = build_model(cfg, RunConfig(layout_policy=policy),
+                        ShapeSpec("serve", 1024, 4, "decode"),
+                        hw=query("cuda", hw_name), device="cuda")
+    eng = Engine(model, model.init(torch.Generator().manual_seed(0)),
+                 device="cuda", max_slots=4, page_tokens=16, **FAMILIES_BF16["flat"])
+    lay = model.ctx.layout(model.compute_dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    graphs = dict(eng.stats()["compiles"])
+    info = {"policy": policy, "hw": hw_name, "tiles": (lay.m_r, lay.n_r, lay.k_r),
+            "flat_widths": eng._flat_shapes(), "page_tokens": eng.pool.page_tokens,
+            "warmup_s": time.perf_counter() - t0, "programs": sum(graphs.values())}
+    print(f"  bf16 {policy} {hw_name}: tiles (m_r, n_r, k_r) {info['tiles']}, flat "
+          f"widths {info['flat_widths']}; warmup {info['warmup_s']:.3f} s, "
+          f"{info['programs']} programs")
+    return eng, info
+
+
+def layout_drain(eng, prompts, label, policy) -> dict:
+    """The §4 drain's requests on a warmed layout engine, with every
+    wrapper count set to 0 just before and read just after: every request
+    finishes, nothing is captured, the launches per model call are
+    checked, every pick is recorded (the recording's host time is taken
+    out of the wall)."""
+    from repro_torch import kernels
+    st0 = eng.stats()
+    rec = eng._pick if isinstance(eng._pick, PickRecorder) else PickRecorder(eng)
+    rec.picks, rec.seconds = {}, 0.0
+    calls = count_model_calls(eng)
+    rids = [eng.add_request(p, 32) for p in prompts]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    finished = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - rec.seconds
+    launches = kernels.launch_counts()
+    delattr(eng, "_run_flat")                      # the call counter
+    st = eng.stats()
+    n, steps = len(calls), st["steps"] - st0["steps"]
+    ntok = sum(len(r.out_tokens) for r in finished)
+    if sorted(r.rid for r in finished) != sorted(rids) or any(
+            r.finish_reason != "length" or len(r.out_tokens) != 32 for r in finished):
+        raise AssertionError(f"{label}: not every request finished")
+    if st["captures"] != st0["captures"] or not all(np.isfinite(c).all()
+                                                    for c in calls):
+        raise AssertionError(f"{label}: captured during the drain, or non-finite "
+                             f"logits")
+    expected = (EXPECTED_UNPACKED_POLICY if policy == "unpacked"
+                else EXPECTED_PER_STEP)
+    for k in SOURCES:
+        if launches[k] != expected.get(k, 0) * n:
+            raise AssertionError(f"{label} {k}: {launches[k]} launches over {n} "
+                                 f"model calls, expected {expected.get(k, 0)} each")
+    place = {rid: i for i, rid in enumerate(rids)}
+    return {"steps": steps, "model_calls": n, "wall_s": wall,
+            "ms_per_step": 1e3 * wall / steps, "tokens": ntok,
+            "tokens_per_s": ntok / wall, "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items() if v},
+            # picks keyed by the request's place in the drain, not its rid
+            "picks": {(place[r], p): v for (r, p), v in rec.picks.items()}}
+
+
+def layouts_phase(cfg, f32_prompts, bf16_prompts, gen, card) -> tuple:
+    """Vector lengths and layout policies at full SmolLM2 width: the
+    serving kernels at the scaled tiles against their plain versions; f32
+    flat drains card = CPU under LAYOUTS_F32; the bf16 §4 drain under
+    LAYOUTS_BF16, each drain's picks within BF16_MARGIN of the scalable
+    h100 drain's; one f32 train step at h100_vl512, card = CPU.  Returns
+    (results, launches by path, kernel checks by descriptor)."""
+    from repro_torch.core.hardware import query
+    hw = query("cuda", "h100")
+    checks = {}
+    for name in SCALED:
+        print(f"  kernels vs plain versions at the tiles of {name} "
+              f"(bounds from the card's own rates; {card}):")
+        checks[name] = KernelChecks(hw, gen, tiles_hw=query("cuda", name))
+        checks[name].run_scaled()
+    print(f"  float32, flat: 4 requests x 8 new tokens, card vs CPU plain path "
+          f"(the CPU on the descriptor's TPU twin, the same tiles)")
+    f32 = {f"{p} {h}": compare_f32(cfg, f32_prompts, "flat", policy=p, hw_name=h)
+           for p, h in LAYOUTS_F32}
+    print(f"  bfloat16, flat: the §4 drain (8 requests, 32 new each), one warmed "
+          f"engine per layout, each on its own model, drained {LAYOUT_TURNS} times "
+          f"in turns (forward, reversed, ...; {card}); no MFU or roofline share: "
+          f"a scaled descriptor's peaks are not the card's")
+    engines = {f"{p} {h}": layout_engine(cfg, p, h) for p, h in LAYOUTS_BF16}
+    keys = list(engines)
+    runs = {k: [] for k in keys}
+    for order in (keys, keys[::-1]) * (LAYOUT_TURNS // 2):
+        for k in order:
+            runs[k].append(layout_drain(engines[k][0], bf16_prompts, f"bf16 {k}",
+                                        engines[k][1]["policy"]))
+    bf16 = {}
+    for k in keys:
+        first = runs[k][0]
+        ms = [r["ms_per_step"] for r in runs[k]]
+        tps = [r["tokens_per_s"] for r in runs[k]]
+        bf16[k] = {**engines[k][1], "runs": runs[k], "ms_per_step": ms,
+                   "tokens_per_s": tps, "median_ms_per_step": float(np.median(ms)),
+                   "median_tokens_per_s": float(np.median(tps)),
+                   "launches_per_step": first["launches_per_step"],
+                   "repeats_identical": all(r["picks"] == first["picks"]
+                                            for r in runs[k])}
+        print(f"  bf16 {k}: {first['steps']} steps; ms per step by turn "
+              f"{[round(x, 4) for x in ms]} (median {np.median(ms):.4f}), tokens/s "
+              f"{[round(x, 2) for x in tps]} (median {np.median(tps):.2f}); picks "
+              f"of every turn identical: {bf16[k]['repeats_identical']}; launches "
+              f"per step {({n: round(v, 4) for n, v in first['launches_per_step'].items()})}")
+    del engines
+    torch.cuda.empty_cache()
+    base = runs["scalable h100"][0]["picks"]
+    for k in keys[1:]:
+        bf16[k]["vs_scalable_h100"] = compare_picks(
+            base, runs[k][0]["picks"], BF16_MARGIN, f"bf16 {k} vs scalable h100")
+    for r in runs.values():
+        for run_ in r:
+            run_.pop("picks")
+    print(f"  training, float32: one step's loss and gradients at h100_vl512 "
+          f"(CPU: tpu_vl512), full width cut to 2 layers, seq 128, batch 2")
+    train = train_f32_card_vs_cpu(cfg, hw_name="h100_vl512")
+    paths = {f"layout bf16 {k}": r["runs"][0]["launches"] for k, r in bf16.items()}
+    return {"f32": f32, "bf16": bf16, "train_f32_vl512": train}, paths, checks
+
+
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024     # 4,096 tokens a step: chunked_attention
 
 
@@ -2006,10 +2260,11 @@ def train_launches_per_step(layers: int, remat: bool) -> dict:
     return out
 
 
-def train_f32_card_vs_cpu(cfg) -> dict:
+def train_f32_card_vs_cpu(cfg, hw_name="h100") -> dict:
     """One float32 step's loss and gradients, full-width SmolLM2 cut to 2
     layers, seq 128, batch 2, the same weights and batch on the card and
-    on the CPU plain path."""
+    on the CPU plain path, at ``hw_name``'s tiles (the CPU on its TPU
+    twin)."""
     import dataclasses as dc
     from repro_torch.configs import RunConfig, ShapeSpec
     from repro_torch.data.pipeline import SyntheticLM
@@ -2024,7 +2279,8 @@ def train_f32_card_vs_cpu(cfg) -> dict:
         torch.Generator().manual_seed(0))
     res = {}
     for dev in ("cuda", "cpu"):
-        model = build_model(cfg2, run, shape, device=dev)
+        model = build_model(cfg2, run, shape, hw=descriptor(dev, hw_name),
+                            device=dev)
         (loss, _), grads = value_and_grad(model, tree_map(lambda t: t.to(dev), params),
                                           batch)
         res[dev] = (float(loss), [g.float().cpu() for g in leaves(grads)])
@@ -2279,6 +2535,21 @@ def training_phase(cfg, card) -> tuple:
     return out, by_path
 
 
+def by_descriptor(kernel, scaled_checks) -> dict:
+    """Kernel ``kernel``'s bf16 representative case at each scaled
+    descriptor's tiles: times, bound and library time (ragged_attn's tiles
+    do not follow the lanes: it has none)."""
+    out = {}
+    for name, checks in scaled_checks.items():
+        rep = next((c for c in checks.cases[kernel] if c["dtype"] == "bfloat16"
+                    and c["shape"].startswith(REPRESENTATIVE[kernel])), None)
+        if rep is not None:
+            out[name] = {key: rep[key] for key in ("shape", "kernel_ms", "plain_ms",
+                                                   "bound_ms", "bound_by",
+                                                   "library_ms", "max_abs_err")}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results here")
@@ -2309,7 +2580,7 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s, "
           f"sm_90a, one nvcc per source)")
 
-    hw = query("cuda")
+    hw = query("cuda", "h100")      # the card's own, whatever $REPRO_HW says
     print(f"hardware: {hw.device_name}, {hw.sm_count} SMs, HBM {hw.hbm_bw / 1e12:.2f} TB/s, "
           f"bf16 {hw.flops_bf16 / 1e12:.0f} TFLOP/s, f32 {hw.flops_f32 / 1e12:.0f} TFLOP/s")
     cfg = get_config("smollm2-135m")
@@ -2321,12 +2592,13 @@ def main(argv=None) -> int:
           "L2-cold):")
     checks = KernelChecks(hw, torch.Generator(device="cuda").manual_seed(0))
     checks.run(eng._flat_shapes())
+    f32_chunk_cases = checks.f32_chunk_identity()
 
     print("end to end, float32: 4 requests x 8 new tokens, card vs CPU plain "
           "path, each step family (card: graphs captured at warmup)")
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 4)]
-    f32 = {fam: compare_f32(cfg, prompts, fam) for fam in FAMILIES_F32}
+    f32_prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 4)]
+    f32 = {fam: compare_f32(cfg, f32_prompts, fam) for fam in FAMILIES_F32}
     if len({str(r["tokens"]) for r in f32.values()}) != 1:
         raise AssertionError(f"the families' f32 tokens differ: "
                              f"{ {k: r['tokens'] for k, r in f32.items()} }")
@@ -2336,7 +2608,7 @@ def main(argv=None) -> int:
           f"{TEMPERATURES}): the same drains, card vs CPU plain path, each "
           f"family; a pick may differ only below a perturbed top-2 margin of "
           f"{F32_MARGIN:g}")
-    f32_sampled = {fam: compare_f32(cfg, prompts, fam, greedy=False)
+    f32_sampled = {fam: compare_f32(cfg, f32_prompts, fam, greedy=False)
                    for fam in FAMILIES_F32}
     print(f"  picks below the margin: "
           f"{ {k: r['low_margin_picks'] for k, r in f32_sampled.items()} }, "
@@ -2418,6 +2690,14 @@ def main(argv=None) -> int:
     telemetry, tel_paths = telemetry_phase(cfg, prompts, card)
     by_path.update(tel_paths)
 
+    print(f"vector lengths and layout policies, full width: the card's "
+          f"descriptor scaled to {list(SCALED)} (wider tiles, the same card) "
+          f"and the fixed and unpacked policies ({card})")
+    layouts, layout_paths, scaled_checks = layouts_phase(
+        cfg, f32_prompts, prompts, torch.Generator(device="cuda").manual_seed(1),
+        card)
+    by_path.update(layout_paths)
+
     print(f"mmt4d's gradient kernels vs plain versions on the card at the "
           f"full-width training linears ({TRAIN_BATCH * TRAIN_SEQ} tokens; the "
           f"gate with its silu's gradient), L2-cold, beside torch.matmul ({card}):")
@@ -2449,6 +2729,7 @@ def main(argv=None) -> int:
             "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "by_descriptor": by_descriptor(k, scaled_checks),
             "split": rep.get("split"), "shape": rep["shape"],
             "dtype": rep["dtype"], "card": card, "cases": cases,
             **({"unpacked_stores": unpacked} if k == "mmt4d" else {}),
@@ -2464,7 +2745,9 @@ def main(argv=None) -> int:
                        "variants_f32": {str(k): v for k, v in variants_f32.items()},
                        "variants_bf16": {str(k): v for k, v in variants_bf16.items()},
                        "chaos": chaos, "telemetry": telemetry,
-                       "static": static,
+                       "static": static, "layouts": layouts,
+                       "f32_chunk_cases": f32_chunk_cases,
+                       "scaled_checks": {n: c.cases for n, c in scaled_checks.items()},
                        "training": training,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)

@@ -3,9 +3,9 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
-__all__ = ["Finding"]
+__all__ = ["Finding", "AnalysisReport"]
 
 
 @dataclasses.dataclass
@@ -26,3 +26,30 @@ class Finding:
             kv = ", ".join(f"{k}={v!r}" for k, v in sorted(self.detail.items()))
             s += f"  ({kv})"
         return s
+
+
+class AnalysisReport:
+    """An ordered collection of findings across checks and configurations;
+    ``sections`` names everything analyzed, green or not."""
+
+    def __init__(self):
+        self.findings: List[Finding] = []
+        self.sections: List[str] = []
+
+    @property
+    def ok(self) -> bool:
+        return not self.findings
+
+    def extend(self, findings, section: Optional[str] = None) -> None:
+        self.findings.extend(findings)
+        if section is not None:
+            self.sections.append(section)
+
+    def format(self) -> str:
+        lines = [f"analyzed: {', '.join(self.sections) or '(nothing)'}"]
+        if self.ok:
+            lines.append("OK: no findings")
+        else:
+            lines.append(f"{len(self.findings)} finding(s):")
+            lines += ["  " + f.format() for f in self.findings]
+        return "\n".join(lines)

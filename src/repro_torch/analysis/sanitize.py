@@ -33,7 +33,7 @@ host arrays; a captured graph is never touched.  Install with
 from __future__ import annotations
 
 import weakref
-from typing import Set
+from typing import Optional, Set
 
 import numpy as np
 
@@ -57,7 +57,7 @@ class StepSanitizer:
         self.checks = 0            # model calls inspected
         self.pages_checked = 0     # (page, call) write destinations audited
         self.cancels_checked = 0   # quarantines audited
-        self.paged_widths: Set[int] = self._declared_paged_widths()
+        self.paged_widths = self._declared_paged_widths()
         self.flat_widths: Set[int] = (set(engine._flat_shapes())
                                       if engine.flat else set())
 
@@ -65,13 +65,17 @@ class StepSanitizer:
     def engine(self):
         return self._engine()
 
-    def _declared_paged_widths(self) -> Set[int]:
+    def _declared_paged_widths(self) -> Optional[Set[int]]:
+        """The widths a paged step may take; None (any) where monolithic
+        prefills run at exact lengths (m_r = 1)."""
         eng = self.engine
         widths = {1}
         if eng.spec_tokens is not None:
             widths.add(eng.spec_tokens + 1)
         if eng.chunked:
             return widths | set(eng._chunk_shapes())
+        if eng._bucket == 1:
+            return None
         l, seen = eng._bucket, set()
         while (b := eng._prefill_bucket(l)) not in seen:
             seen.add(b)
@@ -81,8 +85,9 @@ class StepSanitizer:
     def _fail(self, message: str) -> None:
         raise SanitizerError(f"REPRO_SANITIZE: {message}")
 
-    def _check_width(self, s: int, ladder: Set[int], kind: str) -> None:
-        if s not in ladder:
+    def _check_width(self, s: int, ladder: Optional[Set[int]],
+                     kind: str) -> None:
+        if ladder is not None and s not in ladder:
             self._fail(f"{kind} step width {s} is not in the declared shape "
                        f"ladder {sorted(ladder)} — warmup made no program "
                        f"(and on the card no graph) for it")

@@ -19,7 +19,7 @@ ladder.  This module carries the JAX package's pass 1 without its tracer:
   ``_prefill_bucket``).
 
 The JAX package's jaxpr audit (``trace=True``: every aval dim of every
-traced step a concrete int) has no PyTorch analogue yet; it raises.
+traced step a concrete int) has no PyTorch counterpart; it raises.
 """
 
 from __future__ import annotations
@@ -78,7 +78,8 @@ def step_families(engine) -> List[Tuple[str, StepGeometry]]:
                 fams.append((f"chunk[{b},{s}]/verify",
                              StepGeometry("paged", b, s, k1s[-1], b)))
         return fams
-    l, seen = engine._bucket, set()
+    # at m_r = 1 prefills run at exact lengths (no bucket ladder)
+    l, seen = engine._bucket, set() if engine._bucket > 1 else {1}
     while (bucket := engine._prefill_bucket(l)) not in seen:
         seen.add(bucket)
         fams.append((f"prefill[1,{bucket}]",
@@ -115,12 +116,12 @@ def _declared_chunk_ladder(engine) -> set:
 def lint_engine_shapes(engine, label: str = "engine", *,
                        trace: bool = False) -> List[Finding]:
     """Pass 1 on one engine configuration: the ladder algebra.  The JAX
-    package's ``trace=True`` jaxpr audit has no port yet and raises."""
+    package's ``trace=True`` jaxpr audit has no counterpart and raises."""
     if trace:
         raise NotImplementedError(
             "lint_engine_shapes(trace=True): the jaxpr audit of the JAX "
-            "package has no PyTorch counterpart yet (ROADMAP A7); use "
-            "trace=False for the ladder algebra")
+            "package has no PyTorch counterpart; use trace=False for the "
+            "ladder algebra")
     f: List[Finding] = []
     m_r = engine._bucket
     here = f"{label} ({engine.model.cfg.name})"

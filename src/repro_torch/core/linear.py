@@ -3,9 +3,11 @@
 ``linear_apply`` packs its input (unless it already is a
 :class:`PackedArray`) and runs mmt4d with the bias and activation fused;
 unless asked to keep the result packed, mmt4d's epilogue writes it
-unpacked (``unpack_to``), so no unpack kernel follows.  Weights live unpacked
-in the parameter tree; :func:`prepack_params` packs them once for serving
-(paper §4.1: packing as a standalone operation on the full operands).
+unpacked (``unpack_to``), so no unpack kernel follows.  Under the
+``unpacked`` policy it is a plain ``torch.matmul`` (the paper's baseline).
+Weights live unpacked in the parameter tree; :func:`prepack_params` packs
+them once for serving (paper §4.1: packing as a standalone operation on
+the full operands).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.layout import LayoutPolicy, PackedLayout, make_layout
-from repro_torch.core.mmt4d import Epilogue, mmt4d
+from repro_torch.core.mmt4d import Epilogue, matmul, mmt4d
 from repro_torch.core import packing
 from repro_torch.core.propagation import PackedArray, pack_activation
 
@@ -37,6 +39,11 @@ class MatmulContext:
     mesh_axes: Optional[tuple] = None
     dp_size: int = 1
     tp_size: int = 1
+
+    def __post_init__(self):
+        # a policy given by name ("unpacked") is the enum member, so that
+        # :attr:`packed` holds for it too
+        object.__setattr__(self, "policy", LayoutPolicy(self.policy))
 
     def layout(self, dtype: torch.dtype) -> PackedLayout:
         if self.hw is None:
@@ -80,10 +87,13 @@ def linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
     in float32 before its one cast, as the Pallas kernel does.  The JAX
     model path casts first and applies them after; the two orders agree in
     float32 and round differently in bfloat16."""
-    if not ctx.packed:
-        raise NotImplementedError("the unpacked policy comes with a later "
-                                  "slice of the port")
     epi = Epilogue(activation=activation)
+    if not ctx.packed:
+        if isinstance(x, PackedArray):
+            raise TypeError("the unpacked policy takes a plain tensor, not "
+                            "a PackedArray")
+        return matmul(x, params["w"], ctx.layout(x.dtype), epilogue=epi,
+                      bias=params.get("b"))
     if isinstance(x, PackedArray):
         layout, a_pack, m = x.layout, x.data, x.m
     else:

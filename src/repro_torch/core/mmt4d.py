@@ -29,12 +29,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.layout import PackedLayout
+from repro_torch.core.layout import LayoutPolicy, PackedLayout
 from repro_torch.core import packing
 from repro_torch.kernels.mmt4d.ops import mmt4d as mmt4d_kernel
 from repro_torch.kernels.mmt4d.ops import mmt4d_dgrad, mmt4d_wgrad
+from repro_torch.kernels.mmt4d.ref import ACTIVATIONS
 
-__all__ = ["mmt4d", "Epilogue"]
+__all__ = ["mmt4d", "Epilogue", "packed_matmul", "matmul"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +54,14 @@ class Epilogue:
             return None
         bp = packing.pad_to_tiles(bias[None, :], 1, layout.n_r)
         return bp.reshape(-1, layout.n_r).contiguous()
+
+    def apply_unpacked(self, c: torch.Tensor,
+                       bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The epilogue of a plain product ``c`` (already cast), in the
+        JAX package's order: bias, then the activation."""
+        if bias is not None:
+            c = c + bias
+        return ACTIVATIONS[self.activation](c)
 
 
 def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
@@ -108,3 +117,33 @@ class _Mmt4dFn(torch.autograd.Function):
             db, dbias = mmt4d_wgrad(dz, a_pack, z, activation=act,
                                     bias=need_bias)
         return da, db, dbias, None, None
+
+
+def packed_matmul(a: torch.Tensor, b: torch.Tensor, layout: PackedLayout, *,
+                  epilogue: Epilogue = Epilogue(),
+                  bias: Optional[torch.Tensor] = None,
+                  a_is_packed: bool = False,
+                  keep_packed: bool = False) -> torch.Tensor:
+    """pack -> mmt4d (epilogue fused) -> unpack, the paper's decomposition.
+    a [..., M, K] (or A_pack with ``a_is_packed``), b [K, N]; returns
+    C [..., M, N], or C_pack with ``keep_packed``.  The unpack is mmt4d's
+    unpacked store; an A_pack's M is its padded M_o·m_r."""
+    a_pack = a if a_is_packed else packing.pack_lhs(a, layout)
+    m = a_pack.shape[-4] * a_pack.shape[-2] if a_is_packed else a.shape[-2]
+    n = b.shape[-1]
+    return mmt4d(a_pack, packing.pack_rhs(b, layout),
+                 epilogue.bias_pack(bias, layout),
+                 activation=epilogue.activation,
+                 unpack_to=None if keep_packed else (m, n))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, layout: PackedLayout, *,
+           epilogue: Epilogue = Epilogue(),
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Policy-dispatched matmul.  Under ``unpacked`` a plain
+    ``torch.matmul`` (the JAX package's ``jnp.matmul``, which no Pallas
+    kernel computes either) with the epilogue after it; otherwise
+    :func:`packed_matmul`."""
+    if layout.policy is LayoutPolicy.UNPACKED:
+        return epilogue.apply_unpacked(torch.matmul(a, b), bias)
+    return packed_matmul(a, b, layout, epilogue=epilogue, bias=bias)

@@ -60,7 +60,13 @@
 //
 // float32 stays on the CUDA cores in IEEE arithmetic (TF32 tensor cores
 // would change the float32 results): one block per output tile loops over
-// K_o, staging the A and B tiles in shared memory, as the first port did.
+// K_o, staging A and B in shared memory a chunk of k at a time (`kc`
+// columns of the [m_r][k_r] and [n_r][k_r] tiles; ops.py passes 64), so a
+// scaled tile (k_r = 256 or 512) fits: 4 (8·64 + 512·65) = 135,168 B at
+// m_r·n_r = 8 × 512.  Each output's fmaf chain runs over (ko, kk) in the
+// same order whatever `kc` is, so the result does not depend on it: with
+// kc = k_r the kernel stages whole tiles, as the first port did, and gives
+// the same bits.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -93,12 +99,13 @@ constexpr int kMaxPerThread = 16;   // m_r * n_r <= 4096
 __global__ void __launch_bounds__(kF32Threads)
 mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  const float* __restrict__ bias, float* __restrict__ c,
-                 int64_t No, int64_t Ko, int m_r, int n_r, int k_r, int act,
-                 int64_t out_rows, int64_t out_cols, int64_t mo_per_batch) {
+                 int64_t No, int64_t Ko, int m_r, int n_r, int k_r, int kc,
+                 int act, int64_t out_rows, int64_t out_cols,
+                 int64_t mo_per_batch) {
   extern __shared__ float smem[];
-  float* As = smem;                    // [m_r][k_r]
-  float* Bs = smem + m_r * k_r;        // [n_r][k_r + 1]
-  const int bp = k_r + 1;
+  float* As = smem;                    // [m_r][kc]
+  float* Bs = smem + m_r * kc;         // [n_r][kc + 1]
+  const int bp = kc + 1;
   const int64_t mo = blockIdx.x / No, no = blockIdx.x % No;
   const int tid = threadIdx.x;
   const int outs = m_r * n_r;
@@ -111,22 +118,26 @@ mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int64_t ko = 0; ko < Ko; ++ko) {
     const float* at = a + (mo * Ko + ko) * a_tile;
     const float* bt = b + (no * Ko + ko) * b_tile;
-    for (int i = tid; i < a_tile; i += kF32Threads) As[i] = at[i];
-    for (int i = tid; i < b_tile; i += kF32Threads)
-      Bs[(i / k_r) * bp + i % k_r] = bt[i];
-    __syncthreads();
+    for (int c0 = 0; c0 < k_r; c0 += kc) {
+      const int w = min(kc, k_r - c0);   // columns c0 .. c0 + w of the tiles
+      for (int i = tid; i < m_r * w; i += kF32Threads)
+        As[(i / w) * kc + i % w] = at[(i / w) * k_r + c0 + i % w];
+      for (int i = tid; i < n_r * w; i += kF32Threads)
+        Bs[(i / w) * bp + i % w] = bt[(i / w) * k_r + c0 + i % w];
+      __syncthreads();
 #pragma unroll
-    for (int q = 0; q < kMaxPerThread; ++q) {
-      const int o = tid + q * kF32Threads;
-      if (o < outs) {
-        const float* ar = As + (o / n_r) * k_r;
-        const float* br = Bs + (o % n_r) * bp;
-        float s = acc[q];
-        for (int kk = 0; kk < k_r; ++kk) s = fmaf(ar[kk], br[kk], s);
-        acc[q] = s;
+      for (int q = 0; q < kMaxPerThread; ++q) {
+        const int o = tid + q * kF32Threads;
+        if (o < outs) {
+          const float* ar = As + (o / n_r) * kc;
+          const float* br = Bs + (o % n_r) * bp;
+          float s = acc[q];
+          for (int kk = 0; kk < w; ++kk) s = fmaf(ar[kk], br[kk], s);
+          acc[q] = s;
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // output (mi, n) of the tile goes to dst[mi * pitch + n] where mi <
@@ -155,18 +166,19 @@ mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 int launch_f32(const void* a, const void* b, const void* bias, void* c,
                int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
-               int act, int64_t out_rows, int64_t out_cols, int64_t mo_per_batch,
-               cudaStream_t stream) {
+               int kc, int act, int64_t out_rows, int64_t out_cols,
+               int64_t mo_per_batch, cudaStream_t stream) {
   if ((int64_t)m_r * n_r > (int64_t)kF32Threads * kMaxPerThread)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)m_r * k_r + (size_t)n_r * (k_r + 1));
+  if (kc < 1 || kc > k_r) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)m_r * kc + (size_t)n_r * (kc + 1));
   if (smem > (size_t)repro::kMaxSmem) return (int)cudaErrorInvalidValue;
   static bool configured[repro::kMaxDevices] = {};
   if (int e = repro::opt_in_smem(mmt4d_f32_kernel, configured)) return e;
   if (Mo * No == 0) return 0;
   mmt4d_f32_kernel<<<(unsigned)(Mo * No), kF32Threads, smem, stream>>>(
       (const float*)a, (const float*)b, (const float*)bias, (float*)c, No, Ko,
-      m_r, n_r, k_r, act, out_rows, out_cols, mo_per_batch);
+      m_r, n_r, k_r, kc, act, out_rows, out_cols, mo_per_batch);
   return (int)cudaGetLastError();
 }
 
@@ -466,7 +478,8 @@ bool unpacked_extent_ok(int64_t Mo, int64_t No, int m_r, int n_r,
 }  // namespace
 
 // rows, tm, splits: the bfloat16 decomposition picked by
-// kernels/mmt4d/ops.py:pick_split (ignored for float32).  out_rows,
+// kernels/mmt4d/ops.py:pick_split; for float32, rows is the k chunk staged
+// at a time (tm and splits ignored).  out_rows,
 // out_cols, mo_per_batch: the unpacked store (all 0: C is C_pack).
 extern "C" int repro_mmt4d(const void* a, const void* b, const void* bias,
                            void* c, int dtype, int64_t Mo, int64_t No,
@@ -475,9 +488,9 @@ extern "C" int repro_mmt4d(const void* a, const void* b, const void* bias,
                            int64_t out_cols, int64_t mo_per_batch, void* stream) {
   if (!unpacked_extent_ok(Mo, No, m_r, n_r, out_rows, out_cols, mo_per_batch))
     return (int)cudaErrorInvalidValue;
-  if (dtype == repro::kF32)
-    return launch_f32(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, out_rows,
-                      out_cols, mo_per_batch, (cudaStream_t)stream);
+  if (dtype == repro::kF32)   // `rows` carries the float32 path's k chunk
+    return launch_f32(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, rows, act,
+                      out_rows, out_cols, mo_per_batch, (cudaStream_t)stream);
   if (dtype == repro::kBF16)
     return launch_bf16(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, rows,
                        tm, splits, out_rows, out_cols, mo_per_batch,

@@ -6,8 +6,9 @@ the kernel or raises.  Operands are contiguous packed tiles of one dtype
 (float32 or bfloat16); accumulation, bias and activation are float32, then
 one cast.  bfloat16 runs on the tensor cores, cut by :func:`pick_split`
 (K split in a thread-block cluster only where a block's K range is long);
-float32 runs on the CUDA cores in IEEE arithmetic.  One launch per call
-either way.
+float32 runs on the CUDA cores in IEEE arithmetic, staging ``F32_CHUNK``
+columns of k at a time, so it takes any ``k_r`` with ``m_r·n_r <= 4096``.
+One launch per call either way.
 
 With ``unpack_to=(m, n)`` the same launch writes ``C[..., m, n]`` row-major,
 the tile padding dropped, instead of ``C_pack``: the unpacked store, which
@@ -36,7 +37,7 @@ from repro_torch.kernels.unpack.ref import unpack_ref
 
 __all__ = ["mmt4d", "mmt4d_dgrad", "mmt4d_wgrad", "ACTIVATION_CODES", "Split",
            "pick_split", "unpacked_index", "gemm_operands", "pick_grad_split",
-           "grad_tiles_ok", "grad_tma", "grad_store_offset"]
+           "grad_tiles_ok", "grad_tma", "grad_store_offset", "F32_CHUNK"]
 
 # activation name -> the code csrc/mmt4d.cu switches on (same keys as ACTIVATIONS)
 ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2, "relu": 3, "tanh": 4}
@@ -47,6 +48,10 @@ MAX_CLUSTER = 8          # portable thread-block cluster size
 ROWS = (64, 32, 16)      # weight rows per block
 WARPS = 8                # per block: 16 rows each, K chunks split among them
 CHUNKS_IN_FLIGHT = 4     # 32-wide K chunks a warp of a narrow block loads ahead
+# the float32 kernel: columns of k staged in shared memory at a time (read
+# at each call); the sums do not depend on it (one fmaf order), only the
+# shared memory does, and at F32_CHUNK >= k_r whole tiles are staged
+F32_CHUNK = 64
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -189,7 +194,7 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     build.require_contiguous("mmt4d", a_pack=a_pack, b_pack=b_pack,
                              **({"bias_pack": bias_pack} if extra else {}))
     m_o = math.prod(lead) * mo_b          # leading dims folded into M_o
-    picks = (0, 0, 0)
+    picks = (min(F32_CHUNK, k_r), 0, 0)     # float32: the k chunk
     if a_pack.dtype == torch.bfloat16:
         if m_r % 8 or m_r > MAX_COLS or n_r % 64 or k_r % 16 or k_o == 0:
             raise ValueError(f"mmt4d: bfloat16 tiles m_r={m_r}, n_r={n_r}, "

@@ -19,6 +19,13 @@ from ``--seed``.  It runs the batch twice: the first call makes the
 step's programs (on the card, captures its two graphs), the second is
 timed and must make none.
 
+``--policy`` picks the layout policy (``scalable``, the default;
+``fixed``; ``unpacked``, plain ``torch.matmul`` with no mmt4d, pack or
+unpack) and ``$REPRO_HW`` the hardware descriptor whose tiles the layout
+takes (``h100``, ``h100_vl256``, ``h100_vl512`` on the card; ``tpu_v5e``,
+``tpu_vl256``, ``tpu_vl512`` ... on the CPU); the launcher prints the
+descriptor and its tiles.
+
 ``--eager`` reserves each request's whole KV lifetime at admission.  The
 other defaults are the requests of ``chip_smoke.py``'s drains: 8
 requests, prompts of 64-512 tokens, 32 new tokens each, 4 slots, seq_len
@@ -30,6 +37,8 @@ Usage (on a machine with a CUDA card; ``--device cpu`` runs the kernels'
 plain versions instead):
     PYTHONPATH=src python -m repro_torch.launch.serve --chunk-tokens 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
+    REPRO_HW=h100_vl512 PYTHONPATH=src python -m repro_torch.launch.serve \
+        --chunk-tokens 128 --policy fixed
 ``--profile trace.json`` traces the drain with ``torch.profiler`` and
 prints the device time of each kernel (those of graph replays included),
 the device's idle share, and the port's kernel launches the trace saw
@@ -49,6 +58,14 @@ from repro_torch import kernels
 from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Engine
+
+
+def describe_hw(model) -> str:
+    """The model's descriptor, policy and tiles, as the launchers print it."""
+    lay = model.ctx.layout(model.compute_dtype)
+    return (f"hardware {model.ctx.hw.name}, policy {lay.policy.value}, tiles "
+            f"(m_r, n_r, k_r) = ({lay.m_r}, {lay.n_r}, {lay.k_r}) in "
+            f"{lay.dtype}")
 
 
 def _timed_drain(engine: Engine):
@@ -182,6 +199,10 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--policy", default="scalable",
+                    choices=["scalable", "fixed", "unpacked"],
+                    help="the layout policy; the descriptor comes from "
+                         "$REPRO_HW (the device's own without it)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--min-prompt", type=int, default=64)
@@ -217,9 +238,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    run = RunConfig(param_dtype=args.dtype, compute_dtype=args.dtype)
+    run = RunConfig(param_dtype=args.dtype, compute_dtype=args.dtype,
+                    layout_policy=args.policy)
     model = build_model(cfg, run, ShapeSpec("serve", args.max_len, args.slots,
                                             "decode"), device=args.device)
+    print(f"[serve] {describe_hw(model)}")
     params = model.init(torch.Generator().manual_seed(args.seed))
     if args.static or cfg.family in ("encdec", "vlm"):
         return serve_static(model, params, args)
@@ -262,9 +285,15 @@ def main(argv=None):
                                         kernels.launch_counts().items() if v})
     else:
         finished, wall = _timed_drain(engine)
-    if engine.stats()["compiles"] != warm:
-        raise RuntimeError(f"the drain made new programs after warmup: "
-                           f"{warm} -> {engine.stats()['compiles']}")
+    made = engine.stats()["compiles"]
+    if made != warm:
+        # at m_r = 1 (the unpacked policy) the monolithic step prefills at
+        # exact lengths, as the JAX package does: one program per length
+        if engine.chunked or engine._bucket > 1:
+            raise RuntimeError(f"the drain made new programs after warmup: "
+                               f"{warm} -> {made}")
+        print(f"[serve] exact-length prefills (m_r = 1) made "
+              f"{sum(made.values()) - sum(warm.values())} programs in the drain")
     total = sum(len(r.out_tokens) for r in finished)
     print(f"[serve] {cfg.name} on {engine.device}: {len(finished)} requests, "
           f"{total} tokens in {wall:.6f} s ({total / wall:.4f} tokens/s), "

@@ -7,13 +7,17 @@ the step into a CUDA graph, which every later step replays.
 ``--profile out.json.gz`` (on the card) traces every step after the first
 (the replays) with ``torch.profiler`` and prints the device time by
 kernel, summed per port kernel and for PyTorch's own, with the device's
-idle share.
+idle share.  ``--policy`` picks the layout policy and ``$REPRO_HW`` the
+hardware descriptor (as in :mod:`repro_torch.launch.serve`); the launcher
+prints both and the tiles.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --steps 20 --seq 1024 \
         --batch 4 --dtype bfloat16
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
         --steps 4 --seq 32 --batch 2
+    REPRO_HW=tpu_vl512 PYTHONPATH=src python -m repro_torch.launch.train \
+        --reduced --device cpu --steps 4 --seq 32 --batch 2 --policy unpacked
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.serve import describe_hw
 from repro_torch.models.model import build_model
 from repro_torch.training.trainer import Trainer
 
@@ -69,6 +74,7 @@ def main(argv=None):
                     remat=False, warmup_steps=min(20, args.steps // 5 + 1))
 
     model = build_model(cfg, run, shape, device=args.device)
+    print(f"[train] {describe_hw(model)}")
     data = SyntheticLM(cfg, shape, seed=args.seed)
     trainer = Trainer(model, data, run, ckpt_dir=args.ckpt_dir,
                       total_steps=args.steps, ckpt_every=args.ckpt_every)

@@ -159,13 +159,17 @@ def kv_page_bytes_per_token(caches, num_pages: int, page_tokens: int) -> float:
 
 def build_cost_model(engine, hw=None) -> StepCostModel:
     """Price every step family of ``engine`` against ``hw`` (default:
-    :func:`repro_torch.core.hardware.query` of the engine's device) in
-    closed form — see the module docstring for the counts.  Runs once, at
-    warmup, and touches no model step."""
+    :func:`repro_torch.core.hardware.query` of the engine's device; on the
+    card its own descriptor whatever ``$REPRO_HW`` says, since a scaled
+    descriptor's peaks are not the card's) in closed form — see the module
+    docstring for the counts.  Runs once, at warmup, and touches no model
+    step."""
     from repro_torch.analysis.shapes import step_families
     from repro_torch.core.hardware import query
 
-    hw = hw if hw is not None else query(engine.device)
+    if hw is None:
+        own = "h100" if engine.device.type == "cuda" else None
+        hw = query(engine.device, own)
     model, cfg = engine.model, engine.model.cfg
     dtype = model.compute_dtype
     peak = hw.peak_flops(dtype)

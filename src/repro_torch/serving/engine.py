@@ -785,7 +785,11 @@ class Engine:
         doubled until it holds ``l``, at most ``max_len`` rounded up to
         ``m_r``.  Preemption folds generated tokens into prompts, so
         lengths are arbitrary; the buckets keep the step shapes (and the
-        graphs) at ``log2(max_len / m_r) + 1``."""
+        graphs) at ``log2(max_len / m_r) + 1``.  At ``m_r = 1`` (the
+        unpacked policy) a prompt prefills at its exact length, as in the
+        JAX package, which buckets only where ``m_r > 1``."""
+        if self._bucket == 1:
+            return l
         b = self._bucket
         while b < l:
             b *= 2
@@ -1068,7 +1072,8 @@ class Engine:
                                     np.zeros((b, k1s[-1]), np.int32))
         else:
             z1 = np.zeros((1,), np.int32)
-            bucket, seen = self._bucket, set()
+            # at m_r = 1 prefills run at exact lengths: nothing to make here
+            bucket, seen = self._bucket, set() if self._bucket > 1 else {1}
             while (bucket := self._prefill_bucket(bucket)) not in seen:
                 seen.add(bucket)
                 view = prefill_view(self.caches,

@@ -649,8 +649,8 @@ def test_copier_fault_leaves_pools_and_refcounts(gen):
 _GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def _grad_case(gen, dtype, lead, m, k, n, act):
-    lay = make_layout("scalable", query("cuda"), dtype)
+def _grad_case(gen, dtype, lead, m, k, n, act, lay=None):
+    lay = lay or make_layout("scalable", query("cuda"), dtype)
     ap = packing.pack_lhs(_rand(gen, (*lead, m, k), dtype), lay)
     bp = packing.pack_rhs(_rand(gen, (k, n), dtype), lay)
     dy = packing.pack_out(_rand(gen, (*lead, m, n), dtype), lay)
@@ -992,3 +992,125 @@ def test_whisper_bias_gelu_mmt4d_full_width(gen, dtype, tol, m):
                         MatmulContext(hw=query("cuda")), activation="gelu",
                         keep_packed=True)
     assert _close(got.unpack().cpu(), want.unpack(), tol)
+
+
+# ------------------------------------- scaled descriptors, layout policies
+
+_SCALED = ["h100_vl256", "h100_vl512"]
+_CPU_TWIN = {"h100": "tpu_v5e", "h100_vl256": "tpu_vl256", "h100_vl512": "tpu_vl512"}
+
+
+def test_query_names_on_the_card(gen):
+    """``h100_vl256``/``h100_vl512`` are the card's own descriptor scaled 2
+    and 4 times (lanes, mxu_k and the peaks; the memory system kept), with
+    the tiles of the mirrored TPU presets; a ``tpu_*`` name is refused."""
+    from repro_torch.core.hardware import presets
+    base = query("cuda")
+    for name, f in (("h100", 1), ("h100_vl256", 2), ("h100_vl512", 4)):
+        hw = query("cuda", name)
+        assert hw.name == name and hw.lanes == 128 * f and hw.mxu_k == 128 * f
+        assert hw.flops_bf16 == f * base.flops_bf16 and hw.hbm_bw == base.hbm_bw
+        for dt in (torch.float32, torch.bfloat16):
+            for pol in ("scalable", "fixed", "unpacked"):
+                lay = make_layout(pol, hw, dt)
+                twin = make_layout(pol, presets[_CPU_TWIN[name]], dt)
+                assert (lay.m_r, lay.n_r, lay.k_r) == (twin.m_r, twin.n_r, twin.k_r)
+    with pytest.raises(ValueError):
+        query("cuda", "tpu_vl512")
+
+
+@pytest.mark.parametrize("act", [None, "silu", "gelu"])
+@pytest.mark.parametrize("unpacked", [False, True], ids=["packed", "unpacked"])
+def test_mmt4d_f32_chunks_equal_whole_tile_staging(gen, monkeypatch, unpacked, act):
+    """The float32 kernel stages 64 columns of k at a time; staging whole
+    128-wide tiles (``F32_CHUNK = k_r``, the kernel before k was chunked)
+    or chunks of 16 or 100 gives the same bits: each output's fmaf chain
+    runs in one order."""
+    from repro_torch.kernels.mmt4d import ops
+    lay = make_layout("scalable", query("cuda"), torch.float32)
+    m, k, n = 40, 5 * 128 + 40, 700
+    ap = packing.pack_lhs(_rand(gen, (m, k), torch.float32), lay)
+    bp = packing.pack_rhs(_rand(gen, (k, n), torch.float32) * k ** -0.5, lay)
+    bias = Epilogue().bias_pack(_rand(gen, (n,), torch.float32), lay)
+    to = (m, n) if unpacked else None
+    got = mmt4d(ap, bp, bias, activation=act, unpack_to=to)
+    for chunk in (lay.k_r, 16, 100):
+        monkeypatch.setattr(ops, "F32_CHUNK", chunk)
+        assert torch.equal(got, mmt4d(ap, bp, bias, activation=act,
+                                      unpack_to=to)), chunk
+    want = mmt4d_ref(ap, bp, bias, activation=act)
+    want = unpack_ref(want, m, n) if unpacked else want
+    assert _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("hw_name", _SCALED)
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+def test_kernels_at_scaled_tiles(gen, hw_name, dtype, tol):
+    """Every kernel at the scaled tiles (n_r = k_r = 256, 512) against its
+    plain version, at SmolLM2's widths: mmt4d (gate with silu, K/V, the
+    unpacked store), pack (stream entry, W^T), unpack (final stream),
+    dgrad and wgrad."""
+    lay = make_layout("scalable", query("cuda", hw_name), dtype)
+    assert lay.n_r == lay.k_r == {"h100_vl256": 256, "h100_vl512": 512}[hw_name]
+    x = _rand(gen, (1, 16, 576), dtype)
+    xp = pack(x, lay.m_r, lay.k_r)
+    assert torch.equal(xp, pack_ref(x, lay.m_r, lay.k_r))
+    assert torch.equal(unpack(xp, 16, 576), x)
+    for k, n, act in ((576, 1536, "silu"), (576, 192, None), (1536, 576, None)):
+        w = (_rand(gen, (k, n), dtype).float() * k ** -0.5).to(dtype)
+        bp = packing.pack_rhs(w, lay)           # W^T, as prepack_params packs it
+        assert torch.equal(bp, pack_ref(w.T, lay.n_r, lay.k_r))
+        ap = packing.pack_lhs(_rand(gen, (1, 16, k), dtype), lay)
+        want = mmt4d_ref(ap[0], bp, activation=act)[None]
+        assert _close(mmt4d(ap, bp, activation=act), want, tol), (k, n)
+        got = mmt4d(ap, bp, activation=act, unpack_to=(16, n))
+        assert torch.equal(got, unpack(mmt4d(ap, bp, activation=act), 16, n))
+    ap, bp, dy, z = _grad_case(gen, dtype, (), 256, 576, 1536, "silu", lay)
+    assert _close(mmt4d_dgrad(dy, bp, z, activation="silu"),
+                  mmt4d_dgrad_ref(dy, bp, z, activation="silu"), _GRAD_TOL[dtype])
+    db, dbias = mmt4d_wgrad(dy, ap, z, activation="silu", bias=True)
+    want_db, want_bias = mmt4d_wgrad_ref(dy, ap, z, activation="silu", bias=True)
+    assert _close(db, want_db, _GRAD_TOL[dtype])
+    assert _close(dbias, want_bias, _GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("policy,hw_name", [("scalable", "h100_vl256"),
+                                            ("scalable", "h100_vl512"),
+                                            ("fixed", "h100_vl512"),
+                                            ("unpacked", "h100")])
+def test_flat_drain_card_equals_cpu_under_each_layout(gen, policy, hw_name):
+    """A float32 flat drain of SmolLM2's widths cut to 2 layers under each
+    (policy, descriptor): the card's graph replays give the CPU's tokens
+    (the CPU on the mirrored TPU preset, the same tiles); under
+    ``unpacked`` no mmt4d, pack or unpack launches."""
+    import dataclasses as dc
+
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.core.hardware import presets
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    cfg = dc.replace(get_config("smollm2-135m"), n_layers=2)
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    layout_policy=policy)
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(0, cfg.vocab, n), 6) for n in (5, 19, 33)]
+    toks = {}
+    for dev, hw in (("cuda", query("cuda", hw_name)),
+                    ("cpu", presets[_CPU_TWIN[hw_name]])):
+        model = build_model(cfg, run, ShapeSpec("serve", 64, 3, "decode"), hw=hw,
+                            device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        eng = Engine(model, params, device=dev, max_slots=3, chunk_tokens=16)
+        eng.warmup()
+        kernels.reset_launch_counts()
+        rids = [eng.add_request(p, n) for p, n in reqs]
+        fin = {r.rid: r.out_tokens for r in eng.drain()}
+        toks[dev] = [fin[r] for r in rids]
+        if dev == "cuda":
+            launches = kernels.launch_counts()
+            assert eng.stats()["captures"] == eng.stats()["compiles"]
+            assert launches["ragged_attn"] > 0
+            moved = launches["mmt4d"] + launches["pack"] + launches["unpack"]
+            assert (moved == 0) == (policy == "unpacked"), launches
+    assert toks["cuda"] == toks["cpu"]
