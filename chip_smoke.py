@@ -2,11 +2,13 @@
 
 Builds the port's CUDA kernels from src/repro_torch/csrc, holds each kernel
 against its plain PyTorch version on the card at the full-width SmolLM2-135M
-and whisper-small shapes of the serving paths (float32 and bfloat16) and
-times both, then serves full-width SmolLM2-135M (random weights from a
-seed) through each of the engine's three step families (flat, dense
-chunked, monolithic), every step a replay of a CUDA graph captured at
-warmup, and SmolLM2-135M and whisper-small through the static batch loop:
+and whisper-small shapes of the serving paths (float32 and bfloat16; ragged
+attention also at the d_head-128 configs' heads) and times both, then
+serves full-width SmolLM2-135M (random weights from a seed) through each of
+the engine's three step families (flat, dense chunked, monolithic), every
+step a replay of a CUDA graph captured at warmup, SmolLM2-135M and
+whisper-small through the static batch loop, and Qwen3-8B at full width
+and depth, three other dense configs and InternVL2's language model:
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds;
@@ -29,7 +31,10 @@ warmup, and SmolLM2-135M and whisper-small through the static batch loop:
      biased gelu up-projection at decode and over its encoder frames
      (beside torch._addmm_activation, itself held to the plain version), its
      tied head (vocab 51865, a partial last tile), its per-call weight
-     packs and its encoder output's unpack;
+     packs and its encoder output's unpack; ragged_attn also at d_head 128,
+     both dtypes: Qwen3-8B's decode rows (32 query heads over 8) and a
+     mixed prefill at W = 512, ChatGLM3-6B's decode rows (32 over 2: tiles
+     of 8 positions);
   4. float32 end to end, each family: a greedy drain of 4 requests on the
      card (after warmup; no graph captured during the drain) and on the CPU
      (plain versions), same weights and prompts: identical tokens, in every
@@ -155,10 +160,28 @@ warmup, and SmolLM2-135M and whisper-small through the static batch loop:
      then a crash
      injected after a checkpoint and the resume, whose history and final
      parameters and optimizer state equal an uninterrupted run's bit for bit;
- 14. the kernels JSON line (launches from the main path of each kernel: the
+ 14. the dense configs and the vlm family at their published widths:
+     Qwen3-8B at full depth (36 layers, 8.19 B parameters, weights drawn
+     on the card) through the bf16 flat drain of phase 5's shape (8
+     requests, prompts 64-512, 32 new), its launches per model call
+     checked, then a second drain capturing nothing with the same tokens;
+     printed: ms per step and tokens/s beside the weight-bytes bound,
+     launches per step, peak memory, init, prepack and warmup seconds;
+     Qwen2-7B (QKV bias, 28 over 4 heads: g = 7), ChatGLM3-6B (partial 2d
+     RoPE, g = 16) and OLMo-1B (non-parametric LayerNorm, MHA, tied head),
+     each cut to 2 layers: the f32 flat drain card = CPU token for token
+     (first-call logits within F32_MARGIN), and a bf16 drain whose picks
+     agree with the f32 drain's wherever the top-2 margin is at least
+     BF16_MARGIN; InternVL2-26B's language model behind its stub vision
+     prefix through generate_static ((256 patches + 256 prompt tokens),
+     32 new): f32 at 2 layers, batch 2, card = CPU, bf16 at 8 of its 48
+     layers, batch 4, each with static_run's checks (the vision prefix counted once
+     per batch), prefill and decode ms;
+ 15. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
-     the gradient kernels; each other path's beside them; each kernel's
-     representative case at the scaled tiles), then the result line.
+     the gradient kernels; each other path's beside them, phase 14's
+     included; each kernel's representative case at the scaled tiles;
+     ragged_attn's d_head-128 cases), then the result line.
 
 Usage:  python3 chip_smoke.py [--out results.json]
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -700,6 +723,18 @@ class KernelChecks:
                       "whisper tied head embed (per call)", cold=True)
             self.unpack(dtype, 1024, 768, m_r, 128, "whisper encoder output")
 
+    def run_d128(self):
+        """ragged_attn at d_head 128, both dtypes, at the served configs'
+        heads: Qwen3-8B's decode rows (32 query heads over 8, g = 4) and a
+        mixed prefill step of its flat ladder's widest width, ChatGLM3-6B's
+        decode rows (32 over 2, g = 16: tiles of 8 positions)."""
+        for dtype in (BF, TF):
+            self.ragged(dtype, [(0, 300, 1), (1, 511, 1), (2, 95, 1), (3, 1000, 1)],
+                        16, "d128 qwen3-8b decode rows", hq=32, hkv=8, dh=128)
+            self.ragged(dtype, [(0, 300, 1), (1, 511, 1), (2, 95, 1), (3, 1000, 1)],
+                        16, "d128 chatglm3-6b decode rows", hq=32, hkv=2, dh=128)
+            self.ragged(dtype, [(0, 600, 1), (1, 64, 1), (2, 0, 300), (3, 128, 206)],
+                        512, "d128 qwen3-8b mixed prefill", hq=32, hkv=8, dh=128)
 
     def run_scaled(self):
         """The serving path's kernels at this descriptor's tiles (a scaled
@@ -897,14 +932,14 @@ def descriptor(device, hw_name):
 
 
 def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
-              hw_name="h100"):
+              hw_name="h100", params=None):
     """A drain at full width in float32 through one step family, greedy or
     sampled (seed 11; the requests' temperatures 1.0, 0.7, 1.3 and 0 in
     turn), under a layout policy and descriptor (the CPU: the descriptor's
     TPU twin); returns tokens, the first model call's logits, each pick's
     (rid, position) -> (token, perturbed top-2 margin), and on the card the
     graphs captured at warmup and the shapes checked replay against
-    eager."""
+    eager.  ``params``: the weights (default: a CPU generator's, seed 0)."""
     from repro_torch.configs import RunConfig, ShapeSpec
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
@@ -912,7 +947,8 @@ def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
                     layout_policy=policy)
     model = build_model(cfg, run, ShapeSpec("serve", 64, 4, "decode"),
                         hw=descriptor(device, hw_name), device=device)
-    params = model.init(torch.Generator().manual_seed(0))
+    if params is None:
+        params = model.init(torch.Generator().manual_seed(0))
     eng = Engine(model, params, device=device, max_slots=4, page_tokens=16,
                  **FAMILIES_F32[family])
     info = {}
@@ -933,7 +969,7 @@ def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
 
 
 def compare_f32(cfg, prompts, family, greedy=True, policy="scalable",
-                hw_name="h100") -> dict:
+                hw_name="h100", params=None) -> dict:
     """The f32 drain of one family on the card and on the CPU (under a
     layout policy and descriptor).  Greedy: identical tokens (the first
     differing pick, with both top-2 margins, is printed before failing).
@@ -941,7 +977,7 @@ def compare_f32(cfg, prompts, family, greedy=True, policy="scalable",
     margin is below F32_MARGIN, whose request is compared no further; the
     count of such picks is printed."""
     t0 = time.perf_counter()
-    layout = dict(policy=policy, hw_name=hw_name)
+    layout = dict(policy=policy, hw_name=hw_name, params=params)
     cuda_toks, cuda_first, cuda_picks, info = serve_f32("cuda", cfg, prompts,
                                                         family, greedy, **layout)
     cpu_toks, cpu_first, cpu_picks, _ = serve_f32("cpu", cfg, prompts, family,
@@ -964,13 +1000,14 @@ def compare_f32(cfg, prompts, family, greedy=True, policy="scalable",
     return {"tokens": cuda_toks, "first_logit_diff": diff, **cmp, **info}
 
 
-def drain_bf16(cfg, family, prompts, eng=None) -> dict:
+def drain_bf16(cfg, family, prompts, eng=None, expected=None) -> dict:
     """The bf16 drain of one family at full width: warmup (its graphs,
     seconds and the device memory it reserved), then the requests with
     every wrapper count set to 0 just before and read just after; every
     request finishes, no graph is captured during the drain, replay equals
     eager at two shapes, and each model call launches the expected
-    kernels."""
+    kernels (``expected``: (counts per call, unpacked stores per call);
+    default SmolLM2-135M's)."""
     from repro_torch import kernels
     from repro_torch.configs import RunConfig, ShapeSpec
     from repro_torch.models.model import build_model
@@ -1029,15 +1066,16 @@ def drain_bf16(cfg, family, prompts, eng=None) -> dict:
     if len(check.checked) < 2:
         raise AssertionError(f"{family}: replay checked at {len(check.checked)} "
                              f"shapes, not 2")
-    expected = EXPECTED_PER_STEP if eng.flat else EXPECTED_PER_PAGED_CALL
-    for k, per in expected.items():
+    if expected is None:
+        expected = (EXPECTED_PER_STEP if eng.flat else EXPECTED_PER_PAGED_CALL,
+                    EXPECTED_UNPACKED_PER_STEP)
+    for k, per in expected[0].items():
         if launches[k] != per * n:
             raise AssertionError(f"{family} {k}: {launches[k]} launches over {n} "
                                  f"model calls, expected {per} per call")
-    if unpacked != EXPECTED_UNPACKED_PER_STEP * n:
+    if unpacked != expected[1] * n:
         raise AssertionError(f"{family} mmt4d: {unpacked} unpacked stores over "
-                             f"{n} calls, expected {EXPECTED_UNPACKED_PER_STEP} "
-                             f"per call")
+                             f"{n} calls, expected {expected[1]} per call")
     return {"family": family, "steps": st["steps"], "model_calls": n,
             "wall_s": wall, "ms_per_step": 1e3 * wall / st["steps"],
             "tokens": ntok, "tokens_per_s": ntok / wall, "warmup_s": warm_s,
@@ -1308,36 +1346,45 @@ def static_per_call(cfg) -> dict:
     call, stored unpacked).  encdec (weights packed on every call): per
     layer the self-attention's Q/K/V/O, the cross-attention's Q and O and
     the MLP's biased gelu up and down projections, each weight packed, the
-    two O inputs packed, Q/K/V and the cross Q stored unpacked."""
+    two O inputs packed, Q/K/V and the cross Q stored unpacked.  An untied
+    head (vlm) is prepacked: no pack per call."""
     n = cfg.n_layers
     if cfg.family == "encdec":
         return {"mmt4d": 8 * n + 1, "pack": 1 + 10 * n + 1, "unpack": 0,
                 "ragged_attn": 0, "mmt4d.unpacked_stores": 4 * n + 1,
                 "mmt4d.bias_activation": n}
-    return {"mmt4d": 7 * n + 1, "pack": 1 + n + 1, "unpack": 0, "ragged_attn": 0,
+    return {"mmt4d": 7 * n + 1, "pack": 1 + n + int(cfg.tie_embeddings),
+            "unpack": 0, "ragged_attn": 0,
             "mmt4d.unpacked_stores": 3 * n + 1, "mmt4d.bias_activation": 0}
 
 
-def encoder_per_batch(cfg) -> dict:
-    """The counts of whisper's encoder and cross K/V, once per batch:
-    the frontend projector (frames and weight packed, stored unpacked), the
-    stream entry pack, per encoder layer Q/K/V/O and the biased gelu MLP
-    (weights packed, the O input packed), the final unpack, then per
-    decoder layer the cross K and V (the encoder output and each weight
-    packed, stored unpacked)."""
+def per_batch(cfg) -> dict:
+    """The counts made once per static batch.  whisper's encoder and cross
+    K/V: the frontend projector (frames and weight packed, stored
+    unpacked), the stream entry pack, per encoder layer Q/K/V/O and the
+    biased gelu MLP (weights packed, the O input packed), the final
+    unpack, then per decoder layer the cross K and V (the encoder output
+    and each weight packed, stored unpacked).  The vlm prefix: the
+    patches packed, ``vision_proj`` (prepacked) stored unpacked.  No
+    other family has any."""
+    if cfg.family == "vlm":
+        return {"mmt4d": 1, "pack": 1, "unpack": 0, "ragged_attn": 0,
+                "mmt4d.unpacked_stores": 1, "mmt4d.bias_activation": 0}
+    if cfg.family != "encdec":
+        return {}
     e, n = cfg.encoder_layers, cfg.n_layers
     return {"mmt4d": 1 + 6 * e + 2 * n, "pack": 3 + 7 * e + 4 * n, "unpack": 1,
             "ragged_attn": 0, "mmt4d.unpacked_stores": 1 + 3 * e + 2 * n,
             "mmt4d.bias_activation": e}
 
 
-def static_batch(cfg) -> dict:
+def static_batch(cfg, batch=STATIC_BATCH) -> dict:
     """The launcher's static batch at this phase's sizes
     (``python -m repro_torch.launch.serve --static``): seeded prompts and,
     for whisper, frames from a seeded torch.Generator."""
     from repro_torch.launch.serve import static_batch as launcher_batch
     return launcher_batch(cfg, argparse.Namespace(
-        seed=0, slots=STATIC_BATCH, prompt_len=STATIC_PROMPT, max_len=STATIC_SEQ))
+        seed=0, slots=batch, prompt_len=STATIC_PROMPT, max_len=STATIC_SEQ))
 
 
 class StaticRecorder:
@@ -1382,21 +1429,24 @@ def static_picks(out: np.ndarray, rows: list) -> dict:
     return picks
 
 
-def static_engine(cfg, dtype, device):
+def static_engine(cfg, dtype, device, params=None, batch=STATIC_BATCH):
+    """A static engine in ``dtype`` on ``device`` over ``params`` (default:
+    drawn from a CPU generator, seed 0) for batches of ``batch`` rows."""
     from repro_torch.configs import RunConfig, ShapeSpec
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
     name = str(dtype)[6:]
     model = build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
-                        ShapeSpec("serve", STATIC_SEQ, STATIC_BATCH, "decode"),
+                        ShapeSpec("serve", STATIC_SEQ, batch, "decode"),
                         device=device)
-    eng = Engine(model, model.init(torch.Generator().manual_seed(0)),
-                 device=device, max_slots=STATIC_BATCH)
+    if params is None:
+        params = model.init(torch.Generator().manual_seed(0))
+    eng = Engine(model, params, device=device, max_slots=batch)
     eng._decode_step = StaticRecorder(eng._decode_step, device == "cuda")
     return eng
 
 
-def static_run(cfg, dtype, label) -> dict:
+def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH) -> dict:
     """One model's static batch on the card in ``dtype``: a first call
     (captures the prefill and decode graphs), a second with the wrapper
     counts set to 0 just before and read just after (timed: wall, tokens/s,
@@ -1408,9 +1458,11 @@ def static_run(cfg, dtype, label) -> dict:
     the card's synchronising calls made errors (the cache write, its mask
     and whisper's position gather stay on the device)."""
     from repro_torch import kernels
-    eng = static_engine(cfg, dtype, "cuda")
+    eng = static_engine(cfg, dtype, "cuda", params, batch)
+    del params
     rec = eng._decode_step
-    model, batch = eng.model, static_batch(cfg)
+    nb, batch = batch, static_batch(cfg, batch)
+    model = eng.model
     enc_ev = []
     caches_fn = eng._static_caches
 
@@ -1445,12 +1497,12 @@ def static_run(cfg, dtype, label) -> dict:
         raise AssertionError(f"{label}: {made} programs and graphs, not 2 each")
     if not np.array_equal(out, first):
         raise AssertionError(f"{label}: two calls on the same batch differ")
-    if out.shape != (STATIC_BATCH, STATIC_NEW) or out.min() < 0 \
+    if out.shape != (nb, STATIC_NEW) or out.min() < 0 \
             or out.max() >= cfg.vocab:
         raise AssertionError(f"{label}: tokens {out.shape} outside the vocabulary")
     calls = len(step_ms)
     per = static_per_call(cfg)
-    enc = encoder_per_batch(cfg) if cfg.family == "encdec" else {}
+    enc = per_batch(cfg)
     for k, n in per.items():
         want = n * calls + enc.get(k, 0)
         if counts[k] != want:
@@ -1468,7 +1520,7 @@ def static_run(cfg, dtype, label) -> dict:
                              f"checked at {len(check.checked)} shapes")
     if not all(np.isfinite(r).all() for r in rows):
         raise AssertionError(f"{label}: non-finite logits")
-    caches = eng._static_bufs[(STATIC_BATCH,)
+    caches = eng._static_bufs[(nb,)
                               + ((model.enc_len,) if cfg.family == "encdec" else ())]
     tok = torch.as_tensor(out[:, -1:], device="cuda")
     pos = torch.full((), STATIC_PROMPT + STATIC_NEW, dtype=torch.int32, device="cuda")
@@ -1494,21 +1546,22 @@ def static_run(cfg, dtype, label) -> dict:
           f"second {wall:.6f} s wall, {ntok / wall:.2f} tokens/s, prefill "
           f"{step_ms[0]:.4f} ms, decode {res['decode_ms_per_step']:.4f} ms per "
           f"step (device, {calls - 1} steps)"
-          + (f", encoder and cross K/V {enc_ms:.4f} ms" if enc else "")
+          + (f", encoder and cross K/V {enc_ms:.4f} ms"
+             if cfg.family == "encdec" else "")
           + f"; no capture, no program; replay = eager bit for bit at 2 shapes")
     print(f"  {label}: launches {launches} (mmt4d unpacked stores "
           f"{counts['mmt4d.unpacked_stores']}, bias + activation epilogues "
           f"{counts['mmt4d.bias_activation']}); per decode step {per}"
-          + (f"; the encoder once per batch {enc}" if enc else ""))
+          + (f"; once per batch {enc}" if enc else ""))
     return res
 
 
-def static_cpu(cfg, dtype=TF) -> dict:
+def static_cpu(cfg, dtype=TF, params=None, batch=STATIC_BATCH) -> dict:
     """The same static batch on the CPU (the plain versions): its tokens
     and each step's picks with their top-2 margins."""
-    eng = static_engine(cfg, dtype, "cpu")
+    eng = static_engine(cfg, dtype, "cpu", params, batch)
     eng._decode_step.reset(rows=True)
-    out = eng.generate_static(static_batch(cfg), STATIC_NEW)
+    out = eng.generate_static(static_batch(cfg, batch), STATIC_NEW)
     return {"tokens": out, "picks": static_picks(out, eng._decode_step.rows)}
 
 
@@ -2535,6 +2588,253 @@ def training_phase(cfg, card) -> tuple:
     return out, by_path
 
 
+# --------------------------------------------------- dense configs and vlm
+
+# the served configs at full width: Qwen3-8B whole through the flat drain
+# in bfloat16; Qwen2-7B (QKV bias, g = 7), ChatGLM3-6B (partial 2d RoPE, QKV
+# bias, g = 16) and OLMo-1B (non-parametric LayerNorm, MHA, tied head), each
+# cut to PARITY_LAYERS layers; InternVL2-26B's language model through the
+# static loop, cut to VLM_LAYERS of its 48 layers in bfloat16 (all 48 do
+# not fit beside a prepacked copy) and to PARITY_LAYERS in float32
+PARITY_ARCHS = ("qwen2-7b", "chatglm3-6b", "olmo-1b")
+PARITY_LAYERS, VLM_LAYERS, VLM_F32_BATCH = 2, 8, 2
+
+
+def flat_per_call(cfg) -> tuple:
+    """(launches per flat model call by kernel, mmt4d unpacked stores per
+    call): per layer Q/K/V/O, gate, up and down (Q/K/V stored unpacked),
+    the O linear's input pack and one ragged attention; the stream entry
+    pack, the final stream's unpack and the logits rows' pack; the head
+    stored unpacked, its weight packed per call when it is the tied
+    embedding (SmolLM2-135M: EXPECTED_PER_STEP)."""
+    n = cfg.n_layers
+    return ({"mmt4d": 7 * n + 1, "pack": 2 + n + int(cfg.tie_embeddings),
+             "unpack": 1, "ragged_attn": n}, 3 * n + 1)
+
+
+def by_request(picks: dict) -> list:
+    """A drain's picks as each request's tokens, in request order."""
+    rids = sorted({r for r, _ in picks})
+    return [[t for (r, _), (t, _) in sorted(picks.items()) if r == rid]
+            for rid in rids]
+
+
+def qwen3_full(card) -> tuple:
+    """Qwen3-8B at its published widths and full depth (36 layers, d 4096,
+    32 query heads over 8 KV heads of 128, qk_norm, d_ff 12288, vocab
+    151936, untied head, rope_theta 1e6) in bfloat16 through the §4 flat
+    drain (8 requests, prompts 64-512, 32 new, 4 slots, 16-token pages,
+    seq_len 1024, chunk_tokens 128): weights drawn on the card, prepacked;
+    warmup (one graph per flat width); the drain with drain_bf16's checks
+    at this model's launches per call; a second drain of the same requests
+    that captures nothing and repeats the first's tokens.  Prints ms per
+    step and tokens/s beside the weight-bytes bound, launches per step by
+    kernel, peak memory and the init, prepack and warmup seconds."""
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.core.hardware import query
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    cfg = get_config("qwen3-8b")
+    hw = query("cuda", "h100")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, 4, "decode"),
+                        device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    step_bytes = weight_bytes - params["embed"]["e"].numel() * 2
+    t0 = time.perf_counter()
+    eng = Engine(model, params, device="cuda", max_slots=4, page_tokens=16,
+                 chunk_tokens=128)
+    torch.cuda.synchronize()
+    prepack_s = time.perf_counter() - t0
+    del params          # the engine keeps the prepacked copy (and the table)
+    bound_ms = 1e3 * weight_bytes / hw.hbm_bw
+    step_bound_ms = 1e3 * step_bytes / hw.hbm_bw
+    print(f"  qwen3-8b: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"query heads over {cfg.n_kv_heads} of {cfg.d_head}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}; {cfg.param_counts()['total']} parameters, "
+          f"{weight_bytes / 1e9:.3f} GB in bf16, drawn on the card in "
+          f"{init_s:.2f} s, prepacked in {prepack_s:.2f} s ({card})")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, 8)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+    print(f"  qwen3-8b prompts {lens.tolist()}")
+    rec = PickRecorder(eng)
+    expected = flat_per_call(cfg)
+    first = drain_bf16(cfg, "flat", prompts, eng, expected=expected)
+    first.pop("engine")
+    first_picks = dict(rec.picks)
+    check_path_launches("qwen3-8b flat bf16", first["launches"], True)
+    second = timed_drain(eng, [(p, 32, 0.0) for p in prompts], True, 0,
+                         "qwen3-8b bf16 flat, second drain")
+    if by_request(second.pop("picks")) != by_request(first_picks):
+        raise AssertionError("qwen3-8b: the second drain's tokens differ from "
+                             "the first's")
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / first["steps"] for k, v in first["launches"].items() if v}
+    print(f"  qwen3-8b: {first['ms_per_step']:.4f} ms per step "
+          f"({first['tokens_per_s']:.2f} tokens/s), second drain "
+          f"{second['ms_per_step']:.4f} ms per step ({second['tokens_per_s']:.2f} "
+          f"tokens/s, no capture, same tokens); bound: every weight read once a "
+          f"step, {weight_bytes / 1e9:.3f} GB / {hw.hbm_bw / 1e12:.2f} TB/s = "
+          f"{bound_ms:.4f} ms ({step_bound_ms:.4f} ms without the embedding "
+          f"table, of which a step gathers rows only); launches per step "
+          f"{per_step}; peak memory {peak / 2**30:.2f} GiB; warmup "
+          f"{first['warmup_s']:.3f} s ({card})")
+    res = {**first, "second": second, "init_s": init_s, "prepack_s": prepack_s,
+           "weight_bytes": weight_bytes, "bound_ms": bound_ms,
+           "step_bound_ms": step_bound_ms, "peak_bytes": peak,
+           "launches_per_step": per_step, "card": card}
+    del eng, rec
+    return res, {"qwen3-8b flat bf16": first["launches"],
+                 "qwen3-8b flat bf16 second": second["launches"]}
+
+
+def dense_parity(arch, card) -> tuple:
+    """One config at its published widths cut to PARITY_LAYERS layers:
+    weights drawn once on the card serve both sides; the f32 flat drain
+    (4 requests of 5-24 tokens, 8 new) on the card after warmup equals the
+    CPU plain path's token for token with the first call's logits within
+    F32_MARGIN of the logits' own scale (max(1, max |logit|): float32 sums
+    of up to d_ff = 18,944 products in another order); a bf16 drain on the card over the same weights, rounded,
+    whose picks agree with the f32 card drain's wherever both top-2
+    margins are at least BF16_MARGIN, with every kernel of the path
+    launched as many times per model call as the config makes."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serving.engine import Engine
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=PARITY_LAYERS)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 4)]
+    f32 = RunConfig(param_dtype="float32", compute_dtype="float32")
+    shape = ShapeSpec("serve", 64, 4, "decode")
+    params = build_model(cfg, f32, shape, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    cuda_toks, cuda_first, cuda_picks, info = serve_f32("cuda", cfg, prompts,
+                                                        "flat", params=params)
+    t1 = time.perf_counter()
+    cpu_toks, cpu_first, cpu_picks, _ = serve_f32("cpu", cfg, prompts, "flat",
+                                                  params=params)
+    cpu_s = time.perf_counter() - t1
+    diff = float(np.abs(cuda_first - cpu_first).max())
+    scale = max(1.0, float(np.abs(cpu_first).max()))
+    print(f"  {arch} ({PARITY_LAYERS} of {full.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} over {cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) f32 flat: first "
+          f"call max |logit diff| {diff:.3e} (max |logit| {scale:.3f}), graphs "
+          f"{info['captures']}, replay = eager at {info['replay_checked']} "
+          f"shapes; card {t1 - t0:.1f} s, CPU {cpu_s:.1f} s")
+    cmp = compare_picks(cuda_picks, cpu_picks, 0.0, f"{arch} f32 card vs cpu")
+    if cuda_toks != cpu_toks or diff > F32_MARGIN * scale:
+        raise AssertionError(f"{arch}: f32 card {cuda_toks} vs CPU {cpu_toks}, "
+                             f"first logits {diff:.3e} apart (limit "
+                             f"{F32_MARGIN:g} x {scale:.3f})")
+    if info["replay_checked"] < 2:
+        raise AssertionError(f"{arch}: replay checked at {info['replay_checked']} "
+                             f"shapes, not 2")
+    bf = RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = build_model(cfg, bf, shape, device="cuda")
+    eng = Engine(model, tree_map(lambda t: t.to(BF), params), device="cuda",
+                 max_slots=4, page_tokens=16, **FAMILIES_F32["flat"])
+    del params
+    eng.warmup()
+    calls = count_model_calls(eng)
+    bf16 = timed_drain(eng, [(p, 8, 0.0) for p in prompts], True, 0,
+                       f"{arch} bf16 flat")
+    per, _ = flat_per_call(cfg)
+    for k, n in per.items():
+        if bf16["launches"][k] != n * len(calls):
+            raise AssertionError(f"{arch} bf16 {k}: {bf16['launches'][k]} launches "
+                                 f"over {len(calls)} calls, expected {n} per call")
+    bf16["vs_f32"] = compare_picks(cuda_picks, bf16.pop("picks"), BF16_MARGIN,
+                                   f"{arch} bf16 vs f32 (card)")
+    del eng
+    return ({"layers": PARITY_LAYERS, "tokens": cuda_toks,
+             "first_logit_diff": diff, "max_logit": scale, "f32_vs_cpu": cmp,
+             **info, "bf16": bf16},
+            {f"{arch} flat bf16": bf16["launches"]})
+
+
+def internvl2_static(card) -> tuple:
+    """InternVL2-26B's language model (d 6144, 48 query heads over 8 of
+    128, d_ff 16384, vocab 92553: a partial last tile) behind its stub
+    vision prefix, through generate_static: rows of 256 patch embeddings +
+    a 256-token prompt, 32 new, seq_len 1024.  float32 at PARITY_LAYERS
+    layers and VLM_F32_BATCH rows (the CPU's plain path is most of the
+    phase's time, and grows with the rows), card = CPU token for token,
+    weights drawn once on the card; bfloat16 at VLM_LAYERS layers and 4 rows, weights drawn on the
+    card.  Each card run is static_run's: a first call capturing the
+    prefill and decode graphs, a second capturing nothing with its
+    launches per call and once per batch (the vision prefix) checked,
+    prefill and decode ms."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    full = get_config("internvl2-26b")
+    res, paths = {}, {}
+    for dtype, layers, nb in ((TF, PARITY_LAYERS, VLM_F32_BATCH),
+                              (BF, VLM_LAYERS, STATIC_BATCH)):
+        name = str(dtype)[6:]
+        cfg = dataclasses.replace(full, n_layers=layers)
+        model = build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
+                            ShapeSpec("serve", STATIC_SEQ, nb, "decode"),
+                            device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        print(f"  internvl2-26b {name}: {layers} of {full.n_layers} layers, "
+              f"{cfg.param_counts()['total']} parameters, d {cfg.d_model}, "
+              f"vocab {cfg.vocab}; batch {nb} x ({cfg.vision_tokens} "
+              f"patches + prompt {STATIC_PROMPT}), {STATIC_NEW} new ({card})")
+        label = f"internvl2-26b static {name} ({layers} layers)"
+        if dtype is TF:
+            t0 = time.perf_counter()
+            cpu = static_cpu(cfg, params=params, batch=nb)
+            print(f"  {label} on the CPU (plain versions): "
+                  f"{time.perf_counter() - t0:.1f} s")
+        r = static_run(cfg, dtype, label, params=params, batch=nb)
+        del params, model
+        if dtype is TF:
+            r["vs_cpu_f32"] = compare_picks(r["picks"], cpu["picks"], 0.0,
+                                            f"{label} card vs CPU")
+            if not np.array_equal(np.asarray(r["tokens"]), cpu["tokens"]):
+                raise AssertionError(f"{label}: tokens card != CPU")
+            print(f"  {label} tokens, card = CPU: "
+                  f"{np.asarray(r['tokens'])[:, :8].tolist()} ...")
+        r.pop("picks")
+        res[name] = {"layers": layers, "batch": nb, **r}
+        paths[f"static internvl2-26b {name}"] = r["launches"]
+    return res, paths
+
+
+def dense_phase(card) -> tuple:
+    """Qwen3-8B whole, the three parity configs and InternVL2; returns
+    (results, launches by path)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, paths = {}, {}
+    res["qwen3-8b"], p = qwen3_full(card)
+    paths.update(p)
+    for arch in PARITY_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[arch], p = dense_parity(arch, card)
+        paths.update(p)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["internvl2-26b"], p = internvl2_static(card)
+    paths.update(p)
+    return res, paths
+
+
 def by_descriptor(kernel, scaled_checks) -> dict:
     """Kernel ``kernel``'s bf16 representative case at each scaled
     descriptor's tiles: times, bound and library time (ragged_attn's tiles
@@ -2592,6 +2892,10 @@ def main(argv=None) -> int:
           "L2-cold):")
     checks = KernelChecks(hw, torch.Generator(device="cuda").manual_seed(0))
     checks.run(eng._flat_shapes())
+    print(f"ragged_attn at d_head 128 (Qwen3-8B's and ChatGLM3-6B's heads) "
+          f"vs its plain version, L2-cold and warm, beside the SDPA yardstick "
+          f"({card}):")
+    checks.run_d128()
     f32_chunk_cases = checks.f32_chunk_identity()
 
     print("end to end, float32: 4 requests x 8 new tokens, card vs CPU plain "
@@ -2708,6 +3012,14 @@ def main(argv=None) -> int:
         checks.grads(dtype, TRAIN_BATCH * TRAIN_SEQ, 576, 192, None, "k proj")
     training, train_paths = training_phase(cfg, card)
     by_path.update(train_paths)
+    print(f"the dense configs and the vlm family at their published widths: "
+          f"Qwen3-8B at full depth through the flat drain (bf16); Qwen2-7B, "
+          f"ChatGLM3-6B and OLMo-1B cut to {PARITY_LAYERS} layers (f32 card = "
+          f"CPU, bf16 under a top-2 margin of {BF16_MARGIN:g}); InternVL2-26B's "
+          f"language model through generate_static (f32 at {PARITY_LAYERS} "
+          f"layers card = CPU, bf16 at {VLM_LAYERS}) ({card})")
+    dense, dense_paths = dense_phase(card)
+    by_path.update(dense_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
@@ -2730,6 +3042,10 @@ def main(argv=None) -> int:
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "by_descriptor": by_descriptor(k, scaled_checks),
+            **({"d_head_128": [{key: c[key] for key in (
+                "shape", "dtype", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "split")} for c in cases
+                if c["shape"].startswith("d128")]} if k == "ragged_attn" else {}),
             "split": rep.get("split"), "shape": rep["shape"],
             "dtype": rep["dtype"], "card": card, "cases": cases,
             **({"unpacked_stores": unpacked} if k == "mmt4d" else {}),
@@ -2748,7 +3064,7 @@ def main(argv=None) -> int:
                        "static": static, "layouts": layouts,
                        "f32_chunk_cases": f32_chunk_cases,
                        "scaled_checks": {n: c.cases for n, c in scaled_checks.items()},
-                       "training": training,
+                       "training": training, "dense": dense,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     print(json.dumps(result))

@@ -59,13 +59,15 @@ class MatmulContext:
 def linear_init(generator: torch.Generator, d_in: int, d_out: int, *,
                 bias: bool = False, dtype: torch.dtype = torch.float32,
                 scale: Optional[float] = None) -> dict:
-    """``{"w": [d_in, d_out]}`` drawn N(0, scale^2) from ``generator`` (on
-    the CPU), ``scale`` defaulting to ``d_in ** -0.5``; plus a zero bias."""
+    """``{"w": [d_in, d_out]}`` drawn N(0, scale^2) from ``generator``, on
+    the generator's device, ``scale`` defaulting to ``d_in ** -0.5``; plus
+    a zero bias."""
     scale = (d_in ** -0.5) if scale is None else scale
-    w = torch.randn((d_in, d_out), generator=generator) * scale
+    dev = generator.device
+    w = torch.randn((d_in, d_out), generator=generator, device=dev) * scale
     p = {"w": w.to(dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype)
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=dev)
     return p
 
 

@@ -1,5 +1,6 @@
 // Segment-masked ragged paged attention for the flat [1, W] serving step.
 //   q [W, Hq, dh]; k_pages, v_pages [P, T, Hkv, dh]; block_tables [B, MP];
+//   dh is 64 or 128, each its own instance of the kernel (DH below).
 //   out [W, Hq, dh].  Query i of row r at position q_pos[i] reads its row's
 // pages bt[r, p] for p <= q_pos[i] / T (never past MP - 1), masks
 // kv_pos <= q_pos[i], scales scores by dh^-0.5 and takes a softmax in
@@ -30,10 +31,12 @@
 //   merges its blocks' through distributed shared memory, in a fixed order
 //   (no atomics: repeated calls are bit-identical).  A partial whose keys
 //   were all masked carries m = -inf, l = 0 and weighs 0 in every merge.
-// - Loads.  Each key and value row of one head is 128 contiguous bytes; a
+// - Loads.  Each key and value row of one head is 2 dh contiguous bytes; a
 //   warp loads a page's K and V straight into MMA fragments as 16-byte
-//   vectors, three pages ahead of use in registers, with no shared-memory
-//   staging or barrier on the way.  Programmatic dependent launch: the
+//   vectors, ahead of use in registers (three pages at dh 64; one at 128,
+//   where a page's K and V take 64 registers a thread and the output
+//   fragment another 64), with no shared-memory staging or barrier on the
+//   way.  Programmatic dependent launch: the
 //   kernel waits on griddepcontrol before its first read.
 // - bfloat16 on the tensor cores (mma.sync.m16n8k16): Q K^T with d permuted
 //   the same way in both operands, so one 16-byte load gives two k16 steps;
@@ -54,19 +57,21 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kT = 16;            // page tokens: one k16 step of P V
-constexpr int kDh = 64;           // head width
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsMax = kWarps * 16;   // query rows per tile
 constexpr int kMaxCluster = 8;    // portable cluster size: splits per tile
-constexpr int kAhead = 3;         // pages in flight per warp (bfloat16)
+// pages in flight per warp (bfloat16): K and V of a page take DH / 2
+// registers a thread, the output fragment DH / 2, the query DH / 4
+template <int DH> constexpr int kAhead = DH == 64 ? 3 : 1;
 constexpr int kItem = 6;          // ints per plan item (ops.py:RaggedPlan.items)
 
 // Shared memory: each warp's partial (m, l, acc) for its 16 rows, then the
 // block's (m, l) per row (its acc is merged into the slots of the first
 // warps), then the page ids of the block's range.
+template <int DH>
 struct Smem {
-  float acc[kWarps][16][kDh];
+  float acc[kWarps][16][DH];
   float m[kWarps][16];
   float l[kWarps][16];
   float bm[kRowsMax];
@@ -98,58 +103,64 @@ struct WarpJob {
 
 // ------------------------------------------------------------ bfloat16
 
-// Thread (g8, t4) = (lane / 4, lane % 4).  Q K^T: within each 32-wide d
-// chunk c, logical k 2t+e / 2t+8+e of k16 step s is physical d
+// Thread (g8, t4) = (lane / 4, lane % 4).  Q K^T: within each of the
+// DH / 32 d chunks c, logical k 2t+e / 2t+8+e of k16 step s is physical d
 // 32c + 8t + 4s + e / 32c + 8t + 4s + 2 + e in both operands, so a
 // thread's 16-byte load at d = 32c + 8t of a query or key row feeds both
-// steps.  P V: logical column g8 of output n8 tile j is physical d
-// 8 g8 + j, so a thread's B fragments for all eight tiles come from one
-// 16-byte load at d = 8 g8 of each of its keys 2t, 2t+1, 2t+8, 2t+9.
+// steps.  P V: logical column g8 of output n8 tile j (NT = DH / 8 tiles)
+// is physical d NT g8 + j, so a thread's B fragments for all the tiles
+// come from NT / 8 16-byte loads at d = NT g8 of each of its keys 2t,
+// 2t+1, 2t+8, 2t+9.
+template <int DH>
 __device__ void warp_partial(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                              const bf16* __restrict__ vp, const WarpJob& j,
-                             Smem& sm, int slot) {
+                             Smem<DH>& sm, int slot) {
+  constexpr int NC = DH / 32, NT = DH / 8, VU = NT / 8, A = kAhead<DH>;
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
-  const float scale = rsqrtf((float)kDh);
-  const int64_t row_stride = (int64_t)j.Hkv * kDh;    // one token of a page
+  const float scale = rsqrtf((float)DH);
+  const int64_t row_stride = (int64_t)j.Hkv * DH;     // one token of a page
 
   int qp[2];              // q_pos of query rows g8 and g8 + 8; -1: none
-  uint4 qa[2][2];         // [row half][d chunk]
+  uint4 qa[2][NC];        // [row half][d chunk]
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = j.f * 16 + g8 + 8 * hh;
     qp[hh] = -1;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) qa[hh][c] = make_uint4(0u, 0u, 0u, 0u);
+    for (int c = 0; c < NC; ++c) qa[hh][c] = make_uint4(0u, 0u, 0u, 0u);
     if (r < j.rows) {
       qp[hh] = j.q0 + r / j.g;
-      const bf16* src = q + ((int64_t)(j.start + r / j.g) * j.Hq + j.h * j.g + r % j.g) * kDh;
+      const bf16* src = q + ((int64_t)(j.start + r / j.g) * j.Hq + j.h * j.g + r % j.g) * DH;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) qa[hh][c] = ldg16(src + 32 * c + 8 * t4);
+      for (int c = 0; c < NC; ++c) qa[hh][c] = ldg16(src + 32 * c + 8 * t4);
     }
   }
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float o[8][4];
+  float o[NT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.0f;
 
   const int n_mine = j.count > j.first ? (j.count - j.first + j.stride - 1) / j.stride : 0;
-  uint4 kb[kAhead][2][2], vb[kAhead][4];   // [key half][d chunk]; [key]
-  auto load = [&](uint4 (&kx)[2][2], uint4 (&vx)[4], int n) {
+  uint4 kb[A][2][NC], vb[A][4][VU];   // [key half][d chunk]; [key][d vector]
+  auto load = [&](uint4 (&kx)[2][NC], uint4 (&vx)[4][VU], int n) {
     const int64_t page = j.pages[j.first + n * j.stride];
-    const int64_t base = (page * kT * j.Hkv + j.h) * kDh;
+    const int64_t base = (page * kT * j.Hkv + j.h) * DH;
 #pragma unroll
     for (int kh = 0; kh < 2; ++kh)
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
+      for (int c = 0; c < NC; ++c)
         kx[kh][c] = ldg16(kp + base + (g8 + 8 * kh) * row_stride + 32 * c + 8 * t4);
     const int keys[4] = {2 * t4, 2 * t4 + 1, 2 * t4 + 8, 2 * t4 + 9};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) vx[i] = ldg16(vp + base + keys[i] * row_stride + 8 * g8);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < VU; ++u)
+        vx[i][u] = ldg16(vp + base + keys[i] * row_stride + NT * g8 + 8 * u);
   };
-  auto compute = [&](const uint4 (&kx)[2][2], const uint4 (&vx)[4], int n) {
+  auto compute = [&](const uint4 (&kx)[2][NC], const uint4 (&vx)[4][VU], int n) {
     const int p = j.p_lo + j.first + n * j.stride;
     float s[2][4];        // [key n8 tile][C fragment]
 #pragma unroll
@@ -157,7 +168,7 @@ __device__ void warp_partial(const bf16* __restrict__ q, const bf16* __restrict_
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const uint32_t a0[4] = {qa[0][c].x, qa[1][c].x, qa[0][c].y, qa[1][c].y};
       const uint32_t a1[4] = {qa[0][c].z, qa[1][c].z, qa[0][c].w, qa[1][c].w};
 #pragma unroll
@@ -200,31 +211,32 @@ __device__ void warp_partial(const bf16* __restrict__ q, const bf16* __restrict_
     const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
                             pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < NT; ++i) {
       o[i][0] *= alpha[0]; o[i][1] *= alpha[0];
       o[i][2] *= alpha[1]; o[i][3] *= alpha[1];
       const uint32_t sel = (i & 1) ? 0x7632u : 0x5410u;
-      const uint32_t b0 = __byte_perm(word(vx[0], i >> 1), word(vx[1], i >> 1), sel);
-      const uint32_t b1 = __byte_perm(word(vx[2], i >> 1), word(vx[3], i >> 1), sel);
+      const int u = i >> 3, w = (i >> 1) & 3;   // d NT g8 + i: vector u, word w
+      const uint32_t b0 = __byte_perm(word(vx[0][u], w), word(vx[1][u], w), sel);
+      const uint32_t b1 = __byte_perm(word(vx[2][u], w), word(vx[3][u], w), sel);
       repro::mma_16816(o[i], pa, b0, b1);
     }
   };
 
 #pragma unroll
-  for (int b = 0; b < kAhead; ++b)
+  for (int b = 0; b < A; ++b)
     if (b < n_mine) load(kb[b], vb[b], b);
-  for (int n0 = 0; n0 < n_mine; n0 += kAhead) {
+  for (int n0 = 0; n0 < n_mine; n0 += A) {
 #pragma unroll
-    for (int b = 0; b < kAhead; ++b) {
+    for (int b = 0; b < A; ++b) {
       if (n0 + b < n_mine) {
         compute(kb[b], vb[b], n0 + b);
-        if (n0 + b + kAhead < n_mine) load(kb[b], vb[b], n0 + b + kAhead);
+        if (n0 + b + A < n_mine) load(kb[b], vb[b], n0 + b + A);
       }
     }
   }
 
-  // the slot: o[i][e] is row g8 + 8 (e / 2), d = 8 (2 t4 + e % 2) + i, so a
-  // thread holds d 16 t4 .. 16 t4 + 15 of its two rows
+  // the slot: o[i][e] is row g8 + 8 (e / 2), d = NT (2 t4 + e % 2) + i, so
+  // a thread holds d 2 NT t4 .. 2 NT t4 + 2 NT - 1 of its two rows
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float lt = l[hh];
@@ -235,49 +247,51 @@ __device__ void warp_partial(const bf16* __restrict__ q, const bf16* __restrict_
       sm.m[slot][rr] = m[hh];
       sm.l[slot][rr] = lt;
     }
-    float* dst = sm.acc[slot][rr] + 16 * t4;
+    float* dst = sm.acc[slot][rr] + 2 * NT * t4;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      *reinterpret_cast<float4*>(dst + 8 * e) =
-          make_float4(o[0][2 * hh + e], o[1][2 * hh + e], o[2][2 * hh + e], o[3][2 * hh + e]);
-      *reinterpret_cast<float4*>(dst + 8 * e + 4) =
-          make_float4(o[4][2 * hh + e], o[5][2 * hh + e], o[6][2 * hh + e], o[7][2 * hh + e]);
-    }
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < NT; i += 4)
+        *reinterpret_cast<float4*>(dst + NT * e + i) =
+            make_float4(o[i][2 * hh + e], o[i + 1][2 * hh + e], o[i + 2][2 * hh + e],
+                        o[i + 3][2 * hh + e]);
   }
 }
 
 // ------------------------------------------------------------ float32
 
 // Lane (rr, kh) = (lane / 2, lane % 2): query row rr of the warp's 16, keys
-// 8 kh .. 8 kh + 7 of each page for the scores, d 32 kh .. 32 kh + 31 of
-// the output.
+// 8 kh .. 8 kh + 7 of each page for the scores, d (DH / 2) kh ..
+// (DH / 2) kh + DH / 2 - 1 of the output.
+template <int DH>
 __device__ void warp_partial(const float* __restrict__ q, const float* __restrict__ kp,
                              const float* __restrict__ vp, const WarpJob& j,
-                             Smem& sm, int slot) {
+                             Smem<DH>& sm, int slot) {
+  constexpr int H = DH / 2;
   const int lane = threadIdx.x & 31, rr = lane >> 1, kh = lane & 1;
-  const float scale = rsqrtf((float)kDh);
-  const int64_t row_stride = (int64_t)j.Hkv * kDh;
+  const float scale = rsqrtf((float)DH);
+  const int64_t row_stride = (int64_t)j.Hkv * DH;
   const int r = j.f * 16 + rr;
   int qp = -1;
-  float qv[kDh];
+  float qv[DH];
 #pragma unroll
-  for (int d = 0; d < kDh; ++d) qv[d] = 0.0f;
+  for (int d = 0; d < DH; ++d) qv[d] = 0.0f;
   if (r < j.rows) {
     qp = j.q0 + r / j.g;
-    const float* src = q + ((int64_t)(j.start + r / j.g) * j.Hq + j.h * j.g + r % j.g) * kDh;
+    const float* src = q + ((int64_t)(j.start + r / j.g) * j.Hq + j.h * j.g + r % j.g) * DH;
 #pragma unroll
-    for (int d = 0; d < kDh; d += 4) {
+    for (int d = 0; d < DH; d += 4) {
       const float4 v = __ldg(reinterpret_cast<const float4*>(src + d));
       qv[d] = v.x; qv[d + 1] = v.y; qv[d + 2] = v.z; qv[d + 3] = v.w;
     }
   }
-  float m = -INFINITY, l = 0.0f, acc[32];
+  float m = -INFINITY, l = 0.0f, acc[H];
 #pragma unroll
-  for (int d = 0; d < 32; ++d) acc[d] = 0.0f;
+  for (int d = 0; d < H; ++d) acc[d] = 0.0f;
 
   for (int it = j.first; it < j.count; it += j.stride) {
     const int p = j.p_lo + it;
-    const int64_t base = ((int64_t)j.pages[it] * kT * j.Hkv + j.h) * kDh;
+    const int64_t base = ((int64_t)j.pages[it] * kT * j.Hkv + j.h) * DH;
     float s[8];
     float mx = -INFINITY;
 #pragma unroll
@@ -286,7 +300,7 @@ __device__ void warp_partial(const float* __restrict__ q, const float* __restric
       const float* kr = kp + base + key * row_stride;
       float dot = 0.0f;
 #pragma unroll
-      for (int d = 0; d < kDh; d += 4) {
+      for (int d = 0; d < DH; d += 4) {
         const float4 v = __ldg(reinterpret_cast<const float4*>(kr + d));
         dot = fmaf(qv[d], v.x, dot);
         dot = fmaf(qv[d + 1], v.y, dot);
@@ -311,13 +325,13 @@ __device__ void warp_partial(const float* __restrict__ q, const float* __restric
     l = l * alpha + sum;
     m = m_new;
 #pragma unroll
-    for (int d = 0; d < 32; ++d) acc[d] *= alpha;
+    for (int d = 0; d < H; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int key = 0; key < kT; ++key) {
       const float pk = (key >> 3) == kh ? s[key & 7] : other[key & 7];
-      const float* vr = vp + base + key * row_stride + 32 * kh;
+      const float* vr = vp + base + key * row_stride + H * kh;
 #pragma unroll
-      for (int d = 0; d < 32; d += 4) {
+      for (int d = 0; d < H; d += 4) {
         const float4 v = __ldg(reinterpret_cast<const float4*>(vr + d));
         acc[d] = fmaf(pk, v.x, acc[d]);
         acc[d + 1] = fmaf(pk, v.y, acc[d + 1]);
@@ -331,9 +345,9 @@ __device__ void warp_partial(const float* __restrict__ q, const float* __restric
     sm.m[slot][rr] = m;
     sm.l[slot][rr] = l;
   }
-  float* dst = sm.acc[slot][rr] + 32 * kh;
+  float* dst = sm.acc[slot][rr] + H * kh;
 #pragma unroll
-  for (int d = 0; d < 32; d += 4)
+  for (int d = 0; d < H; d += 4)
     *reinterpret_cast<float4*>(dst + d) = make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
 }
 
@@ -385,15 +399,15 @@ __device__ __forceinline__ void merge(int n, Load load, float& top, float& lsum,
 // pages [p_lo, p_hi) of its row, KV head h.  Warp w takes the tile's m16
 // fragment w % frags and every groups-th page of the range from w / frags
 // on (groups = 8 / frags); warps past groups * frags idle.
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
                    const int* __restrict__ items, T* __restrict__ out,
                    int splits, int Hq, int Hkv, int MP) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  int* pages = reinterpret_cast<int*>(smem_raw + sizeof(Smem));
+  Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw);
+  int* pages = reinterpret_cast<int*>(smem_raw + sizeof(Smem<DH>));
   // launched as a programmatic dependent: wait here, before the first read,
   // until the previous kernel on the stream has finished and flushed
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -405,11 +419,11 @@ ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int rank = (int)(blockIdx.x % splits);   // the block's rank in its cluster
 
   if (row < 0) {          // padding: zeros (every block of the cluster returns here)
-    const int vec = 16 / (int)sizeof(T), per_pos = g * kDh / vec;
+    const int vec = 16 / (int)sizeof(T), per_pos = g * DH / vec;
     for (int x = tid; x < n * per_pos; x += kThreads) {
       const int pos = x / per_pos;
       if (pos % splits != rank) continue;
-      T* dst = out + ((int64_t)(start + pos) * Hq + h * g) * kDh + (x % per_pos) * vec;
+      T* dst = out + ((int64_t)(start + pos) * Hq + h * g) * DH + (x % per_pos) * vec;
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
     return;
@@ -429,9 +443,9 @@ ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   // merge the warps of each fragment in page-group order: (m, l) per row
   // into bm/bl, acc into the slot of group 0 (slot f); with one split, finish
-  const int elems = rows * (kDh / 4);
+  const int elems = rows * (DH / 4);
   for (int x = tid; x < elems; x += kThreads) {
-    const int r = x / (kDh / 4), d = (x % (kDh / 4)) * 4;
+    const int r = x / (DH / 4), d = (x % (DH / 4)) * 4;
     const int f = r / 16, rr = r % 16;
     float top, lsum;
     float4 a;
@@ -443,7 +457,7 @@ ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }, top, lsum, a);
     if (splits == 1) {
       const float inv = 1.0f / fmaxf(lsum, 1e-30f);
-      store4(out + ((int64_t)(start + r / g) * Hq + h * g + r % g) * kDh + d,
+      store4(out + ((int64_t)(start + r / g) * Hq + h * g + r % g) * DH + d,
              make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
     } else {
       *reinterpret_cast<float4*>(sm.acc[f][rr] + d) = a;
@@ -462,30 +476,33 @@ ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int lo = (int)((int64_t)rank * elems / splits);
   const int hi = (int)((int64_t)(rank + 1) * elems / splits);
   for (int x = lo + tid; x < hi; x += kThreads) {
-    const int r = x / (kDh / 4), d = (x % (kDh / 4)) * 4;
+    const int r = x / (DH / 4), d = (x % (DH / 4)) * 4;
     const int f = r / 16, rr = r % 16;
     float top, lsum;
     float4 a;
     merge<kMaxCluster>(splits, [&](int s, float& m, float& l, float4& v) {
-      const Smem* o = cluster.map_shared_rank(&sm, s);
+      const Smem<DH>* o = cluster.map_shared_rank(&sm, s);
       m = o->bm[r];
       l = o->bl[r];
       v = *reinterpret_cast<const float4*>(o->acc[f][rr] + d);
     }, top, lsum, a);
     const float inv = 1.0f / fmaxf(lsum, 1e-30f);
-    store4(out + ((int64_t)(start + r / g) * Hq + h * g + r % g) * kDh + d,
+    store4(out + ((int64_t)(start + r / g) * Hq + h * g + r % g) * DH + d,
            make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
   }
   cluster.sync();         // keep every partial until the cluster has read it
 }
 
-template <typename T>
+template <typename T, int DH>
 int launch(const void* q, const void* kp, const void* vp, const void* bt,
            const void* items, void* out, int n_items, int splits, int Hq,
-           int Hkv, int MP, size_t smem, cudaStream_t stream) {
+           int Hkv, int MP, cudaStream_t stream) {
   static bool configured[repro::kMaxDevices] = {};
+  const size_t smem = sizeof(Smem<DH>) + (size_t)MP * sizeof(int);
+  if (smem > (size_t)repro::kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (n_items == 0) return 0;
   if (smem > 48 * 1024)
-    if (int e = repro::opt_in_smem(ragged_attn_kernel<T>, configured)) return e;
+    if (int e = repro::opt_in_smem(ragged_attn_kernel<T, DH>, configured)) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)n_items, (unsigned)Hkv, 1);
   cfg.blockDim = dim3(kThreads);
@@ -502,20 +519,30 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
   attr[1].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 2 : 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, ragged_attn_kernel<T>, (const T*)q,
+  cudaError_t e = cudaLaunchKernelEx(&cfg, ragged_attn_kernel<T, DH>, (const T*)q,
                                      (const T*)kp, (const T*)vp, (const int*)bt,
                                      (const int*)items, (T*)out, splits, Hq, Hkv, MP);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+int dispatch(const void* q, const void* kp, const void* vp, const void* bt,
+             const void* items, void* out, int dtype, int n_items, int splits,
+             int Hq, int Hkv, int MP, cudaStream_t stream) {
+  REPRO_DISPATCH(dtype, T,
+                 return launch<T, DH>(q, kp, vp, bt, items, out, n_items, splits,
+                                      Hq, Hkv, MP, stream));
+  return (int)cudaErrorInvalidValue;  // unreachable: every dtype returns
+}
+
 }  // namespace
 
 // items [n_items, 6] int32 and splits: the plan of kernels/ragged_attn/ops.py
-// (n_items = tiles * splits); pages of kT tokens and heads of kDh.
+// (n_items = tiles * splits); pages of kT tokens and heads of dh (64 or 128).
 extern "C" int repro_ragged_attn(const void* q, const void* k_pages,
                                  const void* v_pages, const void* block_tables,
-                                 const void* items, void* out, int dtype,
+                                 const void* items, void* out, int dtype, int dh,
                                  int n_items, int splits, int Hq, int Hkv,
                                  int MP, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || splits < 1 || splits > kMaxCluster ||
@@ -523,14 +550,12 @@ extern "C" int repro_ragged_attn(const void* q, const void* k_pages,
       (((uintptr_t)q | (uintptr_t)k_pages | (uintptr_t)v_pages | (uintptr_t)out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (Hq / Hkv > kRowsMax) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(Smem) + (size_t)MP * sizeof(int);
-  if (smem > (size_t)repro::kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (n_items == 0) return 0;
-  if (dtype == repro::kF32)
-    return launch<float>(q, k_pages, v_pages, block_tables, items, out, n_items,
-                         splits, Hq, Hkv, MP, smem, (cudaStream_t)stream);
-  if (dtype == repro::kBF16)
-    return launch<bf16>(q, k_pages, v_pages, block_tables, items, out, n_items,
-                        splits, Hq, Hkv, MP, smem, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dh == 64)
+    return dispatch<64>(q, k_pages, v_pages, block_tables, items, out, dtype,
+                        n_items, splits, Hq, Hkv, MP, s);
+  if (dh == 128)
+    return dispatch<128>(q, k_pages, v_pages, block_tables, items, out, dtype,
+                         n_items, splits, Hq, Hkv, MP, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,9 +42,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
 
 __all__ = ["ragged_attention", "RaggedPlan", "plan_ragged", "pick_splits",
-           "max_tiles", "TILE", "MAX_CLUSTER", "PAGES_PER_SPLIT"]
+           "max_tiles", "TILE", "HEAD_WIDTHS", "MAX_CLUSTER",
+           "PAGES_PER_SPLIT"]
 
 TILE = 16          # positions per tile: the page size and the bf16 m_r
+HEAD_WIDTHS = (64, 128)   # d_head: one instance of the kernel each
 MAX_ROWS = 128     # query rows per tile (TILE x g): 8 warps of 16 rows
 MAX_CLUSTER = 8    # portable thread-block cluster size: splits per tile
 PAGES_PER_SPLIT = 8   # a split's pages: one per warp of its block
@@ -193,13 +195,14 @@ def ragged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"row_ids {tuple(row_ids.shape)}, q_pos "
                          f"{tuple(q_pos.shape)}, plan {tuple(items.shape)} "
                          f"x {plan.splits} do not agree")
-    if t != TILE or dh != 64:
+    if t != TILE or dh not in HEAD_WIDTHS:
         raise ValueError(f"ragged_attention: pages of {t} tokens, d_head {dh}; "
-                         f"the kernel takes pages of {TILE} and d_head 64")
+                         f"the kernel takes pages of {TILE} and d_head in "
+                         f"{HEAD_WIDTHS}")
     out = torch.empty_like(q)
     rc = build.load_library().repro_ragged_attn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), items.data_ptr(), out.data_ptr(), code,
+        block_tables.data_ptr(), items.data_ptr(), out.data_ptr(), code, dh,
         items.shape[0], plan.splits, hq, hkv, block_tables.shape[1],
         build.stream_of(q))
     build.check(rc, "ragged_attention")

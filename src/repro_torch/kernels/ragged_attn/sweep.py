@@ -1,7 +1,8 @@
 """Time the ragged-attention kernel over split counts (on the card).
 
-For the flat-step layouts of the SmolLM2-135M serving path (heads 9 over
-3, d_head 64, pages of 16, MP = 64) this launches the kernel with
+For the flat-step layouts of a serving path (``--heads``: SmolLM2-135M's
+9 over 3 of 64 by default; Qwen3-8B's 32 over 8 of 128, ChatGLM3-6B's 32
+over 2 of 128; pages of 16, MP = 64) this launches the kernel with
 ``pick_splits``'s split count and with every other count from 1 to
 ``MAX_CLUSTER``, L2-cold (each call takes the next of enough copies of q
 and the pools to pass 64 MB), and prints the pick, its rank and the
@@ -11,7 +12,7 @@ times the fixed-size plan a served step replays (``slots=4``: the width's
 most tiles, the split count picked for them and MP), against the
 per-step pick.
 
-    PYTHONPATH=src python -m repro_torch.kernels.ragged_attn.sweep [--out sweep.json]
+    PYTHONPATH=src python -m repro_torch.kernels.ragged_attn.sweep [--heads qwen3-8b] [--out sweep.json]
 """
 
 from __future__ import annotations
@@ -43,8 +44,14 @@ LAYOUTS = [
 ]
 
 
+# (query heads, KV heads, d_head) of the served configs
+HEADS = {"smollm2-135m": (9, 3, 64), "qwen3-8b": (32, 8, 128),
+         "chatglm3-6b": (32, 2, 128)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--heads", default="smollm2-135m", choices=sorted(HEADS))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -53,7 +60,9 @@ def main(argv=None) -> int:
     print(card)
     hw = query("cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    hq, hkv, dh, t, mp, pages = 9, 3, 64, 16, 64, 257
+    hq, hkv, dh = HEADS[args.heads]
+    t, mp, pages = 16, 64, 257
+    print(f"heads {hq} over {hkv} of {dh} ({args.heads})")
     rows_all = []
     for dtype in (torch.bfloat16, torch.float32):
         for name, width, segments in LAYOUTS:
@@ -84,7 +93,8 @@ def main(argv=None) -> int:
                 ms = time_ms(cold_cycle(
                     lambda a, b, c, plan=plan: ragged_attention(a, b, c, plan=plan, **idx),
                     (q, kp, vp)))
-                res.append({"layout": name, "dtype": str(dtype)[6:], "splits": s,
+                res.append({"heads": args.heads, "layout": name,
+                            "dtype": str(dtype)[6:], "splits": s,
                             "tiles": plan.tiles, "ms": ms,
                             "err": (got - want).abs().max().item(),
                             "is_pick": s == pick, "card": card})

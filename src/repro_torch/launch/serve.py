@@ -11,13 +11,16 @@ Weights are random, drawn from ``--seed``.  The family:
 - ``--chunk-tokens C``: the flat token-level step;
 - ``--chunk-tokens C --no-flat``: the dense chunked ``[slots, s]`` step.
 
+``--arch`` takes every registered architecture the port has a model of
+(the dense, vlm and encdec families); ``--layers`` cuts its depth.
 ``--static`` serves one batch of ``--slots`` prompts of ``--prompt-len``
 tokens in lock step through ``Engine.generate_static`` (the dense-cache
-decode step); a static family (``--arch whisper-small``, encdec) is
-served only so, with frame embeddings ``[slots, max_len / 4, d]`` drawn
-from ``--seed``.  It runs the batch twice: the first call makes the
-step's programs (on the card, captures its two graphs), the second is
-timed and must make none.
+decode step); a static family is served only so: encdec
+(``--arch whisper-small``) with frame embeddings ``[slots, max_len / 4,
+d]``, vlm (``--arch internvl2-26b``) with patch embeddings ``[slots,
+vision_tokens, d]`` before the prompt, each drawn from ``--seed``.  It
+runs the batch twice: the first call makes the step's programs (on the
+card, captures its two graphs), the second is timed and must make none.
 
 ``--policy`` picks the layout policy (``scalable``, the default;
 ``fixed``; ``unpacked``, plain ``torch.matmul`` with no mmt4d, pack or
@@ -33,10 +36,15 @@ requests, prompts of 64-512 tokens, 32 new tokens each, 4 slots, seq_len
 first: on the card it captures one CUDA graph per step shape, and every
 step of the drain replays one.
 
+Weights are drawn on the device the model runs on (a card's own
+generator, so a model of billions of parameters starts in seconds).
+
 Usage (on a machine with a CUDA card; ``--device cpu`` runs the kernels'
 plain versions instead):
     PYTHONPATH=src python -m repro_torch.launch.serve --chunk-tokens 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --chunk-tokens 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --layers 8
     REPRO_HW=h100_vl512 PYTHONPATH=src python -m repro_torch.launch.serve \
         --chunk-tokens 128 --policy fixed
 ``--profile trace.json`` traces the drain with ``torch.profiler`` and
@@ -48,6 +56,7 @@ beside those the wrappers' counts give.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import re
 import time
 
@@ -55,9 +64,14 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
+from repro_torch.configs import (ARCHS, RunConfig, ShapeSpec, get_config,
+                                 reduced_config)
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Engine
+
+# the architectures the port has a model of: the dense, vlm and encdec
+# families (moe, hybrid and ssm wait in ROADMAP A8b)
+SERVABLE = [a for a in ARCHS if get_config(a).family in ("dense", "vlm", "encdec")]
 
 
 def describe_hw(model) -> str:
@@ -135,7 +149,8 @@ def print_device_time(prof, wall: float, counted: dict, tag: str = "profile") ->
 
 def static_batch(cfg, args) -> dict:
     """The static batch: ``--slots`` prompts of ``--prompt-len`` tokens
-    and, for encdec, frame embeddings, drawn from ``--seed``."""
+    and, for encdec, frame embeddings, for vlm patch embeddings, drawn
+    from ``--seed``."""
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab, (args.slots, args.prompt_len),
                                     dtype=np.int32)}
@@ -144,6 +159,10 @@ def static_batch(cfg, args) -> dict:
         batch["frames"] = torch.randn(
             (args.slots, args.max_len // cfg.audio_downsample, cfg.d_model),
             generator=gen)
+    if cfg.family == "vlm":
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        batch["patches"] = torch.randn(
+            (args.slots, cfg.vision_tokens, cfg.d_model), generator=gen)
     return batch
 
 
@@ -195,8 +214,10 @@ def serve_static(model, params, args) -> np.ndarray:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm2-135m")
+    ap.add_argument("--arch", default="smollm2-135m", choices=SERVABLE)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many layers")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--policy", default="scalable",
@@ -237,13 +258,15 @@ def main(argv=None):
 
     cfg = get_config(args.arch)
     if args.reduced:
-        cfg = reduced_config(cfg)
+        cfg = reduced_config(cfg, layers=args.layers)
+    elif args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     run = RunConfig(param_dtype=args.dtype, compute_dtype=args.dtype,
                     layout_policy=args.policy)
     model = build_model(cfg, run, ShapeSpec("serve", args.max_len, args.slots,
                                             "decode"), device=args.device)
     print(f"[serve] {describe_hw(model)}")
-    params = model.init(torch.Generator().manual_seed(args.seed))
+    params = model.init(torch.Generator(device=model.device).manual_seed(args.seed))
     if args.static or cfg.family in ("encdec", "vlm"):
         return serve_static(model, params, args)
     engine = Engine(model, params, device=args.device, max_slots=args.slots,

@@ -102,7 +102,8 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, *,
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype = torch.float32) -> dict:
-    return {"e": (torch.randn((vocab, d), generator=generator) * 0.02).to(dtype)}
+    e = torch.randn((vocab, d), generator=generator, device=generator.device)
+    return {"e": (e * 0.02).to(dtype)}
 
 
 class _Gather(torch.autograd.Function):

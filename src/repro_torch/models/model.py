@@ -1,6 +1,6 @@
 """Model facade: init, the full-sequence forward and the loss (training),
-the serving steps, and their compiled forms, for the dense and encdec
-(whisper) families.
+the serving steps, and their compiled forms, for the dense, vlm (a stub
+vision prefix, as in the JAX package) and encdec (whisper) families.
 
 The port's ``ReproModel`` serves continuous batching through
 ``paged_decode_step`` (the dense chunked and monolithic engine steps) and
@@ -32,7 +32,7 @@ from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.core.hardware import HardwareSpec, query, require_device
 from repro_torch.core.layout import LayoutPolicy
-from repro_torch.core.linear import MatmulContext
+from repro_torch.core.linear import MatmulContext, linear_apply
 from repro_torch.kernels.ragged_attn.ops import RaggedPlan
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
@@ -107,8 +107,11 @@ class ReproModel:
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters with the JAX package's tree, shapes and
-        scales, drawn from ``generator`` (a CPU generator: the same seed
-        gives the same weights on every device), then moved to the device."""
+        scales, drawn from ``generator`` on its device, then moved to the
+        model's.  A CPU generator gives the same weights on every device
+        (what a card-against-CPU comparison needs); a CUDA generator draws
+        each leaf on the card, which a model of billions of parameters
+        needs to start in seconds."""
         if self.cfg.family == "encdec":
             params = encdec_mod.encdec_init(
                 generator, self.cfg, self.run, max_src=max(self.enc_len, 8),
@@ -118,8 +121,16 @@ class ReproModel:
         return tfm.tree_map(lambda t: t.to(self.device), params)
 
     def _embeds(self, params: dict, batch: dict) -> torch.Tensor:
+        """The token embeddings [B, S, d]; the vlm family prepends
+        ``vision_proj`` of ``batch["patches"]`` [B, vision_tokens, d]."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        return embed_apply(params["embed"], tokens).to(self.compute_dtype)
+        x = embed_apply(params["embed"], tokens).to(self.compute_dtype)
+        if self.cfg.family == "vlm":
+            patches = torch.as_tensor(batch["patches"], device=self.device)
+            vis = linear_apply(params["vision_proj"],
+                               patches.to(self.compute_dtype), self.ctx)
+            x = torch.cat([vis, x], dim=1)
+        return x
 
     def _frames(self, batch: dict) -> torch.Tensor:
         """``batch["frames"]`` on the device in the compute dtype (the
@@ -129,9 +140,11 @@ class ReproModel:
 
     def forward(self, params: dict, batch: dict, last_only: bool = False):
         """Full-sequence forward over ``batch["tokens"]`` [B, S] (a tensor
-        or a numpy array; encdec also ``batch["frames"]`` [B, S_enc, d]).
-        Returns (logits [B, S, V], or [B, 1, V] for the last position with
-        ``last_only``, aux)."""
+        or a numpy array; encdec also ``batch["frames"]`` [B, S_enc, d],
+        vlm ``batch["patches"]`` [B, vision_tokens, d], whose positions
+        come first).  Returns (logits [B, S, V] (vlm: [B, vision_tokens +
+        S, V]), or [B, 1, V] for the last position with ``last_only``,
+        aux)."""
         if self.cfg.family == "encdec":
             tokens = torch.as_tensor(batch["tokens"], device=self.device)
             logits = encdec_mod.encdec_forward(
@@ -146,8 +159,11 @@ class ReproModel:
 
     def loss(self, params: dict, batch: dict):
         """(loss, metrics): next-token cross-entropy of ``batch["labels"]``
-        plus the z-loss (``run.z_loss``); metrics {"nll", "z_loss", "loss"}."""
+        plus the z-loss (``run.z_loss``); metrics {"nll", "z_loss", "loss"}.
+        The vlm family's vision positions carry no label."""
         logits, _ = self.forward(params, batch)
+        if self.cfg.family == "vlm":
+            logits = logits[:, self.cfg.vision_tokens:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         loss, metrics = _xent(logits, labels, self.run.z_loss)
         metrics["loss"] = loss

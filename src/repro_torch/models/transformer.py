@@ -6,9 +6,11 @@ parameters carry across leaf for leaf.  Where the JAX package scans over
 the groups, the port runs a Python loop over the leading dim (each leaf
 unbound once per call, so the gradient of the stack is one stack of the
 groups' gradients).  Only attention blocks with a dense MLP are ported so
-far (the dense and encdec families), in the train/prefill mode (no cache,
-causal or bidirectional), the dense-cache decode mode with whisper's
-cross-attention, and the two paged serving modes.
+far (the dense, vlm and encdec families), in the train/prefill mode (no
+cache, causal or bidirectional), the dense-cache decode mode with
+whisper's cross-attention, and the two paged serving modes.  The vlm
+family is the dense LM with a ``vision_proj`` linear over stub patch
+embeddings (``models/model.py`` prepends them).
 """
 
 from __future__ import annotations
@@ -55,12 +57,18 @@ def pattern_period(cfg: ModelConfig) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "encdec") or cfg.moe \
+    """Raise for a family the port has no model of yet, naming the
+    ROADMAP items that bring it."""
+    missing = []
+    if cfg.moe:
+        missing.append("the moe family (ROADMAP B3, then A8b moe)")
+    if cfg.family not in ("dense", "vlm", "encdec") \
             or any(t != "attn" for t in cfg.layer_types):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}, "
-                                  f"{set(cfg.layer_types)}): only dense "
-                                  f"attention models (dense, encdec) are "
-                                  f"ported so far")
+        missing.append("the hybrid and ssm mixers (ROADMAP A8b hybrids)")
+    if missing:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}, layers "
+                                  f"{sorted(set(cfg.layer_types))}) needs "
+                                  f"{' and '.join(missing)}, not ported yet")
 
 
 def block_init(generator: torch.Generator, cfg: ModelConfig,
@@ -250,6 +258,9 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig, run: RunConfig) -> dic
     if not cfg.tie_embeddings:
         p["lm_head"] = linear_init(generator, cfg.d_model, cfg.vocab,
                                    dtype=dtype, scale=cfg.d_model ** -0.5)
+    if cfg.family == "vlm":
+        p["vision_proj"] = linear_init(generator, cfg.d_model, cfg.d_model,
+                                       dtype=dtype)
     return p
 
 

@@ -30,10 +30,15 @@ window), ``lin`` = ``Σ ru(K, k_r)·ru(N, n_r)`` over the block's linears
 
     flops = 2·M·L·lin + 2·R·head + 4·P·Hq·dh·win·L
 
-— every packed linear over its padded tiles, the tied head over the ``R``
-gathered rows, and attention over the whole window.  This is the dot-FLOP
-count XLA reports for the JAX package's families, to the FLOP
-(``tests/test_torch_attrib.py`` holds the two equal).
+— every packed linear over its padded tiles, the head (tied or not: the
+same ``[d, vocab]`` product) over the ``R`` gathered rows, and attention
+over the whole window.  This is the dot-FLOP count XLA reports for the JAX
+package's families, to the FLOP (``tests/test_torch_attrib.py`` holds the
+two equal, for SmolLM2 and for Qwen2-7B's QKV bias and Qwen3-8B's qk_norm
+and untied head).  A bias, a norm and the qk-norm are no dots, and count
+nothing.  A static engine (the encdec and vlm families, whose vision
+prefix runs in the static loop's prefill) has no warmup and no cost model,
+in either package.
 
 **Bytes** are the port's own count, not the JAX package's:
 
@@ -48,8 +53,8 @@ slots for a flat step, ``B`` otherwise), and the float32 logits of the
 counts activations, the per-step pack of the stacked layer weights and
 every unfused intermediate), so no closed form reproduces it; the port
 counts the traffic a step cannot avoid, which makes ``predicted_s`` the
-step's floor on the card.  Norm weights and the embedding rows gathered
-are left out (a few KB a step).  ``kv_gather_bytes`` is the JAX package's
+step's floor on the card.  Norm and qk-norm weights, biases and the
+embedding rows gathered are left out (a few KB a step).  ``kv_gather_bytes`` is the JAX package's
 term exactly.
 
 Per-step attribution happens on the telemetry side

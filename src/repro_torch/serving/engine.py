@@ -65,9 +65,10 @@ step through the model's dense-cache ``decode_step``: the prefill
 ``[B, plen]`` and the decode ``[B, 1]`` are two signatures of the one
 compiled ``"decode"`` step, and on the card two graphs over one dense
 cache per batch shape that the engine's graph table keeps.  The
-encoder-decoder family (whisper) is served only so (:meth:`generate`
-takes that path for it), with its weights left unpacked, as in the JAX
-package; an engine over it refuses the continuous path's options.
+encoder-decoder family (whisper) and the vlm family (a patch prefix) are
+served only so (:meth:`generate` takes that path for them), whisper with
+its weights left unpacked, as in the JAX package; an engine over either
+refuses the continuous path's options.
 
 Telemetry (``telemetry=True``, :mod:`repro_torch.obs`) observes without
 taking part: request lifecycle marks, a ``device`` span around each model
@@ -1101,7 +1102,8 @@ class Engine:
                  seed: int = 0, eos_id: Optional[int] = None,
                  return_reasons: bool = False,
                  deadline_s: Optional[float] = None):
-        """batch: {"tokens": [B, L]} (encdec: and "frames" [B, S_enc, d]).
+        """batch: {"tokens": [B, L]} (encdec: and "frames" [B, S_enc, d];
+        vlm: and "patches" [B, vision_tokens, d]).
         Returns [B, max_new] generated tokens, and the finish reasons
         ("eos", "length", "timeout", "rejected", "error") with
         ``return_reasons=True``.  Rows that finish early, by eos, timeout,
@@ -1170,8 +1172,11 @@ class Engine:
                         greedy: bool = True, seed: int = 0) -> np.ndarray:
         """The static batch loop: every row shares one prompt length; the
         prompts ``batch["tokens"]`` [B, plen] are prefilled in one call of
-        the ``"decode"`` step at position 0, then every row decodes in lock
-        step to ``max_new`` tokens (no eos stop).  The first token is the
+        the ``"decode"`` step at position 0 (vlm: ``vision_tokens + plen``
+        positions, whose embeddings, the ``vision_proj`` of
+        ``batch["patches"]`` before the prompt's, stand in for zero
+        tokens), then every row decodes in lock step to ``max_new`` tokens
+        (no eos stop).  The first token is the
         argmax even when ``greedy=False``, as in the JAX package; sampled
         picks split one key per step (:func:`sampling.split`) and draw the
         whole batch from it (:func:`sampling.categorical`).  A greedy loop
@@ -1181,17 +1186,23 @@ class Engine:
         plen = prompts.shape[1]
         caches = self._static_caches(batch)
 
-        def step(tok, pos):
+        def step(tok, pos, embeds=None):
             # the position is filled on the device: no copy from the host
             pos = torch.full((), pos, dtype=torch.int32, device=self.device)
-            logits, _ = self._decode_step(self.params, caches, tok, pos, None,
+            logits, _ = self._decode_step(self.params, caches, tok, pos, embeds,
                                           graphs=self._graphs)
             return logits[:, -1]
 
         def argmax(row):
             return torch.argmax(row, dim=-1).to(torch.int32)[:, None]
 
-        tok = argmax(step(prompts, 0))
+        if self.model.cfg.family == "vlm":
+            embeds = self.model._embeds(self.params, batch)
+            plen = embeds.shape[1]
+            tok = argmax(step(torch.zeros(embeds.shape[:2], dtype=torch.int32),
+                              0, embeds))
+        else:
+            tok = argmax(step(prompts, 0))
         out = [tok]
         key = sampling.prng_key(seed)
         for i in range(max_new - 1):

@@ -66,12 +66,12 @@ def _run(dtype):
     return dict(param_dtype=dtype, compute_dtype=dtype, remat=False)
 
 
-def _pair(dtype, policy="scalable", hw="tpu_v5e"):
+def _pair(dtype, policy="scalable", hw="tpu_v5e", arch="smollm2-135m"):
     run = dict(_run(dtype), layout_policy=policy)
-    jm = jbuild_model(jreduced(jget_config("smollm2-135m"), layers=2),
+    jm = jbuild_model(jreduced(jget_config(arch), layers=2),
                       JRun(**run), JShape(*SHAPE), hw=jpresets[hw])
     jparams = jm.init(jax.random.PRNGKey(0))
-    m = build_model(reduced_config(get_config("smollm2-135m"), layers=2),
+    m = build_model(reduced_config(get_config(arch), layers=2),
                     RunConfig(**run), ShapeSpec(*SHAPE), hw=presets[hw],
                     device="cpu")
     # numpy has no bfloat16: carry the weights across in f32, then cast
@@ -191,17 +191,23 @@ COST_GRIDS = {"flat": dict(chunk_tokens=16, token_budget=24),
 
 
 # today's case (scalable tiles of tpu_v5e) in both dtypes, every grid, with
-# and without speculation; and the layouts of the other vector lengths and
-# policies in float32 (the reference prices the same graphs in bfloat16)
+# and without speculation; the layouts of the other vector lengths and
+# policies in float32 (the reference prices the same graphs in bfloat16);
+# and two other dense configs in float32: Qwen2-7B (QKV bias) and Qwen3-8B
+# (qk_norm, an untied head), reduced
 COST_LAYOUTS = [("scalable", "tpu_vl512"), ("fixed", "tpu_vl512"),
                 ("unpacked", "tpu_v5e")]
+COST_ARCHS = ["qwen2-7b", "qwen3-8b"]
 COST_CASES = [pytest.param(dt, grid, spec, None,
                            id=f"{dt}-{grid}-{'plain' if spec is None else 'spec'}")
               for dt in ("float32", "bfloat16") for grid in sorted(COST_GRIDS)
               for spec in (None, 2)] + \
              [pytest.param("float32", grid, None, lay, id=f"float32-{grid}-plain-"
                            f"{lay[0]}-{lay[1]}")
-              for lay in COST_LAYOUTS for grid in sorted(COST_GRIDS)]
+              for lay in COST_LAYOUTS for grid in sorted(COST_GRIDS)] + \
+             [pytest.param("float32", grid, None, ("scalable", "tpu_v5e", arch),
+                           id=f"float32-{grid}-plain-{arch}")
+              for arch in COST_ARCHS for grid in sorted(COST_GRIDS)]
 
 
 def _linears_missed_in_fusions(m, label: str) -> float:

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small shapes (chip_smoke.py repeats this at the full SmolLM2 widths), and
+small shapes (chip_smoke.py repeats this at the full SmolLM2 widths;
+ragged attention also at d_head 128 for the groups of the served configs,
+1, 4, 7 and 16, at every split count), and
 the CUDA graphs of the three serving step families on SmolLM2 cut to 2
-layers:
+layers (and of the flat step at Qwen3-8B's widths, cut to 2 layers):
 replay bit for bit the eager step, with the same launch counts, and no
 capture during a drain after warmup; the static batch loop's ``"decode"``
 step (SmolLM2's and whisper-small's widths, cut in depth) likewise, with
@@ -256,7 +258,8 @@ _RAGGED_CASES = {
 }
 
 
-def _ragged_case(gen, dtype, segments, width, pages=400, mp=64, hq=9, hkv=3):
+def _ragged_case(gen, dtype, segments, width, pages=400, mp=64, hq=9, hkv=3,
+                 dh=64):
     rng = np.random.default_rng(width + len(segments))
     rows = 1 + max(r for r, _, _ in segments)
     bt = (rng.permutation(pages - 1)[:rows * mp] + 1).astype(np.int32).reshape(rows, mp)
@@ -270,9 +273,9 @@ def _ragged_case(gen, dtype, segments, width, pages=400, mp=64, hq=9, hkv=3):
     args = dict(block_tables=torch.from_numpy(bt).cuda(),
                 row_ids=torch.from_numpy(row_ids).cuda(),
                 q_pos=torch.from_numpy(q_pos).cuda())
-    q = _rand(gen, (width, hq, 64), dtype)
-    kp = _rand(gen, (pages, 16, hkv, 64), dtype)
-    vp = _rand(gen, (pages, 16, hkv, 64), dtype)
+    q = _rand(gen, (width, hq, dh), dtype)
+    kp = _rand(gen, (pages, 16, hkv, dh), dtype)
+    vp = _rand(gen, (pages, 16, hkv, dh), dtype)
     return q, kp, vp, args, row_ids, q_pos
 
 
@@ -318,6 +321,40 @@ def test_ragged_kernel_every_split(gen, dtype, tol, splits):
     assert (got - want).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("group", [1, 4, 7, 16])
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+def test_ragged_kernel_d128_every_split_and_group(gen, dtype, tol, group, splits):
+    """d_head 128 at the groups of the served configs (OLMo-1B 1, Qwen3-8B
+    4, Qwen2-7B 7, ChatGLM3-6B 16: 8-position tiles) over two KV heads, at
+    every cluster size: page edges, a long decode row, a prefill chunk
+    whose first rows see fewer pages than the split count, a row shorter
+    than it and trailing padding.  Valid positions within tol of the plain
+    version, padding zeros, one launch, repeats bit-identical."""
+    segments = [(0, 1000, 1), (1, 15, 1), (2, 16, 1), (3, 200, 40), (4, 20, 3),
+                (5, 17, 9)]
+    q, kp, vp, args, row_ids, q_pos = _ragged_case(
+        gen, dtype, segments, 64, hq=2 * group, hkv=2, dh=128)
+    plan = _ragged_plan(row_ids, q_pos, splits, hkv=2, hq=2 * group)
+    valid = torch.from_numpy(row_ids >= 0).cuda()
+    before = ragged_attention.launches
+    out = ragged_attention(q, kp, vp, plan=plan, **args)
+    assert ragged_attention.launches == before + 1
+    want = ragged_attention_ref(q, kp, vp, **args)[valid].float()
+    assert (out[valid].float() - want).abs().max().item() <= tol
+    assert not out[~valid].any()
+    for _ in range(2):
+        assert torch.equal(ragged_attention(q, kp, vp, plan=plan, **args), out)
+
+
+@pytest.mark.parametrize("dh", [32, 96, 256])
+def test_ragged_kernel_refuses_other_head_widths(gen, dh):
+    q, kp, vp, args, row_ids, q_pos = _ragged_case(
+        gen, torch.bfloat16, [(0, 10, 1)], 16, dh=dh)
+    with pytest.raises(ValueError, match="d_head"):
+        ragged_attention(q, kp, vp, plan=_ragged_plan(row_ids, q_pos), **args)
+
+
 def test_ragged_kernel_needs_a_plan(gen):
     q, kp, vp, args, _, _ = _ragged_case(gen, torch.bfloat16, [(0, 10, 1)], 16)
     with pytest.raises(ValueError, match="plan"):
@@ -328,9 +365,9 @@ def test_ragged_bf16_runs_on_tensor_cores_f32_does_not(gen):
     funcs = _sass_by_function()
     bf16 = [v for k, v in funcs.items() if "ragged_attn_kernel" in k and "bfloat16" in k]
     f32 = [v for k, v in funcs.items() if "ragged_attn_kernel" in k and "bfloat16" not in k]
-    assert len(bf16) == 1 and len(f32) == 1, sorted(funcs)
-    assert "HMMA.16816.F32.BF16" in bf16[0]
-    assert "HMMA" not in f32[0]
+    assert len(bf16) == 2 and len(f32) == 2, sorted(funcs)   # d_head 64 and 128
+    assert all("HMMA.16816.F32.BF16" in v for v in bf16)
+    assert not any("HMMA" in v for v in f32)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -494,6 +531,58 @@ def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
             "ragged_attn": 2 * n if eng.flat else 0,
             "mmt4d_dgrad": 0, "mmt4d_wgrad": 0}
     assert kernels.launch_counts() == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_qwen3_widths_flat_drain_replays_the_eager_step(gen, dtype):
+    """Qwen3-8B's widths (d 4096, 32 query heads over 8 KV heads of 128,
+    qk_norm, d_ff 12288, its untied head over vocab 151936) cut to 2
+    layers, served flat: every step of a drain after warmup replays a
+    graph captured at warmup, its logits bit for bit the model's eager
+    step on the same inputs and state, with the same wrapper counts; per
+    model call 2 x 7 + 1 mmt4d, 2 ragged attention and 1 unpack."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2)
+    name = str(dtype)[6:]
+    model = build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
+                        ShapeSpec("serve", 256, 4, "decode"), device="cuda")
+    eng = Engine(model, model.init(torch.Generator(device="cuda").manual_seed(0)),
+                 device="cuda", max_slots=4, page_tokens=16, chunk_tokens=64)
+    eng.warmup()
+    graphs = eng.stats()["captures"]
+    step, calls = eng._flat_step, []
+
+    def checked(params, caches, *args, plan=None, graphs=None):
+        c0 = kernels.counters()
+        out, caches = step(params, caches, *args, plan=plan, graphs=graphs)
+        out = out.clone()
+        c1 = kernels.counters()
+        want, _ = step.fn(params, caches, *(a.cuda() for a in args),
+                          plan=plan.to("cuda"))
+        c2 = kernels.counters()
+        kernels.add_counts({k: c2[k] - c1[k] for k in c2}, -1)
+        assert torch.equal(out, want)
+        assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
+        calls.append(c1["pack"] - c0["pack"])
+        return out, caches
+
+    eng._flat_step = checked
+    rng = np.random.default_rng(6)
+    kernels.reset_launch_counts()
+    rids = [eng.add_request(rng.integers(0, cfg.vocab, n), 6) for n in (40, 100, 7, 70)]
+    fin = eng.drain()
+    assert sorted(r.rid for r in fin) == sorted(rids)
+    assert all(len(r.out_tokens) == 6 for r in fin) and eng.pool.num_used == 0
+    assert eng.stats()["captures"] == graphs
+    n = len(calls)
+    got = kernels.launch_counts()
+    assert (got["mmt4d"], got["ragged_attn"], got["unpack"], got["pack"]) == \
+        (15 * n, 2 * n, n, sum(calls))
 
 
 @pytest.mark.parametrize("family", sorted(_FAMILY))
