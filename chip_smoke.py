@@ -7,8 +7,9 @@ attention also at the d_head-128 configs' heads) and times both, then
 serves full-width SmolLM2-135M (random weights from a seed) through each of
 the engine's three step families (flat, dense chunked, monolithic), every
 step a replay of a CUDA graph captured at warmup, SmolLM2-135M and
-whisper-small through the static batch loop, and Qwen3-8B at full width
-and depth, three other dense configs and InternVL2's language model:
+whisper-small through the static batch loop, Qwen3-8B at full width
+and depth, three other dense configs and InternVL2's language model,
+and RWKV-6 1.6B whole and the mamba hybrid through the recurrent path:
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds;
@@ -177,11 +178,29 @@ and depth, three other dense configs and InternVL2's language model:
      32 new): f32 at 2 layers, batch 2, card = CPU, bf16 at 8 of its 48
      layers, batch 4, each with static_run's checks (the vision prefix counted once
      per batch), prefill and decode ms;
- 15. the kernels JSON line (launches from the main path of each kernel: the
+ 15. the recurrent mixers: wkv6 (csrc/wkv6.cu) against its plain version at
+     RWKV-6's heads (32 of 64), f32, decode rows (4 rows, 1 token) and a
+     512-token prefill, y and the final state within WKV6_TOL, timed
+     L2-cold beside its bound and the plain token loop (no library call);
+     RWKV-6 1.6B at its published widths and depth (24 layers, d 2048,
+     vocab 65536, weights drawn on the card) in bf16 through the
+     monolithic engine (4 slots, seq_len 1024): the §4 requests, each
+     distinct prompt length capturing its exact-length prefill graph, the
+     launches of every model call checked (193 mmt4d, 242 pack, 49 unpack,
+     24 wkv6), then a second drain capturing nothing with the same
+     tokens; printed: ms per step and tokens/s beside the bound, captures,
+     warmup seconds and peak memory; RWKV-6 cut to PARITY_LAYERS layers in
+     f32, card = CPU token for token (first-call logits within
+     RECURRENT_F32_MARGIN) and generate_static = generate on the card;
+     the hybrid test configuration (jamba-v0.1's mixers at its published
+     widths, one period of 8 layers, moe=False) in f32, 2 requests of
+     HYBRID_NEW tokens, card = CPU;
+ 16. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
-     the gradient kernels; each other path's beside them, phase 14's
-     included; each kernel's representative case at the scaled tiles;
-     ragged_attn's d_head-128 cases), then the result line.
+     the gradient kernels, the RWKV-6 1.6B drain for wkv6; each other
+     path's beside them, phases 14's and 15's included; each kernel's
+     representative case at the scaled tiles; ragged_attn's d_head-128
+     cases), then the result line.
 
 Usage:  python3 chip_smoke.py [--out results.json]
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -226,6 +245,8 @@ SOURCES = {
                     "src/repro/kernels/mmt4d/kernel.py:113"),
     "mmt4d_wgrad": ("src/repro_torch/csrc/mmt4d_bwd.cu",
                     "src/repro/kernels/mmt4d/kernel.py:113"),
+    # RWKV-6's recurrence: no Pallas kernel; the JAX package's lax.scan
+    "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/models/rwkv6.py:87"),
 }
 SERVING_KERNELS = ("mmt4d", "pack", "unpack", "ragged_attn")
 GRAD_KERNELS = ("mmt4d_dgrad", "mmt4d_wgrad")
@@ -233,7 +254,8 @@ GRAD_KERNELS = ("mmt4d_dgrad", "mmt4d_wgrad")
 # RunConfig): the shape that carries most of its time in the drain
 REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
                   "unpack": "final stream decode", "ragged_attn": "decode rows",
-                  "mmt4d_dgrad": "tied head", "mmt4d_wgrad": "tied head"}
+                  "mmt4d_dgrad": "tied head", "mmt4d_wgrad": "tied head",
+                  "wkv6": "decode rows"}
 # max |kernel - plain| <= TOL * max(floor, max |plain|): float32 sums in
 # another order; bfloat16 may round the float32 result to a neighbouring
 # value.  floor is 1 for the forward kernels, whose results are of order 1,
@@ -242,6 +264,10 @@ REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
 # of the result's mean |value|
 TOL = {TF: 1e-4, BF: 2e-2}
 GRAD_TOL_SHARE = 0.25
+# wkv6 (float32 only): y and the final state each within this share of the
+# plain version's largest |value| (float32 sums over dh = 64 in another
+# order, FMAs, and a recurrence of up to 512 steps)
+WKV6_TOL = 1e-5
 L2_FLUSH_BYTES = 64 * 2**20     # operand copies per cold-timed case pass this
 # two runs of one drain may pick differently only where a pick's (perturbed,
 # for a sampled pick) top-2 logit margin is below this: float32 logits of
@@ -290,17 +316,27 @@ def spin_cycles_per_ms() -> float:
     return _SPIN_CYCLES_PER_MS[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, spin: bool = True) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls, after
     warm-up (CUDA events).  A spin kernel holds the stream while the host
     queues every call, so a call shorter than its host-side launch cost
     is timed on the device and not at the host's launch rate.  The spin
     lasts four times the host's measured time to queue the calls; should
     it still end first, the timing is refused and retried once with a
-    spin twice as long."""
+    spin twice as long.  ``spin=False`` times without it, for a call of
+    more launches than the device's queue holds (a plain version's token
+    loop): its time is then the host's launch rate."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    if not spin:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
@@ -370,6 +406,46 @@ class KernelChecks:
             "kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
             "library_ms": None if library is None else time_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by, **extra})
+
+    def wkv6(self, b, s, label, h=32, dh=64):
+        """wkv6 (float32 only) at RWKV-6's heads: r, k, v ~ N(0, 1), w =
+        exp(-exp(N(-2, 1))) in (0, 1), u and the starting state ~ N(0,
+        0.1); y and the final state each within WKV6_TOL of the plain
+        version's largest |value|; timed L2-cold.  Bound: r, k, v, w, u and
+        the state read once, y and the state written once (bytes), the
+        4 dh^2 operations per token and head at the float32 rate."""
+        from repro_torch.kernels.wkv6.ops import wkv6
+        from repro_torch.kernels.wkv6.ref import wkv6_ref
+        r, k, v = (self.rand((b, s, h, dh), TF) for _ in range(3))
+        w = torch.exp(-torch.exp(self.rand((b, s, h, dh), TF) - 2))
+        u, s0 = self.rand((h, dh), TF, 0.1), self.rand((b, h, dh, dh), TF, 0.1)
+        got, want = wkv6(r, k, v, w, u, s0), wkv6_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        errs, tols = [], []
+        for name, g, x in zip(("y", "state"), got, want):
+            errs.append((g - x).abs().max().item())
+            tols.append(WKV6_TOL * x.abs().max().item())
+            ok = errs[-1] <= tols[-1] and bool(torch.isfinite(g).all())
+            print(f"  {'wkv6':<11} {label + ' ' + name:<44} float32  max_abs_err "
+                  f"{errs[-1]:.3e} (tolerance {tols[-1]:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"wkv6 {label} {name}: error {errs[-1]} > "
+                                     f"{tols[-1]}")
+        sets = cold_sets(r, k, v, w, u, s0)
+        nbytes = 4 * (5 * b * s * h * dh + 2 * b * h * dh * dh + h * dh)
+        bound_ms, bound_by = self.bound(nbytes, 4 * b * s * h * dh * dh, TF)
+        self.cases["wkv6"].append({
+            "shape": f"{label}, r/k/v/w ({b},{s},{h},{dh}), state ({b},{h},{dh},{dh})",
+            "dtype": "float32", "max_abs_err": max(errs), "tolerance": min(tols),
+            "max_abs_err_y": errs[0], "max_abs_err_state": errs[1],
+            "kernel_ms": time_ms(cycle(wkv6, sets)),
+            "plain_ms": time_ms(cycle(wkv6_ref, sets[:1]), iters=5 if s > 1 else 20,
+                                spin=s == 1),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+        c = self.cases["wkv6"][-1]
+        print(f"  {'wkv6':<11} {label:<44} float32  {c['kernel_ms']:.6f} ms "
+              f"(bound {bound_ms:.6f} by {bound_by}, plain {c['plain_ms']:.4f}, "
+              f"no library call)")
 
     def mmt4d(self, dtype, w_tokens, k, n, act, label, bias=False):
         """``bias``: with a packed bias in the epilogue (added before the
@@ -1093,13 +1169,15 @@ def leaves(tree):
         yield tree
 
 
-def check_path_launches(label, launches, flat) -> None:
+def check_path_launches(label, launches, flat, rwkv=False) -> None:
     """Every kernel of the path ran in the drain just read: all four
     serving kernels in the flat family, all but ragged_attn in the paged
-    ones (which attend through PyTorch and must not launch it); a drain
-    launches no gradient kernel."""
+    ones (which attend through PyTorch and must not launch it), wkv6 where
+    the model has RWKV layers (``rwkv``) and only there; a drain launches
+    no gradient kernel."""
     for k, n in launches.items():
-        if (n == 0) != (k in GRAD_KERNELS or (k == "ragged_attn" and not flat)):
+        if (n == 0) != (k in GRAD_KERNELS or (k == "wkv6" and not rwkv)
+                        or (k == "ragged_attn" and not flat)):
             raise AssertionError(f"{label}: {k} launched {n} times")
 
 
@@ -1135,7 +1213,8 @@ def timed_drain(eng, reqs, greedy, seed, label, staggered=False) -> dict:
             "speculative" in st and st["speculative"]["drafter"].get("captures")
             != st0["speculative"]["drafter"].get("captures")):
         raise AssertionError(f"{label}: captured during the drain")
-    check_path_launches(label, launches, eng.flat)
+    check_path_launches(label, launches, eng.flat,
+                        rwkv="rwkv" in eng.model.cfg.layer_types)
     steps = st["steps"] - st0["steps"]
     ntok = sum(len(r.out_tokens) for r in fin)
     host = wall - rec.seconds
@@ -2834,6 +2913,248 @@ def dense_phase(card) -> tuple:
     paths.update(p)
     return res, paths
 
+RWKV_SLOTS, RWKV_REQUESTS, RWKV_NEW = 4, 8, 32
+# f32 first-call logits of a recurrent model, card against CPU, within this
+# share of max(1, max |logit|): measured up to 1.9e-5 on RWKV-6 (2 layers)
+# and 1.4e-5 on the hybrid, where F32_MARGIN holds the dense configs.
+# float32 sums in another order (FMAs, other tilings) through 16 linears,
+# and the squared channel-mix and the gates carry them further than an MLP
+RECURRENT_F32_MARGIN = 3e-5
+HYBRID_NEW = 4          # the CPU's plain path over 8 layers of d 4096 sets the time
+
+
+def rwkv_per_call(cfg) -> tuple:
+    """(launches per model call of an RWKV model by kernel, mmt4d unpacked
+    stores per call), a prefill's and a decode step's alike: per layer the
+    8 linears (time-mix r, k, v, g, o; channel-mix k, r, v), each stored
+    unpacked, 10 packs (the inputs of those 8, each mixer's output into the
+    packed stream), 2 unpacks (the normed stream into each mixer) and one
+    wkv6; the stream entry pack, the final stream's unpack, the logits
+    rows' pack and the untied head, stored unpacked."""
+    n = cfg.n_layers
+    return ({"mmt4d": 8 * n + 1, "pack": 10 * n + 2, "unpack": 2 * n + 1,
+             "ragged_attn": 0, "wkv6": n}, 8 * n + 1)
+
+
+def rwkv_full(card) -> tuple:
+    """RWKV-6 1.6B at its published widths and depth (24 layers, d 2048, 32
+    heads of 64, d_ff 7168, vocab 65536, untied head, LayerNorm) in bf16,
+    weights drawn on the card, through the monolithic engine (4 slots,
+    seq_len 1024): warmup (the decode[4,1] graph), then the §4 requests
+    (8, prompts 64-512, 32 new, greedy), each distinct prompt length
+    capturing its exact-length prefill graph at its first prefill; the
+    launches of every model call checked (rwkv_per_call); then a second
+    drain of the same requests that captures nothing and repeats the
+    first's tokens.  Prints ms per step and tokens/s beside the bound (each
+    weight but the embedding table read once and the slots' state read and
+    written once a decode step), captures, warmup seconds and peak
+    memory."""
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.core.hardware import query
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    cfg = get_config("rwkv6-1.6b")
+    hw = query("cuda", "h100")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, RWKV_SLOTS,
+                                                    "decode"), device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    step_bytes = weight_bytes - params["embed"]["e"].numel() * 2
+    eng = Engine(model, params, device="cuda", max_slots=RWKV_SLOTS,
+                 page_tokens=16)
+    del params
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(eng.caches))
+    bound_ms = 1e3 * (step_bytes + 2 * state_bytes) / hw.hbm_bw
+    print(f"  rwkv6-1.6b: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {cfg.param_counts()['total']} "
+          f"parameters, {weight_bytes / 1e9:.4f} GB in bf16 (the embedding "
+          f"table {(weight_bytes - step_bytes) / 1e9:.4f} GB of it), drawn on "
+          f"the card in {init_s:.2f} s; per-slot state "
+          f"{state_bytes / RWKV_SLOTS / 1e6:.3f} MB ({card})")
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    graphs = dict(eng.stats()["captures"])
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, RWKV_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+    print(f"  rwkv6-1.6b prompts {lens.tolist()}; warmup {warm_s:.3f} s, graphs "
+          f"{graphs}")
+    rec = PickRecorder(eng)
+    calls = count_model_calls(eng)
+    rids = [eng.add_request(p, RWKV_NEW) for p in prompts]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fin = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    unpacked = kernels.wrappers()["mmt4d"].unpacked_stores
+    del eng._run_paged                     # the call counter
+    st = eng.stats()
+    n = len(calls)
+    if sorted(r.rid for r in fin) != sorted(rids) or any(
+            r.finish_reason != "length" or len(r.out_tokens) != RWKV_NEW
+            for r in fin):
+        raise AssertionError("rwkv6-1.6b: not every request finished")
+    if not all(np.isfinite(c).all() for c in calls):
+        raise AssertionError("rwkv6-1.6b: non-finite logits")
+    per, per_unpacked = rwkv_per_call(cfg)
+    for k, want in per.items():
+        if launches[k] != want * n:
+            raise AssertionError(f"rwkv6-1.6b {k}: {launches[k]} launches over "
+                                 f"{n} model calls, expected {want} per call")
+    if unpacked != per_unpacked * n:
+        raise AssertionError(f"rwkv6-1.6b: {unpacked} unpacked stores over {n} "
+                             f"calls, expected {per_unpacked} per call")
+    captured = st["captures"]["paged"] - graphs["paged"]
+    if captured != len(set(lens.tolist())):
+        raise AssertionError(f"rwkv6-1.6b: {captured} graphs captured in the "
+                             f"drain for {len(set(lens.tolist()))} prompt lengths")
+    first_picks = dict(rec.picks)
+    ntok = sum(len(r.out_tokens) for r in fin)
+    first = {"steps": st["steps"], "model_calls": n, "wall_s": wall,
+             "ms_per_step": 1e3 * wall / st["steps"], "tokens": ntok,
+             "tokens_per_s": ntok / wall, "launches": launches,
+             "unpacked_stores": unpacked, "captured_in_drain": captured}
+    print(f"  rwkv6-1.6b bf16 monolithic, first drain: {st['steps']} steps, {n} "
+          f"model calls, {wall:.3f} s wall, {first['ms_per_step']:.4f} ms per "
+          f"step, {ntok / wall:.2f} generated tokens/s, {captured} prefill "
+          f"graphs captured (one per prompt length); launches per model call "
+          f"{ {k: v / n for k, v in launches.items() if v} }, unpacked stores "
+          f"{unpacked / n} per call")
+    second = timed_drain(eng, [(p, RWKV_NEW, 0.0) for p in prompts], True, 0,
+                         "rwkv6-1.6b bf16 monolithic, second drain")
+    if by_request(second.pop("picks")) != by_request(first_picks):
+        raise AssertionError("rwkv6-1.6b: the second drain's tokens differ from "
+                             "the first's")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  rwkv6-1.6b: second drain {second['ms_per_step']:.4f} ms per step, "
+          f"{second['tokens_per_s']:.2f} generated tokens/s (no capture, same "
+          f"tokens); bound of a decode step: every weight but the embedding "
+          f"table read once and 4 slots' state read and written once, "
+          f"({step_bytes / 1e9:.4f} + 2 x {state_bytes / 1e9:.4f}) GB / "
+          f"{hw.hbm_bw / 1e12:.2f} TB/s = {bound_ms:.4f} ms; captures "
+          f"{graphs['paged']} at warmup + {captured} in the first drain; peak "
+          f"memory {peak / 2**30:.2f} GiB ({card})")
+    res = {**first, "second": second, "init_s": init_s, "warmup_s": warm_s,
+           "warmup_graphs": graphs, "weight_bytes": weight_bytes,
+           "step_bytes": step_bytes, "state_bytes": state_bytes,
+           "bound_ms": bound_ms, "peak_bytes": peak,
+           "prompt_lens": lens.tolist(), "card": card}
+    del eng, rec
+    return res, {"rwkv6-1.6b monolithic bf16": launches,
+                 "rwkv6-1.6b monolithic bf16 second": second["launches"]}
+
+
+def recurrent_f32(device, cfg, prompts, params, new) -> tuple:
+    """One float32 monolithic drain of a recurrent model (4 slots, seq_len
+    64): tokens, the first model call's logits, the picks and the graphs
+    captured (on the card: warmup's, then one per prompt length)."""
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    model = build_model(cfg, RunConfig(param_dtype="float32",
+                                       compute_dtype="float32"),
+                        ShapeSpec("serve", 64, 4, "decode"), device=device)
+    eng = Engine(model, params, device=device, max_slots=4, page_tokens=16)
+    eng.warmup()
+    calls, picks = count_model_calls(eng), PickRecorder(eng)
+    rids = [eng.add_request(p, new) for p in prompts]
+    fin = {r.rid: r.out_tokens for r in eng.drain()}
+    return [fin[r] for r in rids], calls[0], picks.picks, eng.stats()["captures"]
+
+
+def recurrent_parity(label, cfg, params, prompts, new, card) -> dict:
+    """The f32 monolithic drain on the card and on the CPU over the same
+    weights (drawn on the card): identical tokens, first-call logits
+    within RECURRENT_F32_MARGIN of max(1, max |logit|)."""
+    t0 = time.perf_counter()
+    cuda_toks, cuda_first, cuda_picks, captures = recurrent_f32(
+        "cuda", cfg, prompts, params, new)
+    t1 = time.perf_counter()
+    cpu_toks, cpu_first, cpu_picks, _ = recurrent_f32("cpu", cfg, prompts,
+                                                      params, new)
+    diff = float(np.abs(cuda_first - cpu_first).max())
+    scale = max(1.0, float(np.abs(cpu_first).max()))
+    print(f"  {label} f32 monolithic: first call max |logit diff| {diff:.3e} "
+          f"(max |logit| {scale:.3f}), graphs {captures}; card "
+          f"{t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s ({card})")
+    cmp = compare_picks(cuda_picks, cpu_picks, 0.0, f"{label} f32 card vs cpu")
+    if cuda_toks != cpu_toks or diff > RECURRENT_F32_MARGIN * scale:
+        raise AssertionError(f"{label}: f32 card {cuda_toks} vs CPU {cpu_toks}, "
+                             f"first logits {diff:.3e} apart (limit "
+                             f"{RECURRENT_F32_MARGIN:g} x {scale:.3f})")
+    print(f"  {label} tokens, card = CPU: {cuda_toks}; first logits within "
+          f"{diff / scale:.3e} of max(1, max |logit|) (limit {RECURRENT_F32_MARGIN:g})")
+    return {"tokens": cuda_toks, "first_logit_diff": diff, "max_logit": scale,
+            "captures": captures, "vs_cpu": cmp}
+
+
+def recurrent_phase(card) -> tuple:
+    """RWKV-6 1.6B whole in bf16 (rwkv_full); RWKV-6 at full width cut to
+    PARITY_LAYERS layers in f32, card = CPU, and generate_static =
+    generate on the card; the hybrid test configuration (jamba-v0.1's
+    mixers at its published widths, one period of 8 layers: 7 mamba and
+    one attention, moe=False; jamba itself is MoE and waits for B3), an
+    f32 drain of 2 requests, card = CPU.  Returns (results, launches by
+    path)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    res["rwkv6-1.6b"], paths = rwkv_full(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("rwkv6-1.6b")
+    cfg = dataclasses.replace(full, n_layers=PARITY_LAYERS)
+    f32 = RunConfig(param_dtype="float32", compute_dtype="float32")
+    shape = ShapeSpec("serve", 64, 4, "decode")
+    params = build_model(cfg, f32, shape, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 4)]
+    label = f"rwkv6-1.6b ({PARITY_LAYERS} of {full.n_layers} layers)"
+    res["rwkv6-1.6b f32"] = recurrent_parity(label, cfg, params, prompts, 8, card)
+    eng = Engine(build_model(cfg, f32, shape, device="cuda"), params,
+                 device="cuda", max_slots=4)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)}
+    static = eng.generate_static(batch, 8)
+    gen = eng.generate(batch, 8)
+    if not np.array_equal(static, gen):
+        raise AssertionError(f"{label}: generate_static {static.tolist()} != "
+                             f"generate {gen.tolist()}")
+    print(f"  {label} f32: generate_static = generate on the card, batch 4 x "
+          f"16 tokens, 8 new: {static.tolist()}")
+    res["rwkv6-1.6b f32"]["static_equals_generate"] = True
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(jamba, n_layers=len(jamba.block_pattern), moe=False)
+    params = build_model(cfg, f32, shape, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 2)]
+    label = (f"hybrid (jamba-v0.1's mixers, {cfg.n_layers} of {jamba.n_layers} "
+             f"layers, moe=False, {cfg.param_counts()['total']} parameters)")
+    res["hybrid f32"] = recurrent_parity(label, cfg, params, prompts, HYBRID_NEW,
+                                         card)
+    del params
+    return res, paths
+
 
 def by_descriptor(kernel, scaled_checks) -> dict:
     """Kernel ``kernel``'s bf16 representative case at each scaled
@@ -3020,16 +3341,31 @@ def main(argv=None) -> int:
           f"layers card = CPU, bf16 at {VLM_LAYERS}) ({card})")
     dense, dense_paths = dense_phase(card)
     by_path.update(dense_paths)
+    print(f"the recurrent mixers: wkv6 against its plain version at RWKV-6's "
+          f"heads (32 of 64), L2-cold, relative tolerance {WKV6_TOL:g} on y "
+          f"and the final state ({card}):")
+    checks.wkv6(4, 1, "decode rows")
+    checks.wkv6(1, 512, "prefill")
+    print(f"RWKV-6 1.6B whole (bf16, monolithic, exact-length prefills), RWKV-6 "
+          f"at {PARITY_LAYERS} layers (f32 card = CPU, generate_static = "
+          f"generate) and the hybrid test configuration (f32 card = CPU) "
+          f"({card})")
+    recurrent, rec_paths = recurrent_phase(card)
+    by_path.update(rec_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
-    main_launches = {**launches, **{k: train_main[k] for k in GRAD_KERNELS}}
+    # the RWKV-6 1.6B drain for wkv6
+    main_launches = {**launches, **{k: train_main[k] for k in GRAD_KERNELS},
+                     "wkv6": rec_paths["rwkv6-1.6b monolithic bf16"]["wkv6"]}
     main_steps = {k: training["bf16"]["steps"] if k in GRAD_KERNELS else steps
                   for k in SOURCES}
+    main_steps["wkv6"] = recurrent["rwkv6-1.6b"]["steps"]
 
     kernel_rows = []
     for k, cases in checks.cases.items():
-        rep = next(c for c in cases if c["dtype"] == "bfloat16"
+        rep_dtype = "float32" if k == "wkv6" else "bfloat16"   # wkv6: f32 only
+        rep = next(c for c in cases if c["dtype"] == rep_dtype
                    and c["shape"].startswith(REPRESENTATIVE[k]))
         src, replaces = SOURCES[k]
         kernel_rows.append({
@@ -3065,6 +3401,7 @@ def main(argv=None) -> int:
                        "f32_chunk_cases": f32_chunk_cases,
                        "scaled_checks": {n: c.cases for n, c in scaled_checks.items()},
                        "training": training, "dense": dense,
+                       "recurrent": recurrent,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     print(json.dumps(result))

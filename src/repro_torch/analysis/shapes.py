@@ -59,7 +59,11 @@ def step_families(engine) -> List[Tuple[str, StepGeometry]]:
     """Every step family × ladder shape this engine can hit, in
     ``Engine.warmup``'s order, as ``(label, geometry)``.  Labels:
     ``flat[1,W]/kK`` | ``chunk[B,S]`` | ``chunk[B,S]/verify`` |
-    ``prefill[1,b]`` | ``decode[B,1]`` | ``verify[B,K]``."""
+    ``prefill[1,b]`` | ``decode[B,1]`` | ``verify[B,K]``.  Where prompts
+    prefill at exact lengths (a recurrent model, whose scan padding would
+    reach, or m_r = 1) the prefill families ``prefill[1,n]`` are one per
+    prompt length, made as prompts arrive: none is enumerable here, as in
+    the JAX package, whose warmup makes only ``decode[B,1]`` then."""
     b = engine.slots
     k1s = [1] + ([engine.spec_tokens + 1]
                  if engine.spec_tokens is not None else [])
@@ -78,7 +82,7 @@ def step_families(engine) -> List[Tuple[str, StepGeometry]]:
                 fams.append((f"chunk[{b},{s}]/verify",
                              StepGeometry("paged", b, s, k1s[-1], b)))
         return fams
-    # at m_r = 1 prefills run at exact lengths (no bucket ladder)
+    # exact-length prefills (recurrent, or m_r = 1): no bucket ladder
     l, seen = engine._bucket, set() if engine._bucket > 1 else {1}
     while (bucket := engine._prefill_bucket(l)) not in seen:
         seen.add(bucket)

@@ -23,7 +23,12 @@ from repro_torch.core.mmt4d import Epilogue, matmul, mmt4d
 from repro_torch.core import packing
 from repro_torch.core.propagation import PackedArray, pack_activation
 
-__all__ = ["MatmulContext", "linear_init", "linear_apply", "prepack_params"]
+__all__ = ["MatmulContext", "linear_init", "linear_apply", "prepack_params",
+           "PLAIN_PRODUCTS"]
+
+# ``{"w"}`` leaves that no linear_apply reads: mamba's ``dt_proj``, a plain
+# float32 product in both packages (models/mamba.py), stays unpacked
+PLAIN_PRODUCTS = frozenset({"dt_proj"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +125,9 @@ def prepack_params(params, ctx: MatmulContext, dtype: Optional[torch.dtype] = No
     Unlike the JAX package, which packs only 2-D weights and leaves the
     stacked ``[G, K, N]`` layer weights to be packed inside each jitted step,
     the port packs the stacked weights too: it runs eagerly, with no
-    compiler to hoist a per-step pack of a constant."""
+    compiler to hoist a per-step pack of a constant.  A dict under a key of
+    :data:`PLAIN_PRODUCTS` is a weight no ``linear_apply`` reads, and is
+    left as it is."""
     if not ctx.packed:
         return params
 
@@ -133,6 +140,6 @@ def prepack_params(params, ctx: MatmulContext, dtype: Optional[torch.dtype] = No
             out["w_pack"] = packing.pack_rhs(w, ctx.layout(w.dtype))
             out["w_n"] = w.shape[-1]
             return out
-        return {k: rec(v) for k, v in p.items()}
+        return {k: v if k in PLAIN_PRODUCTS else rec(v) for k, v in p.items()}
 
     return rec(params)

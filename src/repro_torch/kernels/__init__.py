@@ -2,7 +2,8 @@
 JAX package: ``ops.py`` (the wrapper, with its launch count) beside
 ``ref.py`` (the plain PyTorch version).  Sources live in ``csrc/``.
 mmt4d's package also holds its two gradient products (``mmt4d_dgrad``,
-``mmt4d_wgrad``, ``csrc/mmt4d_bwd.cu``), which have no Pallas counterpart.
+``mmt4d_wgrad``, ``csrc/mmt4d_bwd.cu``), and ``wkv6`` RWKV-6's recurrence
+(``csrc/wkv6.cu``), which have no Pallas counterpart.
 
 A wrapper adds one to its ``launches`` where it launches its kernel.  A
 CUDA graph replay calls no wrapper, so each captured step records the
@@ -19,9 +20,10 @@ def wrappers() -> dict:
     from repro_torch.kernels.pack.ops import pack
     from repro_torch.kernels.ragged_attn.ops import ragged_attention
     from repro_torch.kernels.unpack.ops import unpack
+    from repro_torch.kernels.wkv6.ops import wkv6
     return {"mmt4d": mmt4d, "pack": pack, "unpack": unpack,
             "ragged_attn": ragged_attention, "mmt4d_dgrad": mmt4d_dgrad,
-            "mmt4d_wgrad": mmt4d_wgrad}
+            "mmt4d_wgrad": mmt4d_wgrad, "wkv6": wkv6}
 
 
 def launch_counts() -> dict:

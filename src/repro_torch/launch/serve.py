@@ -12,7 +12,13 @@ Weights are random, drawn from ``--seed``.  The family:
 - ``--chunk-tokens C --no-flat``: the dense chunked ``[slots, s]`` step.
 
 ``--arch`` takes every registered architecture the port has a model of
-(the dense, vlm and encdec families); ``--layers`` cuts its depth.
+(the dense, vlm, encdec and ssm families: every one without MoE);
+``--layers`` cuts its depth.  A recurrent model (``--arch rwkv6-1.6b``)
+is served by the monolithic step only: ``--chunk-tokens`` raises, with
+the engine's reason.  Its prompts prefill at exact lengths, each length
+making its program (on the card, its graph) at its first prefill, so the
+launcher serves the requests once before the timed drain, which then
+replays.
 ``--static`` serves one batch of ``--slots`` prompts of ``--prompt-len``
 tokens in lock step through ``Engine.generate_static`` (the dense-cache
 decode step); a static family is served only so: encdec
@@ -45,6 +51,7 @@ plain versions instead):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --chunk-tokens 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --layers 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
     REPRO_HW=h100_vl512 PYTHONPATH=src python -m repro_torch.launch.serve \
         --chunk-tokens 128 --policy fixed
 ``--profile trace.json`` traces the drain with ``torch.profiler`` and
@@ -69,9 +76,9 @@ from repro_torch.configs import (ARCHS, RunConfig, ShapeSpec, get_config,
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Engine
 
-# the architectures the port has a model of: the dense, vlm and encdec
-# families (moe, hybrid and ssm wait in ROADMAP A8b)
-SERVABLE = [a for a in ARCHS if get_config(a).family in ("dense", "vlm", "encdec")]
+# the architectures the port has a model of: all but the moe family (and
+# jamba, a hybrid with MoE), which wait in ROADMAP B3 and A8b
+SERVABLE = [a for a in ARCHS if not get_config(a).moe]
 
 
 def describe_hw(model) -> str:
@@ -93,7 +100,7 @@ def _timed_drain(engine: Engine):
 # the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers;
 # mmt4d's gradient products share one kernel per dtype, whose first
 # template argument is true for wgrad
-_PORT_KERNEL = re.compile(r"::(mmt4d|pack|unpack|ragged_attn)(?:_bf16|_f32)?_kernel\b")
+_PORT_KERNEL = re.compile(r"::(mmt4d|pack|unpack|ragged_attn|wkv6)(?:_bf16|_f32)?_kernel\b")
 _GRAD_KERNEL = re.compile(r"::packed_gemm(?:_wgmma)?_kernel<(true|false)\b")
 
 
@@ -295,8 +302,22 @@ def main(argv=None):
           f"{sum(warm.values())} programs {warm}{kept}")
 
     rng = np.random.default_rng(args.seed)
-    for plen in rng.integers(args.min_prompt, args.max_prompt + 1, args.requests):
-        engine.add_request(rng.integers(0, cfg.vocab, int(plen)), args.new)
+    prompts = [rng.integers(0, cfg.vocab, int(plen)) for plen in
+               rng.integers(args.min_prompt, args.max_prompt + 1, args.requests)]
+    exact = not engine.chunked and engine._bucket == 1
+    if exact:
+        # each prompt length makes its prefill's program at its first use
+        for p in prompts:
+            engine.add_request(p, args.new)
+        t0 = time.perf_counter()
+        engine.drain()
+        warm = engine.stats()["compiles"]
+        print(f"[serve] exact-length prefills: a first pass over the "
+              f"requests made {sum(warm.values())} programs {warm} in "
+              f"{time.perf_counter() - t0:.3f} s")
+    for p in prompts:
+        engine.add_request(p, args.new)
+    steps0 = engine.stats()["steps"]
     kernels.reset_launch_counts()
     if args.profile:
         with torch.profiler.profile(activities=[
@@ -310,18 +331,13 @@ def main(argv=None):
         finished, wall = _timed_drain(engine)
     made = engine.stats()["compiles"]
     if made != warm:
-        # at m_r = 1 (the unpacked policy) the monolithic step prefills at
-        # exact lengths, as the JAX package does: one program per length
-        if engine.chunked or engine._bucket > 1:
-            raise RuntimeError(f"the drain made new programs after warmup: "
-                               f"{warm} -> {made}")
-        print(f"[serve] exact-length prefills (m_r = 1) made "
-              f"{sum(made.values()) - sum(warm.values())} programs in the drain")
+        raise RuntimeError(f"the drain made new programs after warmup: "
+                           f"{warm} -> {made}")
     total = sum(len(r.out_tokens) for r in finished)
+    steps = engine.stats()["steps"] - steps0
     print(f"[serve] {cfg.name} on {engine.device}: {len(finished)} requests, "
           f"{total} tokens in {wall:.6f} s ({total / wall:.4f} tokens/s), "
-          f"{engine.stats()['steps']} steps, "
-          f"{1e3 * wall / max(1, engine.stats()['steps']):.3f} ms per step "
+          f"{steps} steps, {1e3 * wall / max(1, steps):.3f} ms per step "
           f"(paged KV: {engine.pool.page_tokens} tok/page, "
           f"{engine.pool.num_pages} pages, peak {engine.pool.peak_used} used, "
           f"{engine.num_preemptions} preemptions)")

@@ -30,6 +30,7 @@ from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.serve import describe_hw
 from repro_torch.models.model import build_model
+from repro_torch.training.step import require_trainable
 from repro_torch.training.trainer import Trainer
 
 
@@ -66,6 +67,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    require_trainable(cfg, args.device)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     run = RunConfig(layout_policy=args.policy, microbatch=args.microbatch,
                     param_dtype=args.dtype, compute_dtype=args.dtype,

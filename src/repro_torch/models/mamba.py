@@ -1,0 +1,153 @@
+"""Mamba (selective SSM) mixer, jamba's recurrent block: the JAX package's
+``models/mamba.py``.
+
+The in, x and out projections go through
+:func:`~repro_torch.core.linear.linear_apply` (mmt4d); ``dt_proj`` stays a
+plain float32 product, as in the JAX package
+(:func:`~repro_torch.core.linear.prepack_params` leaves it unpacked).  The
+depthwise causal convolution and the selective scan are plain PyTorch, as
+the JAX package leaves them to XLA outside Pallas: the convolution as the
+sum of its ``d_conv`` shifted products, the scan sequentially over the
+sequence where the JAX package runs ``lax.associative_scan`` (the same
+recurrence; float32 sums in another order).  A scan kernel waits with
+jamba (ROADMAP B9).
+
+Modes: train/prefill from zero state (no cache), and with a cache
+{"conv" [B, d_conv - 1, di], "ssm" [B, di, N]}: one update at s = 1, or a
+prefill from the cached state (its ``h0`` injected into the first step).
+The cache is read and updated in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
+from repro_torch.models.common import Stream, maybe_unpack
+
+__all__ = ["mamba_init", "mamba_apply", "init_mamba_cache"]
+
+
+def _dims(cfg: ModelConfig) -> tuple:
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    return d, di, -(-d // 16), cfg.mamba_d_state
+
+
+def mamba_init(generator: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype) -> dict:
+    """The JAX package's tree, shapes and scales: ``in_proj`` [d, 2 di],
+    ``conv_w`` [d_conv, 1, di], ``conv_b``, ``x_proj`` [di, dt_rank + 2N],
+    ``dt_proj`` {"w" [dt_rank, di], "b" (the inverse softplus of a
+    log-uniform step in [1e-3, 0.1], float32)}, ``a_log`` [di, N],
+    ``d_skip`` and ``out_proj`` [di, d], drawn from ``generator`` on its
+    device."""
+    d, di, dt_rank, n = _dims(cfg)
+    dev, f32 = generator.device, torch.float32
+    in_proj = linear_init(generator, d, 2 * di, dtype=dtype)
+    conv_w = (torch.randn((cfg.mamba_d_conv, 1, di), generator=generator,
+                          device=dev) * cfg.mamba_d_conv ** -0.5).to(dtype)
+    x_proj = linear_init(generator, di, dt_rank + 2 * n, dtype=dtype)
+    dt_w = (torch.randn((dt_rank, di), generator=generator, device=dev)
+            * dt_rank ** -0.5).to(dtype)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt = torch.exp(torch.rand((di,), generator=generator, device=dev)
+                   * (hi - lo) + lo)
+    dt_bias = dt + torch.log(-torch.expm1(-dt))          # inverse softplus
+    a = torch.arange(1, n + 1, dtype=f32, device=dev)
+    return {"in_proj": in_proj, "conv_w": conv_w,
+            "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+            "x_proj": x_proj, "dt_proj": {"w": dt_w, "b": dt_bias},
+            "a_log": torch.log(a).expand(di, n).contiguous(),
+            "d_skip": torch.ones((di,), dtype=f32, device=dev),
+            "out_proj": linear_init(generator, di, d, dtype=dtype,
+                                    scale=di ** -0.5 / max(1, cfg.n_layers) ** 0.5)}
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device) -> dict:
+    """Zero per-row state: the convolution's last ``d_conv - 1`` inputs in
+    ``dtype`` and the SSM state in float32."""
+    _, di, _, n = _dims(cfg)
+    return {"conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((batch, di, n), dtype=torch.float32,
+                               device=device)}
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prepend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv1d: x [B, S, di], w [W, 1, di]; the ``W - 1``
+    positions before the first are ``prepend`` (the cached inputs) or
+    zero.  ``out[t] = sum_j x_in[t + j] * w[j]``, the JAX package's
+    ``conv_general_dilated`` (a correlation) in ``x``'s dtype."""
+    width, s = w.shape[0], x.shape[1]
+    if prepend is None:
+        x_in = F.pad(x, (0, 0, width - 1, 0))
+    else:
+        x_in = torch.cat([prepend.to(x.dtype), x], dim=1)
+    w = w[:, 0].to(x.dtype)
+    out = x_in[:, :s] * w[0]
+    for j in range(1, width):
+        out = out + x_in[:, j:j + s] * w[j]
+    return out + b.to(x.dtype)
+
+
+def _ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
+    """h_t = da_t * h_{t-1} + dbx_t over axis 1 from h_{-1} = 0; da, dbx
+    [B, S, di, N].  Returns every h_t."""
+    h = dbx[:, 0]
+    hs = [h]
+    for t in range(1, da.shape[1]):
+        h = da[:, t] * h + dbx[:, t]
+        hs.append(h)
+    return torch.stack(hs, 1)
+
+
+def mamba_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
+                *, cache: Optional[dict] = None):
+    """x: the stream [B, S, d].  Returns (out [B, S, d], cache), the cache
+    updated in place (None in the train/prefill mode)."""
+    d, di, dt_rank, n = _dims(cfg)
+    xz = maybe_unpack(linear_apply(params["in_proj"], x, ctx))
+    x_in, z = xz[..., :di], xz[..., di:]
+    s = x_in.shape[1]
+
+    if cache is None:
+        x_c = _causal_conv(x_in, params["conv_w"], params["conv_b"])
+    else:
+        x_c = _causal_conv(x_in, params["conv_w"], params["conv_b"],
+                           prepend=cache["conv"])
+        window = torch.cat([cache["conv"].to(x_in.dtype), x_in], dim=1)
+        cache["conv"].copy_(window[:, -(cfg.mamba_d_conv - 1):])
+    x_c = F.silu(x_c)
+
+    proj = linear_apply(params["x_proj"], x_c, ctx)
+    dt, b_ssm, c_ssm = proj.split([dt_rank, n, n], dim=-1)
+    delta = F.softplus(dt.float() @ params["dt_proj"]["w"].float()
+                       + params["dt_proj"]["b"])                 # [B,S,di]
+    a = -torch.exp(params["a_log"])                              # [di,N]
+    da = torch.exp(delta[..., None] * a)                         # [B,S,di,N]
+    dbx = (delta[..., None] * b_ssm[:, :, None, :].float()
+           * x_c[..., None].float())
+
+    if cache is None:
+        h = _ssm_scan(da, dbx)
+    else:
+        h0 = cache["ssm"]
+        if s == 1:
+            h = (da[:, 0] * h0 + dbx[:, 0])[:, None]
+        else:       # a prefill from the cached state: h0 enters step 0
+            dbx = torch.cat([(dbx[:, 0] + da[:, 0] * h0)[:, None], dbx[:, 1:]], 1)
+            h = _ssm_scan(da, dbx)
+        h0.copy_(h[:, -1])
+
+    y = torch.einsum("bsdn,bsn->bsd", h, c_ssm.float())
+    y = y + params["d_skip"] * x_c.float()
+    y = (y * F.silu(z.float())).to(xz.dtype)
+    return linear_apply(params["out_proj"], y, ctx), cache

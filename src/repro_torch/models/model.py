@@ -1,6 +1,7 @@
 """Model facade: init, the full-sequence forward and the loss (training),
 the serving steps, and their compiled forms, for the dense, vlm (a stub
-vision prefix, as in the JAX package) and encdec (whisper) families.
+vision prefix, as in the JAX package), encdec (whisper), ssm (RWKV-6) and
+hybrid (mamba beside attention; jamba without its MoE) families.
 
 The port's ``ReproModel`` serves continuous batching through
 ``paged_decode_step`` (the dense chunked and monolithic engine steps) and
@@ -171,7 +172,8 @@ class ReproModel:
 
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         """The dense decode caches of the static batch loop, zero: stacked
-        ``[G, batch, max_len, Hkv, dh]`` K/V per pattern slot; encdec
+        ``[G, batch, max_len, Hkv, dh]`` K/V per attention slot of the
+        pattern, ``[G, batch, ...]`` state per recurrent one; encdec
         ``{"layers": those, "cross": [G, batch, max_len / 4, Hkv, dh]}``."""
         dev = self.device if device is None else device
         dt = self.compute_dtype
@@ -237,11 +239,10 @@ class ReproModel:
 
     def init_paged_cache(self, num_pages: int, page_tokens: int,
                          slots: int) -> dict:
-        """The shared K/V page pools ``[G, P, T, Hkv, dh]`` (page 0 = trash).
-        ``slots`` is accepted for parity with the JAX package, whose
-        recurrent families keep per-slot state; attention needs none."""
-        del slots
-        return tfm.init_paged_caches(self.cfg, num_pages, page_tokens,
+        """The continuous-batching caches, zero: the attention layers'
+        shared K/V page pools ``[G, P, T, Hkv, dh]`` (page 0 = trash) and
+        the recurrent layers' per-slot state ``[G, slots, ...]``."""
+        return tfm.init_paged_caches(self.cfg, num_pages, page_tokens, slots,
                                      self.compute_dtype, self.device)
 
     def paged_decode_step(self, params: dict, caches: dict, token: torch.Tensor,
@@ -356,8 +357,8 @@ class GraphTable:
     model-backed drafter's), by step signature, with the memory pool they
     were captured into and ``captures``, the graphs captured per step
     kind.  Its graphs hold the addresses of one set of parameters and of
-    one cache tree per set of cache shapes, which the first capture over
-    them binds; a call with others raises.  Dropping the table frees the
+    one cache tree per step kind and set of cache shapes, which the first
+    capture over them binds; a call with others raises.  Dropping the table frees the
     graphs, their static buffers and their pool."""
 
     def __init__(self):
@@ -438,7 +439,8 @@ class CompiledStep:
         cache_ptrs = tuple(t.data_ptr() for t in _leaves(caches))
         if graphs.param_ptrs is None:
             graphs.param_ptrs = param_ptrs
-        bound = graphs.cache_ptrs.setdefault(sig[2], cache_ptrs)
+        # a recurrent model's static and paged caches can share shapes
+        bound = graphs.cache_ptrs.setdefault((self.kind, sig[2]), cache_ptrs)
         if graphs.param_ptrs != param_ptrs or bound != cache_ptrs:
             raise ValueError("this GraphTable's graphs were captured over "
                              "other parameters or caches; each engine keeps "

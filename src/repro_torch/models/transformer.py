@@ -5,12 +5,16 @@ pattern period and stacked ``[G, ...]`` per leaf, so the reference's
 parameters carry across leaf for leaf.  Where the JAX package scans over
 the groups, the port runs a Python loop over the leading dim (each leaf
 unbound once per call, so the gradient of the stack is one stack of the
-groups' gradients).  Only attention blocks with a dense MLP are ported so
-far (the dense, vlm and encdec families), in the train/prefill mode (no
-cache, causal or bidirectional), the dense-cache decode mode with
-whisper's cross-attention, and the two paged serving modes.  The vlm
-family is the dense LM with a ``vision_proj`` linear over stub patch
-embeddings (``models/model.py`` prepends them).
+groups' gradients).  A block's mixer follows ``cfg.layer_types``:
+attention, mamba (``models/mamba.py``) or RWKV-6's time-mix
+(``models/rwkv6.py``, whose block takes the channel-mix as its FFN); the
+other blocks take the dense MLP.  The moe family is not ported yet.
+Modes: train/prefill (no cache, causal or bidirectional), the dense-cache
+decode with whisper's cross-attention, and the two paged serving modes.
+A recurrent mixer's cache is per-row state (``[G, rows, ...]``), beside
+the attention layers' page pools in the paged modes; every mode updates
+it in place.  The vlm family is the dense LM with a ``vision_proj``
+linear over stub patch embeddings (``models/model.py`` prepends them).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
 from repro_torch.core.propagation import PackedArray
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba, rwkv6
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (Stream, embed_init, maybe_pack,
                                        maybe_unpack, norm_apply, norm_init,
@@ -59,30 +63,35 @@ def pattern_period(cfg: ModelConfig) -> int:
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for a family the port has no model of yet, naming the
     ROADMAP items that bring it."""
-    missing = []
     if cfg.moe:
-        missing.append("the moe family (ROADMAP B3, then A8b moe)")
-    if cfg.family not in ("dense", "vlm", "encdec") \
-            or any(t != "attn" for t in cfg.layer_types):
-        missing.append("the hybrid and ssm mixers (ROADMAP A8b hybrids)")
-    if missing:
         raise NotImplementedError(f"{cfg.name} ({cfg.family}, layers "
-                                  f"{sorted(set(cfg.layer_types))}) needs "
-                                  f"{' and '.join(missing)}, not ported yet")
+                                  f"{sorted(set(cfg.layer_types))}) needs the "
+                                  f"moe family (ROADMAP B3, then A8b moe), "
+                                  f"not ported yet")
 
 
-def block_init(generator: torch.Generator, cfg: ModelConfig,
+def block_init(generator: torch.Generator, cfg: ModelConfig, pos: int,
                dtype: torch.dtype, *, cross: bool = False) -> dict:
-    """One block; ``cross`` adds whisper's decoder cross-attention (``ln_c``
-    and ``cross``).  The encdec family's MLPs carry biases."""
+    """The block at pattern position ``pos``: its mixer by
+    ``cfg.layer_types[pos]``; an rwkv block takes the channel-mix as its
+    FFN, every other block the MLP.  ``cross`` adds whisper's decoder
+    cross-attention (``ln_c`` and ``cross``).  The encdec family's MLPs
+    carry biases."""
+    t = cfg.layer_types[pos]
+    init = {"attn": attention.attn_init, "mamba": mamba.mamba_init,
+            "rwkv": rwkv6.rwkv_tm_init}[t]
     p = {"ln1": norm_init(cfg.norm, cfg.d_model, dtype),
-         "mixer": attention.attn_init(generator, cfg, dtype)}
+         "mixer": init(generator, cfg, dtype)}
     if cross:
         p["ln_c"] = norm_init(cfg.norm, cfg.d_model, dtype)
         p["cross"] = attention.attn_init(generator, cfg, dtype)
     p["ln2"] = norm_init(cfg.norm, cfg.d_model, dtype)
-    p["ffn"] = mlp_mod.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg, dtype,
-                                bias=cfg.attn_bias and cfg.family == "encdec")
+    if t == "rwkv":
+        p["ffn"] = rwkv6.rwkv_cm_init(generator, cfg, dtype)
+    else:
+        p["ffn"] = mlp_mod.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg,
+                                    dtype, bias=cfg.attn_bias
+                                    and cfg.family == "encdec")
     return p
 
 
@@ -94,23 +103,33 @@ def _as_stream_like(out: Stream, like: Stream, ctx: MatmulContext) -> Stream:
     return out
 
 
-def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
-                positions: torch.Tensor, causal: bool = True,
+def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
+                pos: int, *, positions: torch.Tensor, causal: bool = True,
                 cache: Optional[dict] = None,
                 cache_pos: Optional[torch.Tensor] = None,
                 enc_out: Optional[torch.Tensor] = None,
                 cross_kv: Optional[dict] = None,
                 paged: Optional[dict] = None):
-    """Pre-norm residual block.  Returns (x', cache); no cache (None) in
-    the train/prefill mode.  A block with ``cross`` attends over the
+    """Pre-norm residual block at pattern position ``pos``.  Returns (x',
+    cache); no cache (None) in the train/prefill mode.  The cache of an
+    attention block is {"kv": ...}, of a mamba block {"mamba": {"conv",
+    "ssm"}}, of an rwkv block {"tm_shift", "cm_shift", "state"}; each is
+    updated in place.  A block with ``cross`` attends over the
     encoder: through ``enc_out`` (train/prefill: K/V projected here) or
     the precomputed ``cross_kv`` {"k","v"} [B, S_enc, Hkv, dh] (decode)."""
+    t = cfg.layer_types[pos]
     keep = isinstance(x, PackedArray)
     h = norm_apply(p["ln1"], x, cfg.norm)
-    out, kv = attention.attn_apply(
-        p["mixer"], h, ctx, cfg, positions=positions, causal=causal,
-        kv_cache=None if cache is None else cache["kv"], cache_pos=cache_pos,
-        keep_packed=keep, paged=paged)
+    if t == "attn":
+        out, _ = attention.attn_apply(
+            p["mixer"], h, ctx, cfg, positions=positions, causal=causal,
+            kv_cache=None if cache is None else cache["kv"],
+            cache_pos=cache_pos, keep_packed=keep, paged=paged)
+    elif t == "mamba":
+        out, _ = mamba.mamba_apply(p["mixer"], h, ctx, cfg,
+                                   cache=None if cache is None else cache["mamba"])
+    else:
+        out, _ = rwkv6.rwkv_tm_apply(p["mixer"], h, ctx, cfg, cache=cache)
     x = stream_add(x, _as_stream_like(out, x, ctx))
     if "cross" in p:
         hc = norm_apply(p["ln_c"], x, cfg.norm)
@@ -131,16 +150,19 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
                 kv_source=enc_out, keep_packed=keep)
         x = stream_add(x, _as_stream_like(out, x, ctx))
     h2 = norm_apply(p["ln2"], x, cfg.norm)
-    out2 = mlp_mod.mlp_apply(p["ffn"], h2, ctx, cfg, keep_packed=keep)
+    if t == "rwkv":
+        out2, _ = rwkv6.rwkv_cm_apply(p["ffn"], h2, ctx, cfg, cache=cache)
+    else:
+        out2 = mlp_mod.mlp_apply(p["ffn"], h2, ctx, cfg, keep_packed=keep)
     x = stream_add(x, _as_stream_like(out2, x, ctx))
-    return x, (None if cache is None else {"kv": kv})
+    return x, cache
 
 
 def layers_init(generator: torch.Generator, cfg: ModelConfig,
                 dtype: torch.dtype, *, cross: bool = False) -> dict:
     """Stacked ``{"p<i>": block}`` groups, every leaf ``[G, ...]``."""
     period = pattern_period(cfg)
-    groups = [{f"p{i}": block_init(generator, cfg, dtype, cross=cross)
+    groups = [{f"p{i}": block_init(generator, cfg, i, dtype, cross=cross)
                for i in range(period)}
               for _ in range(cfg.n_layers // period)]
 
@@ -152,33 +174,52 @@ def layers_init(generator: torch.Generator, cfg: ModelConfig,
     return stack(*groups)
 
 
-def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int,
-                      dtype: torch.dtype, device) -> dict:
-    """Stacked ``[G, batch, max_len, Hkv, dh]`` dense decode caches, one
-    per pattern slot, zero."""
+def _stacked_caches(cfg: ModelConfig, kv, rows: int, dtype: torch.dtype,
+                    device) -> dict:
+    """Zero ``[G, ...]`` caches, one per pattern slot: ``kv(device)`` for
+    an attention slot, the per-row state of ``rows`` rows for a recurrent
+    one (mamba's {"mamba": {"conv", "ssm"}}, RWKV-6's {"tm_shift",
+    "cm_shift", "state"})."""
     _check_ported(cfg)
     period = pattern_period(cfg)
-    groups = cfg.n_layers // period
-    one = attention.init_kv_cache(cfg, batch, max_len, dtype, device)
-    return {f"p{i}": {"kv": {k: torch.zeros((groups, *v.shape), dtype=v.dtype,
-                                            device=device)
-                             for k, v in one.items()}}
-            for i in range(period)}
+    meta = torch.device("meta")       # shapes and dtypes only
+
+    def slot(t):
+        if t == "attn":
+            return {"kv": kv(meta)}
+        if t == "mamba":
+            return {"mamba": mamba.init_mamba_cache(cfg, rows, dtype, meta)}
+        return rwkv6.init_rwkv_cache(cfg, rows, dtype, meta)
+
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return torch.zeros((cfg.n_layers // period, *tree.shape),
+                           dtype=tree.dtype, device=device)
+
+    return stacked({f"p{i}": slot(t)
+                    for i, t in enumerate(cfg.layer_types[:period])})
+
+
+def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: torch.dtype, device) -> dict:
+    """Stacked ``[G, ...]`` dense decode caches, one per pattern slot,
+    zero: attention K/V ``[G, batch, max_len, Hkv, dh]``, a recurrent
+    block's per-row state ``[G, batch, ...]``."""
+    return _stacked_caches(
+        cfg, lambda dev: attention.init_kv_cache(cfg, batch, max_len, dtype, dev),
+        batch, dtype, device)
 
 
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_tokens: int,
-                      dtype: torch.dtype, device) -> dict:
-    """Stacked ``[G, P, T, Hkv, dh]`` K/V page pools, one per pattern slot
-    (page ids are shared by every layer)."""
-    _check_ported(cfg)
-    period = pattern_period(cfg)
-    groups = cfg.n_layers // period
-    one = attention.init_paged_kv_cache(cfg, num_pages, page_tokens, dtype,
-                                        device)
-    return {f"p{i}": {"kv": {k: torch.zeros((groups, *v.shape), dtype=v.dtype,
-                                            device=device)
-                             for k, v in one.items()}}
-            for i in range(period)}
+                      slots: int, dtype: torch.dtype, device) -> dict:
+    """Stacked ``[G, ...]`` caches of continuous batching: an attention
+    slot's K/V page pools ``[G, P, T, Hkv, dh]`` (page ids are shared by
+    every layer), a recurrent slot's per-slot state ``[G, slots, ...]``."""
+    return _stacked_caches(
+        cfg, lambda dev: attention.init_paged_kv_cache(cfg, num_pages,
+                                                       page_tokens, dtype, dev),
+        slots, dtype, device)
 
 
 def _unbind(tree):
@@ -199,7 +240,7 @@ def _apply_group(x: Stream, gp: dict, ctx: MatmulContext, cfg: ModelConfig,
                  positions: torch.Tensor, causal: bool,
                  enc_out: Optional[torch.Tensor]) -> Stream:
     for i in range(pattern_period(cfg)):
-        x, _ = block_apply(gp[f"p{i}"], x, ctx, cfg, positions=positions,
+        x, _ = block_apply(gp[f"p{i}"], x, ctx, cfg, i, positions=positions,
                            causal=causal, enc_out=enc_out)
     return x
 
@@ -243,7 +284,7 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
             gc = tree_map(lambda t: t[g], caches[f"p{i}"])
             gkv = (None if cross_kv is None
                    else tree_map(lambda t: t[g], cross_kv[f"p{i}"]))
-            x, _ = block_apply(gp, x, ctx, cfg, positions=positions,
+            x, _ = block_apply(gp, x, ctx, cfg, i, positions=positions,
                                causal=causal, cache=gc, cache_pos=cache_pos,
                                cross_kv=gkv, paged=paged)
     return x

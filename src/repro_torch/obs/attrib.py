@@ -17,38 +17,52 @@ The JAX package reads both counts from XLA's cost analysis of each
 lowered family.  The port has no compiler to ask, and needs none: the
 counts are closed forms of the engine's own geometry.
 
-**FLOPs.**  With the layout tiles ``(m_r, n_r, k_r)``, ``L`` layers,
-``Hq`` query heads of width ``dh``, ``ru(x, t)`` = ``x`` rounded up to a
-multiple of ``t``, ``win = max_pages * page_tokens`` (the block-table
-window), ``lin`` = ``Σ ru(K, k_r)·ru(N, n_r)`` over the block's linears
-(Q, K, V, O, gate, up, down) and ``head = ru(vocab, n_r)·ru(d, k_r)``:
+**FLOPs.**  With the layout tiles ``(m_r, n_r, k_r)``, ``L_a`` attention
+layers of ``Hq`` query heads of width ``dh``, ``ru(x, t)`` = ``x``
+rounded up to a multiple of ``t``, ``win = max_pages * page_tokens`` (the
+block-table window), ``lin`` = ``Σ ru(K, k_r)·ru(N, n_r)`` over every
+layer's packed linears (attention: Q, K, V, O and the MLP's gate, up,
+down; mamba: in, x, out and the MLP; RWKV-6: the time-mix's r, k, v, g, o
+and the channel-mix's r, k, v) and ``head = ru(vocab, n_r)·ru(d, k_r)``:
 
     flat[1,W]/kK:        M = ru(W, m_r)     R = ru(slots·K, m_r)   P = W
     chunk[B,S], prefill[1,S], decode[B,1]:
                          M = B·ru(S, m_r)   R = B·ru(1, m_r)       P = B·S
     chunk[B,S]/verify, verify[B,K]: as the base shape, but R = B·ru(K, m_r)
 
-    flops = 2·M·L·lin + 2·R·head + 4·P·Hq·dh·win·L
+    flops = 2·M·lin + 2·R·head + 4·P·Hq·dh·win·L_a + P·rec
 
 — every packed linear over its padded tiles, the head (tied or not: the
-same ``[d, vocab]`` product) over the ``R`` gathered rows, and attention
-over the whole window.  This is the dot-FLOP count XLA reports for the JAX
-package's families, to the FLOP (``tests/test_torch_attrib.py`` holds the
-two equal, for SmolLM2 and for Qwen2-7B's QKV bias and Qwen3-8B's qk_norm
-and untied head).  A bias, a norm and the qk-norm are no dots, and count
-nothing.  A static engine (the encdec and vlm families, whose vision
+same ``[d, vocab]`` product) over the ``R`` gathered rows, attention over
+the whole window, and the recurrent layers' own work per token ``rec``,
+unpadded: RWKV-6's decay LoRA (``2·2·d·64``, a plain float32 product)
+and its recurrence (``4·H·dh²``: the read-out and the state update, two
+multiply-adds per state element); mamba's ``dt_proj`` (``2·dt_rank·di``),
+its convolution (``2·d_conv·di``) and its scan (``4·di·N``: update and
+read-out).  Without recurrent layers this is the dot-FLOP count XLA
+reports for the JAX package's families, to the FLOP
+(``tests/test_torch_attrib.py`` holds the two equal, for SmolLM2 and for
+Qwen2-7B's QKV bias and Qwen3-8B's qk_norm and untied head); with them,
+XLA's count is the port's less the parts that are no dot: the
+recurrences' state updates and mamba's convolution (ROADMAP C8).  A
+bias, a norm (RWKV-6's group norm included) and the qk-norm are no dots,
+and count nothing.  A static engine (the encdec and vlm families, whose vision
 prefix runs in the static loop's prefill) has no warmup and no cost model,
 in either package.
 
 **Bytes** are the port's own count, not the JAX package's:
 
-    hbm_bytes = itemsize(compute dtype)·(L·lin + head)     packed weights
+    hbm_bytes = itemsize(compute dtype)·(lin + head)       packed weights
+              + plain                                      unpacked products
               + rows·win·kv_page_bytes_per_token           KV gather
+              + 2·rows·state_bytes_per_row                 recurrent state
               + 4·R·vocab                                  float32 logits
 
 — each prepacked weight read once per step (the tied head's packed table
-included), the KV pages of every gathering row's window (``rows`` = the
-slots for a flat step, ``B`` otherwise), and the float32 logits of the
+included), the weights of the plain products (RWKV-6's float32 LoRA,
+mamba's ``dt_proj``), the KV pages of every gathering row's window
+(``rows`` = the slots for a flat step, ``B`` otherwise), each row's
+recurrent state read and written once, and the float32 logits of the
 ``R`` gathered rows.  XLA's byte count depends on how it fuses a step (it
 counts activations, the per-step pack of the stacked layer weights and
 every unfused intermediate), so no closed form reproduces it; the port
@@ -85,7 +99,8 @@ import torch
 from repro_torch.core.layout import round_up
 
 __all__ = ["FamilyCost", "StepCostModel", "build_cost_model",
-           "kv_page_bytes_per_token", "fresh_totals", "update_aggregates",
+           "kv_page_bytes_per_token", "state_bytes_per_row", "fresh_totals",
+           "update_aggregates",
            "finalize_summary", "summarize"]
 
 
@@ -162,6 +177,36 @@ def kv_page_bytes_per_token(caches, num_pages: int, page_tokens: int) -> float:
     return total
 
 
+def state_bytes_per_row(caches, slots: int) -> float:
+    """Bytes of recurrent state per slot: every per-slot leaf of the cache
+    tree (``[G, slots, ...]``; the ``*_pages`` pools are not)."""
+    if isinstance(caches, dict):
+        return sum(0.0 if k.endswith("_pages") else state_bytes_per_row(v, slots)
+                   for k, v in caches.items())
+    return caches.numel() * caches.element_size() / slots
+
+
+def _layer_costs(cfg, t: str, itemsize: int) -> tuple:
+    """(the packed linears [(K, N)], recurrent FLOPs per token, bytes of
+    the plain products' weights) of one layer of type ``t``."""
+    d, f = cfg.d_model, cfg.d_ff
+    mlp = [(d, f), (f, d)] + ([(d, f)] if cfg.glu else [])
+    if t == "rwkv":
+        h, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        lora = 64                             # models/rwkv6.py:_DECAY_LORA
+        return ([(d, d)] * 6 + [(d, f), (f, d)],
+                2 * 2 * d * lora + 4 * h * dh * dh, 4 * 2 * d * lora)
+    if t == "mamba":
+        di, n = cfg.mamba_expand * d, cfg.mamba_d_state
+        dt_rank = -(-d // 16)
+        return ([(d, 2 * di), (di, dt_rank + 2 * n), (di, d)] + mlp,
+                2 * dt_rank * di + 2 * cfg.mamba_d_conv * di + 4 * di * n,
+                itemsize * dt_rank * di)
+    dh, hq, hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    return ([(d, hq * dh), (d, hkv * dh), (d, hkv * dh), (hq * dh, d)] + mlp,
+            0, 0)
+
+
 def build_cost_model(engine, hw=None) -> StepCostModel:
     """Price every step family of ``engine`` against ``hw`` (default:
     :func:`repro_torch.core.hardware.query` of the engine's device; on the
@@ -180,18 +225,18 @@ def build_cost_model(engine, hw=None) -> StepCostModel:
     peak = hw.peak_flops(dtype)
     layout = model.ctx.layout(dtype)
     m_r, n_r, k_r = layout.m_r, layout.n_r, layout.k_r
-    d, dh, hq, hkv = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
-    mats = [(d, hq * dh), (d, hkv * dh), (d, hkv * dh), (hq * dh, d),
-            (d, cfg.d_ff), (cfg.d_ff, d)]
-    if cfg.glu:
-        mats.append((d, cfg.d_ff))
-    lin = sum(round_up(k, k_r) * round_up(n, n_r) for k, n in mats)
-    head = round_up(cfg.vocab, n_r) * round_up(d, k_r)
-    n_layers = cfg.n_layers
+    lin = rec = plain = 0
+    for t in cfg.layer_types:
+        mats, r, b = _layer_costs(cfg, t, dtype.itemsize)
+        lin += sum(round_up(k, k_r) * round_up(n, n_r) for k, n in mats)
+        rec, plain = rec + r, plain + b
+    n_attn = cfg.layer_types.count("attn")
+    head = round_up(cfg.vocab, n_r) * round_up(cfg.d_model, k_r)
     win = engine.max_pages * engine.pool.page_tokens
     kv_per_token = kv_page_bytes_per_token(
         engine.caches, engine.pool.num_pages, engine.pool.page_tokens)
-    weight_bytes = dtype.itemsize * (n_layers * lin + head)
+    state_per_row = state_bytes_per_row(engine.caches, engine.slots)
+    weight_bytes = dtype.itemsize * (lin + head) + plain
 
     families: Dict[str, FamilyCost] = {}
     for label, g in step_families(engine):
@@ -199,10 +244,11 @@ def build_cost_model(engine, hw=None) -> StepCostModel:
         r = (round_up(g.rows * g.logits, m_r) if g.kind == "flat"
              else g.batch * round_up(g.logits, m_r))
         p = g.batch * g.seq
-        flops = float(2 * m * n_layers * lin + 2 * r * head
-                      + 4 * p * hq * dh * win * n_layers)
+        flops = float(2 * m * lin + 2 * r * head + p * rec
+                      + 4 * p * cfg.n_heads * cfg.d_head * win * n_attn)
         gather = g.rows * win * kv_per_token
-        nbytes = float(weight_bytes + gather + 4 * r * cfg.vocab)
+        nbytes = float(weight_bytes + gather + 2 * g.rows * state_per_row
+                       + 4 * r * cfg.vocab)
         compute_s = flops / peak
         memory_s = nbytes / hw.hbm_bw
         predicted = max(compute_s, memory_s)

@@ -56,8 +56,17 @@ steps in which arrived work waits without any progress raise
 survivors keep their tokens and a warmed engine captures nothing more.
 Shed and cancelled requests are delivered by the next :meth:`Engine.step`.
 ``REPRO_SANITIZE=1`` installs the runtime sanitizer
-(:mod:`repro_torch.analysis.sanitize`) on every engine.  Models that are
-not pure attention raise instead of running something else.
+(:mod:`repro_torch.analysis.sanitize`) on every engine.
+
+Recurrent models (RWKV-6; mamba beside attention) keep per-slot state
+beside the page pools and are served by the monolithic family only, as in
+the JAX package: a scan carries state through every position it is fed,
+so padding is not inert to it.  Their prompts prefill at exact lengths
+(one program, and on the card one graph, per distinct length) from a
+single-slot state tree the engine owns and zeroes in place before each
+prefill, whose result is copied into the request's slot; a preempted
+request re-prefills from zero state.  Chunked prefill (and so the flat
+step), the prefix cache and speculative decode are refused for them.
 
 The static batch loop (:meth:`Engine.generate_static`, the JAX package's
 pre-continuous path) serves a batch of one shared prompt length in lock
@@ -98,7 +107,7 @@ from repro_torch.obs.telemetry import NullTelemetry, Telemetry
 from repro_torch.serving import sampling
 from repro_torch.serving.kv_cache import (PagedKVPool, PoolError, copy_pages,
                                           fresh_slot_states, merge_slot,
-                                          prefill_view)
+                                          prefill_view, zero_slot_states)
 from repro_torch.serving.faults import StallError
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import (AdmissionError, Request, Scheduler,
@@ -143,9 +152,6 @@ class Engine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
-        if any(t != "attn" for t in model.cfg.layer_types):
-            raise NotImplementedError("the port serves pure-attention models "
-                                      "only (hybrids prefill at exact length)")
         self.model = model
         # observability (repro_torch.obs): ``telemetry=True`` builds a live
         # Telemetry, an instance is used as is, and the default keeps the
@@ -180,7 +186,11 @@ class Engine:
             return
 
         layout = model.ctx.layout(model.compute_dtype)
-        self._bucket = layout.m_r
+        cfg = model.cfg
+        all_attn = all(t == "attn" for t in cfg.layer_types)
+        # only pure attention pads prefills to a bucket: a recurrent scan
+        # carries state through padded positions, so it prefills exactly
+        self._bucket = layout.m_r if all_attn else 1
         self.slots = max_slots or model.shape.global_batch
         max_len = model.shape.seq_len
         page_tokens = round_up(page_tokens, layout.m_r)
@@ -188,6 +198,12 @@ class Engine:
             if chunk_tokens < 1:
                 raise ValueError(f"chunk_tokens={chunk_tokens}: a chunk must "
                                  f"carry at least one token")
+            if not all_attn:
+                raise ValueError(f"chunked prefill: {cfg.name} mixes recurrent "
+                                 f"layers ({cfg.layer_types}): an ssm/rwkv scan "
+                                 f"carries state through padded chunk rows, so "
+                                 f"only pure-attention models fuse prefill "
+                                 f"chunks into the decode step")
             # chunk writes land on whole microkernel tiles, like pages
             chunk_tokens = min(round_up(chunk_tokens, layout.m_r),
                                round_up(max_len, layout.m_r))
@@ -211,10 +227,22 @@ class Engine:
         self.max_pages = ceil_div(max_len, self.pool.page_tokens)
         self.caches = model.init_paged_cache(num_pages, self.pool.page_tokens,
                                              self.slots)
+        # the single-slot state a prefill starts from: made once, zeroed in
+        # place before each prefill, so its graphs bind live tensors.  With
+        # one slot it is the slot's own (no other request can be running),
+        # so no two cache trees of one shape meet in the graph table
+        self._prefill_states = (self.caches if self.slots == 1
+                                else fresh_slot_states(self.caches))
         # the prefix cache's chain is rooted in the layout geometry, so a
         # layout change can never alias stale KV
         self.prefix_cache: Optional[PrefixCache] = None
         if prefix_cache:
+            if not all_attn:
+                raise ValueError(f"prefix cache: {cfg.name} mixes recurrent "
+                                 f"layers ({cfg.layer_types}): cached KV pages "
+                                 f"restore attention state by block-table "
+                                 f"lookup, but an ssm/rwkv scan state cannot be "
+                                 f"rebuilt from shared pages")
             if eager:
                 raise ValueError("the prefix cache needs lazy allocation: "
                                  "eager=True reserves whole lifetimes, which "
@@ -254,6 +282,12 @@ class Engine:
                 raise ValueError(f"spec_tokens={spec_tokens}: speculation "
                                  f"needs at least one draft position (use "
                                  f"spec_tokens=None to turn it off)")
+            if not all_attn:
+                raise ValueError(f"speculative decode: {cfg.name} mixes "
+                                 f"recurrent layers ({cfg.layer_types}): a "
+                                 f"rejected draft's KV rolls back by page "
+                                 f"truncation, but an ssm/rwkv scan state "
+                                 f"cannot un-absorb rejected positions")
             if self.chunked and self.chunk_tokens < spec_tokens + 1:
                 raise ValueError(f"spec_tokens={spec_tokens} needs verify rows "
                                  f"of {spec_tokens + 1} positions, wider than "
@@ -747,11 +781,19 @@ class Engine:
                                         neff[slot], greedy, seed, finished)
         return finished
 
+    def _prefill_view(self) -> dict:
+        """The cache tree of a prefill: the shared pools and the engine's
+        single-slot state, zeroed in place."""
+        zero_slot_states(self._prefill_states)
+        return prefill_view(self.caches, self._prefill_states)
+
     def _prefill_request(self, req: Request, greedy: bool, seed: int) -> bool:
         """Prefill one admitted request from its cursor (past a prefix-cache
         hit) at its geometric bucket (padding positions write the trash
-        page).  Returns False when the row was quarantined for non-finite
-        logits, before its pages could reach the cache."""
+        page), or at its exact length for a recurrent model, from zero
+        state.  Returns False when the row was quarantined for non-finite
+        logits, before its pages could reach the cache or its state its
+        slot."""
         l = req.prompt_len
         start = req.prefill_cursor
         n = l - start
@@ -759,7 +801,7 @@ class Engine:
         token = np.zeros((1, bucket), np.int32)
         token[0, :n] = req.prompt[start:]
         bt = req.pages.block_row(self.max_pages)[None]
-        view = prefill_view(self.caches, fresh_slot_states(self.caches))
+        view = self._prefill_view()
         td = self.obs.clock()
         rows = self._run_paged(token, bt, np.full((1,), start, np.int32),
                                np.full((1,), n, np.int32), caches=view)
@@ -1039,7 +1081,10 @@ class Engine:
         speculation; dense chunked, every chunk shape and ``[slots, 1]``,
         and with speculation every chunk shape reading ``[slots, k + 1]``
         logits; monolithic, every prefill bucket at ``[1, b]``, ``[slots,
-        1]`` and with speculation the ``[slots, k + 1]`` verify.  Then the
+        1]`` and with speculation the ``[slots, k + 1]`` verify.  Where
+        prompts prefill at exact lengths (a recurrent model, or m_r = 1)
+        there is no bucket to make: each length makes its program at its
+        first prefill.  Then the
         drafter's own programs, and with a prefix cache the device page
         copy (the trash page onto itself).  Every call carries no valid
         token, so all writes go to the trash page and live state is
@@ -1077,8 +1122,7 @@ class Engine:
             bucket, seen = self._bucket, set() if self._bucket > 1 else {1}
             while (bucket := self._prefill_bucket(bucket)) not in seen:
                 seen.add(bucket)
-                view = prefill_view(self.caches,
-                                    fresh_slot_states(self.caches))
+                view = self._prefill_view()
                 self._run_paged(np.zeros((1, bucket), np.int32),
                                 np.zeros((1, mp), np.int32), z1, z1,
                                 caches=view)

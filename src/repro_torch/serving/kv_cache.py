@@ -39,7 +39,8 @@ from repro_torch.core.layout import ceil_div
 from repro_torch.obs.telemetry import NULL as _NULL_OBS
 
 __all__ = ["PoolError", "OutOfPages", "PagedKVPool", "SequencePages",
-           "copy_pages", "fresh_slot_states", "prefill_view", "merge_slot"]
+           "copy_pages", "fresh_slot_states", "zero_slot_states",
+           "prefill_view", "merge_slot"]
 
 
 class PoolError(RuntimeError):
@@ -290,10 +291,18 @@ def _map_slot_states(caches, fn):
 
 def fresh_slot_states(caches):
     """A zeroed single-slot ([G, 1, ...]) state tree matching ``caches``:
-    the state a request starts its prefill from."""
+    the state a request starts its prefill from.  An engine makes it once
+    and zeroes it in place before each prefill (:func:`zero_slot_states`),
+    so a prefill's CUDA graph always reads and writes the same tensors."""
     return _map_slot_states(
         caches, lambda x: torch.zeros((x.shape[0], 1, *x.shape[2:]),
                                       dtype=x.dtype, device=x.device))
+
+
+def zero_slot_states(states) -> None:
+    """Zero the per-slot state leaves of ``states`` in place (the pools it
+    may hold are left alone)."""
+    _map_slot_states(states, torch.Tensor.zero_)
 
 
 def prefill_view(caches, fresh):

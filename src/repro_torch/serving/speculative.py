@@ -181,8 +181,10 @@ class DraftModelDrafter(Drafter):
 
     def __init__(self, model, params):
         if any(t != "attn" for t in model.cfg.layer_types):
-            raise ValueError(f"draft model {model.cfg.name}: speculative "
-                             f"drafting needs a pure-attention draft model")
+            raise ValueError(f"draft model {model.cfg.name}: recurrent mixers "
+                             f"cannot reconcile rejected speculative state by "
+                             f"overwrite; speculative drafting needs a "
+                             f"pure-attention draft model")
         self.model = model
         params = tree_map(lambda t: t.to(model.device), params)
         self.params = prepack_params(params, model.ctx)

@@ -9,7 +9,9 @@ through mmt4d's gradient kernels on the card.  With ``run.microbatch = n >
 another, and their gradients summed in float32, each divided by n.  The
 step writes the new parameters, moments and error buffer into the state's
 own tensors, as the reference's donated state lets XLA do, so a CUDA graph
-of the step binds one state for good.
+of the step binds one state for good.  The recurrent families (RWKV-6, the
+mamba hybrids) do not train on the card: the wkv6 kernel has no backward
+yet (:func:`require_trainable`; ROADMAP B8).
 """
 
 from __future__ import annotations
@@ -27,7 +29,21 @@ from repro_torch.training.optimizer import AdamW, leaves, tree_map
 from repro_torch.training.train_state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
-           "CompiledTrainStep"]
+           "CompiledTrainStep", "require_trainable"]
+
+
+def require_trainable(cfg, device) -> None:
+    """Raise for a recurrent family on the card, naming it: RWKV-6's
+    recurrence is a kernel with no backward yet (ROADMAP B8), and the
+    mamba hybrids wait with it.  On the CPU every family trains through
+    the plain versions."""
+    recurrent = sorted(set(cfg.layer_types) - {"attn"})
+    if recurrent and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}, {recurrent} layers) does not train on "
+            f"the card yet: the recurrent families train with the wkv6 "
+            f"kernel's backward (ROADMAP B8), mamba's with its scan kernel "
+            f"(ROADMAP B9)")
 
 
 def _rebuild(tree, it):
@@ -134,6 +150,7 @@ class CompiledTrainStep:
     the eager step.  Dropping the step frees its graphs and their pool."""
 
     def __init__(self, model, optimizer: AdamW, run: RunConfig):
+        require_trainable(model.cfg, model.device)
         self.model = model
         self.optimizer = optimizer
         self.run = run

@@ -198,6 +198,8 @@ COST_GRIDS = {"flat": dict(chunk_tokens=16, token_budget=24),
 COST_LAYOUTS = [("scalable", "tpu_vl512"), ("fixed", "tpu_vl512"),
                 ("unpacked", "tpu_v5e")]
 COST_ARCHS = ["qwen2-7b", "qwen3-8b"]
+# reduced RWKV-6 (2 layers), served by the monolithic family only
+COST_RECURRENT = ["rwkv6-1.6b"]
 COST_CASES = [pytest.param(dt, grid, spec, None,
                            id=f"{dt}-{grid}-{'plain' if spec is None else 'spec'}")
               for dt in ("float32", "bfloat16") for grid in sorted(COST_GRIDS)
@@ -207,7 +209,10 @@ COST_CASES = [pytest.param(dt, grid, spec, None,
               for lay in COST_LAYOUTS for grid in sorted(COST_GRIDS)] + \
              [pytest.param("float32", grid, None, ("scalable", "tpu_v5e", arch),
                            id=f"float32-{grid}-plain-{arch}")
-              for arch in COST_ARCHS for grid in sorted(COST_GRIDS)]
+              for arch in COST_ARCHS for grid in sorted(COST_GRIDS)] + \
+             [pytest.param(dt, "monolithic", None, ("scalable", "tpu_v5e", arch),
+                           id=f"{dt}-monolithic-plain-{arch}")
+              for arch in COST_RECURRENT for dt in ("float32", "bfloat16")]
 
 
 def _linears_missed_in_fusions(m, label: str) -> float:
@@ -224,6 +229,24 @@ def _linears_missed_in_fusions(m, label: str) -> float:
             (d, cfg.n_kv_heads * dh), (cfg.n_heads * dh, d), (d, cfg.d_ff),
             (cfg.d_ff, d)] + ([(d, cfg.d_ff)] if cfg.glu else [])
     return 2.0 * cfg.n_layers * sum(k * n for k, n in mats)
+
+
+def _recurrent_work_not_dots(m, label: str) -> float:
+    """FLOPs the port counts for a recurrent layer that the reference's
+    dot count cannot see (ROADMAP C8): RWKV-6's state update (2 H dh^2 a
+    token: w S + k v is no dot; its read-out einsum is one) and mamba's
+    scan update (2 di N) and convolution (2 d_conv di), over the step's
+    tokens."""
+    cfg = m.cfg
+    b, s = (int(x) for x in label[label.index("[") + 1:label.index("]")].split(","))
+    per = 0
+    for t in cfg.layer_types:
+        if t == "rwkv":
+            per += 2 * (cfg.d_model // cfg.rwkv_head_dim) * cfg.rwkv_head_dim ** 2
+        elif t == "mamba":
+            di = cfg.mamba_expand * cfg.d_model
+            per += 2 * di * cfg.mamba_d_state + 2 * cfg.mamba_d_conv * di
+    return float(b * s * per)
 
 
 @pytest.mark.parametrize("dtype,grid,spec,layout", COST_CASES)
@@ -244,7 +267,8 @@ def test_cost_model_matches_reference(models, models_bf16, dtype, grid, spec,
         jfc = jcm.families[label]
         assert fc.width == jfc.width, label
         assert fc.flops == pytest.approx(
-            jfc.flops + _linears_missed_in_fusions(m, label), rel=1e-9), label
+            jfc.flops + _linears_missed_in_fusions(m, label)
+            + _recurrent_work_not_dots(m, label), rel=1e-9), label
         assert fc.kv_gather_bytes == jfc.kv_gather_bytes, label
         assert fc.predicted_s == max(fc.compute_s, fc.memory_s) > 0
         assert fc.per_token_s == pytest.approx(fc.predicted_s / max(1, fc.width))

@@ -4,8 +4,8 @@ against the JAX package.
 - Every architecture of the JAX package's registry (eleven) is in the
   port's, equal field for field, with equal ``param_counts``; the
   assigned list and the cell matrix are the reference's.
-- A family the port has no model of yet (moe, the hybrids, ssm) raises
-  ``NotImplementedError`` naming its ROADMAP item.
+- A family the port has no model of yet (moe, and jamba, a hybrid with
+  MoE) raises ``NotImplementedError`` naming its ROADMAP item.
 - Qwen2-7B (QKV bias), Qwen3-8B (qk_norm, untied head), ChatGLM3-6B
   (partial 2d RoPE, QKV bias, group 16 cut to 4) and OLMo-1B
   (non-parametric LayerNorm, MHA, tied head) on ``reduced_config`` in
@@ -69,7 +69,7 @@ def test_registry_matches_reference():
 
 @pytest.mark.parametrize("arch,item", [
     ("qwen3-moe-235b-a22b", "B3"), ("arctic-480b", "B3"),
-    ("jamba-v0.1-52b", "B3"), ("rwkv6-1.6b", "A8b hybrids")])
+    ("jamba-v0.1-52b", "B3")])
 def test_unported_family_raises_naming_its_item(arch, item):
     m = build_model(reduced_config(get_config(arch)), RunConfig(**F32),
                     ShapeSpec(*SHAPE), device="cpu")

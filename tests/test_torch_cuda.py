@@ -14,7 +14,12 @@ plain versions, the autograd Functions (mmt4d, pack, unpack, linear) on the
 card against the CPU, one float32 train step of reduced SmolLM2, card
 against CPU, and the compiled train step (SmolLM2's widths cut to 2 layers,
 f32 and bf16): replay = eager bit for bit, one capture, another state
-refused, a dropped trainer's memory given back.
+refused, a dropped trainer's memory given back.  The recurrent mixers: the
+wkv6 kernel against its plain version (decode rows and prefills, the state
+written in place, one launch a call, bit-identical repeats, a call with
+gradients refused), and an RWKV-6 engine at d_head 64 (2 layers): a
+second drain captures no graph and repeats the first's tokens, the prefill
+graph's state tree keeps its pointers, and the f32 drain equals the CPU's.
 A CUDA kernel has no interpret mode, so without a card these tests skip.
 Run them on the card with (``--noconftest``: tests/conftest.py imports JAX,
 which a machine with only the port need not have):
@@ -529,7 +534,7 @@ def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
     n = len(calls)
     want = {"mmt4d": 15 * n, "pack": 5 * n, "unpack": n,
             "ragged_attn": 2 * n if eng.flat else 0,
-            "mmt4d_dgrad": 0, "mmt4d_wgrad": 0}
+            "mmt4d_dgrad": 0, "mmt4d_wgrad": 0, "wkv6": 0}
     assert kernels.launch_counts() == want
 
 
@@ -1203,3 +1208,108 @@ def test_flat_drain_card_equals_cpu_under_each_layout(gen, policy, hw_name):
             moved = launches["mmt4d"] + launches["pack"] + launches["unpack"]
             assert (moved == 0) == (policy == "unpacked"), launches
     assert toks["cuda"] == toks["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers: wkv6 and the RWKV-6 serving path
+# ---------------------------------------------------------------------------
+
+def _wkv6_inputs(gen, b, s, h, dh):
+    r, k, v = (torch.randn((b, s, h, dh), generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, s, h, dh), generator=gen,
+                                         device="cuda") - 2))
+    u = 0.1 * torch.randn((h, dh), generator=gen, device="cuda")
+    s0 = 0.1 * torch.randn((b, h, dh, dh), generator=gen, device="cuda")
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("b,s,h,dh", [(4, 1, 32, 64), (1, 512, 32, 64),
+                                      (3, 37, 4, 16), (2, 130, 2, 128),
+                                      (1, 65, 8, 32)])
+def test_wkv6_matches_plain(gen, b, s, h, dh):
+    """y and the final state within 1e-5 of the plain version's largest
+    |value| (float32 sums in another order); the state written into
+    ``state_out`` when it is ``s0`` itself; one launch a call; repeats
+    bit-identical."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    args = _wkv6_inputs(gen, b, s, h, dh)
+    want = wkv6_ref(*args)
+    kernels.reset_launch_counts()
+    got = wkv6(*args)
+    assert kernels.launch_counts()["wkv6"] == 1
+    for g, x in zip(got, want):
+        assert (g - x).abs().max().item() <= 1e-5 * x.abs().max().item()
+    again = wkv6(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    s_in = args[5].clone()
+    y, st = wkv6(*args[:5], s_in, state_out=s_in)
+    assert st is s_in and torch.equal(s_in, got[1]) and torch.equal(y, got[0])
+
+
+def test_wkv6_refuses_what_it_does_not_take(gen):
+    from repro_torch.kernels.wkv6.ops import wkv6
+    r, k, v, w, u, s0 = _wkv6_inputs(gen, 2, 3, 2, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+        wkv6(r.requires_grad_(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="head width"):
+        wkv6(*(t[..., :48].contiguous() for t in (r.detach(), k, v, w, u)),
+             s0[..., :48, :48].contiguous())
+    with pytest.raises(TypeError):
+        wkv6(r.detach().to(torch.bfloat16), k, v, w, u, s0)
+
+
+def _rwkv_model(dtype, device="cuda"):
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=2, d_model=256,
+                              d_ff=512, vocab=1024)
+    name = str(dtype)[6:]
+    return build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
+                       ShapeSpec("serve", 128, 3, "decode"), device=device)
+
+
+@pytest.mark.parametrize("slots", [3, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rwkv_second_drain_captures_nothing(gen, dtype, slots):
+    """RWKV-6's heads (4 of 64) at 2 layers through the monolithic engine:
+    warmup captures the decode step only; the first drain captures one
+    prefill graph per prompt length; a second drain of the same requests
+    captures nothing and repeats the tokens; the prefill graphs' state
+    tree keeps its tensors throughout; a float32 drain gives the CPU's
+    tokens, and a static batch on the same engine (its dense caches may
+    share the paged caches' shapes) ``generate``'s tokens.  With one slot
+    the prefill state is the slot's own."""
+    from repro_torch.serving.engine import Engine
+    model = _rwkv_model(dtype)
+    params = model.init(gen)
+    eng = Engine(model, params, device="cuda", max_slots=slots, page_tokens=16)
+    eng.warmup()
+    assert eng.stats()["captures"]["paged"] == 1
+    ptrs = [t.data_ptr() for t in eng._prefill_states["p0"].values()]
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, 1024, n), k) for n, k in ((7, 6), (30, 4), (7, 5), (19, 6))]
+
+    def drain():
+        rids = [eng.add_request(p, k) for p, k in reqs]
+        fin = {r.rid: r.out_tokens for r in eng.drain()}
+        return [fin[r] for r in rids]
+
+    first = drain()
+    assert eng.stats()["captures"]["paged"] == 1 + 3       # lengths 7, 30, 19
+    second = drain()
+    assert second == first and eng.stats()["captures"]["paged"] == 4
+    assert [t.data_ptr() for t in eng._prefill_states["p0"].values()] == ptrs
+    if dtype is torch.float32:
+        cpu = Engine(_rwkv_model(dtype, "cpu"), params, device="cpu",
+                     max_slots=slots, page_tokens=16)
+        rids = [cpu.add_request(p, k) for p, k in reqs]
+        fin = {r.rid: r.out_tokens for r in cpu.drain()}
+        assert [fin[r] for r in rids] == first
+        batch = {"tokens": rng.integers(0, 1024, (slots, 9)).astype(np.int32)}
+        np.testing.assert_array_equal(eng.generate_static(batch, 5),
+                                      eng.generate(batch, 5))
