@@ -9,7 +9,9 @@ the engine's three step families (flat, dense chunked, monolithic), every
 step a replay of a CUDA graph captured at warmup, SmolLM2-135M and
 whisper-small through the static batch loop, Qwen3-8B at full width
 and depth, three other dense configs and InternVL2's language model,
-and RWKV-6 1.6B whole and the mamba hybrid through the recurrent path:
+RWKV-6 1.6B whole and the mamba hybrid through the recurrent path, and
+Qwen3-MoE and Arctic at full width, cut in depth, through the
+expert-batched mmt4d:
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds;
@@ -170,12 +172,12 @@ and RWKV-6 1.6B whole and the mamba hybrid through the recurrent path:
      launches per step, peak memory, init, prepack and warmup seconds;
      Qwen2-7B (QKV bias, 28 over 4 heads: g = 7), ChatGLM3-6B (partial 2d
      RoPE, g = 16) and OLMo-1B (non-parametric LayerNorm, MHA, tied head),
-     each cut to 2 layers: the f32 flat drain card = CPU token for token
+     each cut to 1 layer: the f32 flat drain card = CPU token for token
      (first-call logits within F32_MARGIN), and a bf16 drain whose picks
      agree with the f32 drain's wherever the top-2 margin is at least
      BF16_MARGIN; InternVL2-26B's language model behind its stub vision
      prefix through generate_static ((256 patches + 256 prompt tokens),
-     32 new): f32 at 2 layers, batch 2, card = CPU, bf16 at 8 of its 48
+     32 new): f32 at 1 layer, batch 2, card = CPU, bf16 at 8 of its 48
      layers, batch 4, each with static_run's checks (the vision prefix counted once
      per batch), prefill and decode ms;
  15. the recurrent mixers: wkv6 (csrc/wkv6.cu) against its plain version at
@@ -191,11 +193,29 @@ and RWKV-6 1.6B whole and the mamba hybrid through the recurrent path:
      tokens; printed: ms per step and tokens/s beside the bound, captures,
      warmup seconds and peak memory; RWKV-6 cut to PARITY_LAYERS layers in
      f32, card = CPU token for token (first-call logits within
-     RECURRENT_F32_MARGIN) and generate_static = generate on the card;
+     F32_MARGIN, as every family) and generate_static = generate on the card;
      the hybrid test configuration (jamba-v0.1's mixers at its published
      widths, one period of 8 layers, moe=False) in f32, 2 requests of
      HYBRID_NEW tokens, card = CPU;
- 16. the kernels JSON line (launches from the main path of each kernel: the
+ 16. the moe family: the expert-batched mmt4d (B_pack [E, N_o, K_o, n_r,
+     k_r], the expert dim in the kernel's grid) against its plain version
+     at qwen3-moe's and arctic's flat-step expert products (gate with
+     silu and down, bf16; qwen3-moe's gate also f32, within
+     EXPERT_F32_TOL), timed L2-cold beside its bound (every expert's
+     weights) and torch.bmm; each config at its published widths in f32,
+     card = CPU (qwen3-moe 2 layers, arctic 1: its layer's f32 experts
+     are 53.5 GB): routing equal on a forward (or parted only below a
+     top-k margin of F32_MARGIN), then the flat and monolithic drains
+     token for token, first-call logits within F32_MARGIN, equal dropped
+     fractions, replay = eager; then in bf16 cut to the depth whose
+     reckoned peak fits the card (printed), weights drawn on the card and
+     packed in place: the §4 flat drain (launches per model call checked,
+     3 expert-batched mmt4d a layer, replay = eager) and a second drain
+     capturing nothing (its requests' tokens repeat where nothing is
+     dropped; parted requests counted); printed: ms per step and
+     tokens/s beside the weight-bytes bound, peak memory, warmup, the
+     drains' dropped fractions and the phase's seconds;
+ 17. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
      the gradient kernels, the RWKV-6 1.6B drain for wkv6; each other
      path's beside them, phases 14's and 15's included; each kernel's
@@ -263,6 +283,10 @@ REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
 # scales with the result alone and must stay a small share (GRAD_TOL_SHARE)
 # of the result's mean |value|
 TOL = {TF: 1e-4, BF: 2e-2}
+# the expert-batched mmt4d in float32: within this share of the plain
+# version's largest |value| (each K tile summed, then the tiles, in
+# another order than the plain version's)
+EXPERT_F32_TOL = 1e-5
 GRAD_TOL_SHARE = 0.25
 # wkv6 (float32 only): y and the final state each within this share of the
 # plain version's largest |value| (float32 sums over dh = 64 in another
@@ -382,17 +406,20 @@ class KernelChecks:
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     def record(self, name, label, dtype, kernel, plain, library, nbytes, flops,
-               exact=False, select=lambda t: t, floor=1.0, **extra):
+               exact=False, select=lambda t: t, floor=1.0, share=None,
+               plain_spin=True, **extra):
         """Compare ``select`` of the two results (the positions the caller
-        keeps) within TOL[dtype] * max(floor, max |plain|), then time the
-        bare calls.  ``nbytes`` and ``flops`` are the function's own, on
+        keeps) within TOL[dtype] (or ``share``) * max(floor, max |plain|),
+        then time the bare calls (``plain_spin=False``: a plain version of
+        more launches than the device queue holds, timed at the host's
+        launch rate).  ``nbytes`` and ``flops`` are the function's own, on
         the unpadded operands: the bound counts no tile padding."""
         got, want = select(kernel()), select(plain())
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         top = want.float().abs().max().item()
         mean = want.float().abs().mean().item()
-        tol = 0.0 if exact else TOL[dtype] * max(floor, top)
+        tol = 0.0 if exact else (share or TOL[dtype]) * max(floor, top)
         ok = err <= tol and bool(torch.isfinite(got.float()).all())
         print(f"  {name:<11} {label:<44} {str(dtype)[6:]:<8} max_abs_err "
               f"{err:.3e} (tolerance {tol:.3e}; plain max|.| {top:.3e}, mean|.| "
@@ -403,7 +430,9 @@ class KernelChecks:
         self.cases[name].append({
             "shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
             "tolerance": tol, "plain_max_abs": top, "plain_mean_abs": mean,
-            "kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "kernel_ms": time_ms(kernel),
+            "plain_ms": time_ms(plain, iters=20 if plain_spin else 5,
+                                spin=plain_spin),
             "library_ms": None if library is None else time_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by, **extra})
 
@@ -498,6 +527,54 @@ class KernelChecks:
                   f"torch._addmm_activation {case['library_ms']:.6f} ms "
                   f"({case['kernel_ms'] / case['library_ms']:.2f}x; max_abs_err "
                   f"{lib_err:.3e} to the plain version)")
+
+    def experts(self, dtype, e, c, k, n, act, label):
+        """The expert-batched mmt4d at a moe layer's expert product: x [E,
+        C, K] (C the capacity: rows per expert) through w [E, K, N], stored
+        unpacked as the path stores it, held to its plain version (f32
+        within EXPERT_F32_TOL of the largest |value|, bf16 under TOL) and
+        bit-identical on a repeat; timed L2-cold beside the plain version
+        and one torch.bmm on the unpacked operands (the yardstick).  Bound:
+        every expert's weights read once (the capacity dispatch runs every
+        expert), x read and C written once, by bytes or operations."""
+        from repro_torch.core import packing
+        from repro_torch.kernels.mmt4d.ops import mmt4d, pick_split
+        from repro_torch.kernels.mmt4d.ref import mmt4d_ref
+        from repro_torch.kernels.unpack.ref import unpack_ref
+        lay = self.layout(dtype)
+        x = self.rand((e, c, k), dtype)
+        w = torch.empty((e, k, n), dtype=dtype, device="cuda")
+        for e0 in range(0, e, 16):        # drawn in blocks: no f32 copy of it all
+            w[e0:e0 + 16] = self.rand((min(16, e - e0), k, n), dtype, k ** -0.5)
+        ap, bp = packing.pack_lhs(x, lay), packing.pack_rhs(w, lay)
+        to = (c, n)
+        out = mmt4d(ap, bp, activation=act, unpack_to=to)
+        if not torch.equal(out, mmt4d(ap, bp, activation=act, unpack_to=to)):
+            raise AssertionError(f"mmt4d {label} {dtype}: two calls differ")
+        split = {} if dtype is TF else {"split": str(pick_split(
+            ap.shape[1], bp.shape[1], ap.shape[2], lay.m_r, lay.n_r, lay.k_r,
+            self.hw.sm_count, e))}
+        sets = cold_sets(ap, bp, x, w)
+        es = dtype.itemsize
+        self.record("mmt4d", f"{label} A{tuple(ap.shape)} B{tuple(bp.shape)}"
+                    f" -> {tuple(out.shape)}", dtype,
+                    cycle(lambda a, b, *_: mmt4d(a, b, activation=act,
+                                                 unpack_to=to), sets),
+                    cycle(lambda a, b, *_: unpack_ref(
+                        mmt4d_ref(a, b, activation=act), *to), sets),
+                    cycle(lambda _a, _b, xx, ww: torch.bmm(xx, ww), sets),
+                    (e * c * k + e * k * n + e * c * n) * es, 2 * e * c * k * n,
+                    floor=1.0 if dtype is BF else 0.0,
+                    share=EXPERT_F32_TOL if dtype is TF else None,
+                    plain_spin=False, copies=len(sets), experts=e, **split)
+        case = self.cases["mmt4d"][-1]
+        print(f"    mmt4d {label} {str(dtype)[6:]}: {case['kernel_ms']:.6f} ms, "
+              f"bound {case['bound_ms']:.6f} ms by {case['bound_by']} (all "
+              f"{e} experts' weights, {e * k * n * es / 1e9:.3f} GB, read once), "
+              f"plain {case['plain_ms']:.4f} ms, torch.bmm "
+              f"{case['library_ms']:.6f} ms ({self.hw.device_name})")
+        del x, w, ap, bp, sets
+        torch.cuda.empty_cache()
 
     def mmt4d_unpacked(self, dtype, w_tokens, k, n, label):
         """A linear's exit: mmt4d writing [1, w_tokens, n] unpacked, held to
@@ -891,7 +968,8 @@ class ReplayCheck:
     logits bit for bit on the valid rows (an inert row of the paged step
     attends over nothing: its logits are garbage in both).  Both calls
     write the same K/V to the same places, so the state they see is the
-    same.  The eager call's launches are taken back out of the counts."""
+    same.  The eager call's launches (and a moe model's routed and kept
+    assignments) are taken back out of the counts."""
 
     def __init__(self, step, shapes: int = 2):
         self.step, self.shapes, self.checked = step, shapes, []
@@ -902,13 +980,18 @@ class ReplayCheck:
         if len(self.checked) < self.shapes and sig not in self.checked:
             from repro_torch import kernels
             dev = self.step.model.device
+            from repro_torch.models.moe import DropCounter
             before = kernels.counters()
+            drops = [(c, c.counts.clone())
+                     for c in DropCounter._installed.values()]
             extra = {} if plan is None else {"plan": plan.to(dev)}
             want, _ = self.step.fn(params, caches,
                                    *(None if a is None else a.to(dev)
                                      for a in args), **extra)
             after = kernels.counters()
             kernels.add_counts({k: after[k] - before[k] for k in after}, -1)
+            for c, counts in drops:        # nor the eager call's routing
+                c.counts.copy_(counts)
             valid = (args[3] > 0).to(dev) if self.step.kind == "paged" else \
                 torch.ones(out.shape[0], dtype=torch.bool, device=dev)
             if not torch.equal(out[valid], want[valid]):
@@ -1008,16 +1091,19 @@ def descriptor(device, hw_name):
 
 
 def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
-              hw_name="h100", params=None):
+              hw_name="h100", params=None, new=8, drops=False):
     """A drain at full width in float32 through one step family, greedy or
     sampled (seed 11; the requests' temperatures 1.0, 0.7, 1.3 and 0 in
-    turn), under a layout policy and descriptor (the CPU: the descriptor's
-    TPU twin); returns tokens, the first model call's logits, each pick's
-    (rid, position) -> (token, perturbed top-2 margin), and on the card the
-    graphs captured at warmup and the shapes checked replay against
-    eager.  ``params``: the weights (default: a CPU generator's, seed 0)."""
+    turn), ``new`` tokens each, under a layout policy and descriptor (the
+    CPU: the descriptor's TPU twin); returns tokens, the first model call's
+    logits, each pick's (rid, position) -> (token, perturbed top-2
+    margin), and on the card the graphs captured at warmup and the shapes
+    checked replay against eager (``drops``: also the drain's moe dropped
+    fraction, a DropCounter installed before warmup).  ``params``: the
+    weights (default: a CPU generator's, seed 0)."""
     from repro_torch.configs import RunConfig, ShapeSpec
     from repro_torch.models.model import build_model
+    from repro_torch.models.moe import DropCounter
     from repro_torch.serving.engine import Engine
     run = RunConfig(param_dtype="float32", compute_dtype="float32",
                     layout_policy=policy)
@@ -1025,6 +1111,7 @@ def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
                         hw=descriptor(device, hw_name), device=device)
     if params is None:
         params = model.init(torch.Generator().manual_seed(0))
+    counter = DropCounter(device).install() if drops else None
     eng = Engine(model, params, device=device, max_slots=4, page_tokens=16,
                  **FAMILIES_F32[family])
     info = {}
@@ -1032,10 +1119,15 @@ def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
         eng.warmup()
         info["captures"] = eng.stats()["captures"]
         check = attach_replay_check(eng)
+    if counter is not None:
+        counter.reset()
     calls, picks = count_model_calls(eng), PickRecorder(eng)
-    rids = [eng.add_request(p, 8, temperature=TEMPERATURES[i % 4])
+    rids = [eng.add_request(p, new, temperature=TEMPERATURES[i % 4])
             for i, p in enumerate(prompts)]
     fin = {r.rid: r.out_tokens for r in eng.drain(greedy=greedy, seed=11)}
+    if counter is not None:
+        info["dropped_frac"] = counter.dropped_frac()
+        counter.uninstall()
     if device == "cuda":
         if eng.stats()["captures"] != info["captures"]:
             raise AssertionError(f"f32 {family} drain captured after warmup: "
@@ -2672,11 +2764,17 @@ def training_phase(cfg, card) -> tuple:
 # the served configs at full width: Qwen3-8B whole through the flat drain
 # in bfloat16; Qwen2-7B (QKV bias, g = 7), ChatGLM3-6B (partial 2d RoPE, QKV
 # bias, g = 16) and OLMo-1B (non-parametric LayerNorm, MHA, tied head), each
-# cut to PARITY_LAYERS layers; InternVL2-26B's language model through the
-# static loop, cut to VLM_LAYERS of its 48 layers in bfloat16 (all 48 do
-# not fit beside a prepacked copy) and to PARITY_LAYERS in float32
+# cut to DENSE_F32_LAYERS layers; InternVL2-26B's language model through
+# the static loop, cut to VLM_LAYERS of its 48 layers in bfloat16 (all 48
+# do not fit beside a prepacked copy) and to VLM_F32_LAYERS in float32.
+# The f32 checks run the CPU's plain path beside the card, which sets the
+# phase's time (InternVL2's took 233 s at 2 layers on an H100 machine with
+# a slow host CPU): their depth was cut from 2 to 1 when the moe phase
+# came, keeping each config's feature; RWKV-6's f32 check keeps
+# PARITY_LAYERS
 PARITY_ARCHS = ("qwen2-7b", "chatglm3-6b", "olmo-1b")
 PARITY_LAYERS, VLM_LAYERS, VLM_F32_BATCH = 2, 8, 2
+DENSE_F32_LAYERS, VLM_F32_LAYERS = 1, 1
 
 
 def flat_per_call(cfg) -> tuple:
@@ -2775,7 +2873,7 @@ def qwen3_full(card) -> tuple:
 
 
 def dense_parity(arch, card) -> tuple:
-    """One config at its published widths cut to PARITY_LAYERS layers:
+    """One config at its published widths cut to DENSE_F32_LAYERS layers:
     weights drawn once on the card serve both sides; the f32 flat drain
     (4 requests of 5-24 tokens, 8 new) on the card after warmup equals the
     CPU plain path's token for token with the first call's logits within
@@ -2790,7 +2888,7 @@ def dense_parity(arch, card) -> tuple:
     from repro_torch.models.transformer import tree_map
     from repro_torch.serving.engine import Engine
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=PARITY_LAYERS)
+    cfg = dataclasses.replace(full, n_layers=DENSE_F32_LAYERS)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 4)]
     f32 = RunConfig(param_dtype="float32", compute_dtype="float32")
@@ -2806,7 +2904,7 @@ def dense_parity(arch, card) -> tuple:
     cpu_s = time.perf_counter() - t1
     diff = float(np.abs(cuda_first - cpu_first).max())
     scale = max(1.0, float(np.abs(cpu_first).max()))
-    print(f"  {arch} ({PARITY_LAYERS} of {full.n_layers} layers, d "
+    print(f"  {arch} ({DENSE_F32_LAYERS} of {full.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_heads} over {cfg.n_kv_heads} heads of "
           f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) f32 flat: first "
           f"call max |logit diff| {diff:.3e} (max |logit| {scale:.3f}), graphs "
@@ -2837,7 +2935,7 @@ def dense_parity(arch, card) -> tuple:
     bf16["vs_f32"] = compare_picks(cuda_picks, bf16.pop("picks"), BF16_MARGIN,
                                    f"{arch} bf16 vs f32 (card)")
     del eng
-    return ({"layers": PARITY_LAYERS, "tokens": cuda_toks,
+    return ({"layers": DENSE_F32_LAYERS, "tokens": cuda_toks,
              "first_logit_diff": diff, "max_logit": scale, "f32_vs_cpu": cmp,
              **info, "bf16": bf16},
             {f"{arch} flat bf16": bf16["launches"]})
@@ -2847,7 +2945,7 @@ def internvl2_static(card) -> tuple:
     """InternVL2-26B's language model (d 6144, 48 query heads over 8 of
     128, d_ff 16384, vocab 92553: a partial last tile) behind its stub
     vision prefix, through generate_static: rows of 256 patch embeddings +
-    a 256-token prompt, 32 new, seq_len 1024.  float32 at PARITY_LAYERS
+    a 256-token prompt, 32 new, seq_len 1024.  float32 at VLM_F32_LAYERS
     layers and VLM_F32_BATCH rows (the CPU's plain path is most of the
     phase's time, and grows with the rows), card = CPU token for token,
     weights drawn once on the card; bfloat16 at VLM_LAYERS layers and 4 rows, weights drawn on the
@@ -2860,7 +2958,7 @@ def internvl2_static(card) -> tuple:
     from repro_torch.models.model import build_model
     full = get_config("internvl2-26b")
     res, paths = {}, {}
-    for dtype, layers, nb in ((TF, PARITY_LAYERS, VLM_F32_BATCH),
+    for dtype, layers, nb in ((TF, VLM_F32_LAYERS, VLM_F32_BATCH),
                               (BF, VLM_LAYERS, STATIC_BATCH)):
         name = str(dtype)[6:]
         cfg = dataclasses.replace(full, n_layers=layers)
@@ -2914,12 +3012,6 @@ def dense_phase(card) -> tuple:
     return res, paths
 
 RWKV_SLOTS, RWKV_REQUESTS, RWKV_NEW = 4, 8, 32
-# f32 first-call logits of a recurrent model, card against CPU, within this
-# share of max(1, max |logit|): measured up to 1.9e-5 on RWKV-6 (2 layers)
-# and 1.4e-5 on the hybrid, where F32_MARGIN holds the dense configs.
-# float32 sums in another order (FMAs, other tilings) through 16 linears,
-# and the squared channel-mix and the gates carry them further than an MLP
-RECURRENT_F32_MARGIN = 3e-5
 HYBRID_NEW = 4          # the CPU's plain path over 8 layers of d 4096 sets the time
 
 
@@ -3077,7 +3169,7 @@ def recurrent_f32(device, cfg, prompts, params, new) -> tuple:
 def recurrent_parity(label, cfg, params, prompts, new, card) -> dict:
     """The f32 monolithic drain on the card and on the CPU over the same
     weights (drawn on the card): identical tokens, first-call logits
-    within RECURRENT_F32_MARGIN of max(1, max |logit|)."""
+    within F32_MARGIN of max(1, max |logit|)."""
     t0 = time.perf_counter()
     cuda_toks, cuda_first, cuda_picks, captures = recurrent_f32(
         "cuda", cfg, prompts, params, new)
@@ -3090,12 +3182,12 @@ def recurrent_parity(label, cfg, params, prompts, new, card) -> dict:
           f"(max |logit| {scale:.3f}), graphs {captures}; card "
           f"{t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s ({card})")
     cmp = compare_picks(cuda_picks, cpu_picks, 0.0, f"{label} f32 card vs cpu")
-    if cuda_toks != cpu_toks or diff > RECURRENT_F32_MARGIN * scale:
+    if cuda_toks != cpu_toks or diff > F32_MARGIN * scale:
         raise AssertionError(f"{label}: f32 card {cuda_toks} vs CPU {cpu_toks}, "
                              f"first logits {diff:.3e} apart (limit "
-                             f"{RECURRENT_F32_MARGIN:g} x {scale:.3f})")
+                             f"{F32_MARGIN:g} x {scale:.3f})")
     print(f"  {label} tokens, card = CPU: {cuda_toks}; first logits within "
-          f"{diff / scale:.3e} of max(1, max |logit|) (limit {RECURRENT_F32_MARGIN:g})")
+          f"{diff / scale:.3e} of max(1, max |logit|) (limit {F32_MARGIN:g})")
     return {"tokens": cuda_toks, "first_logit_diff": diff, "max_logit": scale,
             "captures": captures, "vs_cpu": cmp}
 
@@ -3153,6 +3245,342 @@ def recurrent_phase(card) -> tuple:
     res["hybrid f32"] = recurrent_parity(label, cfg, params, prompts, HYBRID_NEW,
                                          card)
     del params
+    return res, paths
+
+
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "arctic-480b")
+# f32 card = CPU depth: qwen3-moe's 2 layers hold 19.3 GB of f32 experts;
+# one arctic layer holds 53.5 GB (two would not fit the card)
+MOE_F32_LAYERS = {"qwen3-moe-235b-a22b": 2, "arctic-480b": 1}
+MOE_F32_FAMILIES = ("flat", "monolithic")
+MOE_F32_NEW = 4
+# the bf16 depth: the most layers whose reckoned peak (weights, the larger
+# of the prepack's and the init's transient, MOE_POOL_BYTES) stays under
+# MOE_FIT of the card's memory
+MOE_POOL_BYTES = 2 * 2**30      # graph pool, KV pages, activations
+MOE_FIT = 0.95
+
+
+def moe_per_call(cfg) -> tuple:
+    """(launches per flat model call by kernel, mmt4d unpacked stores, of
+    them expert-batched) of a model whose every layer is moe: per layer the
+    attention's Q/K/V/O (Q/K/V stored unpacked), the O input's pack and a
+    ragged attention; the moe FFN's unpack of the packed stream, the pack
+    of the dispatched [E, C, d] and of the gate x up product, the gate, up
+    and down expert-batched launches (each stored unpacked) and the pack of
+    its output into the stream; arctic's dense branch 3 more mmt4d (the
+    down projection stored unpacked); the stream entry pack, the final
+    stream's unpack, the logits rows' pack and the untied head."""
+    n, dense = cfg.n_layers, int(cfg.dense_residual)
+    return ({"mmt4d": n * (7 + 3 * dense) + 1, "pack": 4 * n + 2,
+             "unpack": n + 1, "ragged_attn": n},
+            n * (6 + dense) + 1, 3 * n)
+
+
+def moe_bytes(cfg) -> tuple:
+    """(bytes of one layer's weights in bf16, of the embedding and head,
+    of one layer's largest expert leaf) from the config: experts, router
+    (float32), attention, arctic's dense branch."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    glu = 3 if cfg.glu else 2
+    attn = 2 * (d * cfg.n_heads * cfg.d_head * 2 + 2 * d * cfg.n_kv_heads * cfg.d_head)
+    dense = 2 * glu * d * cfg.d_ff if cfg.dense_residual else 0
+    layer = 2 * glu * e * d * f + 4 * d * e + attn + dense
+    fixed = 2 * cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    return layer, fixed, 2 * e * d * f
+
+
+def moe_depth(cfg, total: int) -> tuple:
+    """The bf16 depth and its reckoning (printed): for L layers, the
+    weights, plus the larger transient: the prepack's packed copy of one
+    stacked expert leaf ([L, E, K, N], while its unpacked one lives) or
+    the init's one layer drawn beside the stack (and its float32 block of
+    1 GiB), plus MOE_POOL_BYTES."""
+    layer, fixed, leaf = moe_bytes(cfg)
+    best, rows = 0, []
+    for n in range(1, cfg.n_layers + 1):
+        init = (layer if n > 1 else 0) + 2**30
+        peak = fixed + n * layer + max(n * leaf, init) + MOE_POOL_BYTES
+        rows.append((n, peak))
+        if peak <= MOE_FIT * total:
+            best = n
+        else:
+            break
+    return best, rows, (layer, fixed, leaf)
+
+
+def route_recorder():
+    """Patch the moe layer's routing to record each eager call's float32
+    router probabilities and top-k choices (host arrays); returns the list
+    and the undo."""
+    from repro_torch.models import moe
+    orig, seen = moe._route, []
+
+    def rec(xf, w, k):
+        out = orig(xf, w, k)
+        seen.append((out[1].float().cpu().numpy(), out[3].cpu().numpy()))
+        return out
+    moe._route = rec
+    return seen, lambda: setattr(moe, "_route", orig)
+
+
+def routing_check(label, model_cuda, model_cpu, params_cuda, params_cpu, tokens):
+    """One forward of ``tokens`` on each side with the routing recorded:
+    equal top-k choices in every moe layer, or at the first difference a
+    top-k boundary margin (the CPU's k-th minus (k+1)-th probability of
+    that token) below F32_MARGIN, printed; else the phase fails."""
+    k = model_cpu.cfg.top_k
+    sides = []
+    for m, p in ((model_cuda, params_cuda), (model_cpu, params_cpu)):
+        seen, undo = route_recorder()
+        try:
+            with torch.no_grad():
+                m.forward(p, {"tokens": tokens[None]})
+        finally:
+            undo()
+        sides.append(seen)
+    diffs, first = 0, None
+    for layer, ((_, e_card), (probs, e_cpu)) in enumerate(zip(*sides)):
+        rows = np.nonzero((np.sort(e_card, 1) != np.sort(e_cpu, 1)).any(1))[0]
+        diffs += len(rows)
+        if len(rows) and first is None:
+            srt = np.sort(probs[rows[0]])[::-1]
+            first = (layer, int(rows[0]), float(srt[k - 1] - srt[k]))
+    if first is None:
+        print(f"  {label}: routing card = CPU in every moe layer "
+              f"({len(sides[0])} layers x {len(tokens)} tokens, top-{k})")
+        return {"routing_differs": 0}
+    layer, row, margin = first
+    print(f"  {label}: routing differs at {diffs} (token, layer) pairs; the first "
+          f"(layer {layer}, token {row}) at a top-{k} boundary margin of "
+          f"{margin:.3e} (limit {F32_MARGIN:g})")
+    if not margin < F32_MARGIN:
+        raise AssertionError(f"{label}: a routing choice differs at a top-k "
+                             f"margin of {margin:.3e}")
+    return {"routing_differs": diffs, "first_margin": margin}
+
+
+def moe_f32_parity(arch, card) -> dict:
+    """``arch`` at its published widths cut to MOE_F32_LAYERS[arch] layers
+    in f32: weights drawn once on the card and packed there serve both
+    sides (the CPU's a copy of the packed tree); routing card = CPU on one
+    forward (routing_check); then each of MOE_F32_FAMILIES through
+    serve_f32: 2 requests of 5-24 tokens, MOE_F32_NEW new, card after
+    warmup (replay = eager checked) and CPU plain path: identical tokens,
+    first-call logits within F32_MARGIN of max(1, max |logit|), equal
+    dropped fractions."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.core.linear import prepack_params
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build_model
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=MOE_F32_LAYERS[arch])
+    f32 = RunConfig(param_dtype="float32", compute_dtype="float32")
+    shape = ShapeSpec("serve", 64, 4, "decode")
+    t0 = time.perf_counter()
+    mc = build_model(cfg, f32, shape, hw=descriptor("cuda", "h100"), device="cuda")
+    mh = build_model(cfg, f32, shape, hw=descriptor("cpu", "h100"), device="cpu")
+    # packed on the card in place (each w dropped as its pack is made:
+    # arctic's layer does not fit the card twice), then copied to the host:
+    # the CPU's tiles are the card's (CPU_TWIN), and packing 56 GB on the
+    # host would take most of a minute
+    pc = prepack_params(mc.init(torch.Generator(device="cuda").manual_seed(0)),
+                        mc.ctx, consume=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ph = tfm.tree_map(lambda t: t.cpu(), pc)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(ph)
+                 if isinstance(t, torch.Tensor))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 2)]
+    route = routing_check(f"{arch} f32 ({cfg.n_layers} layers)", mc, mh, pc, ph,
+                          torch.as_tensor(prompts[0]))
+    print(f"  {arch} f32: {cfg.n_layers} of {full.n_layers} layers at full width, "
+          f"{nbytes / 1e9:.2f} GB of packed f32 weights on each side, drawn, "
+          f"packed and copied in {time.perf_counter() - t0:.1f} s ({card})")
+    out = {"layers": cfg.n_layers, "weight_bytes": nbytes, **route}
+    for family in MOE_F32_FAMILIES:
+        t0 = time.perf_counter()
+        ct, cf, cp, info = serve_f32("cuda", cfg, prompts, family, params=pc,
+                                     new=MOE_F32_NEW, drops=True)
+        t1 = time.perf_counter()
+        ht, hf, hp, hinfo = serve_f32("cpu", cfg, prompts, family, params=ph,
+                                      new=MOE_F32_NEW, drops=True)
+        cd, hd = info.pop("dropped_frac"), hinfo["dropped_frac"]
+        diff = float(np.abs(cf - hf).max())
+        scale = max(1.0, float(np.abs(hf).max()))
+        print(f"  {arch} f32 {family}: first call max |logit diff| {diff:.3e} "
+              f"({diff / scale:.3e} of max(1, max |logit|) {scale:.3f}; limit "
+              f"{F32_MARGIN:g}), dropped fraction card {cd:.6f} CPU {hd:.6f}, "
+              f"replay = eager at {info['replay_checked']} shapes, graphs "
+              f"{info['captures']}; card {t1 - t0:.1f} s, CPU "
+              f"{time.perf_counter() - t1:.1f} s")
+        cmp = compare_picks(cp, hp, 0.0, f"{arch} f32 {family} card vs cpu")
+        if ct != ht or diff > F32_MARGIN * scale or cd != hd \
+                or info["replay_checked"] < 1:
+            raise AssertionError(f"{arch} f32 {family}: tokens {ct} vs {ht}, "
+                                 f"logits {diff:.3e} apart (scale {scale:.3f}), "
+                                 f"dropped {cd} vs {hd}, replay checked at "
+                                 f"{info['replay_checked']} shapes")
+        out[family] = {"tokens": ct, "first_logit_diff": diff, "max_logit": scale,
+                       "dropped_frac": cd, "vs_cpu": cmp, **info}
+    print(f"  {arch} f32: card = CPU token for token in {list(MOE_F32_FAMILIES)}")
+    del pc, ph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_bf16(arch, card) -> tuple:
+    """``arch`` at its published widths in bf16, cut in depth by
+    moe_depth (printed with its reckoning), weights drawn on the card and
+    packed in place; the §4 flat drain (8 requests, prompts 64-512, 32 new,
+    chunk_tokens 128) with drain_bf16's checks (replay = eager, no capture,
+    launches per model call by moe_per_call, expert-batched launches
+    counted) and a DropCounter; then a second drain that captures nothing
+    (its requests land in other slots, so where assignments are dropped a
+    request's tokens may part from the first drain's: counted; where
+    neither drain drops one they must repeat).  Prints ms per step and tokens/s of
+    the second beside the weight-bytes bound, peak memory, warmup and the
+    drains' dropped fractions."""
+    import dataclasses
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.core.hardware import query
+    from repro_torch.core.linear import prepack_params
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import DropCounter
+    from repro_torch.serving.engine import Engine
+    full = get_config(arch)
+    hw = query("cuda", "h100")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    depth, rows, (layer, fixed, leaf) = moe_depth(full, total)
+    if depth < 1:
+        raise AssertionError(f"{arch}: not one layer fits the card")
+    print(f"  {arch}: reckoning (bf16): a layer {layer / 1e9:.3f} GB, embedding + "
+          f"head {fixed / 1e9:.3f} GB, an expert leaf {leaf / 1e9:.3f} GB a layer; "
+          f"peak at L layers = weights + max(L x leaf, a layer + 1 GiB) + "
+          f"{MOE_POOL_BYTES / 2**30:.0f} GiB: "
+          + ", ".join(f"L={n}: {p / 1e9:.2f} GB" for n, p in rows)
+          + f"; the card holds {total / 1e9:.2f} GB, so {depth} of "
+          f"{full.n_layers} layers (limit {MOE_FIT:g} of it) ({card})")
+    cfg = dataclasses.replace(full, n_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, 4, "decode"),
+                        device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    step_bytes = weight_bytes - params["embed"]["e"].numel() * 2
+    t0 = time.perf_counter()
+    params = prepack_params(params, model.ctx, consume=True)
+    torch.cuda.synchronize()
+    prepack_s = time.perf_counter() - t0
+    drops = DropCounter("cuda").install()
+    try:
+        eng = Engine(model, params, device="cuda", max_slots=4, page_tokens=16,
+                     chunk_tokens=128)
+        del params
+        bound_ms = 1e3 * step_bytes / hw.hbm_bw
+        print(f"  {arch}: {depth} of {full.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff_expert}"
+              f"{' + a dense branch of d_ff ' + str(cfg.d_ff) if cfg.dense_residual else ''}, "
+              f"{cfg.n_heads} query heads over {cfg.n_kv_heads} of {cfg.d_head}, "
+              f"vocab {cfg.vocab}; {weight_bytes / 1e9:.3f} GB in bf16, drawn "
+              f"on the card in {init_s:.2f} s, packed in place in "
+              f"{prepack_s:.2f} s ({card})")
+        rng = np.random.default_rng(0)
+        lens = rng.integers(64, 513, 8)
+        prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+        print(f"  {arch} prompts {lens.tolist()}")
+        rec = PickRecorder(eng)
+        per, per_unpacked, per_expert = moe_per_call(cfg)
+        drops.reset()
+        first = drain_bf16(cfg, "flat", prompts, eng, expected=(per, per_unpacked))
+        first.pop("engine")
+        first_drop = drops.dropped_frac()
+        experts = kernels.wrappers()["mmt4d"].expert_batched
+        if experts != per_expert * first["model_calls"]:
+            raise AssertionError(f"{arch}: {experts} expert-batched launches over "
+                                 f"{first['model_calls']} calls, expected "
+                                 f"{per_expert} per call")
+        check_path_launches(f"{arch} flat bf16", first["launches"], True)
+        first_picks = dict(rec.picks)
+        drops.reset()
+        second = timed_drain(eng, [(p, 32, 0.0) for p in prompts], True, 0,
+                             f"{arch} bf16 flat, second drain")
+        second_drop = drops.dropped_frac()
+    finally:
+        drops.uninstall()
+    # a request's tokens depend on its step's other tokens only through the
+    # capacity: the second drain admits the requests into other slots (the
+    # free list's order after the first), so the flat layout and which
+    # assignments are dropped differ; where neither drain drops one, the
+    # tokens must repeat
+    parted = sum(a != b for a, b in zip(by_request(second.pop("picks")),
+                                        by_request(first_picks)))
+    if parted and first_drop == second_drop == 0.0:
+        raise AssertionError(f"{arch}: {parted} requests' tokens differ between "
+                             f"two drains that dropped nothing")
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / first["steps"] for k, v in first["launches"].items() if v}
+    print(f"  {arch}: second drain {second['ms_per_step']:.4f} ms per step, "
+          f"{second['tokens_per_s']:.2f} generated tokens/s (no capture; "
+          f"{parted} of {len(prompts)} requests parted from the first drain's "
+          f"tokens, other slots; first {first['ms_per_step']:.4f}); bound: every weight but "
+          f"the embedding table read once a step (every expert: the capacity "
+          f"dispatch runs them all), {step_bytes / 1e9:.3f} GB / "
+          f"{hw.hbm_bw / 1e12:.2f} TB/s = {bound_ms:.4f} ms; launches per model "
+          f"call {per} ({per_expert} expert-batched), per step {per_step}; "
+          f"dropped fraction of the real tokens' assignments {first_drop:.6f} "
+          f"(second {second_drop:.6f}); peak "
+          f"memory {peak / 2**30:.2f} GiB; warmup {first['warmup_s']:.3f} s "
+          f"({card})")
+    res = {**first, "second": second, "layers": depth, "init_s": init_s,
+           "prepack_s": prepack_s, "weight_bytes": weight_bytes,
+           "step_bytes": step_bytes, "bound_ms": bound_ms, "peak_bytes": peak,
+           "dropped_frac": first_drop, "second_dropped_frac": second_drop,
+           "second_parted_requests": parted,
+           "expert_batched": experts, "launches_per_step": per_step,
+           "reckoning": rows, "card": card}
+    del eng, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, {f"{arch} flat bf16": first["launches"],
+                 f"{arch} flat bf16 second": second["launches"]}
+
+
+def moe_phase(card, checks) -> tuple:
+    """The moe family: the expert-batched mmt4d at qwen3-moe's and
+    arctic's flat-step expert products (checks.experts); each config's f32
+    card = CPU (moe_f32_parity) and its bf16 §4 drain at full width, cut
+    in depth (moe_bf16).  Returns (results, launches by path)."""
+    t_phase = time.perf_counter()
+    print(f"  expert-batched mmt4d vs its plain version, L2-cold, beside "
+          f"torch.bmm ({card}):")
+    for arch, (d, f, e, k) in (("qwen3-moe", (4096, 1536, 128, 8)),
+                               ("arctic", (7168, 4864, 128, 2))):
+        c = max(8, -(-int(128 * k / e * 1.25) // 8) * 8)   # capacity at W = 128
+        checks.experts(BF, e, c, d, f, "silu", f"experts {arch} gate flat")
+        checks.experts(BF, e, c, f, d, None, f"experts {arch} down flat")
+        if arch == "qwen3-moe":
+            checks.experts(TF, e, c, d, f, "silu", f"experts {arch} gate flat")
+    res, paths = {}, {}
+    for arch in MOE_ARCHS:
+        res[f"{arch} f32"] = moe_f32_parity(arch, card)
+    for arch in MOE_ARCHS:
+        res[arch], p = moe_bf16(arch, card)
+        paths.update(p)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  the moe phase took {res['seconds']:.1f} s ({card})")
     return res, paths
 
 
@@ -3335,9 +3763,9 @@ def main(argv=None) -> int:
     by_path.update(train_paths)
     print(f"the dense configs and the vlm family at their published widths: "
           f"Qwen3-8B at full depth through the flat drain (bf16); Qwen2-7B, "
-          f"ChatGLM3-6B and OLMo-1B cut to {PARITY_LAYERS} layers (f32 card = "
+          f"ChatGLM3-6B and OLMo-1B cut to {DENSE_F32_LAYERS} layers (f32 card = "
           f"CPU, bf16 under a top-2 margin of {BF16_MARGIN:g}); InternVL2-26B's "
-          f"language model through generate_static (f32 at {PARITY_LAYERS} "
+          f"language model through generate_static (f32 at {VLM_F32_LAYERS} "
           f"layers card = CPU, bf16 at {VLM_LAYERS}) ({card})")
     dense, dense_paths = dense_phase(card)
     by_path.update(dense_paths)
@@ -3352,6 +3780,13 @@ def main(argv=None) -> int:
           f"({card})")
     recurrent, rec_paths = recurrent_phase(card)
     by_path.update(rec_paths)
+    print(f"the moe family: the expert-batched mmt4d at qwen3-moe's and "
+          f"arctic's expert products; each at full width, f32 card = CPU "
+          f"({', '.join(f'{a} {n} layers' for a, n in MOE_F32_LAYERS.items())}; "
+          f"tokens, first logits within {F32_MARGIN:g}, dropped fractions, "
+          f"routing) and the bf16 §4 flat drain cut in depth ({card})")
+    moe_res, moe_paths = moe_phase(card, checks)
+    by_path.update(moe_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
@@ -3382,6 +3817,10 @@ def main(argv=None) -> int:
                 "shape", "dtype", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err", "split")} for c in cases
                 if c["shape"].startswith("d128")]} if k == "ragged_attn" else {}),
+            **({"experts": [{key: c.get(key) for key in (
+                "shape", "dtype", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "split")} for c in cases
+                if c["shape"].startswith("experts")]} if k == "mmt4d" else {}),
             "split": rep.get("split"), "shape": rep["shape"],
             "dtype": rep["dtype"], "card": card, "cases": cases,
             **({"unpacked_stores": unpacked} if k == "mmt4d" else {}),
@@ -3401,7 +3840,7 @@ def main(argv=None) -> int:
                        "f32_chunk_cases": f32_chunk_cases,
                        "scaled_checks": {n: c.cases for n, c in scaled_checks.items()},
                        "training": training, "dense": dense,
-                       "recurrent": recurrent,
+                       "recurrent": recurrent, "moe": moe_res,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     print(json.dumps(result))

@@ -1,7 +1,7 @@
 """Architecture registry and the assigned (arch x shape) cell matrix, as
 the JAX package's ``configs/registry.py`` has them.  Every architecture
-has its config here; a model is built only for the families the port has
-(``models/transformer.py:_check_ported``)."""
+has its config here, and the port builds a model of each
+(``launch/serve.py:SERVABLE`` names those it serves)."""
 
 from __future__ import annotations
 

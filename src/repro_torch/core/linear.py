@@ -23,12 +23,14 @@ from repro_torch.core.mmt4d import Epilogue, matmul, mmt4d
 from repro_torch.core import packing
 from repro_torch.core.propagation import PackedArray, pack_activation
 
-__all__ = ["MatmulContext", "linear_init", "linear_apply", "prepack_params",
-           "PLAIN_PRODUCTS"]
+__all__ = ["MatmulContext", "linear_init", "linear_apply",
+           "batched_linear_apply", "prepack_params", "PLAIN_PRODUCTS"]
 
-# ``{"w"}`` leaves that no linear_apply reads: mamba's ``dt_proj``, a plain
-# float32 product in both packages (models/mamba.py), stays unpacked
-PLAIN_PRODUCTS = frozenset({"dt_proj"})
+# ``{"w"}`` leaves that no linear_apply reads, plain float32 products in
+# both packages, which stay unpacked (and float32): mamba's ``dt_proj``
+# (models/mamba.py) and the moe router (models/moe.py; the JAX package's
+# prepack never packs it, a stacked [G, d, E] leaf)
+PLAIN_PRODUCTS = frozenset({"dt_proj", "router"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,16 +120,50 @@ def linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
     return c
 
 
-def prepack_params(params, ctx: MatmulContext, dtype: Optional[torch.dtype] = None):
+def batched_linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
+                         ctx: MatmulContext, *,
+                         activation: Optional[str] = None) -> torch.Tensor:
+    """Expert-stacked linear: x [E, C, K] (or its PackedArray, packed
+    [E, C_o, K_o, m_r, k_r]) @ w [E, K, N] -> [E, C, N], the JAX package's
+    ``batched_linear_apply``: the paper's 2-D layouts mapped over the
+    leading expert dim.  One mmt4d launch over every expert (the expert
+    dim in the kernel's grid), the bias [E, N] and activation fused, the
+    result stored unpacked.  Under the ``unpacked`` policy a batched
+    ``torch.matmul``."""
+    epi = Epilogue(activation=activation)
+    if not ctx.packed:
+        if isinstance(x, PackedArray):
+            raise TypeError("the unpacked policy takes a plain tensor, not "
+                            "a PackedArray")
+        return matmul(x, params["w"], ctx.layout(x.dtype), epilogue=epi,
+                      bias=params.get("b"))
+    if isinstance(x, PackedArray):
+        layout, a_pack, m = x.layout, x.data, x.m
+    else:
+        layout = ctx.layout(x.dtype)
+        a_pack, m = packing.pack_lhs(x, layout), x.shape[-2]
+    b_pack, n = _packed_weight(params, layout)
+    return mmt4d(a_pack, b_pack, epi.bias_pack(params.get("b"), layout),
+                 activation=epi.activation, unpack_to=(m, n))
+
+
+def prepack_params(params, ctx: MatmulContext, dtype: Optional[torch.dtype] = None,
+                   *, consume: bool = False):
     """Serving-path weight packing: every linear's ``w`` [..., K, N] becomes
     ``w_pack`` [..., N_o, K_o, n_r, k_r] plus ``w_n = N`` (a plain int).
 
     Unlike the JAX package, which packs only 2-D weights and leaves the
     stacked ``[G, K, N]`` layer weights to be packed inside each jitted step,
-    the port packs the stacked weights too: it runs eagerly, with no
-    compiler to hoist a per-step pack of a constant.  A dict under a key of
-    :data:`PLAIN_PRODUCTS` is a weight no ``linear_apply`` reads, and is
-    left as it is."""
+    the port packs the stacked weights too (the moe experts' ``[G, E, K,
+    N]`` among them): it runs eagerly, with no compiler to hoist a per-step
+    pack of a constant.  A dict under a key of :data:`PLAIN_PRODUCTS` is a
+    weight no ``linear_apply`` reads, and is left as it is.  A tree that is
+    already packed comes back as it is.
+
+    ``consume``: each ``w`` is removed from ``params`` once its pack is
+    made, so the unpacked and the packed tree never exist whole side by
+    side (a model whose weights fill most of the card's memory); the
+    caller gives up ``params``."""
     if not ctx.packed:
         return params
 
@@ -139,6 +175,8 @@ def prepack_params(params, ctx: MatmulContext, dtype: Optional[torch.dtype] = No
             out = {k: rec(v) for k, v in p.items() if k != "w"}
             out["w_pack"] = packing.pack_rhs(w, ctx.layout(w.dtype))
             out["w_n"] = w.shape[-1]
+            if consume:
+                del p["w"], w
             return out
         return {k: v if k in PLAIN_PRODUCTS else rec(v) for k, v in p.items()}
 

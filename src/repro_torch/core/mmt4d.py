@@ -48,12 +48,13 @@ class Epilogue:
 
     def bias_pack(self, bias: Optional[torch.Tensor],
                   layout: PackedLayout) -> Optional[torch.Tensor]:
-        """An unpacked ``[N]`` bias tiled along n_r: ``[N_o, n_r]``
-        (None without a bias)."""
+        """An unpacked ``[..., N]`` bias tiled along n_r: ``[..., N_o,
+        n_r]`` (an expert-batched bias [E, N]: [E, N_o, n_r]; None without
+        a bias)."""
         if bias is None:
             return None
-        bp = packing.pad_to_tiles(bias[None, :], 1, layout.n_r)
-        return bp.reshape(-1, layout.n_r).contiguous()
+        bp = packing.pad_to_tiles(bias[..., None, :], 1, layout.n_r)
+        return bp.reshape(*bias.shape[:-1], -1, layout.n_r).contiguous()
 
     def apply_unpacked(self, c: torch.Tensor,
                        bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -75,12 +76,17 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
 
     Leading LHS dims fold into M_o (a free reshape of contiguous packed
     tiles, done by the kernel wrapper), as the JAX package's
-    ``core/mmt4d.py`` does for a plain weight."""
-    if b_pack.ndim != 4:
-        raise NotImplementedError("expert-batched B_pack [E, N_o, K_o, n_r, "
-                                  "k_r] comes with the MoE family")
+    ``core/mmt4d.py`` does for a plain weight.  An expert-batched b_pack
+    [E, N_o, K_o, n_r, k_r] (the MoE family's experts) takes a_pack [E,
+    M_o, K_o, m_r, k_r] and bias_pack [E, N_o, n_r]: one launch over every
+    expert, forward only (its gradients are ROADMAP B11)."""
     tensors = (a_pack, b_pack) + (() if bias_pack is None else (bias_pack,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if b_pack.ndim == 5:
+            raise NotImplementedError(
+                "mmt4d: the expert-batched product has no gradient kernels "
+                "yet (ROADMAP B11: expert-batched dgrad/wgrad, with moe "
+                "training); run it under torch.no_grad()")
         return _Mmt4dFn.apply(a_pack, b_pack, bias_pack, activation, unpack_to)
     return mmt4d_kernel(a_pack, b_pack, bias_pack, activation=activation,
                         unpack_to=unpack_to)

@@ -4,6 +4,17 @@
 // C_pack [Mo, No, m_r, n_r]; float32 accumulation, bias and activation applied
 // in float32, then one cast to the element type (as the TPU kernel does).
 //
+// Expert-batched (E > 1, the MoE family's expert FFNs): A_pack [E, Mo_e, Ko,
+// m_r, k_r], B_pack [E, No, Ko, n_r, k_r], bias [E, No, n_r], C[e] = act(
+// A[e] B[e]^T + bias[e]), the JAX package's mmt4d with an expert batch dim
+// (src/repro/core/mmt4d.py:83-97, a dot_general there; the Pallas kernel is
+// 2-D only).  A and C fold the expert dim into Mo (Mo = E * Mo_e, contiguous
+// packed tiles) and so does the unpacked store (mo_per_batch = Mo_e: one
+// [m, n] block of C per expert); only B and the bias are offset per expert.
+// The grid's y walks (expert, mo group) pairs, so one launch covers every
+// expert: a flat step's expert holds one m_r tile of capacity rows, and the
+// E x N-tile blocks are weight-bound and fill the SMs without split-K.
+//
 // Replaces the Pallas kernel src/repro/kernels/mmt4d/kernel.py:113
 // (mmt4d_kernel_call at :68, body _kernel at :43).  The TPU grid walks K_o
 // sequentially and carries the sum in a VMEM scratch tile; GPU blocks run in
@@ -63,10 +74,10 @@
 // K_o, staging A and B in shared memory a chunk of k at a time (`kc`
 // columns of the [m_r][k_r] and [n_r][k_r] tiles; ops.py passes 64), so a
 // scaled tile (k_r = 256 or 512) fits: 4 (8·64 + 512·65) = 135,168 B at
-// m_r·n_r = 8 × 512.  Each output's fmaf chain runs over (ko, kk) in the
-// same order whatever `kc` is, so the result does not depend on it: with
-// kc = k_r the kernel stages whole tiles, as the first port did, and gives
-// the same bits.
+// m_r·n_r = 8 × 512.  Each output sums each K tile as one fmaf chain over
+// its k_r columns and adds the tiles' sums in ko order: the same order
+// whatever `kc` is, so the result does not depend on it (with kc = k_r
+// the kernel stages whole tiles and gives the same bits).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -101,12 +112,17 @@ mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  const float* __restrict__ bias, float* __restrict__ c,
                  int64_t No, int64_t Ko, int m_r, int n_r, int k_r, int kc,
                  int act, int64_t out_rows, int64_t out_cols,
-                 int64_t mo_per_batch) {
+                 int64_t mo_per_batch, int64_t mo_per_expert) {
   extern __shared__ float smem[];
   float* As = smem;                    // [m_r][kc]
   float* Bs = smem + m_r * kc;         // [n_r][kc + 1]
   const int bp = kc + 1;
   const int64_t mo = blockIdx.x / No, no = blockIdx.x % No;
+  {                                    // the expert's weights and bias
+    const int64_t ex = mo / mo_per_expert;
+    b += ex * No * Ko * n_r * k_r;
+    if (bias != nullptr) bias += ex * No * n_r;
+  }
   const int tid = threadIdx.x;
   const int outs = m_r * n_r;
 
@@ -116,6 +132,15 @@ mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
   const int a_tile = m_r * k_r, b_tile = n_r * k_r;
   for (int64_t ko = 0; ko < Ko; ++ko) {
+    // each K tile's sum is its own fmaf chain, added to the total after
+    // the tile: a chain over the whole K (4096 terms at d 4096) rounds
+    // about 6 times further from the exact sum than the CPU's blocked
+    // sums, which is what kept the card's float32 logits of the
+    // recurrent models 1.9e-5 off the CPU's (ROADMAP C9,
+    // scripts/c9_bisect.py); per tile the card is as close as the CPU
+    float part[kMaxPerThread];
+#pragma unroll
+    for (int q = 0; q < kMaxPerThread; ++q) part[q] = 0.0f;
     const float* at = a + (mo * Ko + ko) * a_tile;
     const float* bt = b + (no * Ko + ko) * b_tile;
     for (int c0 = 0; c0 < k_r; c0 += kc) {
@@ -131,13 +156,15 @@ mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
         if (o < outs) {
           const float* ar = As + (o / n_r) * kc;
           const float* br = Bs + (o % n_r) * bp;
-          float s = acc[q];
+          float s = part[q];
           for (int kk = 0; kk < w; ++kk) s = fmaf(ar[kk], br[kk], s);
-          acc[q] = s;
+          part[q] = s;
         }
       }
       __syncthreads();
     }
+#pragma unroll
+    for (int q = 0; q < kMaxPerThread; ++q) acc[q] += part[q];
   }
 
   // output (mi, n) of the tile goes to dst[mi * pitch + n] where mi <
@@ -165,8 +192,8 @@ mmt4d_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }
 
 int launch_f32(const void* a, const void* b, const void* bias, void* c,
-               int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
-               int kc, int act, int64_t out_rows, int64_t out_cols,
+               int64_t E, int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r,
+               int k_r, int kc, int act, int64_t out_rows, int64_t out_cols,
                int64_t mo_per_batch, cudaStream_t stream) {
   if ((int64_t)m_r * n_r > (int64_t)kF32Threads * kMaxPerThread)
     return (int)cudaErrorInvalidValue;
@@ -178,7 +205,7 @@ int launch_f32(const void* a, const void* b, const void* bias, void* c,
   if (Mo * No == 0) return 0;
   mmt4d_f32_kernel<<<(unsigned)(Mo * No), kF32Threads, smem, stream>>>(
       (const float*)a, (const float*)b, (const float*)bias, (float*)c, No, Ko,
-      m_r, n_r, k_r, kc, act, out_rows, out_cols, mo_per_batch);
+      m_r, n_r, k_r, kc, act, out_rows, out_cols, mo_per_batch, Mo / E);
   return (int)cudaGetLastError();
 }
 
@@ -192,11 +219,12 @@ constexpr int kMaxCols = 32;     // tm * m_r: the MMA's N per block
 constexpr int kMaxCluster = 8;   // portable cluster size
 constexpr int kPadP = 4;         // float padding per partial row
 
-// Grid (No * n_r / rows, ceil(Mo / tm), splits), cluster (1, 1, splits) if splits > 1, 8
-// warps.  Block (x, y, z) computes weight rows [r0, r0 + rows) of output
-// tile `no`, for mo tiles [mo0, mo0 + tm), over K tiles [z * Ko / splits,
-// (z + 1) * Ko / splits); kernels/mmt4d/ops.py:Split mirrors this
-// arithmetic.  Warp w takes the 16 rows (w % (rows / 16)) and every KW-th
+// Grid (No * n_r / rows, E * ceil(Mo_e / tm), splits), cluster (1, 1,
+// splits) if splits > 1, 8 warps.  Block (x, y, z) takes expert e = y /
+// ceil(Mo_e / tm) and computes weight rows [r0, r0 + rows) of its output
+// tile `no`, for mo tiles [mo0, mo0 + tm) of that expert, over K tiles
+// [z * Ko / splits, (z + 1) * Ko / splits); kernels/mmt4d/ops.py:Split
+// mirrors this arithmetic (per expert; E = 1 without experts).  Warp w takes the 16 rows (w % (rows / 16)) and every KW-th
 // 32-wide K chunk of the block's range from chunk w / (rows / 16) on, KW =
 // 8 / (rows / 16).  NT (a power of two) is the 8-wide MMA tiles per warp;
 // tiles past the block's tm * m_r activation rows are fed zeros and dropped.
@@ -223,7 +251,7 @@ mmt4d_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                   const bf16* __restrict__ bias, bf16* __restrict__ c,
                   int Mo, int No, int Ko, int m_r, int n_r, int k_r, int act,
                   int rows, int tm, int splits, int out_rows, int out_cols,
-                  int mo_per_batch) {
+                  int mo_per_batch, int mo_per_expert) {
   constexpr int P = NT <= 2 ? 4 : 2;   // chunks in flight (ops.py CHUNKS_IN_FLIGHT)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // launched as a programmatic dependent: wait here, before the first read,
@@ -234,8 +262,12 @@ mmt4d_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   const int per_tile = n_r / rows;
   const int no = blockIdx.x / per_tile;
   const int r0 = (blockIdx.x % per_tile) * rows;
-  const int mo0 = blockIdx.y * tm;
-  const int tmv = min(tm, Mo - mo0);    // the last group may hold fewer tiles
+  const int gy = (mo_per_expert + tm - 1) / tm;   // mo groups per expert
+  const int ex = blockIdx.y / gy, ge = blockIdx.y - ex * gy;
+  const int mo0 = ex * mo_per_expert + ge * tm;   // in the folded Mo
+  const int tmv = min(tm, mo_per_expert - ge * tm);   // the last group may hold fewer
+  b += (int64_t)ex * No * Ko * n_r * k_r;         // the expert's weights and bias
+  if (bias != nullptr) bias += (int64_t)ex * No * n_r;
   const int cols = tmv * m_r;           // this block's valid MMA N
   const int kb = (int)((int64_t)split * Ko / splits);
   const int nk = (int)((int64_t)(split + 1) * Ko / splits) - kb;
@@ -404,15 +436,16 @@ size_t smem_bf16(int rows, int cols) {
 
 template <int NT, bool UNPACKED>
 int launch_nt(const void* a, const void* b, const void* bias, void* c,
-              int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
-              int act, int rows, int tm, int splits, int64_t out_rows,
+              int64_t E, int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r,
+              int k_r, int act, int rows, int tm, int splits, int64_t out_rows,
               int64_t out_cols, int64_t mo_per_batch, size_t smem,
               cudaStream_t stream) {
   static bool configured[repro::kMaxDevices] = {};
   if (int e = repro::opt_in_smem(mmt4d_bf16_kernel<NT, UNPACKED>, configured)) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(No * (n_r / rows)), (unsigned)((Mo + tm - 1) / tm),
-                     (unsigned)splits);
+  const int64_t mo_e = Mo / E;
+  cfg.gridDim = dim3((unsigned)(No * (n_r / rows)),
+                     (unsigned)(E * ((mo_e + tm - 1) / tm)), (unsigned)splits);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -430,14 +463,15 @@ int launch_nt(const void* a, const void* b, const void* bias, void* c,
   cudaError_t e = cudaLaunchKernelEx(
       &cfg, mmt4d_bf16_kernel<NT, UNPACKED>, (const bf16*)a, (const bf16*)b,
       (const bf16*)bias, (bf16*)c, (int)Mo, (int)No, (int)Ko, m_r, n_r, k_r, act,
-      rows, tm, splits, (int)out_rows, (int)out_cols, (int)mo_per_batch);
+      rows, tm, splits, (int)out_rows, (int)out_cols, (int)mo_per_batch,
+      (int)mo_e);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* a, const void* b, const void* bias, void* c,
-                int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r, int k_r,
-                int act, int rows, int tm, int splits, int64_t out_rows,
+                int64_t E, int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r,
+                int k_r, int act, int rows, int tm, int splits, int64_t out_rows,
                 int64_t out_cols, int64_t mo_per_batch, cudaStream_t stream) {
   const bool unpacked = out_cols > 0;
   if (m_r % 8 != 0 || k_r % 16 != 0 || n_r % 64 != 0 ||
@@ -445,7 +479,7 @@ int launch_bf16(const void* a, const void* b, const void* bias, void* c,
       tm < 1 || (int64_t)tm * m_r > kMaxCols || splits < 1 ||
       splits > kMaxCluster || splits > Ko ||
       Mo > INT32_MAX || Ko > INT32_MAX || No * (n_r / rows) > INT32_MAX ||
-      (Mo + tm - 1) / tm > 65535 ||
+      E * ((Mo / E + tm - 1) / tm) > 65535 ||
       (((uintptr_t)a | (uintptr_t)b | (unpacked ? 0 : (uintptr_t)c)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bf16(rows, tm * m_r);
@@ -455,7 +489,7 @@ int launch_bf16(const void* a, const void* b, const void* bias, void* c,
 #define REPRO_NT(N)                                                          \
     case N:                                                                  \
       return (unpacked ? launch_nt<N, true> : launch_nt<N, false>)(          \
-          a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, rows, tm, splits,     \
+          a, b, bias, c, E, Mo, No, Ko, m_r, n_r, k_r, act, rows, tm, splits,  \
           out_rows, out_cols, mo_per_batch, smem, stream);
     REPRO_NT(1) REPRO_NT(2) REPRO_NT(4)
 #undef REPRO_NT
@@ -477,22 +511,25 @@ bool unpacked_extent_ok(int64_t Mo, int64_t No, int m_r, int n_r,
 
 }  // namespace
 
+// E: experts (1 without); Mo: the folded M_o, E times each expert's.
 // rows, tm, splits: the bfloat16 decomposition picked by
 // kernels/mmt4d/ops.py:pick_split; for float32, rows is the k chunk staged
 // at a time (tm and splits ignored).  out_rows,
 // out_cols, mo_per_batch: the unpacked store (all 0: C is C_pack).
 extern "C" int repro_mmt4d(const void* a, const void* b, const void* bias,
-                           void* c, int dtype, int64_t Mo, int64_t No,
+                           void* c, int dtype, int64_t E, int64_t Mo, int64_t No,
                            int64_t Ko, int m_r, int n_r, int k_r, int act,
                            int rows, int tm, int splits, int64_t out_rows,
                            int64_t out_cols, int64_t mo_per_batch, void* stream) {
-  if (!unpacked_extent_ok(Mo, No, m_r, n_r, out_rows, out_cols, mo_per_batch))
+  if (E < 1 || E > 65535 || Mo % E != 0 ||
+      !unpacked_extent_ok(Mo, No, m_r, n_r, out_rows, out_cols, mo_per_batch) ||
+      (out_cols > 0 && E > 1 && (Mo / E) % mo_per_batch != 0))
     return (int)cudaErrorInvalidValue;
   if (dtype == repro::kF32)   // `rows` carries the float32 path's k chunk
-    return launch_f32(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, rows, act,
+    return launch_f32(a, b, bias, c, E, Mo, No, Ko, m_r, n_r, k_r, rows, act,
                       out_rows, out_cols, mo_per_batch, (cudaStream_t)stream);
   if (dtype == repro::kBF16)
-    return launch_bf16(a, b, bias, c, Mo, No, Ko, m_r, n_r, k_r, act, rows,
+    return launch_bf16(a, b, bias, c, E, Mo, No, Ko, m_r, n_r, k_r, act, rows,
                        tm, splits, out_rows, out_cols, mo_per_batch,
                        (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;

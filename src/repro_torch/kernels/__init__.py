@@ -32,12 +32,12 @@ def launch_counts() -> dict:
 
 def counters() -> dict:
     """Every count a wrapper keeps: ``launches`` by kernel name, and
-    mmt4d's ``unpacked_stores`` and ``bias_activation`` as
-    ``"mmt4d.<count>"``."""
+    mmt4d's ``unpacked_stores``, ``bias_activation`` and ``expert_batched``
+    as ``"mmt4d.<count>"``."""
     out = launch_counts()
     mm = wrappers()["mmt4d"]
-    out["mmt4d.unpacked_stores"] = mm.unpacked_stores
-    out["mmt4d.bias_activation"] = mm.bias_activation
+    for attr in ("unpacked_stores", "bias_activation", "expert_batched"):
+        out[f"mmt4d.{attr}"] = getattr(mm, attr)
     return out
 
 

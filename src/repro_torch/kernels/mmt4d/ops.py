@@ -10,6 +10,12 @@ float32 runs on the CUDA cores in IEEE arithmetic, staging ``F32_CHUNK``
 columns of k at a time, so it takes any ``k_r`` with ``m_r·n_r <= 4096``.
 One launch per call either way.
 
+Expert-batched (the MoE family's expert FFNs): ``a_pack [E, M_o, K_o, m_r,
+k_r]`` and ``b_pack [E, N_o, K_o, n_r, k_r]`` (optional ``bias_pack [E,
+N_o, n_r]``) give ``C[e] = act(A[e] B[e]^T + bias[e])``, every expert in
+the same launch (the expert dim in the kernel's grid), packed or, with
+``unpack_to=(m, n)``, stored unpacked as ``C [E, m, n]``.
+
 With ``unpack_to=(m, n)`` the same launch writes ``C[..., m, n]`` row-major,
 the tile padding dropped, instead of ``C_pack``: the unpacked store, which
 ``core/linear.py`` uses wherever a linear's result leaves the packed
@@ -119,7 +125,7 @@ def unpacked_index(mo: int, no: int, mi: int, n: int, *, m: int, n_cols: int,
 
 @functools.lru_cache(maxsize=None)
 def pick_split(m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: int,
-               sm_count: int) -> Split:
+               sm_count: int, experts: int = 1) -> Split:
     """The bfloat16 kernel's decomposition of one call.
 
     A call is bound by the latency of a few dependent loads and MMAs more
@@ -131,14 +137,19 @@ def pick_split(m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: int,
     take the whole K range without a cluster, whose launch and barriers
     cost more than the few blocks lose; K is split in a cluster (at most
     ``MAX_CLUSTER`` ways, none empty) only so far that no warp walks more
-    than ``CHUNKS_IN_FLIGHT`` 32-wide K chunks (the down projection)."""
+    than ``CHUNKS_IN_FLIGHT`` 32-wide K chunks (the down projection).
+
+    With ``experts`` the grid repeats per expert (``m_o`` is one expert's):
+    the blocks of every expert cover the SMs together, so an expert of one
+    m_r tile (a flat step's capacity) takes the largest block and no
+    split."""
     rows_ok = [r for r in ROWS if n_r % r == 0]
     best = None
     for tm in range(1, max(1, min(m_o, MAX_COLS // m_r)) + 1):
         groups = _ceil_div(m_o, tm)
         for rows in rows_ok:
             slices = n_o * (n_r // rows)
-            if slices * groups >= sm_count:
+            if slices * groups * experts >= sm_count:
                 key = (rows * tm, tm)
                 if best is None or key > best[0]:
                     best = (key, rows, tm, slices, groups, 1)
@@ -166,26 +177,33 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     optional bias_pack [N_o, n_r] -> C_pack [..., M_o, N_o, m_r, n_r] in
     a_pack's dtype; with ``unpack_to=(m, n)``, C [..., m, n] (what
     ``unpack_ref`` makes of C_pack) from the same launch.  Leading dims
-    fold into M_o."""
+    fold into M_o.  Expert-batched: a_pack [E, M_o, K_o, m_r, k_r], b_pack
+    [E, N_o, K_o, n_r, k_r], bias_pack [E, N_o, n_r] -> C_pack [E, M_o,
+    N_o, m_r, n_r] (or C [E, m, n])."""
     if activation not in ACTIVATION_CODES:
         raise ValueError(f"mmt4d: activation {activation!r} not in "
                          f"{list(ACTIVATION_CODES)}")
-    if a_pack.ndim < 4 or b_pack.ndim != 4 \
-            or a_pack.shape[-3] != b_pack.shape[1] \
-            or a_pack.shape[-1] != b_pack.shape[3]:
+    experts = b_pack.shape[0] if b_pack.ndim == 5 else None
+    if a_pack.ndim < 4 or b_pack.ndim not in (4, 5) \
+            or (experts is not None and (a_pack.ndim != 5
+                                         or a_pack.shape[0] != experts)) \
+            or a_pack.shape[-3] != b_pack.shape[-3] \
+            or a_pack.shape[-1] != b_pack.shape[-1]:
         raise ValueError(f"mmt4d: shapes {tuple(a_pack.shape)} x "
                          f"{tuple(b_pack.shape)} do not contract")
     *lead, mo_b, k_o, m_r, k_r = a_pack.shape
-    n_o, _, n_r, _ = b_pack.shape
-    if bias_pack is not None and tuple(bias_pack.shape) != (n_o, n_r):
+    n_o, _, n_r, _ = b_pack.shape[-4:]
+    want_bias = (n_o, n_r) if experts is None else (experts, n_o, n_r)
+    if bias_pack is not None and tuple(bias_pack.shape) != want_bias:
         raise ValueError(f"mmt4d: bias {tuple(bias_pack.shape)} is not "
-                         f"({n_o}, {n_r})")
+                         f"{want_bias}")
     if unpack_to is not None and not (0 <= unpack_to[0] <= mo_b * m_r
                                       and 0 < unpack_to[1] <= n_o * n_r):
         raise ValueError(f"mmt4d: unpack_to {unpack_to} outside the packed "
                          f"extent ({mo_b * m_r}, {n_o * n_r})")
     if a_pack.device.type == "cpu":
-        out = mmt4d_ref(a_pack.reshape(-1, k_o, m_r, k_r), b_pack, bias_pack,
+        a_ref = a_pack if experts is not None else a_pack.reshape(-1, k_o, m_r, k_r)
+        out = mmt4d_ref(a_ref, b_pack, bias_pack,
                         activation=activation).reshape(*lead, mo_b, n_o, m_r, n_r)
         return out if unpack_to is None else unpack_ref(out, *unpack_to)
     extra = () if bias_pack is None else (bias_pack,)
@@ -203,7 +221,8 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
                              f"k_r of 16, and K_o >= 1")
         if (a_pack.data_ptr() | b_pack.data_ptr()) % 16:
             raise ValueError("mmt4d: bfloat16 operands must start on 16 bytes")
-        s = pick_split(m_o, n_o, k_o, m_r, n_r, k_r, _sm_count(dev))
+        s = pick_split(mo_b if experts else m_o, n_o, k_o, m_r, n_r, k_r,
+                       _sm_count(dev), experts or 1)
         picks = (s.rows, s.tm, s.splits)
     if unpack_to is None:
         shape, extent = (*lead, mo_b, n_o, m_r, n_r), (0, 0, 0)
@@ -213,18 +232,21 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     rc = build.load_library().repro_mmt4d(
         a_pack.data_ptr(), b_pack.data_ptr(),
         None if bias_pack is None else bias_pack.data_ptr(), out.data_ptr(),
-        code, m_o, n_o, k_o, m_r, n_r, k_r, ACTIVATION_CODES[activation],
+        code, experts or 1, m_o, n_o, k_o, m_r, n_r, k_r,
+        ACTIVATION_CODES[activation],
         *picks, *extent, build.stream_of(a_pack))
     build.check(rc, "mmt4d")
     mmt4d.launches += 1
     mmt4d.unpacked_stores += unpack_to is not None
     mmt4d.bias_activation += bias_pack is not None and activation is not None
+    mmt4d.expert_batched += experts is not None
     return out
 
 
 mmt4d.launches = 0
 mmt4d.unpacked_stores = 0     # launches that wrote C unpacked
 mmt4d.bias_activation = 0     # launches whose epilogue adds a bias, then activates
+mmt4d.expert_batched = 0      # launches over an expert-batched B_pack [E, ...]
 
 
 # ---------------------------------------------------------------- gradients

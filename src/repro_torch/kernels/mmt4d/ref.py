@@ -49,12 +49,46 @@ def mmt4d_ref(a_pack: torch.Tensor, b_pack: torch.Tensor,
               bias_pack: Optional[torch.Tensor] = None, *,
               activation: Optional[str] = None) -> torch.Tensor:
     """C_pack[m_o,n_o] = act(sum_k A_pack[m_o,k] @ B_pack[n_o,k]^T + bias),
-    float32 accumulation and epilogue, one cast to A's dtype."""
+    float32 accumulation and epilogue, one cast to A's dtype.  With an
+    expert dim (a_pack [E, M_o, K_o, m_r, k_r], b_pack [E, N_o, K_o, n_r,
+    k_r], bias_pack [E, N_o, n_r]) each expert's product, C_pack [E, M_o,
+    N_o, m_r, n_r]."""
     acc = acc_dtype(a_pack.dtype)
+    if b_pack.ndim == 5:
+        return _experts_ref(a_pack, b_pack, bias_pack, activation, acc)
     out = torch.einsum("mkab,nkcb->mnac", a_pack.to(acc), b_pack.to(acc))
     if bias_pack is not None:
         out = out + bias_pack[None, :, None, :].to(acc)
     return ACTIVATIONS[activation](out).to(a_pack.dtype)
+
+
+def _experts_ref(a_pack, b_pack, bias_pack, activation, acc):
+    """The expert-batched product, one K tile at a time: each tile's
+    [E * N_o, n_r, k_r] slice of B is a strided view, so the weights (up to
+    gigabytes a leaf) are never copied whole, as an einsum over the packed
+    dims would.  Without a bias an expert whose rows of A are all zero
+    (no token dispatched to it) gives zeros, as every activation maps 0
+    to 0, and is skipped: a serving step routes its few tokens to a few
+    of the experts, and the plain path need not read the others' weights."""
+    e, m_o, k_o, m_r, k_r = a_pack.shape
+    n_o, n_r = b_pack.shape[1], b_pack.shape[3]
+    out = torch.zeros((e, n_o, m_o * m_r, n_r), dtype=acc, device=a_pack.device)
+    live = slice(None)                     # a view: B read in place
+    if bias_pack is None:
+        idx = torch.nonzero(a_pack.reshape(e, -1).any(dim=1))[:, 0]
+        if len(idx) < e:
+            live = idx
+    a = a_pack[live].to(acc).permute(0, 2, 1, 3, 4)
+    a = a.reshape(a.shape[0], k_o, 1, m_o * m_r, k_r)
+    part = out[live]
+    for ko in range(k_o):
+        part += torch.matmul(a[:, ko],
+                             b_pack[live, :, ko].to(acc).transpose(-1, -2))
+    out[live] = part
+    out = out.reshape(e, n_o, m_o, m_r, n_r).permute(0, 2, 1, 3, 4)
+    if bias_pack is not None:
+        out = out + bias_pack[:, None, :, None, :].to(acc)
+    return ACTIVATIONS[activation](out).to(a_pack.dtype).contiguous()
 
 
 def dz_ref(dy: torch.Tensor, z: Optional[torch.Tensor],

@@ -82,7 +82,7 @@ def launch(ap, bp, picks):
     out = torch.empty((m_o, n_o, m_r, n_r), dtype=ap.dtype, device=ap.device)
     build.check(build.load_library().repro_mmt4d(
         ap.data_ptr(), bp.data_ptr(), None, out.data_ptr(),
-        build.DTYPE_CODES[ap.dtype], m_o, n_o, k_o, m_r, n_r, k_r, 0, *picks,
+        build.DTYPE_CODES[ap.dtype], 1, m_o, n_o, k_o, m_r, n_r, k_r, 0, *picks,
         build.stream_of(ap)), "mmt4d")
     return out
 

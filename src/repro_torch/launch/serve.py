@@ -11,9 +11,13 @@ Weights are random, drawn from ``--seed``.  The family:
 - ``--chunk-tokens C``: the flat token-level step;
 - ``--chunk-tokens C --no-flat``: the dense chunked ``[slots, s]`` step.
 
-``--arch`` takes every registered architecture the port has a model of
-(the dense, vlm, encdec and ssm families: every one without MoE);
-``--layers`` cuts its depth.  A recurrent model (``--arch rwkv6-1.6b``)
+``--arch`` takes every registered architecture the port serves (the
+dense, vlm, encdec, ssm and moe families; jamba, a hybrid with moe
+layers, is refused until its selective-scan kernel, ROADMAP B9);
+``--layers`` cuts its depth (no moe config fits one card whole:
+``--arch qwen3-moe-235b-a22b --layers 8``, ``--arch arctic-480b --layers
+1``).  A moe model prints the drain's dropped fraction (of the real
+tokens' assignments: ``moe.DropCounter``).  A recurrent model (``--arch rwkv6-1.6b``)
 is served by the monolithic step only: ``--chunk-tokens`` raises, with
 the engine's reason.  Its prompts prefill at exact lengths, each length
 making its program (on the card, its graph) at its first prefill, so the
@@ -43,7 +47,9 @@ first: on the card it captures one CUDA graph per step shape, and every
 step of the drain replays one.
 
 Weights are drawn on the device the model runs on (a card's own
-generator, so a model of billions of parameters starts in seconds).
+generator, so a model of billions of parameters starts in seconds) and
+packed as they are drawn (``prepack_params(..., consume=True)``), so the
+unpacked and the packed weights never fill the card side by side.
 
 Usage (on a machine with a CUDA card; ``--device cpu`` runs the kernels'
 plain versions instead):
@@ -52,6 +58,8 @@ plain versions instead):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --layers 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
+        --layers 8 --chunk-tokens 128
     REPRO_HW=h100_vl512 PYTHONPATH=src python -m repro_torch.launch.serve \
         --chunk-tokens 128 --policy fixed
 ``--profile trace.json`` traces the drain with ``torch.profiler`` and
@@ -73,12 +81,24 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import (ARCHS, RunConfig, ShapeSpec, get_config,
                                  reduced_config)
+from repro_torch.core.linear import prepack_params
 from repro_torch.models.model import build_model
+from repro_torch.models.moe import DropCounter
 from repro_torch.serving.engine import Engine
 
-# the architectures the port has a model of: all but the moe family (and
-# jamba, a hybrid with MoE), which wait in ROADMAP B3 and A8b
-SERVABLE = [a for a in ARCHS if not get_config(a).moe]
+
+def refusal(arch: str):
+    """Why the launcher does not serve ``arch``, or None."""
+    cfg = get_config(arch)
+    if cfg.moe and "mamba" in cfg.layer_types:
+        return (f"{arch} is not served yet: jamba whole waits for the "
+                f"selective-scan kernel (ROADMAP B9); its mamba mixer and moe "
+                f"layers run in the tests")
+    return None
+
+
+# the architectures the launcher serves: every one but jamba (B9)
+SERVABLE = [a for a in ARCHS if refusal(a) is None]
 
 
 def describe_hw(model) -> str:
@@ -221,7 +241,7 @@ def serve_static(model, params, args) -> np.ndarray:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm2-135m", choices=SERVABLE)
+    ap.add_argument("--arch", default="smollm2-135m", choices=ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers")
@@ -263,6 +283,8 @@ def main(argv=None):
         ap.error("--profile measures the card's device time: it needs "
                  "--device cuda")
 
+    if refusal(args.arch):
+        ap.error(refusal(args.arch))
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg, layers=args.layers)
@@ -273,7 +295,9 @@ def main(argv=None):
     model = build_model(cfg, run, ShapeSpec("serve", args.max_len, args.slots,
                                             "decode"), device=args.device)
     print(f"[serve] {describe_hw(model)}")
-    params = model.init(torch.Generator(device=model.device).manual_seed(args.seed))
+    params = prepack_params(
+        model.init(torch.Generator(device=model.device).manual_seed(args.seed)),
+        model.ctx, consume=True)
     if args.static or cfg.family in ("encdec", "vlm"):
         return serve_static(model, params, args)
     engine = Engine(model, params, device=args.device, max_slots=args.slots,
@@ -283,6 +307,7 @@ def main(argv=None):
     family = ("flat" if engine.flat else "dense chunked" if engine.chunked
               else "monolithic")
     cuda = engine.device.type == "cuda"
+    drops = DropCounter(engine.device).install() if cfg.moe else None
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -319,6 +344,8 @@ def main(argv=None):
         engine.add_request(p, args.new)
     steps0 = engine.stats()["steps"]
     kernels.reset_launch_counts()
+    if drops is not None:
+        drops.reset()
     if args.profile:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -341,6 +368,12 @@ def main(argv=None):
           f"(paged KV: {engine.pool.page_tokens} tok/page, "
           f"{engine.pool.num_pages} pages, peak {engine.pool.peak_used} used, "
           f"{engine.num_preemptions} preemptions)")
+    if drops is not None:
+        print(f"[serve] moe: {cfg.n_experts} experts, top-{cfg.top_k}, "
+              f"capacity factor {cfg.capacity_factor}; the drain dropped "
+              f"{drops.dropped_frac():.6f} of its real tokens' routed "
+              f"assignments")
+        drops.uninstall()
     for r in sorted(finished, key=lambda r: r.rid)[:8]:
         print(f"  rid={r.rid} prompt={r.prompt_len:>3} new={len(r.out_tokens):>3} "
               f"[{r.finish_reason}] {r.out_tokens[:8]}")

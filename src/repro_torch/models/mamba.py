@@ -109,6 +109,12 @@ def _ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
     return torch.stack(hs, 1)
 
 
+def _delta(params: dict, dt: torch.Tensor) -> torch.Tensor:
+    """The step size ``softplus(dt @ dt_proj.w + dt_proj.b)``, a plain
+    float32 product."""
+    return F.softplus(dt.float() @ params["w"].float() + params["b"])
+
+
 def mamba_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
                 *, cache: Optional[dict] = None):
     """x: the stream [B, S, d].  Returns (out [B, S, d], cache), the cache
@@ -129,8 +135,7 @@ def mamba_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
 
     proj = linear_apply(params["x_proj"], x_c, ctx)
     dt, b_ssm, c_ssm = proj.split([dt_rank, n, n], dim=-1)
-    delta = F.softplus(dt.float() @ params["dt_proj"]["w"].float()
-                       + params["dt_proj"]["b"])                 # [B,S,di]
+    delta = _delta(params["dt_proj"], dt)                        # [B,S,di]
     a = -torch.exp(params["a_log"])                              # [di,N]
     da = torch.exp(delta[..., None] * a)                         # [B,S,di,N]
     dbx = (delta[..., None] * b_ssm[:, :, None, :].float()

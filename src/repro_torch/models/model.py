@@ -1,7 +1,8 @@
 """Model facade: init, the full-sequence forward and the loss (training),
 the serving steps, and their compiled forms, for the dense, vlm (a stub
-vision prefix, as in the JAX package), encdec (whisper), ssm (RWKV-6) and
-hybrid (mamba beside attention; jamba without its MoE) families.
+vision prefix, as in the JAX package), encdec (whisper), ssm (RWKV-6),
+moe (qwen3-moe, arctic) and hybrid (mamba beside attention, jamba's moe
+layers) families.
 
 The port's ``ReproModel`` serves continuous batching through
 ``paged_decode_step`` (the dense chunked and monolithic engine steps) and
@@ -161,12 +162,19 @@ class ReproModel:
     def loss(self, params: dict, batch: dict):
         """(loss, metrics): next-token cross-entropy of ``batch["labels"]``
         plus the z-loss (``run.z_loss``); metrics {"nll", "z_loss", "loss"}.
-        The vlm family's vision positions carry no label."""
-        logits, _ = self.forward(params, batch)
+        The vlm family's vision positions carry no label.  A moe model adds
+        ``router_aux_weight`` x the load balance and ``router_z_weight`` x
+        the router z-loss, its aux losses (and ``dropped_frac``) among the
+        metrics."""
+        logits, aux = self.forward(params, batch)
         if self.cfg.family == "vlm":
             logits = logits[:, self.cfg.vision_tokens:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         loss, metrics = _xent(logits, labels, self.run.z_loss)
+        if self.cfg.moe:
+            loss = (loss + self.cfg.router_aux_weight * aux["load_balance"]
+                    + self.cfg.router_z_weight * aux["router_z"])
+            metrics.update(aux)
         metrics["loss"] = loss
         return loss, metrics
 

@@ -99,6 +99,20 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([prev, x[:, :-1]], dim=1)
 
 
+def _decay(params: dict, xw: torch.Tensor) -> torch.Tensor:
+    """The per-channel decay ``exp(-exp(w0 + tanh(xw @ w_a) @ w_b))`` in
+    float32 (the LoRA a plain float32 product)."""
+    lora = torch.tanh(xw.float() @ params["w_a"]) @ params["w_b"]
+    return torch.exp(-torch.exp(params["w0"] + lora))
+
+
+def _group_norm(y: torch.Tensor) -> torch.Tensor:
+    """Per-head normalisation of y [..., dh] (no gain)."""
+    mean = y.mean(-1, keepdim=True)
+    var = ((y - mean) ** 2).mean(-1, keepdim=True)
+    return (y - mean) * torch.rsqrt(var + 1e-5)
+
+
 def rwkv_tm_apply(params: dict, x: Stream, ctx: MatmulContext,
                   cfg: ModelConfig, *, cache: Optional[dict] = None):
     """Time-mix over x [B, S, d] (a tensor or the packed stream).  Returns
@@ -117,8 +131,7 @@ def rwkv_tm_apply(params: dict, x: Stream, ctx: MatmulContext,
     v = linear_apply(params["wv"], xv, ctx).reshape(b, s, h, dh)
     g = F.silu(linear_apply(params["wg"], xg, ctx))
 
-    lora = torch.tanh(xw.float() @ params["w_a"]) @ params["w_b"]
-    w = torch.exp(-torch.exp(params["w0"] + lora)).reshape(b, s, h, dh)
+    w = _decay(params, xw).reshape(b, s, h, dh)
 
     if cache is None:
         s0 = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=xu.device)
@@ -128,11 +141,7 @@ def rwkv_tm_apply(params: dict, x: Stream, ctx: MatmulContext,
                     cache["state"], state_out=cache["state"])
         cache["tm_shift"].copy_(xu[:, -1])
 
-    # per-head group norm, then the gate
-    mean = y.mean(-1, keepdim=True)
-    var = ((y - mean) ** 2).mean(-1, keepdim=True)
-    y = (y - mean) * torch.rsqrt(var + 1e-5)
-    y = (y.reshape(b, s, d) * params["ln_g"]).to(xu.dtype) * g
+    y = (_group_norm(y).reshape(b, s, d) * params["ln_g"]).to(xu.dtype) * g
     return linear_apply(params["wo"], y, ctx), cache
 
 

@@ -7,8 +7,10 @@ the groups, the port runs a Python loop over the leading dim (each leaf
 unbound once per call, so the gradient of the stack is one stack of the
 groups' gradients).  A block's mixer follows ``cfg.layer_types``:
 attention, mamba (``models/mamba.py``) or RWKV-6's time-mix
-(``models/rwkv6.py``, whose block takes the channel-mix as its FFN); the
-other blocks take the dense MLP.  The moe family is not ported yet.
+(``models/rwkv6.py``, whose block takes the channel-mix as its FFN); its
+FFN is the moe layer (``models/moe.py``) where ``cfg.moe_on_layer(pos)``,
+else the dense MLP.  The moe layers' aux losses are summed over the
+layers in the train/prefill mode, as in the JAX package.
 Modes: train/prefill (no cache, causal or bidirectional), the dense-cache
 decode with whisper's cross-attention, and the two paged serving modes.
 A recurrent mixer's cache is per-row state (``[G, rows, ...]``), beside
@@ -28,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
 from repro_torch.core.propagation import PackedArray
-from repro_torch.models import attention, mamba, rwkv6
+from repro_torch.models import attention, mamba, moe, rwkv6
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (Stream, embed_init, maybe_pack,
                                        maybe_unpack, norm_apply, norm_init,
@@ -38,7 +40,8 @@ __all__ = ["pattern_period", "block_init", "block_apply", "layers_init",
            "layers_apply", "lm_init", "lm_apply", "logits_apply",
            "init_layer_caches", "init_paged_caches", "tree_map", "AUX_ZERO"]
 
-# the aux losses of the MoE family, zero for every other family
+# the aux losses of the MoE family, zero for every other family (and in the
+# serving modes, as in the JAX package)
 AUX_ZERO = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
 
 
@@ -60,21 +63,12 @@ def pattern_period(cfg: ModelConfig) -> int:
     return p
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for a family the port has no model of yet, naming the
-    ROADMAP items that bring it."""
-    if cfg.moe:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}, layers "
-                                  f"{sorted(set(cfg.layer_types))}) needs the "
-                                  f"moe family (ROADMAP B3, then A8b moe), "
-                                  f"not ported yet")
-
-
 def block_init(generator: torch.Generator, cfg: ModelConfig, pos: int,
                dtype: torch.dtype, *, cross: bool = False) -> dict:
     """The block at pattern position ``pos``: its mixer by
-    ``cfg.layer_types[pos]``; an rwkv block takes the channel-mix as its
-    FFN, every other block the MLP.  ``cross`` adds whisper's decoder
+    ``cfg.layer_types[pos]``; its FFN the moe layer where
+    ``cfg.moe_on_layer(pos)``, else RWKV-6's channel-mix in an rwkv block
+    and the MLP in every other.  ``cross`` adds whisper's decoder
     cross-attention (``ln_c`` and ``cross``).  The encdec family's MLPs
     carry biases."""
     t = cfg.layer_types[pos]
@@ -86,7 +80,9 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, pos: int,
         p["ln_c"] = norm_init(cfg.norm, cfg.d_model, dtype)
         p["cross"] = attention.attn_init(generator, cfg, dtype)
     p["ln2"] = norm_init(cfg.norm, cfg.d_model, dtype)
-    if t == "rwkv":
+    if cfg.moe_on_layer(pos):
+        p["ffn"] = moe.moe_init(generator, cfg, dtype)
+    elif t == "rwkv":
         p["ffn"] = rwkv6.rwkv_cm_init(generator, cfg, dtype)
     else:
         p["ffn"] = mlp_mod.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg,
@@ -111,7 +107,8 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
                 cross_kv: Optional[dict] = None,
                 paged: Optional[dict] = None):
     """Pre-norm residual block at pattern position ``pos``.  Returns (x',
-    cache); no cache (None) in the train/prefill mode.  The cache of an
+    cache, aux); no cache (None) in the train/prefill mode; ``aux`` the
+    moe layer's aux losses (:data:`AUX_ZERO` for another FFN).  The cache of an
     attention block is {"kv": ...}, of a mamba block {"mamba": {"conv",
     "ssm"}}, of an rwkv block {"tm_shift", "cm_shift", "state"}; each is
     updated in place.  A block with ``cross`` attends over the
@@ -150,28 +147,44 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
                 kv_source=enc_out, keep_packed=keep)
         x = stream_add(x, _as_stream_like(out, x, ctx))
     h2 = norm_apply(p["ln2"], x, cfg.norm)
-    if t == "rwkv":
+    aux = AUX_ZERO
+    if cfg.moe_on_layer(pos):
+        out2, aux = moe.moe_apply(p["ffn"], h2, ctx, cfg, paged=paged)
+    elif t == "rwkv":
         out2, _ = rwkv6.rwkv_cm_apply(p["ffn"], h2, ctx, cfg, cache=cache)
     else:
         out2 = mlp_mod.mlp_apply(p["ffn"], h2, ctx, cfg, keep_packed=keep)
     x = stream_add(x, _as_stream_like(out2, x, ctx))
-    return x, cache
+    return x, cache, aux
 
 
 def layers_init(generator: torch.Generator, cfg: ModelConfig,
                 dtype: torch.dtype, *, cross: bool = False) -> dict:
-    """Stacked ``{"p<i>": block}`` groups, every leaf ``[G, ...]``."""
+    """Stacked ``{"p<i>": block}`` groups, every leaf ``[G, ...]``, drawn
+    group by group and copied into the stack as each is drawn, so the
+    memory peak is the stack and one group (a single group is the stack,
+    no copy): a moe model's layers fill most of the card."""
     period = pattern_period(cfg)
-    groups = [{f"p{i}": block_init(generator, cfg, i, dtype, cross=cross)
-               for i in range(period)}
-              for _ in range(cfg.n_layers // period)]
+    n = cfg.n_layers // period
 
-    def stack(*leaves):
-        if isinstance(leaves[0], dict):
-            return {k: stack(*(l[k] for l in leaves)) for k in leaves[0]}
-        return torch.stack(leaves)
+    def put(dst, src, g):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, g)
+            else:
+                dst[k][g].copy_(v)
 
-    return stack(*groups)
+    stacked = None
+    for g in range(n):
+        group = {f"p{i}": block_init(generator, cfg, i, dtype, cross=cross)
+                 for i in range(period)}
+        if n == 1:
+            return tree_map(lambda t: t[None], group)
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((n, *t.shape)), group)
+        put(stacked, group, g)
+        del group
+    return stacked
 
 
 def _stacked_caches(cfg: ModelConfig, kv, rows: int, dtype: torch.dtype,
@@ -180,7 +193,6 @@ def _stacked_caches(cfg: ModelConfig, kv, rows: int, dtype: torch.dtype,
     an attention slot, the per-row state of ``rows`` rows for a recurrent
     one (mamba's {"mamba": {"conv", "ssm"}}, RWKV-6's {"tm_shift",
     "cm_shift", "state"})."""
-    _check_ported(cfg)
     period = pattern_period(cfg)
     meta = torch.device("meta")       # shapes and dtypes only
 
@@ -238,11 +250,14 @@ def _group(tree, g: int):
 
 def _apply_group(x: Stream, gp: dict, ctx: MatmulContext, cfg: ModelConfig,
                  positions: torch.Tensor, causal: bool,
-                 enc_out: Optional[torch.Tensor]) -> Stream:
+                 enc_out: Optional[torch.Tensor]):
+    """(x', the group's aux losses summed over its blocks)."""
+    aux = dict(AUX_ZERO)
     for i in range(pattern_period(cfg)):
-        x, _ = block_apply(gp[f"p{i}"], x, ctx, cfg, i, positions=positions,
-                           causal=causal, enc_out=enc_out)
-    return x
+        x, _, a = block_apply(gp[f"p{i}"], x, ctx, cfg, i, positions=positions,
+                              causal=causal, enc_out=enc_out)
+        aux = {k: aux[k] + a[k] for k in aux}
+    return x, aux
 
 
 def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
@@ -251,7 +266,8 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
                  cache_pos: Optional[torch.Tensor] = None,
                  enc_out: Optional[torch.Tensor] = None,
                  cross_kv: Optional[dict] = None,
-                 paged: Optional[dict] = None, remat: bool = False) -> Stream:
+                 paged: Optional[dict] = None, remat: bool = False,
+                 aux: Optional[dict] = None) -> Stream:
     """Run every group in order.
 
     - train/prefill (``caches`` None): causal unless ``causal=False`` (an
@@ -259,7 +275,8 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
       blocks; ``remat`` recomputes each group's forward on the backward
       pass (``torch.utils.checkpoint``, where the JAX package wraps its
       scan body in ``jax.checkpoint``), so only the stream between groups
-      is kept;
+      is kept; ``aux`` (a dict of the :data:`AUX_ZERO` keys), when given,
+      has each group's moe aux losses added to it;
     - dense-cache decode (``caches`` from :func:`init_layer_caches`,
       ``cache_pos`` a 0-d device tensor) and the paged steps: the caches
       are written in place (each group's slice is a view); whisper's
@@ -272,11 +289,15 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
             if remat:
                 # the forward draws no random numbers, and a CUDA graph
                 # capture may not read the generator's state
-                x = checkpoint(_apply_group, x, gp, ctx, cfg, positions,
-                               causal, enc_out, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux_g = checkpoint(_apply_group, x, gp, ctx, cfg, positions,
+                                      causal, enc_out, use_reentrant=False,
+                                      preserve_rng_state=False)
             else:
-                x = _apply_group(x, gp, ctx, cfg, positions, causal, enc_out)
+                x, aux_g = _apply_group(x, gp, ctx, cfg, positions, causal,
+                                        enc_out)
+            if aux is not None:
+                for k in aux:
+                    aux[k] = aux[k] + aux_g[k]
         return x
     for g in range(cfg.n_layers // period):
         for i in range(period):
@@ -284,14 +305,13 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
             gc = tree_map(lambda t: t[g], caches[f"p{i}"])
             gkv = (None if cross_kv is None
                    else tree_map(lambda t: t[g], cross_kv[f"p{i}"]))
-            x, _ = block_apply(gp, x, ctx, cfg, i, positions=positions,
+            x, _, _ = block_apply(gp, x, ctx, cfg, i, positions=positions,
                                causal=causal, cache=gc, cache_pos=cache_pos,
                                cross_kv=gkv, paged=paged)
     return x
 
 
 def lm_init(generator: torch.Generator, cfg: ModelConfig, run: RunConfig) -> dict:
-    _check_ported(cfg)
     dtype = getattr(torch, run.param_dtype)
     p = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, dtype),
          "groups": layers_init(generator, cfg, dtype),
@@ -325,13 +345,16 @@ def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
     [B, 1, V] for the last position with ``last_only`` (serving prefill);
     or [B, K, V] at the per-row positions ``logits_at`` ([B] or [B, K]).
     ``caches`` is None in the train/prefill mode and the same object,
-    updated in place, in the dense-cache (``cache_pos``) and paged modes; ``aux`` is :data:`AUX_ZERO` (the
-    dense family has no aux loss).  ``run.remat`` recomputes each layer
+    updated in place, in the dense-cache (``cache_pos``) and paged modes; ``aux`` the moe layers'
+    aux losses summed over the layers in the train/prefill mode, else
+    :data:`AUX_ZERO` (as in the JAX package).  ``run.remat`` recomputes each layer
     group's forward on the backward pass (train mode)."""
     x: Stream = maybe_pack(embeds, ctx)
+    aux = dict(AUX_ZERO)
     x = layers_apply(params["groups"], x, ctx, cfg, positions=positions,
                      caches=caches, cache_pos=cache_pos, paged=paged,
-                     remat=caches is None and run.remat)
+                     remat=caches is None and run.remat,
+                     aux=aux if caches is None else None)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     if logits_at is not None:
         idx = (logits_at if logits_at.ndim == 2 else logits_at[:, None]).long()
@@ -340,4 +363,4 @@ def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
         x = maybe_pack(xu[rows, idx], ctx)
     elif last_only:
         x = maybe_pack(maybe_unpack(x)[:, -1:, :], ctx)
-    return logits_apply(params, x, ctx, cfg), caches, dict(AUX_ZERO)
+    return logits_apply(params, x, ctx, cfg), caches, aux

@@ -30,7 +30,7 @@ and the channel-mix's r, k, v) and ``head = ru(vocab, n_r)·ru(d, k_r)``:
                          M = B·ru(S, m_r)   R = B·ru(1, m_r)       P = B·S
     chunk[B,S]/verify, verify[B,K]: as the base shape, but R = B·ru(K, m_r)
 
-    flops = 2·M·lin + 2·R·head + 4·P·Hq·dh·win·L_a + P·rec
+    flops = 2·M·lin + 2·R·head + 4·P·Hq·dh·win·L_a + P·rec + moe
 
 — every packed linear over its padded tiles, the head (tied or not: the
 same ``[d, vocab]`` product) over the ``R`` gathered rows, attention over
@@ -39,10 +39,17 @@ unpadded: RWKV-6's decay LoRA (``2·2·d·64``, a plain float32 product)
 and its recurrence (``4·H·dh²``: the read-out and the state update, two
 multiply-adds per state element); mamba's ``dt_proj`` (``2·dt_rank·di``),
 its convolution (``2·d_conv·di``) and its scan (``4·di·N``: update and
-read-out).  Without recurrent layers this is the dot-FLOP count XLA
+read-out).  A moe layer's FFN (``cfg.moe_on_layer``) is no MLP in
+``lin``: with ``C = capacity(P)`` (every token of the step routes, pads
+included) its term is ``moe = 2·E·ru(C, m_r)·Σ ru(K, k_r)·ru(N, n_r)``
+over the expert linears (gate, up, down of ``d x d_ff_expert``: every
+expert's capacity-padded rows, as the dispatch runs them) plus the
+router's ``2·P·d·E`` (a plain float32 product), and arctic's parallel
+dense MLP joins ``lin``.  Without recurrent layers this is the dot-FLOP count XLA
 reports for the JAX package's families, to the FLOP
-(``tests/test_torch_attrib.py`` holds the two equal, for SmolLM2 and for
-Qwen2-7B's QKV bias and Qwen3-8B's qk_norm and untied head); with them,
+(``tests/test_torch_attrib.py`` holds the two equal, for SmolLM2, for
+Qwen2-7B's QKV bias and Qwen3-8B's qk_norm and untied head, and for
+qwen3-moe's and arctic's expert products); with them,
 XLA's count is the port's less the parts that are no dot: the
 recurrences' state updates and mamba's convolution (ROADMAP C8).  A
 bias, a norm (RWKV-6's group norm included) and the qk-norm are no dots,
@@ -53,14 +60,16 @@ in either package.
 **Bytes** are the port's own count, not the JAX package's:
 
     hbm_bytes = itemsize(compute dtype)·(lin + head)       packed weights
+              + itemsize·E·Σ ru(K, k_r)·ru(N, n_r)        every expert
               + plain                                      unpacked products
               + rows·win·kv_page_bytes_per_token           KV gather
               + 2·rows·state_bytes_per_row                 recurrent state
               + 4·R·vocab                                  float32 logits
 
 — each prepacked weight read once per step (the tied head's packed table
-included), the weights of the plain products (RWKV-6's float32 LoRA,
-mamba's ``dt_proj``), the KV pages of every gathering row's window
+included; every expert's, since the capacity dispatch runs every
+expert), the weights of the plain products (RWKV-6's float32 LoRA,
+mamba's ``dt_proj``, the float32 router), the KV pages of every gathering row's window
 (``rows`` = the slots for a flat step, ``B`` otherwise), each row's
 recurrent state read and written once, and the float32 logits of the
 ``R`` gathered rows.  XLA's byte count depends on how it fuses a step (it
@@ -186,11 +195,15 @@ def state_bytes_per_row(caches, slots: int) -> float:
     return caches.numel() * caches.element_size() / slots
 
 
-def _layer_costs(cfg, t: str, itemsize: int) -> tuple:
+def _layer_costs(cfg, t: str, itemsize: int, moe_layer: bool = False) -> tuple:
     """(the packed linears [(K, N)], recurrent FLOPs per token, bytes of
-    the plain products' weights) of one layer of type ``t``."""
+    the plain products' weights) of one layer of type ``t``; a moe layer's
+    (``moe_layer``) linears hold arctic's dense branch and not the MLP
+    (its experts and router: :func:`_expert_costs`)."""
     d, f = cfg.d_model, cfg.d_ff
     mlp = [(d, f), (f, d)] + ([(d, f)] if cfg.glu else [])
+    if moe_layer and not cfg.dense_residual:
+        mlp = []
     if t == "rwkv":
         h, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
         lora = 64                             # models/rwkv6.py:_DECAY_LORA
@@ -207,6 +220,12 @@ def _layer_costs(cfg, t: str, itemsize: int) -> tuple:
             0, 0)
 
 
+def _expert_costs(cfg) -> list:
+    """One expert's linears [(K, N)] (gate, up, down)."""
+    d, f = cfg.d_model, cfg.d_ff_expert
+    return [(d, f), (f, d)] + ([(d, f)] if cfg.glu else [])
+
+
 def build_cost_model(engine, hw=None) -> StepCostModel:
     """Price every step family of ``engine`` against ``hw`` (default:
     :func:`repro_torch.core.hardware.query` of the engine's device; on the
@@ -216,6 +235,7 @@ def build_cost_model(engine, hw=None) -> StepCostModel:
     step."""
     from repro_torch.analysis.shapes import step_families
     from repro_torch.core.hardware import query
+    from repro_torch.models.moe import capacity
 
     if hw is None:
         own = "h100" if engine.device.type == "cuda" else None
@@ -226,17 +246,23 @@ def build_cost_model(engine, hw=None) -> StepCostModel:
     layout = model.ctx.layout(dtype)
     m_r, n_r, k_r = layout.m_r, layout.n_r, layout.k_r
     lin = rec = plain = 0
-    for t in cfg.layer_types:
-        mats, r, b = _layer_costs(cfg, t, dtype.itemsize)
+    n_moe = 0
+    for i, t in enumerate(cfg.layer_types):
+        mats, r, b = _layer_costs(cfg, t, dtype.itemsize, cfg.moe_on_layer(i))
         lin += sum(round_up(k, k_r) * round_up(n, n_r) for k, n in mats)
         rec, plain = rec + r, plain + b
+        n_moe += cfg.moe_on_layer(i)
+    e = cfg.n_experts
+    expert = n_moe * e * sum(round_up(k, k_r) * round_up(n, n_r)
+                             for k, n in _expert_costs(cfg)) if n_moe else 0
+    plain += 4 * n_moe * cfg.d_model * e                     # the routers
     n_attn = cfg.layer_types.count("attn")
     head = round_up(cfg.vocab, n_r) * round_up(cfg.d_model, k_r)
     win = engine.max_pages * engine.pool.page_tokens
     kv_per_token = kv_page_bytes_per_token(
         engine.caches, engine.pool.num_pages, engine.pool.page_tokens)
     state_per_row = state_bytes_per_row(engine.caches, engine.slots)
-    weight_bytes = dtype.itemsize * (lin + head) + plain
+    weight_bytes = dtype.itemsize * (lin + head + expert) + plain
 
     families: Dict[str, FamilyCost] = {}
     for label, g in step_families(engine):
@@ -244,7 +270,9 @@ def build_cost_model(engine, hw=None) -> StepCostModel:
         r = (round_up(g.rows * g.logits, m_r) if g.kind == "flat"
              else g.batch * round_up(g.logits, m_r))
         p = g.batch * g.seq
-        flops = float(2 * m * lin + 2 * r * head + p * rec
+        moe = (2 * round_up(capacity(p, cfg), m_r) * expert
+               + 2 * p * cfg.d_model * e * n_moe) if n_moe else 0
+        flops = float(2 * m * lin + 2 * r * head + p * rec + moe
                       + 4 * p * cfg.n_heads * cfg.d_head * win * n_attn)
         gather = g.rows * win * kv_per_token
         nbytes = float(weight_bytes + gather + 2 * g.rows * state_per_row

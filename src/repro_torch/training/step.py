@@ -33,10 +33,16 @@ __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
 
 
 def require_trainable(cfg, device) -> None:
-    """Raise for a recurrent family on the card, naming it: RWKV-6's
-    recurrence is a kernel with no backward yet (ROADMAP B8), and the
-    mamba hybrids wait with it.  On the CPU every family trains through
-    the plain versions."""
+    """Raise for a moe model on any device, and for a recurrent family on
+    the card, naming each: the expert-batched product has no gradient
+    kernels yet (ROADMAP B11), RWKV-6's recurrence is a kernel with no
+    backward yet (ROADMAP B8), and the mamba hybrids wait with it.  On the
+    CPU every other family trains through the plain versions."""
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}, {cfg.n_experts} experts) does not "
+            f"train yet: the moe family trains with the expert-batched "
+            f"mmt4d's gradient kernels (ROADMAP B11)")
     recurrent = sorted(set(cfg.layer_types) - {"attn"})
     if recurrent and torch.device(device).type == "cuda":
         raise NotImplementedError(

@@ -200,6 +200,9 @@ COST_LAYOUTS = [("scalable", "tpu_vl512"), ("fixed", "tpu_vl512"),
 COST_ARCHS = ["qwen2-7b", "qwen3-8b"]
 # reduced RWKV-6 (2 layers), served by the monolithic family only
 COST_RECURRENT = ["rwkv6-1.6b"]
+# the moe family, reduced (2 layers): the capacity-padded expert products
+# and the router; arctic with its parallel dense branch
+COST_MOE = ["qwen3-moe-235b-a22b", "arctic-480b"]
 COST_CASES = [pytest.param(dt, grid, spec, None,
                            id=f"{dt}-{grid}-{'plain' if spec is None else 'spec'}")
               for dt in ("float32", "bfloat16") for grid in sorted(COST_GRIDS)
@@ -212,7 +215,13 @@ COST_CASES = [pytest.param(dt, grid, spec, None,
               for arch in COST_ARCHS for grid in sorted(COST_GRIDS)] + \
              [pytest.param(dt, "monolithic", None, ("scalable", "tpu_v5e", arch),
                            id=f"{dt}-monolithic-plain-{arch}")
-              for arch in COST_RECURRENT for dt in ("float32", "bfloat16")]
+              for arch in COST_RECURRENT for dt in ("float32", "bfloat16")] + \
+             [pytest.param("float32", grid, None, ("scalable", "tpu_v5e", arch),
+                           id=f"float32-{grid}-plain-{arch}")
+              for arch in COST_MOE for grid in sorted(COST_GRIDS)] + \
+             [pytest.param("float32", "flat", None, ("unpacked", "tpu_v5e", arch),
+                           id=f"float32-flat-plain-unpacked-{arch}")
+              for arch in COST_MOE]
 
 
 def _linears_missed_in_fusions(m, label: str) -> float:
@@ -220,15 +229,25 @@ def _linears_missed_in_fusions(m, label: str) -> float:
     one-token unpacked flat step: with no tile to pad M to, XLA fuses each
     [1, K] x [K, N] dot into a fusion, and the reference's HLO parser
     (``repro.roofline.hlo_cost.parse_hlo``) counts dots outside fusions
-    only (ROADMAP C6).  2 * L * sum(K * N), unpadded at m_r = 1."""
+    only (ROADMAP C6).  2 * L * sum(K * N), unpadded at m_r = 1.  A moe
+    layer's one-row dots are its router's [1, d] x [d, E] and arctic's
+    dense branch (its expert products run over the capacity's 8 rows)."""
     cfg, lay = m.cfg, m.ctx.layout(m.compute_dtype)
     if lay.m_r != 1 or label != "flat[1,1]/k1":
         return 0.0
     d, dh = cfg.d_model, cfg.d_head
-    mats = [(d, cfg.n_heads * dh), (d, cfg.n_kv_heads * dh),
-            (d, cfg.n_kv_heads * dh), (cfg.n_heads * dh, d), (d, cfg.d_ff),
-            (cfg.d_ff, d)] + ([(d, cfg.d_ff)] if cfg.glu else [])
-    return 2.0 * cfg.n_layers * sum(k * n for k, n in mats)
+    attn = [(d, cfg.n_heads * dh), (d, cfg.n_kv_heads * dh),
+            (d, cfg.n_kv_heads * dh), (cfg.n_heads * dh, d)]
+    mlp = [(d, cfg.d_ff), (cfg.d_ff, d)] + ([(d, cfg.d_ff)] if cfg.glu else [])
+    total = 0
+    for i in range(cfg.n_layers):
+        mats = attn
+        if not cfg.moe_on_layer(i):
+            mats = mats + mlp
+        else:
+            mats = mats + [(d, cfg.n_experts)] + (mlp if cfg.dense_residual else [])
+        total += sum(k * n for k, n in mats)
+    return 2.0 * total
 
 
 def _recurrent_work_not_dots(m, label: str) -> float:

@@ -4,8 +4,9 @@ against the JAX package.
 - Every architecture of the JAX package's registry (eleven) is in the
   port's, equal field for field, with equal ``param_counts``; the
   assigned list and the cell matrix are the reference's.
-- A family the port has no model of yet (moe, and jamba, a hybrid with
-  MoE) raises ``NotImplementedError`` naming its ROADMAP item.
+- What the port cannot do yet with the moe family (train it: expert
+  gradient kernels) raises ``NotImplementedError`` naming its ROADMAP
+  item; the models themselves build and init.
 - Qwen2-7B (QKV bias), Qwen3-8B (qk_norm, untied head), ChatGLM3-6B
   (partial 2d RoPE, QKV bias, group 16 cut to 4) and OLMo-1B
   (non-parametric LayerNorm, MHA, tied head) on ``reduced_config`` in
@@ -37,6 +38,7 @@ from repro.models.model import build_model as jbuild_model
 from repro.serving.engine import Engine as JEngine
 from repro_torch.configs import (ARCHS, ASSIGNED, RunConfig, ShapeSpec, cells,
                                  get_config, reduced_config)
+from repro_torch.models import transformer as tfm
 from repro_torch.models.common import apply_rope
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Engine
@@ -68,13 +70,17 @@ def test_registry_matches_reference():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("qwen3-moe-235b-a22b", "B3"), ("arctic-480b", "B3"),
-    ("jamba-v0.1-52b", "B3")])
+    ("qwen3-moe-235b-a22b", "B11"), ("arctic-480b", "B11"),
+    ("jamba-v0.1-52b", "B11")])
 def test_unported_family_raises_naming_its_item(arch, item):
-    m = build_model(reduced_config(get_config(arch)), RunConfig(**F32),
-                    ShapeSpec(*SHAPE), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        m.init(torch.Generator().manual_seed(0))
+    from repro_torch.training.step import require_trainable
+    cfg = reduced_config(get_config(arch))
+    m = build_model(cfg, RunConfig(**F32), ShapeSpec(*SHAPE), device="cpu")
+    assert "router" in m.init(torch.Generator().manual_seed(0))["groups"][
+        f"p{tfm.pattern_period(cfg) - 1}"]["ffn"]
+    for device in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            require_trainable(cfg, device)
 
 
 def _pair(arch, seed=0):

@@ -20,6 +20,9 @@ written in place, one launch a call, bit-identical repeats, a call with
 gradients refused), and an RWKV-6 engine at d_head 64 (2 layers): a
 second drain captures no graph and repeats the first's tokens, the prefill
 graph's state tree keeps its pointers, and the f32 drain equals the CPU's.
+The moe family: the expert-batched mmt4d (B_pack [E, ...], the expert dim
+in the grid) against its plain version and the 2-D kernel, the moe layer
+on the card against the CPU, and a reduced qwen3-moe engine's drains.
 A CUDA kernel has no interpret mode, so without a card these tests skip.
 Run them on the card with (``--noconftest``: tests/conftest.py imports JAX,
 which a machine with only the port need not have):
@@ -206,6 +209,143 @@ def test_mmt4d_unpacked_store_is_packed_then_unpack(gen, dtype, m, n, k_o, lead)
             (before[0] + 1, before[1] + 1, before[2])
         assert got.shape == (*lead, m, n) and got.is_contiguous()
         assert torch.equal(got, want), (b is not None, act)
+
+
+def _expert_case(gen, dtype, e, m, k_o, n):
+    """Packed A [E, M_o, K_o, m_r, k_r] from [E, m, K], B [E, N_o, K_o,
+    n_r, k_r] from [E, K, N] scaled to unit outputs, a bias [E, N_o, n_r]."""
+    lay = make_layout("scalable", query("cuda"), dtype)
+    k = k_o * lay.k_r
+    ap = packing.pack_lhs(_rand(gen, (e, m, k), dtype), lay)
+    bp = packing.pack_rhs((_rand(gen, (e, k, n), dtype).float() * k ** -0.5)
+                          .to(dtype), lay)
+    bias = Epilogue().bias_pack(_rand(gen, (e, n), dtype), lay)
+    return ap, bp, bias
+
+
+# f32: within 1e-5 of the largest |value| (sums in another order); bf16 as
+# the 2-D kernel's cases
+_EXPERT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("e,m,k_o,n", [(1, 16, 5, 192), (4, 16, 3, 384),
+                                       (128, 16, 4, 256), (8, 40, 2, 130),
+                                       (16, 1, 12, 576)],
+                         ids=["e1", "e4", "e128", "e8_m40", "e16_down"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mmt4d_expert_batched_matches_plain(gen, dtype, e, m, k_o, n):
+    """The expert-batched kernel (B_pack [E, N_o, K_o, n_r, k_r], the expert
+    dim in the grid) against its plain version, with and without the
+    per-expert bias, silu and no activation, packed and through the
+    unpacked store (which equals the packed store then unpack, bit for
+    bit): one launch a call, counted as expert-batched; each expert equal
+    bit for bit to the same kernel on that expert alone (E = 1, the 2-D
+    call), in float32; in bfloat16 where the 2-D call picks the same split."""
+    ap, bp, bias = _expert_case(gen, dtype, e, m, k_o, n)
+    tol = _EXPERT_TOL[dtype]
+    for b, act in ((None, None), (bias, None), (None, "silu"), (bias, "silu")):
+        before = (mmt4d.launches, mmt4d.expert_batched, mmt4d.unpacked_stores)
+        got = mmt4d(ap, bp, b, activation=act)
+        packed_then = unpack(got, m, n)
+        flat = mmt4d(ap, bp, b, activation=act, unpack_to=(m, n))
+        assert (mmt4d.launches, mmt4d.expert_batched, mmt4d.unpacked_stores) == \
+            (before[0] + 2, before[1] + 2, before[2] + 1)
+        want = mmt4d_ref(ap, bp, b, activation=act)
+        assert got.shape == want.shape == (e, *ap.shape[1:2], bp.shape[1],
+                                           ap.shape[3], bp.shape[3])
+        assert _close(got, want, tol), (b is not None, act)
+        assert flat.shape == (e, m, n) and torch.equal(flat, packed_then)
+        assert torch.equal(mmt4d(ap, bp, b, activation=act), got)   # repeatable
+        for x in sorted({0, e - 1}):
+            one = mmt4d(ap[x:x + 1], bp[x:x + 1],
+                        None if b is None else b[x:x + 1], activation=act)
+            two_d = mmt4d(ap[x], bp[x], None if b is None else b[x], activation=act)
+            assert torch.equal(one[0], two_d)          # E = 1 is the 2-D kernel
+            if dtype == torch.float32:
+                assert torch.equal(got[x], two_d)
+
+
+def test_mmt4d_expert_batched_refuses_what_it_does_not_take(gen):
+    ap, bp, bias = _expert_case(gen, torch.bfloat16, 4, 16, 2, 256)
+    with pytest.raises(ValueError, match="do not contract"):
+        mmt4d(ap[:3], bp)                       # experts differ
+    with pytest.raises(ValueError, match="do not contract"):
+        mmt4d(ap[0], bp)                        # a 2-D A and expert B
+    with pytest.raises(ValueError, match="bias"):
+        mmt4d(ap, bp, bias[0])
+
+
+def _moe_pair(dtype, cf=1.25):
+    """A reduced qwen3-moe (2 layers) on the card and on the CPU, one set
+    of weights."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
+    from repro_torch.models.model import build_model
+    # heads of 64: the ragged attention kernel's narrowest width
+    cfg = dataclasses.replace(reduced_config(get_config("qwen3-moe-235b-a22b"),
+                                             layers=2), capacity_factor=cf,
+                              d_head=64)
+    run = RunConfig(param_dtype=str(dtype)[6:], compute_dtype=str(dtype)[6:])
+    shape = ShapeSpec("serve", 64, 3, "decode")
+    cpu = build_model(cfg, run, shape, hw=query("cpu", "tpu_v5e"), device="cpu")
+    card = build_model(cfg, run, shape, device="cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    return cpu, card, params
+
+
+def test_moe_layer_card_equals_cpu(gen):
+    """moe_apply on the card (router, sort, dispatch, three expert-batched
+    mmt4d launches, combine) against the CPU's plain path, float32, at a
+    heavy-drop capacity and the default: y within 1e-5, the aux losses
+    within 1e-6 and the dropped fraction equal; twice, bit for bit."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    for cf in (1.25, 0.01):
+        cpu, card, params = _moe_pair(torch.float32, cf)
+        ffn = tfm.tree_map(lambda t: t[0], params["groups"]["p0"]["ffn"])
+        x = torch.randn((2, 20, cpu.cfg.d_model), generator=torch.Generator().manual_seed(1))
+        want, jaux = moe.moe_apply(ffn, x, cpu.ctx, cpu.cfg)
+        cffn = tfm.tree_map(lambda t: t.cuda(), ffn)
+        before = mmt4d.expert_batched
+        got, aux = moe.moe_apply(cffn, x.cuda(), card.ctx, card.cfg)
+        assert mmt4d.expert_batched == before + 3
+        assert _close(got.cpu(), want, 1e-5)
+        for k in ("load_balance", "router_z"):
+            assert abs(float(aux[k]) - float(jaux[k])) <= 1e-6 * max(1.0, abs(float(jaux[k])))
+        assert float(aux["dropped_frac"]) == float(jaux["dropped_frac"])
+        again, _ = moe.moe_apply(cffn, x.cuda(), card.ctx, card.cfg)
+        assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("family", ["flat", "monolithic"])
+def test_moe_drain_replays_and_captures_nothing(gen, family, dtype):
+    """A warmed engine of the reduced qwen3-moe: the drain captures no graph
+    and every expert product is an expert-batched launch; a second drain
+    repeats its tokens; in float32 the tokens are the CPU's."""
+    from repro_torch.serving.engine import Engine
+    cpu, card, params = _moe_pair(dtype)
+    kw = dict(max_slots=3, page_tokens=16,
+              **({"chunk_tokens": 32} if family == "flat" else {}))
+    eng = Engine(card, params, device="cuda", **kw)
+    eng.warmup()
+    caps = dict(eng.stats()["captures"])
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cpu.cfg.vocab, n) for n in (13, 21, 7)]
+
+    def drain(e):
+        rids = [e.add_request(p, 6) for p in prompts]
+        fin = {r.rid: r.out_tokens for r in e.drain()}
+        return [fin[r] for r in rids]
+
+    before = mmt4d.expert_batched
+    first = drain(eng)
+    assert mmt4d.expert_batched > before
+    assert drain(eng) == first
+    if family == "flat":        # the monolithic prefills capture per length
+        assert dict(eng.stats()["captures"]) == caps
+    if dtype == torch.float32:
+        assert first == drain(Engine(cpu, params, device="cpu", **kw))
 
 
 _UNPACK_CASES = {   # (shape of A, t0, t1, the 16-byte path)
