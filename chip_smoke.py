@@ -9,9 +9,10 @@ the engine's three step families (flat, dense chunked, monolithic), every
 step a replay of a CUDA graph captured at warmup, SmolLM2-135M and
 whisper-small through the static batch loop, Qwen3-8B at full width
 and depth, three other dense configs and InternVL2's language model,
-RWKV-6 1.6B whole and the mamba hybrid through the recurrent path, and
-Qwen3-MoE and Arctic at full width, cut in depth, through the
-expert-batched mmt4d:
+RWKV-6 1.6B whole through the recurrent path, Qwen3-MoE and Arctic at
+full width, cut in depth, through the expert-batched mmt4d, and
+jamba-v0.1-52B at full width, cut in whole periods, through the
+selective_scan kernel:
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds;
@@ -194,9 +195,6 @@ expert-batched mmt4d:
      warmup seconds and peak memory; RWKV-6 cut to PARITY_LAYERS layers in
      f32, card = CPU token for token (first-call logits within
      F32_MARGIN, as every family) and generate_static = generate on the card;
-     the hybrid test configuration (jamba-v0.1's mixers at its published
-     widths, one period of 8 layers, moe=False) in f32, 2 requests of
-     HYBRID_NEW tokens, card = CPU;
  16. the moe family: the expert-batched mmt4d (B_pack [E, N_o, K_o, n_r,
      k_r], the expert dim in the kernel's grid) against its plain version
      at qwen3-moe's and arctic's flat-step expert products (gate with
@@ -215,9 +213,30 @@ expert-batched mmt4d:
      dropped; parted requests counted); printed: ms per step and
      tokens/s beside the weight-bytes bound, peak memory, warmup, the
      drains' dropped fractions and the phase's seconds;
- 17. the kernels JSON line (launches from the main path of each kernel: the
+ 17. jamba: selective_scan (csrc/selective_scan.cu) against its plain
+     version at jamba's widths (di 8192, N 16; x, z, B and C as strided
+     views of the projections' outputs), f32 and bf16: decode rows (4
+     rows, 1 token, from a nonzero state), a 512-token prefill from zero
+     and a 2-row 256-token prefill from a cached state, y and the state
+     (written in place) within SCAN_RTOL / SCAN_ATOL (bf16 y: TOL[BF]), a
+     repeat bit-identical, timed L2-cold beside its bound and the plain
+     version (no library call); jamba-v0.1-52B at its published widths
+     (d 4096, vocab 65536, 16 experts top-2 of d_ff 14336 on every second
+     layer) in bf16, cut to the whole 8-layer periods whose reckoned peak
+     fits the card (printed), weights drawn on the card and packed in
+     place, through the monolithic engine: the §4 requests, each prompt
+     length capturing its exact-length prefill graph, replay = eager at
+     two step shapes, the launches of every model call checked (7
+     selective_scan a period), then a second drain capturing nothing;
+     printed: ms per step and tokens/s beside the weight-bytes bound, peak
+     memory, warmup, the dropped fractions and the phase's seconds; its
+     first period with its moe layers in f32, card = CPU (routing, the
+     monolithic drain token for token, first logits within F32_MARGIN,
+     dropped fractions);
+ 18. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
-     the gradient kernels, the RWKV-6 1.6B drain for wkv6; each other
+     the gradient kernels, the RWKV-6 1.6B drain for wkv6, jamba's first
+     drain for selective_scan; each other
      path's beside them, phases 14's and 15's included; each kernel's
      representative case at the scaled tiles; ragged_attn's d_head-128
      cases), then the result line.
@@ -267,6 +286,10 @@ SOURCES = {
                     "src/repro/kernels/mmt4d/kernel.py:113"),
     # RWKV-6's recurrence: no Pallas kernel; the JAX package's lax.scan
     "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/models/rwkv6.py:87"),
+    # mamba's selective scan: no Pallas kernel; the JAX package's
+    # lax.associative_scan
+    "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                       "src/repro/models/mamba.py:79"),
 }
 SERVING_KERNELS = ("mmt4d", "pack", "unpack", "ragged_attn")
 GRAD_KERNELS = ("mmt4d_dgrad", "mmt4d_wgrad")
@@ -275,7 +298,7 @@ GRAD_KERNELS = ("mmt4d_dgrad", "mmt4d_wgrad")
 REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
                   "unpack": "final stream decode", "ragged_attn": "decode rows",
                   "mmt4d_dgrad": "tied head", "mmt4d_wgrad": "tied head",
-                  "wkv6": "decode rows"}
+                  "wkv6": "decode rows", "selective_scan": "decode rows"}
 # max |kernel - plain| <= TOL * max(floor, max |plain|): float32 sums in
 # another order; bfloat16 may round the float32 result to a neighbouring
 # value.  floor is 1 for the forward kernels, whose results are of order 1,
@@ -292,6 +315,12 @@ GRAD_TOL_SHARE = 0.25
 # plain version's largest |value| (float32 sums over dh = 64 in another
 # order, FMAs, and a recurrence of up to 512 steps)
 WKV6_TOL = 1e-5
+# selective_scan: float32 y and every final state within SCAN_RTOL of the
+# plain version's value plus SCAN_ATOL, element by element (the state's
+# recurrence rounds as the plain version's; the sum over N runs in another
+# order); bfloat16 y within TOL[BF] of max(1, max |plain|) (a bfloat16
+# rounding of nearby float32 values)
+SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-6
 L2_FLUSH_BYTES = 64 * 2**20     # operand copies per cold-timed case pass this
 # two runs of one drain may pick differently only where a pick's (perturbed,
 # for a sampled pick) top-2 logit margin is below this: float32 logits of
@@ -475,6 +504,87 @@ class KernelChecks:
         print(f"  {'wkv6':<11} {label:<44} float32  {c['kernel_ms']:.6f} ms "
               f"(bound {bound_ms:.6f} by {bound_by}, plain {c['plain_ms']:.4f}, "
               f"no library call)")
+
+    def selective_scan(self, dtype, b, s, h0, label, di=8192, n=16, dt_rank=256):
+        """selective_scan at jamba's widths (di 8192, N 16, dt_rank 256):
+        x = silu(N(0, 1)), z the second half of an in-projection output
+        and B, C slices of an x-projection output (strided views, as
+        mamba_apply hands them over), delta = softplus(N(-4, 1)), a_log =
+        log(1..N) plus N(0, 0.1), d_skip ~ 1 + N(0, 0.1), the state ~ N(0,
+        1) (``h0``) or zero.  y and the final state (written in place)
+        against the plain version's (SCAN_RTOL / SCAN_ATOL, bf16 y
+        TOL[BF]); a second call from the same h0 bit-identical; timed
+        L2-cold.  Bound: delta, x, z, B, C, a_log, d_skip and the state
+        read once, y and the state written once (bytes); 8 float32
+        operations per (token, channel, state) element and 7 per (token,
+        channel) at the float32 rate."""
+        import torch.nn.functional as F
+        from repro_torch.kernels.selective_scan.ops import selective_scan
+        from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+        x = F.silu(self.rand((b, s, di), TF)).to(dtype)
+        xz = self.rand((b, s, 2 * di), dtype)
+        proj = self.rand((b, s, dt_rank + 2 * n), dtype)
+        delta = F.softplus(self.rand((b, s, di), TF) - 4)
+        a_log = (torch.log(torch.arange(1, n + 1, device="cuda", dtype=TF))
+                 + self.rand((di, n), TF, 0.1))
+        d_skip = 1 + self.rand((di,), TF, 0.1)
+        state = self.rand((b, di, n), TF) if h0 else torch.zeros(
+            (b, di, n), device="cuda")
+
+        def call(fn, d, xx, xzz, p, al, ds, st):
+            return fn(d, xx, xzz[..., di:], p[..., dt_rank:dt_rank + n],
+                      p[..., dt_rank + n:], al, ds, st)
+
+        ops = (delta, x, xz, proj, a_log, d_skip)
+        start = state.clone()
+        want_h = state.clone()
+        want = call(selective_scan_ref, *ops, want_h)
+        got = call(selective_scan, *ops, state)
+        got_h = state.clone()
+        state.copy_(start)
+        again = call(selective_scan, *ops, state)
+        torch.cuda.synchronize()
+        if not (torch.equal(again, got) and torch.equal(state, got_h)):
+            raise AssertionError(f"selective_scan {label} {dtype}: two calls "
+                                 f"from the same state differ")
+        errs, limits = {}, {}
+        for name, g, w in (("y", got.float(), want.float()), ("state", got_h, want_h)):
+            errs[name] = (g - w).abs().max().item()
+            if name == "y" and dtype is BF:
+                limits[name] = f"{TOL[BF] * max(1.0, w.abs().max().item()):.3e}"
+                ok = errs[name] <= TOL[BF] * max(1.0, w.abs().max().item())
+            else:
+                limits[name] = f"rtol {SCAN_RTOL:g} atol {SCAN_ATOL:g}"
+                ok = bool(((g - w).abs() <= SCAN_ATOL + SCAN_RTOL * w.abs()).all())
+            ok = ok and bool(torch.isfinite(g).all())
+            print(f"  {'selective_scan':<14} {label + ' ' + name:<41} "
+                  f"{str(dtype)[6:]:<8} max_abs_err {errs[name]:.3e} "
+                  f"(tolerance {limits[name]}; plain max|.| "
+                  f"{w.abs().max().item():.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"selective_scan {label} {dtype} {name}: "
+                                     f"error {errs[name]} over {limits[name]}")
+        es = x.element_size()
+        nbytes = (4 * b * s * di + 3 * es * b * s * di + 2 * es * b * s * n
+                  + 4 * di * n + 4 * di + 2 * 4 * b * di * n)
+        bound_ms, bound_by = self.bound(nbytes, b * s * di * (8 * n + 7)
+                                        + 2 * b * di * n, TF)
+        sets = cold_sets(*ops, state)
+        self.cases["selective_scan"].append({
+            "shape": f"{label}, delta/x/z ({b},{s},{di}), B/C ({b},{s},{n}), "
+                     f"state ({b},{di},{n})",
+            "dtype": str(dtype)[6:], "max_abs_err": max(errs.values()),
+            "max_abs_err_y": errs["y"], "max_abs_err_state": errs["state"],
+            "tolerance": limits,
+            "kernel_ms": time_ms(cycle(lambda *t: call(selective_scan, *t), sets)),
+            "plain_ms": time_ms(cycle(lambda *t: call(selective_scan_ref, *t),
+                                      sets[:1]), iters=5 if s > 1 else 20,
+                                spin=s == 1),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+        c = self.cases["selective_scan"][-1]
+        print(f"  {'selective_scan':<14} {label:<41} {str(dtype)[6:]:<8} "
+              f"{c['kernel_ms']:.6f} ms (bound {bound_ms:.6f} by {bound_by}, "
+              f"plain {c['plain_ms']:.4f}, no library call)")
 
     def mmt4d(self, dtype, w_tokens, k, n, act, label, bias=False):
         """``bias``: with a packed bias in the epilogue (added before the
@@ -960,46 +1070,76 @@ FAMILIES_BF16 = {"flat": dict(chunk_tokens=128),
                  "monolithic": {}}
 
 
+def state_leaves(caches) -> list:
+    """The recurrent state of a cache tree: every tensor but the page
+    pools (``*_pages``), which a step writes at its own positions."""
+    out = []
+    for k, v in caches.items():
+        if isinstance(v, dict):
+            out.extend(state_leaves(v))
+        elif not k.endswith("_pages"):
+            out.append(v)
+    return out
+
+
 class ReplayCheck:
     """Stands in for an engine's compiled step: passes every call through,
     and for the first ``shapes`` distinct input signatures of the drain
-    (all replays of graphs captured at warmup) also runs the model's eager
-    step method on the same inputs and state, and requires the replay's
-    logits bit for bit on the valid rows (an inert row of the paged step
-    attends over nothing: its logits are garbage in both).  Both calls
-    write the same K/V to the same places, so the state they see is the
-    same.  The eager call's launches (and a moe model's routed and kept
-    assignments) are taken back out of the counts."""
+    also runs the same step on the same inputs and state the other way,
+    and requires the replay's logits bit for bit on the valid rows (an
+    inert row of the paged step attends over nothing: its logits are
+    garbage in both) and the same recurrent state after both.  A
+    signature captured before the call replays, and the model's eager
+    step method runs after it; one the call captures (a recurrent model's
+    exact-length prefill, captured at its first use) ran eagerly, and its
+    graph replays after it.  The recurrent state (``state_leaves``) is
+    put back between the two; both calls write the same K/V to the same
+    places.  The second call's launches (and a moe model's routed and
+    kept assignments) are taken back out of the counts."""
 
     def __init__(self, step, shapes: int = 2):
         self.step, self.shapes, self.checked = step, shapes, []
 
     def __call__(self, params, caches, *args, plan=None, graphs=None):
-        out, caches = self.step(params, caches, *args, plan=plan, graphs=graphs)
         sig = self.step.signature(args, plan)
-        if len(self.checked) < self.shapes and sig not in self.checked:
-            from repro_torch import kernels
-            dev = self.step.model.device
-            from repro_torch.models.moe import DropCounter
-            before = kernels.counters()
-            drops = [(c, c.counts.clone())
-                     for c in DropCounter._installed.values()]
+        if len(self.checked) >= self.shapes or sig in self.checked:
+            return self.step(params, caches, *args, plan=plan, graphs=graphs)
+        from repro_torch import kernels
+        from repro_torch.models.moe import DropCounter
+        dev = self.step.model.device
+        captured = self.step.signature(args, plan, caches) not in graphs.graphs
+        states = state_leaves(caches)
+        start = [t.clone() for t in states]
+        out, caches = self.step(params, caches, *args, plan=plan, graphs=graphs)
+        out = out.clone()           # a replay's output is the graph's own
+        first = [t.clone() for t in states]
+        for t, s0 in zip(states, start):
+            t.copy_(s0)
+        before = kernels.counters()
+        drops = [(c, c.counts.clone()) for c in DropCounter._installed.values()]
+        if captured:                # the call ran eagerly: now replay
+            again, _ = self.step(params, caches, *args, plan=plan, graphs=graphs)
+        else:
             extra = {} if plan is None else {"plan": plan.to(dev)}
-            want, _ = self.step.fn(params, caches,
-                                   *(None if a is None else a.to(dev)
-                                     for a in args), **extra)
-            after = kernels.counters()
-            kernels.add_counts({k: after[k] - before[k] for k in after}, -1)
-            for c, counts in drops:        # nor the eager call's routing
-                c.counts.copy_(counts)
-            valid = (args[3] > 0).to(dev) if self.step.kind == "paged" else \
-                torch.ones(out.shape[0], dtype=torch.bool, device=dev)
-            if not torch.equal(out[valid], want[valid]):
-                err = (out[valid].float() - want[valid].float()).abs().max().item()
-                raise AssertionError(f"{self.step.kind} step {sig}: the graph's "
-                                     f"replay differs from the eager call "
-                                     f"(max |diff| {err:.3e})")
-            self.checked.append(sig)
+            again, _ = self.step.fn(params, caches,
+                                    *(None if a is None else a.to(dev)
+                                      for a in args), **extra)
+        after = kernels.counters()
+        kernels.add_counts({k: after[k] - before[k] for k in after}, -1)
+        for c, counts in drops:            # nor the second call's routing
+            c.counts.copy_(counts)
+        valid = (args[3] > 0).to(dev) if self.step.kind == "paged" else \
+            torch.ones(out.shape[0], dtype=torch.bool, device=dev)
+        if not torch.equal(out[valid], again[valid]):
+            err = (out[valid].float() - again[valid].float()).abs().max().item()
+            raise AssertionError(f"{self.step.kind} step {sig}: the graph's "
+                                 f"replay differs from the eager call "
+                                 f"(max |diff| {err:.3e})")
+        if not all(torch.equal(a, b) for a, b in zip(first, states)):
+            raise AssertionError(f"{self.step.kind} step {sig}: the replay's "
+                                 f"recurrent state differs from the eager "
+                                 f"call's")
+        self.checked.append(sig)
         return out, caches
 
 
@@ -1097,8 +1237,10 @@ def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
     turn), ``new`` tokens each, under a layout policy and descriptor (the
     CPU: the descriptor's TPU twin); returns tokens, the first model call's
     logits, each pick's (rid, position) -> (token, perturbed top-2
-    margin), and on the card the graphs captured at warmup and the shapes
-    checked replay against eager (``drops``: also the drain's moe dropped
+    margin), and on the card the graphs captured at warmup (the drain
+    captures nothing more but a recurrent model's exact-length prefill
+    graphs) and the shapes checked replay against eager (``drops``: also
+    the drain's moe dropped
     fraction, a DropCounter installed before warmup).  ``params``: the
     weights (default: a CPU generator's, seed 0)."""
     from repro_torch.configs import RunConfig, ShapeSpec
@@ -1129,7 +1271,11 @@ def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
         info["dropped_frac"] = counter.dropped_frac()
         counter.uninstall()
     if device == "cuda":
-        if eng.stats()["captures"] != info["captures"]:
+        # exact-length prefills (a recurrent model) capture one graph each
+        want = dict(info["captures"])
+        if eng._bucket == 1 and not eng.chunked:
+            want["paged"] += len({len(p) for p in prompts})
+        if eng.stats()["captures"] != want:
             raise AssertionError(f"f32 {family} drain captured after warmup: "
                                  f"{info['captures']} -> {eng.stats()['captures']}")
         info["replay_checked"] = len(check.checked)
@@ -1261,14 +1407,16 @@ def leaves(tree):
         yield tree
 
 
-def check_path_launches(label, launches, flat, rwkv=False) -> None:
+def check_path_launches(label, launches, flat, rwkv=False, mamba=False) -> None:
     """Every kernel of the path ran in the drain just read: all four
     serving kernels in the flat family, all but ragged_attn in the paged
     ones (which attend through PyTorch and must not launch it), wkv6 where
-    the model has RWKV layers (``rwkv``) and only there; a drain launches
-    no gradient kernel."""
+    the model has RWKV layers (``rwkv``) and selective_scan where it has
+    mamba layers (``mamba``), each only there; a drain launches no
+    gradient kernel."""
     for k, n in launches.items():
         if (n == 0) != (k in GRAD_KERNELS or (k == "wkv6" and not rwkv)
+                        or (k == "selective_scan" and not mamba)
                         or (k == "ragged_attn" and not flat)):
             raise AssertionError(f"{label}: {k} launched {n} times")
 
@@ -1306,7 +1454,8 @@ def timed_drain(eng, reqs, greedy, seed, label, staggered=False) -> dict:
             != st0["speculative"]["drafter"].get("captures")):
         raise AssertionError(f"{label}: captured during the drain")
     check_path_launches(label, launches, eng.flat,
-                        rwkv="rwkv" in eng.model.cfg.layer_types)
+                        rwkv="rwkv" in eng.model.cfg.layer_types,
+                        mamba="mamba" in eng.model.cfg.layer_types)
     steps = st["steps"] - st0["steps"]
     ntok = sum(len(r.out_tokens) for r in fin)
     host = wall - rec.seconds
@@ -1617,7 +1766,8 @@ def static_engine(cfg, dtype, device, params=None, batch=STATIC_BATCH):
     return eng
 
 
-def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH) -> dict:
+def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH,
+               new=STATIC_NEW) -> dict:
     """One model's static batch on the card in ``dtype``: a first call
     (captures the prefill and decode graphs), a second with the wrapper
     counts set to 0 just before and read just after (timed: wall, tokens/s,
@@ -1647,7 +1797,7 @@ def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH) -> dict:
 
     eng._static_caches = timed_caches
     t0 = time.perf_counter()
-    first = eng.generate_static(batch, STATIC_NEW)
+    first = eng.generate_static(batch, new)
     first_s = time.perf_counter() - t0
     made = (dict(model.trace_counts), dict(eng._graphs.captures))
     rec.reset(rows=False)
@@ -1655,7 +1805,7 @@ def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = eng.generate_static(batch, STATIC_NEW)
+    out = eng.generate_static(batch, new)
     wall = time.perf_counter() - t0
     counts = kernels.counters()
     step_ms = rec.ms()
@@ -1668,7 +1818,7 @@ def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH) -> dict:
         raise AssertionError(f"{label}: {made} programs and graphs, not 2 each")
     if not np.array_equal(out, first):
         raise AssertionError(f"{label}: two calls on the same batch differ")
-    if out.shape != (nb, STATIC_NEW) or out.min() < 0 \
+    if out.shape != (nb, new) or out.min() < 0 \
             or out.max() >= cfg.vocab:
         raise AssertionError(f"{label}: tokens {out.shape} outside the vocabulary")
     calls = len(step_ms)
@@ -1684,7 +1834,7 @@ def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH) -> dict:
     check = ReplayCheck(rec.step)
     rec.step = check
     rec.reset(rows=True)
-    again = eng.generate_static(batch, STATIC_NEW)
+    again = eng.generate_static(batch, new)
     rows = rec.rows
     if not np.array_equal(again, out) or len(check.checked) != 2:
         raise AssertionError(f"{label}: the recording call differs, or replay "
@@ -1694,7 +1844,7 @@ def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH) -> dict:
     caches = eng._static_bufs[(nb,)
                               + ((model.enc_len,) if cfg.family == "encdec" else ())]
     tok = torch.as_tensor(out[:, -1:], device="cuda")
-    pos = torch.full((), STATIC_PROMPT + STATIC_NEW, dtype=torch.int32, device="cuda")
+    pos = torch.full((), STATIC_PROMPT + new, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")      # nothing read back to the host
     try:
@@ -1727,12 +1877,13 @@ def static_run(cfg, dtype, label, params=None, batch=STATIC_BATCH) -> dict:
     return res
 
 
-def static_cpu(cfg, dtype=TF, params=None, batch=STATIC_BATCH) -> dict:
+def static_cpu(cfg, dtype=TF, params=None, batch=STATIC_BATCH,
+               new=STATIC_NEW) -> dict:
     """The same static batch on the CPU (the plain versions): its tokens
     and each step's picks with their top-2 margins."""
     eng = static_engine(cfg, dtype, "cpu", params, batch)
     eng._decode_step.reset(rows=True)
-    out = eng.generate_static(static_batch(cfg, batch), STATIC_NEW)
+    out = eng.generate_static(static_batch(cfg, batch), new)
     return {"tokens": out, "picks": static_picks(out, eng._decode_step.rows)}
 
 
@@ -2771,9 +2922,11 @@ def training_phase(cfg, card) -> tuple:
 # phase's time (InternVL2's took 233 s at 2 layers on an H100 machine with
 # a slow host CPU): their depth was cut from 2 to 1 when the moe phase
 # came, keeping each config's feature; RWKV-6's f32 check keeps
-# PARITY_LAYERS
+# PARITY_LAYERS.  InternVL2's f32 check decodes VLM_F32_NEW tokens, not
+# the static batch's 32, since jamba's phase came: each CPU decode step
+# reads the 2.3 GB float32 head (89.5 s for 32 on an H100 machine)
 PARITY_ARCHS = ("qwen2-7b", "chatglm3-6b", "olmo-1b")
-PARITY_LAYERS, VLM_LAYERS, VLM_F32_BATCH = 2, 8, 2
+PARITY_LAYERS, VLM_LAYERS, VLM_F32_BATCH, VLM_F32_NEW = 2, 8, 2, 8
 DENSE_F32_LAYERS, VLM_F32_LAYERS = 1, 1
 
 
@@ -2945,9 +3098,10 @@ def internvl2_static(card) -> tuple:
     """InternVL2-26B's language model (d 6144, 48 query heads over 8 of
     128, d_ff 16384, vocab 92553: a partial last tile) behind its stub
     vision prefix, through generate_static: rows of 256 patch embeddings +
-    a 256-token prompt, 32 new, seq_len 1024.  float32 at VLM_F32_LAYERS
-    layers and VLM_F32_BATCH rows (the CPU's plain path is most of the
-    phase's time, and grows with the rows), card = CPU token for token,
+    a 256-token prompt, seq_len 1024.  float32 at VLM_F32_LAYERS layers,
+    VLM_F32_BATCH rows and VLM_F32_NEW new tokens (the CPU's plain path
+    is most of the phase's time, and grows with the rows and the steps),
+    32 new in bfloat16; card = CPU token for token,
     weights drawn once on the card; bfloat16 at VLM_LAYERS layers and 4 rows, weights drawn on the
     card.  Each card run is static_run's: a first call capturing the
     prefill and decode graphs, a second capturing nothing with its
@@ -2958,8 +3112,8 @@ def internvl2_static(card) -> tuple:
     from repro_torch.models.model import build_model
     full = get_config("internvl2-26b")
     res, paths = {}, {}
-    for dtype, layers, nb in ((TF, VLM_F32_LAYERS, VLM_F32_BATCH),
-                              (BF, VLM_LAYERS, STATIC_BATCH)):
+    for dtype, layers, nb, new in ((TF, VLM_F32_LAYERS, VLM_F32_BATCH, VLM_F32_NEW),
+                                   (BF, VLM_LAYERS, STATIC_BATCH, STATIC_NEW)):
         name = str(dtype)[6:]
         cfg = dataclasses.replace(full, n_layers=layers)
         model = build_model(cfg, RunConfig(param_dtype=name, compute_dtype=name),
@@ -2969,14 +3123,14 @@ def internvl2_static(card) -> tuple:
         print(f"  internvl2-26b {name}: {layers} of {full.n_layers} layers, "
               f"{cfg.param_counts()['total']} parameters, d {cfg.d_model}, "
               f"vocab {cfg.vocab}; batch {nb} x ({cfg.vision_tokens} "
-              f"patches + prompt {STATIC_PROMPT}), {STATIC_NEW} new ({card})")
+              f"patches + prompt {STATIC_PROMPT}), {new} new ({card})")
         label = f"internvl2-26b static {name} ({layers} layers)"
         if dtype is TF:
             t0 = time.perf_counter()
-            cpu = static_cpu(cfg, params=params, batch=nb)
+            cpu = static_cpu(cfg, params=params, batch=nb, new=new)
             print(f"  {label} on the CPU (plain versions): "
                   f"{time.perf_counter() - t0:.1f} s")
-        r = static_run(cfg, dtype, label, params=params, batch=nb)
+        r = static_run(cfg, dtype, label, params=params, batch=nb, new=new)
         del params, model
         if dtype is TF:
             r["vs_cpu_f32"] = compare_picks(r["picks"], cpu["picks"], 0.0,
@@ -3012,7 +3166,6 @@ def dense_phase(card) -> tuple:
     return res, paths
 
 RWKV_SLOTS, RWKV_REQUESTS, RWKV_NEW = 4, 8, 32
-HYBRID_NEW = 4          # the CPU's plain path over 8 layers of d 4096 sets the time
 
 
 def rwkv_per_call(cfg) -> tuple:
@@ -3195,11 +3348,8 @@ def recurrent_parity(label, cfg, params, prompts, new, card) -> dict:
 def recurrent_phase(card) -> tuple:
     """RWKV-6 1.6B whole in bf16 (rwkv_full); RWKV-6 at full width cut to
     PARITY_LAYERS layers in f32, card = CPU, and generate_static =
-    generate on the card; the hybrid test configuration (jamba-v0.1's
-    mixers at its published widths, one period of 8 layers: 7 mamba and
-    one attention, moe=False; jamba itself is MoE and waits for B3), an
-    f32 drain of 2 requests, card = CPU.  Returns (results, launches by
-    path)."""
+    generate on the card (jamba's mixers are held in the jamba phase).
+    Returns (results, launches by path)."""
     import dataclasses
     import gc
     from repro_torch.configs import RunConfig, ShapeSpec, get_config
@@ -3233,25 +3383,16 @@ def recurrent_phase(card) -> tuple:
           f"16 tokens, 8 new: {static.tolist()}")
     res["rwkv6-1.6b f32"]["static_equals_generate"] = True
     del eng, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    jamba = get_config("jamba-v0.1-52b")
-    cfg = dataclasses.replace(jamba, n_layers=len(jamba.block_pattern), moe=False)
-    params = build_model(cfg, f32, shape, device="cuda").init(
-        torch.Generator(device="cuda").manual_seed(0))
-    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 2)]
-    label = (f"hybrid (jamba-v0.1's mixers, {cfg.n_layers} of {jamba.n_layers} "
-             f"layers, moe=False, {cfg.param_counts()['total']} parameters)")
-    res["hybrid f32"] = recurrent_parity(label, cfg, params, prompts, HYBRID_NEW,
-                                         card)
-    del params
     return res, paths
 
 
 MOE_ARCHS = ("qwen3-moe-235b-a22b", "arctic-480b")
 # f32 card = CPU depth: qwen3-moe's 2 layers hold 19.3 GB of f32 experts;
 # one arctic layer holds 53.5 GB (two would not fit the card)
-MOE_F32_LAYERS = {"qwen3-moe-235b-a22b": 2, "arctic-480b": 1}
+MOE_F32_LAYERS = {"qwen3-moe-235b-a22b": 2, "arctic-480b": 1,
+                  # jamba's first period: 7 mamba mixers, attention, 4 moe
+                  # layers (51 GB of f32 weights)
+                  "jamba-v0.1-52b": 8}
 MOE_F32_FAMILIES = ("flat", "monolithic")
 MOE_F32_NEW = 4
 # the bf16 depth: the most layers whose reckoned peak (weights, the larger
@@ -3364,7 +3505,8 @@ def moe_f32_parity(arch, card) -> dict:
     """``arch`` at its published widths cut to MOE_F32_LAYERS[arch] layers
     in f32: weights drawn once on the card and packed there serve both
     sides (the CPU's a copy of the packed tree); routing card = CPU on one
-    forward (routing_check); then each of MOE_F32_FAMILIES through
+    forward (routing_check); then each of MOE_F32_FAMILIES (a recurrent
+    model: the monolithic step only) through
     serve_f32: 2 requests of 5-24 tokens, MOE_F32_NEW new, card after
     warmup (replay = eager checked) and CPU plain path: identical tokens,
     first-call logits within F32_MARGIN of max(1, max |logit|), equal
@@ -3401,7 +3543,9 @@ def moe_f32_parity(arch, card) -> dict:
           f"{nbytes / 1e9:.2f} GB of packed f32 weights on each side, drawn, "
           f"packed and copied in {time.perf_counter() - t0:.1f} s ({card})")
     out = {"layers": cfg.n_layers, "weight_bytes": nbytes, **route}
-    for family in MOE_F32_FAMILIES:
+    families = (("monolithic",) if set(cfg.layer_types) - {"attn"}
+                else MOE_F32_FAMILIES)
+    for family in families:
         t0 = time.perf_counter()
         ct, cf, cp, info = serve_f32("cuda", cfg, prompts, family, params=pc,
                                      new=MOE_F32_NEW, drops=True)
@@ -3426,7 +3570,7 @@ def moe_f32_parity(arch, card) -> dict:
                                  f"{info['replay_checked']} shapes")
         out[family] = {"tokens": ct, "first_logit_diff": diff, "max_logit": scale,
                        "dropped_frac": cd, "vs_cpu": cmp, **info}
-    print(f"  {arch} f32: card = CPU token for token in {list(MOE_F32_FAMILIES)}")
+    print(f"  {arch} f32: card = CPU token for token in {list(families)}")
     del pc, ph
     gc.collect()
     torch.cuda.empty_cache()
@@ -3584,6 +3728,280 @@ def moe_phase(card, checks) -> tuple:
     return res, paths
 
 
+JAMBA = "jamba-v0.1-52b"
+# selective_scan at jamba's widths: (rows, steps, from a nonzero h0, label)
+SCAN_CASES = ((4, 1, True, "decode rows"), (1, 512, False, "prefill 512"),
+              (2, 256, True, "prefill cached"))
+
+
+def jamba_per_call(cfg) -> tuple:
+    """(launches per monolithic model call by kernel, mmt4d unpacked
+    stores, of them expert-batched) of jamba cut to G = n_layers / 8
+    periods; a prefill's and a decode step's alike.  Per period: seven
+    mamba mixers, each the in, x and out projections (stored unpacked),
+    the packs of the x and out projections' inputs and of its output into
+    the stream, and one selective_scan; one attention layer, Q/K/V/O (Q/K/V
+    stored unpacked), the O input's pack (the paged step attends through
+    PyTorch: no ragged_attn); four moe FFNs (layers 1, 3, 5, 7), each the
+    packed stream's unpack, the packs of the dispatched [E, C, d], of the
+    gate x up product and of its output into the stream, and the gate,
+    up and down expert-batched launches (stored unpacked); four dense
+    SwiGLU MLPs (gate, up, down, kept packed).  Per call: the stream
+    entry pack, the final stream's unpack, the logits rows' pack and the
+    untied head, stored unpacked."""
+    g = cfg.n_layers // len(cfg.block_pattern)
+    return ({"mmt4d": 49 * g + 1, "pack": 34 * g + 2, "unpack": 4 * g + 1,
+             "ragged_attn": 0, "wkv6": 0, "selective_scan": 7 * g},
+            36 * g + 1, 12 * g)
+
+
+def jamba_bytes(cfg) -> tuple:
+    """(bytes of one period's weights in bf16, of the embedding, untied
+    head and final norm, of one moe layer's expert leaf, of the largest
+    block: a mamba mixer with a moe FFN) from the config.  The router,
+    dt_proj's bias, a_log and d_skip are float32."""
+    d, e, f, p = cfg.d_model, cfg.n_experts, cfg.d_ff_expert, len(cfg.block_pattern)
+    di, n, dt_rank = cfg.mamba_expand * d, cfg.mamba_d_state, -(-d // 16)
+    mamba = (2 * (2 * d * di + di * (dt_rank + 2 * n) + dt_rank * di
+                  + (cfg.mamba_d_conv + 1) * di + di * d)
+             + 4 * (di + di * n + di))
+    attn = 2 * (2 * d * cfg.n_heads * cfg.d_head + 2 * d * cfg.n_kv_heads * cfg.d_head)
+    moe_ffn = 2 * 3 * e * d * f + 4 * d * e
+    mlp = 2 * 3 * d * cfg.d_ff
+    norms = 2 * 2 * d
+    period = sum((attn if t == "attn" else mamba) + norms
+                 + (moe_ffn if cfg.moe_on_layer(i) else mlp)
+                 for i, t in enumerate(cfg.block_pattern))
+    fixed = 2 * 2 * cfg.vocab * d + 2 * d
+    return period, fixed, 2 * e * d * f, mamba + norms + moe_ffn
+
+
+def jamba_depth(cfg, total: int) -> tuple:
+    """The bf16 depth in whole periods and its reckoning (printed): for G
+    periods, the weights, plus the larger transient: the prepack's packed
+    copy of one stacked expert leaf ([G, E, K, N], while its unpacked one
+    lives) or the init's one block drawn beside the stack (and its
+    float32 block of 1 GiB), plus MOE_POOL_BYTES."""
+    period, fixed, leaf, block = jamba_bytes(cfg)
+    best, rows = 0, []
+    for g in range(1, cfg.n_layers // len(cfg.block_pattern) + 1):
+        peak = fixed + g * period + max(g * leaf, block + 2**30) + MOE_POOL_BYTES
+        rows.append((g, peak))
+        if peak <= MOE_FIT * total:
+            best = g
+        else:
+            break
+    return best, rows, (period, fixed, leaf, block)
+
+
+def jamba_bf16(card) -> tuple:
+    """jamba-v0.1-52B at its published widths in bf16, cut to the whole
+    periods jamba_depth picks (printed with its reckoning), weights drawn
+    on the card and packed in place, a DropCounter installed, through the
+    monolithic engine (4 slots, seq_len 1024): warmup (the decode[4,1]
+    graph), then the §4 requests (8, prompts 64-512, 32 new, greedy), each
+    distinct prompt length capturing its exact-length prefill graph, with
+    replay = eager checked at two step shapes (its first prefill, replayed
+    after its capture, and the decode step) and the launches of every
+    model call checked (jamba_per_call); then a second drain of the same
+    requests that captures nothing (its requests' tokens repeat where
+    neither drain drops an assignment; parted requests counted).  Prints
+    ms per step and tokens/s of the second beside the weight-bytes bound
+    (every weight but the embedding table read once a step: the capacity
+    dispatch runs every expert), peak memory, warmup, the dropped
+    fractions and the seconds."""
+    import dataclasses
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.core.hardware import query
+    from repro_torch.core.linear import prepack_params
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import DropCounter
+    from repro_torch.serving.engine import Engine
+    full = get_config(JAMBA)
+    hw = query("cuda", "h100")
+    period_len = len(full.block_pattern)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    periods, rows, (period, fixed, leaf, block) = jamba_depth(full, total)
+    if periods < 1:
+        raise AssertionError(f"{JAMBA}: not one period fits the card")
+    print(f"  {JAMBA}: reckoning (bf16): a period of {period_len} layers "
+          f"{period / 1e9:.3f} GB (4 moe layers, 4 dense MLPs, 7 mamba mixers, "
+          f"1 attention), embedding + head {fixed / 1e9:.3f} GB, an expert leaf "
+          f"{leaf / 1e9:.3f} GB a moe layer, the largest block {block / 1e9:.3f} "
+          f"GB; peak at G periods = weights + max(G x leaf, a block + 1 GiB) + "
+          f"{MOE_POOL_BYTES / 2**30:.0f} GiB: "
+          + ", ".join(f"G={g}: {p / 1e9:.2f} GB" for g, p in rows)
+          + f"; the card holds {total / 1e9:.2f} GB, so {periods} of "
+          f"{full.n_layers // period_len} periods, {periods * period_len} of "
+          f"{full.n_layers} layers (limit {MOE_FIT:g} of it) ({card})")
+    cfg = dataclasses.replace(full, n_layers=periods * period_len)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, 4, "decode"),
+                        device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    step_bytes = weight_bytes - params["embed"]["e"].numel() * 2
+    reckoned = fixed + periods * period
+    if abs(weight_bytes - reckoned) > 0.01 * weight_bytes:
+        raise AssertionError(f"{JAMBA}: {weight_bytes} bytes of weights, "
+                             f"{reckoned} reckoned")
+    t0 = time.perf_counter()
+    params = prepack_params(params, model.ctx, consume=True)
+    torch.cuda.synchronize()
+    prepack_s = time.perf_counter() - t0
+    drops = DropCounter("cuda").install()
+    try:
+        eng = Engine(model, params, device="cuda", max_slots=RWKV_SLOTS,
+                     page_tokens=16)
+        del params
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in state_leaves(eng.caches))
+        bound_ms = 1e3 * (step_bytes + 2 * state_bytes) / hw.hbm_bw
+        print(f"  {JAMBA}: {cfg.n_layers} of {full.n_layers} layers, d "
+              f"{cfg.d_model}, mamba di {cfg.mamba_expand * cfg.d_model} N "
+              f"{cfg.mamba_d_state}, {cfg.n_heads} query heads over "
+              f"{cfg.n_kv_heads} of {cfg.d_head}, {cfg.n_experts} experts "
+              f"top-{cfg.top_k} of d_ff {cfg.d_ff_expert} on every second "
+              f"layer, vocab {cfg.vocab}; {weight_bytes / 1e9:.3f} GB in bf16 "
+              f"(reckoned {reckoned / 1e9:.3f}), drawn on the card in "
+              f"{init_s:.2f} s, packed in place in {prepack_s:.2f} s; per-slot "
+              f"state {state_bytes / RWKV_SLOTS / 1e6:.3f} MB ({card})")
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        graphs = dict(eng.stats()["captures"])
+        rng = np.random.default_rng(0)
+        lens = rng.integers(64, 513, RWKV_REQUESTS)
+        prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+        print(f"  {JAMBA} prompts {lens.tolist()}; warmup {warm_s:.3f} s, "
+              f"graphs {graphs}")
+        rec = PickRecorder(eng)
+        check = attach_replay_check(eng)
+        calls = count_model_calls(eng)
+        rids = [eng.add_request(p, RWKV_NEW) for p in prompts]
+        drops.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fin = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        unpacked = kernels.wrappers()["mmt4d"].unpacked_stores
+        experts = kernels.wrappers()["mmt4d"].expert_batched
+        first_drop = drops.dropped_frac()
+        del eng._run_paged                     # the call counter
+        eng._paged_step = check.step
+        st = eng.stats()
+        n = len(calls)
+        if sorted(r.rid for r in fin) != sorted(rids) or any(
+                r.finish_reason != "length" or len(r.out_tokens) != RWKV_NEW
+                for r in fin):
+            raise AssertionError(f"{JAMBA}: not every request finished")
+        if not all(np.isfinite(c).all() for c in calls):
+            raise AssertionError(f"{JAMBA}: non-finite logits")
+        per, per_unpacked, per_expert = jamba_per_call(cfg)
+        for k, want in per.items():
+            if launches[k] != want * n:
+                raise AssertionError(f"{JAMBA} {k}: {launches[k]} launches over "
+                                     f"{n} model calls, expected {want} per call")
+        if unpacked != per_unpacked * n or experts != per_expert * n:
+            raise AssertionError(f"{JAMBA}: {unpacked} unpacked stores and "
+                                 f"{experts} expert-batched launches over {n} "
+                                 f"calls, expected {per_unpacked} and "
+                                 f"{per_expert} per call")
+        check_path_launches(f"{JAMBA} monolithic bf16", launches, False,
+                            mamba=True)
+        captured = st["captures"]["paged"] - graphs["paged"]
+        if captured != len(set(lens.tolist())):
+            raise AssertionError(f"{JAMBA}: {captured} graphs captured in the "
+                                 f"drain for {len(set(lens.tolist()))} prompt "
+                                 f"lengths")
+        if len(check.checked) < 2:
+            raise AssertionError(f"{JAMBA}: replay checked at "
+                                 f"{len(check.checked)} shapes, not 2")
+        first_picks = dict(rec.picks)
+        ntok = sum(len(r.out_tokens) for r in fin)
+        first = {"steps": st["steps"], "model_calls": n, "wall_s": wall,
+                 "ms_per_step": 1e3 * wall / st["steps"], "tokens": ntok,
+                 "tokens_per_s": ntok / wall, "launches": launches,
+                 "unpacked_stores": unpacked, "expert_batched": experts,
+                 "captured_in_drain": captured,
+                 "replay_checked": len(check.checked)}
+        print(f"  {JAMBA} bf16 monolithic, first drain: {st['steps']} steps, {n} "
+              f"model calls, {wall:.3f} s wall, {first['ms_per_step']:.4f} ms per "
+              f"step, {ntok / wall:.2f} generated tokens/s, {captured} prefill "
+              f"graphs captured (one per prompt length), replay = eager at "
+              f"{len(check.checked)} shapes; launches per model call "
+              f"{ {k: v / n for k, v in launches.items() if v} }, unpacked "
+              f"stores {unpacked / n}, expert-batched {experts / n} per call; "
+              f"dropped fraction {first_drop:.6f}")
+        drops.reset()
+        second = timed_drain(eng, [(p, RWKV_NEW, 0.0) for p in prompts], True,
+                             0, f"{JAMBA} bf16 monolithic, second drain")
+        second_drop = drops.dropped_frac()
+    finally:
+        drops.uninstall()
+    parted = sum(a != b for a, b in zip(by_request(second.pop("picks")),
+                                        by_request(first_picks)))
+    if parted and first_drop == second_drop == 0.0:
+        raise AssertionError(f"{JAMBA}: {parted} requests' tokens differ between "
+                             f"two drains that dropped nothing")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {JAMBA}: second drain {second['ms_per_step']:.4f} ms per step, "
+          f"{second['tokens_per_s']:.2f} generated tokens/s (no capture; "
+          f"{parted} of {len(prompts)} requests parted from the first drain's "
+          f"tokens); bound: every weight but the embedding table read once a "
+          f"step (every expert: the capacity dispatch runs them all) and 4 "
+          f"slots' state read and written, ({step_bytes / 1e9:.3f} + 2 x "
+          f"{state_bytes / 1e9:.4f}) GB / {hw.hbm_bw / 1e12:.2f} TB/s = "
+          f"{bound_ms:.4f} ms; dropped fraction {first_drop:.6f} (second "
+          f"{second_drop:.6f}); captures {graphs['paged']} at warmup + "
+          f"{captured} in the first drain; peak memory {peak / 2**30:.2f} GiB "
+          f"(reckoned {rows[periods - 1][1] / 1e9:.2f} GB) ({card})")
+    res = {**first, "second": second, "periods": periods,
+           "layers": cfg.n_layers, "init_s": init_s, "prepack_s": prepack_s,
+           "warmup_s": warm_s, "warmup_graphs": graphs,
+           "weight_bytes": weight_bytes, "step_bytes": step_bytes,
+           "state_bytes": state_bytes, "bound_ms": bound_ms, "peak_bytes": peak,
+           "dropped_frac": first_drop, "second_dropped_frac": second_drop,
+           "second_parted_requests": parted, "reckoning": rows,
+           "prompt_lens": lens.tolist(), "card": card}
+    del eng, rec, check
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, {f"{JAMBA} monolithic bf16": launches,
+                 f"{JAMBA} monolithic bf16 second": second["launches"]}
+
+
+def jamba_phase(card, checks) -> tuple:
+    """Mamba's selective_scan at jamba's widths (SCAN_CASES, float32 and
+    bfloat16, checks.selective_scan); jamba in bf16 at the whole periods
+    that fit (jamba_bf16); its first period with its moe layers in f32,
+    card = CPU (moe_f32_parity: routing, the monolithic drain, first
+    logits, dropped fractions).  Returns (results, launches by path)."""
+    t_phase = time.perf_counter()
+    print(f"  selective_scan vs its plain version at jamba's widths, L2-cold "
+          f"({card}):")
+    for dtype in (TF, BF):
+        for b, s, h0, label in SCAN_CASES:
+            checks.selective_scan(dtype, b, s, h0, label)
+    res = {}
+    res[JAMBA], paths = jamba_bf16(card)
+    res[f"{JAMBA} f32"] = moe_f32_parity(JAMBA, card)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  the jamba phase took {res['seconds']:.1f} s ({card})")
+    return res, paths
+
+
 def by_descriptor(kernel, scaled_checks) -> dict:
     """Kernel ``kernel``'s bf16 representative case at each scaled
     descriptor's tiles: times, bound and library time (ragged_attn's tiles
@@ -3615,6 +4033,10 @@ def main(argv=None) -> int:
     from repro_torch.serving.engine import Engine
 
     t_start = time.perf_counter()
+
+    def elapsed():          # each phase's start, for the run's timeline
+        print(f"[{time.perf_counter() - t_start:.1f} s into the run]")
+
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(card)
@@ -3637,6 +4059,7 @@ def main(argv=None) -> int:
                         device="cuda")
     eng = Engine(model, model.init(torch.Generator().manual_seed(0)), device="cuda",
                  max_slots=4, chunk_tokens=128, page_tokens=16)
+    elapsed()
     print("kernels vs plain versions on the card (mmt4d and the tied-head pack "
           "L2-cold):")
     checks = KernelChecks(hw, torch.Generator(device="cuda").manual_seed(0))
@@ -3647,6 +4070,7 @@ def main(argv=None) -> int:
     checks.run_d128()
     f32_chunk_cases = checks.f32_chunk_identity()
 
+    elapsed()
     print("end to end, float32: 4 requests x 8 new tokens, card vs CPU plain "
           "path, each step family (card: graphs captured at warmup)")
     rng = np.random.default_rng(1)
@@ -3657,6 +4081,7 @@ def main(argv=None) -> int:
                              f"{ {k: r['tokens'] for k, r in f32.items()} }")
     print(f"  greedy tokens identical, card = CPU, flat = dense = monolithic: "
           f"{f32['flat']['tokens']}")
+    elapsed()
     print(f"end to end, float32, sampled (seed 11, temperatures "
           f"{TEMPERATURES}): the same drains, card vs CPU plain path, each "
           f"family; a pick may differ only below a perturbed top-2 margin of "
@@ -3667,6 +4092,7 @@ def main(argv=None) -> int:
           f"{ {k: r['low_margin_picks'] for k, r in f32_sampled.items()} }, "
           f"requests parted: { {k: r['parted'] for k, r in f32_sampled.items()} }")
 
+    elapsed()
     print("end to end, bfloat16: Engine(max_slots=4, page_tokens=16), seq_len "
           "1024, 8 requests x 32 new tokens, each family (flat and dense: "
           f"chunk_tokens=128) ({card})")
@@ -3681,6 +4107,7 @@ def main(argv=None) -> int:
     engines = {fam: r.pop("engine") for fam, r in e2e.items()}
     by_path = {f: r["launches"] for f, r in e2e.items()}
 
+    elapsed()
     print(f"end to end, bfloat16, sampled (seed 3, temperatures "
           f"{TEMPERATURES}): the same 8 requests on the warmed engines, each "
           f"family; the families' picks may differ only below a perturbed "
@@ -3696,16 +4123,19 @@ def main(argv=None) -> int:
         by_path[f"{fam} sampled"] = bf16_sampled[fam]["launches"]
     by_path["flat sampled"] = bf16_sampled["flat"]["launches"]
 
+    elapsed()
     print(f"two engines of one family over one model, both warmed (bf16, "
           f"the engines above; {card})")
     c1 = c1_two_engines(engines)
     del engines, eng
+    elapsed()
     print(f"the static batch loop (generate_static), full width, float32 and "
           f"bfloat16: SmolLM2-135M and whisper-small, each card vs the f32 "
           f"CPU plain path (f32 exactly, bf16 under a top-2 margin of "
           f"{BF16_MARGIN:g}) ({card})")
     static, static_paths = static_phase(card)
     by_path.update(static_paths)
+    elapsed()
     print(f"prefix cache and speculation (spec_tokens=2), float32, full width, "
           f"each family: the spec trace (8 requests, 4-token motifs tiled to "
           f"16, 16-32 new) and the shared-prefix trace (12 requests, one "
@@ -3713,6 +4143,7 @@ def main(argv=None) -> int:
           f"staggered), greedy and sampled (seed 5); picks held to the "
           f"baseline's below a top-2 margin of {F32_MARGIN:g} ({card})")
     variants_f32 = serve_variants(cfg, TF, FAMILIES_BF16)
+    elapsed()
     print(f"the same in bfloat16, picks held to the baseline's below a top-2 "
           f"margin of {BF16_MARGIN:g} ({card})")
     variants_bf16 = serve_variants(cfg, BF, FAMILIES_BF16)
@@ -3725,6 +4156,7 @@ def main(argv=None) -> int:
                              f"tokens exactly, the runtime sanitizer on"),
                         (BF, f"bfloat16, picks held to the clean drain's below "
                              f"a top-2 margin of {BF16_MARGIN:g}")):
+        elapsed()
         print(f"resilience under chaos, {what}: full width, max_slots=4, "
               f"page_tokens=16, queue_limit=6, each of {list(CHAOS_FAMILIES)}, "
               f"the plans of scripts/chaos_smoke.py, a lifecycle drain and a "
@@ -3736,6 +4168,7 @@ def main(argv=None) -> int:
                 if "launches" in r:
                     by_path[f"chaos {dt} {fam} {key}"] = r["launches"]
 
+    elapsed()
     print(f"serving observability, bfloat16, full width: the §4 drain with "
           f"telemetry off and on in each family, the spec and shared-prefix "
           f"traces (flat, spec_tokens=2, prefix cache) and a chaos drain with "
@@ -3743,6 +4176,7 @@ def main(argv=None) -> int:
     telemetry, tel_paths = telemetry_phase(cfg, prompts, card)
     by_path.update(tel_paths)
 
+    elapsed()
     print(f"vector lengths and layout policies, full width: the card's "
           f"descriptor scaled to {list(SCALED)} (wider tiles, the same card) "
           f"and the fixed and unpacked policies ({card})")
@@ -3751,6 +4185,7 @@ def main(argv=None) -> int:
         card)
     by_path.update(layout_paths)
 
+    elapsed()
     print(f"mmt4d's gradient kernels vs plain versions on the card at the "
           f"full-width training linears ({TRAIN_BATCH * TRAIN_SEQ} tokens; the "
           f"gate with its silu's gradient), L2-cold, beside torch.matmul ({card}):")
@@ -3761,6 +4196,7 @@ def main(argv=None) -> int:
         checks.grads(dtype, TRAIN_BATCH * TRAIN_SEQ, 576, 192, None, "k proj")
     training, train_paths = training_phase(cfg, card)
     by_path.update(train_paths)
+    elapsed()
     print(f"the dense configs and the vlm family at their published widths: "
           f"Qwen3-8B at full depth through the flat drain (bf16); Qwen2-7B, "
           f"ChatGLM3-6B and OLMo-1B cut to {DENSE_F32_LAYERS} layers (f32 card = "
@@ -3769,33 +4205,46 @@ def main(argv=None) -> int:
           f"layers card = CPU, bf16 at {VLM_LAYERS}) ({card})")
     dense, dense_paths = dense_phase(card)
     by_path.update(dense_paths)
+    elapsed()
     print(f"the recurrent mixers: wkv6 against its plain version at RWKV-6's "
           f"heads (32 of 64), L2-cold, relative tolerance {WKV6_TOL:g} on y "
           f"and the final state ({card}):")
     checks.wkv6(4, 1, "decode rows")
     checks.wkv6(1, 512, "prefill")
-    print(f"RWKV-6 1.6B whole (bf16, monolithic, exact-length prefills), RWKV-6 "
-          f"at {PARITY_LAYERS} layers (f32 card = CPU, generate_static = "
-          f"generate) and the hybrid test configuration (f32 card = CPU) "
-          f"({card})")
+    elapsed()
+    print(f"RWKV-6 1.6B whole (bf16, monolithic, exact-length prefills) and "
+          f"RWKV-6 at {PARITY_LAYERS} layers (f32 card = CPU, generate_static "
+          f"= generate) ({card})")
     recurrent, rec_paths = recurrent_phase(card)
     by_path.update(rec_paths)
+    elapsed()
     print(f"the moe family: the expert-batched mmt4d at qwen3-moe's and "
           f"arctic's expert products; each at full width, f32 card = CPU "
-          f"({', '.join(f'{a} {n} layers' for a, n in MOE_F32_LAYERS.items())}; "
+          f"({', '.join(f'{a} {MOE_F32_LAYERS[a]} layers' for a in MOE_ARCHS)}; "
           f"tokens, first logits within {F32_MARGIN:g}, dropped fractions, "
           f"routing) and the bf16 §4 flat drain cut in depth ({card})")
     moe_res, moe_paths = moe_phase(card, checks)
     by_path.update(moe_paths)
+    elapsed()
+    print(f"jamba: selective_scan against its plain version at jamba's widths "
+          f"(di 8192, N 16), f32 (rtol {SCAN_RTOL:g}, atol {SCAN_ATOL:g}) and "
+          f"bf16; jamba-v0.1-52B in bf16 at its published widths cut to the "
+          f"whole periods that fit, through the monolithic step; its first "
+          f"period with its moe layers in f32, card = CPU ({card})")
+    jamba, jamba_paths = jamba_phase(card, checks)
+    by_path.update(jamba_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
-    # the RWKV-6 1.6B drain for wkv6
+    # the RWKV-6 1.6B drain for wkv6, jamba's first drain for selective_scan
     main_launches = {**launches, **{k: train_main[k] for k in GRAD_KERNELS},
-                     "wkv6": rec_paths["rwkv6-1.6b monolithic bf16"]["wkv6"]}
+                     "wkv6": rec_paths["rwkv6-1.6b monolithic bf16"]["wkv6"],
+                     "selective_scan": jamba_paths[f"{JAMBA} monolithic bf16"][
+                         "selective_scan"]}
     main_steps = {k: training["bf16"]["steps"] if k in GRAD_KERNELS else steps
                   for k in SOURCES}
     main_steps["wkv6"] = recurrent["rwkv6-1.6b"]["steps"]
+    main_steps["selective_scan"] = jamba[JAMBA]["steps"]
 
     kernel_rows = []
     for k, cases in checks.cases.items():
@@ -3812,6 +4261,8 @@ def main(argv=None) -> int:
             "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            **({"library": "none: no PyTorch call computes this recurrence"}
+               if rep["library_ms"] is None else {}),
             "by_descriptor": by_descriptor(k, scaled_checks),
             **({"d_head_128": [{key: c[key] for key in (
                 "shape", "dtype", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3840,9 +4291,10 @@ def main(argv=None) -> int:
                        "f32_chunk_cases": f32_chunk_cases,
                        "scaled_checks": {n: c.cases for n, c in scaled_checks.items()},
                        "training": training, "dense": dense,
-                       "recurrent": recurrent, "moe": moe_res,
+                       "recurrent": recurrent, "moe": moe_res, "jamba": jamba,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
+    elapsed()
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -74,7 +74,7 @@ CLASSES = {
         "rms norms": [(transformer, "norm_apply")],
         "dt_proj (torch.matmul)": [(mamba, "_delta")],
         "conv": [(mamba, "_causal_conv")],
-        "scan": [(mamba, "_ssm_scan")],
+        "scan": [(mamba, "selective_scan")],
         "attention core": [(attention, "core_attention")],
     },
 }

@@ -2,8 +2,9 @@
 JAX package: ``ops.py`` (the wrapper, with its launch count) beside
 ``ref.py`` (the plain PyTorch version).  Sources live in ``csrc/``.
 mmt4d's package also holds its two gradient products (``mmt4d_dgrad``,
-``mmt4d_wgrad``, ``csrc/mmt4d_bwd.cu``), and ``wkv6`` RWKV-6's recurrence
-(``csrc/wkv6.cu``), which have no Pallas counterpart.
+``mmt4d_wgrad``, ``csrc/mmt4d_bwd.cu``); ``wkv6`` RWKV-6's recurrence
+(``csrc/wkv6.cu``) and ``selective_scan`` mamba's
+(``csrc/selective_scan.cu``) have no Pallas counterpart.
 
 A wrapper adds one to its ``launches`` where it launches its kernel.  A
 CUDA graph replay calls no wrapper, so each captured step records the
@@ -19,11 +20,13 @@ def wrappers() -> dict:
     from repro_torch.kernels.mmt4d.ops import mmt4d, mmt4d_dgrad, mmt4d_wgrad
     from repro_torch.kernels.pack.ops import pack
     from repro_torch.kernels.ragged_attn.ops import ragged_attention
+    from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.unpack.ops import unpack
     from repro_torch.kernels.wkv6.ops import wkv6
     return {"mmt4d": mmt4d, "pack": pack, "unpack": unpack,
             "ragged_attn": ragged_attention, "mmt4d_dgrad": mmt4d_dgrad,
-            "mmt4d_wgrad": mmt4d_wgrad, "wkv6": wkv6}
+            "mmt4d_wgrad": mmt4d_wgrad, "wkv6": wkv6,
+            "selective_scan": selective_scan}
 
 
 def launch_counts() -> dict:

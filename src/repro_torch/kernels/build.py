@@ -46,6 +46,8 @@ _SIGNATURES = {
     "repro_packed_gemm": [_P, _P, _P, _P, _P, _I, _L, _L, _L, _P, _I, _I, _I,
                           _P],
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_selective_scan": [_P, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L,
+                             _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 build_seconds = 0.0   # wall time of the last build (0.0: reused or not built)

@@ -11,18 +11,20 @@ Weights are random, drawn from ``--seed``.  The family:
 - ``--chunk-tokens C``: the flat token-level step;
 - ``--chunk-tokens C --no-flat``: the dense chunked ``[slots, s]`` step.
 
-``--arch`` takes every registered architecture the port serves (the
-dense, vlm, encdec, ssm and moe families; jamba, a hybrid with moe
-layers, is refused until its selective-scan kernel, ROADMAP B9);
-``--layers`` cuts its depth (no moe config fits one card whole:
-``--arch qwen3-moe-235b-a22b --layers 8``, ``--arch arctic-480b --layers
-1``).  A moe model prints the drain's dropped fraction (of the real
-tokens' assignments: ``moe.DropCounter``).  A recurrent model (``--arch rwkv6-1.6b``)
-is served by the monolithic step only: ``--chunk-tokens`` raises, with
-the engine's reason.  Its prompts prefill at exact lengths, each length
-making its program (on the card, its graph) at its first prefill, so the
-launcher serves the requests once before the timed drain, which then
-replays.
+``--arch`` takes every registered architecture (the dense, vlm, encdec,
+ssm, moe and hybrid families); ``--layers`` cuts its depth (no moe config
+fits one card whole: ``--arch qwen3-moe-235b-a22b --layers 8``, ``--arch
+arctic-480b --layers 1``, ``--arch jamba-v0.1-52b --layers 16``).  A
+hybrid's weights and caches are stacked per position of its layer
+period (jamba's 8: seven mamba mixers and attention at index 4, moe on
+every second layer), so ``--layers`` must be a whole number of periods.
+A moe model prints the drain's dropped fraction (of the real tokens'
+assignments: ``moe.DropCounter``).  A recurrent model (``--arch
+rwkv6-1.6b``, jamba) is served by the monolithic step only:
+``--chunk-tokens`` raises, with the engine's reason.  Its prompts prefill
+at exact lengths, each length making its program (on the card, its
+graph) at its first prefill, so the launcher serves the requests once
+before the timed drain, which then replays.
 ``--static`` serves one batch of ``--slots`` prompts of ``--prompt-len``
 tokens in lock step through ``Engine.generate_static`` (the dense-cache
 decode step); a static family is served only so: encdec
@@ -58,6 +60,7 @@ plain versions instead):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --layers 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --layers 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
         --layers 8 --chunk-tokens 128
     REPRO_HW=h100_vl512 PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -84,21 +87,12 @@ from repro_torch.configs import (ARCHS, RunConfig, ShapeSpec, get_config,
 from repro_torch.core.linear import prepack_params
 from repro_torch.models.model import build_model
 from repro_torch.models.moe import DropCounter
+from repro_torch.models.transformer import pattern_period
 from repro_torch.serving.engine import Engine
 
 
-def refusal(arch: str):
-    """Why the launcher does not serve ``arch``, or None."""
-    cfg = get_config(arch)
-    if cfg.moe and "mamba" in cfg.layer_types:
-        return (f"{arch} is not served yet: jamba whole waits for the "
-                f"selective-scan kernel (ROADMAP B9); its mamba mixer and moe "
-                f"layers run in the tests")
-    return None
-
-
-# the architectures the launcher serves: every one but jamba (B9)
-SERVABLE = [a for a in ARCHS if refusal(a) is None]
+# the architectures the launcher serves: every registered one
+SERVABLE = list(ARCHS)
 
 
 def describe_hw(model) -> str:
@@ -120,7 +114,8 @@ def _timed_drain(engine: Engine):
 # the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers;
 # mmt4d's gradient products share one kernel per dtype, whose first
 # template argument is true for wgrad
-_PORT_KERNEL = re.compile(r"::(mmt4d|pack|unpack|ragged_attn|wkv6)(?:_bf16|_f32)?_kernel\b")
+_PORT_KERNEL = re.compile(
+    r"::(mmt4d|pack|unpack|ragged_attn|wkv6|selective_scan)(?:_bf16|_f32)?_kernel\b")
 _GRAD_KERNEL = re.compile(r"::packed_gemm(?:_wgmma)?_kernel<(true|false)\b")
 
 
@@ -283,13 +278,16 @@ def main(argv=None):
         ap.error("--profile measures the card's device time: it needs "
                  "--device cuda")
 
-    if refusal(args.arch):
-        ap.error(refusal(args.arch))
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg, layers=args.layers)
     elif args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    try:
+        pattern_period(cfg)
+    except ValueError as e:
+        ap.error(f"--layers {cfg.n_layers}: {e} (the weights and caches are "
+                 f"stacked per period position: cut the depth in whole periods)")
     run = RunConfig(param_dtype=args.dtype, compute_dtype=args.dtype,
                     layout_policy=args.policy)
     model = build_model(cfg, run, ShapeSpec("serve", args.max_len, args.slots,

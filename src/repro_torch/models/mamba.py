@@ -5,17 +5,19 @@ The in, x and out projections go through
 :func:`~repro_torch.core.linear.linear_apply` (mmt4d); ``dt_proj`` stays a
 plain float32 product, as in the JAX package
 (:func:`~repro_torch.core.linear.prepack_params` leaves it unpacked).  The
-depthwise causal convolution and the selective scan are plain PyTorch, as
-the JAX package leaves them to XLA outside Pallas: the convolution as the
-sum of its ``d_conv`` shifted products, the scan sequentially over the
-sequence where the JAX package runs ``lax.associative_scan`` (the same
-recurrence; float32 sums in another order).  A scan kernel waits with
-jamba (ROADMAP B9).
+depthwise causal convolution is plain PyTorch, as the JAX package leaves
+it to XLA outside Pallas: the sum of its ``d_conv`` shifted products.
+The selective scan, its output contraction, skip and gate are one call
+of :func:`~repro_torch.kernels.selective_scan.ops.selective_scan`: the
+``selective_scan`` kernel on the card, with no ``[B, S, di, N]`` tensor;
+on the CPU its plain version, sequential over the sequence where the JAX
+package runs ``lax.associative_scan`` (the same recurrence; float32 sums
+in another order).
 
-Modes: train/prefill from zero state (no cache), and with a cache
-{"conv" [B, d_conv - 1, di], "ssm" [B, di, N]}: one update at s = 1, or a
-prefill from the cached state (its ``h0`` injected into the first step).
-The cache is read and updated in place.
+Modes: train/prefill from zero state (no cache; a zero state owned by the
+call), and with a cache {"conv" [B, d_conv - 1, di], "ssm" [B, di, N]}:
+one update at s = 1, or a prefill from the cached state (its ``h0``
+injected into the first step).  The cache is read and updated in place.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
+from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ref import _ssm_scan  # noqa: F401
 from repro_torch.models.common import Stream, maybe_unpack
 
 __all__ = ["mamba_init", "mamba_apply", "init_mamba_cache"]
@@ -98,17 +102,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(x.dtype)
 
 
-def _ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
-    """h_t = da_t * h_{t-1} + dbx_t over axis 1 from h_{-1} = 0; da, dbx
-    [B, S, di, N].  Returns every h_t."""
-    h = dbx[:, 0]
-    hs = [h]
-    for t in range(1, da.shape[1]):
-        h = da[:, t] * h + dbx[:, t]
-        hs.append(h)
-    return torch.stack(hs, 1)
-
-
 def _delta(params: dict, dt: torch.Tensor) -> torch.Tensor:
     """The step size ``softplus(dt @ dt_proj.w + dt_proj.b)``, a plain
     float32 product."""
@@ -122,7 +115,6 @@ def mamba_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
     d, di, dt_rank, n = _dims(cfg)
     xz = maybe_unpack(linear_apply(params["in_proj"], x, ctx))
     x_in, z = xz[..., :di], xz[..., di:]
-    s = x_in.shape[1]
 
     if cache is None:
         x_c = _causal_conv(x_in, params["conv_w"], params["conv_b"])
@@ -136,23 +128,11 @@ def mamba_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
     proj = linear_apply(params["x_proj"], x_c, ctx)
     dt, b_ssm, c_ssm = proj.split([dt_rank, n, n], dim=-1)
     delta = _delta(params["dt_proj"], dt)                        # [B,S,di]
-    a = -torch.exp(params["a_log"])                              # [di,N]
-    da = torch.exp(delta[..., None] * a)                         # [B,S,di,N]
-    dbx = (delta[..., None] * b_ssm[:, :, None, :].float()
-           * x_c[..., None].float())
-
     if cache is None:
-        h = _ssm_scan(da, dbx)
+        state = torch.zeros((x_c.shape[0], di, n), dtype=torch.float32,
+                            device=x_c.device)
     else:
-        h0 = cache["ssm"]
-        if s == 1:
-            h = (da[:, 0] * h0 + dbx[:, 0])[:, None]
-        else:       # a prefill from the cached state: h0 enters step 0
-            dbx = torch.cat([(dbx[:, 0] + da[:, 0] * h0)[:, None], dbx[:, 1:]], 1)
-            h = _ssm_scan(da, dbx)
-        h0.copy_(h[:, -1])
-
-    y = torch.einsum("bsdn,bsn->bsd", h, c_ssm.float())
-    y = y + params["d_skip"] * x_c.float()
-    y = (y * F.silu(z.float())).to(xz.dtype)
+        state = cache["ssm"]
+    y = selective_scan(delta, x_c, z, b_ssm, c_ssm, params["a_log"],
+                       params["d_skip"], state)
     return linear_apply(params["out_proj"], y, ctx), cache

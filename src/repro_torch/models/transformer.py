@@ -161,9 +161,10 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
 def layers_init(generator: torch.Generator, cfg: ModelConfig,
                 dtype: torch.dtype, *, cross: bool = False) -> dict:
     """Stacked ``{"p<i>": block}`` groups, every leaf ``[G, ...]``, drawn
-    group by group and copied into the stack as each is drawn, so the
-    memory peak is the stack and one group (a single group is the stack,
-    no copy): a moe model's layers fill most of the card."""
+    block by block and copied into the stack as each is drawn, so the
+    memory peak is the stack and one block (a single group is the stack,
+    no copy): a moe model's layers fill most of the card, and one of
+    jamba's 8-layer groups holds four moe layers."""
     period = pattern_period(cfg)
     n = cfg.n_layers // period
 
@@ -174,16 +175,18 @@ def layers_init(generator: torch.Generator, cfg: ModelConfig,
             else:
                 dst[k][g].copy_(v)
 
-    stacked = None
+    stacked = {}
     for g in range(n):
-        group = {f"p{i}": block_init(generator, cfg, i, dtype, cross=cross)
-                 for i in range(period)}
-        if n == 1:
-            return tree_map(lambda t: t[None], group)
-        if stacked is None:
-            stacked = tree_map(lambda t: t.new_empty((n, *t.shape)), group)
-        put(stacked, group, g)
-        del group
+        for i in range(period):
+            block = block_init(generator, cfg, i, dtype, cross=cross)
+            if n == 1:
+                stacked[f"p{i}"] = tree_map(lambda t: t[None], block)
+                continue
+            if g == 0:
+                stacked[f"p{i}"] = tree_map(lambda t: t.new_empty((n, *t.shape)),
+                                            block)
+            put(stacked[f"p{i}"], block, g)
+            del block
     return stacked
 
 

@@ -10,8 +10,8 @@ another, and their gradients summed in float32, each divided by n.  The
 step writes the new parameters, moments and error buffer into the state's
 own tensors, as the reference's donated state lets XLA do, so a CUDA graph
 of the step binds one state for good.  The recurrent families (RWKV-6, the
-mamba hybrids) do not train on the card: the wkv6 kernel has no backward
-yet (:func:`require_trainable`; ROADMAP B8).
+mamba hybrids) do not train on the card: the wkv6 and selective_scan
+kernels have no backward yet (:func:`require_trainable`; ROADMAP B8).
 """
 
 from __future__ import annotations
@@ -35,9 +35,9 @@ __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
 def require_trainable(cfg, device) -> None:
     """Raise for a moe model on any device, and for a recurrent family on
     the card, naming each: the expert-batched product has no gradient
-    kernels yet (ROADMAP B11), RWKV-6's recurrence is a kernel with no
-    backward yet (ROADMAP B8), and the mamba hybrids wait with it.  On the
-    CPU every other family trains through the plain versions."""
+    kernels yet (ROADMAP B11), and RWKV-6's and mamba's recurrences are
+    kernels with no backward yet (wkv6 and selective_scan, ROADMAP B8).
+    On the CPU every other family trains through the plain versions."""
     if cfg.moe:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}, {cfg.n_experts} experts) does not "
@@ -47,9 +47,9 @@ def require_trainable(cfg, device) -> None:
     if recurrent and torch.device(device).type == "cuda":
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}, {recurrent} layers) does not train on "
-            f"the card yet: the recurrent families train with the wkv6 "
-            f"kernel's backward (ROADMAP B8), mamba's with its scan kernel "
-            f"(ROADMAP B9)")
+            f"the card yet: the recurrent families train with the backward "
+            f"of their recurrence kernels, wkv6's and selective_scan's "
+            f"(ROADMAP B8)")
 
 
 def _rebuild(tree, it):

@@ -23,6 +23,12 @@ graph's state tree keeps its pointers, and the f32 drain equals the CPU's.
 The moe family: the expert-batched mmt4d (B_pack [E, ...], the expert dim
 in the grid) against its plain version and the 2-D kernel, the moe layer
 on the card against the CPU, and a reduced qwen3-moe engine's drains.
+Mamba: the selective_scan kernel against its plain version (decode rows
+from a cached state, prefills from zero and from a cached state, N = 8
+and 16, strided views of the projections' outputs, the state written in
+place, bit-identical repeats, refusals: gradients, another N, mixed
+dtypes), and a reduced jamba engine (moe on) whose second drain captures
+nothing and whose f32 drain equals the CPU's.
 A CUDA kernel has no interpret mode, so without a card these tests skip.
 Run them on the card with (``--noconftest``: tests/conftest.py imports JAX,
 which a machine with only the port need not have):
@@ -674,7 +680,8 @@ def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
     n = len(calls)
     want = {"mmt4d": 15 * n, "pack": 5 * n, "unpack": n,
             "ragged_attn": 2 * n if eng.flat else 0,
-            "mmt4d_dgrad": 0, "mmt4d_wgrad": 0, "wkv6": 0}
+            "mmt4d_dgrad": 0, "mmt4d_wgrad": 0, "wkv6": 0,
+            "selective_scan": 0}
     assert kernels.launch_counts() == want
 
 
@@ -1453,3 +1460,134 @@ def test_rwkv_second_drain_captures_nothing(gen, dtype, slots):
         batch = {"tokens": rng.integers(0, 1024, (slots, 9)).astype(np.int32)}
         np.testing.assert_array_equal(eng.generate_static(batch, 5),
                                       eng.generate(batch, 5))
+
+
+# ---------------------------------------------------------------------------
+# mamba's selective scan and the jamba serving path
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(gen, b, s, di, n, dtype, h0=True, dt_rank=12):
+    """The scan's operands as mamba_apply hands them over: x and z halves
+    of one in-projection output, B and C slices of one x-projection
+    output (strided views), delta a softplus, a_log = log(1..N) plus
+    noise, d_skip near 1, h0 ~ N(0, 1) or zero."""
+    xz = torch.randn((b, s, 2 * di), generator=gen, device="cuda")
+    xz[..., :di] = torch.nn.functional.silu(xz[..., :di])
+    xz = xz.to(dtype)
+    proj = torch.randn((b, s, dt_rank + 2 * n), generator=gen, device="cuda").to(dtype)
+    delta = torch.nn.functional.softplus(
+        torch.randn((b, s, di), generator=gen, device="cuda") - 2)
+    a_log = (torch.log(torch.arange(1, n + 1, device="cuda", dtype=torch.float32))
+             + 0.1 * torch.randn((di, n), generator=gen, device="cuda"))
+    d_skip = 1 + 0.1 * torch.randn((di,), generator=gen, device="cuda")
+    state = (torch.randn((b, di, n), generator=gen, device="cuda") if h0
+             else torch.zeros((b, di, n), device="cuda"))
+    views = (xz[..., :di], xz[..., di:], proj[..., dt_rank:dt_rank + n],
+             proj[..., dt_rank + n:])
+    return delta, views, a_log, d_skip, state
+
+
+def _scan_close(got, want, dtype):
+    """float32: within rtol 1e-5 / atol 1e-6 of the plain version, element
+    by element (the state's recurrence rounds as the plain version does;
+    the sum over N runs in another order); bfloat16 y: within 2e-2 of
+    max(1, max |plain|) (a bfloat16 rounding of nearby float32 values)."""
+    if dtype is torch.float32:
+        return bool(((got - want).abs() <= 1e-6 + 1e-5 * want.abs()).all())
+    return _close(got, want, 2e-2)
+
+
+@pytest.mark.parametrize("b,s,di,n,h0", [(4, 1, 8192, 16, True),
+                                         (1, 512, 256, 16, False),
+                                         (2, 130, 300, 16, True),
+                                         (3, 37, 200, 8, True),
+                                         (2, 1, 64, 8, False)],
+                         ids=["decode-rows", "prefill-zero", "prefill-cached",
+                              "n8", "n8-decode-zero"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_selective_scan_matches_plain(gen, dtype, b, s, di, n, h0):
+    """The kernel on strided views of xz and proj against its plain version
+    on the same operands: y and the final state (written into ``state``
+    in place) within the dtype's tolerance; one launch a call; a repeat
+    from the same h0 bit-identical."""
+    from repro_torch import kernels
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    delta, views, a_log, d_skip, state = _scan_inputs(gen, b, s, di, n, dtype, h0)
+    h_init = state.clone()
+    want_h = state.clone()
+    want = selective_scan_ref(delta, *views, a_log, d_skip, want_h)
+    kernels.reset_launch_counts()
+    got = selective_scan(delta, *views, a_log, d_skip, state)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["selective_scan"] == 1
+    assert got.dtype == dtype and got.shape == (b, s, di)
+    assert _scan_close(got.float(), want.float(), dtype)
+    assert _scan_close(state, want_h, torch.float32)
+    first_h = state.clone()
+    state.copy_(h_init)
+    again = selective_scan(delta, *views, a_log, d_skip, state)
+    assert torch.equal(again, got) and torch.equal(state, first_h)
+
+
+def test_selective_scan_refuses_what_it_does_not_take(gen):
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    delta, views, a_log, d_skip, state = _scan_inputs(gen, 2, 3, 64, 16,
+                                                      torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+        selective_scan(delta.requires_grad_(), *views, a_log, d_skip, state)
+    delta = delta.detach()
+    with pytest.raises(ValueError, match="state width"):
+        selective_scan(delta, views[0], views[1], views[2][..., :4],
+                       views[3][..., :4], a_log[:, :4].contiguous(), d_skip,
+                       state[..., :4].contiguous())
+    with pytest.raises(TypeError):
+        selective_scan(delta, views[0].to(torch.bfloat16), *views[1:], a_log,
+                       d_skip, state)
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan(delta, *views, a_log, d_skip, state.transpose(1, 2))
+
+
+def _jamba_model(dtype, device="cuda"):
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
+    from repro_torch.models.model import build_model
+    name = str(dtype)[6:]
+    return build_model(reduced_config(get_config("jamba-v0.1-52b")),
+                       RunConfig(param_dtype=name, compute_dtype=name),
+                       ShapeSpec("serve", 128, 3, "decode"), device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_jamba_second_drain_captures_nothing(gen, dtype):
+    """Reduced jamba-v0.1 (8 layers: seven mamba mixers through the scan
+    kernel at N = 8, attention at index 4, 4 experts top-2 on every second
+    layer) through the monolithic engine: one selective_scan launch per
+    mamba layer and model call; a second drain captures nothing and
+    repeats the first's tokens; in float32 the drain gives the CPU's
+    tokens."""
+    from repro_torch import kernels
+    from repro_torch.serving.engine import Engine
+    model = _jamba_model(dtype)
+    params = model.init(gen)
+    eng = Engine(model, params, device="cuda", max_slots=3, page_tokens=16)
+    eng.warmup()
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, 512, n), k) for n, k in ((7, 6), (30, 4), (7, 5), (19, 6))]
+    calls = []
+    run = eng._run_paged
+    eng._run_paged = lambda *a, **kw: calls.append(1) or run(*a, **kw)
+
+    def drain(e):
+        rids = [e.add_request(p, k) for p, k in reqs]
+        fin = {r.rid: r.out_tokens for r in e.drain()}
+        return [fin[r] for r in rids]
+
+    kernels.reset_launch_counts()
+    first = drain(eng)
+    assert kernels.launch_counts()["selective_scan"] == 7 * len(calls)
+    captures = eng.stats()["captures"]["paged"]
+    assert drain(eng) == first and eng.stats()["captures"]["paged"] == captures
+    if dtype is torch.float32:
+        cpu = Engine(_jamba_model(dtype, "cpu"), params, device="cpu",
+                     max_slots=3, page_tokens=16)
+        assert drain(cpu) == first

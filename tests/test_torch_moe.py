@@ -27,7 +27,8 @@ CPU in float32, on reduced configs (4 experts, top-2, d 64, expert d_ff
 - the weights carried across leaf for leaf, and the router left a plain
   float32 product by ``prepack_params`` (also under a bfloat16 cast);
 - ``require_trainable`` refusing the moe family, the launcher serving
-  the two moe configs and refusing jamba, naming ROADMAP B9.
+  the two moe configs and reduced jamba, and refusing a jamba depth that
+  is not a whole number of its 8-layer periods.
 """
 
 import dataclasses
@@ -338,10 +339,19 @@ def test_expert_product_refused_under_autograd():
 def test_serve_launcher_moe_and_jamba_refusal(capsys):
     from repro_torch.launch.serve import SERVABLE, main
     assert set(SERVED) <= set(SERVABLE)
-    assert "jamba-v0.1-52b" not in SERVABLE
-    with pytest.raises(SystemExit):
-        main(["--arch", "jamba-v0.1-52b", "--reduced", "--device", "cpu"])
-    assert "ROADMAP B9" in capsys.readouterr().err
+    assert "jamba-v0.1-52b" in SERVABLE
+    small = ["--device", "cpu", "--dtype", "float32", "--requests", "3",
+             "--min-prompt", "4", "--max-prompt", "12", "--new", "3",
+             "--max-len", "64"]
+    fin = main(["--arch", "jamba-v0.1-52b", "--reduced", *small])
+    out = capsys.readouterr().out
+    assert len(fin) == 3 and all(len(r.out_tokens) == 3 for r in fin)
+    assert "monolithic step" in out and "dropped" in out and "3 requests" in out
+    for layers in ("4", "12"):           # periods of 8: half, one and a half
+        with pytest.raises(SystemExit):
+            main(["--arch", "jamba-v0.1-52b", "--reduced", "--layers", layers,
+                  *small])
+        assert "whole periods" in capsys.readouterr().err
     main(["--arch", "arctic-480b", "--reduced", "--device", "cpu", "--dtype",
           "float32", "--requests", "3", "--min-prompt", "4", "--max-prompt",
           "12", "--new", "3", "--max-len", "64", "--chunk-tokens", "16"])
