@@ -182,9 +182,11 @@ selective_scan kernel:
      layers, batch 4, each with static_run's checks (the vision prefix counted once
      per batch), prefill and decode ms;
  15. the recurrent mixers: wkv6 (csrc/wkv6.cu) against its plain version at
-     RWKV-6's heads (32 of 64), f32, decode rows (4 rows, 1 token) and a
-     512-token prefill, y and the final state within WKV6_TOL, timed
-     L2-cold beside its bound and the plain token loop (no library call);
+     RWKV-6's heads (32 of 64), f32, decode rows (4 rows, 1 token), a
+     512-token prefill and a 2-row 256-token prefill from a cached state,
+     y and the final state within WKV6_TOL, timed L2-cold beside its
+     bound, the plain token loop (no library call) and the headline
+     cases' times before the chunked redesign (EARLIER_MS);
      RWKV-6 1.6B at its published widths and depth (24 layers, d 2048,
      vocab 65536, weights drawn on the card) in bf16 through the
      monolithic engine (4 slots, seq_len 1024): the §4 requests, each
@@ -218,9 +220,10 @@ selective_scan kernel:
      views of the projections' outputs), f32 and bf16: decode rows (4
      rows, 1 token, from a nonzero state), a 512-token prefill from zero
      and a 2-row 256-token prefill from a cached state, y and the state
-     (written in place) within SCAN_RTOL / SCAN_ATOL (bf16 y: TOL[BF]), a
-     repeat bit-identical, timed L2-cold beside its bound and the plain
-     version (no library call); jamba-v0.1-52B at its published widths
+     (written in place) within SCAN_RTOL / SCAN_ATOL (bf16 y: TOL[BF]),
+     the f32 state bit for bit, a repeat bit-identical, timed L2-cold
+     beside its bound, the plain version (no library call) and the bf16
+     cases' times before the redesign (EARLIER_MS); jamba-v0.1-52B at its published widths
      (d 4096, vocab 65536, 16 experts top-2 of d_ff 14336 on every second
      layer) in bf16, cut to the whole 8-layer periods whose reckoned peak
      fits the card (printed), weights drawn on the card and packed in
@@ -321,6 +324,15 @@ WKV6_TOL = 1e-5
 # order); bfloat16 y within TOL[BF] of max(1, max |plain|) (a bfloat16
 # rounding of nearby float32 values)
 SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-6
+# the recurrent kernels' headline cases before their redesign (PERF.md §6:
+# wkv6's token loop, one thread a state column, float32; selective_scan's
+# one thread a channel, bfloat16; L2-cold, NVIDIA H100 80GB HBM3 at
+# 700 W), printed beside this run's times
+EARLIER_MS = {("wkv6", "decode rows", "float32"): ("token loop", 0.004781),
+              ("wkv6", "prefill", "float32"): ("token loop", 0.243790),
+              ("selective_scan", "decode rows", "bfloat16"): ("a thread a channel", 0.012227),
+              ("selective_scan", "prefill 512", "bfloat16"): ("a thread a channel", 0.592840),
+              ("selective_scan", "prefill cached", "bfloat16"): ("a thread a channel", 0.299648)}
 L2_FLUSH_BYTES = 64 * 2**20     # operand copies per cold-timed case pass this
 # two runs of one drain may pick differently only where a pick's (perturbed,
 # for a sampled pick) top-2 logit margin is below this: float32 logits of
@@ -330,6 +342,15 @@ F32_MARGIN = 1e-5
 BF16_MARGIN = 0.0625
 # the sampled drains' per-request temperatures, in turn (0 picks greedily)
 TEMPERATURES = (1.0, 0.7, 1.3, 0.0)
+
+
+def earlier_note(name: str, label: str, dtype: str, ms: float) -> str:
+    """``; before the redesign (design): t ms, x times this run's`` where
+    EARLIER_MS has the case."""
+    if (name, label, dtype) not in EARLIER_MS:
+        return ""
+    design, t = EARLIER_MS[name, label, dtype]
+    return f"; before the redesign ({design}): {t:.6f} ms, {t / ms:.2f}x this run's"
 
 
 def cold_sets(*tensors):
@@ -503,7 +524,8 @@ class KernelChecks:
         c = self.cases["wkv6"][-1]
         print(f"  {'wkv6':<11} {label:<44} float32  {c['kernel_ms']:.6f} ms "
               f"(bound {bound_ms:.6f} by {bound_by}, plain {c['plain_ms']:.4f}, "
-              f"no library call)")
+              f"no library call"
+              f"{earlier_note('wkv6', label, 'float32', c['kernel_ms'])})")
 
     def selective_scan(self, dtype, b, s, h0, label, di=8192, n=16, dt_rank=256):
         """selective_scan at jamba's widths (di 8192, N 16, dt_rank 256):
@@ -564,6 +586,14 @@ class KernelChecks:
             if not ok:
                 raise AssertionError(f"selective_scan {label} {dtype} {name}: "
                                      f"error {errs[name]} over {limits[name]}")
+        # the state's products round as the plain version's: in float32 the
+        # final state is the plain version's bit for bit
+        state_bitwise = torch.equal(got_h, want_h)
+        print(f"  {'selective_scan':<14} {label + ' state':<41} "
+              f"{str(dtype)[6:]:<8} bit for bit: {state_bitwise}")
+        if dtype is TF and not state_bitwise:
+            raise AssertionError(f"selective_scan {label} float32: the final "
+                                 f"state differs from the plain version's")
         es = x.element_size()
         nbytes = (4 * b * s * di + 3 * es * b * s * di + 2 * es * b * s * n
                   + 4 * di * n + 4 * di + 2 * 4 * b * di * n)
@@ -575,7 +605,7 @@ class KernelChecks:
                      f"state ({b},{di},{n})",
             "dtype": str(dtype)[6:], "max_abs_err": max(errs.values()),
             "max_abs_err_y": errs["y"], "max_abs_err_state": errs["state"],
-            "tolerance": limits,
+            "state_bitwise": state_bitwise, "tolerance": limits,
             "kernel_ms": time_ms(cycle(lambda *t: call(selective_scan, *t), sets)),
             "plain_ms": time_ms(cycle(lambda *t: call(selective_scan_ref, *t),
                                       sets[:1]), iters=5 if s > 1 else 20,
@@ -584,7 +614,8 @@ class KernelChecks:
         c = self.cases["selective_scan"][-1]
         print(f"  {'selective_scan':<14} {label:<41} {str(dtype)[6:]:<8} "
               f"{c['kernel_ms']:.6f} ms (bound {bound_ms:.6f} by {bound_by}, "
-              f"plain {c['plain_ms']:.4f}, no library call)")
+              f"plain {c['plain_ms']:.4f}, no library call"
+              f"{earlier_note('selective_scan', label, c['dtype'], c['kernel_ms'])})")
 
     def mmt4d(self, dtype, w_tokens, k, n, act, label, bias=False):
         """``bias``: with a packed bias in the epilogue (added before the
@@ -4211,6 +4242,7 @@ def main(argv=None) -> int:
           f"and the final state ({card}):")
     checks.wkv6(4, 1, "decode rows")
     checks.wkv6(1, 512, "prefill")
+    checks.wkv6(2, 256, "prefill cached")
     elapsed()
     print(f"RWKV-6 1.6B whole (bf16, monolithic, exact-length prefills) and "
           f"RWKV-6 at {PARITY_LAYERS} layers (f32 card = CPU, generate_static "

@@ -45,6 +45,59 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Asynchronous copies of `bytes` (4, 8 or 16) from global into shared
+// memory (cp.async; 16 bytes bypass L1), committed and waited for by group.
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Stage `rows` rows of `row_bytes` from global memory (rows `stride` bytes
+// apart) into shared memory (rows `smem_stride` bytes apart), in pieces of
+// `gran` bytes spread over `nthreads` threads (this one is `tid`):
+// cp.async for 4, 8 and 16, a plain load and store for 2 (a bfloat16 view
+// at an odd element).  The caller picks `gran` with copy_granule, so
+// every piece is aligned.
+__device__ __forceinline__ void stage_rows(void* smem, int smem_stride,
+                                           const void* gmem, int64_t stride,
+                                           int rows, int row_bytes, int gran,
+                                           int tid, int nthreads) {
+  const int per_row = row_bytes / gran;
+  char* dst = (char*)smem;
+  const char* src = (const char*)gmem;
+  for (int i = tid; i < rows * per_row; i += nthreads) {
+    const int r = i / per_row, c = (i - r * per_row) * gran;
+    if (gran >= 4)
+      cp_async(dst + r * smem_stride + c, src + r * stride + c, gran);
+    else
+      *(uint16_t*)(dst + r * smem_stride + c) = *(const uint16_t*)(src + r * stride + c);
+  }
+}
+
+// The widest piece (16, 8 or 4 bytes, else the element) that divides the
+// address and every byte stride and width given: decided on the host from
+// the pointers and strides, so a view that is not 16-byte aligned takes a
+// narrower copy rather than being refused.
+inline int copy_granule(const void* p, int elem, int64_t a, int64_t b, int64_t c) {
+  for (int g = 16; g > elem; g /= 2)
+    if ((uintptr_t)p % g == 0 && (a * elem) % g == 0 && (b * elem) % g == 0 &&
+        (c * elem) % g == 0)
+      return g;
+  return elem;
+}
+
 constexpr int kMaxSmem = 232448;   // 227 KB opt-in dynamic shared memory
 constexpr int kMaxDevices = 64;
 

@@ -24,30 +24,68 @@
 // prefill) and loop over the sequence in about two launches per token.
 //
 // Bound: bytes (delta, x, z and y per token and channel, B and C per
-// token, the state read and written once); the ~8 operations per
-// (token, channel, state) element are a few percent of the card's float32
-// rate.  But a prefill is a chain of S dependent steps, so its time is the
-// chain's latency.  The design keeps everything but that chain off the
-// critical path:
+// token, the state read and written once).  But the work is ~8 operations
+// per (token, channel, state) element, one of them an accurate expf, so a
+// prefill is bound by the issue rate of the SMs it fills, and a decode
+// call (one step) by the state's bytes and the launch.  The design:
 //
-// - One thread per (row, channel), 128 channels a block; the thread holds
-//   its N state floats and its N values of a in registers for the whole
-//   sequence, so the state is read from memory once and written once per
-//   call, and channels need no exchange.
-// - B_t and C_t, the same for every channel of the row, are staged for a
-//   chunk of kChunk steps through shared memory in one coalesced pass and
-//   read as broadcasts; delta, x and z are read coalesced along channels.
-// - The products are rounded as the plain version rounds them (separate
-//   multiplies and adds, __fmul_rn / __fadd_rn: no contraction into FMAs),
-//   with the accurate expf, so the state matches the plain version on the
-//   card bit for bit where expf does; only the sum over n (an FMA chain in
-//   n order here, a batched product there) is taken in another order.
+// - N split over lanes: N / 4 lanes per channel (4 at N = 16, 2 at N = 8),
+//   each holding 4 state floats and 4 values of a in registers for the
+//   whole sequence; 128 threads a block cover 128 / (N / 4) channels, so a
+//   one-row prefill at di 8192 fills 256 blocks.  A lane reads its 4
+//   state and 4 a_log floats as one 16-byte load (a warp reads 512
+//   contiguous bytes) and writes the final state the same way.  y's sum
+//   over n is each lane's partial, written to shared memory and added
+//   over the lanes once per chunk (no shuffle in the step loop, whose
+//   unrolled steps then overlap).
+// - delta, x, z, B and C are staged per chunk of kSteps steps through
+//   shared memory, double-buffered: the next chunk's cp.async copies are
+//   in flight while this chunk's steps run, so the step loop reads only
+//   shared memory and registers.  Each operand is copied in the widest
+//   piece (16, 8 or 4 bytes, or a bfloat16 element) that its address and
+//   strides allow, chosen on the host (copy_granule), so the unaligned
+//   views of odd widths are taken, not refused.
+// - The step loop only carries the recurrence and y's contraction; the
+//   lanes' sum, the skip, the gate's silu and the cast run once per chunk
+//   over all 128 threads, one (step, channel) each, with coalesced stores
+//   of y.  A one-step call (the decode step) reads its operands straight
+//   from memory instead, with the same arithmetic and no barrier.
+// - The state's products are rounded as the plain version rounds them
+//   (separate multiplies and adds, __fmul_rn / __fadd_rn: no contraction
+//   into FMAs), with the accurate expf, so the state matches the plain
+//   version on the card bit for bit where expf does; only the sum over n
+//   (per-lane FMA chains, then the shuffles) is taken in another order.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // channels per block
-constexpr int kChunk = 64;      // steps of B and C staged per pass
+constexpr int kThreads = 128;
+
+template <typename T, int N> struct ScanShape {
+  static constexpr int kLanes = N / 4;               // lanes per channel
+  static constexpr int kCh = kThreads / kLanes;      // channels per block
+  // steps per staged chunk: two chunks of operands and the lanes' partial
+  // sums of y fit the 48 KB of static shared memory
+  static constexpr int kSteps = N == 8 ? 16 : sizeof(T) == 2 ? 32 : 24;
+};
+
+// 4 consecutive values of T from shared memory, as floats (16 or 8 bytes)
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 v = *(const float4*)p;
+  o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
+  const uint2 v = *(const uint2*)p;
+  const float2 lo = __bfloat1622float2(*(const __nv_bfloat162*)&v.x);
+  const float2 hi = __bfloat1622float2(*(const __nv_bfloat162*)&v.y);
+  o[0] = lo.x, o[1] = lo.y, o[2] = hi.x, o[3] = hi.y;
+}
+
+// The copy widths, in bytes, of delta, x, z, B and C (copy_granule), and
+// whether the state and a_log are 16-byte aligned.
+struct Granules {
+  int d, x, z, b, c, vec;
+};
 
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
@@ -57,59 +95,147 @@ selective_scan_kernel(const float* __restrict__ delta, const T* __restrict__ x,
                       int64_t bb, int64_t bt, const T* __restrict__ cm,
                       int64_t cb, int64_t ct, const float* __restrict__ a_log,
                       const float* __restrict__ d_skip, float* state,
-                      T* __restrict__ y, int S, int DI) {
-  __shared__ float sb[kChunk][N], sc[kChunk][N];
-  const int row = blockIdx.y;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = d < DI;
-  float h[N], a[N], skip = 0.f;
-  // the state is read whole before any of it is written, by its own thread
-  float* sp = state + ((int64_t)row * DI + d) * N;
-  if (live) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      h[n] = sp[n];
-      a[n] = -expf(a_log[(int64_t)d * N + n]);
-    }
-    skip = d_skip[d];
-  }
-  const T* xr = x + row * xb + d;
-  const T* zr = z + row * zb + d;
+                      T* __restrict__ y, int S, int DI, Granules g) {
+  using Shape = ScanShape<T, N>;
+  constexpr int kLanes = Shape::kLanes, kCh = Shape::kCh, kSteps = Shape::kSteps;
+  constexpr int es = sizeof(T);
+  __shared__ __align__(16) float sd[2][kSteps][kCh];
+  __shared__ __align__(16) T sx[2][kSteps][kCh], sz[2][kSteps][kCh];
+  __shared__ __align__(16) T sb[2][kSteps][N], sc[2][kSteps][N];
+  __shared__ __align__(16) float sy[kSteps][kThreads];   // lanes' partials
+  __shared__ float sskip[kCh];
+  const int row = blockIdx.y, c0 = blockIdx.x * kCh;
+  const int ch = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int d = c0 + ch;
+  const int valid = DI - c0 < kCh ? DI - c0 : kCh;   // channels of this block
+  const bool live = ch < valid;
+
+  const float* dr = delta + (int64_t)row * S * DI + c0;
+  const T* xr = x + row * xb + c0;
+  const T* zr = z + row * zb + c0;
   const T* br = bm + row * bb;
   const T* cr = cm + row * cb;
-  const float* dr = delta + (int64_t)row * S * DI + d;
-  T* yr = y + (int64_t)row * S * DI + d;
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int cnt = S - t0 < kChunk ? S - t0 : kChunk;
-    __syncthreads();                       // the last chunk's reads are done
-    for (int i = threadIdx.x; i < cnt * N; i += kThreads) {
-      const int c = i / N, n = i - c * N;
-      sb[c][n] = repro::to_float(br[(t0 + c) * bt + n]);
-      sc[c][n] = repro::to_float(cr[(t0 + c) * ct + n]);
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int c = 0; c < cnt; ++c) {
-      const int t = t0 + c;
-      const float dt = dr[(int64_t)t * DI];
-      const float xv = repro::to_float(xr[t * xt]);
-      const float zv = repro::to_float(zr[t * zt]);
-      float acc = 0.f;
+  auto stage = [&](int buf, int t0) {
+    const int cnt = S - t0 < kSteps ? S - t0 : kSteps;
+    repro::stage_rows(sd[buf], kCh * 4, dr + (int64_t)t0 * DI, (int64_t)DI * 4,
+                      cnt, valid * 4, g.d, threadIdx.x, kThreads);
+    repro::stage_rows(sx[buf], kCh * es, xr + t0 * xt, xt * es, cnt,
+                      valid * es, g.x, threadIdx.x, kThreads);
+    repro::stage_rows(sz[buf], kCh * es, zr + t0 * zt, zt * es, cnt,
+                      valid * es, g.z, threadIdx.x, kThreads);
+    repro::stage_rows(sb[buf], N * es, br + t0 * bt, bt * es, cnt, N * es, g.b,
+                      threadIdx.x, kThreads);
+    repro::stage_rows(sc[buf], N * es, cr + t0 * ct, ct * es, cnt, N * es, g.c,
+                      threadIdx.x, kThreads);
+    repro::cp_async_commit();
+  };
+  if (S > 1) stage(0, 0);
+
+  // the state is read whole before any of it is written, by its own lane
+  float h[4] = {0.f, 0.f, 0.f, 0.f}, a[4] = {0.f, 0.f, 0.f, 0.f};
+  float* sp = state + ((int64_t)row * DI + d) * N + 4 * lane;
+  const float* ap = a_log + (int64_t)d * N + 4 * lane;
+  if (live) {
+    if (g.vec) {
+      const float4 hv = *(const float4*)sp, av = *(const float4*)ap;
+      h[0] = hv.x, h[1] = hv.y, h[2] = hv.z, h[3] = hv.w;
+      a[0] = av.x, a[1] = av.y, a[2] = av.z, a[3] = av.w;
+    } else {
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const float da = expf(__fmul_rn(dt, a[n]));
-        const float dbx = __fmul_rn(__fmul_rn(dt, sb[c][n]), xv);
-        h[n] = __fadd_rn(__fmul_rn(da, h[n]), dbx);
-        acc = fmaf(h[n], sc[c][n], acc);
-      }
-      const float out = __fadd_rn(acc, __fmul_rn(skip, xv));
+      for (int n = 0; n < 4; ++n) h[n] = sp[n], a[n] = ap[n];
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) a[n] = -expf(a[n]);
+  }
+  if (S == 1) {
+    // one step (the decode step): its operands straight from memory, the
+    // same arithmetic, no staging and no barrier
+    float dt = 0.f, xv = 0.f, zv = 0.f, bn[4], cn[4];
+    if (live) {
+      dt = dr[ch];
+      xv = repro::to_float(xr[ch]);
+      zv = repro::to_float(zr[ch]);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      bn[n] = repro::to_float(br[4 * lane + n]);
+      cn[n] = repro::to_float(cr[4 * lane + n]);
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float da = expf(__fmul_rn(dt, a[n]));
+      const float dbx = __fmul_rn(__fmul_rn(dt, bn[n]), xv);
+      h[n] = __fadd_rn(__fmul_rn(da, h[n]), dbx);
+      acc = fmaf(h[n], cn[n], acc);
+    }
+#pragma unroll
+    for (int o = 1; o < kLanes; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (live && lane == 0) {
+      const float out = __fadd_rn(acc, __fmul_rn(d_skip[d], xv));
       const float gate = zv / (1.f + expf(-zv));
-      yr[(int64_t)t * DI] = repro::from_float<T>(__fmul_rn(out, gate));
+      y[(int64_t)row * DI + d] = repro::from_float<T>(__fmul_rn(out, gate));
     }
   }
-  if (live) {
+  if (threadIdx.x < valid) sskip[threadIdx.x] = d_skip[c0 + threadIdx.x];
+
+  for (int t0 = 0, buf = 0; S > 1 && t0 < S; t0 += kSteps, buf ^= 1) {
+    const int cnt = S - t0 < kSteps ? S - t0 : kSteps;
+    if (t0 + kSteps < S) {
+      stage(buf ^ 1, t0 + kSteps);   // its buffer was last read before the
+      repro::cp_async_wait<1>();     // previous chunk's closing barrier
+    } else {
+      repro::cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < cnt; ++c) {   // steps interleave: their expf and
+      const float dt = sd[buf][c][ch];  // loads do not wait on h
+      const float xv = repro::to_float(sx[buf][c][ch]);
+      float bn[4], cn[4];
+      load4(&sb[buf][c][4 * lane], bn);
+      load4(&sc[buf][c][4 * lane], cn);
+      float acc = 0.f;
 #pragma unroll
-    for (int n = 0; n < N; ++n) sp[n] = h[n];
+      for (int n = 0; n < 4; ++n) {
+        const float da = expf(__fmul_rn(dt, a[n]));
+        const float dbx = __fmul_rn(__fmul_rn(dt, bn[n]), xv);
+        h[n] = __fadd_rn(__fmul_rn(da, h[n]), dbx);
+        acc = fmaf(h[n], cn[n], acc);
+      }
+      // the lanes' partials are summed below: a shuffle here would keep
+      // the steps from overlapping
+      sy[c][threadIdx.x] = acc;
+    }
+    __syncthreads();
+    // skip, gate and cast: one (step, channel) a thread, stores coalesced
+    T* yr = y + ((int64_t)row * S + t0) * DI + c0;
+    for (int i = threadIdx.x; i < cnt * kCh; i += kThreads) {
+      const int c = i / kCh, j = i % kCh;
+      if (j >= valid) continue;
+      const float xv = repro::to_float(sx[buf][c][j]);
+      const float zv = repro::to_float(sz[buf][c][j]);
+      float acc;   // the lanes' partials, added as the xor shuffles add them
+      if constexpr (kLanes == 4) {
+        const float4 q = *(const float4*)&sy[c][4 * j];
+        acc = (q.x + q.y) + (q.z + q.w);
+      } else {
+        const float2 q = *(const float2*)&sy[c][2 * j];
+        acc = q.x + q.y;
+      }
+      const float out = __fadd_rn(acc, __fmul_rn(sskip[j], xv));
+      const float gate = zv / (1.f + expf(-zv));
+      yr[(int64_t)c * DI + j] = repro::from_float<T>(__fmul_rn(out, gate));
+    }
+    __syncthreads();   // this chunk's buffers are read: the next may refill them
+  }
+  if (live) {
+    if (g.vec) {
+      *(float4*)sp = make_float4(h[0], h[1], h[2], h[3]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) sp[n] = h[n];
+    }
   }
 }
 
@@ -119,11 +245,20 @@ int launch(const void* delta, const void* x, int64_t xb, int64_t xt,
            int64_t bt, const void* cm, int64_t cb, int64_t ct,
            const void* a_log, const void* d_skip, void* state, void* y, int B,
            int S, int DI, cudaStream_t stream) {
-  const dim3 grid((unsigned)((DI + kThreads - 1) / kThreads), (unsigned)B);
+  constexpr int es = sizeof(T);
+  const Granules g{
+      repro::copy_granule(delta, 4, (int64_t)S * DI, DI, DI),
+      repro::copy_granule(x, es, xb, xt, DI),
+      repro::copy_granule(z, es, zb, zt, DI),
+      repro::copy_granule(bm, es, bb, bt, N),
+      repro::copy_granule(cm, es, cb, ct, N),
+      (uintptr_t)state % 16 == 0 && (uintptr_t)a_log % 16 == 0};
+  constexpr int kCh = ScanShape<T, N>::kCh;
+  const dim3 grid((unsigned)((DI + kCh - 1) / kCh), (unsigned)B);
   selective_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
       (const float*)delta, (const T*)x, xb, xt, (const T*)z, zb, zt,
       (const T*)bm, bb, bt, (const T*)cm, cb, ct, (const float*)a_log,
-      (const float*)d_skip, (float*)state, (T*)y, S, DI);
+      (const float*)d_skip, (float*)state, (T*)y, S, DI, g);
   return (int)cudaGetLastError();
 }
 

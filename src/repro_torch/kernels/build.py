@@ -149,3 +149,31 @@ def require_contiguous(name: str, **tensors: torch.Tensor) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as an int for ctypes."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptxas_report(names: list[str]) -> str:
+    """Compile ``csrc/<name>.cu`` for each name with the library's flags
+    plus ``-Xptxas -v``, all in parallel, and return what ptxas prints
+    (registers, shared memory and spills of every kernel instance)."""
+    nvcc = _nvcc()
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        cmds = [[nvcc, *_ARCH, *_FLAGS, "-Xptxas", "-v", "-c",
+                 str(_CSRC / f"{n}.cu"), "-o", str(Path(tmp) / f"{n}.o")]
+                for n in names]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = []
+        for n, p in zip(names, procs):
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {n}.cu:\n{out}")
+            outs.append(f"== {n}.cu\n{out}")
+    return "\n".join(outs)
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.kernels.build wkv6 selective_scan
+    import sys
+    print(ptxas_report(sys.argv[1:] or sorted(s.stem for s in _CSRC.glob("*.cu"))))

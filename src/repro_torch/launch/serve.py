@@ -111,11 +111,13 @@ def _timed_drain(engine: Engine):
     return finished, time.perf_counter() - t0
 
 
-# the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers;
-# mmt4d's gradient products share one kernel per dtype, whose first
-# template argument is true for wgrad
+# the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers
+# (wkv6 has a one-token kernel beside its chunked one); mmt4d's gradient
+# products share one kernel per dtype, whose first template argument is
+# true for wgrad
 _PORT_KERNEL = re.compile(
-    r"::(mmt4d|pack|unpack|ragged_attn|wkv6|selective_scan)(?:_bf16|_f32)?_kernel\b")
+    r"::(mmt4d|pack|unpack|ragged_attn|wkv6|selective_scan)(?:_bf16|_f32|_decode)?"
+    r"_kernel\b")
 _GRAD_KERNEL = re.compile(r"::packed_gemm(?:_wgmma)?_kernel<(true|false)\b")
 
 

@@ -1371,10 +1371,7 @@ def _wkv6_inputs(gen, b, s, h, dh):
     return r, k, v, w, u, s0
 
 
-@pytest.mark.parametrize("b,s,h,dh", [(4, 1, 32, 64), (1, 512, 32, 64),
-                                      (3, 37, 4, 16), (2, 130, 2, 128),
-                                      (1, 65, 8, 32)])
-def test_wkv6_matches_plain(gen, b, s, h, dh):
+def _wkv6_check(args):
     """y and the final state within 1e-5 of the plain version's largest
     |value| (float32 sums in another order); the state written into
     ``state_out`` when it is ``s0`` itself; one launch a call; repeats
@@ -1382,7 +1379,6 @@ def test_wkv6_matches_plain(gen, b, s, h, dh):
     from repro_torch import kernels
     from repro_torch.kernels.wkv6.ops import wkv6
     from repro_torch.kernels.wkv6.ref import wkv6_ref
-    args = _wkv6_inputs(gen, b, s, h, dh)
     want = wkv6_ref(*args)
     kernels.reset_launch_counts()
     got = wkv6(*args)
@@ -1394,6 +1390,44 @@ def test_wkv6_matches_plain(gen, b, s, h, dh):
     s_in = args[5].clone()
     y, st = wkv6(*args[:5], s_in, state_out=s_in)
     assert st is s_in and torch.equal(s_in, got[1]) and torch.equal(y, got[0])
+
+
+# the kernel's chunks are 16 tokens (csrc/wkv6.cu: kL): lengths at and
+# around one and two chunks at each head width
+@pytest.mark.parametrize("b,s,h,dh", [(4, 1, 32, 64), (1, 512, 32, 64),
+                                      (3, 37, 4, 16), (2, 130, 2, 128),
+                                      (1, 65, 8, 32), (2, 15, 3, 16),
+                                      (1, 16, 2, 32), (2, 17, 2, 64),
+                                      (1, 35, 2, 128), (2, 256, 32, 64)])
+def test_wkv6_matches_plain(gen, b, s, h, dh):
+    _wkv6_check(_wkv6_inputs(gen, b, s, h, dh))
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 35])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_wkv6_extreme_decays_match_plain(gen, dh, s):
+    """``_wkv6_check`` with w = 1e-30 in channel 0 and 1 - 1e-7 in
+    channel 1 of every head: products of decays that underflow to 0 (no
+    overflow, no 0/0) and decays that barely decay."""
+    args = _wkv6_inputs(gen, 2, s, 3, dh)
+    args[3][..., 0], args[3][..., 1] = 1e-30, 1 - 1e-7
+    _wkv6_check(args)
+
+
+def _offset_copy(t):
+    """``t`` copied into a contiguous view one element into its storage:
+    4-byte aligned, not 16."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_wkv6_unaligned_operands_match_plain(gen):
+    """r, k, v and w one float into their storage: the kernel stages them
+    in 4-byte pieces instead of 16 (csrc/common.cuh: copy_granule)."""
+    args = _wkv6_inputs(gen, 2, 37, 3, 64)
+    _wkv6_check(tuple(_offset_copy(t) for t in args[:4]) + args[4:])
 
 
 def test_wkv6_refuses_what_it_does_not_take(gen):
@@ -1497,23 +1531,31 @@ def _scan_close(got, want, dtype):
     return _close(got, want, 2e-2)
 
 
-@pytest.mark.parametrize("b,s,di,n,h0", [(4, 1, 8192, 16, True),
-                                         (1, 512, 256, 16, False),
-                                         (2, 130, 300, 16, True),
-                                         (3, 37, 200, 8, True),
-                                         (2, 1, 64, 8, False)],
+# di 300 and 200 give x/z views 8- or 16-byte aligned, dt_rank 13 and an
+# odd di views at an odd bfloat16 element: the kernel's copies narrow to
+# what each view allows (csrc/common.cuh: copy_granule)
+@pytest.mark.parametrize("b,s,di,n,h0,dt_rank",
+                         [(4, 1, 8192, 16, True, 12), (1, 512, 256, 16, False, 12),
+                          (2, 130, 300, 16, True, 12), (3, 37, 200, 8, True, 12),
+                          (2, 1, 64, 8, False, 12), (6, 1, 8192, 16, True, 12),
+                          (5, 70, 300, 8, True, 12), (5, 33, 200, 16, True, 12),
+                          (2, 70, 301, 16, True, 13), (6, 33, 203, 8, False, 13)],
                          ids=["decode-rows", "prefill-zero", "prefill-cached",
-                              "n8", "n8-decode-zero"])
+                              "n8", "n8-decode-zero", "decode-rows-b6",
+                              "n8-di300-b5", "n16-di200-b5", "n16-odd",
+                              "n8-odd-b6"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_selective_scan_matches_plain(gen, dtype, b, s, di, n, h0):
+def test_selective_scan_matches_plain(gen, dtype, b, s, di, n, h0, dt_rank):
     """The kernel on strided views of xz and proj against its plain version
     on the same operands: y and the final state (written into ``state``
-    in place) within the dtype's tolerance; one launch a call; a repeat
-    from the same h0 bit-identical."""
+    in place) within the dtype's tolerance, the float32 state bit for bit
+    (its products round as the plain version's); one launch a call; a
+    repeat from the same h0 bit-identical."""
     from repro_torch import kernels
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
-    delta, views, a_log, d_skip, state = _scan_inputs(gen, b, s, di, n, dtype, h0)
+    delta, views, a_log, d_skip, state = _scan_inputs(gen, b, s, di, n, dtype, h0,
+                                                      dt_rank)
     h_init = state.clone()
     want_h = state.clone()
     want = selective_scan_ref(delta, *views, a_log, d_skip, want_h)
@@ -1524,10 +1566,29 @@ def test_selective_scan_matches_plain(gen, dtype, b, s, di, n, h0):
     assert got.dtype == dtype and got.shape == (b, s, di)
     assert _scan_close(got.float(), want.float(), dtype)
     assert _scan_close(state, want_h, torch.float32)
+    if dtype is torch.float32:
+        assert torch.equal(state, want_h)
     first_h = state.clone()
     state.copy_(h_init)
     again = selective_scan(delta, *views, a_log, d_skip, state)
     assert torch.equal(again, got) and torch.equal(state, first_h)
+
+
+@pytest.mark.parametrize("s", [1, 40])
+def test_selective_scan_unaligned_state_matches_plain(gen, s):
+    """The state and a_log one float into their storage: the lanes read
+    and write them as scalars, not 16-byte vectors; the float32 state
+    still bit for bit."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    delta, views, a_log, d_skip, state = _scan_inputs(gen, 3, s, 200, 16,
+                                                      torch.float32)
+    want_h = state.clone()
+    want = selective_scan_ref(delta, *views, a_log, d_skip, want_h)
+    state, a_log = _offset_copy(state), _offset_copy(a_log)
+    got = selective_scan(delta, *views, a_log, d_skip, state)
+    assert _scan_close(got, want, torch.float32)
+    assert torch.equal(state, want_h)
 
 
 def test_selective_scan_refuses_what_it_does_not_take(gen):

@@ -375,11 +375,16 @@ def test_grad_kernel_takes_every_preset_bf16_tile(preset, policy):
      "mmt4d_dgrad"),
     ("void (anonymous namespace)::packed_gemm_kernel<true>(float const*", "mmt4d_wgrad"),
     ("void (anonymous namespace)::mmt4d_bf16_kernel<4, true>(__nv_bfloat16 const*", "mmt4d"),
+    ("void (anonymous namespace)::wkv6_kernel<64>(float const*, float const*", "wkv6"),
+    ("void (anonymous namespace)::wkv6_decode_kernel<64>(float const*", "wkv6"),
+    ("void (anonymous namespace)::selective_scan_kernel<__nv_bfloat16, 16>(float "
+     "const*", "selective_scan"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8", "pytorch")])
 def test_profiles_name_the_gradient_kernels(symbol, name):
     """The launchers' ``--profile`` sums device time per port kernel by
     symbol: each gradient kernel (bf16 with and without the bias gradient,
-    f32) lands on its wrapper's name, as the kernel line counts it."""
+    f32), and both of wkv6's, lands on its wrapper's name, as the kernel
+    line counts it."""
     from repro_torch.launch.serve import port_kernel
     assert port_kernel(symbol) == name
 

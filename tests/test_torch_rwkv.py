@@ -9,6 +9,10 @@ lerps, the decay, the bonus ``u`` and the norm gains all show:
   reference's ``_wkv_scan`` in both its branches (256 tokens: 128-token
   checkpointed chunks; 37: the plain scan), from a non-zero state, within
   1e-5 of the largest |value| (float32 sums in another order);
+- ``wkv6_chunked_ref``, the kernel's chunked algebra in 16-token chunks,
+  against ``wkv6_ref`` and ``_wkv_scan`` at lengths around the chunk
+  (1, 15, 16, 17, 35, 256), with decays near 0 (1e-30) and near 1
+  (1 - 1e-7) in some channels, its state written into ``s0`` itself;
 - ``rwkv_tm_apply`` and ``rwkv_cm_apply`` with and without a cache: the
   output and every cache leaf the reference returns (the port writes them
   in place);
@@ -43,7 +47,7 @@ from repro.serving.engine import Engine as JEngine
 from repro.serving.speculative import DraftModelDrafter as JDraftModelDrafter
 from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
 from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref, wkv6_ref
 from repro_torch.models import rwkv6
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Engine
@@ -103,6 +107,38 @@ def test_wkv6_plain_matches_reference_scan(s):
     y, st = wkv6(*args[:5], s_in, state_out=s_in)
     assert st is s_in
     _close(s_in.numpy(), s_want)
+
+
+CHUNK = 16   # the kernel's tokens per chunk (csrc/wkv6.cu: kL)
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["decays", "extreme"])
+@pytest.mark.parametrize("s", [1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 3, 256])
+def test_wkv6_chunked_algebra_matches_reference(s, extreme):
+    """The chunked algebra against the token loop and the reference's
+    scan, within 1e-5 of max(1, max |value|), from a non-zero state
+    written in place; ``extreme``: w = 1e-30 in channel 0 and 1 - 1e-7 in
+    channel 1 of every head (products that underflow, and decays that
+    barely decay)."""
+    b, h, dh = 2, 2, 16
+    rng = np.random.default_rng(100 + s)
+    r, k, v = (rng.standard_normal((b, s, h, dh)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.standard_normal((b, s, h, dh)) - 2)).astype(np.float32)
+    if extreme:
+        w[..., 0], w[..., 1] = 1e-30, 1 - 1e-7
+    u = (0.3 * rng.standard_normal((h, dh))).astype(np.float32)
+    s0 = (0.3 * rng.standard_normal((b, h, dh, dh))).astype(np.float32)
+    y_jax, s_jax = jrwkv6._wkv_scan(*map(jnp.asarray, (r, k, v, w, u, s0)))
+    args = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
+    y_loop, s_loop = wkv6_ref(*args)
+    s_in = args[5].clone()
+    y, st = wkv6_chunked_ref(*args[:5], s_in, chunk=CHUNK, state_out=s_in)
+    assert st is s_in and y.shape == (b, s, h, dh)
+    for want in (y_loop.numpy(), y_jax):
+        _close(y.numpy(), want)
+    for want in (s_loop.numpy(), s_jax):
+        _close(s_in.numpy(), want)
 
 
 @pytest.mark.parametrize("cached", [False, True], ids=["no-cache", "cache"])
