@@ -39,29 +39,101 @@ selective_scan kernel:
      both dtypes: Qwen3-8B's decode rows (32 query heads over 8) and a
      mixed prefill at W = 512, ChatGLM3-6B's decode rows (32 over 2: tiles
      of 8 positions);
-  4. float32 end to end, each family: a greedy drain of 4 requests on the
+  4. the moe family: the expert-batched mmt4d (B_pack [E, N_o, K_o, n_r,
+     k_r], the expert dim in the kernel's grid) against its plain version
+     at qwen3-moe's and arctic's flat-step expert products (gate with
+     silu and down, bf16; qwen3-moe's gate also f32, within
+     EXPERT_F32_TOL), timed L2-cold beside its bound (every expert's
+     weights) and torch.bmm; each config at its published widths in f32,
+     card = CPU (qwen3-moe 1 layer, arctic 1: its layer's f32 experts
+     are 53.5 GB): routing equal on a forward (or parted only below a
+     top-k margin of F32_MARGIN), then the flat and monolithic drains
+     token for token, first-call logits within F32_MARGIN, equal dropped
+     fractions, replay = eager; then in bf16 cut to the depth whose
+     reckoned peak fits the card (printed), weights drawn on the card and
+     packed in place: the §4 flat drain (launches per model call checked,
+     3 expert-batched mmt4d a layer, replay = eager) and a second drain
+     capturing nothing (its requests' tokens repeat where nothing is
+     dropped; parted requests counted); printed: ms per step and
+     tokens/s beside the weight-bytes bound, peak memory, warmup, the
+     drains' dropped fractions and the phase's seconds;
+  5. jamba: selective_scan (csrc/selective_scan.cu) against its plain
+     version at jamba's widths (di 8192, N 16; x, z, B and C as strided
+     views of the projections' outputs), f32 and bf16: decode rows (4
+     rows, 1 token, from a nonzero state), a 512-token prefill from zero
+     and a 2-row 256-token prefill from a cached state, y and the state
+     (written in place) within SCAN_RTOL / SCAN_ATOL (bf16 y: TOL[BF]),
+     the f32 state bit for bit, a repeat bit-identical, timed L2-cold
+     beside its bound, the plain version (no library call) and the bf16
+     cases' times before the redesign (EARLIER_MS); jamba-v0.1-52B at its published widths
+     (d 4096, vocab 65536, 16 experts top-2 of d_ff 14336 on every second
+     layer) in bf16, cut to the whole 8-layer periods whose reckoned peak
+     fits the card (printed), weights drawn on the card and packed in
+     place, through the monolithic engine: the §4 requests, each prompt
+     length capturing its exact-length prefill graph, replay = eager at
+     two step shapes, the launches of every model call checked (7
+     selective_scan a period), then a second drain capturing nothing;
+     printed: ms per step and tokens/s beside the weight-bytes bound, peak
+     memory, warmup, the dropped fractions and the phase's seconds; its
+     first period with its moe layers in f32, card = CPU (routing, the
+     monolithic drain token for token, first logits within F32_MARGIN,
+     dropped fractions);
+  6. the dense configs and the vlm family at their published widths:
+     Qwen3-8B at full depth (36 layers, 8.19 B parameters, weights drawn
+     on the card) through the bf16 flat drain of phase 9's shape (8
+     requests, prompts 64-512, 32 new), its launches per model call
+     checked, then a second drain capturing nothing with the same tokens;
+     printed: ms per step and tokens/s beside the weight-bytes bound,
+     launches per step, peak memory, init, prepack and warmup seconds;
+     Qwen2-7B (QKV bias, 28 over 4 heads: g = 7), ChatGLM3-6B (partial 2d
+     RoPE, g = 16) and OLMo-1B (non-parametric LayerNorm, MHA, tied head),
+     each cut to 1 layer: the f32 flat drain card = CPU token for token
+     (first-call logits within F32_MARGIN), and a bf16 drain whose picks
+     agree with the f32 drain's wherever the top-2 margin is at least
+     BF16_MARGIN; InternVL2-26B's language model behind its stub vision
+     prefix through generate_static ((256 patches + 256 prompt tokens),
+     32 new): f32 at 1 layer, batch 2, card = CPU, bf16 at 8 of its 48
+     layers, batch 4, each with static_run's checks (the vision prefix counted once
+     per batch), prefill and decode ms;
+  7. the recurrent mixers: wkv6 (csrc/wkv6.cu) against its plain version at
+     RWKV-6's heads (32 of 64), f32, decode rows (4 rows, 1 token), a
+     512-token prefill and a 2-row 256-token prefill from a cached state,
+     y and the final state within WKV6_TOL, timed L2-cold beside its
+     bound, the plain token loop (no library call) and the headline
+     cases' times before the chunked redesign (EARLIER_MS);
+     RWKV-6 1.6B at its published widths and depth (24 layers, d 2048,
+     vocab 65536, weights drawn on the card) in bf16 through the
+     monolithic engine (4 slots, seq_len 1024): the §4 requests, each
+     distinct prompt length capturing its exact-length prefill graph, the
+     launches of every model call checked (193 mmt4d, 242 pack, 49 unpack,
+     24 wkv6), then a second drain capturing nothing with the same
+     tokens; printed: ms per step and tokens/s beside the bound, captures,
+     warmup seconds and peak memory; RWKV-6 cut to PARITY_LAYERS layers in
+     f32, card = CPU token for token (first-call logits within
+     F32_MARGIN, as every family) and generate_static = generate on the card;
+  8. float32 end to end, each family: a greedy drain of 4 requests on the
      card (after warmup; no graph captured during the drain) and on the CPU
      (plain versions), same weights and prompts: identical tokens, in every
      family alike (the top-2 margins at a first difference are printed);
-  5. bfloat16 end to end, each family: Engine(max_slots=4, page_tokens=16,
+  9. bfloat16 end to end, each family: Engine(max_slots=4, page_tokens=16,
      flat and dense chunk_tokens=128), seq_len 1024; warmup (its graphs, its
      seconds and the device memory it keeps), then 8 requests (prompts
      64-512 tokens, 32 new each) with the kernel launch counts set to 0
      just before the drain and read just after, checked per model call
      (and mmt4d's unpacked stores: the 91 linear exits of each call);
      no graph captured during the drain;
-     in phases 4 and 5 the replay of two step shapes of each drain is held
+     in phases 8 and 9 the replay of two step shapes of each drain is held
      bit for bit to the model's eager step on the same inputs and state;
-  6. sampled picks: phase 4's drains sampled (seed 11, per-request
+ 10. sampled picks: phase 8's drains sampled (seed 11, per-request
      temperatures), card vs CPU in each family, equal apart from picks
      whose perturbed top-2 margin is below F32_MARGIN (counted); then a
-     sampled bf16 drain of phase 5's requests on its warmed engines, the
+     sampled bf16 drain of phase 9's requests on its warmed engines, the
      families held to each other under BF16_MARGIN;
-  7. two warmed engines of one family over one model (each family): the
+ 11. two warmed engines of one family over one model (each family): the
      second warmup leaves the model's trace_counts where they were, each
      engine counts its own captures, and the device memory of the second
      comes back once it is dropped;
-  8. the static batch loop (Engine.generate_static) at full width, each
+ 12. the static batch loop (Engine.generate_static) at full width, each
      model in float32 and bfloat16: SmolLM2-135M and whisper-small (12 +
      12 layers, d 768, vocab 51865, 256 encoder frames from a seeded
      torch.Generator), batch 4, one shared prompt of 256 tokens, 32 new,
@@ -78,7 +150,7 @@ selective_scan kernel:
      generate() of a flat engine equal to generate_static (f32), and the
      standalone DraftModelDrafter.propose equal to an attached drafter's
      over a reconcile sequence (f32, 2 layers);
-  9. prefix cache and speculative decode at full width, f32 then bf16,
+ 13. prefix cache and speculative decode at full width, f32 then bf16,
      each family: baseline, prefix_cache=True, and spec_tokens=2 with the
      n-gram drafter and with a draft model (SmolLM2-135M cut to 2 layers),
      each over the spec trace and (baseline and cache) the shared-prefix
@@ -88,7 +160,7 @@ selective_scan kernel:
      rollback pages printed, no capture after warmup (the draft model's
      included), every kernel of the path launched in every drain, and
      tokens/s and ms per step of each drain;
- 10. resilience under chaos at full width, f32 then bf16, for the flat,
+ 14. resilience under chaos at full width, f32 then bf16, for the flat,
      flat with n-gram speculation (k = 2) and the prefix cache, and dense
      chunked families, each on one warmed engine (queue_limit=6; in f32
      the runtime sanitizer checks every model call): five requests on a
@@ -102,8 +174,8 @@ selective_scan kernel:
      a cached one, no trace or capture after warmup, the pools never
      moved, every kernel of the path launched, and each drain's ms per
      step;
- 11. serving observability, bfloat16, full width: in each family the §4
-     drain of phase 5 on a warmed engine with telemetry=True beside the
+ 15. serving observability, bfloat16, full width: in each family the §4
+     drain of phase 9 on a warmed engine with telemetry=True beside the
      same drain on one without, over one model: identical tokens, no
      capture in either drain, the cost model (built at warmup) moving no
      trace_counts, every step record's sched + device + draft + host
@@ -119,7 +191,7 @@ selective_scan kernel:
      fire), and a chaos drain (OOM spike and NaN plans) whose fault
      instants land in the trace; every kernel of the path launched in
      every drain;
- 12. vector lengths and layout policies, full width: the card's descriptor
+ 16. vector lengths and layout policies, full width: the card's descriptor
      scaled twice and four times (h100_vl256, h100_vl512: tiles n_r = k_r =
      256 and 512 on the same card; bounds from the card's own rates), every
      serving kernel at those tiles against its plain version (mmt4d at gate
@@ -139,7 +211,7 @@ selective_scan kernel:
      h100_vl512, card = CPU; earlier, at the 128-wide tiles, the f32 mmt4d
      kernel (k staged in chunks of 64) is held bit for bit to its
      whole-tile staging;
- 13. training: mmt4d's two gradient kernels (dgrad, wgrad) against their
+ 17. training: mmt4d's two gradient kernels (dgrad, wgrad) against their
      plain versions at the full-width training linears (4,096 tokens; the
      gate with its silu's gradient, the down projection, the tied head, the
      K projection), f32 and bf16, bit-identical on a repeat, timed L2-cold
@@ -164,85 +236,51 @@ selective_scan kernel:
      then a crash
      injected after a checkpoint and the resume, whose history and final
      parameters and optimizer state equal an uninterrupted run's bit for bit;
- 14. the dense configs and the vlm family at their published widths:
-     Qwen3-8B at full depth (36 layers, 8.19 B parameters, weights drawn
-     on the card) through the bf16 flat drain of phase 5's shape (8
-     requests, prompts 64-512, 32 new), its launches per model call
-     checked, then a second drain capturing nothing with the same tokens;
-     printed: ms per step and tokens/s beside the weight-bytes bound,
-     launches per step, peak memory, init, prepack and warmup seconds;
-     Qwen2-7B (QKV bias, 28 over 4 heads: g = 7), ChatGLM3-6B (partial 2d
-     RoPE, g = 16) and OLMo-1B (non-parametric LayerNorm, MHA, tied head),
-     each cut to 1 layer: the f32 flat drain card = CPU token for token
-     (first-call logits within F32_MARGIN), and a bf16 drain whose picks
-     agree with the f32 drain's wherever the top-2 margin is at least
-     BF16_MARGIN; InternVL2-26B's language model behind its stub vision
-     prefix through generate_static ((256 patches + 256 prompt tokens),
-     32 new): f32 at 1 layer, batch 2, card = CPU, bf16 at 8 of its 48
-     layers, batch 4, each with static_run's checks (the vision prefix counted once
-     per batch), prefill and decode ms;
- 15. the recurrent mixers: wkv6 (csrc/wkv6.cu) against its plain version at
-     RWKV-6's heads (32 of 64), f32, decode rows (4 rows, 1 token), a
-     512-token prefill and a 2-row 256-token prefill from a cached state,
-     y and the final state within WKV6_TOL, timed L2-cold beside its
-     bound, the plain token loop (no library call) and the headline
-     cases' times before the chunked redesign (EARLIER_MS);
-     RWKV-6 1.6B at its published widths and depth (24 layers, d 2048,
-     vocab 65536, weights drawn on the card) in bf16 through the
-     monolithic engine (4 slots, seq_len 1024): the §4 requests, each
-     distinct prompt length capturing its exact-length prefill graph, the
-     launches of every model call checked (193 mmt4d, 242 pack, 49 unpack,
-     24 wkv6), then a second drain capturing nothing with the same
-     tokens; printed: ms per step and tokens/s beside the bound, captures,
-     warmup seconds and peak memory; RWKV-6 cut to PARITY_LAYERS layers in
-     f32, card = CPU token for token (first-call logits within
-     F32_MARGIN, as every family) and generate_static = generate on the card;
- 16. the moe family: the expert-batched mmt4d (B_pack [E, N_o, K_o, n_r,
-     k_r], the expert dim in the kernel's grid) against its plain version
-     at qwen3-moe's and arctic's flat-step expert products (gate with
-     silu and down, bf16; qwen3-moe's gate also f32, within
-     EXPERT_F32_TOL), timed L2-cold beside its bound (every expert's
-     weights) and torch.bmm; each config at its published widths in f32,
-     card = CPU (qwen3-moe 2 layers, arctic 1: its layer's f32 experts
-     are 53.5 GB): routing equal on a forward (or parted only below a
-     top-k margin of F32_MARGIN), then the flat and monolithic drains
-     token for token, first-call logits within F32_MARGIN, equal dropped
-     fractions, replay = eager; then in bf16 cut to the depth whose
-     reckoned peak fits the card (printed), weights drawn on the card and
-     packed in place: the §4 flat drain (launches per model call checked,
-     3 expert-batched mmt4d a layer, replay = eager) and a second drain
-     capturing nothing (its requests' tokens repeat where nothing is
-     dropped; parted requests counted); printed: ms per step and
-     tokens/s beside the weight-bytes bound, peak memory, warmup, the
-     drains' dropped fractions and the phase's seconds;
- 17. jamba: selective_scan (csrc/selective_scan.cu) against its plain
-     version at jamba's widths (di 8192, N 16; x, z, B and C as strided
-     views of the projections' outputs), f32 and bf16: decode rows (4
-     rows, 1 token, from a nonzero state), a 512-token prefill from zero
-     and a 2-row 256-token prefill from a cached state, y and the state
-     (written in place) within SCAN_RTOL / SCAN_ATOL (bf16 y: TOL[BF]),
-     the f32 state bit for bit, a repeat bit-identical, timed L2-cold
-     beside its bound, the plain version (no library call) and the bf16
-     cases' times before the redesign (EARLIER_MS); jamba-v0.1-52B at its published widths
-     (d 4096, vocab 65536, 16 experts top-2 of d_ff 14336 on every second
-     layer) in bf16, cut to the whole 8-layer periods whose reckoned peak
-     fits the card (printed), weights drawn on the card and packed in
-     place, through the monolithic engine: the §4 requests, each prompt
-     length capturing its exact-length prefill graph, replay = eager at
-     two step shapes, the launches of every model call checked (7
-     selective_scan a period), then a second drain capturing nothing;
-     printed: ms per step and tokens/s beside the weight-bytes bound, peak
-     memory, warmup, the dropped fractions and the phase's seconds; its
-     first period with its moe layers in f32, card = CPU (routing, the
-     monolithic drain token for token, first logits within F32_MARGIN,
-     dropped fractions);
- 18. the kernels JSON line (launches from the main path of each kernel: the
+ 18. the comparisons still waiting on the CPU plain path's runs (see
+     below) are made, and the torch threads given back;
+ 19. training the recurrent and moe families: wkv6's backward
+     (csrc/wkv6_bwd.cu) at RWKV-6's training shape (4, 1024, 32, 64) f32
+     and selective_scan's (csrc/selective_scan_bwd.cu) at jamba's (4,
+     1024, 8192), N 16, bf16 and f32, each from the forward kernel's
+     checkpoints against the plain backward (which makes its own), every
+     gradient within WKV6_BWD_TOL / SCAN_BWD_TOL of its largest |value|, a
+     repeat bit-identical, timed L2-cold beside the bound and the plain
+     version; mmt4d_dgrad and mmt4d_wgrad over every expert at Qwen3-MoE's
+     training experts (128, C 320 at 4,096 tokens, 4096 <-> 1536; the gate
+     with silu's gradient) and jamba's (16, C 640, 4096 <-> 14336), bf16
+     (the Qwen3-MoE gate also f32), beside torch.bmm; one f32 step's loss
+     and gradients card = CPU (FAMILY_F32: RWKV-6 at full width cut to 2
+     layers, jamba's reduced period, reduced Qwen3-MoE and Arctic; the moe
+     metrics too); bf16 held to references: RWKV-6 at 2 layers, one bf16
+     step card = the CPU's bf16 plain path and 10 steps card bf16 against
+     card f32 (losses); RWKV-6 1.6B whole in bf16, 20 steps through the compiled
+     step (loss falling, wkv6 and wkv6_bwd once a layer each step), and
+     Qwen3-MoE at full width cut to the layers whose reckoned peak fits
+     the card (8-bit moments), 5 steps (the dropped fraction, the
+     expert-batched gradient launches); replay = eager bit for bit for
+     both; the training launcher's --profile on RWKV-6 cut to 2 layers
+     (the trace's launches held to the wrappers' counts);
+ 20. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
      the gradient kernels, the RWKV-6 1.6B drain for wkv6, jamba's first
-     drain for selective_scan; each other
-     path's beside them, phases 14's and 15's included; each kernel's
-     representative case at the scaled tiles; ragged_attn's d_head-128
-     cases), then the result line.
+     drain for selective_scan, RWKV-6 1.6B's 20 training steps for
+     wkv6_bwd, jamba's f32 train step on the card for selective_scan_bwd;
+     each other path's beside them, phases 6's and 7's included; each
+     kernel's representative case at the scaled tiles; ragged_attn's
+     d_head-128 cases; the gradient kernels' expert-batched cases), then
+     the result line.
+
+The CPU plain path's reference runs, most of the run's wall when made
+in turn, run beside the card's work (CpuRuns): those over weights from
+a CPU generator (phases 8, 10, 12 and 16: SmolLM2 and whisper) in a
+worker process, those over weights drawn on the card (phases 4-7: the
+moe, jamba, dense, vlm and recurrent configs) on one thread of this
+process, handed a host copy of the weights (at most CPU_HOST_LIMIT bytes
+of them at once).  Each comparison is made, and printed, at the first
+phase boundary after its CPU run ended (phase 18 makes the rest), and
+fails the run as before; the family training phase runs its own CPU
+steps after every CPU run has ended.  The phases whose CPU runs take
+longest come first, so that the later card-only phases cover them.
 
 Usage:  python3 chip_smoke.py [--out results.json]
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -253,11 +291,13 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import itertools
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -293,15 +333,24 @@ SOURCES = {
     # lax.associative_scan
     "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                        "src/repro/models/mamba.py:79"),
+    # the two recurrences' backward: no Pallas kernel; the JAX package
+    # differentiates its lax.scan (checkpointed per 128-token chunk) and
+    # its lax.associative_scan
+    "wkv6_bwd": ("src/repro_torch/csrc/wkv6_bwd.cu", "src/repro/models/rwkv6.py:87"),
+    "selective_scan_bwd": ("src/repro_torch/csrc/selective_scan_bwd.cu",
+                           "src/repro/models/mamba.py:79"),
 }
 SERVING_KERNELS = ("mmt4d", "pack", "unpack", "ragged_attn")
 GRAD_KERNELS = ("mmt4d_dgrad", "mmt4d_wgrad")
+# the recurrences' backward kernels: no serving drain launches them
+RECURRENT_GRAD = ("wkv6_bwd", "selective_scan_bwd")
 # the case each kernel's headline numbers come from (bfloat16, the default
 # RunConfig): the shape that carries most of its time in the drain
 REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
                   "unpack": "final stream decode", "ragged_attn": "decode rows",
                   "mmt4d_dgrad": "tied head", "mmt4d_wgrad": "tied head",
-                  "wkv6": "decode rows", "selective_scan": "decode rows"}
+                  "wkv6": "decode rows", "selective_scan": "decode rows",
+                  "wkv6_bwd": "train", "selective_scan_bwd": "train"}
 # max |kernel - plain| <= TOL * max(floor, max |plain|): float32 sums in
 # another order; bfloat16 may round the float32 result to a neighbouring
 # value.  floor is 1 for the forward kernels, whose results are of order 1,
@@ -340,6 +389,10 @@ L2_FLUSH_BYTES = 64 * 2**20     # operand copies per cold-timed case pass this
 # bfloat16 logits of two layouts by about a bfloat16 ulp of the logits
 F32_MARGIN = 1e-5
 BF16_MARGIN = 0.0625
+# the f32 prefix-cache and speculation drains' depth: SmolLM2 at full
+# width cut to 8 of its 30 layers (all 30 until the family training
+# phase came: the cut pays for its wall; the bf16 drains keep all 30)
+VARIANTS_F32_LAYERS = 8
 # the sampled drains' per-request temperatures, in turn (0 picks greedily)
 TEMPERATURES = (1.0, 0.7, 1.3, 0.0)
 
@@ -390,9 +443,9 @@ def spin_cycles_per_ms() -> float:
     return _SPIN_CYCLES_PER_MS[0]
 
 
-def time_ms(fn, iters: int = 20, spin: bool = True) -> float:
+def time_ms(fn, iters: int = 20, spin: bool = True, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls, after
-    warm-up (CUDA events).  A spin kernel holds the stream while the host
+    ``warmup`` calls (CUDA events).  A spin kernel holds the stream while the host
     queues every call, so a call shorter than its host-side launch cost
     is timed on the device and not at the host's launch rate.  The spin
     lasts four times the host's measured time to queue the calls; should
@@ -400,7 +453,7 @@ def time_ms(fn, iters: int = 20, spin: bool = True) -> float:
     spin twice as long.  ``spin=False`` times without it, for a call of
     more launches than the device's queue holds (a plain version's token
     loop): its time is then the host's launch rate."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     if not spin:
@@ -431,6 +484,185 @@ def time_ms(fn, iters: int = 20, spin: bool = True) -> float:
         spin_ms *= 2
     raise AssertionError("the spin kernel ended before the host had queued "
                          "every call, twice: the timing would be the host's")
+
+
+# ------------------------------------------- the CPU plain path, off the card's way
+#
+# The CPU plain path's reference runs take longer than the card's side of
+# most comparisons, so they run beside the card's work: those whose
+# weights come from a CPU generator (SmolLM2 and whisper) in a worker
+# process (CpuRuns.proc: no weights cross, and its Python runs apart from
+# the card's driver); those over weights drawn on the card (the dense,
+# vlm, recurrent and moe configs) on one thread of this process
+# (CpuRuns.thread), handed the weights' host copy; their large products
+# release Python's lock while they compute.  Each comparison is made when
+# its CPU run has ended (CpuRuns.defer).  No run on the thread touches the
+# card, and the card's driver runs no CPU moe layer while the thread may:
+# the moe drop counter is keyed by device, and the routing record
+# (route_recorder) by thread.
+
+# the host bytes the thread's runs may hold at once (weights handed to it):
+# arctic's layer (53.5 GB) beside qwen3-moe's, not beside jamba's period
+# (51 GB), on a one-card host of about 100 GB
+CPU_HOST_LIMIT = 72e9
+# torch threads: the worker process's and the thread's, of a one-card
+# host's 8 cores
+CPU_PROC_THREADS, CPU_THREAD_THREADS = 3, 5
+
+
+def _timed(fn, *args, **kw):
+    """(fn's result, its seconds): a lane's unit of work."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
+def _proc_init(src: str, threads: int) -> None:
+    """The worker process's start: the port on its path, its torch threads."""
+    sys.path.insert(0, src)
+    torch.set_num_threads(threads)
+
+
+class CpuRuns:
+    """The CPU plain path's runs of the smoke run, beside the card's: a
+    worker process (``proc``), one thread (``thread``, whose weights'
+    host bytes are reserved with ``reserve``), and the comparisons that
+    wait on them (``defer``, made by ``settle``)."""
+
+    def __init__(self, src: str):
+        import concurrent.futures as cf
+        import multiprocessing as mp
+        import queue
+        import threading
+        self.t0 = time.perf_counter()
+        self.pool = cf.ProcessPoolExecutor(
+            1, mp_context=mp.get_context("spawn"), initializer=_proc_init,
+            initargs=(src, CPU_PROC_THREADS))
+        self.jobs, self.cond, self.held = queue.Queue(), threading.Condition(), 0
+        self.threads_before = torch.get_num_threads()
+        self.futures, self.pending, self.log = [], [], []
+        self.waited = 0.0
+        self.worker = threading.Thread(target=self._run, name="cpu-runs", daemon=True)
+        self.worker.start()
+
+    def proc(self, fn, *args, **kw):
+        """``fn(*args, **kw)`` in the worker process (a module-level
+        function of this script, on picklable arguments)."""
+        fut = self.pool.submit(_timed, fn, *args, **kw)
+        self.futures.append(fut)
+        return fut
+
+    def reserve(self, nbytes: int) -> None:
+        """Wait until ``nbytes`` more host bytes fit CPU_HOST_LIMIT beside
+        the thread's unfinished runs' (or it has none), and hold them for
+        the next ``thread`` run."""
+        t0 = time.perf_counter()
+        with self.cond:
+            self.cond.wait_for(lambda: self.held == 0
+                               or self.held + nbytes <= CPU_HOST_LIMIT)
+            self.held += nbytes
+        self.waited += time.perf_counter() - t0
+
+    def thread(self, fn, *args, nbytes: int = 0, **kw):
+        """``fn(*args, **kw)`` on the thread, after every earlier one; the
+        ``nbytes`` reserved for it are given back when it ends, and its
+        arguments dropped."""
+        import concurrent.futures as cf
+        fut = cf.Future()
+        self.futures.append(fut)
+        self.jobs.put((fut, fn, args, kw, nbytes))
+        return fut
+
+    def _run(self):
+        import gc
+        torch.set_num_threads(CPU_THREAD_THREADS)
+        while True:
+            job = self.jobs.get()
+            if job is None:
+                return
+            fut, nbytes = job[0], job[4]
+            if fut.set_running_or_notify_cancel():
+                self._call(*job[:4])
+            del job
+            # the engine and its recorders hold the weights in reference
+            # cycles: free them before their bytes count as given back
+            gc.collect()
+            with self.cond:
+                self.held -= nbytes
+                self.cond.notify_all()
+
+    @staticmethod
+    def _call(fut, fn, args, kw):
+        try:
+            fut.set_result(_timed(fn, *args, **kw))
+        except BaseException as e:      # raised where the comparison waits
+            fut.set_exception(e)
+
+    def defer(self, label: str, fut, check) -> None:
+        """Call ``check(result)`` once ``fut``'s run has ended."""
+        self.pending.append((label, fut, check))
+
+    def settle(self, block: bool = False) -> None:
+        """Make every comparison whose run has ended (``block``: all)."""
+        keep = []
+        for label, fut, check in self.pending:
+            if not (block or fut.done()):
+                keep.append((label, fut, check))
+                continue
+            t0 = time.perf_counter()
+            res, secs = fut.result()
+            self.waited += time.perf_counter() - t0
+            self.log.append((label, secs))
+            print(f"  card = CPU, {label}: the CPU plain path's run took {secs:.1f} s "
+                  f"beside the card's work")
+            check(res)
+        self.pending = keep
+
+    def finish(self) -> dict:
+        """Wait for every run, make every comparison, give the torch threads
+        back; returns the runs' seconds and the waits on them."""
+        self.settle(block=True)
+        import concurrent.futures as cf
+        cf.wait(self.futures)
+        torch.set_num_threads(self.threads_before)
+        busy = sum(s for _, s in self.log)
+        print(f"  the CPU plain path's runs: {len(self.log)}, {busy:.1f} s of them "
+              f"beside the card's work (worker process {CPU_PROC_THREADS} torch "
+              f"threads, thread {CPU_THREAD_THREADS}); the card's driver waited "
+              f"{self.waited:.1f} s on them; {time.perf_counter() - self.t0:.1f} s "
+              f"since they began")
+        return {"runs": dict(self.log), "busy_s": busy, "waited_s": self.waited}
+
+    def close(self) -> None:
+        """Stop the worker process and the thread (the process at once if a
+        run is still going: the smoke run has failed)."""
+        for fut in self.futures:
+            fut.cancel()
+        self.jobs.put(None)
+        if not all(fut.done() for fut in self.futures):
+            for p in list((getattr(self.pool, "_processes", None) or {}).values()):
+                p.terminate()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+CPU_RUNS: CpuRuns | None = None     # main's, for the phases' comparisons
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a nested dict's tensors."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def to_cpu_thread(fn, *args, params, **kw):
+    """``fn(*args, params=<a host copy of params>, **kw)`` on the CPU's
+    thread: the copy (of card tensors) made here, on the card's driver,
+    once its bytes fit (CpuRuns.reserve), and handed over."""
+    from repro_torch.models.transformer import tree_map
+    nbytes = tree_bytes(params)
+    CPU_RUNS.reserve(nbytes)
+    host = tree_map(lambda t: t.to("cpu", copy=True), params)
+    return CPU_RUNS.thread(fn, *args, params=host, nbytes=nbytes, **kw)
 
 
 class KernelChecks:
@@ -817,6 +1049,185 @@ class KernelChecks:
                     f"above {GRAD_TOL_SHARE} of the mean |result| "
                     f"{case['plain_mean_abs']}: it would pass a wrong result")
 
+    def expert_grads(self, dtype, e, c, k, n, act, label):
+        """mmt4d_dgrad and mmt4d_wgrad over every expert at a moe layer's
+        expert product (x [E, C, K] through w [E, K, N], C the capacity),
+        the gate's silu gradient formed as dZ loads where ``act``: each
+        held to its plain version with the expert dim and bit-identical on
+        a repeat, timed L2-cold beside one torch.bmm of the same product
+        on the unpacked operands.  Bound: dY (and Z), the other operand and
+        the result, each read or written once, unpadded."""
+        from repro_torch.core import packing
+        from repro_torch.kernels.mmt4d.ops import mmt4d_dgrad, mmt4d_wgrad
+        from repro_torch.kernels.mmt4d.ref import mmt4d_dgrad_ref, mmt4d_wgrad_ref
+        lay = self.layout(dtype)
+        x = self.rand((e, c, k), dtype)
+        w = torch.empty((e, k, n), dtype=dtype, device="cuda")
+        for e0 in range(0, e, 16):        # drawn in blocks: no f32 copy of it all
+            w[e0:e0 + 16] = self.rand((min(16, e - e0), k, n), dtype, k ** -0.5)
+        dy = self.rand((e, c, n), dtype, c ** -0.5)
+        ap, bp, dzp = (packing.pack_lhs(x, lay), packing.pack_rhs(w, lay),
+                       packing.pack_out(dy, lay))
+        zp = packing.pack_out(self.rand((e, c, n), dtype), lay) if act else None
+        zi = (lambda s: s[3]) if act else (lambda s: None)
+        sets = cold_sets(ap, bp, dzp, *(() if zp is None else (zp,)), x, w, dy)
+        es = dtype.itemsize
+        nbytes = (e * c * n * (2 if act else 1) + e * k * n + e * c * k) * es
+        for name, fn, plain, library in (
+                ("mmt4d_dgrad", lambda *t: mmt4d_dgrad(t[2], t[1], zi(t), activation=act),
+                 lambda *t: mmt4d_dgrad_ref(t[2], t[1], zi(t), activation=act),
+                 lambda *t: torch.bmm(t[-1], t[-2].transpose(1, 2))),
+                ("mmt4d_wgrad",
+                 lambda *t: mmt4d_wgrad(t[2], t[0], zi(t), activation=act, experts=True)[0],
+                 lambda *t: mmt4d_wgrad_ref(t[2], t[0], zi(t), activation=act,
+                                            experts=True)[0],
+                 lambda *t: torch.bmm(t[-3].transpose(1, 2), t[-1]))):
+            if not torch.equal(fn(*sets[0]), fn(*sets[0])):
+                raise AssertionError(f"{name} experts {label} {dtype}: two calls differ")
+            self.record(name, f"experts {label} dZ{tuple(dzp.shape)}", dtype,
+                        cycle(fn, sets), cycle(plain, sets), cycle(library, sets),
+                        nbytes, 2 * e * c * k * n, floor=0.0, copies=len(sets),
+                        experts=e, plain_spin=False)
+            case = self.cases[name][-1]
+            ms = case["kernel_ms"]
+            print(f"    {name} experts {label} {str(dtype)[6:]}: {ms:.4f} ms "
+                  f"({2 * e * c * k * n / ms / 1e9:.1f} TFLOP/s) against a bound of "
+                  f"{case['bound_ms']:.5f} ms ({case['bound_by']}); plain "
+                  f"{case['plain_ms']:.3f} ms; torch.bmm {case['library_ms']:.4f} ms "
+                  f"({ms / case['library_ms']:.2f}x)")
+            if case["tolerance"] > GRAD_TOL_SHARE * case["plain_mean_abs"]:
+                raise AssertionError(
+                    f"{name} experts {label} {dtype}: the tolerance "
+                    f"{case['tolerance']} is above {GRAD_TOL_SHARE} of the mean "
+                    f"|result| {case['plain_mean_abs']}")
+        del x, w, dy, ap, bp, dzp, zp, sets
+        torch.cuda.empty_cache()
+
+    def leaves_close(self, name, label, dtype, got, want, share) -> tuple:
+        """Each gradient of ``got`` within ``share`` of its ``want``
+        counterpart's largest |value|, printed; returns (the worst error,
+        its tolerance)."""
+        worst = None
+        for i, (g, w) in enumerate(zip(got, want)):
+            err = (g.float() - w.float()).abs().max().item()
+            tol = share * w.float().abs().max().item()
+            ok = err <= tol and bool(torch.isfinite(g.float()).all()) and g.dtype == w.dtype
+            if worst is None or err * worst[1] >= worst[0] * tol:
+                worst = (err, tol)
+            if not ok:
+                raise AssertionError(f"{name} {label} {dtype} gradient {i}: error "
+                                     f"{err} > {tol} (dtypes {g.dtype}, {w.dtype})")
+        print(f"  {name:<18} {label:<38} {str(dtype)[6:]:<8} {len(got)} gradients, "
+              f"worst max_abs_err {worst[0]:.3e} (tolerance {worst[1]:.3e}: "
+              f"{share:g} of each gradient's largest |value|) ok")
+        return worst
+
+    def wkv6_bwd(self, b, s, label, h=32, dh=64):
+        """wkv6's backward (float32) at RWKV-6's heads, as a train step
+        calls it (no gradient of the final state): the forward kernel
+        writes the checkpoints, the backward kernel the gradients of r, k,
+        v, w, u and the starting state, each within WKV6_BWD_TOL of the
+        plain backward's (which makes its own checkpoints) largest |value|;
+        bit-identical on a repeat; timed L2-cold (checkpoints given, as the
+        kernel gets them).  Bound: r, k, v, w, dy, u, the starting state
+        and the checkpoints read once, the six gradients written once
+        (bytes); 8 multiply-adds per (token, head, i, j) at the float32
+        rate."""
+        from repro_torch.kernels.wkv6.ops import checkpoints, wkv6, wkv6_bwd
+        from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
+        r, k, v, dy = (self.rand((b, s, h, dh), TF) for _ in range(4))
+        w = torch.exp(-torch.exp(self.rand((b, s, h, dh), TF) - 2))
+        u, s0 = self.rand((h, dh), TF, 0.1), self.rand((b, h, dh, dh), TF, 0.1)
+        ckpt = checkpoints(r)
+        wkv6(r, k, v, w, u, s0, ckpt=ckpt)
+        got = wkv6_bwd(r, k, v, w, u, s0, dy, None, ckpt)
+        want = wkv6_bwd_ref(r, k, v, w, u, s0, dy, None)
+        if not all(torch.equal(a, g) for a, g in zip(
+                wkv6_bwd(r, k, v, w, u, s0, dy, None, ckpt), got)):
+            raise AssertionError(f"wkv6_bwd {label}: two calls differ")
+        err, tol = self.leaves_close("wkv6_bwd", label, TF, got, want, WKV6_BWD_TOL)
+        sets = cold_sets(r, k, v, w, u, s0, dy, ckpt)
+        nbytes = 4 * (9 * b * s * h * dh + 2 * h * dh + 2 * b * h * dh * dh
+                      + ckpt.numel())
+        bound_ms, bound_by = self.bound(nbytes, 16 * b * s * h * dh * dh, TF)
+        self.cases["wkv6_bwd"].append({
+            "shape": f"{label}, r/k/v/w/dy ({b},{s},{h},{dh}), state ({b},{h},{dh},{dh})",
+            "dtype": "float32", "max_abs_err": err, "tolerance": tol,
+            "kernel_ms": time_ms(cycle(lambda *t: wkv6_bwd(*t[:7], None, t[7]), sets)),
+            "plain_ms": time_ms(cycle(lambda *t: wkv6_bwd_ref(*t[:7], None, t[7]),
+                                      sets[:1]), iters=2, spin=False, warmup=1),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+        c = self.cases["wkv6_bwd"][-1]
+        print(f"  {'wkv6_bwd':<18} {label:<38} float32  {c['kernel_ms']:.6f} ms "
+              f"(bound {bound_ms:.6f} by {bound_by}, plain {c['plain_ms']:.2f}, "
+              f"no library call)")
+        del r, k, v, w, dy, u, s0, ckpt, sets
+        torch.cuda.empty_cache()
+
+    def selective_scan_bwd(self, dtype, b, s, label, di=8192, n=16, dt_rank=256):
+        """selective_scan's backward at jamba's widths, as a train step
+        calls it (from a zero state; x, z, B and C strided views of the
+        projections' outputs): the forward kernel writes the checkpoints,
+        the backward kernel the eight gradients, each within
+        SCAN_BWD_TOL[dtype] of the plain backward's (which makes its own
+        checkpoints) largest |value|, in its operand's dtype; bit-identical
+        on a repeat; timed L2-cold.  Bound: delta, x, z, dout, B, C, a_log,
+        d_skip, the state and the checkpoints read once, the gradients of
+        all but dout written once (bytes); about 20 float32 operations per (token,
+        channel, state) element and 10 per (token, channel) at the float32
+        rate."""
+        import torch.nn.functional as F
+        from repro_torch.kernels.selective_scan.ops import (checkpoints, selective_scan,
+                                                            selective_scan_bwd)
+        from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+        xz = self.rand((b, s, 2 * di), dtype)
+        xz[..., :di] = F.silu(xz[..., :di].float()).to(dtype)
+        proj = self.rand((b, s, dt_rank + 2 * n), dtype)
+        delta = F.softplus(self.rand((b, s, di), TF) - 4)
+        a_log = (torch.log(torch.arange(1, n + 1, device="cuda", dtype=TF))
+                 + self.rand((di, n), TF, 0.1))
+        d_skip = 1 + self.rand((di,), TF, 0.1)
+        h0 = torch.zeros((b, di, n), device="cuda")
+        dout = self.rand((b, s, di), dtype)
+
+        def ops(d, xz_, p, al, ds, st):
+            return (d, xz_[..., :di], xz_[..., di:], p[..., dt_rank:dt_rank + n],
+                    p[..., dt_rank + n:], al, ds, st)
+
+        base = (delta, xz, proj, a_log, d_skip, h0)
+        ckpt = checkpoints(delta, dtype, n)
+        selective_scan(*ops(*base[:5], h0.clone()), ckpt=ckpt)
+        got = selective_scan_bwd(*ops(*base), dout, ckpt)
+        want = selective_scan_bwd_ref(*ops(*base), dout)
+        if not all(torch.equal(a, g) for a, g in zip(
+                selective_scan_bwd(*ops(*base), dout, ckpt), got)):
+            raise AssertionError(f"selective_scan_bwd {label} {dtype}: two calls differ")
+        err, tol = self.leaves_close("selective_scan_bwd", label, dtype, got, want,
+                                     SCAN_BWD_TOL[dtype])
+        del want
+        es = dtype.itemsize
+        # delta, x, z and dout read, their three gradients (not dout's)
+        # written; B and C read and dB, dC written; a_log, d_skip and the
+        # state read and their gradients written; the checkpoints read
+        nbytes = ((8 + 5 * es) * b * s * di + 2 * 2 * es * b * s * n
+                  + 2 * (4 * di * n + 4 * di + 4 * b * di * n) + 4 * ckpt.numel())
+        bound_ms, bound_by = self.bound(nbytes, b * s * di * (20 * n + 10), TF)
+        sets = cold_sets(*base, dout, ckpt)
+        self.cases["selective_scan_bwd"].append({
+            "shape": f"{label}, delta/x/z ({b},{s},{di}), B/C ({b},{s},{n})",
+            "dtype": str(dtype)[6:], "max_abs_err": err, "tolerance": tol,
+            "kernel_ms": time_ms(cycle(lambda *t: selective_scan_bwd(
+                *ops(*t[:6]), t[6], t[7]), sets)),
+            "plain_ms": time_ms(cycle(lambda *t: selective_scan_bwd_ref(
+                *ops(*t[:6]), t[6], t[7]), sets[:1]), iters=2, spin=False, warmup=1),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+        c = self.cases["selective_scan_bwd"][-1]
+        print(f"  {'selective_scan_bwd':<18} {label:<38} {str(dtype)[6:]:<8} "
+              f"{c['kernel_ms']:.6f} ms (bound {bound_ms:.6f} by {bound_by}, plain "
+              f"{c['plain_ms']:.2f}, no library call)")
+        del got, base, xz, proj, delta, dout, ckpt, sets
+        torch.cuda.empty_cache()
+
     def pack(self, dtype, x, t0, t1, label, cold=False):
         import torch.nn.functional as F
         from repro_torch.kernels.pack.ops import pack
@@ -1147,7 +1558,9 @@ class ReplayCheck:
         for t, s0 in zip(states, start):
             t.copy_(s0)
         before = kernels.counters()
-        drops = [(c, c.counts.clone()) for c in DropCounter._installed.values()]
+        # this device's counter only: the CPU's thread may be counting its own
+        counter = DropCounter._installed.get(torch.device(dev).type)
+        drops = [] if counter is None else [(counter, counter.counts.clone())]
         if captured:                # the call ran eagerly: now replay
             again, _ = self.step(params, caches, *args, plan=plan, graphs=graphs)
         else:
@@ -1314,35 +1727,43 @@ def serve_f32(device, cfg, prompts, family, greedy=True, policy="scalable",
 
 
 def compare_f32(cfg, prompts, family, greedy=True, policy="scalable",
-                hw_name="h100", params=None) -> dict:
+                hw_name="h100") -> dict:
     """The f32 drain of one family on the card and on the CPU (under a
-    layout policy and descriptor).  Greedy: identical tokens (the first
-    differing pick, with both top-2 margins, is printed before failing).
-    Sampled: identical tokens apart from a pick whose perturbed top-2
-    margin is below F32_MARGIN, whose request is compared no further; the
-    count of such picks is printed."""
+    layout policy and descriptor; the CPU's in the worker process, compared
+    when it ends).  Greedy: identical tokens (the first differing pick,
+    with both top-2 margins, is printed before failing).  Sampled:
+    identical tokens apart from a pick whose perturbed top-2 margin is
+    below F32_MARGIN, whose request is compared no further; the count of
+    such picks is printed.  The returned dict gains the comparison's
+    numbers when it is made."""
     t0 = time.perf_counter()
-    layout = dict(policy=policy, hw_name=hw_name, params=params)
+    layout = dict(policy=policy, hw_name=hw_name)
+    cpu = CPU_RUNS.proc(serve_f32, "cpu", cfg, prompts, family, greedy, **layout)
     cuda_toks, cuda_first, cuda_picks, info = serve_f32("cuda", cfg, prompts,
                                                         family, greedy, **layout)
-    cpu_toks, cpu_first, cpu_picks, _ = serve_f32("cpu", cfg, prompts, family,
-                                                  greedy, **layout)
-    diff = float(np.abs(cuda_first - cpu_first).max())
     mode = "greedy" if greedy else "sampled"
     if (policy, hw_name) != ("scalable", "h100"):
         mode = f"{mode} {policy} {hw_name}"
-    print(f"  {family} {mode}: first call max |logit diff| {diff:.3e}, graphs "
-          f"{info['captures']}, replay = eager bit for bit at "
-          f"{info['replay_checked']} shapes ({time.perf_counter() - t0:.1f} s)")
-    cmp = compare_picks(cuda_picks, cpu_picks, 0.0 if greedy else F32_MARGIN,
-                        f"f32 {mode} {family} card vs cpu")
-    if greedy and cuda_toks != cpu_toks:
-        raise AssertionError(f"{family}: greedy tokens differ: card {cuda_toks} "
-                             f"cpu {cpu_toks}")
+    print(f"  {family} {mode}: card graphs {info['captures']}, replay = eager "
+          f"bit for bit at {info['replay_checked']} shapes "
+          f"({time.perf_counter() - t0:.1f} s)")
     if info["replay_checked"] < 2:
         raise AssertionError(f"{family}: replay checked at "
                              f"{info['replay_checked']} shapes, not 2")
-    return {"tokens": cuda_toks, "first_logit_diff": diff, **cmp, **info}
+    out = {"tokens": cuda_toks, **info}
+
+    def check(res):
+        cpu_toks, cpu_first, cpu_picks, _ = res
+        diff = float(np.abs(cuda_first - cpu_first).max())
+        print(f"  {family} {mode}: first call max |logit diff| {diff:.3e}")
+        cmp = compare_picks(cuda_picks, cpu_picks, 0.0 if greedy else F32_MARGIN,
+                            f"f32 {mode} {family} card vs cpu")
+        if greedy and cuda_toks != cpu_toks:
+            raise AssertionError(f"{family}: greedy tokens differ: card {cuda_toks} "
+                                 f"cpu {cpu_toks}")
+        out.update(first_logit_diff=diff, **cmp)
+    CPU_RUNS.defer(f"f32 {mode} {family}", cpu, check)
+    return out
 
 
 def drain_bf16(cfg, family, prompts, eng=None, expected=None) -> dict:
@@ -1446,7 +1867,8 @@ def check_path_launches(label, launches, flat, rwkv=False, mamba=False) -> None:
     mamba layers (``mamba``), each only there; a drain launches no
     gradient kernel."""
     for k, n in launches.items():
-        if (n == 0) != (k in GRAD_KERNELS or (k == "wkv6" and not rwkv)
+        if (n == 0) != (k in GRAD_KERNELS + RECURRENT_GRAD
+                        or (k == "wkv6" and not rwkv)
                         or (k == "selective_scan" and not mamba)
                         or (k == "ragged_attn" and not flat)):
             raise AssertionError(f"{label}: {k} launched {n} times")
@@ -2004,28 +2426,27 @@ def static_phase(card) -> tuple:
               + f", d {cfg.d_model}, vocab {cfg.vocab}; batch {STATIC_BATCH} x "
               f"prompt {STATIC_PROMPT}, {STATIC_NEW} new, seq_len {STATIC_SEQ} "
               f"({card})")
-        t0 = time.perf_counter()
-        cpu = static_cpu(cfg)
-        print(f"  {arch} f32 on the CPU (plain versions): {time.perf_counter() - t0:.1f} s")
+        cpu = CPU_RUNS.proc(static_cpu, cfg)       # f32, the plain versions
         r = {}
         for dtype in (TF, BF):
             name = str(dtype)[6:]
             r[name] = static_run(cfg, dtype, f"{arch} static {name}")
-            tol = 0.0 if dtype is TF else BF16_MARGIN
-            r[name]["vs_cpu_f32"] = compare_picks(
-                r[name]["picks"], cpu["picks"], tol,
-                f"{arch} static {name} card vs f32 CPU")
             paths[f"static {arch} {name}"] = r[name]["launches"]
-        if not np.array_equal(np.asarray(r["float32"]["tokens"]), cpu["tokens"]):
-            raise AssertionError(f"{arch}: f32 static tokens card != CPU")
-        print(f"  {arch} f32 static tokens, card = CPU: "
-              f"{np.asarray(r['float32']['tokens'])[:, :8].tolist()} ...")
         if cfg.family == "dense":
             r["vs_generate"] = static_vs_generate(cfg, r["float32"])
             r["drafters"] = static_drafters(cfg)
-        for v in r.values():
-            if isinstance(v, dict):
-                v.pop("picks", None)
+        picks = {name: r[name].pop("picks") for name in ("float32", "bfloat16")}
+
+        def check(cpu_res, arch=arch, r=r, picks=picks):
+            for name, tol in (("float32", 0.0), ("bfloat16", BF16_MARGIN)):
+                r[name]["vs_cpu_f32"] = compare_picks(
+                    picks[name], cpu_res["picks"], tol,
+                    f"{arch} static {name} card vs f32 CPU")
+            if not np.array_equal(np.asarray(r["float32"]["tokens"]), cpu_res["tokens"]):
+                raise AssertionError(f"{arch}: f32 static tokens card != CPU")
+            print(f"  {arch} f32 static tokens, card = CPU: "
+                  f"{np.asarray(r['float32']['tokens'])[:, :8].tolist()} ...")
+        CPU_RUNS.defer(f"{arch} static f32", cpu, check)
         res[arch] = r
     return res, paths
 
@@ -2640,7 +3061,7 @@ def layouts_phase(cfg, f32_prompts, bf16_prompts, gen, card) -> tuple:
             run_.pop("picks")
     print(f"  training, float32: one step's loss and gradients at h100_vl512 "
           f"(CPU: tpu_vl512), full width cut to 2 layers, seq 128, batch 2")
-    train = train_f32_card_vs_cpu(cfg, hw_name="h100_vl512")
+    train = train_card_vs_cpu(cfg.name, 2, 128, 2, 1e-5, hw_name="h100_vl512")
     paths = {f"layout bf16 {k}": r["runs"][0]["launches"] for k, r in bf16.items()}
     return {"f32": f32, "bf16": bf16, "train_f32_vl512": train}, paths, checks
 
@@ -2666,51 +3087,15 @@ def train_launches_per_step(layers: int, remat: bool) -> dict:
     return out
 
 
-def train_f32_card_vs_cpu(cfg, hw_name="h100") -> dict:
-    """One float32 step's loss and gradients, full-width SmolLM2 cut to 2
-    layers, seq 128, batch 2, the same weights and batch on the card and
-    on the CPU plain path, at ``hw_name``'s tiles (the CPU on its TPU
-    twin)."""
-    import dataclasses as dc
-    from repro_torch.configs import RunConfig, ShapeSpec
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models.model import build_model
-    from repro_torch.training.optimizer import leaves, tree_map
-    from repro_torch.training.step import value_and_grad
-    cfg2 = dc.replace(cfg, n_layers=2)
-    shape = ShapeSpec("train", 128, 2, "train")
-    run = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
-    batch = SyntheticLM(cfg2, shape, seed=0).batch_at(0)
-    params = build_model(cfg2, run, shape, device="cpu").init(
-        torch.Generator().manual_seed(0))
-    res = {}
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg2, run, shape, hw=descriptor(dev, hw_name),
-                            device=dev)
-        (loss, _), grads = value_and_grad(model, tree_map(lambda t: t.to(dev), params),
-                                          batch)
-        res[dev] = (float(loss), [g.float().cpu() for g in leaves(grads)])
-    rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
-    worst = max(((a - b).abs().max() / b.abs().max()).item()
-                for a, b in zip(res["cuda"][1], res["cpu"][1]))
-    print(f"  loss card {res['cuda'][0]:.7f} cpu {res['cpu'][0]:.7f} (relative "
-          f"{rel:.2e}, tolerance 1e-5); {len(res['cpu'][1])} gradient leaves, "
-          f"worst max|card - cpu| / max|cpu| {worst:.2e} (tolerance 1e-5: "
-          f"float32 sums in another order)")
-    if rel > 1e-5 or worst > 1e-5:
-        raise AssertionError(f"f32 train step: card and CPU differ (loss {rel}, "
-                             f"gradients {worst})")
-    return {"loss_card": res["cuda"][0], "loss_cpu": res["cpu"][0],
-            "loss_rel": rel, "grad_rel_worst": worst, "leaves": len(res["cpu"][1])}
-
-
 def train_run(model, run, steps, label, ckpt_dir=None, fail_at=None,
-              total_steps=None, ckpt_every=50) -> dict:
+              total_steps=None, ckpt_every=50, want=None, gen=None) -> dict:
     """``Trainer.fit`` on SyntheticLM with the wrapper counts set to 0 just
-    before and read just after (checked per step), each step timed by the
-    trainer (to its loss read, which waits for the step); the first step
-    runs eagerly and captures the step's graph, every later one replays it
-    (exactly one capture, checked); peak device memory from a reset."""
+    before and read just after (checked per step against ``want``, by
+    default the dense model's :func:`train_launches_per_step`), each step
+    timed by the trainer (to its loss read, which waits for the step); the
+    first step runs eagerly and captures the step's graph, every later one
+    replays it (exactly one capture, checked); peak device memory from a
+    reset.  ``gen``: the init's generator (default a CPU one, seed 0)."""
     from repro_torch import kernels
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.training.trainer import Trainer
@@ -2722,15 +3107,17 @@ def train_run(model, run, steps, label, ckpt_dir=None, fail_at=None,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     try:
-        state, hist = tr.fit(torch.Generator().manual_seed(0), steps=steps,
+        state, hist = tr.fit(gen or torch.Generator().manual_seed(0), steps=steps,
                              fail_at=fail_at)
     except RuntimeError as e:
         if fail_at is None or "injected failure" not in str(e):
             raise
         return {"crashed": str(e), "steps": len(times)}
     launches = kernels.launch_counts()
+    counters = kernels.counters()
     n = len(times)
-    want = train_launches_per_step(model.cfg.n_layers, run.remat)
+    if want is None:
+        want = train_launches_per_step(model.cfg.n_layers, run.remat)
     for k, per in want.items():
         if launches[k] != per * n:
             raise AssertionError(f"{label} {k}: {launches[k]} launches over {n} "
@@ -2753,69 +3140,14 @@ def train_run(model, run, steps, label, ckpt_dir=None, fail_at=None,
     return {"state": state, "history": hist, "steps": n, "ms_per_step": ms,
             "step_ms": list(times), "first_step_ms": times[0], "capture_s": capture_s,
             "tokens_per_s": tokens / ms * 1e3, "peak_gib": peak,
-            "peak_reserved_gib": peak_reserved, "launches": launches}
+            "peak_reserved_gib": peak_reserved, "launches": launches,
+            "counters": counters}
 
 
 def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
     """Equal bit for bit (a NaN equals a NaN of the same bits)."""
     return x.dtype == y.dtype and x.shape == y.shape and torch.equal(
         x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
-
-
-def train_replay_check(model, run, steps, label) -> dict:
-    """Replay = eager, bit for bit: two states from one init, ``steps``
-    steps each on the same batches, one through ``CompiledTrainStep.fn``
-    eagerly on the card (its first step under
-    ``set_sync_debug_mode("error")``: no host sync), the other through the
-    trainer's compiled step (eager and captured on the first call, replayed
-    after).  The loss and grad_norm of every step and, after the last,
-    every parameter and optimizer-state leaf (the error buffer included)
-    must agree bit for bit, with exactly one capture.  Each side's ms per
-    step (host clock to a synchronise) is printed."""
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.training.optimizer import leaves
-    from repro_torch.training.trainer import Trainer
-    data = SyntheticLM(model.cfg, model.shape, seed=0)
-    tr = Trainer(model, data, run, total_steps=20, log_fn=lambda m: print("   ", m))
-    step = tr.step_fn
-    eager = tr.init_state(torch.Generator().manual_seed(0))
-    graph = tr.init_state(torch.Generator().manual_seed(0))
-    ms = {"eager": [], "graph": []}
-    for i in range(steps):
-        batch = data.batch_at(i)
-        on_card = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
-        scalars = tr.optimizer.scalars(eager.step, "cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error" if i == 0 else "default")
-        try:
-            eager, em = step.fn(eager, on_card, scalars)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        graph, gm = step(graph, batch)
-        torch.cuda.synchronize()
-        ms["eager"].append((t1 - t0) * 1e3)
-        ms["graph"].append((time.perf_counter() - t1) * 1e3)
-        for k in ("loss", "grad_norm"):
-            if not bits_equal(em[k], gm[k]):
-                raise AssertionError(f"replay {label} step {i}: {k} eager "
-                                     f"{em[k].item()} graph {gm[k].item()}")
-    a = leaves({"p": eager.params, "o": eager.opt_state})
-    b = leaves({"p": graph.params, "o": graph.opt_state})
-    differ = sum(not bits_equal(x, y) for x, y in zip(a, b, strict=True))
-    if differ or step.captures != 1:
-        raise AssertionError(f"replay {label}: {differ} of {len(a)} state leaves "
-                             f"differ, {step.captures} captures")
-    med = {k: sorted(v[1:])[len(v[1:]) // 2] for k, v in ms.items()}
-    print(f"  {label}: {steps} steps, loss and grad_norm of each, {len(a)} state "
-          f"leaves after the last ({sorted(eager.opt_state)}) equal bit for bit; "
-          f"1 capture ({step.capture_seconds:.3f} s); the first eager step made "
-          f"no host sync; ms per step eager {med['eager']:.1f}, replay "
-          f"{med['graph']:.1f} (medians after the first)")
-    return {"steps": steps, "leaves": len(a), "capture_s": step.capture_seconds,
-            "eager_ms": ms["eager"], "graph_ms": ms["graph"], "equal": True}
 
 
 def training_phase(cfg, card) -> tuple:
@@ -2834,7 +3166,7 @@ def training_phase(cfg, card) -> tuple:
     print(f"training, float32: one step's loss and gradients, full-width "
           f"SmolLM2 cut to 2 layers, seq 128, batch 2, card vs CPU plain path "
           f"({card})")
-    out["f32"] = train_f32_card_vs_cpu(cfg)
+    out["f32"] = train_card_vs_cpu(cfg.name, 2, 128, 2, 1e-5)
 
     shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     # bfloat16, the default lr with the first step at full lr: at full width
@@ -2900,7 +3232,7 @@ def training_phase(cfg, card) -> tuple:
 
     print(f"training, the launcher: python -m repro_torch.launch.train --steps 4 "
           f"--seq {TRAIN_SEQ} --batch {TRAIN_BATCH} --dtype bfloat16 --profile "
-          f"(device time by kernel over steps 2-4, graph replays; {card})")
+          f"(device time by kernel over steps 3-4, graph replays; {card})")
     from repro_torch.launch import train as launch_train
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
         _, hist = launch_train.main(["--steps", "4", "--seq", str(TRAIN_SEQ),
@@ -3058,7 +3390,8 @@ def qwen3_full(card) -> tuple:
 
 def dense_parity(arch, card) -> tuple:
     """One config at its published widths cut to DENSE_F32_LAYERS layers:
-    weights drawn once on the card serve both sides; the f32 flat drain
+    weights drawn once on the card serve both sides (the CPU's drain on
+    the CPU's thread, compared when it ends); the f32 flat drain
     (4 requests of 5-24 tokens, 8 new) on the card after warmup equals the
     CPU plain path's token for token with the first call's logits within
     F32_MARGIN of the logits' own scale (max(1, max |logit|): float32 sums
@@ -3079,26 +3412,30 @@ def dense_parity(arch, card) -> tuple:
     shape = ShapeSpec("serve", 64, 4, "decode")
     params = build_model(cfg, f32, shape, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
+    cpu = to_cpu_thread(serve_f32, "cpu", cfg, prompts, "flat", params=params)
     t0 = time.perf_counter()
     cuda_toks, cuda_first, cuda_picks, info = serve_f32("cuda", cfg, prompts,
                                                         "flat", params=params)
-    t1 = time.perf_counter()
-    cpu_toks, cpu_first, cpu_picks, _ = serve_f32("cpu", cfg, prompts, "flat",
-                                                  params=params)
-    cpu_s = time.perf_counter() - t1
-    diff = float(np.abs(cuda_first - cpu_first).max())
-    scale = max(1.0, float(np.abs(cpu_first).max()))
     print(f"  {arch} ({DENSE_F32_LAYERS} of {full.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_heads} over {cfg.n_kv_heads} heads of "
-          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) f32 flat: first "
-          f"call max |logit diff| {diff:.3e} (max |logit| {scale:.3f}), graphs "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) f32 flat: graphs "
           f"{info['captures']}, replay = eager at {info['replay_checked']} "
-          f"shapes; card {t1 - t0:.1f} s, CPU {cpu_s:.1f} s")
-    cmp = compare_picks(cuda_picks, cpu_picks, 0.0, f"{arch} f32 card vs cpu")
-    if cuda_toks != cpu_toks or diff > F32_MARGIN * scale:
-        raise AssertionError(f"{arch}: f32 card {cuda_toks} vs CPU {cpu_toks}, "
-                             f"first logits {diff:.3e} apart (limit "
-                             f"{F32_MARGIN:g} x {scale:.3f})")
+          f"shapes; card {time.perf_counter() - t0:.1f} s")
+    out = {"layers": DENSE_F32_LAYERS, "tokens": cuda_toks, **info}
+
+    def check(res):
+        cpu_toks, cpu_first, cpu_picks, _ = res
+        diff = float(np.abs(cuda_first - cpu_first).max())
+        scale = max(1.0, float(np.abs(cpu_first).max()))
+        print(f"  {arch} f32 flat: first call max |logit diff| {diff:.3e} (max "
+              f"|logit| {scale:.3f})")
+        cmp = compare_picks(cuda_picks, cpu_picks, 0.0, f"{arch} f32 card vs cpu")
+        if cuda_toks != cpu_toks or diff > F32_MARGIN * scale:
+            raise AssertionError(f"{arch}: f32 card {cuda_toks} vs CPU {cpu_toks}, "
+                                 f"first logits {diff:.3e} apart (limit "
+                                 f"{F32_MARGIN:g} x {scale:.3f})")
+        out.update(first_logit_diff=diff, max_logit=scale, f32_vs_cpu=cmp)
+    CPU_RUNS.defer(f"{arch} f32 flat", cpu, check)
     if info["replay_checked"] < 2:
         raise AssertionError(f"{arch}: replay checked at {info['replay_checked']} "
                              f"shapes, not 2")
@@ -3119,10 +3456,8 @@ def dense_parity(arch, card) -> tuple:
     bf16["vs_f32"] = compare_picks(cuda_picks, bf16.pop("picks"), BF16_MARGIN,
                                    f"{arch} bf16 vs f32 (card)")
     del eng
-    return ({"layers": DENSE_F32_LAYERS, "tokens": cuda_toks,
-             "first_logit_diff": diff, "max_logit": scale, "f32_vs_cpu": cmp,
-             **info, "bf16": bf16},
-            {f"{arch} flat bf16": bf16["launches"]})
+    out["bf16"] = bf16
+    return out, {f"{arch} flat bf16": bf16["launches"]}
 
 
 def internvl2_static(card) -> tuple:
@@ -3133,7 +3468,8 @@ def internvl2_static(card) -> tuple:
     VLM_F32_BATCH rows and VLM_F32_NEW new tokens (the CPU's plain path
     is most of the phase's time, and grows with the rows and the steps),
     32 new in bfloat16; card = CPU token for token,
-    weights drawn once on the card; bfloat16 at VLM_LAYERS layers and 4 rows, weights drawn on the
+    weights drawn once on the card (the CPU's run on the CPU's thread);
+    bfloat16 at VLM_LAYERS layers and 4 rows, weights drawn on the
     card.  Each card run is static_run's: a first call capturing the
     prefill and decode graphs, a second capturing nothing with its
     launches per call and once per batch (the vision prefix) checked,
@@ -3156,21 +3492,20 @@ def internvl2_static(card) -> tuple:
               f"vocab {cfg.vocab}; batch {nb} x ({cfg.vision_tokens} "
               f"patches + prompt {STATIC_PROMPT}), {new} new ({card})")
         label = f"internvl2-26b static {name} ({layers} layers)"
-        if dtype is TF:
-            t0 = time.perf_counter()
-            cpu = static_cpu(cfg, params=params, batch=nb, new=new)
-            print(f"  {label} on the CPU (plain versions): "
-                  f"{time.perf_counter() - t0:.1f} s")
+        if dtype is TF:     # the plain versions, on the CPU's thread
+            cpu = to_cpu_thread(static_cpu, cfg, params=params, batch=nb, new=new)
         r = static_run(cfg, dtype, label, params=params, batch=nb, new=new)
         del params, model
+        picks = r.pop("picks")
         if dtype is TF:
-            r["vs_cpu_f32"] = compare_picks(r["picks"], cpu["picks"], 0.0,
-                                            f"{label} card vs CPU")
-            if not np.array_equal(np.asarray(r["tokens"]), cpu["tokens"]):
-                raise AssertionError(f"{label}: tokens card != CPU")
-            print(f"  {label} tokens, card = CPU: "
-                  f"{np.asarray(r['tokens'])[:, :8].tolist()} ...")
-        r.pop("picks")
+            def check(cpu_res, label=label, r=r, picks=picks):
+                r["vs_cpu_f32"] = compare_picks(picks, cpu_res["picks"], 0.0,
+                                                f"{label} card vs CPU")
+                if not np.array_equal(np.asarray(r["tokens"]), cpu_res["tokens"]):
+                    raise AssertionError(f"{label}: tokens card != CPU")
+                print(f"  {label} tokens, card = CPU: "
+                      f"{np.asarray(r['tokens'])[:, :8].tolist()} ...")
+            CPU_RUNS.defer(label, cpu, check)
         res[name] = {"layers": layers, "batch": nb, **r}
         paths[f"static internvl2-26b {name}"] = r["launches"]
     return res, paths
@@ -3353,27 +3688,30 @@ def recurrent_f32(device, cfg, prompts, params, new) -> tuple:
 def recurrent_parity(label, cfg, params, prompts, new, card) -> dict:
     """The f32 monolithic drain on the card and on the CPU over the same
     weights (drawn on the card): identical tokens, first-call logits
-    within F32_MARGIN of max(1, max |logit|)."""
+    within F32_MARGIN of max(1, max |logit|) (the CPU's on its thread,
+    compared when it ends)."""
+    cpu = to_cpu_thread(recurrent_f32, "cpu", cfg, prompts, params=params, new=new)
     t0 = time.perf_counter()
     cuda_toks, cuda_first, cuda_picks, captures = recurrent_f32(
         "cuda", cfg, prompts, params, new)
-    t1 = time.perf_counter()
-    cpu_toks, cpu_first, cpu_picks, _ = recurrent_f32("cpu", cfg, prompts,
-                                                      params, new)
-    diff = float(np.abs(cuda_first - cpu_first).max())
-    scale = max(1.0, float(np.abs(cpu_first).max()))
-    print(f"  {label} f32 monolithic: first call max |logit diff| {diff:.3e} "
-          f"(max |logit| {scale:.3f}), graphs {captures}; card "
-          f"{t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s ({card})")
-    cmp = compare_picks(cuda_picks, cpu_picks, 0.0, f"{label} f32 card vs cpu")
-    if cuda_toks != cpu_toks or diff > F32_MARGIN * scale:
-        raise AssertionError(f"{label}: f32 card {cuda_toks} vs CPU {cpu_toks}, "
-                             f"first logits {diff:.3e} apart (limit "
-                             f"{F32_MARGIN:g} x {scale:.3f})")
-    print(f"  {label} tokens, card = CPU: {cuda_toks}; first logits within "
-          f"{diff / scale:.3e} of max(1, max |logit|) (limit {F32_MARGIN:g})")
-    return {"tokens": cuda_toks, "first_logit_diff": diff, "max_logit": scale,
-            "captures": captures, "vs_cpu": cmp}
+    print(f"  {label} f32 monolithic: graphs {captures}; card "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    out = {"tokens": cuda_toks, "captures": captures}
+
+    def check(res):
+        cpu_toks, cpu_first, cpu_picks, _ = res
+        diff = float(np.abs(cuda_first - cpu_first).max())
+        scale = max(1.0, float(np.abs(cpu_first).max()))
+        cmp = compare_picks(cuda_picks, cpu_picks, 0.0, f"{label} f32 card vs cpu")
+        if cuda_toks != cpu_toks or diff > F32_MARGIN * scale:
+            raise AssertionError(f"{label}: f32 card {cuda_toks} vs CPU {cpu_toks}, "
+                                 f"first logits {diff:.3e} apart (limit "
+                                 f"{F32_MARGIN:g} x {scale:.3f})")
+        print(f"  {label} tokens, card = CPU: {cuda_toks}; first logits within "
+              f"{diff / scale:.3e} of max(1, max |logit|) (limit {F32_MARGIN:g})")
+        out.update(first_logit_diff=diff, max_logit=scale, vs_cpu=cmp)
+    CPU_RUNS.defer(f"{label} f32 monolithic", cpu, check)
+    return out
 
 
 def recurrent_phase(card) -> tuple:
@@ -3418,9 +3756,10 @@ def recurrent_phase(card) -> tuple:
 
 
 MOE_ARCHS = ("qwen3-moe-235b-a22b", "arctic-480b")
-# f32 card = CPU depth: qwen3-moe's 2 layers hold 19.3 GB of f32 experts;
-# one arctic layer holds 53.5 GB (two would not fit the card)
-MOE_F32_LAYERS = {"qwen3-moe-235b-a22b": 2, "arctic-480b": 1,
+# f32 card = CPU depth: one qwen3-moe layer holds 9.7 GB of f32 experts (2
+# until the family training phase came, to hold the run's wall); one
+# arctic layer holds 53.5 GB (two would not fit the card)
+MOE_F32_LAYERS = {"qwen3-moe-235b-a22b": 1, "arctic-480b": 1,
                   # jamba's first period: 7 mamba mixers, attention, 4 moe
                   # layers (51 GB of f32 weights)
                   "jamba-v0.1-52b": 8}
@@ -3481,36 +3820,49 @@ def moe_depth(cfg, total: int) -> tuple:
     return best, rows, (layer, fixed, leaf)
 
 
+_ROUTES = threading.local()      # the routing record of this thread, if any
+
+
 def route_recorder():
-    """Patch the moe layer's routing to record each eager call's float32
-    router probabilities and top-k choices (host arrays); returns the list
-    and the undo."""
+    """Record each eager call of the moe layer's routing made on this
+    thread: its float32 router probabilities and top-k choices (host
+    arrays); returns the list and the undo.  The routing is wrapped once
+    for every thread (the CPU's thread records its own runs' while the
+    card's driver records the card's)."""
     from repro_torch.models import moe
-    orig, seen = moe._route, []
+    if not getattr(moe._route, "records", False):
+        orig = moe._route
 
-    def rec(xf, w, k):
-        out = orig(xf, w, k)
-        seen.append((out[1].float().cpu().numpy(), out[3].cpu().numpy()))
-        return out
-    moe._route = rec
-    return seen, lambda: setattr(moe, "_route", orig)
+        def rec(xf, w, k):
+            out = orig(xf, w, k)
+            seen = getattr(_ROUTES, "seen", None)
+            if seen is not None:
+                seen.append((out[1].float().cpu().numpy(), out[3].cpu().numpy()))
+            return out
+        rec.records = True
+        moe._route = rec
+    _ROUTES.seen = seen = []
+    return seen, lambda: setattr(_ROUTES, "seen", None)
 
 
-def routing_check(label, model_cuda, model_cpu, params_cuda, params_cpu, tokens):
-    """One forward of ``tokens`` on each side with the routing recorded:
-    equal top-k choices in every moe layer, or at the first difference a
+def route_forward(model, params, tokens) -> list:
+    """One forward of ``tokens`` with this thread's routing recorded."""
+    seen, undo = route_recorder()
+    try:
+        with torch.no_grad():
+            model.forward(params, {"tokens": tokens[None]})
+    finally:
+        undo()
+    return seen
+
+
+def routing_check(label, k, card_routes, cpu_routes):
+    """The routing of one forward on each side (route_forward): equal
+    top-k choices in every moe layer, or at the first difference a
     top-k boundary margin (the CPU's k-th minus (k+1)-th probability of
     that token) below F32_MARGIN, printed; else the phase fails."""
-    k = model_cpu.cfg.top_k
-    sides = []
-    for m, p in ((model_cuda, params_cuda), (model_cpu, params_cpu)):
-        seen, undo = route_recorder()
-        try:
-            with torch.no_grad():
-                m.forward(p, {"tokens": tokens[None]})
-        finally:
-            undo()
-        sides.append(seen)
+    sides = [card_routes, cpu_routes]
+    tokens = card_routes[0][1] if card_routes else ()
     diffs, first = 0, None
     for layer, ((_, e_card), (probs, e_cpu)) in enumerate(zip(*sides)):
         rows = np.nonzero((np.sort(e_card, 1) != np.sort(e_cpu, 1)).any(1))[0]
@@ -3518,6 +3870,9 @@ def routing_check(label, model_cuda, model_cpu, params_cuda, params_cpu, tokens)
         if len(rows) and first is None:
             srt = np.sort(probs[rows[0]])[::-1]
             first = (layer, int(rows[0]), float(srt[k - 1] - srt[k]))
+    if len(card_routes) != len(cpu_routes):
+        raise AssertionError(f"{label}: {len(card_routes)} moe layers routed on "
+                             f"the card, {len(cpu_routes)} on the CPU")
     if first is None:
         print(f"  {label}: routing card = CPU in every moe layer "
               f"({len(sides[0])} layers x {len(tokens)} tokens, top-{k})")
@@ -3532,10 +3887,25 @@ def routing_check(label, model_cuda, model_cpu, params_cuda, params_cpu, tokens)
     return {"routing_differs": diffs, "first_margin": margin}
 
 
+def moe_cpu_side(cfg, prompts, families, params) -> tuple:
+    """The CPU's half of moe_f32_parity, on the CPU's thread: the routing of
+    one forward of the first prompt, and each family's drain (serve_f32)."""
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    f32 = RunConfig(param_dtype="float32", compute_dtype="float32")
+    mh = build_model(cfg, f32, ShapeSpec("serve", 64, 4, "decode"),
+                     hw=descriptor("cpu", "h100"), device="cpu")
+    routes = route_forward(mh, params, torch.as_tensor(prompts[0]))
+    return routes, {family: serve_f32("cpu", cfg, prompts, family, params=params,
+                                      new=MOE_F32_NEW, drops=True)
+                    for family in families}
+
+
 def moe_f32_parity(arch, card) -> dict:
     """``arch`` at its published widths cut to MOE_F32_LAYERS[arch] layers
     in f32: weights drawn once on the card and packed there serve both
-    sides (the CPU's a copy of the packed tree); routing card = CPU on one
+    sides (the CPU's a copy of the packed tree, run on the CPU's thread by
+    moe_cpu_side and compared when it ends); routing card = CPU on one
     forward (routing_check); then each of MOE_F32_FAMILIES (a recurrent
     model: the monolithic step only) through
     serve_f32: 2 requests of 5-24 tokens, MOE_F32_NEW new, card after
@@ -3546,7 +3916,6 @@ def moe_f32_parity(arch, card) -> dict:
     import gc
     from repro_torch.configs import RunConfig, ShapeSpec, get_config
     from repro_torch.core.linear import prepack_params
-    from repro_torch.models import transformer as tfm
     from repro_torch.models.model import build_model
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=MOE_F32_LAYERS[arch])
@@ -3554,7 +3923,6 @@ def moe_f32_parity(arch, card) -> dict:
     shape = ShapeSpec("serve", 64, 4, "decode")
     t0 = time.perf_counter()
     mc = build_model(cfg, f32, shape, hw=descriptor("cuda", "h100"), device="cuda")
-    mh = build_model(cfg, f32, shape, hw=descriptor("cpu", "h100"), device="cpu")
     # packed on the card in place (each w dropped as its pack is made:
     # arctic's layer does not fit the card twice), then copied to the host:
     # the CPU's tiles are the card's (CPU_TWIN), and packing 56 GB on the
@@ -3563,48 +3931,55 @@ def moe_f32_parity(arch, card) -> dict:
                         mc.ctx, consume=True)
     gc.collect()
     torch.cuda.empty_cache()
-    ph = tfm.tree_map(lambda t: t.cpu(), pc)
-    nbytes = sum(t.numel() * t.element_size() for t in leaves(ph)
-                 if isinstance(t, torch.Tensor))
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 2)]
-    route = routing_check(f"{arch} f32 ({cfg.n_layers} layers)", mc, mh, pc, ph,
-                          torch.as_tensor(prompts[0]))
+    families = (("monolithic",) if set(cfg.layer_types) - {"attn"}
+                else MOE_F32_FAMILIES)
+    label = f"{arch} f32 ({cfg.n_layers} layers)"
+    card_routes = route_forward(mc, pc, torch.as_tensor(prompts[0]))
+    nbytes = tree_bytes(pc)
+    cpu = to_cpu_thread(moe_cpu_side, cfg, prompts, families, params=pc)
     print(f"  {arch} f32: {cfg.n_layers} of {full.n_layers} layers at full width, "
           f"{nbytes / 1e9:.2f} GB of packed f32 weights on each side, drawn, "
           f"packed and copied in {time.perf_counter() - t0:.1f} s ({card})")
-    out = {"layers": cfg.n_layers, "weight_bytes": nbytes, **route}
-    families = (("monolithic",) if set(cfg.layer_types) - {"attn"}
-                else MOE_F32_FAMILIES)
+    out = {"layers": cfg.n_layers, "weight_bytes": nbytes}
+    card_runs = {}
     for family in families:
         t0 = time.perf_counter()
         ct, cf, cp, info = serve_f32("cuda", cfg, prompts, family, params=pc,
                                      new=MOE_F32_NEW, drops=True)
-        t1 = time.perf_counter()
-        ht, hf, hp, hinfo = serve_f32("cpu", cfg, prompts, family, params=ph,
-                                      new=MOE_F32_NEW, drops=True)
-        cd, hd = info.pop("dropped_frac"), hinfo["dropped_frac"]
-        diff = float(np.abs(cf - hf).max())
-        scale = max(1.0, float(np.abs(hf).max()))
-        print(f"  {arch} f32 {family}: first call max |logit diff| {diff:.3e} "
-              f"({diff / scale:.3e} of max(1, max |logit|) {scale:.3f}; limit "
-              f"{F32_MARGIN:g}), dropped fraction card {cd:.6f} CPU {hd:.6f}, "
-              f"replay = eager at {info['replay_checked']} shapes, graphs "
-              f"{info['captures']}; card {t1 - t0:.1f} s, CPU "
-              f"{time.perf_counter() - t1:.1f} s")
-        cmp = compare_picks(cp, hp, 0.0, f"{arch} f32 {family} card vs cpu")
-        if ct != ht or diff > F32_MARGIN * scale or cd != hd \
-                or info["replay_checked"] < 1:
-            raise AssertionError(f"{arch} f32 {family}: tokens {ct} vs {ht}, "
-                                 f"logits {diff:.3e} apart (scale {scale:.3f}), "
-                                 f"dropped {cd} vs {hd}, replay checked at "
+        card_runs[family] = (ct, cf, cp, info)
+        print(f"  {arch} f32 {family}: replay = eager at {info['replay_checked']} "
+              f"shapes, graphs {info['captures']}; card "
+              f"{time.perf_counter() - t0:.1f} s")
+        if info["replay_checked"] < 1:
+            raise AssertionError(f"{arch} f32 {family}: replay checked at "
                                  f"{info['replay_checked']} shapes")
-        out[family] = {"tokens": ct, "first_logit_diff": diff, "max_logit": scale,
-                       "dropped_frac": cd, "vs_cpu": cmp, **info}
-    print(f"  {arch} f32: card = CPU token for token in {list(families)}")
-    del pc, ph
+    del pc, mc
     gc.collect()
     torch.cuda.empty_cache()
+
+    def check(res):
+        cpu_routes, drains = res
+        out.update(routing_check(label, cfg.top_k, card_routes, cpu_routes))
+        for family in families:
+            ct, cf, cp, info = card_runs[family]
+            ht, hf, hp, hinfo = drains[family]
+            cd, hd = info.pop("dropped_frac"), hinfo["dropped_frac"]
+            diff = float(np.abs(cf - hf).max())
+            scale = max(1.0, float(np.abs(hf).max()))
+            print(f"  {arch} f32 {family}: first call max |logit diff| {diff:.3e} "
+                  f"({diff / scale:.3e} of max(1, max |logit|) {scale:.3f}; limit "
+                  f"{F32_MARGIN:g}), dropped fraction card {cd:.6f} CPU {hd:.6f}")
+            cmp = compare_picks(cp, hp, 0.0, f"{arch} f32 {family} card vs cpu")
+            if ct != ht or diff > F32_MARGIN * scale or cd != hd:
+                raise AssertionError(f"{arch} f32 {family}: tokens {ct} vs {ht}, "
+                                     f"logits {diff:.3e} apart (scale {scale:.3f}), "
+                                     f"dropped {cd} vs {hd}")
+            out[family] = {"tokens": ct, "first_logit_diff": diff, "max_logit": scale,
+                           "dropped_frac": cd, "vs_cpu": cmp, **info}
+        print(f"  {arch} f32: card = CPU token for token in {list(families)}")
+    CPU_RUNS.defer(f"{arch} f32", cpu, check)
     return out
 
 
@@ -4033,6 +4408,459 @@ def jamba_phase(card, checks) -> tuple:
     return res, paths
 
 
+# ------------------------------- training the recurrent and moe families
+
+# the training step of every family: RWKV-6 1.6B whole and Qwen3-MoE at
+# full width cut in depth in bf16 (4 x 1024 tokens a step); jamba and
+# arctic, whose one layer or period does not fit one card with its
+# gradients and moments (ROADMAP A10), at their reduced configs in f32.
+# RWKV-6 at lr 1e-4: over 20 steps from its random init the mean loss of
+# the last 5 rose above the first 5's at 3e-4 (11.5897 -> 11.6767, warmup
+# 5) and 1e-3 (11.6057 -> 11.6403) and fell at 1e-4 (11.5817 -> 11.5606;
+# measured on an NVIDIA H100 80GB HBM3 at 700.00 W).  Not bf16's doing:
+# cut to 12 layers, warmup 1 (launch.train --layers 12 --steps 20 --warmup
+# 1), float32 fell less at 3e-4 than bf16 did (11.6036 -> 11.6024 against
+# 11.6113 -> 11.5746) and both fell further at 1e-4 (11.5995 -> 11.5480,
+# 11.6008 -> 11.5583); at a random init a larger lr adds more noise than
+# 20 steps remove, as SmolLM2's training phase found.  Qwen3-MoE with
+# 8-bit moments: with float32 ones its one layer's 3.73 B parameters hold
+# 34.8 GiB, and the capture of the step took its 28 GiB of transients a
+# second time (ROADMAP C11), which did not fit the card at 4 x 1024
+# tokens; with 8-bit ones the step peaks at 42.0 GiB allocated, 66.5
+# reserved
+RWKV_TRAIN, MOE_TRAIN = "rwkv6-1.6b", "qwen3-moe-235b-a22b"
+RWKV_TRAIN_LR = 1e-4
+RWKV_TRAIN_STEPS, MOE_TRAIN_STEPS, FAMILY_REPLAY_STEPS = 20, 5, 3
+# f32 card = CPU: (arch, layers: None for the reduced config, else the
+# published widths cut to that many layers, seq, batch, each gradient
+# leaf's tolerance as a share of its largest |value|).  1e-5: float32 sums
+# in another order, as SmolLM2's.  RWKV-6 at full width, 2e-4: the card's
+# expf and the CPU's differ by an ulp, and the decays (about 0.9975 at
+# init) carry that through 128 steps of the state into the r and k
+# gradients, which the 2048-wide projections' weight gradients then sum
+# over 256 tokens with cancellation (their mean |value| a 20th of their
+# largest): 7.0e-5 measured on the H100 for wr and wk, every other leaf
+# under 3.3e-5; the same step on the CPU through the backward's plain
+# version and through autograd of the token loop agree within 2e-6
+FAMILY_F32 = (("rwkv6-1.6b", 2, 128, 2, 2e-4), ("jamba-v0.1-52b", None, 32, 2, 1e-5),
+              ("qwen3-moe-235b-a22b", None, 32, 2, 1e-5),
+              ("arctic-480b", None, 32, 2, 1e-5))
+# bf16 training's witnesses, RWKV-6 at full width cut to
+# BF16_WITNESS_LAYERS, seq 128, batch 2.  (1) One bf16 step card = the
+# CPU's bf16 plain path (train_card_vs_cpu): the loss within 1e-3
+# relative and each gradient leaf within 5e-2 of its largest entry; both
+# sides round the same products' f32 sums to bf16, so they part only
+# where a sum lands near a rounding boundary, an ulp (2^-8) at a time.
+# (2) BF16_WITNESS_STEPS steps at RWKV_TRAIN_LR on the card in bf16 and
+# in f32 (bf16_vs_f32_training): each step's loss within 1e-2, relative
+# (bf16 rounds every weight, activation and stored input to 2^-9; the
+# bf16 weights then drop updates below half an ulp, so the runs' weights
+# part).  Not a gradient against f32: at this shape the gradient norm is
+# mostly the bonus u's, whose sum over tokens cancels, and bf16 inputs
+# move it by about a fifth on either device (on the CPU, d|u| 50.05 in
+# f32, 52.34 in bf16, the difference 22.8 % of it: scripts/bf16_grad_parts.py)
+BF16_WITNESS_LAYERS, BF16_WITNESS_STEPS = 2, 10
+BF16_LOSS_TOL, BF16_GRAD_TOL, BF16_TRAIN_LOSS_TOL = 1e-3, 5e-2, 1e-2
+# the share of the card a training run's reckoned peak may take
+TRAIN_FIT = 0.95
+# wkv6's backward: each gradient within this share of the plain backward's
+# largest |value| (float32 sums in another order, a recurrence of 1024
+# steps, the forward kernel's chunked states as checkpoints)
+WKV6_BWD_TOL = 1e-5
+# selective_scan's backward: each gradient within this share of the plain
+# backward's largest |value| (float32: sums over the channels and lanes in
+# another order; bfloat16: dx, dz, dB and dC rounded to bfloat16 from
+# float32 sums of another order)
+SCAN_BWD_TOL = {TF: 1e-5, BF: 2e-2}
+
+
+def moe_train_depth(cfg, total: int) -> tuple:
+    """The bf16 training depth of a moe config with 8-bit moments and its
+    reckoning (printed): for L layers, 6 bytes a parameter (bf16 weights
+    and gradients, int8 moments), plus a step's transients counted twice
+    (the capture of the step takes them again): the packed copies of
+    every expert leaf the forward saves, the optimizer's float32 copies of
+    the largest leaf (4 of its bf16 bytes, twice: 8), the logits and their
+    gradient in float32; plus MOE_POOL_BYTES."""
+    layer, fixed, leaf = moe_bytes(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    experts = leaf * (3 if cfg.glu else 2)
+    best, rows = 0, []
+    for n in range(1, cfg.n_layers + 1):
+        peak = (3 * (fixed + n * layer)
+                + 2 * (n * experts + 8 * leaf + 8 * tokens * cfg.vocab)
+                + MOE_POOL_BYTES)
+        rows.append((n, peak))
+        if peak <= TRAIN_FIT * total:
+            best = n
+        else:
+            break
+    return best, rows
+
+
+def train_card_vs_cpu(arch, layers, seq, batch, grad_tol, hw_name="h100",
+                      dtype="float32", loss_tol=1e-5) -> dict:
+    """One ``dtype`` step's loss and gradients of ``arch`` (reduced, or its
+    published widths cut to ``layers``), the same weights and batch on the
+    card (``hw_name``'s tiles) and on the CPU plain path (its twin's): the
+    loss within ``loss_tol`` relative, the moe metrics within 1e-6, every
+    gradient leaf within ``grad_tol`` of its largest entry (the worst
+    leaves printed by name).  The wrapper counts are set to 0 just before
+    the card's step and read after it."""
+    import dataclasses as dc
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import leaves, tree_map
+    from repro_torch.training.step import value_and_grad
+    full = get_config(arch)
+    cfg = reduced_config(full) if layers is None else dc.replace(full, n_layers=layers)
+    shape = ShapeSpec("train", seq, batch, "train")
+    run = RunConfig(param_dtype=dtype, compute_dtype=dtype, remat=False)
+    batch_ = SyntheticLM(cfg, shape, seed=0).batch_at(0)
+    params = build_model(cfg, run, shape, hw=descriptor("cpu", hw_name),
+                         device="cpu").init(torch.Generator().manual_seed(0))
+    res, t = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, run, shape, hw=descriptor(dev, hw_name), device=dev)
+        p = tree_map(lambda x: x.to(dev), params)
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+        (loss, met), grads = value_and_grad(model, p, batch_)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = kernels.counters()
+        t[dev] = time.perf_counter() - t0
+        res[dev] = (float(loss), {k: float(v) for k, v in met.items()},
+                    [g.float().cpu() for g in leaves(grads)])
+        del model, p, grads
+    rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    names = leaf_names(params)
+    by_leaf = sorted(((a - b).abs().max().item() / max(1e-30, b.abs().max().item()), n)
+                     for n, a, b in zip(names, res["cuda"][2], res["cpu"][2]))
+    worst = by_leaf[-1][0]
+    aux = {k: (res["cuda"][1][k], res["cpu"][1][k])
+           for k in ("load_balance", "router_z", "dropped_frac") if k in res["cpu"][1]}
+    aux_off = max([abs(a - b) / max(1.0, abs(b)) for a, b in aux.values()] or [0.0])
+    ran = {k: v for k, v in counts.items() if v}
+    what = "reduced" if layers is None else f"{layers} of {full.n_layers} layers"
+    print(f"  {arch} {dtype} ({what}, seq {seq}, batch {batch}, {hw_name}): loss "
+          f"card {res['cuda'][0]:.7f} cpu {res['cpu'][0]:.7f} (relative {rel:.2e}, "
+          f"tolerance {loss_tol:g}); {len(res['cpu'][2])} gradient leaves, worst "
+          f"max|card - cpu| / max|cpu| {worst:.2e} (tolerance {grad_tol:g}; "
+          f"the worst three {[(n, f'{r:.2e}') for r, n in by_leaf[-3:]]})"
+          + (f"; moe metrics card/cpu {aux} (tolerance 1e-6)" if aux else "")
+          + f"; card {t['cuda']:.1f} s, CPU {t['cpu']:.1f} s; launches {ran}")
+    if rel > loss_tol or worst > grad_tol or aux_off > 1e-6:
+        raise AssertionError(f"{arch} {dtype} train step: card and CPU differ (loss "
+                             f"{rel}, gradients {worst}, moe metrics {aux_off})")
+    return {"layers": cfg.n_layers, "loss_card": res["cuda"][0],
+            "loss_cpu": res["cpu"][0], "loss_rel": rel, "grad_rel_worst": worst,
+            "moe_metrics": aux, "leaves": len(res["cpu"][2]), "launches": counts}
+
+
+def bf16_vs_f32_training(arch, layers, seq, batch, steps, lr) -> dict:
+    """A witness for bfloat16 training: ``arch`` at its published widths
+    cut to ``layers``, ``steps`` steps at ``lr`` (warmup 1) through the
+    trainer's compiled step on the card in float32 and in bfloat16, from
+    one init (a CUDA generator, seed 0: the bf16 weights are the f32
+    ones rounded, checked) and the same batches.  Each bf16 step's loss
+    within BF16_TRAIN_LOSS_TOL of the f32 step's, relative.  The grad
+    norms are printed, not held: RWKV-6's is mostly the bonus u's, a sum
+    over tokens with cancellation that bf16 inputs move by a fifth (see
+    BF16_WITNESS_LAYERS); the gradients are held to the CPU's own bf16
+    path instead (train_card_vs_cpu)."""
+    import dataclasses as dc
+    import gc
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.trainer import Trainer
+    cfg = dc.replace(get_config(arch), n_layers=layers)
+    shape = ShapeSpec("train", seq, batch, "train")
+    hist, init = {}, {}
+    for dt in ("float32", "bfloat16"):
+        run = RunConfig(param_dtype=dt, compute_dtype=dt, remat=False, lr=lr,
+                        warmup_steps=1)
+        data = SyntheticLM(cfg, shape, seed=0)
+        tr = Trainer(build_model(cfg, run, shape, device="cuda"), data, run,
+                     total_steps=steps, log_fn=lambda m: print("   ", m))
+        state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+        init[dt] = [t.to("cpu", copy=True) for t in leaves(state.params)]
+        hist[dt] = []
+        for i in range(steps):
+            state, m = tr.step_fn(state, data.batch_at(i))
+            hist[dt].append((float(m["loss"]), float(m["grad_norm"])))
+        if tr.step_fn.captures != 1:
+            raise AssertionError(f"{arch} {dt}: {tr.step_fn.captures} captures")
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    rounded = all(torch.equal(a.to(b.dtype), b)
+                  for a, b in zip(init["float32"], init["bfloat16"], strict=True))
+    f, h = np.array(hist["float32"]), np.array(hist["bfloat16"])
+    loss_rel = np.abs(h[:, 0] - f[:, 0]) / np.abs(f[:, 0])
+    gnorm_rel = np.abs(h[:, 1] - f[:, 1]) / np.abs(f[:, 1])
+    print(f"  {arch} ({layers} of {get_config(arch).n_layers} layers, seq {seq}, "
+          f"batch {batch}, lr {lr:g}), {steps} steps each through the compiled "
+          f"step: loss f32 {[round(float(x), 4) for x in f[:, 0]]}, bf16 "
+          f"{[round(float(x), 4) for x in h[:, 0]]} (worst relative gap "
+          f"{loss_rel.max():.2e}, tolerance {BF16_TRAIN_LOSS_TOL:g}); grad_norm "
+          f"f32 {[round(float(x), 2) for x in f[:, 1]]}, bf16 "
+          f"{[round(float(x), 2) for x in h[:, 1]]} (not held); the bf16 init "
+          f"the f32 one rounded: {rounded}")
+    if not (rounded and loss_rel.max() <= BF16_TRAIN_LOSS_TOL):
+        raise AssertionError(f"{arch}: bf16 training parts from f32 (loss "
+                             f"{loss_rel.max()}, init rounded {rounded})")
+    return {"layers": layers, "seq": seq, "batch": batch, "lr": lr,
+            "f32": hist["float32"], "bf16": hist["bfloat16"],
+            "loss_rel_worst": float(loss_rel.max()),
+            "first_grad_norm_rel": float(gnorm_rel[0])}
+
+
+def card_memory() -> str:
+    """The card's memory in use, after a collection and empty_cache (what
+    the next run starts beside)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} reserved before it")
+
+
+def leaf_names(tree, prefix="") -> list:
+    """The '/'-joined keys of a parameter tree's leaves, in ``leaves``'
+    order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def train_replay_check(model, run, steps, label) -> dict:
+    """Replay = eager, bit for bit, with one state on the card at a time
+    (so a model whose training state the card holds once, not twice, is
+    checked too): from one init (a CUDA generator, seed 0), ``steps``
+    steps through the compiled step's eager ``fn`` (the first under
+    ``set_sync_debug_mode("error")``: no host sync), the final state
+    copied to the host; the state drawn again from the same seed, the
+    same steps through the compiled step (eager and captured on the first
+    call, replayed after).  Each step's loss and grad_norm and every final
+    parameter and optimizer-state leaf (the error buffer included) must
+    agree bit for bit, with one capture.  Each side's ms per step (host
+    clock to a synchronise) is printed."""
+    import gc
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.trainer import Trainer
+    data = SyntheticLM(model.cfg, model.shape, seed=0)
+    tr = Trainer(model, data, run, total_steps=20, log_fn=lambda m: print("   ", m))
+    step = tr.step_fn
+    state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+    eager_m, ms = [], {"eager": [], "graph": []}
+    for i in range(steps):
+        on_card = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(i).items()}
+        scalars = tr.optimizer.scalars(state.step, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if i == 0 else "default")
+        try:
+            state, em = step.fn(state, on_card, scalars)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        eager_m.append({k: em[k].clone() for k in ("loss", "grad_norm")})
+        torch.cuda.synchronize()
+        ms["eager"].append((time.perf_counter() - t0) * 1e3)
+    host = [t.cpu() for t in leaves({"p": state.params, "o": state.opt_state})]
+    del state, em
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, gm = step(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        ms["graph"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("loss", "grad_norm"):
+            if not bits_equal(eager_m[i][k], gm[k]):
+                raise AssertionError(f"replay {label} step {i}: {k} eager "
+                                     f"{eager_m[i][k].item()} graph {gm[k].item()}")
+    got = leaves({"p": state.params, "o": state.opt_state})
+    kinds = sorted(state.opt_state)
+    differ = sum(not bits_equal(x.cpu(), y) for x, y in zip(got, host, strict=True))
+    if differ or step.captures != 1:
+        raise AssertionError(f"replay {label}: {differ} of {len(host)} state leaves "
+                             f"differ, {step.captures} captures")
+    med = {k: sorted(v[1:])[len(v[1:]) // 2] for k, v in ms.items()}
+    print(f"  {label}: {steps} steps, loss and grad_norm of each, {len(host)} state "
+          f"leaves after the last ({kinds}) equal bit for bit (one state on the "
+          f"card, the eager run's kept on the host); 1 capture "
+          f"({step.capture_seconds:.3f} s); "
+          f"the first eager step made no host sync; ms per step eager "
+          f"{med['eager']:.1f}, replay {med['graph']:.1f} (medians after the first)")
+    del state, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "leaves": len(got), "capture_s": step.capture_seconds,
+            "eager_ms": ms["eager"], "graph_ms": ms["graph"], "equal": True}
+
+
+def family_bf16_train(arch, layers, steps, run, card) -> dict:
+    """``arch`` at its published widths (cut to ``layers``) in bf16, seq
+    TRAIN_SEQ, batch TRAIN_BATCH, through the trainer's compiled step
+    (one capture): ``steps`` steps, every loss finite, the launches per
+    step checked (the recurrences' forward and backward kernels once a
+    layer, a moe model's expert-batched gradient kernels), the dropped
+    fraction of a moe model printed (``moe.DropCounter``).  ``run``: the
+    RunConfig (bf16, its lr and optimizer)."""
+    import dataclasses as dc
+    import gc
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch)
+    if layers != cfg.n_layers:
+        cfg = dc.replace(cfg, n_layers=layers)
+    model = build_model(cfg, run, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                        device="cuda")
+    per = {"wkv6": layers, "wkv6_bwd": layers} if "rwkv" in set(cfg.layer_types) \
+        else {}
+    counter = moe.DropCounter("cuda").install() if cfg.moe else None
+    try:
+        r = train_run(model, run, steps, f"{arch} bf16 ({layers} layers)",
+                      total_steps=steps, want=per,
+                      gen=torch.Generator(device="cuda").manual_seed(0))
+    finally:
+        if counter is not None:
+            counter.uninstall()
+    r.pop("state")
+    h = r["history"]
+    ok = bool(np.all(np.isfinite(h)))
+    if steps >= 10:
+        first, last = float(np.mean(h[:5])), float(np.mean(h[-5:]))
+        ok = ok and last < first
+        print(f"  {arch}: every loss finite: {bool(np.all(np.isfinite(h)))}; mean "
+              f"loss of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+    if cfg.moe:
+        c = r["counters"]
+        r["dropped_frac"] = counter.dropped_frac()
+        print(f"  {arch}: dropped fraction over the run {r['dropped_frac']:.6f} "
+              f"(real tokens' assignments over capacity); expert-batched launches "
+              f"per step: mmt4d {c['mmt4d.expert_batched'] // r['steps']}, dgrad "
+              f"{c['mmt4d_dgrad.expert_batched'] // r['steps']}, wgrad "
+              f"{c['mmt4d_wgrad.expert_batched'] // r['steps']}")
+        ok = ok and c["mmt4d_dgrad.expert_batched"] > 0 and c["mmt4d_wgrad.expert_batched"] > 0
+    if not ok:
+        raise AssertionError(f"{arch} bf16 training: a loss not finite, the loss "
+                             f"did not fall, or no expert gradient kernel ran: {h}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def family_training_phase(card, checks) -> tuple:
+    """The backward kernels of the recurrences and the expert-batched
+    gradient kernels against their plain versions at the training shapes;
+    one f32 step card = CPU for each family the port newly trains; RWKV-6
+    1.6B whole and Qwen3-MoE at full width cut in depth, in bf16 through
+    the compiled step; replay = eager bit for bit for both; the launcher's
+    --profile naming the new kernels."""
+    import dataclasses as dc
+    import gc
+    import tempfile
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    out, by_path = {}, {}
+    print(f"the backward kernels at the training shapes (4 x 1024 tokens), "
+          f"L2-cold, beside their plain versions ({card}):")
+    checks.wkv6_bwd(TRAIN_BATCH, TRAIN_SEQ, "train")
+    for dtype in (BF, TF):
+        checks.selective_scan_bwd(dtype, TRAIN_BATCH, TRAIN_SEQ, "train")
+    print(f"the expert-batched gradient kernels at the training experts "
+          f"(Qwen3-MoE: 128 experts, C 320 at 4,096 tokens, 4096 <-> 1536; jamba: "
+          f"16 experts, C 640, 4096 <-> 14336), beside torch.bmm ({card}):")
+    for e, c, k, n, act, label in ((128, 320, 4096, 1536, "silu", "qwen3-moe gate"),
+                                   (128, 320, 1536, 4096, None, "qwen3-moe down"),
+                                   (16, 640, 4096, 14336, "silu", "jamba gate"),
+                                   (16, 640, 14336, 4096, None, "jamba down")):
+        checks.expert_grads(BF, e, c, k, n, act, label)
+    checks.expert_grads(TF, 128, 320, 4096, 1536, "silu", "qwen3-moe gate")
+
+    print(f"training, float32: one step's loss and gradients, card vs CPU plain "
+          f"path ({card}):")
+    out["f32"] = {}
+    for arch, layers, seq, batch, tol in FAMILY_F32:
+        out["f32"][arch] = r = train_card_vs_cpu(arch, layers, seq, batch, tol)
+        by_path[f"train f32 {arch}"] = r["launches"]
+        gc.collect()
+    print(f"training, bfloat16: {RWKV_TRAIN} cut to {BF16_WITNESS_LAYERS} layers, "
+          f"one step card = the CPU's bf16 plain path, then {BF16_WITNESS_STEPS} "
+          f"steps against float32 on the card ({card})")
+    out["bf16"] = r = train_card_vs_cpu(RWKV_TRAIN, BF16_WITNESS_LAYERS, 128, 2,
+                                        BF16_GRAD_TOL, dtype="bfloat16",
+                                        loss_tol=BF16_LOSS_TOL)
+    by_path[f"train bf16 {RWKV_TRAIN} card = cpu"] = r["launches"]
+    out["bf16_vs_f32"] = bf16_vs_f32_training(RWKV_TRAIN, BF16_WITNESS_LAYERS, 128, 2,
+                                              BF16_WITNESS_STEPS, RWKV_TRAIN_LR)
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    base = RunConfig(remat=False, warmup_steps=1)
+    rwkv_run = dc.replace(base, lr=RWKV_TRAIN_LR)
+    moe_run = dc.replace(base, adam_8bit=True)
+    print(f"training, bfloat16: {RWKV_TRAIN} whole, seq {TRAIN_SEQ}, batch "
+          f"{TRAIN_BATCH}, lr {RWKV_TRAIN_LR:g}, {RWKV_TRAIN_STEPS} steps through "
+          f"the compiled step ({card}); {card_memory()}")
+    rwkv_layers = get_config(RWKV_TRAIN).n_layers
+    out["rwkv6 bf16"] = r = family_bf16_train(RWKV_TRAIN, rwkv_layers,
+                                              RWKV_TRAIN_STEPS, rwkv_run, card)
+    by_path["train bf16 rwkv6-1.6b"] = r.pop("launches")
+    mcfg = get_config(MOE_TRAIN)
+    depth, rows = moe_train_depth(mcfg, total)
+    if depth < 1:
+        raise AssertionError(f"{MOE_TRAIN}: not one layer fits the card in training")
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    print(f"training, replay = eager bit for bit: {FAMILY_REPLAY_STEPS} steps each "
+          f"through the compiled step's eager fn and through its graph, from one "
+          f"init, the eager run's final state held on the host ({card}); "
+          f"{card_memory()}")
+    out["replay"] = {}
+    for key, cfg, run in ((f"{RWKV_TRAIN} bf16", get_config(RWKV_TRAIN), rwkv_run),
+                          (f"{MOE_TRAIN} {depth} layers bf16 8-bit",
+                           dc.replace(mcfg, n_layers=depth), moe_run)):
+        out["replay"][key] = train_replay_check(
+            build_model(cfg, run, shape, device="cuda"), run, FAMILY_REPLAY_STEPS, key)
+    print(f"training, bfloat16: {MOE_TRAIN} at full width with 8-bit moments, the "
+          f"most layers whose reckoned peak fits {TRAIN_FIT:.0%} of the card's "
+          f"{total / 1e9:.2f} GB: "
+          + ", ".join(f"{n} layers {p / 1e9:.2f} GB" for n, p in rows)
+          + f" -> {depth} ({card}); {card_memory()}")
+    out["qwen3-moe bf16"] = r = family_bf16_train(MOE_TRAIN, depth, MOE_TRAIN_STEPS,
+                                                  moe_run, card)
+    r["layers"], r["reckoning"] = depth, rows
+    by_path["train bf16 qwen3-moe"] = r.pop("launches")
+
+    print(f"training, the launcher: python -m repro_torch.launch.train --arch "
+          f"{RWKV_TRAIN} --layers 2 --steps 4 --seq {TRAIN_SEQ} --batch "
+          f"{TRAIN_BATCH} --dtype bfloat16 --profile (the trace's launches held "
+          f"to the wrappers' counts, wkv6_bwd among them; {card}); {card_memory()}")
+    from repro_torch.launch import train as launch_train
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        _, hist = launch_train.main(["--arch", RWKV_TRAIN, "--layers", "2", "--steps",
+                                     "4", "--seq", str(TRAIN_SEQ), "--batch",
+                                     str(TRAIN_BATCH), "--dtype", "bfloat16",
+                                     "--profile", os.path.join(tmp, "train.json.gz")])
+    if not np.all(np.isfinite(hist)):
+        raise AssertionError(f"launcher: loss not finite: {hist}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  the family training phase took {out['seconds']:.1f} s ({card})")
+    return out, by_path
+
+
 def by_descriptor(kernel, scaled_checks) -> dict:
     """Kernel ``kernel``'s bf16 representative case at each scaled
     descriptor's tiles: times, bound and library time (ragged_attn's tiles
@@ -4056,7 +4884,20 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    sys.path.insert(0, src)
+    import repro_torch.serving.engine     # noqa: F401  (the port is beside this script)
+    global CPU_RUNS
+    CPU_RUNS = CpuRuns(src)
+    try:
+        return smoke(args)
+    finally:
+        CPU_RUNS.close()
+
+
+def smoke(args) -> int:
+    """The phases, in the order the module's docstring gives them."""
+    import gc
     from repro_torch.configs import RunConfig, ShapeSpec, get_config
     from repro_torch.core.hardware import query
     from repro_torch.kernels import build
@@ -4066,6 +4907,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     def elapsed():          # each phase's start, for the run's timeline
+        CPU_RUNS.settle()   # the comparisons whose CPU runs have ended
         print(f"[{time.perf_counter() - t_start:.1f} s into the run]")
 
     card = card_line()
@@ -4101,6 +4943,50 @@ def main(argv=None) -> int:
     checks.run_d128()
     f32_chunk_cases = checks.f32_chunk_identity()
 
+    # the bf16 flat drain below makes its own engine: the moe and jamba
+    # phases reckon their depth from the whole card
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path = {}
+    elapsed()
+    print(f"the moe family: the expert-batched mmt4d at qwen3-moe's and "
+          f"arctic's expert products; each at full width, f32 card = CPU "
+          f"({', '.join(f'{a} {MOE_F32_LAYERS[a]} layers' for a in MOE_ARCHS)}; "
+          f"tokens, first logits within {F32_MARGIN:g}, dropped fractions, "
+          f"routing) and the bf16 §4 flat drain cut in depth ({card})")
+    moe_res, moe_paths = moe_phase(card, checks)
+    by_path.update(moe_paths)
+    elapsed()
+    print(f"jamba: selective_scan against its plain version at jamba's widths "
+          f"(di 8192, N 16), f32 (rtol {SCAN_RTOL:g}, atol {SCAN_ATOL:g}) and "
+          f"bf16; jamba-v0.1-52B in bf16 at its published widths cut to the "
+          f"whole periods that fit, through the monolithic step; its first "
+          f"period with its moe layers in f32, card = CPU ({card})")
+    jamba, jamba_paths = jamba_phase(card, checks)
+    by_path.update(jamba_paths)
+    elapsed()
+    print(f"the dense configs and the vlm family at their published widths: "
+          f"Qwen3-8B at full depth through the flat drain (bf16); Qwen2-7B, "
+          f"ChatGLM3-6B and OLMo-1B cut to {DENSE_F32_LAYERS} layers (f32 card = "
+          f"CPU, bf16 under a top-2 margin of {BF16_MARGIN:g}); InternVL2-26B's "
+          f"language model through generate_static (f32 at {VLM_F32_LAYERS} "
+          f"layers card = CPU, bf16 at {VLM_LAYERS}) ({card})")
+    dense, dense_paths = dense_phase(card)
+    by_path.update(dense_paths)
+    elapsed()
+    print(f"the recurrent mixers: wkv6 against its plain version at RWKV-6's "
+          f"heads (32 of 64), L2-cold, relative tolerance {WKV6_TOL:g} on y "
+          f"and the final state ({card}):")
+    checks.wkv6(4, 1, "decode rows")
+    checks.wkv6(1, 512, "prefill")
+    checks.wkv6(2, 256, "prefill cached")
+    elapsed()
+    print(f"RWKV-6 1.6B whole (bf16, monolithic, exact-length prefills) and "
+          f"RWKV-6 at {PARITY_LAYERS} layers (f32 card = CPU, generate_static "
+          f"= generate) ({card})")
+    recurrent, rec_paths = recurrent_phase(card)
+    by_path.update(rec_paths)
     elapsed()
     print("end to end, float32: 4 requests x 8 new tokens, card vs CPU plain "
           "path, each step family (card: graphs captured at warmup)")
@@ -4110,8 +4996,8 @@ def main(argv=None) -> int:
     if len({str(r["tokens"]) for r in f32.values()}) != 1:
         raise AssertionError(f"the families' f32 tokens differ: "
                              f"{ {k: r['tokens'] for k, r in f32.items()} }")
-    print(f"  greedy tokens identical, card = CPU, flat = dense = monolithic: "
-          f"{f32['flat']['tokens']}")
+    print(f"  greedy tokens identical on the card, flat = dense = monolithic "
+          f"(each held to the CPU's when its run ends): {f32['flat']['tokens']}")
     elapsed()
     print(f"end to end, float32, sampled (seed 11, temperatures "
           f"{TEMPERATURES}): the same drains, card vs CPU plain path, each "
@@ -4119,9 +5005,6 @@ def main(argv=None) -> int:
           f"{F32_MARGIN:g}")
     f32_sampled = {fam: compare_f32(cfg, f32_prompts, fam, greedy=False)
                    for fam in FAMILIES_F32}
-    print(f"  picks below the margin: "
-          f"{ {k: r['low_margin_picks'] for k, r in f32_sampled.items()} }, "
-          f"requests parted: { {k: r['parted'] for k, r in f32_sampled.items()} }")
 
     elapsed()
     print("end to end, bfloat16: Engine(max_slots=4, page_tokens=16), seq_len "
@@ -4131,12 +5014,11 @@ def main(argv=None) -> int:
     lens = rng.integers(64, 513, 8)
     prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
     print(f"  prompts {lens.tolist()}")
-    e2e = {fam: drain_bf16(cfg, fam, prompts, eng if fam == "flat" else None)
-           for fam in FAMILIES_BF16}
+    e2e = {fam: drain_bf16(cfg, fam, prompts) for fam in FAMILIES_BF16}
     launches, steps = e2e["flat"]["launches"], e2e["flat"]["steps"]
     unpacked = e2e["flat"]["unpacked_stores"]
     engines = {fam: r.pop("engine") for fam, r in e2e.items()}
-    by_path = {f: r["launches"] for f, r in e2e.items()}
+    by_path.update({f: r["launches"] for f, r in e2e.items()})
 
     elapsed()
     print(f"end to end, bfloat16, sampled (seed 3, temperatures "
@@ -4158,7 +5040,7 @@ def main(argv=None) -> int:
     print(f"two engines of one family over one model, both warmed (bf16, "
           f"the engines above; {card})")
     c1 = c1_two_engines(engines)
-    del engines, eng
+    del engines
     elapsed()
     print(f"the static batch loop (generate_static), full width, float32 and "
           f"bfloat16: SmolLM2-135M and whisper-small, each card vs the f32 "
@@ -4167,13 +5049,15 @@ def main(argv=None) -> int:
     static, static_paths = static_phase(card)
     by_path.update(static_paths)
     elapsed()
-    print(f"prefix cache and speculation (spec_tokens=2), float32, full width, "
-          f"each family: the spec trace (8 requests, 4-token motifs tiled to "
+    print(f"prefix cache and speculation (spec_tokens=2), float32, full width "
+          f"cut to {VARIANTS_F32_LAYERS} of {cfg.n_layers} layers, each family: "
+          f"the spec trace (8 requests, 4-token motifs tiled to "
           f"16, 16-32 new) and the shared-prefix trace (12 requests, one "
           f"256-token system prompt, 2-6-token suffixes, 3-16 new, "
           f"staggered), greedy and sampled (seed 5); picks held to the "
           f"baseline's below a top-2 margin of {F32_MARGIN:g} ({card})")
-    variants_f32 = serve_variants(cfg, TF, FAMILIES_BF16)
+    variants_f32 = serve_variants(dataclasses.replace(cfg, n_layers=VARIANTS_F32_LAYERS),
+                                  TF, FAMILIES_BF16)
     elapsed()
     print(f"the same in bfloat16, picks held to the baseline's below a top-2 "
           f"margin of {BF16_MARGIN:g} ({card})")
@@ -4228,43 +5112,16 @@ def main(argv=None) -> int:
     training, train_paths = training_phase(cfg, card)
     by_path.update(train_paths)
     elapsed()
-    print(f"the dense configs and the vlm family at their published widths: "
-          f"Qwen3-8B at full depth through the flat drain (bf16); Qwen2-7B, "
-          f"ChatGLM3-6B and OLMo-1B cut to {DENSE_F32_LAYERS} layers (f32 card = "
-          f"CPU, bf16 under a top-2 margin of {BF16_MARGIN:g}); InternVL2-26B's "
-          f"language model through generate_static (f32 at {VLM_F32_LAYERS} "
-          f"layers card = CPU, bf16 at {VLM_LAYERS}) ({card})")
-    dense, dense_paths = dense_phase(card)
-    by_path.update(dense_paths)
+    print("the CPU plain path's runs: every comparison still waiting on one")
+    cpu_runs = CPU_RUNS.finish()
     elapsed()
-    print(f"the recurrent mixers: wkv6 against its plain version at RWKV-6's "
-          f"heads (32 of 64), L2-cold, relative tolerance {WKV6_TOL:g} on y "
-          f"and the final state ({card}):")
-    checks.wkv6(4, 1, "decode rows")
-    checks.wkv6(1, 512, "prefill")
-    checks.wkv6(2, 256, "prefill cached")
-    elapsed()
-    print(f"RWKV-6 1.6B whole (bf16, monolithic, exact-length prefills) and "
-          f"RWKV-6 at {PARITY_LAYERS} layers (f32 card = CPU, generate_static "
-          f"= generate) ({card})")
-    recurrent, rec_paths = recurrent_phase(card)
-    by_path.update(rec_paths)
-    elapsed()
-    print(f"the moe family: the expert-batched mmt4d at qwen3-moe's and "
-          f"arctic's expert products; each at full width, f32 card = CPU "
-          f"({', '.join(f'{a} {MOE_F32_LAYERS[a]} layers' for a in MOE_ARCHS)}; "
-          f"tokens, first logits within {F32_MARGIN:g}, dropped fractions, "
-          f"routing) and the bf16 §4 flat drain cut in depth ({card})")
-    moe_res, moe_paths = moe_phase(card, checks)
-    by_path.update(moe_paths)
-    elapsed()
-    print(f"jamba: selective_scan against its plain version at jamba's widths "
-          f"(di 8192, N 16), f32 (rtol {SCAN_RTOL:g}, atol {SCAN_ATOL:g}) and "
-          f"bf16; jamba-v0.1-52B in bf16 at its published widths cut to the "
-          f"whole periods that fit, through the monolithic step; its first "
-          f"period with its moe layers in f32, card = CPU ({card})")
-    jamba, jamba_paths = jamba_phase(card, checks)
-    by_path.update(jamba_paths)
+    print(f"training the recurrent and moe families: wkv6's and selective_scan's "
+          f"backward kernels and the expert-batched gradient kernels against their "
+          f"plain versions; one f32 step card = CPU for "
+          f"{[a for a, *_ in FAMILY_F32]}; {RWKV_TRAIN} whole and {MOE_TRAIN} at "
+          f"full width cut in depth in bf16 through the compiled step ({card})")
+    fam_train, fam_paths = family_training_phase(card, checks)
+    by_path.update(fam_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
@@ -4277,10 +5134,22 @@ def main(argv=None) -> int:
                   for k in SOURCES}
     main_steps["wkv6"] = recurrent["rwkv6-1.6b"]["steps"]
     main_steps["selective_scan"] = jamba[JAMBA]["steps"]
+    # the backward kernels' main paths: RWKV-6 1.6B's 20 bf16 train steps
+    # for wkv6_bwd; jamba's one f32 train step on the card (its period does
+    # not fit one card in training) for selective_scan_bwd
+    main_launches["wkv6_bwd"] = fam_paths["train bf16 rwkv6-1.6b"]["wkv6_bwd"]
+    main_steps["wkv6_bwd"] = fam_train["rwkv6 bf16"]["steps"]
+    main_launches["selective_scan_bwd"] = fam_paths[
+        "train f32 jamba-v0.1-52b"]["selective_scan_bwd"]
+    main_steps["selective_scan_bwd"] = 1
+    for k in SOURCES:
+        if not main_launches[k]:
+            raise AssertionError(f"{k}: no launch on its main path")
 
     kernel_rows = []
     for k, cases in checks.cases.items():
-        rep_dtype = "float32" if k == "wkv6" else "bfloat16"   # wkv6: f32 only
+        # wkv6 and its backward: f32 only
+        rep_dtype = "float32" if k in ("wkv6", "wkv6_bwd") else "bfloat16"
         rep = next(c for c in cases if c["dtype"] == rep_dtype
                    and c["shape"].startswith(REPRESENTATIVE[k]))
         src, replaces = SOURCES[k]
@@ -4303,7 +5172,11 @@ def main(argv=None) -> int:
             **({"experts": [{key: c.get(key) for key in (
                 "shape", "dtype", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err", "split")} for c in cases
-                if c["shape"].startswith("experts")]} if k == "mmt4d" else {}),
+                if c["shape"].startswith("experts")]}
+               if k in ("mmt4d",) + GRAD_KERNELS else {}),
+            **({"expert_batched_launches_per_step": fam_train["qwen3-moe bf16"][
+                "counters"][f"{k}.expert_batched"] / fam_train["qwen3-moe bf16"]["steps"]}
+               if k in GRAD_KERNELS else {}),
             "split": rep.get("split"), "shape": rep["shape"],
             "dtype": rep["dtype"], "card": card, "cases": cases,
             **({"unpacked_stores": unpacked} if k == "mmt4d" else {}),
@@ -4324,6 +5197,7 @@ def main(argv=None) -> int:
                        "scaled_checks": {n: c.cases for n, c in scaled_checks.items()},
                        "training": training, "dense": dense,
                        "recurrent": recurrent, "moe": moe_res, "jamba": jamba,
+                       "family_training": fam_train, "cpu_runs": cpu_runs,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     elapsed()

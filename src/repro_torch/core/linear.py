@@ -128,7 +128,9 @@ def batched_linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
     ``batched_linear_apply``: the paper's 2-D layouts mapped over the
     leading expert dim.  One mmt4d launch over every expert (the expert
     dim in the kernel's grid), the bias [E, N] and activation fused, the
-    result stored unpacked.  Under the ``unpacked`` policy a batched
+    result stored unpacked.  Differentiable as :func:`linear_apply` is:
+    through the pack of x and of w, and mmt4d's gradient kernels over
+    every expert.  Under the ``unpacked`` policy a batched
     ``torch.matmul``."""
     epi = Epilogue(activation=activation)
     if not ctx.packed:

@@ -79,14 +79,9 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     ``core/mmt4d.py`` does for a plain weight.  An expert-batched b_pack
     [E, N_o, K_o, n_r, k_r] (the MoE family's experts) takes a_pack [E,
     M_o, K_o, m_r, k_r] and bias_pack [E, N_o, n_r]: one launch over every
-    expert, forward only (its gradients are ROADMAP B11)."""
+    expert, and one of each gradient kernel over every expert."""
     tensors = (a_pack, b_pack) + (() if bias_pack is None else (bias_pack,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        if b_pack.ndim == 5:
-            raise NotImplementedError(
-                "mmt4d: the expert-batched product has no gradient kernels "
-                "yet (ROADMAP B11: expert-batched dgrad/wgrad, with moe "
-                "training); run it under torch.no_grad()")
         return _Mmt4dFn.apply(a_pack, b_pack, bias_pack, activation, unpack_to)
     return mmt4d_kernel(a_pack, b_pack, bias_pack, activation=activation,
                         unpack_to=unpack_to)
@@ -94,7 +89,8 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
 
 class _Mmt4dFn(torch.autograd.Function):
     """mmt4d with its gradients: dA by ``mmt4d_dgrad``, dB and the bias
-    gradient by ``mmt4d_wgrad`` (one launch each, on the card)."""
+    gradient by ``mmt4d_wgrad`` (one launch each, on the card; for an
+    expert-batched B_pack each over every expert)."""
 
     @staticmethod
     def forward(ctx, a_pack, b_pack, bias_pack, activation, unpack_to):
@@ -110,8 +106,8 @@ class _Mmt4dFn(torch.autograd.Function):
         if ctx.unpack_to is None:
             dz = grad.contiguous()
         else:                                  # the unpacked store's transpose
-            dz = packing.repack(grad, a_pack.shape[-4], b_pack.shape[0],
-                                a_pack.shape[-2], b_pack.shape[2])
+            dz = packing.repack(grad, a_pack.shape[-4], b_pack.shape[-4],
+                                a_pack.shape[-2], b_pack.shape[-2])
         z = None
         if act is not None:
             z = mmt4d_kernel(a_pack, b_pack, bias_pack)
@@ -121,7 +117,7 @@ class _Mmt4dFn(torch.autograd.Function):
             da = mmt4d_dgrad(dz, b_pack, z, activation=act)
         if need_b or need_bias:
             db, dbias = mmt4d_wgrad(dz, a_pack, z, activation=act,
-                                    bias=need_bias)
+                                    bias=need_bias, experts=b_pack.ndim == 5)
         return da, db, dbias, None, None
 
 

@@ -98,6 +98,40 @@ inline int copy_granule(const void* p, int elem, int64_t a, int64_t b, int64_t c
   return elem;
 }
 
+// A sum over partials, the second pass of a kernel whose blocks cannot
+// add into one output without atomics: out[o, i] = sum_p part[o, p, i]
+// over p in ascending order (part [outer, P, inner] float32), stored as
+// float32 or, with `bf16`, rounded to bfloat16.  Every output element is
+// summed by one thread in a fixed order, so repeated calls are
+// bit-identical.
+struct SumJob {
+  const float* part;
+  void* out;
+  int64_t outer, inner;
+  int P, bf16;
+};
+
+__device__ __forceinline__ void sum_partials(const SumJob& j) {
+  const int64_t n = j.outer * j.inner;
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < n;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t o = e / j.inner, i = e - o * j.inner;
+    const float* p = j.part + o * j.P * j.inner + i;
+    float v = p[0];
+    for (int q = 1; q < j.P; ++q) v += p[(int64_t)q * j.inner];
+    if (j.bf16)
+      ((__nv_bfloat16*)j.out)[e] = __float2bfloat16(v);
+    else
+      ((float*)j.out)[e] = v;
+  }
+}
+
+// blocks of 256 threads for a sum over n outputs (a grid-stride loop past 2048)
+inline unsigned sum_blocks(int64_t n) {
+  const int64_t b = (n + 255) / 256;
+  return (unsigned)(b < 1 ? 1 : b > 2048 ? 2048 : b);
+}
+
 constexpr int kMaxSmem = 232448;   // 227 KB opt-in dynamic shared memory
 constexpr int kMaxDevices = 64;
 

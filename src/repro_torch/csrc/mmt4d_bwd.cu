@@ -68,10 +68,25 @@
 //   summed in a fixed order and repeated calls are bit-identical (the
 //   trainer's crash/resume identity and remat = no remat rest on it).
 //
+// - The expert dim (the moe family's expert-batched linears: dZ [E, M_o,
+//   N_o, m_r, n_r], A_pack and B_pack [E, ...], one product each).  The
+//   experts run in one launch, grid y = E times the p tiles of one
+//   expert.  TMA takes at most five dimensions and the MN-major maps use
+//   all five, so the expert is not a sixth: each map folds the experts
+//   into its outer tile dimension (the experts' packed slices follow one
+//   another), and a block offsets its box origins by its expert's tiles.
+//   A box at an expert's edge then reads the next expert's tiles, which
+//   the copy engine's zero fill no longer masks: dgrad's extra p rows are
+//   never stored (the epilogue stores p < P only), and wgrad's reduction
+//   over m (M_o m_r per expert, a multiple of 16 but not always of 64)
+//   zeroes the next expert's rows of X in its last chunk before the MMAs
+//   read them.  An expert product has no bias; the launch refuses one.
+//
 // float32 stays IEEE on the CUDA cores (TF32 tensor cores would change the
 // float32 results the CPU parity holds to; the f32 path runs only in the
 // f32 parity step): 64 x 64 output tile per block of 256 threads, 4 x 4
-// outputs per thread, 16-deep chunks staged through shared memory.
+// outputs per thread, 16-deep chunks staged through shared memory, the
+// expert in grid z.
 #include <cooperative_groups.h>
 #include <cuda.h>
 
@@ -136,6 +151,14 @@ packed_gemm_kernel(const float* __restrict__ x, const float* __restrict__ z,
   __shared__ __align__(16) float Xs[BR][kXPitch];
   __shared__ __align__(16) float Ys[BR][BQ];
   const int tid = threadIdx.x;
+  {  // expert blockIdx.z: its own dense packed X, Z, Y, C and dbias
+    const int64_t e = blockIdx.z;
+    x += e * P * R;
+    if (z != nullptr) z += e * P * R;
+    y += e * R * Q;
+    c += e * P * Q;
+    if (dbias != nullptr) dbias += e * P;
+  }
   const int p0 = blockIdx.y * BP, q0 = blockIdx.x * BQ;
 
   // this thread's loads: X elements (xp[s], xr[s]) and Y elements (yr[s], yq)
@@ -252,6 +275,8 @@ struct Geom {
   int p_t, r_t, q_t;
   int Qo;
   int splits;   // reduction ranges per output tile: the cluster
+  int pt;       // output tiles of p per expert (grid y = E * pt)
+  int E;        // experts: the product repeated over E dense packed slices
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -383,8 +408,11 @@ __device__ __forceinline__ uint4 dz_vec(uint4 dy, uint4 z, int act) {
 // contiguous); dbias (WGRAD) [P].  BIAS (WGRAD only): dbias is summed, in a
 // variant of its own, so that the bias-free products do not spend 16
 // registers on it (the kernel sits at its 168, and spilling slowed the
-// gate's wgrad by a third).
-template <bool WGRAD, bool BIAS>
+// gate's wgrad by a third).  EXPERTS: the expert-batched variant (grid y
+// = E x its p tiles), in its own instance so that the single product's
+// code and registers stay as they were (the offsets and the edge's zeroing
+// cost its wgrad 16 bytes of spills and a fifth of the gate's time).
+template <bool WGRAD, bool BIAS, bool EXPERTS>
 __global__ void __launch_bounds__(kTcThreads, 1)
 packed_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                          const __grid_constant__ CUtensorMap tz,
@@ -402,7 +430,13 @@ packed_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   uint64_t* full_z = empty + kStages;
   uint64_t* empty_z = full_z + kZStages;
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128, lane = tid % 32;
-  const int p0 = blockIdx.y * kBM, q0 = blockIdx.x * kBN;
+  // expert e's operands are the e-th dense packed slices of X, Z, Y and C:
+  // in the tensor maps, whose outer tile dimension folds the experts in,
+  // its tiles start at e Po (dgrad's X) or e Ro (r tiles: wgrad's X, Y)
+  const int e = EXPERTS ? blockIdx.y / g.pt : 0;
+  const int p0 = (blockIdx.y - e * g.pt) * kBM, q0 = blockIdx.x * kBN;
+  const int xo = e * (WGRAD ? g.R / g.r_t : g.P / g.p_t), yo = e * (g.R / g.r_t);
+  if (EXPERTS) c += (int64_t)e * g.P * g.Q;
   const int split = blockIdx.z;   // the block's rank in its cluster
   const int nch = (g.R + kBK - 1) / kBK;
   const int c_lo = (int)((int64_t)split * nch / g.splits);
@@ -448,12 +482,12 @@ packed_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         mbar_expect_tx(bar, stage_bytes);
         const int r0 = it * kBK, ri = r0 % g.r_t, ro = r0 / g.r_t;
         if (!WGRAD) {   // X = dZ [Po, Ro, p_t, r_t]: 256 p rows of 64 r
-          tma_load(st, &tx, bar, ri, 0, ro, p0 / g.p_t);
+          tma_load(st, &tx, bar, ri, 0, ro, xo + p0 / g.p_t);
         } else {        // X = dZ^T, dZ [Ro, Po, r_t, p_t]: 4 pieces of 64 r rows by 64 p
-          tma_load5(st, &tx, bar, 0, ri, ro, (p0 % g.p_t) / 64, p0 / g.p_t);
+          tma_load5(st, &tx, bar, 0, ri, xo + ro, (p0 % g.p_t) / 64, p0 / g.p_t);
         }
         // Y [Ro, Qo, r_t, q_t]: 2 pieces of 64 r rows by 64 q
-        tma_load5(st + kXTile, &ty, bar, 0, ri, ro, (q0 % g.q_t) / 64, q0 / g.q_t);
+        tma_load5(st + kXTile, &ty, bar, 0, ri, yo + ro, (q0 % g.q_t) / 64, q0 / g.q_t);
         if (++stage == stages) {
           stage = 0;
           parity ^= 1;
@@ -464,9 +498,9 @@ packed_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           uint64_t* zbar = &full_z[zstage];
           mbar_expect_tx(zbar, kXTile);
           if (!WGRAD) {
-            tma_load(zs, &tz, zbar, ri, 0, ro, p0 / g.p_t);
+            tma_load(zs, &tz, zbar, ri, 0, ro, xo + p0 / g.p_t);
           } else {
-            tma_load5(zs, &tz, zbar, 0, ri, ro, (p0 % g.p_t) / 64, p0 / g.p_t);
+            tma_load5(zs, &tz, zbar, 0, ri, xo + ro, (p0 % g.p_t) / 64, p0 / g.p_t);
           }
           if (++zstage == kZStages) {
             zstage = 0;
@@ -520,6 +554,21 @@ packed_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
             zparity ^= 1;
           }
         }
+      }
+      // wgrad's reduction runs over m, M_o m_r rows an expert, a multiple
+      // of 16 but not always of 64: a chunk at an expert's edge holds the
+      // next expert's rows past `rem`, which this warpgroup zeroes in its
+      // pieces of X (whole 128-byte rows, so the swizzle does not matter)
+      // before its MMAs read them (an expert product has no bias, and the
+      // launch refuses one, so no bias sum has read them)
+      const int rem = g.R - it * kBK;
+      if (EXPERTS && WGRAD && rem < kBK) {
+        const int n16 = (kBK - rem) * 8;       // 16-byte pieces a 64-wide piece
+        for (int i = t; i < kSub * n16; i += 128)
+          *reinterpret_cast<uint4*>(xa + (i / n16) * kHalf + (rem + i % n16 / 8) * 128 +
+                                    (i % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       }
 #pragma unroll
       for (int j = 0; j < kSub; ++j) fence_acc(acc[j]);
@@ -712,13 +761,14 @@ int encode_mn(CUtensorMap* map, const void* ptr, int64_t o0, int64_t o1, int64_t
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <bool WGRAD, bool BIAS>
+template <bool WGRAD, bool BIAS, bool EXPERTS>
 int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tz, const CUtensorMap& ty, void* c,
                  void* dbias, const Geom& g, int act, cudaStream_t stream) {
   static bool configured[repro::kMaxDevices] = {};
-  if (int e = repro::opt_in_smem(packed_gemm_wgmma_kernel<WGRAD, BIAS>, configured)) return e;
+  if (int e = repro::opt_in_smem(packed_gemm_wgmma_kernel<WGRAD, BIAS, EXPERTS>, configured))
+    return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((g.Q + kBN - 1) / kBN), (unsigned)((g.P + kBM - 1) / kBM),
+  cfg.gridDim = dim3((unsigned)((g.Q + kBN - 1) / kBN), (unsigned)(g.E * g.pt),
                      (unsigned)g.splits);
   cfg.blockDim = dim3(kTcThreads);
   // as the kernel lays it out: the ring(s), then the barriers
@@ -739,7 +789,7 @@ int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tz, const CUtensorMap
   attr[1].val.clusterDim.z = (unsigned)g.splits;
   cfg.attrs = attr;
   cfg.numAttrs = g.splits > 1 ? 2 : 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, packed_gemm_wgmma_kernel<WGRAD, BIAS>, tx, tz, ty,
+  cudaError_t e = cudaLaunchKernelEx(&cfg, packed_gemm_wgmma_kernel<WGRAD, BIAS, EXPERTS>, tx, tz, ty,
                                      (bf16*)c, (bf16*)dbias, g, act);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -747,7 +797,7 @@ int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tz, const CUtensorMap
 
 int launch_tc(const void* x, const void* z, const void* y, void* c, void* dbias, int64_t P,
               int64_t Q, int64_t R, const int64_t* desc, int x_contig_p, int act, int splits,
-              cudaStream_t stream) {
+              int experts, cudaStream_t stream) {
   const Desc dx = desc_of(desc), dy = desc_of(desc + 6), dc = desc_of(desc + 12);
   const bool wgrad = x_contig_p != 0;
   Geom g;
@@ -758,6 +808,8 @@ int launch_tc(const void* x, const void* z, const void* y, void* c, void* dbias,
   g.r_t = dx.tj;
   g.q_t = dy.tj;
   g.splits = splits;
+  g.E = experts;
+  g.pt = (int)((P + kBM - 1) / kBM);
   const int nch = (int)((R + kBK - 1) / kBK);
   // dense packed operands whose tiles the boxes cut whole: q and wgrad's p
   // in 64-wide pieces, r in 64-deep chunks of whole tiles (or parts of one),
@@ -768,13 +820,14 @@ int launch_tc(const void* x, const void* z, const void* y, void* c, void* dbias,
   if (!r_ok || !p_ok || g.q_t % 64 != 0 || !pow2(g.q_t / 64) || (wgrad && !pow2(g.p_t / 64)) || dy.ti != g.r_t || dc.ti != g.p_t ||
       dc.tj != g.q_t || P % g.p_t || Q % g.q_t || R % g.r_t ||
       (dbias != nullptr && !wgrad) || splits < 1 || splits > kMaxSplits ||
-      splits > (nch > 0 ? nch : 1) || (P + kBM - 1) / kBM > 65535 ||
+      splits > (nch > 0 ? nch : 1) || (int64_t)experts * g.pt > 65535 ||
+      (experts > 1 && dbias != nullptr) ||
       (((uintptr_t)x | (uintptr_t)y | (uintptr_t)c | (uintptr_t)(z ? z : x)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (R == 0) {   // an empty sum
-    cudaError_t e = cudaMemsetAsync(c, 0, (size_t)(P * Q) * sizeof(bf16), stream);
+    cudaError_t e = cudaMemsetAsync(c, 0, (size_t)(experts * P * Q) * sizeof(bf16), stream);
     if (e == cudaSuccess && dbias != nullptr)
-      e = cudaMemsetAsync(dbias, 0, (size_t)P * sizeof(bf16), stream);
+      e = cudaMemsetAsync(dbias, 0, (size_t)(experts * P) * sizeof(bf16), stream);
     return (int)e;
   }
   const int64_t Po = P / g.p_t, Ro = R / g.r_t;
@@ -783,28 +836,35 @@ int launch_tc(const void* x, const void* z, const void* y, void* c, void* dbias,
     return (int)cudaErrorInvalidValue;
   CUtensorMap tx, tz, ty;
   int e;
-  if (wgrad) {   // dZ [Ro, Po, r_t, p_t]
-    e = encode_mn(&tx, x, Ro, Po, g.r_t, g.p_t, kBM / 64);
-    if (!e && z) e = encode_mn(&tz, z, Ro, Po, g.r_t, g.p_t, kBM / 64);
-  } else {       // dZ [Po, Ro, p_t, r_t], K-major: 64 of r by 256 rows of p
+  // the experts' slices follow one another, so each map folds them into
+  // its outer tile dimension (a sixth dimension would pass TMA's five)
+  if (wgrad) {   // dZ [E Ro, Po, r_t, p_t]
+    e = encode_mn(&tx, x, experts * Ro, Po, g.r_t, g.p_t, kBM / 64);
+    if (!e && z) e = encode_mn(&tz, z, experts * Ro, Po, g.r_t, g.p_t, kBM / 64);
+  } else {       // dZ [E Po, Ro, p_t, r_t], K-major: 64 of r by 256 rows of p
     const cuuint32_t k_box[4] = {(cuuint32_t)kBK, (cuuint32_t)g.p_t, 1,
                                  (cuuint32_t)(kBM / g.p_t)};
-    e = encode(&tx, x, Po, Ro, g.p_t, g.r_t, k_box);
-    if (!e && z) e = encode(&tz, z, Po, Ro, g.p_t, g.r_t, k_box);
+    e = encode(&tx, x, experts * Po, Ro, g.p_t, g.r_t, k_box);
+    if (!e && z) e = encode(&tz, z, experts * Po, Ro, g.p_t, g.r_t, k_box);
   }
-  if (!e) e = encode_mn(&ty, y, Ro, g.Qo, g.r_t, g.q_t, kBN / 64);   // Y [Ro, Qo, r_t, q_t]
+  // Y [E Ro, Qo, r_t, q_t]
+  if (!e) e = encode_mn(&ty, y, experts * Ro, g.Qo, g.r_t, g.q_t, kBN / 64);
   if (e) return e;
   if (!z) tz = tx;
-  if (!wgrad) return launch_wgmma<false, false>(tx, tz, ty, c, nullptr, g, act, stream);
-  return dbias ? launch_wgmma<true, true>(tx, tz, ty, c, dbias, g, act, stream)
-               : launch_wgmma<true, false>(tx, tz, ty, c, nullptr, g, act, stream);
+  if (experts > 1)   // no bias (refused above)
+    return wgrad ? launch_wgmma<true, false, true>(tx, tz, ty, c, nullptr, g, act, stream)
+                 : launch_wgmma<false, false, true>(tx, tz, ty, c, nullptr, g, act, stream);
+  if (!wgrad) return launch_wgmma<false, false, false>(tx, tz, ty, c, nullptr, g, act, stream);
+  return dbias ? launch_wgmma<true, true, false>(tx, tz, ty, c, dbias, g, act, stream)
+               : launch_wgmma<true, false, false>(tx, tz, ty, c, nullptr, g, act, stream);
 }
 
 int launch_f32(const void* x, const void* z, const void* y, void* c, void* dbias,
                int64_t P, int64_t Q, int64_t R, const int64_t* desc, int x_contig_p,
-               int act, cudaStream_t stream) {
+               int act, int experts, cudaStream_t stream) {
   const Desc dx = desc_of(desc), dy = desc_of(desc + 6), dc = desc_of(desc + 12);
-  const dim3 grid((unsigned)((Q + BQ - 1) / BQ), (unsigned)((P + BP - 1) / BP));
+  const dim3 grid((unsigned)((Q + BQ - 1) / BQ), (unsigned)((P + BP - 1) / BP),
+                  (unsigned)experts);
   if (x_contig_p)
     packed_gemm_kernel<true><<<grid, kThreads, 0, stream>>>(
         (const float*)x, (const float*)z, (const float*)y, (float*)c, (float*)dbias,
@@ -823,12 +883,17 @@ int launch_f32(const void* x, const void* z, const void* y, void* c, void* dbias
 // X(p, r).  desc: three descriptors of six int64 each, X then Y then C:
 // (rs, ti, ii, cs, tj, ij), as kernels/mmt4d/ops.py:gemm_operands gives them.
 // splits: bfloat16's reduction ranges per output tile, one block each in a
-// cluster (kernels/mmt4d/ops.py:pick_grad_split; 1 for float32).
+// cluster (kernels/mmt4d/ops.py:pick_grad_split; 1 for float32).  experts:
+// the product repeated over that many dense packed slices of X, Z, Y, C
+// and dbias, which follow one another (the expert-batched linears: dZ [E,
+// M_o, N_o, m_r, n_r], A_pack and B_pack [E, ...]), the expert in the grid.
 extern "C" int repro_packed_gemm(const void* x, const void* z, const void* y,
                                  void* c, void* dbias, int dtype, int64_t P,
                                  int64_t Q, int64_t R, const int64_t* desc,
-                                 int x_contig_p, int act, int splits, void* stream) {
+                                 int x_contig_p, int act, int splits, int experts,
+                                 void* stream) {
   if (P < 0 || Q < 0 || R < 0 || P > INT32_MAX || Q > INT32_MAX || R > INT32_MAX ||
+      experts < 1 || experts > 65535 ||
       (P + BP - 1) / BP > 65535 || act < kNone || act > kTanh ||
       (act != kNone && z == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -837,11 +902,11 @@ extern "C" int repro_packed_gemm(const void* x, const void* z, const void* y,
   if (P == 0 || Q == 0) return 0;
   if (dtype == repro::kF32)
     return splits == 1
-               ? launch_f32(x, z, y, c, dbias, P, Q, R, desc, x_contig_p, act,
+               ? launch_f32(x, z, y, c, dbias, P, Q, R, desc, x_contig_p, act, experts,
                             (cudaStream_t)stream)
                : (int)cudaErrorInvalidValue;
   if (dtype == repro::kBF16)
-    return launch_tc(x, z, y, c, dbias, P, Q, R, desc, x_contig_p, act, splits,
+    return launch_tc(x, z, y, c, dbias, P, Q, R, desc, x_contig_p, act, splits, experts,
                      (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,10 @@
 // and token strides are passed in elements.  a_log: [DI, N] float32, D:
 // [DI] float32, state: [B, DI, N] float32, read as h0 and overwritten with
 // the final state (the engine's per-slot state, updated in place).  y:
-// [B, S, DI] in T, contiguous.  With h0 = 0 the first step is exactly
+// [B, S, DI] in T, contiguous.  ckpt, when not null (a train step's
+// forward; serving passes null): [B, ceil(S / kSteps) - 1, DI, N], the
+// state before each staged chunk but the first, from which the backward
+// (csrc/selective_scan_bwd.cu) recomputes each chunk's states.  With h0 = 0 the first step is exactly
 // delta B x (0 times anything adds 0), the train/prefill mode; with the
 // cached state it is the decode step or a prefill from the cache.
 //
@@ -55,31 +58,13 @@
 //   into FMAs), with the accurate expf, so the state matches the plain
 //   version on the card bit for bit where expf does; only the sum over n
 //   (per-lane FMA chains, then the shuffles) is taken in another order.
-#include "common.cuh"
+#include "selective_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-
-template <typename T, int N> struct ScanShape {
-  static constexpr int kLanes = N / 4;               // lanes per channel
-  static constexpr int kCh = kThreads / kLanes;      // channels per block
-  // steps per staged chunk: two chunks of operands and the lanes' partial
-  // sums of y fit the 48 KB of static shared memory
-  static constexpr int kSteps = N == 8 ? 16 : sizeof(T) == 2 ? 32 : 24;
-};
-
-// 4 consecutive values of T from shared memory, as floats (16 or 8 bytes)
-__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
-  const float4 v = *(const float4*)p;
-  o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
-  const uint2 v = *(const uint2*)p;
-  const float2 lo = __bfloat1622float2(*(const __nv_bfloat162*)&v.x);
-  const float2 hi = __bfloat1622float2(*(const __nv_bfloat162*)&v.y);
-  o[0] = lo.x, o[1] = lo.y, o[2] = hi.x, o[3] = hi.y;
-}
+constexpr int kThreads = repro::kScanThreads;
+using repro::ScanShape;
+using repro::load4;
 
 // The copy widths, in bytes, of delta, x, z, B and C (copy_granule), and
 // whether the state and a_log are 16-byte aligned.
@@ -95,7 +80,8 @@ selective_scan_kernel(const float* __restrict__ delta, const T* __restrict__ x,
                       int64_t bb, int64_t bt, const T* __restrict__ cm,
                       int64_t cb, int64_t ct, const float* __restrict__ a_log,
                       const float* __restrict__ d_skip, float* state,
-                      T* __restrict__ y, int S, int DI, Granules g) {
+                      T* __restrict__ y, float* __restrict__ ckpt, int S, int DI,
+                      Granules g) {
   using Shape = ScanShape<T, N>;
   constexpr int kLanes = Shape::kLanes, kCh = Shape::kCh, kSteps = Shape::kSteps;
   constexpr int es = sizeof(T);
@@ -181,6 +167,12 @@ selective_scan_kernel(const float* __restrict__ delta, const T* __restrict__ x,
 
   for (int t0 = 0, buf = 0; S > 1 && t0 < S; t0 += kSteps, buf ^= 1) {
     const int cnt = S - t0 < kSteps ? S - t0 : kSteps;
+    if (ckpt != nullptr && t0 > 0 && live) {   // the state before this chunk
+      float* cp = ckpt + (((int64_t)row * ((S - 1) / kSteps) + t0 / kSteps - 1) * DI + d) * N +
+                  4 * lane;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) cp[n] = h[n];
+    }
     if (t0 + kSteps < S) {
       stage(buf ^ 1, t0 + kSteps);   // its buffer was last read before the
       repro::cp_async_wait<1>();     // previous chunk's closing barrier
@@ -243,8 +235,8 @@ template <typename T, int N>
 int launch(const void* delta, const void* x, int64_t xb, int64_t xt,
            const void* z, int64_t zb, int64_t zt, const void* bm, int64_t bb,
            int64_t bt, const void* cm, int64_t cb, int64_t ct,
-           const void* a_log, const void* d_skip, void* state, void* y, int B,
-           int S, int DI, cudaStream_t stream) {
+           const void* a_log, const void* d_skip, void* state, void* y, void* ckpt,
+           int B, int S, int DI, cudaStream_t stream) {
   constexpr int es = sizeof(T);
   const Granules g{
       repro::copy_granule(delta, 4, (int64_t)S * DI, DI, DI),
@@ -258,7 +250,7 @@ int launch(const void* delta, const void* x, int64_t xb, int64_t xt,
   selective_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
       (const float*)delta, (const T*)x, xb, xt, (const T*)z, zb, zt,
       (const T*)bm, bb, bt, (const T*)cm, cb, ct, (const float*)a_log,
-      (const float*)d_skip, (float*)state, (T*)y, S, DI, g);
+      (const float*)d_skip, (float*)state, (T*)y, (float*)ckpt, S, DI, g);
   return (int)cudaGetLastError();
 }
 
@@ -267,33 +259,35 @@ int dispatch(int dtype, const void* delta, const void* x, int64_t xb,
              int64_t xt, const void* z, int64_t zb, int64_t zt,
              const void* bm, int64_t bb, int64_t bt, const void* cm,
              int64_t cb, int64_t ct, const void* a_log, const void* d_skip,
-             void* state, void* y, int B, int S, int DI, cudaStream_t stream) {
+             void* state, void* y, void* ckpt, int B, int S, int DI,
+             cudaStream_t stream) {
   REPRO_DISPATCH(dtype, T,
                  return launch<T, N>(delta, x, xb, xt, z, zb, zt, bm, bb, bt,
-                                     cm, cb, ct, a_log, d_skip, state, y, B, S,
-                                     DI, stream));
+                                     cm, cb, ct, a_log, d_skip, state, y, ckpt,
+                                     B, S, DI, stream));
   return (int)cudaErrorInvalidValue;  // unreachable: every dtype returns
 }
 
 }  // namespace
 
 // The strides of x, z, B and C (row, then token) are in elements; N is
-// one of the instances below (8: the reduced configs; 16: jamba's).
+// one of the instances below (8: the reduced configs; 16: jamba's).  ckpt:
+// null, or the state before each chunk of kSteps steps but the first.
 extern "C" int repro_selective_scan(
     const void* delta, const void* x, int64_t xb, int64_t xt, const void* z,
     int64_t zb, int64_t zt, const void* bm, int64_t bb, int64_t bt,
     const void* cm, int64_t cb, int64_t ct, const void* a_log,
-    const void* d_skip, void* state, void* y, int B, int S, int DI, int N,
-    int dtype, void* stream) {
+    const void* d_skip, void* state, void* y, void* ckpt, int B, int S, int DI,
+    int N, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || DI <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   switch (N) {
     case 8:
       return dispatch<8>(dtype, delta, x, xb, xt, z, zb, zt, bm, bb, bt, cm,
-                         cb, ct, a_log, d_skip, state, y, B, S, DI, st);
+                         cb, ct, a_log, d_skip, state, y, ckpt, B, S, DI, st);
     case 16:
       return dispatch<16>(dtype, delta, x, xb, xt, z, zb, zt, bm, bb, bt, cm,
-                          cb, ct, a_log, d_skip, state, y, B, S, DI, st);
+                          cb, ct, a_log, d_skip, state, y, ckpt, B, S, DI, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

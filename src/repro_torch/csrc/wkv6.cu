@@ -5,7 +5,10 @@
 //
 // r, k, v, w, y: [B, S, H, DH] float32, contiguous; u: [H, DH]; the state
 // s0 and s_out: [B, H, DH, DH], row i, column j.  s_out may be s0 itself
-// (the engine's per-slot state, updated in place).
+// (the engine's per-slot state, updated in place).  ckpt, when not null
+// (a train step's forward; serving passes null): [B, H, ceil(S / kL) - 1,
+// DH, DH], the state before each chunk of kL tokens but the first, which
+// the backward (csrc/wkv6_bwd.cu) recomputes each chunk's states from.
 //
 // Replaces no Pallas kernel: the JAX package runs this recurrence as a
 // lax.scan, in checkpointed chunks of 128 tokens
@@ -284,7 +287,7 @@ __global__ void __launch_bounds__(2 * kRole, DH <= 64 ? 2 : 1)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* s0, float* __restrict__ y,
-            float* s_out, int S, int H, int gran) {
+            float* s_out, float* __restrict__ ckpt, int S, int H, int gran) {
   using L = Layout<DH>;
   constexpr int GW = DH / kGroups;          // rows per consumer thread
   constexpr int kSlices = DH / kCols;
@@ -347,6 +350,11 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
                    red, count(c + 1), tid);
       }
     } else {
+      if (ckpt != nullptr && c > 0) {   // the state before chunk c
+        float* cp = ckpt + ((int64_t)bh * (chunks - 1) + c - 1) * DH * DH + col0 + jl;
+#pragma unroll
+        for (int m = 0; m < GW; ++m) cp[(int64_t)(gl * GW + m) * DH] = st[m];
+      }
       consume<DH>(der + c % 2 * L::kDer, st, red + kRed,
                   y + tok0 + (c * kL + tid / kCols) * step + col0, count(c), tid,
                   jl, gl);
@@ -417,8 +425,8 @@ wkv6_decode_kernel(const float* __restrict__ r, const float* __restrict__ k,
 
 template <int DH>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* s0, float* y, float* s_out, int B,
-           int S, int H, cudaStream_t stream) {
+           const float* u, const float* s0, float* y, float* s_out, float* ckpt,
+           int B, int S, int H, cudaStream_t stream) {
   if (S == 1) {
     wkv6_decode_kernel<DH><<<(unsigned)B * (unsigned)H, kRole, 0, stream>>>(
         r, k, v, w, u, s0, y, s_out, H);
@@ -437,24 +445,27 @@ int launch(const float* r, const float* k, const float* v, const float* w,
     if (rc) return rc;
   }
   wkv6_kernel<DH><<<blocks, 2 * kRole, bytes, stream>>>(r, k, v, w, u, s0, y,
-                                                        s_out, S, H, gran);
+                                                        s_out, ckpt, S, H, gran);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// ckpt: null, or the state before each chunk of 16 tokens but the first
+// (a one-token call has no such chunk and writes none).
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
                           const void* w, const void* u, const void* s0,
-                          void* y, void* s_out, int B, int S, int H, int DH,
-                          void* stream) {
+                          void* y, void* s_out, void* ckpt, int B, int S, int H,
+                          int DH, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
+  auto o = [](void* p) { return (float*)p; };
   switch (DH) {
-    case 16: return launch<16>(f(r), f(k), f(v), f(w), f(u), f(s0), (float*)y, (float*)s_out, B, S, H, st);
-    case 32: return launch<32>(f(r), f(k), f(v), f(w), f(u), f(s0), (float*)y, (float*)s_out, B, S, H, st);
-    case 64: return launch<64>(f(r), f(k), f(v), f(w), f(u), f(s0), (float*)y, (float*)s_out, B, S, H, st);
-    case 128: return launch<128>(f(r), f(k), f(v), f(w), f(u), f(s0), (float*)y, (float*)s_out, B, S, H, st);
+    case 16: return launch<16>(f(r), f(k), f(v), f(w), f(u), f(s0), o(y), o(s_out), o(ckpt), B, S, H, st);
+    case 32: return launch<32>(f(r), f(k), f(v), f(w), f(u), f(s0), o(y), o(s_out), o(ckpt), B, S, H, st);
+    case 64: return launch<64>(f(r), f(k), f(v), f(w), f(u), f(s0), o(y), o(s_out), o(ckpt), B, S, H, st);
+    case 128: return launch<128>(f(r), f(k), f(v), f(w), f(u), f(s0), o(y), o(s_out), o(ckpt), B, S, H, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

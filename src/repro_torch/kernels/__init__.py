@@ -4,7 +4,8 @@ JAX package: ``ops.py`` (the wrapper, with its launch count) beside
 mmt4d's package also holds its two gradient products (``mmt4d_dgrad``,
 ``mmt4d_wgrad``, ``csrc/mmt4d_bwd.cu``); ``wkv6`` RWKV-6's recurrence
 (``csrc/wkv6.cu``) and ``selective_scan`` mamba's
-(``csrc/selective_scan.cu``) have no Pallas counterpart.
+(``csrc/selective_scan.cu``), and their backwards (``wkv6_bwd``,
+``selective_scan_bwd``), have no Pallas counterpart.
 
 A wrapper adds one to its ``launches`` where it launches its kernel.  A
 CUDA graph replay calls no wrapper, so each captured step records the
@@ -20,13 +21,15 @@ def wrappers() -> dict:
     from repro_torch.kernels.mmt4d.ops import mmt4d, mmt4d_dgrad, mmt4d_wgrad
     from repro_torch.kernels.pack.ops import pack
     from repro_torch.kernels.ragged_attn.ops import ragged_attention
-    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ops import (selective_scan,
+                                                        selective_scan_bwd)
     from repro_torch.kernels.unpack.ops import unpack
-    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_bwd
     return {"mmt4d": mmt4d, "pack": pack, "unpack": unpack,
             "ragged_attn": ragged_attention, "mmt4d_dgrad": mmt4d_dgrad,
             "mmt4d_wgrad": mmt4d_wgrad, "wkv6": wkv6,
-            "selective_scan": selective_scan}
+            "selective_scan": selective_scan, "wkv6_bwd": wkv6_bwd,
+            "selective_scan_bwd": selective_scan_bwd}
 
 
 def launch_counts() -> dict:
@@ -34,13 +37,15 @@ def launch_counts() -> dict:
 
 
 def counters() -> dict:
-    """Every count a wrapper keeps: ``launches`` by kernel name, and
-    mmt4d's ``unpacked_stores``, ``bias_activation`` and ``expert_batched``
-    as ``"mmt4d.<count>"``."""
+    """Every count a wrapper keeps: ``launches`` by kernel name, mmt4d's
+    ``unpacked_stores``, ``bias_activation`` and ``expert_batched`` as
+    ``"mmt4d.<count>"``, and the gradient kernels' ``expert_batched``."""
     out = launch_counts()
-    mm = wrappers()["mmt4d"]
+    fns = wrappers()
     for attr in ("unpacked_stores", "bias_activation", "expert_batched"):
-        out[f"mmt4d.{attr}"] = getattr(mm, attr)
+        out[f"mmt4d.{attr}"] = getattr(fns["mmt4d"], attr)
+    for name in ("mmt4d_dgrad", "mmt4d_wgrad"):
+        out[f"{name}.expert_batched"] = fns[name].expert_batched
     return out
 
 

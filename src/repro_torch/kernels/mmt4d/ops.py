@@ -296,7 +296,7 @@ def gemm_operands(kind: str, m_o: int, n_o: int, k_o: int, m_r: int, n_r: int,
 
 
 @functools.lru_cache(maxsize=None)
-def pick_grad_split(p: int, q: int, r: int, sm_count: int) -> int:
+def pick_grad_split(p: int, q: int, r: int, sm_count: int, experts: int = 1) -> int:
     """Reduction ranges per output tile of the bfloat16 gradient kernel,
     one block each: the blocks of one tile form a cluster of that size.
 
@@ -310,9 +310,10 @@ def pick_grad_split(p: int, q: int, r: int, sm_count: int) -> int:
     every split count on the H100 (``python -m
     repro_torch.kernels.mmt4d.sweep --grads``) ranks the pick first at the
     training linears but the tied head's dgrad and the Q/O projections'
-    wgrad, within 9 % of the best there (PERF.md)."""
+    wgrad, within 9 % of the best there (PERF.md).  With ``experts`` the
+    tiles repeat per expert (``p``, ``q``, ``r`` are one expert's)."""
     bp, bq, bk = GRAD_TILE
-    tiles = _ceil_div(p, bp) * _ceil_div(q, bq)
+    tiles = _ceil_div(p, bp) * _ceil_div(q, bq) * experts
     chunks = _ceil_div(r, bk)
     return max(1, min(MAX_CLUSTER, sm_count // tiles, chunks // GRAD_MIN_CHUNKS))
 
@@ -326,7 +327,8 @@ def grad_tiles_ok(m_r: int, n_r: int, k_r: int) -> bool:
             and pow2(m_r) and m_r <= 128)
 
 
-def grad_tma(kind: str, m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: int):
+def grad_tma(kind: str, m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: int,
+             experts: int = 1):
     """The bfloat16 gradient kernel's TMA geometry, mirrored from
     ``csrc/mmt4d_bwd.cu`` (``encode``, ``encode_mn``): ``(maps, loads)``.
     ``maps`` gives the tensor map of X (and of Z, shaped alike) and Y as
@@ -337,7 +339,10 @@ def grad_tma(kind: str, m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: i
     every Y) is a 5-D map, (64 of c, r in a tile, r tiles, 64-wide pieces
     of a c tile, c tiles) with c its contiguous dimension, whose box lays
     down [piece][64 r][64 c]: four pieces of X (p0 + 64 h), two of Y (q0 +
-    64 h)."""
+    64 h).  With ``experts`` the experts' packed slices follow one another,
+    and each map folds them into its outer tile dimension (TMA takes at
+    most five): ``loads(p0, q0, r0, e)`` then gives expert e's copies, its
+    tiles from e M_o (dgrad's X, the p tiles) or e times the r tiles."""
     bp, bq, bk = GRAD_TILE
 
     def packed_map(o0, o1, t0, t1, box):
@@ -348,22 +353,26 @@ def grad_tma(kind: str, m_o: int, n_o: int, k_o: int, m_r: int, n_r: int, k_r: i
         return ((64, t0, o0, t1 // 64, o1), (t1, o1 * t0 * t1, 64, t0 * t1),
                 (64, rb, bk // rb, nh, pieces // nh))
 
+    e = experts
     if kind == "dgrad":
         p_t, r_t, q_t = m_r, n_r, k_r
-        x = packed_map(m_o, n_o, m_r, n_r, (bk, m_r, 1, bp // m_r))
-        y = mn_map(n_o, k_o, n_r, k_r, bq // 64)
+        x = packed_map(e * m_o, n_o, m_r, n_r, (bk, m_r, 1, bp // m_r))
+        y = mn_map(e * n_o, k_o, n_r, k_r, bq // 64)
+        x_tiles, r_tiles = m_o, n_o
     elif kind == "wgrad":
         p_t, r_t, q_t = n_r, m_r, k_r
-        x = mn_map(m_o, n_o, m_r, n_r, bp // 64)
-        y = mn_map(m_o, k_o, m_r, k_r, bq // 64)
+        x = mn_map(e * m_o, n_o, m_r, n_r, bp // 64)
+        y = mn_map(e * m_o, k_o, m_r, k_r, bq // 64)
+        x_tiles, r_tiles = m_o, m_o
     else:
         raise ValueError(kind)
 
-    def loads(p0: int, q0: int, r0: int) -> list:
+    def loads(p0: int, q0: int, r0: int, ex: int = 0) -> list:
         ri, ro = r0 % r_t, r0 // r_t
-        x_at = ((ri, 0, ro, p0 // p_t) if kind == "dgrad"
-                else (0, ri, ro, (p0 % p_t) // 64, p0 // p_t))
-        return [("x", x_at), ("y", (0, ri, ro, (q0 % q_t) // 64, q0 // q_t))]
+        x_at = ((ri, 0, ro, ex * x_tiles + p0 // p_t) if kind == "dgrad"
+                else (0, ri, ex * x_tiles + ro, (p0 % p_t) // 64, p0 // p_t))
+        return [("x", x_at),
+                ("y", (0, ri, ex * r_tiles + ro, (q0 % q_t) // 64, q0 // q_t))]
 
     return {"x": x, "y": y}, loads
 
@@ -392,10 +401,13 @@ def _check_grad_args(name, dz_pack, other, z_pack, activation):
         raise ValueError(f"{name}: packed operands have 4 trailing dims")
 
 
-def _launch_gemm(name, kind, dz, y, z, dims, bias, activation, splits=None):
+def _launch_gemm(name, kind, dz, y, z, dims, bias, activation, splits=None,
+                 experts=1):
     """Launch the gradient kernel on folded, contiguous operands; returns
     (C, dbias or None).  ``splits`` overrides :func:`pick_grad_split`
-    (bfloat16; the sweep ranks the choices)."""
+    (bfloat16; the sweep ranks the choices).  ``experts``: the operands
+    are [E, ...] stacks of one product each (``dims`` one expert's), the
+    expert in the kernel's grid."""
     m_o, n_o, k_o, m_r, n_r, k_r = dims
     extra = () if z is None else (z,)
     build.require_cuda(name, dz, y, *extra)
@@ -411,20 +423,24 @@ def _launch_gemm(name, kind, dz, y, z, dims, bias, activation, splits=None):
                              f"k_r of 64 times a power of two, m_r a power of "
                              f"two up to 128, and every operand starting on 16 "
                              f"bytes")
+        if experts > 1 and bias:
+            raise ValueError(f"{name}: the expert-batched bfloat16 wgrad takes "
+                             f"no bias (an expert linear has none)")
         if splits is None:
-            splits = pick_grad_split(p, q, r, _sm_count(dz.device))
+            splits = pick_grad_split(p, q, r, _sm_count(dz.device), experts)
     else:
         splits = 1
     shape = (m_o, k_o, m_r, k_r) if kind == "dgrad" else (n_o, k_o, n_r, k_r)
-    out = torch.empty(shape, dtype=dz.dtype, device=dz.device)
-    dbias = (torch.empty((n_o, n_r), dtype=dz.dtype, device=dz.device)
+    lead = (experts,) if experts > 1 else ()
+    out = torch.empty((*lead, *shape), dtype=dz.dtype, device=dz.device)
+    dbias = (torch.empty((*lead, n_o, n_r), dtype=dz.dtype, device=dz.device)
              if bias else None)
     flat = (ctypes.c_int64 * 18)(*(v for d in descs for v in d))
     rc = build.load_library().repro_packed_gemm(
         dz.data_ptr(), None if z is None else z.data_ptr(), y.data_ptr(),
         out.data_ptr(), None if dbias is None else dbias.data_ptr(), code,
         p, q, r, flat, int(x_contig_p), ACTIVATION_CODES[activation], splits,
-        build.stream_of(dz))
+        experts, build.stream_of(dz))
     build.check(rc, name)
     return out, dbias
 
@@ -436,49 +452,71 @@ def mmt4d_dgrad(dz_pack: torch.Tensor, b_pack: torch.Tensor,
     B_pack, with dZ = dz_pack [..., M_o, N_o, m_r, n_r], or dz_pack *
     act'(z_pack) when ``activation`` is given (z_pack: the pre-activation,
     packed alike).  b_pack [N_o, K_o, n_r, k_r].  Leading dims fold into M_o.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    Expert-batched: b_pack [E, N_o, K_o, n_r, k_r] and dz_pack [E, M_o,
+    N_o, m_r, n_r] give each expert's dA_pack [E, M_o, K_o, m_r, k_r], in
+    one launch.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
     _check_grad_args("mmt4d_dgrad", dz_pack, b_pack, z_pack, activation)
+    experts = b_pack.shape[0] if b_pack.ndim == 5 else None
     *lead, mo_b, n_o, m_r, n_r = dz_pack.shape
-    n_o_b, k_o, n_r_b, k_r = b_pack.shape
-    if b_pack.ndim != 4 or (n_o_b, n_r_b) != (n_o, n_r):
+    n_o_b, k_o, n_r_b, k_r = b_pack.shape[-4:]
+    if (b_pack.ndim not in (4, 5) or (n_o_b, n_r_b) != (n_o, n_r)
+            or (experts is not None and tuple(lead) != (experts,))):
         raise ValueError(f"mmt4d_dgrad: dz {tuple(dz_pack.shape)} and b "
                          f"{tuple(b_pack.shape)} do not contract")
-    dz, z = _fold(dz_pack), None if z_pack is None else _fold(z_pack)
+    dz = dz_pack if experts else _fold(dz_pack)
+    z = None if z_pack is None else (z_pack if experts else _fold(z_pack))
     if dz.device.type == "cpu":
         out = mmt4d_dgrad_ref(dz, b_pack, z, activation=activation)
     else:
+        m_o = mo_b if experts else dz.shape[0]
         out, _ = _launch_gemm("mmt4d_dgrad", "dgrad", dz, b_pack, z,
-                              (dz.shape[0], n_o, k_o, m_r, n_r, k_r), False,
-                              activation)
+                              (m_o, n_o, k_o, m_r, n_r, k_r), False,
+                              activation, experts=experts or 1)
         mmt4d_dgrad.launches += 1
+        mmt4d_dgrad.expert_batched += experts is not None
     return out.reshape(*lead, mo_b, k_o, m_r, k_r)
 
 
 def mmt4d_wgrad(dz_pack: torch.Tensor, a_pack: torch.Tensor,
                 z_pack: Optional[torch.Tensor] = None, *,
-                activation: Optional[str] = None, bias: bool = False):
+                activation: Optional[str] = None, bias: bool = False,
+                experts: bool = False):
     """(dB_pack [N_o, K_o, n_r, k_r] = sum over every (M_o, m_r) of dZ^T .
     A_pack, dbias [N_o, n_r] = the same sum of dZ alone when ``bias``, else
     None), both from one launch.  dz_pack [..., M_o, N_o, m_r, n_r] (dZ as
-    for :func:`mmt4d_dgrad`), a_pack [..., M_o, K_o, m_r, k_r].  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    for :func:`mmt4d_dgrad`), a_pack [..., M_o, K_o, m_r, k_r].  With
+    ``experts`` the leading dim (E) is the expert's, not folded: each
+    expert's dB_pack [E, N_o, K_o, n_r, k_r] and dbias [E, N_o, n_r].  A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
     _check_grad_args("mmt4d_wgrad", dz_pack, a_pack, z_pack, activation)
-    dz, a = _fold(dz_pack), _fold(a_pack)
-    m_o, n_o, m_r, n_r = dz.shape
-    if a.shape[0] != m_o or a.shape[2] != m_r:
+    if experts:
+        if (dz_pack.ndim != 5 or a_pack.ndim != 5
+                or a_pack.shape[0] != dz_pack.shape[0]):
+            raise ValueError(f"mmt4d_wgrad: expert-batched dz "
+                             f"{tuple(dz_pack.shape)} and a {tuple(a_pack.shape)}")
+        dz, a, z = dz_pack, a_pack, z_pack
+    else:
+        dz, a = _fold(dz_pack), _fold(a_pack)
+        z = None if z_pack is None else _fold(z_pack)
+    m_o, n_o, m_r, n_r = dz.shape[-4:]
+    if a.shape[-4] != m_o or a.shape[-2] != m_r:
         raise ValueError(f"mmt4d_wgrad: dz {tuple(dz_pack.shape)} and a "
                          f"{tuple(a_pack.shape)} do not contract")
-    k_o, k_r = a.shape[1], a.shape[3]
-    z = None if z_pack is None else _fold(z_pack)
+    k_o, k_r = a.shape[-3], a.shape[-1]
     if dz.device.type == "cpu":
-        return mmt4d_wgrad_ref(dz, a, z, activation=activation, bias=bias)
+        return mmt4d_wgrad_ref(dz, a, z, activation=activation, bias=bias,
+                               experts=experts)
     out = _launch_gemm("mmt4d_wgrad", "wgrad", dz, a, z,
-                       (m_o, n_o, k_o, m_r, n_r, k_r), bias, activation)
+                       (m_o, n_o, k_o, m_r, n_r, k_r), bias, activation,
+                       experts=dz.shape[0] if experts else 1)
     mmt4d_wgrad.launches += 1
+    mmt4d_wgrad.expert_batched += bool(experts)
     return out
 
 
 mmt4d_dgrad.launches = 0
 mmt4d_wgrad.launches = 0
+mmt4d_dgrad.expert_batched = 0    # launches over expert-batched operands
+mmt4d_wgrad.expert_batched = 0

@@ -106,21 +106,29 @@ def mmt4d_dgrad_ref(dz_pack: torch.Tensor, b_pack: torch.Tensor,
                     activation: Optional[str] = None) -> torch.Tensor:
     """dA_pack[m_o,k_o,i,k] = sum_{n_o,j} dZ[m_o,n_o,i,j] B_pack[n_o,k_o,j,k];
     dz_pack [M_o, N_o, m_r, n_r] (leading dims folded), b_pack [N_o, K_o,
-    n_r, k_r]."""
+    n_r, k_r].  Expert-batched (b_pack [E, N_o, K_o, n_r, k_r], dz_pack
+    [E, M_o, N_o, m_r, n_r]): each expert's, dA_pack [E, M_o, K_o, m_r,
+    k_r]."""
     acc = acc_dtype(dz_pack.dtype)
     dz = dz_ref(dz_pack, z_pack, activation)
-    return torch.einsum("mnij,nkjl->mkil", dz.to(acc),
+    eq = "emnij,enkjl->emkil" if b_pack.ndim == 5 else "mnij,nkjl->mkil"
+    return torch.einsum(eq, dz.to(acc),
                         b_pack.to(acc)).to(dz_pack.dtype).contiguous()
 
 
 def mmt4d_wgrad_ref(dz_pack: torch.Tensor, a_pack: torch.Tensor,
                     z_pack: Optional[torch.Tensor] = None, *,
-                    activation: Optional[str] = None, bias: bool = False):
+                    activation: Optional[str] = None, bias: bool = False,
+                    experts: bool = False):
     """(dB_pack[n_o,k_o,j,k] = sum_{m_o,i} dZ[m_o,n_o,i,j] A_pack[m_o,k_o,i,k],
     dbias[n_o,j] = sum_{m_o,i} dZ[m_o,n_o,i,j] or None); dz_pack [M_o, N_o,
-    m_r, n_r], a_pack [M_o, K_o, m_r, k_r]."""
+    m_r, n_r], a_pack [M_o, K_o, m_r, k_r].  With ``experts`` the leading
+    dim of both is the expert's: each expert's sums, dB_pack [E, N_o, K_o,
+    n_r, k_r] and dbias [E, N_o, n_r]."""
     acc = acc_dtype(dz_pack.dtype)
     dz = dz_ref(dz_pack, z_pack, activation).to(acc)
-    db = torch.einsum("mnij,mkil->nkjl", dz, a_pack.to(acc)).to(dz_pack.dtype)
-    db = db.contiguous()
-    return db, (dz.sum(dim=(0, 2)).to(dz_pack.dtype) if bias else None)
+    e = "e" if experts else ""
+    db = torch.einsum(f"{e}mnij,{e}mkil->{e}nkjl", dz,
+                      a_pack.to(acc)).to(dz_pack.dtype).contiguous()
+    dims = (1, 3) if experts else (0, 2)
+    return db, (dz.sum(dim=dims).to(dz_pack.dtype) if bias else None)

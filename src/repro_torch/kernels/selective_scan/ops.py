@@ -1,45 +1,53 @@
-"""Wrapper of the selective_scan kernel (``csrc/selective_scan.cu``):
-mamba's selective SSM recurrence with its output contraction, skip and
-gate, from the state it is given, which it overwrites in place with the
-final state.
+"""Wrappers of the selective_scan kernels: mamba's selective SSM
+recurrence with its output contraction, skip and gate, from the state it
+is given, which it overwrites in place with the final state
+(``csrc/selective_scan.cu``), and its backward
+(``csrc/selective_scan_bwd.cu``).
 
 Replaces no Pallas kernel: the JAX package runs the recurrence as a
 ``lax.associative_scan`` (src/repro/models/mamba.py:79, ``_ssm_scan``)
 over ``[B, S, di, N]`` float32 tensors, which the port would otherwise
 build three of a layer and loop over in about two launches per token.
-A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
-launches the kernel or raises.  ``x``, ``z``, ``b`` and ``c`` may be
+A CPU tensor takes the plain versions (``ref.py``); a CUDA tensor
+launches the kernels or raises.  ``x``, ``z``, ``b`` and ``c`` may be
 views with a unit channel stride (``z`` a slice of the in-projection's
 output, ``b`` and ``c`` of the x-projection's), read in place; the state
 width N is one of :data:`STATE_WIDTHS`.
 
-The kernel has no backward yet (ROADMAP B8): a CUDA call that autograd
-would have to differentiate raises.
+Under autograd :func:`selective_scan` is a ``torch.autograd.Function``:
+its forward runs from a copy of ``state`` (which it leaves unwritten)
+and also writes the state at every chunk boundary; its backward is
+:func:`selective_scan_bwd`.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (scan_chunk,
+                                                    selective_scan_bwd_ref,
+                                                    selective_scan_ref)
 
-__all__ = ["selective_scan", "STATE_WIDTHS"]
+__all__ = ["selective_scan", "selective_scan_bwd", "checkpoints",
+           "STATE_WIDTHS"]
 
 STATE_WIDTHS = (8, 16)   # one instance of the kernel each
 
 
-def selective_scan(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
-                   b: torch.Tensor, c: torch.Tensor, a_log: torch.Tensor,
-                   d_skip: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
-    """delta [B, S, di] float32; x, z [B, S, di] and b, c [B, S, N] in one
-    dtype (float32 or bfloat16); a_log [di, N] and d_skip [di] float32;
-    state [B, di, N] float32: h0 in, the final state out.  Returns y
-    [B, S, di] in x's dtype."""
-    if delta.device.type == "cpu":
-        return selective_scan_ref(delta, x, z, b, c, a_log, d_skip, state)
-    name = "selective_scan"
-    build.require_cuda(name, delta, x, z, b, c, a_log, d_skip, state)
+def checkpoints(delta: torch.Tensor, dtype: torch.dtype, n: int) -> torch.Tensor:
+    """An empty buffer for the state before each chunk of the forward's
+    steps but the first (:func:`~repro_torch.kernels.selective_scan.ref.
+    scan_chunk`): [B, ceil(S / L) - 1, di, N] in delta's dtype."""
+    rows, s, di = delta.shape
+    return delta.new_empty((rows, max(0, -(-s // scan_chunk(dtype, n)) - 1),
+                            di, n))
+
+
+def _check(name, delta, x, z, b, c, a_log, d_skip, state, *extra):
+    build.require_cuda(name, delta, x, z, b, c, a_log, d_skip, state, *extra)
     code = build.require_dtype(name, x.dtype, x, z, b, c)
     if any(t.dtype != torch.float32 for t in (delta, a_log, d_skip, state)):
         raise TypeError(f"{name}: delta, a_log, d_skip and state must be "
@@ -63,20 +71,123 @@ def selective_scan(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (x, z, b, c)):
         raise ValueError(f"{name}: x, z, b and c need a unit last stride, not "
                          f"{[t.stride(-1) for t in (x, z, b, c)]}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (delta, x, z, b, c, a_log, d_skip, state)):
-        raise NotImplementedError(f"{name} has no backward kernel yet (ROADMAP "
-                                  f"B8): the mamba hybrids do not train on the card")
+    return code
+
+
+def _forward(delta, x, z, b, c, a_log, d_skip, state, ckpt):
+    if delta.device.type == "cpu":
+        return selective_scan_ref(delta, x, z, b, c, a_log, d_skip, state,
+                                  ckpt=ckpt)
+    name = "selective_scan"
+    code = _check(name, delta, x, z, b, c, a_log, d_skip, state)
+    rows, s, di = delta.shape
+    n = a_log.shape[-1]
+    if ckpt is not None and (ckpt.shape != checkpoints(delta, x.dtype, n).shape
+                             or not ckpt.is_contiguous()
+                             or ckpt.device != delta.device):
+        raise ValueError(f"{name}: ckpt {tuple(ckpt.shape)}")
     y = torch.empty(delta.shape, dtype=x.dtype, device=x.device)
     rc = build.load_library().repro_selective_scan(
         delta.data_ptr(), x.data_ptr(), x.stride(0), x.stride(1),
         z.data_ptr(), z.stride(0), z.stride(1), b.data_ptr(), b.stride(0),
         b.stride(1), c.data_ptr(), c.stride(0), c.stride(1), a_log.data_ptr(),
-        d_skip.data_ptr(), state.data_ptr(), y.data_ptr(), rows, s, di, n, code,
-        build.stream_of(delta))
+        d_skip.data_ptr(), state.data_ptr(), y.data_ptr(),
+        None if ckpt is None or ckpt.numel() == 0 else ckpt.data_ptr(),
+        rows, s, di, n, code, build.stream_of(delta))
     build.check(rc, name)
     selective_scan.launches += 1
     return y
 
 
+def selective_scan(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, a_log: torch.Tensor,
+                   d_skip: torch.Tensor, state: torch.Tensor, *,
+                   ckpt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """delta [B, S, di] float32; x, z [B, S, di] and b, c [B, S, N] in one
+    dtype (float32 or bfloat16); a_log [di, N] and d_skip [di] float32;
+    state [B, di, N] float32: h0 in, the final state out.  Returns y
+    [B, S, di] in x's dtype.  ``ckpt`` (:func:`checkpoints`) also takes
+    the state at every chunk boundary.  Under autograd (an operand that
+    requires a gradient) the call is differentiable, takes no ``ckpt`` and
+    only reads ``state``."""
+    operands = (delta, x, z, b, c, a_log, d_skip, state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        if ckpt is not None:
+            raise ValueError("selective_scan: under autograd the checkpoints "
+                             "are the call's own")
+        return _ScanFn.apply(*operands)
+    return _forward(*operands, ckpt)
+
+
 selective_scan.launches = 0
+
+
+class _ScanFn(torch.autograd.Function):
+    """selective_scan with its gradient: the forward runs from a copy of
+    h0 and saves its operands (x, z, b and c as the views they are) and
+    the checkpoints; the backward is one :func:`selective_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, delta, x, z, b, c, a_log, d_skip, h0):
+        ckpt = checkpoints(delta, x.dtype, a_log.shape[-1])
+        y = _forward(delta, x, z, b, c, a_log, d_skip, h0.clone(), ckpt)
+        ctx.save_for_backward(delta, x, z, b, c, a_log, d_skip, h0, ckpt)
+        return y
+
+    @staticmethod
+    def backward(ctx, dout):
+        return selective_scan_bwd(*ctx.saved_tensors[:8], dout.contiguous(),
+                                  ctx.saved_tensors[8])
+
+
+def selective_scan_bwd(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, a_log: torch.Tensor,
+                       d_skip: torch.Tensor, h0: torch.Tensor,
+                       dout: torch.Tensor, ckpt: torch.Tensor):
+    """(ddelta, dx, dz, db, dc, da_log, dd_skip, dh0): the gradients of
+    :func:`selective_scan` at its operands (h0 the state it started from)
+    from dout [B, S, di] (contiguous, x's dtype), with ``ckpt`` as the
+    forward wrote it.  dx, dz, db and dc come in x's dtype, the rest in
+    float32.  A CPU tensor takes :func:`~repro_torch.kernels.
+    selective_scan.ref.selective_scan_bwd_ref`; a CUDA tensor launches
+    the backward kernel (and the sums of its per-block and per-row
+    partials, in order) or raises."""
+    if delta.device.type == "cpu":
+        return selective_scan_bwd_ref(delta, x, z, b, c, a_log, d_skip, h0,
+                                      dout, ckpt)
+    name = "selective_scan_bwd"
+    code = _check(name, delta, x, z, b, c, a_log, d_skip, h0, dout, ckpt)
+    rows, s, di = delta.shape
+    n = a_log.shape[-1]
+    if (dout.shape != delta.shape or dout.dtype != x.dtype
+            or not dout.is_contiguous() or not ckpt.is_contiguous()
+            or ckpt.shape != checkpoints(delta, x.dtype, n).shape):
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype}, ckpt "
+                         f"{tuple(ckpt.shape)}")
+    blocks = -(-di // (128 // (n // 4)))       # channel blocks of the kernel
+    ddelta = torch.empty_like(delta)
+    dx, dz = (torch.empty(delta.shape, dtype=x.dtype, device=x.device)
+              for _ in range(2))
+    db, dc = (torch.empty((rows, s, n), dtype=x.dtype, device=x.device)
+              for _ in range(2))
+    da_log, dd = torch.empty_like(a_log), torch.empty_like(d_skip)
+    dh0 = torch.empty_like(h0)
+    f32 = dict(dtype=torch.float32, device=delta.device)
+    part_b, part_c = (torch.empty((rows, blocks, s, n), **f32) for _ in range(2))
+    part_a, part_d = torch.empty((rows, di, n), **f32), torch.empty((rows, di), **f32)
+    rc = build.load_library().repro_selective_scan_bwd(
+        delta.data_ptr(), x.data_ptr(), x.stride(0), x.stride(1),
+        z.data_ptr(), z.stride(0), z.stride(1), b.data_ptr(), b.stride(0),
+        b.stride(1), c.data_ptr(), c.stride(0), c.stride(1), a_log.data_ptr(),
+        d_skip.data_ptr(), h0.data_ptr(), dout.data_ptr(),
+        None if ckpt.numel() == 0 else ckpt.data_ptr(), ddelta.data_ptr(),
+        dx.data_ptr(), dz.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        da_log.data_ptr(), dd.data_ptr(), dh0.data_ptr(), part_b.data_ptr(),
+        part_c.data_ptr(), part_a.data_ptr(), part_d.data_ptr(), rows, s, di,
+        n, code, build.stream_of(delta))
+    build.check(rc, name)
+    selective_scan_bwd.launches += 1
+    return ddelta, dx, dz, db, dc, da_log, dd, dh0
+
+
+selective_scan_bwd.launches = 0

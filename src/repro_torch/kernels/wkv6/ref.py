@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the wkv6 kernel: ``wkv6_ref``, the token loop
+"""Plain PyTorch versions of the wkv6 kernels: ``wkv6_ref``, the token loop
 of the JAX package's ``_wkv_scan`` step (src/repro/models/rwkv6.py:96),
-einsum for einsum, which the wrapper takes for CPU tensors; and
-``wkv6_chunked_ref``, the chunked algebra the kernel computes, which only
-the tests use."""
+einsum for einsum, which the wrapper takes for CPU tensors;
+``wkv6_bwd_ref``, the backward kernel's algorithm (``csrc/wkv6_bwd.cu``):
+the reverse recurrence, each chunk's states recomputed from its
+checkpoint; and ``wkv6_chunked_ref``, the chunked algebra the forward
+kernel computes, which only the tests use."""
 
 from __future__ import annotations
 
@@ -11,14 +13,23 @@ from typing import Optional
 import torch
 
 
+# tokens between two checkpoints of the state (csrc/wkv6.cu: kL)
+CHUNK = 16
+
+
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
-             state_out: Optional[torch.Tensor] = None):
+             state_out: Optional[torch.Tensor] = None,
+             ckpt: Optional[torch.Tensor] = None):
     """r, k, v, w: [B, S, H, dh] float32; u: [H, dh]; s0: [B, H, dh, dh].
     Returns (y [B, S, H, dh], the state after the last token), the state
-    written into ``state_out`` when given."""
+    written into ``state_out`` when given.  ``ckpt`` [B, H, ceil(S / 16) -
+    1, dh, dh] takes the state before each chunk of :data:`CHUNK` tokens
+    but the first (the backward's checkpoints)."""
     state, ys = s0, []
     for t in range(r.shape[1]):
+        if ckpt is not None and t and t % CHUNK == 0:
+            ckpt[:, :, t // CHUNK - 1] = state
         a = k[:, t, :, :, None] * v[:, t, :, None, :]          # [B,H,dh,dh]
         ys.append(torch.einsum("bhij,bhi->bhj", state + u[..., None] * a,
                                r[:, t]))
@@ -75,3 +86,58 @@ def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if state_out is not None:
         state = state_out.copy_(state)
     return torch.cat(ys, 1), state
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                 dy: torch.Tensor, ds: Optional[torch.Tensor] = None,
+                 ckpt: Optional[torch.Tensor] = None):
+    """The gradients of :func:`wkv6_ref` by the backward kernel's algorithm:
+    (dr, dk, dv, dw [B, S, H, dh], du [H, dh], ds0 [B, H, dh, dh]) from dy
+    [B, S, H, dh] and ds, the final state's gradient (None: zero).
+
+    With ``G_t`` the gradient of the state after token t (``ds`` after the
+    last), walking the tokens backwards:
+
+    - ``dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t)``,
+      ``dk_t = G_t v_t + u r_t (v_t . dy_t)``,
+      ``dv_t = G_t^T k_t + dy_t (r_t . u k_t)``,
+      ``dw_t[i] = sum_j G_t[i, j] S_{t-1}[i, j]``;
+    - ``du = sum_t r_t k_t (v_t . dy_t)``, per row, then the rows added in
+      order;
+    - ``G_{t-1} = w_t G_t + r_t dy_t^T``; ds0 is G before the first token.
+
+    ``S_{t-1}`` is never recovered by dividing by w (a decay of 1e-30
+    would lose it): each chunk of :data:`CHUNK` tokens recomputes its
+    states from its checkpoint, ``ckpt`` as :func:`wkv6_ref` writes it
+    (made here when None)."""
+    b, s, h, dh = r.shape
+    n = -(-s // CHUNK)
+    if ckpt is None:
+        ckpt = r.new_empty((b, h, max(0, n - 1), dh, dh))
+        wkv6_ref(r, k, v, w, u, s0, ckpt=ckpt)
+    g = torch.zeros_like(s0) if ds is None else ds.clone()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du_rows = r.new_zeros((b, h, dh))
+    for c in range(n - 1, -1, -1):
+        t0, t1 = c * CHUNK, min(s, (c + 1) * CHUNK)
+        state, prev = (s0 if c == 0 else ckpt[:, :, c - 1]), []
+        for t in range(t0, t1):
+            prev.append(state)
+            state = (w[:, t, :, :, None] * state
+                     + k[:, t, :, :, None] * v[:, t, :, None, :])
+        for t in range(t1 - 1, t0 - 1, -1):
+            sp = prev[t - t0]
+            rt, kt, vt, wt, dyt = (a[:, t] for a in (r, k, v, w, dy))
+            vd = (vt * dyt).sum(-1, keepdim=True)                # [B,H,1]
+            ruk = (rt * u * kt).sum(-1, keepdim=True)
+            dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) + u * kt * vd
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vt) + u * rt * vd
+            dv[:, t] = torch.einsum("bhij,bhi->bhj", g, kt) + dyt * ruk
+            dw[:, t] = (g * sp).sum(-1)
+            du_rows = du_rows + rt * kt * vd
+            g = wt[..., None] * g + rt[..., :, None] * dyt[..., None, :]
+    du = du_rows[0]
+    for row in range(1, b):
+        du = du + du_rows[row]
+    return dr, dk, dv, dw, du, g

@@ -114,10 +114,13 @@ def _timed_drain(engine: Engine):
 # the port's CUDA kernels by symbol (csrc/*.cu), named as their wrappers
 # (wkv6 has a one-token kernel beside its chunked one); mmt4d's gradient
 # products share one kernel per dtype, whose first template argument is
-# true for wgrad
+# true for wgrad; the recurrences' backward wrappers launch a second
+# kernel each, the sum of their blocks' partials (``<name>_sum``), which
+# their launch counts leave out
 _PORT_KERNEL = re.compile(
-    r"::(mmt4d|pack|unpack|ragged_attn|wkv6|selective_scan)(?:_bf16|_f32|_decode)?"
-    r"_kernel\b")
+    r"::(mmt4d|pack|unpack|ragged_attn|wkv6_bwd_sum|wkv6_bwd|wkv6|"
+    r"selective_scan_bwd_sum|selective_scan_bwd|selective_scan)"
+    r"(?:_bf16|_f32|_decode)?_kernel\b")
 _GRAD_KERNEL = re.compile(r"::packed_gemm(?:_wgmma)?_kernel<(true|false)\b")
 
 

@@ -133,8 +133,14 @@ class _Gather(torch.autograd.Function):
         return out, None
 
 
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (rows of a 2-D table), whose gradient, an accumulate
+    into the table's rows wherever an index repeats, adds in a fixed order
+    (:class:`_Gather`): the embedding and the moe dispatch and combine."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _Gather.apply(table, idx)
+    return table[idx]
+
+
 def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    e, tokens = params["e"], tokens.long()
-    if torch.is_grad_enabled() and e.requires_grad:
-        return _Gather.apply(e, tokens)
-    return e[tokens]
+    return gather_rows(params["e"], tokens.long())

@@ -27,7 +27,10 @@ What differs from the JAX package, and why:
   assignment and is sliced off (the JAX package adds zeros into row C - 1:
   the same values); the combine gathers each token's k contributions and
   adds them in ascending expert order, the order of the JAX package's
-  scatter-add over the expert-sorted assignments;
+  scatter-add over the expert-sorted assignments.  Their gradients too:
+  both gathers (of the tokens' rows into the dispatch, of the experts'
+  rows into the combine) repeat rows, and their backward, an accumulate,
+  adds in a fixed order (``models/common.py:gather_rows``);
 - one dispatch block: ``local_dispatch`` and ``constrain_blocks`` only
   shard the sort over a data-parallel mesh, which the port has not
   (ROADMAP A10).
@@ -48,7 +51,7 @@ from repro_torch.core.linear import (MatmulContext, batched_linear_apply,
                                      linear_init)
 from repro_torch.core.propagation import pack_activation
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import Stream, maybe_unpack
+from repro_torch.models.common import Stream, gather_rows, maybe_unpack
 
 __all__ = ["moe_init", "moe_apply", "capacity", "DropCounter"]
 
@@ -182,7 +185,7 @@ def moe_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
     # 3. dispatch: kept assignments own distinct (expert, slot) pairs;
     # dropped ones land in row c, which is sliced off
     buf = torch.zeros((e, c + 1, d), dtype=xf.dtype, device=dev)
-    buf.index_put_((e_sorted, torch.where(keep, pos, c)), xf[perm // k])
+    buf.index_put_((e_sorted, torch.where(keep, pos, c)), gather_rows(xf, perm // k))
     x_e = buf[:, :c]
 
     # 4. the expert FFN, one launch per product over every expert
@@ -207,8 +210,9 @@ def moe_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
     ex, sl = pick(top_e), pick(slot)
     wk = (pick(top_p) * pick(keep_flat)).to(y_e.dtype)
     y = torch.zeros((t, d), dtype=xu.dtype, device=dev)
+    rows = y_e.reshape(e * c, d)
     for j in range(k):
-        y = y + y_e[ex[:, j], sl[:, j]] * wk[:, j, None]
+        y = y + gather_rows(rows, ex[:, j] * c + sl[:, j]) * wk[:, j, None]
     y = y.reshape(b, s, d)
 
     if cfg.dense_residual:  # arctic: the parallel dense branch

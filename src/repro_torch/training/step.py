@@ -9,9 +9,9 @@ through mmt4d's gradient kernels on the card.  With ``run.microbatch = n >
 another, and their gradients summed in float32, each divided by n.  The
 step writes the new parameters, moments and error buffer into the state's
 own tensors, as the reference's donated state lets XLA do, so a CUDA graph
-of the step binds one state for good.  The recurrent families (RWKV-6, the
-mamba hybrids) do not train on the card: the wkv6 and selective_scan
-kernels have no backward yet (:func:`require_trainable`; ROADMAP B8).
+of the step binds one state for good.  Every family trains: the recurrent
+mixers through the backward kernels of wkv6 and selective_scan, the moe
+experts through mmt4d's gradient kernels over the expert dim.
 """
 
 from __future__ import annotations
@@ -29,27 +29,7 @@ from repro_torch.training.optimizer import AdamW, leaves, tree_map
 from repro_torch.training.train_state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
-           "CompiledTrainStep", "require_trainable"]
-
-
-def require_trainable(cfg, device) -> None:
-    """Raise for a moe model on any device, and for a recurrent family on
-    the card, naming each: the expert-batched product has no gradient
-    kernels yet (ROADMAP B11), and RWKV-6's and mamba's recurrences are
-    kernels with no backward yet (wkv6 and selective_scan, ROADMAP B8).
-    On the CPU every other family trains through the plain versions."""
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}, {cfg.n_experts} experts) does not "
-            f"train yet: the moe family trains with the expert-batched "
-            f"mmt4d's gradient kernels (ROADMAP B11)")
-    recurrent = sorted(set(cfg.layer_types) - {"attn"})
-    if recurrent and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}, {recurrent} layers) does not train on "
-            f"the card yet: the recurrent families train with the backward "
-            f"of their recurrence kernels, wkv6's and selective_scan's "
-            f"(ROADMAP B8)")
+           "CompiledTrainStep"]
 
 
 def _rebuild(tree, it):
@@ -156,7 +136,6 @@ class CompiledTrainStep:
     the eager step.  Dropping the step frees its graphs and their pool."""
 
     def __init__(self, model, optimizer: AdamW, run: RunConfig):
-        require_trainable(model.cfg, model.device)
         self.model = model
         self.optimizer = optimizer
         self.run = run

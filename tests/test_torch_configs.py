@@ -4,9 +4,10 @@ against the JAX package.
 - Every architecture of the JAX package's registry (eleven) is in the
   port's, equal field for field, with equal ``param_counts``; the
   assigned list and the cell matrix are the reference's.
-- What the port cannot do yet with the moe family (train it: expert
-  gradient kernels) raises ``NotImplementedError`` naming its ROADMAP
-  item; the models themselves build and init.
+- The families the port once refused to train (moe, the recurrent
+  mixers) build, init (a moe layer holds its router) and give a finite
+  loss and gradients on the CPU; ``test_torch_train_recurrent.py`` and
+  ``test_torch_train_moe.py`` hold them to the reference.
 - Qwen2-7B (QKV bias), Qwen3-8B (qk_norm, untied head), ChatGLM3-6B
   (partial 2d RoPE, QKV bias, group 16 cut to 4) and OLMo-1B
   (non-parametric LayerNorm, MHA, tied head) on ``reduced_config`` in
@@ -69,18 +70,24 @@ def test_registry_matches_reference():
         get_config("gpt-5")
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("qwen3-moe-235b-a22b", "B11"), ("arctic-480b", "B11"),
-    ("jamba-v0.1-52b", "B11")])
-def test_unported_family_raises_naming_its_item(arch, item):
-    from repro_torch.training.step import require_trainable
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b",
+                                  "jamba-v0.1-52b", "rwkv6-1.6b"])
+def test_every_family_builds_and_trains_on_the_cpu(arch):
+    from repro_torch.training.step import value_and_grad
     cfg = reduced_config(get_config(arch))
-    m = build_model(cfg, RunConfig(**F32), ShapeSpec(*SHAPE), device="cpu")
-    assert "router" in m.init(torch.Generator().manual_seed(0))["groups"][
-        f"p{tfm.pattern_period(cfg) - 1}"]["ffn"]
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            require_trainable(cfg, device)
+    m = build_model(cfg, RunConfig(**F32), ShapeSpec("t", 16, 2, "train"),
+                    device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    if cfg.moe:
+        assert "router" in params["groups"][
+            f"p{tfm.pattern_period(cfg) - 1}"]["ffn"]
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+    batch = {"tokens": tokens.astype(np.int32),
+             "labels": np.roll(tokens, -1, 1).astype(np.int32)}
+    (loss, _), grads = value_and_grad(m, params, batch)
+    assert torch.isfinite(loss)
+    leaves = jax.tree.leaves(jax.tree.map(lambda g: g.numpy(), grads))
+    assert leaves and all(np.isfinite(g).all() for g in leaves)
 
 
 def _pair(arch, seed=0):

@@ -16,8 +16,10 @@ against CPU, and the compiled train step (SmolLM2's widths cut to 2 layers,
 f32 and bf16): replay = eager bit for bit, one capture, another state
 refused, a dropped trainer's memory given back.  The recurrent mixers: the
 wkv6 kernel against its plain version (decode rows and prefills, the state
-written in place, one launch a call, bit-identical repeats, a call with
-gradients refused), and an RWKV-6 engine at d_head 64 (2 layers): a
+written in place, one launch a call, bit-identical repeats), its
+backward kernel against its plain version and autograd through the
+forward's (chunk edges, extreme decays, every head width), and an RWKV-6
+engine at d_head 64 (2 layers): a
 second drain captures no graph and repeats the first's tokens, the prefill
 graph's state tree keeps its pointers, and the f32 drain equals the CPU's.
 The moe family: the expert-batched mmt4d (B_pack [E, ...], the expert dim
@@ -26,8 +28,10 @@ on the card against the CPU, and a reduced qwen3-moe engine's drains.
 Mamba: the selective_scan kernel against its plain version (decode rows
 from a cached state, prefills from zero and from a cached state, N = 8
 and 16, strided views of the projections' outputs, the state written in
-place, bit-identical repeats, refusals: gradients, another N, mixed
-dtypes), and a reduced jamba engine (moe on) whose second drain captures
+place, bit-identical repeats, refusals: another N, mixed dtypes), its
+backward kernel against its plain version (chunk edges, strided and
+unaligned views, f32 and bf16), the expert-batched gradient kernels at 16
+and 128 experts, and a reduced jamba engine (moe on) whose second drain captures
 nothing and whose f32 drain equals the CPU's.
 A CUDA kernel has no interpret mode, so without a card these tests skip.
 Run them on the card with (``--noconftest``: tests/conftest.py imports JAX,
@@ -681,7 +685,7 @@ def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
     want = {"mmt4d": 15 * n, "pack": 5 * n, "unpack": n,
             "ragged_attn": 2 * n if eng.flat else 0,
             "mmt4d_dgrad": 0, "mmt4d_wgrad": 0, "wkv6": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "wkv6_bwd": 0, "selective_scan_bwd": 0}
     assert kernels.launch_counts() == want
 
 
@@ -948,8 +952,9 @@ def test_mmt4d_grad_bf16_runs_on_tensor_cores_f32_does_not(gen):
     funcs = _sass_by_function()
     tc = [v for k, v in funcs.items() if "packed_gemm_wgmma_kernel" in k]
     f32 = [v for k, v in funcs.items() if "packed_gemm_kernel" in k]
-    # dgrad, wgrad with and without the bias gradient; f32: dgrad and wgrad
-    assert len(tc) == 3 and len(f32) == 2, sorted(funcs)
+    # dgrad, wgrad with and without the bias gradient, and the
+    # expert-batched dgrad and wgrad; f32: dgrad and wgrad
+    assert len(tc) == 5 and len(f32) == 2, sorted(funcs)
     assert all("HGMMA" in v and "UTMALDG" in v for v in tc)
     assert not any("HMMA" in v or "HGMMA" in v for v in f32)
 
@@ -1431,10 +1436,19 @@ def test_wkv6_unaligned_operands_match_plain(gen):
 
 
 def test_wkv6_refuses_what_it_does_not_take(gen):
+    """Refusals: another head width, bfloat16, and under autograd a
+    ``state_out`` (the final state goes to a fresh tensor); a call with
+    gradients runs through the backward kernel and gives every operand
+    its gradient."""
     from repro_torch.kernels.wkv6.ops import wkv6
     r, k, v, w, u, s0 = _wkv6_inputs(gen, 2, 3, 2, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        wkv6(r.requires_grad_(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="fresh tensor"):
+        wkv6(r.clone().requires_grad_(), k, v, w, u, s0, state_out=s0)
+    ts = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    y, st = wkv6(*ts)
+    grads = torch.autograd.grad(y.sum() + st.sum(), ts)
+    assert all(g.shape == t.shape and torch.isfinite(g).all() and g.abs().sum() > 0
+               for g, t in zip(grads, ts))
     with pytest.raises(ValueError, match="head width"):
         wkv6(*(t[..., :48].contiguous() for t in (r.detach(), k, v, w, u)),
              s0[..., :48, :48].contiguous())
@@ -1595,9 +1609,13 @@ def test_selective_scan_refuses_what_it_does_not_take(gen):
     from repro_torch.kernels.selective_scan.ops import selective_scan
     delta, views, a_log, d_skip, state = _scan_inputs(gen, 2, 3, 64, 16,
                                                       torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        selective_scan(delta.requires_grad_(), *views, a_log, d_skip, state)
-    delta = delta.detach()
+    # with gradients: through the backward kernel, the state only read
+    h0 = state.clone()
+    ts = [t.clone().requires_grad_() for t in (delta, *views, a_log, d_skip, state)]
+    grads = torch.autograd.grad(selective_scan(*ts).sum(), ts)
+    assert all(g.shape == t.shape and torch.isfinite(g).all() and g.abs().sum() > 0
+               for g, t in zip(grads, ts))
+    assert torch.equal(ts[-1].detach(), h0)
     with pytest.raises(ValueError, match="state width"):
         selective_scan(delta, views[0], views[1], views[2][..., :4],
                        views[3][..., :4], a_log[:, :4].contiguous(), d_skip,
@@ -1652,3 +1670,236 @@ def test_jamba_second_drain_captures_nothing(gen, dtype):
         cpu = Engine(_jamba_model(dtype, "cpu"), params, device="cpu",
                      max_slots=3, page_tokens=16)
         assert drain(cpu) == first
+
+
+# ---------------------------------------------------------------------------
+# training the recurrent and moe families: the backward kernels of wkv6 and
+# selective_scan, the expert-batched gradient kernels, the models' steps
+# ---------------------------------------------------------------------------
+
+def _leaf_close(got, want, rel):
+    """Within ``rel`` of ``want``'s largest |entry|."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() <= rel * max(1e-30, want.abs().max().item())
+
+
+def _wkv6_bwd_check(args, gen):
+    """The backward kernel (from the forward kernel's checkpoints) against
+    the plain backward (from its own): every gradient within 1e-5 of its
+    largest entry (float32 sums in another order; the forward kernel's
+    chunked states); one launch a call; a repeat bit for bit; the autograd
+    Function's gradients equal the kernel's bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wkv6.ops import checkpoints, wkv6, wkv6_bwd
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
+    b, s, h, dh = args[0].shape
+    dy = torch.randn((b, s, h, dh), generator=gen, device="cuda")
+    ds = torch.randn((b, h, dh, dh), generator=gen, device="cuda")
+    ckpt = checkpoints(args[0])
+    wkv6(*args, ckpt=ckpt)
+    want = wkv6_bwd_ref(*args, dy, ds)
+    kernels.reset_launch_counts()
+    got = wkv6_bwd(*args, dy, ds, ckpt)
+    assert kernels.launch_counts()["wkv6_bwd"] == 1
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert g.shape == w.shape and _leaf_close(g, w, 1e-5), name
+    again = wkv6_bwd(*args, dy, ds, ckpt)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    ts = [t.clone().requires_grad_() for t in args]
+    y, st = wkv6(*ts)
+    fn = torch.autograd.grad((y * dy).sum() + (st * ds).sum(), ts)
+    assert all(torch.equal(a, g) for a, g in zip(fn, got))
+
+
+# chunk edges of the 16-token checkpoints at every head width, and RWKV-6's
+# training shape cut in rows
+@pytest.mark.parametrize("b,s,h,dh", [(2, 1, 3, 64), (2, 15, 3, 16), (1, 16, 2, 32),
+                                      (2, 17, 2, 64), (1, 35, 2, 128), (3, 37, 4, 16),
+                                      (1, 130, 2, 128), (2, 256, 4, 64),
+                                      (1, 1024, 32, 64)])
+def test_wkv6_bwd_matches_plain(gen, b, s, h, dh):
+    _wkv6_bwd_check(_wkv6_inputs(gen, b, s, h, dh), gen)
+
+
+@pytest.mark.parametrize("s", [1, 16, 17, 35])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_wkv6_bwd_extreme_decays_match_plain(gen, dh, s):
+    """w = 1e-30 in channel 0 and 1 - 1e-7 in channel 1 of every head: the
+    states are recomputed from checkpoints, never divided out."""
+    args = _wkv6_inputs(gen, 2, s, 3, dh)
+    args[3][..., 0], args[3][..., 1] = 1e-30, 1 - 1e-7
+    _wkv6_bwd_check(args, gen)
+
+
+# bf16: dx, dz, dB and dC rounded to bfloat16 from float32 sums in another
+# order than the plain version's, which rounds the same sums
+_SCAN_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("b,s,di,n,h0,dt_rank",
+                         [(2, 1, 256, 16, True, 12), (2, 37, 300, 16, True, 12),
+                          (3, 33, 200, 8, False, 12), (2, 70, 301, 16, True, 13),
+                          (1, 130, 8192, 16, False, 256), (2, 65, 203, 8, True, 13)],
+                         ids=["one-step", "n16-h0", "n8-zero", "n16-odd",
+                              "jamba-width", "n8-odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_selective_scan_bwd_matches_plain(gen, dtype, b, s, di, n, h0, dt_rank):
+    """The backward kernel on the projections' strided views (odd widths:
+    views at odd elements), from the forward kernel's checkpoints, against
+    the plain backward: every gradient within the dtype's tolerance of its
+    largest entry, in its operand's dtype; one launch a call; a repeat bit
+    for bit; the autograd Function's gradients equal the kernel's bit for
+    bit, and the state it started from unwritten."""
+    from repro_torch import kernels
+    from repro_torch.kernels.selective_scan.ops import (checkpoints, selective_scan,
+                                                        selective_scan_bwd)
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    delta, views, a_log, d_skip, state = _scan_inputs(gen, b, s, di, n, dtype, h0,
+                                                      dt_rank)
+    dout = torch.randn((b, s, di), generator=gen, device="cuda").to(dtype)
+    ckpt = checkpoints(delta, dtype, n)
+    selective_scan(delta, *views, a_log, d_skip, state.clone(), ckpt=ckpt)
+    ops = (delta, *views, a_log, d_skip, state)
+    want = selective_scan_bwd_ref(*ops, dout)
+    kernels.reset_launch_counts()
+    got = selective_scan_bwd(*ops, dout, ckpt)
+    assert kernels.launch_counts()["selective_scan_bwd"] == 1
+    names = ("ddelta", "dx", "dz", "db", "dc", "da_log", "dd", "dh0")
+    for name, g, w, o in zip(names, got, want, ops):
+        assert g.dtype == o.dtype and g.shape == o.shape, name
+        assert _leaf_close(g, w, _SCAN_BWD_TOL[dtype]), name
+    again = selective_scan_bwd(*ops, dout, ckpt)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    ts = [t.clone().requires_grad_() for t in ops]
+    fn = torch.autograd.grad((selective_scan(*ts).float() * dout.float()).sum(), ts)
+    assert all(torch.equal(a, g) for a, g in zip(fn, got))
+    assert torch.equal(ts[-1].detach(), state)
+
+
+def _expert_grad_case(gen, dtype, e, c, k, n):
+    """Packed A [E, C_o, K_o, m_r, k_r], B [E, N_o, K_o, n_r, k_r] and dZ
+    [E, C_o, N_o, m_r, n_r] of an expert product [E, C, K] x [E, K, N]."""
+    lay = make_layout("scalable", query("cuda"), dtype)
+    ap = packing.pack_lhs(_rand(gen, (e, c, k), dtype), lay)
+    bp = packing.pack_rhs((_rand(gen, (e, k, n), dtype).float() * k ** -0.5)
+                          .to(dtype), lay)
+    dz = packing.pack_out(_rand(gen, (e, c, n), dtype), lay)
+    return ap, bp, dz
+
+
+@pytest.mark.parametrize("e,c,k,n", [(16, 40, 256, 384), (16, 640, 512, 256),
+                                     (128, 32, 256, 128), (128, 320, 384, 256),
+                                     (4, 13, 128, 200)],
+                         ids=["e16-c40", "e16-c640", "e128-c32", "e128-c320",
+                              "e4-ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mmt4d_expert_grads_match_plain(gen, dtype, e, c, k, n):
+    """mmt4d_dgrad and mmt4d_wgrad over every expert in one launch each,
+    with and without silu's gradient, against their plain versions (within
+    the 2-D kernels' tolerance of each result's largest entry); counted as
+    expert-batched; repeats bit for bit; each expert equal bit for bit to
+    the 2-D kernel on that expert alone, in float32 (C 40 and 13: an
+    expert's reduction ends inside a 64-deep chunk, whose rows past it
+    belong to the next expert)."""
+    ap, bp, dz = _expert_grad_case(gen, dtype, e, c, k, n)
+    z = mmt4d(ap, bp)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    for act, zz in ((None, None), ("silu", z)):
+        before = (mmt4d_dgrad.expert_batched, mmt4d_wgrad.expert_batched)
+        da = mmt4d_dgrad(dz, bp, zz, activation=act)
+        db, _ = mmt4d_wgrad(dz, ap, zz, activation=act, experts=True)
+        assert (mmt4d_dgrad.expert_batched, mmt4d_wgrad.expert_batched) == \
+            (before[0] + 1, before[1] + 1)
+        want_a = mmt4d_dgrad_ref(dz, bp, zz, activation=act)
+        want_b, _ = mmt4d_wgrad_ref(dz, ap, zz, activation=act, experts=True)
+        assert da.shape == ap.shape and db.shape == bp.shape
+        assert _leaf_close(da, want_a, tol) and _leaf_close(db, want_b, tol), act
+        assert torch.equal(mmt4d_dgrad(dz, bp, zz, activation=act), da)
+        assert torch.equal(mmt4d_wgrad(dz, ap, zz, activation=act, experts=True)[0], db)
+        if dtype == torch.float32:
+            for x in sorted({0, e - 1}):
+                zx = None if zz is None else zz[x]
+                assert torch.equal(da[x], mmt4d_dgrad(dz[x], bp[x], zx, activation=act))
+                assert torch.equal(db[x], mmt4d_wgrad(dz[x], ap[x], zx, activation=act)[0])
+
+
+def _family_setup(arch, dtype, device, layers=None):
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
+    from repro_torch.core.hardware import presets
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import make_optimizer
+    cfg = reduced_config(get_config(arch), layers=layers)
+    shape = ShapeSpec("t", 32, 2, "train")
+    run = RunConfig(param_dtype=dtype, compute_dtype=dtype, remat=False,
+                    warmup_steps=1)
+    model = build_model(cfg, run, shape, hw=presets["tpu_v5e"], device=device)
+    return model, make_optimizer(run, 10), run, SyntheticLM(cfg, shape, seed=0)
+
+
+@pytest.mark.parametrize("arch,layers", [("rwkv6-1.6b", 2), ("jamba-v0.1-52b", 8),
+                                         ("qwen3-moe-235b-a22b", 2),
+                                         ("arctic-480b", 1)])
+def test_family_value_and_grad_card_equals_cpu(gen, arch, layers):
+    """Reduced configs in float32 (seq 32, batch 2), one state on the card
+    and on the CPU: the loss within 1e-5 relative and every gradient leaf
+    within 1e-5 of its largest entry (float32 sums in another order; the
+    recurrences' backward kernels, the expert gradient kernels, the
+    moe dispatch and combine), the moe metrics within 1e-6."""
+    from repro_torch.training.optimizer import leaves, tree_map
+    from repro_torch.training.step import value_and_grad
+    model, _, _, data = _family_setup(arch, "float32", "cpu", layers)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = data.batch_at(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m, _, _, _ = _family_setup(arch, "float32", dev, layers)
+        p = tree_map(lambda t: t.to(dev), params)
+        (loss, met), grads = value_and_grad(m, p, batch)
+        res[dev] = (float(loss), {k: float(v) for k, v in met.items()},
+                    [t.cpu() for t in leaves(grads)])
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
+    for k in ("load_balance", "router_z", "dropped_frac"):
+        if k in res["cpu"][1]:
+            assert abs(res["cuda"][1][k] - res["cpu"][1][k]) <= 1e-6 * max(
+                1.0, abs(res["cpu"][1][k])), k
+    for a, b in zip(res["cuda"][2], res["cpu"][2]):
+        assert _leaf_close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("arch,layers", [("rwkv6-1.6b", 2), ("jamba-v0.1-52b", 8),
+                                         ("qwen3-moe-235b-a22b", 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+def test_family_compiled_train_step_replay_equals_eager(gen, arch, layers, dtype):
+    """The compiled train step of each newly trainable family (reduced):
+    three steps through the eager ``fn`` and through the compiled step
+    (eager and captured on the first call, replayed after): the loss and
+    every state leaf bit for bit, the same launches (the backward kernels
+    among them), one capture."""
+    from repro_torch import kernels
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.step import CompiledTrainStep
+    from repro_torch.training.train_state import TrainState
+    model, opt, run, data = _family_setup(arch, dtype, "cuda", layers)
+    step = CompiledTrainStep(model, opt, run)
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eager, graph = (TrainState.create(tree_map(torch.clone, init), opt) for _ in range(2))
+    bwd = {"rwkv6-1.6b": "wkv6_bwd", "jamba-v0.1-52b": "selective_scan_bwd"}.get(
+        arch, "mmt4d_wgrad")
+    for i in range(3):
+        batch = data.batch_at(i)
+        kernels.reset_launch_counts()
+        eager, em = step.fn(eager, {k: torch.as_tensor(v, device="cuda")
+                                    for k, v in batch.items()})
+        torch.cuda.synchronize()
+        want = kernels.counters()
+        kernels.reset_launch_counts()
+        graph, gm = step(graph, batch)
+        torch.cuda.synchronize()
+        assert kernels.counters() == want and want[bwd] > 0
+        if model.cfg.moe:
+            assert want["mmt4d_wgrad.expert_batched"] > 0
+        assert torch.equal(em["loss"], gm["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(_state_leaves(eager),
+                                                     _state_leaves(graph)))
+    assert step.captures == 1

@@ -371,6 +371,10 @@ def test_grad_kernel_takes_every_preset_bf16_tile(preset, policy):
      "CUtensorMap_st", "mmt4d_wgrad"),
     ("void (anonymous namespace)::packed_gemm_wgmma_kernel<true, true>(CUtensorMap_st",
      "mmt4d_wgrad"),
+    ("void (anonymous namespace)::packed_gemm_wgmma_kernel<false, false, true>("
+     "CUtensorMap_st", "mmt4d_dgrad"),
+    ("void (anonymous namespace)::packed_gemm_wgmma_kernel<true, false, true>("
+     "CUtensorMap_st", "mmt4d_wgrad"),
     ("void (anonymous namespace)::packed_gemm_kernel<false>(float const*, float const*",
      "mmt4d_dgrad"),
     ("void (anonymous namespace)::packed_gemm_kernel<true>(float const*", "mmt4d_wgrad"),
@@ -379,12 +383,23 @@ def test_grad_kernel_takes_every_preset_bf16_tile(preset, policy):
     ("void (anonymous namespace)::wkv6_decode_kernel<64>(float const*", "wkv6"),
     ("void (anonymous namespace)::selective_scan_kernel<__nv_bfloat16, 16>(float "
      "const*", "selective_scan"),
+    ("void (anonymous namespace)::wkv6_bwd_kernel<64>(float const*, float const*",
+     "wkv6_bwd"),
+    ("void (anonymous namespace)::wkv6_bwd_sum_kernel(repro::SumJob)", "wkv6_bwd_sum"),
+    ("void (anonymous namespace)::selective_scan_bwd_kernel<__nv_bfloat16, 16>(float "
+     "const*", "selective_scan_bwd"),
+    ("void (anonymous namespace)::selective_scan_bwd_kernel<float, 8>(float const*",
+     "selective_scan_bwd"),
+    ("void (anonymous namespace)::selective_scan_bwd_sum_kernel(repro::SumJob, "
+     "repro::SumJob", "selective_scan_bwd_sum"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8", "pytorch")])
 def test_profiles_name_the_gradient_kernels(symbol, name):
     """The launchers' ``--profile`` sums device time per port kernel by
     symbol: each gradient kernel (bf16 with and without the bias gradient,
-    f32), and both of wkv6's, lands on its wrapper's name, as the kernel
-    line counts it."""
+    f32), both of wkv6's and the recurrences' backward kernels land on
+    their wrappers' names, as the kernel line counts them; the backward
+    wrappers' second kernels (the sums of their partials) on names of
+    their own, which the launch counts leave out."""
     from repro_torch.launch.serve import port_kernel
     assert port_kernel(symbol) == name
 
@@ -394,3 +409,43 @@ def test_activation_grads_are_the_derivatives():
     for name, grad in ACTIVATION_GRADS.items():
         (d,) = torch.autograd.grad(ACTIVATIONS[name](z).sum(), z)
         assert torch.allclose(grad(z.detach()), d, rtol=1e-10, atol=1e-12), name
+
+
+@pytest.mark.parametrize("kind", ["dgrad", "wgrad"])
+def test_expert_tma_boxes_read_their_expert(kind):
+    """The expert-batched bfloat16 kernel's boxes (``grad_tma(...,
+    experts=E)``: each map's outer tile dimension folds the experts in)
+    hold each expert's own operands: every row a block uses equals its
+    expert's view.  Rows past the expert's edge come from the next expert
+    (or are zero past the last): dgrad's past P are never stored, and
+    wgrad's past R in the last chunk (M_o m_r = 48 here, not a multiple
+    of the 64-deep chunk) the kernel zeroes in X before its MMAs."""
+    e, shape = 3, (3, 2, 2, 16, 64, 64)
+    m_o, n_o, k_o, m_r, n_r, k_r = shape
+    bp, bq, bk = GRAD_TILE
+    g = torch.Generator().manual_seed(5)
+    dz = torch.randn(e, m_o, n_o, m_r, n_r, generator=g, dtype=torch.float64)
+    a = torch.randn(e, m_o, k_o, m_r, k_r, generator=g, dtype=torch.float64)
+    b = torch.randn(e, n_o, k_o, n_r, k_r, generator=g, dtype=torch.float64)
+    y = b if kind == "dgrad" else a
+    p, q, r, (dx, dy, _), _ = gemm_operands(kind, *shape)
+    maps, loads = grad_tma(kind, *shape, experts=e)
+    pp, qq, rr = -(-p // bp) * bp, -(-q // bq) * bq, -(-r // bk) * bk
+    for ex in range(e):
+        xv = _padded(gemm_view(dz[ex], dx, p, r), pp, rr)
+        yv = _padded(gemm_view(y[ex], dy, r, q), rr, qq)
+        for p0 in range(0, p, bp):
+            for q0 in range(0, q, bq):
+                for r0 in range(0, r, bk):
+                    rows = min(bk, r - r0)            # this expert's rows of r
+                    for op, origin in loads(p0, q0, r0, ex):
+                        got = tma_box({"x": dz, "y": y}[op], maps[op], origin)
+                        if op == "x" and kind == "dgrad":     # [p][r], p < P stored
+                            keep = min(bp, p - p0)
+                            assert torch.equal(got[:keep], xv[p0:p0 + keep, r0:r0 + bk])
+                            continue
+                        for h, piece in enumerate(got.reshape(-1, bk, 64)):
+                            want = (xv[p0 + 64 * h:p0 + 64 * h + 64, r0:r0 + bk].T
+                                    if op == "x" else
+                                    yv[r0:r0 + bk, q0 + 64 * h:q0 + 64 * h + 64])
+                            assert torch.equal(piece[:rows], want[:rows]), (kind, op, ex)

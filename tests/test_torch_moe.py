@@ -26,9 +26,9 @@ CPU in float32, on reduced configs (4 experts, top-2, d 64, expert d_ff
   step's capacity follows its token count;
 - the weights carried across leaf for leaf, and the router left a plain
   float32 product by ``prepack_params`` (also under a bfloat16 cast);
-- ``require_trainable`` refusing the moe family, the launcher serving
-  the two moe configs and reduced jamba, and refusing a jamba depth that
-  is not a whole number of its 8-layer periods.
+- the launcher serving the two moe configs and reduced jamba, and
+  refusing a jamba depth that is not a whole number of its 8-layer
+  periods (training: ``test_torch_train_moe.py``).
 """
 
 import dataclasses
@@ -316,24 +316,6 @@ def test_weights_carry_across_and_router_stays_plain():
     assert "w" not in tree["groups"]["p0"]["ffn"]["wg"]
     assert "w" in tree["groups"]["p0"]["ffn"]["router"]
     assert prepack_params(packed, m.ctx) == packed       # already packed
-
-
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_training_refused(arch):
-    from repro_torch.training.step import require_trainable
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP B11"):
-            require_trainable(reduced_config(get_config(arch)), device)
-
-
-def test_expert_product_refused_under_autograd():
-    from repro_torch.core.mmt4d import mmt4d as packed_mmt4d
-    a = torch.randn(2, 1, 1, 8, 16)
-    b = torch.randn(2, 1, 1, 16, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B11"):
-        packed_mmt4d(a, b)
-    with torch.no_grad():
-        assert packed_mmt4d(a, b).shape == (2, 1, 1, 8, 16)
 
 
 def test_serve_launcher_moe_and_jamba_refusal(capsys):

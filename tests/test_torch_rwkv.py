@@ -25,11 +25,10 @@ lerps, the decay, the bonus ``u`` and the norm gains all show:
   counts; the prefill state tree is one set of tensors, zeroed in place;
   ``generate_static`` = ``generate`` = the JAX engine's;
 - the refusals where the reference asserts: chunked prefill, the prefix
-  cache, speculative decode, a recurrent draft model; and, on the card
-  only, training (ROADMAP B8); the serve launcher's rehearsal on the CPU.
+  cache, speculative decode, a recurrent draft model; the serve
+  launcher's rehearsal on the CPU (training: ``test_torch_train_recurrent.py``).
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +51,6 @@ from repro_torch.models import rwkv6
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.speculative import DraftModelDrafter
-from repro_torch.training.step import require_trainable
 from repro_torch.weights import from_jax_params
 
 torch.set_num_threads(1)
@@ -283,18 +281,6 @@ def test_recurrent_draft_model_refused(models):
         JDraftModelDrafter(jm, jp)
     with pytest.raises(ValueError, match="pure-attention draft"):
         DraftModelDrafter(m, p)
-
-
-def test_training_refused_on_the_card_only():
-    cfg = reduced_config(get_config(ARCH))
-    require_trainable(cfg, "cpu")
-    require_trainable(reduced_config(get_config("smollm2-135m")), "cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        require_trainable(cfg, "cuda")
-    hybrid = dataclasses.replace(reduced_config(get_config("jamba-v0.1-52b")),
-                                 moe=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        require_trainable(hybrid, "cuda")
 
 
 def test_serve_launcher_rehearsal(capsys):
