@@ -241,7 +241,9 @@ selective_scan kernel:
  19. training the recurrent and moe families: wkv6's backward
      (csrc/wkv6_bwd.cu) at RWKV-6's training shape (4, 1024, 32, 64) f32
      and selective_scan's (csrc/selective_scan_bwd.cu) at jamba's (4,
-     1024, 8192), N 16, bf16 and f32, each from the forward kernel's
+     1024, 8192), N 16, bf16 and f32, and each again at a ragged length
+     (1000 tokens) from a nonzero final-state gradient (wkv6) or starting
+     state (the scan), each from the forward kernel's
      checkpoints against the plain backward (which makes its own), every
      gradient within WKV6_BWD_TOL / SCAN_BWD_TOL of its largest |value|, a
      repeat bit-identical, timed L2-cold beside the bound and the plain
@@ -256,8 +258,9 @@ selective_scan kernel:
      card f32 (losses); RWKV-6 1.6B whole in bf16, 20 steps through the compiled
      step (loss falling, wkv6 and wkv6_bwd once a layer each step), and
      Qwen3-MoE at full width cut to the layers whose reckoned peak fits
-     the card (8-bit moments), 5 steps (the dropped fraction, the
-     expert-batched gradient launches); replay = eager bit for bit for
+     the card (float32 moments), 5 steps (the dropped fraction, the
+     expert-batched gradient launches, the peak memory held to the
+     reckoning); replay = eager bit for bit for
      both; the training launcher's --profile on RWKV-6 cut to 2 layers
      (the trace's launches held to the wrappers' counts);
  20. the kernels JSON line (launches from the main path of each kernel: the
@@ -381,7 +384,13 @@ EARLIER_MS = {("wkv6", "decode rows", "float32"): ("token loop", 0.004781),
               ("wkv6", "prefill", "float32"): ("token loop", 0.243790),
               ("selective_scan", "decode rows", "bfloat16"): ("a thread a channel", 0.012227),
               ("selective_scan", "prefill 512", "bfloat16"): ("a thread a channel", 0.592840),
-              ("selective_scan", "prefill cached", "bfloat16"): ("a thread a channel", 0.299648)}
+              ("selective_scan", "prefill cached", "bfloat16"): ("a thread a channel", 0.299648),
+              # the recurrences' backward before PR 30's redesign: wkv6_bwd
+              # a block a (row, head), its states in an L2 scratch;
+              # selective_scan_bwd two expf an element, 30 shuffles a step
+              ("wkv6_bwd", "train", "float32"): ("a block a head", 1.945682),
+              ("selective_scan_bwd", "train", "bfloat16"): ("two expf an element", 3.060730),
+              ("selective_scan_bwd", "train", "float32"): ("two expf an element", 3.131126)}
 L2_FLUSH_BYTES = 64 * 2**20     # operand copies per cold-timed case pass this
 # two runs of one drain may pick differently only where a pick's (perturbed,
 # for a sampled pick) top-2 logit margin is below this: float32 logits of
@@ -1122,52 +1131,58 @@ class KernelChecks:
               f"{share:g} of each gradient's largest |value|) ok")
         return worst
 
-    def wkv6_bwd(self, b, s, label, h=32, dh=64):
+    def wkv6_bwd(self, b, s, label, h=32, dh=64, with_ds=False):
         """wkv6's backward (float32) at RWKV-6's heads, as a train step
-        calls it (no gradient of the final state): the forward kernel
-        writes the checkpoints, the backward kernel the gradients of r, k,
-        v, w, u and the starting state, each within WKV6_BWD_TOL of the
-        plain backward's (which makes its own checkpoints) largest |value|;
-        bit-identical on a repeat; timed L2-cold (checkpoints given, as the
-        kernel gets them).  Bound: r, k, v, w, dy, u, the starting state
-        and the checkpoints read once, the six gradients written once
-        (bytes); 8 multiply-adds per (token, head, i, j) at the float32
-        rate."""
+        calls it (no gradient of the final state; ``with_ds``: a random
+        one): the forward kernel writes the checkpoints, the backward
+        kernel the gradients of r, k, v, w, u and the starting state, each
+        within WKV6_BWD_TOL of the plain backward's (which makes its own
+        checkpoints) largest |value|; bit-identical on a repeat; timed
+        L2-cold (checkpoints given, as the kernel gets them).  Bound: r,
+        k, v, w, dy, u, the starting state (and ds) and the checkpoints
+        read once, the six gradients written once (bytes); 8 multiply-adds
+        per (token, head, i, j) at the float32 rate."""
         from repro_torch.kernels.wkv6.ops import checkpoints, wkv6, wkv6_bwd
         from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
         r, k, v, dy = (self.rand((b, s, h, dh), TF) for _ in range(4))
         w = torch.exp(-torch.exp(self.rand((b, s, h, dh), TF) - 2))
         u, s0 = self.rand((h, dh), TF, 0.1), self.rand((b, h, dh, dh), TF, 0.1)
+        ds = self.rand((b, h, dh, dh), TF) if with_ds else None
         ckpt = checkpoints(r)
         wkv6(r, k, v, w, u, s0, ckpt=ckpt)
-        got = wkv6_bwd(r, k, v, w, u, s0, dy, None, ckpt)
-        want = wkv6_bwd_ref(r, k, v, w, u, s0, dy, None)
+        got = wkv6_bwd(r, k, v, w, u, s0, dy, ds, ckpt)
+        want = wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds)
         if not all(torch.equal(a, g) for a, g in zip(
-                wkv6_bwd(r, k, v, w, u, s0, dy, None, ckpt), got)):
+                wkv6_bwd(r, k, v, w, u, s0, dy, ds, ckpt), got)):
             raise AssertionError(f"wkv6_bwd {label}: two calls differ")
         err, tol = self.leaves_close("wkv6_bwd", label, TF, got, want, WKV6_BWD_TOL)
-        sets = cold_sets(r, k, v, w, u, s0, dy, ckpt)
-        nbytes = 4 * (9 * b * s * h * dh + 2 * h * dh + 2 * b * h * dh * dh
+        del got, want
+        sets = cold_sets(r, k, v, w, u, s0, dy, ckpt, *(() if ds is None else (ds,)))
+        nbytes = 4 * (9 * b * s * h * dh + 2 * h * dh + (3 if with_ds else 2) * b * h * dh * dh
                       + ckpt.numel())
         bound_ms, bound_by = self.bound(nbytes, 16 * b * s * h * dh * dh, TF)
+        call = lambda fn: (lambda *t: fn(*t[:7], t[8] if with_ds else None, t[7]))
         self.cases["wkv6_bwd"].append({
             "shape": f"{label}, r/k/v/w/dy ({b},{s},{h},{dh}), state ({b},{h},{dh},{dh})",
             "dtype": "float32", "max_abs_err": err, "tolerance": tol,
-            "kernel_ms": time_ms(cycle(lambda *t: wkv6_bwd(*t[:7], None, t[7]), sets)),
-            "plain_ms": time_ms(cycle(lambda *t: wkv6_bwd_ref(*t[:7], None, t[7]),
-                                      sets[:1]), iters=2, spin=False, warmup=1),
+            "kernel_ms": time_ms(cycle(call(wkv6_bwd), sets)),
+            "plain_ms": time_ms(cycle(call(wkv6_bwd_ref), sets[:1]), iters=2,
+                                spin=False, warmup=1),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
         c = self.cases["wkv6_bwd"][-1]
         print(f"  {'wkv6_bwd':<18} {label:<38} float32  {c['kernel_ms']:.6f} ms "
               f"(bound {bound_ms:.6f} by {bound_by}, plain {c['plain_ms']:.2f}, "
-              f"no library call)")
-        del r, k, v, w, dy, u, s0, ckpt, sets
+              f"no library call"
+              f"{earlier_note('wkv6_bwd', label, 'float32', c['kernel_ms'])})")
+        del r, k, v, w, dy, u, s0, ds, ckpt, sets
         torch.cuda.empty_cache()
 
-    def selective_scan_bwd(self, dtype, b, s, label, di=8192, n=16, dt_rank=256):
+    def selective_scan_bwd(self, dtype, b, s, label, di=8192, n=16, dt_rank=256,
+                           h0_nonzero=False):
         """selective_scan's backward at jamba's widths, as a train step
-        calls it (from a zero state; x, z, B and C strided views of the
-        projections' outputs): the forward kernel writes the checkpoints,
+        calls it (from a zero state, or with ``h0_nonzero`` a random one;
+        x, z, B and C strided views of the projections' outputs): the
+        forward kernel writes the checkpoints,
         the backward kernel the eight gradients, each within
         SCAN_BWD_TOL[dtype] of the plain backward's (which makes its own
         checkpoints) largest |value|, in its operand's dtype; bit-identical
@@ -1187,7 +1202,8 @@ class KernelChecks:
         a_log = (torch.log(torch.arange(1, n + 1, device="cuda", dtype=TF))
                  + self.rand((di, n), TF, 0.1))
         d_skip = 1 + self.rand((di,), TF, 0.1)
-        h0 = torch.zeros((b, di, n), device="cuda")
+        h0 = (self.rand((b, di, n), TF, 0.1) if h0_nonzero
+              else torch.zeros((b, di, n), device="cuda"))
         dout = self.rand((b, s, di), dtype)
 
         def ops(d, xz_, p, al, ds, st):
@@ -1224,7 +1240,8 @@ class KernelChecks:
         c = self.cases["selective_scan_bwd"][-1]
         print(f"  {'selective_scan_bwd':<18} {label:<38} {str(dtype)[6:]:<8} "
               f"{c['kernel_ms']:.6f} ms (bound {bound_ms:.6f} by {bound_by}, plain "
-              f"{c['plain_ms']:.2f}, no library call)")
+              f"{c['plain_ms']:.2f}, no library call"
+              f"{earlier_note('selective_scan_bwd', label, str(dtype)[6:], c['kernel_ms'])})")
         del got, base, xz, proj, delta, dout, ckpt, sets
         torch.cuda.empty_cache()
 
@@ -4423,11 +4440,13 @@ def jamba_phase(card, checks) -> tuple:
 # 11.6113 -> 11.5746) and both fell further at 1e-4 (11.5995 -> 11.5480,
 # 11.6008 -> 11.5583); at a random init a larger lr adds more noise than
 # 20 steps remove, as SmolLM2's training phase found.  Qwen3-MoE with
-# 8-bit moments: with float32 ones its one layer's 3.73 B parameters hold
-# 34.8 GiB, and the capture of the step took its 28 GiB of transients a
-# second time (ROADMAP C11), which did not fit the card at 4 x 1024
-# tokens; with 8-bit ones the step peaks at 42.0 GiB allocated, 66.5
-# reserved
+# float32 moments (the default AdamW): its one layer's 3.73 B parameters
+# and moments hold 34.8 GiB; the capture of its step once ran out of
+# memory with 18.95 GiB free in the graph's pool, none of it in a block
+# that could take the update's 3 GiB float32 temporaries of the stacked
+# experts, and a capture cannot give free blocks back to the device
+# (ROADMAP C11, closed: the update takes large leaves in slices;
+# scripts/c11_memory.py)
 RWKV_TRAIN, MOE_TRAIN = "rwkv6-1.6b", "qwen3-moe-235b-a22b"
 RWKV_TRAIN_LR = 1e-4
 RWKV_TRAIN_STEPS, MOE_TRAIN_STEPS, FAMILY_REPLAY_STEPS = 20, 5, 3
@@ -4472,23 +4491,29 @@ WKV6_BWD_TOL = 1e-5
 # another order; bfloat16: dx, dz, dB and dC rounded to bfloat16 from
 # float32 sums of another order)
 SCAN_BWD_TOL = {TF: 1e-5, BF: 2e-2}
+# the backward kernels' second case: a length no chunk divides (wkv6's 16,
+# the scan's 16, 24 and 32), from a nonzero ds (wkv6) or h0 (the scan)
+RAGGED_SEQ = 1000
 
 
 def moe_train_depth(cfg, total: int) -> tuple:
-    """The bf16 training depth of a moe config with 8-bit moments and its
-    reckoning (printed): for L layers, 6 bytes a parameter (bf16 weights
-    and gradients, int8 moments), plus a step's transients counted twice
-    (the capture of the step takes them again): the packed copies of
-    every expert leaf the forward saves, the optimizer's float32 copies of
-    the largest leaf (4 of its bf16 bytes, twice: 8), the logits and their
-    gradient in float32; plus MOE_POOL_BYTES."""
+    """The bf16 training depth of a moe config with float32 moments (the
+    default AdamW) and its reckoning (printed): for L layers, 12 bytes a
+    parameter (bf16 weights and gradients, float32 moments: 6 times the
+    bf16 weights), plus a step's transients once (ROADMAP C11): the
+    packed copies of every expert leaf the forward saves, the logits and
+    their gradient in float32, and the rest (the activations, the head's
+    and the embedding's gradients in their packed and unpacked forms, the
+    update's float32 slices) taken as 8 bytes an element of the largest
+    leaf (at 1 layer 9.2 GB of the 19.0 GB of transients measured on an
+    NVIDIA H100 80GB HBM3 at 700 W, 12.9 reckoned); plus MOE_POOL_BYTES."""
     layer, fixed, leaf = moe_bytes(cfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     experts = leaf * (3 if cfg.glu else 2)
     best, rows = 0, []
     for n in range(1, cfg.n_layers + 1):
-        peak = (3 * (fixed + n * layer)
-                + 2 * (n * experts + 8 * leaf + 8 * tokens * cfg.vocab)
+        peak = (6 * (fixed + n * layer)
+                + n * experts + 8 * leaf + 8 * tokens * cfg.vocab
                 + MOE_POOL_BYTES)
         rows.append((n, peak))
         if peak <= TRAIN_FIT * total:
@@ -4779,8 +4804,11 @@ def family_training_phase(card, checks) -> tuple:
     print(f"the backward kernels at the training shapes (4 x 1024 tokens), "
           f"L2-cold, beside their plain versions ({card}):")
     checks.wkv6_bwd(TRAIN_BATCH, TRAIN_SEQ, "train")
+    checks.wkv6_bwd(TRAIN_BATCH, RAGGED_SEQ, f"ragged {RAGGED_SEQ}, ds", with_ds=True)
     for dtype in (BF, TF):
         checks.selective_scan_bwd(dtype, TRAIN_BATCH, TRAIN_SEQ, "train")
+        checks.selective_scan_bwd(dtype, TRAIN_BATCH, RAGGED_SEQ, f"ragged {RAGGED_SEQ}, h0",
+                                  h0_nonzero=True)
     print(f"the expert-batched gradient kernels at the training experts "
           f"(Qwen3-MoE: 128 experts, C 320 at 4,096 tokens, 4096 <-> 1536; jamba: "
           f"16 experts, C 640, 4096 <-> 14336), beside torch.bmm ({card}):")
@@ -4811,7 +4839,6 @@ def family_training_phase(card, checks) -> tuple:
     total = torch.cuda.get_device_properties(0).total_memory
     base = RunConfig(remat=False, warmup_steps=1)
     rwkv_run = dc.replace(base, lr=RWKV_TRAIN_LR)
-    moe_run = dc.replace(base, adam_8bit=True)
     print(f"training, bfloat16: {RWKV_TRAIN} whole, seq {TRAIN_SEQ}, batch "
           f"{TRAIN_BATCH}, lr {RWKV_TRAIN_LR:g}, {RWKV_TRAIN_STEPS} steps through "
           f"the compiled step ({card}); {card_memory()}")
@@ -4830,18 +4857,25 @@ def family_training_phase(card, checks) -> tuple:
           f"{card_memory()}")
     out["replay"] = {}
     for key, cfg, run in ((f"{RWKV_TRAIN} bf16", get_config(RWKV_TRAIN), rwkv_run),
-                          (f"{MOE_TRAIN} {depth} layers bf16 8-bit",
-                           dc.replace(mcfg, n_layers=depth), moe_run)):
+                          (f"{MOE_TRAIN} {depth} layers bf16",
+                           dc.replace(mcfg, n_layers=depth), base)):
         out["replay"][key] = train_replay_check(
             build_model(cfg, run, shape, device="cuda"), run, FAMILY_REPLAY_STEPS, key)
-    print(f"training, bfloat16: {MOE_TRAIN} at full width with 8-bit moments, the "
-          f"most layers whose reckoned peak fits {TRAIN_FIT:.0%} of the card's "
-          f"{total / 1e9:.2f} GB: "
+    print(f"training, bfloat16: {MOE_TRAIN} at full width with float32 moments (the "
+          f"default AdamW), the most layers whose reckoned peak fits {TRAIN_FIT:.0%} "
+          f"of the card's {total / 1e9:.2f} GB: "
           + ", ".join(f"{n} layers {p / 1e9:.2f} GB" for n, p in rows)
           + f" -> {depth} ({card}); {card_memory()}")
     out["qwen3-moe bf16"] = r = family_bf16_train(MOE_TRAIN, depth, MOE_TRAIN_STEPS,
-                                                  moe_run, card)
+                                                  base, card)
     r["layers"], r["reckoning"] = depth, rows
+    reckoned = rows[depth - 1][1]
+    print(f"  {MOE_TRAIN}: peak {r['peak_gib'] * 2**30 / 1e9:.2f} GB allocated against "
+          f"the reckoned {reckoned / 1e9:.2f} GB ({r['peak_gib'] * 2**30 / reckoned:.3f} "
+          f"of it)")
+    if r["peak_gib"] * 2**30 > reckoned:
+        raise AssertionError(f"{MOE_TRAIN}: peak {r['peak_gib']:.2f} GiB above the "
+                             f"reckoned {reckoned / 2**30:.2f} GiB")
     by_path["train bf16 qwen3-moe"] = r.pop("launches")
 
     print(f"training, the launcher: python -m repro_torch.launch.train --arch "

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "repro_packed_gemm": [_P, _P, _P, _P, _P, _I, _L, _L, _L, _P, _I, _I, _I,
                           _I, _P],
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_wkv6_bwd": [_P] * 17 + [_I, _I, _I, _I, _P],
+    "repro_wkv6_bwd": [_P] * 16 + [_I, _I, _I, _I, _P],
     "repro_selective_scan": [_P, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L,
                              _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_selective_scan_bwd": [_P, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,

@@ -150,7 +150,7 @@ def selective_scan_bwd(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     forward wrote it.  dx, dz, db and dc come in x's dtype, the rest in
     float32.  A CPU tensor takes :func:`~repro_torch.kernels.
     selective_scan.ref.selective_scan_bwd_ref`; a CUDA tensor launches
-    the backward kernel (and the sums of its per-block and per-row
+    the backward kernel (and the sums of its per-cluster and per-row
     partials, in order) or raises."""
     if delta.device.type == "cpu":
         return selective_scan_bwd_ref(delta, x, z, b, c, a_log, d_skip, h0,
@@ -164,7 +164,8 @@ def selective_scan_bwd(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
             or ckpt.shape != checkpoints(delta, x.dtype, n).shape):
         raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype}, ckpt "
                          f"{tuple(ckpt.shape)}")
-    blocks = -(-di // (128 // (n // 4)))       # channel blocks of the kernel
+    # the kernel's clusters: 4 blocks of 128 // (n // 4) channels each
+    clusters = -(-di // (4 * (128 // (n // 4))))
     ddelta = torch.empty_like(delta)
     dx, dz = (torch.empty(delta.shape, dtype=x.dtype, device=x.device)
               for _ in range(2))
@@ -173,7 +174,7 @@ def selective_scan_bwd(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     da_log, dd = torch.empty_like(a_log), torch.empty_like(d_skip)
     dh0 = torch.empty_like(h0)
     f32 = dict(dtype=torch.float32, device=delta.device)
-    part_b, part_c = (torch.empty((rows, blocks, s, n), **f32) for _ in range(2))
+    part_b, part_c = (torch.empty((rows, clusters, s, n), **f32) for _ in range(2))
     part_a, part_d = torch.empty((rows, di, n), **f32), torch.empty((rows, di), **f32)
     rc = build.load_library().repro_selective_scan_bwd(
         delta.data_ptr(), x.data_ptr(), x.stride(0), x.stride(1),

@@ -2,8 +2,9 @@
 SSM body between ``_delta`` and ``out_proj`` (the JAX package's
 ``models/mamba.py:110-132``), expression for expression: ``da``, ``dbx``,
 the sequential scan from ``h0``, the einsum, the skip and the gate; and
-``selective_scan_bwd_ref``, its backward by the backward kernel's
-algorithm (``csrc/selective_scan_bwd.cu``)."""
+``selective_scan_bwd_ref``, its backward's algorithm; and, which only the
+tests use, ``selective_scan_bwd_windowed_ref``, the backward kernel's
+decomposition (``csrc/selective_scan_bwd.cu``)."""
 
 from __future__ import annotations
 
@@ -68,8 +69,8 @@ def selective_scan_ref(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
 
 def selective_scan_bwd_ref(delta, x, z, b, c, a_log, d_skip, h0, dout,
                            ckpt: Optional[torch.Tensor] = None):
-    """The gradients of :func:`selective_scan_ref` by the backward kernel's
-    algorithm (``csrc/selective_scan_bwd.cu``): (ddelta [B, S, di] float32,
+    """The gradients of :func:`selective_scan_ref` by the backward's
+    algorithm: (ddelta [B, S, di] float32,
     dx, dz [B, S, di] and db, dc [B, S, N] in x's dtype, da_log [di, N] and
     dd_skip [di] float32, dh0 [B, di, N] float32) from dout [B, S, di].
 
@@ -128,6 +129,88 @@ def selective_scan_bwd_ref(delta, x, z, b, c, a_log, d_skip, h0, dout,
             da_rows = da_rows + g * hp * dat * dt[..., None]
             dd_rows = dd_rows + dy * xt
             g = dat * g
+    da_log, dd = da_rows[0] * a, dd_rows[0]
+    for row in range(1, rows):
+        da_log, dd = da_log + da_rows[row] * a, dd + dd_rows[row]
+    cast = lambda t: t.to(x.dtype)
+    return ddelta, cast(dx), cast(dz), cast(db), cast(dc), da_log, dd, g
+
+
+def selective_scan_bwd_windowed_ref(delta, x, z, b, c, a_log, d_skip, h0, dout,
+                                    ckpt: Optional[torch.Tensor] = None,
+                                    window: int = 8, block: int = 32,
+                                    cluster: int = 4):
+    """:func:`selective_scan_bwd_ref`'s gradients by the backward kernel's
+    decomposition (``csrc/selective_scan_bwd.cu``), for the tests: each
+    chunk's da_t computed once, in a forward pass from its checkpoint that
+    keeps the state at every ``window``-th step; each window's states then
+    recomputed from its start with the kept da_t and walked back; silu(z)
+    and dy once a (step, channel); dB and dC summed over ``block``
+    channels, then over ``cluster`` blocks in order, then over the
+    clusters in order (the channels past di counted as zeros).  Same
+    arguments and results as :func:`selective_scan_bwd_ref`."""
+    rows, s, di = delta.shape
+    n = a_log.shape[-1]
+    step = scan_chunk(x.dtype, n)
+    chunks = -(-s // step)
+    if ckpt is None:
+        ckpt = delta.new_empty((rows, max(0, chunks - 1), di, n))
+        with torch.no_grad():
+            selective_scan_ref(delta, x, z, b, c, a_log, d_skip, h0.clone(),
+                               ckpt=ckpt)
+    a = -torch.exp(a_log)
+    xf, zf, bf, cf, dof = (t.float() for t in (x, z, b, c, dout))
+    sig = torch.sigmoid(zf)
+    dyv = dof * zf * sig
+    g = torch.zeros_like(h0)
+    ddelta, dx, dz = (torch.empty_like(delta) for _ in range(3))
+    db, dc = (delta.new_empty((rows, s, n)) for _ in range(2))
+    da_rows = torch.zeros_like(h0)
+    dd_rows = delta.new_zeros((rows, di))
+    group = block * cluster
+    padded = -(-di // group) * group
+
+    def over_channels(part):      # [B, di, N] -> [B, N], the kernel's order
+        part = torch.cat([part, part.new_zeros((rows, padded - di, n))], 1)
+        blocks = part.reshape(rows, padded // group, cluster, block, n).sum(3)
+        tiles = blocks[:, :, 0]
+        for m in range(1, cluster):
+            tiles = tiles + blocks[:, :, m]
+        out = tiles[:, 0]
+        for q in range(1, tiles.shape[1]):
+            out = out + tiles[:, q]
+        return out
+
+    def advance(h, t, da):
+        return da * h + delta[:, t, :, None] * bf[:, t, None, :] * xf[:, t, :, None]
+
+    for ch in range(chunks - 1, -1, -1):
+        t0, t1 = ch * step, min(s, (ch + 1) * step)
+        h = h0 if ch == 0 else ckpt[:, ch - 1]
+        kept, starts = {}, {}
+        for t in range(t0, t1):
+            if (t - t0) % window == 0:
+                starts[t] = h
+            kept[t] = torch.exp(delta[:, t, :, None] * a)
+            h = advance(h, t, kept[t])
+        for w0 in sorted(starts, reverse=True):
+            hs = [starts[w0]]
+            for t in range(w0, min(t1, w0 + window)):
+                hs.append(advance(hs[-1], t, kept[t]))
+            for t in range(min(t1, w0 + window) - 1, w0 - 1, -1):
+                hp, ht, dat = hs[t - w0], hs[t - w0 + 1], kept[t]
+                dt, xt, dy = delta[:, t], xf[:, t], dyv[:, t]
+                y = (ht * cf[:, t, None, :]).sum(-1) + d_skip * xt
+                dz[:, t] = dof[:, t] * y * sig[:, t] * (1 + zf[:, t] * (1 - sig[:, t]))
+                g = g + dy[..., None] * cf[:, t, None, :]
+                dc[:, t] = over_channels(dy[..., None] * ht)
+                db[:, t] = over_channels(g * (dt * xt)[..., None])
+                dx[:, t] = dy * d_skip + (g * bf[:, t, None, :]).sum(-1) * dt
+                ddelta[:, t] = (g * (bf[:, t, None, :] * xt[..., None]
+                                     + hp * dat * a)).sum(-1)
+                da_rows = da_rows + g * hp * dat * dt[..., None]
+                dd_rows = dd_rows + dy * xt
+                g = dat * g
     da_log, dd = da_rows[0] * a, dd_rows[0]
     for row in range(1, rows):
         da_log, dd = da_log + da_rows[row] * a, dd + dd_rows[row]

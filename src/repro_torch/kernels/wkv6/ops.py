@@ -140,14 +140,13 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(u)
     ds0 = torch.empty_like(s0)
-    scratch = r.new_empty((b * h, CHUNK, dh * dh))  # a chunk's states
     du_rows = r.new_empty((b, h, dh))
     rc = build.load_library().repro_wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         s0.data_ptr(), dy.data_ptr(), None if ds is None else ds.data_ptr(),
         None if ckpt.numel() == 0 else ckpt.data_ptr(), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        ds0.data_ptr(), scratch.data_ptr(), du_rows.data_ptr(), b, s, h, dh,
+        ds0.data_ptr(), du_rows.data_ptr(), b, s, h, dh,
         build.stream_of(r))
     build.check(rc, name)
     wkv6_bwd.launches += 1

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the wkv6 kernels: ``wkv6_ref``, the token loop
 of the JAX package's ``_wkv_scan`` step (src/repro/models/rwkv6.py:96),
 einsum for einsum, which the wrapper takes for CPU tensors;
-``wkv6_bwd_ref``, the backward kernel's algorithm (``csrc/wkv6_bwd.cu``):
-the reverse recurrence, each chunk's states recomputed from its
-checkpoint; and ``wkv6_chunked_ref``, the chunked algebra the forward
-kernel computes, which only the tests use."""
+``wkv6_bwd_ref``, the backward's algorithm: the reverse recurrence, each
+chunk's states recomputed from its checkpoint; and, which only the tests
+use, ``wkv6_chunked_ref``, the chunked algebra the forward kernel
+computes, and ``wkv6_bwd_sliced_ref``, the backward kernel's
+decomposition (``csrc/wkv6_bwd.cu``)."""
 
 from __future__ import annotations
 
@@ -141,3 +142,61 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for row in range(1, b):
         du = du + du_rows[row]
     return dr, dk, dv, dw, du, g
+
+
+def wkv6_bwd_sliced_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                        dy: torch.Tensor, ds: Optional[torch.Tensor] = None,
+                        ckpt: Optional[torch.Tensor] = None, rows: int = 16):
+    """:func:`wkv6_bwd_ref`'s gradients by the backward kernel's
+    decomposition (``csrc/wkv6_bwd.cu``), for the tests: the state's rows
+    in slices of ``rows`` (a row's S and G evolve on their own, and dr, dk,
+    dw and du are sums within a row), each chunk's states recomputed from
+    its checkpoint half a chunk at a time (the later half first: the first
+    half advanced, then the later half kept), and dv a sum over the slices,
+    in slice order, of each slice's ``sum_i k_t[i] (G_t[i, :] + r_t[i] u[i]
+    dy_t)``: the bonus term's share folded into each row's.  Same
+    arguments and results as :func:`wkv6_bwd_ref`."""
+    b, s, h, dh = r.shape
+    n = -(-s // CHUNK)
+    half = CHUNK // 2
+    if ckpt is None:
+        ckpt = r.new_empty((b, h, max(0, n - 1), dh, dh))
+        wkv6_ref(r, k, v, w, u, s0, ckpt=ckpt)
+    # the chunks padded to whole: r = k = v = dy = 0 and w = 1 change nothing
+    pad = n * CHUNK - s
+    rp, kp, vp, dyp = (torch.cat([a, a.new_zeros((b, pad, h, dh))], 1)
+                       for a in (r, k, v, dy))
+    wp = torch.cat([w, w.new_ones((b, pad, h, dh))], 1)
+    g = torch.zeros_like(s0) if ds is None else ds.clone()
+    dr, dk, dv, dw = (r.new_empty((b, n * CHUNK, h, dh)) for _ in range(4))
+    du_rows = r.new_zeros((b, h, dh))
+    slices = [slice(q, q + rows) for q in range(0, dh, rows)]
+    for c in range(n - 1, -1, -1):
+        start = s0 if c == 0 else ckpt[:, :, c - 1]
+        for part in (1, 0):
+            st, kept = start, []
+            for t in range(c * CHUNK, c * CHUNK + part * half):
+                st = wp[:, t, :, :, None] * st + kp[:, t, :, :, None] * vp[:, t, :, None, :]
+            t0 = c * CHUNK + part * half
+            for t in range(t0, t0 + half):
+                kept.append(st)
+                st = wp[:, t, :, :, None] * st + kp[:, t, :, :, None] * vp[:, t, :, None, :]
+            for t in range(t0 + half - 1, t0 - 1, -1):
+                sp = kept[t - t0]
+                rt, kt, vt, wt, dyt = (a[:, t] for a in (rp, kp, vp, wp, dyp))
+                vd = (vt * dyt).sum(-1, keepdim=True)                # [B,H,1]
+                dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) + u * kt * vd
+                dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vt) + u * rt * vd
+                dw[:, t] = (g * sp).sum(-1)
+                fold = (g + (rt * u)[..., :, None] * dyt[..., None, :]) * kt[..., :, None]
+                acc = fold[:, :, slices[0]].sum(2)
+                for sl in slices[1:]:
+                    acc = acc + fold[:, :, sl].sum(2)
+                dv[:, t] = acc
+                du_rows = du_rows + rt * kt * vd
+                g = wt[..., None] * g + rt[..., :, None] * dyt[..., None, :]
+    du = du_rows[0]
+    for row in range(1, b):
+        du = du + du_rows[row]
+    return dr[:, :s], dk[:, :s], dv[:, :s], dw[:, :s], du, g

@@ -15,6 +15,15 @@ computed in float32 on the host (numpy), as the JAX package computes them
 in float32, and read by the update from a small float32 tensor on the
 parameters' device (:meth:`AdamW.scalars`): a CUDA graph of the step then
 reads each step's values, and nothing is read back.
+
+The float32 update of a leaf of more than :data:`UPDATE_SLICE` elements
+runs over slices of that many (elementwise, so the result is the whole
+leaf's bit for bit): its float32 temporaries, a few per element, then
+stay a fraction of a GiB.  A CUDA graph's capture cannot give the free
+memory of its pool back to the device, so each of the step's transients
+must fit a block the capture's earlier transients left; the temporaries
+of Qwen3-MoE's stacked experts, 3 GiB each whole, fitted none (ROADMAP
+C11).
 """
 
 from __future__ import annotations
@@ -26,7 +35,11 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 
-__all__ = ["AdamW", "make_optimizer", "global_norm", "tree_map", "leaves"]
+__all__ = ["AdamW", "make_optimizer", "global_norm", "tree_map", "leaves",
+           "UPDATE_SLICE"]
+
+# elements of a leaf the float32 update takes at once (256 MiB a temporary)
+UPDATE_SLICE = 1 << 26
 
 
 def tree_map(fn, *trees):
@@ -138,19 +151,20 @@ class AdamW:
         lr, bc1, bc2 = scalars.unbind()
         b1, b2 = self.b1, self.b2
 
-        def moments(p, g, m_, v_):
+        def moments(p, g, m_, v_, matrix):
             g = g.float() * scale
             m_ = b1 * m_ + (1 - b1) * g
             v_ = b2 * v_ + (1 - b2) * g * g
             u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + self.eps)
-            if p.ndim >= 2:          # decoupled weight decay on matrices only
+            if matrix:               # decoupled weight decay on matrices only
                 u = u + self.weight_decay * p.float()
             p.copy_(p.float() - lr * u)
             return m_, v_
 
         if self.eightbit:
             def leaf(p, g, mq, ms, vq, vs):
-                new = moments(p, g, _dequantize(mq, ms), _dequantize(vq, vs))
+                new = moments(p, g, _dequantize(mq, ms), _dequantize(vq, vs),
+                              p.ndim >= 2)
                 for q, s, x in zip((mq, vq), (ms, vs), new):
                     nq, ns = _quantize(x)
                     q.copy_(nq)
@@ -159,8 +173,16 @@ class AdamW:
                                             ("m_q", "m_s", "v_q", "v_s")))
         else:
             def leaf(p, g, m_, v_):
-                for t, x in zip((m_, v_), moments(p, g, m_, v_)):
-                    t.copy_(x)
+                whole = (p, g, m_, v_)
+                if p.numel() > UPDATE_SLICE and all(t.is_contiguous() for t in whole):
+                    flat = [t.view(-1) for t in whole]
+                    parts = [[t[i:i + UPDATE_SLICE] for t in flat]
+                             for i in range(0, p.numel(), UPDATE_SLICE)]
+                else:
+                    parts = [whole]
+                for pp, gg, mm, vv in parts:
+                    for t, x in zip((mm, vv), moments(pp, gg, mm, vv, p.ndim >= 2)):
+                        t.copy_(x)
             tree_map(leaf, params, grads, opt_state["m"], opt_state["v"])
         return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 

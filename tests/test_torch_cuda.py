@@ -1149,6 +1149,66 @@ def test_dropped_trainer_frees_its_graph(gen):
     assert torch.cuda.memory_reserved() == reserved
 
 
+def _pool_bytes() -> tuple:
+    """(bytes allocated in the caching allocator's default pool, bytes
+    reserved in graphs' private pools)."""
+    segs = torch.cuda.memory._snapshot()["segments"]
+    default = [seg for seg in segs if tuple(seg["segment_pool_id"]) == (0, 0)]
+    return (sum(seg["allocated_size"] for seg in default),
+            sum(seg["total_size"] for seg in segs) - sum(seg["total_size"] for seg in default))
+
+
+def test_moe_train_capture_holds_one_steps_transients(gen):
+    """C11: a moe train step (Qwen3-MoE's layout at 1 layer, d 1024, 16
+    experts, a 32,768-token vocabulary; bf16, float32 moments, 4 x 512
+    tokens) through the compiled step.  After its eager warmup and
+    capture, the memory allocated outside the graph's pool is the state
+    plus a slack (the step's inputs and metrics, cuBLAS's workspace: 10 %
+    of the state or 256 MiB), not the state plus the warmup's transients;
+    and the graph's pool, which a capture cannot give back to the device
+    while it runs, holds no more than the step's transients plus that
+    slack (each transient found a block its earlier ones left: the
+    optimizer updates large leaves in slices)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.step import CompiledTrainStep
+    from repro_torch.training.train_state import TrainState
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=1, d_model=1024,
+                              n_heads=8, n_kv_heads=2, n_experts=16, top_k=2,
+                              d_ff_expert=512, d_ff=512, vocab=32768)
+    shape = ShapeSpec("t", 512, 4, "train")
+    run = RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16", remat=False,
+                    warmup_steps=1)
+    model = build_model(cfg, run, shape, device="cuda")
+    opt = make_optimizer(run, 10)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before, _ = _pool_bytes()
+    state = TrainState.create(model.init(torch.Generator(device="cuda").manual_seed(0)),
+                              opt)
+    state_bytes = sum(t.untyped_storage().nbytes() for t in _state_leaves(state))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step = CompiledTrainStep(model, opt, run)
+    state, _ = step(state, SyntheticLM(cfg, shape, seed=0).batch_at(0))
+    torch.cuda.synchronize()
+    transients = torch.cuda.max_memory_allocated() - base
+    slack = max(256 * 2**20, state_bytes // 10)
+    outside, pool = _pool_bytes()
+    outside -= before
+    assert step.captures == 1
+    assert transients > 2 * slack, (transients, slack)   # the test can tell
+    assert outside <= state_bytes + slack, (outside, state_bytes, transients)
+    assert pool <= transients + slack, (pool, transients, slack)
+
+
 # ---------------------------------------------------------------------------
 # the static batch loop on the card: the dense-cache "decode" step
 # ---------------------------------------------------------------------------

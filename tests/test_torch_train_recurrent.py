@@ -9,12 +9,16 @@ the CPU in float32 (bfloat16 where a case says so):
   ``_wkv_scan`` and against autograd through ``wkv6_ref``, at lengths 1,
   15, 16, 17, 35 and 256 (chunk edges of the 16-token checkpoints and
   the reference's 128-token ones), ordinary and extreme decays (1e-30,
-  1 - 1e-7), from a zero and a nonzero state;
+  1 - 1e-7), from a zero and a nonzero state; and the backward kernel's
+  decomposition (``wkv6_bwd_sliced_ref``) at ragged lengths, a decay of
+  1e-30 and a nonzero state, two row slices;
 - (c) ``selective_scan_bwd_ref`` against ``jax.vjp`` of the reference's
   mamba body (``src/repro/models/mamba.py:114-132``, expression for
   expression, around its ``_ssm_scan``), f32 and bf16, N 8 and 16, from
   zero and from h0; the port's autograd Function (the wrappers' CPU path)
-  equal to the plain backward bit for bit;
+  equal to the plain backward bit for bit; the backward kernel's
+  decomposition (``selective_scan_bwd_windowed_ref``) over 40 steps of 300
+  channels from h0;
 - (d) and (e), the models, are in ``test_torch_train_recurrent_models.py``
   (the two files split the run's time).
 """
@@ -28,10 +32,11 @@ import torch
 from repro.models import mamba as jmamba
 from repro.models import rwkv6 as jrwkv6
 from repro_torch.kernels.selective_scan.ops import selective_scan
-from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
-                                                    selective_scan_ref)
+from repro_torch.kernels.selective_scan.ref import (
+    selective_scan_bwd_ref, selective_scan_bwd_windowed_ref, selective_scan_ref)
 from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref, wkv6_ref
+from repro_torch.kernels.wkv6.ref import (wkv6_bwd_ref, wkv6_bwd_sliced_ref,
+                                          wkv6_ref)
 
 torch.set_num_threads(1)
 
@@ -105,19 +110,34 @@ def _wkv6_inputs(s, decay, nonzero, b=2, h=2, dh=16):
     return (r, k, v, w, u, s0), dy, ds
 
 
-@pytest.mark.parametrize("nonzero", [False, True], ids=["s0zero", "s0"])
-@pytest.mark.parametrize("decay", ["ordinary", "tiny", "near1"])
-@pytest.mark.parametrize("s", [1, 15, 16, 17, 35, 256])
-def test_wkv6_bwd_matches_jax_vjp(s, decay, nonzero):
+# (s, decay, nonzero s0, algorithm, dh): every length, decay and start
+# for the backward's plain algorithm (``wkv6_bwd_ref``, dh 16); for the
+# backward kernel's decomposition (``wkv6_bwd_sliced_ref``: 16-row slices,
+# so dh 32 gives two and dv crosses them) lengths no chunk divides, a
+# decay of 1e-30 and a nonzero s0 (ds is always nonzero here)
+_WKV6_CASES = (
+    [pytest.param(s, decay, nz, "token", 16,
+                  id=f"{s}-{decay}-{'s0' if nz else 's0zero'}")
+     for s in (1, 15, 16, 17, 35, 256) for decay in ("ordinary", "tiny", "near1")
+     for nz in (False, True)]
+    + [pytest.param(s, decay, True, "sliced", 32, id=f"sliced-{s}-{decay}-s0")
+       for s, decay in ((1, "tiny"), (17, "tiny"), (35, "ordinary"), (40, "near1"))])
+
+
+@pytest.mark.parametrize("s, decay, nonzero, algo, dh", _WKV6_CASES)
+def test_wkv6_bwd_matches_jax_vjp(s, decay, nonzero, algo, dh):
     """Every gradient (dr, dk, dv, dw, du, ds0) within 1e-5 of its largest
     entry of ``jax.vjp`` of the reference's checkpointed scan, and of
-    autograd through ``wkv6_ref``; the wrapper's autograd Function (the
-    CPU path) equal to ``wkv6_bwd_ref`` bit for bit."""
-    ops, dy, ds = _wkv6_inputs(s, decay, nonzero)
+    autograd through ``wkv6_ref``; for the plain algorithm the wrapper's
+    autograd Function (the CPU path) equal to ``wkv6_bwd_ref`` bit for
+    bit, for the kernel's decomposition ``wkv6_bwd_sliced_ref`` within
+    1e-5 of it."""
+    ops, dy, ds = _wkv6_inputs(s, decay, nonzero, dh=dh)
     _, vjp = jax.vjp(jrwkv6._wkv_scan, *map(jnp.asarray, ops))
     want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
     t = [torch.tensor(a) for a in ops]
-    got = wkv6_bwd_ref(*t, torch.tensor(dy), torch.tensor(ds))
+    bwd = wkv6_bwd_ref if algo == "token" else wkv6_bwd_sliced_ref
+    got = bwd(*t, torch.tensor(dy), torch.tensor(ds))
     for g, w in zip(got, want):
         _rel_close(g.numpy(), w, 1e-5)
     ts = [a.clone().requires_grad_() for a in t]
@@ -126,6 +146,11 @@ def test_wkv6_bwd_matches_jax_vjp(s, decay, nonzero):
                                + (st * torch.tensor(ds)).sum(), ts)
     for g, w in zip(got, auto):
         _rel_close(g.numpy(), w.numpy(), 1e-5)
+    if algo == "sliced":
+        plain = wkv6_bwd_ref(*t, torch.tensor(dy), torch.tensor(ds))
+        for g, w in zip(got, plain):
+            _rel_close(g.numpy(), w.numpy(), 1e-5)
+        return
     ts = [a.clone().requires_grad_() for a in t]
     y, st = wkv6(*ts)
     fn = torch.autograd.grad((y * torch.tensor(dy)).sum()
@@ -160,16 +185,28 @@ def _jax_body(delta, x, z, bm, cm, a_log, d_skip, h0):
 SCAN_REL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-@pytest.mark.parametrize("h0", [False, True], ids=["zero", "h0"])
-@pytest.mark.parametrize("n", [8, 16])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_selective_scan_bwd_matches_jax_vjp(dtype, n, h0):
+# (dtype, n, h0, algorithm, steps, channels): the backward's plain
+# algorithm (``selective_scan_bwd_ref``) over 37 steps of 24 channels; the
+# backward kernel's decomposition (``selective_scan_bwd_windowed_ref``:
+# da kept a chunk, states recomputed 8 steps at a time, dB and dC summed
+# by blocks and clusters of channels) over 40 steps (no chunk length
+# divides it) of 300 channels (a partial cluster), from a nonzero h0
+_SCAN_CASES = (
+    [pytest.param(dtype, n, h0, "step", 37, 24, id=f"{dtype}-{n}-{'h0' if h0 else 'zero'}")
+     for dtype in ("float32", "bfloat16") for n in (8, 16) for h0 in (False, True)]
+    + [pytest.param(dtype, n, True, "windowed", 40, 300, id=f"windowed-{dtype}-{n}-h0")
+       for dtype in ("float32", "bfloat16") for n in (8, 16)])
+
+
+@pytest.mark.parametrize("dtype, n, h0, algo, s, di", _SCAN_CASES)
+def test_selective_scan_bwd_matches_jax_vjp(dtype, n, h0, algo, s, di):
     """(ddelta, dx, dz, dB, dC, da_log, dD, dh0) within ``SCAN_REL`` of
-    each leaf's largest entry of ``jax.vjp`` of the reference's body (37
-    steps: the checkpoints of every chunk length, 16, 24 and 32, cut it
-    unevenly); the Function (the wrapper's CPU path) equal to the plain
-    backward bit for bit."""
-    arrays, dout = _scan_inputs(np.random.default_rng(n), 2, 37, 24, n,
+    each leaf's largest entry of ``jax.vjp`` of the reference's body (the
+    checkpoints of every chunk length, 16, 24 and 32, cut the steps
+    unevenly); for the plain algorithm the Function (the wrapper's CPU
+    path) equal to the plain backward bit for bit, for the kernel's
+    decomposition within ``SCAN_REL`` of it."""
+    arrays, dout = _scan_inputs(np.random.default_rng(n), 2, s, di, n,
                                 dtype, h0)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     jops = [jnp.asarray(a, jdt if i in (1, 2, 3, 4) else jnp.float32)
@@ -178,11 +215,18 @@ def test_selective_scan_bwd_matches_jax_vjp(dtype, n, h0):
     want = vjp(jnp.asarray(dout, jdt))
     ops = _torch(arrays, dtype)
     d = torch.tensor(dout).to(ops[1].dtype)
-    got = selective_scan_bwd_ref(*ops, d)
+    if algo == "windowed":
+        got = selective_scan_bwd_windowed_ref(*ops, d, block=128 // (n // 4))
+    else:
+        got = selective_scan_bwd_ref(*ops, d)
     for g, w in zip(got, want):
         _rel_close(g.float().numpy(), np.asarray(w, np.float32), SCAN_REL[dtype])
     for g, o in zip(got[1:5], ops[1:5]):
         assert g.dtype == o.dtype
+    if algo == "windowed":
+        for g, w in zip(got, selective_scan_bwd_ref(*ops, d)):
+            _rel_close(g.float().numpy(), w.float().numpy(), SCAN_REL[dtype])
+        return
     ts = [t.clone().requires_grad_() for t in ops]
     fn = torch.autograd.grad((selective_scan(*ts).float() * d.float()).sum(), ts)
     assert all(torch.equal(a, b) for a, b in zip(fn, got))

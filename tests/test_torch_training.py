@@ -44,6 +44,7 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import train as launch_train
 from repro_torch.models.model import build_model
 from repro_torch.training import compression
+from repro_torch.training import optimizer
 from repro_torch.training.optimizer import AdamW, leaves, make_optimizer
 from repro_torch.training.step import make_train_step, value_and_grad
 from repro_torch.weights import from_jax_params, from_jax_state
@@ -168,23 +169,38 @@ def test_schedule_matches_jax():
         assert t.schedule(step) == pytest.approx(want, rel=2 ** -22)
 
 
-@pytest.mark.parametrize("clip", [1.0, 0.0], ids=["clip", "noclip"])
-def test_adamw_update_matches_jax(jparams, clip):
+@pytest.mark.parametrize("clip, sliced", [pytest.param(1.0, False, id="clip"),
+                                           pytest.param(0.0, False, id="noclip"),
+                                           pytest.param(1.0, True, id="clip-sliced")])
+def test_adamw_update_matches_jax(jparams, clip, sliced, monkeypatch):
     """Three float32 AdamW steps on the model's tree (matrices decayed, the
     rest not), gradients scaled so clipping acts: parameters within 1e-6
     relative, moments within 1e-6 of their largest entry, grad_norm within
-    1e-6 (float32 sums in another order)."""
+    1e-6 (float32 sums in another order).  ``sliced``: every leaf of more
+    than 1,000 elements updated 1,000 at a time (``UPDATE_SLICE``, which
+    keeps a CUDA graph's temporaries small: ROADMAP C11), the parameters
+    and moments equal the whole leaves' update's bit for bit."""
     kw = dict(lr=1e-2, warmup_steps=2, total_steps=20, grad_clip=clip)
     jopt, opt = JAdamW(**kw), AdamW(**kw)
     jp, p = jparams, from_jax_params(_np(jparams))
     js, s = jopt.init(jp), opt.init(p)
+    whole = (from_jax_params(_np(jparams)), opt.init(p))
     jupdate = jax.jit(jopt.update)
     for step in range(3):
         g = _grads_like(jp, step, scale=1.0)
         jp, js, jmet = jupdate(jax.tree.map(jnp.asarray, g), js, jp, jnp.int32(step))
+        if sliced:
+            whole = opt.update(from_jax_params(g), whole[1], whole[0],
+                               opt.scalars(step, "cpu"))[:2]
+            monkeypatch.setattr(optimizer, "UPDATE_SLICE", 1000)
         p, s, met = opt.update(from_jax_params(g), s, p, opt.scalars(step, "cpu"))
+        monkeypatch.undo()
         assert float(met["grad_norm"]) == pytest.approx(float(jmet["grad_norm"]), rel=1e-6)
         assert float(met["lr"]) == pytest.approx(float(jmet["lr"]), rel=2 ** -22)
+    if sliced:
+        assert max(t.numel() for t in leaves(p)) > 1000
+        assert all(torch.equal(a, b) for a, b in zip(
+            leaves({"p": whole[0], "s": whole[1]}), leaves({"p": p, "s": s})))
     for a, b in zip(jax.tree.leaves(jp), leaves(p)):
         a = np.asarray(a)
         assert np.abs(b.numpy() - a).max() <= 1e-6 * max(1.0, np.abs(a).max())
