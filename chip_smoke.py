@@ -12,7 +12,9 @@ and depth, three other dense configs and InternVL2's language model,
 RWKV-6 1.6B whole through the recurrent path, Qwen3-MoE and Arctic at
 full width, cut in depth, through the expert-batched mmt4d, and
 jamba-v0.1-52B at full width, cut in whole periods, through the
-selective_scan kernel:
+selective_scan kernel; trains them; and runs the distributed path on a
+mesh of one card (the dry-run of every cell, an Engine on a one-rank
+NCCL mesh, moe's per-shard dispatch):
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds;
@@ -263,7 +265,29 @@ selective_scan kernel:
      reckoning); replay = eager bit for bit for
      both; the training launcher's --profile on RWKV-6 cut to 2 layers
      (the trace's launches held to the wrappers' counts);
- 20. the kernels JSON line (launches from the main path of each kernel: the
+ 20. the mesh, the sharding rules, the dry-run and moe's per-shard
+     dispatch (ROADMAP A10): the dry-run (launch/dryrun.py) of all 32
+     runnable cells on the pod and multipod meshes and SmolLM2-135M's
+     serving cell, priced from the card's h100 descriptor (one line a
+     cell, labelled a prediction), the card's allocated bytes unmoved;
+     the dry-run's bytes per device of phase 19's two train states
+     (RWKV-6 1.6B whole, Qwen3-MoE at its training depth) on a one-rank
+     mesh against what the caching allocator held right after building
+     them: the requested bytes exactly, and each leaf's block its bytes
+     rounded up to 512 (plus any remainder the allocator left unsplit,
+     from its snapshot), with the reckoned step peak beside the eager and
+     the compiled step's measured peaks; a one-rank NCCL group
+     (HashStore) and make_elastic_mesh's (1, 1) mesh: SmolLM2-135M's f32
+     flat drain through Engine(mesh=) equal to the drain without a mesh
+     bit for bit (tokens, every call's logits, captures); Qwen3-MoE's moe
+     layer at full width in f32 with moe_local_dispatch over 4 data
+     shards (an AbstractMesh: the global view), one forward of 4 x 256
+     tokens card = CPU (routing under the top-k margin rule, routed and
+     kept assignments exactly, y within F32_MARGIN; the CPU's forward on
+     the CPU's thread beside the phase's card work), and the expert gate
+     product at its blocked shape [128, 4 C, 4096] held to its plain
+     version beside the unblocked case;
+ 21. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
      the gradient kernels, the RWKV-6 1.6B drain for wkv6, jamba's first
      drain for selective_scan, RWKV-6 1.6B's 20 training steps for
@@ -282,7 +306,8 @@ process, handed a host copy of the weights (at most CPU_HOST_LIMIT bytes
 of them at once).  Each comparison is made, and printed, at the first
 phase boundary after its CPU run ended (phase 18 makes the rest), and
 fails the run as before; the family training phase runs its own CPU
-steps after every CPU run has ended.  The phases whose CPU runs take
+steps after every CPU run has ended, and the mesh phase puts its one CPU
+forward on the thread again.  The phases whose CPU runs take
 longest come first, so that the later card-only phases cover them.
 
 Usage:  python3 chip_smoke.py [--out results.json]
@@ -3104,21 +3129,66 @@ def train_launches_per_step(layers: int, remat: bool) -> dict:
     return out
 
 
+def state_held(state, allocated0: int, requested0: int) -> dict:
+    """What the caching allocator holds for a train state just built:
+    the allocated and requested bytes since (``allocated0``, ``requested0``)
+    and, from the allocator's snapshot, each leaf's block (its size and
+    the bytes requested of it).  A block is the request rounded up to 512
+    bytes, unless the allocator left a remainder of at most 1 MiB of a
+    large segment unsplit, which the block keeps (``unsplit``)."""
+    from repro_torch.training.optimizer import leaves
+    torch.cuda.synchronize()
+    ts = leaves({"p": state.params, "o": state.opt_state})
+    ptrs = {t.untyped_storage().data_ptr() for t in ts}
+    blocks = []
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated" and addr in ptrs:
+                blocks.append((b["size"], b["requested_size"]))
+            addr += b["size"]
+    rounded = sum(-(-req // 512) * 512 for _, req in blocks)
+    return {"allocated": torch.cuda.memory_allocated() - allocated0,
+            "requested": requested_bytes() - requested0, "leaves": len(ts),
+            "storages": len(ptrs), "blocks_found": len(blocks),
+            "block_bytes": sum(size for size, _ in blocks), "rounded_512": rounded,
+            "unsplit": sum(size for size, _ in blocks) - rounded}
+
+
+def requested_bytes() -> int:
+    """The caching allocator's requested bytes now (unrounded)."""
+    return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+
 def train_run(model, run, steps, label, ckpt_dir=None, fail_at=None,
-              total_steps=None, ckpt_every=50, want=None, gen=None) -> dict:
+              total_steps=None, ckpt_every=50, want=None, gen=None,
+              measure_state=False) -> dict:
     """``Trainer.fit`` on SyntheticLM with the wrapper counts set to 0 just
     before and read just after (checked per step against ``want``, by
     default the dense model's :func:`train_launches_per_step`), each step
     timed by the trainer (to its loss read, which waits for the step); the
     first step runs eagerly and captures the step's graph, every later one
     replays it (exactly one capture, checked); peak device memory from a
-    reset.  ``gen``: the init's generator (default a CPU one, seed 0)."""
+    reset.  ``gen``: the init's generator (default a CPU one, seed 0).
+    ``measure_state``: what the allocator holds for the state right after
+    the trainer builds it (:func:`state_held`), under ``"held"``."""
     from repro_torch import kernels
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.training.trainer import Trainer
     data = SyntheticLM(model.cfg, model.shape, seed=0)
     tr = Trainer(model, data, run, ckpt_dir=ckpt_dir, total_steps=total_steps or steps,
                  ckpt_every=ckpt_every, keep=1, log_fn=lambda m: print("   ", m))
+    held = {}
+    if measure_state:
+        init = tr.init_state
+
+        def measured(generator):
+            torch.cuda.synchronize()
+            a0, r0 = torch.cuda.memory_allocated(), requested_bytes()
+            state = init(generator)
+            held.update(state_held(state, a0, r0))
+            return state
+        tr.init_state = measured
     times = tr.step_ms
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3158,7 +3228,7 @@ def train_run(model, run, steps, label, ckpt_dir=None, fail_at=None,
             "step_ms": list(times), "first_step_ms": times[0], "capture_s": capture_s,
             "tokens_per_s": tokens / ms * 1e3, "peak_gib": peak,
             "peak_reserved_gib": peak_reserved, "launches": launches,
-            "counters": counters}
+            "counters": counters, **({"held": held} if measure_state else {})}
 
 
 def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -3805,17 +3875,45 @@ def moe_per_call(cfg) -> tuple:
             n * (6 + dense) + 1, 3 * n)
 
 
+def dry_bytes(tree) -> int:
+    """The dry-run's bytes per device of a parameter tree on a one-rank
+    mesh (every leaf whole), from the tree's meta tensors."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import AbstractMesh
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    return sharding.device_bytes(tree, sharding.param_specs(tree, RunConfig(), mesh), mesh)
+
+
+def meta_params(cfg, layers: int) -> dict:
+    """``cfg``'s bf16 parameter tree cut to ``layers`` layers, on the meta
+    device (the dry-run's: nothing allocated)."""
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.core.hardware import query
+    from repro_torch.launch.dryrun import MetaGenerator
+    from repro_torch.models.model import build_model
+    model = build_model(dataclasses.replace(cfg, n_layers=layers), RunConfig(),
+                        ShapeSpec("meta", 1024, 4, "decode"),
+                        hw=query("cuda", "h100"), device="meta")
+    return model.init(MetaGenerator())
+
+
+def expert_leaf_bytes(groups: dict) -> int:
+    """The largest expert leaf ([G, E, K, N]) of a stacked layer tree, a
+    group's share of it."""
+    from repro_torch.distributed import sharding
+    return max(dry_bytes({"w": t}) // t.shape[0]
+               for path, t in sharding.tree_paths(groups).items()
+               if path.endswith(("wu/w", "wg/w", "wd/w")) and t.ndim == 4)
+
+
 def moe_bytes(cfg) -> tuple:
-    """(bytes of one layer's weights in bf16, of the embedding and head,
-    of one layer's largest expert leaf) from the config: experts, router
-    (float32), attention, arctic's dense branch."""
-    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
-    glu = 3 if cfg.glu else 2
-    attn = 2 * (d * cfg.n_heads * cfg.d_head * 2 + 2 * d * cfg.n_kv_heads * cfg.d_head)
-    dense = 2 * glu * d * cfg.d_ff if cfg.dense_residual else 0
-    layer = 2 * glu * e * d * f + 4 * d * e + attn + dense
-    fixed = 2 * cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    return layer, fixed, 2 * e * d * f
+    """(bytes of one layer's weights in bf16, of the embedding, head and
+    final norm, of one layer's largest expert leaf), the dry-run's bytes
+    of the config's meta tree at one layer."""
+    p = meta_params(cfg, 1)
+    layer = dry_bytes(p["groups"])
+    return layer, dry_bytes(p) - layer, expert_leaf_bytes(p["groups"])
 
 
 def moe_depth(cfg, total: int) -> tuple:
@@ -4181,22 +4279,12 @@ def jamba_per_call(cfg) -> tuple:
 def jamba_bytes(cfg) -> tuple:
     """(bytes of one period's weights in bf16, of the embedding, untied
     head and final norm, of one moe layer's expert leaf, of the largest
-    block: a mamba mixer with a moe FFN) from the config.  The router,
-    dt_proj's bias, a_log and d_skip are float32."""
-    d, e, f, p = cfg.d_model, cfg.n_experts, cfg.d_ff_expert, len(cfg.block_pattern)
-    di, n, dt_rank = cfg.mamba_expand * d, cfg.mamba_d_state, -(-d // 16)
-    mamba = (2 * (2 * d * di + di * (dt_rank + 2 * n) + dt_rank * di
-                  + (cfg.mamba_d_conv + 1) * di + di * d)
-             + 4 * (di + di * n + di))
-    attn = 2 * (2 * d * cfg.n_heads * cfg.d_head + 2 * d * cfg.n_kv_heads * cfg.d_head)
-    moe_ffn = 2 * 3 * e * d * f + 4 * d * e
-    mlp = 2 * 3 * d * cfg.d_ff
-    norms = 2 * 2 * d
-    period = sum((attn if t == "attn" else mamba) + norms
-                 + (moe_ffn if cfg.moe_on_layer(i) else mlp)
-                 for i, t in enumerate(cfg.block_pattern))
-    fixed = 2 * 2 * cfg.vocab * d + 2 * d
-    return period, fixed, 2 * e * d * f, mamba + norms + moe_ffn
+    block: a mamba mixer with a moe FFN), the dry-run's bytes of the
+    config's meta tree at one period."""
+    p = meta_params(cfg, len(cfg.block_pattern))
+    period = dry_bytes(p["groups"])
+    block = max(dry_bytes(b) for b in p["groups"].values())
+    return period, dry_bytes(p) - period, expert_leaf_bytes(p["groups"]), block
 
 
 def jamba_depth(cfg, total: int) -> tuple:
@@ -4684,6 +4772,10 @@ def train_replay_check(model, run, steps, label) -> dict:
     data = SyntheticLM(model.cfg, model.shape, seed=0)
     tr = Trainer(model, data, run, total_steps=20, log_fn=lambda m: print("   ", m))
     step = tr.step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
     eager_m, ms = [], {"eager": [], "graph": []}
     for i in range(steps):
@@ -4699,10 +4791,13 @@ def train_replay_check(model, run, steps, label) -> dict:
         eager_m.append({k: em[k].clone() for k in ("loss", "grad_norm")})
         torch.cuda.synchronize()
         ms["eager"].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    peaks = {"eager": torch.cuda.max_memory_allocated() - base}
     host = [t.cpu() for t in leaves({"p": state.params, "o": state.opt_state})]
     del state, em
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
     for i in range(steps):
         t0 = time.perf_counter()
@@ -4713,6 +4808,9 @@ def train_replay_check(model, run, steps, label) -> dict:
             if not bits_equal(eager_m[i][k], gm[k]):
                 raise AssertionError(f"replay {label} step {i}: {k} eager "
                                      f"{eager_m[i][k].item()} graph {gm[k].item()}")
+    torch.cuda.synchronize()
+    # the first compiled call runs eagerly and captures: the capture's peak
+    peaks["capture"] = torch.cuda.max_memory_allocated() - base
     got = leaves({"p": state.params, "o": state.opt_state})
     kinds = sorted(state.opt_state)
     differ = sum(not bits_equal(x.cpu(), y) for x, y in zip(got, host, strict=True))
@@ -4725,12 +4823,16 @@ def train_replay_check(model, run, steps, label) -> dict:
           f"card, the eager run's kept on the host); 1 capture "
           f"({step.capture_seconds:.3f} s); "
           f"the first eager step made no host sync; ms per step eager "
-          f"{med['eager']:.1f}, replay {med['graph']:.1f} (medians after the first)")
+          f"{med['eager']:.1f}, replay {med['graph']:.1f} (medians after the first); "
+          f"peak above the {base / 2**30:.2f} GiB held before: eager "
+          f"{peaks['eager'] / 2**30:.2f} GiB, compiled (its eager first call and "
+          f"capture, then replays) {peaks['capture'] / 2**30:.2f} GiB")
     del state, host
     gc.collect()
     torch.cuda.empty_cache()
     return {"steps": steps, "leaves": len(got), "capture_s": step.capture_seconds,
-            "eager_ms": ms["eager"], "graph_ms": ms["graph"], "equal": True}
+            "eager_ms": ms["eager"], "graph_ms": ms["graph"], "equal": True,
+            "peak_bytes": peaks, "cfg": model.cfg, "run": run}
 
 
 def family_bf16_train(arch, layers, steps, run, card) -> dict:
@@ -4757,11 +4859,13 @@ def family_bf16_train(arch, layers, steps, run, card) -> dict:
     try:
         r = train_run(model, run, steps, f"{arch} bf16 ({layers} layers)",
                       total_steps=steps, want=per,
-                      gen=torch.Generator(device="cuda").manual_seed(0))
+                      gen=torch.Generator(device="cuda").manual_seed(0),
+                      measure_state=True)
     finally:
         if counter is not None:
             counter.uninstall()
     r.pop("state")
+    r["cfg"], r["run"] = cfg, run          # what the mesh phase reckons
     h = r["history"]
     ok = bool(np.all(np.isfinite(h)))
     if steps >= 10:
@@ -4850,6 +4954,8 @@ def family_training_phase(card, checks) -> tuple:
     depth, rows = moe_train_depth(mcfg, total)
     if depth < 1:
         raise AssertionError(f"{MOE_TRAIN}: not one layer fits the card in training")
+    print(f"  {MOE_TRAIN} training depth from the dry-run's bytes: {depth} ("
+          + ", ".join(f"{n} layers {p / 1e9:.4f} GB" for n, p in rows) + ")")
     shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     print(f"training, replay = eager bit for bit: {FAMILY_REPLAY_STEPS} steps each "
           f"through the compiled step's eager fn and through its graph, from one "
@@ -4892,6 +4998,242 @@ def family_training_phase(card, checks) -> tuple:
         raise AssertionError(f"launcher: loss not finite: {hist}")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  the family training phase took {out['seconds']:.1f} s ({card})")
+    return out, by_path
+
+
+MESH_DP = 4                 # the blocked moe check's data shards (global view)
+MESH_MOE_SEQ = 256          # tokens a row: MESH_DP rows of one block each
+
+
+def blocked_moe(model, ffn, x) -> tuple:
+    """One forward of the moe layer ``ffn`` over ``x`` [B, S, d] under the
+    model's context: (y on the host, [routed, kept] assignments, the
+    routing recorded on this thread, the kernels' launches)."""
+    from repro_torch import kernels
+    from repro_torch.models import moe
+    counter = moe.DropCounter(x.device.type).install()
+    seen, undo = route_recorder()
+    before = kernels.launch_counts()
+    try:
+        with torch.no_grad():
+            y, _ = moe.moe_apply(ffn, x, model.ctx, model.cfg)
+    finally:
+        undo()
+        counter.uninstall()
+    after = kernels.launch_counts()
+    return (y.cpu(), counter.counts.tolist(), seen,
+            {k: after[k] - before[k] for k in after})
+
+
+def blocked_moe_cpu(cfg, run, x, params) -> tuple:
+    """The CPU's half of the blocked moe check, on the CPU's thread: the
+    same layer in the global view of MESH_DP data shards."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, run, ShapeSpec("mesh", MESH_MOE_SEQ, MESH_DP, "decode"),
+                        hw=descriptor("cpu", "h100"), device="cpu",
+                        mesh=AbstractMesh((MESH_DP, 1), ("data", "model")))
+    return blocked_moe(model, params, x)
+
+
+def mesh_drain(cfg, params, prompts, mesh) -> dict:
+    """SmolLM2's f32 flat drain on the card through ``Engine(mesh=mesh)``
+    (and ``ReproModel(mesh=mesh)``), or without a mesh: tokens, every model
+    call's logits, the graphs captured at warmup and after, the launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    run = RunConfig(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg, run, ShapeSpec("serve", 1024, 4, "decode"),
+                        device="cuda", mesh=mesh)
+    eng = Engine(model, params, device="cuda", max_slots=4, page_tokens=16,
+                 chunk_tokens=128, mesh=mesh)
+    eng.warmup()
+    captures = dict(eng.stats()["captures"])
+    calls = count_model_calls(eng)
+    rids = [eng.add_request(p, 16) for p in prompts]
+    kernels.reset_launch_counts()
+    fin = {r.rid: r.out_tokens for r in eng.drain()}
+    launches = kernels.launch_counts()
+    out = {"tokens": [fin[r] for r in rids], "logits": calls,
+           "captures": captures, "captures_after": dict(eng.stats()["captures"]),
+           "launches": launches, "cache_specs": eng.cache_specs}
+    del eng, model
+    return out
+
+
+def mesh_phase(card, checks, fam_train) -> tuple:
+    """ROADMAP A10 on the card: (1) the dry-run of every runnable cell on
+    both production meshes and SmolLM2's serving cell, priced from the
+    card's h100 descriptor, allocating nothing on the card; (2) the
+    dry-run's bytes per device of the family training phase's two train
+    states on a one-rank mesh against what the caching allocator held
+    right after building them (the requested bytes exactly; each leaf's
+    block: its bytes rounded up to 512, plus any remainder of at most 1
+    MiB of a large segment the allocator left unsplit, read from its
+    snapshot), and the reckoned step peak beside the eager and the
+    compiled step's; (3) a one-rank NCCL process group and
+    make_elastic_mesh's (1, 1) mesh: SmolLM2-135M's f32 flat drain through
+    Engine(mesh=) equal to the drain without a mesh bit for bit (tokens,
+    every call's logits, captures); (4) Qwen3-MoE's moe layer at full
+    width in f32 with the per-shard dispatch over MESH_DP data shards (an
+    AbstractMesh: the global view), one forward of MESH_DP x MESH_MOE_SEQ
+    tokens, card = CPU (routing under the top-k margin rule, the routed
+    and kept assignments exactly, y within F32_MARGIN of max(1, max |y|);
+    the CPU's run on the CPU's thread), and the expert gate product at
+    its blocked shape in KernelChecks."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, RunConfig, ShapeSpec, cells, get_config
+    from repro_torch.core.hardware import query
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ABSTRACT_MESHES, AbstractMesh, make_elastic_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    out, by_path = {}, {}
+    hw = query("cuda", "h100")
+
+    # (4) first: the CPU's forward runs on its thread beside (1)-(3)
+    cfg = dataclasses.replace(get_config(MOE_TRAIN), n_layers=1)
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    moe_local_dispatch=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ffn = moe.moe_init(gen, cfg, torch.float32)
+    x = torch.randn((MESH_DP, MESH_MOE_SEQ, cfg.d_model), generator=gen, device="cuda")
+    cpu = to_cpu_thread(blocked_moe_cpu, cfg, run, x.cpu(), params=ffn)
+
+    print(f"  (1) the dry-run: {sum(ok for *_, ok, _ in cells())} runnable cells x "
+          f"{list(ABSTRACT_MESHES)}, predicted from {hw.device_name}'s published "
+          f"peaks (the h100 descriptor: bf16 {hw.flops_bf16 / 1e12:.0f} TFLOP/s, "
+          f"HBM {hw.hbm_bw / 1e12:.2f} TB/s, link {hw.ici_bw / 1e9:.0f} GB/s); not "
+          f"measurements ({card})")
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    recs = [dryrun.run_cell(a, sh, m, RunConfig(microbatch=8), verbose=True, hw=hw)
+            for a, sh, ok, _ in cells() if ok for m in ABSTRACT_MESHES]
+    serving = dryrun.serving_cell("smollm2-135m", RunConfig(), hw=hw)
+    torch.cuda.synchronize()
+    moved = torch.cuda.memory_allocated() - allocated0
+    out["dryrun"] = {"cells": len(recs), "seconds": time.perf_counter() - t0,
+                     "allocated_moved": moved,
+                     "records": [{k: r[k] for k in (
+                         "arch", "shape", "mesh", "chips", "compute_s", "memory_s",
+                         "collective_s", "bottleneck", "roofline_fraction",
+                         "memory_per_device")} for r in recs],
+                     "serving": {k: serving[k] for k in (
+                         "num_pages", "page_tokens", "kv_bytes_per_token",
+                         "block_table_gather_bytes", "cost_model")}}
+    print(f"  dry-run: {len(recs)} cells and the serving cell priced in "
+          f"{out['dryrun']['seconds']:.1f} s; the card's allocated bytes moved by "
+          f"{moved} ({card})")
+    if len(recs) != 64 or any(r["status"] != "ok" for r in recs) or moved:
+        raise AssertionError(f"dry-run: {len(recs)} cells, allocated moved {moved}")
+
+    print(f"  (2) bytes reckoned against bytes held: the family training phase's "
+          f"states on a one-rank mesh ({card})")
+    one = AbstractMesh((1, 1), ("data", "model"))
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    out["bytes"] = {}
+    for key, replay_key in (("rwkv6 bf16", f"{RWKV_TRAIN} bf16"),
+                            ("qwen3-moe bf16", next(k for k in fam_train["replay"]
+                                                    if k.startswith(MOE_TRAIN)))):
+        r, rep = fam_train[key], fam_train["replay"][replay_key]
+        held = r["held"]
+        cell = dryrun.build_cell(r["cfg"], shape, r["run"], one, hw)
+        state, specs = cell.trees["state"], cell.specs["state"]
+        exact = sharding.device_bytes(state, specs, one)
+        rounded = sharding.device_bytes(state, specs, one, block=512)
+        peak = dryrun.cell_counts(cell)["memory"]["peak_bytes"]
+        row = {"reckoned": exact, "reckoned_512": rounded, "held": held,
+               "reckoned_peak": peak, "eager_peak": rep["peak_bytes"]["eager"],
+               "compiled_peak": rep["peak_bytes"]["capture"],
+               "train_run_peak": r["peak_gib"] * 2**30}
+        out["bytes"][key] = row
+        print(f"    {key} ({r['cfg'].n_layers} layers): state reckoned {exact} B "
+              f"(rounded to 512 a leaf: {rounded}); held: requested {held['requested']}, "
+              f"allocated {held['allocated']} = {held['rounded_512']} in "
+              f"{held['blocks_found']} leaf blocks of 512-byte multiples + "
+              f"{held['unsplit']} left unsplit by the allocator; step peak reckoned "
+              f"{peak / 2**30:.2f} GiB, measured eager {row['eager_peak'] / 2**30:.2f} "
+              f"GiB, compiled {row['compiled_peak'] / 2**30:.2f} GiB (the 20-step run's "
+              f"{r['peak_gib']:.2f} GiB absolute)")
+        if not (exact == held["requested"] and rounded == held["rounded_512"]
+                and held["allocated"] == held["block_bytes"]
+                and held["blocks_found"] == held["storages"] == held["leaves"]):
+            raise AssertionError(f"{key}: reckoned {exact} / {rounded} against held "
+                                 f"{held}")
+
+    print(f"  (3) a one-rank NCCL group, make_elastic_mesh(): SmolLM2-135M f32 "
+          f"flat drain through Engine(mesh=) against the drain without ({card})")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_elastic_mesh()
+        smol = get_config("smollm2-135m")
+        params = build_model(smol, RunConfig(param_dtype="float32",
+                                              compute_dtype="float32"),
+                             ShapeSpec("serve", 1024, 4, "decode"),
+                             device="cuda").init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, smol.vocab, int(n)) for n in rng.integers(20, 300, 4)]
+        plain = mesh_drain(smol, params, prompts, None)
+        meshed = mesh_drain(smol, params, prompts, mesh)
+    finally:
+        dist.destroy_process_group()
+    same = (plain["tokens"] == meshed["tokens"]
+            and len(plain["logits"]) == len(meshed["logits"])
+            and all(np.array_equal(a, b) for a, b in zip(plain["logits"], meshed["logits"]))
+            and plain["captures"] == meshed["captures"]
+            and plain["captures_after"] == meshed["captures_after"] == meshed["captures"])
+    print(f"    mesh {tuple(mesh.mesh.shape)} over {mesh.mesh_dim_names}: tokens, "
+          f"{len(meshed['logits'])} model calls' logits and captures "
+          f"{meshed['captures']} equal bit for bit: {same}; launches "
+          f"{meshed['launches']}")
+    if not same:
+        raise AssertionError("Engine(mesh=) on a one-rank mesh differs from no mesh")
+    by_path["mesh drain f32"] = meshed["launches"]
+    out["drain"] = {"equal": same, "calls": len(meshed["logits"]),
+                    "captures": meshed["captures"], "tokens": meshed["tokens"]}
+    del params, plain, meshed
+    gc.collect()
+
+    print(f"  (4) blocked moe: {MOE_TRAIN} at full width, 1 layer, f32, "
+          f"moe_local_dispatch over {MESH_DP} data shards (AbstractMesh, the global "
+          f"view), {MESH_DP} x {MESH_MOE_SEQ} tokens, card = CPU ({card})")
+    model = build_model(cfg, run, ShapeSpec("mesh", MESH_MOE_SEQ, MESH_DP, "decode"),
+                        device="cuda", mesh=AbstractMesh((MESH_DP, 1), ("data", "model")))
+    blocks = moe.dispatch_blocks(MESH_DP * MESH_MOE_SEQ, model.ctx)
+    c = moe.capacity(MESH_MOE_SEQ, cfg)
+    y, counts, routes, launches = blocked_moe(model, ffn, x)
+    by_path["mesh blocked moe f32"] = launches
+    if blocks != MESH_DP or launches["mmt4d"] != 3:
+        raise AssertionError(f"blocked moe: {blocks} blocks, launches {launches}")
+    checks.experts(BF, cfg.n_experts, MESH_DP * c, cfg.d_model, cfg.d_ff_expert,
+                   "silu", f"experts qwen3-moe gate blocked {MESH_DP} x {c}")
+    del ffn, x, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    CPU_RUNS.settle(block=True)
+    cpu_y, cpu_counts, cpu_routes, _ = cpu.result()[0]
+    diff = float((y - cpu_y).abs().max())
+    scale = max(1.0, float(cpu_y.abs().max()))
+    routing = routing_check(f"blocked moe ({blocks} blocks of C = {c})", cfg.top_k,
+                            routes, cpu_routes)
+    print(f"    {blocks} blocks, capacity {c} a block (rows [E, {blocks * c}, d]); "
+          f"routed, kept: card {counts}, CPU {cpu_counts}; max |y diff| {diff:.3e} "
+          f"(limit {F32_MARGIN:g} x {scale:.3f})")
+    if counts != cpu_counts or not diff <= F32_MARGIN * scale:
+        raise AssertionError(f"blocked moe card != CPU: counts {counts} vs "
+                             f"{cpu_counts}, y diff {diff:.3e}")
+    out["blocked_moe"] = {"blocks": blocks, "capacity": c, "counts": counts,
+                          "y_diff": diff, **routing}
+    out["cpu_runs"] = CPU_RUNS.finish()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  the mesh phase took {out['seconds']:.1f} s ({card})")
     return out, by_path
 
 
@@ -5156,6 +5498,13 @@ def smoke(args) -> int:
           f"full width cut in depth in bf16 through the compiled step ({card})")
     fam_train, fam_paths = family_training_phase(card, checks)
     by_path.update(fam_paths)
+    elapsed()
+    print(f"the mesh, the sharding rules, the dry-run and moe's per-shard dispatch "
+          f"(ROADMAP A10): the dry-run on the card's descriptor, its bytes against "
+          f"the training states held, a one-rank NCCL mesh's drain, and the blocked "
+          f"moe layer card = CPU ({card})")
+    mesh_res, mesh_paths = mesh_phase(card, checks, fam_train)
+    by_path.update(mesh_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
@@ -5231,7 +5580,8 @@ def smoke(args) -> int:
                        "scaled_checks": {n: c.cases for n, c in scaled_checks.items()},
                        "training": training, "dense": dense,
                        "recurrent": recurrent, "moe": moe_res, "jamba": jamba,
-                       "family_training": fam_train, "cpu_runs": cpu_runs,
+                       "family_training": fam_train, "mesh": mesh_res,
+                       "cpu_runs": cpu_runs,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     elapsed()

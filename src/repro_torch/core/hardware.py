@@ -145,16 +145,20 @@ def _gpu_spec(device: torch.device) -> HardwareSpec:
                         device_name=props.name)
 
 
-def require_device(device) -> torch.device:
+def require_device(device, meta: bool = False) -> torch.device:
     """The device an entry point runs on.  ``cuda`` (the default of every
     entry point) raises when no card is visible: the port never falls back
-    to the CPU unless the caller asks for it with ``device="cpu"``."""
+    to the CPU unless the caller asks for it with ``device="cpu"``.
+    ``meta`` also admits the meta device, where a model or an engine holds
+    shapes and dtypes only (the dry-run's trees): any step or kernel call
+    on it raises (each wrapper takes its plain version for a CPU tensor
+    only)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
                            "False; pass device='cpu' to run the plain "
                            "PyTorch versions on the CPU")
-    if device.type not in ("cuda", "cpu"):
+    if device.type not in ("cuda", "cpu") and not (meta and device.type == "meta"):
         raise ValueError(f"unsupported device {device}")
     return device
 

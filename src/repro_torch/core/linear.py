@@ -36,8 +36,18 @@ PLAIN_PRODUCTS = frozenset({"dt_proj", "router"})
 @dataclasses.dataclass(frozen=True)
 class MatmulContext:
     """Layout policy + hardware descriptor threaded through model code.
-    ``mesh_axes``, ``dp_size`` and ``tp_size`` mirror the JAX package's
-    distributed fields and are no-ops in the port until it runs on a mesh."""
+
+    The mesh fields are the JAX package's: ``mesh_axes`` (the mesh's axis
+    names, None without a mesh), ``dp_size`` (pod x data), ``tp_size``
+    ("model") and ``moe_local`` (per-data-shard moe dispatch,
+    ``RunConfig.moe_local_dispatch``); ``dp_local`` says which view the
+    process runs.  False is the global view (no mesh, or an
+    ``AbstractMesh``): one process holds every token of the step and the
+    moe layer blocks them into ``dp_size`` dispatch blocks itself, as the
+    JAX package under GSPMD.  True is a rank of a ``DeviceMesh``: the
+    process holds its own data shard's tokens, which are one block, and
+    ``dp_group`` (a process group over the data ranks, None on one rank)
+    is where the moe layer sums its aux losses' terms."""
 
     policy: LayoutPolicy = LayoutPolicy.SCALABLE
     hw: Optional[HardwareSpec] = None
@@ -46,6 +56,9 @@ class MatmulContext:
     mesh_axes: Optional[tuple] = None
     dp_size: int = 1
     tp_size: int = 1
+    moe_local: bool = False
+    dp_local: bool = False
+    dp_group: Optional[object] = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         # a policy given by name ("unpacked") is the enum member, so that
@@ -61,6 +74,28 @@ class MatmulContext:
     @property
     def packed(self) -> bool:
         return self.policy is not LayoutPolicy.UNPACKED
+
+    @property
+    def tp_axis(self) -> Optional[str]:
+        if self.mesh_axes and "model" in self.mesh_axes:
+            return "model"
+        return None
+
+    @property
+    def dp_axes(self) -> tuple:
+        return tuple(a for a in ("pod", "data") if self.mesh_axes
+                     and a in self.mesh_axes)
+
+    def constrain(self, x, spec_tail: tuple):
+        """The identity.  The JAX package pins the trailing dims of ``x`` to
+        a sharding here (``with_sharding_constraint``) so that GSPMD keeps
+        the tensor-parallel split through its scanned layer bodies; the
+        port computes each rank's tensors eagerly on its own device, so
+        there is no partitioner to steer.  The model code does not call
+        it (nor ``models/common.py:constrain_stream``): the JAX package's
+        13 call sites have no effect to carry over."""
+        del spec_tail
+        return x
 
 
 def linear_init(generator: torch.Generator, d_in: int, d_out: int, *,

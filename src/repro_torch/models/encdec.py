@@ -46,7 +46,8 @@ def encdec_init(generator: torch.Generator, cfg: ModelConfig, run: RunConfig,
     d = cfg.d_model
 
     def pe(n):
-        return (torch.randn((n, d), generator=generator) * 0.01).to(dtype)
+        return (torch.randn((n, d), generator=generator, device=generator.device)
+                * 0.01).to(dtype)
 
     return {
         "embed": embed_init(generator, cfg.vocab, d, dtype),

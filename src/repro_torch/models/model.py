@@ -36,6 +36,7 @@ from repro_torch.core.hardware import HardwareSpec, query, require_device
 from repro_torch.core.layout import LayoutPolicy
 from repro_torch.core.linear import MatmulContext, linear_apply
 from repro_torch.kernels.ragged_attn.ops import RaggedPlan
+from repro_torch.launch.mesh import AbstractMesh, axis_sizes
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed_apply
@@ -57,17 +58,50 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
 class ReproModel:
     """One model configuration on one device.  ``device`` defaults to
     ``cuda`` and raises without a card; ``device="cpu"`` runs the kernels'
-    plain versions."""
+    plain versions; ``device="meta"`` (with ``hw`` given) holds shapes
+    only, for the dry-run: its trees allocate nothing and a step raises.
+
+    ``mesh`` (the JAX package's ``mesh=``): an ``AbstractMesh`` or a
+    ``DeviceMesh`` whose axes set the context's ``mesh_axes``, ``dp_size``
+    and ``tp_size``.  An ``AbstractMesh`` is the global view (this process
+    computes every token: the dry-run, or the moe layer's blocked dispatch
+    on one device); a ``DeviceMesh`` is a rank's local view, data-parallel
+    only: the rank computes its batch shard with whole weights, so a
+    ``"model"`` axis of more than one rank is refused."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,
-                 hw: Optional[HardwareSpec] = None, device="cuda"):
-        self.device = require_device(device)
+                 hw: Optional[HardwareSpec] = None, device="cuda", mesh=None):
+        self.device = require_device(device, meta=True)
+        if self.device.type == "meta" and hw is None:
+            raise ValueError("a meta model needs hw=: the meta device has no "
+                             "descriptor of its own")
         self.cfg = cfg
         self.run = run
         self.shape = shape
+        mesh_axes, dp_size, tp_size, local = None, 1, 1, False
+        if mesh is not None:
+            sizes = axis_sizes(mesh)
+            mesh_axes = tuple(sizes)
+            tp_size = sizes.get("model", 1)
+            dp_size = sizes.get("pod", 1) * sizes.get("data", 1)
+            local = not isinstance(mesh, AbstractMesh)
+            if local and tp_size > 1:
+                raise NotImplementedError(
+                    f"a DeviceMesh with a 'model' axis of {tp_size} ranks: the "
+                    f"port's ranks are data-parallel (each computes its batch "
+                    f"shard with whole weights); tensor-parallel products "
+                    f"across ranks are not implemented")
+            if local and mesh.device_type != self.device.type:
+                raise ValueError(f"the mesh is over {mesh.device_type} devices, "
+                                 f"the model on {self.device}")
         self.ctx = MatmulContext(policy=LayoutPolicy(run.layout_policy),
                                  hw=hw or query(self.device),
-                                 propagate=run.propagate)
+                                 propagate=run.propagate, mesh_axes=mesh_axes,
+                                 dp_size=dp_size, tp_size=tp_size,
+                                 moe_local=run.moe_local_dispatch,
+                                 dp_local=local,
+                                 dp_group=(_data_group(mesh) if local and dp_size > 1
+                                           else None))
         self.compute_dtype = getattr(torch, run.compute_dtype)
 
     @property
@@ -542,6 +576,16 @@ def capture_graph(model: ReproModel, pool, fn: Callable) -> Capture:
     return Capture(eager, graph, out, counts, seconds)
 
 
+def _data_group(mesh):
+    """The process group over a ``DeviceMesh``'s data ranks (its ``pod``
+    and ``data`` dims; its ``model`` dim has one rank)."""
+    dims = [a for a in ("pod", "data") if axis_sizes(mesh).get(a, 1) > 1]
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    return mesh[tuple(dims)]._flatten().get_group()
+
+
 def build_model(cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,
-                hw: Optional[HardwareSpec] = None, device="cuda") -> ReproModel:
-    return ReproModel(cfg, run, shape, hw, device=device)
+                hw: Optional[HardwareSpec] = None, device="cuda",
+                mesh=None) -> ReproModel:
+    return ReproModel(cfg, run, shape, hw, device=device, mesh=mesh)

@@ -31,9 +31,18 @@ What differs from the JAX package, and why:
   both gathers (of the tokens' rows into the dispatch, of the experts'
   rows into the combine) repeat rows, and their backward, an accumulate,
   adds in a fixed order (``models/common.py:gather_rows``);
-- one dispatch block: ``local_dispatch`` and ``constrain_blocks`` only
-  shard the sort over a data-parallel mesh, which the port has not
-  (ROADMAP A10).
+- the per-shard dispatch (``ctx.moe_local``) takes the global view's
+  blocks in one buffer ``[E, blocks * C + 1, D]``: block b's kept
+  assignments fill rows ``b * C ..`` of each expert, every dropped one
+  lands in the last row, which is sliced off, so the expert products read
+  ``[E, blocks * C, D]`` as a view, the JAX package's ``[blocks, E, C,
+  D]`` transposed; the combine reads the same rows back.  Its
+  ``constrain_blocks`` pins the blocks to the data axes for GSPMD and
+  has no counterpart: a rank of a ``DeviceMesh`` (the local view) holds
+  its own block, routes and dispatches it alone, and all-reduces only
+  the aux losses' terms over its data group (``ctx.dp_group``), so its
+  aux losses, and its gradients once averaged over the data ranks, are
+  the global view's.
 
 Routing is token-level and not padding-neutral: padded tokens of a step
 count toward routing and capacity, so a step's result depends on its
@@ -53,7 +62,7 @@ from repro_torch.core.propagation import pack_activation
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import Stream, gather_rows, maybe_unpack
 
-__all__ = ["moe_init", "moe_apply", "capacity", "DropCounter"]
+__all__ = ["moe_init", "moe_apply", "capacity", "dispatch_blocks", "DropCounter"]
 
 _DRAW_ELEMENTS = 1 << 28      # float32 elements drawn at a time (1 GiB)
 
@@ -69,11 +78,12 @@ def _expert_linear_init(generator: torch.Generator, e: int, d_in: int,
                         scale: Optional[float] = None) -> dict:
     """``{"w": [e, d_in, d_out]}`` drawn N(0, scale^2) in float32 and cast,
     as the JAX package draws it, a block of experts at a time: a
-    full-width leaf (arctic's 128 x 7168 x 4864) never exists in float32."""
+    full-width leaf (arctic's 128 x 7168 x 4864) never exists in float32
+    (on the meta device, which allocates nothing, in one draw)."""
     scale = (d_in ** -0.5) if scale is None else scale
     dev = generator.device
     w = torch.empty((e, d_in, d_out), dtype=dtype, device=dev)
-    step = max(1, _DRAW_ELEMENTS // (d_in * d_out))
+    step = e if dev.type == "meta" else max(1, _DRAW_ELEMENTS // (d_in * d_out))
     for e0 in range(0, e, step):
         n = min(step, e - e0)
         w[e0:e0 + n] = (torch.randn((n, d_in, d_out), generator=generator,
@@ -151,42 +161,68 @@ def _real_tokens(paged: dict, s: int) -> torch.Tensor:
     return (pos[None, :] < paged["new_counts"][:, None]).reshape(-1)
 
 
+def dispatch_blocks(t: int, ctx: MatmulContext) -> int:
+    """The dispatch blocks of a step of ``t`` tokens: ``ctx.dp_size`` with
+    the per-shard dispatch (``ctx.moe_local``) in the global view, when
+    they divide the tokens, else 1.  A rank of a ``DeviceMesh`` (the
+    local view, ``ctx.dp_local``) holds its own shard's tokens, which are
+    one block: blocking them again would cut ``t / dp_size^2`` pieces."""
+    if ctx.dp_local:
+        if ctx.dp_size > 1 and not ctx.moe_local:
+            raise NotImplementedError(
+                "moe_apply on a rank of a data-parallel DeviceMesh needs "
+                "RunConfig(moe_local_dispatch=True): the global dispatch sorts "
+                "every rank's tokens together, which would need them gathered")
+        return 1
+    if ctx.moe_local and ctx.dp_size > 1 and t % ctx.dp_size == 0:
+        return ctx.dp_size
+    return 1
+
+
 def moe_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
               *, paged: Optional[dict] = None):
     """Returns (y [B, S, D] unpacked, aux {"load_balance", "router_z",
     "dropped_frac"}).  The stream is unpacked at entry (routing is
-    token-level); the expert products run packed.  ``paged`` (a serving
-    step's metadata) only tells an installed :class:`DropCounter` which
-    tokens are real; every token routes."""
-    if ctx.dp_size > 1:
-        raise NotImplementedError("moe_apply: per-shard dispatch over a "
-                                  "data-parallel mesh waits for ROADMAP A10")
+    token-level); the expert products run packed.  The tokens are sorted
+    and given capacity per dispatch block (:func:`dispatch_blocks`: the
+    contiguous token blocks of a data-parallel step).  ``paged`` (a
+    serving step's metadata) only tells an installed :class:`DropCounter`
+    which tokens are real; every token routes."""
     xu = maybe_unpack(x)
     b, s, d = xu.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
     xf = xu.reshape(t, d)
     dev = xf.device
+    blocks = dispatch_blocks(t, ctx)
+    tb = t // blocks
 
     # 1. routing
     logits, probs, top_p, top_e = _route(xf, params["router"]["w"], k)
 
-    # 2. sort by expert, capacity
-    c = capacity(t, cfg)
+    # 2. sort by expert within each block, capacity per block
+    c = capacity(tb, cfg)
     e_flat, w_flat = top_e.reshape(t * k), top_p.reshape(t * k)
-    perm = torch.sort(e_flat, stable=True).indices            # token priority
+    e_blk = e_flat.view(blocks, tb * k)
+    # token priority within a block; global assignment indices
+    perm = (torch.sort(e_blk, dim=-1, stable=True).indices
+            + torch.arange(0, t * k, tb * k, device=dev)[:, None]).reshape(t * k)
     e_sorted = e_flat[perm]
-    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
-        0, e_flat, torch.ones_like(e_flat))
-    offsets = torch.cumsum(counts, 0) - counts                 # exclusive
-    pos = torch.arange(t * k, device=dev) - offsets[e_sorted]
+    counts = torch.zeros((blocks, e), dtype=torch.int64, device=dev).scatter_add_(
+        1, e_blk, torch.ones_like(e_blk))
+    offsets = torch.cumsum(counts, 1) - counts                # exclusive
+    blk = torch.arange(t * k, device=dev) // (tb * k)         # each sorted one's
+    pos = torch.arange(tb * k, device=dev).repeat(blocks) - offsets[blk, e_sorted]
     keep = pos < c
+    counts = counts.sum(0)
 
-    # 3. dispatch: kept assignments own distinct (expert, slot) pairs;
-    # dropped ones land in row c, which is sliced off
-    buf = torch.zeros((e, c + 1, d), dtype=xf.dtype, device=dev)
-    buf.index_put_((e_sorted, torch.where(keep, pos, c)), gather_rows(xf, perm // k))
-    x_e = buf[:, :c]
+    # 3. dispatch: kept assignments own distinct (expert, row) pairs, block
+    # b's in rows b*c ..; dropped ones land in the last row, sliced off
+    rows_e = blocks * c
+    buf = torch.zeros((e, rows_e + 1, d), dtype=xf.dtype, device=dev)
+    row = torch.where(keep, blk * c + pos, rows_e)
+    buf.index_put_((e_sorted, row), gather_rows(xf, perm // k))
+    x_e = buf[:, :rows_e]
 
     # 4. the expert FFN, one launch per product over every expert
     act = cfg.act
@@ -198,21 +234,21 @@ def moe_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
         h = g * u
     else:
         h = batched_linear_apply(params["wu"], x_e, ctx, activation=act)
-    y_e = batched_linear_apply(params["wd"], h, ctx)          # [E, C, D]
+    y_e = batched_linear_apply(params["wd"], h, ctx)          # [E, blocks*C, D]
 
     # 5. combine: each token's k contributions in ascending expert order
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(t * k, device=dev)
     keep_flat = keep[inv].reshape(t, k)
-    slot = torch.where(keep, pos, 0)[inv].reshape(t, k)
+    slot = torch.where(keep, row, 0)[inv].reshape(t, k)
     order = torch.argsort(top_e, dim=-1)
     pick = lambda v: torch.gather(v, 1, order)
     ex, sl = pick(top_e), pick(slot)
     wk = (pick(top_p) * pick(keep_flat)).to(y_e.dtype)
     y = torch.zeros((t, d), dtype=xu.dtype, device=dev)
-    rows = y_e.reshape(e * c, d)
+    rows = y_e.reshape(e * rows_e, d)
     for j in range(k):
-        y = y + gather_rows(rows, ex[:, j] * c + sl[:, j]) * wk[:, j, None]
+        y = y + gather_rows(rows, ex[:, j] * rows_e + sl[:, j]) * wk[:, j, None]
     y = y.reshape(b, s, d)
 
     if cfg.dense_residual:  # arctic: the parallel dense branch
@@ -229,8 +265,30 @@ def moe_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
             counter.counts[0] += valid.sum() * k
             counter.counts[1] += (keep & valid[perm // k]).sum()
     me = probs.mean(0)                                         # mean router prob
-    ce = counts.float() / (t * k)                              # dispatch fraction
-    aux = {"load_balance": e * torch.sum(me * ce),
-           "router_z": torch.mean(torch.logsumexp(logits, -1) ** 2),
-           "dropped_frac": 1.0 - kept.float() / (t * k)}
+    z = torch.mean(torch.logsumexp(logits, -1) ** 2)
+    routed = t * k
+    if ctx.dp_local and ctx.dp_group is not None:
+        # the local view: the aux losses over every rank's tokens, as the
+        # global view's over all its blocks (each rank holds t tokens)
+        me, z, counts, kept, routed = _over_ranks(me, z, counts, kept, routed,
+                                                  ctx.dp_group)
+    ce = counts.float() / routed                               # dispatch fraction
+    aux = {"load_balance": e * torch.sum(me * ce), "router_z": z,
+           "dropped_frac": 1.0 - kept.float() / routed}
     return y, aux
+
+
+def _over_ranks(me, z, counts, kept, routed: int, group) -> tuple:
+    """The aux losses' terms summed over the ranks of ``group``: the mean
+    router probability and z-loss averaged (an all-reduce autograd follows:
+    its backward sums each rank's gradient, so with the gradients averaged
+    over the data ranks, as data-parallel training does, every parameter's
+    gradient is the global view's), the counts, kept and routed summed."""
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+    ranks = dist.get_world_size(group)
+    me = all_reduce(me, group=group) / ranks
+    z = all_reduce(z, group=group) / ranks
+    ints = torch.cat([counts, kept.reshape(1)])
+    dist.all_reduce(ints, group=group)
+    return me, z, ints[:-1], ints[-1], routed * ranks

@@ -164,9 +164,11 @@ def layers_init(generator: torch.Generator, cfg: ModelConfig,
     block by block and copied into the stack as each is drawn, so the
     memory peak is the stack and one block (a single group is the stack,
     no copy): a moe model's layers fill most of the card, and one of
-    jamba's 8-layer groups holds four moe layers."""
+    jamba's 8-layer groups holds four moe layers.  On the meta device
+    (shapes only) one group is drawn: the stack's shape is all there is."""
     period = pattern_period(cfg)
     n = cfg.n_layers // period
+    groups = 1 if generator.device.type == "meta" else n
 
     def put(dst, src, g):
         for k, v in src.items():
@@ -176,7 +178,7 @@ def layers_init(generator: torch.Generator, cfg: ModelConfig,
                 dst[k][g].copy_(v)
 
     stacked = {}
-    for g in range(n):
+    for g in range(groups):
         for i in range(period):
             block = block_init(generator, cfg, i, dtype, cross=cross)
             if n == 1:

@@ -89,6 +89,7 @@ with it off every hook is one no-op call.
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import List, Optional
@@ -97,6 +98,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.hardware import require_device
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.core.layout import ceil_div, round_up
 from repro_torch.core.linear import prepack_params
 from repro_torch.kernels.ragged_attn.ops import plan_ragged
@@ -133,7 +136,7 @@ def _page_copier(caches, device):
 
 
 class Engine:
-    def __init__(self, model: ReproModel, params, *, device="cuda",
+    def __init__(self, model: ReproModel, params, *, device="cuda", mesh=None,
                  prepack: bool = True, max_slots: Optional[int] = None,
                  page_tokens: int = 16, num_pages: Optional[int] = None,
                  eager: bool = False, watermark_pages: int = 1,
@@ -148,10 +151,23 @@ class Engine:
                  watchdog_steps: int = WATCHDOG_STEPS,
                  nan_guard: bool = True,
                  telemetry=False):
-        self.device = require_device(device)
+        self.device = require_device(device, meta=True)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
+        # mesh= (the JAX package's): the caches are placed on the mesh by
+        # sharding.cache_specs.  One rank holds every shard, so a mesh of
+        # one rank serves as no mesh does, bit for bit; serving across
+        # ranks needs the paged steps' KV split over them (distributed
+        # flash-decode) and tensor-parallel products, which the port has not
+        if mesh is not None:
+            ranks = math.prod(axis_sizes(mesh).values())
+            if ranks > 1:
+                raise NotImplementedError(
+                    f"Engine(mesh=): a mesh of {ranks} ranks; the port serves "
+                    f"on a mesh of one rank only (serving across ranks needs "
+                    f"the paged KV pools sharded over them with a distributed "
+                    f"flash-decode, and tensor-parallel products)")
         self.model = model
         # observability (repro_torch.obs): ``telemetry=True`` builds a live
         # Telemetry, an instance is used as is, and the default keeps the
@@ -227,6 +243,11 @@ class Engine:
         self.max_pages = ceil_div(max_len, self.pool.page_tokens)
         self.caches = model.init_paged_cache(num_pages, self.pool.page_tokens,
                                              self.slots)
+        # the caches' specs on the mesh; on its one rank each leaf's shard
+        # is the leaf itself, so the engine keeps its tensors as they are
+        self.cache_specs = (None if mesh is None else
+                            sharding.cache_specs(self.caches, mesh, model.run,
+                                                 self.slots))
         # the single-slot state a prefill starts from: made once, zeroed in
         # place before each prefill, so its graphs bind live tensors.  With
         # one slot it is the slot's own (no other request can be running),
