@@ -17,7 +17,8 @@ mesh of one card (the dry-run of every cell, an Engine on a one-rank
 NCCL mesh, moe's per-shard dispatch):
 
   1. the card (nvidia-smi name and power limit); TF32 off;
-  2. the kernel build and its seconds;
+  2. the kernel build and its seconds, the graph phase's imports
+     (torch._dynamo, the fake-tensor tracer) made beside it;
   3. per kernel: max abs error against the plain version, with its
      tolerance (exceeding it raises); mmt4d also at every width of the bf16
      flat ladder (the gate linear), and twice, bit-identical; mmt4d's
@@ -41,6 +42,21 @@ NCCL mesh, moe's per-shard dispatch):
      both dtypes: Qwen3-8B's decode rows (32 query heads over 8) and a
      mixed prefill at W = 512, ChatGLM3-6B's decode rows (32 over 2: tiles
      of 8 positions);
+ 3b. the analyzer's program passes (ROADMAP A11): one eager flat step of
+     the kernel checks' SmolLM2 engine at its widest width, its launches
+     counted; then each family at the widths its phase serves (SmolLM2-135M
+     flat at the widest rung, Qwen3-8B flat, RWKV-6 1.6B monolithic,
+     Qwen3-MoE at 11 layers flat, jamba at 2 periods monolithic), its
+     engine built over fake tensors on cuda (nothing allocated: the card's
+     allocated bytes are checked unmoved) and its widest step traced once
+     (repro_torch.analysis.runner.trace_widest): no KV-aliasing and no
+     static-dims finding, the graph's dot FLOPs equal to build_cost_model's
+     closed form, the repro_torch op counts equal to one model call's
+     launches (SmolLM2's: the eager step's, 211 / 33 / 1 / 30; the others':
+     the per-call counts their phases hold to their drains' launches);
+     then the dispatcher's host cost a launch, pack at the tied head and
+     mmt4d at the gate decode, the CUDA impl called directly against
+     through torch.ops.repro_torch; the phase's seconds;
   4. the moe family: the expert-batched mmt4d (B_pack [E, N_o, K_o, n_r,
      k_r], the expert dim in the kernel's grid) against its plain version
      at qwen3-moe's and arctic's flat-step expert products (gate with
@@ -5237,6 +5253,203 @@ def mesh_phase(card, checks, fam_train) -> tuple:
     return out, by_path
 
 
+# ---------------------------------------------------------------- the graph phase
+#
+# The analyzer's program passes on the card's step of each family, traced
+# with fake tensors on cuda (repro_torch.analysis): an engine whose
+# parameters and caches are fake (runner.fake_engine) allocates nothing, so
+# each family is traced at the widths its phase serves.  The phase runs
+# right after the kernel checks, where the CPU lanes have not started: its
+# host work (the traces, the host-time figures) meets no other thread.
+
+GRAPH_FLAT = dict(max_slots=4, page_tokens=16, chunk_tokens=128)
+GRAPH_MONO = dict(max_slots=4, page_tokens=16)
+# (label, arch, layers (None: all), engine kwargs): the depths phases 4 and
+# 5 serve on one card (Qwen3-MoE 11 of 94 layers, jamba 2 of 4 periods)
+GRAPH_FAMILIES = (("SmolLM2-135M flat", "smollm2-135m", None, GRAPH_FLAT),
+                  ("Qwen3-8B flat", "qwen3-8b", None, GRAPH_FLAT),
+                  ("RWKV-6 1.6B monolithic", "rwkv6-1.6b", None, GRAPH_MONO),
+                  ("Qwen3-MoE 11 layers flat", "qwen3-moe-235b-a22b", 11, GRAPH_FLAT),
+                  ("jamba 2 periods monolithic", "jamba-v0.1-52b", 16, GRAPH_MONO))
+HOST_CALLS = 500          # calls a host-time figure is taken over, per turn
+HOST_TURNS = 11           # turns of (direct, through the op): median and least
+
+
+def import_tracing(out: dict) -> None:
+    """Import what the graph phase traces with (``out["s"]``: seconds)."""
+    t0 = time.perf_counter()
+    import torch._dynamo  # noqa: F401
+    import torch._subclasses.fake_tensor  # noqa: F401
+    import torch.fx.experimental.proxy_tensor  # noqa: F401
+    import repro_torch.analysis.runner  # noqa: F401
+    import repro_torch.roofline.graph_cost  # noqa: F401
+    out["s"] = time.perf_counter() - t0
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn`` (no synchronisation between
+    calls: the host's own time to dispatch and launch, the device running
+    behind); the device is drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
+
+
+def op_host_cost(hw) -> dict:
+    """The dispatcher's host cost a launch (module 1 of the port's
+    torch.library ops): the CUDA impl function called directly against
+    the same call through ``torch.ops.repro_torch``, for pack at the tied
+    head (the 49152 x 576 embedding into 128 x 128 tiles) and mmt4d at the
+    gate decode (16 rows x 576 -> 1536, silu), bf16; turns alternate, and
+    the median and the least of HOST_TURNS are kept (the host's noise is
+    of the dispatcher's own size)."""
+    from repro_torch.core import packing
+    from repro_torch.core.layout import make_layout
+    from repro_torch.kernels.mmt4d import ops as mops
+    from repro_torch.kernels.pack import ops as pops
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rand = lambda *shape: (torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+                           * 0.02).to(BF)
+    lay = make_layout("scalable", hw, BF)
+    e = rand(49152, 576)
+    ap = packing.pack_lhs(rand(16, 576), lay)
+    bp = packing.pack_rhs(rand(576, 1536), lay)
+    cases = {"pack tied head": (lambda: pops._pack_cuda(e, 128, 128),
+                                lambda: torch.ops.repro_torch.pack.default(e, 128, 128)),
+             "mmt4d gate decode": (
+                 lambda: mops._mmt4d_cuda(ap, bp, None, "silu", None),
+                 lambda: torch.ops.repro_torch.mmt4d.default(ap, bp, None, "silu", None))}
+    out = {}
+    for label, (direct, via_op) in cases.items():
+        if not torch.equal(direct(), via_op()):
+            raise AssertionError(f"{label}: the op and its CUDA impl differ")
+        for fn in (direct, via_op):
+            host_us(fn, 20)
+        turns = [(host_us(direct), host_us(via_op)) for _ in range(HOST_TURNS)]
+        d = float(np.median([a for a, _ in turns]))
+        o = float(np.median([b for _, b in turns]))
+        d_min, o_min = min(a for a, _ in turns), min(b for _, b in turns)
+        out[label] = {"direct_us": d, "op_us": o, "dispatcher_us": o - d,
+                      "direct_min_us": d_min, "op_min_us": o_min, "turns": turns}
+        print(f"  host time a launch, {label}: the CUDA impl called directly "
+              f"{d:.2f} us, through torch.ops.repro_torch {o:.2f} us "
+              f"({o - d:+.2f} us; median of {HOST_TURNS} turns of {HOST_CALLS} "
+              f"calls; least {d_min:.2f} and {o_min:.2f} us, {o_min - d_min:+.2f})")
+    return out
+
+
+def eager_flat_launches(eng) -> dict:
+    """The wrappers' launches over one eager flat step of ``eng`` at its
+    widest width: four rows of a quarter of it each, prefilling."""
+    from repro_torch import kernels
+    w = eng._flat_shapes()[0]
+    per, rows = w // 4, 4
+    rng = np.random.default_rng(3)
+    token = rng.integers(0, eng.model.cfg.vocab, (1, w)).astype(np.int32)
+    row_ids = np.repeat(np.arange(rows), per).astype(np.int32)
+    q_pos = np.tile(np.arange(per), rows).astype(np.int32)
+    bt = np.zeros((eng.slots, eng.max_pages), np.int32)
+    need = -(-per // eng.pool.page_tokens)
+    bt[:rows, :need] = 1 + np.arange(rows * need).reshape(rows, need)
+    idx = (per * np.arange(eng.slots) + per - 1).astype(np.int32)
+    plan = eng._ragged_plan(row_ids, q_pos).to("cuda")
+    args = [torch.from_numpy(a).cuda() for a in (token, bt, row_ids, q_pos, idx)]
+    before = kernels.launch_counts()
+    eng.model.flat_decode_step(eng.params, eng.caches, *args, plan=plan)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def graph_expected(label: str, cfg) -> dict:
+    """The launches a model call of this family makes, as its phase holds
+    them to the wrappers' counts over its drains."""
+    if label.startswith("SmolLM2"):
+        return dict(EXPECTED_PER_STEP)
+    per_call = (rwkv_per_call if label.startswith("RWKV") else
+                moe_per_call if label.startswith("Qwen3-MoE") else
+                jamba_per_call if label.startswith("jamba") else flat_per_call)
+    return {k: n for k, n in per_call(cfg)[0].items() if n}
+
+
+def graph_phase(eng, hw, card) -> dict:
+    """The analyzer's program passes on each family's traced step at the
+    card's widths (the module docstring's phase 3b): no KV-aliasing or
+    static-dims finding, the graph's dot FLOPs equal to the cost model's
+    closed form, and the repro_torch op counts equal to the launches of
+    one model call (SmolLM2's flat step counted here, eagerly on ``eng``;
+    the others as their phases hold their drains' launches); then the
+    dispatcher's host cost a launch.  Fails on any miss.  The lanes of
+    CpuRuns have not started: the phase's host work meets no other
+    thread."""
+    import dataclasses as dc
+    from repro_torch.analysis.runner import fake_engine, trace_widest
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    eager = eager_flat_launches(eng)
+    print(f"  SmolLM2-135M flat, one eager step at width {eng._flat_shapes()[0]}: "
+          f"launches {eager}")
+    out = {"families": {}}
+    for label, arch, layers, kw in GRAPH_FAMILIES:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dc.replace(cfg, n_layers=layers)
+        tb = time.perf_counter()
+        model = build_model(cfg, RunConfig(), ShapeSpec("serve", 1024, kw["max_slots"],
+                                                        "decode"), device="cuda")
+        feng = fake_engine(model, **kw)
+        build_s = time.perf_counter() - tb
+        c0 = kernels.launch_counts()
+        r = trace_widest(feng, label)
+        if kernels.launch_counts() != c0:
+            raise AssertionError(f"{label}: tracing launched a kernel")
+        cost = r["cost"]
+        got = {} if cost is None else cost.kernel_counts()
+        want = eager if label.startswith("SmolLM2") else graph_expected(label, cfg)
+        if label.startswith("SmolLM2") and want != graph_expected(label, cfg):
+            raise AssertionError(f"{label}: the eager step launched {want}, "
+                                 f"EXPECTED_PER_STEP is {EXPECTED_PER_STEP}")
+        flops = None if cost is None else cost.dot_flops
+        print(f"  {label} ({r['family']}, {cfg.n_layers} layers, d {cfg.d_model}): "
+              f"traced in {r['trace_s']:.2f} s (engine built on fake tensors in "
+              f"{build_s:.2f} s); static-dims findings {len(r['static_dims'])}, "
+              f"kv-aliasing findings {len(r['aliasing'])}; dot FLOPs {flops:.6e} "
+              f"graph, {r['closed_flops']:.6e} closed form; repro_torch ops "
+              f"{got}, launches a call {want}; {cost.hbm_bytes:.4e} bytes "
+              f"unfused")
+        for f in r["static_dims"] + r["aliasing"]:
+            print(f"    {f.format()}")
+        if r["static_dims"] or r["aliasing"]:
+            raise AssertionError(f"{label}: the traced passes found "
+                                 f"{len(r['static_dims']) + len(r['aliasing'])} "
+                                 f"finding(s)")
+        if flops != r["closed_flops"]:
+            raise AssertionError(f"{label}: graph dot FLOPs {flops} != the cost "
+                                 f"model's {r['closed_flops']}")
+        if got != want:
+            raise AssertionError(f"{label}: traced ops {got} != launches {want}")
+        out["families"][label] = {
+            "family": r["family"], "layers": cfg.n_layers, "trace_s": r["trace_s"],
+            "build_s": build_s, "dot_flops": flops, "closed_flops": r["closed_flops"],
+            "hbm_bytes": cost.hbm_bytes, "op_counts": got, "launches": want}
+        del feng, model
+    if torch.cuda.memory_allocated() != mem0:
+        raise AssertionError(f"the traces allocated "
+                             f"{torch.cuda.memory_allocated() - mem0} bytes")
+    out["host"] = op_host_cost(hw)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  graph phase: {out['seconds']:.1f} s, the card's allocated bytes "
+          f"unmoved by the traces ({card})")
+    return out
+
+
 def by_descriptor(kernel, scaled_checks) -> dict:
     """Kernel ``kernel``'s bf16 representative case at each scaled
     descriptor's tiles: times, bound and library time (ragged_attn's tiles
@@ -5296,9 +5509,17 @@ def smoke(args) -> int:
           "torch.backends.cudnn.allow_tf32 = False")
 
     t0 = time.perf_counter()
+    # the analyzer's tracing machinery (torch._dynamo and what it pulls in,
+    # seconds on the card's host) is imported beside the build, whose nvcc
+    # processes leave this process waiting
+    imported = {}
+    importer = threading.Thread(target=import_tracing, args=(imported,))
+    importer.start()
     build.load_library()
+    importer.join()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s, "
-          f"sm_90a, one nvcc per source)")
+          f"sm_90a, one nvcc per source); the analyzer's tracing imports "
+          f"{imported['s']:.1f} s beside it")
 
     hw = query("cuda", "h100")      # the card's own, whatever $REPRO_HW says
     print(f"hardware: {hw.device_name}, {hw.sm_count} SMs, HBM {hw.hbm_bw / 1e12:.2f} TB/s, "
@@ -5318,6 +5539,12 @@ def smoke(args) -> int:
           f"({card}):")
     checks.run_d128()
     f32_chunk_cases = checks.f32_chunk_identity()
+    elapsed()
+    print(f"the analyzer's program passes on the traced step of each family "
+          f"(fake tensors on cuda, the served widths): KV-write aliasing, "
+          f"static dims, graph dot FLOPs = the cost model's, repro_torch ops "
+          f"= launches a call; the dispatcher's host cost a launch ({card})")
+    graph = graph_phase(eng, hw, card)
 
     # the bf16 flat drain below makes its own engine: the moe and jamba
     # phases reckon their depth from the whole card
@@ -5538,6 +5765,7 @@ def smoke(args) -> int:
         src, replaces = SOURCES[k]
         kernel_rows.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "op": f"torch.ops.repro_torch.{k}",
             "launches": main_launches[k],
             "launches_per_step": main_launches[k] / main_steps[k],
             "launches_by_path": {f: n[k] for f, n in by_path.items()},
@@ -5581,6 +5809,7 @@ def smoke(args) -> int:
                        "training": training, "dense": dense,
                        "recurrent": recurrent, "moe": moe_res, "jamba": jamba,
                        "family_training": fam_train, "mesh": mesh_res,
+                       "graph": graph,
                        "cpu_runs": cpu_runs,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)

@@ -1,13 +1,11 @@
 """The analyzer's runner: the AST lint, then each engine configuration of the
 JAX package's matrix (monolithic, dense chunked, flat, flat with
 speculation, dense chunked with the prefix cache) through the shape-ladder
-algebra, a sanitized warm drain, the recompile-hazard report and the
-pool-ledger audit.  One reduced model backs every engine, so the step
+linter (with ``trace=True`` the static-dims audit of every traced step
+family), the KV-write aliasing pass on the traced steps, and (with
+``traffic=True``) a sanitized warm drain, the recompile-hazard report and
+the pool-ledger audit.  One reduced model backs every engine, so the step
 signatures are shared and the matrix runs in test time.
-
-The JAX package's jaxpr passes (``lint_engine_aliasing`` and
-``lint_engine_shapes(trace=True)``) have no PyTorch counterpart and are
-skipped; the sanitizer checks every KV write of the drain instead.
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ from repro_torch.analysis import aliasing, ast_lint, retrace, sanitize, shapes
 from repro_torch.analysis.report import AnalysisReport, Finding
 
 __all__ = ["CONFIG_MATRIX", "build_model", "analyze_engine", "run_ast_lint",
-           "run_all"]
+           "run_all", "fake_engine", "trace_widest"]
 
 # the JAX package's matrix (src/repro/analysis/runner.py): reduced-scale
 # chunks that still give the chunk ladder more than one rung and the flat
@@ -71,17 +69,20 @@ def _traffic(engine, *, seed: int = 0) -> None:
 
 
 def analyze_engine(model, params, label: str, engine_kwargs: dict, *,
-                   traffic: bool = True,
+                   traffic: bool = True, trace: bool = True,
                    report: Optional[AnalysisReport] = None) -> AnalysisReport:
-    """The ladder algebra, then (with ``traffic``) a sanitized drain after
-    warmup, its retrace report and the pool-ledger audit, on one
+    """The shape-ladder linter (``trace``: with its static-dims audit),
+    the KV-write aliasing pass, then (with ``traffic``) a sanitized drain
+    after warmup, its retrace report and the pool-ledger audit, on one
     configuration."""
     from repro_torch.serving.engine import Engine
 
     report = report if report is not None else AnalysisReport()
     engine = Engine(model, params, device=model.device, **engine_kwargs)
-    report.extend(shapes.lint_engine_shapes(engine, label),
+    report.extend(shapes.lint_engine_shapes(engine, label, trace=trace),
                   section=f"{label}:shapes")
+    report.extend(aliasing.lint_engine_aliasing(engine, label),
+                  section=f"{label}:aliasing")
     if traffic:
         san = sanitize.install(engine)
         det = retrace.RetraceDetector(model)
@@ -96,6 +97,65 @@ def analyze_engine(model, params, label: str, engine_kwargs: dict, *,
         report.extend(aliasing.check_pool_consistency(engine, label),
                       section=f"{label}:pool-ledger")
     return report
+
+
+def fake_engine(model, **engine_kwargs):
+    """An ``Engine`` over ``model`` whose parameters and caches are fake
+    tensors on the model's device (one ``FakeTensorMode``): random-init
+    shapes and dtypes from the model's own init on the meta device, so a
+    model of any size is built, prepacked and traced at its published
+    widths with nothing allocated.  Its steps can be traced
+    (:func:`trace_widest`), not run."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.model import MetaGenerator
+    from repro_torch.models.model import build_model as _build
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serving.engine import Engine
+
+    meta = _build(model.cfg, model.run, model.shape, hw=model.ctx.hw,
+                  device="meta")
+    params = meta.init(MetaGenerator())
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        fake = tree_map(lambda t: torch.empty_strided(
+            tuple(t.shape), t.stride(), dtype=t.dtype, device=model.device), params)
+        return Engine(model, fake, device=model.device, **engine_kwargs)
+
+
+def trace_widest(engine, label: str = "engine") -> dict:
+    """The traced passes on ``engine``'s widest step family
+    (:func:`repro_torch.analysis.aliasing.widest_family`) from one trace:
+    its static-dims and KV-aliasing findings, its :class:`~repro_torch.
+    roofline.graph_cost.GraphCost` and the closed-form FLOPs the cost
+    model gives it.  ``{"family", "static_dims", "aliasing", "cost",
+    "closed_flops", "trace_s"}``; ``cost`` is None when the trace stopped
+    on a host sync.  The graph is traced without call sites, and again
+    with them only where a finding needs its site named."""
+    import time
+
+    from repro_torch.obs.attrib import build_cost_model
+    from repro_torch.roofline.graph_cost import graph_cost
+
+    fam = aliasing.widest_family(engine)
+    fn, args, roles = aliasing.step_args(engine, fam)
+    t0 = time.perf_counter()
+    gm, dims = shapes.trace_findings(fn, args, f"{label} {fam}",
+                                     device=engine.device, stacks=False)
+    trace_s = time.perf_counter() - t0
+    alias = ([] if gm is None else
+             aliasing.lint_engine_aliasing(engine, label, traced=(gm, args, roles)))
+    if gm is not None and (dims or alias):
+        gm, dims = shapes.trace_findings(fn, args, f"{label} {fam}",
+                                         device=engine.device)
+        alias = aliasing.lint_engine_aliasing(engine, label,
+                                              traced=(gm, args, roles))
+    # the closed form at the model's own tiles (no device query: the
+    # engine's tensors may be fake)
+    closed = build_cost_model(engine, hw=engine.model.ctx.hw).families[fam].flops
+    return {"family": fam, "static_dims": dims, "aliasing": alias,
+            "cost": None if gm is None else graph_cost(gm),
+            "closed_flops": closed, "trace_s": trace_s}
 
 
 def _repo_dirs():
@@ -119,8 +179,8 @@ def run_ast_lint(report: Optional[AnalysisReport] = None) -> AnalysisReport:
     return report
 
 
-def run_all(*, traffic: bool = True, matrix=None, device="cuda",
-            log=None) -> AnalysisReport:
+def run_all(*, traffic: bool = True, trace: bool = True, matrix=None,
+            device="cuda", log=None) -> AnalysisReport:
     """Everything: the AST lint, then every configuration of
     ``matrix`` (default :data:`CONFIG_MATRIX`) over one reduced model on
     ``device``."""
@@ -130,5 +190,5 @@ def run_all(*, traffic: bool = True, matrix=None, device="cuda",
         if log:
             log(f"analyzing {label} ...")
         analyze_engine(model, params, label, kwargs, traffic=traffic,
-                       report=report)
+                       trace=trace, report=report)
     return report

@@ -1,10 +1,10 @@
-"""The shape-ladder linter, host half.
+"""The shape-ladder linter.
 
 The paper's codegen argument needs a *finite, m_r-aligned, geometric* set
 of step shapes: prepacking pays off only if tile geometry never changes,
 and the no-new-program contract (one CUDA graph per step shape, made at
 warmup) holds only if every runtime shape is a member of the warmed
-ladder.  This module carries the JAX package's pass 1 without its tracer:
+ladder.  This module carries the JAX package's pass 1:
 
 * :func:`step_families` — the warmup enumeration (``Engine.warmup``'s
   loops) as ``(label, StepGeometry)`` pairs, the labels being those the
@@ -18,8 +18,16 @@ ladder.  This module carries the JAX package's pass 1 without its tracer:
   the engine computes (``_chunk_shapes``/``_flat_shapes``/
   ``_prefill_bucket``).
 
-The JAX package's jaxpr audit (``trace=True``: every aval dim of every
-traced step a concrete int) has no PyTorch counterpart; it raises.
+* :func:`lint_engine_shapes` with ``trace=True`` adds the graph audit
+  (:func:`check_static_dims`, the JAX package's jaxpr audit): every step
+  family x ladder shape is traced with fake tensors
+  (:mod:`repro_torch.analysis.graph_tools`), and every node's value must
+  have a concrete int shape.  A data-dependent op or a host sync
+  (``.item()``, ``.tolist()``, ``nonzero``) makes the trace raise; it is
+  reported as a ``static-dims`` finding naming the op and its call site.
+  This is the CUDA-graph contract read off the program: a step captured
+  once per shape can neither read a value back to the host nor change a
+  shape with the data.
 """
 
 from __future__ import annotations
@@ -27,10 +35,13 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Tuple
 
+from repro_torch.analysis.graph_tools import (TraceError, iter_nodes,
+                                              node_where, op_name, trace_step)
 from repro_torch.analysis.report import Finding
 from repro_torch.core.layout import round_up
 
-__all__ = ["StepGeometry", "step_families", "lint_engine_shapes"]
+__all__ = ["StepGeometry", "step_families", "lint_engine_shapes",
+           "check_static_dims", "trace_findings"]
 
 _PASS = "shape-ladder"
 
@@ -117,15 +128,46 @@ def _declared_chunk_ladder(engine) -> set:
     return ladder
 
 
+def check_static_dims(gm, family: str) -> List[Finding]:
+    """Every node's value in the traced graph (nested graphs included) has
+    a shape of concrete ints: no data-dependent or symbolic dim in a step
+    family."""
+    findings = []
+    for path, node in iter_nodes(gm):
+        vals = node.meta.get("val")
+        for v in (vals if isinstance(vals, (list, tuple)) else [vals]):
+            shape = getattr(v, "shape", ())
+            if all(isinstance(d, int) for d in shape):
+                continue
+            findings.append(Finding(
+                _PASS, "static-dims",
+                f"{op_name(node.target)} @ {node_where(node)}",
+                f"{family}: non-static dim in shape {tuple(shape)} (graph "
+                f"path {path}, node {node.name}) — every captured step shape "
+                f"must be a concrete int or the one-graph-per-shape contract "
+                f"is void"))
+    return findings
+
+
+def trace_findings(fn, args, family: str, *, device=None, stacks: bool = True):
+    """``(graph or None, findings)``: trace ``fn(*args)`` with fake tensors
+    and audit its dims; a trace stopped by a data-dependent op or a host
+    sync is one ``static-dims`` finding naming it."""
+    try:
+        gm = trace_step(fn, args, device=device, stacks=stacks)
+    except TraceError as e:
+        return None, [Finding(_PASS, "static-dims", f"{e.op} @ {e.where}",
+                              f"{family}: {e.message} — a captured step "
+                              f"cannot read a tensor back to the host or "
+                              f"size a tensor by its data")]
+    return gm, check_static_dims(gm, family)
+
+
 def lint_engine_shapes(engine, label: str = "engine", *,
                        trace: bool = False) -> List[Finding]:
-    """Pass 1 on one engine configuration: the ladder algebra.  The JAX
-    package's ``trace=True`` jaxpr audit has no counterpart and raises."""
-    if trace:
-        raise NotImplementedError(
-            "lint_engine_shapes(trace=True): the jaxpr audit of the JAX "
-            "package has no PyTorch counterpart; use trace=False for the "
-            "ladder algebra")
+    """Pass 1 on one engine configuration: the ladder algebra, and with
+    ``trace=True`` the graph audit of every step family x ladder shape
+    (:func:`check_static_dims`)."""
     f: List[Finding] = []
     m_r = engine._bucket
     here = f"{label} ({engine.model.cfg.name})"
@@ -205,4 +247,10 @@ def lint_engine_shapes(engine, label: str = "engine", *,
                                  f"_prefill_bucket({l}) = {b}: must be a "
                                  f"geometric m_r-multiple in [{l}, {cap}]"))
             l = b + 1
+    if trace:
+        from repro_torch.analysis.aliasing import step_args
+        for fam, _ in step_families(engine):
+            fn, args, _ = step_args(engine, fam)
+            f.extend(trace_findings(fn, args, f"{here} {fam}",
+                                    device=engine.device)[1])
     return f

@@ -1,13 +1,19 @@
 """Hand-written CUDA kernels for Hopper, one package per TPU kernel of the
-JAX package: ``ops.py`` (the wrapper, with its launch count) beside
-``ref.py`` (the plain PyTorch version).  Sources live in ``csrc/``.
+JAX package: ``ops.py`` (the wrapper, with its launch count, and the op's
+impls) beside ``ref.py`` (the plain PyTorch version).  Sources live in
+``csrc/``.  Each kernel is a ``torch.library`` op, ``torch.ops.
+repro_torch.<name>`` (:mod:`repro_torch.kernels.library`): the wrapper
+checks its arguments and calls the op; the dispatcher takes the plain
+version for CPU tensors and the kernel for CUDA tensors, and a fake impl
+gives a traced step the shapes.
 mmt4d's package also holds its two gradient products (``mmt4d_dgrad``,
 ``mmt4d_wgrad``, ``csrc/mmt4d_bwd.cu``); ``wkv6`` RWKV-6's recurrence
 (``csrc/wkv6.cu``) and ``selective_scan`` mamba's
 (``csrc/selective_scan.cu``), and their backwards (``wkv6_bwd``,
 ``selective_scan_bwd``), have no Pallas counterpart.
 
-A wrapper adds one to its ``launches`` where it launches its kernel.  A
+An op's CUDA impl adds one to its wrapper's ``launches`` where it
+launches the kernel.  A
 CUDA graph replay calls no wrapper, so each captured step records the
 counts its capture added (:func:`counters` before and after) and adds
 them again on every replay (:func:`add_counts`): the counts stay what the

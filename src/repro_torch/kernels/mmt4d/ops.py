@@ -1,8 +1,10 @@
 """Wrapper of the mmt4d kernel (``csrc/mmt4d.cu``).
 
 Replaces the Pallas ``mmt4d_kernel_call`` (src/repro/kernels/mmt4d/kernel.py:113).
-A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  Operands are contiguous packed tiles of one dtype
+The kernel is the op ``torch.ops.repro_torch.mmt4d``, its gradients
+``repro_torch.mmt4d_dgrad`` and ``repro_torch.mmt4d_wgrad``
+(:mod:`repro_torch.kernels.library`): a CPU tensor takes the plain version
+(``ref.py``), a CUDA tensor launches the kernel or raises.  Operands are contiguous packed tiles of one dtype
 (float32 or bfloat16); accumulation, bias and activation are float32, then
 one cast.  bfloat16 runs on the tensor cores, cut by :func:`pick_split`
 (K split in a thread-block cluster only where a block's K range is long);
@@ -36,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 from repro_torch.kernels.mmt4d.ref import (mmt4d_dgrad_ref, mmt4d_ref,
                                            mmt4d_wgrad_ref)
 from repro_torch.kernels.unpack.ref import unpack_ref
@@ -201,11 +203,31 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
                                       and 0 < unpack_to[1] <= n_o * n_r):
         raise ValueError(f"mmt4d: unpack_to {unpack_to} outside the packed "
                          f"extent ({mo_b * m_r}, {n_o * n_r})")
-    if a_pack.device.type == "cpu":
-        a_ref = a_pack if experts is not None else a_pack.reshape(-1, k_o, m_r, k_r)
-        out = mmt4d_ref(a_ref, b_pack, bias_pack,
-                        activation=activation).reshape(*lead, mo_b, n_o, m_r, n_r)
-        return out if unpack_to is None else unpack_ref(out, *unpack_to)
+    return _OP(a_pack, b_pack, bias_pack, activation,
+               None if unpack_to is None else list(unpack_to))
+
+
+def _out_shape(a_pack, b_pack, unpack_to) -> tuple:
+    *lead, mo_b, _, m_r, _ = a_pack.shape
+    n_o, _, n_r, _ = b_pack.shape[-4:]
+    return ((*lead, mo_b, n_o, m_r, n_r) if unpack_to is None
+            else (*lead, *unpack_to))
+
+
+def _mmt4d_cpu(a_pack, b_pack, bias_pack, activation, unpack_to):
+    *lead, mo_b, k_o, m_r, k_r = a_pack.shape
+    a_ref = a_pack if b_pack.ndim == 5 else a_pack.reshape(-1, k_o, m_r, k_r)
+    out = mmt4d_ref(a_ref, b_pack, bias_pack, activation=activation).reshape(
+        _out_shape(a_pack, b_pack, None))
+    if unpack_to is not None:
+        out = unpack_ref(out, *unpack_to)
+    return library.fresh(out, a_pack, b_pack)
+
+
+def _mmt4d_cuda(a_pack, b_pack, bias_pack, activation, unpack_to):
+    experts = b_pack.shape[0] if b_pack.ndim == 5 else None
+    *lead, mo_b, k_o, m_r, k_r = a_pack.shape
+    n_o, _, n_r, _ = b_pack.shape[-4:]
     extra = () if bias_pack is None else (bias_pack,)
     dev = build.require_cuda("mmt4d", a_pack, b_pack, *extra)
     code = build.require_dtype("mmt4d", a_pack.dtype, a_pack, b_pack, *extra)
@@ -224,11 +246,9 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
         s = pick_split(mo_b if experts else m_o, n_o, k_o, m_r, n_r, k_r,
                        _sm_count(dev), experts or 1)
         picks = (s.rows, s.tm, s.splits)
-    if unpack_to is None:
-        shape, extent = (*lead, mo_b, n_o, m_r, n_r), (0, 0, 0)
-    else:
-        shape, extent = (*lead, *unpack_to), (*unpack_to, max(1, mo_b))
-    out = torch.empty(shape, dtype=a_pack.dtype, device=a_pack.device)
+    extent = (0, 0, 0) if unpack_to is None else (*unpack_to, max(1, mo_b))
+    out = torch.empty(_out_shape(a_pack, b_pack, unpack_to), dtype=a_pack.dtype,
+                      device=a_pack.device)
     rc = build.load_library().repro_mmt4d(
         a_pack.data_ptr(), b_pack.data_ptr(),
         None if bias_pack is None else bias_pack.data_ptr(), out.data_ptr(),
@@ -241,6 +261,10 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     mmt4d.bias_activation += bias_pack is not None and activation is not None
     mmt4d.expert_batched += experts is not None
     return out
+
+
+def _mmt4d_fake(a_pack, b_pack, bias_pack, activation, unpack_to):
+    return a_pack.new_empty(_out_shape(a_pack, b_pack, unpack_to))
 
 
 mmt4d.launches = 0
@@ -466,16 +490,30 @@ def mmt4d_dgrad(dz_pack: torch.Tensor, b_pack: torch.Tensor,
                          f"{tuple(b_pack.shape)} do not contract")
     dz = dz_pack if experts else _fold(dz_pack)
     z = None if z_pack is None else (z_pack if experts else _fold(z_pack))
-    if dz.device.type == "cpu":
-        out = mmt4d_dgrad_ref(dz, b_pack, z, activation=activation)
-    else:
-        m_o = mo_b if experts else dz.shape[0]
-        out, _ = _launch_gemm("mmt4d_dgrad", "dgrad", dz, b_pack, z,
-                              (m_o, n_o, k_o, m_r, n_r, k_r), False,
-                              activation, experts=experts or 1)
-        mmt4d_dgrad.launches += 1
-        mmt4d_dgrad.expert_batched += experts is not None
-    return out.reshape(*lead, mo_b, k_o, m_r, k_r)
+    return _DGRAD(dz, b_pack, z, activation, None).reshape(
+        *lead, mo_b, k_o, m_r, k_r)
+
+
+def _dgrad_cpu(dz, b_pack, z, activation, splits):
+    return library.fresh(mmt4d_dgrad_ref(dz, b_pack, z, activation=activation),
+                         dz, b_pack)
+
+
+def _dgrad_cuda(dz, b_pack, z, activation, splits):
+    m_o, n_o, m_r, n_r = dz.shape[-4:]
+    k_o, k_r = b_pack.shape[-3], b_pack.shape[-1]
+    expert = b_pack.ndim == 5
+    out, _ = _launch_gemm("mmt4d_dgrad", "dgrad", dz, b_pack, z,
+                          (m_o, n_o, k_o, m_r, n_r, k_r), False, activation,
+                          splits, experts=b_pack.shape[0] if expert else 1)
+    mmt4d_dgrad.launches += 1
+    mmt4d_dgrad.expert_batched += expert
+    return out
+
+
+def _dgrad_fake(dz, b_pack, z, activation, splits):
+    return dz.new_empty((*dz.shape[:-3], b_pack.shape[-3], dz.shape[-2],
+                         b_pack.shape[-1]))
 
 
 def mmt4d_wgrad(dz_pack: torch.Tensor, a_pack: torch.Tensor,
@@ -504,19 +542,49 @@ def mmt4d_wgrad(dz_pack: torch.Tensor, a_pack: torch.Tensor,
     if a.shape[-4] != m_o or a.shape[-2] != m_r:
         raise ValueError(f"mmt4d_wgrad: dz {tuple(dz_pack.shape)} and a "
                          f"{tuple(a_pack.shape)} do not contract")
+    out, dbias = _WGRAD(dz, a, z, activation, bias, bool(experts), None)
+    return out, (dbias if bias else None)
+
+
+def _no_bias(dz):
+    """The second output of a wgrad without a bias: empty (an op's outputs
+    are tensors)."""
+    return dz.new_empty((0,))
+
+
+def _wgrad_cpu(dz, a, z, activation, bias, experts, splits):
+    out, dbias = mmt4d_wgrad_ref(dz, a, z, activation=activation, bias=bias,
+                                 experts=experts)
+    return library.fresh((out, _no_bias(dz) if dbias is None else dbias), dz, a)
+
+
+def _wgrad_cuda(dz, a, z, activation, bias, experts, splits):
+    m_o, n_o, m_r, n_r = dz.shape[-4:]
     k_o, k_r = a.shape[-3], a.shape[-1]
-    if dz.device.type == "cpu":
-        return mmt4d_wgrad_ref(dz, a, z, activation=activation, bias=bias,
-                               experts=experts)
-    out = _launch_gemm("mmt4d_wgrad", "wgrad", dz, a, z,
-                       (m_o, n_o, k_o, m_r, n_r, k_r), bias, activation,
-                       experts=dz.shape[0] if experts else 1)
+    out, dbias = _launch_gemm("mmt4d_wgrad", "wgrad", dz, a, z,
+                              (m_o, n_o, k_o, m_r, n_r, k_r), bias, activation,
+                              splits, experts=dz.shape[0] if experts else 1)
     mmt4d_wgrad.launches += 1
-    mmt4d_wgrad.expert_batched += bool(experts)
-    return out
+    mmt4d_wgrad.expert_batched += experts
+    return out, _no_bias(dz) if dbias is None else dbias
+
+
+def _wgrad_fake(dz, a, z, activation, bias, experts, splits):
+    lead = dz.shape[:1] if experts else ()
+    n_o, n_r = dz.shape[-3], dz.shape[-1]
+    out = dz.new_empty((*lead, n_o, a.shape[-3], n_r, a.shape[-1]))
+    return out, dz.new_empty((*lead, n_o, n_r)) if bias else _no_bias(dz)
 
 
 mmt4d_dgrad.launches = 0
 mmt4d_wgrad.launches = 0
 mmt4d_dgrad.expert_batched = 0    # launches over expert-batched operands
 mmt4d_wgrad.expert_batched = 0
+
+
+library.register("mmt4d", cpu=_mmt4d_cpu, cuda=_mmt4d_cuda, fake=_mmt4d_fake)
+library.register("mmt4d_dgrad", cpu=_dgrad_cpu, cuda=_dgrad_cuda, fake=_dgrad_fake)
+library.register("mmt4d_wgrad", cpu=_wgrad_cpu, cuda=_wgrad_cuda, fake=_wgrad_fake)
+_OP = library.op("mmt4d")
+_DGRAD = library.op("mmt4d_dgrad")
+_WGRAD = library.op("mmt4d_wgrad")

@@ -2,10 +2,12 @@
 and its planner.
 
 Replaces the Pallas ``ragged_attention_kernel_call``
-(src/repro/kernels/ragged_attn/kernel.py:109).  A CPU tensor takes the
-plain version (``ref.py``) and ignores the plan; a CUDA tensor launches the
-kernel or raises.  q and the pools share one dtype (float32 or bfloat16)
-and are contiguous; the index tensors are int32.
+(src/repro/kernels/ragged_attn/kernel.py:109).  The kernel is the op
+``torch.ops.repro_torch.ragged_attn`` (:mod:`repro_torch.kernels.library`,
+the plan's items and split count its last two arguments): a CPU tensor
+takes the plain version (``ref.py``) and ignores the plan, a CUDA tensor
+launches the kernel or raises.  q and the pools share one dtype (float32
+or bfloat16) and are contiguous; the index tensors are int32.
 
 The kernel works from a plan that :func:`plan_ragged` builds on the host
 from the same numpy ``row_ids``/``q_pos`` the caller uploads, so the
@@ -38,7 +40,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
 
 __all__ = ["ragged_attention", "RaggedPlan", "plan_ragged", "pick_splits",
@@ -163,17 +165,30 @@ def ragged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     :func:`plan_ragged` on the same row_ids/q_pos, its items on the card
     (needed there, ignored on the CPU).  Returns [W, Hq, dh]; on the card
     padding positions are zeros."""
-    if q.device.type == "cpu":
-        return ragged_attention_ref(q, k_pages, v_pages,
-                                    block_tables=block_tables,
-                                    row_ids=row_ids, q_pos=q_pos)
-    if plan is None:
+    items, splits = (None, 1) if plan is None else (plan.items, plan.splits)
+    if items is not None and not isinstance(items, torch.Tensor):
+        if q.device.type != "cpu":
+            raise TypeError("ragged_attention: the plan's items must be on the "
+                            "card (RaggedPlan.to)")
+        items = None                   # a host plan: the plain version's
+    return _OP(q, k_pages, v_pages, block_tables, row_ids, q_pos, items, splits)
+
+
+ragged_attention.launches = 0
+
+
+def _ragged_cpu(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
+                splits):
+    return library.fresh(ragged_attention_ref(
+        q, k_pages, v_pages, block_tables=block_tables, row_ids=row_ids,
+        q_pos=q_pos), q, k_pages, v_pages)
+
+
+def _ragged_cuda(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
+                 splits):
+    if items is None:
         raise ValueError("ragged_attention: a CUDA call needs a plan "
                          "(plan_ragged on the host's row_ids and q_pos)")
-    items = plan.items
-    if not isinstance(items, torch.Tensor):
-        raise TypeError("ragged_attention: the plan's items must be on the "
-                        "card (RaggedPlan.to)")
     build.require_cuda("ragged_attention", q, k_pages, v_pages, block_tables,
                        row_ids, q_pos, items)
     code = build.require_dtype("ragged_attention", q.dtype, q, k_pages, v_pages)
@@ -189,12 +204,12 @@ def ragged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if dh2 != dh or tuple(v_pages.shape) != tuple(k_pages.shape) \
             or hq % hkv or row_ids.shape != (w,) or q_pos.shape != (w,) \
             or items.ndim != 2 or items.shape[1] != 6 \
-            or items.shape[0] % plan.splits:
+            or items.shape[0] % splits:
         raise ValueError(f"ragged_attention: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
                          f"row_ids {tuple(row_ids.shape)}, q_pos "
                          f"{tuple(q_pos.shape)}, plan {tuple(items.shape)} "
-                         f"x {plan.splits} do not agree")
+                         f"x {splits} do not agree")
     if t != TILE or dh not in HEAD_WIDTHS:
         raise ValueError(f"ragged_attention: pages of {t} tokens, d_head {dh}; "
                          f"the kernel takes pages of {TILE} and d_head in "
@@ -203,11 +218,18 @@ def ragged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     rc = build.load_library().repro_ragged_attn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), items.data_ptr(), out.data_ptr(), code, dh,
-        items.shape[0], plan.splits, hq, hkv, block_tables.shape[1],
+        items.shape[0], splits, hq, hkv, block_tables.shape[1],
         build.stream_of(q))
     build.check(rc, "ragged_attention")
     ragged_attention.launches += 1
     return out
 
 
-ragged_attention.launches = 0
+def _ragged_fake(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
+                 splits):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+library.register("ragged_attn", cpu=_ragged_cpu, cuda=_ragged_cuda,
+                 fake=_ragged_fake)
+_OP = library.op("ragged_attn")

@@ -8,8 +8,11 @@ Replaces no Pallas kernel: the JAX package runs the recurrence as a
 ``lax.associative_scan`` (src/repro/models/mamba.py:79, ``_ssm_scan``)
 over ``[B, S, di, N]`` float32 tensors, which the port would otherwise
 build three of a layer and loop over in about two launches per token.
-A CPU tensor takes the plain versions (``ref.py``); a CUDA tensor
-launches the kernels or raises.  ``x``, ``z``, ``b`` and ``c`` may be
+The kernels are the ops ``torch.ops.repro_torch.selective_scan`` and
+``repro_torch.selective_scan_bwd`` (:mod:`repro_torch.kernels.library`;
+the state and the checkpoints are declared written in place): a CPU
+tensor takes the plain versions (``ref.py``), a CUDA tensor launches the
+kernels or raises.  ``x``, ``z``, ``b`` and ``c`` may be
 views with a unit channel stride (``z`` a slice of the in-projection's
 output, ``b`` and ``c`` of the x-projection's), read in place; the state
 width N is one of :data:`STATE_WIDTHS`.
@@ -26,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 from repro_torch.kernels.selective_scan.ref import (scan_chunk,
                                                     selective_scan_bwd_ref,
                                                     selective_scan_ref)
@@ -75,9 +78,16 @@ def _check(name, delta, x, z, b, c, a_log, d_skip, state, *extra):
 
 
 def _forward(delta, x, z, b, c, a_log, d_skip, state, ckpt):
-    if delta.device.type == "cpu":
-        return selective_scan_ref(delta, x, z, b, c, a_log, d_skip, state,
-                                  ckpt=ckpt)
+    return _OP(delta, x, z, b, c, a_log, d_skip, state, ckpt)
+
+
+def _scan_cpu(delta, x, z, b, c, a_log, d_skip, state, ckpt):
+    return library.fresh(selective_scan_ref(delta, x, z, b, c, a_log, d_skip,
+                                            state, ckpt=ckpt),
+                         delta, x, z, b, c, a_log, d_skip, state)
+
+
+def _scan_cuda(delta, x, z, b, c, a_log, d_skip, state, ckpt):
     name = "selective_scan"
     code = _check(name, delta, x, z, b, c, a_log, d_skip, state)
     rows, s, di = delta.shape
@@ -97,6 +107,10 @@ def _forward(delta, x, z, b, c, a_log, d_skip, state, ckpt):
     build.check(rc, name)
     selective_scan.launches += 1
     return y
+
+
+def _scan_fake(delta, x, z, b, c, a_log, d_skip, state, ckpt):
+    return x.new_empty(delta.shape)
 
 
 def selective_scan(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
@@ -136,8 +150,10 @@ class _ScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        return selective_scan_bwd(*ctx.saved_tensors[:8], dout.contiguous(),
-                                  ctx.saved_tensors[8])
+        # saved_tensors read once: under a checkpoint (remat) each read
+        # unpacks the saved tensors again, which the checkpoint refuses
+        saved = ctx.saved_tensors
+        return selective_scan_bwd(*saved[:8], dout.contiguous(), saved[8])
 
 
 def selective_scan_bwd(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
@@ -152,9 +168,16 @@ def selective_scan_bwd(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     selective_scan.ref.selective_scan_bwd_ref`; a CUDA tensor launches
     the backward kernel (and the sums of its per-cluster and per-row
     partials, in order) or raises."""
-    if delta.device.type == "cpu":
-        return selective_scan_bwd_ref(delta, x, z, b, c, a_log, d_skip, h0,
-                                      dout, ckpt)
+    return _BWD(delta, x, z, b, c, a_log, d_skip, h0, dout, ckpt)
+
+
+def _bwd_cpu(delta, x, z, b, c, a_log, d_skip, h0, dout, ckpt):
+    return library.fresh(selective_scan_bwd_ref(delta, x, z, b, c, a_log,
+                                                d_skip, h0, dout, ckpt),
+                         delta, x, z, b, c, a_log, d_skip, h0, dout, ckpt)
+
+
+def _bwd_cuda(delta, x, z, b, c, a_log, d_skip, h0, dout, ckpt):
     name = "selective_scan_bwd"
     code = _check(name, delta, x, z, b, c, a_log, d_skip, h0, dout, ckpt)
     rows, s, di = delta.shape
@@ -191,4 +214,21 @@ def selective_scan_bwd(delta: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     return ddelta, dx, dz, db, dc, da_log, dd, dh0
 
 
+def _bwd_fake(delta, x, z, b, c, a_log, d_skip, h0, dout, ckpt):
+    rows, s, _ = delta.shape
+    n = a_log.shape[-1]
+    like = lambda t: torch.empty_like(t, memory_format=torch.contiguous_format)
+    return (like(delta), x.new_empty(delta.shape), x.new_empty(delta.shape),
+            x.new_empty((rows, s, n)), x.new_empty((rows, s, n)), like(a_log),
+            like(d_skip), like(h0))
+
+
 selective_scan_bwd.launches = 0
+
+
+library.register("selective_scan", cpu=_scan_cpu, cuda=_scan_cuda,
+                 fake=_scan_fake)
+library.register("selective_scan_bwd", cpu=_bwd_cpu, cuda=_bwd_cuda,
+                 fake=_bwd_fake)
+_OP = library.op("selective_scan")
+_BWD = library.op("selective_scan_bwd")

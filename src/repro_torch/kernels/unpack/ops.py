@@ -1,9 +1,11 @@
 """Wrapper of the unpack kernel (``csrc/unpack.cu``).
 
 Replaces the Pallas ``unpack_kernel_call``
-(src/repro/kernels/unpack/kernel.py:31).  A CPU tensor takes the plain
-version (``ref.py``); a CUDA tensor launches the kernel or raises.  Takes
-leading batch dims; the packed input must be contiguous.
+(src/repro/kernels/unpack/kernel.py:31).  The kernel is the op
+``torch.ops.repro_torch.unpack`` (:mod:`repro_torch.kernels.library`): a
+CPU tensor takes the plain version (``ref.py``), a CUDA tensor launches
+the kernel or raises.  Takes leading batch dims; the packed input must be
+contiguous.
 
 Each thread copies 16 bytes of one output row (8 bf16 or 4 float32).  That
 needs ``k`` and the tile width ``t1`` to be multiples of those 16 bytes'
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 from repro_torch.kernels.unpack.ref import unpack_ref
 
 __all__ = ["unpack", "vector_path", "empty_launch"]
@@ -41,15 +43,25 @@ def vector_path(a_pack: torch.Tensor, out: torch.Tensor, k: int) -> bool:
 
 def unpack(a_pack: torch.Tensor, m: int, k: int) -> torch.Tensor:
     """A_pack[..., M_o, K_o, t0, t1] -> A[..., m, k] (contiguous)."""
-    if a_pack.device.type == "cpu":
-        return unpack_ref(a_pack, m, k)
+    *_, mo, ko, t0, t1 = a_pack.shape
+    if not (0 <= m <= mo * t0 and 0 <= k <= ko * t1):
+        raise ValueError(f"unpack: ({m}, {k}) outside the packed extent "
+                         f"({mo * t0}, {ko * t1})")
+    return _OP(a_pack, m, k)
+
+
+unpack.launches = 0
+
+
+def _unpack_cpu(a_pack, m, k):
+    return library.fresh(unpack_ref(a_pack, m, k), a_pack)
+
+
+def _unpack_cuda(a_pack, m, k):
     build.require_cuda("unpack", a_pack)
     code = build.require_dtype("unpack", a_pack.dtype, a_pack)
     build.require_contiguous("unpack", a_pack=a_pack)
     *lead, mo, ko, t0, t1 = a_pack.shape
-    if not (0 <= m <= mo * t0 and 0 <= k <= ko * t1):
-        raise ValueError(f"unpack: ({m}, {k}) outside the packed extent "
-                         f"({mo * t0}, {ko * t1})")
     out = torch.empty((*lead, m, k), dtype=a_pack.dtype, device=a_pack.device)
     batch = a_pack.numel() // max(1, mo * ko * t0 * t1)
     rc = build.load_library().repro_unpack(
@@ -60,7 +72,12 @@ def unpack(a_pack: torch.Tensor, m: int, k: int) -> torch.Tensor:
     return out
 
 
-unpack.launches = 0
+def _unpack_fake(a_pack, m, k):
+    return a_pack.new_empty((*a_pack.shape[:-4], m, k))
+
+
+library.register("unpack", cpu=_unpack_cpu, cuda=_unpack_cuda, fake=_unpack_fake)
+_OP = library.op("unpack")
 
 
 def empty_launch(like: torch.Tensor, wait: bool = False) -> None:

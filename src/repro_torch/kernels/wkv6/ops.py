@@ -5,10 +5,13 @@ Replaces no Pallas kernel: the JAX package runs the recurrence as a
 ``lax.scan`` (src/repro/models/rwkv6.py:87, ``_wkv_scan``), which the
 port would otherwise run as a Python loop of small launches per token,
 and differentiates it through the scan, checkpointed per 128-token chunk.
-A CPU tensor takes the plain versions (``ref.py``); a CUDA tensor launches
-the kernels or raises.  Every operand is float32 and contiguous; the head
-width is one of :data:`HEAD_WIDTHS`.  ``state_out`` may be ``s0`` itself:
-the serving caches update their per-slot state in place.
+The kernels are the ops ``torch.ops.repro_torch.wkv6`` and
+``repro_torch.wkv6_bwd`` (:mod:`repro_torch.kernels.library`; the state
+and the checkpoints are declared written in place): a CPU tensor takes the
+plain versions (``ref.py``), a CUDA tensor launches the kernels or
+raises.  Every operand is float32 and contiguous; the head width is one
+of :data:`HEAD_WIDTHS`.  ``state_out`` may be ``s0`` itself: the serving
+caches update their per-slot state in place.
 
 Under autograd :func:`wkv6` is a ``torch.autograd.Function``: its forward
 also writes the state at every chunk boundary (``ckpt``), its backward is
@@ -22,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv6_bwd_ref, wkv6_ref
 
 __all__ = ["wkv6", "wkv6_bwd", "checkpoints", "HEAD_WIDTHS"]
@@ -56,24 +59,36 @@ def _check(name, r, k, v, w, u, s0, *extra):
 
 
 def _forward(r, k, v, w, u, s0, state_out, ckpt):
-    if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, w, u, s0, state_out=state_out, ckpt=ckpt)
     out = torch.empty_like(s0) if state_out is None else state_out
-    _check("wkv6", r, k, v, w, u, s0, out, *(() if ckpt is None else (ckpt,)))
-    if out.shape != s0.shape or (ckpt is not None
-                                 and ckpt.shape != checkpoints(r).shape):
-        raise ValueError(f"wkv6: state_out {tuple(out.shape)}, ckpt "
+    return _OP(r, k, v, w, u, s0, out, ckpt), out
+
+
+def _wkv6_cpu(r, k, v, w, u, s0, state_out, ckpt):
+    y, _ = wkv6_ref(r, k, v, w, u, s0, state_out=state_out, ckpt=ckpt)
+    return library.fresh(y, r, k, v, w, u, s0, state_out)
+
+
+def _wkv6_cuda(r, k, v, w, u, s0, state_out, ckpt):
+    _check("wkv6", r, k, v, w, u, s0, state_out,
+           *(() if ckpt is None else (ckpt,)))
+    if state_out.shape != s0.shape or (ckpt is not None
+                                       and ckpt.shape != checkpoints(r).shape):
+        raise ValueError(f"wkv6: state_out {tuple(state_out.shape)}, ckpt "
                          f"{None if ckpt is None else tuple(ckpt.shape)}")
     b, s, h, dh = r.shape
     y = torch.empty_like(r)
     rc = build.load_library().repro_wkv6(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        s0.data_ptr(), y.data_ptr(), out.data_ptr(),
+        s0.data_ptr(), y.data_ptr(), state_out.data_ptr(),
         None if ckpt is None or ckpt.numel() == 0 else ckpt.data_ptr(),
         b, s, h, dh, build.stream_of(r))
     build.check(rc, "wkv6")
     wkv6.launches += 1
-    return y, out
+    return y
+
+
+def _wkv6_fake(r, k, v, w, u, s0, state_out, ckpt):
+    return torch.empty_like(r, memory_format=torch.contiguous_format)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -127,8 +142,15 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`~repro_torch.kernels.wkv6.ref.wkv6_bwd_ref`; a CUDA tensor
     launches the backward kernel (and the sum of its per-row ``du``
     partials, in row order) or raises."""
-    if r.device.type == "cpu":
-        return wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds, ckpt)
+    return _BWD(r, k, v, w, u, s0, dy, ds, ckpt)
+
+
+def _bwd_cpu(r, k, v, w, u, s0, dy, ds, ckpt):
+    return library.fresh(wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds, ckpt),
+                         r, k, v, w, u, s0, dy, ds, ckpt)
+
+
+def _bwd_cuda(r, k, v, w, u, s0, dy, ds, ckpt):
     name = "wkv6_bwd"
     _check(name, r, k, v, w, u, s0, dy, ckpt, *(() if ds is None else (ds,)))
     b, s, h, dh = r.shape
@@ -153,4 +175,15 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dr, dk, dv, dw, du, ds0
 
 
+def _bwd_fake(r, k, v, w, u, s0, dy, ds, ckpt):
+    like = lambda t: torch.empty_like(t, memory_format=torch.contiguous_format)
+    return like(r), like(r), like(r), like(r), like(u), like(s0)
+
+
 wkv6_bwd.launches = 0
+
+
+library.register("wkv6", cpu=_wkv6_cpu, cuda=_wkv6_cuda, fake=_wkv6_fake)
+library.register("wkv6_bwd", cpu=_bwd_cpu, cuda=_bwd_cuda, fake=_bwd_fake)
+_OP = library.op("wkv6")
+_BWD = library.op("wkv6_bwd")

@@ -21,7 +21,16 @@ taken, the experts over their capacity rows (``blocks · capacity(P /
 blocks)`` rounded to m_r), the routers, attention over the whole window
 ``4·P·Hq·dh·win`` a layer (whisper's encoder and cross-attention too),
 the recurrences' own work a token; a train step is the forward three
-times (backward twice), four with ``remat``.  Each device takes a data
+times (backward twice), four with ``remat``, plus what its backward
+computes again: the pre-activation of every packed product with an
+activation (the gate of a GLU MLP or expert, a plain MLP's up
+projection, RWKV-6's channel-mix key; ``core/mmt4d.py`` recomputes it
+rather than save it) and, past 512 positions, the score product of each
+chunk of ``chunked_attention`` (its checkpoint); whisper's frontend and
+the vlm's vision projection, which take data, run twice (forward and
+weight gradient: no input gradient, outside ``remat``).  The step traced with
+fake tensors counts the same FLOPs exactly
+(``tests/test_torch_graph_cost.py``; ROADMAP C13).  Each device takes a data
 shard's tokens where the batch divides over the data axes (attention:
 a share of every data device's, a batch they do not divide being
 sequence-sharded), and each product's share over "model" as its
@@ -101,7 +110,7 @@ from repro_torch.core.hardware import HardwareSpec, query
 from repro_torch.core.layout import round_up
 from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import ABSTRACT_MESHES, axis_sizes, dp_axes
-from repro_torch.models.model import build_model
+from repro_torch.models.model import MetaGenerator, build_model
 from repro_torch.models.moe import capacity, dispatch_blocks
 from repro_torch.obs.attrib import _layer_costs
 from repro_torch.roofline.analysis import roofline_terms
@@ -110,17 +119,6 @@ from repro_torch.training.train_state import TrainState
 
 __all__ = ["MetaGenerator", "Cell", "build_cell", "cell_counts", "run_cell",
            "serving_cell", "main"]
-
-
-class MetaGenerator(torch.Generator):
-    """A CPU generator whose ``device`` is the meta device.  The model's
-    init draws every leaf with ``device=generator.device``, so through it
-    the init builds the parameter tree's paths, shapes and dtypes and
-    allocates nothing (drawing from a CPU generator onto meta is allowed)."""
-
-    @property
-    def device(self) -> torch.device:
-        return torch.device("meta")
 
 
 @dataclasses.dataclass
@@ -241,6 +239,10 @@ def forward_costs(model, kind: str, params, p_specs, mesh) -> dict:
     flops = dict.fromkeys(("linear", "head", "moe", "router", "recurrent",
                            "attention"), 0.0)
     act, head_share = 0.0, 1
+    activated = 0.0     # the products whose epilogue applies an activation
+    data_input = 0.0    # the products whose input is data (no input gradient)
+    act_names = {"wk"} | ({"wg"} if cfg.glu else {"wu"})
+    packed = model.ctx.packed
     flat_s = sharding.tree_paths(p_specs)
     for path, leaf in sharding.tree_paths(params).items():
         share = _model_share(flat_s[path], sizes)
@@ -259,12 +261,14 @@ def forward_costs(model, kind: str, params, p_specs, mesh) -> dict:
         stacked = "groups/" in path
         lead = leaf.shape[0] if stacked else 1
         mat = tuple(leaf.shape[1:] if stacked else leaf.shape)
+        fused_act = packed and "/ffn/" in path and parent in act_names
         if parent == "router":      # [G, d, E], float32, unpacked
             flops["router"] += 2 * p * lead * mat[0] * mat[1] / share
         elif len(mat) == 3:         # an expert stack [G, E, K, N]
             e, k, n = mat
-            flops["moe"] += (2 * moe_rows * lead * e * round_up(k, k_r)
-                             * round_up(n, n_r) / share)
+            f = 2 * moe_rows * lead * e * round_up(k, k_r) * round_up(n, n_r) / share
+            flops["moe"] += f
+            activated += f if fused_act else 0.0
             act += cfg.top_k * p * lead * (k + n) * itemsize / share
         else:
             k, n = mat
@@ -275,8 +279,10 @@ def forward_costs(model, kind: str, params, p_specs, mesh) -> dict:
                 rows, toks = vis_rows
             else:
                 rows, toks = dec_rows
-            flops["linear"] += (2 * rows * lead * round_up(k, k_r)
-                                * round_up(n, n_r) / share)
+            f = 2 * rows * lead * round_up(k, k_r) * round_up(n, n_r) / share
+            flops["linear"] += f
+            activated += f if fused_act else 0.0
+            data_input += f if path in ("frontend_proj/w", "vision_proj/w") else 0.0
             act += toks * lead * (k + n) * itemsize / share
     for i, t in enumerate(cfg.layer_types):
         rec = _layer_costs(cfg, t, itemsize, cfg.moe_on_layer(i))[1]
@@ -287,8 +293,21 @@ def forward_costs(model, kind: str, params, p_specs, mesh) -> dict:
         attn += 4 * p * cfg.n_heads * cfg.d_head * s_e * cfg.n_layers
         if whole:
             attn += 4 * b * s_e * cfg.n_heads * cfg.d_head * s_e * cfg.encoder_layers
-    flops["attention"] = attn / attention_share(cfg, p_specs, sizes)
-    return {"flops": flops, "act_bytes": act, "head_share": head_share}
+    a_share = attention_share(cfg, p_specs, sizes)
+    flops["attention"] = attn / a_share
+    # chunked_attention (models/attention.py: past 512 positions) recomputes
+    # each chunk's score product, half of its attention, in the backward
+    chunked = lambda n: kind == "train" and n > 512 and n % 512 == 0
+    scores = 0.0
+    if chunked(seq):
+        scores += 2 * p * cfg.n_heads * cfg.d_head * seq * (
+            cfg.n_layers if cfg.family == "encdec"
+            else cfg.layer_types.count("attn"))
+    if cfg.family == "encdec" and chunked(s_e):
+        scores += 2 * b * s_e * cfg.n_heads * cfg.d_head * s_e * cfg.encoder_layers
+    return {"flops": flops, "act_bytes": act, "head_share": head_share,
+            "activated": activated, "data_input": data_input,
+            "scores": scores / a_share}
 
 
 def _without(specs, axes: tuple):
@@ -363,6 +382,16 @@ def cell_counts(cell: Cell) -> dict:
     parts = {k: (3 if train and k == "head" else passes) * v
              / (dp if k == "attention" else dp_eff)
              for k, v in costs["flops"].items()}
+    # what a train step's backward computes again beyond the passes: the
+    # pre-activation Z of each packed product with an activation
+    # (core/mmt4d.py recomputes it rather than save it) and chunked
+    # attention's score products
+    parts["recompute"] = (costs["activated"] / dp_eff + costs["scores"] / dp
+                          if train else 0.0)
+    if train:
+        # whisper's frontend and the vlm's vision projection take data:
+        # outside remat and with no input gradient, two passes
+        parts["linear"] -= (passes - 2) * costs["data_input"] / dp_eff
     flops = sum(parts.values())
 
     itemsize = model.compute_dtype.itemsize

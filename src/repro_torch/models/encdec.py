@@ -63,14 +63,16 @@ def encdec_init(generator: torch.Generator, cfg: ModelConfig, run: RunConfig,
 
 def encode(params: dict, frames: torch.Tensor, ctx: MatmulContext,
            cfg: ModelConfig, run: RunConfig) -> torch.Tensor:
-    """frames [B, S_enc, d] -> the encoder output [B, S_enc, d]."""
-    del run
+    """frames [B, S_enc, d] -> the encoder output [B, S_enc, d].
+    ``run.remat`` recomputes each layer's forward on the backward pass, as
+    the JAX package's ``layers_apply`` does."""
     s = frames.shape[1]
     x = linear_apply(params["frontend_proj"], frames, ctx)
     x = x + params["pe_enc"][:s].to(x.dtype)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     x = tfm.layers_apply(params["enc_groups"], maybe_pack(x, ctx), ctx,
-                         enc_config(cfg), positions=positions, causal=False)
+                         enc_config(cfg), positions=positions, causal=False,
+                         remat=run.remat)
     return maybe_unpack(norm_apply(params["enc_ln_f"], x, cfg.norm))
 
 
@@ -78,14 +80,15 @@ def decode_train(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
                  ctx: MatmulContext, cfg: ModelConfig,
                  run: RunConfig) -> torch.Tensor:
     """The decoder over whole sequences ``tokens`` [B, S], attending over
-    ``enc_out``.  Returns logits [B, S, V]."""
-    del run
+    ``enc_out``.  Returns logits [B, S, V]; ``run.remat`` as for
+    :func:`encode`."""
     s = tokens.shape[1]
     x = embed_apply(params["embed"], tokens)
     x = x + params["pe_dec"][:s].to(x.dtype)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     x = tfm.layers_apply(params["dec_groups"], maybe_pack(x, ctx), ctx, cfg,
-                         positions=positions, causal=True, enc_out=enc_out)
+                         positions=positions, causal=True, enc_out=enc_out,
+                         remat=run.remat)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return tfm.logits_apply(params, x, ctx, cfg)
 

@@ -41,7 +41,8 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed_apply
 
-__all__ = ["ReproModel", "CompiledStep", "GraphTable", "capture_graph", "build_model"]
+__all__ = ["ReproModel", "CompiledStep", "GraphTable", "capture_graph", "build_model",
+           "MetaGenerator"]
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
@@ -559,13 +560,17 @@ def capture_graph(model: ReproModel, pool, fn: Callable) -> Capture:
         t0 = time.perf_counter()
         # no cyclic garbage collection inside the capture: it could
         # destroy a dropped owner's graphs, and releasing their pool frees
-        # device memory, which a capture forbids
+        # device memory, which a capture forbids.  disable() stops the
+        # automatic collections; freeze() puts every object tracked now out
+        # of reach of a gc.collect() another thread makes meanwhile
         collecting = gc.isenabled()
         gc.disable()
+        gc.freeze()
         try:
             with torch.cuda.graph(graph, pool=pool, stream=s):
                 out = fn()
         finally:
+            gc.unfreeze()
             if collecting:
                 gc.enable()
         seconds = time.perf_counter() - t0
@@ -583,6 +588,18 @@ def _data_group(mesh):
     if len(dims) == 1:
         return mesh.get_group(dims[0])
     return mesh[tuple(dims)]._flatten().get_group()
+
+
+class MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is the meta device.  The model's
+    init draws every leaf with ``device=generator.device``, so through it
+    the init builds the parameter tree's paths, shapes and dtypes and
+    allocates nothing (drawing from a CPU generator onto meta is allowed):
+    the dry-run's trees and the analyzer's fake engines."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 def build_model(cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,

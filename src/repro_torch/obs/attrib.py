@@ -14,8 +14,12 @@ the warmup loop), priced against a
     predicted_s = max(compute_s, memory_s)        (the roofline)
 
 The JAX package reads both counts from XLA's cost analysis of each
-lowered family.  The port has no compiler to ask, and needs none: the
-counts are closed forms of the engine's own geometry.
+lowered family.  The port builds them at warmup on the card, where a
+trace would cost more than the closed forms of the engine's own
+geometry below; the traced graph is their check: the FLOPs of every step
+family equal ``dot_flops`` of the step traced with fake tensors
+(:func:`repro_torch.roofline.graph_cost.step_cost`), exactly
+(``tests/test_torch_graph_cost.py::test_cost_model_equals_traced_graph``).
 
 **FLOPs.**  With the layout tiles ``(m_r, n_r, k_r)``, ``L_a`` attention
 layers of ``Hq`` query heads of width ``dh``, ``ru(x, t)`` = ``x``
@@ -37,9 +41,11 @@ same ``[d, vocab]`` product) over the ``R`` gathered rows, attention over
 the whole window, and the recurrent layers' own work per token ``rec``,
 unpadded: RWKV-6's decay LoRA (``2·2·d·64``, a plain float32 product)
 and its recurrence (``4·H·dh²``: the read-out and the state update, two
-multiply-adds per state element); mamba's ``dt_proj`` (``2·dt_rank·di``),
-its convolution (``2·d_conv·di``) and its scan (``4·di·N``: update and
-read-out).  A moe layer's FFN (``cfg.moe_on_layer``) is no MLP in
+multiply-adds per state element); mamba's ``dt_proj`` (``2·dt_rank·di``)
+and its scan (``4·di·N``: update and read-out).  Mamba's depthwise
+convolution is ``d_conv`` elementwise multiply-adds, which count nothing
+here as no other elementwise chain does (ROADMAP C12: counted until PR 32,
+where the traced graph showed no product there).  A moe layer's FFN (``cfg.moe_on_layer``) is no MLP in
 ``lin``: with ``C = capacity(P)`` (every token of the step routes, pads
 included) its term is ``moe = 2·E·ru(C, m_r)·Σ ru(K, k_r)·ru(N, n_r)``
 over the expert linears (gate, up, down of ``d x d_ff_expert``: every
@@ -51,7 +57,7 @@ reports for the JAX package's families, to the FLOP
 Qwen2-7B's QKV bias and Qwen3-8B's qk_norm and untied head, and for
 qwen3-moe's and arctic's expert products); with them,
 XLA's count is the port's less the parts that are no dot: the
-recurrences' state updates and mamba's convolution (ROADMAP C8).  A
+recurrences' state updates (ROADMAP C8).  A
 bias, a norm (RWKV-6's group norm included) and the qk-norm are no dots,
 and count nothing.  A static engine (the encdec and vlm families, whose vision
 prefix runs in the static loop's prefill) has no warmup and no cost model,
@@ -213,7 +219,7 @@ def _layer_costs(cfg, t: str, itemsize: int, moe_layer: bool = False) -> tuple:
         di, n = cfg.mamba_expand * d, cfg.mamba_d_state
         dt_rank = -(-d // 16)
         return ([(d, 2 * di), (di, dt_rank + 2 * n), (di, d)] + mlp,
-                2 * dt_rank * di + 2 * cfg.mamba_d_conv * di + 4 * di * n,
+                2 * dt_rank * di + 4 * di * n,
                 itemsize * dt_rank * di)
     dh, hq, hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     return ([(d, hq * dh), (d, hkv * dh), (d, hkv * dh), (hq * dh, d)] + mlp,

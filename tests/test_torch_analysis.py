@@ -14,10 +14,15 @@ on the other:
   step width outside the ladder each raise ``SanitizerError`` in both, at
   the same page; a planted refcount the audit finds in both;
 - ``REPRO_SANITIZE=1`` installs the sanitizer at construction;
-- the shape-ladder linter's host half (``repro_torch.analysis.shapes``)
-  beside the reference's ``lint_engine_shapes(trace=False)``: both clean
-  on the same engines, with the same step families, and a planted
-  off-ladder width or mis-aligned chunk found by both.
+- the shape-ladder linter (``repro_torch.analysis.shapes``) beside the
+  reference's ``lint_engine_shapes``: both clean on the same engines, with
+  the same step families, with and without the traced audit of every
+  family (``trace=True``), and a planted off-ladder width or mis-aligned
+  chunk found by both;
+- the KV-write aliasing pass (``lint_engine_aliasing``) clean on every
+  configuration of both packages' ``CONFIG_MATRIX``; a flat update with
+  its ``where`` guard removed flagged ``unguarded-write`` by both, and a
+  step with an ``.item()`` flagged ``static-dims`` by the port.
 """
 
 import re
@@ -258,8 +263,8 @@ def test_shape_ladders_clean_beside_reference(models, config):
         [label for label, *_ in jshapes.step_families(jeng)]
     for label, g in shapes.step_families(eng):
         assert label.split("[")[1].split("]")[0] == f"{g.batch},{g.seq}"
-    with pytest.raises(NotImplementedError, match="no PyTorch counterpart"):
-        shapes.lint_engine_shapes(eng, config, trace=True)
+    assert shapes.lint_engine_shapes(eng, config, trace=True) == []
+    assert jshapes.lint_engine_shapes(jeng, config, trace=True) == []
 
 
 def test_planted_off_ladder_widths_found_by_both(models):
@@ -283,3 +288,89 @@ def test_planted_off_ladder_widths_found_by_both(models):
     assert [(f.rule, f.message) for f in got] == \
         [(f.rule, f.message) for f in want]
     assert "chunk-align" in {f.rule for f in got}
+
+
+# ---------------------------------------------------------------------------
+# the traced passes: KV-write aliasing and the static-dims audit
+# ---------------------------------------------------------------------------
+
+from repro.analysis.aliasing import lint_engine_aliasing as jlint_aliasing  # noqa: E402
+from repro.analysis.aliasing import lint_kv_writes as jlint_kv_writes  # noqa: E402
+from repro.analysis.aliasing import taint_step as jtaint_step  # noqa: E402
+from repro.analysis.runner import CONFIG_MATRIX as JMATRIX  # noqa: E402
+from repro_torch.analysis import aliasing  # noqa: E402
+from repro_torch.analysis.runner import CONFIG_MATRIX  # noqa: E402
+
+
+@pytest.mark.parametrize("config", [label for label, _ in CONFIG_MATRIX])
+def test_kv_aliasing_clean_on_every_config_beside_reference(models, config):
+    jm, jparams, m, params = models
+    assert [label for label, _ in CONFIG_MATRIX] == [label for label, _ in JMATRIX]
+    kw = dict(max_slots=3, page_tokens=T, **dict(CONFIG_MATRIX)[config])
+    eng, jeng = Engine(m, params, device="cpu", **kw), JEngine(jm, jparams, **kw)
+    assert aliasing.lint_engine_aliasing(eng, config) == []
+    assert jlint_aliasing(jeng, config) == []
+
+
+def test_unguarded_flat_update_flagged_by_both():
+    """The flat update with its where guard removed: padding positions
+    (row -1) would write a real row's page.  Both walkers find the write
+    indexed by the block tables alone."""
+    import jax.numpy as jnp
+
+    def jbad(cache, k, v, bt, row_ids, q_pos):
+        t = cache["k_pages"].shape[1]
+        page = bt[jnp.maximum(row_ids, 0), q_pos // t]
+        return {"k_pages": cache["k_pages"].at[page, q_pos % t].set(k[0]),
+                "v_pages": cache["v_pages"].at[page, q_pos % t].set(v[0])}
+
+    def bad(cache, k, v, bt, row_ids, q_pos):
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        t = kp.shape[1]
+        page = bt[row_ids.long().clamp(min=0), q_pos.long() // t].long()
+        kp[page, q_pos.long() % t] = k[0]
+        vp[page, q_pos.long() % t] = v[0]
+        return cache
+
+    S = jax.ShapeDtypeStruct
+    shp, w = (9, T, 1, 16), 16
+    meta = lambda s, d=torch.float32: torch.empty(s, dtype=d, device="meta")
+    roles = {0: lambda p: "pages" if "_pages" in p else None,
+             3: "block_tables", 4: "validity", 5: "validity"}
+    jw = jtaint_step(jbad, ({"k_pages": S(shp, jnp.float32),
+                             "v_pages": S(shp, jnp.float32)},
+                            S((1, w, 1, 16), jnp.float32), S((1, w, 1, 16), jnp.float32),
+                            S((3, 8), jnp.int32), S((w,), jnp.int32),
+                            S((w,), jnp.int32)), roles)
+    pw = aliasing.taint_step(bad, ({"k_pages": meta(shp), "v_pages": meta(shp)},
+                                   meta((1, w, 1, 16)), meta((1, w, 1, 16)),
+                                   meta((3, 8), torch.int32), meta((w,), torch.int32),
+                                   meta((w,), torch.int32)), roles)
+    got = aliasing.lint_kv_writes(pw, "seeded", expect_writes=2)
+    want = jlint_kv_writes(jw, "seeded", expect_writes=2)
+    assert [f.rule for f in got] == [f.rule for f in want] == ["unguarded-write"] * 2
+    assert all("trash0" in f.message for f in got + want)
+
+
+def test_host_sync_in_a_step_is_a_static_dims_finding(models, monkeypatch):
+    """A step that reads a value back to the host (an ``.item()``) cannot
+    be captured once per shape: the traced audit reports it as a
+    static-dims finding naming the op and the line, instead of crashing."""
+    _, _, m, params = models
+    eng = Engine(m, params, device="cpu", max_slots=3, page_tokens=T,
+                 chunk_tokens=16)
+    real = m.flat_decode_step
+
+    def syncing(params, caches, token, *rest, **kw):
+        token = token + int(token.sum().item()) * 0      # a host round trip
+        return real(params, caches, token, *rest, **kw)
+
+    monkeypatch.setattr(m, "flat_decode_step", syncing)
+    found = shapes.lint_engine_shapes(eng, "seeded", trace=True)
+    assert {f.rule for f in found} == {"static-dims"}
+    assert len(found) == len(shapes.step_families(eng))
+    line = syncing.__code__.co_firstlineno + 1
+    assert all(f.where == f"aten._local_scalar_dense @ {__file__}:{line}"
+               for f in found), [f.where for f in found]
+    monkeypatch.undo()
+    assert shapes.lint_engine_shapes(eng, "clean", trace=True) == []

@@ -216,13 +216,14 @@ def test_config_matrix_is_the_reference():
 def test_run_all_green():
     report = run_all(device="cpu")
     assert report.ok, report.format()
-    # the reference's count (tests/test_analysis.py): the two lint sections
-    # and four per configuration (here shapes, sanitizer, retrace, ledger)
-    assert len(report.sections) == 2 + 4 * len(CONFIG_MATRIX)
+    # the reference's count (tests/test_analysis.py: at least the two lint
+    # sections and four per configuration: shapes, aliasing, retrace,
+    # ledger); the port adds its sanitizer's
+    assert len(report.sections) == 2 + 5 * len(CONFIG_MATRIX)
     labels = [label for label, _ in JCONFIG_MATRIX]
     for label in labels:
         assert [s.split(":")[1] for s in report.sections
-                if s.startswith(label + ":")] == ["shapes", "sanitizer",
+                if s.startswith(label + ":")] == ["shapes", "aliasing", "sanitizer",
                                                    "retrace", "pool-ledger"]
 
 
@@ -243,5 +244,5 @@ def test_runner_sees_a_planted_retrace(monkeypatch):
     report = runner.analyze_engine(model, params, "flat", dict(chunk_tokens=16))
     assert [(f.pass_name, f.rule) for f in report.findings] == \
         [("retrace", "unwarmed-kind")], report.format()
-    assert report.sections == ["flat:shapes", "flat:sanitizer", "flat:retrace",
-                               "flat:pool-ledger"]
+    assert report.sections == ["flat:shapes", "flat:aliasing", "flat:sanitizer",
+                               "flat:retrace", "flat:pool-ledger"]

@@ -254,8 +254,8 @@ def _recurrent_work_not_dots(m, label: str) -> float:
     """FLOPs the port counts for a recurrent layer that the reference's
     dot count cannot see (ROADMAP C8): RWKV-6's state update (2 H dh^2 a
     token: w S + k v is no dot; its read-out einsum is one) and mamba's
-    scan update (2 di N) and convolution (2 d_conv di), over the step's
-    tokens."""
+    scan update (2 di N), over the step's tokens.  Mamba's convolution
+    is elementwise and counted by neither (ROADMAP C12)."""
     cfg = m.cfg
     b, s = (int(x) for x in label[label.index("[") + 1:label.index("]")].split(","))
     per = 0
@@ -264,7 +264,7 @@ def _recurrent_work_not_dots(m, label: str) -> float:
             per += 2 * (cfg.d_model // cfg.rwkv_head_dim) * cfg.rwkv_head_dim ** 2
         elif t == "mamba":
             di = cfg.mamba_expand * cfg.d_model
-            per += 2 * di * cfg.mamba_d_state + 2 * cfg.mamba_d_conv * di
+            per += 2 * di * cfg.mamba_d_state
     return float(b * s * per)
 
 

@@ -1963,3 +1963,115 @@ def test_family_compiled_train_step_replay_equals_eager(gen, arch, layers, dtype
         assert all(torch.equal(a, b) for a, b in zip(_state_leaves(eager),
                                                      _state_leaves(graph)))
     assert step.captures == 1
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops, and the traced step
+# ---------------------------------------------------------------------------
+
+from _torch_op_samples import op_samples  # noqa: E402
+
+_OP_CASES = [(name, case) for name, case, _ in op_samples("cpu")]
+
+
+@pytest.mark.parametrize("name,case", _OP_CASES, ids=[f"{n}-{c}" for n, c in _OP_CASES])
+def test_opcheck_cuda_impl_launches_the_kernel(gen, name, case):
+    """Each op's CUDA impl passes opcheck (schema with its mutated
+    arguments, fake impl against the kernel's outputs, autograd
+    registration, AOT dispatch), and one call through
+    ``torch.ops.repro_torch`` is one launch of its kernel, no other, and
+    agrees with the CPU impl on the same inputs."""
+    from repro_torch import kernels
+    args = dict(((n, c), a) for n, c, a in op_samples("cuda"))[(name, case)]
+    op = getattr(torch.ops.repro_torch, name).default
+    torch.library.opcheck(op, args)
+    fresh = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    host = [a.cpu() if isinstance(a, torch.Tensor) else a for a in fresh]
+    if name == "ragged_attn":
+        host[6] = None                   # the plan: the plain version's none
+    before = kernels.launch_counts()
+    got = op(*fresh)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {name: 1}
+    want = op(*host)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.device.type == "cuda" and g.shape == w.shape
+        if name == "ragged_attn":        # padding: zeros on the card only
+            real = host[4] >= 0
+            assert not g[real.cuda().logical_not()].any()
+            g, w = g[real.cuda()], w[real]
+        if g.numel():
+            err = (g.cpu().float() - w.float()).abs().max().item()
+            assert err <= 1e-3 * max(1.0, w.float().abs().max().item()), (name, err)
+
+
+@pytest.mark.parametrize("case", sorted(_GRAPH_CASES))
+def test_traced_op_counts_equal_eager_launches(gen, case):
+    """A step traced with fake tensors on the card holds one repro_torch
+    node per kernel launch of the same eager step, and launches nothing."""
+    from repro_torch import kernels
+    from repro_torch.analysis.graph_tools import trace_step
+    from repro_torch.kernels.ragged_attn.ops import RaggedPlan
+    from repro_torch.roofline.graph_cost import graph_cost
+    family, rows, width = _GRAPH_CASES[case]
+    eng = _small_engine(family, torch.bfloat16)
+    host, plan, _ = _step_inputs(eng, rows, width)
+    step = eng._flat_step if eng.flat else eng._paged_step
+    args = [None if a is None else torch.from_numpy(a).cuda() for a in host]
+    fn, extra = step.fn, ()
+    if plan is not None:
+        cplan = plan.to("cuda")
+        extra = (cplan.items,)
+        fn = lambda *a: step.fn(*a[:-1], plan=RaggedPlan(a[-1], cplan.splits))  # noqa: E731
+    c0 = kernels.launch_counts()
+    fn(eng.params, eng.caches, *args, *extra)
+    torch.cuda.synchronize()
+    c1 = kernels.launch_counts()
+    launched = {k: c1[k] - c0[k] for k in c0 if c1[k] != c0[k]}
+    gm = trace_step(fn, (eng.params, eng.caches, *args, *extra))
+    assert graph_cost(gm).kernel_counts() == launched
+    assert kernels.launch_counts() == c1
+    assert launched["mmt4d"] == 2 * 7 + 1
+
+
+def test_capture_holds_while_another_thread_collects(gen):
+    """A capture survives a ``gc.collect()`` made by another thread while it
+    runs (chip_smoke's CPU lanes collect after each run): an engine dropped
+    in a reference cycle mid-capture keeps its graphs until the capture has
+    ended, instead of destroying them inside it, which invalidates the
+    capture (ROADMAP C16)."""
+    import gc
+    import threading
+    import time as _time
+
+    donor = _small_engine("flat", torch.bfloat16)
+    donor.warmup()
+    held = [donor]
+    del donor
+    victim = _small_engine("flat", torch.bfloat16)
+    real = victim.model.flat_decode_step
+
+    def step(*args, **kw):
+        if held and torch.cuda.is_current_stream_capturing():
+            eng = held.pop()
+            eng.cycle = eng              # garbage only a collection frees
+            del eng
+            _time.sleep(0.5)             # the other thread collects meanwhile
+        return real(*args, **kw)
+
+    victim.model.flat_decode_step = step
+    stop = threading.Event()
+    collector = threading.Thread(target=lambda: [gc.collect() for _ in iter(
+        stop.is_set, True)], daemon=True)
+    collector.start()
+    try:
+        victim.warmup()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        collector.join(timeout=60)
+    assert not collector.is_alive() and not held
+    assert victim.stats()["captures"]["flat"] == len(victim._flat_shapes())
+    gc.collect()

@@ -242,3 +242,42 @@ def test_static_family_refuses_add_request(whisper):
         eng.add_request(np.arange(4), 2)
     with pytest.raises(ValueError, match="generate_static"):
         eng.warmup()
+
+
+def test_remat_checkpoints_layers_bitwise(whisper):
+    """``run.remat`` recomputes each encoder and decoder layer on the
+    backward, as the JAX package's ``layers_apply`` does (ROADMAP C15: the
+    port's encdec dropped ``run``): the traced train step holds one more
+    forward of every layer, and the loss and every gradient equal the
+    plain run's bit for bit."""
+    import torch.utils._pytree as pytree
+    from repro_torch.analysis.graph_tools import trace_step
+    from repro_torch.roofline.graph_cost import graph_cost
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.step import value_and_grad
+
+    _, _, m, params = whisper
+    batch = _batch(m)
+    batch["labels"] = batch["tokens"]
+    shape = ShapeSpec("t", batch["tokens"].shape[1], 2, "train")
+    plain = build_model(m.cfg, RunConfig(**F32), shape, device="cpu")
+    remat = build_model(m.cfg, RunConfig(**dict(F32, remat=True)), shape,
+                        device="cpu")
+    (l0, _), g0 = value_and_grad(plain, params, batch)
+    (l1, _), g1 = value_and_grad(remat, params, batch)
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1)))
+
+    def mmt4d_launches(model):
+        def step(p, b):
+            ls, spec = pytree.tree_flatten(p)
+            ls = [t.detach().requires_grad_(t.is_floating_point()) for t in ls]
+            loss, _ = model.loss(pytree.tree_unflatten(ls, spec), b)
+            return torch.autograd.grad(loss, [t for t in ls if t.requires_grad])
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        return graph_cost(trace_step(step, (params, tb))).kernel_counts()["mmt4d"]
+
+    # every layer's products run again: 6 an encoder layer, 10 a decoder's
+    cfg = m.cfg
+    assert mmt4d_launches(remat) - mmt4d_launches(plain) == \
+        6 * cfg.encoder_layers + 10 * cfg.n_layers

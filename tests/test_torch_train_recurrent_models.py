@@ -121,3 +121,20 @@ def test_rwkv6_train_step_matches_jax():
     for key in ("m", "v"):
         for a, b in zip(jax.tree.leaves(jst2.opt_state[key]), leaves(st2.opt_state[key])):
             _rel_close(b.numpy(), a, GRAD_REL)
+
+
+def test_jamba_remat_equals_no_remat_bitwise():
+    """Reduced jamba (one period) under ``remat``: the scan's backward reads
+    its saved tensors once, which the layer's checkpoint requires (ROADMAP
+    C14: it read them twice and raised ``CheckpointError``); the loss and
+    every gradient equal the plain run's bit for bit, and the JAX package's
+    within GRAD_REL."""
+    jm, jp, m, batch = _models("jamba-v0.1-52b", 8)
+    params = from_jax_params(jp)
+    remat = build_model(m.cfg, RunConfig(**dict(F32, remat=True)),
+                        ShapeSpec("t", 16, 2, "train"), device="cpu")
+    (l0, _), g0 = value_and_grad(m, params, batch)
+    (l1, _), g1 = value_and_grad(remat, params, batch)
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1)))
+    _assert_value_and_grad(jm, jp, remat, batch, ("load_balance",))
