@@ -254,6 +254,23 @@ NCCL mesh, moe's per-shard dispatch):
      then a crash
      injected after a checkpoint and the resume, whose history and final
      parameters and optimizer state equal an uninterrupted run's bit for bit;
+ 17b. the port's runnable surface (ROADMAP A12): examples/torch/
+     quickstart.py (pack, mmt4d with its tanh-gelu epilogue, unpack; its
+     asserts at the reference's tolerances), vl_portability.py at full
+     SmolLM2 width in f32 under h100, h100_vl256 and h100_vl512 (each
+     descriptor's logits within F32_MARGIN of the first's, relative to
+     max(1, max |logit|)), serve_decode.py at full width in f32 over the
+     reference's default trace (10 requests, 4 slots) plain, with a 6-page
+     pool (preempting), --chunk-tokens 16, --spec-tokens 3 and
+     --prefix-cache (every run's tokens the plain run's; the prefix
+     cache's those of its shared-prompt trace served without the cache;
+     the plain run's first 4 requests card = CPU in the worker process,
+     whose run starts with the smoke run), train_smollm.py
+     --full for 20 steps at seq 128, batch 8, microbatch 2 in a fresh
+     checkpoint directory (the last two steps' mean loss below the first
+     two's), then scripts/torch/chaos_smoke.py and report_smoke.py with
+     --device cuda (exit 0); each example's seconds and launches printed,
+     and the phase's seconds;
  18. the comparisons still waiting on the CPU plain path's runs (see
      below) are made, and the torch threads given back;
  19. training the recurrent and moe families: wkv6's backward
@@ -310,13 +327,13 @@ NCCL mesh, moe's per-shard dispatch):
      wkv6_bwd, jamba's f32 train step on the card for selective_scan_bwd;
      each other path's beside them, phases 6's and 7's included; each
      kernel's representative case at the scaled tiles; ragged_attn's
-     d_head-128 cases; the gradient kernels' expert-batched cases), then
-     the result line.
+     d_head-128 cases; the gradient kernels' expert-batched cases), the
+     run's wall and the CPU lanes' seconds, then the result line.
 
 The CPU plain path's reference runs, most of the run's wall when made
 in turn, run beside the card's work (CpuRuns): those over weights from
-a CPU generator (phases 8, 10, 12 and 16: SmolLM2 and whisper) in a
-worker process, those over weights drawn on the card (phases 4-7: the
+a CPU generator (phases 8, 10, 12, 16 and 17b: SmolLM2 and whisper) in
+a worker process, those over weights drawn on the card (phases 4-7: the
 moe, jamba, dense, vlm and recurrent configs) on one thread of this
 process, handed a host copy of the weights (at most CPU_HOST_LIMIT bytes
 of them at once).  Each comparison is made, and printed, at the first
@@ -3198,10 +3215,10 @@ def train_run(model, run, steps, label, ckpt_dir=None, fail_at=None,
     if measure_state:
         init = tr.init_state
 
-        def measured(generator):
+        def measured(*args):
             torch.cuda.synchronize()
             a0, r0 = torch.cuda.memory_allocated(), requested_bytes()
-            state = init(generator)
+            state = init(*args)
             held.update(state_held(state, a0, r0))
             return state
         tr.init_state = measured
@@ -5465,6 +5482,237 @@ def by_descriptor(kernel, scaled_checks) -> dict:
     return out
 
 
+# the port's examples and gate scripts (ROADMAP A12), each loaded from its
+# file: they are scripts, not a package
+EXAMPLE_SERVE_MODES = {"undersized pool": ["--pool-pages", "6"],
+                       "chunked": ["--chunk-tokens", "16"],
+                       "spec": ["--spec-tokens", "3"],
+                       "prefix cache": ["--prefix-cache"]}
+# the JAX example's lr (3e-3 over a 20-step warmup, set for its reduced
+# model) makes the whole model's loss rise over 20 steps, in both packages
+# (PERF.md §6): the phase trains at RunConfig's default 3e-4, the
+# training phase's, without a warmup
+# the plain serving run's CPU reference serves the first 4 of its 10
+# requests (the same requests: lengths, budgets, prompts and arrivals are
+# drawn request by request): the whole trace took 110-131 s of the host's
+# CPU beside the card's work and slowed the phases it overlapped
+EXAMPLE_CPU_REQUESTS = 4
+EXAMPLE_TRAIN = ["--full", "--steps", "20", "--seq", "128", "--batch", "8",
+                 "--microbatch", "2", "--lr", "3e-4", "--warmup", "1"]
+
+
+def load_script(rel: str):
+    """A script of the repository (an example, a gate script) as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    name = "_smoke_" + rel.replace("/", "_").removesuffix(".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_serve(device, argv, params, shared_prefix=None) -> dict:
+    """examples/torch/serve_decode.py at full SmolLM2-135M width in float32
+    on ``device`` over ``params``: each request's (tokens, finish reason),
+    every pick with its top-2 margin (PickRecorder), the engine's stats and
+    the drain's seconds."""
+    from repro_torch.configs import get_config
+    ex = load_script("examples/torch/serve_decode.py")
+    args = ex.parse_args(argv + ["--device", device])
+    recorders = []
+    res = ex.serve(get_config("smollm2-135m"), args, params=params,
+                   device=device, log=lambda *_: None,
+                   shared_prefix=shared_prefix,
+                   on_engine=lambda eng: recorders.append(PickRecorder(eng)))
+    return {"tokens": {rid: (list(r.out_tokens), r.finish_reason)
+                       for rid, r in res["finished"].items()},
+            "picks": recorders[0].picks, "stats": res["stats"],
+            "seconds": res["seconds"]}
+
+
+def example_serve_cpu(argv) -> dict:
+    """The worker process: :func:`example_serve` on the CPU over the
+    example's own weights (a CPU generator's, seed 0: the card's); its
+    tokens and picks."""
+    res = example_serve("cpu", argv, None)
+    return {"tokens": res["tokens"], "picks": res["picks"]}
+
+
+def same_streams(got: dict, want: dict, label: str) -> dict:
+    """Two serve_decode runs' requests: the same (tokens, finish reason)
+    each, or a stream parting from the other only at a pick whose top-2
+    margin is below F32_MARGIN in either run (compare_picks: float32
+    sums in another order on another path); raises otherwise.  Returns
+    compare_picks' counts."""
+    if sorted(got["tokens"]) != sorted(want["tokens"]):
+        raise AssertionError(f"{label}: requests {sorted(got['tokens'])} != "
+                             f"{sorted(want['tokens'])}")
+    if got["tokens"] == want["tokens"]:
+        return {"parted": 0}
+    cmp = compare_picks(got["picks"], want["picks"], F32_MARGIN, label)
+    print(f"    {label}: {cmp['parted']} request(s) parted at a top-2 margin "
+          f"below {F32_MARGIN:g} (largest {cmp['parted_margin']:.2e})")
+    return cmp
+
+
+def examples_phase(card, cpu) -> tuple:
+    """The port's runnable surface on the card: quickstart (its asserts on
+    the hand-written kernels), vl_portability at full SmolLM2 width in f32
+    (each descriptor's logits within F32_MARGIN of the first's, relative to
+    max(1, max |logit|)), serve_decode at full width in f32 over the
+    reference's default trace (10 requests, 4 slots) plain, with an
+    undersized pool, chunked, speculative and with the prefix cache (each
+    run's tokens the plain run's; the prefix cache's those of the same
+    shared-prompt trace without the cache), the plain run's first
+    EXAMPLE_CPU_REQUESTS requests also card = CPU in the worker process,
+    train_smollm --full for 20 steps (the mean loss of
+    the last two below the first two's), then scripts/torch/chaos_smoke.py
+    and report_smoke.py on the card.  Every wrapper count is set to 0
+    before each example and read after it.  Returns the results and the
+    launches by example.  ``cpu``: the plain run's CPU reference, the
+    worker process's future of :func:`example_serve_cpu`, submitted at the
+    run's start (the worker has no other run before phase 8)."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    out, paths = {}, {}
+    say = lambda m: print(f"    {m}")
+
+    def counted(label, fn, *args, **kw):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        paths[f"example {label}"] = kernels.launch_counts()
+        secs = time.perf_counter() - t0
+        launched = {k: n for k, n in paths[f"example {label}"].items() if n}
+        print(f"  {label}: {secs:.1f} s, launches {launched}")
+        if not launched:
+            raise AssertionError(f"example {label}: no kernel launched")
+        return res, secs
+
+    cfg = get_config("smollm2-135m")
+    model = build_model(cfg, RunConfig(param_dtype="float32",
+                                       compute_dtype="float32", remat=False),
+                        ShapeSpec("serve", 128, 4, "decode"), device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))   # serve's own
+    del model
+
+    print("  quickstart (examples/torch/quickstart.py):")
+    qs, secs = counted("quickstart", load_script("examples/torch/quickstart.py").run,
+                       "cuda", log=say)
+    out["quickstart"] = {**qs, "s": secs}
+
+    print("  vl_portability at full SmolLM2-135M width, float32:")
+    vl, secs = counted("vl_portability",
+                       load_script("examples/torch/vl_portability.py").run,
+                       cfg, params, "cuda", log=say)
+    tol = F32_MARGIN * max(1.0, vl["max_logit"])
+    rows = [{k: r[k] for k in ("hw", "scalable", "fixed", "max_dlogits")}
+            for r in vl["rows"]]
+    if max(r["max_dlogits"] for r in rows) > tol:
+        raise AssertionError(f"vl_portability: |Δlogits| above {tol:.3e}: {rows}")
+    if len({r["scalable"] for r in rows}) != 3 or len({r["fixed"] for r in rows}) != 1:
+        raise AssertionError(f"vl_portability: the tiles do not follow the "
+                             f"descriptors: {rows}")
+    print(f"  vl_portability: every descriptor's logits within {tol:.3e} of "
+          f"h100's (max |logit| {vl['max_logit']:.3f})")
+    out["vl_portability"] = {"rows": rows, "tol": tol, "s": secs}
+
+    print("  serve_decode at full SmolLM2-135M width, float32, the default "
+          "trace (10 requests, 4 slots):")
+    serve = {}
+
+    def serve_mode(label, argv, shared_prefix=None):
+        r, secs = counted(f"serve_decode {label}", example_serve, "cuda", argv,
+                          params, shared_prefix=shared_prefix)
+        st = r["stats"]
+        toks = sum(len(t) for t, _ in r["tokens"].values())
+        print(f"    {label}: {st['steps']} steps @ {st['mean_step_ms']:.2f} ms, "
+              f"{toks} tokens, {toks / r['seconds']:.1f} tokens/s, "
+              f"{st['num_preemptions']} preemptions, {st['mixed_steps']} mixed "
+              f"steps, captures {st['captures']}")
+        serve[label] = {"steps": st["steps"], "mean_step_ms": st["mean_step_ms"],
+                        "tokens": toks, "seconds": r["seconds"], "s": secs,
+                        "preemptions": st["num_preemptions"],
+                        "captures": st["captures"]}
+        return r
+
+    plain = serve_mode("plain", [])
+    shared = serve_mode("plain shared prefix", [], shared_prefix=True)
+    for label, argv in EXAMPLE_SERVE_MODES.items():
+        r = serve_mode(label, argv)
+        want = shared if label == "prefix cache" else plain
+        serve[label]["vs_plain"] = same_streams(r, want, f"serve_decode {label}")
+        st = r["stats"]
+        if label == "undersized pool" and not st["num_preemptions"]:
+            raise AssertionError("serve_decode undersized pool: no preemption")
+        if label == "chunked" and not st["mixed_steps"]:
+            raise AssertionError("serve_decode chunked: no mixed step")
+        if label == "spec":
+            serve[label]["acceptance"] = st["speculative"]["acceptance_rate"]
+        if label == "prefix cache":
+            serve[label]["hit_rate"] = st["prefix_cache"]["hit_rate"]
+            if not st["prefix_cache"]["hits"]:
+                raise AssertionError("serve_decode prefix cache: no hit")
+    parted = {k: v["vs_plain"]["parted"] for k, v in serve.items()
+              if "vs_plain" in v}
+    print(f"  serve_decode: the undersized pool's, chunked and speculative "
+          f"runs' tokens equal the plain run's, the prefix cache's the same "
+          f"shared-prompt trace's without it ({len(plain['tokens'])} requests; "
+          f"requests parted: {parted})")
+
+    def check(cpu_run):
+        rids = set(cpu_run["tokens"])
+        head = {"tokens": {r: plain["tokens"][r] for r in rids},
+                "picks": {k: v for k, v in plain["picks"].items() if k[0] in rids}}
+        cmp = same_streams(head, cpu_run, "serve_decode plain, card vs CPU")
+        print(f"  serve_decode plain: card tokens = the CPU's in the first "
+              f"{len(rids)} requests, {cmp['parted']} parted")
+        serve["plain"]["vs_cpu"] = cmp
+    CPU_RUNS.defer("examples serve_decode plain", cpu, check)
+    out["serve_decode"] = serve
+
+    print(f"  train_smollm {' '.join(EXAMPLE_TRAIN)} (full SmolLM2-135M, "
+          f"float32, a fresh checkpoint directory):")
+    tr = load_script("examples/torch/train_smollm.py")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_example_ckpt_")
+    try:
+        args = tr.parse_args(EXAMPLE_TRAIN + ["--ckpt-dir", tmp])
+        res, secs = counted("train_smollm", tr.train, tr.config(args), args,
+                            device="cuda", log=say)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    hist = res.pop("history")
+    step_ms = res["trainer"].step_ms
+    del res
+    first, last = float(np.mean(hist[:2])), float(np.mean(hist[-2:]))
+    if len(hist) != 20 or not np.all(np.isfinite(hist)) or not last < first:
+        raise AssertionError(f"train_smollm: losses {hist}")
+    print(f"  train_smollm: loss {first:.4f} -> {last:.4f} (means of the first "
+          f"and last two steps), {np.median(step_ms[2:]):.2f} ms a step "
+          f"(median after the second)")
+    out["train_smollm"] = {"losses": hist, "first": first, "last": last,
+                           "median_step_ms": float(np.median(step_ms[2:])),
+                           "s": secs}
+
+    for name in ("chaos_smoke", "report_smoke"):
+        print(f"  scripts/torch/{name}.py --device cuda:")
+        t0 = time.perf_counter()
+        rc = load_script(f"scripts/torch/{name}.py").main(["--device", "cuda"])
+        out[name] = {"rc": rc, "s": time.perf_counter() - t0}
+        if rc != 0:
+            raise AssertionError(f"scripts/torch/{name}.py exited {rc}")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  the examples phase: {out['s']:.1f} s ({card})")
+    return out, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results here")
@@ -5521,6 +5769,11 @@ def smoke(args) -> int:
           f"sm_90a, one nvcc per source); the analyzer's tracing imports "
           f"{imported['s']:.1f} s beside it")
 
+    # the examples phase's CPU reference (phase 17b): its weights are a CPU
+    # generator's, so it needs nothing from the card, and the worker process
+    # has nothing else to run before phase 8
+    example_cpu = CPU_RUNS.proc(example_serve_cpu,
+                                ["--requests", str(EXAMPLE_CPU_REQUESTS)])
     hw = query("cuda", "h100")      # the card's own, whatever $REPRO_HW says
     print(f"hardware: {hw.device_name}, {hw.sm_count} SMs, HBM {hw.hbm_bw / 1e12:.2f} TB/s, "
           f"bf16 {hw.flops_bf16 / 1e12:.0f} TFLOP/s, f32 {hw.flops_f32 / 1e12:.0f} TFLOP/s")
@@ -5715,6 +5968,13 @@ def smoke(args) -> int:
     training, train_paths = training_phase(cfg, card)
     by_path.update(train_paths)
     elapsed()
+    print(f"the port's examples and gate scripts (examples/torch/, "
+          f"scripts/torch/): quickstart, vl_portability and serve_decode at "
+          f"full width in f32 (five modes, the plain run card = CPU), "
+          f"train_smollm --full, the chaos and report smokes ({card})")
+    examples, example_paths = examples_phase(card, example_cpu)
+    by_path.update(example_paths)
+    elapsed()
     print("the CPU plain path's runs: every comparison still waiting on one")
     cpu_runs = CPU_RUNS.finish()
     elapsed()
@@ -5809,11 +6069,14 @@ def smoke(args) -> int:
                        "training": training, "dense": dense,
                        "recurrent": recurrent, "moe": moe_res, "jamba": jamba,
                        "family_training": fam_train, "mesh": mesh_res,
-                       "graph": graph,
+                       "graph": graph, "examples": examples,
                        "cpu_runs": cpu_runs,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,
                       default=str)
     elapsed()
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; the CPU "
+          f"plain path's runs {cpu_runs['busy_s']:.1f} s beside the card's work, "
+          f"{cpu_runs['waited_s']:.1f} s waited on ({card})")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

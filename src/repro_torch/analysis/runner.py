@@ -35,14 +35,20 @@ CONFIG_MATRIX = [
 
 
 def build_model(arch: str = "smollm2-135m", *, layers: int = 2,
-                slots: int = 2, max_len: int = 64, device="cuda"):
+                slots: int = 2, max_len: int = 64, device="cuda",
+                d_head: Optional[int] = None):
     """The reduced float32 model and its parameters (seed 0), shared by
-    every analyzed engine."""
+    every analyzed engine; ``d_head`` widens the reduced config's 16-wide
+    heads (the card's ragged attention takes 64 and 128 only)."""
+    import dataclasses
+
     from repro_torch.configs import (RunConfig, ShapeSpec, get_config,
                                      reduced_config)
     from repro_torch.models.model import build_model as _build
 
     cfg = reduced_config(get_config(arch), layers=layers)
+    if d_head is not None:
+        cfg = dataclasses.replace(cfg, d_head=d_head)
     run = RunConfig(param_dtype="float32", compute_dtype="float32",
                     remat=False)
     model = _build(cfg, run, ShapeSpec("serve", max_len, slots, "decode"),
@@ -180,12 +186,13 @@ def run_ast_lint(report: Optional[AnalysisReport] = None) -> AnalysisReport:
 
 
 def run_all(*, traffic: bool = True, trace: bool = True, matrix=None,
-            device="cuda", log=None) -> AnalysisReport:
+            device="cuda", log=None, d_head: Optional[int] = None
+            ) -> AnalysisReport:
     """Everything: the AST lint, then every configuration of
     ``matrix`` (default :data:`CONFIG_MATRIX`) over one reduced model on
-    ``device``."""
+    ``device`` (``d_head``: :func:`build_model`'s)."""
     report = run_ast_lint()
-    model, params = build_model(device=device)
+    model, params = build_model(device=device, d_head=d_head)
     for label, kwargs in (matrix if matrix is not None else CONFIG_MATRIX):
         if log:
             log(f"analyzing {label} ...")

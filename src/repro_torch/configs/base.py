@@ -82,6 +82,10 @@ class ModelConfig:
     def is_subquadratic(self) -> bool:
         return any(t != "attn" for t in self.layer_types)
 
+    @property
+    def has_decoder(self) -> bool:
+        return True     # every config decodes (whisper is an encoder-decoder)
+
     def moe_on_layer(self, i: int) -> bool:
         return self.moe and ((i + 1) % self.moe_every == 0)
 

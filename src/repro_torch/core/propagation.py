@@ -11,7 +11,7 @@ top-k) must unpack first; PackedArray does not implement them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -35,10 +35,23 @@ class PackedArray:
     def dtype(self) -> torch.dtype:
         return self.data.dtype
 
+    @property
+    def lead_shape(self) -> torch.Size:
+        """The leading (batch) dims ahead of ``[M_o, K_o, m_r, k_r]``."""
+        return self.data.shape[:-4]
+
+    def astype(self, dtype: torch.dtype) -> "PackedArray":
+        return self._with(self.data.to(dtype))
+
     def _with(self, data: torch.Tensor) -> "PackedArray":
         return PackedArray(data=data, m=self.m, k=self.k, layout=self.layout)
 
     # -- pointwise ops in the packed domain --
+    def elementwise(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "PackedArray":
+        """``fn`` on the tiles.  It must map 0 to 0 where the padding has
+        to stay zero (a consumer's reduction sums it)."""
+        return self._with(fn(self.data))
+
     def __add__(self, other: "PackedArray") -> "PackedArray":
         if not isinstance(other, PackedArray) or other.layout != self.layout:
             raise TypeError("PackedArray + needs a PackedArray of the same layout")

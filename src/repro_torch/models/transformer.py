@@ -36,9 +36,10 @@ from repro_torch.models.common import (Stream, embed_init, maybe_pack,
                                        maybe_unpack, norm_apply, norm_init,
                                        stream_add)
 
-__all__ = ["pattern_period", "block_init", "block_apply", "layers_init",
-           "layers_apply", "lm_init", "lm_apply", "logits_apply",
-           "init_layer_caches", "init_paged_caches", "tree_map", "AUX_ZERO"]
+__all__ = ["pattern_period", "block_init", "block_apply", "group_init",
+           "layers_init", "layers_apply", "lm_init", "lm_apply",
+           "logits_apply", "init_layer_caches", "init_paged_caches",
+           "tree_map", "AUX_ZERO"]
 
 # the aux losses of the MoE family, zero for every other family (and in the
 # serving modes, as in the JAX package)
@@ -156,6 +157,14 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
         out2 = mlp_mod.mlp_apply(p["ffn"], h2, ctx, cfg, keep_packed=keep)
     x = stream_add(x, _as_stream_like(out2, x, ctx))
     return x, cache, aux
+
+
+def group_init(generator: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype, *, cross: bool = False) -> dict:
+    """One group of the layer pattern, ``{"p<i>": block}`` unstacked: the
+    blocks :func:`layers_init` draws, in its order, for each group."""
+    return {f"p{i}": block_init(generator, cfg, i, dtype, cross=cross)
+            for i in range(pattern_period(cfg))}
 
 
 def layers_init(generator: torch.Generator, cfg: ModelConfig,

@@ -39,8 +39,8 @@ from repro_torch.core.layout import ceil_div
 from repro_torch.obs.telemetry import NULL as _NULL_OBS
 
 __all__ = ["PoolError", "OutOfPages", "PagedKVPool", "SequencePages",
-           "copy_pages", "fresh_slot_states", "zero_slot_states",
-           "prefill_view", "merge_slot"]
+           "copy_pages", "map_slot_states", "fresh_slot_states",
+           "zero_slot_states", "prefill_view", "merge_slot"]
 
 
 class PoolError(RuntimeError):
@@ -280,11 +280,11 @@ class SequencePages:
 # cache-tree helpers: page pools are shared, recurrent state is per slot
 # ---------------------------------------------------------------------------
 
-def _map_slot_states(caches, fn):
+def map_slot_states(caches, fn):
     """Apply ``fn`` to the per-slot state leaves ([G, slots, ...]); pass the
     shared ``*_pages`` pools through as they are."""
     if isinstance(caches, dict):
-        return {k: (v if k.endswith("_pages") else _map_slot_states(v, fn))
+        return {k: (v if k.endswith("_pages") else map_slot_states(v, fn))
                 for k, v in caches.items()}
     return fn(caches)
 
@@ -294,7 +294,7 @@ def fresh_slot_states(caches):
     the state a request starts its prefill from.  An engine makes it once
     and zeroes it in place before each prefill (:func:`zero_slot_states`),
     so a prefill's CUDA graph always reads and writes the same tensors."""
-    return _map_slot_states(
+    return map_slot_states(
         caches, lambda x: torch.zeros((x.shape[0], 1, *x.shape[2:]),
                                       dtype=x.dtype, device=x.device))
 
@@ -302,7 +302,7 @@ def fresh_slot_states(caches):
 def zero_slot_states(states) -> None:
     """Zero the per-slot state leaves of ``states`` in place (the pools it
     may hold are left alone)."""
-    _map_slot_states(states, torch.Tensor.zero_)
+    map_slot_states(states, torch.Tensor.zero_)
 
 
 def prefill_view(caches, fresh):

@@ -17,6 +17,10 @@ noise agrees to 2 ulp, and a pick can differ only where the perturbed
 row's top two are closer than that.  The pick stays on the host in
 float32, so the card and the CPU differ only by their logits.
 
+The examples draw their prompts and frames as the JAX package's do, with
+:func:`randint` (``jax.random.randint``, bit for bit) and :func:`normal`
+(``jax.random.normal``, within an ulp of the draws' largest magnitude).
+
 The static batch loop draws differently (``Engine.generate_static``): one
 key split per step, ``key, sub = split(key)``, and one
 ``categorical(sub, logits[B, V])`` over the whole batch, whose noise is
@@ -28,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["prng_key", "fold_in", "split", "random_bits", "uniform", "gumbel",
-           "pick_key", "sample", "categorical"]
+           "randint", "normal", "pick_key", "sample", "categorical"]
 
 _U32 = np.uint32
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -98,6 +102,61 @@ def uniform(key: np.ndarray, n: int) -> np.ndarray:
 def gumbel(key: np.ndarray, n: int) -> np.ndarray:
     """``jax.random.gumbel`` noise (its default low-range mode) in float32."""
     return -np.log(-np.log(uniform(key, n)))
+
+
+def randint(key: np.ndarray, shape, lo: int, hi: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, lo, hi)`` (int32, ``lo < hi``):
+    ``k1, k2 = split(key)``, 32 bits of each per draw, then
+    ``((bits(k1) % span) * m + bits(k2) % span) % span`` with
+    ``m = (2**16 % span)**2 % span``, every product in uint32 that wraps,
+    as JAX computes it.  A multi-dimensional draw's bits are its
+    row-major flat index's."""
+    shape = tuple(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    span = _U32(hi - lo)
+    k1, k2 = split(key)
+    with np.errstate(over="ignore"):
+        m = _U32(1 << 16) % span
+        m = (m * m) % span
+        off = ((random_bits(k1, n) % span) * m + random_bits(k2, n) % span) % span
+    return (np.int32(lo) + off.astype(np.int32)).reshape(shape)
+
+
+# the coefficients of Giles' single-precision erfinv, as XLA evaluates it
+_ERFINV_LT5 = np.array([2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                        -4.39150654e-06, 0.00021858087, -0.00125372503,
+                        -0.00417768164, 0.246640727, 1.50140941], np.float32)
+_ERFINV_GE5 = np.array([-0.000200214257, 0.000100950558, 0.00134934322,
+                        -0.00367342844, 0.00573950773, -0.0076224613,
+                        0.00943887047, 1.00167406, 2.83297682], np.float32)
+
+
+def _erfinv(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``erf_inv`` (Giles' polynomial in ``w = -log1p(-x²)``),
+    each Horner step a fused multiply-add (float64, rounded once)."""
+    w = (-np.log1p(-(x * x).astype(np.float64))).astype(np.float32)
+    lt = w < np.float32(5)
+    w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3))
+    p = np.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).astype(np.float32)
+    for lo_c, hi_c in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = np.where(lt, lo_c, hi_c)
+        p = (p.astype(np.float64) * w + c).astype(np.float32)
+    return np.where(np.abs(x) == 1, x * np.finfo(np.float32).max,
+                    p * x).astype(np.float32)
+
+
+def normal(key: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` in float32: ``sqrt(2) *
+    erfinv(u)``, ``u`` uniform in ``[nextafter(-1, 0), 1)`` from the draws'
+    mantissa bits.  The uniforms are JAX's bit for bit; the draws agree to
+    an ulp of their largest magnitude (XLA's ``log1p`` is not numpy's)."""
+    shape = tuple(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    bits = (random_bits(key, n) >> _U32(9)) | _U32(0x3F800000)
+    floats = bits.view(np.float32) - np.float32(1.0)
+    u = np.maximum(lo, floats * (np.float32(1) - lo) + lo)
+    return (np.float32(np.sqrt(2)) * _erfinv(u)).reshape(shape)
 
 
 def pick_key(seed: int, rid: int, position: int) -> np.ndarray:

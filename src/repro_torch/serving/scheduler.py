@@ -391,6 +391,10 @@ class Scheduler:
             self.prefill_stall_steps += 1
         return plan
 
+    @property
+    def num_free_slots(self) -> int:
+        return len(self._free_slots)
+
     def plan_segments(self, decode_counts: Dict[int, int],
                       budget: int) -> List[tuple]:
         """Flat-segment plan for one ``[1, W]`` step: decode rows (each

@@ -40,6 +40,13 @@ from repro_torch.training.train_state import TrainState
 __all__ = ["Trainer", "fingerprint_of"]
 
 
+def _to_device(tree, device):
+    """A copy of a nested dict of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
 def fingerprint_of(cfg, run: RunConfig) -> str:
     blob = json.dumps({"cfg": dataclasses.asdict(cfg),
                        "run": dataclasses.asdict(run)}, sort_keys=True)
@@ -68,21 +75,26 @@ class Trainer:
         self.straggler_events = 0
         self.step_ms: list[float] = []
 
-    def init_state(self, generator: torch.Generator) -> TrainState:
-        params = self.model.init(generator)
+    def init_state(self, generator: torch.Generator,
+                   params: Optional[dict] = None) -> TrainState:
+        """A fresh state: ``params`` (moved to the model's device), or the
+        model's init drawn from ``generator``; zero optimizer moments."""
+        params = (self.model.init(generator) if params is None
+                  else _to_device(params, self.model.device))
         state = TrainState.create(params, self.optimizer)
         if self.run.grad_compression:
             state.opt_state["err"] = compression.init_error_buffer(params)
         return state
 
-    def restore_or_init(self, generator: torch.Generator) -> TrainState:
+    def restore_or_init(self, generator: torch.Generator,
+                        params: Optional[dict] = None) -> TrainState:
         if self.ckpt_dir is not None and ckpt.latest_step(self.ckpt_dir) is not None:
             tree, _, step = ckpt.restore(self.ckpt_dir, fingerprint=self.fingerprint,
                                          device=self.model.device)
             self.log(f"[trainer] resumed from step {step}")
             return TrainState(step=step, params=tree["params"],
                               opt_state=tree["opt_state"])
-        return self.init_state(generator)
+        return self.init_state(generator, params)
 
     def save(self, state: TrainState) -> None:
         if self.ckpt_dir is None:
@@ -94,13 +106,16 @@ class Trainer:
 
     def fit(self, generator: torch.Generator, steps: Optional[int] = None,
             fail_at: Optional[int] = None,
-            on_step: Optional[Callable[[int], None]] = None):
+            on_step: Optional[Callable[[int], None]] = None,
+            params: Optional[dict] = None):
         """Run the loop from the restored (or fresh) state to ``steps`` (by
         default ``total_steps``), calling ``on_step(step)`` after each step's
-        loss is read.  Returns (state, loss history).  The step's graphs
+        loss is read.  A fresh state starts from ``params`` when given (a
+        copy: the step updates the state in place), else from the model's
+        init drawn from ``generator``.  Returns (state, loss history).  The step's graphs
         bind the state of the first call, so a trainer fits once: a resume
         is a new trainer."""
-        state = self.restore_or_init(generator)
+        state = self.restore_or_init(generator, params)
         start = int(state.step)
         end = steps if steps is not None else self.total_steps
         history = []

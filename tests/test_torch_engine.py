@@ -6,17 +6,20 @@ port's standing rules.
   ``Engine(device="cpu")``: identical tokens, finish reasons, preemption
   and pause counts and flat-step counters, with an ample pool and with a
   pool small enough to force preemptions and mid-prefill pauses.
-- No module of the port, and not chip_smoke.py, imports jax or the JAX
+- No module of the port, not chip_smoke.py, and none of the port's
+  examples, gate scripts and hillclimb (``examples/torch/``,
+  ``scripts/torch/``, ``experiments/torch/``) imports jax or the JAX
   package (an AST scan).
 - ``build_model`` and ``Engine`` default to the card and raise without
   one unless ``device="cpu"`` is passed, sampled, prefix-cache,
   speculative and static (whisper) engines included; those run on the CPU,
   as does the standalone ``DraftModelDrafter.propose`` (the dense decode
   step) over a CPU model, and ``flat=True`` without ``chunk_tokens``
-  raises.
+  raises; so does every ``main`` of those examples and scripts.
 """
 
 import ast
+import importlib.util
 import pathlib
 
 import jax
@@ -103,6 +106,11 @@ def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the port's examples, gate scripts and hillclimb
+    surface = [f for d in ("examples", "scripts", "experiments")
+               for f in sorted((ROOT / d / "torch").rglob("*.py"))]
+    assert len(surface) == 9
+    files += surface
     bad = [(f.relative_to(ROOT), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -147,6 +155,17 @@ def test_entry_points_need_a_card_unless_cpu(models, monkeypatch):
     assert Engine(wm, wparams, device="cpu").generate(batch, 3).shape == (2, 3)
     with pytest.raises(ValueError, match="flat=True needs chunk_tokens"):
         Engine(m, params, device="cpu", max_slots=3, flat=True)
+    # the port's examples and gate scripts: the card by default
+    for rel in ("examples/torch/quickstart.py", "examples/torch/vl_portability.py",
+                "examples/torch/serve_decode.py", "examples/torch/train_smollm.py",
+                "scripts/torch/analyze.py", "scripts/torch/chaos_smoke.py",
+                "scripts/torch/report_smoke.py", "experiments/torch/hillclimb.py"):
+        spec = importlib.util.spec_from_file_location(
+            "_card_" + pathlib.Path(rel).stem, ROOT / rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main(["--steps", "1"] if "train" in rel else [])
 
 
 def test_nan_guard_retires_only_the_bad_row(models):

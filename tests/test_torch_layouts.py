@@ -26,6 +26,7 @@ package, on the CPU (float32; the reference's parameters carried across).
   fixed | unpacked`` under ``$REPRO_HW`` on the CPU.
 """
 
+import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,7 +49,8 @@ from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.models.model import build_model as jbuild_model
 from repro.serving.engine import Engine as JEngine
 from repro_torch.configs import RunConfig, ShapeSpec, get_config, reduced_config
-from repro_torch.core import mmt4d as mm
+# the module: repro_torch.core exports the mmt4d function under its name
+mm = importlib.import_module("repro_torch.core.mmt4d")
 from repro_torch.core.hardware import presets
 from repro_torch.core.layout import make_layout
 from repro_torch.core.linear import MatmulContext, linear_apply, prepack_params

@@ -17,6 +17,7 @@
   card's one unpack launch per step.
 """
 
+import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -131,7 +132,8 @@ def test_flat_step_unpacks_once_on_the_cpu(monkeypatch):
     """Reduced SmolLM2 (2 layers): the unpack wrapper runs once per flat
     step (the final stream), and mmt4d writes unpacked at the 3 Q/K/V exits
     of each layer and the tied head."""
-    import repro_torch.core.mmt4d as core_mmt4d
+    # the module (repro_torch.core.mmt4d is the function the package exports)
+    core_mmt4d = importlib.import_module("repro_torch.core.mmt4d")
     cfg = reduced_config(get_config("smollm2-135m"), layers=2)
     model = build_model(cfg, RunConfig(param_dtype="float32", compute_dtype="float32"),
                         ShapeSpec("serve", 64, 3, "decode"), device="cpu")

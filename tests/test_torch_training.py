@@ -21,6 +21,7 @@ Tolerances, each with its reason, where the test states it.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -392,7 +393,8 @@ def test_train_step_kernel_calls(jparams, remat, monkeypatch):
     linear packs its input; the gate's pre-activation is recomputed once in
     its backward; every pack's gradient is an unpack.  Plus the stream
     entry and the tied head.  Remat runs each layer's forward twice."""
-    from repro_torch.core import mmt4d as core_mmt4d
+    # the module (repro_torch.core.mmt4d is the function the package exports)
+    core_mmt4d = importlib.import_module("repro_torch.core.mmt4d")
     from repro_torch.core import packing as core_packing
     calls = {}
 
