@@ -12,9 +12,10 @@ and depth, three other dense configs and InternVL2's language model,
 RWKV-6 1.6B whole through the recurrent path, Qwen3-MoE and Arctic at
 full width, cut in depth, through the expert-batched mmt4d, and
 jamba-v0.1-52B at full width, cut in whole periods, through the
-selective_scan kernel; trains them; and runs the distributed path on a
+selective_scan kernel; trains them; runs the distributed path on a
 mesh of one card (the dry-run of every cell, an Engine on a one-rank
-NCCL mesh, moe's per-shard dispatch):
+NCCL mesh, moe's per-shard dispatch); and serves Qwen3-8B across two
+rank processes on the card (a (1, 2) mesh over gloo):
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds, the graph phase's imports
@@ -320,11 +321,28 @@ NCCL mesh, moe's per-shard dispatch):
      the CPU's thread beside the phase's card work), and the expert gate
      product at its blocked shape [128, 4 C, 4096] held to its plain
      version beside the unblocked case;
+ 20b. serving across ranks: ragged_attn's partial form (the rank's pages
+     of a pool split in two, each row's log-sum-exp beside its output)
+     against its plain version at Qwen3-8B's decode rows (each half,
+     f32 and bf16) and a mixed prefill (bf16), the halves combined held
+     to the whole plain version, timed L2-cold beside its bound and SDPA
+     over the rank's keys; mmt4d's float32 partial at the rank's half of
+     Qwen3-8B's O and down products; then TP_WORLD = 2 rank processes
+     on this card over gloo (``--tp-rank``; ``tp_rank_main``), a
+     ("data", "model") = (1, 2) mesh: Qwen3-8B f32 at 2 layers, the first
+     call's logits within F32_MARGIN of one rank's and the picks under
+     the margin rule; Qwen3-8B whole in bf16 through the flat step (the
+     wrapper counts set to 0 just before its drain and read just after:
+     ragged_attn only in its partial form, 72 float32 partials a step,
+     nothing captured), both ranks' picks the same and held to the dense
+     phase's one-rank drain under BF16_MARGIN; printed: the phase's
+     wall, ms a step on 1 and on 2 ranks, collectives and bytes a step;
  21. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
      the gradient kernels, the RWKV-6 1.6B drain for wkv6, jamba's first
      drain for selective_scan, RWKV-6 1.6B's 20 training steps for
-     wkv6_bwd, jamba's f32 train step on the card for selective_scan_bwd;
+     wkv6_bwd, jamba's f32 train step on the card for selective_scan_bwd,
+     the bf16 drain across ranks for ragged_attn_partial;
      each other path's beside them, phases 6's and 7's included; each
      kernel's representative case at the scaled tiles; ragged_attn's
      d_head-128 cases; the gradient kernels' expert-batched cases), the
@@ -381,6 +399,11 @@ SOURCES = {
     "unpack": ("src/repro_torch/csrc/unpack.cu", "src/repro/kernels/unpack/kernel.py:31"),
     "ragged_attn": ("src/repro_torch/csrc/ragged_attn.cu",
                     "src/repro/kernels/ragged_attn/kernel.py:109"),
+    # the partial form of the same kernel: one rank's share of the
+    # flash-decode across ranks whose pools are split by pages (the JAX
+    # package's GSPMD partitions the Pallas call over its page shards)
+    "ragged_attn_partial": ("src/repro_torch/csrc/ragged_attn.cu",
+                            "src/repro/kernels/ragged_attn/kernel.py:109"),
     # mmt4d's two gradient products: no Pallas kernel of their own; the
     # products the TPU kernel computes in its body, transposed (the JAX
     # package differentiates the jnp mmt4d, src/repro/core/mmt4d.py:64)
@@ -409,6 +432,7 @@ RECURRENT_GRAD = ("wkv6_bwd", "selective_scan_bwd")
 # RunConfig): the shape that carries most of its time in the drain
 REPRESENTATIVE = {"mmt4d": "gate decode", "pack": "tied head embed",
                   "unpack": "final stream decode", "ragged_attn": "decode rows",
+                  "ragged_attn_partial": "qwen3-8b decode rows, rank 0",
                   "mmt4d_dgrad": "tied head", "mmt4d_wgrad": "tied head",
                   "wkv6": "decode rows", "selective_scan": "decode rows",
                   "wkv6_bwd": "train", "selective_scan_bwd": "train"}
@@ -1414,13 +1438,143 @@ class KernelChecks:
                     split=plan.splits, tiles=plan.tiles, kernel_l2_warm_ms=warm_ms,
                     copies=len(sets), library_err=err)
 
+    def ragged_partial(self, dtype, segments, width, label, half, pages=258,
+                       t=16, mp=64, hq=32, hkv=8, dh=128):
+        """ragged_attn's partial form (one rank's share of the flash-decode
+        across 2 ranks) on rank ``half``'s pages of a pool split in two:
+        the pools hold global pages [lo, hi) and a trash slot.  Held to its
+        plain version (the outputs of the rows with a key on the rank within
+        TOL, the log-sum-exps within 1e-4 of their largest |value| where
+        finite, -inf exactly where the plain version's is); both halves
+        combined equal the whole plain version.  Timed
+        L2-cold; the library call is SDPA over the rank's keys (K/V of the
+        held pages gathered per row, the rest masked).  Bound: the held
+        pages the rows need read once, q read, the output and the
+        log-sum-exps written once."""
+        from repro_torch.kernels.ragged_attn.ops import (plan_ragged,
+                                                         ragged_attention_partial)
+        from repro_torch.kernels.ragged_attn.ref import (
+            combine_partials, ragged_attention_partial_ref, ragged_attention_ref)
+        rng = np.random.default_rng(len(segments) + width)
+        bt = (rng.permutation(pages - 1)[:4 * mp] + 1).astype(np.int32).reshape(4, mp)
+        row_ids = np.full(width, -1, np.int32)
+        q_pos = np.zeros(width, np.int32)
+        pos, need = 0, {}
+        for row, first, n in segments:
+            row_ids[pos:pos + n] = row
+            q_pos[pos:pos + n] = first + np.arange(n)
+            need[row] = max(need.get(row, 0), first + n)
+            pos += n
+        kp = self.rand((pages, t, hkv, dh), dtype)
+        vp = self.rand((pages, t, hkv, dh), dtype)
+        q = self.rand((width, hq, dh), dtype)
+        args = dict(block_tables=torch.from_numpy(bt).cuda(),
+                    row_ids=torch.from_numpy(row_ids).cuda(),
+                    q_pos=torch.from_numpy(q_pos).cuda())
+        plan = plan_ragged(row_ids, q_pos, t, mp, hkv, self.hw.sm_count,
+                           group=hq // hkv).to("cuda")
+        valid = torch.from_numpy(row_ids >= 0).cuda()
+        ranges = [(0, pages // 2), (pages // 2, pages)]
+        shares, whole = [], None
+        for lo, hi in ranges:
+            lk = torch.cat([kp[lo:hi], torch.zeros_like(kp[:1])])
+            lv = torch.cat([vp[lo:hi], torch.zeros_like(vp[:1])])
+            kw = dict(page_lo=lo, page_count=hi - lo, **args)
+            shares.append((lk, lv, kw, ragged_attention_partial(q, lk, lv, plan=plan, **kw)))
+        got = combine_partials([o for *_, (o, _) in shares], [l for *_, (_, l) in shares])
+        want = ragged_attention_ref(q, kp, vp, **args)[valid].float()
+        whole_err = (got[valid].float() - want).abs().max().item()
+        if whole_err > TOL[dtype] * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"ragged_attn_partial {label} {dtype}: the two "
+                                 f"halves combined differ from the whole by "
+                                 f"{whole_err}")
+        lk, lv, kw, (o, lse) = shares[half]
+        wo, wl = ragged_attention_partial_ref(q, lk, lv, **kw)
+        held = torch.isfinite(wl)
+        if not torch.equal(torch.isfinite(lse), held) or o[~valid].any():
+            raise AssertionError(f"ragged_attn_partial {label} {dtype}: -inf "
+                                 f"rows differ, or padding not zero")
+        rows = held.all(dim=1) & valid
+        lo, hi = ranges[half]
+        lse_err = (lse[held] - wl[held]).abs().max().item()
+        if lse_err > 1e-4 * max(1.0, wl[held].abs().max().item()):
+            raise AssertionError(f"ragged_attn_partial {label} {dtype}: "
+                                 f"log-sum-exp error {lse_err}")
+
+        # the rank's keys: every page of a row's needed range it holds
+        keys, kv_pages = 0, 0
+        for r, n in need.items():
+            for p_i in range(-(-n // t)):
+                if lo <= bt[r, p_i] < hi:
+                    kv_pages += 1
+        for i in np.flatnonzero(row_ids >= 0):
+            r = row_ids[i]
+            for p_i in range(q_pos[i] // t + 1):
+                if lo <= bt[r, p_i] < hi:
+                    keys += min(t, int(q_pos[i]) + 1 - p_i * t)
+        flops = 4 * hq * dh * keys
+        page_mask = np.zeros(pages, bool)
+        page_mask[lo:hi] = True
+        sdpa, sdpa_args, scatter = self.sdpa_yardstick(q, kp, vp, bt, row_ids,
+                                                       q_pos, held_pages=page_mask)
+        lib_err = (scatter(sdpa(*sdpa_args))[rows].float()
+                   - wo[rows].float()).abs().max().item()
+        if lib_err > TOL[dtype] * max(1.0, wo[rows].float().abs().max().item()):
+            raise AssertionError(f"SDPA over the rank's keys {label} {dtype}: "
+                                 f"error {lib_err}")
+        es = dtype.itemsize
+        sets = cold_sets(q, lk, lv)
+        self.record("ragged_attn_partial", f"{label}, pages [{lo}, {hi}) of {pages}",
+                    dtype,
+                    cycle(lambda a, b, c: ragged_attention_partial(a, b, c, plan=plan, **kw), sets),
+                    cycle(lambda a, b, c: ragged_attention_partial_ref(a, b, c, **kw), sets),
+                    cycle(sdpa, cold_sets(*sdpa_args)),
+                    2 * q.numel() * es + 4 * width * hq + kv_pages * t * hkv * dh * es * 2
+                    + 3 * width * 4 + bt.nbytes, flops,
+                    select=lambda res: res[0][rows],   # lse: held to 1e-4 above
+                    split=plan.splits, tiles=plan.tiles, copies=len(sets),
+                    library_err=lib_err, halves_combined_err=whole_err,
+                    lse_err=lse_err, rank_keys=keys)
+
+    def mmt4d_partial(self, dtype, w_tokens, k, n, label):
+        """mmt4d's float32 partial (no epilogue, no cast) at a row-parallel
+        product's rank share (its K tiles), stored unpacked as the path
+        stores it: held to the plain version's float32 sums, and rounded to
+        the dtype bit for bit the kernel's own store of the same call;
+        timed L2-cold beside torch.matmul of the unpacked operands."""
+        from repro_torch.core import packing
+        from repro_torch.kernels.mmt4d.ops import mmt4d
+        from repro_torch.kernels.mmt4d.ref import mmt4d_ref
+        from repro_torch.kernels.unpack.ref import unpack_ref
+        lay = self.layout(dtype)
+        x = self.rand((1, w_tokens, k), dtype)
+        w = self.rand((k, n), dtype, k ** -0.5)
+        ap, bp = packing.pack_lhs(x, lay), packing.pack_rhs(w, lay)
+        to = (w_tokens, n)
+        out = mmt4d(ap, bp, unpack_to=to, partial=True)
+        if out.dtype != TF or not torch.equal(out.to(dtype), mmt4d(ap, bp, unpack_to=to)):
+            raise AssertionError(f"mmt4d partial {label} {dtype}: not the float32 "
+                                 f"sums of the kernel's own store")
+        sets = cold_sets(ap, bp, x, w)
+        es = dtype.itemsize
+        self.record("mmt4d", f"{label} A{tuple(ap.shape)} B{tuple(bp.shape)}"
+                    f" -> f32 {tuple(out.shape)}", dtype,
+                    cycle(lambda a, b, *_: mmt4d(a, b, unpack_to=to, partial=True), sets),
+                    cycle(lambda a, b, *_: unpack_ref(mmt4d_ref(
+                        a[0], b, out_dtype=TF)[None], *to), sets),
+                    cycle(lambda _a, _b, xx, ww: torch.matmul(xx, ww), sets),
+                    (w_tokens * k + k * n) * es + w_tokens * n * 4,
+                    2 * w_tokens * k * n, copies=len(sets))
+
     @staticmethod
-    def sdpa_yardstick(q, kp, vp, bt, row_ids, q_pos):
+    def sdpa_yardstick(q, kp, vp, bt, row_ids, q_pos, held_pages=None):
         """One ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call
         with a boolean mask, on K/V already gathered per row and padded to
         the longest row (queries grouped by row, padded likewise).  Returns
         (attend, args, scatter): ``scatter(attend(*args))`` is [W, Hq, dh]
-        at the valid positions; only ``attend`` is timed."""
+        at the valid positions; only ``attend`` is timed.  ``held_pages``
+        (a mask over the page ids): the keys of other pages are masked too
+        (a rank's share of the flash-decode)."""
         import torch.nn.functional as F
         t = kp.shape[1]
         rows = sorted(set(row_ids[row_ids >= 0].tolist()))
@@ -1444,6 +1598,11 @@ class KernelChecks:
             kv = torch.arange(lk, device=q.device)
             qp = torch.from_numpy(q_pos[idx].astype(np.int64)).cuda()
             mask[i, 0, :len(idx)] = kv[None, :] <= qp[:, None]
+            if held_pages is not None:
+                held = np.zeros(lk, bool)
+                held[:n_keys] = np.repeat(held_pages[bt[r, :-(-n_keys // t)]], t)[:n_keys]
+                mask[i, 0, :len(idx)] &= torch.from_numpy(held).cuda()[None, :]
+                mask[i, 0, :len(idx), 0] |= ~mask[i, 0, :len(idx)].any(dim=1)
             where.append((i, torch.from_numpy(idx).cuda()))
 
         def attend(qq, kk, vv, mm):
@@ -1934,18 +2093,21 @@ def leaves(tree):
         yield tree
 
 
-def check_path_launches(label, launches, flat, rwkv=False, mamba=False) -> None:
+def check_path_launches(label, launches, flat, rwkv=False, mamba=False,
+                        tp=False) -> None:
     """Every kernel of the path ran in the drain just read: all four
     serving kernels in the flat family, all but ragged_attn in the paged
     ones (which attend through PyTorch and must not launch it), wkv6 where
     the model has RWKV layers (``rwkv``) and selective_scan where it has
-    mamba layers (``mamba``), each only there; a drain launches no
-    gradient kernel."""
+    mamba layers (``mamba``), each only there; across ranks (``tp``) the
+    flat family's attention is ragged_attn's partial form, and only there;
+    a drain launches no gradient kernel."""
     for k, n in launches.items():
         if (n == 0) != (k in GRAD_KERNELS + RECURRENT_GRAD
                         or (k == "wkv6" and not rwkv)
                         or (k == "selective_scan" and not mamba)
-                        or (k == "ragged_attn" and not flat)):
+                        or (k == "ragged_attn" and (not flat or tp))
+                        or (k == "ragged_attn_partial" and not (flat and tp))):
             raise AssertionError(f"{label}: {k} launched {n} times")
 
 
@@ -3502,7 +3664,9 @@ def qwen3_full(card) -> tuple:
     res = {**first, "second": second, "init_s": init_s, "prepack_s": prepack_s,
            "weight_bytes": weight_bytes, "bound_ms": bound_ms,
            "step_bound_ms": step_bound_ms, "peak_bytes": peak,
-           "launches_per_step": per_step, "card": card}
+           "launches_per_step": per_step, "card": card,
+           # the serving-across-ranks phase holds its 2-rank drain to these
+           "picks": {f"{r},{p}": v for (r, p), v in first_picks.items()}}
     del eng, rec
     return res, {"qwen3-8b flat bf16": first["launches"],
                  "qwen3-8b flat bf16 second": second["launches"]}
@@ -5292,6 +5456,249 @@ HOST_CALLS = 500          # calls a host-time figure is taken over, per turn
 HOST_TURNS = 11           # turns of (direct, through the op): median and least
 
 
+# serving across ranks: R = 2 processes on the one card over gloo, each a
+# rank of a ("data", "model") = (1, 2) mesh; Qwen3-8B at full width
+TP_WORLD = 2
+TP_F32_LAYERS = 2
+# the rank's pools split by pages: 2 x 129, where the §4 drain's default
+# pool (1 + 4 x 64 = 257 pages) would not divide, and the rules would keep
+# it whole on every rank
+TP_PAGES = 258
+# the bf16 drain's new tokens a request across ranks: each eager step there
+# pays its gloo collectives (each a copy to the host and back, both
+# processes time-sharing the card: about a second a step, PERF.md), so the
+# phase serves the §4 requests' first 8 picks and holds them to the
+# one-rank drain's picks at the same positions
+TP_NEW = 8
+
+
+def tp_engine_kw(**kw) -> dict:
+    return dict(device="cuda", max_slots=4, page_tokens=16, chunk_tokens=128,
+                num_pages=TP_PAGES, **kw)
+
+
+def tp_first_and_picks(eng, prompts, new) -> tuple:
+    """A greedy drain of ``prompts``: (the first model call's logits at the
+    rows it carries, every pick with its top-2 margin, the wall seconds)."""
+    first = []
+    run = eng._run_flat
+
+    def rec(token, bt, row_ids, q_pos, idx, plan=None):
+        out = run(token, bt, row_ids, q_pos, idx, plan)
+        if not first:
+            slots = np.unique(row_ids[row_ids >= 0])
+            first.append(out.reshape(eng.slots, -1, out.shape[-1])[slots])
+        return out
+
+    eng._run_flat = rec
+    picks = PickRecorder(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.add_request(p, new)
+    done = eng.drain()
+    torch.cuda.synchronize()
+    if len(done) != len(prompts):
+        raise AssertionError("not every request finished")
+    return first[0], picks.picks, time.perf_counter() - t0
+
+
+def tp_rank_main(rank: int, world: int, d: str) -> int:
+    """One rank of the serving-across-ranks phase (``--tp-rank``), on the
+    one card: a gloo process group (a FileStore in ``d``), the (1, world)
+    mesh; the f32 check at TP_F32_LAYERS layers (rank 0 first serves the
+    requests on one rank, then frees that engine), then Qwen3-8B whole in
+    bf16, the wrapper counts set to 0 just before its drain and read just
+    after; writes ``d/rank<r>.json``."""
+    import gc
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.distributed.comm import pick_backend
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = pick_backend("cuda", world)
+    t_start = time.perf_counter()
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(d, "store"),
+                                                          world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        out = {"backend": backend, "rank": rank, "setup_s": time.perf_counter() - t_start}
+        shape = ShapeSpec("serve", 1024, 4, "decode")
+        # f32 at TP_F32_LAYERS layers: the first call's logits and the picks,
+        # 2 ranks against 1 (rank 0's, run first and freed)
+        cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=TP_F32_LAYERS)
+        run = RunConfig(param_dtype="float32", compute_dtype="float32")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(5, 25, 4)]
+        one = None
+        if rank == 0:
+            m1 = build_model(cfg, run, shape, device="cuda")
+            eng = Engine(m1, m1.init(torch.Generator(device="cuda").manual_seed(0)),
+                         **tp_engine_kw())
+            one = tp_first_and_picks(eng, prompts, 8)
+            del eng, m1
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        m = build_model(cfg, run, shape, device="cuda", mesh=mesh)
+        eng = Engine(m, m.init(torch.Generator(device="cuda").manual_seed(0)),
+                     mesh=mesh, **tp_engine_kw())
+        first, picks, _ = tp_first_and_picks(eng, prompts, 8)
+        out["f32_tokens"] = by_request(picks)
+        if rank == 0:
+            err = float(np.abs(first - one[0]).max())
+            if not err <= F32_MARGIN:
+                raise AssertionError(f"qwen3-8b f32 {TP_F32_LAYERS} layers: the "
+                                     f"first call's logits on {world} ranks differ "
+                                     f"from one rank's by {err}")
+            out["f32_first_logits_err"] = err
+            out["f32_vs_one_rank"] = compare_picks(
+                one[1], picks, F32_MARGIN,
+                f"qwen3-8b f32 {TP_F32_LAYERS} layers, {world} ranks vs 1")
+        del eng, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        # bf16, all 36 layers: the §4 flat drain of qwen3_full's requests
+        cfg = get_config("qwen3-8b")
+        rng = np.random.default_rng(0)
+        lens = rng.integers(64, 513, 8)
+        prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+        m = build_model(cfg, RunConfig(), shape, device="cuda", mesh=mesh)
+        t0 = time.perf_counter()
+        params = m.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = Engine(m, params, mesh=mesh, **tp_engine_kw())
+        torch.cuda.synchronize()
+        out["shard_s"] = time.perf_counter() - t0
+        del params                     # the rank keeps its packed shards only
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["held_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        axis = m.ctx.tp
+        axis.calls = axis.bytes = 0
+        _, picks, wall = tp_first_and_picks(eng, prompts, TP_NEW)
+        st = eng.stats()
+        out.update({"picks": {f"{r},{p}": v for (r, p), v in picks.items()},
+                    "counters": kernels.counters(),
+                    "launches": kernels.launch_counts(), "wall_s": wall,
+                    "steps": st["steps"], "ms_per_step": 1e3 * wall / st["steps"],
+                    "tokens_per_s": TP_NEW * len(prompts) / wall,
+                    "collectives_per_step": axis.calls / st["steps"],
+                    "collective_mb_per_step": axis.bytes / st["steps"] / 1e6,
+                    "captures": st["captures"], "kv_shard": eng.kv_shard,
+                    "peak_bytes": torch.cuda.max_memory_allocated()})
+        with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_phase(card, checks, qwen) -> tuple:
+    """Serving across ranks on the one card: ragged_attn's partial form and
+    mmt4d's float32 partial against their plain versions at Qwen3-8B's
+    widths (here), then TP_WORLD rank processes over gloo
+    (``tp_rank_main``): Qwen3-8B's f32 first-call logits at TP_F32_LAYERS
+    layers within F32_MARGIN of one rank's and its picks under the margin
+    rule; Qwen3-8B whole in bf16 through the flat step, every rank's picks
+    the same and held to ``qwen``'s (the one-rank drain of the dense phase,
+    freed since) under BF16_MARGIN; every kernel of the path launched,
+    ragged_attn in its partial form only, nothing captured.  Returns
+    (results, launches by path)."""
+    import gc
+    import tempfile
+    t0 = time.perf_counter()
+    for dtype in (BF, TF):
+        for half in (0, 1):
+            checks.ragged_partial(dtype, [(0, 300, 1), (1, 511, 1), (2, 95, 1),
+                                          (3, 1000, 1)], 16,
+                                  f"qwen3-8b decode rows, rank {half}", half)
+        checks.mmt4d_partial(dtype, 16 if dtype is BF else 8, 2048, 4096,
+                             "qwen3-8b o decode, rank's K/2, partial")
+        checks.mmt4d_partial(dtype, 16 if dtype is BF else 8, 6144, 4096,
+                             "qwen3-8b down decode, rank's K/2, partial")
+    checks.ragged_partial(BF, [(0, 600, 1), (1, 64, 1), (2, 0, 300), (3, 128, 206)],
+                          512, "qwen3-8b mixed prefill, rank 0", 0)
+    kernels_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--tp-rank", str(r), "--tp-world", str(TP_WORLD),
+                                   "--tp-dir", d], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(TP_WORLD)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines():
+                print(f"    [rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"serving across ranks: rank {r} exited "
+                                     f"{p.returncode}")
+        ranks = [json.load(open(os.path.join(d, f"rank{r}.json")))
+                 for r in range(TP_WORLD)]
+    wall = time.perf_counter() - t1
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        if r["picks"] != r0["picks"] or r["f32_tokens"] != r0["f32_tokens"]:
+            raise AssertionError("serving across ranks: the ranks picked "
+                                 "differently")
+    for r in ranks:
+        check_path_launches(f"qwen3-8b {TP_WORLD} ranks rank {r['rank']}",
+                            r["launches"], True, tp=True)
+        if r["counters"]["mmt4d.partials"] != 2 * 36 * r["steps"] \
+                or any(r["captures"].values()):
+            raise AssertionError(f"rank {r['rank']}: {r['counters']['mmt4d.partials']} "
+                                 f"float32 partials over {r['steps']} steps "
+                                 f"(2 a layer: O and down), captures {r['captures']}")
+    picks = {tuple(map(int, k.split(","))): tuple(v) for k, v in r0["picks"].items()}
+    one = {tuple(map(int, k.split(","))): tuple(v) for k, v in qwen["picks"].items()}
+    # the one-rank drain's picks at the positions the ranks served
+    vs_one = compare_picks({k: v for k, v in one.items() if k in picks}, picks,
+                           BF16_MARGIN, f"qwen3-8b bf16, {TP_WORLD} ranks vs 1 "
+                           f"rank, the first {TP_NEW} picks of each request")
+    print(f"  serving across ranks: backend {r0['backend']} ({TP_WORLD} processes "
+          f"share one card); f32 {TP_F32_LAYERS} layers: first-call logits within "
+          f"{r0['f32_first_logits_err']:.3e} of one rank's; bf16 36 layers: "
+          f"init {r0['init_s']:.2f} s, shard and pack {r0['shard_s']:.2f} s, "
+          f"{r0['held_bytes'] / 2**30:.2f} GiB held a rank, peak "
+          f"{r0['peak_bytes'] / 2**30:.2f} GiB, pages {r0['kv_shard']} of "
+          f"{TP_PAGES} on rank 0, launches {r0['launches']}")
+    print(f"  tp phase wall: {time.perf_counter() - t0:.1f} s (kernel checks "
+          f"{kernels_s:.1f} s, the {TP_WORLD} rank processes {wall:.1f} s; {card})")
+    print(f"  qwen3-8b bf16 1 rank: {qwen['ms_per_step']:.4f} ms per step "
+          f"({qwen['steps']} steps, graph replays)")
+    print(f"  qwen3-8b bf16 {TP_WORLD} ranks on one card over gloo: "
+          f"{r0['ms_per_step']:.4f} ms per step ({r0['steps']} steps of "
+          f"{TP_NEW} new tokens a request, eager, {r0['tokens_per_s']:.2f} "
+          f"tokens/s; {r0['collectives_per_step']:.1f} collectives, "
+          f"{r0['collective_mb_per_step']:.3f} MB a rank a step): not a figure "
+          f"of multi-card tensor parallelism")
+    res = {"ranks": [{k: v for k, v in r.items() if k != "picks"} for r in ranks],
+           "vs_one_rank": vs_one, "wall_s": time.perf_counter() - t0,
+           "ranks_wall_s": wall, "kernel_checks_s": kernels_s,
+           "parent_held_bytes": held0, "one_rank_ms_per_step": qwen["ms_per_step"],
+           "card": card}
+    return res, {f"qwen3-8b flat bf16 {TP_WORLD} ranks": r0["launches"]}
+
+
 def import_tracing(out: dict) -> None:
     """Import what the graph phase traces with (``out["s"]``: seconds)."""
     t0 = time.perf_counter()
@@ -5716,6 +6123,10 @@ def examples_phase(card, cpu) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results here")
+    # one rank of the serving-across-ranks phase (tp_phase starts them)
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-world", type=int, default=TP_WORLD, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5724,6 +6135,8 @@ def main(argv=None) -> int:
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     sys.path.insert(0, src)
     import repro_torch.serving.engine     # noqa: F401  (the port is beside this script)
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.tp_world, args.tp_dir)
     global CPU_RUNS
     CPU_RUNS = CpuRuns(src)
     try:
@@ -5992,6 +6405,14 @@ def smoke(args) -> int:
           f"moe layer card = CPU ({card})")
     mesh_res, mesh_paths = mesh_phase(card, checks, fam_train)
     by_path.update(mesh_paths)
+    elapsed()
+    print(f"serving across ranks: ragged_attn's partial form and mmt4d's float32 "
+          f"partial at Qwen3-8B's widths; {TP_WORLD} rank processes on this card "
+          f"over gloo, Qwen3-8B f32 at {TP_F32_LAYERS} layers (2 ranks vs 1) and "
+          f"whole in bf16 (its picks held to the dense phase's one-rank drain "
+          f"under a top-2 margin of {BF16_MARGIN:g}) ({card})")
+    tp_res, tp_paths = tp_phase(card, checks, dense["qwen3-8b"])
+    by_path.update(tp_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
@@ -6012,6 +6433,10 @@ def smoke(args) -> int:
     main_launches["selective_scan_bwd"] = fam_paths[
         "train f32 jamba-v0.1-52b"]["selective_scan_bwd"]
     main_steps["selective_scan_bwd"] = 1
+    # ragged_attn's partial form: the bf16 Qwen3-8B drain across ranks
+    main_launches["ragged_attn_partial"] = tp_paths[
+        f"qwen3-8b flat bf16 {TP_WORLD} ranks"]["ragged_attn_partial"]
+    main_steps["ragged_attn_partial"] = tp_res["ranks"][0]["steps"]
     for k in SOURCES:
         if not main_launches[k]:
             raise AssertionError(f"{k}: no launch on its main path")
@@ -6028,7 +6453,7 @@ def smoke(args) -> int:
             "op": f"torch.ops.repro_torch.{k}",
             "launches": main_launches[k],
             "launches_per_step": main_launches[k] / main_steps[k],
-            "launches_by_path": {f: n[k] for f, n in by_path.items()},
+            "launches_by_path": {f: n.get(k, 0) for f, n in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
@@ -6069,6 +6494,7 @@ def smoke(args) -> int:
                        "training": training, "dense": dense,
                        "recurrent": recurrent, "moe": moe_res, "jamba": jamba,
                        "family_training": fam_train, "mesh": mesh_res,
+                       "across_ranks": tp_res,
                        "graph": graph, "examples": examples,
                        "cpu_runs": cpu_runs,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,

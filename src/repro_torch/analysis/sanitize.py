@@ -13,6 +13,11 @@ write:
   ``_chunk_shapes``, the prefill buckets of ``_prefill_bucket``), and a
   flat width is ``m_r``-aligned: a width outside the ladder would need a
   program, and on the card a graph, that warmup never made;
+* across ranks whose pools are split by pages (``engine.kv_shard``), each
+  rank's own writes: a valid position whose page the rank holds writes
+  its local page ``page - page_lo``, inside the rank's pool and never its
+  trash slot, and every other position writes the trash slot
+  (``page_count``), so no rank writes a page it does not hold;
 * the resilience contract: a retired request id (finished, cancelled,
   timed out, shed, quarantined) is no longer scheduled and holds no page,
   and a quarantined request's private pages are free after
@@ -60,6 +65,10 @@ class StepSanitizer:
         self.paged_widths = self._declared_paged_widths()
         self.flat_widths: Set[int] = (set(engine._flat_shapes())
                                       if engine.flat else set())
+        self.kv_shard = engine.kv_shard
+        self.local_pages = (None if engine.kv_shard is None else
+                            next(iter(_pools(engine.caches))).shape[1])
+        self.rank_writes = 0       # valid positions a rank's check covered
 
     @property
     def engine(self):
@@ -114,6 +123,27 @@ class StepSanitizer:
                            f"— a shared page must be copied (PagedKVPool.cow) "
                            f"before any write")
 
+    def _check_rank(self, pages, valid, where: str) -> None:
+        """The rank's destinations of the valid positions' global
+        ``pages`` (``models/attention.py:local_pages``, mirrored here)."""
+        if self.kv_shard is None:
+            return
+        lo, count = self.kv_shard
+        if self.local_pages != count + 1:
+            self._fail(f"{where}: the rank's pools hold {self.local_pages} "
+                       f"pages, not its {count} and a trash slot")
+        pages = np.asarray(pages)[np.asarray(valid)]
+        held = (pages >= lo) & (pages < lo + count)
+        local = np.where(held, pages - lo, count)
+        self.rank_writes += int(pages.size)
+        if (local[held] >= count).any() or (local[held] < 0).any():
+            self._fail(f"{where}: a held page writes outside the rank's "
+                       f"pages [0, {count})")
+        if (local[~held] != count).any():
+            self._fail(f"{where}: a page the rank does not hold "
+                       f"({sorted(set(pages[~held].tolist()))}) is written "
+                       f"elsewhere than its trash slot")
+
     def check_retired(self) -> None:
         """Zero leaks on retirement: a retired rid is gone from the
         schedule and holds no page.  Runs before every model call, so a
@@ -147,8 +177,9 @@ class StepSanitizer:
                 continue             # an inert row writes the trash page
             pos = int(lens[bi]) + np.arange(n)
             slot = np.minimum(pos // t, bt.shape[1] - 1)
-            self._check_pages(bt[bi, slot], f"paged step row {bi} "
-                              f"(lens={int(lens[bi])}, new_count={n})")
+            where = f"paged step row {bi} (lens={int(lens[bi])}, new_count={n})"
+            self._check_pages(bt[bi, slot], where)
+            self._check_rank(bt[bi, slot], np.ones(n, bool), where)
 
     def check_flat(self, token, block_tables, row_ids, q_pos) -> None:
         token = np.asarray(token)
@@ -163,8 +194,18 @@ class StepSanitizer:
                                                   self.pool.page_tokens)
         if valid.any():
             rows = sorted(int(r) for r in np.unique(row_ids[valid]))
-            self._check_pages(pages[valid], f"flat step (rows {rows}, "
-                              f"{int(valid.sum())} valid tokens)")
+            where = f"flat step (rows {rows}, {int(valid.sum())} valid tokens)"
+            self._check_pages(pages[valid], where)
+            self._check_rank(pages, valid, where)
+
+
+def _pools(tree):
+    """The ``*_pages`` pools of a cache tree."""
+    for k, v in tree.items():
+        if k.endswith("_pages"):
+            yield v
+        elif isinstance(v, dict):
+            yield from _pools(v)
 
 
 def _entry(obj, name: str):

@@ -8,6 +8,22 @@ unpacked (``unpack_to``), so no unpack kernel follows.  Under the
 Weights live unpacked in the parameter tree; :func:`prepack_params` packs
 them once for serving (paper §4.1: packing as a standalone operation on
 the full operands).
+
+Across the ranks of a mesh's ``model`` axis (``MatmulContext.tp``) a
+weight the sharding rules split holds its rank's whole tiles and records
+the cut as ``w_split`` (:mod:`repro_torch.distributed.sharding`), and
+``linear_apply`` runs the JAX package's Megatron products on it:
+
+- column-parallel (``("col", lo, hi, N)``): the rank's output tiles
+  ``[lo, hi)`` with the bias and activation fused, then gathered whole
+  on every rank (:meth:`~repro_torch.distributed.comm.ModelAxis.gather`),
+  or kept the rank's (``gather=False``): for a row-parallel product next,
+  or to be gathered with others in one collective (:func:`gather_columns`);
+- row-parallel (``("row", lo, hi, K_o)``): the rank's contraction tiles,
+  taken from a whole input or given as the rank's own, into a float32
+  partial (mmt4d's ``partial``: no epilogue, no cast), summed over the
+  ranks; the bias and the activation are applied once, to the sum, in
+  float32, then one cast, as the kernel's epilogue does.
 """
 
 from __future__ import annotations
@@ -22,8 +38,9 @@ from repro_torch.core.layout import LayoutPolicy, PackedLayout, make_layout
 from repro_torch.core.mmt4d import Epilogue, matmul, mmt4d
 from repro_torch.core import packing
 from repro_torch.core.propagation import PackedArray, pack_activation
+from repro_torch.kernels.mmt4d.ref import ACTIVATIONS
 
-__all__ = ["MatmulContext", "linear_init", "linear_apply",
+__all__ = ["MatmulContext", "linear_init", "linear_apply", "gather_columns",
            "batched_linear_apply", "prepack_params", "PLAIN_PRODUCTS"]
 
 # ``{"w"}`` leaves that no linear_apply reads, plain float32 products in
@@ -47,7 +64,12 @@ class MatmulContext:
     JAX package under GSPMD.  True is a rank of a ``DeviceMesh``: the
     process holds its own data shard's tokens, which are one block, and
     ``dp_group`` (a process group over the data ranks, None on one rank)
-    is where the moe layer sums its aux losses' terms."""
+    is where the moe layer sums its aux losses' terms.
+
+    ``tp``: the ranks of the mesh's ``model`` axis this process is one of
+    (:class:`~repro_torch.distributed.comm.ModelAxis`: its rank and
+    process group), None on one rank: the collectives of the
+    tensor-parallel products (module docstring)."""
 
     policy: LayoutPolicy = LayoutPolicy.SCALABLE
     hw: Optional[HardwareSpec] = None
@@ -59,6 +81,7 @@ class MatmulContext:
     moe_local: bool = False
     dp_local: bool = False
     dp_group: Optional[object] = dataclasses.field(default=None, compare=False)
+    tp: Optional[object] = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         # a policy given by name ("unpacked") is the enum member, so that
@@ -86,17 +109,6 @@ class MatmulContext:
         return tuple(a for a in ("pod", "data") if self.mesh_axes
                      and a in self.mesh_axes)
 
-    def constrain(self, x, spec_tail: tuple):
-        """The identity.  The JAX package pins the trailing dims of ``x`` to
-        a sharding here (``with_sharding_constraint``) so that GSPMD keeps
-        the tensor-parallel split through its scanned layer bodies; the
-        port computes each rank's tensors eagerly on its own device, so
-        there is no partitioner to steer.  The model code does not call
-        it (nor ``models/common.py:constrain_stream``): the JAX package's
-        13 call sites have no effect to carry over."""
-        del spec_tail
-        return x
-
 
 def linear_init(generator: torch.Generator, d_in: int, d_out: int, *,
                 bias: bool = False, dtype: torch.dtype = torch.float32,
@@ -123,36 +135,137 @@ def _packed_weight(params: dict, layout: PackedLayout):
 
 def linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
                  ctx: MatmulContext, *, activation: Optional[str] = None,
-                 keep_packed: bool = False) -> Union[torch.Tensor, PackedArray]:
+                 keep_packed: bool = False, tp: Optional[str] = None,
+                 gather: bool = True) -> Union[torch.Tensor, PackedArray]:
     """y = act(x @ W + b).  x: [..., M, K] tensor or PackedArray; returns
     [..., M, N] (a PackedArray when ``keep_packed``).
 
     The bias and activation go into the mmt4d kernel, which applies them
     in float32 before its one cast, as the Pallas kernel does.  The JAX
     model path casts first and applies them after; the two orders agree in
-    float32 and round differently in bfloat16."""
+    float32 and round differently in bfloat16.
+
+    ``tp`` ("col" or "row", the JAX package's): how the product splits
+    across the ranks of ``ctx.tp``; the weight's ``w_split`` says what
+    this rank holds (none: the rules left the weight whole, and the
+    product runs whole on every rank), and a split of the other kind is
+    refused.  ``gather=False`` keeps a column-parallel result the rank's
+    own (its output tiles ``[lo, hi)``), for a row-parallel product."""
+    split = params.get("w_split")
+    if split is not None:
+        if ctx.tp is None:
+            raise ValueError("a weight split across ranks (w_split) on a "
+                             "context without a model axis (ctx.tp)")
+        if tp is not None and split[0] != tp:
+            raise ValueError(f"a {split[0]}-parallel weight asked for a "
+                             f"{tp}-parallel product")
     epi = Epilogue(activation=activation)
     if not ctx.packed:
         if isinstance(x, PackedArray):
             raise TypeError("the unpacked policy takes a plain tensor, not "
                             "a PackedArray")
+        if split is not None:
+            raise NotImplementedError("the unpacked policy across ranks: the "
+                                      "port splits packed weights by tiles")
         return matmul(x, params["w"], ctx.layout(x.dtype), epilogue=epi,
                       bias=params.get("b"))
     if isinstance(x, PackedArray):
         layout, a_pack, m = x.layout, x.data, x.m
     else:
         layout = ctx.layout(x.dtype)
-        a_pack, m = packing.pack_lhs(x, layout), x.shape[-2]
+        a_pack, m = None, x.shape[-2]
     b_pack, n = _packed_weight(params, layout)
     packed_out = keep_packed and ctx.propagate and layout.chain_compatible
-    c = mmt4d(a_pack, b_pack, epi.bias_pack(params.get("b"), layout),
-              activation=epi.activation, unpack_to=None if packed_out else (m, n))
+    if split is not None and split[0] == "row":
+        c = _row_parallel(params, x, a_pack, b_pack, n, m, layout, split, ctx,
+                          epi, packed_out)
+    else:
+        if a_pack is None:
+            a_pack = packing.pack_lhs(x, layout)
+        bias = params.get("b")
+        if split is not None and bias is not None:      # the rank's columns
+            bias = bias[..., split[1] * layout.n_r:split[1] * layout.n_r + n]
+        if n == 0:                                      # no tiles on this rank
+            c = a_pack.new_zeros((*a_pack.shape[:-3], 0, layout.m_r, layout.n_r)
+                                 if packed_out else (*a_pack.shape[:-4], m, 0))
+        else:
+            c = mmt4d(a_pack, b_pack, epi.bias_pack(bias, layout),
+                      activation=epi.activation,
+                      unpack_to=None if packed_out else (m, n))
+        if split is not None:
+            _, lo, _, total = split
+            if gather:
+                c = (ctx.tp.gather(c, -3, lo, -(-total // layout.n_r))
+                     if packed_out else
+                     ctx.tp.gather(c, -1, min(lo * layout.n_r, total), total))
+                n = total
     if packed_out:
         return PackedArray(data=c, m=m, k=n, layout=layout)
     if keep_packed and ctx.propagate:
         # output tile != input tile: round-trip through the plain domain
         return pack_activation(c, layout)
     return c
+
+
+def gather_columns(ctx: MatmulContext, pairs: list) -> list:
+    """The whole results of column-parallel products run with
+    ``gather=False``: ``pairs`` is ``[(params, y)]``, each ``y`` [..., m,
+    n] the rank's output columns (unpacked) of the linear ``params``.
+    All of them are gathered by one collective (one all-reduce of their
+    concatenation: ranks that share a card or a host pay per collective
+    more than per byte); a result the rules left whole is whole already."""
+    cut = [i for i, (p, _) in enumerate(pairs) if "w_split" in p]
+    out = [y for _, y in pairs]
+    if ctx.tp is None or not cut:
+        return out
+    parts = []
+    for i in cut:
+        p, y = pairs[i]
+        _, lo, _, total = p["w_split"]
+        parts.append((y, min(lo * ctx.layout(y.dtype).n_r, total), total))
+    for i, whole in zip(cut, ctx.tp.gather_parts(parts)):
+        out[i] = whole
+    return out
+
+
+def _row_parallel(params, x, a_pack, b_pack, n, m, layout, split, ctx, epi,
+                  packed_out):
+    """The rank's share of a row-parallel product, summed over the ranks,
+    then the bias and activation in float32 and one cast (module
+    docstring).  The input is the whole x or the rank's own K tiles."""
+    _, lo, hi, k_tiles = split
+    k_r = layout.k_r
+    dtype = x.dtype
+    if a_pack is None:                          # an unpacked input
+        tiles = -(-x.shape[-1] // k_r)
+        if tiles == k_tiles and hi - lo != k_tiles:
+            x = x[..., lo * k_r:hi * k_r]         # the rank's columns
+        elif tiles != hi - lo:
+            raise ValueError(f"a row-parallel input of {x.shape[-1]} columns: "
+                             f"neither the whole ({k_tiles} tiles) nor the "
+                             f"rank's {hi - lo}")
+        a_pack = packing.pack_lhs(x, layout)
+    elif a_pack.shape[-3] == k_tiles and hi - lo != k_tiles:
+        a_pack = a_pack[..., lo:hi, :, :].contiguous()
+    elif a_pack.shape[-3] != hi - lo:
+        raise ValueError(f"a row-parallel packed input of {a_pack.shape[-3]} "
+                         f"K tiles: neither the whole ({k_tiles}) nor the "
+                         f"rank's {hi - lo}")
+    unpack_to = None if packed_out else (m, n)
+    if hi == lo:                                # no tiles on this rank: zeros
+        shape = (layout.packed_out_shape(m, n) if packed_out else (m, n))
+        c = torch.zeros((*a_pack.shape[:-4], *shape), dtype=torch.float32,
+                        device=a_pack.device)
+    else:
+        c = mmt4d(a_pack, b_pack, unpack_to=unpack_to, partial=True)
+    ctx.tp.sum_(c)
+    bias = params.get("b")
+    if bias is not None:
+        if packed_out:
+            c = c + epi.bias_pack(bias, layout)[:, None, :].float()
+        else:
+            c = c + bias.float()
+    return ACTIVATIONS[epi.activation](c).to(dtype)
 
 
 def batched_linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
@@ -180,6 +293,9 @@ def batched_linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
         layout = ctx.layout(x.dtype)
         a_pack, m = packing.pack_lhs(x, layout), x.shape[-2]
     b_pack, n = _packed_weight(params, layout)
+    if "w_split" in params:
+        raise NotImplementedError("an expert stack split across ranks: the "
+                                  "moe family across ranks is ROADMAP A13.3")
     return mmt4d(a_pack, b_pack, epi.bias_pack(params.get("b"), layout),
                  activation=epi.activation, unpack_to=(m, n))
 

@@ -68,7 +68,8 @@ class Epilogue:
 def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
           bias_pack: Optional[torch.Tensor] = None, *,
           activation: Optional[str] = None,
-          unpack_to: Optional[tuple] = None) -> torch.Tensor:
+          unpack_to: Optional[tuple] = None,
+          partial: bool = False) -> torch.Tensor:
     """a_pack [..., M_o, K_o, m_r, k_r], b_pack [N_o, K_o, n_r, k_r] ->
     C_pack [..., M_o, N_o, m_r, n_r] in a_pack's dtype, or with
     ``unpack_to=(m, n)`` C [..., m, n] (the kernel's unpacked store: the
@@ -79,8 +80,19 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     ``core/mmt4d.py`` does for a plain weight.  An expert-batched b_pack
     [E, N_o, K_o, n_r, k_r] (the MoE family's experts) takes a_pack [E,
     M_o, K_o, m_r, k_r] and bias_pack [E, N_o, n_r]: one launch over every
-    expert, and one of each gradient kernel over every expert."""
+    expert, and one of each gradient kernel over every expert.
+
+    ``partial``: the float32 sums without the epilogue or the cast, a
+    rank's share of a row-parallel product across ranks (serving only:
+    no gradient)."""
     tensors = (a_pack, b_pack) + (() if bias_pack is None else (bias_pack,))
+    if partial:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            raise NotImplementedError(
+                "the gradient of a row-parallel product across ranks: "
+                "training across ranks is ROADMAP A13.7")
+        return mmt4d_kernel(a_pack, b_pack, activation=activation,
+                            unpack_to=unpack_to, partial=True)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _Mmt4dFn.apply(a_pack, b_pack, bias_pack, activation, unpack_to)
     return mmt4d_kernel(a_pack, b_pack, bias_pack, activation=activation,

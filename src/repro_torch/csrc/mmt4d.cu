@@ -68,6 +68,12 @@
 //   the tile padding dropped instead of C_pack, so no unpack kernel
 //   follows.  Only the address and a mask change (the bf16 kernel's note
 //   below), so the values are the packed store's, bit for bit.
+// - The float32 partial (out_f32).  A row-parallel product across ranks
+//   (core/linear.py, tp="row") sums its ranks' partials before its bias
+//   and activation, so each rank's bfloat16 call stores the summed float32
+//   partials as they are, without the epilogue and the cast (the wrapper
+//   refuses a bias or an activation with it): the same sums, stored 16
+//   bytes a thread where the packed or unpacked store stores 8.
 //
 // float32 stays on the CUDA cores in IEEE arithmetic (TF32 tensor cores
 // would change the float32 results): one block per output tile loops over
@@ -79,6 +85,8 @@
 // whatever `kc` is, so the result does not depend on it (with kc = k_r
 // the kernel stages whole tiles and gives the same bits).
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -237,6 +245,22 @@ constexpr int kPadP = 4;         // float padding per partial row
 // 8t+4s+2+e.  A warp's load touches 8 rows x 64 contiguous bytes: whole
 // 32-byte sectors.  Loads run P chunks ahead of the MMAs in registers.
 //
+// four outputs along n_r: one 8-byte store in bfloat16 (one rounding each,
+// to nearest even), one 16-byte store of the float32 partial; one at a time
+__device__ __forceinline__ void store4(bf16* p, const float (&o)[4]) {
+  const __nv_bfloat162 o01 = __floats2bfloat162_rn(o[0], o[1]);
+  const __nv_bfloat162 o23 = __floats2bfloat162_rn(o[2], o[3]);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&o01);
+  packed.y = *reinterpret_cast<const uint32_t*>(&o23);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+__device__ __forceinline__ void store4(float* p, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ void store1(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+
 // UNPACKED (out_cols > 0; a template parameter, so the packed store compiles
 // as it would alone): the 4 outputs of a thread at activation row m,
 // weight row n of tile (mo, no) go to C[b, mo_b * m_r + m % m_r, no * n_r +
@@ -245,10 +269,10 @@ constexpr int kPadP = 4;         // float padding per partial row
 // tile: Q's N = 576 leaves 64 of tile 4's 128 columns); as one 8-byte
 // store where out_cols % 4 == 0 and C is 8-byte aligned, else one element
 // at a time.  kernels/mmt4d/ops.py:Split.stores mirrors this map.
-template <int NT, bool UNPACKED>
+template <int NT, bool UNPACKED, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 mmt4d_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-                  const bf16* __restrict__ bias, bf16* __restrict__ c,
+                  const bf16* __restrict__ bias, OutT* __restrict__ c,
                   int Mo, int No, int Ko, int m_r, int n_r, int k_r, int act,
                   int rows, int tm, int splits, int out_rows, int out_cols,
                   int mo_per_batch, int mo_per_expert) {
@@ -390,33 +414,29 @@ mmt4d_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
     }
     const int n = r0 + q * 4;
     float o[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (!std::is_same_v<OutT, float>) {   // the float32 partial has none
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (bias != nullptr) o[e] += __bfloat162float(bias[(int64_t)no * n_r + n + e]);
-      o[e] = activate(o[e], act);
+      for (int e = 0; e < 4; ++e) {
+        if (bias != nullptr) o[e] += __bfloat162float(bias[(int64_t)no * n_r + n + e]);
+        o[e] = activate(o[e], act);
+      }
     }
-    const __nv_bfloat162 o01 = __floats2bfloat162_rn(o[0], o[1]);
-    const __nv_bfloat162 o23 = __floats2bfloat162_rn(o[2], o[3]);
-    uint2 packed;
-    packed.x = *reinterpret_cast<const uint32_t*>(&o01);
-    packed.y = *reinterpret_cast<const uint32_t*>(&o23);
     const int mo = mo0 + m / m_r, mi = m % m_r;
     if constexpr (UNPACKED) {
       const int bb = mo / mo_per_batch;
       const int r = (mo - bb * mo_per_batch) * m_r + mi, col = no * n_r + n;
       if (r < out_rows && col < out_cols) {             // else tile padding
-        bf16* dst = c + ((int64_t)bb * out_rows + r) * out_cols + col;
-        if (out_cols % 4 == 0 && ((uintptr_t)c & 7) == 0) {
-          *reinterpret_cast<uint2*>(dst) = packed;
+        OutT* dst = c + ((int64_t)bb * out_rows + r) * out_cols + col;
+        if (out_cols % 4 == 0 && ((uintptr_t)c & (4 * sizeof(OutT) - 1)) == 0) {
+          store4(dst, o);
         } else {
-          const bf16 e4[4] = {o01.x, o01.y, o23.x, o23.y};
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (col + e < out_cols) dst[e] = e4[e];
+            if (col + e < out_cols) store1(dst + e, o[e]);
         }
       }
     } else {
-      *reinterpret_cast<uint2*>(c + (((int64_t)mo * No + no) * m_r + mi) * n_r + n) = packed;
+      store4(c + (((int64_t)mo * No + no) * m_r + mi) * n_r + n, o);
     }
   }
   if (splits > 1) cluster.sync();       // keep every partial until all are read
@@ -434,14 +454,14 @@ size_t smem_bf16(int rows, int cols) {
   return (size_t)(kWarps / (rows / 16)) * nt_of(cols) * 8 * (rows + kPadP) * sizeof(float);
 }
 
-template <int NT, bool UNPACKED>
+template <int NT, bool UNPACKED, typename OutT>
 int launch_nt(const void* a, const void* b, const void* bias, void* c,
               int64_t E, int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r,
               int k_r, int act, int rows, int tm, int splits, int64_t out_rows,
               int64_t out_cols, int64_t mo_per_batch, size_t smem,
               cudaStream_t stream) {
   static bool configured[repro::kMaxDevices] = {};
-  if (int e = repro::opt_in_smem(mmt4d_bf16_kernel<NT, UNPACKED>, configured)) return e;
+  if (int e = repro::opt_in_smem(mmt4d_bf16_kernel<NT, UNPACKED, OutT>, configured)) return e;
   cudaLaunchConfig_t cfg = {};
   const int64_t mo_e = Mo / E;
   cfg.gridDim = dim3((unsigned)(No * (n_r / rows)),
@@ -461,8 +481,8 @@ int launch_nt(const void* a, const void* b, const void* bias, void* c,
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 2 : 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, mmt4d_bf16_kernel<NT, UNPACKED>, (const bf16*)a, (const bf16*)b,
-      (const bf16*)bias, (bf16*)c, (int)Mo, (int)No, (int)Ko, m_r, n_r, k_r, act,
+      &cfg, mmt4d_bf16_kernel<NT, UNPACKED, OutT>, (const bf16*)a, (const bf16*)b,
+      (const bf16*)bias, (OutT*)c, (int)Mo, (int)No, (int)Ko, m_r, n_r, k_r, act,
       rows, tm, splits, (int)out_rows, (int)out_cols, (int)mo_per_batch,
       (int)mo_e);
   if (e != cudaSuccess) return (int)e;
@@ -472,8 +492,11 @@ int launch_nt(const void* a, const void* b, const void* bias, void* c,
 int launch_bf16(const void* a, const void* b, const void* bias, void* c,
                 int64_t E, int64_t Mo, int64_t No, int64_t Ko, int m_r, int n_r,
                 int k_r, int act, int rows, int tm, int splits, int64_t out_rows,
-                int64_t out_cols, int64_t mo_per_batch, cudaStream_t stream) {
+                int64_t out_cols, int64_t mo_per_batch, int out_f32,
+                cudaStream_t stream) {
   const bool unpacked = out_cols > 0;
+  // the float32 partial has no epilogue
+  if (out_f32 && (bias != nullptr || act != kNone)) return (int)cudaErrorInvalidValue;
   if (m_r % 8 != 0 || k_r % 16 != 0 || n_r % 64 != 0 ||
       (rows != 16 && rows != 32 && rows != 64) || n_r % rows != 0 ||
       tm < 1 || (int64_t)tm * m_r > kMaxCols || splits < 1 ||
@@ -488,7 +511,10 @@ int launch_bf16(const void* a, const void* b, const void* bias, void* c,
   switch (nt_of(tm * m_r)) {
 #define REPRO_NT(N)                                                          \
     case N:                                                                  \
-      return (unpacked ? launch_nt<N, true> : launch_nt<N, false>)(          \
+      return (out_f32 ? (unpacked ? launch_nt<N, true, float>                \
+                                  : launch_nt<N, false, float>)              \
+                      : (unpacked ? launch_nt<N, true, bf16>                 \
+                                  : launch_nt<N, false, bf16>))(             \
           a, b, bias, c, E, Mo, No, Ko, m_r, n_r, k_r, act, rows, tm, splits,  \
           out_rows, out_cols, mo_per_batch, smem, stream);
     REPRO_NT(1) REPRO_NT(2) REPRO_NT(4)
@@ -516,11 +542,14 @@ bool unpacked_extent_ok(int64_t Mo, int64_t No, int m_r, int n_r,
 // kernels/mmt4d/ops.py:pick_split; for float32, rows is the k chunk staged
 // at a time (tm and splits ignored).  out_rows,
 // out_cols, mo_per_batch: the unpacked store (all 0: C is C_pack).
+// out_f32: C is float32, the summed partials without an epilogue (bfloat16
+// operands; float32 operands give float32 anyway, and take it as 0).
 extern "C" int repro_mmt4d(const void* a, const void* b, const void* bias,
                            void* c, int dtype, int64_t E, int64_t Mo, int64_t No,
                            int64_t Ko, int m_r, int n_r, int k_r, int act,
                            int rows, int tm, int splits, int64_t out_rows,
-                           int64_t out_cols, int64_t mo_per_batch, void* stream) {
+                           int64_t out_cols, int64_t mo_per_batch, int out_f32,
+                           void* stream) {
   if (E < 1 || E > 65535 || Mo % E != 0 ||
       !unpacked_extent_ok(Mo, No, m_r, n_r, out_rows, out_cols, mo_per_batch) ||
       (out_cols > 0 && E > 1 && (Mo / E) % mo_per_batch != 0))
@@ -530,7 +559,7 @@ extern "C" int repro_mmt4d(const void* a, const void* b, const void* bias,
                       out_rows, out_cols, mo_per_batch, (cudaStream_t)stream);
   if (dtype == repro::kBF16)
     return launch_bf16(a, b, bias, c, E, Mo, No, Ko, m_r, n_r, k_r, act, rows,
-                       tm, splits, out_rows, out_cols, mo_per_batch,
+                       tm, splits, out_rows, out_cols, mo_per_batch, out_f32,
                        (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -46,6 +46,16 @@
 // - float32 on the CUDA cores in IEEE arithmetic (TF32 would change the
 //   float32 drain's tokens), with the same tiles, splits and merges: two
 //   lanes per query row, each a half of the page's keys, then of d.
+// - The partial form (lse != nullptr), one rank's share of a flash-decode
+//   across ranks whose pool is split by pages (models/attention.py): the
+//   rank holds global pages [page_lo, page_lo + page_count) as its local
+//   pages 0 .. page_count - 1.  Each block keeps, of its range of a row's
+//   block table, the pages the rank holds (warp 0 compacts the list with
+//   a ballot, beside each page's index in the table, which the causal mask
+//   reads), so a rank reads only its own pages; the rest is the whole
+//   form's arithmetic.  Each query row's float32 log-sum-exp m + log l is
+//   written beside its output, which the ranks' combine weighs by; a row
+//   with no key on the rank gives o = 0 and lse = -inf.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -68,7 +78,8 @@ constexpr int kItem = 6;          // ints per plan item (ops.py:RaggedPlan.items
 
 // Shared memory: each warp's partial (m, l, acc) for its 16 rows, then the
 // block's (m, l) per row (its acc is merged into the slots of the first
-// warps), then the page ids of the block's range.
+// warps), then the page ids of the block's range, each one's index in the
+// row's block table, and (the partial form) how many the rank holds.
 template <int DH>
 struct Smem {
   float acc[kWarps][16][DH];
@@ -95,8 +106,8 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
 // the pages it walks (pages[it], it = first, first + stride, ... < count).
 struct WarpJob {
   const int* pages;       // page ids of the block's range (shared memory)
+  const int* pidx;        // each one's index in the row's block table
   int count, first, stride;
-  int p_lo;               // page index of pages[0] in the row's table
   int start, rows, g, q0; // tile: first flat position, query rows, group, q_pos
   int Hq, Hkv, h, f;      // f: the warp's m16 fragment of the tile's rows
 };
@@ -161,7 +172,7 @@ __device__ void warp_partial(const bf16* __restrict__ q, const bf16* __restrict_
         vx[i][u] = ldg16(vp + base + keys[i] * row_stride + NT * g8 + 8 * u);
   };
   auto compute = [&](const uint4 (&kx)[2][NC], const uint4 (&vx)[4][VU], int n) {
-    const int p = j.p_lo + j.first + n * j.stride;
+    const int p = j.pidx[j.first + n * j.stride];
     float s[2][4];        // [key n8 tile][C fragment]
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
@@ -290,7 +301,7 @@ __device__ void warp_partial(const float* __restrict__ q, const float* __restric
   for (int d = 0; d < H; ++d) acc[d] = 0.0f;
 
   for (int it = j.first; it < j.count; it += j.stride) {
-    const int p = j.p_lo + it;
+    const int p = j.pidx[it];
     const int64_t base = ((int64_t)j.pages[it] * kT * j.Hkv + j.h) * DH;
     float s[8];
     float mx = -INFINITY;
@@ -404,10 +415,13 @@ __global__ void __launch_bounds__(kThreads)
 ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
                    const int* __restrict__ items, T* __restrict__ out,
-                   int splits, int Hq, int Hkv, int MP) {
+                   float* __restrict__ lse, int splits, int Hq, int Hkv, int MP,
+                   int page_lo, int page_count) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw);
   int* pages = reinterpret_cast<int*>(smem_raw + sizeof(Smem<DH>));
+  int* pidx = pages + MP;
+  int& kept = pidx[MP];   // the partial form: pages of the range the rank holds
   // launched as a programmatic dependent: wait here, before the first read,
   // until the previous kernel on the stream has finished and flushed
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -426,16 +440,47 @@ ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       T* dst = out + ((int64_t)(start + pos) * Hq + h * g) * DH + (x % per_pos) * vec;
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
+    if (lse != nullptr)
+      for (int x = tid; x < n * g; x += kThreads)
+        if ((x / g) % splits == rank)
+          lse[(int64_t)(start + x / g) * Hq + h * g + x % g] = -INFINITY;
     return;
   }
 
   const int rows = n * g, frags = (rows + 15) / 16, groups = kWarps / frags;
   if (rows > kRowsMax) __trap();   // plan_ragged cuts tiles to kRowsMax rows
-  const int count = p_hi - p_lo;
-  for (int x = tid; x < count; x += kThreads) pages[x] = bt[(int64_t)row * MP + p_lo + x];
+  int count = p_hi - p_lo;
+  if (lse == nullptr) {
+    for (int x = tid; x < count; x += kThreads) {
+      pages[x] = bt[(int64_t)row * MP + p_lo + x];
+      pidx[x] = p_lo + x;
+    }
+  } else if (warp == 0) {
+    // the partial form: the range's pages the rank holds, in table order,
+    // as local page ids (a ballot a 32-page chunk)
+    const int lane = tid & 31;
+    int kept_n = 0;
+    for (int c0 = 0; c0 < count; c0 += 32) {
+      const int x = c0 + lane;
+      int id = -1;
+      if (x < count) {
+        id = bt[(int64_t)row * MP + p_lo + x] - page_lo;
+        if (id < 0 || id >= page_count) id = -1;
+      }
+      const unsigned held = __ballot_sync(0xffffffffu, id >= 0);
+      if (id >= 0) {
+        const int at = kept_n + __popc(held & ((1u << lane) - 1u));
+        pages[at] = id;
+        pidx[at] = p_lo + x;
+      }
+      kept_n += __popc(held);
+    }
+    if (lane == 0) kept = kept_n;
+  }
   __syncthreads();
+  if (lse != nullptr) count = kept;
   if (warp < groups * frags) {
-    const WarpJob job{pages, count, warp / frags, groups, p_lo, start, rows, g, q0,
+    const WarpJob job{pages, pidx, count, warp / frags, groups, start, rows, g, q0,
                       Hq, Hkv, h, warp % frags};
     warp_partial(q, kp, vp, job, sm, warp);
   }
@@ -457,8 +502,9 @@ ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }, top, lsum, a);
     if (splits == 1) {
       const float inv = 1.0f / fmaxf(lsum, 1e-30f);
-      store4(out + ((int64_t)(start + r / g) * Hq + h * g + r % g) * DH + d,
-             make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+      const int64_t o = (int64_t)(start + r / g) * Hq + h * g + r % g;
+      store4(out + o * DH + d, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+      if (lse != nullptr && d == 0) lse[o] = lsum > 0.0f ? top + logf(lsum) : -INFINITY;
     } else {
       *reinterpret_cast<float4*>(sm.acc[f][rr] + d) = a;
       if (d == 0) {
@@ -487,18 +533,20 @@ ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       v = *reinterpret_cast<const float4*>(o->acc[f][rr] + d);
     }, top, lsum, a);
     const float inv = 1.0f / fmaxf(lsum, 1e-30f);
-    store4(out + ((int64_t)(start + r / g) * Hq + h * g + r % g) * DH + d,
-           make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+    const int64_t o = (int64_t)(start + r / g) * Hq + h * g + r % g;
+    store4(out + o * DH + d, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+    if (lse != nullptr && d == 0) lse[o] = lsum > 0.0f ? top + logf(lsum) : -INFINITY;
   }
   cluster.sync();         // keep every partial until the cluster has read it
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* kp, const void* vp, const void* bt,
-           const void* items, void* out, int n_items, int splits, int Hq,
-           int Hkv, int MP, cudaStream_t stream) {
+           const void* items, void* out, float* lse, int n_items, int splits,
+           int Hq, int Hkv, int MP, int page_lo, int page_count,
+           cudaStream_t stream) {
   static bool configured[repro::kMaxDevices] = {};
-  const size_t smem = sizeof(Smem<DH>) + (size_t)MP * sizeof(int);
+  const size_t smem = sizeof(Smem<DH>) + (2 * (size_t)MP + 1) * sizeof(int);
   if (smem > (size_t)repro::kMaxSmem) return (int)cudaErrorInvalidValue;
   if (n_items == 0) return 0;
   if (smem > 48 * 1024)
@@ -521,18 +569,21 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
   cfg.numAttrs = splits > 1 ? 2 : 1;
   cudaError_t e = cudaLaunchKernelEx(&cfg, ragged_attn_kernel<T, DH>, (const T*)q,
                                      (const T*)kp, (const T*)vp, (const int*)bt,
-                                     (const int*)items, (T*)out, splits, Hq, Hkv, MP);
+                                     (const int*)items, (T*)out, lse, splits, Hq,
+                                     Hkv, MP, page_lo, page_count);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int dispatch(const void* q, const void* kp, const void* vp, const void* bt,
-             const void* items, void* out, int dtype, int n_items, int splits,
-             int Hq, int Hkv, int MP, cudaStream_t stream) {
+             const void* items, void* out, float* lse, int dtype, int n_items,
+             int splits, int Hq, int Hkv, int MP, int page_lo, int page_count,
+             cudaStream_t stream) {
   REPRO_DISPATCH(dtype, T,
-                 return launch<T, DH>(q, kp, vp, bt, items, out, n_items, splits,
-                                      Hq, Hkv, MP, stream));
+                 return launch<T, DH>(q, kp, vp, bt, items, out, lse, n_items,
+                                      splits, Hq, Hkv, MP, page_lo, page_count,
+                                      stream));
   return (int)cudaErrorInvalidValue;  // unreachable: every dtype returns
 }
 
@@ -540,22 +591,27 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* bt,
 
 // items [n_items, 6] int32 and splits: the plan of kernels/ragged_attn/ops.py
 // (n_items = tiles * splits); pages of kT tokens and heads of dh (64 or 128).
+// lse [W, Hq] float32, or null: the partial form over the global pages
+// [page_lo, page_lo + page_count), which the pools hold as pages 0 ..
+// page_count - 1 (the whole form ignores both).
 extern "C" int repro_ragged_attn(const void* q, const void* k_pages,
                                  const void* v_pages, const void* block_tables,
-                                 const void* items, void* out, int dtype, int dh,
-                                 int n_items, int splits, int Hq, int Hkv,
-                                 int MP, void* stream) {
+                                 const void* items, void* out, void* lse,
+                                 int dtype, int dh, int n_items, int splits,
+                                 int Hq, int Hkv, int MP, int page_lo,
+                                 int page_count, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || splits < 1 || splits > kMaxCluster ||
-      n_items % splits != 0 || MP < 1 ||
+      n_items % splits != 0 || MP < 1 || (lse != nullptr && page_count < 0) ||
       (((uintptr_t)q | (uintptr_t)k_pages | (uintptr_t)v_pages | (uintptr_t)out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (Hq / Hkv > kRowsMax) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (dh == 64)
-    return dispatch<64>(q, k_pages, v_pages, block_tables, items, out, dtype,
-                        n_items, splits, Hq, Hkv, MP, s);
+    return dispatch<64>(q, k_pages, v_pages, block_tables, items, out, l, dtype,
+                        n_items, splits, Hq, Hkv, MP, page_lo, page_count, s);
   if (dh == 128)
-    return dispatch<128>(q, k_pages, v_pages, block_tables, items, out, dtype,
-                         n_items, splits, Hq, Hkv, MP, s);
+    return dispatch<128>(q, k_pages, v_pages, block_tables, items, out, l, dtype,
+                         n_items, splits, Hq, Hkv, MP, page_lo, page_count, s);
   return (int)cudaErrorInvalidValue;
 }

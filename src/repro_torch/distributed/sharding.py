@@ -28,6 +28,21 @@ splits a hardware tile.  The rules map parameter *paths* to specs:
 tree with them, and :func:`local_shape` / :func:`device_bytes` give each
 device's shard of a leaf and of a tree from the specs alone (an
 :class:`~repro_torch.launch.mesh.AbstractMesh` is enough).
+
+A rank's own shards, for serving across ranks (no DTensor: the model code
+computes on plain local tensors): :func:`unit_range` is the slice of
+one dim a mesh coordinate holds, cut as :func:`local_shape` allocates it
+(``ceil(n / parts)`` units a rank, the last ranks' shards shorter or
+empty); :func:`shard_tree` takes a rank's shard of every leaf of a tree by
+its specs; :func:`shard_params` and :func:`shard_prepacked` that of a
+parameter tree unpacked or prepacked, where a linear's weight is cut in
+whole tiles: ``w [.., K, N]`` in units of ``k_r`` and ``n_r``, ``w_pack
+[.., N_o, K_o, n_r, k_r]`` over ``N_o`` and ``K_o``, so that no tile is
+ever split (the layout contract carried across ranks).  Such a linear
+records its cut as ``w_split``: ``("col", lo, hi, N)`` (output tiles
+``[lo, hi)`` of an ``N``-wide output) or ``("row", lo, hi, K_o)``
+(contraction tiles ``[lo, hi)`` of ``K_o``), which
+``core/linear.py:linear_apply`` reads.
 """
 
 from __future__ import annotations
@@ -42,7 +57,8 @@ from repro_torch.launch.mesh import axis_sizes, dp_axes
 
 __all__ = ["param_specs", "batch_specs", "cache_specs", "state_specs",
            "named", "distribute", "tree_paths", "local_shape",
-           "device_bytes"]
+           "device_bytes", "tile_range", "unit_range", "mesh_coord",
+           "shard_tree", "shard_params", "shard_prepacked", "head_split"]
 
 
 def tree_paths(tree) -> dict:
@@ -300,3 +316,154 @@ def distribute(tree, mesh, spec_tree):
         return distribute_tensor(t, mesh, p)
 
     return rec(tree, places)
+
+
+# ---------------------------------------------------------------- a rank's shards
+
+
+def tile_range(n: int, parts: int, idx: int) -> tuple:
+    """``[lo, hi)`` of part ``idx`` when ``n`` units are cut into ``parts``
+    parts of ``ceil(n / parts)`` units (the last parts shorter, or empty):
+    the ragged last shard that :func:`local_shape` allocates whole."""
+    c = -(-n // parts) if parts else n
+    lo = min(n, idx * c)
+    return lo, min(n, lo + c)
+
+
+def mesh_coord(mesh) -> dict:
+    """``{axis name: this process's index}`` on a ``DeviceMesh``."""
+    return dict(zip(axis_sizes(mesh), mesh.get_coordinate()))
+
+
+def unit_range(units: int, entry, mesh, coord: dict) -> tuple:
+    """The range ``[lo, hi)`` of ``units`` whole units (tiles, or elements)
+    of a dim under a spec ``entry`` that mesh coordinate ``coord`` holds:
+    the dim's axes index it major to minor, as :func:`named` places it."""
+    sizes = axis_sizes(mesh)
+    parts, idx = 1, 0
+    for a in _axes(entry):
+        parts *= sizes[a]
+        idx = idx * sizes[a] + coord[a]
+    return tile_range(units, parts, idx)
+
+
+def _cut(t: torch.Tensor, spec: tuple, mesh, coord: dict, units=None):
+    """``t``'s shard under ``spec``, dim ``d`` cut in whole ``units[d]``;
+    returns (the shard, each dim's range in units)."""
+    spec = _full(spec, t.ndim)
+    units = units or (1,) * t.ndim
+    ranges = []
+    for d, (entry, unit) in enumerate(zip(spec, units)):
+        lo, hi = unit_range(-(-t.shape[d] // unit), entry, mesh, coord)
+        ranges.append((lo, hi))
+        e0, e1 = min(t.shape[d], lo * unit), min(t.shape[d], hi * unit)
+        if (e0, e1) != (0, t.shape[d]):
+            t = t.narrow(d, e0, e1 - e0)
+    return t.contiguous(), ranges
+
+
+def shard_tree(tree, specs, mesh, coord: dict):
+    """Each tensor leaf's shard that ``coord`` holds under ``specs`` (the
+    same structure), a copy; other leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh, coord) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return _cut(tree, specs, mesh, coord)[0]
+
+
+def _linear_split(spec: tuple, k_rng: tuple, n_rng: tuple, k_tiles: int,
+                  n: int):
+    """A linear's ``w_split`` from the tile ranges its K and N dims were
+    cut to (None where the model axis cuts neither)."""
+    ent_k, ent_n = spec[-2], spec[-1]
+    if "model" in _axes(ent_k) and "model" in _axes(ent_n):
+        raise ValueError(f"a linear split over 'model' on both dims: {spec}")
+    if "model" in _axes(ent_n):
+        return ("col", *n_rng, n)
+    if "model" in _axes(ent_k):
+        return ("row", *k_rng, k_tiles)
+    return None
+
+
+def _is_linear(p, key) -> bool:
+    from repro_torch.core.linear import PLAIN_PRODUCTS
+    return (key not in PLAIN_PRODUCTS and isinstance(p, dict)
+            and isinstance(p.get("w"), torch.Tensor) and p["w"].ndim >= 2)
+
+
+def shard_params(params, specs, mesh, coord: dict, layout_of):
+    """The rank's shard of an unpacked parameter tree under
+    :func:`param_specs`' ``specs``: every linear's ``w [.., K, N]`` cut in
+    whole tiles (``layout_of(dtype)``'s ``k_r`` and ``n_r``), with its
+    ``w_split``; every other leaf by :func:`shard_tree`.  Packing the
+    result gives :func:`shard_prepacked` of the packed tree, tile for
+    tile."""
+    def rec(p, s, key=None):
+        if _is_linear(p, key):
+            lay = layout_of(p["w"].dtype)
+            w, (*_, k_rng, n_rng) = _cut(p["w"], s["w"], mesh, coord,
+                                         (1,) * (p["w"].ndim - 2) + (lay.k_r, lay.n_r))
+            out = {k: rec(v, s[k], k) for k, v in p.items() if k != "w"}
+            out["w"] = w
+            split = _linear_split(_full(s["w"], p["w"].ndim), k_rng, n_rng,
+                                  -(-p["w"].shape[-2] // lay.k_r),
+                                  p["w"].shape[-1])
+            if split is not None:
+                out["w_split"] = split
+            return out
+        if isinstance(p, dict):
+            return {k: rec(v, s[k], k) for k, v in p.items()}
+        return shard_tree(p, s, mesh, coord)
+
+    return rec(params, specs)
+
+
+def _full(spec: tuple, nd: int) -> tuple:
+    return tuple(spec) + (None,) * (nd - len(spec))
+
+
+def shard_prepacked(packed, specs, mesh, coord: dict):
+    """The rank's shard of a prepacked parameter tree
+    (``core/linear.py:prepack_params``), ``specs`` being the unpacked
+    tree's (:func:`param_specs`): a ``w_pack [.., N_o, K_o, n_r, k_r]``
+    cut over ``N_o`` by its weight's N entry and over ``K_o`` by its K
+    entry, in whole tiles, ``w_n`` the shard's output width and ``w_split``
+    the cut; every other leaf by :func:`shard_tree`."""
+    def rec(p, s):
+        if isinstance(p, dict) and "w_pack" in p:
+            wp, n = p["w_pack"], p["w_n"]
+            spec = _full(s["w"], wp.ndim - 2)         # (.., K entry, N entry)
+            lead, k_ent, n_ent = spec[:-2], spec[-2], spec[-1]
+            n_r = wp.shape[-2]
+            local, rngs = _cut(wp, (*lead, n_ent, k_ent, None, None), mesh,
+                               coord)
+            (no_lo, no_hi) = rngs[-4]
+            out = {k: rec(v, s[k]) for k, v in p.items()
+                   if k not in ("w_pack", "w_n")}
+            out["w_pack"] = local
+            out["w_n"] = min(no_hi * n_r, n) - min(no_lo * n_r, n)
+            split = _linear_split(spec, rngs[-3], rngs[-4], wp.shape[-3], n)
+            if split is not None:
+                out["w_split"] = split
+            return out
+        if isinstance(p, dict):
+            return {k: rec(v, s[k]) for k, v in p.items()}
+        return shard_tree(p, s, mesh, coord)
+
+    return rec(packed, specs)
+
+
+def head_split(vocab: int, d_model: int, rank: int, size: int, n_r: int):
+    """The tied head's cut (``{"w": embed.T}``, packed at each call) on
+    rank ``rank`` of a model axis of ``size``: the rule of an ``lm_head/w
+    [d, V]`` leaf, so its vocab tiles split over ``model`` where V
+    divides, as the JAX package's ``tp="col"`` splits them.  The rank's
+    range ``[lo, hi)`` of the ``ceil(V / n_r)`` tiles, or None (the head
+    is computed whole)."""
+    shape = (d_model, vocab)
+    spec = _sanitize(_spec_for_param("lm_head/w", torch.empty(
+        shape, device="meta"), None), shape, {"model": size})
+    if "model" not in _axes(spec[-1]):
+        return None
+    return tile_range(-(-vocab // n_r), size, rank)

@@ -26,13 +26,16 @@ def wrappers() -> dict:
     """The kernel wrappers by name; each carries a ``launches`` count."""
     from repro_torch.kernels.mmt4d.ops import mmt4d, mmt4d_dgrad, mmt4d_wgrad
     from repro_torch.kernels.pack.ops import pack
-    from repro_torch.kernels.ragged_attn.ops import ragged_attention
+    from repro_torch.kernels.ragged_attn.ops import (ragged_attention,
+                                                     ragged_attention_partial)
     from repro_torch.kernels.selective_scan.ops import (selective_scan,
                                                         selective_scan_bwd)
     from repro_torch.kernels.unpack.ops import unpack
     from repro_torch.kernels.wkv6.ops import wkv6, wkv6_bwd
     return {"mmt4d": mmt4d, "pack": pack, "unpack": unpack,
-            "ragged_attn": ragged_attention, "mmt4d_dgrad": mmt4d_dgrad,
+            "ragged_attn": ragged_attention,
+            "ragged_attn_partial": ragged_attention_partial,
+            "mmt4d_dgrad": mmt4d_dgrad,
             "mmt4d_wgrad": mmt4d_wgrad, "wkv6": wkv6,
             "selective_scan": selective_scan, "wkv6_bwd": wkv6_bwd,
             "selective_scan_bwd": selective_scan_bwd}
@@ -44,11 +47,13 @@ def launch_counts() -> dict:
 
 def counters() -> dict:
     """Every count a wrapper keeps: ``launches`` by kernel name, mmt4d's
-    ``unpacked_stores``, ``bias_activation`` and ``expert_batched`` as
-    ``"mmt4d.<count>"``, and the gradient kernels' ``expert_batched``."""
+    ``unpacked_stores``, ``bias_activation``, ``expert_batched`` and
+    ``partials`` as ``"mmt4d.<count>"``, and the gradient kernels'
+    ``expert_batched``."""
     out = launch_counts()
     fns = wrappers()
-    for attr in ("unpacked_stores", "bias_activation", "expert_batched"):
+    for attr in ("unpacked_stores", "bias_activation", "expert_batched",
+                 "partials"):
         out[f"mmt4d.{attr}"] = getattr(fns["mmt4d"], attr)
     for name in ("mmt4d_dgrad", "mmt4d_wgrad"):
         out[f"{name}.expert_batched"] = fns[name].expert_batched

@@ -40,9 +40,9 @@ _SIGNATURES = {
     "repro_unpack": [_P, _P, _I, _L, _L, _L, _I, _I, _L, _L, _I, _P],
     "repro_empty_launch": [_I, _P],
     "repro_mmt4d": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _I, _I, _I, _I,
-                    _I, _I, _I, _L, _L, _L, _P],
-    "repro_ragged_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _P],
+                    _I, _I, _I, _L, _L, _L, _I, _P],
+    "repro_ragged_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P],
     "repro_packed_gemm": [_P, _P, _P, _P, _P, _I, _L, _L, _L, _P, _I, _I, _I,
                           _I, _P],
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -39,12 +39,16 @@ NAMESPACE = "repro_torch"
 # op name -> schema; every kernel of the port, in the order of PERF.md's table
 SCHEMAS = {
     "mmt4d": "mmt4d(Tensor a_pack, Tensor b_pack, Tensor? bias_pack, "
-             "str? activation, int[]? unpack_to) -> Tensor",
+             "str? activation, int[]? unpack_to, bool partial=False) -> Tensor",
     "pack": "pack(Tensor a, int t0, int t1) -> Tensor",
     "unpack": "unpack(Tensor a_pack, int m, int k) -> Tensor",
     "ragged_attn": "ragged_attn(Tensor q, Tensor k_pages, Tensor v_pages, "
                    "Tensor block_tables, Tensor row_ids, Tensor q_pos, "
                    "Tensor? items, int splits) -> Tensor",
+    "ragged_attn_partial": "ragged_attn_partial(Tensor q, Tensor k_pages, "
+                           "Tensor v_pages, Tensor block_tables, Tensor row_ids, "
+                           "Tensor q_pos, Tensor? items, int splits, int page_lo, "
+                           "int page_count) -> (Tensor, Tensor)",
     "mmt4d_dgrad": "mmt4d_dgrad(Tensor dz_pack, Tensor b_pack, Tensor? z_pack, "
                    "str? activation, int? splits) -> Tensor",
     "mmt4d_wgrad": "mmt4d_wgrad(Tensor dz_pack, Tensor a_pack, Tensor? z_pack, "

@@ -26,6 +26,12 @@ those launches beside ``mmt4d.launches``, and ``mmt4d.bias_activation`` the
 launches whose epilogue both adds a bias and applies an activation (the
 encdec MLP's biased tanh-GELU up-projection); :func:`unpacked_index` and
 :meth:`Split.stores` mirror the store's index map.
+
+With ``partial=True`` the launch returns the float32 sums without the
+epilogue and the cast (no bias, no activation): a rank's share of a
+row-parallel product across ranks, which ``core/linear.py`` sums over the
+ranks before it applies the bias and the activation once.  Packed or
+unpacked alike; ``mmt4d.partials`` counts those launches.
 """
 
 from __future__ import annotations
@@ -174,17 +180,24 @@ def _sm_count(device: torch.device) -> int:
 def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
           bias_pack: Optional[torch.Tensor] = None, *,
           activation: Optional[str] = None,
-          unpack_to: Optional[tuple] = None) -> torch.Tensor:
+          unpack_to: Optional[tuple] = None,
+          partial: bool = False) -> torch.Tensor:
     """a_pack [..., M_o, K_o, m_r, k_r], b_pack [N_o, K_o, n_r, k_r],
     optional bias_pack [N_o, n_r] -> C_pack [..., M_o, N_o, m_r, n_r] in
     a_pack's dtype; with ``unpack_to=(m, n)``, C [..., m, n] (what
     ``unpack_ref`` makes of C_pack) from the same launch.  Leading dims
     fold into M_o.  Expert-batched: a_pack [E, M_o, K_o, m_r, k_r], b_pack
     [E, N_o, K_o, n_r, k_r], bias_pack [E, N_o, n_r] -> C_pack [E, M_o,
-    N_o, m_r, n_r] (or C [E, m, n])."""
+    N_o, m_r, n_r] (or C [E, m, n]).  ``partial``: float32 sums, no
+    epilogue and no cast (a bias or an activation is refused)."""
     if activation not in ACTIVATION_CODES:
         raise ValueError(f"mmt4d: activation {activation!r} not in "
                          f"{list(ACTIVATION_CODES)}")
+    if partial and (bias_pack is not None or activation is not None
+                    or b_pack.ndim == 5):
+        raise ValueError("mmt4d: a partial (float32, summed across ranks "
+                         "before its epilogue) takes no bias, no activation "
+                         "and no expert dim")
     experts = b_pack.shape[0] if b_pack.ndim == 5 else None
     if a_pack.ndim < 4 or b_pack.ndim not in (4, 5) \
             or (experts is not None and (a_pack.ndim != 5
@@ -204,7 +217,7 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
         raise ValueError(f"mmt4d: unpack_to {unpack_to} outside the packed "
                          f"extent ({mo_b * m_r}, {n_o * n_r})")
     return _OP(a_pack, b_pack, bias_pack, activation,
-               None if unpack_to is None else list(unpack_to))
+               None if unpack_to is None else list(unpack_to), partial)
 
 
 def _out_shape(a_pack, b_pack, unpack_to) -> tuple:
@@ -214,17 +227,23 @@ def _out_shape(a_pack, b_pack, unpack_to) -> tuple:
             else (*lead, *unpack_to))
 
 
-def _mmt4d_cpu(a_pack, b_pack, bias_pack, activation, unpack_to):
+def _out_dtype(a_pack, partial):
+    return torch.float32 if partial else a_pack.dtype
+
+
+def _mmt4d_cpu(a_pack, b_pack, bias_pack, activation, unpack_to, partial=False):
     *lead, mo_b, k_o, m_r, k_r = a_pack.shape
     a_ref = a_pack if b_pack.ndim == 5 else a_pack.reshape(-1, k_o, m_r, k_r)
-    out = mmt4d_ref(a_ref, b_pack, bias_pack, activation=activation).reshape(
+    out = mmt4d_ref(a_ref, b_pack, bias_pack, activation=activation,
+                    out_dtype=_out_dtype(a_pack, partial)).reshape(
         _out_shape(a_pack, b_pack, None))
     if unpack_to is not None:
         out = unpack_ref(out, *unpack_to)
     return library.fresh(out, a_pack, b_pack)
 
 
-def _mmt4d_cuda(a_pack, b_pack, bias_pack, activation, unpack_to):
+def _mmt4d_cuda(a_pack, b_pack, bias_pack, activation, unpack_to,
+                partial=False):
     experts = b_pack.shape[0] if b_pack.ndim == 5 else None
     *lead, mo_b, k_o, m_r, k_r = a_pack.shape
     n_o, _, n_r, _ = b_pack.shape[-4:]
@@ -247,30 +266,34 @@ def _mmt4d_cuda(a_pack, b_pack, bias_pack, activation, unpack_to):
                        _sm_count(dev), experts or 1)
         picks = (s.rows, s.tm, s.splits)
     extent = (0, 0, 0) if unpack_to is None else (*unpack_to, max(1, mo_b))
-    out = torch.empty(_out_shape(a_pack, b_pack, unpack_to), dtype=a_pack.dtype,
-                      device=a_pack.device)
+    out = torch.empty(_out_shape(a_pack, b_pack, unpack_to),
+                      dtype=_out_dtype(a_pack, partial), device=a_pack.device)
     rc = build.load_library().repro_mmt4d(
         a_pack.data_ptr(), b_pack.data_ptr(),
         None if bias_pack is None else bias_pack.data_ptr(), out.data_ptr(),
         code, experts or 1, m_o, n_o, k_o, m_r, n_r, k_r,
         ACTIVATION_CODES[activation],
-        *picks, *extent, build.stream_of(a_pack))
+        *picks, *extent, int(partial), build.stream_of(a_pack))
     build.check(rc, "mmt4d")
     mmt4d.launches += 1
+    mmt4d.partials += partial
     mmt4d.unpacked_stores += unpack_to is not None
     mmt4d.bias_activation += bias_pack is not None and activation is not None
     mmt4d.expert_batched += experts is not None
     return out
 
 
-def _mmt4d_fake(a_pack, b_pack, bias_pack, activation, unpack_to):
-    return a_pack.new_empty(_out_shape(a_pack, b_pack, unpack_to))
+def _mmt4d_fake(a_pack, b_pack, bias_pack, activation, unpack_to,
+                partial=False):
+    return a_pack.new_empty(_out_shape(a_pack, b_pack, unpack_to),
+                            dtype=_out_dtype(a_pack, partial))
 
 
 mmt4d.launches = 0
 mmt4d.unpacked_stores = 0     # launches that wrote C unpacked
 mmt4d.bias_activation = 0     # launches whose epilogue adds a bias, then activates
 mmt4d.expert_batched = 0      # launches over an expert-batched B_pack [E, ...]
+mmt4d.partials = 0            # launches that stored a float32 partial
 
 
 # ---------------------------------------------------------------- gradients

@@ -47,19 +47,23 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def mmt4d_ref(a_pack: torch.Tensor, b_pack: torch.Tensor,
               bias_pack: Optional[torch.Tensor] = None, *,
-              activation: Optional[str] = None) -> torch.Tensor:
+              activation: Optional[str] = None,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C_pack[m_o,n_o] = act(sum_k A_pack[m_o,k] @ B_pack[n_o,k]^T + bias),
-    float32 accumulation and epilogue, one cast to A's dtype.  With an
+    float32 accumulation and epilogue, one cast to A's dtype (or to
+    ``out_dtype``: float32 keeps the sums as they are, the kernel's
+    partial; not with an expert dim).  With an
     expert dim (a_pack [E, M_o, K_o, m_r, k_r], b_pack [E, N_o, K_o, n_r,
     k_r], bias_pack [E, N_o, n_r]) each expert's product, C_pack [E, M_o,
     N_o, m_r, n_r]."""
     acc = acc_dtype(a_pack.dtype)
+    out_dtype = out_dtype or a_pack.dtype
     if b_pack.ndim == 5:
         return _experts_ref(a_pack, b_pack, bias_pack, activation, acc)
     out = torch.einsum("mkab,nkcb->mnac", a_pack.to(acc), b_pack.to(acc))
     if bias_pack is not None:
         out = out + bias_pack[None, :, None, :].to(acc)
-    return ACTIVATIONS[activation](out).to(a_pack.dtype)
+    return ACTIVATIONS[activation](out).to(out_dtype)
 
 
 def _experts_ref(a_pack, b_pack, bias_pack, activation, acc):

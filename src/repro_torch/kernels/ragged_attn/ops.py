@@ -29,6 +29,14 @@ item count is :func:`max_tiles` of the width, the tiles it makes
 followed by *empty* tiles (length 0, padding row, no pages), whose
 blocks write nothing; its split count is :func:`pick_splits` for that
 many tiles and the block table's width.
+
+:func:`ragged_attention_partial` is the partial form (the op
+``torch.ops.repro_torch.ragged_attn_partial``, the same kernel): one
+rank's share of a flash-decode across ranks whose pools hold the global
+pages ``[page_lo, page_lo + page_count)``, which returns each query row's
+float32 log-sum-exp beside its output (``ref.py:
+ragged_attention_partial_ref``).  The plan is the whole form's: a block
+keeps the pages of its range that the rank holds.
 """
 
 from __future__ import annotations
@@ -41,9 +49,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, library
-from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
+from repro_torch.kernels.ragged_attn.ref import (ragged_attention_partial_ref,
+                                                 ragged_attention_ref)
 
-__all__ = ["ragged_attention", "RaggedPlan", "plan_ragged", "pick_splits",
+__all__ = ["ragged_attention", "ragged_attention_partial", "RaggedPlan",
+           "plan_ragged", "pick_splits",
            "max_tiles", "TILE", "HEAD_WIDTHS", "MAX_CLUSTER",
            "PAGES_PER_SPLIT"]
 
@@ -156,6 +166,16 @@ def plan_ragged(row_ids, q_pos, page_tokens: int, max_pages: int, hkv: int,
     return RaggedPlan(items, splits)
 
 
+def _plan_items(q, plan):
+    items, splits = (None, 1) if plan is None else (plan.items, plan.splits)
+    if items is not None and not isinstance(items, torch.Tensor):
+        if q.device.type != "cpu":
+            raise TypeError("ragged_attention: the plan's items must be on the "
+                            "card (RaggedPlan.to)")
+        items = None                   # a host plan: the plain version's
+    return items, splits
+
+
 def ragged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, *, block_tables: torch.Tensor,
                      row_ids: torch.Tensor, q_pos: torch.Tensor,
@@ -165,16 +185,33 @@ def ragged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     :func:`plan_ragged` on the same row_ids/q_pos, its items on the card
     (needed there, ignored on the CPU).  Returns [W, Hq, dh]; on the card
     padding positions are zeros."""
-    items, splits = (None, 1) if plan is None else (plan.items, plan.splits)
-    if items is not None and not isinstance(items, torch.Tensor):
-        if q.device.type != "cpu":
-            raise TypeError("ragged_attention: the plan's items must be on the "
-                            "card (RaggedPlan.to)")
-        items = None                   # a host plan: the plain version's
+    items, splits = _plan_items(q, plan)
     return _OP(q, k_pages, v_pages, block_tables, row_ids, q_pos, items, splits)
 
 
 ragged_attention.launches = 0
+
+
+def ragged_attention_partial(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, *,
+                             block_tables: torch.Tensor, row_ids: torch.Tensor,
+                             q_pos: torch.Tensor, page_lo: int,
+                             page_count: int,
+                             plan: RaggedPlan | None = None):
+    """The partial form (module docstring): the pools hold the global pages
+    ``[page_lo, page_lo + page_count)`` as their first ``page_count``
+    pages (a pool may hold more: the rank's trash slot); ``block_tables``
+    names global pages.  Returns (out [W, Hq, dh], lse [W, Hq] float32);
+    a row with no key in the range gives zeros and ``-inf``."""
+    items, splits = _plan_items(q, plan)
+    if not 0 <= page_count <= k_pages.shape[0]:
+        raise ValueError(f"ragged_attention_partial: {page_count} pages held, "
+                         f"the pools have {k_pages.shape[0]}")
+    return _OP_PARTIAL(q, k_pages, v_pages, block_tables, row_ids, q_pos,
+                       items, splits, page_lo, page_count)
+
+
+ragged_attention_partial.launches = 0
 
 
 def _ragged_cpu(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
@@ -184,19 +221,27 @@ def _ragged_cpu(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
         q_pos=q_pos), q, k_pages, v_pages)
 
 
-def _ragged_cuda(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
-                 splits):
+def _partial_cpu(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
+                 splits, page_lo, page_count):
+    return library.fresh(ragged_attention_partial_ref(
+        q, k_pages, v_pages, block_tables=block_tables, row_ids=row_ids,
+        q_pos=q_pos, page_lo=page_lo, page_count=page_count),
+        q, k_pages, v_pages)
+
+
+def _launch(name, q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
+            splits, lse=None, page_lo=0, page_count=0):
     if items is None:
-        raise ValueError("ragged_attention: a CUDA call needs a plan "
-                         "(plan_ragged on the host's row_ids and q_pos)")
-    build.require_cuda("ragged_attention", q, k_pages, v_pages, block_tables,
+        raise ValueError(f"{name}: a CUDA call needs a plan (plan_ragged on "
+                         f"the host's row_ids and q_pos)")
+    build.require_cuda(name, q, k_pages, v_pages, block_tables,
                        row_ids, q_pos, items)
-    code = build.require_dtype("ragged_attention", q.dtype, q, k_pages, v_pages)
-    for name, t in (("block_tables", block_tables), ("row_ids", row_ids),
-                    ("q_pos", q_pos), ("plan.items", items)):
+    code = build.require_dtype(name, q.dtype, q, k_pages, v_pages)
+    for arg, t in (("block_tables", block_tables), ("row_ids", row_ids),
+                   ("q_pos", q_pos), ("plan.items", items)):
         if t.dtype != torch.int32:
-            raise TypeError(f"ragged_attention: {name} is {t.dtype}, not int32")
-    build.require_contiguous("ragged_attention", q=q, k_pages=k_pages,
+            raise TypeError(f"{name}: {arg} is {t.dtype}, not int32")
+    build.require_contiguous(name, q=q, k_pages=k_pages,
                              v_pages=v_pages, block_tables=block_tables,
                              row_ids=row_ids, q_pos=q_pos, items=items)
     w, hq, dh = q.shape
@@ -205,24 +250,42 @@ def _ragged_cuda(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
             or hq % hkv or row_ids.shape != (w,) or q_pos.shape != (w,) \
             or items.ndim != 2 or items.shape[1] != 6 \
             or items.shape[0] % splits:
-        raise ValueError(f"ragged_attention: q {tuple(q.shape)}, pages "
+        raise ValueError(f"{name}: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
                          f"row_ids {tuple(row_ids.shape)}, q_pos "
                          f"{tuple(q_pos.shape)}, plan {tuple(items.shape)} "
                          f"x {splits} do not agree")
     if t != TILE or dh not in HEAD_WIDTHS:
-        raise ValueError(f"ragged_attention: pages of {t} tokens, d_head {dh}; "
+        raise ValueError(f"{name}: pages of {t} tokens, d_head {dh}; "
                          f"the kernel takes pages of {TILE} and d_head in "
                          f"{HEAD_WIDTHS}")
     out = torch.empty_like(q)
     rc = build.load_library().repro_ragged_attn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), items.data_ptr(), out.data_ptr(), code, dh,
-        items.shape[0], splits, hq, hkv, block_tables.shape[1],
-        build.stream_of(q))
-    build.check(rc, "ragged_attention")
+        block_tables.data_ptr(), items.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), code, dh,
+        items.shape[0], splits, hq, hkv, block_tables.shape[1], page_lo,
+        page_count, build.stream_of(q))
+    build.check(rc, name)
+    return out
+
+
+def _ragged_cuda(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
+                 splits):
+    out = _launch("ragged_attention", q, k_pages, v_pages, block_tables,
+                  row_ids, q_pos, items, splits)
     ragged_attention.launches += 1
     return out
+
+
+def _partial_cuda(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
+                  splits, page_lo, page_count):
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    out = _launch("ragged_attention_partial", q, k_pages, v_pages,
+                  block_tables, row_ids, q_pos, items, splits, lse, page_lo,
+                  page_count)
+    ragged_attention_partial.launches += 1
+    return out, lse
 
 
 def _ragged_fake(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
@@ -230,6 +293,15 @@ def _ragged_fake(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
     return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
+def _partial_fake(q, k_pages, v_pages, block_tables, row_ids, q_pos, items,
+                  splits, page_lo, page_count):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
 library.register("ragged_attn", cpu=_ragged_cpu, cuda=_ragged_cuda,
                  fake=_ragged_fake)
+library.register("ragged_attn_partial", cpu=_partial_cpu, cuda=_partial_cuda,
+                 fake=_partial_fake)
 _OP = library.op("ragged_attn")
+_OP_PARTIAL = library.op("ragged_attn_partial")

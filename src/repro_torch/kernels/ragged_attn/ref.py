@@ -8,6 +8,14 @@ transcription of the JAX package's oracle (float32 scores and softmax,
 ``-1e30`` masking).  :func:`ragged_attention_planned` executes a plan of
 the card's kernel (per-block partial softmaxes over page ranges, merged in
 split order) for the tests.
+
+:func:`ragged_attention_partial_ref` is the partial form, one rank's share
+of a flash-decode across ranks whose pools hold the global pages
+``[page_lo, page_lo + page_count)``: the output over the keys of those
+pages and each query row's float32 log-sum-exp;
+:func:`combine_partials` puts the ranks' shares together,
+``o = sum_r exp(lse_r - lse) o_r`` with ``lse`` the log of the summed
+weights.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["ragged_attention_ref", "ragged_attention_planned",
+           "ragged_attention_partial_ref", "combine_partials",
            "flat_write_destinations"]
 
 
@@ -61,6 +70,60 @@ def ragged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("qhgk,qkhd->qhgd", probs, v_all.float())
     return out.reshape(w, hq, dh).to(q.dtype)
+
+
+def ragged_attention_partial_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, *,
+                                 block_tables: torch.Tensor,
+                                 row_ids: torch.Tensor, q_pos: torch.Tensor,
+                                 page_lo: int, page_count: int):
+    """The partial form: ``k_pages``/``v_pages`` [>= page_count, T, Hkv,
+    dh] hold the global pages ``[page_lo, page_lo + page_count)`` as their
+    first ``page_count`` pages; a key counts only where its row's block
+    table names a page in that range.  Returns (out [W, Hq, dh] in q's
+    dtype, lse [W, Hq] float32): the softmax over the counted keys and
+    its log-sum-exp ``m + log l``; a row with no counted key gives zeros
+    and ``-inf`` (padding rows too)."""
+    w, hq, dh = q.shape
+    hkv = k_pages.shape[2]
+    g = hq // hkv
+    bt = block_tables[row_ids.long().clamp(min=0)].long() - page_lo  # [W, MP]
+    held = (bt >= 0) & (bt < page_count) & (row_ids.long() >= 0)[:, None]
+    bt = torch.where(held, bt, 0)
+    t = k_pages.shape[1]
+    k_all = k_pages[bt].reshape(w, -1, hkv, dh)
+    v_all = v_pages[bt].reshape(w, -1, hkv, dh)
+    qg = q.reshape(w, hkv, g, dh)
+    scores = torch.einsum("qhgd,qkhd->qhgk", qg.float(), k_all.float()) \
+        * dh ** -0.5
+    kv_pos = torch.arange(k_all.shape[1], device=q.device)
+    m = (kv_pos[None, :] <= q_pos.long()[:, None]) \
+        & held.repeat_interleave(t, dim=1)                          # [W, MP*T]
+    scores = scores.masked_fill(~m[:, None, None, :], -torch.inf)
+    top = scores.amax(dim=-1, keepdim=True)
+    top = torch.where(torch.isinf(top), 0.0, top)
+    e = torch.exp(scores - top)
+    l = e.sum(dim=-1)
+    out = torch.einsum("qhgk,qkhd->qhgd", e, v_all.float()) \
+        / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, top[..., 0] + torch.log(l), -torch.inf)
+    return (out.reshape(w, hq, dh).to(q.dtype),
+            lse.reshape(w, hq).to(torch.float32))
+
+
+def combine_partials(outs, lses):
+    """The ranks' partial outputs (each [W, Hq, dh]) and log-sum-exps
+    (each [W, Hq]) as the whole attention, in float32, in list order:
+    ``sum_r exp(lse_r - M) o_r / sum_r exp(lse_r - M)``, ``M`` the rows'
+    max; a share with ``lse = -inf`` weighs 0, and a row no share holds
+    comes out 0 (no NaN).  ``models/attention.py:combine_ranks`` applies
+    it, on every rank alike, to the shares it gathers."""
+    lse = torch.stack([x.float() for x in lses])
+    top = lse.amax(dim=0)
+    top = torch.where(torch.isinf(top), 0.0, top)
+    wgt = torch.where(torch.isinf(lse), 0.0, torch.exp(lse - top))
+    num = sum(wt[..., None] * o.float() for wt, o in zip(wgt, outs))
+    return num / torch.clamp(wgt.sum(dim=0), min=1e-30)[..., None]
 
 
 def _merge(parts):

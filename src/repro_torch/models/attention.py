@@ -12,6 +12,18 @@ mode (the static batch loop) writes K/V at a device-side position and
 attends over the whole cache; cross-attention reads K/V from an encoder
 output.  No mode reads an index back to the host, so a step can be
 captured in a CUDA graph.
+
+Across the ranks of a mesh's ``model`` axis (``ctx.tp``) the projections
+are the JAX package's Megatron products (Q/K/V column-parallel, gathered
+whole; O row-parallel) and, where ``cache_specs`` shard the pools' page
+dim, each rank holds the global pages ``[page_lo, page_lo + page_count)``
+(``paged["kv_shard"]``) as its pages ``0 .. page_count - 1`` plus a trash
+slot of its own after them (``page_count``): a rank writes the K/V of the
+positions whose page it holds, every other write goes to its trash slot,
+and attention is a flash-decode across ranks: each rank attends over its
+own pages (the flat step through ``ragged_attention_partial``, the paged
+step through :func:`core_attention_partial`), and :func:`combine_ranks`
+weighs the ranks' outputs by their log-sum-exps.
 """
 
 from __future__ import annotations
@@ -22,14 +34,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
-from repro_torch.kernels.ragged_attn.ops import ragged_attention
+from repro_torch.core.linear import (MatmulContext, gather_columns,
+                                     linear_apply, linear_init)
+from repro_torch.kernels.ragged_attn.ops import (ragged_attention,
+                                                 ragged_attention_partial)
+from repro_torch.kernels.ragged_attn.ref import combine_partials
 from repro_torch.models.common import (Stream, apply_rope, maybe_unpack,
                                        norm_apply, norm_init)
 
 __all__ = ["attn_init", "attn_apply", "init_kv_cache", "init_paged_kv_cache",
-           "core_attention", "chunked_attention", "dense_kv_update",
-           "paged_kv_update", "flat_paged_kv_update"]
+           "core_attention", "core_attention_partial", "combine_ranks",
+           "chunked_attention", "dense_kv_update", "paged_kv_update",
+           "flat_paged_kv_update", "local_pages"]
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig,
@@ -88,9 +104,22 @@ def init_paged_kv_cache(cfg: ModelConfig, num_pages: int, page_tokens: int,
             "v_pages": torch.zeros(shp, dtype=dtype, device=device)}
 
 
+def local_pages(page: torch.Tensor, kv_shard) -> tuple:
+    """Global page ids as a rank's pool indices: (index, held), the pages
+    ``[page_lo, page_lo + page_count)`` of ``kv_shard`` at ``page -
+    page_lo`` and every other page at the rank's trash slot
+    ``page_count``; without a shard the ids themselves, all held."""
+    if kv_shard is None:
+        return page, torch.ones_like(page, dtype=torch.bool)
+    lo, count = kv_shard
+    local = page - lo
+    held = (local >= 0) & (local < count)
+    return torch.where(held, local, count), held
+
+
 def paged_kv_update(cache: dict, k: torch.Tensor, v: torch.Tensor, *,
                     block_tables: torch.Tensor, lens: torch.Tensor,
-                    new_counts: torch.Tensor):
+                    new_counts: torch.Tensor, kv_shard=None):
     """Scatter a ``[B, S]`` step's K/V into the page pool, in place, and
     gather each row's pages back.
 
@@ -100,7 +129,12 @@ def paged_kv_update(cache: dict, k: torch.Tensor, v: torch.Tensor, *,
     trash page 0 at offset 0.  cache: {"k_pages","v_pages"} [P, T, Hkv,
     dh]; k, v: [B, S, Hkv, dh]; block_tables: [B, MP].  Returns (cache,
     k_all [B, MP*T, Hkv, dh], v_all, kv_len_mask [B, MP*T]), the mask
-    holding the first ``lens + new_counts`` positions of each row."""
+    holding the first ``lens + new_counts`` positions of each row.
+
+    ``kv_shard`` (a rank's ``(page_lo, page_count)``): the pool holds only
+    those pages (module docstring); the write and the gather go through
+    :func:`local_pages`, and the mask also drops every key of a page the
+    rank does not hold."""
     kp, vp = cache["k_pages"], cache["v_pages"]
     t = kp.shape[1]
     b, s = k.shape[0], k.shape[1]
@@ -110,19 +144,23 @@ def paged_kv_update(cache: dict, k: torch.Tensor, v: torch.Tensor, *,
     valid = ar[None, :] < new_counts.long()[:, None]
     slot = torch.clamp(pos // t, max=bt.shape[1] - 1)
     page = torch.where(valid, torch.gather(bt, 1, slot), 0)
+    page = local_pages(page, kv_shard)[0]
     off = torch.where(valid, pos % t, 0)
     kp[page, off] = k.to(kp.dtype)
     vp[page, off] = v.to(vp.dtype)
+    bt, held = local_pages(bt, kv_shard)
     k_all = kp[bt].reshape(b, -1, *kp.shape[2:])
     v_all = vp[bt].reshape(b, -1, *vp.shape[2:])
     mask = torch.arange(k_all.shape[1], device=k.device)[None, :] \
         < (lens.long() + new_counts.long())[:, None]
+    if kv_shard is not None:
+        mask = mask & held.repeat_interleave(t, dim=1)
     return cache, k_all, v_all, mask
 
 
 def flat_paged_kv_update(cache: dict, k: torch.Tensor, v: torch.Tensor, *,
                          block_tables: torch.Tensor, row_ids: torch.Tensor,
-                         q_pos: torch.Tensor) -> dict:
+                         q_pos: torch.Tensor, kv_shard=None) -> dict:
     """Scatter one flat ``[1, W]`` stream's K/V into the page pool, in place.
 
     Position ``i`` belongs to row ``row_ids[i]`` (-1 = padding, routed to
@@ -130,13 +168,16 @@ def flat_paged_kv_update(cache: dict, k: torch.Tensor, v: torch.Tensor, *,
     ``block_tables[row, min(q_pos // T, MP - 1)]`` at offset ``q_pos % T``.
     cache: {"k_pages","v_pages"} [P, T, Hkv, dh]; k, v: [1, W, Hkv, dh].
     Only padding positions share a destination (page 0), so the order of
-    duplicate writes never matters.  Returns ``cache``."""
+    duplicate writes never matters.  ``kv_shard``: a rank's pool
+    (:func:`local_pages`), whose trash slot takes every write of a page
+    it does not hold.  Returns ``cache``."""
     kp, vp = cache["k_pages"], cache["v_pages"]
     t = kp.shape[1]
     row_ids, q_pos = row_ids.long(), q_pos.long()
     valid = row_ids >= 0
     slot = torch.clamp(q_pos // t, max=block_tables.shape[1] - 1)
     page = torch.where(valid, block_tables[row_ids.clamp(min=0), slot].long(), 0)
+    page = local_pages(page, kv_shard)[0]
     off = torch.where(valid, q_pos % t, 0)
     kp[page, off] = k[0].to(kp.dtype)
     vp[page, off] = v[0].to(vp.dtype)
@@ -170,6 +211,50 @@ def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def core_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, q_pos: torch.Tensor,
+                           kv_len_mask: torch.Tensor) -> tuple:
+    """A rank's share of the paged step's causal attention: q [B,Sq,Hq,dh]
+    at positions ``q_pos`` [B,Sq]; k, v [B,Skv,Hkv,dh] with
+    ``kv_len_mask`` [B,Skv] the keys the rank counts.  Returns (out
+    [B,Sq,Hq,dh] in q's dtype, lse [B,Sq,Hq] float32): the softmax over
+    the counted keys and its log-sum-exp; a row with none gives zeros and
+    ``-inf`` (:func:`combine_ranks` weighs it 0)."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * dh ** -0.5
+    kv_pos = torch.arange(skv, device=q.device)
+    m = (q_pos[:, :, None] >= kv_pos[None, None, :]) & kv_len_mask[:, None, :]
+    scores = scores.masked_fill(~m[:, None, None], -torch.inf)
+    top = scores.amax(dim=-1, keepdim=True)
+    top = torch.where(torch.isinf(top), 0.0, top)
+    e = torch.exp(scores - top)
+    l = e.sum(dim=-1)                                      # [B, h, g, Sq]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", e, v.float()) \
+        / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    lse = torch.where(l > 0, top[..., 0] + torch.log(l), -torch.inf)
+    return (out.reshape(b, sq, hq, dh).to(q.dtype),
+            lse.permute(0, 3, 1, 2).reshape(b, sq, hq))
+
+
+def combine_ranks(out: torch.Tensor, lse: torch.Tensor, axis) -> torch.Tensor:
+    """The flash-decode's combine across the ranks of ``axis``
+    (:class:`~repro_torch.distributed.comm.ModelAxis`): every rank's
+    partial ``out`` [..., H, dh] and float32 ``lse`` [..., H] gathered in
+    one collective, then on every rank alike
+    ``sum_r exp(lse_r - M) out_r / sum_r exp(lse_r - M)``, ``M`` the
+    rows' max over the ranks, in float32, in rank order
+    (``kernels/ragged_attn/ref.py:combine_partials``), cast to ``out``'s
+    dtype.  A share with ``lse = -inf`` weighs 0, and a row no rank holds
+    comes out 0."""
+    mine = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+    every = axis.gather(mine, 0, axis.rank, axis.size)
+    return combine_partials(list(every[..., :-1]),
+                            list(every[..., -1])).to(out.dtype)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -221,12 +306,17 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
       {block_tables [B,MP], lens [B], new_counts [B]}, x is ``[B, S]`` and
       ``positions`` [B, S]; K/V are scattered in place and each row attends
       over its gathered pages through :func:`core_attention` with per-row
-      2-D positions."""
+      2-D positions.
+    - either paged mode across ranks: ``paged["kv_shard"]``, the rank's
+      pages (module docstring)."""
     dh, hq, hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     kv_in = x if kv_source is None else kv_source
-    q = maybe_unpack(linear_apply(params["wq"], x, ctx))
-    k = maybe_unpack(linear_apply(params["wk"], kv_in, ctx))
-    v = maybe_unpack(linear_apply(params["wv"], kv_in, ctx))
+    kv_tp = "col" if hkv >= ctx.tp_size else None
+    q, k, v = gather_columns(ctx, [
+        (params[w], maybe_unpack(linear_apply(params[w], src, ctx, tp=tp,
+                                              gather=False)))
+        for w, src, tp in (("wq", x, "col"), ("wk", kv_in, kv_tp),
+                           ("wv", kv_in, kv_tp))])
     b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
     q = q.reshape(b, sq, hq, dh)
     k = k.reshape(b, skv, hkv, dh)
@@ -237,27 +327,38 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
     if cfg.rope != "none" and kv_source is None:
         pct = cfg.rope_pct if cfg.rope == "partial2d" else 1.0
         q, k = apply_rope(q, k, positions, theta=cfg.rope_theta, pct=pct)
+    shard = None if paged is None else paged.get("kv_shard")
     if paged is not None and "row_ids" in paged:
         kv_cache = flat_paged_kv_update(
             kv_cache, k, v, block_tables=paged["block_tables"],
-            row_ids=paged["row_ids"], q_pos=paged["q_pos"])
-        out = ragged_attention(
-            q[0].contiguous(), kv_cache["k_pages"], kv_cache["v_pages"],
-            block_tables=paged["block_tables"], row_ids=paged["row_ids"],
-            q_pos=paged["q_pos"], plan=paged.get("plan"))[None]
+            row_ids=paged["row_ids"], q_pos=paged["q_pos"], kv_shard=shard)
+        args = (q[0].contiguous(), kv_cache["k_pages"], kv_cache["v_pages"])
+        kw = dict(block_tables=paged["block_tables"], row_ids=paged["row_ids"],
+                  q_pos=paged["q_pos"], plan=paged.get("plan"))
+        if shard is None:
+            out = ragged_attention(*args, **kw)[None]
+        else:
+            o, lse = ragged_attention_partial(*args, page_lo=shard[0],
+                                              page_count=shard[1], **kw)
+            out = combine_ranks(o, lse, ctx.tp)[None]
     else:
         mask = None
         if paged is not None:
             kv_cache, k, v, mask = paged_kv_update(
                 kv_cache, k, v, block_tables=paged["block_tables"],
-                lens=paged["lens"], new_counts=paged["new_counts"])
+                lens=paged["lens"], new_counts=paged["new_counts"],
+                kv_shard=shard)
         elif kv_cache is not None:
             kv_cache, k, v, mask = dense_kv_update(kv_cache, k, v, cache_pos)
-        if kv_cache is None and kv_source is None and sq > 512:
+        if shard is not None:
+            o, lse = core_attention_partial(q, k, v, q_pos=positions,
+                                            kv_len_mask=mask)
+            out = combine_ranks(o, lse, ctx.tp)
+        elif kv_cache is None and kv_source is None and sq > 512:
             out = chunked_attention(q, k, v, causal=causal, q_pos=positions)
         else:
             out = core_attention(q, k, v, causal=causal and kv_source is None,
                                  q_pos=positions, kv_len_mask=mask)
     out = linear_apply(params["wo"], out.reshape(b, sq, hq * dh), ctx,
-                       keep_packed=keep_packed)
+                       keep_packed=keep_packed, tp="row")
     return out, kv_cache

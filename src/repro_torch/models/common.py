@@ -20,7 +20,7 @@ ACTS = {"silu": F.silu,
 
 __all__ = ["ACTS", "Stream", "norm_init", "norm_apply", "apply_rope",
            "embed_init", "embed_apply", "maybe_pack", "maybe_unpack",
-           "stream_add", "constrain_stream"]
+           "stream_add"]
 
 
 def maybe_pack(x: torch.Tensor, ctx: MatmulContext) -> Stream:
@@ -37,14 +37,6 @@ def stream_add(a: Stream, b: Stream) -> Stream:
     if isinstance(a, PackedArray) and isinstance(b, PackedArray):
         return a + b
     return maybe_unpack(a) + maybe_unpack(b)
-
-
-def constrain_stream(x: Stream, ctx: MatmulContext) -> Stream:
-    """The identity: the JAX package anchors the residual stream's batch
-    dim to the DP axes inside its scanned layer bodies for GSPMD's sake;
-    the port has no partitioner (see :meth:`MatmulContext.constrain`)."""
-    del ctx
-    return x
 
 
 def norm_init(kind: str, d: int, dtype: torch.dtype = torch.float32) -> dict:

@@ -1,6 +1,8 @@
 """Gated / plain MLP blocks in the packed domain: pack once at entry, and
 the chained matmuls (with the activation fused into the first) never
-unpack in between."""
+unpack in between.  Across ranks the up (and gate) products are
+column-parallel and the down product row-parallel, the hidden
+activations staying each rank's own tiles (no collective between them)."""
 
 from __future__ import annotations
 
@@ -28,10 +30,12 @@ def mlp_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
     inner_packed = ctx.packed and ctx.propagate
     if cfg.glu:
         g = linear_apply(params["wg"], x, ctx, activation=cfg.act,
-                         keep_packed=inner_packed)
-        u = linear_apply(params["wu"], x, ctx, keep_packed=inner_packed)
+                         keep_packed=inner_packed, tp="col", gather=False)
+        u = linear_apply(params["wu"], x, ctx, keep_packed=inner_packed,
+                         tp="col", gather=False)
         h = g * u
     else:
         h = linear_apply(params["wu"], x, ctx, activation=cfg.act,
-                         keep_packed=inner_packed)
-    return linear_apply(params["wd"], h, ctx, keep_packed=keep_packed)
+                         keep_packed=inner_packed, tp="col", gather=False)
+    return linear_apply(params["wd"], h, ctx, keep_packed=keep_packed,
+                        tp="row")

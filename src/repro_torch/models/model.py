@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.core.hardware import HardwareSpec, query, require_device
 from repro_torch.core.layout import LayoutPolicy
 from repro_torch.core.linear import MatmulContext, linear_apply
+from repro_torch.distributed.comm import ModelAxis
 from repro_torch.kernels.ragged_attn.ops import RaggedPlan
 from repro_torch.launch.mesh import AbstractMesh, axis_sizes
 from repro_torch.models import encdec as encdec_mod
@@ -42,7 +43,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed_apply
 
 __all__ = ["ReproModel", "CompiledStep", "GraphTable", "capture_graph", "build_model",
-           "MetaGenerator"]
+           "MetaGenerator", "ACROSS_RANKS", "refuse_across_ranks"]
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
@@ -66,9 +67,13 @@ class ReproModel:
     ``DeviceMesh`` whose axes set the context's ``mesh_axes``, ``dp_size``
     and ``tp_size``.  An ``AbstractMesh`` is the global view (this process
     computes every token: the dry-run, or the moe layer's blocked dispatch
-    on one device); a ``DeviceMesh`` is a rank's local view, data-parallel
-    only: the rank computes its batch shard with whole weights, so a
-    ``"model"`` axis of more than one rank is refused."""
+    on one device); a ``DeviceMesh`` is a rank's local view: of its batch
+    shard on the data axes, and on a ``"model"`` axis of R > 1 ranks
+    (``ctx.tp``, :class:`~repro_torch.distributed.comm.ModelAxis`) of the
+    tensor-parallel serving steps, over the rank's shard of the weights
+    and pools that ``Engine(mesh=)`` hands it.  There the dense family
+    serves with a data axis of one; the other families, and training or a
+    full-sequence forward across ranks, are refused (ROADMAP A13)."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,
                  hw: Optional[HardwareSpec] = None, device="cuda", mesh=None):
@@ -87,11 +92,7 @@ class ReproModel:
             dp_size = sizes.get("pod", 1) * sizes.get("data", 1)
             local = not isinstance(mesh, AbstractMesh)
             if local and tp_size > 1:
-                raise NotImplementedError(
-                    f"a DeviceMesh with a 'model' axis of {tp_size} ranks: the "
-                    f"port's ranks are data-parallel (each computes its batch "
-                    f"shard with whole weights); tensor-parallel products "
-                    f"across ranks are not implemented")
+                refuse_across_ranks(cfg, tp_size)
             if local and mesh.device_type != self.device.type:
                 raise ValueError(f"the mesh is over {mesh.device_type} devices, "
                                  f"the model on {self.device}")
@@ -102,7 +103,8 @@ class ReproModel:
                                  moe_local=run.moe_local_dispatch,
                                  dp_local=local,
                                  dp_group=(_data_group(mesh) if local and dp_size > 1
-                                           else None))
+                                           else None),
+                                 tp=ModelAxis.of(mesh) if local else None)
         self.compute_dtype = getattr(torch, run.compute_dtype)
 
     @property
@@ -182,6 +184,11 @@ class ReproModel:
         come first).  Returns (logits [B, S, V] (vlm: [B, vision_tokens +
         S, V]), or [B, 1, V] for the last position with ``last_only``,
         aux)."""
+        if self.ctx.tp is not None:
+            raise NotImplementedError(
+                f"a full-sequence forward (training) across the ranks of a "
+                f"'model' axis: the port serves across ranks; ROADMAP "
+                f"{ACROSS_RANKS['train']}")
         if self.cfg.family == "encdec":
             tokens = torch.as_tensor(batch["tokens"], device=self.device)
             logits = encdec_mod.encdec_forward(
@@ -266,6 +273,10 @@ class ReproModel:
         it on the device only); ``embeds`` [B, s, d] stands for the token
         embeddings (the vlm family's patch prefix).  The caches are written
         in place.  Returns (logits [B, s, V], caches)."""
+        if self.ctx.tp is not None:
+            raise NotImplementedError(
+                f"the dense-cache decode step across the ranks of a 'model' "
+                f"axis; ROADMAP {ACROSS_RANKS['static']}")
         if self.cfg.family == "encdec":
             return encdec_mod.encdec_decode_step(params, caches, token, pos,
                                                  self.ctx, self.cfg, self.run)
@@ -291,7 +302,8 @@ class ReproModel:
     def paged_decode_step(self, params: dict, caches: dict, token: torch.Tensor,
                           block_tables: torch.Tensor, lens: torch.Tensor,
                           new_counts: torch.Tensor,
-                          logits_idx: Optional[torch.Tensor] = None):
+                          logits_idx: Optional[torch.Tensor] = None,
+                          kv_shard: Optional[tuple] = None):
         """The continuous-batching ``[B, s]`` step: row ``b`` carries
         ``new_counts[b]`` new tokens at positions ``lens[b]..`` (1 for a
         decode row, a prompt chunk for a prefill row, 0 for an inert row
@@ -300,12 +312,14 @@ class ReproModel:
         None for each row's last valid token.  Returns (logits [B, K, V],
         caches), K = 1 when ``logits_idx`` is None.  The pools in
         ``caches`` are updated in place; the returned ``caches`` is the
-        same object."""
+        same object.  ``kv_shard``: across ranks, the global pages
+        ``(page_lo, page_count)`` this rank's pools hold
+        (``models/attention.py``); None: the pools are whole."""
         x = embed_apply(params["embed"], token).to(self.compute_dtype)
         positions = lens[:, None] + torch.arange(token.shape[1], dtype=lens.dtype,
                                                  device=token.device)
         paged = {"block_tables": block_tables, "lens": lens,
-                 "new_counts": new_counts}
+                 "new_counts": new_counts, "kv_shard": kv_shard}
         logits_at = (torch.clamp(new_counts - 1, min=0) if logits_idx is None
                      else logits_idx)
         logits, _, _ = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
@@ -316,19 +330,21 @@ class ReproModel:
     def flat_decode_step(self, params: dict, caches: dict, token: torch.Tensor,
                          block_tables: torch.Tensor, row_ids: torch.Tensor,
                          q_pos: torch.Tensor, logits_idx: torch.Tensor,
-                         plan: Optional[RaggedPlan] = None):
+                         plan: Optional[RaggedPlan] = None,
+                         kv_shard: Optional[tuple] = None):
         """One flat ``[1, W]`` step: position ``i`` is token ``q_pos[i]`` of
         engine row ``row_ids[i]`` (-1 = padding); ``block_tables`` [B, MP];
         ``logits_idx`` [K] flat positions to read logits at; ``plan``: the
         ragged-attention plan of row_ids/q_pos on this device (needed on
-        the card, ignored on the CPU).  Returns (logits [1, K, V], caches).
+        the card, ignored on the CPU); ``kv_shard`` as for
+        :meth:`paged_decode_step`.  Returns (logits [1, K, V], caches).
 
         The page pools in ``caches`` are updated in place (the JAX package
         donates them to its jitted step instead); the returned ``caches``
         is the same object."""
         x = embed_apply(params["embed"], token).to(self.compute_dtype)
         paged = {"block_tables": block_tables, "row_ids": row_ids,
-                 "q_pos": q_pos, "plan": plan}
+                 "q_pos": q_pos, "plan": plan, "kv_shard": kv_shard}
         logits, _, _ = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
                                     positions=q_pos[None, :], caches=caches,
                                     paged=paged, logits_at=logits_idx[None, :])
@@ -467,14 +483,25 @@ class CompiledStep:
 
     def __call__(self, params: dict, caches: dict, *args,
                  plan: Optional[RaggedPlan] = None,
-                 graphs: Optional[GraphTable] = None):
+                 graphs: Optional[GraphTable] = None,
+                 kv_shard: Optional[tuple] = None):
         """``args``: the step method's inputs after ``caches``; ``graphs``:
         the caller's graph table (needed on the card).  Returns (logits,
-        caches) as the step method does."""
+        caches) as the step method does.  Across ranks (the model's
+        ``ctx.tp``) every call runs eagerly, on the card too: the gloo
+        collectives between its kernels cannot be captured
+        (:func:`capture_graph` refuses them), and ``kv_shard`` (the rank's
+        pages) goes to the step method."""
         sig = self.count(args, plan, caches)
-        if self.model.device.type == "cpu":
+        if self.model.device.type == "cpu" or self.model.ctx.tp is not None:
             extra = {} if plan is None else {"plan": plan}
-            return self.fn(params, caches, *args, **extra)
+            if kv_shard is not None:
+                extra["kv_shard"] = kv_shard
+            if plan is not None and self.model.device.type != "cpu":
+                extra["plan"] = plan.to(self.model.device)
+            return self.fn(params, caches, *(None if a is None else
+                                             a.to(self.model.device)
+                                             for a in args), **extra)
         if graphs is None:
             raise ValueError("a compiled step on the card needs the caller's "
                              "GraphTable (graphs=)")
@@ -549,7 +576,15 @@ def capture_graph(model: ReproModel, pool, fn: Callable) -> Capture:
     each kernel's launch attributes and cuBLAS's workspace on the stream,
     which a capture may not allocate.  A capture runs nothing, so the
     wrappers' counts it added are taken back and returned for the replays
-    to add.  A capture that fails raises."""
+    to add.  A capture that fails raises, and so does one of a model
+    across ranks (its collectives are host work under gloo; under NCCL the
+    capture is queued)."""
+    if model.ctx.tp is not None:
+        raise NotImplementedError(
+            f"a CUDA graph of a step across the ranks of a 'model' axis "
+            f"({model.ctx.tp}): a gloo collective cannot be captured, and "
+            f"capture with NCCL is ROADMAP {ACROSS_RANKS['nccl']}; the "
+            f"engine runs such steps uncaptured")
     dev = model.device
     s = model.capture_stream
     s.wait_stream(torch.cuda.current_stream(dev))
@@ -579,6 +614,42 @@ def capture_graph(model: ReproModel, pool, fn: Callable) -> Capture:
     counts = {k: after[k] - before[k] for k in after}
     kernels.add_counts(counts, -1)        # the capture ran nothing
     return Capture(eager, graph, out, counts, seconds)
+
+
+# the queue items (ROADMAP A13) of what the port does not yet serve across
+# the ranks of a 'model' axis
+ACROSS_RANKS = {
+    "data": "A13.1 (the data axis for the engine)",
+    "heads": "A13.2 (seq_shard_kv=False: heads over 'model')",
+    "moe": "A13.3 (moe across ranks: experts over 'model')",
+    "recurrent": "A13.4 (recurrent across ranks: the ssm/state leaves over "
+                 "'model')",
+    "prefix": "A13.5 (the prefix cache and speculative decode across ranks)",
+    "nccl": "A13.6 (graph capture with NCCL on a host with a card a rank)",
+    "train": "A13.7 (a data-parallel trainer across ranks)",
+    "static": "A13.8 (the static batch loop across ranks: encdec, vlm, "
+              "generate_static)",
+    "unpacked": "A13.9 (unpacked weights across ranks: prepack=False, the "
+                "unpacked policy)",
+}
+
+
+def refuse_across_ranks(cfg: ModelConfig, ranks: int) -> None:
+    """Raise ``NotImplementedError``, naming its ROADMAP item, for a
+    config the port does not serve across a 'model' axis of ``ranks``
+    ranks: every family but the dense one."""
+    what = None
+    if any(t != "attn" for t in cfg.layer_types):
+        what = "recurrent"
+    elif cfg.moe:
+        what = "moe"
+    elif cfg.family in ("encdec", "vlm"):
+        what = "static"
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a 'model' axis of {ranks} ranks: "
+            f"the port serves the dense family across ranks; ROADMAP "
+            f"{ACROSS_RANKS[what]}")
 
 
 def _data_group(mesh):

@@ -341,11 +341,26 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig, run: RunConfig) -> dic
 
 def logits_apply(params: dict, x: Stream, ctx: MatmulContext,
                  cfg: ModelConfig) -> torch.Tensor:
+    """The head, column-parallel across ranks: an untied ``lm_head`` as its
+    shard holds it; the tied head over the rank's vocab tiles of the
+    (replicated) embedding table, cut by an ``lm_head``'s rule
+    (:func:`repro_torch.distributed.sharding.head_split`); the logits
+    gathered whole on every rank."""
     if cfg.tie_embeddings:
         # packs embed.T on every call: pack_rhs reads it back as the
         # contiguous [V, D] table, so no copy precedes the pack kernel
-        return maybe_unpack(linear_apply({"w": params["embed"]["e"].T}, x, ctx))
-    return maybe_unpack(linear_apply(params["lm_head"], x, ctx))
+        e = params["embed"]["e"]
+        head = {"w": e.T}
+        if ctx.tp is not None:
+            from repro_torch.distributed.sharding import head_split
+            n_r = ctx.layout(e.dtype).n_r
+            cut = head_split(cfg.vocab, cfg.d_model, ctx.tp.rank, ctx.tp.size,
+                             n_r)
+            if cut is not None:
+                head = {"w": e[cut[0] * n_r:cut[1] * n_r].T,
+                        "w_split": ("col", *cut, cfg.vocab)}
+        return maybe_unpack(linear_apply(head, x, ctx, tp="col"))
+    return maybe_unpack(linear_apply(params["lm_head"], x, ctx, tp="col"))
 
 
 def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,

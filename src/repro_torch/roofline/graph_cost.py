@@ -109,6 +109,9 @@ FLOPS = {
     "repro_torch.mmt4d_dgrad": _dgrad,
     "repro_torch.mmt4d_wgrad": _wgrad,
     "repro_torch.ragged_attn": _ragged,
+    # a rank's share counts the whole table's keys, as the whole form does:
+    # which pages a rank holds is data, not shape
+    "repro_torch.ragged_attn_partial": _ragged,
     "repro_torch.wkv6": _wkv6,
     "repro_torch.wkv6_bwd": lambda *a: 2 * _wkv6(*a),
     "repro_torch.selective_scan": _scan,

@@ -79,6 +79,25 @@ served only so (:meth:`generate` takes that path for them), whisper with
 its weights left unpacked, as in the JAX package; an engine over either
 refuses the continuous path's options.
 
+Across ranks (``mesh=`` a ``DeviceMesh`` of ``("data", "model") = (1,
+R)``, one process a rank, each with a model built on the same mesh):
+every rank serves the same requests through the same scheduler, holding
+its shard of the weights (:func:`~repro_torch.distributed.sharding.
+shard_params` under ``param_specs``: whole tiles) and of the page pools
+(``cache_specs``: the page dim over ``model``, the global pages ``[r P /
+R, (r + 1) P / R)`` on rank r, beside a trash slot of its own).  A step's
+products are tensor-parallel and its attention a flash-decode across the
+ranks (``models/attention.py``); its logits come back whole on every
+rank, so every rank takes the same host decisions and the same sampled
+picks (the key is the request's), with the tokens of the engine on one
+rank.  The dense family serves so; the rest is refused with its ROADMAP
+item (``models/model.py:ACROSS_RANKS``): a data axis, ``seq_shard_kv=
+False``, the moe and recurrent families, the prefix cache, speculative
+decode, the static loop.  The steps run uncaptured across ranks, on the
+card too: a gloo collective cannot be captured in a CUDA graph, and a
+capture with NCCL is queued (``stats()["captures"]`` stays 0).  A
+caller's clock (``step(now=)``) must read the same on every rank.
+
 Telemetry (``telemetry=True``, :mod:`repro_torch.obs`) observes without
 taking part: request lifecycle marks, a ``device`` span around each model
 call (closed after the host copy of its logits, the step's one
@@ -99,11 +118,12 @@ import torch
 
 from repro_torch.core.hardware import require_device
 from repro_torch.distributed import sharding
-from repro_torch.launch.mesh import axis_sizes
+from repro_torch.launch.mesh import AbstractMesh, axis_sizes
 from repro_torch.core.layout import ceil_div, round_up
 from repro_torch.core.linear import prepack_params
 from repro_torch.kernels.ragged_attn.ops import plan_ragged
-from repro_torch.models.model import GraphTable, ReproModel
+from repro_torch.models import transformer as tfm
+from repro_torch.models.model import ACROSS_RANKS, GraphTable, ReproModel
 from repro_torch.models.transformer import tree_map
 from repro_torch.obs.telemetry import NULL as OBS_NULL
 from repro_torch.obs.telemetry import NullTelemetry, Telemetry
@@ -135,6 +155,37 @@ def _page_copier(caches, device):
     return copy
 
 
+def _check_across_ranks(model: ReproModel, mesh, *, prepack: bool,
+                        prefix_cache: bool, spec: bool):
+    """The model axis an engine over ``mesh`` (more than one rank) serves
+    on, or the refusal of what the port does not serve across ranks, each
+    naming its ROADMAP item (``models/model.py:ACROSS_RANKS``)."""
+    sizes = axis_sizes(mesh)
+    ranks = math.prod(sizes.values())
+    where = f"Engine(mesh=): a mesh of {ranks} ranks {sizes}"
+    dp = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+    if dp > 1:
+        raise NotImplementedError(f"{where}: a data axis of {dp}; the port "
+                                  f"serves on ('data', 'model') = (1, R); "
+                                  f"ROADMAP {ACROSS_RANKS['data']}")
+    if isinstance(mesh, AbstractMesh):
+        raise ValueError(f"{where} given as an AbstractMesh: serving across "
+                         f"ranks needs their process group (a DeviceMesh)")
+    if model.ctx.tp is None or model.ctx.tp.size != sizes.get("model", 1):
+        raise ValueError(f"{where}: the model was not built on this mesh "
+                         f"(build_model(..., mesh=mesh))")
+    if not model.run.seq_shard_kv:
+        raise NotImplementedError(f"{where}: seq_shard_kv=False; ROADMAP "
+                                  f"{ACROSS_RANKS['heads']}")
+    if prefix_cache or spec:
+        raise NotImplementedError(f"{where}: the prefix cache or speculative "
+                                  f"decode; ROADMAP {ACROSS_RANKS['prefix']}")
+    if not (prepack and model.ctx.packed):
+        raise NotImplementedError(f"{where}: prepack=False or the unpacked "
+                                  f"policy; ROADMAP {ACROSS_RANKS['unpacked']}")
+    return model.ctx.tp
+
+
 class Engine:
     def __init__(self, model: ReproModel, params, *, device="cuda", mesh=None,
                  prepack: bool = True, max_slots: Optional[int] = None,
@@ -157,17 +208,15 @@ class Engine:
                              f"{self.device}")
         # mesh= (the JAX package's): the caches are placed on the mesh by
         # sharding.cache_specs.  One rank holds every shard, so a mesh of
-        # one rank serves as no mesh does, bit for bit; serving across
-        # ranks needs the paged steps' KV split over them (distributed
-        # flash-decode) and tensor-parallel products, which the port has not
-        if mesh is not None:
-            ranks = math.prod(axis_sizes(mesh).values())
-            if ranks > 1:
-                raise NotImplementedError(
-                    f"Engine(mesh=): a mesh of {ranks} ranks; the port serves "
-                    f"on a mesh of one rank only (serving across ranks needs "
-                    f"the paged KV pools sharded over them with a distributed "
-                    f"flash-decode, and tensor-parallel products)")
+        # one rank serves as no mesh does, bit for bit; across the ranks of
+        # a 'model' axis each rank holds its shards (module docstring)
+        self.mesh = mesh
+        self.tp = None
+        if mesh is not None and math.prod(axis_sizes(mesh).values()) > 1:
+            self.tp = _check_across_ranks(model, mesh, prepack=prepack,
+                                          prefix_cache=prefix_cache,
+                                          spec=spec_tokens is not None
+                                          or drafter is not None)
         self.model = model
         # observability (repro_torch.obs): ``telemetry=True`` builds a live
         # Telemetry, an instance is used as is, and the default keeps the
@@ -177,11 +226,24 @@ class Engine:
         # the per-family step cost model, built by warmup() when telemetry
         # is live, and only there (repro_torch.obs.attrib)
         self.cost_model = None
-        params = tree_map(lambda t: t.to(self.device), params)
-        # prepack=False packs every weight inside every step instead; the
-        # encdec family is never prepacked, as in the JAX package
-        self.params = (prepack_params(params, model.ctx)
-                       if prepack and model.cfg.family != "encdec" else params)
+        if self.tp is not None:
+            # the rank's whole tiles of each weight, packed as they come
+            # (the caller's whole tree is read, never copied whole); a tree
+            # that is already a rank's shard (weights.from_jax_params with
+            # mesh=) is served as it is
+            if not any(k.endswith("/w_split")
+                       for k in sharding.tree_paths(params)):
+                params = sharding.shard_params(
+                    params, sharding.param_specs(params, model.run, mesh), mesh,
+                    sharding.mesh_coord(mesh), model.ctx.layout)
+            self.params = prepack_params(tree_map(
+                lambda t: t.to(self.device), params), model.ctx, consume=True)
+        else:
+            params = tree_map(lambda t: t.to(self.device), params)
+            # prepack=False packs every weight inside every step instead; the
+            # encdec family is never prepacked, as in the JAX package
+            self.params = (prepack_params(params, model.ctx)
+                           if prepack and model.cfg.family != "encdec" else params)
         # the static batch loop: prefill [B, plen] and decode [B, 1] are two
         # signatures of the model's one compiled "decode" step
         self._graphs = GraphTable()
@@ -241,13 +303,30 @@ class Engine:
         self.pool = PagedKVPool(num_pages, page_tokens)
         self.pool.obs = self.obs
         self.max_pages = ceil_div(max_len, self.pool.page_tokens)
-        self.caches = model.init_paged_cache(num_pages, self.pool.page_tokens,
-                                             self.slots)
         # the caches' specs on the mesh; on its one rank each leaf's shard
         # is the leaf itself, so the engine keeps its tensors as they are
-        self.cache_specs = (None if mesh is None else
-                            sharding.cache_specs(self.caches, mesh, model.run,
-                                                 self.slots))
+        self.cache_specs = (None if mesh is None else sharding.cache_specs(
+            tfm.init_paged_caches(cfg, num_pages, self.pool.page_tokens,
+                                  self.slots, model.compute_dtype, "meta"),
+            mesh, model.run, self.slots))
+        # across ranks: the global pages [lo, lo + count) this rank holds
+        # where the specs split the page dim (None: every rank holds all)
+        self.kv_shard = None
+        local_pages = num_pages
+        if self.tp is not None:
+            entry = sharding.tree_paths(self.cache_specs)[
+                "p0/kv/k_pages"][-4]
+            if entry is not None:
+                lo, hi = sharding.unit_range(num_pages, entry, mesh,
+                                             sharding.mesh_coord(mesh))
+                self.kv_shard = (lo, hi - lo)
+                local_pages = hi - lo + 1      # and the rank's trash slot
+        self.caches = model.init_paged_cache(local_pages, self.pool.page_tokens,
+                                             self.slots)
+        # what every model call passes on across ranks (nothing on one rank,
+        # so a wrapper of the compiled steps sees the one-rank signature)
+        self._shard_kw = ({} if self.kv_shard is None
+                          else {"kv_shard": self.kv_shard})
         # the single-slot state a prefill starts from: made once, zeroed in
         # place before each prefill, so its graphs bind live tensors.  With
         # one slot it is the slot's own (no other request can be running),
@@ -950,7 +1029,7 @@ class Engine:
             torch.from_numpy(token), torch.from_numpy(bt),
             torch.from_numpy(lens), torch.from_numpy(counts),
             None if idx is None else torch.from_numpy(idx),
-            graphs=self._graphs)
+            graphs=self._graphs, **self._shard_kw)
         return logits.float().cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -1045,7 +1124,7 @@ class Engine:
             self.params, self.caches, torch.from_numpy(token),
             torch.from_numpy(bt), torch.from_numpy(row_ids),
             torch.from_numpy(q_pos), torch.from_numpy(idx), plan=plan,
-            graphs=self._graphs)
+            graphs=self._graphs, **self._shard_kw)
         return logits[0].float().cpu().numpy()
 
     def _flat_shapes(self) -> List[int]:
@@ -1177,6 +1256,10 @@ class Engine:
         static family runs :meth:`generate_static` and truncates each row
         at its eos afterwards, by the continuous path's rule
         (:func:`~repro_torch.serving.scheduler.finish_reason_for`)."""
+        if deadline_s is not None and self.tp is not None:
+            raise ValueError("generate(deadline_s=) across ranks: each rank "
+                             "would read its own clock and take its own "
+                             "timeouts; drive step(now=) with one clock")
         if not self.continuous:
             if deadline_s is not None:
                 raise ValueError("deadline_s needs the continuous engine (the "
@@ -1247,6 +1330,9 @@ class Engine:
         whole batch from it (:func:`sampling.categorical`).  A greedy loop
         keeps its tokens on the device, so no step waits for the host.
         Returns [B, max_new] int32."""
+        if self.tp is not None:
+            raise NotImplementedError(f"generate_static across ranks; ROADMAP "
+                                      f"{ACROSS_RANKS['static']}")
         prompts = torch.as_tensor(np.asarray(batch["tokens"], np.int32))
         plen = prompts.shape[1]
         caches = self._static_caches(batch)

@@ -314,17 +314,35 @@ def prefill_view(caches, fresh):
     return fresh
 
 
-def copy_pages(caches, src: torch.Tensor, dst: torch.Tensor) -> None:
+def copy_pages(caches, src: torch.Tensor, dst: torch.Tensor, *,
+               kv_shard: Optional[tuple] = None, axis=None) -> None:
     """The device page copy of a copy-on-write: page ``src`` into page
     ``dst`` of every ``*_pages`` pool ([G, P, T, Hkv, dh], the page on
     axis 1), in place.  ``src`` and ``dst`` are one-element int64 index
     tensors on the pools' device, so nothing is copied from or to the host
-    and no pool is reallocated or rebound."""
+    and no pool is reallocated or rebound.
+
+    Across ranks whose pools are split by pages (``kv_shard``, the rank's
+    global pages ``(page_lo, page_count)``; ``axis`` its
+    :class:`~repro_torch.distributed.comm.ModelAxis`), by owner: the rank
+    holding ``src`` contributes the page to a sum over the ranks (the
+    others zeros), and the rank holding ``dst`` writes it there; every
+    other rank writes its trash slot."""
+    if kv_shard is not None:
+        from repro_torch.models.attention import local_pages
+        s_loc, s_held = local_pages(src, kv_shard)
+        d_loc = local_pages(dst, kv_shard)[0]
     for k, v in caches.items():
         if k.endswith("_pages"):
-            v.index_copy_(1, dst, v.index_select(1, src))
+            if kv_shard is None:
+                v.index_copy_(1, dst, v.index_select(1, src))
+                continue
+            page = v.index_select(1, s_loc)
+            page = axis.sum_(torch.where(s_held[None, :, None, None, None],
+                                         page, torch.zeros_like(page)))
+            v.index_copy_(1, d_loc, page)
         elif isinstance(v, dict):
-            copy_pages(v, src, dst)
+            copy_pages(v, src, dst, kv_shard=kv_shard, axis=axis)
 
 
 def merge_slot(caches, updated, slot: int):

@@ -7,6 +7,12 @@ the same keys, shapes and dtypes, as torch tensors.  Any tree of arrays
 comes across so, an optimizer state too (int8 moments, float32 scales,
 0-d scales of 1-D leaves); :func:`from_jax_state` carries a whole train
 state, so both packages' trainers can start from one state.
+
+Across ranks (``mesh=``), :func:`from_jax_params` gives one rank its own
+shard of a parameter tree (``distributed/sharding.py:shard_params``
+under ``param_specs``: every linear cut in whole tiles, with its
+``w_split``): only the shard is copied to ``device``, and
+``Engine(mesh=)`` serves it as it is.
 """
 
 from __future__ import annotations
@@ -26,11 +32,24 @@ def _leaf(a: np.ndarray, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
-def from_jax_params(tree, device="cpu"):
-    """Nested dicts of numpy arrays -> nested dicts of tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: from_jax_params(v, device) for k, v in tree.items()}
-    return _leaf(tree, device)
+def from_jax_params(tree, device="cpu", *, mesh=None, run=None,
+                    layout_of=None, coord=None):
+    """Nested dicts of numpy arrays -> nested dicts of tensors on ``device``.
+
+    With ``mesh`` (and the model's ``run`` and ``layout_of``, its
+    ``ctx.layout``): this rank's shard of the tree, at ``coord`` (default
+    the process's coordinate on a ``DeviceMesh``)."""
+    if mesh is None:
+        if isinstance(tree, dict):
+            return {k: from_jax_params(v, device) for k, v in tree.items()}
+        return _leaf(tree, device)
+    from repro_torch.distributed import sharding
+    from repro_torch.models.transformer import tree_map
+    whole = from_jax_params(tree, "cpu")
+    coord = sharding.mesh_coord(mesh) if coord is None else coord
+    local = sharding.shard_params(whole, sharding.param_specs(whole, run, mesh),
+                                  mesh, coord, layout_of)
+    return tree_map(lambda t: t.to(device, copy=True), local)
 
 
 def from_jax_state(step, params, opt_state, device="cpu"):

@@ -32,6 +32,7 @@ def op_samples(device) -> list:
     out.append(("mmt4d", "bias-silu-unpacked", (ap, bp, rn(2, 64), "silu", [40, 100])))
     out.append(("mmt4d", "experts", (rn(2, 3, 2, 16, 64), rn(2, 2, 2, 64, 64, scale=0.1),
                                      None, "gelu", None)))
+    out.append(("mmt4d", "partial-unpacked", (ap, bp, None, None, [40, 100], True)))
     dz, z = rn(3, 2, 16, 64), rn(3, 2, 16, 64)
     out.append(("mmt4d_dgrad", "silu", (dz, bp, z, "silu", None)))
     out.append(("mmt4d_dgrad", "experts", (rn(2, 3, 2, 16, 64), rn(2, 2, 2, 64, 64),
@@ -52,6 +53,11 @@ def op_samples(device) -> list:
         rn(20, 4, 64), rn(6, 16, 2, 64), rn(6, 16, 2, 64), bt,
         torch.from_numpy(row_ids).to(dev), torch.from_numpy(q_pos).to(dev),
         items, splits)))
+    # its partial form: the pools hold global pages 2 .. 4 and a trash slot
+    out.append(("ragged_attn_partial", "pages-2-4", (
+        rn(20, 4, 64), rn(4, 16, 2, 64), rn(4, 16, 2, 64), bt,
+        torch.from_numpy(row_ids).to(dev), torch.from_numpy(q_pos).to(dev),
+        items, splits, 2, 3)))
     r, k, v = rn(1, 40, 2, 16), rn(1, 40, 2, 16), rn(1, 40, 2, 16)
     w, u, s0 = 0.5 + 0.5 * ru(1, 40, 2, 16), rn(2, 16), rn(1, 2, 16, 16)
     ck = wkv6_checkpoints(r)

@@ -56,8 +56,11 @@ from repro_torch.kernels.mmt4d.ref import (mmt4d_dgrad_ref, mmt4d_ref,
                                            mmt4d_wgrad_ref)
 from repro_torch.kernels.pack.ops import pack
 from repro_torch.kernels.pack.ref import pack_ref
-from repro_torch.kernels.ragged_attn.ops import plan_ragged, ragged_attention
-from repro_torch.kernels.ragged_attn.ref import ragged_attention_ref
+from repro_torch.kernels.ragged_attn.ops import (plan_ragged, ragged_attention,
+                                                 ragged_attention_partial)
+from repro_torch.kernels.ragged_attn.ref import (combine_partials,
+                                                 ragged_attention_partial_ref,
+                                                 ragged_attention_ref)
 from repro_torch.core.mmt4d import Epilogue
 from repro_torch.kernels.unpack.ops import unpack, vector_path
 from repro_torch.kernels.unpack.ref import unpack_ref
@@ -525,6 +528,71 @@ def test_ragged_bf16_runs_on_tensor_cores_f32_does_not(gen):
     assert not any("HMMA" in v for v in f32)
 
 
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("heads", [(9, 3, 64), (32, 8, 128)], ids=["d64", "qwen3"])
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+def test_ragged_partial_matches_plain_and_combines_to_whole(gen, dtype, tol,
+                                                            heads, splits):
+    """The partial form over half the pages each (the pools hold global
+    pages [lo, hi) and a trash slot): each rank's output within tol of its
+    plain version where the row has a key on the rank, its log-sum-exp
+    within 1e-4 (-inf exactly where the plain version's is), padding zeros
+    and -inf, one launch, bit-identical repeats; the two halves combined
+    (combine_partials) within tol of the whole plain version."""
+    hq, hkv, dh = heads
+    segments = [(0, 1000, 1), (1, 15, 1), (2, 200, 40), (3, 20, 3), (4, 0, 5)]
+    q, kp, vp, args, row_ids, q_pos = _ragged_case(gen, dtype, segments, 64,
+                                                   hq=hq, hkv=hkv, dh=dh)
+    plan = _ragged_plan(row_ids, q_pos, splits, hkv=hkv, hq=hq)
+    valid = torch.from_numpy(row_ids >= 0).cuda()
+    outs, lses = [], []
+    for lo, hi in ((0, 200), (200, 400)):
+        lk = torch.cat([kp[lo:hi], torch.zeros_like(kp[:1])])
+        lv = torch.cat([vp[lo:hi], torch.zeros_like(vp[:1])])
+        kw = dict(page_lo=lo, page_count=hi - lo, **args)
+        before = ragged_attention_partial.launches
+        o, lse = ragged_attention_partial(q, lk, lv, plan=plan, **kw)
+        assert ragged_attention_partial.launches == before + 1
+        wo, wl = ragged_attention_partial_ref(q, lk, lv, **kw)
+        held = torch.isfinite(wl)
+        assert torch.equal(torch.isfinite(lse), held)
+        assert (lse[held] - wl[held]).abs().max().item() <= 1e-4
+        rows = held.all(dim=1) & valid
+        assert (o[rows].float() - wo[rows].float()).abs().max().item() <= tol
+        assert not o[~valid].any() and torch.isinf(lse[~valid]).all()
+        for _ in range(2):
+            o2, l2 = ragged_attention_partial(q, lk, lv, plan=plan, **kw)
+            assert torch.equal(o2, o) and torch.equal(l2, lse)
+        outs.append(o)
+        lses.append(lse)
+    got = combine_partials(outs, lses)[valid]
+    want = ragged_attention_ref(q, kp, vp, **args)[valid].float()
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("unpacked", [False, True], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("m_o,k_o,n_o", [(1, 16, 32), (4, 48, 16), (1, 2, 3)])
+def test_mmt4d_bf16_partial_is_the_float32_sum(gen, m_o, k_o, n_o, unpacked):
+    """The float32 partial of a row-parallel product across ranks (its K
+    tiles: Qwen3-8B's O and down projections over half of K at decode):
+    the float32 sums within 1e-4 of the plain version's, and rounded to
+    bf16 bit for bit the kernel's own bf16 store of the same call (the same
+    sums, no epilogue); one launch, counted in ``mmt4d.partials``."""
+    bf = torch.bfloat16
+    ap = _rand(gen, (m_o, k_o, 16, 128), bf)
+    bp = (_rand(gen, (n_o, k_o, 128, 128), bf).float() * (k_o * 128) ** -0.5).to(bf)
+    to = (m_o * 16 - 3, n_o * 128 - 64) if unpacked else None
+    before = (mmt4d.launches, mmt4d.partials)
+    got = mmt4d(ap, bp, unpack_to=to, partial=True)
+    assert (mmt4d.launches, mmt4d.partials) == (before[0] + 1, before[1] + 1)
+    want = mmt4d_ref(ap, bp, out_dtype=torch.float32)
+    if unpacked:
+        want = unpack_ref(want, *to)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _close(got, want, 1e-4)
+    assert torch.equal(got.to(bf), mmt4d(ap, bp, unpack_to=to))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     a = _rand(gen, (16, 128), torch.float16)
     with pytest.raises(TypeError):
@@ -683,7 +751,7 @@ def test_warmed_engine_captures_nothing_during_a_drain(gen, family):
     assert eng.stats()["captures"] == graphs
     n = len(calls)
     want = {"mmt4d": 15 * n, "pack": 5 * n, "unpack": n,
-            "ragged_attn": 2 * n if eng.flat else 0,
+            "ragged_attn": 2 * n if eng.flat else 0, "ragged_attn_partial": 0,
             "mmt4d_dgrad": 0, "mmt4d_wgrad": 0, "wkv6": 0,
             "selective_scan": 0, "wkv6_bwd": 0, "selective_scan_bwd": 0}
     assert kernels.launch_counts() == want
@@ -1987,7 +2055,7 @@ def test_opcheck_cuda_impl_launches_the_kernel(gen, name, case):
     torch.library.opcheck(op, args)
     fresh = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
     host = [a.cpu() if isinstance(a, torch.Tensor) else a for a in fresh]
-    if name == "ragged_attn":
+    if name.startswith("ragged_attn"):
         host[6] = None                   # the plan: the plain version's none
     before = kernels.launch_counts()
     got = op(*fresh)
@@ -1998,10 +2066,14 @@ def test_opcheck_cuda_impl_launches_the_kernel(gen, name, case):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert g.device.type == "cuda" and g.shape == w.shape
-        if name == "ragged_attn":        # padding: zeros on the card only
+        if name.startswith("ragged_attn"):   # padding: zeros (lse: -inf) on the card
             real = host[4] >= 0
-            assert not g[real.cuda().logical_not()].any()
+            pad = g[real.cuda().logical_not()]
+            assert (pad == 0).all() or (pad == -torch.inf).all()
             g, w = g[real.cuda()], w[real]
+            finite = torch.isfinite(w)       # a row without a held key: -inf
+            assert torch.equal(torch.isfinite(g).cpu(), finite)
+            g, w = g[finite.cuda()], w[finite]
         if g.numel():
             err = (g.cpu().float() - w.float()).abs().max().item()
             assert err <= 1e-3 * max(1.0, w.float().abs().max().item()), (name, err)

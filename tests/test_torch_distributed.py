@@ -16,9 +16,10 @@ in ``test_torch_sharding.py``):
   the engine without a mesh does, bit for bit: tokens, finish reasons,
   the step counts, signatures and captures; its caches carry
   ``cache_specs``, under which the one rank holds each leaf whole; a
-  mesh of two ranks is refused
-  (``NotImplementedError``), and so is a ``DeviceMesh`` with a ``model``
-  axis of two ranks for a model.
+  mesh with a data axis of two ranks is refused (``NotImplementedError``),
+  and so is a ``DeviceMesh`` with a ``model`` axis of two ranks for a moe
+  model, and a dense model's full-sequence forward there (serving across
+  ranks itself: ``test_torch_tp_serving.py``).
 """
 
 import os
@@ -185,8 +186,15 @@ def test_model_refuses_a_tensor_parallel_device_mesh():
     try:
         mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
         with pytest.raises(NotImplementedError, match="'model' axis of 2"):
-            build_model(reduced_config(get_config("smollm2-135m"), layers=2),
+            build_model(reduced_config(get_config("qwen3-moe-235b-a22b"), layers=2),
                         RunConfig(**F32), ShapeSpec("serve", 64, 3, "decode"),
                         device="cpu", mesh=mesh)
+        # the dense family serves across the ranks; its forward is refused
+        m = build_model(reduced_config(get_config("smollm2-135m"), layers=2),
+                        RunConfig(**F32), ShapeSpec("serve", 64, 3, "decode"),
+                        device="cpu", mesh=mesh)
+        assert (m.ctx.tp.rank, m.ctx.tp.size) == (0, 2)
+        with pytest.raises(NotImplementedError, match="A13.7"):
+            m.forward({}, {"tokens": np.zeros((1, 4), np.int32)})
     finally:
         dist.destroy_process_group()

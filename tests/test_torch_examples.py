@@ -276,8 +276,14 @@ ALLOWED = {
         "builds a jit for XLA to lower; the port's dry-run reckons costs "
         "from meta trees (build_cell, cell_counts)",
     "models/moe.py:constrain_blocks":
-        "a GSPMD sharding constraint; the port has no partitioner to steer "
-        "(MatmulContext.constrain)",
+        "a GSPMD sharding constraint; the port has no partitioner to steer",
+    "core/linear.py:MatmulContext.constrain":
+        "a GSPMD sharding constraint; across ranks the port computes each "
+        "rank's shard eagerly and linear_apply(tp=) makes its collectives "
+        "itself (distributed/comm.py)",
+    "models/common.py:constrain_stream":
+        "a GSPMD constraint of the stream's batch dim to the data axes; the "
+        "port has no partitioner to steer",
     **{f"models/{m}.py:Array": "the jnp.ndarray type alias; the port "
        "annotates torch.Tensor" for m in ("attention", "common", "encdec",
                                           "mamba", "model", "moe", "rwkv6",
