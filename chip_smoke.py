@@ -14,8 +14,9 @@ full width, cut in depth, through the expert-batched mmt4d, and
 jamba-v0.1-52B at full width, cut in whole periods, through the
 selective_scan kernel; trains them; runs the distributed path on a
 mesh of one card (the dry-run of every cell, an Engine on a one-rank
-NCCL mesh, moe's per-shard dispatch); and serves Qwen3-8B across two
-rank processes on the card (a (1, 2) mesh over gloo):
+NCCL mesh, moe's per-shard dispatch); serves Qwen3-8B across two
+rank processes on the card (a (1, 2) mesh over gloo); and trains
+SmolLM2-135M across four (a (2, 2) mesh, FSDP over data):
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds, the graph phase's imports
@@ -337,6 +338,25 @@ rank processes on the card (a (1, 2) mesh over gloo):
      nothing captured), both ranks' picks the same and held to the dense
      phase's one-rank drain under BF16_MARGIN; printed: the phase's
      wall, ms a step on 1 and on 2 ranks, collectives and bytes a step;
+ 20c. training across ranks: mmt4d_dgrad and mmt4d_wgrad at rank (0,
+     0)'s shard shapes (the gate's and the tied head's column halves, the
+     down product's contraction half: the float32 partial's gradient)
+     against their plain versions, f32, timed L2-cold beside torch.matmul;
+     then 4 rank processes on this card over gloo (``--train-tp-rank``;
+     ``train_tp_rank_main``), a ("data", "model") = (2, 2) mesh:
+     SmolLM2-135M at full width and depth in f32, FSDP over data, its
+     state from the one seed sharded by ``sharding.shard_state``, two
+     steps of 4 x 256 tokens through ``make_train_step``, each rank
+     holding each step's loss and grad_norm within 1e-5 of the one-rank
+     eager step's on the card (run once, in this process, while the ranks
+     start) and its state shard to that state's slice (1e-6, Adam's sign
+     flips counted: at most the larger of 1 in 10,000 and the count of a
+     control, the one-rank step through the plain products, whose sums
+     run in another order), every rank's losses the same, the
+     wrapper counts set to 0 just before the steps and read just after
+     (mmt4d, pack, unpack and both gradient kernels, no ragged_attn);
+     printed: the collectives and bytes a rank a step, the ms a step,
+     the GiB held a rank, the phase's wall;
  21. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
      the gradient kernels, the RWKV-6 1.6B drain for wkv6, jamba's first
@@ -5699,6 +5719,300 @@ def tp_phase(card, checks, qwen) -> tuple:
     return res, {f"qwen3-8b flat bf16 {TP_WORLD} ranks": r0["launches"]}
 
 
+# training across ranks: 4 processes on the one card over gloo, each a rank
+# of a ("data", "model") = (2, 2) mesh, SmolLM2-135M at full width in f32
+# with FSDP over data, two steps held to the one-rank eager step on the card
+TRAIN_TP_MESH = (2, 2)
+TRAIN_TP_SEQ, TRAIN_TP_BATCH, TRAIN_TP_STEPS = 256, 4, 2
+TRAIN_TP_LAYERS = None          # None: all 30 layers
+# the gradient kernels at rank (0, 0)'s shard shapes: its batch shard's
+# 2 x 256 tokens through the gate (its 768 of 1536 columns, silu), the
+# down product (its 768 of 1536 contraction columns: the float32 partial's
+# gradient) and the tied head (its 24,576 of 49,152 vocab columns)
+TRAIN_TP_GRADS = ((512, 576, 768, "silu", "gate, rank's N/2"),
+                  (512, 768, 576, None, "down, rank's K/2"),
+                  (512, 576, 24576, None, "tied head, rank's vocab/2"))
+
+
+def train_tp_batches(vocab: int) -> list:
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(TRAIN_TP_STEPS):
+        t = rng.integers(0, vocab, (TRAIN_TP_BATCH, TRAIN_TP_SEQ + 1)).astype(np.int32)
+        out.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return out
+
+
+def train_tp_setup(**over) -> tuple:
+    """(config, run config, shape, optimizer, batches) of the phase;
+    ``over``: run config fields that differ."""
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.training.optimizer import make_optimizer
+    cfg = get_config("smollm2-135m")
+    if TRAIN_TP_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_TP_LAYERS)
+    run = RunConfig(**{**dict(param_dtype="float32", compute_dtype="float32",
+                              remat=False, fsdp=True, warmup_steps=1), **over})
+    shape = ShapeSpec("train", TRAIN_TP_SEQ, TRAIN_TP_BATCH, "train")
+    return cfg, run, shape, make_optimizer(run, 10), train_tp_batches(cfg.vocab)
+
+
+def train_tp_init(model):
+    """The phase's whole initial state on the card, the same in every
+    process (a CPU generator's draws)."""
+    from repro_torch.training.train_state import TrainState
+    _, _, _, opt, _ = train_tp_setup()
+    return TrainState.create(model.init(torch.Generator().manual_seed(0)), opt)
+
+
+def train_tp_reference(d: str) -> float:
+    """The one-rank eager f32 steps on the card from the ranks' init, and
+    their control: the same steps through the plain products
+    (``layout_policy="unpacked"``: ``torch.matmul``, whose sums run in
+    another order than the kernels').  For each rank's
+    coordinate writes ``d/ref<data><model>.pt``: after each step the loss,
+    the grad_norm, the rank's slices of the parameters (on the CPU) and
+    ``control_off``, the count of those elements on which the control's
+    parameters are more than 1e-6 away (the sign flips that the order of
+    the sums alone makes); then ``d/ref.done``.  Returns its seconds."""
+    import itertools
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.step import make_train_step
+    from repro_torch.training.train_state import TrainState
+    t0 = time.perf_counter()
+    runs, layout = [], None
+    for over in ({}, {"layout_policy": "unpacked"}):
+        cfg, run, shape, opt, batches = train_tp_setup(**over)
+        m1 = build_model(cfg, run, shape, device="cuda")
+        st, fn, steps = train_tp_init(m1), make_train_step(m1, opt, run), []
+        for b in batches:
+            st, met = fn(st, b)
+            steps.append((float(met["loss"]), float(met["grad_norm"]),
+                          tree_map(lambda t: t.clone(), st.params)))
+        runs.append(steps)
+        layout = layout or m1.ctx.layout        # the ranks' tiles
+        del st, fn, m1
+    _, run, _, _, _ = train_tp_setup()
+    mesh = AbstractMesh(TRAIN_TP_MESH, ("data", "model"))
+    for c in itertools.product(*map(range, TRAIN_TP_MESH)):
+        coord = dict(zip(("data", "model"), c))
+
+        def mine(params):
+            return leaves(sharding.shard_state(TrainState(0, params, {}), run, mesh,
+                                               coord, layout).params)
+        out = []
+        for (loss, gnorm, p), (_, _, q) in zip(*runs):
+            ref, ctl = mine(p), mine(q)
+            out.append({"loss": loss, "grad_norm": gnorm,
+                        "params": [t.to("cpu", copy=True) for t in ref],
+                        "control_off": sum(int(((a - b).abs() > 1e-6).sum())
+                                           for a, b in zip(ref, ctl))})
+        torch.save(out, os.path.join(d, f"ref{c[0]}{c[1]}.pt"))
+    del runs
+    torch.cuda.empty_cache()
+    open(os.path.join(d, "ref.done"), "w").close()
+    return time.perf_counter() - t0
+
+
+def train_tp_rank_main(rank: int, world: int, d: str) -> int:
+    """One rank of the training-across-ranks phase (``--train-tp-rank``),
+    on the one card: a gloo process group (a FileStore in ``d``), the
+    TRAIN_TP_MESH mesh.  The rank takes its shard of the phase's init
+    (``sharding.shard_state``), trains it across the ranks, the wrapper
+    counts set to 0 just before the steps and read just after, and then
+    holds each step's loss, grad_norm and state shard to the one-rank
+    step's (``train_tp_reference``, which the phase runs while the ranks
+    start; the steps wait for it, so that they are timed alone on the
+    card); writes ``d/train<r>.json``."""
+    import gc
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    from repro_torch.distributed import sharding
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.step import make_train_step
+    from repro_torch.training.train_state import TrainState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)            # every rank on the one card
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "store"),
+                                                          world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", TRAIN_TP_MESH, mesh_dim_names=("data", "model"))
+        out = {"rank": rank, "coord": list(mesh.get_coordinate()),
+               "setup_s": time.perf_counter() - t_start}
+        cfg, run, shape, opt, batches = train_tp_setup()
+        m = build_model(cfg, run, shape, device="cuda", mesh=mesh)
+        st = sharding.shard_state(train_tp_init(build_model(cfg, run, shape,
+                                                            device="cuda")),
+                                  run, mesh, sharding.mesh_coord(mesh), m.ctx.layout)
+        st = TrainState(st.step, tree_map(lambda t: t.clone(), st.params),
+                        tree_map(lambda t: t.clone(), st.opt_state))
+        gc.collect()
+        torch.cuda.empty_cache()
+        fn = make_train_step(m, opt, run)
+        out["held_bytes"] = torch.cuda.memory_allocated()
+        # a forward and backward across the ranks, the state untouched, so
+        # that the first timed step finds every kernel loaded
+        fn.grads_of(st.params, batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        axes = [a for a in (m.ctx.dp, m.ctx.tp) if a is not None]
+        for a in axes:
+            a.calls = a.bytes = 0
+        # the steps timed alone on the card: after the reference's
+        t0 = time.perf_counter()
+        while not os.path.exists(os.path.join(d, "ref.done")):
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"rank {rank}: no one-rank reference after 300 s")
+            time.sleep(0.2)
+        out["ref_wait_s"] = time.perf_counter() - t0
+        dist.barrier()
+        kernels.reset_launch_counts()
+        steps, shards = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, met = fn(st, b)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            steps.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": loss,
+                          "grad_norm": gnorm})
+            shards.append([t.to("cpu", copy=True) for t in leaves(st.params)])
+        out["launches"] = kernels.launch_counts()
+        out["counters"] = kernels.counters()
+        out["collectives"] = sum(a.calls for a in axes)
+        out["bytes"] = sum(a.bytes for a in axes)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        c = out["coord"]
+        ref = torch.load(os.path.join(d, f"ref{c[0]}{c[1]}.pt"))
+        # the shards against the one-rank step's slices after each step,
+        # the CPU tests' rule: within 1e-6 but where a near-zero gradient's
+        # sign differs, which Adam turns into up to 2 lr a step; at most as
+        # many such elements as the larger of 1 in 10,000 and the count on
+        # which the one-rank step's control (its sums in another order)
+        # differs from it
+        total = sum(t.numel() for t in shards[0])
+        for s, (got, want) in enumerate(zip(shards, ref)):
+            diffs = [(g - w).abs() for g, w in zip(got, want["params"], strict=True)]
+            steps[s].update({
+                "one_rank_loss": want["loss"], "one_rank_grad_norm": want["grad_norm"],
+                "max_param_err": max(float(x.max()) for x in diffs if x.numel()),
+                "off": sum(int((x > 1e-6).sum()) for x in diffs),
+                "control_off": want["control_off"],
+                "off_by_leaf": sorted(((int((x > 1e-6).sum()), i)
+                                       for i, x in enumerate(diffs)), reverse=True)[:3]})
+        out.update({"steps": steps, "elements": total, "lr": opt.lr,
+                    "max_param_err": steps[-1]["max_param_err"],
+                    "off": steps[-1]["off"], "control_off": steps[-1]["control_off"]})
+        for i, s in enumerate(steps):
+            if not abs(s["loss"] - s["one_rank_loss"]) <= 1e-5 \
+                    or not abs(s["grad_norm"] - s["one_rank_grad_norm"]) \
+                    <= 1e-5 * s["one_rank_grad_norm"]:
+                raise AssertionError(f"rank {rank}: a step across ranks {s} "
+                                     f"against the one-rank step")
+            if s["max_param_err"] > 2 * opt.lr * (i + 1) * 1.0001 \
+                    or s["off"] > max(total // 10_000, s["control_off"]):
+                raise AssertionError(f"rank {rank}, step {i}: its shard differs "
+                                     f"from the one-rank state's slice by up to "
+                                     f"{s['max_param_err']}, {s['off']} of {total} "
+                                     f"elements beyond 1e-6 (the control "
+                                     f"{s['control_off']}; leaves "
+                                     f"{s['off_by_leaf']})")
+        with open(os.path.join(d, f"train{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def train_tp_phase(card, checks) -> tuple:
+    """Training across ranks on the one card: mmt4d_dgrad and mmt4d_wgrad
+    at rank (0, 0)'s shard shapes against their plain versions (here),
+    then the ranks of a TRAIN_TP_MESH mesh as processes over gloo
+    (``train_tp_rank_main``): SmolLM2-135M at full width in f32 with FSDP,
+    TRAIN_TP_STEPS steps of TRAIN_TP_BATCH x TRAIN_TP_SEQ tokens, each
+    rank's loss and grad_norm within 1e-5 of the one-rank eager step's
+    (``train_tp_reference``, here while the ranks start) and its state
+    shard the one-rank state's slice; every rank's losses
+    the same; mmt4d, pack and both gradient kernels launched on every
+    rank, ragged_attn not.  Returns (results, launches by path)."""
+    import tempfile
+    t0 = time.perf_counter()
+    for m, k, n, act, label in TRAIN_TP_GRADS:
+        checks.grads(TF, m, k, n, act, label)
+    kernels_s = time.perf_counter() - t0
+    world = TRAIN_TP_MESH[0] * TRAIN_TP_MESH[1]
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--train-tp-rank", str(r), "--tp-world", str(world),
+                                   "--tp-dir", d], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        try:
+            ref_s = train_tp_reference(d)       # while the ranks start
+            logs = [p.communicate(timeout=400)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines():
+                print(f"    [rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"training across ranks: rank {r} exited "
+                                     f"{p.returncode}")
+        ranks = [json.load(open(os.path.join(d, f"train{r}.json")))
+                 for r in range(world)]
+    wall = time.perf_counter() - t1
+    r0 = ranks[0]
+    for r in ranks:
+        if [s["loss"] for s in r["steps"]] != [s["loss"] for s in r0["steps"]]:
+            raise AssertionError("training across ranks: the ranks' losses differ")
+        for k, n in r["launches"].items():
+            if (n == 0) != (k not in ("mmt4d", "pack", "unpack") + GRAD_KERNELS):
+                raise AssertionError(f"training across ranks, rank {r['rank']}: "
+                                     f"{k} launched {n} times")
+    steps = TRAIN_TP_STEPS
+    layers = TRAIN_TP_LAYERS or 30
+    print(f"  training across ranks: {world} processes share one card over gloo, "
+          f"a {TRAIN_TP_MESH} (data, model) mesh, SmolLM2-135M f32 at {layers} "
+          f"layers, FSDP over data, {steps} steps of {TRAIN_TP_BATCH} x "
+          f"{TRAIN_TP_SEQ} tokens ({card})")
+    for r in ranks:
+        s = r["steps"]
+        print(f"    rank {r['rank']} {tuple(r['coord'])}: losses "
+              f"{[round(x['loss'], 7) for x in s]} (one rank "
+              f"{[round(x['one_rank_loss'], 7) for x in s]}), grad_norm "
+              f"{[round(x['grad_norm'], 7) for x in s]} (one rank "
+              f"{[round(x['one_rank_grad_norm'], 7) for x in s]}); its shard "
+              f"within {r['max_param_err']:.3e} of the one-rank state's slice "
+              f"({[x['off'] for x in s]} of {r['elements']} beyond 1e-6 after each "
+              f"step; the control's {[x['control_off'] for x in s]}); ms a step "
+              f"{[round(x['ms'], 3) for x in s]}; {r['collectives'] / steps:.1f} "
+              f"collectives, {r['bytes'] / steps / 1e6:.3f} MB a step; "
+              f"{r['held_bytes'] / 2**30:.3f} GiB held, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB; waited {r['ref_wait_s']:.2f} s "
+              f"for the reference; launches {r['launches']}")
+    print(f"  training-across-ranks phase wall: {time.perf_counter() - t0:.1f} s "
+          f"(kernel checks {kernels_s:.1f} s, the {world} rank processes "
+          f"{wall:.1f} s, the one-rank reference and its control in them "
+          f"{ref_s:.1f} s; {card}): not a figure of multi-card training")
+    res = {"ranks": ranks, "wall_s": time.perf_counter() - t0,
+           "ranks_wall_s": wall, "kernel_checks_s": kernels_s, "reference_s": ref_s,
+           "card": card, "layers": layers}
+    return res, {f"train f32 {TRAIN_TP_MESH} ranks": r0["launches"]}
+
+
 def import_tracing(out: dict) -> None:
     """Import what the graph phase traces with (``out["s"]``: seconds)."""
     t0 = time.perf_counter()
@@ -6127,6 +6441,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-world", type=int, default=TP_WORLD, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
+    # one rank of the training-across-ranks phase (train_tp_phase starts them)
+    ap.add_argument("--train-tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -6137,6 +6453,8 @@ def main(argv=None) -> int:
     import repro_torch.serving.engine     # noqa: F401  (the port is beside this script)
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank, args.tp_world, args.tp_dir)
+    if args.train_tp_rank is not None:
+        return train_tp_rank_main(args.train_tp_rank, args.tp_world, args.tp_dir)
     global CPU_RUNS
     CPU_RUNS = CpuRuns(src)
     try:
@@ -6413,6 +6731,13 @@ def smoke(args) -> int:
           f"under a top-2 margin of {BF16_MARGIN:g}) ({card})")
     tp_res, tp_paths = tp_phase(card, checks, dense["qwen3-8b"])
     by_path.update(tp_paths)
+    elapsed()
+    print(f"training across ranks: mmt4d_dgrad and mmt4d_wgrad at a rank's "
+          f"shard shapes; {TRAIN_TP_MESH[0] * TRAIN_TP_MESH[1]} rank processes "
+          f"on this card over gloo, a (data, model) = {TRAIN_TP_MESH} mesh, "
+          f"SmolLM2-135M f32 with FSDP, held to the one-rank eager step ({card})")
+    train_tp_res, train_tp_paths = train_tp_phase(card, checks)
+    by_path.update(train_tp_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
@@ -6495,6 +6820,7 @@ def smoke(args) -> int:
                        "recurrent": recurrent, "moe": moe_res, "jamba": jamba,
                        "family_training": fam_train, "mesh": mesh_res,
                        "across_ranks": tp_res,
+                       "training_across_ranks": train_tp_res,
                        "graph": graph, "examples": examples,
                        "cpu_runs": cpu_runs,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,

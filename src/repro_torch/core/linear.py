@@ -24,6 +24,16 @@ the cut as ``w_split`` (:mod:`repro_torch.distributed.sharding`), and
   partial (mmt4d's ``partial``: no epilogue, no cast), summed over the
   ranks; the bias and the activation are applied once, to the sum, in
   float32, then one cast, as the kernel's epilogue does.
+
+Under autograd (training across ranks) the same products are
+differentiable: the gather's gradient is the rank's slice, the sum's
+passes through, the float32 partial's runs mmt4d's gradient kernels over
+the rank's K tiles, and a replicated tensor that a rank slices (a whole
+input of a row-parallel product, the bias of a column-parallel one) first
+enters the region (:meth:`~repro_torch.distributed.comm.MeshAxis.enter`),
+so that its gradient is summed over the ranks.  The input of a
+column-parallel product enters in the caller (:func:`tp_enter`), once for
+every product that reads it.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ from repro_torch.core.propagation import PackedArray, pack_activation
 from repro_torch.kernels.mmt4d.ref import ACTIVATIONS
 
 __all__ = ["MatmulContext", "linear_init", "linear_apply", "gather_columns",
-           "batched_linear_apply", "prepack_params", "PLAIN_PRODUCTS"]
+           "tp_enter", "batched_linear_apply", "prepack_params", "PLAIN_PRODUCTS"]
 
 # ``{"w"}`` leaves that no linear_apply reads, plain float32 products in
 # both packages, which stay unpacked (and float32): mamba's ``dt_proj``
@@ -63,13 +73,15 @@ class MatmulContext:
     moe layer blocks them into ``dp_size`` dispatch blocks itself, as the
     JAX package under GSPMD.  True is a rank of a ``DeviceMesh``: the
     process holds its own data shard's tokens, which are one block, and
-    ``dp_group`` (a process group over the data ranks, None on one rank)
-    is where the moe layer sums its aux losses' terms.
+    ``dp`` (below) is where the moe layer sums its aux losses' terms.
 
     ``tp``: the ranks of the mesh's ``model`` axis this process is one of
     (:class:`~repro_torch.distributed.comm.ModelAxis`: its rank and
     process group), None on one rank: the collectives of the
-    tensor-parallel products (module docstring)."""
+    tensor-parallel products (module docstring).  ``dp``: its data ranks
+    (:class:`~repro_torch.distributed.comm.DataAxis`), None on one: the
+    moe layer's aux losses, FSDP's gathers and the train step's
+    reductions."""
 
     policy: LayoutPolicy = LayoutPolicy.SCALABLE
     hw: Optional[HardwareSpec] = None
@@ -80,8 +92,8 @@ class MatmulContext:
     tp_size: int = 1
     moe_local: bool = False
     dp_local: bool = False
-    dp_group: Optional[object] = dataclasses.field(default=None, compare=False)
     tp: Optional[object] = dataclasses.field(default=None, compare=False)
+    dp: Optional[object] = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         # a policy given by name ("unpacked") is the enum member, so that
@@ -184,7 +196,8 @@ def linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
             a_pack = packing.pack_lhs(x, layout)
         bias = params.get("b")
         if split is not None and bias is not None:      # the rank's columns
-            bias = bias[..., split[1] * layout.n_r:split[1] * layout.n_r + n]
+            bias = ctx.tp.enter(bias)[..., split[1] * layout.n_r:
+                                      split[1] * layout.n_r + n]
         if n == 0:                                      # no tiles on this rank
             c = a_pack.new_zeros((*a_pack.shape[:-3], 0, layout.m_r, layout.n_r)
                                  if packed_out else (*a_pack.shape[:-4], m, 0))
@@ -205,6 +218,19 @@ def linear_apply(params: dict, x: Union[torch.Tensor, PackedArray],
         # output tile != input tile: round-trip through the plain domain
         return pack_activation(c, layout)
     return c
+
+
+def tp_enter(ctx: MatmulContext, x: Union[torch.Tensor, PackedArray]):
+    """``x`` (a plain tensor or a PackedArray), replicated on the ranks of
+    ``ctx.tp``, as it enters column-parallel products: the identity, whose
+    gradient is summed over the ranks (each rank's products saw their own
+    columns only).  Without a model axis, or a gradient, ``x`` itself."""
+    if ctx.tp is None:
+        return x
+    if isinstance(x, PackedArray):
+        data = ctx.tp.enter(x.data)
+        return x if data is x.data else x._with(data)
+    return ctx.tp.enter(x)
 
 
 def gather_columns(ctx: MatmulContext, pairs: list) -> list:
@@ -239,14 +265,14 @@ def _row_parallel(params, x, a_pack, b_pack, n, m, layout, split, ctx, epi,
     if a_pack is None:                          # an unpacked input
         tiles = -(-x.shape[-1] // k_r)
         if tiles == k_tiles and hi - lo != k_tiles:
-            x = x[..., lo * k_r:hi * k_r]         # the rank's columns
+            x = ctx.tp.enter(x)[..., lo * k_r:hi * k_r]   # the rank's columns
         elif tiles != hi - lo:
             raise ValueError(f"a row-parallel input of {x.shape[-1]} columns: "
                              f"neither the whole ({k_tiles} tiles) nor the "
                              f"rank's {hi - lo}")
         a_pack = packing.pack_lhs(x, layout)
     elif a_pack.shape[-3] == k_tiles and hi - lo != k_tiles:
-        a_pack = a_pack[..., lo:hi, :, :].contiguous()
+        a_pack = ctx.tp.enter(a_pack)[..., lo:hi, :, :].contiguous()
     elif a_pack.shape[-3] != hi - lo:
         raise ValueError(f"a row-parallel packed input of {a_pack.shape[-3]} "
                          f"K tiles: neither the whole ({k_tiles}) nor the "
@@ -258,7 +284,7 @@ def _row_parallel(params, x, a_pack, b_pack, n, m, layout, split, ctx, epi,
                         device=a_pack.device)
     else:
         c = mmt4d(a_pack, b_pack, unpack_to=unpack_to, partial=True)
-    ctx.tp.sum_(c)
+    c = ctx.tp.reduce(c) if c.requires_grad else ctx.tp.sum_(c)
     bias = params.get("b")
     if bias is not None:
         if packed_out:

@@ -83,18 +83,22 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
     expert, and one of each gradient kernel over every expert.
 
     ``partial``: the float32 sums without the epilogue or the cast, a
-    rank's share of a row-parallel product across ranks (serving only:
-    no gradient)."""
+    rank's share of a row-parallel product across ranks.  Its gradient is
+    the plain product's, with no epilogue: mmt4d_dgrad and mmt4d_wgrad
+    over the rank's K tiles, the float32 dZ first cast to the operands'
+    dtype, the dtype the non-partial path hands the gradient kernels."""
     tensors = (a_pack, b_pack) + (() if bias_pack is None else (bias_pack,))
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     if partial:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-            raise NotImplementedError(
-                "the gradient of a row-parallel product across ranks: "
-                "training across ranks is ROADMAP A13.7")
+        if grad:
+            if bias_pack is not None or activation is not None:
+                raise ValueError("mmt4d: a partial takes no epilogue")
+            return _Mmt4dFn.apply(a_pack, b_pack, None, None, unpack_to, True)
         return mmt4d_kernel(a_pack, b_pack, activation=activation,
                             unpack_to=unpack_to, partial=True)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return _Mmt4dFn.apply(a_pack, b_pack, bias_pack, activation, unpack_to)
+    if grad:
+        return _Mmt4dFn.apply(a_pack, b_pack, bias_pack, activation, unpack_to,
+                              False)
     return mmt4d_kernel(a_pack, b_pack, bias_pack, activation=activation,
                         unpack_to=unpack_to)
 
@@ -102,12 +106,17 @@ def mmt4d(a_pack: torch.Tensor, b_pack: torch.Tensor,
 class _Mmt4dFn(torch.autograd.Function):
     """mmt4d with its gradients: dA by ``mmt4d_dgrad``, dB and the bias
     gradient by ``mmt4d_wgrad`` (one launch each, on the card; for an
-    expert-batched B_pack each over every expert)."""
+    expert-batched B_pack each over every expert).  ``partial``: the
+    float32 partial's (no epilogue), whose float32 dZ is cast to the
+    operands' dtype first."""
 
     @staticmethod
-    def forward(ctx, a_pack, b_pack, bias_pack, activation, unpack_to):
+    def forward(ctx, a_pack, b_pack, bias_pack, activation, unpack_to, partial):
         ctx.save_for_backward(a_pack, b_pack, bias_pack)
         ctx.activation, ctx.unpack_to = activation, unpack_to
+        if partial:
+            return mmt4d_kernel(a_pack, b_pack, unpack_to=unpack_to,
+                                partial=True)
         return mmt4d_kernel(a_pack, b_pack, bias_pack, activation=activation,
                             unpack_to=unpack_to)
 
@@ -115,6 +124,7 @@ class _Mmt4dFn(torch.autograd.Function):
     def backward(ctx, grad):
         a_pack, b_pack, bias_pack = ctx.saved_tensors
         act = ctx.activation
+        grad = grad.to(a_pack.dtype)
         if ctx.unpack_to is None:
             dz = grad.contiguous()
         else:                                  # the unpacked store's transpose
@@ -130,7 +140,7 @@ class _Mmt4dFn(torch.autograd.Function):
         if need_b or need_bias:
             db, dbias = mmt4d_wgrad(dz, a_pack, z, activation=act,
                                     bias=need_bias, experts=b_pack.ndim == 5)
-        return da, db, dbias, None, None
+        return da, db, dbias, None, None, None
 
 
 def packed_matmul(a: torch.Tensor, b: torch.Tensor, layout: PackedLayout, *,

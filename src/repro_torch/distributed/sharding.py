@@ -43,6 +43,13 @@ records its cut as ``w_split``: ``("col", lo, hi, N)`` (output tiles
 ``[lo, hi)`` of an ``N``-wide output) or ``("row", lo, hi, K_o)``
 (contraction tiles ``[lo, hi)`` of ``K_o``), which
 ``core/linear.py:linear_apply`` reads.
+
+A rank's shard of a train state (training across ranks):
+:func:`shard_state` cuts the parameters as :func:`shard_params` does and
+each optimizer leaf as its parameter (an 8-bit moment's scales as its
+parameter less the last dim), in the same whole tiles;
+:func:`unshard_state` puts the ranks' shards back together, and checks
+that every copy of a replicated piece agrees.
 """
 
 from __future__ import annotations
@@ -58,7 +65,8 @@ from repro_torch.launch.mesh import axis_sizes, dp_axes
 __all__ = ["param_specs", "batch_specs", "cache_specs", "state_specs",
            "named", "distribute", "tree_paths", "local_shape",
            "device_bytes", "tile_range", "unit_range", "mesh_coord",
-           "shard_tree", "shard_params", "shard_prepacked", "head_split"]
+           "shard_tree", "shard_params", "shard_prepacked", "head_split",
+           "leaf_units", "shard_state", "unshard_state"]
 
 
 def tree_paths(tree) -> dict:
@@ -373,9 +381,11 @@ def shard_tree(tree, specs, mesh, coord: dict):
 
 
 def _linear_split(spec: tuple, k_rng: tuple, n_rng: tuple, k_tiles: int,
-                  n: int):
+                  n: int, mesh=None):
     """A linear's ``w_split`` from the tile ranges its K and N dims were
-    cut to (None where the model axis cuts neither)."""
+    cut to (None where the model axis cuts neither, or has one rank)."""
+    if mesh is not None and axis_sizes(mesh).get("model", 1) == 1:
+        return None
     ent_k, ent_n = spec[-2], spec[-1]
     if "model" in _axes(ent_k) and "model" in _axes(ent_n):
         raise ValueError(f"a linear split over 'model' on both dims: {spec}")
@@ -408,7 +418,7 @@ def shard_params(params, specs, mesh, coord: dict, layout_of):
             out["w"] = w
             split = _linear_split(_full(s["w"], p["w"].ndim), k_rng, n_rng,
                                   -(-p["w"].shape[-2] // lay.k_r),
-                                  p["w"].shape[-1])
+                                  p["w"].shape[-1], mesh)
             if split is not None:
                 out["w_split"] = split
             return out
@@ -443,7 +453,7 @@ def shard_prepacked(packed, specs, mesh, coord: dict):
                    if k not in ("w_pack", "w_n")}
             out["w_pack"] = local
             out["w_n"] = min(no_hi * n_r, n) - min(no_lo * n_r, n)
-            split = _linear_split(spec, rngs[-3], rngs[-4], wp.shape[-3], n)
+            split = _linear_split(spec, rngs[-3], rngs[-4], wp.shape[-3], n, mesh)
             if split is not None:
                 out["w_split"] = split
             return out
@@ -467,3 +477,127 @@ def head_split(vocab: int, d_model: int, rank: int, size: int, n_r: int):
     if "model" not in _axes(spec[-1]):
         return None
     return tile_range(-(-vocab // n_r), size, rank)
+
+
+# ------------------------------------------------------- a rank's train state
+
+
+def leaf_units(params, layout_of) -> dict:
+    """``{path: (leaf, units)}``: every tensor leaf of a parameter tree and
+    the units its dims are cut in: a linear's ``w [.., K, N]`` in
+    ``layout_of(dtype)``'s ``k_r`` and ``n_r`` (as :func:`shard_params`
+    cuts it), every other leaf in elements."""
+    out = {}
+
+    def rec(p, prefix, key=None):
+        if isinstance(p, dict):
+            lin = _is_linear(p, key)
+            for k in sorted(p):
+                path = f"{prefix}/{k}" if prefix else str(k)
+                v = p[k]
+                if lin and k == "w":
+                    lay = layout_of(v.dtype)
+                    out[path] = (v, (1,) * (v.ndim - 2) + (lay.k_r, lay.n_r))
+                else:
+                    rec(v, path, k)
+        elif isinstance(p, torch.Tensor):
+            out[prefix] = (p, (1,) * p.ndim)
+
+    rec(params, "")
+    return out
+
+
+def _opt_units(units: dict, key: str) -> dict:
+    """An optimizer tree's units by path: its parameter's, less the last
+    dim for the 8-bit moments' scales."""
+    if key in ("m_s", "v_s"):
+        return {p: u[:-1] for p, u in units.items()}
+    return units
+
+
+def _state_trees(state, specs, units):
+    """(name, tree, specs, units by path) of each tree of a train state."""
+    yield "params", state.params, specs.params, units
+    for k, tree in state.opt_state.items():
+        yield k, tree, specs.opt_state[k], _opt_units(units, k)
+
+
+def shard_state(state, run: RunConfig, mesh, coord: dict, layout_of):
+    """The rank's shard at ``coord`` of a whole ``TrainState`` under
+    :func:`state_specs`: the parameters by :func:`shard_params` (every
+    linear in whole tiles, with its ``w_split``), each moment, 8-bit
+    moment and error buffer cut as its parameter, an 8-bit moment's scales
+    as its parameter less the last dim; the step as it is."""
+    from repro_torch.training.train_state import TrainState
+    specs = state_specs(state, run, mesh)
+    units = {p: u for p, (_, u) in leaf_units(state.params, layout_of).items()}
+    opt = {}
+    for name, tree, spec, unit in _state_trees(state, specs, units):
+        if name == "params":
+            continue
+        flat, sp = tree_paths(tree), tree_paths(spec)
+        opt[name] = _unflatten_like(tree, {
+            p: (_cut(t, sp[p], mesh, coord, unit.get(p))[0]
+                if isinstance(t, torch.Tensor) else t) for p, t in flat.items()})
+    return TrainState(step=state.step,
+                      params=shard_params(state.params, specs.params, mesh,
+                                          coord, layout_of),
+                      opt_state=opt)
+
+
+def unshard_state(shards: dict, like, run: RunConfig, mesh, layout_of):
+    """The whole ``TrainState`` put back together from ``shards``
+    (``{coordinate: the rank's TrainState}``, a coordinate a tuple of the
+    mesh's axis indices in mesh order, every coordinate of ``mesh``
+    present), ``like`` a whole state of the same shapes (meta tensors will
+    do).  Every copy of a piece that more than one rank holds must be the
+    same, bit for bit (else ``ValueError``); the ``w_split`` entries are
+    dropped.  Each leaf comes back on the CPU."""
+    import itertools
+    from repro_torch.training.optimizer import tensors
+    from repro_torch.training.train_state import TrainState
+    names = list(axis_sizes(mesh))
+    coords = list(itertools.product(*(range(n) for n in axis_sizes(mesh).values())))
+    specs = state_specs(like, run, mesh)
+    units = {p: u for p, (_, u) in leaf_units(like.params, layout_of).items()}
+    out = {}
+    for name, tree, spec, unit in _state_trees(like, specs, units):
+        sp = tree_paths(spec)
+        whole = {}
+        for path, t in tree_paths(tree).items():
+            if not isinstance(t, torch.Tensor):
+                continue
+            dst = torch.empty(t.shape, dtype=t.dtype)
+            seen = torch.zeros(t.shape, dtype=torch.bool)
+            spec_p = _full(sp[path], t.ndim)
+            u = unit.get(path) or (1,) * t.ndim
+            for c in coords:
+                coord = dict(zip(names, c))
+                st = shards[c]
+                piece = tree_paths(st.params if name == "params"
+                                   else st.opt_state[name])[path].cpu()
+                region = dst
+                mask = seen
+                for d in range(t.ndim):
+                    lo, hi = unit_range(-(-t.shape[d] // u[d]), spec_p[d], mesh,
+                                        coord)
+                    e0, e1 = min(t.shape[d], lo * u[d]), min(t.shape[d], hi * u[d])
+                    region = region.narrow(d, e0, e1 - e0)
+                    mask = mask.narrow(d, e0, e1 - e0)
+                if tuple(piece.shape) != tuple(region.shape):
+                    raise ValueError(f"{name}/{path} at {coord}: a shard of "
+                                     f"{tuple(piece.shape)} where the rules "
+                                     f"give {tuple(region.shape)}")
+                held = region[mask]
+                if held.numel() and not torch.equal(held, piece[mask]):
+                    raise ValueError(f"{name}/{path} at {coord}: the ranks' "
+                                     f"copies of a replicated piece differ")
+                region.copy_(piece)
+                mask.fill_(True)
+            if not bool(seen.all()):
+                raise ValueError(f"{name}/{path}: the shards do not cover it")
+            whole[path] = dst
+        out[name] = _unflatten_like(tensors(tree), whole)
+    return TrainState(step=shards[coords[0]].step, params=out.pop("params"),
+                      opt_state=out)
+

@@ -15,7 +15,10 @@ captured in a CUDA graph.
 
 Across the ranks of a mesh's ``model`` axis (``ctx.tp``) the projections
 are the JAX package's Megatron products (Q/K/V column-parallel, gathered
-whole; O row-parallel) and, where ``cache_specs`` shard the pools' page
+whole; O row-parallel; in the train/prefill mode every rank then attends
+over every head, and the O product's slice of the whole output enters
+its region, so the gradients are the one-rank ones) and, where
+``cache_specs`` shard the pools' page
 dim, each rank holds the global pages ``[page_lo, page_lo + page_count)``
 (``paged["kv_shard"]``) as its pages ``0 .. page_count - 1`` plus a trash
 slot of its own after them (``page_count``): a rank writes the K/V of the
@@ -35,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.linear import (MatmulContext, gather_columns,
-                                     linear_apply, linear_init)
+                                     linear_apply, linear_init, tp_enter)
 from repro_torch.kernels.ragged_attn.ops import (ragged_attention,
                                                  ragged_attention_partial)
 from repro_torch.kernels.ragged_attn.ref import combine_partials
@@ -310,7 +313,8 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
     - either paged mode across ranks: ``paged["kv_shard"]``, the rank's
       pages (module docstring)."""
     dh, hq, hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
-    kv_in = x if kv_source is None else kv_source
+    x = tp_enter(ctx, x)
+    kv_in = x if kv_source is None else tp_enter(ctx, kv_source)
     kv_tp = "col" if hkv >= ctx.tp_size else None
     q, k, v = gather_columns(ctx, [
         (params[w], maybe_unpack(linear_apply(params[w], src, ctx, tp=tp,

@@ -2,14 +2,17 @@
 the chained matmuls (with the activation fused into the first) never
 unpack in between.  Across ranks the up (and gate) products are
 column-parallel and the down product row-parallel, the hidden
-activations staying each rank's own tiles (no collective between them)."""
+activations staying each rank's own tiles (no collective between them);
+the input enters the region once (``tp_enter``: its gradient summed over
+the ranks)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
+from repro_torch.core.linear import (MatmulContext, linear_apply, linear_init,
+                                     tp_enter)
 from repro_torch.models.common import Stream
 
 __all__ = ["mlp_init", "mlp_apply"]
@@ -28,6 +31,7 @@ def mlp_init(generator: torch.Generator, d: int, d_ff: int, cfg: ModelConfig,
 def mlp_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
               *, keep_packed: bool = False) -> Stream:
     inner_packed = ctx.packed and ctx.propagate
+    x = tp_enter(ctx, x)
     if cfg.glu:
         g = linear_apply(params["wg"], x, ctx, activation=cfg.act,
                          keep_packed=inner_packed, tp="col", gather=False)

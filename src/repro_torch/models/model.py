@@ -35,7 +35,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.core.hardware import HardwareSpec, query, require_device
 from repro_torch.core.layout import LayoutPolicy
 from repro_torch.core.linear import MatmulContext, linear_apply
-from repro_torch.distributed.comm import ModelAxis
+from repro_torch.distributed.comm import DataAxis, ModelAxis
 from repro_torch.kernels.ragged_attn.ops import RaggedPlan
 from repro_torch.launch.mesh import AbstractMesh, axis_sizes
 from repro_torch.models import encdec as encdec_mod
@@ -46,12 +46,34 @@ __all__ = ["ReproModel", "CompiledStep", "GraphTable", "capture_graph", "build_m
            "MetaGenerator", "ACROSS_RANKS", "refuse_across_ranks"]
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
+def _xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float,
+          axis=None, lo: Optional[int] = None):
     """Mean next-token cross-entropy plus ``z_loss`` times the mean squared
-    log-partition, in float32.  Returns (loss, {"nll", "z_loss"})."""
+    log-partition, in float32.  Returns (loss, {"nll", "z_loss"}).
+
+    Across the ranks of ``axis`` (a model axis) ``logits`` are this rank's
+    vocab columns from ``lo`` on: the log-sum-exp spans the ranks (the max
+    of the ranks' row maxima, then one sum of the rows' exponential sums
+    and of the label's logit, which the rank holding it gives), so no rank
+    holds the whole logits; the sum's gradient passes to every rank's
+    columns unchanged."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if axis is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        n = logits.shape[-1]
+        top = (logits.detach().amax(dim=-1) if n else
+               logits.new_full(logits.shape[:-1], -torch.inf))
+        top = axis.max(top.contiguous())
+        sums = torch.exp(logits - top[..., None]).sum(dim=-1)
+        idx = labels.long() - lo
+        mine = (idx >= 0) & (idx < n)
+        ll = (torch.gather(logits, -1, idx.clamp(0, max(n - 1, 0))[..., None])[..., 0]
+              if n else torch.zeros_like(sums))
+        both = axis.reduce(torch.stack([sums, torch.where(mine, ll, 0.0)], dim=-1))
+        lse = top + torch.log(both[..., 0])
+        ll = both[..., 1]
     nll = (lse - ll).mean()
     zl = (lse ** 2).mean()
     return nll + z_loss * zl, {"nll": nll, "z_loss": zl}
@@ -72,8 +94,12 @@ class ReproModel:
     (``ctx.tp``, :class:`~repro_torch.distributed.comm.ModelAxis`) of the
     tensor-parallel serving steps, over the rank's shard of the weights
     and pools that ``Engine(mesh=)`` hands it.  There the dense family
-    serves with a data axis of one; the other families, and training or a
-    full-sequence forward across ranks, are refused (ROADMAP A13)."""
+    serves with a data axis of one, and its full-sequence forward and loss
+    run on a ``(D, R)`` mesh (``ctx.dp``, the data ranks): each rank takes
+    its shard of the parameters under ``param_specs`` (FSDP: gathered
+    over the data ranks at each call, :meth:`gather_shards`) and of the
+    batch; the other families across a model axis are refused (ROADMAP
+    A13)."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,
                  hw: Optional[HardwareSpec] = None, device="cuda", mesh=None):
@@ -96,16 +122,104 @@ class ReproModel:
             if local and mesh.device_type != self.device.type:
                 raise ValueError(f"the mesh is over {mesh.device_type} devices, "
                                  f"the model on {self.device}")
+        dp = DataAxis.of(mesh) if local else None
+        self.mesh = mesh if local else None
         self.ctx = MatmulContext(policy=LayoutPolicy(run.layout_policy),
                                  hw=hw or query(self.device),
                                  propagate=run.propagate, mesh_axes=mesh_axes,
                                  dp_size=dp_size, tp_size=tp_size,
                                  moe_local=run.moe_local_dispatch,
                                  dp_local=local,
-                                 dp_group=(_data_group(mesh) if local and dp_size > 1
-                                           else None),
-                                 tp=ModelAxis.of(mesh) if local else None)
+                                 tp=ModelAxis.of(mesh) if local else None,
+                                 dp=dp)
         self.compute_dtype = getattr(torch, run.compute_dtype)
+
+    @property
+    def across_ranks(self) -> bool:
+        """Whether this process is one rank of several (a ``DeviceMesh``
+        with a model or a data axis of more than one rank)."""
+        return self.ctx.tp is not None or self.ctx.dp is not None
+
+    def shard_specs(self) -> dict:
+        """The parameter tree's specs on this model's mesh
+        (``sharding.param_specs`` of the whole tree's shapes, built on the
+        meta device), cached."""
+        if getattr(self, "_shard_specs", None) is None:
+            from repro_torch.distributed import sharding
+            self._shard_specs = sharding.param_specs(self.meta_params(),
+                                                     self.run, self.mesh)
+        return self._shard_specs
+
+    def meta_params(self) -> dict:
+        """The whole parameter tree's paths, shapes and dtypes on the meta
+        device (nothing allocated)."""
+        gen = MetaGenerator()
+        if self.cfg.family == "encdec":
+            return encdec_mod.encdec_init(
+                gen, self.cfg, self.run, max_src=max(self.enc_len, 8),
+                max_tgt=max(self.shape.seq_len, 8))
+        return tfm.lm_init(gen, self.cfg, self.run)
+
+    def fsdp_cuts(self) -> dict:
+        """``{path: (dim, lo, hi, total)}``: each leaf the rules cut over the
+        data ranks (FSDP), the dim, this rank's element range of it and its
+        extent (a linear's weight in whole tiles, as ``shard_params`` cuts
+        it); empty without a data axis or with ``run.fsdp`` off.  Cached."""
+        if getattr(self, "_fsdp_cuts", None) is not None:
+            return self._fsdp_cuts
+        from repro_torch.distributed import sharding
+        cuts = {}
+        if self.ctx.dp is not None:
+            dims = tuple(a for a in ("pod", "data")
+                         if axis_sizes(self.mesh).get(a, 1) > 1)
+            coord = sharding.mesh_coord(self.mesh)
+            specs = sharding.tree_paths(self.shard_specs())
+            for path, (leaf, units) in sharding.leaf_units(
+                    self.meta_params(), self.ctx.layout).items():
+                for d, entry in enumerate(sharding._full(specs[path], leaf.ndim)):
+                    axes = sharding._axes(entry)
+                    if not set(axes) & set(dims):
+                        continue
+                    if tuple(a for a in axes if a in dims) != dims or "model" in axes:
+                        raise NotImplementedError(
+                            f"{path}: a dim cut over {axes}; the port's FSDP "
+                            f"gathers over the data ranks {dims} alone")
+                    n = leaf.shape[d]
+                    lo, hi = sharding.unit_range(-(-n // units[d]), entry,
+                                                 self.mesh, coord)
+                    cuts[path] = (d, min(n, lo * units[d]), min(n, hi * units[d]), n)
+        self._fsdp_cuts = cuts
+        return cuts
+
+    def gather_shards(self, params: dict) -> dict:
+        """The parameters as this rank's products use them: every leaf FSDP
+        cuts over the data ranks (:meth:`fsdp_cuts`) gathered whole there,
+        one collective a dtype, whose gradient is reduce-scattered back
+        into the rank's shard (``DataAxis.gather_shards``); the model axis's
+        cuts (``w_split``) stay.  Without such cuts, ``params`` itself."""
+        cuts = self.fsdp_cuts()
+        if not cuts:
+            return params
+        from repro_torch.distributed import sharding
+        flat = sharding.tree_paths(params)
+        by_dtype = {}
+        for path, (d, lo, hi, n) in cuts.items():
+            t = flat.get(path)
+            if t is None:
+                raise KeyError(f"{path}: missing from the parameters")
+            if t.shape[d] != hi - lo:
+                raise ValueError(f"{path}: {tuple(t.shape)} is not this rank's "
+                                 f"FSDP shard ({hi - lo} of dim {d}'s {n}); "
+                                 f"across data ranks the model takes the "
+                                 f"shards of from_jax_params(mesh=)")
+            by_dtype.setdefault(t.dtype, []).append(path)
+        out = dict(flat)
+        for paths in by_dtype.values():
+            wholes = self.ctx.dp.gather_shards(
+                [flat[p] for p in paths],
+                [(cuts[p][0], cuts[p][1], cuts[p][3]) for p in paths])
+            out.update(zip(paths, wholes))
+        return sharding._unflatten_like(params, out)
 
     @property
     def text_len(self) -> int:
@@ -184,11 +298,14 @@ class ReproModel:
         come first).  Returns (logits [B, S, V] (vlm: [B, vision_tokens +
         S, V]), or [B, 1, V] for the last position with ``last_only``,
         aux)."""
-        if self.ctx.tp is not None:
-            raise NotImplementedError(
-                f"a full-sequence forward (training) across the ranks of a "
-                f"'model' axis: the port serves across ranks; ROADMAP "
-                f"{ACROSS_RANKS['train']}")
+        return self._forward(params, batch, last_only, True)
+
+    def _forward(self, params: dict, batch: dict, last_only: bool,
+                 gather: bool):
+        """:meth:`forward`; across ranks over the rank's shards (FSDP's
+        gathered first), the logits gathered whole over the model ranks
+        unless ``gather`` is False (then the rank's vocab columns)."""
+        params = self.gather_shards(params)
         if self.cfg.family == "encdec":
             tokens = torch.as_tensor(batch["tokens"], device=self.device)
             logits = encdec_mod.encdec_forward(
@@ -198,7 +315,8 @@ class ReproModel:
         x = self._embeds(params, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         logits, _, aux = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
-                                      positions=positions, last_only=last_only)
+                                      positions=positions, last_only=last_only,
+                                      gather_logits=gather)
         return logits, aux
 
     def loss(self, params: dict, batch: dict):
@@ -207,12 +325,18 @@ class ReproModel:
         The vlm family's vision positions carry no label.  A moe model adds
         ``router_aux_weight`` x the load balance and ``router_z_weight`` x
         the router z-loss, its aux losses (and ``dropped_frac``) among the
-        metrics."""
-        logits, aux = self.forward(params, batch)
+        metrics.  Across ranks: the loss of this rank's batch shard, over
+        its parameter shards; the head's logits stay split over the model
+        ranks, the cross-entropy spanning them (:func:`_xent`)."""
+        tp = self.ctx.tp
+        lo = (None if tp is None or self.cfg.family == "encdec"
+              else tfm.head_columns(params, self.ctx, self.cfg))
+        logits, aux = self._forward(params, batch, False, lo is None)
         if self.cfg.family == "vlm":
             logits = logits[:, self.cfg.vision_tokens:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
-        loss, metrics = _xent(logits, labels, self.run.z_loss)
+        loss, metrics = _xent(logits, labels, self.run.z_loss,
+                              None if lo is None else tp, lo)
         if self.cfg.moe:
             loss = (loss + self.cfg.router_aux_weight * aux["load_balance"]
                     + self.cfg.router_z_weight * aux["router_z"])
@@ -626,7 +750,7 @@ ACROSS_RANKS = {
                  "'model')",
     "prefix": "A13.5 (the prefix cache and speculative decode across ranks)",
     "nccl": "A13.6 (graph capture with NCCL on a host with a card a rank)",
-    "train": "A13.7 (a data-parallel trainer across ranks)",
+    "train": "A13.7 (the Trainer and checkpoints across ranks)",
     "static": "A13.8 (the static batch loop across ranks: encdec, vlm, "
               "generate_static)",
     "unpacked": "A13.9 (unpacked weights across ranks: prepack=False, the "
@@ -634,10 +758,11 @@ ACROSS_RANKS = {
 }
 
 
-def refuse_across_ranks(cfg: ModelConfig, ranks: int) -> None:
+def refuse_across_ranks(cfg: ModelConfig, ranks: int,
+                        where: Optional[str] = None) -> None:
     """Raise ``NotImplementedError``, naming its ROADMAP item, for a
-    config the port does not serve across a 'model' axis of ``ranks``
-    ranks: every family but the dense one."""
+    config the port does not serve or train across ``ranks`` ranks: every
+    family but the dense one."""
     what = None
     if any(t != "attn" for t in cfg.layer_types):
         what = "recurrent"
@@ -647,18 +772,10 @@ def refuse_across_ranks(cfg: ModelConfig, ranks: int) -> None:
         what = "static"
     if what is not None:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a 'model' axis of {ranks} ranks: "
-            f"the port serves the dense family across ranks; ROADMAP "
+            f"{cfg.name} ({cfg.family}) on "
+            f"{where or f'a {chr(39)}model{chr(39)} axis of {ranks} ranks'}: "
+            f"the port serves and trains the dense family across ranks; ROADMAP "
             f"{ACROSS_RANKS[what]}")
-
-
-def _data_group(mesh):
-    """The process group over a ``DeviceMesh``'s data ranks (its ``pod``
-    and ``data`` dims; its ``model`` dim has one rank)."""
-    dims = [a for a in ("pod", "data") if axis_sizes(mesh).get(a, 1) > 1]
-    if len(dims) == 1:
-        return mesh.get_group(dims[0])
-    return mesh[tuple(dims)]._flatten().get_group()
 
 
 class MetaGenerator(torch.Generator):

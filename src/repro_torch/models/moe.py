@@ -40,7 +40,7 @@ What differs from the JAX package, and why:
   ``constrain_blocks`` pins the blocks to the data axes for GSPMD and
   has no counterpart: a rank of a ``DeviceMesh`` (the local view) holds
   its own block, routes and dispatches it alone, and all-reduces only
-  the aux losses' terms over its data group (``ctx.dp_group``), so its
+  the aux losses' terms over its data group (``ctx.dp``), so its
   aux losses, and its gradients once averaged over the data ranks, are
   the global view's.
 
@@ -267,11 +267,11 @@ def moe_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
     me = probs.mean(0)                                         # mean router prob
     z = torch.mean(torch.logsumexp(logits, -1) ** 2)
     routed = t * k
-    if ctx.dp_local and ctx.dp_group is not None:
+    if ctx.dp_local and ctx.dp is not None:
         # the local view: the aux losses over every rank's tokens, as the
         # global view's over all its blocks (each rank holds t tokens)
         me, z, counts, kept, routed = _over_ranks(me, z, counts, kept, routed,
-                                                  ctx.dp_group)
+                                                  ctx.dp.group)
     ce = counts.float() / routed                               # dispatch fraction
     aux = {"load_balance": e * torch.sum(me * ce), "router_z": z,
            "dropped_frac": 1.0 - kept.float() / routed}

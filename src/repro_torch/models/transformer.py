@@ -28,7 +28,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.core.linear import MatmulContext, linear_apply, linear_init
+from repro_torch.core.linear import (MatmulContext, linear_apply, linear_init,
+                                     tp_enter)
 from repro_torch.core.propagation import PackedArray
 from repro_torch.models import attention, mamba, moe, rwkv6
 from repro_torch.models import mlp as mlp_mod
@@ -38,7 +39,8 @@ from repro_torch.models.common import (Stream, embed_init, maybe_pack,
 
 __all__ = ["pattern_period", "block_init", "block_apply", "group_init",
            "layers_init", "layers_apply", "lm_init", "lm_apply",
-           "logits_apply", "init_layer_caches", "init_paged_caches",
+           "logits_apply", "head_columns", "init_layer_caches",
+           "init_paged_caches",
            "tree_map", "AUX_ZERO"]
 
 # the aux losses of the MoE family, zero for every other family (and in the
@@ -248,18 +250,22 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_tokens: int,
         slots, dtype, device)
 
 
+class _Slices(tuple):
+    """A stacked leaf's G slices (a ``w_split`` tuple is no such leaf)."""
+
+
 def _unbind(tree):
     """Each tensor leaf ``[G, ...]`` as a tuple of its G slices (one view
     op per leaf, whose gradient is one stack)."""
     if isinstance(tree, dict):
         return {k: _unbind(v) for k, v in tree.items()}
-    return tree.unbind(0) if isinstance(tree, torch.Tensor) else tree
+    return _Slices(tree.unbind(0)) if isinstance(tree, torch.Tensor) else tree
 
 
 def _group(tree, g: int):
     if isinstance(tree, dict):
         return {k: _group(v, g) for k, v in tree.items()}
-    return tree[g] if isinstance(tree, tuple) else tree
+    return tree[g] if isinstance(tree, _Slices) else tree
 
 
 def _apply_group(x: Stream, gp: dict, ctx: MatmulContext, cfg: ModelConfig,
@@ -339,28 +345,56 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig, run: RunConfig) -> dic
     return p
 
 
+def _head_cut(ctx: MatmulContext, cfg: ModelConfig, dtype) -> Optional[tuple]:
+    """The tied head's vocab tiles ``[lo, hi)`` on this rank (None: whole)."""
+    if ctx.tp is None:
+        return None
+    from repro_torch.distributed.sharding import head_split
+    return head_split(cfg.vocab, cfg.d_model, ctx.tp.rank, ctx.tp.size,
+                      ctx.layout(dtype).n_r)
+
+
+def head_columns(params: dict, ctx: MatmulContext,
+                 cfg: ModelConfig) -> Optional[int]:
+    """The first vocab column of this rank's share of the logits that
+    :func:`logits_apply` computes with ``gather=False``; None where the
+    head is whole on every rank."""
+    if cfg.tie_embeddings:
+        e = params["embed"]["e"]
+        cut = _head_cut(ctx, cfg, e.dtype)
+        return None if cut is None else min(cut[0] * ctx.layout(e.dtype).n_r,
+                                            cfg.vocab)
+    split = params["lm_head"].get("w_split")
+    if split is None:
+        return None
+    n_r = ctx.layout(params["lm_head"]["w"].dtype).n_r
+    return min(split[1] * n_r, split[3])
+
+
 def logits_apply(params: dict, x: Stream, ctx: MatmulContext,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, gather: bool = True) -> torch.Tensor:
     """The head, column-parallel across ranks: an untied ``lm_head`` as its
     shard holds it; the tied head over the rank's vocab tiles of the
     (replicated) embedding table, cut by an ``lm_head``'s rule
     (:func:`repro_torch.distributed.sharding.head_split`); the logits
-    gathered whole on every rank."""
+    gathered whole on every rank, or with ``gather=False`` the rank's
+    columns (from :func:`head_columns`), for a loss across the ranks.  The
+    stream and the table enter the region (their gradients summed over
+    the ranks)."""
+    x = tp_enter(ctx, x)
     if cfg.tie_embeddings:
         # packs embed.T on every call: pack_rhs reads it back as the
         # contiguous [V, D] table, so no copy precedes the pack kernel
         e = params["embed"]["e"]
         head = {"w": e.T}
-        if ctx.tp is not None:
-            from repro_torch.distributed.sharding import head_split
+        cut = _head_cut(ctx, cfg, e.dtype)
+        if cut is not None:
             n_r = ctx.layout(e.dtype).n_r
-            cut = head_split(cfg.vocab, cfg.d_model, ctx.tp.rank, ctx.tp.size,
-                             n_r)
-            if cut is not None:
-                head = {"w": e[cut[0] * n_r:cut[1] * n_r].T,
-                        "w_split": ("col", *cut, cfg.vocab)}
-        return maybe_unpack(linear_apply(head, x, ctx, tp="col"))
-    return maybe_unpack(linear_apply(params["lm_head"], x, ctx, tp="col"))
+            head = {"w": ctx.tp.enter(e)[cut[0] * n_r:cut[1] * n_r].T,
+                    "w_split": ("col", *cut, cfg.vocab)}
+        return maybe_unpack(linear_apply(head, x, ctx, tp="col", gather=gather))
+    return maybe_unpack(linear_apply(params["lm_head"], x, ctx, tp="col",
+                                     gather=gather))
 
 
 def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
@@ -369,7 +403,8 @@ def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
              cache_pos: Optional[torch.Tensor] = None,
              paged: Optional[dict] = None,
              last_only: bool = False,
-             logits_at: Optional[torch.Tensor] = None):
+             logits_at: Optional[torch.Tensor] = None,
+             gather_logits: bool = True):
     """embeds: [B, S, D].  Returns (logits, caches, aux): logits [B, S, V];
     [B, 1, V] for the last position with ``last_only`` (serving prefill);
     or [B, K, V] at the per-row positions ``logits_at`` ([B] or [B, K]).
@@ -377,7 +412,9 @@ def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
     updated in place, in the dense-cache (``cache_pos``) and paged modes; ``aux`` the moe layers'
     aux losses summed over the layers in the train/prefill mode, else
     :data:`AUX_ZERO` (as in the JAX package).  ``run.remat`` recomputes each layer
-    group's forward on the backward pass (train mode)."""
+    group's forward on the backward pass (train mode).  Across ranks
+    ``gather_logits=False`` keeps each rank's vocab columns
+    (:func:`logits_apply`)."""
     x: Stream = maybe_pack(embeds, ctx)
     aux = dict(AUX_ZERO)
     x = layers_apply(params["groups"], x, ctx, cfg, positions=positions,
@@ -392,4 +429,4 @@ def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
         x = maybe_pack(xu[rows, idx], ctx)
     elif last_only:
         x = maybe_pack(maybe_unpack(x)[:, -1:, :], ctx)
-    return logits_apply(params, x, ctx, cfg), caches, aux
+    return logits_apply(params, x, ctx, cfg, gather_logits), caches, aux

@@ -12,6 +12,22 @@ own tensors, as the reference's donated state lets XLA do, so a CUDA graph
 of the step binds one state for good.  Every family trains: the recurrent
 mixers through the backward kernels of wkv6 and selective_scan, the moe
 experts through mmt4d's gradient kernels over the expert dim.
+
+Across ranks (a model built on a ``DeviceMesh``: the reference's dry-run
+train cell, ``make_train_step`` under ``state_specs`` and
+``batch_specs``) the state is the rank's shard (``from_jax_state(mesh=)``)
+and the step takes the global batch, of which each rank runs its shard
+under ``batch_specs`` (each microbatch's; one the data ranks do not
+divide is run whole on each, as the reference replicates it).  Each
+rank's loss is its shard's mean, its gradient taken at ``1 / D`` (D data
+ranks), so that the sums over the data ranks are the mean's: FSDP's
+gathers reduce-scatter the cut leaves' gradients in the backward
+(``ReproModel.gather_shards``), and one all-reduce over the data ranks
+sums every other leaf's.  The loss and the metrics are the data ranks'
+mean; the norm, the 8-bit moments and the compression span the shards
+(``optimizer.Ranks``).  The dense family only (the others name their
+ROADMAP item); the step runs eagerly: :class:`CompiledTrainStep` refuses
+a model across ranks (its gloo collectives cannot be captured).
 """
 
 from __future__ import annotations
@@ -23,9 +39,10 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs.base import RunConfig
-from repro_torch.models.model import capture_graph
+from repro_torch.models.model import (ACROSS_RANKS, capture_graph,
+                                      refuse_across_ranks)
 from repro_torch.training import compression
-from repro_torch.training.optimizer import AdamW, leaves, tree_map
+from repro_torch.training.optimizer import AdamW, Ranks, leaves, tree_map
 from repro_torch.training.train_state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
@@ -35,16 +52,22 @@ __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
 def _rebuild(tree, it):
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], it) for k in sorted(tree)}
-    return next(it)
+    return next(it) if isinstance(tree, torch.Tensor) else tree
 
 
-def value_and_grad(model, params, batch):
+def value_and_grad(model, params, batch, scale: float = 1.0):
     """((loss, metrics), grads) of ``model.loss`` at ``params``; the
-    parameters passed in are not modified and need no ``requires_grad``."""
+    parameters passed in are not modified and need no ``requires_grad``.
+    ``scale``: the gradients are of ``scale`` times the loss (a rank's
+    share of the data ranks' mean).  A leaf the loss does not read (a
+    rank's empty shard) gets a zero gradient."""
     ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, metrics = model.loss(ps, batch)
-        gs = torch.autograd.grad(loss, leaves(ps))
+        ls = leaves(ps)
+        gs = torch.autograd.grad(loss, ls, grad_outputs=torch.full_like(loss, scale),
+                                 allow_unused=True)
+    gs = [torch.zeros_like(p) if g is None else g for p, g in zip(ls, gs)]
     grads = _rebuild(ps, iter(gs))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), grads
@@ -56,35 +79,91 @@ def make_train_step(model, optimizer: AdamW, run: RunConfig) -> Callable:
     ``state'`` holds ``state``'s own tensors, updated in place, and the
     step ``state.step + 1``.  ``scalars``: ``optimizer.scalars(state.step)``
     on the model's device, made here when None (a captured step reads them
-    from a buffer its caller fills before each replay)."""
+    from a buffer its caller fills before each replay).  Across ranks
+    (module docstring) ``state`` is the rank's shard and ``batch`` the
+    global batch; ``train_step.grads_of(params, batch)`` gives the rank's
+    gradients and metrics alone."""
+    across = getattr(model, "across_ranks", False)
+    dp = model.ctx.dp if across else None
+    ranks = None
+    if across:
+        sizes = (1 if dp is None else dp.size,
+                 1 if model.ctx.tp is None else model.ctx.tp.size)
+        refuse_across_ranks(model.cfg, sizes[0] * sizes[1],
+                            where=f"a (data, model) = {sizes} mesh")
+        ranks = Ranks(dp, model.ctx.tp, model.shard_specs())
+    scale = 1.0 if dp is None else 1.0 / dp.size
+
+    def local(mb):
+        """The rank's rows of a (micro)batch under ``batch_specs``."""
+        if dp is None:
+            return mb
+        out = {}
+        for k, v in mb.items():
+            v = torch.as_tensor(v)
+            b = v.shape[0]
+            if b % dp.size == 0 and b >= dp.size:
+                v = v[dp.rank * (b // dp.size):(dp.rank + 1) * (b // dp.size)]
+            out[k] = v
+        return out
 
     def grads_of(params, batch):
         n = run.microbatch
         if n <= 1:
-            (_, metrics), grads = value_and_grad(model, params, batch)
-            return grads, metrics
-        b = next(iter(batch.values())).shape[0]
-        micro = [{k: v.reshape(n, b // n, *v.shape[1:])[i] for k, v in batch.items()}
-                 for i in range(n)]
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
-        for mb in micro:
-            (_, metrics), g = value_and_grad(model, params, mb)
-            acc = tree_map(lambda a, g_: a + g_.float() / n, acc, g)
-        return acc, metrics
+            (_, metrics), grads = value_and_grad(model, params, local(batch), scale)
+        else:
+            b = next(iter(batch.values())).shape[0]
+            micro = [{k: v.reshape(n, b // n, *v.shape[1:])[i]
+                      for k, v in batch.items()} for i in range(n)]
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            for mb in micro:
+                (_, metrics), g = value_and_grad(model, params, local(mb), scale)
+                grads = tree_map(lambda a, g_: a + g_.float() / n, grads, g)
+        if dp is not None:
+            _sum_replicated(model, grads, dp)
+            metrics = _mean_over(metrics, dp)
+        return grads, metrics
 
     def train_step(state: TrainState, batch, scalars: Optional[torch.Tensor] = None):
         if scalars is None:
             scalars = optimizer.scalars(state.step, model.device)
         grads, metrics = grads_of(state.params, batch)
         if run.grad_compression:
-            grads, _ = compression.compress_with_feedback(grads, state.opt_state["err"])
+            grads, _ = compression.compress_with_feedback(
+                grads, state.opt_state["err"], ranks)
         _, _, opt_metrics = optimizer.update(grads, state.opt_state, state.params,
-                                             scalars)
+                                             scalars, ranks=ranks)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=state.opt_state), {**metrics, **opt_metrics}
 
+    train_step.grads_of = grads_of
     return train_step
+
+
+def _sum_replicated(model, grads, dp) -> None:
+    """Sum over the data ranks, in place, every gradient leaf the data
+    ranks do not cut (FSDP's cut leaves were reduce-scattered in the
+    backward): one all-reduce a dtype, over their concatenation."""
+    from repro_torch.distributed import sharding
+    cut = model.fsdp_cuts()
+    by_dtype = {}
+    for path, g in sharding.tree_paths(grads).items():
+        if isinstance(g, torch.Tensor) and path not in cut:
+            by_dtype.setdefault(g.dtype, []).append(g)
+    for gs in by_dtype.values():
+        flat = dp.sum_(torch.cat([g.reshape(-1) for g in gs]))
+        for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+            g.copy_(part.view(g.shape))
+
+
+def _mean_over(metrics: dict, dp) -> dict:
+    """The data ranks' mean of each 0-d metric, in one collective."""
+    keys = sorted(metrics)
+    dev = next(v.device for v in metrics.values() if isinstance(v, torch.Tensor))
+    vals = dp.sum_(torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
+                                                device=dev) for k in keys]))
+    return {k: v / dp.size for k, v in zip(keys, vals.unbind())}
 
 
 def make_eval_step(model) -> Callable:
@@ -136,6 +215,12 @@ class CompiledTrainStep:
     the eager step.  Dropping the step frees its graphs and their pool."""
 
     def __init__(self, model, optimizer: AdamW, run: RunConfig):
+        if getattr(model, "across_ranks", False):
+            raise NotImplementedError(
+                f"a compiled train step across ranks: a gloo collective "
+                f"cannot be captured, and capture with NCCL is ROADMAP "
+                f"{ACROSS_RANKS['nccl']}; make_train_step runs the step "
+                f"eagerly")
         self.model = model
         self.optimizer = optimizer
         self.run = run

@@ -70,6 +70,12 @@ class Trainer:
         self.log = log_fn
         self.optimizer = make_optimizer(run, total_steps)
         self.fingerprint = fingerprint_of(model.cfg, run)
+        if getattr(model, "across_ranks", False):
+            from repro_torch.models.model import ACROSS_RANKS
+            raise NotImplementedError(
+                f"a Trainer across ranks: make_train_step trains the rank's "
+                f"shards; the Trainer and its checkpoints across ranks are "
+                f"ROADMAP {ACROSS_RANKS['train']}")
         self.step_fn = CompiledTrainStep(model, self.optimizer, run)
         self.ewma_ms: Optional[float] = None
         self.straggler_events = 0

@@ -12,7 +12,11 @@ Across ranks (``mesh=``), :func:`from_jax_params` gives one rank its own
 shard of a parameter tree (``distributed/sharding.py:shard_params``
 under ``param_specs``: every linear cut in whole tiles, with its
 ``w_split``): only the shard is copied to ``device``, and
-``Engine(mesh=)`` serves it as it is.
+``Engine(mesh=)`` serves it as it is; :func:`from_jax_state` gives a
+rank its shard of a train state (``sharding.shard_state`` under
+``state_specs``), which ``make_train_step`` trains across ranks, and
+:func:`~repro_torch.distributed.sharding.unshard_state` puts the ranks'
+shards back together.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "from_jax_state"]
+from repro_torch.distributed.sharding import unshard_state
+
+__all__ = ["from_jax_params", "from_jax_state", "unshard_state"]
 
 
 def _leaf(a: np.ndarray, device) -> torch.Tensor:
@@ -52,9 +58,27 @@ def from_jax_params(tree, device="cpu", *, mesh=None, run=None,
     return tree_map(lambda t: t.to(device, copy=True), local)
 
 
-def from_jax_state(step, params, opt_state, device="cpu"):
+def from_jax_state(step, params, opt_state, device="cpu", *, mesh=None,
+                   run=None, layout_of=None):
     """The port's ``TrainState`` from the JAX package's ``TrainState``
-    fields, each leaf a numpy array (``step`` a 0-d array or an int)."""
+    fields, each leaf a numpy array (``step`` a 0-d array or an int).
+
+    With ``mesh`` (and the model's ``run`` and ``layout_of``): this rank's
+    shard of the state under ``state_specs``, at the process's coordinate
+    on the ``DeviceMesh``, as :func:`from_jax_params`
+    gives a rank its parameters; only the shard is copied to ``device``."""
     from repro_torch.training.train_state import TrainState
-    return TrainState(step=int(step), params=from_jax_params(params, device),
-                      opt_state=from_jax_params(opt_state, device))
+    if mesh is None:
+        return TrainState(step=int(step), params=from_jax_params(params, device),
+                          opt_state=from_jax_params(opt_state, device))
+    from repro_torch.distributed import sharding
+    from repro_torch.models.transformer import tree_map
+    whole = from_jax_state(step, params, opt_state, "cpu")
+    local = sharding.shard_state(whole, run, mesh, sharding.mesh_coord(mesh),
+                                 layout_of)
+    return TrainState(step=local.step,
+                      params=tree_map(lambda t: t.to(device, copy=True),
+                                      local.params),
+                      opt_state=tree_map(lambda t: t.to(device, copy=True),
+                                         local.opt_state))
+

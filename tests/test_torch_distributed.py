@@ -189,12 +189,15 @@ def test_model_refuses_a_tensor_parallel_device_mesh():
             build_model(reduced_config(get_config("qwen3-moe-235b-a22b"), layers=2),
                         RunConfig(**F32), ShapeSpec("serve", 64, 3, "decode"),
                         device="cpu", mesh=mesh)
-        # the dense family serves across the ranks; its forward is refused
+        # the dense family serves and trains across the ranks; the Trainer
+        # across ranks is refused
         m = build_model(reduced_config(get_config("smollm2-135m"), layers=2),
                         RunConfig(**F32), ShapeSpec("serve", 64, 3, "decode"),
                         device="cpu", mesh=mesh)
         assert (m.ctx.tp.rank, m.ctx.tp.size) == (0, 2)
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.training.trainer import Trainer
         with pytest.raises(NotImplementedError, match="A13.7"):
-            m.forward({}, {"tokens": np.zeros((1, 4), np.int32)})
+            Trainer(m, SyntheticLM(m.cfg, m.shape, seed=0), RunConfig(**F32))
     finally:
         dist.destroy_process_group()

@@ -499,8 +499,9 @@ REFUSED = {
     "speculative": ("A13.5", lambda mk, p: _engine(p, mk((1, 2)), spec_tokens=2,
                                                    chunk_tokens=16)),
     "capture": ("A13.6", lambda mk, p: _capture(p, mk((1, 2)))),
-    "forward": ("A13.7", lambda mk, p: _model(None, mk((1, 2))).forward(
-        p, {"tokens": np.zeros((1, 4), np.int32)})),
+    # the full-sequence forward and the train step run across ranks
+    # (test_torch_tp_train.py); what stays of A13.7 is the Trainer
+    "forward": ("A13.7", lambda mk, p: _trainer(_model(None, mk((1, 2))))),
     "whisper": ("A13.8", lambda mk, p: _model("whisper-small", mk((1, 2)))),
     "internvl2": ("A13.8", lambda mk, p: _model("internvl2-26b", mk((1, 2)))),
     "generate-static": ("A13.8", lambda mk, p: _engine(p, mk((1, 2))).generate_static(
@@ -515,6 +516,12 @@ def _engine_run(params, mesh, run):
     m = build_model(W.config(), RunConfig(**{**W.F32, **run}), ShapeSpec(*W.SHAPE),
                     device="cpu", mesh=mesh)
     return Engine(m, params, device="cpu", mesh=mesh, max_slots=3, page_tokens=8)
+
+
+def _trainer(model):
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.trainer import Trainer
+    return Trainer(model, SyntheticLM(model.cfg, model.shape, seed=0), model.run)
 
 
 def _capture(params, mesh):
