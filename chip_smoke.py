@@ -15,8 +15,10 @@ jamba-v0.1-52B at full width, cut in whole periods, through the
 selective_scan kernel; trains them; runs the distributed path on a
 mesh of one card (the dry-run of every cell, an Engine on a one-rank
 NCCL mesh, moe's per-shard dispatch); serves Qwen3-8B across two
-rank processes on the card (a (1, 2) mesh over gloo); and trains
-SmolLM2-135M across four (a (2, 2) mesh, FSDP over data):
+rank processes on the card (a (1, 2) mesh over gloo); trains
+SmolLM2-135M across four (a (2, 2) mesh, FSDP over data); and runs the
+static loop's decode step across four (a (2, 2) mesh, the caches'
+windows over the ranks):
 
   1. the card (nvidia-smi name and power limit); TF32 off;
   2. the kernel build and its seconds, the graph phase's imports
@@ -357,6 +359,26 @@ SmolLM2-135M across four (a (2, 2) mesh, FSDP over data):
      (mmt4d, pack, unpack and both gradient kernels, no ragged_attn);
      printed: the collectives and bytes a rank a step, the ms a step,
      the GiB held a rank, the phase's wall;
+ 20d. the static loop across ranks (the reference's decode cell): mmt4d
+     at a rank's decode shapes (the gate's column half, the down
+     product's float32 partial), f32, against their plain versions; then 4
+     rank processes on this card over gloo (``--decode-tp-rank``;
+     ``decode_tp_rank_main``): the dense-cache ``decode_step`` on a
+     ("data", "model") = (2, 2) mesh, each rank with its shard of the
+     weights and its windows of the caches (``cache_specs``), f32 with
+     FSDP off: SmolLM2-135M whole at seq 2048, batch 4 (over data, the
+     sequence over model) and 1 (the sequence over data x model), a
+     1536-token prefill and 4 decode steps; whisper-small whole at batch
+     1; InternVL2's language model at 1 layer, batch 4; every logit of
+     the prefill's last 16 positions and of every decode step within
+     F32_MARGIN of the one-rank run's (made in this process while the
+     ranks start), the wrapper counts set to 0 just before each run and
+     read just after (mmt4d and pack, no ragged_attn); then
+     ``Engine(mesh=(1, 4)).generate_static`` of SmolLM2-135M in bf16
+     (seq 1024, 4 x 768 prompt tokens, 4 new), every rank's tokens the same and
+     its picks held to the one-rank engine's under BF16_MARGIN; printed:
+     the collectives and bytes a rank a step, ms a step beside one
+     rank's, the GiB held a rank, the launches a call, the phase's wall;
  21. the kernels JSON line (launches from the main path of each kernel: the
      flat drain for the serving kernels, the 20-step bf16 training run for
      the gradient kernels, the RWKV-6 1.6B drain for wkv6, jamba's first
@@ -5523,6 +5545,44 @@ def tp_first_and_picks(eng, prompts, new) -> tuple:
     return first[0], picks.picks, time.perf_counter() - t0
 
 
+def run_ranks(flag: str, world: int, out: str, label: str, timeout: float,
+              reference=None) -> tuple:
+    """Start ``world`` processes of this script, each one rank (``flag r
+    --tp-world world --tp-dir D``, D a directory made here), run
+    ``reference(D)`` here while they start, wait for each (at most
+    ``timeout`` s), print its log and raise if one exited with another code
+    than 0; every process ended on the way out.  Returns (each rank's
+    ``D/<out><r>.json``, what ``reference`` returned)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   flag, str(r), "--tp-world", str(world),
+                                   "--tp-dir", d], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        try:
+            ref = reference(d) if reference is not None else None
+            logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                print(f"    [rank {r}] {line}")
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            raise AssertionError(f"{label}: ranks {failed} exited "
+                                 f"{[procs[r].returncode for r in failed]}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f"{out}{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks, ref
+
+
 def tp_rank_main(rank: int, world: int, d: str) -> int:
     """One rank of the serving-across-ranks phase (``--tp-rank``), on the
     one card: a gloo process group (a FileStore in ``d``), the (1, world)
@@ -5634,7 +5694,6 @@ def tp_phase(card, checks, qwen) -> tuple:
     ragged_attn in its partial form only, nothing captured.  Returns
     (results, launches by path)."""
     import gc
-    import tempfile
     t0 = time.perf_counter()
     for dtype in (BF, TF):
         for half in (0, 1):
@@ -5652,28 +5711,7 @@ def tp_phase(card, checks, qwen) -> tuple:
     torch.cuda.empty_cache()
     held0 = torch.cuda.memory_allocated()
     t1 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        env = dict(os.environ, OMP_NUM_THREADS="2")
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--tp-rank", str(r), "--tp-world", str(TP_WORLD),
-                                   "--tp-dir", d], env=env, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for r in range(TP_WORLD)]
-        try:
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            for line in log.splitlines():
-                print(f"    [rank {r}] {line}")
-            if p.returncode != 0:
-                raise AssertionError(f"serving across ranks: rank {r} exited "
-                                     f"{p.returncode}")
-        ranks = [json.load(open(os.path.join(d, f"rank{r}.json")))
-                 for r in range(TP_WORLD)]
+    ranks, _ = run_ranks("--tp-rank", TP_WORLD, "rank", "serving across ranks", 600)
     wall = time.perf_counter() - t1
     r0 = ranks[0]
     for r in ranks[1:]:
@@ -5943,36 +5981,14 @@ def train_tp_phase(card, checks) -> tuple:
     shard the one-rank state's slice; every rank's losses
     the same; mmt4d, pack and both gradient kernels launched on every
     rank, ragged_attn not.  Returns (results, launches by path)."""
-    import tempfile
     t0 = time.perf_counter()
     for m, k, n, act, label in TRAIN_TP_GRADS:
         checks.grads(TF, m, k, n, act, label)
     kernels_s = time.perf_counter() - t0
     world = TRAIN_TP_MESH[0] * TRAIN_TP_MESH[1]
     t1 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        env = dict(os.environ, OMP_NUM_THREADS="2")
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--train-tp-rank", str(r), "--tp-world", str(world),
-                                   "--tp-dir", d], env=env, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for r in range(world)]
-        try:
-            ref_s = train_tp_reference(d)       # while the ranks start
-            logs = [p.communicate(timeout=400)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            for line in log.splitlines():
-                print(f"    [rank {r}] {line}")
-            if p.returncode != 0:
-                raise AssertionError(f"training across ranks: rank {r} exited "
-                                     f"{p.returncode}")
-        ranks = [json.load(open(os.path.join(d, f"train{r}.json")))
-                 for r in range(world)]
+    ranks, ref_s = run_ranks("--train-tp-rank", world, "train", "training across ranks",
+                             400, train_tp_reference)
     wall = time.perf_counter() - t1
     r0 = ranks[0]
     for r in ranks:
@@ -6011,6 +6027,347 @@ def train_tp_phase(card, checks) -> tuple:
            "ranks_wall_s": wall, "kernel_checks_s": kernels_s, "reference_s": ref_s,
            "card": card, "layers": layers}
     return res, {f"train f32 {TRAIN_TP_MESH} ranks": r0["launches"]}
+
+
+# the static loop across ranks (the reference's decode cell): 4 processes on
+# the one card over gloo, a ("data", "model") = (2, 2) mesh for the
+# dense-cache decode step and a (1, 4) mesh for Engine(mesh=).generate_static.
+# decode_32k (seq 32768, batch 128) cut to seq 2048 and to batch 4 (over
+# data, the sequence over model: windows of 1024) and batch 1 (the
+# sequence over data x model: windows of 512): a 1536-token prompt and 4
+# decode steps write positions in every window (each decode step a rank
+# makes 121 gloo collectives, 0.35-0.6 s on this card: 32 steps of both
+# batches would take the phase past its minute).  FSDP off: its
+# per-call gather of the whole f32 tree over gloo would cost 540 MB a
+# call here (the CPU tests run it on)
+DECODE_TP_MESH, DECODE_TP_GEN_MESH = (2, 2), (1, 4)
+DECODE_TP_SEQ, DECODE_TP_PROMPT, DECODE_TP_STEPS = 2048, 1536, 4
+# generate_static on DECODE_TP_GEN_MESH: seq 1024 (windows of 256), a
+# 768-token prompt, 4 new tokens (the last window's)
+DECODE_TP_GEN_SEQ, DECODE_TP_GEN_PROMPT, DECODE_TP_GEN_NEW = 1024, 768, 4
+DECODE_TP_TAIL = 16     # the prefill's last positions whose logits are compared
+# (label, arch, layers (None: all), batch, seq, prompt, decode steps): the
+# f32 runs of the decode step on DECODE_TP_MESH, each held to one rank
+DECODE_TP_RUNS = (
+    ("smollm2-135m b4", "smollm2-135m", None, 4, DECODE_TP_SEQ, DECODE_TP_PROMPT,
+     DECODE_TP_STEPS),
+    ("smollm2-135m b1", "smollm2-135m", None, 1, DECODE_TP_SEQ, DECODE_TP_PROMPT,
+     DECODE_TP_STEPS),
+    # whisper's 448 decoder positions over 112 encoder frames
+    ("whisper-small b1", "whisper-small", None, 1, 448, 64, DECODE_TP_STEPS),
+    # InternVL2's language model at its f32 depth: 256 patches + 256 tokens
+    ("internvl2-26b 1 layer b4", "internvl2-26b", VLM_F32_LAYERS, 4, 1024, 256,
+     DECODE_TP_STEPS))
+
+
+def decode_tp_model(arch, layers, batch, seq, dtype=TF, mesh=None):
+    from repro_torch.configs import RunConfig, ShapeSpec, get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    name = str(dtype)[6:]
+    run = RunConfig(param_dtype=name, compute_dtype=name, fsdp=False)
+    return build_model(cfg, run, ShapeSpec("serve", seq, batch, "decode"),
+                       device="cuda", mesh=mesh)
+
+
+def decode_tp_inputs(cfg, batch, seq, prompt, steps) -> dict:
+    """A run's inputs, the same in every process: the prompt, the decode
+    steps' tokens (given, not picked: the logits of every step are held
+    to one rank's), whisper's frames, the vlm's patches."""
+    rng = np.random.default_rng(11 + batch)
+    x = {"tokens": rng.integers(0, cfg.vocab, (batch, prompt)).astype(np.int32),
+         "decode": rng.integers(0, cfg.vocab, (batch, steps)).astype(np.int32)}
+    if cfg.family == "encdec":
+        x["frames"] = rng.standard_normal(
+            (batch, seq // cfg.audio_downsample, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        x["patches"] = rng.standard_normal(
+            (batch, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    return x
+
+
+def decode_tp_params(model, mesh=None):
+    """The run's weights (a generator on the model's device, seed 0: the
+    same draws in every process on the card), prepacked; on ``mesh`` the
+    rank's shard."""
+    from repro_torch.core.linear import prepack_params
+    from repro_torch.distributed import sharding
+    whole = model.init(torch.Generator(device=model.device).manual_seed(0))
+    if mesh is not None:
+        whole = sharding.shard_params(whole, sharding.param_specs(whole, model.run,
+                                                                  mesh),
+                                      mesh, sharding.mesh_coord(mesh),
+                                      model.ctx.layout)
+    return prepack_params(whole, model.ctx, consume=True)
+
+
+def decode_tp_calls(model, params, x, steps) -> dict:
+    """``prefill_cache``, the prefill at 0 (vlm: the patches' embeddings
+    before the prompt's) and ``steps`` decode steps through
+    ``decode_step``, each timed alone (host clock, synchronised): the
+    logits of the prefill's last DECODE_TP_TAIL positions and of every
+    decode step (the rank's rows, on the host), the ms, the collectives
+    and bytes of the decode steps (the rank's), the bytes held."""
+    dev = model.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches = model.prefill_cache(params, x)
+    tokens, embeds = x["tokens"], None
+    if model.cfg.family == "vlm":
+        embeds = model._embeds(model.gather_shards(params), x)
+        tokens = np.zeros(embeds.shape[:2], np.int32)
+    with torch.no_grad():
+        logits, _ = model.decode_step(params, caches, torch.as_tensor(tokens, device=dev),
+                                      torch.zeros((), dtype=torch.int32, device=dev),
+                                      embeds)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        tail = logits[:, -DECODE_TP_TAIL:].float().cpu()
+        del logits
+        held = torch.cuda.memory_allocated()
+        axes = lambda: model.rank_axes                      # noqa: E731
+        calls0 = sum(a.calls for a in axes())
+        bytes0 = sum(a.bytes for a in axes())
+        rows, ms = [], []
+        for i in range(steps):
+            tok = torch.as_tensor(x["decode"][:, i:i + 1], device=dev)
+            pos = torch.full((), tokens.shape[1] + i, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = model.decode_step(params, caches, tok, pos)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            rows.append(out[:, 0].float().cpu())
+    win = getattr(caches, "window", None)
+    return {"tail": tail, "decode": torch.stack(rows, 1), "prefill_ms": prefill_ms,
+            "step_ms": ms, "held_bytes": held,
+            "collectives_per_step": (sum(a.calls for a in axes()) - calls0) / steps,
+            "bytes_per_step": (sum(a.bytes for a in axes()) - bytes0) / steps,
+            "rows": None if win is None else win.rows,
+            "window": None if win is None or win.seq is None
+            else (win.seq.lo, win.seq.axis.size)}
+
+
+def decode_tp_gen_prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng(13).integers(
+        0, vocab, (4, DECODE_TP_GEN_PROMPT)).astype(np.int32)
+
+
+def decode_tp_generate(mesh=None) -> dict:
+    """SmolLM2-135M whole in bf16 through ``Engine(mesh=).generate_static``
+    (one rank without ``mesh``): 4 prompts of DECODE_TP_GEN_PROMPT tokens,
+    DECODE_TP_GEN_NEW new, greedy; its tokens, its picks with their top-2
+    margins, the ms of each model call (CUDA events) and the wall."""
+    from repro_torch.serving.engine import Engine
+    m = decode_tp_model("smollm2-135m", None, 4, DECODE_TP_GEN_SEQ, BF, mesh)
+    eng = Engine(m, m.init(torch.Generator(device="cuda").manual_seed(0)),
+                 device="cuda", mesh=mesh, max_slots=4)
+    rec = eng._decode_step = StaticRecorder(eng._decode_step, True)
+    rec.reset(rows=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate_static({"tokens": decode_tp_gen_prompts(m.cfg.vocab)},
+                              DECODE_TP_GEN_NEW)
+    wall = time.perf_counter() - t0
+    ms = rec.ms() or [0.0, 0.0]
+    return {"tokens": out.tolist(), "wall_s": wall, "prefill_ms": ms[0],
+            "step_ms": ms[1:],
+            "picks": {f"{b},{j}": v for (b, j), v in static_picks(out, rec.rows).items()},
+            "collectives": sum(a.calls for a in m.rank_axes),
+            "bytes": sum(a.bytes for a in m.rank_axes)}
+
+
+def decode_tp_reference(d: str) -> tuple:
+    """The one-rank runs on the card, here while the ranks start: each of
+    DECODE_TP_RUNS (``d/ref<i>.pt``: the prefill's tail and every decode
+    step's logits, every row) and the bf16 generate_static; then
+    ``d/ref.done``.  Returns (its seconds, the generate_static's
+    results)."""
+    import gc
+    t0 = time.perf_counter()
+    for i, (_, arch, layers, batch, seq, prompt, steps) in enumerate(DECODE_TP_RUNS):
+        m = decode_tp_model(arch, layers, batch, seq)
+        r = decode_tp_calls(m, decode_tp_params(m),
+                            decode_tp_inputs(m.cfg, batch, seq, prompt, steps), steps)
+        torch.save({k: r[k] for k in ("tail", "decode", "prefill_ms", "step_ms")},
+                   os.path.join(d, f"ref{i}.pt"))
+        del m, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    gen = decode_tp_generate()
+    open(os.path.join(d, "ref.done"), "w").close()
+    return time.perf_counter() - t0, gen
+
+
+def decode_tp_rank_main(rank: int, world: int, d: str) -> int:
+    """One rank of the static-loop-across-ranks phase
+    (``--decode-tp-rank``), on the one card: a gloo process group (a
+    FileStore in ``d``), the DECODE_TP_MESH and DECODE_TP_GEN_MESH meshes.
+    After the one-rank runs (``decode_tp_reference``, which the phase
+    makes while the ranks start: the runs are timed alone on the card),
+    each run of DECODE_TP_RUNS with its shard of the weights and its
+    windows of the caches, the wrapper counts set to 0 just before it and
+    read just after, its logits held to one rank's within F32_MARGIN of
+    their largest; then the bf16 generate_static on DECODE_TP_GEN_MESH;
+    writes ``d/decode<r>.json``."""
+    import gc
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)            # every rank on the one card
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "store"),
+                                                          world),
+                            rank=rank, world_size=world)
+    try:
+        names = ("data", "model")
+        mesh = init_device_mesh("cuda", DECODE_TP_MESH, mesh_dim_names=names)
+        gen_mesh = init_device_mesh("cuda", DECODE_TP_GEN_MESH, mesh_dim_names=names)
+        out = {"rank": rank, "coord": list(mesh.get_coordinate()), "runs": {},
+               "setup_s": time.perf_counter() - t_start}
+        for i, (label, arch, layers, batch, seq, prompt, steps) in enumerate(DECODE_TP_RUNS):
+            t0 = time.perf_counter()
+            m = decode_tp_model(arch, layers, batch, seq, mesh=mesh)
+            params = decode_tp_params(m, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            x = decode_tp_inputs(m.cfg, batch, seq, prompt, steps)
+            if i == 0:          # the runs timed alone on the card
+                t1 = time.perf_counter()
+                while not os.path.exists(os.path.join(d, "ref.done")):
+                    if time.perf_counter() - t1 > 300:
+                        raise AssertionError(f"rank {rank}: no one-rank reference "
+                                             f"after 300 s")
+                    time.sleep(0.1)
+                out["ref_wait_s"] = time.perf_counter() - t1
+            dist.barrier()
+            kernels.reset_launch_counts()
+            r = decode_tp_calls(m, params, x, steps)
+            launches = kernels.launch_counts()
+            partials = kernels.counters()["mmt4d.partials"]
+            ref = torch.load(os.path.join(d, f"ref{i}.pt"))
+            lo, hi = r["rows"]
+            top = max(1.0, float(ref["tail"].abs().max()), float(ref["decode"].abs().max()))
+            err = max(float((r["tail"] - ref["tail"][lo:hi]).abs().max()),
+                      float((r["decode"] - ref["decode"][lo:hi]).abs().max()))
+            if not (np.isfinite(err) and err <= F32_MARGIN * top):
+                raise AssertionError(f"rank {rank} {label}: logits {err} from one "
+                                     f"rank's (tolerance {F32_MARGIN} x {top})")
+            out["runs"][label] = {
+                "err": err, "scale": top, "rows": r["rows"], "window": r["window"],
+                "prefill_ms": r["prefill_ms"], "step_ms": r["step_ms"],
+                "one_rank_prefill_ms": ref["prefill_ms"],
+                "one_rank_step_ms": ref["step_ms"], "held_bytes": r["held_bytes"],
+                "collectives_per_step": r["collectives_per_step"],
+                "bytes_per_step": r["bytes_per_step"], "launches": launches,
+                "partials": partials,
+                "calls": 1 + steps, "wall_s": time.perf_counter() - t0}
+            del m, params, r, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        gen = decode_tp_generate(gen_mesh)
+        gen["launches"] = kernels.launch_counts()
+        out["generate"] = gen
+        with open(os.path.join(d, f"decode{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def check_decode_launches(label, launches) -> None:
+    """The dense-cache decode path across ranks: mmt4d and pack launched,
+    neither form of ragged_attn (the dense cache attends through PyTorch,
+    as the reference's ``core_attention`` does outside Pallas), no
+    gradient or recurrent kernel."""
+    for k, n in launches.items():
+        if (k in ("mmt4d", "pack") and n == 0) \
+                or (k not in ("mmt4d", "pack", "unpack") and n != 0):
+            raise AssertionError(f"{label}: {k} launched {n} times")
+
+
+def decode_tp_phase(card, checks) -> tuple:
+    """The static loop across ranks on the one card: mmt4d at a rank's
+    shapes of the decode step (the gate's column half and the down
+    product's float32 partial, SmolLM2-135M f32, 8 rows) against their
+    plain versions (here); then 4 rank processes over gloo
+    (``decode_tp_rank_main``): each run of DECODE_TP_RUNS on the (2, 2)
+    mesh, every logit within F32_MARGIN of the one-rank run's
+    (``decode_tp_reference``, here while the ranks start), the ranks'
+    logits the same at the same rows; the bf16 generate_static on (1, 4),
+    every rank's tokens the same and its picks held to one rank's under
+    BF16_MARGIN.  Returns (results, launches by path)."""
+    t0 = time.perf_counter()
+    checks.mmt4d(TF, 8, 576, 768, "silu", "gate decode, rank's N/2")
+    checks.mmt4d_partial(TF, 8, 768, 576, "down decode, rank's K/2, partial")
+    kernels_s = time.perf_counter() - t0
+    world = DECODE_TP_MESH[0] * DECODE_TP_MESH[1]
+    t1 = time.perf_counter()
+    ranks, (ref_s, one_gen) = run_ranks("--decode-tp-rank", world, "decode",
+                                        "the static loop across ranks", 400,
+                                        decode_tp_reference)
+    wall = time.perf_counter() - t1
+    r0 = ranks[0]
+    for r in ranks:
+        for label, run in r["runs"].items():
+            check_decode_launches(f"{label} rank {r['rank']}", run["launches"])
+        check_decode_launches(f"generate_static rank {r['rank']}",
+                              r["generate"]["launches"])
+        if r["generate"]["tokens"] != r0["generate"]["tokens"]:
+            raise AssertionError("generate_static across ranks: the ranks' "
+                                 "tokens differ")
+    picks = {tuple(map(int, k.split(","))): tuple(v)
+             for k, v in r0["generate"]["picks"].items()}
+    one = {tuple(map(int, k.split(","))): tuple(v) for k, v in one_gen["picks"].items()}
+    vs_one = compare_picks(one, picks, BF16_MARGIN,
+                           f"smollm2-135m bf16 generate_static, (1, 4) ranks vs 1")
+    print(f"  the static loop across ranks: {world} processes share one card over "
+          f"gloo, the decode step on a (data, model) = {DECODE_TP_MESH} mesh (f32, "
+          f"FSDP off, seq {DECODE_TP_SEQ}), generate_static on {DECODE_TP_GEN_MESH} "
+          f"(bf16) ({card})")
+    for label, *_ in DECODE_TP_RUNS:
+        for r in ranks:
+            run = r["runs"][label]
+            calls = run["calls"]
+            print(f"    {label} rank {r['rank']} {tuple(r['coord'])}: rows "
+                  f"{run['rows']}, sequence window {run['window']}; logits within "
+                  f"{run['err']:.3e} of one rank's (scale {run['scale']:.3f}); "
+                  f"prefill {run['prefill_ms']:.3f} ms (one rank "
+                  f"{run['one_rank_prefill_ms']:.3f}), "
+                  f"{float(np.mean(run['step_ms'])):.3f} ms a decode step (one "
+                  f"rank {float(np.mean(run['one_rank_step_ms'])):.3f}); "
+                  f"{run['collectives_per_step']:.1f} collectives, "
+                  f"{run['bytes_per_step'] / 1e6:.4f} MB a step; "
+                  f"{run['held_bytes'] / 2**30:.3f} GiB held; launches a call "
+                  f"{ {k: round(n / calls, 2) for k, n in run['launches'].items() if n} } "
+                  f"({run['partials'] / calls:.2f} of mmt4d's float32 partials); "
+                  f"the run's wall {run['wall_s']:.2f} s")
+    g = r0["generate"]
+    print(f"    generate_static bf16 (1, 4): tokens the same on every rank; "
+          f"prefill {g['prefill_ms']:.3f} ms, {float(np.mean(g['step_ms'])):.3f} ms a "
+          f"step (one rank {one_gen['prefill_ms']:.3f} and "
+          f"{float(np.mean(one_gen['step_ms'])):.3f}); "
+          f"{g['collectives']} collectives and {g['bytes'] / 1e6:.4f} MB a rank "
+          f"over the loop's {DECODE_TP_GEN_NEW} calls, its prefill's included; "
+          f"launches a call "
+          f"{ {k: round(n / DECODE_TP_GEN_NEW, 2) for k, n in g['launches'].items() if n} }; "
+          f"wall {g['wall_s']:.2f} s (one rank {one_gen['wall_s']:.2f})")
+    print(f"  static-loop-across-ranks phase wall: {time.perf_counter() - t0:.1f} s "
+          f"(kernel checks {kernels_s:.1f} s, the {world} rank processes "
+          f"{wall:.1f} s, the one-rank runs in them {ref_s:.1f} s; {card}): "
+          f"not a figure of multi-card serving")
+    res = {"ranks": ranks, "one_rank_generate": {k: v for k, v in one_gen.items()
+                                                 if k != "picks"},
+           "vs_one_rank": vs_one, "wall_s": time.perf_counter() - t0,
+           "ranks_wall_s": wall, "kernel_checks_s": kernels_s, "reference_s": ref_s,
+           "card": card}
+    return res, {f"decode f32 {DECODE_TP_MESH} ranks": r0["runs"][DECODE_TP_RUNS[0][0]][
+        "launches"], "generate_static bf16 (1, 4) ranks": g["launches"]}
 
 
 def import_tracing(out: dict) -> None:
@@ -6443,6 +6800,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     # one rank of the training-across-ranks phase (train_tp_phase starts them)
     ap.add_argument("--train-tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    # one rank of the static-loop-across-ranks phase (decode_tp_phase starts them)
+    ap.add_argument("--decode-tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -6455,6 +6814,8 @@ def main(argv=None) -> int:
         return tp_rank_main(args.tp_rank, args.tp_world, args.tp_dir)
     if args.train_tp_rank is not None:
         return train_tp_rank_main(args.train_tp_rank, args.tp_world, args.tp_dir)
+    if args.decode_tp_rank is not None:
+        return decode_tp_rank_main(args.decode_tp_rank, args.tp_world, args.tp_dir)
     global CPU_RUNS
     CPU_RUNS = CpuRuns(src)
     try:
@@ -6738,6 +7099,16 @@ def smoke(args) -> int:
           f"SmolLM2-135M f32 with FSDP, held to the one-rank eager step ({card})")
     train_tp_res, train_tp_paths = train_tp_phase(card, checks)
     by_path.update(train_tp_paths)
+    elapsed()
+    print(f"the static loop across ranks (the reference's decode cell): mmt4d at a "
+          f"rank's decode shapes; {DECODE_TP_MESH[0] * DECODE_TP_MESH[1]} rank "
+          f"processes on this card over gloo, the dense-cache decode step on a "
+          f"(data, model) = {DECODE_TP_MESH} mesh (SmolLM2-135M f32 at batch 4 "
+          f"and 1, whisper-small, InternVL2's language model at "
+          f"{VLM_F32_LAYERS} layer) held to one rank, and generate_static on "
+          f"{DECODE_TP_GEN_MESH} in bf16 ({card})")
+    decode_tp_res, decode_tp_paths = decode_tp_phase(card, checks)
+    by_path.update(decode_tp_paths)
     # the main path of each kernel: the flat drain for the serving kernels,
     # the 20-step bf16 training run for the gradient kernels
     train_main = train_paths["train bf16"]
@@ -6821,6 +7192,7 @@ def smoke(args) -> int:
                        "family_training": fam_train, "mesh": mesh_res,
                        "across_ranks": tp_res,
                        "training_across_ranks": train_tp_res,
+                       "static_across_ranks": decode_tp_res,
                        "graph": graph, "examples": examples,
                        "cpu_runs": cpu_runs,
                        "total_s": time.perf_counter() - t_start}, f, indent=1,

@@ -18,6 +18,11 @@ tensors eagerly, so the model and training code ask for them here, on the
   and ``broadcast`` but not in ``all_gather``, as it serves NCCL;
 - :meth:`MeshAxis.max`: the elementwise max over the ranks (an
   ``all_reduce`` with ``MAX``);
+- :class:`SeqAxis`: the ranks a dense decode cache's sequence is cut
+  over (``cache_specs``: ``model`` where the batch divides the data
+  ranks, else the data and model dims flattened), over which the dense
+  flash-decode combines its shares (``models/attention.py:combine_ranks``
+  takes any axis);
 - the reduce-scatter (the sum over the ranks, of which each keeps its
   slice) is an all-reduce, then the slice, for gloo's sake too: the
   backward of :meth:`~MeshAxis.gather_shards`.
@@ -55,7 +60,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["MeshAxis", "ModelAxis", "DataAxis", "pick_backend"]
+__all__ = ["MeshAxis", "ModelAxis", "DataAxis", "SeqAxis", "pick_backend"]
 
 
 def pick_backend(device_type: str, world_size: int) -> str:
@@ -192,6 +197,25 @@ class MeshAxis:
             return list(locals_)
         return list(_GatherShards.apply(self, cuts, *locals_))
 
+    @classmethod
+    def _over(cls, mesh, axes: tuple):
+        """The axis over the dims ``axes`` of a ``DeviceMesh``, those of one
+        rank left out, flattened major to minor in the mesh's order:
+        ``rank`` is this process's index there; one group of all of them.
+        None where they hold one rank."""
+        names = list(mesh.mesh_dim_names or ())
+        sizes = dict(zip(names, mesh.mesh.shape))
+        dims = [a for a in names if a in axes and sizes[a] > 1]
+        if not dims:
+            return None
+        coord = dict(zip(names, mesh.get_coordinate()))
+        rank = 0
+        for a in dims:
+            rank = rank * sizes[a] + coord[a]
+        group = (mesh.get_group(dims[0]) if len(dims) == 1
+                 else mesh[tuple(dims)]._flatten().get_group())
+        return cls(group, rank, math.prod(sizes[a] for a in dims))
+
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(rank {self.rank} of {self.size}, "
                 f"{self.backend or 'no group'})")
@@ -225,18 +249,24 @@ class DataAxis(MeshAxis):
     @classmethod
     def of(cls, mesh) -> Optional["DataAxis"]:
         """The data axis of a ``DeviceMesh``; None where it has one rank."""
-        names = list(mesh.mesh_dim_names or ())
-        sizes = dict(zip(names, mesh.mesh.shape))
-        dims = [a for a in ("pod", "data") if sizes.get(a, 1) > 1]
-        if not dims:
-            return None
-        coord = dict(zip(names, mesh.get_coordinate()))
-        rank = 0
-        for a in dims:
-            rank = rank * sizes[a] + coord[a]
-        group = (mesh.get_group(dims[0]) if len(dims) == 1
-                 else mesh[tuple(dims)]._flatten().get_group())
-        return cls(group, rank, math.prod(sizes[a] for a in dims))
+        return cls._over(mesh, ("pod", "data"))
+
+
+class SeqAxis(MeshAxis):
+    """The ranks over which a dense decode cache's sequence dim is cut:
+    the mesh dims of a ``cache_specs`` entry (``("model",)``, or ``("pod",
+    "data", "model")`` when the batch does not divide the data ranks),
+    those of one rank left out, flattened major to minor, as
+    ``P(("data", "model"))`` cuts the sequence: ``rank`` is ``d * R + m``
+    on a ``(D, R)`` mesh, the index of the rank's sequence shard."""
+
+    name = "seq"
+
+    @classmethod
+    def of(cls, mesh, axes: tuple) -> Optional["SeqAxis"]:
+        """The axis over the mesh dims ``axes`` of a ``DeviceMesh``; None
+        where they hold one rank."""
+        return cls._over(mesh, axes)
 
 
 # ------------------------------------------------------------ autograd pairs

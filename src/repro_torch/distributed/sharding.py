@@ -44,6 +44,12 @@ records its cut as ``w_split``: ``("col", lo, hi, N)`` (output tiles
 (contraction tiles ``[lo, hi)`` of ``K_o``), which
 ``core/linear.py:linear_apply`` reads.
 
+A rank's window of a dense decode cache (the static batch loop across
+ranks): :func:`leaf_window` gives the batch rows and the sequence
+positions ``cache_specs`` hand a mesh coordinate, :func:`shard_tree`
+cuts a whole cache tree so and :func:`unshard_tree` puts the windows
+back together.
+
 A rank's shard of a train state (training across ranks):
 :func:`shard_state` cuts the parameters as :func:`shard_params` does and
 each optimizer leaf as its parameter (an 8-bit moment's scales as its
@@ -66,7 +72,8 @@ __all__ = ["param_specs", "batch_specs", "cache_specs", "state_specs",
            "named", "distribute", "tree_paths", "local_shape",
            "device_bytes", "tile_range", "unit_range", "mesh_coord",
            "shard_tree", "shard_params", "shard_prepacked", "head_split",
-           "leaf_units", "shard_state", "unshard_state"]
+           "leaf_units", "shard_state", "unshard_state", "leaf_window",
+           "unshard_tree"]
 
 
 def tree_paths(tree) -> dict:
@@ -370,6 +377,15 @@ def _cut(t: torch.Tensor, spec: tuple, mesh, coord: dict, units=None):
     return t.contiguous(), ranges
 
 
+def leaf_window(shape, spec: tuple, mesh, coord: dict) -> list:
+    """Each dim's element range ``(lo, hi)`` of a leaf of ``shape`` that
+    mesh coordinate ``coord`` holds under ``spec``: the shard
+    :func:`shard_tree` cuts (a rank's window of a decode cache under
+    ``cache_specs``: its batch rows and its positions of the sequence)."""
+    return [unit_range(int(n), e, mesh, coord)
+            for n, e in zip(shape, _full(spec, len(shape)))]
+
+
 def shard_tree(tree, specs, mesh, coord: dict):
     """Each tensor leaf's shard that ``coord`` holds under ``specs`` (the
     same structure), a copy; other leaves pass through."""
@@ -545,6 +561,61 @@ def shard_state(state, run: RunConfig, mesh, coord: dict, layout_of):
                       opt_state=opt)
 
 
+def _unshard_leaf(what: str, t, spec: tuple, units: tuple, pieces: dict,
+                  mesh) -> torch.Tensor:
+    """The whole leaf (on the CPU) shaped as ``t`` from ``pieces``
+    (``{coordinate: the rank's piece}``, every coordinate of ``mesh``),
+    each piece where ``spec`` cut in whole ``units`` puts it; every copy of
+    a piece that more than one rank holds must be the same, bit for bit."""
+    names = list(axis_sizes(mesh))
+    dst = torch.empty(t.shape, dtype=t.dtype)
+    seen = torch.zeros(t.shape, dtype=torch.bool)
+    spec = _full(spec, t.ndim)
+    for c, piece in pieces.items():
+        coord = dict(zip(names, c))
+        piece = piece.cpu()
+        region, mask = dst, seen
+        for d in range(t.ndim):
+            lo, hi = unit_range(-(-t.shape[d] // units[d]), spec[d], mesh, coord)
+            e0, e1 = min(t.shape[d], lo * units[d]), min(t.shape[d], hi * units[d])
+            region = region.narrow(d, e0, e1 - e0)
+            mask = mask.narrow(d, e0, e1 - e0)
+        if tuple(piece.shape) != tuple(region.shape):
+            raise ValueError(f"{what} at {coord}: a shard of "
+                             f"{tuple(piece.shape)} where the rules "
+                             f"give {tuple(region.shape)}")
+        held = region[mask]
+        if held.numel() and not torch.equal(held, piece[mask]):
+            raise ValueError(f"{what} at {coord}: the ranks' "
+                             f"copies of a replicated piece differ")
+        region.copy_(piece)
+        mask.fill_(True)
+    if not bool(seen.all()):
+        raise ValueError(f"{what}: the shards do not cover it")
+    return dst
+
+
+def _coords(mesh) -> list:
+    import itertools
+    return list(itertools.product(*(range(n) for n in axis_sizes(mesh).values())))
+
+
+def unshard_tree(shards: dict, like, specs, mesh):
+    """The whole tree put back together from ``shards`` (``{coordinate:
+    the rank's shard}``, every coordinate of ``mesh``, each as
+    :func:`shard_tree` cuts it under ``specs``), ``like`` a whole tree of
+    the same shapes (meta tensors will do): a cache tree's windows
+    (``cache_specs``), say.  Replicated pieces must agree bit for bit
+    (else ``ValueError``); each leaf comes back on the CPU."""
+    sp = tree_paths(specs)
+    pieces = {c: tree_paths(t) for c, t in shards.items()}
+    whole = {path: _unshard_leaf(path, t, sp[path], (1,) * t.ndim,
+                                 {c: p[path] for c, p in pieces.items()}, mesh)
+             for path, t in tree_paths(like).items()
+             if isinstance(t, torch.Tensor)}
+    return _unflatten_like(like, whole)
+
+
 def unshard_state(shards: dict, like, run: RunConfig, mesh, layout_of):
     """The whole ``TrainState`` put back together from ``shards``
     (``{coordinate: the rank's TrainState}``, a coordinate a tuple of the
@@ -553,11 +624,9 @@ def unshard_state(shards: dict, like, run: RunConfig, mesh, layout_of):
     do).  Every copy of a piece that more than one rank holds must be the
     same, bit for bit (else ``ValueError``); the ``w_split`` entries are
     dropped.  Each leaf comes back on the CPU."""
-    import itertools
     from repro_torch.training.optimizer import tensors
     from repro_torch.training.train_state import TrainState
-    names = list(axis_sizes(mesh))
-    coords = list(itertools.product(*(range(n) for n in axis_sizes(mesh).values())))
+    coords = _coords(mesh)
     specs = state_specs(like, run, mesh)
     units = {p: u for p, (_, u) in leaf_units(like.params, layout_of).items()}
     out = {}
@@ -567,37 +636,12 @@ def unshard_state(shards: dict, like, run: RunConfig, mesh, layout_of):
         for path, t in tree_paths(tree).items():
             if not isinstance(t, torch.Tensor):
                 continue
-            dst = torch.empty(t.shape, dtype=t.dtype)
-            seen = torch.zeros(t.shape, dtype=torch.bool)
-            spec_p = _full(sp[path], t.ndim)
-            u = unit.get(path) or (1,) * t.ndim
-            for c in coords:
-                coord = dict(zip(names, c))
-                st = shards[c]
-                piece = tree_paths(st.params if name == "params"
-                                   else st.opt_state[name])[path].cpu()
-                region = dst
-                mask = seen
-                for d in range(t.ndim):
-                    lo, hi = unit_range(-(-t.shape[d] // u[d]), spec_p[d], mesh,
-                                        coord)
-                    e0, e1 = min(t.shape[d], lo * u[d]), min(t.shape[d], hi * u[d])
-                    region = region.narrow(d, e0, e1 - e0)
-                    mask = mask.narrow(d, e0, e1 - e0)
-                if tuple(piece.shape) != tuple(region.shape):
-                    raise ValueError(f"{name}/{path} at {coord}: a shard of "
-                                     f"{tuple(piece.shape)} where the rules "
-                                     f"give {tuple(region.shape)}")
-                held = region[mask]
-                if held.numel() and not torch.equal(held, piece[mask]):
-                    raise ValueError(f"{name}/{path} at {coord}: the ranks' "
-                                     f"copies of a replicated piece differ")
-                region.copy_(piece)
-                mask.fill_(True)
-            if not bool(seen.all()):
-                raise ValueError(f"{name}/{path}: the shards do not cover it")
-            whole[path] = dst
+            pieces = {c: tree_paths(shards[c].params if name == "params"
+                                    else shards[c].opt_state[name])[path]
+                      for c in coords}
+            whole[path] = _unshard_leaf(f"{name}/{path}", t, sp[path],
+                                        unit.get(path) or (1,) * t.ndim,
+                                        pieces, mesh)
         out[name] = _unflatten_like(tensors(tree), whole)
     return TrainState(step=shards[coords[0]].step, params=out.pop("params"),
                       opt_state=out)
-

@@ -42,8 +42,10 @@ def _pack_cuda(a, t0, t1):
     build.require_cuda("pack", a)
     code = build.require_dtype("pack", a.dtype, a)
     m, k = a.shape[-2:]
-    a3 = a.view(-1, m, k)          # raises if the lead dims do not fold
     out = torch.empty(_packed_shape(a, t0, t1), dtype=a.dtype, device=a.device)
+    if a.numel() == 0:             # nothing to pack (a rank's empty share of
+        return out                 # a weight's tiles): no launch
+    a3 = a.view(-1, m, k)          # raises if the lead dims do not fold
     sb, sm, sk = a3.stride()
     rc = build.load_library().repro_pack(
         a3.data_ptr(), out.data_ptr(), code, a3.shape[0], m, k, sb, sm, sk,

@@ -27,11 +27,23 @@ and attention is a flash-decode across ranks: each rank attends over its
 own pages (the flat step through ``ragged_attention_partial``, the paged
 step through :func:`core_attention_partial`), and :func:`combine_ranks`
 weighs the ranks' outputs by their log-sum-exps.
+
+The dense-cache mode across ranks (the reference's decode cell): where
+``cache_specs`` cut a dense cache's sequence dim, a rank's cache is its
+window, the global positions ``[lo, lo + S_rank)`` of ``total``
+(:class:`SeqWindow`, the axis of ranks it is cut over beside them).  The
+write clamps its start on the global ``total``, as
+``lax.dynamic_update_slice`` does, and the rank writes the positions it
+holds (:func:`dense_kv_update`); the length and causal masks are built on
+global key positions; each rank attends over its window
+(:func:`core_attention_partial`) and :func:`combine_ranks` weighs the
+shares over the window's axis.  Whisper's cross K/V is cut so over the
+encoder positions, and its cross-attention is such a share, not causal.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -48,7 +60,24 @@ from repro_torch.models.common import (Stream, apply_rope, maybe_unpack,
 __all__ = ["attn_init", "attn_apply", "init_kv_cache", "init_paged_kv_cache",
            "core_attention", "core_attention_partial", "combine_ranks",
            "chunked_attention", "dense_kv_update", "paged_kv_update",
-           "flat_paged_kv_update", "local_pages"]
+           "flat_paged_kv_update", "local_pages", "SeqWindow"]
+
+
+class SeqWindow(NamedTuple):
+    """A rank's window of a dense cache's sequence dim: the global
+    positions ``[lo, lo + n)`` of ``total``, ``n`` the rank's cache's
+    extent there, cut over the ranks of ``axis`` (a
+    :class:`~repro_torch.distributed.comm.MeshAxis`), over which the
+    attention's shares are combined."""
+    lo: int
+    total: int
+    axis: object
+
+    @property
+    def held(self) -> int:
+        """The positions the rank holds (the axis's ranks divide ``total``:
+        ``cache_specs`` keeps a dim whole that they do not)."""
+        return self.total // self.axis.size
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig,
@@ -78,7 +107,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def dense_kv_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                    cache_pos: torch.Tensor):
+                    cache_pos: torch.Tensor,
+                    window: Optional[SeqWindow] = None):
     """Write a ``[B, S]`` step's K/V into the dense cache at positions
     ``cache_pos ..`` in place, and mask the cache to what is written.
 
@@ -87,14 +117,35 @@ def dense_kv_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
     host.  The start is clamped to ``[0, S_max - S]`` as
     ``lax.dynamic_update_slice`` clamps it; the mask holds the first
     ``cache_pos + S`` positions of every row.  cache: {"k","v"} [B, S_max,
-    Hkv, dh].  Returns (cache, k_all, v_all, kv_len_mask [B, S_max])."""
+    Hkv, dh].  Returns (cache, k_all, v_all, kv_len_mask [B, S_max]).
+
+    ``window`` (across ranks): the cache holds the global positions
+    ``[window.lo, window.lo + n)`` of ``window.total``; the clamp is on
+    ``window.total``, the rank writes only the positions it holds (a
+    write of more positions than it holds spans ranks), and the mask is
+    over its positions, by their global index."""
     kc, vc = cache["k"], cache["v"]
     b, s, s_max = k.shape[0], k.shape[1], kc.shape[1]
     ar = torch.arange(s, device=kc.device)
-    idx = torch.clamp(cache_pos.long(), 0, s_max - s) + ar
-    kc.index_copy_(1, idx, k.to(kc.dtype))
-    vc.index_copy_(1, idx, v.to(vc.dtype))
-    mask = torch.arange(s_max, device=kc.device) < cache_pos.long() + s
+    if window is None:
+        idx = torch.clamp(cache_pos.long(), 0, s_max - s) + ar
+        kc.index_copy_(1, idx, k.to(kc.dtype))
+        vc.index_copy_(1, idx, v.to(vc.dtype))
+        mask = torch.arange(s_max, device=kc.device) < cache_pos.long() + s
+        return cache, kc, vc, mask[None, :].expand(b, s_max)
+    start = torch.clamp(cache_pos.long(), 0, window.total - s)
+    # each written position as a local index, those off the window clamped
+    # onto its edges; every index carries the value its position ends up
+    # with (the new K/V where the rank holds a written position, the
+    # cache's own elsewhere), so indices written twice agree
+    local = torch.clamp(start + ar - window.lo, 0, s_max - 1)
+    src = local + window.lo - start
+    ok = ((src >= 0) & (src < s))[None, :, None, None]
+    src = torch.clamp(src, 0, s - 1)
+    kc.index_copy_(1, local, torch.where(ok, k[:, src].to(kc.dtype), kc[:, local]))
+    vc.index_copy_(1, local, torch.where(ok, v[:, src].to(vc.dtype), vc[:, local]))
+    pos = window.lo + torch.arange(s_max, device=kc.device)
+    mask = pos < cache_pos.long() + s
     return cache, kc, vc, mask[None, :].expand(b, s_max)
 
 
@@ -217,21 +268,29 @@ def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def core_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, q_pos: torch.Tensor,
-                           kv_len_mask: torch.Tensor) -> tuple:
-    """A rank's share of the paged step's causal attention: q [B,Sq,Hq,dh]
-    at positions ``q_pos`` [B,Sq]; k, v [B,Skv,Hkv,dh] with
-    ``kv_len_mask`` [B,Skv] the keys the rank counts.  Returns (out
-    [B,Sq,Hq,dh] in q's dtype, lse [B,Sq,Hq] float32): the softmax over
-    the counted keys and its log-sum-exp; a row with none gives zeros and
-    ``-inf`` (:func:`combine_ranks` weighs it 0)."""
+                           *, q_pos: Optional[torch.Tensor],
+                           kv_len_mask: Optional[torch.Tensor],
+                           kv_lo: int = 0) -> tuple:
+    """A rank's share of a causal attention: q [B,Sq,Hq,dh] at positions
+    ``q_pos`` [B,Sq] or [Sq] (None: not causal); k, v [B,Skv,Hkv,dh], the
+    keys at the global positions ``kv_lo ..``, with ``kv_len_mask``
+    [B,Skv] those the rank counts (None: all).  Returns (out [B,Sq,Hq,dh]
+    in q's dtype, lse [B,Sq,Hq] float32): the softmax over the counted
+    keys and its log-sum-exp; a row with none gives zeros and ``-inf``
+    (:func:`combine_ranks` weighs it 0)."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * dh ** -0.5
-    kv_pos = torch.arange(skv, device=q.device)
-    m = (q_pos[:, :, None] >= kv_pos[None, None, :]) & kv_len_mask[:, None, :]
+    m = torch.ones((b, sq, skv), dtype=torch.bool, device=q.device)
+    if q_pos is not None:
+        if q_pos.ndim == 1:
+            q_pos = q_pos[None, :].expand(b, sq)
+        kv_pos = kv_lo + torch.arange(skv, device=q.device)
+        m = m & (q_pos[:, :, None] >= kv_pos[None, None, :])
+    if kv_len_mask is not None:
+        m = m & kv_len_mask[:, None, :]
     scores = scores.masked_fill(~m[:, None, None], -torch.inf)
     top = scores.amax(dim=-1, keepdim=True)
     top = torch.where(torch.isinf(top), 0.0, top)
@@ -245,8 +304,10 @@ def core_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def combine_ranks(out: torch.Tensor, lse: torch.Tensor, axis) -> torch.Tensor:
-    """The flash-decode's combine across the ranks of ``axis``
-    (:class:`~repro_torch.distributed.comm.ModelAxis`): every rank's
+    """The flash-decode's combine across the ranks of ``axis`` (any
+    :class:`~repro_torch.distributed.comm.MeshAxis`: the model axis of a
+    page-sharded pool, the :class:`~repro_torch.distributed.comm.SeqAxis`
+    of a dense cache's windows): every rank's
     partial ``out`` [..., H, dh] and float32 ``lse`` [..., H] gathered in
     one collective, then on every rank alike
     ``sum_r exp(lse_r - M) out_r / sum_r exp(lse_r - M)``, ``M`` the
@@ -286,7 +347,8 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
                kv_cache: Optional[dict] = None,
                cache_pos: Optional[torch.Tensor] = None,
                kv_source: Optional[torch.Tensor] = None,
-               keep_packed: bool = False, paged: Optional[dict] = None):
+               keep_packed: bool = False, paged: Optional[dict] = None,
+               window: Optional[SeqWindow] = None):
     """Q/K/V projections (unpacked at exit) -> RoPE -> attention -> O
     projection (kept packed when ``keep_packed``).  Returns (out_stream,
     kv_cache).
@@ -311,7 +373,9 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
       over its gathered pages through :func:`core_attention` with per-row
       2-D positions.
     - either paged mode across ranks: ``paged["kv_shard"]``, the rank's
-      pages (module docstring)."""
+      pages (module docstring).
+    - dense-cache decode across ranks: ``window``, the rank's window of
+      the cache's sequence (module docstring)."""
     dh, hq, hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     x = tp_enter(ctx, x)
     kv_in = x if kv_source is None else tp_enter(ctx, kv_source)
@@ -353,11 +417,16 @@ def attn_apply(params: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig, *,
                 lens=paged["lens"], new_counts=paged["new_counts"],
                 kv_shard=shard)
         elif kv_cache is not None:
-            kv_cache, k, v, mask = dense_kv_update(kv_cache, k, v, cache_pos)
+            kv_cache, k, v, mask = dense_kv_update(kv_cache, k, v, cache_pos,
+                                                   window)
         if shard is not None:
             o, lse = core_attention_partial(q, k, v, q_pos=positions,
                                             kv_len_mask=mask)
             out = combine_ranks(o, lse, ctx.tp)
+        elif window is not None:
+            o, lse = core_attention_partial(q, k, v, q_pos=positions,
+                                            kv_len_mask=mask, kv_lo=window.lo)
+            out = combine_ranks(o, lse, window.axis)
         elif kv_cache is None and kv_source is None and sq > 512:
             out = chunked_attention(q, k, v, causal=causal, q_pos=positions)
         else:

@@ -12,6 +12,15 @@ leaf for leaf (:func:`repro_torch.weights.from_jax_params`).  Where the
 JAX package slices ``pe_dec`` at a traced position with
 ``lax.dynamic_slice_in_dim``, :func:`encdec_decode_step` indexes it with a
 device tensor, so no step reads its position back to the host.
+
+Across the ranks of a mesh the products are the Megatron ones of the
+decoder-only family (``core/linear.py``), the learned positions, which
+the rules cut over ``model`` along ``d``, are gathered whole for the rows
+a call reads (:func:`_pe_rows`), and the decode caches are the rank's
+windows (``models/attention.py:SeqWindow``): :func:`compute_cross_kv`
+keeps the rank's encoder positions of the cross K/V, and
+:func:`encdec_decode_step` attends over them as a share combined over
+the ranks.
 """
 
 from __future__ import annotations
@@ -27,6 +36,18 @@ from repro_torch.models.common import (embed_apply, embed_init, maybe_pack,
 
 __all__ = ["enc_config", "encdec_init", "encode", "decode_train",
            "compute_cross_kv", "encdec_forward", "encdec_decode_step"]
+
+
+def _pe_rows(pe: torch.Tensor, rows, ctx: MatmulContext, d: int) -> torch.Tensor:
+    """The learned positions ``pe[rows]`` [n, d], whole: across ranks the
+    rank holds the columns ``param_specs`` cut over ``model`` (its share of
+    ``d``), gathered over the model ranks."""
+    x = pe[rows]
+    if x.shape[-1] == d:
+        return x
+    from repro_torch.distributed.sharding import tile_range
+    lo = tile_range(d, ctx.tp.size, ctx.tp.rank)[0]
+    return ctx.tp.gather(x.contiguous(), -1, lo, d)
 
 
 def enc_config(cfg: ModelConfig) -> ModelConfig:
@@ -68,7 +89,7 @@ def encode(params: dict, frames: torch.Tensor, ctx: MatmulContext,
     the JAX package's ``layers_apply`` does."""
     s = frames.shape[1]
     x = linear_apply(params["frontend_proj"], frames, ctx)
-    x = x + params["pe_enc"][:s].to(x.dtype)
+    x = x + _pe_rows(params["pe_enc"], slice(0, s), ctx, cfg.d_model).to(x.dtype)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     x = tfm.layers_apply(params["enc_groups"], maybe_pack(x, ctx), ctx,
                          enc_config(cfg), positions=positions, causal=False,
@@ -84,7 +105,7 @@ def decode_train(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
     :func:`encode`."""
     s = tokens.shape[1]
     x = embed_apply(params["embed"], tokens)
-    x = x + params["pe_dec"][:s].to(x.dtype)
+    x = x + _pe_rows(params["pe_dec"], slice(0, s), ctx, cfg.d_model).to(x.dtype)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     x = tfm.layers_apply(params["dec_groups"], maybe_pack(x, ctx), ctx, cfg,
                          positions=positions, causal=True, enc_out=enc_out,
@@ -102,10 +123,11 @@ def encdec_forward(params: dict, batch: dict, ctx: MatmulContext,
 
 
 def compute_cross_kv(params: dict, enc_out: torch.Tensor, ctx: MatmulContext,
-                     cfg: ModelConfig) -> dict:
+                     cfg: ModelConfig, window=None) -> dict:
     """The decoder's cross-attention K/V from the encoder output, stacked
     ``[G, B, S_enc, Hkv, dh]`` per pattern slot as the JAX package's scan
-    leaves them: ``{"p<i>": {"k", "v"}}``."""
+    leaves them: ``{"p<i>": {"k", "v"}}``.  ``window`` (across ranks, a
+    ``SeqWindow`` of the encoder positions): the rank's positions only."""
     b, s = enc_out.shape[0], enc_out.shape[1]
     hkv, dh = cfg.n_kv_heads, cfg.d_head
     groups = cfg.n_layers // tfm.pattern_period(cfg)
@@ -121,28 +143,34 @@ def compute_cross_kv(params: dict, enc_out: torch.Tensor, ctx: MatmulContext,
             ks.append(k)
             vs.append(v)
         out[name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if window is not None:
+            out[name] = {k: t[:, :, window.lo:window.lo + window.held].contiguous()
+                         for k, t in out[name].items()}
     return out
 
 
 def encdec_decode_step(params: dict, caches: dict, token: torch.Tensor,
                        pos: torch.Tensor, ctx: MatmulContext, cfg: ModelConfig,
-                       run: RunConfig):
+                       run: RunConfig, windows: tuple = (None, None)):
     """Decoder tokens ``token`` [B, s] at positions ``pos ..`` against
     ``caches`` = {"layers": [G, ...] dense caches, "cross": [G, ...] cross
     K/V}.  ``pos`` is a 0-d device tensor: the learned positions are
     gathered at ``clamp(pos, 0, max_tgt - s) + arange(s)`` (the clamp of
     ``lax.dynamic_slice_in_dim``) on the device.  The layer caches are
-    written in place.  Returns (logits [B, s, V], caches)."""
+    written in place.  ``windows``: across ranks, the rank's windows of the
+    layer caches and of the cross K/V (``transformer.block_apply``).
+    Returns (logits [B, s, V], caches)."""
     del run
     s = token.shape[1]
     x = embed_apply(params["embed"], token)
     pe = params["pe_dec"]
     ar = torch.arange(s, device=x.device)
-    x = x + pe[torch.clamp(pos.long(), 0, pe.shape[0] - s) + ar].to(x.dtype)
+    x = x + _pe_rows(pe, torch.clamp(pos.long(), 0, pe.shape[0] - s) + ar, ctx,
+                     cfg.d_model).to(x.dtype)
     positions = pos + ar.to(pos.dtype)             # 1-D: shared by the batch
     x = tfm.layers_apply(params["dec_groups"], maybe_pack(x, ctx), ctx, cfg,
                          positions=positions, causal=True,
                          caches=caches["layers"], cache_pos=pos,
-                         cross_kv=caches["cross"])
+                         cross_kv=caches["cross"], windows=windows)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return tfm.logits_apply(params, x, ctx, cfg), caches

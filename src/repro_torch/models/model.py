@@ -35,15 +35,41 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.core.hardware import HardwareSpec, query, require_device
 from repro_torch.core.layout import LayoutPolicy
 from repro_torch.core.linear import MatmulContext, linear_apply
-from repro_torch.distributed.comm import DataAxis, ModelAxis
+from repro_torch.distributed.comm import DataAxis, ModelAxis, SeqAxis
 from repro_torch.kernels.ragged_attn.ops import RaggedPlan
 from repro_torch.launch.mesh import AbstractMesh, axis_sizes
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import SeqWindow
 from repro_torch.models.common import embed_apply
 
 __all__ = ["ReproModel", "CompiledStep", "GraphTable", "capture_graph", "build_model",
-           "MetaGenerator", "ACROSS_RANKS", "refuse_across_ranks"]
+           "MetaGenerator", "ACROSS_RANKS", "refuse_across_ranks", "CacheWindow",
+           "RankCaches"]
+
+
+class CacheWindow(NamedTuple):
+    """A rank's window of the dense decode caches of a global batch of
+    ``batch`` rows, as ``cache_specs`` lay them out on the mesh: its rows
+    ``[lo, hi)`` (all of them where the batch does not divide the data
+    ranks) and its :class:`~repro_torch.models.attention.SeqWindow` of the
+    layer caches' sequence and of whisper's cross K/V's encoder positions
+    (None: whole on every rank)."""
+    batch: int
+    rows: tuple
+    seq: Optional[SeqWindow]
+    cross: Optional[SeqWindow]
+
+
+class RankCaches(dict):
+    """A rank's dense decode caches (``ReproModel.init_cache`` across
+    ranks): the cache tree, a dict of its windows of every leaf, and
+    ``window``, the :class:`CacheWindow` they are; ``decode_step`` reads
+    it."""
+
+    def __init__(self, tree: dict, window: CacheWindow):
+        super().__init__(tree)
+        self.window = window
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float,
@@ -98,8 +124,11 @@ class ReproModel:
     run on a ``(D, R)`` mesh (``ctx.dp``, the data ranks): each rank takes
     its shard of the parameters under ``param_specs`` (FSDP: gathered
     over the data ranks at each call, :meth:`gather_shards`) and of the
-    batch; the other families across a model axis are refused (ROADMAP
-    A13)."""
+    batch.  The dense-cache ``decode_step`` (the reference's decode cell)
+    runs on a ``(D, R)`` mesh for the dense, vlm and encdec families: the
+    rank takes its batch rows and holds its window of the caches
+    (:meth:`init_cache`, :class:`CacheWindow`).  The other families
+    across a model axis are refused (ROADMAP A13)."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,
                  hw: Optional[HardwareSpec] = None, device="cuda", mesh=None):
@@ -275,13 +304,15 @@ class ReproModel:
 
     def _embeds(self, params: dict, batch: dict) -> torch.Tensor:
         """The token embeddings [B, S, d]; the vlm family prepends
-        ``vision_proj`` of ``batch["patches"]`` [B, vision_tokens, d]."""
+        ``vision_proj`` of ``batch["patches"]`` [B, vision_tokens, d]
+        (across ranks column-parallel over ``model``, gathered whole;
+        ``params`` with its FSDP shards gathered)."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         x = embed_apply(params["embed"], tokens).to(self.compute_dtype)
         if self.cfg.family == "vlm":
             patches = torch.as_tensor(batch["patches"], device=self.device)
             vis = linear_apply(params["vision_proj"],
-                               patches.to(self.compute_dtype), self.ctx)
+                               patches.to(self.compute_dtype), self.ctx, tp="col")
             x = torch.cat([vis, x], dim=1)
         return x
 
@@ -344,22 +375,104 @@ class ReproModel:
         metrics["loss"] = loss
         return loss, metrics
 
+    def _seq_axis(self, entry) -> Optional[Any]:
+        """The ranks a cache dim is cut over under the spec ``entry``: the
+        model's own :class:`ModelAxis` or data axis where the entry's mesh
+        dims of more than one rank are theirs, else a :class:`SeqAxis`
+        over them (made once per model: a new process group is a
+        collective of every rank); None where they hold one rank."""
+        from repro_torch.distributed import sharding
+        sizes = axis_sizes(self.mesh)
+        dims = tuple(a for a in sizes if a in sharding._axes(entry)
+                     and sizes[a] > 1)
+        if not dims:
+            return None
+        if dims == ("model",):
+            return self.ctx.tp
+        if dims == tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1):
+            return self.ctx.dp
+        axes = self.__dict__.setdefault("_seq_axes", {})
+        if dims not in axes:
+            axes[dims] = SeqAxis.of(self.mesh, dims)
+        return axes[dims]
+
+    @property
+    def rank_axes(self) -> list:
+        """Every axis of ranks this model's collectives run over (for their
+        ``calls`` and ``bytes`` counts)."""
+        out = [a for a in (self.ctx.tp, self.ctx.dp) if a is not None]
+        return out + list(self.__dict__.get("_seq_axes", {}).values())
+
+    def cache_window(self, batch: int, max_len: int,
+                     enc_len: Optional[int] = None) -> CacheWindow:
+        """This rank's :class:`CacheWindow` of dense caches of ``batch``
+        rows and ``max_len`` positions (whisper's cross K/V: ``enc_len``
+        encoder positions, ``max_len / audio_downsample`` by default), as
+        ``sharding.cache_specs`` cut them on the model's mesh: the batch
+        over the data ranks where it divides them, the sequence over
+        ``model`` (or over the data and model ranks where the batch does
+        not divide), a dim that its axes do not divide left whole.  The
+        heads over ``model`` (``seq_shard_kv=False``) are refused."""
+        from repro_torch.distributed import sharding
+        if not self.run.seq_shard_kv:
+            raise NotImplementedError(
+                f"the dense decode caches' heads over 'model' "
+                f"(seq_shard_kv=False); ROADMAP {ACROSS_RANKS['heads']}")
+        cfg = self.cfg
+        groups = cfg.n_layers // tfm.pattern_period(cfg)
+        enc_len = max_len // cfg.audio_downsample if enc_len is None else enc_len
+
+        def leaf(n):
+            return torch.empty((groups, batch, n, cfg.n_kv_heads, cfg.d_head),
+                               device="meta")
+
+        kv, cross = {"p0": {"kv": {"k": leaf(max_len)}}}, {"p0": {"k": leaf(enc_len)}}
+        like = ({"layers": kv, "cross": cross} if cfg.family == "encdec"
+                else kv)
+        specs = sharding.tree_paths(sharding.cache_specs(like, self.mesh,
+                                                         self.run, batch))
+        coord = sharding.mesh_coord(self.mesh)
+
+        def window(path, t):
+            spec = sharding._full(specs[path], t.ndim)
+            rng = sharding.leaf_window(t.shape, spec, self.mesh, coord)
+            axis = self._seq_axis(spec[2])
+            return rng[1], (None if axis is None
+                            else SeqWindow(rng[2][0], t.shape[2], axis))
+
+        if cfg.family != "encdec":
+            rows, seq = window("p0/kv/k", kv["p0"]["kv"]["k"])
+            return CacheWindow(batch, rows, seq, None)
+        rows, seq = window("layers/p0/kv/k", kv["p0"]["kv"]["k"])
+        return CacheWindow(batch, rows, seq,
+                           window("cross/p0/k", cross["p0"]["k"])[1])
+
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         """The dense decode caches of the static batch loop, zero: stacked
         ``[G, batch, max_len, Hkv, dh]`` K/V per attention slot of the
         pattern, ``[G, batch, ...]`` state per recurrent one; encdec
-        ``{"layers": those, "cross": [G, batch, max_len / 4, Hkv, dh]}``."""
+        ``{"layers": those, "cross": [G, batch, max_len / 4, Hkv, dh]}``.
+        Across ranks (a ``DeviceMesh``) the rank's windows of them, a
+        :class:`RankCaches` carrying its :meth:`cache_window`."""
         dev = self.device if device is None else device
         dt = self.compute_dtype
-        layers = tfm.init_layer_caches(self.cfg, batch, max_len, dt, dev)
+        win = self.cache_window(batch, max_len) if self.across_ranks else None
+        rows = batch if win is None else win.rows[1] - win.rows[0]
+        layers = tfm.init_layer_caches(self.cfg, rows,
+                                       _held(max_len, None if win is None
+                                             else win.seq),
+                                       dt, dev)
         if self.cfg.family != "encdec":
-            return layers
+            return layers if win is None else RankCaches(layers, win)
         groups = self.cfg.n_layers // tfm.pattern_period(self.cfg)
-        shp = (groups, batch, max_len // self.cfg.audio_downsample,
+        shp = (groups, rows,
+               _held(max_len // self.cfg.audio_downsample,
+                     None if win is None else win.cross),
                self.cfg.n_kv_heads, self.cfg.d_head)
         cross = {name: {k: torch.zeros(shp, dtype=dt, device=dev)
                         for k in ("k", "v")} for name in layers}
-        return {"layers": layers, "cross": cross}
+        tree = {"layers": layers, "cross": cross}
+        return tree if win is None else RankCaches(tree, win)
 
     def prefill_cache(self, params: dict, batch: dict,
                       into: Optional[dict] = None) -> dict:
@@ -367,7 +480,9 @@ class ReproModel:
         ``seq_len`` (whisper: with the cross K/V of its encoder over
         ``batch["frames"]``).  With ``into`` (caches of the same shapes,
         the cross K/V's at ``frames``' length) they are zeroed and filled
-        in place instead of allocated."""
+        in place instead of allocated.  Across ranks the rank's windows
+        (:meth:`init_cache`): whisper's encoder runs over the rank's rows
+        of the frames, and the rank keeps its window of the cross K/V."""
         b = torch.as_tensor(batch["tokens"]).shape[0]
         if into is None:
             caches = self.init_cache(b, self.shape.seq_len)
@@ -377,10 +492,17 @@ class ReproModel:
                          caches["layers"] if self.cfg.family == "encdec"
                          else caches)
         if self.cfg.family == "encdec":
-            enc_out = encdec_mod.encode(params, self._frames(batch), self.ctx,
-                                        self.cfg, self.run)
+            frames = self._frames(batch)
+            window = None
+            if self.across_ranks:
+                win = self.cache_window(b, self.shape.seq_len, frames.shape[1])
+                caches.window = win
+                frames, window = frames[win.rows[0]:win.rows[1]], win.cross
+                params = self.gather_shards(params)
+            enc_out = encdec_mod.encode(params, frames, self.ctx, self.cfg,
+                                        self.run)
             cross = encdec_mod.compute_cross_kv(params, enc_out, self.ctx,
-                                                self.cfg)
+                                                self.cfg, window)
             if into is None:
                 caches["cross"] = cross
             else:
@@ -396,14 +518,35 @@ class ReproModel:
         cache); ``pos`` a 0-d integer tensor on the device (the step reads
         it on the device only); ``embeds`` [B, s, d] stands for the token
         embeddings (the vlm family's patch prefix).  The caches are written
-        in place.  Returns (logits [B, s, V], caches)."""
-        if self.ctx.tp is not None:
-            raise NotImplementedError(
-                f"the dense-cache decode step across the ranks of a 'model' "
-                f"axis; ROADMAP {ACROSS_RANKS['static']}")
+        in place.  Returns (logits [B, s, V], caches).
+
+        Across ranks (the reference's decode cell): ``token`` and
+        ``embeds`` are the global batch, of which the rank takes its rows
+        (``batch_specs``: all of them where the batch does not divide the
+        data ranks); ``caches`` are the rank's windows (a
+        :class:`RankCaches` of :meth:`init_cache` or :meth:`prefill_cache`);
+        the FSDP shards are gathered for the call (:meth:`gather_shards`);
+        the logits are the rank's rows over the whole vocab, the same on
+        every rank of the model axis."""
+        windows = (None, None)
+        if self.across_ranks:
+            win = getattr(caches, "window", None)
+            if win is None:
+                raise ValueError("across ranks decode_step takes the rank's "
+                                 "windows of the caches: a RankCaches of "
+                                 "init_cache or prefill_cache")
+            if token.shape[0] != win.batch:
+                raise ValueError(f"a batch of {token.shape[0]} rows against "
+                                 f"caches made for {win.batch}")
+            lo, hi = win.rows
+            token = token[lo:hi]
+            embeds = None if embeds is None else embeds[lo:hi]
+            params = self.gather_shards(params)
+            windows = (win.seq, win.cross)
         if self.cfg.family == "encdec":
             return encdec_mod.encdec_decode_step(params, caches, token, pos,
-                                                 self.ctx, self.cfg, self.run)
+                                                 self.ctx, self.cfg, self.run,
+                                                 windows)
         if embeds is None:
             x = embed_apply(params["embed"], token).to(self.compute_dtype)
         else:
@@ -412,7 +555,7 @@ class ReproModel:
                                        device=x.device)
         logits, _, _ = tfm.lm_apply(params, x, self.ctx, self.cfg, self.run,
                                     positions=positions, caches=caches,
-                                    cache_pos=pos)
+                                    cache_pos=pos, kv_window=windows[0])
         return logits, caches
 
     def init_paged_cache(self, num_pages: int, page_tokens: int,
@@ -612,12 +755,12 @@ class CompiledStep:
         """``args``: the step method's inputs after ``caches``; ``graphs``:
         the caller's graph table (needed on the card).  Returns (logits,
         caches) as the step method does.  Across ranks (the model's
-        ``ctx.tp``) every call runs eagerly, on the card too: the gloo
+        ``ctx.tp`` or ``ctx.dp``) every call runs eagerly, on the card too: the gloo
         collectives between its kernels cannot be captured
         (:func:`capture_graph` refuses them), and ``kv_shard`` (the rank's
         pages) goes to the step method."""
         sig = self.count(args, plan, caches)
-        if self.model.device.type == "cpu" or self.model.ctx.tp is not None:
+        if self.model.device.type == "cpu" or self.model.across_ranks:
             extra = {} if plan is None else {"plan": plan}
             if kv_shard is not None:
                 extra["kv_shard"] = kv_shard
@@ -703,10 +846,10 @@ def capture_graph(model: ReproModel, pool, fn: Callable) -> Capture:
     to add.  A capture that fails raises, and so does one of a model
     across ranks (its collectives are host work under gloo; under NCCL the
     capture is queued)."""
-    if model.ctx.tp is not None:
+    if model.across_ranks:
         raise NotImplementedError(
-            f"a CUDA graph of a step across the ranks of a 'model' axis "
-            f"({model.ctx.tp}): a gloo collective cannot be captured, and "
+            f"a CUDA graph of a step across ranks "
+            f"({model.ctx.tp or model.ctx.dp}): a gloo collective cannot be captured, and "
             f"capture with NCCL is ROADMAP {ACROSS_RANKS['nccl']}; the "
             f"engine runs such steps uncaptured")
     dev = model.device
@@ -751,31 +894,38 @@ ACROSS_RANKS = {
     "prefix": "A13.5 (the prefix cache and speculative decode across ranks)",
     "nccl": "A13.6 (graph capture with NCCL on a host with a card a rank)",
     "train": "A13.7 (the Trainer and checkpoints across ranks)",
-    "static": "A13.8 (the static batch loop across ranks: encdec, vlm, "
-              "generate_static)",
     "unpacked": "A13.9 (unpacked weights across ranks: prepack=False, the "
                 "unpacked policy)",
+    "train-static": "A13.10 (training the encdec and vlm families across "
+                    "ranks)",
 }
 
 
 def refuse_across_ranks(cfg: ModelConfig, ranks: int,
-                        where: Optional[str] = None) -> None:
+                        where: Optional[str] = None,
+                        training: bool = False) -> None:
     """Raise ``NotImplementedError``, naming its ROADMAP item, for a
-    config the port does not serve or train across ``ranks`` ranks: every
-    family but the dense one."""
+    config the port does not serve or (``training``) train across
+    ``ranks`` ranks: the moe and recurrent families, and in training the
+    encdec and vlm families too."""
     what = None
     if any(t != "attn" for t in cfg.layer_types):
         what = "recurrent"
     elif cfg.moe:
         what = "moe"
-    elif cfg.family in ("encdec", "vlm"):
-        what = "static"
+    elif training and cfg.family in ("encdec", "vlm"):
+        what = "train-static"
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on "
             f"{where or f'a {chr(39)}model{chr(39)} axis of {ranks} ranks'}: "
-            f"the port serves and trains the dense family across ranks; ROADMAP "
-            f"{ACROSS_RANKS[what]}")
+            f"the port serves the dense, vlm and encdec families and trains "
+            f"the dense family across ranks; ROADMAP {ACROSS_RANKS[what]}")
+
+
+def _held(n: int, window: Optional[SeqWindow]) -> int:
+    """The positions of ``n`` a rank holds in ``window`` (all without)."""
+    return n if window is None else window.held
 
 
 class MetaGenerator(torch.Generator):

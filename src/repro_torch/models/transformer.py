@@ -108,7 +108,7 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
                 cache_pos: Optional[torch.Tensor] = None,
                 enc_out: Optional[torch.Tensor] = None,
                 cross_kv: Optional[dict] = None,
-                paged: Optional[dict] = None):
+                paged: Optional[dict] = None, windows: tuple = (None, None)):
     """Pre-norm residual block at pattern position ``pos``.  Returns (x',
     cache, aux); no cache (None) in the train/prefill mode; ``aux`` the
     moe layer's aux losses (:data:`AUX_ZERO` for another FFN).  The cache of an
@@ -116,7 +116,11 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
     "ssm"}}, of an rwkv block {"tm_shift", "cm_shift", "state"}; each is
     updated in place.  A block with ``cross`` attends over the
     encoder: through ``enc_out`` (train/prefill: K/V projected here) or
-    the precomputed ``cross_kv`` {"k","v"} [B, S_enc, Hkv, dh] (decode)."""
+    the precomputed ``cross_kv`` {"k","v"} [B, S_enc, Hkv, dh] (decode).
+    ``windows``: across ranks, the rank's windows
+    (``models/attention.py:SeqWindow``) of the dense cache's sequence and
+    of the cross K/V's encoder positions (None: whole); a windowed
+    cross-attention is the rank's share, combined over its axis."""
     t = cfg.layer_types[pos]
     keep = isinstance(x, PackedArray)
     h = norm_apply(p["ln1"], x, cfg.norm)
@@ -124,7 +128,8 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
         out, _ = attention.attn_apply(
             p["mixer"], h, ctx, cfg, positions=positions, causal=causal,
             kv_cache=None if cache is None else cache["kv"],
-            cache_pos=cache_pos, keep_packed=keep, paged=paged)
+            cache_pos=cache_pos, keep_packed=keep, paged=paged,
+            window=windows[0])
     elif t == "mamba":
         out, _ = mamba.mamba_apply(p["mixer"], h, ctx, cfg,
                                    cache=None if cache is None else cache["mamba"])
@@ -134,16 +139,22 @@ def block_apply(p: dict, x: Stream, ctx: MatmulContext, cfg: ModelConfig,
     if "cross" in p:
         hc = norm_apply(p["ln_c"], x, cfg.norm)
         if cross_kv is not None:
-            q = maybe_unpack(linear_apply(p["cross"]["wq"], hc, ctx))
+            q = maybe_unpack(linear_apply(p["cross"]["wq"], tp_enter(ctx, hc),
+                                          ctx, tp="col"))
             b, sq = q.shape[0], q.shape[1]
             q = q.reshape(b, sq, cfg.n_heads, cfg.d_head)
             if cfg.qk_norm:
                 q = norm_apply(p["cross"]["q_norm"], q, "rmsnorm")
-            o = attention.core_attention(
-                q, cross_kv["k"], cross_kv["v"], causal=False,
-                q_pos=torch.zeros((sq,), dtype=torch.int32, device=q.device))
+            if windows[1] is None:
+                o = attention.core_attention(
+                    q, cross_kv["k"], cross_kv["v"], causal=False,
+                    q_pos=torch.zeros((sq,), dtype=torch.int32, device=q.device))
+            else:
+                o, lse = attention.core_attention_partial(
+                    q, cross_kv["k"], cross_kv["v"], q_pos=None, kv_len_mask=None)
+                o = attention.combine_ranks(o, lse, windows[1].axis)
             out = linear_apply(p["cross"]["wo"], o.reshape(b, sq, -1), ctx,
-                               keep_packed=keep)
+                               keep_packed=keep, tp="row")
         else:
             out, _ = attention.attn_apply(
                 p["cross"], hc, ctx, cfg, positions=positions, causal=False,
@@ -233,7 +244,9 @@ def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int,
                       dtype: torch.dtype, device) -> dict:
     """Stacked ``[G, ...]`` dense decode caches, one per pattern slot,
     zero: attention K/V ``[G, batch, max_len, Hkv, dh]``, a recurrent
-    block's per-row state ``[G, batch, ...]``."""
+    block's per-row state ``[G, batch, ...]``.  Across ranks a rank's
+    window of them: its ``batch`` rows and ``max_len`` positions
+    (``ReproModel.init_cache``)."""
     return _stacked_caches(
         cfg, lambda dev: attention.init_kv_cache(cfg, batch, max_len, dtype, dev),
         batch, dtype, device)
@@ -287,7 +300,8 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
                  enc_out: Optional[torch.Tensor] = None,
                  cross_kv: Optional[dict] = None,
                  paged: Optional[dict] = None, remat: bool = False,
-                 aux: Optional[dict] = None) -> Stream:
+                 aux: Optional[dict] = None,
+                 windows: tuple = (None, None)) -> Stream:
     """Run every group in order.
 
     - train/prefill (``caches`` None): causal unless ``causal=False`` (an
@@ -300,7 +314,8 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
     - dense-cache decode (``caches`` from :func:`init_layer_caches`,
       ``cache_pos`` a 0-d device tensor) and the paged steps: the caches
       are written in place (each group's slice is a view); whisper's
-      decoder also reads the stacked ``[G, ...]`` ``cross_kv``."""
+      decoder also reads the stacked ``[G, ...]`` ``cross_kv``; across
+      ranks ``windows`` (:func:`block_apply`) reach every layer."""
     period = pattern_period(cfg)
     if caches is None:
         groups = _unbind(params_groups)
@@ -327,7 +342,7 @@ def layers_apply(params_groups: dict, x: Stream, ctx: MatmulContext,
                    else tree_map(lambda t: t[g], cross_kv[f"p{i}"]))
             x, _, _ = block_apply(gp, x, ctx, cfg, i, positions=positions,
                                causal=causal, cache=gc, cache_pos=cache_pos,
-                               cross_kv=gkv, paged=paged)
+                               cross_kv=gkv, paged=paged, windows=windows)
     return x
 
 
@@ -404,7 +419,8 @@ def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
              paged: Optional[dict] = None,
              last_only: bool = False,
              logits_at: Optional[torch.Tensor] = None,
-             gather_logits: bool = True):
+             gather_logits: bool = True,
+             kv_window=None):
     """embeds: [B, S, D].  Returns (logits, caches, aux): logits [B, S, V];
     [B, 1, V] for the last position with ``last_only`` (serving prefill);
     or [B, K, V] at the per-row positions ``logits_at`` ([B] or [B, K]).
@@ -414,13 +430,16 @@ def lm_apply(params: dict, embeds: torch.Tensor, ctx: MatmulContext,
     :data:`AUX_ZERO` (as in the JAX package).  ``run.remat`` recomputes each layer
     group's forward on the backward pass (train mode).  Across ranks
     ``gather_logits=False`` keeps each rank's vocab columns
-    (:func:`logits_apply`)."""
+    (:func:`logits_apply`), and ``kv_window`` is the rank's window of the
+    dense caches' sequence (``models/attention.py:SeqWindow``; None:
+    whole)."""
     x: Stream = maybe_pack(embeds, ctx)
     aux = dict(AUX_ZERO)
     x = layers_apply(params["groups"], x, ctx, cfg, positions=positions,
                      caches=caches, cache_pos=cache_pos, paged=paged,
                      remat=caches is None and run.remat,
-                     aux=aux if caches is None else None)
+                     aux=aux if caches is None else None,
+                     windows=(kv_window, None))
     x = norm_apply(params["ln_f"], x, cfg.norm)
     if logits_at is not None:
         idx = (logits_at if logits_at.ndim == 2 else logits_at[:, None]).long()

@@ -90,10 +90,13 @@ products are tensor-parallel and its attention a flash-decode across the
 ranks (``models/attention.py``); its logits come back whole on every
 rank, so every rank takes the same host decisions and the same sampled
 picks (the key is the request's), with the tokens of the engine on one
-rank.  The dense family serves so; the rest is refused with its ROADMAP
-item (``models/model.py:ACROSS_RANKS``): a data axis, ``seq_shard_kv=
-False``, the moe and recurrent families, the prefix cache, speculative
-decode, the static loop.  The steps run uncaptured across ranks, on the
+rank.  The dense family serves so, and the static loop of the dense,
+vlm and encdec families (:meth:`Engine.generate_static`: each rank holds
+its window of the dense caches, the sequence over ``model``, and its
+greedy and sampled picks are every other rank's); the rest is refused
+with its ROADMAP item (``models/model.py:ACROSS_RANKS``): a data axis,
+``seq_shard_kv=False``, the moe and recurrent families, the prefix cache,
+speculative decode.  The steps run uncaptured across ranks, on the
 card too: a gloo collective cannot be captured in a CUDA graph, and a
 capture with NCCL is queued (``stats()["captures"]`` stays 0).  A
 caller's clock (``step(now=)``) must read the same on every rank.
@@ -1329,10 +1332,10 @@ class Engine:
         picks split one key per step (:func:`sampling.split`) and draw the
         whole batch from it (:func:`sampling.categorical`).  A greedy loop
         keeps its tokens on the device, so no step waits for the host.
+        Across ranks each rank holds its window of the dense caches
+        (``ReproModel.init_cache``) and runs every step eagerly; its logits
+        are every rank's, so its picks are too (one key on every rank).
         Returns [B, max_new] int32."""
-        if self.tp is not None:
-            raise NotImplementedError(f"generate_static across ranks; ROADMAP "
-                                      f"{ACROSS_RANKS['static']}")
         prompts = torch.as_tensor(np.asarray(batch["tokens"], np.int32))
         plen = prompts.shape[1]
         caches = self._static_caches(batch)

@@ -90,7 +90,8 @@ def make_train_step(model, optimizer: AdamW, run: RunConfig) -> Callable:
         sizes = (1 if dp is None else dp.size,
                  1 if model.ctx.tp is None else model.ctx.tp.size)
         refuse_across_ranks(model.cfg, sizes[0] * sizes[1],
-                            where=f"a (data, model) = {sizes} mesh")
+                            where=f"a (data, model) = {sizes} mesh",
+                            training=True)
         ranks = Ranks(dp, model.ctx.tp, model.shard_specs())
     scale = 1.0 if dp is None else 1.0 / dp.size
 

@@ -17,6 +17,12 @@ rank its shard of a train state (``sharding.shard_state`` under
 ``state_specs``), which ``make_train_step`` trains across ranks, and
 :func:`~repro_torch.distributed.sharding.unshard_state` puts the ranks'
 shards back together.
+
+A rank's windows of the dense decode caches (the static batch loop
+across ranks, ``cache_specs``): :func:`cut_caches` cuts a whole cache
+tree (the JAX package's, as numpy arrays, or the port's one-rank one)
+into a rank's windows, :func:`join_caches` puts the ranks' windows back
+together.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import torch
 
 from repro_torch.distributed.sharding import unshard_state
 
-__all__ = ["from_jax_params", "from_jax_state", "unshard_state"]
+__all__ = ["from_jax_params", "from_jax_state", "unshard_state", "cut_caches",
+           "join_caches"]
 
 
 def _leaf(a: np.ndarray, device) -> torch.Tensor:
@@ -82,3 +89,26 @@ def from_jax_state(step, params, opt_state, device="cpu", *, mesh=None,
                       opt_state=tree_map(lambda t: t.to(device, copy=True),
                                          local.opt_state))
 
+
+
+def cut_caches(tree, mesh, run, batch: int, coord: dict):
+    """A rank's windows of a whole dense cache tree of ``batch`` rows
+    (numpy arrays or tensors) under ``cache_specs`` on ``mesh`` (an
+    ``AbstractMesh`` will do), at mesh coordinate ``coord``: its batch
+    rows and its positions of each K/V's sequence (``sharding.shard_tree``,
+    copies on the CPU)."""
+    from repro_torch.distributed import sharding
+    whole = from_jax_params(tree, "cpu")
+    return sharding.shard_tree(whole, sharding.cache_specs(whole, mesh, run, batch),
+                               mesh, coord)
+
+
+def join_caches(windows: dict, like, mesh, run, batch: int):
+    """The whole dense cache tree put back together from ``windows``
+    (``{coordinate: the rank's windows}``, every coordinate of ``mesh``),
+    ``like`` a whole tree of the same shapes (meta tensors will do); the
+    copies of a piece that several ranks hold must agree bit for bit
+    (``sharding.unshard_tree``).  Each leaf comes back on the CPU."""
+    from repro_torch.distributed import sharding
+    return sharding.unshard_tree(windows, like,
+                                 sharding.cache_specs(like, mesh, run, batch), mesh)

@@ -119,6 +119,19 @@ def test_pack_kernel_exact(gen, case, dtype):
     assert torch.equal(pack(a, *t), pack_ref(a, *t))
 
 
+@pytest.mark.parametrize("shape", [(576, 0), (0, 576), (2, 0, 576)])
+def test_pack_of_an_empty_tensor_launches_nothing(gen, shape):
+    """A rank's empty share of a weight's tiles (2 K/V tiles over 4 model
+    ranks): an empty pack of the packed shape, as the plain version's, and
+    no launch."""
+    a = torch.empty(shape, device="cuda").T if len(shape) == 2 \
+        else torch.empty(shape, device="cuda")
+    before = pack.launches
+    got = pack(a, 128, 128)
+    assert got.shape == pack_ref(a.cpu(), 128, 128).shape and got.numel() == 0
+    assert pack.launches == before
+
+
 _M_O, _K_O, _N_O, _M_R = (1, 5, 32), (1, 5, 12), (1, 3, 384), (8, 16, 32)
 
 
